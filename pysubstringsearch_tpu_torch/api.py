@@ -1,0 +1,503 @@
+"""Public API: ``Writer`` and ``Reader`` with the JAX package's signatures,
+container bytes and result multisets.
+
+    Writer(index_file_path, max_chunk_len=None)
+        .add_entry(text) / .add_entries_from_file_lines(path)
+        .dump_data() / .finalize()
+    Reader(index_file_path, device='cuda')
+        .search(substring) -> list[str]
+        .search_multiple(substrings) -> list[str]
+
+``search`` returns each matching line once per chunk it matches in (dedup
+by line-start offset within a chunk); ``search_multiple`` concatenates the
+per-pattern results with duplicates across patterns, but probes all
+patterns as one batch.
+"""
+
+from __future__ import annotations
+
+import collections
+import os
+import threading
+import typing
+from concurrent.futures import Future, ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+from . import container
+from .models.index import DeviceIndex
+from .ops import native as native_ops
+from .ops import search as search_ops
+from .ops.extract import LineTable
+from .ops.hostserve import HostServing, pack_patterns_host
+from .ops.suffix_array import build_suffix_array
+from .utils.profiling import PhaseProfiler
+
+
+class Writer:
+    """Index writer with reference semantics plus a pipelined build stage.
+
+    ``build_workers > 0`` overlaps suffix-array construction of flushed
+    chunks with further ingestion: each ``dump_data`` submits the chunk to a
+    thread pool (the native SA-IS kernel releases the GIL, so host builds
+    run truly in parallel across chunks — the parallelism the reference
+    compiled OUT of libsais by not passing -fopenmp, build.rs:1-11) and
+    completed chunks are appended to the file in submission order.  The
+    resulting container bytes are identical to a synchronous build.
+    """
+
+    def __init__(
+        self,
+        index_file_path: str,
+        max_chunk_len: typing.Optional[int] = None,
+        *,
+        sa_backend: str = 'auto',
+        build_workers: typing.Optional[int] = None,
+        profiler: typing.Optional['PhaseProfiler'] = None,
+    ) -> None:
+        self._file: typing.Optional[typing.BinaryIO] = open(index_file_path, 'wb')
+        self._buffer = container.ChunkBuffer(max_chunk_len)
+        self._sa_backend = sa_backend
+        self._prof = profiler if profiler is not None else PhaseProfiler()
+        if build_workers is None:
+            build_workers = min(8, os.cpu_count() or 1)
+        self._build_workers = build_workers
+        self._executor: typing.Optional[ThreadPoolExecutor] = None
+        # (data, future) pairs in submission order; file writes drain the
+        # head so the on-disk chunk order always matches flush order.
+        self._pending: typing.Deque[
+            typing.Tuple[np.ndarray, 'Future[np.ndarray]']
+        ] = collections.deque()
+
+    #: Fast-ingest read granularity (bytes).
+    _INGEST_BLOCK = 32 << 20
+
+    def add_entries_from_file_lines(self, input_file_path: str) -> None:
+        """Bulk line ingest — behaviorally identical to the reference's
+        per-line loop (src/lib.rs:67-86: strip ``\\n`` terminator and a
+        preceding ``\\r``, no too-big guard, oversized lines grow the
+        buffer), but LF-only input is ingested as whole multi-line blocks:
+        for such input the buffer contents equal the raw file bytes, so the
+        per-line Python loop (measured ~15 s for a 500 MB corpus) reduces to
+        finding each chunk's last fitting newline and one bulk append.
+        """
+        with open(input_file_path, 'rb') as input_file:
+            leftover = b''
+            while True:
+                block = input_file.read(self._INGEST_BLOCK)
+                if not block:
+                    break
+                buf = leftover + block if leftover else block
+                cut = buf.rfind(b'\n')
+                if cut == -1:
+                    leftover = buf
+                    continue
+                self._ingest_segment(buf[: cut + 1])
+                leftover = buf[cut + 1:]
+        if leftover:
+            # Final unterminated line: appended as-is (the reference's line
+            # reader yields it without a terminator and strips no \r).
+            if self._buffer.would_overflow(len(leftover)):
+                self.dump_data()
+            self._buffer.append(leftover)
+
+    def _ingest_segment(self, segment: bytes) -> None:
+        """Ingest whole ``\\n``-terminated lines with reference flush
+        semantics: a line is appended to the current chunk iff
+        ``size + len(line) + 1 <= capacity``, else the chunk flushes first;
+        a single line larger than the whole capacity becomes its own
+        oversized chunk (with the Vec capacity-growth quirk, see
+        container.ChunkBuffer)."""
+        if b'\r\n' in segment:
+            # CRLF present: the \r-strip changes bytes, so take the exact
+            # per-line path.
+            start = 0
+            while start < len(segment):
+                end = segment.index(b'\n', start)
+                line = segment[start:end]
+                if line.endswith(b'\r'):
+                    line = line[:-1]
+                if self._buffer.would_overflow(len(line)):
+                    self.dump_data()
+                self._buffer.append(line)
+                start = end + 1
+            return
+        pos = 0
+        n = len(segment)
+        while pos < n:
+            room = self._buffer.capacity - len(self._buffer)
+            cut = segment.rfind(b'\n', pos, pos + room) if room > 0 else -1
+            if cut == -1:
+                if len(self._buffer) > 0:
+                    self.dump_data()
+                    continue
+                # Empty buffer and the first line alone exceeds capacity:
+                # reference quirk — it becomes an oversized chunk and grows
+                # the Vec (append() emulates the growth rule).
+                end = segment.index(b'\n', pos)
+                self._buffer.append(segment[pos:end])
+                pos = end + 1
+                continue
+            self._buffer.append_block(segment[pos: cut + 1])
+            pos = cut + 1
+
+    def add_entry(self, text: str) -> None:
+        data = text.encode('utf-8')
+        if len(data) > self._buffer.capacity:
+            raise ValueError('entry is too big')
+        if self._buffer.would_overflow(len(data)):
+            self.dump_data()
+        self._buffer.append(data)
+
+    @property
+    def profiler(self) -> PhaseProfiler:
+        """Per-phase build timings (SURVEY.md §5.5 — the observability the
+        reference never had).  Phases: ``sa-build`` (per chunk; summed
+        across worker threads, so it can exceed wall time) and ``serialize``.
+        """
+        return self._prof
+
+    def _drain(self, block: bool) -> None:
+        """Write completed head-of-queue chunks; with ``block``, all of them."""
+        assert self._file is not None
+        while self._pending:
+            head_data, head_future = self._pending[0]
+            if not block and not head_future.done():
+                # Backpressure: never hold more than 2x workers of chunks.
+                if len(self._pending) <= 2 * max(1, self._build_workers):
+                    return
+            suffix_array = head_future.result()
+            with self._prof.phase('serialize'):
+                container.write_chunk(self._file, head_data, suffix_array)
+            self._pending.popleft()
+
+    def _build_sa(self, data: np.ndarray) -> np.ndarray:
+        with self._prof.phase('sa-build'):
+            return build_suffix_array(data, backend=self._sa_backend)
+
+    def dump_data(self) -> None:
+        if len(self._buffer) == 0:
+            return
+        assert self._file is not None, 'Writer is closed'
+        data = self._buffer.take()
+        if self._build_workers <= 0:
+            suffix_array = self._build_sa(data)
+            with self._prof.phase('serialize'):
+                container.write_chunk(self._file, data, suffix_array)
+            return
+        if self._executor is None:
+            self._executor = ThreadPoolExecutor(
+                max_workers=self._build_workers,
+                thread_name_prefix='tpuss-sa-build',
+            )
+        future = self._executor.submit(self._build_sa, data)
+        self._pending.append((data, future))
+        self._drain(block=False)
+
+    def finalize(self) -> None:
+        if self._file is None:
+            return
+        if len(self._buffer) > 0:
+            self.dump_data()
+        self._drain(block=True)
+        self._file.flush()
+
+    def close(self) -> None:
+        """Finalize and release the file handle (not part of the reference
+        API — its Writer flushes on Drop, src/lib.rs:138-144 — but Python
+        callers deserve a deterministic close)."""
+        if self._file is not None:
+            self.finalize()
+            self._file.close()
+            self._file = None
+        if self._executor is not None:
+            self._executor.shutdown(wait=True)
+            self._executor = None
+
+    def __enter__(self) -> 'Writer':
+        return self
+
+    def __exit__(self, *exc: typing.Any) -> None:
+        self.close()
+
+    def __del__(self) -> None:
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+class Reader:
+    """Index reader whose probe runs on a device.
+
+    ``device`` is where the index lives: ``'cuda'`` (the default) raises
+    when no CUDA device is present, ``'cpu'`` runs the kernels' plain
+    PyTorch versions.  On CUDA the index uploads and builds on a background
+    thread while the native host path answers queries off the container;
+    once it is ready, every batch is probed on the device (patterns longer
+    than ``PAD_MARGIN`` excepted), and if it failed, the next query raises.
+    ``index_mode`` forwards to :class:`DeviceIndex`.
+    """
+
+    def __init__(
+        self,
+        index_file_path: str,
+        *,
+        device: typing.Union[str, torch.device] = 'cuda',
+        index_mode: str = 'auto',
+    ) -> None:
+        prof = PhaseProfiler()
+        with prof.phase('load-container'):
+            cont = container.read_container(index_file_path)
+        self._container: typing.Optional[container.MappedContainer] = cont
+        self._init_from_chunks(cont.chunks, device, prof, index_mode)
+
+    def _init_from_chunks(
+        self,
+        chunks: typing.List[container.Chunk],
+        device: typing.Union[str, torch.device] = 'cuda',
+        prof: typing.Optional[PhaseProfiler] = None,
+        index_mode: str = 'auto',
+    ) -> None:
+        self.device = torch.device(device)
+        if self.device.type == 'cuda' and not torch.cuda.is_available():
+            raise RuntimeError(
+                "Reader(device='cuda') needs a CUDA device; pass "
+                "device='cpu' to run the plain PyTorch kernels"
+            )
+        if not hasattr(self, '_container'):
+            self._container = None  # from_chunks: no backing mmap
+        self._chunks = chunks
+        self._hostserve_obj: typing.Optional[HostServing] = None
+        self._hostserve_tried = False
+        self._prof = prof if prof is not None else PhaseProfiler()
+        self._index_mode = index_mode
+        self._device_index: typing.Optional[DeviceIndex] = None
+        self._row_tables: typing.Optional[typing.List[LineTable]] = None
+        self._chunk_tables: typing.Dict[int, LineTable] = {}
+        self._device_exc: typing.Optional[BaseException] = None
+        self._device_ready = threading.Event()
+        self._bg_thread: typing.Optional[threading.Thread] = None
+        if self.device.type == 'cuda' and chunks:
+            self._bg_thread = threading.Thread(
+                target=self._bg_load, name='pss-device-load', daemon=True
+            )
+            self._bg_thread.start()
+
+    @classmethod
+    def from_chunks(
+        cls,
+        chunks: typing.List[container.Chunk],
+        device: typing.Union[str, torch.device] = 'cuda',
+    ) -> 'Reader':
+        """Reader over already-parsed chunks (no container mmap, so no
+        native host serving)."""
+        reader = cls.__new__(cls)
+        reader._init_from_chunks(chunks, device)
+        return reader
+
+    def _build_device_index(self) -> DeviceIndex:
+        return DeviceIndex(self._chunks, device=self.device,
+                           mode=self._index_mode, profiler=self._prof)
+
+    def _bg_load(self) -> None:
+        try:
+            with self._prof.phase('device-load'):
+                index = self._build_device_index()
+                # The builders launch asynchronously: a fault in them
+                # surfaces here, before the index is marked ready.
+                torch.cuda.synchronize(self.device)
+            self._device_index = index
+        except BaseException as exc:  # noqa: BLE001 — re-raised on access
+            self._device_exc = exc
+        finally:
+            self._device_ready.set()
+
+    @property
+    def profiler(self) -> PhaseProfiler:
+        """Per-phase timings: ``load-container``, ``device-load`` (split
+        into :class:`DeviceIndex`'s ``index-*`` phases), ``line-tables``,
+        ``host-serve``, ``probe``, ``extract``."""
+        return self._prof
+
+    @property
+    def _index(self) -> DeviceIndex:
+        if self._device_index is None:
+            if self._bg_thread is not None:
+                self._device_ready.wait()
+                if self._device_exc is not None:
+                    raise RuntimeError(
+                        'background device index load failed'
+                    ) from self._device_exc
+                return self._device_index  # type: ignore[return-value]
+            with self._prof.phase('device-load'):
+                self._device_index = self._build_device_index()
+        return self._device_index
+
+    @property
+    def device_ready(self) -> bool:
+        """True once queries are served by the device index."""
+        if self._bg_thread is None:
+            return self._device_index is not None
+        return self._device_ready.is_set() and self._device_exc is None
+
+    def wait_device_ready(self, timeout: typing.Optional[float] = None) -> bool:
+        """Block until the background device load finishes; returns
+        :attr:`device_ready`."""
+        if self._bg_thread is not None:
+            self._device_ready.wait(timeout)
+        return self.device_ready
+
+    @property
+    def row_tables(self) -> typing.List[LineTable]:
+        """One LineTable per probe row."""
+        if self._row_tables is None:
+            with self._prof.phase('line-tables'):
+                self._row_tables = [
+                    LineTable(d) for d in self._index.row_data
+                ]
+        return self._row_tables
+
+    @property
+    def _host_serving(self) -> typing.Optional[HostServing]:
+        """Native serving state over the container mmap, or None without a
+        container or the native kernels.  Built once."""
+        if not self._hostserve_tried:
+            self._hostserve_tried = True
+            if self._container is not None:
+                self._hostserve_obj = HostServing.maybe(
+                    self._chunks, self._container.buf, self._prof
+                )
+        return self._hostserve_obj
+
+    def _search_batch(
+        self, patterns: typing.List[bytes]
+    ) -> typing.List[typing.List[str]]:
+        """Per-pattern result lists, each in row-major order.  Duplicate
+        patterns are probed once and their results fanned back out."""
+        if not patterns or not self._chunks:
+            return [[] for _ in patterns]
+        uniq: typing.Dict[bytes, int] = {}
+        for p in patterns:
+            uniq.setdefault(p, len(uniq))
+        if len(uniq) < len(patterns):
+            uniq_results = self._search_batch(list(uniq))
+            return [uniq_results[uniq[p]] for p in patterns]
+        if self._bg_thread is not None and not self._device_ready.is_set():
+            # Device index still loading: serve from the host path over the
+            # container's per-chunk SAs.  (A finished but failed load falls
+            # through and raises in ``_index``.)
+            with self._prof.phase('host-serve'):
+                return self._search_host_chunks(patterns)
+        long_idx = [
+            i for i, p in enumerate(patterns)
+            if len(p) > search_ops.PAD_MARGIN
+        ]
+        if long_idx:
+            # Patterns beyond the device rows' margin take the exact host
+            # path; the rest of the batch still runs on the device.
+            out: typing.List[typing.List[str]] = [[] for _ in patterns]
+            long_set = set(long_idx)
+            short_idx = [i for i in range(len(patterns)) if i not in long_set]
+            if short_idx:
+                for i, lines in zip(
+                    short_idx,
+                    self._search_batch([patterns[i] for i in short_idx]),
+                ):
+                    out[i] = lines
+            for i, lines in zip(
+                long_idx,
+                self._search_host_chunks([patterns[i] for i in long_idx]),
+            ):
+                out[i] = lines
+            return out
+        idx = self._index
+        packed, lengths = search_ops.pack_patterns(patterns)
+        with self._prof.phase('probe'):
+            lo, cnt = idx.probe(packed, lengths)
+        hs = self._host_serving
+        with self._prof.phase('extract'):
+            if hs is not None:
+                # Probe rows are container chunks, so the device bounds
+                # feed the native span extraction directly.
+                return hs.extract(lo, cnt)
+            out = [[] for _ in patterns]
+            for r in range(idx.num_chunks):
+                for b, lines in self._extract_row(r, lo[r], cnt[r]).items():
+                    out[b].extend(lines)
+            return out
+
+    def _extract_row(
+        self, r: int, lo_r: np.ndarray, cnt_r: np.ndarray
+    ) -> typing.Dict[int, typing.List[str]]:
+        """One probe row's lines, gathered from the container's host SA."""
+        group = self._index.groups[r]
+        if len(group) != 1:
+            raise NotImplementedError(
+                'extraction from merged rows arrives with derive mode '
+                '(ROADMAP B8)'
+            )
+        return self.row_tables[r].extract_lines_batch(
+            self._chunks[group[0]].suffix_array, lo_r, cnt_r
+        )
+
+    def _chunk_table(self, c: int) -> LineTable:
+        table = self._chunk_tables.get(c)
+        if table is None:
+            table = self._chunk_tables[c] = LineTable(self._chunks[c].data)
+        return table
+
+    def _search_host_chunks(
+        self, patterns: typing.List[bytes]
+    ) -> typing.List[typing.List[str]]:
+        """Host-only search straight off the container: bisection over each
+        chunk's on-disk SA plus per-chunk line extraction, for any pattern
+        length and with no device index."""
+        out: typing.List[typing.List[str]] = [[] for _ in patterns]
+        if not patterns:
+            return out
+        hs = self._host_serving
+        if hs is not None:
+            return hs.search(patterns)
+        packed, plens = pack_patterns_host(patterns)
+        use_native = native_ops.available()
+
+        def one(c: int) -> typing.Dict[int, typing.List[str]]:
+            chunk = self._chunks[c]
+            if use_native:
+                lo_c, cnt_c = native_ops.probe_batch_native(
+                    chunk.data, chunk.suffix_array, packed, plens
+                )
+            else:
+                data = chunk.data.tobytes()
+                lo_c = np.zeros(len(patterns), dtype=np.int64)
+                cnt_c = np.zeros(len(patterns), dtype=np.int64)
+                for b, pat in enumerate(patterns):
+                    lo_c[b], cnt_c[b] = search_ops.host_probe_bounds(
+                        data, chunk.suffix_array, pat
+                    )
+            return self._chunk_table(c).extract_lines_batch(
+                chunk.suffix_array, lo_c, cnt_c
+            )
+
+        workers = min(len(self._chunks), max(os.cpu_count() or 1, 1))
+        if workers > 1:
+            with ThreadPoolExecutor(max_workers=workers) as pool:
+                per_chunk = list(pool.map(one, range(len(self._chunks))))
+        else:
+            per_chunk = [one(c) for c in range(len(self._chunks))]
+        for per in per_chunk:
+            for b, lines in per.items():
+                out[b].extend(lines)
+        return out
+
+    def search(self, substring: str) -> typing.List[str]:
+        return self._search_batch([substring.encode('utf-8')])[0]
+
+    def search_multiple(self, substrings: typing.List[str]) -> typing.List[str]:
+        per_pattern = self._search_batch([s.encode('utf-8') for s in substrings])
+        results: typing.List[str] = []
+        for r in per_pattern:
+            results.extend(r)
+        return results

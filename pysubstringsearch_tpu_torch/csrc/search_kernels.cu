@@ -1,0 +1,345 @@
+// Hand-written Hopper kernels of the device index: the three aux builders
+// that turn (text, SA) into rank-packed limb planes and a seed table, and
+// the phased probe that answers a query batch against them.
+//
+// Built by pysubstringsearch_tpu_torch/ops/kernels.py with
+//   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
+// and bound through ctypes: every entry point takes raw device pointers and
+// a cudaStream_t, launches on that stream, never synchronises, allocates
+// nothing, and returns cudaGetLastError().
+//
+// Layouts follow the JAX package, so the tests compare like with like:
+//   text   uint8 [C, n_pad]         sa     int32 [C, n_pad]
+//   tables int32 [C, base^depth+1]  limbs  int32 [C, K * n_pad] plane-major
+// At the reference size C * K * n_pad passes 2^31, so every row base and
+// plane offset is computed in 64 bits.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxLimbs = 8;
+
+inline unsigned blocks_for(long long n) {
+  long long b = (n + kThreads - 1) / kThreads;
+  return static_cast<unsigned>(b > 0 ? b : 1);
+}
+
+// ---------------------------------------------------------------------------
+// K1, ranked pack.  Replaces _ranked_pack_device / ranked_pack_jit
+// (pysubstringsearch_tpu/ops/search.py).
+//
+// out[p] = the rank digits of text[p .. p+D-1], big-endian at `bits` bits
+// each (D = 30 / bits); a position at or past n has digit 0.  One thread
+// per position.  Bound by memory: 1 byte read (the D-1 neighbours come from
+// L1) and 4 bytes written per position; the rank map sits in shared memory.
+// ---------------------------------------------------------------------------
+__global__ void ranked_pack_kernel(const uint8_t* __restrict__ text,
+                                   long long N, int n,
+                                   const int* __restrict__ rank, int bits,
+                                   int* __restrict__ out) {
+  __shared__ int srank[256];
+  for (int i = threadIdx.x; i < 256; i += blockDim.x) srank[i] = rank[i];
+  __syncthreads();
+  const int D = 30 / bits;
+  for (long long p = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       p < N; p += (long long)gridDim.x * blockDim.x) {
+    int v = 0;
+    for (int d = 0; d < D; ++d) {
+      long long q = p + d;
+      int digit = q < n ? srank[text[q]] : 0;
+      v = (v << bits) + digit;
+    }
+    out[p] = v;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2, limb planes.  Replaces _ranked_limb_col_from_pack /
+// derive_limb_ranked_jit (ops/search.py), which write one plane per
+// dispatch.
+//
+// limbs[j * N + i] = packed[sa[i] + depth + D * j] for i < n, else 0, for
+// every plane j in one pass over sa.  Bound by memory: per slot one
+// coalesced 4-byte sa read, K scattered 4-byte packed reads (neighbouring
+// slots point anywhere in the text) and K coalesced writes.
+// ---------------------------------------------------------------------------
+__global__ void ranked_limb_planes_kernel(const int* __restrict__ packed,
+                                          const int* __restrict__ sa,
+                                          long long N, int n, int depth,
+                                          int bits, int num_limbs,
+                                          int* __restrict__ limbs) {
+  const int D = 30 / bits;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < N; i += (long long)gridDim.x * blockDim.x) {
+    if (i < n) {
+      long long s = sa[i];
+      s = s < 0 ? 0 : (s > N - 1 ? N - 1 : s);
+      for (int j = 0; j < num_limbs; ++j) {
+        long long idx = s + depth + (long long)D * j;
+        idx = idx > N - 1 ? N - 1 : idx;
+        limbs[(long long)j * N + i] = packed[idx];
+      }
+    } else {
+      for (int j = 0; j < num_limbs; ++j) limbs[(long long)j * N + i] = 0;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3, seed table.  Replaces derive_table_from_pack_jit (ops/search.py),
+// a gather + scatter-min + reverse cummin.
+//
+// table[k] = first SA slot i < n whose key packed[sa[i]] >> shift is >= k,
+// or n.  Keys never decrease in SA order, so one thread per k bisects them:
+// no atomics and no scan across blocks.  Bound by latency: about log2(n)
+// pairs of dependent scattered reads per entry, but the first steps of
+// every thread hit the same few slots and stay in L2.
+// ---------------------------------------------------------------------------
+__global__ void seed_table_kernel(const int* __restrict__ packed,
+                                  const int* __restrict__ sa, int n,
+                                  int shift, long long size,
+                                  int* __restrict__ table) {
+  for (long long k = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       k < size; k += (long long)gridDim.x * blockDim.x) {
+    int lo = 0, hi = n;
+    while (lo < hi) {
+      int mid = lo + ((hi - lo) >> 1);
+      long long key = packed[sa[mid]] >> shift;
+      if (key >= k) hi = mid; else lo = mid + 1;
+    }
+    table[k] = lo;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K4, phased probe.  Replaces probe_bounds_phased (ops/search.py), reached
+// via phased_batch_jit / phased_class_exec, with its seeding (_duplex,
+// _pattern_buckets_ranked, _ranked_targets, _raw_targets) and its deep
+// text-window refinement (_cmp3, _gather_suffix_windows) folded in.
+//
+// One thread per (row, pattern).  The thread
+//   1. seeds [lo, hi) from the table: the lower bound's bucket pads past the
+//      pattern with digit 0, the upper bound's with base-1; an alphabet-
+//      absent byte within the seed depth collapses both ids (count 0); a
+//      pattern of exactly `depth` bytes takes the next bucket as its upper
+//      bound;
+//   2. bisects limb plane by limb plane: A = first slot with limb >= the
+//      lower target, Z = first slot with limb > the upper target, then
+//      descends into [A, Z) for the next limb while it is non-empty;
+//   3. for a pattern longer than the packed coverage, bisects [A, Z) again
+//      with a byte compare of the whole pattern against each suffix (a text
+//      position at or past n reads as digit 0).
+// bits == 0 selects the raw 4-byte limb encoding (top byte biased by -128),
+// otherwise rank digits at `bits` bits.  A ranked pattern with an absent
+// byte inside the coverage gets count 0.  The empty pattern counts n.
+//
+// Each lane runs its own loop, so no lane pays for the slowest one (the
+// XLA while_loop's cost, which the TPU build's per-class program ladder
+// worked around).  Bound by latency: every bisection step is one dependent
+// scattered 4-byte read; the rank and present maps sit in shared memory.
+// ---------------------------------------------------------------------------
+struct Lane {
+  const uint8_t* pat;
+  int len;
+  int L;
+  __device__ int byte_at(int q) const { return q < L ? pat[q] : 0; }
+};
+
+__device__ int limb_target(const Lane& p, const int* srank, int depth,
+                           int bits, int j, bool upper) {
+  if (bits == 0) {
+    int v = 0;
+    for (int i = 0; i < 4; ++i) {
+      int q = depth + 4 * j + i;
+      int b = q < p.len ? p.byte_at(q) : (upper ? 255 : 0);
+      if (i == 0) b -= 128;
+      v = v * 256 + b;
+    }
+    return v;
+  }
+  const int D = 30 / bits;
+  int v = 0;
+  for (int i = 0; i < D; ++i) {
+    int q = depth + D * j + i;
+    int digit = q < p.len ? srank[p.byte_at(q)] : (upper ? (1 << bits) - 1 : 0);
+    v = (v << bits) + digit;
+  }
+  return v;
+}
+
+// First slot in [lo, hi) whose plane value is >= t (strict: > t).
+__device__ int first_limb(const int* __restrict__ plane, int lo, int hi,
+                          int t, bool strict) {
+  while (lo < hi) {
+    int mid = lo + ((hi - lo) >> 1);
+    int v = plane[mid];
+    bool pred = strict ? v > t : v >= t;
+    if (pred) hi = mid; else lo = mid + 1;
+  }
+  return lo;
+}
+
+// Three-way compare of the pattern against the suffix at SA slot `slot`:
+// -1 suffix < pattern, 0 pattern is a prefix of it, +1 greater.
+__device__ int cmp3(const uint8_t* __restrict__ text,
+                    const int* __restrict__ sa, int n, int slot,
+                    const Lane& p) {
+  int c = slot < 0 ? 0 : slot;
+  int last = n - 1 > 0 ? n - 1 : 0;
+  c = c > last ? last : c;
+  long long start = sa[c];
+  for (int q = 0; q < p.len; ++q) {
+    long long pos = start + q;
+    int s = pos < n ? text[pos] + 1 : 0;
+    int v = p.pat[q] + 1;
+    if (s != v) return s < v ? -1 : 1;
+  }
+  return 0;
+}
+
+__device__ int first_cmp(const uint8_t* text, const int* sa, int n, int lo,
+                         int hi, const Lane& p, int threshold) {
+  while (lo < hi) {
+    int mid = lo + ((hi - lo) >> 1);
+    if (cmp3(text, sa, n, mid, p) >= threshold) hi = mid; else lo = mid + 1;
+  }
+  return lo;
+}
+
+__global__ void probe_phased_kernel(
+    const uint8_t* __restrict__ text, const int* __restrict__ n_rows,
+    const int* __restrict__ sa, const int* __restrict__ tables,
+    const int* __restrict__ limbs, const int* __restrict__ rank,
+    const int* __restrict__ present, const uint8_t* __restrict__ patterns,
+    const int* __restrict__ lengths, int B, int L, long long n_pad,
+    long long table_len, int num_limbs, int depth, int base, int bits,
+    int* __restrict__ lower_out, int* __restrict__ count_out) {
+  __shared__ int srank[256];
+  __shared__ int spres[256];
+  for (int i = threadIdx.x; i < 256; i += blockDim.x) {
+    srank[i] = rank[i];
+    spres[i] = present[i];
+  }
+  __syncthreads();
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const long long r = blockIdx.y;
+  const int n = n_rows[r];
+  const uint8_t* row_text = text + r * n_pad;
+  const int* row_sa = sa + r * n_pad;
+  const int* table = tables + r * table_len;
+  const int* row_limbs = limbs + r * (long long)num_limbs * n_pad;
+  Lane p{patterns + (long long)b * L, lengths[b], L};
+
+  // 1. Seed buckets.
+  int first_bad = depth;
+  for (int q = 0; q < depth && q < p.len; ++q) {
+    if (!spres[p.byte_at(q)]) { first_bad = q; break; }
+  }
+  long long bucket_lo = 0, bucket_up = 0;
+  for (int q = 0; q < depth; ++q) {
+    int rq = srank[p.byte_at(q)];
+    int dl = q < p.len ? rq : 0;
+    int du = q < p.len ? rq : base - 1;
+    if (q == first_bad) { dl = rq; du = rq; }
+    if (q > first_bad) { dl = 0; du = 0; }
+    bucket_lo = bucket_lo * base + dl;
+    bucket_up = bucket_up * base + du;
+  }
+  const int min_ld = p.len < depth ? p.len : depth;
+  const bool bump = p.len == depth && first_bad >= min_ld;
+  int A = table[bucket_lo];
+  int Z = table[bucket_up + (bump ? 1 : 0)];
+
+  // 2. Limb phases within the shared seed range.
+  const int D = bits == 0 ? 4 : 30 / bits;
+  const int k = p.len <= depth
+      ? 0 : min((p.len - depth + D - 1) / D, num_limbs);
+  if (k >= 1) {
+    int lo = A, hi = table[bucket_lo + 1];
+    for (int j = 0; j < k; ++j) {
+      const int* plane = row_limbs + (long long)j * n_pad;
+      int t_lo = limb_target(p, srank, depth, bits, j, false);
+      int t_up = limb_target(p, srank, depth, bits, j, true);
+      A = first_limb(plane, lo, hi, t_lo, false);
+      Z = first_limb(plane, lo, hi, t_up, true);
+      if (!(j + 1 < k && A < Z)) break;
+      lo = A;
+      hi = Z;
+    }
+  }
+
+  // 3. Deep byte refinement past the packed coverage.
+  if (p.len > depth + D * num_limbs && A < Z) {
+    int a = first_cmp(row_text, row_sa, n, A, Z, p, 0);
+    Z = first_cmp(row_text, row_sa, n, A, Z, p, 1);
+    A = a;
+  }
+
+  int count = Z - A;
+  if (bits != 0 && count != 0) {
+    const int cover = depth + D * num_limbs;
+    for (int q = 0; q < p.len && q < cover; ++q) {
+      if (!spres[p.byte_at(q)]) { count = 0; break; }
+    }
+  }
+  lower_out[r * B + b] = A;
+  count_out[r * B + b] = count;
+}
+
+}  // namespace
+
+extern "C" {
+
+int pss_ranked_pack(const void* text, long long N, int n, const void* rank,
+                    int bits, void* out, void* stream) {
+  unsigned grid = blocks_for(N);
+  if (grid > 65536u * 16u) grid = 65536u * 16u;
+  ranked_pack_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)text, N, n, (const int*)rank, bits, (int*)out);
+  return (int)cudaGetLastError();
+}
+
+int pss_ranked_limb_planes(const void* packed, const void* sa, long long N,
+                           int n, int depth, int bits, int num_limbs,
+                           void* limbs, void* stream) {
+  unsigned grid = blocks_for(N);
+  if (grid > 65536u * 16u) grid = 65536u * 16u;
+  ranked_limb_planes_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int*)packed, (const int*)sa, N, n, depth, bits, num_limbs,
+      (int*)limbs);
+  return (int)cudaGetLastError();
+}
+
+int pss_seed_table(const void* packed, const void* sa, int n, int shift,
+                   long long size, void* table, void* stream) {
+  unsigned grid = blocks_for(size);
+  if (grid > 65536u * 16u) grid = 65536u * 16u;
+  seed_table_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int*)packed, (const int*)sa, n, shift, size, (int*)table);
+  return (int)cudaGetLastError();
+}
+
+int pss_probe_phased(const void* text, const void* n_rows, const void* sa,
+                     const void* tables, const void* limbs, const void* rank,
+                     const void* present, const void* patterns,
+                     const void* lengths, int C, int B, int L,
+                     long long n_pad, long long table_len, int num_limbs,
+                     int depth, int base, int bits, void* lower, void* count,
+                     void* stream) {
+  if (C <= 0 || B <= 0) return 0;
+  if (C > 65535 || num_limbs > kMaxLimbs) return (int)cudaErrorInvalidValue;
+  dim3 grid(blocks_for(B), C);
+  probe_phased_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)text, (const int*)n_rows, (const int*)sa,
+      (const int*)tables, (const int*)limbs, (const int*)rank,
+      (const int*)present, (const uint8_t*)patterns, (const int*)lengths, B,
+      L, n_pad, table_len, num_limbs, depth, base, bits, (int*)lower,
+      (int*)count);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,599 @@
+"""Batched substring probe over suffix arrays, and the index's aux builders.
+
+Semantics match a byte-wise bisection of the SA:
+
+- ``lower`` = first SA slot whose suffix is >= the pattern, where a suffix
+  that starts with the pattern compares equal;
+- ``count`` = number of suffixes that start with the pattern (``upper -
+  lower``, ``upper`` being the first slot whose suffix is greater and does
+  not start with it).
+
+The device index stores, per row, a seed table and packed limb planes:
+
+- the seed table maps the first ``depth`` bytes of a pattern, as alphabet
+  rank digits in base ``base``, to the SA range of suffixes that start with
+  them;
+- limb plane j holds, for every SA slot, the next few bytes of the suffix
+  after the seed depth packed into one int32: ``30 // bits`` rank digits
+  for a ranked alphabet (at most 62 distinct bytes), or 4 raw bytes with
+  the top one biased by -128 for a large NUL-free alphabet.
+
+A probe seeds its range from the table, bisects limb by limb through tie
+ranges, and compares raw bytes for patterns longer than the packed
+coverage.
+
+Four device functions carry the index; each is a CUDA kernel
+(``csrc/search_kernels.cu``) with a plain PyTorch version beside it:
+
+- :func:`ranked_pack`   (K1): next rank digits of every text position;
+- :func:`ranked_limb_planes` (K2): all limb planes in SA order;
+- :func:`seed_table`    (K3): the seed table from the pack;
+- :func:`probe_phased`  (K4): the phased probe.
+
+Each wrapper takes its plain version only for a tensor on the CPU.  On a
+CUDA tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import typing
+
+import numpy as np
+import torch
+
+from . import kernels
+
+#: Digit space for byte ranks in the full-byte seed table: byte b -> b + 1,
+#: past-the-end -> 0, and 257 as the +infinity digit.
+_RADIX = 258
+
+#: (base, depth) combinations a seed table may use.  Ranked bases are
+#: powers of two, so every table length identifies its parameters.
+_TABLE_COMBOS = tuple(
+    (base, d)
+    for base in (32, 64, 128, _RADIX)
+    for d in (2, 3, 4, 5)
+    if base ** d <= 1 << 28
+)
+
+#: Zero-byte margin every device text row carries after position n, so
+#: suffix reads up to this many bytes never leave the row.  Longer patterns
+#: are answered on the host.
+PAD_MARGIN = 1024
+
+#: Limb planes of the raw and ranked encodings (the most the index keeps).
+RAW_LIMBS = 3
+
+
+def table_params(table_len: int):
+    """(base, depth) encoded by a seed table's length."""
+    for base, d in _TABLE_COMBOS:
+        if base ** d + 1 == table_len:
+            return base, d
+    raise ValueError(f'not a seed table length: {table_len}')
+
+
+def pick_table_params(sigma: int, max_n: int):
+    """The seed table's (base, depth) for an alphabet of ``sigma`` distinct
+    bytes and rows of at most ``max_n`` chars.
+
+    Base: the smallest power of two holding every rank plus the two pad
+    digits (0 = past-end, base-1 = +inf); full-byte alphabets take base
+    258.  Depth: as deep as both a hard entry cap and the row size allow.
+    """
+    base = next((b for b in (32, 64, 128) if sigma + 2 <= b), _RADIX)
+    cap = min(48 << 20, max(base ** 2, max_n))
+    depth = max(d for b, d in _TABLE_COMBOS if b == base and b ** d <= cap)
+    return base, depth
+
+
+def pack_patterns(patterns, max_len: typing.Optional[int] = None):
+    """Pack byte-string patterns into (uint8[B, L], int32[B]) host arrays.
+
+    ``L`` is rounded up to 8, 11, 14 or 17, then to multiples of 8, as the
+    JAX package does, so both packages see the same batch arrays.  An
+    explicit ``max_len`` is used literally.
+    """
+    lengths = np.array([len(p) for p in patterns], dtype=np.int32)
+    if max_len is None:
+        L = int(lengths.max(initial=0))
+        if L <= 17:
+            L = next(w for w in (8, 11, 14, 17) if w >= max(8, L))
+        else:
+            L = -(-L // 8) * 8
+    else:
+        L = max_len
+    packed = np.zeros((len(patterns), L), dtype=np.uint8)
+    for i, p in enumerate(patterns):
+        packed[i, : len(p)] = np.frombuffer(p, dtype=np.uint8)
+    return packed, lengths
+
+
+def alphabet_rank(present: np.ndarray):
+    """(rank[256] int32, sigma) for a boolean present-bytes mask.
+
+    ``rank[b] = 1 + #present bytes < b``: the rank of b when present, its
+    insertion rank when absent.  Digit 0 is the past-end pad.
+    """
+    present = np.asarray(present, dtype=bool)
+    rank = np.zeros(256, dtype=np.int32)
+    rank[1:] = np.cumsum(present.astype(np.int32))[:-1]
+    return rank + 1, int(present.sum())
+
+
+def identity_rank():
+    """rank/present pair for the full-byte (base 258) digit table."""
+    return (
+        np.arange(1, 257, dtype=np.int32),
+        np.ones(256, dtype=np.int32),
+    )
+
+
+def ranked_bits(sigma: int) -> typing.Optional[int]:
+    """Bits per rank digit for the ranked limb encoding, or None when the
+    alphabet is too large for it to beat raw byte packing."""
+    if sigma <= 30:
+        return 5
+    if sigma <= 62:
+        return 6
+    return None
+
+
+def ranked_limb_bytes(bits: int) -> int:
+    return 30 // bits
+
+
+def ranked_cover_bytes(num_limbs: int, depth: int, bits: int) -> int:
+    return depth + ranked_limb_bytes(bits) * num_limbs
+
+
+def raw_cover_bytes(num_limbs: int = RAW_LIMBS, depth: int = 3) -> int:
+    return depth + 4 * num_limbs
+
+
+# ---------------------------------------------------------------------------
+# Host builders (numpy)
+# ---------------------------------------------------------------------------
+
+def build_seed_table_host(
+    data: np.ndarray, sa: np.ndarray, rank: np.ndarray, base: int, depth: int
+) -> np.ndarray:
+    """Seed table: table[k] = first SA slot whose depth-digit rank prefix
+    is >= k, or n."""
+    size = base ** depth + 1
+    n = data.size
+    if n == 0:
+        return np.zeros(size, dtype=np.int32)
+    rk = rank.astype(np.int64)[data]
+    b = np.zeros(n, dtype=np.int64)
+    sa64 = sa.astype(np.int64)
+    for j in range(depth):
+        nxt = sa64 + j
+        dj = np.where(nxt < n, rk[np.minimum(nxt, n - 1)], 0)
+        b = b * base + dj
+    probes = np.arange(size, dtype=np.int64)
+    return np.searchsorted(b, probes, side='left').astype(np.int32)
+
+
+def build_ranked_limbs_host(
+    data: np.ndarray, sa: np.ndarray, rank: np.ndarray,
+    num_limbs: int, depth: int, bits: int,
+) -> np.ndarray:
+    """[num_limbs, n] int32 rank-packed limbs, plane-major: limb j of slot
+    i packs the rank digits of bytes ``sa[i]+depth+D*j .. +D-1`` (D = 30 //
+    bits) big-endian; past-the-end digits are 0."""
+    n = data.size
+    D = ranked_limb_bytes(bits)
+    if n == 0:
+        return np.zeros((num_limbs, 0), dtype=np.int32)
+    width = depth + D * num_limbs
+    dig = np.zeros(n + width, dtype=np.int64)
+    dig[:n] = rank.astype(np.int64)[data]
+    out = np.empty((num_limbs, n), dtype=np.int32)
+    base_off = sa.astype(np.int64) + depth
+    for j in range(num_limbs):
+        o = base_off + D * j
+        v = np.zeros(n, dtype=np.int64)
+        for i in range(D):
+            v = (v << bits) + dig[o + i]
+        out[j] = v.astype(np.int32)
+    return out
+
+
+def build_raw_limbs_host(
+    data: np.ndarray, sa: np.ndarray, num_limbs: int = RAW_LIMBS,
+    depth: int = 3,
+) -> np.ndarray:
+    """[num_limbs, n] int32 raw-packed limbs, plane-major: limb j of slot i
+    is bytes ``sa[i]+depth+4j .. +3`` big-endian with the top byte biased by
+    -128, zero past the end.  Exact only for NUL-free text."""
+    n = data.size
+    if n == 0:
+        return np.zeros((num_limbs, 0), dtype=np.int32)
+    width = raw_cover_bytes(num_limbs, depth)
+    b = np.zeros(n + width, dtype=np.int64)
+    b[:n] = data
+    out = np.empty((num_limbs, n), dtype=np.int32)
+    base = sa.astype(np.int64) + depth
+    for j in range(num_limbs):
+        o = base + 4 * j
+        v = (
+            (b[o] - 128) * 16777216
+            + b[o + 1] * 65536
+            + b[o + 2] * 256
+            + b[o + 3]
+        )
+        out[j] = v.astype(np.int32)
+    return out
+
+
+def pad_limbs_host(limbs: np.ndarray, n_pad: int) -> np.ndarray:
+    """Place plane-major limbs ``[num_limbs, n]`` into the flat padded
+    device layout ``[num_limbs * n_pad]`` (plane j at ``j * n_pad``)."""
+    num_limbs, n = limbs.shape
+    out = np.zeros(num_limbs * n_pad, dtype=np.int32)
+    for j in range(num_limbs):
+        out[j * n_pad: j * n_pad + n] = limbs[j]
+    return out
+
+
+def host_probe_bounds(data: bytes, sa: np.ndarray, pattern: bytes):
+    """(lower, count) for one pattern by scalar bisection on the host."""
+    n = sa.shape[0]
+    L = len(pattern)
+
+    def cmp_at(slot: int) -> int:
+        start = int(sa[slot])
+        s = data[start: start + L]
+        if s == pattern:
+            return 0
+        return -1 if s < pattern else 1
+
+    def first_geq(threshold: int) -> int:
+        lo, hi = 0, n
+        while lo < hi:
+            mid = (lo + hi) // 2
+            if cmp_at(mid) >= threshold:
+                hi = mid
+            else:
+                lo = mid + 1
+        return lo
+
+    lower = first_geq(0)
+    upper = first_geq(1)
+    return lower, upper - lower
+
+
+# ---------------------------------------------------------------------------
+# Device functions: kernel wrappers and their plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def _route(*tensors: torch.Tensor) -> bool:
+    """True for the CUDA kernel, False for the plain version (CPU tensors);
+    raises on mixed or other devices."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f'tensors on several devices: {sorted(map(str, devs))}')
+    dev = devs.pop()
+    if dev.type == 'cpu':
+        return False
+    if dev.type != 'cuda':
+        raise ValueError(f'no kernel for device {dev}')
+    return True
+
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
+    if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
+        raise ValueError(
+            f'{name}: want contiguous {dtype} of {ndim} dims, got '
+            f'{t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}'
+        )
+
+
+def ranked_pack_plain(text: torch.Tensor, n: int, rank: torch.Tensor,
+                      bits: int) -> torch.Tensor:
+    """Plain version of K1: int32 [N], position p's next ``30 // bits``
+    rank digits packed big-endian; digits at or past n are 0."""
+    N = text.shape[0]
+    iota = torch.arange(N, device=text.device)
+    e = torch.where(iota < n, rank.long()[text.long()], 0)
+    v = torch.zeros(N, dtype=torch.int64, device=text.device)
+    for d in range(ranked_limb_bytes(bits)):
+        shifted = torch.zeros_like(e)
+        shifted[: max(N - d, 0)] = e[d:]
+        v = (v << bits) + shifted
+    return v.to(torch.int32)
+
+
+def ranked_pack(text: torch.Tensor, n: int, rank: torch.Tensor, bits: int,
+                out: typing.Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K1, ranked pack: int32 [N] for a uint8 [N] text row of true length
+    ``n`` (see :func:`ranked_pack_plain`)."""
+    N = text.shape[0]
+    if out is None:
+        out = torch.empty(N, dtype=torch.int32, device=text.device)
+    if not _route(text, rank, out):
+        out.copy_(ranked_pack_plain(text, n, rank, bits))
+        return out
+    _check(text, 'text', torch.uint8, 1)
+    _check(rank, 'rank', torch.int32, 1)
+    _check(out, 'out', torch.int32, 1)
+    if out.shape[0] != N or rank.shape[0] != 256 or bits not in (5, 6):
+        raise ValueError('ranked_pack: bad shapes or bits')
+    with torch.cuda.device(text.device):
+        kernels.launch('ranked_pack', text.data_ptr(), N, int(n),
+                       rank.data_ptr(), bits, out.data_ptr())
+    return out
+
+
+def ranked_limb_planes_plain(packed: torch.Tensor, sa: torch.Tensor, n: int,
+                             depth: int, bits: int,
+                             num_limbs: int) -> torch.Tensor:
+    """Plain version of K2: int32 [num_limbs * N], plane-major;
+    ``limbs[j*N + i] = packed[sa[i] + depth + D*j]`` for i < n, else 0."""
+    N = packed.shape[0]
+    D = ranked_limb_bytes(bits)
+    iota = torch.arange(N, device=packed.device)
+    s = sa.long().clamp(0, N - 1)
+    cols = []
+    for j in range(num_limbs):
+        idx = (s + depth + D * j).clamp(0, N - 1)
+        cols.append(torch.where(iota < n, packed[idx], 0))
+    return torch.cat(cols).to(torch.int32)
+
+
+def ranked_limb_planes(packed: torch.Tensor, sa: torch.Tensor, n: int,
+                       depth: int, bits: int, num_limbs: int,
+                       out: typing.Optional[torch.Tensor] = None,
+                       ) -> torch.Tensor:
+    """K2, limb planes: every plane of one row in one pass over ``sa``
+    (see :func:`ranked_limb_planes_plain`)."""
+    N = packed.shape[0]
+    if out is None:
+        out = torch.empty(num_limbs * N, dtype=torch.int32,
+                          device=packed.device)
+    if not _route(packed, sa, out):
+        out.copy_(ranked_limb_planes_plain(packed, sa, n, depth, bits,
+                                           num_limbs))
+        return out
+    _check(packed, 'packed', torch.int32, 1)
+    _check(sa, 'sa', torch.int32, 1)
+    _check(out, 'out', torch.int32, 1)
+    if sa.shape[0] != N or out.shape[0] != num_limbs * N:
+        raise ValueError('ranked_limb_planes: bad shapes')
+    with torch.cuda.device(packed.device):
+        kernels.launch('ranked_limb_planes', packed.data_ptr(),
+                       sa.data_ptr(), N, int(n), depth, bits, num_limbs,
+                       out.data_ptr())
+    return out
+
+
+def seed_table_plain(packed: torch.Tensor, sa: torch.Tensor, n: int,
+                     base: int, depth: int, bits: int) -> torch.Tensor:
+    """Plain version of K3: int32 [base^depth + 1], entry k = first SA slot
+    whose ``depth``-digit key ``packed[sa[i]] >> ((D - depth) * bits)`` is
+    >= k, or n."""
+    size = base ** depth + 1
+    probes = torch.arange(size, dtype=torch.int64, device=packed.device)
+    if n == 0:
+        return torch.zeros(size, dtype=torch.int32, device=packed.device)
+    shift = (ranked_limb_bytes(bits) - depth) * bits
+    keys = packed[sa[:n].long()].long() >> shift
+    return torch.searchsorted(keys, probes, side='left').to(torch.int32)
+
+
+def seed_table(packed: torch.Tensor, sa: torch.Tensor, n: int, base: int,
+               depth: int, bits: int,
+               out: typing.Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K3, seed table of one row from its ranked pack (see
+    :func:`seed_table_plain`).  Needs ``base == 1 << bits``."""
+    if base != 1 << bits or depth > ranked_limb_bytes(bits):
+        raise ValueError('seed_table: base must be 1 << bits, depth <= D')
+    size = base ** depth + 1
+    if out is None:
+        out = torch.empty(size, dtype=torch.int32, device=packed.device)
+    if not _route(packed, sa, out):
+        out.copy_(seed_table_plain(packed, sa, n, base, depth, bits))
+        return out
+    _check(packed, 'packed', torch.int32, 1)
+    _check(sa, 'sa', torch.int32, 1)
+    _check(out, 'out', torch.int32, 1)
+    if out.shape[0] != size:
+        raise ValueError('seed_table: bad output shape')
+    shift = (ranked_limb_bytes(bits) - depth) * bits
+    with torch.cuda.device(packed.device):
+        kernels.launch('seed_table', packed.data_ptr(), sa.data_ptr(),
+                       int(n), shift, size, out.data_ptr())
+    return out
+
+
+def _lane_setup(patterns, lengths, rank, present, base, depth, num_limbs,
+                bits):
+    """Per-pattern seeding of the phased probe: (bucket_lo, bucket_up with
+    the exact-depth bump, lower targets [B, K], upper targets [B, K],
+    phase count k [B], absent-byte flag bad [B]), all int64/bool."""
+    B, L = patterns.shape
+    dev = patterns.device
+    D = 4 if bits is None else ranked_limb_bytes(bits)
+    width = depth + D * num_limbs
+    raw = torch.zeros((B, width), dtype=torch.int64, device=dev)
+    cols = min(L, width)
+    raw[:, :cols] = patterns[:, :cols].long()
+    lens = lengths.long()
+    ipos = torch.arange(width, device=dev)[None, :]
+    in_len = ipos < lens[:, None]
+    r = rank.long()[raw]
+    pres = present[raw] > 0
+
+    # Seed buckets: lower lanes pad past the pattern with 0, upper with
+    # base-1; an absent byte within the depth collapses both ids.
+    ip, il, rd = ipos[:, :depth], in_len[:, :depth], r[:, :depth]
+    first_bad = torch.where(il & ~pres[:, :depth], ip, depth).min(1).values
+    at = ip == first_bad[:, None]
+    past = ip > first_bad[:, None]
+    dl = torch.where(past, 0, torch.where(at | il, rd, 0))
+    du = torch.where(past, 0, torch.where(at | il, rd, base - 1))
+    bucket_lo = torch.zeros(B, dtype=torch.int64, device=dev)
+    bucket_up = torch.zeros(B, dtype=torch.int64, device=dev)
+    for j in range(depth):
+        bucket_lo = bucket_lo * base + dl[:, j]
+        bucket_up = bucket_up * base + du[:, j]
+    prefix_present = first_bad >= lens.clamp(max=depth)
+    bump = (lens == depth) & prefix_present
+    bucket_up = bucket_up + bump.long()
+
+    if bits is None:
+        lo_v = torch.where(in_len, raw, 0)
+        up_v = torch.where(in_len, raw, 255)
+
+        def limb(v, j):
+            o = depth + 4 * j
+            return ((v[:, o] - 128) * 16777216 + v[:, o + 1] * 65536
+                    + v[:, o + 2] * 256 + v[:, o + 3])
+        bad = torch.zeros(B, dtype=torch.bool, device=dev)
+    else:
+        lo_v = torch.where(in_len, r, 0)
+        up_v = torch.where(in_len, r, (1 << bits) - 1)
+
+        def limb(v, j):
+            acc = torch.zeros(B, dtype=torch.int64, device=dev)
+            for i in range(D):
+                acc = (acc << bits) + v[:, depth + D * j + i]
+            return acc
+        bad = (in_len & ~pres).any(1)
+    t_lo = torch.stack([limb(lo_v, j) for j in range(num_limbs)], 1)
+    t_up = torch.stack([limb(up_v, j) for j in range(num_limbs)], 1)
+    k = torch.div(lens - depth + D - 1, D, rounding_mode='floor')
+    k = k.clamp(0, num_limbs)
+    return bucket_lo, bucket_up, t_lo, t_up, k, bad
+
+
+def _first_true(lo: torch.Tensor, hi: torch.Tensor, pred) -> torch.Tensor:
+    """Per lane, the first slot in [lo, hi) where the monotone ``pred``
+    holds (hi when none does)."""
+    while True:
+        active = lo < hi
+        if not bool(active.any()):
+            return lo
+        mid = torch.div(lo + hi, 2, rounding_mode='floor')
+        p = pred(mid)
+        hi = torch.where(active & p, mid, hi)
+        lo = torch.where(active & ~p, mid + 1, lo)
+
+
+def probe_phased_plain(text, n, sa, tables, limbs, rank, present, patterns,
+                       lengths, num_limbs: int, base: int, depth: int,
+                       bits: typing.Optional[int]):
+    """Plain version of K4: (lower, count) int32 [C, B] for a pattern batch
+    against every row (see :func:`probe_phased`)."""
+    C, N = text.shape
+    B = patterns.shape[0]
+    dev = text.device
+    bucket_lo, bucket_up, t_lo, t_up, k, bad = _lane_setup(
+        patterns, lengths, rank, present, base, depth, num_limbs, bits
+    )
+
+    def seed(bucket):
+        return tables.gather(1, bucket[None, :].expand(C, B)).long()
+
+    A = seed(bucket_lo)
+    Z = seed(bucket_up)
+    lo, hi = A, seed(bucket_lo + 1)
+    act = (k >= 1)[None, :].expand(C, B)
+    limbs64 = limbs.long()
+    for j in range(num_limbs):
+        act = act & (j < k)[None, :]
+        if not bool(act.any()):
+            break
+
+        def value(mid, j=j):
+            return limbs64.gather(1, j * N + mid.clamp(0, N - 1))
+
+        hi_act = torch.where(act, hi, lo)
+        a = _first_true(lo, hi_act, lambda m: value(m) >= t_lo[None, :, j])
+        z = _first_true(lo, hi_act, lambda m: value(m) > t_up[None, :, j])
+        A = torch.where(act, a, A)
+        Z = torch.where(act, z, Z)
+        act = act & (j + 1 < k)[None, :] & (a < z)
+        lo = torch.where(act, a, lo)
+        hi = torch.where(act, z, hi)
+
+    D = 4 if bits is None else ranked_limb_bytes(bits)
+    deep = torch.nonzero(lengths.long() > depth + D * num_limbs).flatten()
+    if deep.numel():
+        plen = lengths.long()[deep]
+        Lp = int(plen.max())
+        pats = patterns[deep, :Lp].long()
+        jpos = torch.arange(Lp, device=dev)
+        jmask = jpos[None, :] < plen[:, None]
+        p1 = torch.where(jmask, pats + 1, 0)[None]
+        nrow = n.long()[:, None]
+
+        def cmp3(mid):
+            slot = torch.minimum(mid.clamp(min=0), (nrow - 1).clamp(min=0))
+            starts = sa.gather(1, slot).long()
+            pos = starts[..., None] + jpos
+            byte = text.gather(1, pos.clamp(0, N - 1).reshape(C, -1))
+            byte = byte.reshape(pos.shape).long()
+            s = torch.where(pos < nrow[..., None], byte + 1, 0)
+            d = torch.sign(s - p1) * jmask[None]
+            first = (d != 0).to(torch.int32).argmax(-1, keepdim=True)
+            return d.gather(-1, first).squeeze(-1)
+
+        a0, z0 = A[:, deep], Z[:, deep]
+        a = _first_true(a0, z0, lambda m: cmp3(m) >= 0)
+        z = _first_true(a0, z0, lambda m: cmp3(m) >= 1)
+        A[:, deep] = a
+        Z[:, deep] = z
+    count = Z - A
+    if bits is not None:
+        count = torch.where(bad[None, :], 0, count)
+    return A.to(torch.int32), count.to(torch.int32)
+
+
+def probe_phased(text, n, sa, tables, limbs, rank, present, patterns,
+                 lengths, num_limbs: int, base: int, depth: int,
+                 bits: typing.Optional[int]):
+    """K4, the phased probe: (lower, count) int32 [C, B].
+
+    text uint8 [C, N], n int32 [C], sa int32 [C, N], tables int32
+    [C, base^depth + 1], limbs int32 [C, num_limbs * N] plane-major,
+    rank / present int32 [256], patterns uint8 [B, L] (zero padded),
+    lengths int32 [B].  ``bits`` None selects the raw 4-byte limbs.
+    ``lower`` is exact where count > 0; for a pattern with a byte absent
+    from the alphabet it may sit at a neighbouring bucket's start.
+    """
+    C, N = text.shape
+    B, L = patterns.shape
+    if not _route(text, n, sa, tables, limbs, rank, present, patterns,
+                  lengths):
+        return probe_phased_plain(text, n, sa, tables, limbs, rank, present,
+                                  patterns, lengths, num_limbs, base, depth,
+                                  bits)
+    for t, name, dt, nd in (
+        (text, 'text', torch.uint8, 2), (n, 'n', torch.int32, 1),
+        (sa, 'sa', torch.int32, 2), (tables, 'tables', torch.int32, 2),
+        (limbs, 'limbs', torch.int32, 2), (rank, 'rank', torch.int32, 1),
+        (present, 'present', torch.int32, 1),
+        (patterns, 'patterns', torch.uint8, 2),
+        (lengths, 'lengths', torch.int32, 1),
+    ):
+        _check(t, name, dt, nd)
+    table_len = base ** depth + 1
+    if (sa.shape != (C, N) or tables.shape != (C, table_len)
+            or limbs.shape != (C, num_limbs * N) or n.shape[0] != C
+            or lengths.shape[0] != B or not 1 <= num_limbs <= 8):
+        raise ValueError('probe_phased: bad shapes')
+    lower = torch.empty((C, B), dtype=torch.int32, device=text.device)
+    count = torch.empty((C, B), dtype=torch.int32, device=text.device)
+    if C == 0 or B == 0:
+        return lower, count
+    with torch.cuda.device(text.device):
+        kernels.launch(
+            'probe_phased', text.data_ptr(), n.data_ptr(), sa.data_ptr(),
+            tables.data_ptr(), limbs.data_ptr(), rank.data_ptr(),
+            present.data_ptr(), patterns.data_ptr(), lengths.data_ptr(),
+            C, B, L, N, table_len, num_limbs, depth, base, bits or 0,
+            lower.data_ptr(), count.data_ptr(),
+        )
+    return lower, count

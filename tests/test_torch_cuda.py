@@ -1,0 +1,139 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card,
+and the device Reader against the CPU one.  Imports no JAX, so it runs on a
+GPU machine without it:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda -q
+
+Every test skips on a machine without a CUDA device.
+"""
+
+import collections
+
+import numpy as np
+import pytest
+import torch
+
+import pysubstringsearch_tpu_torch as pss
+from pysubstringsearch_tpu_torch.container import Chunk
+from pysubstringsearch_tpu_torch.models.index import DeviceIndex
+from pysubstringsearch_tpu_torch.ops import kernels
+from pysubstringsearch_tpu_torch.ops import search as S
+from pysubstringsearch_tpu_torch.ops.suffix_array import (
+    _pad_len,
+    suffix_array_numpy,
+)
+
+torch.set_num_threads(1)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device and nvcc')
+    return torch.device('cuda')
+
+
+def _body(kind: str, size: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    lo, hi = {'ranked': (97, 123), 'ranked6': (50, 108),
+              'nul': (97, 115), 'raw': (1, 256)}[kind]
+    body = rng.integers(lo, hi, size=size, dtype=np.uint8)
+    if kind == 'nul':
+        body[::89] = 0
+    body[::43] = 0x0A
+    body[-1] = 0x0A
+    return body
+
+
+def _patterns(bodies, seed, count=400):
+    rng = np.random.default_rng(seed)
+    pats = [b'', b'\n', b'a', b'\xfe', b'zq\x00', b'\x01\x02\x03\x04\x05']
+    for _ in range(count):
+        body = bodies[int(rng.integers(0, len(bodies)))]
+        l = int(rng.integers(1, 70))
+        i = int(rng.integers(0, body.size - l))
+        p = body[i: i + l].tobytes()
+        if rng.random() < 0.2:  # a near miss
+            p = p[:-1] + b'\x7f'
+        pats.append(p)
+    return pats
+
+
+@pytest.mark.parametrize('kind', ['ranked', 'ranked6', 'nul'])
+@pytest.mark.parametrize('depth,K', [(2, 3), (4, 2)])
+def test_aux_kernels_match_plain(cuda, kind, depth, K):
+    body = _body(kind, 50_000, 1)
+    n = body.size
+    N = _pad_len(n + S.PAD_MARGIN)
+    pres = np.bincount(body, minlength=256)[:256] > 0
+    rank, sigma = S.alphabet_rank(pres)
+    bits = S.ranked_bits(sigma)
+    base = 1 << bits
+    depth = min(depth, S.ranked_limb_bytes(bits))
+    text = torch.zeros(N, dtype=torch.uint8, device=cuda)
+    text[:n] = torch.from_numpy(body)
+    sa = torch.zeros(N, dtype=torch.int32, device=cuda)
+    sa[:n] = torch.from_numpy(suffix_array_numpy(body))
+    rk = torch.from_numpy(rank).to(cuda)
+    before = dict(kernels.LAUNCHES)
+    packed = S.ranked_pack(text, n, rk, bits)
+    limbs = S.ranked_limb_planes(packed, sa, n, depth, bits, K)
+    table = S.seed_table(packed, sa, n, base, depth, bits)
+    torch.cuda.synchronize()
+    for name in ('ranked_pack', 'ranked_limb_planes', 'seed_table'):
+        assert kernels.LAUNCHES[name] == before[name] + 1
+    ref = S.ranked_pack_plain(text, n, rk, bits)
+    assert torch.equal(packed, ref)
+    assert torch.equal(limbs, S.ranked_limb_planes_plain(ref, sa, n, depth,
+                                                         bits, K))
+    assert torch.equal(table, S.seed_table_plain(ref, sa, n, base, depth,
+                                                 bits))
+    host = S.pad_limbs_host(S.build_ranked_limbs_host(
+        body, sa[:n].cpu().numpy(), rank, K, depth, bits), N)
+    assert np.array_equal(limbs.cpu().numpy(), host)
+
+
+@pytest.mark.parametrize('kind', ['ranked', 'ranked6', 'nul', 'raw'])
+def test_index_and_probe_match_cpu(cuda, kind):
+    """A multi-row index built on the card equals the CPU one array for
+    array, and the probe kernel equals the plain probe for every (row,
+    pattern), lower bounds included."""
+    bodies = [_body(kind, m, s) for s, m in enumerate((30_000, 777, 52_000))]
+    chunks = [Chunk(data=b, suffix_array=suffix_array_numpy(b))
+              for b in bodies]
+    gpu = DeviceIndex(chunks, device=cuda)
+    cpu = DeviceIndex(chunks, device='cpu')
+    torch.cuda.synchronize()
+    for name in ('text', 'lengths', 'sa', 'tables', 'limbs', 'rank',
+                 'present'):
+        assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), name
+    packed, lengths = S.pack_patterns(_patterns(bodies, 2))
+    before = kernels.LAUNCHES['probe_phased']
+    lo_g, cnt_g = gpu.probe(packed, lengths)
+    assert kernels.LAUNCHES['probe_phased'] == before + 1
+    lo_c, cnt_c = cpu.probe(packed, lengths)
+    np.testing.assert_array_equal(cnt_g, cnt_c)
+    np.testing.assert_array_equal(lo_g, lo_c)
+    assert (cnt_g > 0).sum() > 100
+
+
+def test_reader_on_card_matches_cpu_reader(cuda, tmp_path):
+    rng = np.random.default_rng(7)
+    words = [bytes(rng.integers(97, 123, size=int(l), dtype=np.uint8))
+             for l in rng.integers(3, 10, size=300)]
+    lines = [b' '.join(words[i] for i in rng.integers(0, 300, size=6))
+             for _ in range(8000)]
+    path = str(tmp_path / 'x.idx')
+    with pss.Writer(path, max_chunk_len=32 << 10) as w:
+        for ln in lines:
+            w.add_entry(ln.decode())
+    pats = [ln[2:2 + int(k)].decode()
+            for ln, k in zip(lines[::40], rng.integers(2, 30, size=200))]
+    pats += ['', '\n', 'zzqqzzqq', lines[5].decode() + '\n' + lines[6][:3].decode()]
+    gpu = pss.Reader(path)
+    assert gpu.wait_device_ready(timeout=300)
+    cpu = pss.Reader(path, device='cpu')
+    assert collections.Counter(gpu.search_multiple(pats)) == \
+        collections.Counter(cpu.search_multiple(pats))
