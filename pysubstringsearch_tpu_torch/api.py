@@ -233,11 +233,13 @@ class Reader:
 
     ``device`` is where the index lives: ``'cuda'`` (the default) raises
     when no CUDA device is present, ``'cpu'`` runs the kernels' plain
-    PyTorch versions.  On CUDA the index uploads and builds on a background
-    thread while the native host path answers queries off the container;
-    once it is ready, every batch is probed on the device (patterns longer
-    than ``PAD_MARGIN`` excepted), and if it failed, the next query raises.
-    ``index_mode`` forwards to :class:`DeviceIndex`.
+    PyTorch versions.  On CUDA the index builds on a background thread
+    while the native host path answers queries off the container; once it
+    is ready, every batch is probed on the device (patterns longer than
+    ``PAD_MARGIN`` excepted), and if it failed, the next query raises.
+    ``index_mode`` forwards to :class:`DeviceIndex`: ``'auto'`` derives the
+    SA on a CUDA card over merged rows (ranked alphabets), ``'upload'``
+    keeps the container's chunks and SA.
     """
 
     def __init__(
@@ -318,7 +320,9 @@ class Reader:
     def profiler(self) -> PhaseProfiler:
         """Per-phase timings: ``load-container``, ``device-load`` (split
         into :class:`DeviceIndex`'s ``index-*`` phases), ``line-tables``,
-        ``host-serve``, ``probe``, ``extract``."""
+        ``host-serve``, ``probe``, ``extract`` (of which, for merged rows,
+        ``x-dev-gather``, the device gather and its readback, and
+        ``x-dev-lines``, the line materialisation)."""
         return self._prof
 
     @property
@@ -351,7 +355,10 @@ class Reader:
 
     @property
     def row_tables(self) -> typing.List[LineTable]:
-        """One LineTable per probe row."""
+        """One LineTable per probe row.  A merged row's table spans its
+        concatenated text: every chunk ends with ``\\n``, so no line spans
+        a source-chunk boundary and dedup by line offset equals the
+        reference's per-chunk dedup."""
         if self._row_tables is None:
             with self._prof.phase('line-tables'):
                 self._row_tables = [
@@ -418,29 +425,76 @@ class Reader:
             lo, cnt = idx.probe(packed, lengths)
         hs = self._host_serving
         with self._prof.phase('extract'):
-            if hs is not None:
+            if (hs is not None and not idx.merged
+                    and idx.num_chunks == len(self._chunks)):
                 # Probe rows are container chunks, so the device bounds
                 # feed the native span extraction directly.
                 return hs.extract(lo, cnt)
             out = [[] for _ in patterns]
             for r in range(idx.num_chunks):
-                for b, lines in self._extract_row(r, lo[r], cnt[r]).items():
+                per = self._extract_row(r, packed, lengths, lo[r], cnt[r])
+                for b, lines in per.items():
                     out[b].extend(lines)
             return out
 
     def _extract_row(
-        self, r: int, lo_r: np.ndarray, cnt_r: np.ndarray
+        self,
+        r: int,
+        packed: np.ndarray,
+        lengths: np.ndarray,
+        lo_r: np.ndarray,
+        cnt_r: np.ndarray,
     ) -> typing.Dict[int, typing.List[str]]:
-        """One probe row's lines, gathered from the container's host SA."""
-        group = self._index.groups[r]
-        if len(group) != 1:
-            raise NotImplementedError(
-                'extraction from merged rows arrives with derive mode '
-                '(ROADMAP B8)'
+        """One probe row's lines.  A row that is one container chunk
+        gathers from the chunk's host SA; a merged row gathers its hits on
+        the device (B8), reads them back, and drops the occurrences that
+        span a source-chunk boundary."""
+        idx = self._index
+        table = self.row_tables[r]
+        group = idx.groups[r]
+        if len(group) == 1:
+            return table.extract_lines_batch(
+                self._chunks[group[0]].suffix_array, lo_r, cnt_r
             )
-        return self.row_tables[r].extract_lines_batch(
-            self._chunks[group[0]].suffix_array, lo_r, cnt_r
+        if not cnt_r.any():
+            return {}
+        with self._prof.phase('x-dev-gather'):
+            pos_d, qid_d = search_ops.gather_hits_flat(
+                idx.sa[r], torch.as_tensor(lo_r, device=idx.device),
+                torch.as_tensor(cnt_r, device=idx.device),
+            )
+            pos = pos_d.cpu().numpy().astype(np.int64)
+            qid = qid_d.cpu().numpy().astype(np.int64)
+        pos, qid = self._drop_crossings(r, packed, lengths, pos, qid)
+        with self._prof.phase('x-dev-lines'):
+            return table.lines_for_positions(qid, pos)
+
+    def _drop_crossings(
+        self,
+        r: int,
+        packed: np.ndarray,
+        lengths: np.ndarray,
+        pos: np.ndarray,
+        qid: np.ndarray,
+    ) -> typing.Tuple[np.ndarray, np.ndarray]:
+        """Drop merged-row occurrences that span a source-chunk boundary
+        (possible only for patterns containing ``\\n``: every chunk ends
+        with one; see DeviceIndex.boundary_crossings)."""
+        ends = self._index.boundaries[r]
+        if ends.size == 0 or pos.size == 0:
+            return pos, qid
+        jpos = np.arange(packed.shape[1])[None, :]
+        has_nl = ((packed == 0x0A) & (jpos < lengths[:, None])).any(axis=1)
+        if not has_nl.any():
+            return pos, qid
+        L = lengths.astype(np.int64)[qid]
+        check = has_nl[qid] & (L >= 2)
+        crosses = check & (
+            np.searchsorted(ends, pos, side='right')
+            != np.searchsorted(ends, pos + L - 1, side='right')
         )
+        keep = ~crosses
+        return pos[keep], qid[keep]
 
     def _chunk_table(self, c: int) -> LineTable:
         table = self._chunk_tables.get(c)

@@ -1,9 +1,10 @@
 // Hand-written Hopper kernels of the device index: the three aux builders
-// that turn (text, SA) into rank-packed limb planes and a seed table, and
-// the phased probe that answers a query batch against them.
+// that turn (text, SA) into rank-packed limb planes and a seed table, the
+// phased probe that answers a query batch against them, and the flat gather
+// of a merged row's hits.
 //
 // Built by pysubstringsearch_tpu_torch/ops/kernels.py with
-//   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
+//   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -c ... && nvcc -shared
 // and bound through ctypes: every entry point takes raw device pointers and
 // a cudaStream_t, launches on that stream, never synchronises, allocates
 // nothing, and returns cudaGetLastError().
@@ -290,6 +291,35 @@ __global__ void probe_phased_kernel(
   count_out[r * B + b] = count;
 }
 
+// ---------------------------------------------------------------------------
+// B8, flat hit gather.  Replaces _gather_flat_jit / gather_hits_flat
+// (pysubstringsearch_tpu/ops/search.py), which pads its output to a
+// power-of-two bucket and finds every output slot's query with a
+// searchsorted over the count prefix sums.
+//
+// pos[offsets[q] + t] = sa[lower[q] + t] and qid[offsets[q] + t] = q for
+// t < count[q], where offsets is the exclusive scan of count
+// (pss_scan_exclusive_sum).  One block per query copies its SA range, so
+// the output is exactly the hits, with no search.  Bound by memory: 4
+// bytes read and 8 written per hit, coalesced within each query's range.
+// ---------------------------------------------------------------------------
+__global__ void gather_hits_flat_kernel(const int* __restrict__ sa,
+                                        const int* __restrict__ lower,
+                                        const int* __restrict__ count,
+                                        const int* __restrict__ offsets,
+                                        int B, int* __restrict__ pos,
+                                        int* __restrict__ qid) {
+  for (int q = blockIdx.x; q < B; q += gridDim.x) {
+    const int c = count[q];
+    const long long lo = lower[q];
+    const long long off = offsets[q];
+    for (int t = threadIdx.x; t < c; t += blockDim.x) {
+      pos[off + t] = sa[lo + t];
+      qid[off + t] = q;
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -339,6 +369,18 @@ int pss_probe_phased(const void* text, const void* n_rows, const void* sa,
       (const int*)present, (const uint8_t*)patterns, (const int*)lengths, B,
       L, n_pad, table_len, num_limbs, depth, base, bits, (int*)lower,
       (int*)count);
+  return (int)cudaGetLastError();
+}
+
+int pss_gather_hits_flat(const void* sa, const void* lower, const void* count,
+                         const void* offsets, int B, void* pos, void* qid,
+                         void* stream) {
+  if (B <= 0) return 0;
+  unsigned grid = (unsigned)B;
+  if (grid > 65536u * 16u) grid = 65536u * 16u;
+  gather_hits_flat_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int*)sa, (const int*)lower, (const int*)count,
+      (const int*)offsets, B, (int*)pos, (int*)qid);
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,5 @@
-"""Device-resident substring index: every container chunk is one probe row
-of stacked, padded tensors on one device,
+"""Device-resident substring index: probe rows of stacked, padded tensors
+on one device,
 
     text   [C, n_pad] uint8     sa     [C, n_pad] int32    lengths [C] int32
     tables [C, base^depth+1] int32    limbs  [C, num_limbs * n_pad] int32
@@ -7,11 +7,19 @@ of stacked, padded tensors on one device,
 and a query batch is answered by one launch of the phased probe over all
 rows (ops/search.py:probe_phased).
 
-Only the upload geometry exists so far: rows are the container's chunks and
-the SA comes from the container.  For a ranked alphabet the text and SA are
-uploaded and the limb planes and seed tables are built on the device
-(ops/search.py K1-K3); for a large NUL-free alphabet the host builders make
-them and they are uploaded.
+Two ways to build it, as in the JAX package:
+
+- upload: every container chunk is one row and its SA comes from the
+  container.  For a ranked alphabet the text and SA are uploaded and the
+  limb planes and seed tables are built on the device (ops/search.py
+  K1-K3); for a large NUL-free alphabet the host builders make them and
+  they are uploaded.
+- derive (ranked alphabets): the container's chunks are concatenated into
+  merged rows of up to ``MERGE_CAP_DEFAULT`` bytes, only their text is
+  uploaded, each row's SA is built on the device (ops/suffix_array.py B1,
+  B2), and K1-K3 build limbs and tables from it.  A merged row can match
+  an occurrence that spans a source-chunk boundary; :meth:`count_matches`
+  and the Reader's extraction drop those.
 """
 
 from __future__ import annotations
@@ -23,7 +31,7 @@ import torch
 
 from ..container import Chunk
 from ..ops import search as search_ops
-from ..ops.suffix_array import _pad_len
+from ..ops.suffix_array import SA_BUILD_BYTES_PER_SLOT, _pad_len, derive_sa
 from ..utils.profiling import PhaseProfiler
 
 
@@ -36,8 +44,36 @@ def _device_budget(device: torch.device) -> int:
     return int(free * 0.85)
 
 
+def _merge_groups(sizes: typing.Sequence[int],
+                  cap: int) -> typing.List[typing.List[int]]:
+    """Balanced split of consecutive chunks into rows: rows are stacked as
+    one padded [C, n_pad] array, so a lopsided tail row wastes memory for
+    every row and a plain greedy fill makes one.  Each row aims at
+    total / ngroups bytes with the cap as a hard ceiling."""
+    total = sum(sizes)
+    ngroups = max(1, -(-total // cap))
+    target = total / ngroups
+    groups: typing.List[typing.List[int]] = []
+    cur: typing.List[int] = []
+    size = 0
+    for i, s in enumerate(sizes):
+        if cur and (size + s > cap or size >= target):
+            groups.append(cur)
+            cur, size = [], 0
+        cur.append(i)
+        size += s
+    if cur:
+        groups.append(cur)
+    return groups
+
+
 class DeviceIndex:
-    """Stacked padded chunks on one device."""
+    """Stacked padded rows on one device."""
+
+    #: Text bytes of a merged derive row at most (a longer single chunk
+    #: stays one row): its padded row of 256 or 272 MiB is the size the
+    #: JAX package derives; read at construction.
+    MERGE_CAP_DEFAULT = 256 << 20
 
     def __init__(
         self,
@@ -46,33 +82,33 @@ class DeviceIndex:
         device: typing.Union[str, torch.device] = 'cuda',
         num_limbs: typing.Optional[int] = None,
         mode: str = 'auto',
+        merge: typing.Optional[bool] = None,
         profiler: typing.Optional[PhaseProfiler] = None,
     ) -> None:
-        """``mode``: ``'upload'`` (and ``'auto'``, which means upload) makes
-        each container chunk one row.  ``'derive'``, which rebuilds the SA on
-        the device over merged rows, is not ported yet (ROADMAP B1, B2,
-        B8).  ``profiler`` records the build's phases: ``index-alphabet``
-        (the byte-presence scan that picks the kind), ``index-alloc`` (the
-        zeroed device rows), ``index-host-copy`` (container views into
-        aligned host arrays), ``index-h2d`` (their upload) and
-        ``index-aux`` (limb planes and seed tables), each device phase
-        ending in a synchronise."""
-        if mode == 'derive':
-            raise NotImplementedError(
-                "DeviceIndex mode='derive' is not ported yet "
-                '(ROADMAP B1, B2 and B8)'
-            )
-        if mode not in ('auto', 'upload'):
+        """``mode``:
+
+        - ``'upload'``: each container chunk is one row, with its SA from
+          the container;
+        - ``'derive'``: upload the text only and build each row's SA on the
+          device; with ``merge`` (the default) the chunks are concatenated
+          into rows of up to ``MERGE_CAP_DEFAULT`` bytes.  Ranked alphabets
+          only: the raw kind's derive is not ported yet (ROADMAP A2, B12);
+        - ``'auto'``: derive on a CUDA device for a ranked alphabet, upload
+          otherwise (the CPU, and the raw kind until B12 is ported).
+
+        ``profiler`` records the build's phases, each device phase ending
+        in a synchronise: ``index-alphabet`` (the byte-presence scan that
+        picks the kind), ``index-alloc`` (the zeroed device rows),
+        ``index-h2d`` (the uploads), ``index-aux`` (limb planes and seed
+        tables); upload adds ``index-host-copy`` (container views into
+        aligned host arrays), derive ``index-merge`` (the host
+        concatenation of merged rows) and ``index-sa`` (B1 and B2 per
+        row)."""
+        if mode not in ('auto', 'upload', 'derive'):
             raise ValueError(f'unknown DeviceIndex mode: {mode!r}')
-        self.mode = 'upload'
         self.device = torch.device(device)
         prof = profiler if profiler is not None else PhaseProfiler()
         self.num_source_chunks = len(chunks)
-        self.groups = [[i] for i in range(len(chunks))]
-        self.merged = False
-        self.row_data: typing.List[np.ndarray] = [c.data for c in chunks]
-        self.group_offsets = [np.zeros(1, dtype=np.int64) for _ in chunks]
-        self.num_chunks = len(chunks)  # probe rows
         # Limb encoding: rank-packed digits for alphabets of at most 62
         # bytes (NUL-safe), raw 4-byte packing for larger NUL-free ones; the
         # base-258 digit kind (large alphabets with NUL) is not ported yet.
@@ -91,7 +127,33 @@ class DeviceIndex:
                 'digit-kind index (an alphabet of more than 62 bytes that '
                 'contains NUL) is not ported yet (ROADMAP B11 and B12)'
             )
+        if mode == 'auto':
+            mode = ('derive' if self.device.type == 'cuda'
+                    and self.kind == 'ranked' else 'upload')
+        if mode == 'derive' and self.kind != 'ranked':
+            raise NotImplementedError(
+                'derive mode for the raw kind (an alphabet of more than 62 '
+                'bytes without NUL) is not ported yet (ROADMAP A2, B12)'
+            )
+        self.mode = mode
         self._bits = bits
+        merge = (merge is None or merge) and mode == 'derive' \
+            and len(chunks) > 1
+        if merge:
+            with prof.phase('index-merge'):
+                self.groups = _merge_groups(
+                    [c.data.size for c in chunks], self.MERGE_CAP_DEFAULT
+                )
+                self.row_data = [
+                    chunks[g[0]].data if len(g) == 1
+                    else np.concatenate([chunks[i].data for i in g])
+                    for g in self.groups
+                ]
+        else:
+            self.groups = [[i] for i in range(len(chunks))]
+            self.row_data = [c.data for c in chunks]
+        self._set_geometry([[chunks[i].data.size for i in g]
+                            for g in self.groups])
         rank, sigma = search_ops.alphabet_rank(pres)
         max_n = max([d.size for d in self.row_data] + [1])
         self._base, self._depth = search_ops.pick_table_params(sigma, max_n)
@@ -107,12 +169,40 @@ class DeviceIndex:
             np.array([d.size for d in self.row_data], dtype=np.int32),
             device=self.device,
         )
+        #: Tie count m of every B2 round, per row (derive mode).
+        self.sa_ties: typing.List[typing.List[int]] = []
         with prof.phase('index-alloc'):
             self.text = torch.zeros((C, n_pad), dtype=torch.uint8,
                                     device=self.device)
             self.sa = torch.zeros((C, n_pad), dtype=torch.int32,
                                   device=self.device)
             self._sync()
+        if mode == 'derive':
+            self._derive_sa(prof)
+        else:
+            self._upload(chunks, prof)
+        table_len = self._base ** self._depth + 1
+        with prof.phase('index-aux'):
+            self._build_aux(chunks, rank, table_len)
+            self._sync()
+
+    def _set_geometry(self, sizes: typing.List[typing.List[int]]) -> None:
+        """Row geometry from each row's source-chunk sizes: ``merged``,
+        ``boundaries`` (the interior source-chunk end offsets of each row)
+        and ``group_offsets`` (each source chunk's start in its row)."""
+        self.num_chunks = len(sizes)  # probe rows
+        self.merged = any(len(s) > 1 for s in sizes)
+        self.boundaries = [np.cumsum(s, dtype=np.int64)[:-1] for s in sizes]
+        self.group_offsets = [
+            np.concatenate(([0], b)).astype(np.int64) for b in self.boundaries
+        ]
+
+    def _sync(self) -> None:
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+
+    def _upload(self, chunks: typing.Sequence[Chunk],
+                prof: PhaseProfiler) -> None:
         for i, c in enumerate(chunks):
             with prof.phase('index-host-copy'):
                 # np.array: an aligned, writable copy of the container's
@@ -125,14 +215,23 @@ class DeviceIndex:
                 self.text[i, : c.data.size] = text
                 self.sa[i, : c.data.size] = sa
                 self._sync()
-        table_len = self._base ** self._depth + 1
-        with prof.phase('index-aux'):
-            self._build_aux(chunks, rank, table_len)
-            self._sync()
 
-    def _sync(self) -> None:
-        if self.device.type == 'cuda':
-            torch.cuda.synchronize(self.device)
+    def _derive_sa(self, prof: PhaseProfiler) -> None:
+        """Pass 1 of derive: per row, upload the text into ``text[i]`` and
+        derive the SA into ``sa[i]``.  The limb planes are allocated only
+        after this pass, once every row's SA-build scratch is freed."""
+        for i, d in enumerate(self.row_data):
+            with prof.phase('index-h2d'):
+                # Singleton rows are the container's read-only mmap views,
+                # which torch cannot wrap; merged rows are fresh arrays.
+                host = d if d.flags.writeable else np.array(d)
+                self.text[i, : d.size] = torch.from_numpy(host)
+                self._sync()
+            with prof.phase('index-sa'):
+                _, ties = derive_sa(self.text[i], d.size, self.rank,
+                                    self._bits, out=self.sa[i])
+                self.sa_ties.append(ties)
+                self._sync()
 
     def _build_aux(
         self, chunks: typing.Sequence[Chunk], rank: np.ndarray, table_len: int
@@ -179,16 +278,18 @@ class DeviceIndex:
         meta: typing.Mapping[str, typing.Any],
         device: typing.Union[str, torch.device] = 'cpu',
     ) -> 'DeviceIndex':
-        """An index over state built elsewhere (the JAX package's upload
-        index, read back as numpy).  ``arrays``: ``text``, ``lengths``,
-        ``sa``, ``tables``, ``limbs``, ``rank``, ``present``; ``meta``:
-        ``kind``, ``bits``, ``base``, ``depth``, ``num_limbs``."""
+        """An index over state built elsewhere (the JAX package's index,
+        read back as numpy).  ``arrays``: ``text``, ``lengths``, ``sa``,
+        ``tables``, ``limbs``, ``rank``, ``present``; ``meta``: ``kind``,
+        ``bits``, ``base``, ``depth``, ``num_limbs``, and for merged rows
+        ``mode``, ``groups`` (the source chunks of every row) and
+        ``boundaries`` (their interior end offsets in the row)."""
         if meta['kind'] not in ('ranked', 'raw'):
             raise NotImplementedError(
                 f"{meta['kind']}-kind index is not ported yet (ROADMAP B11)"
             )
         self = cls.__new__(cls)
-        self.mode = 'upload'
+        self.mode = meta.get('mode', 'upload')
         self.device = torch.device(device)
 
         def put(name, dtype):
@@ -208,36 +309,85 @@ class DeviceIndex:
         self._bits = meta['bits']
         self._base, self._depth = meta['base'], meta['depth']
         self.num_limbs = meta['num_limbs']
+        self.sa_ties = []
         C, self.n_pad = self.text.shape
         lengths = np.asarray(arrays['lengths'])
         self.row_data = [
             np.asarray(arrays['text'])[i, : lengths[i]] for i in range(C)
         ]
-        self.num_chunks = self.num_source_chunks = C
-        self.groups = [[i] for i in range(C)]
-        self.merged = False
-        self.group_offsets = [np.zeros(1, dtype=np.int64) for _ in range(C)]
+        self.groups = [list(g) for g in meta.get('groups',
+                                                 [[i] for i in range(C)])]
+        bounds = meta.get('boundaries', [np.zeros(0, np.int64)] * C)
+        self._set_geometry([
+            np.diff(np.concatenate(([0], np.asarray(b, np.int64),
+                                    [lengths[i]]))).tolist()
+            for i, b in enumerate(bounds)
+        ])
+        self.num_source_chunks = sum(len(g) for g in self.groups)
         return self
 
     def _auto_num_limbs(self) -> int:
-        """Most limb planes (at most RAW_LIMBS, at least 1) whose resident
-        footprint fits the device: per row text (1 B) + SA (4 B) + one int32
-        per plane per slot, plus the seed table and one pack scratch row."""
+        """Most limb planes (at most RAW_LIMBS, at least 1) whose footprint
+        fits the device.  Resident per row: text (1 B) + SA (4 B) + one
+        int32 per plane per slot, plus the seed table; besides that one
+        pack scratch row, and in derive mode one row's SA-build scratch
+        (sort keys, values and their double buffers, the working rank and
+        group starts; ops/suffix_array.SA_BUILD_BYTES_PER_SLOT)."""
         C = max(self.num_chunks, 1)
         table_bytes = 4 * (self._base ** self._depth + 1)
         fixed = C * (5 * self.n_pad + table_bytes) + 4 * self.n_pad
+        if self.mode == 'derive':
+            fixed += SA_BUILD_BYTES_PER_SLOT * self.n_pad
         fit = (_device_budget(self.device) - fixed) // (4 * C * self.n_pad)
         return int(max(1, min(search_ops.RAW_LIMBS, fit)))
 
     def boundary_crossings(self, patterns: np.ndarray,
                            lengths: np.ndarray) -> np.ndarray:
-        """int32 [C, B] occurrences that span a source-chunk boundary: all
-        zero, since every row is one container chunk."""
-        return np.zeros((self.num_chunks, patterns.shape[0]), dtype=np.int32)
+        """int32 [C, B]: occurrences counted by a merged-row probe that
+        span a source-chunk boundary (not matches: the reference never
+        matches across chunks).
+
+        Every source chunk ends with ``\\n`` (Writer invariant), so a
+        crossing occurrence contains a newline; patterns without one are
+        exact for free.  For the rest, occurrences are counted in the
+        2L-2 byte window around each boundary with an overlapping find; an
+        occurrence spanning several boundaries is attributed to the first
+        one it crosses (counted once)."""
+        patterns = np.asarray(patterns)
+        lengths = np.asarray(lengths)
+        B = patterns.shape[0]
+        out = np.zeros((self.num_chunks, B), dtype=np.int32)
+        if not self.merged or B == 0:
+            return out
+        jpos = np.arange(patterns.shape[1])[None, :]
+        has_nl = ((patterns == 0x0A) & (jpos < lengths[:, None])).any(axis=1)
+        for bi in np.flatnonzero(has_nl):
+            L = int(lengths[bi])
+            if L < 2:
+                continue
+            pat = patterns[bi, :L].tobytes()
+            for r, ends in enumerate(self.boundaries):
+                if ends.size == 0:
+                    continue
+                data = self.row_data[r].tobytes()
+                total = 0
+                prev = 0
+                for e in ends.tolist():
+                    start = max(prev, e - L + 1)
+                    window = data[start: e + L - 1]
+                    o = window.find(pat)
+                    while o != -1:
+                        if start + o <= e - 1:  # starts before the boundary
+                            total += 1
+                        o = window.find(pat, o + 1)
+                    prev = e
+                out[r, bi] = total
+        return out
 
     def count_matches(self, patterns: np.ndarray,
                       lengths: np.ndarray) -> np.ndarray:
-        """int32 [C, B] exact per-row match counts."""
+        """int32 [C, B] exact per-row match counts: the probe's counts
+        minus the boundary crossings of merged rows."""
         _, cnt = self.probe(patterns, lengths)
         return cnt - self.boundary_crossings(patterns, lengths)
 
@@ -247,7 +397,9 @@ class DeviceIndex:
         lengths: np.ndarray,  # int32 [B]
     ) -> typing.Tuple[np.ndarray, np.ndarray]:
         """(lower, count) int32 [C, B] host arrays: the SA range of each
-        pattern's matches in each row, from one probe launch."""
+        pattern's matches in each row, from one probe launch.  On a merged
+        row the count includes occurrences that span a source-chunk
+        boundary (see :meth:`boundary_crossings`)."""
         patterns = np.asarray(patterns, dtype=np.uint8)
         lengths = np.asarray(lengths, dtype=np.int32)
         B = patterns.shape[0]

@@ -1,15 +1,20 @@
 """Build and bind the hand-written CUDA kernels in ``csrc/``.
 
-The sources are compiled at first use with ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, written to
-the package's ignored ``_build/`` directory, and loaded with ctypes.  Every
-C entry point launches on the stream it is given (PyTorch's current stream)
-and returns ``cudaGetLastError()``; :func:`launch` raises when that is not
-0 and counts the launch.
+Every ``csrc/*.cu`` is compiled at first use with ``nvcc`` for Hopper
+(``sm_90a``), one ``nvcc -c`` per source, all started together, and the
+objects are linked into one shared library with a plain C interface,
+written to the package's ignored ``_build/`` directory and loaded with
+ctypes.  An object is rebuilt when its source is newer, the library when
+any object is.  Every C entry point launches on the stream it is given
+(PyTorch's current stream) and returns ``cudaGetLastError()``;
+:func:`launch` raises when that is not 0 and counts the launch.
 
-``LAUNCHES`` holds one count per kernel.  Only :func:`launch` adds to it,
-once per kernel launch, so a run can show which kernels its path went
-through.
+``LAUNCHES`` holds one count per entry point.  Only :func:`launch` adds to
+it, once per call, so a run can show which kernels its path went through.
+
+:func:`route` and :func:`check` are the wrappers' shared guards: a wrapper
+takes its plain PyTorch version only for tensors on the CPU, and launches
+its kernel (or raises) for tensors on a CUDA device.
 """
 
 from __future__ import annotations
@@ -21,16 +26,16 @@ import shutil
 import subprocess
 import threading
 import typing
+from concurrent.futures import ThreadPoolExecutor
 
 from .native import BUILD_DIR, compile_once
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), 'csrc')
 _SO = os.path.join(BUILD_DIR, 'libpss_kernels.so')
-_NVCC_FLAGS = [
-    '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-    '-shared', '-Xcompiler', '-fPIC',
-]
+_ARCH = ['-gencode', 'arch=compute_90a,code=sm_90a']
+_COMPILE_FLAGS = _ARCH + ['-std=c++17', '-O3', '-Xcompiler', '-fPIC', '-c']
+_LINK_FLAGS = _ARCH + ['-shared']
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,7 +55,26 @@ _SIGNATURES: typing.Dict[str, list] = {
     'pss_probe_phased': [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _L, _L, _I, _I, _I, _I,
                          _P, _P, _P],
+    # sa, lower, count, offsets, B, pos, qid, stream
+    'pss_gather_hits_flat': [_P, _P, _P, _P, _I, _P, _P, _P],
+    # in, out, n, scratch, stream
+    'pss_scan_exclusive_sum': [_P, _P, _L, _P, _P],
+    'pss_scan_inclusive_max': [_P, _P, _L, _P, _P],
+    # keys, vals, n, key_bits, scratch, stream
+    'pss_radix_sort_pairs': [_P, _P, _L, _I, _P, _P],
+    # text, N, n, rank_map, bits, sa, rank, gs, scratch, stream
+    'pss_sa_init_ranked': [_P, _L, _L, _P, _I, _P, _P, _P, _P, _P],
+    # gs, N, flags, dest, scratch, stream
+    'pss_sa_tie_scan': [_P, _L, _P, _P, _P, _P],
+    # sa, rank, gs, N, k, m, flags, dest, scratch, stream
+    'pss_sa_refine_round': [_P, _P, _P, _L, _L, _L, _P, _P, _P, _P],
+    # sa_full, N, n, out, stream
+    'pss_sa_roll_front': [_P, _L, _L, _P, _P],
 }
+
+#: Scratch sizers: pss_<name>_scratch_bytes(count) -> bytes.  Host
+#: functions; they launch nothing and are not counted.
+_SCRATCH = ('scan', 'radix_sort', 'sa_init', 'sa_tie', 'sa_refine')
 
 #: Kernel name (the C entry point without its prefix) -> launches so far.
 LAUNCHES: typing.Dict[str, int] = {
@@ -71,6 +95,28 @@ def nvcc_path() -> str:
     raise RuntimeError('nvcc not found: the CUDA kernels cannot be built')
 
 
+def _build() -> str:
+    sources = sorted(glob.glob(os.path.join(_CSRC, '*.cu')))
+    if not sources:
+        raise RuntimeError(f'no kernel sources in {_CSRC}')
+    nvcc = nvcc_path()
+    objects = [
+        os.path.join(BUILD_DIR, os.path.basename(s)[:-len('.cu')] + '.o')
+        for s in sources
+    ]
+    try:
+        with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+            futures = [
+                pool.submit(compile_once, [src], obj, [nvcc] + _COMPILE_FLAGS)
+                for src, obj in zip(sources, objects)
+            ]
+            for f in futures:
+                f.result()
+        return compile_once(objects, _SO, [nvcc] + _LINK_FLAGS)
+    except subprocess.CalledProcessError as exc:
+        raise RuntimeError(f'nvcc failed:\n{exc.stderr[-4000:]}') from exc
+
+
 def library() -> ctypes.CDLL:
     """The kernel library, built on first call.  Raises if it cannot be
     built or loaded."""
@@ -78,18 +124,15 @@ def library() -> ctypes.CDLL:
     with _LOCK:
         if _LIB is not None:
             return _LIB
-        sources = sorted(glob.glob(os.path.join(_CSRC, '*.cu')))
-        if len(sources) != 1:
-            raise RuntimeError(f'expected one kernel source in {_CSRC}')
-        try:
-            so = compile_once(sources[0], _SO, [nvcc_path()] + _NVCC_FLAGS)
-        except subprocess.CalledProcessError as exc:
-            raise RuntimeError(f'nvcc failed:\n{exc.stderr[-4000:]}') from exc
-        lib = ctypes.CDLL(so)
+        lib = ctypes.CDLL(_build())
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        for name in _SCRATCH:
+            fn = getattr(lib, f'pss_{name}_scratch_bytes')
+            fn.argtypes = [_L]
+            fn.restype = _L
         _LIB = lib
         return _LIB
 
@@ -108,6 +151,41 @@ def launch(name: str, *args) -> None:
     LAUNCHES[name] += 1
 
 
+def scratch(name: str, count: int, device):
+    """An uninitialised uint8 scratch tensor on ``device`` of the size
+    ``pss_<name>_scratch_bytes(count)`` asks for."""
+    import torch
+
+    size = getattr(library(), f'pss_{name}_scratch_bytes')(int(count))
+    return torch.empty(size, dtype=torch.uint8, device=device)
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def route(*tensors) -> bool:
+    """True for the CUDA kernel, False for the plain version (CPU tensors);
+    raises on mixed or other devices."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(
+            f'tensors on several devices: {sorted(map(str, devs))}'
+        )
+    dev = devs.pop()
+    if dev.type == 'cpu':
+        return False
+    if dev.type != 'cuda':
+        raise ValueError(f'no kernel for device {dev}')
+    return True
+
+
+def check(t, name: str, dtype, ndim: int) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``ndim``
+    dimensions, as the kernels take it."""
+    if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
+        raise ValueError(
+            f'{name}: want contiguous {dtype} of {ndim} dims, got '
+            f'{t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}'
+        )

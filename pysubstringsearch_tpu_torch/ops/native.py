@@ -53,18 +53,21 @@ def _warn_build_failed(src: str, exc: BaseException) -> None:
     )
 
 
-def compile_once(src: str, so: str, cmd: typing.List[str]) -> str:
-    """Build ``so`` from ``src`` with ``cmd + ['-o', tmp, src]`` unless an
-    up-to-date build exists; the output is renamed into place atomically.
-    Raises ``OSError`` or ``subprocess.SubprocessError`` (with the
-    compiler's output) when the build fails."""
-    if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+def compile_once(srcs: typing.Sequence[str], so: str,
+                 cmd: typing.List[str]) -> str:
+    """Build ``so`` from ``srcs`` with ``cmd + ['-o', tmp, *srcs]`` unless a
+    build newer than every source exists; the output is renamed into place
+    atomically.  Raises ``OSError`` or ``subprocess.SubprocessError`` (with
+    the compiler's output) when the build fails."""
+    if os.path.exists(so) and all(
+        os.path.getmtime(so) >= os.path.getmtime(s) for s in srcs
+    ):
         return so
     os.makedirs(os.path.dirname(so), exist_ok=True)
     tmp = f'{so}.{os.getpid()}.{threading.get_ident()}.tmp'
     try:
         subprocess.run(
-            cmd + ['-o', tmp, src], check=True, capture_output=True,
+            cmd + ['-o', tmp, *srcs], check=True, capture_output=True,
             text=True, timeout=600,
         )
         os.replace(tmp, so)
@@ -83,7 +86,7 @@ def _load() -> typing.Optional[ctypes.CDLL]:
         _TRIED = True
         try:
             lib = ctypes.CDLL(compile_once(
-                _SAIS_SRC, os.path.join(BUILD_DIR, 'libpss_host.so'),
+                [_SAIS_SRC], os.path.join(BUILD_DIR, 'libpss_host.so'),
                 ['g++', '-O3', '-std=c++17', '-shared', '-fPIC',
                  '-march=native', '-pthread'],
             ))
@@ -155,7 +158,7 @@ def fastext():
 
         try:
             so = compile_once(
-                _FASTEXT_SRC, os.path.join(BUILD_DIR, '_fastext.so'),
+                [_FASTEXT_SRC], os.path.join(BUILD_DIR, '_fastext.so'),
                 ['gcc', '-O2', '-shared', '-fPIC', f'-I{inc}'],
             )
             spec = importlib.util.spec_from_file_location(

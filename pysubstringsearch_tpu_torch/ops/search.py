@@ -22,13 +22,15 @@ A probe seeds its range from the table, bisects limb by limb through tie
 ranges, and compares raw bytes for patterns longer than the packed
 coverage.
 
-Four device functions carry the index; each is a CUDA kernel
+Five device functions carry the index; each is a CUDA kernel
 (``csrc/search_kernels.cu``) with a plain PyTorch version beside it:
 
 - :func:`ranked_pack`   (K1): next rank digits of every text position;
 - :func:`ranked_limb_planes` (K2): all limb planes in SA order;
 - :func:`seed_table`    (K3): the seed table from the pack;
-- :func:`probe_phased`  (K4): the phased probe.
+- :func:`probe_phased`  (K4): the phased probe;
+- :func:`gather_hits_flat` (B8): a merged row's hits as flat (position,
+  query) pairs.
 
 Each wrapper takes its plain version only for a tensor on the CPU.  On a
 CUDA tensor it launches the kernel or raises.
@@ -42,6 +44,7 @@ import numpy as np
 import torch
 
 from . import kernels
+from .suffix_array import scan_exclusive_sum
 
 #: Digit space for byte ranks in the full-byte seed table: byte b -> b + 1,
 #: past-the-end -> 0, and 257 as the +infinity digit.
@@ -268,28 +271,6 @@ def host_probe_bounds(data: bytes, sa: np.ndarray, pattern: bytes):
 # Device functions: kernel wrappers and their plain PyTorch versions
 # ---------------------------------------------------------------------------
 
-def _route(*tensors: torch.Tensor) -> bool:
-    """True for the CUDA kernel, False for the plain version (CPU tensors);
-    raises on mixed or other devices."""
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f'tensors on several devices: {sorted(map(str, devs))}')
-    dev = devs.pop()
-    if dev.type == 'cpu':
-        return False
-    if dev.type != 'cuda':
-        raise ValueError(f'no kernel for device {dev}')
-    return True
-
-
-def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
-    if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
-        raise ValueError(
-            f'{name}: want contiguous {dtype} of {ndim} dims, got '
-            f'{t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}'
-        )
-
-
 def ranked_pack_plain(text: torch.Tensor, n: int, rank: torch.Tensor,
                       bits: int) -> torch.Tensor:
     """Plain version of K1: int32 [N], position p's next ``30 // bits``
@@ -312,12 +293,12 @@ def ranked_pack(text: torch.Tensor, n: int, rank: torch.Tensor, bits: int,
     N = text.shape[0]
     if out is None:
         out = torch.empty(N, dtype=torch.int32, device=text.device)
-    if not _route(text, rank, out):
+    if not kernels.route(text, rank, out):
         out.copy_(ranked_pack_plain(text, n, rank, bits))
         return out
-    _check(text, 'text', torch.uint8, 1)
-    _check(rank, 'rank', torch.int32, 1)
-    _check(out, 'out', torch.int32, 1)
+    kernels.check(text, 'text', torch.uint8, 1)
+    kernels.check(rank, 'rank', torch.int32, 1)
+    kernels.check(out, 'out', torch.int32, 1)
     if out.shape[0] != N or rank.shape[0] != 256 or bits not in (5, 6):
         raise ValueError('ranked_pack: bad shapes or bits')
     with torch.cuda.device(text.device):
@@ -352,13 +333,13 @@ def ranked_limb_planes(packed: torch.Tensor, sa: torch.Tensor, n: int,
     if out is None:
         out = torch.empty(num_limbs * N, dtype=torch.int32,
                           device=packed.device)
-    if not _route(packed, sa, out):
+    if not kernels.route(packed, sa, out):
         out.copy_(ranked_limb_planes_plain(packed, sa, n, depth, bits,
                                            num_limbs))
         return out
-    _check(packed, 'packed', torch.int32, 1)
-    _check(sa, 'sa', torch.int32, 1)
-    _check(out, 'out', torch.int32, 1)
+    kernels.check(packed, 'packed', torch.int32, 1)
+    kernels.check(sa, 'sa', torch.int32, 1)
+    kernels.check(out, 'out', torch.int32, 1)
     if sa.shape[0] != N or out.shape[0] != num_limbs * N:
         raise ValueError('ranked_limb_planes: bad shapes')
     with torch.cuda.device(packed.device):
@@ -392,12 +373,12 @@ def seed_table(packed: torch.Tensor, sa: torch.Tensor, n: int, base: int,
     size = base ** depth + 1
     if out is None:
         out = torch.empty(size, dtype=torch.int32, device=packed.device)
-    if not _route(packed, sa, out):
+    if not kernels.route(packed, sa, out):
         out.copy_(seed_table_plain(packed, sa, n, base, depth, bits))
         return out
-    _check(packed, 'packed', torch.int32, 1)
-    _check(sa, 'sa', torch.int32, 1)
-    _check(out, 'out', torch.int32, 1)
+    kernels.check(packed, 'packed', torch.int32, 1)
+    kernels.check(sa, 'sa', torch.int32, 1)
+    kernels.check(out, 'out', torch.int32, 1)
     if out.shape[0] != size:
         raise ValueError('seed_table: bad output shape')
     shift = (ranked_limb_bytes(bits) - depth) * bits
@@ -565,7 +546,7 @@ def probe_phased(text, n, sa, tables, limbs, rank, present, patterns,
     """
     C, N = text.shape
     B, L = patterns.shape
-    if not _route(text, n, sa, tables, limbs, rank, present, patterns,
+    if not kernels.route(text, n, sa, tables, limbs, rank, present, patterns,
                   lengths):
         return probe_phased_plain(text, n, sa, tables, limbs, rank, present,
                                   patterns, lengths, num_limbs, base, depth,
@@ -578,7 +559,7 @@ def probe_phased(text, n, sa, tables, limbs, rank, present, patterns,
         (patterns, 'patterns', torch.uint8, 2),
         (lengths, 'lengths', torch.int32, 1),
     ):
-        _check(t, name, dt, nd)
+        kernels.check(t, name, dt, nd)
     table_len = base ** depth + 1
     if (sa.shape != (C, N) or tables.shape != (C, table_len)
             or limbs.shape != (C, num_limbs * N) or n.shape[0] != C
@@ -597,3 +578,52 @@ def probe_phased(text, n, sa, tables, limbs, rank, present, patterns,
             lower.data_ptr(), count.data_ptr(),
         )
     return lower, count
+
+
+def gather_hits_flat_plain(sa_row: torch.Tensor, lower: torch.Tensor,
+                           count: torch.Tensor):
+    """Plain version of B8: (pos, qid) int32 [sum(count)], query q's SA
+    range ``sa_row[lower[q] : lower[q] + count[q]]`` at the exclusive
+    prefix sum of the counts, with q beside every position."""
+    dev = sa_row.device
+    count = count.long()
+    T = int(count.sum())
+    qid = torch.repeat_interleave(
+        torch.arange(count.shape[0], device=dev), count
+    )
+    starts = torch.cumsum(count, 0) - count
+    slot = lower.long()[qid] + torch.arange(T, device=dev) - starts[qid]
+    return sa_row[slot].to(torch.int32), qid.to(torch.int32)
+
+
+def gather_hits_flat(sa_row: torch.Tensor, lower: torch.Tensor,
+                     count: torch.Tensor):
+    """B8, flat hit gather: (pos, qid) int32 tensors of exactly
+    ``sum(count)`` entries for one row's int32 [N] SA and a batch's int32
+    [B] bounds (see :func:`gather_hits_flat_plain`).  The offsets are the
+    scan kernel's exclusive sum of ``count``; reading their total is the
+    one host synchronisation.  The total must stay below 2^31."""
+    if not kernels.route(sa_row, lower, count):
+        return gather_hits_flat_plain(sa_row, lower, count)
+    kernels.check(sa_row, 'sa_row', torch.int32, 1)
+    kernels.check(lower, 'lower', torch.int32, 1)
+    kernels.check(count, 'count', torch.int32, 1)
+    B = lower.shape[0]
+    if count.shape[0] != B:
+        raise ValueError('gather_hits_flat: lower and count differ in length')
+    dev = sa_row.device
+    if B == 0:
+        empty = torch.empty(0, dtype=torch.int32, device=dev)
+        return empty, empty.clone()
+    offsets = scan_exclusive_sum(count)
+    total = int(offsets[B])
+    if total < 0:
+        raise ValueError('gather_hits_flat: the hit total overflows int32')
+    pos = torch.empty(total, dtype=torch.int32, device=dev)
+    qid = torch.empty(total, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        kernels.launch('gather_hits_flat', sa_row.data_ptr(),
+                       lower.data_ptr(), count.data_ptr(),
+                       offsets.data_ptr(), B, pos.data_ptr(),
+                       qid.data_ptr())
+    return pos, qid

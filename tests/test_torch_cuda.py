@@ -18,6 +18,8 @@ from pysubstringsearch_tpu_torch.container import Chunk
 from pysubstringsearch_tpu_torch.models.index import DeviceIndex
 from pysubstringsearch_tpu_torch.ops import kernels
 from pysubstringsearch_tpu_torch.ops import search as S
+from pysubstringsearch_tpu_torch.ops import suffix_array as SA
+from pysubstringsearch_tpu_torch.ops.native import suffix_array_native
 from pysubstringsearch_tpu_torch.ops.suffix_array import (
     _pad_len,
     suffix_array_numpy,
@@ -95,20 +97,30 @@ def test_aux_kernels_match_plain(cuda, kind, depth, K):
     assert np.array_equal(limbs.cpu().numpy(), host)
 
 
-@pytest.mark.parametrize('kind', ['ranked', 'ranked6', 'nul', 'raw'])
-def test_index_and_probe_match_cpu(cuda, kind):
+@pytest.mark.parametrize('kind, mode', [
+    ('ranked', 'upload'), ('ranked6', 'upload'), ('nul', 'upload'),
+    ('raw', 'upload'), ('ranked', 'derive'), ('ranked6', 'derive'),
+    ('nul', 'derive'),
+])
+def test_index_and_probe_match_cpu(cuda, kind, mode):
     """A multi-row index built on the card equals the CPU one array for
-    array, and the probe kernel equals the plain probe for every (row,
-    pattern), lower bounds included."""
+    array (in derive mode: the SA built by B1 and B2 over a merged row),
+    and the probe kernel equals the plain probe for every (row, pattern),
+    lower bounds included."""
     bodies = [_body(kind, m, s) for s, m in enumerate((30_000, 777, 52_000))]
     chunks = [Chunk(data=b, suffix_array=suffix_array_numpy(b))
               for b in bodies]
-    gpu = DeviceIndex(chunks, device=cuda)
-    cpu = DeviceIndex(chunks, device='cpu')
+    gpu = DeviceIndex(chunks, device=cuda, mode=mode)
+    cpu = DeviceIndex(chunks, device='cpu', mode=mode)
     torch.cuda.synchronize()
+    assert gpu.merged == (mode == 'derive') and gpu.groups == cpu.groups
     for name in ('text', 'lengths', 'sa', 'tables', 'limbs', 'rank',
                  'present'):
         assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), name
+    if mode == 'derive':
+        n = gpu.row_data[0].size
+        assert np.array_equal(gpu.sa[0, :n].cpu().numpy(),
+                              suffix_array_numpy(gpu.row_data[0]))
     packed, lengths = S.pack_patterns(_patterns(bodies, 2))
     before = kernels.LAUNCHES['probe_phased']
     lo_g, cnt_g = gpu.probe(packed, lengths)
@@ -134,6 +146,103 @@ def test_reader_on_card_matches_cpu_reader(cuda, tmp_path):
     pats += ['', '\n', 'zzqqzzqq', lines[5].decode() + '\n' + lines[6][:3].decode()]
     gpu = pss.Reader(path)
     assert gpu.wait_device_ready(timeout=300)
+    assert gpu._index.mode == 'derive' and gpu._index.merged
     cpu = pss.Reader(path, device='cpu')
+    before = kernels.LAUNCHES['gather_hits_flat']
     assert collections.Counter(gpu.search_multiple(pats)) == \
         collections.Counter(cpu.search_multiple(pats))
+    assert kernels.LAUNCHES['gather_hits_flat'] > before
+    up = pss.Reader(path, index_mode='upload')
+    assert up.wait_device_ready(timeout=300) and up._index.mode == 'upload'
+    assert collections.Counter(up.search_multiple(pats)) == \
+        collections.Counter(cpu.search_multiple(pats))
+
+
+@pytest.mark.parametrize('n', [1, (1 << 20) + 7, 1 << 24])
+def test_radix_sort_matches_stable_torch_sort(cuda, n):
+    g = torch.Generator(device='cpu').manual_seed(n)
+    hi = torch.randint(0, 97, (n,), generator=g, dtype=torch.int64)
+    lo = torch.randint(0, 5, (n,), generator=g, dtype=torch.int64)
+    keys = ((hi << 50) | lo).to(cuda)  # many duplicates, 57 key bits
+    vals = torch.arange(n, dtype=torch.int32, device=cuda)
+    ref_k, order = torch.sort(keys, stable=True)
+    before = kernels.LAUNCHES['radix_sort_pairs']
+    ks, vs = SA.radix_sort_pairs(keys.clone(), vals.clone(), 57)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES['radix_sort_pairs'] == before + 1
+    assert torch.equal(ks, ref_k)
+    assert torch.equal(vs, order.to(torch.int32))
+
+
+@pytest.mark.parametrize('n', [1, 2049, (1 << 22) + 5])
+def test_scans_match_cumsum_and_cummax(cuda, n):
+    g = torch.Generator(device='cpu').manual_seed(n)
+    x = torch.randint(-50, 1000, (n,), generator=g,
+                      dtype=torch.int32).to(cuda)
+    ex = SA.scan_exclusive_sum(x)
+    assert ex.shape == (n + 1,) and int(ex[0]) == 0
+    assert torch.equal(ex[1:], torch.cumsum(x, 0).to(torch.int32))
+    assert torch.equal(SA.scan_inclusive_max(x),
+                       torch.cummax(x, 0).values)
+
+
+def _word_row(size, seed, device):
+    rng = np.random.default_rng(seed)
+    vocab = [bytes(rng.integers(97, 123, size=int(l), dtype=np.uint8))
+             for l in rng.integers(2, 7, size=300)]
+    data = np.frombuffer(b' '.join(vocab[i] for i in rng.integers(
+        0, 300, size=size // 4))[:size], dtype=np.uint8)
+    n = data.size
+    N = _pad_len(n + S.PAD_MARGIN)
+    pres = np.bincount(data, minlength=256)[:256] > 0
+    rank, sigma = S.alphabet_rank(pres)
+    text = torch.zeros(N, dtype=torch.uint8, device=device)
+    text[:n] = torch.from_numpy(data.copy())
+    return data, text, n, torch.from_numpy(rank).to(device), \
+        S.ranked_bits(sigma)
+
+
+@pytest.mark.parametrize('size', [50_000, 3_000_000])
+def test_sa_kernels_match_plain(cuda, size):
+    data, text, n, rank, bits = _word_row(size, size, cuda)
+    before = dict(kernels.LAUNCHES)
+    init = SA.sa_init_ranked(text, n, rank, bits)
+    plain = SA.sa_init_ranked_plain(text, n, rank, bits)
+    for a, b in zip(init, plain):
+        assert torch.equal(a, b)
+    k = 2 * (30 // bits)
+    state = [t.clone() for t in init]
+    m = SA.sa_refine_round(*state, k)
+    pm = SA.sa_refine_round_plain(*plain, k)
+    assert m == pm > 0
+    for a, b in zip(state, plain):
+        assert torch.equal(a, b)
+    sa, ties = SA.derive_sa(text, n, rank, bits)
+    psa, pties = SA.derive_sa_plain(text, n, rank, bits)
+    torch.cuda.synchronize()
+    assert ties == pties and ties[0] == m
+    assert torch.equal(sa, psa)
+    assert np.array_equal(sa[:n].cpu().numpy(), suffix_array_native(data))
+    for name in ('sa_init_ranked', 'sa_tie_scan', 'sa_refine_round',
+                 'sa_roll_front'):
+        assert kernels.LAUNCHES[name] > before[name], name
+
+
+def test_gather_hits_flat_matches_plain(cuda):
+    rng = np.random.default_rng(9)
+    N = 1 << 20
+    sa_row = torch.from_numpy(rng.permutation(N).astype(np.int32)).to(cuda)
+    B = 5000
+    lower = rng.integers(0, N - 5000, size=B).astype(np.int32)
+    count = rng.integers(0, 5000, size=B).astype(np.int32)
+    count[::4] = 0
+    lo = torch.from_numpy(lower).to(cuda)
+    cnt = torch.from_numpy(count).to(cuda)
+    before = kernels.LAUNCHES['gather_hits_flat']
+    pos, qid = S.gather_hits_flat(sa_row, lo, cnt)
+    ppos, pqid = S.gather_hits_flat_plain(sa_row, lo, cnt)
+    assert kernels.LAUNCHES['gather_hits_flat'] == before + 1
+    assert pos.shape == (int(count.sum()),)
+    assert torch.equal(pos, ppos) and torch.equal(qid, pqid)
+    empty = torch.zeros(0, dtype=torch.int32, device=cuda)
+    assert S.gather_hits_flat(sa_row, empty, empty)[0].shape == (0,)

@@ -108,8 +108,12 @@ def test_unported_modes_raise():
     chunk = Chunk(data=body, suffix_array=suffix_array_numpy(body))
     with pytest.raises(NotImplementedError, match='B11'):
         DeviceIndex([chunk], device='cpu')
-    with pytest.raises(NotImplementedError, match='B1'):
+    with pytest.raises(NotImplementedError, match='B11'):
         DeviceIndex([chunk], device='cpu', mode='derive')
+    raw = np.where(body == 0, 1, body).astype(np.uint8)  # NUL-free
+    raw_chunk = Chunk(data=raw, suffix_array=suffix_array_numpy(raw))
+    with pytest.raises(NotImplementedError, match='B12'):
+        DeviceIndex([raw_chunk], device='cpu', mode='derive')
     with pytest.raises(ValueError):
         DeviceIndex([chunk], device='cpu', mode='sideways')
 
