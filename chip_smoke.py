@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with a CUDA card:
 
-    python3 chip_smoke.py            # 500 MB corpus, 10k + 200 patterns
+    python3 chip_smoke.py            # 500 MB corpora, 10k + 200 patterns
 
 Phases (any failure raises and exits non-zero):
 
@@ -21,20 +21,34 @@ Phases (any failure raises and exits non-zero):
 4. each kernel against its plain PyTorch version on the card, on the
    index's own tensors, equal exactly, both timed with CUDA events: K1-K3
    and B1 and one B2 round on row 0, K4 and B8 on every row x the whole
-   batch, the whole ``derive_sa`` of every row (and row 0's SA against the
-   host's native SA-IS), and K4 on a small raw-kind index;
+   batch, and the whole ``derive_sa`` of every row;
 5. the device path's answers against the host native path's: per-pattern
-   counts summed over rows and chunks, result-list lengths for every
-   pattern, result multisets for a sample of 200, and one pattern across
-   every container chunk boundary (which a merged row must not match);
+   counts summed over rows and chunks, the line total of
+   ``search_multiple`` against one timed ``HostServing.search`` of the
+   batch, every pattern's result length, result multisets for a sample of
+   200, and one pattern across every container chunk boundary (which a
+   merged row must not match);
 6. serving numbers: probe p50 for the whole batch, the device probe
-   against the native host probe for batches of 1-8 patterns, one timing
-   of ``HostServing.search`` on the whole batch, the split of the device
-   load, and where row 0's line extraction goes;
+   against the native host probe for batches of 1-8 patterns, the split
+   of the device load, and where row 0's line extraction goes;
 7. the upload path (``Reader(path, index_mode='upload')``) after the derive
    Reader is freed: launch counts from 0, K1-K4 against their plain
    versions, counts against the host, and the same serving numbers;
-8. one JSON line of kernels, the card's name and power limit, and the
+8. the raw kind after the upload Reader is freed: ``make_raw_corpus(--mb)``
+   (``make_corpus`` with word bytes 33-126, so 96 distinct bytes and no
+   NUL) in a container of its own; launch counts from 0, then ``Reader``
+   derives it over merged rows (SA by B1b and B2 from k = 6, tables by K7
+   and K3, limbs by K5 and K6) and answers the same kind of batch plus a
+   few patterns holding NUL or a byte >= 0x80; B1b, one B2 round, K5, K6,
+   K7 and K3 against their plain versions on row 0, timed; every row's
+   ``derive_sa`` against its plain version and row 0's SA against the
+   host's native SA-IS; K4 and B8 on every row against their plain
+   versions; the answers against the host as in 5; probe p50; and two
+   small full-byte chunks (255 distinct bytes), derived on the card (SA
+   against native SA-IS, K7 with K3 at base 258, K4) and uploaded (K5-K7
+   and K3 launched once a chunk, row 0's table and limbs against the host
+   builders, K4);
+9. one JSON line of kernels, the card's name and power limit, and the
    result line ``{"ok": true, "device": {...}}`` last.
 
 It exits non-zero, printing no result, when CUDA is unavailable or when
@@ -59,6 +73,11 @@ PATH_KERNELS = ('ranked_pack', 'ranked_limb_planes', 'seed_table',
                 'gather_hits_flat')
 UPLOAD_KERNELS = ('ranked_pack', 'ranked_limb_planes', 'seed_table',
                   'probe_phased')
+#: Entry points the raw-kind derive path launches.
+RAW_KERNELS = ('sa_init_bytes', 'sa_tie_scan', 'sa_refine_round',
+               'sa_roll_front', 'seed_prefix', 'seed_table', 'raw_pack',
+               'raw_limb_planes', 'probe_phased', 'scan_exclusive_sum',
+               'gather_hits_flat')
 
 SEARCH_SRC = 'pysubstringsearch_tpu_torch/csrc/search_kernels.cu'
 SA_SRC = 'pysubstringsearch_tpu_torch/csrc/suffix_array_kernels.cu'
@@ -171,32 +190,29 @@ def main() -> int:
         f'{kernel_build_s:.2f} s')
 
     # ---- 2. corpus and container (host) ----
-    t0 = time.perf_counter()
-    corpus, _ = make_corpus(args.mb, args.seed)
-    log(f'corpus: {len(corpus)} bytes in {time.perf_counter() - t0:.1f} s')
     tmp_root = '/dev/shm' if os.path.isdir('/dev/shm') else None
     with tempfile.TemporaryDirectory(dir=tmp_root) as d:
-        corpus_path = os.path.join(d, 'corpus.txt')
-        idx_path = os.path.join(d, 'corpus.idx')
-        with open(corpus_path, 'wb') as f:
-            f.write(corpus)
-        t0 = time.perf_counter()
-        with pss.Writer(idx_path, max_chunk_len=args.chunk_mb << 20) as w:
-            w.add_entries_from_file_lines(corpus_path)
-        index_build_s = time.perf_counter() - t0
-        log(f'index build (Writer, native SA-IS): {index_build_s:.2f} s, '
-            f'{len(corpus) / 1e6 / index_build_s:.1f} MB/s')
-        os.remove(corpus_path)
-        pats = sample_patterns(corpus, args.queries)
-        del corpus
+        idx_path, index_build_s, pats = build_container(
+            pss, lambda: make_corpus(args.mb, args.seed)[0], d, 'corpus',
+            args)
         result = {'derive': run_derive(idx_path, pats, dev)}
         gc.collect()
         torch.cuda.empty_cache()
         result['upload'] = run_upload(idx_path, pats, dev)
+        os.remove(idx_path)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # ---- 8. the raw kind ----
+        raw_path, raw_build_s, raw_pats = build_container(
+            pss, lambda: make_raw_corpus(args.mb, args.seed), d, 'raw', args)
+        result['raw'] = run_raw(raw_path, raw_pats, dev,
+                                result['derive']['rows'])
     result['kernel_build_s'] = kernel_build_s
     result['index_build_s'] = index_build_s
+    result['raw_index_build_s'] = raw_build_s
     result['total_s'] = time.perf_counter() - t_start
-    kernel_rows = result['derive'].pop('kernels')
+    kernel_rows = (result['derive'].pop('kernels')
+                   + result['raw'].pop('kernels'))
     log('summary: ' + json.dumps(result))
     log(json.dumps({'kernels': kernel_rows}))
     log(card)
@@ -204,6 +220,66 @@ def main() -> int:
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))
     return 0
+
+
+def make_raw_corpus(mb, seed=0):
+    """``bench.make_corpus`` with one change: the 10,000 vocabulary words
+    draw their bytes from 33-126 instead of 97-122, so the corpus holds 96
+    distinct bytes (94 printable, space, newline) and no NUL, the raw kind.
+    Word lengths, the word indices and the lines are ``make_corpus``'s own:
+    its lowercase draw is replayed and dropped so the seeded index draw
+    lines up, and the word bytes come from a second generator."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    nwords = 10_000
+    word_len = rng.integers(3, 12, size=nwords)
+    for l in word_len:  # make_corpus's word draw, kept for its rng state
+        rng.integers(97, 123, size=l, dtype=np.uint8)
+    byte_rng = np.random.default_rng([seed, 33])
+    words = [byte_rng.integers(33, 127, size=l, dtype=np.uint8).tobytes()
+             for l in word_len]
+    target = mb * 1024 * 1024
+    widx = rng.integers(0, nwords, size=target // 4)
+    parts = []
+    size = 0
+    i = 0
+    line_words = []
+    while size < target:
+        line_words.append(words[widx[i]])
+        i += 1
+        if len(line_words) == 8:
+            line = b' '.join(line_words)
+            parts.append(line)
+            size += len(line) + 1
+            line_words = []
+    return b'\n'.join(parts) + b'\n'
+
+
+def build_container(pss, make, d, name, args):
+    """Make a corpus with ``make()`` and write it with the port's Writer in
+    ``--chunk-mb`` chunks; returns (container path, build seconds, the
+    sampled patterns)."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    corpus = make()
+    sigma = np.count_nonzero(np.bincount(np.frombuffer(corpus, np.uint8),
+                                         minlength=256))
+    log(f'{name}: {len(corpus)} bytes, {sigma} distinct, made in '
+        f'{time.perf_counter() - t0:.1f} s')
+    corpus_path = os.path.join(d, f'{name}.txt')
+    idx_path = os.path.join(d, f'{name}.idx')
+    with open(corpus_path, 'wb') as f:
+        f.write(corpus)
+    t0 = time.perf_counter()
+    with pss.Writer(idx_path, max_chunk_len=args.chunk_mb << 20) as w:
+        w.add_entries_from_file_lines(corpus_path)
+    build_s = time.perf_counter() - t0
+    log(f'{name} index build (Writer, native SA-IS): {build_s:.2f} s, '
+        f'{len(corpus) / 1e6 / build_s:.1f} MB/s')
+    os.remove(corpus_path)
+    return idx_path, build_s, sample_patterns(corpus, args.queries)
 
 
 def sample_patterns(corpus, nq):
@@ -222,8 +298,12 @@ def sample_patterns(corpus, nq):
     return pats
 
 
-def check_answers(r, idx, pats, packed_np, lengths_np):
-    """The device path's answers against the host native path's."""
+def check_answers(r, idx, pats, packed_np, lengths_np, total_lines):
+    """The device path's answers against the host native path's: counts
+    for every pattern, ``search_multiple``'s line total (``total_lines``)
+    against ``HostServing.search`` of the batch, which is timed once here,
+    every pattern's result length, and result multisets for a sample of
+    200 patterns.  Returns the host search's seconds."""
     import numpy as np
 
     from pysubstringsearch_tpu_torch.ops.hostserve import pack_patterns_host
@@ -243,31 +323,73 @@ def check_answers(r, idx, pats, packed_np, lengths_np):
         check(np.array_equal(lo_d[hit], lo_h[hit]), 'lower bounds equal')
     log(f'counts equal for all {cnt_h.shape[1]} patterns, '
         f'{int(cnt_h.sum())} suffix hits')
+    t0 = time.perf_counter()
+    host_lists = hs.search(pats)
+    host_search_s = time.perf_counter() - t0
+    host_lines = sum(map(len, host_lists))
+    log(f'HostServing.search({len(pats)}) on the host, one run: '
+        f'{host_search_s:.3f} s, {host_lines} lines')
+    check(total_lines == host_lines,
+          f'search_multiple returned {total_lines} lines, the host path '
+          f'{host_lines}')
     dev_lists = r._search_batch(pats)
-    host_lists = r._search_host_chunks(pats)
     check([len(x) for x in dev_lists] == [len(x) for x in host_lists],
           'per-pattern result lengths equal the host path')
     sample = np.random.default_rng(4).choice(len(pats), 200, replace=False)
     for i in sample:
         check(sorted(dev_lists[i]) == sorted(host_lists[i]),
               f'result multiset of pattern {i}')
-    log('result lengths equal for every pattern; multisets equal for a '
-        'sample of 200')
+    log('line total and every pattern\'s result length equal the host '
+        'path; multisets equal for a sample of 200')
+    return host_search_s
 
 
-def serving_numbers(r, idx, pats, packed_np, lengths_np):
+def check_boundaries(r, idx):
+    """One pattern across every container chunk boundary: a merged row's
+    crossing occurrences are dropped and the results equal the host
+    path's."""
+    import numpy as np
+
     from pysubstringsearch_tpu_torch.ops import search as S
     from pysubstringsearch_tpu_torch.ops.hostserve import pack_patterns_host
 
-    hs = r._host_serving
+    chunks = r._chunks
+    bpats = [chunks[c].data[-6:].tobytes() + chunks[c + 1].data[:6].tobytes()
+             for c in range(len(chunks) - 1)]
+    bp, bl = S.pack_patterns(bpats)
+    crossings = idx.boundary_crossings(bp, bl)
+    check(int(crossings.sum()) > 0, 'boundary patterns cross merged rows')
+    check(np.array_equal(idx.count_matches(bp, bl).sum(0),
+                         r._host_serving.probe(
+                             *pack_patterns_host(bpats))[1].sum(0)),
+          'boundary patterns: counts equal the host')
+    dev_b = r._search_batch(bpats)
+    host_b = r._search_host_chunks(bpats)
+    check([sorted(x) for x in dev_b] == [sorted(x) for x in host_b],
+          'boundary patterns: results equal the host path')
+    log(f'{len(bpats)} chunk-boundary patterns: {int(crossings.sum())} '
+        f'crossing occurrences dropped, results equal the host path')
+
+
+def probe_p50(idx, packed_np, lengths_np):
+    """Median of 21 probes of the whole batch, host arrays in and out."""
     ts = []
     for _ in range(21):
         t0 = time.perf_counter()
         idx.probe(packed_np, lengths_np)
         ts.append(time.perf_counter() - t0)
-    probe_p50_ms = sorted(ts)[len(ts) // 2] * 1e3
-    log(f'probe p50 ({len(pats)} patterns, host arrays in and out): '
-        f'{probe_p50_ms:.3f} ms')
+    p50 = sorted(ts)[len(ts) // 2] * 1e3
+    log(f'probe p50 ({packed_np.shape[0]} patterns, host arrays in and '
+        f'out): {p50:.3f} ms')
+    return p50
+
+
+def serving_numbers(r, idx, pats, packed_np, lengths_np, host_search_s):
+    from pysubstringsearch_tpu_torch.ops import search as S
+    from pysubstringsearch_tpu_torch.ops.hostserve import pack_patterns_host
+
+    hs = r._host_serving
+    probe_p50_ms = probe_p50(idx, packed_np, lengths_np)
     small = {}
     for b in (1, 2, 4, 8):
         sp, sl = S.pack_patterns(pats[:b])
@@ -281,11 +403,6 @@ def serving_numbers(r, idx, pats, packed_np, lengths_np):
     one_host = p50_ms(lambda: r._search_host_chunks([pats[1]]))
     log(f'search of 1 pattern end to end, p50 of 51: device route '
         f'{one_dev:.4f} ms, host route {one_host:.4f} ms')
-    t0 = time.perf_counter()
-    lists = hs.search(pats)
-    host_search_s = time.perf_counter() - t0
-    log(f'HostServing.search({len(pats)}) on the host, one run: '
-        f'{host_search_s:.3f} s, {sum(map(len, lists))} lines')
     return {'probe_p50_ms': probe_p50_ms, 'small_probe_ms': small,
             'search_1_ms': {'device': one_dev, 'host': one_host},
             'host_search_s': host_search_s}
@@ -314,6 +431,167 @@ def main_path(r, strs, pats, prof_keys):
     log('phases of search_multiple: ' + ', '.join(
         f'{k} {v:.3f} s' for k, v in phases.items()))
     return after, launches, e2e_s, phases, len(res)
+
+
+def kernel_check(label='', entries=None, launches=None):
+    """The ``entry(name, replaces, src, max_abs_err, ms, plain_ms)``
+    callback of the kernel comparisons: checks that the kernel equals its
+    plain version and logs both times; with ``entries`` it also appends the
+    kernel's row of the JSON line, its launch count taken from
+    ``launches``."""
+    def entry(name, replaces, src, e, ms, plain_ms):
+        check(e == 0, f'{label}{name} equals its plain version (max err {e})')
+        if entries is not None:
+            entries.append({
+                'name': name, 'route': 'cuda', 'source': src,
+                'replaces': replaces, 'launches': launches[name],
+                'max_abs_err': e, 'ms': ms, 'plain_ms': plain_ms,
+            })
+        log(f'{label}{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
+            f'max abs err {e}')
+    return entry
+
+
+def load_split(r, split, label):
+    """Seconds of the device load's phases ``split`` and of what lies
+    outside them."""
+    tot = r.profiler.totals
+    out = {k: tot[k] for k in split}
+    out['outside'] = tot['device-load'] - sum(out.values())
+    log(f'{label} load split: ' + ', '.join(
+        f'{k} {v:.3f} s' for k, v in out.items())
+        + f', of device-load {tot["device-load"]:.3f} s')
+    return out
+
+
+def open_derive(idx_path, pats, kind, path_kernels, label):
+    """Launch counts set to 0, then ``Reader(path)`` derives its index over
+    merged rows and answers the batch with ``search_multiple`` and one
+    pattern with ``search``; every kernel in ``path_kernels`` must have
+    launched.  Returns (Reader, launch counts, the phase's numbers)."""
+    import torch
+
+    import pysubstringsearch_tpu_torch as pss
+    from pysubstringsearch_tpu_torch.ops import kernels
+
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r = pss.Reader(idx_path)
+    check(r.wait_device_ready(), f'{label}device index ready')
+    device_ready_s = time.perf_counter() - t0
+    load_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    idx = r._index
+    check(idx.kind == kind and idx.mode == 'derive' and idx.merged,
+          f'{kind} derive index over merged rows (kind {idx.kind}, mode '
+          f'{idx.mode})')
+    rows = [{'chunks': len(g), 'n': int(d.size), 'rounds': len(t),
+             'ties': t}
+            for g, d, t in zip(idx.groups, idx.row_data, idx.sa_ties)]
+    log(f'{label}device ready: {device_ready_s:.2f} s; {idx.num_chunks} '
+        f'merged rows x n_pad {idx.n_pad} from {len(r._chunks)} chunks, '
+        f'chunks per row {[x["chunks"] for x in rows]}, row bytes '
+        f'{[x["n"] for x in rows]}; kind {idx.kind}, sigma '
+        f'{int(idx.present.sum())}, bits {idx._bits}, seed '
+        f'{idx._base}^{idx._depth}, {idx.num_limbs} limbs; device memory '
+        f'{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident, '
+        f'{load_peak_gib:.2f} GiB peak during the load')
+    strs = [p.decode('latin-1') for p in pats]
+    after_multi, launches, e2e_s, phases, lines = main_path(
+        r, strs, pats, ('probe', 'extract', 'x-dev-gather', 'x-dev-lines',
+                        'line-tables'))
+    for name in path_kernels:
+        check(after_multi[name] > 0,
+              f'kernel {name} launched by search_multiple on the {kind} '
+              'derive path')
+    check(launches['gather_hits_flat'] > after_multi['gather_hits_flat'],
+          'search() of one pattern gathered its hits on the device')
+    log(f'{label}reader phases: '
+        + r.profiler.report().replace('\n', ' | '))
+    split = load_split(r, ('index-alphabet', 'index-merge', 'index-alloc',
+                           'index-h2d', 'index-sa', 'index-aux'),
+                       f'{label}derive')
+    return r, launches, {
+        'device_ready_s': device_ready_s, 'load_split_s': split,
+        'load_peak_gib': load_peak_gib, 'search_multiple_s': e2e_s,
+        'search_multiple_phases_s': phases, 'lines': lines, 'rows': rows,
+        'n_pad': idx.n_pad, 'seed': [idx._base, idx._depth],
+        'num_limbs': idx.num_limbs,
+    }
+
+
+def init_and_round(idx, init, init_plain, k0, entry, round_entry, name,
+                   line):
+    """The anchored init ``init`` (B1 or B1b, the entry ``name`` replacing
+    ``JAX_SA:line``) and one B2 round from k = ``k0`` (to ``round_entry``)
+    against their plain versions on row 0, timed.  Returns the round's
+    (tie count m, kernel ms, plain ms)."""
+    import torch
+
+    from pysubstringsearch_tpu_torch.ops import suffix_array as SA
+
+    n0 = int(idx.row_data[0].size)
+    text0 = idx.text[0]
+    first = init(text0, n0)
+    plain = init_plain(text0, n0)
+    entry(name, f'{JAX_SA}:{line}', SA_SRC,
+          max(err(a, b) for a, b in zip(first, plain)),
+          cuda_ms(lambda: init(text0, n0), 3),
+          cuda_ms(lambda: init_plain(text0, n0), 1))
+    del plain
+    state = [t.clone() for t in first]
+    pstate = [t.clone() for t in first]
+    m = SA.sa_refine_round(*state, k0)
+    pm = SA.sa_refine_round_plain(*pstate, k0)
+    check(m == pm == idx.sa_ties[0][0], f'round-1 tie counts {m} {pm}')
+    round_err = max(err(a, b) for a, b in zip(state, pstate))
+    del pstate
+
+    def restore():
+        for s, t in zip(state, first):
+            s.copy_(t)
+
+    ms = cuda_ms(lambda: SA.sa_refine_round(*state, k0), 3, restore)
+    plain_ms = cuda_ms(lambda: SA.sa_refine_round_plain(*state, k0), 1,
+                       restore)
+    round_entry('sa_refine_round', f'{JAX_SA}:394', SA_SRC, round_err, ms,
+                plain_ms)
+    del state, first
+    torch.cuda.empty_cache()
+    return m, ms, plain_ms
+
+
+def check_derive_rows(idx, label, *args):
+    """Every row's ``derive_sa`` against ``derive_sa_plain`` and the
+    index's own SA, wall-timed, with the SA build's memory peak; ``args``
+    are the rank map and bits of a ranked alphabet, none for the raw
+    kind."""
+    import torch
+
+    from pysubstringsearch_tpu_torch.ops import suffix_array as SA
+
+    rows = []
+    for i, d in enumerate(idx.row_data):
+        n = int(d.size)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (sa_k, ties_k), k_s = wall_s(
+            lambda: SA.derive_sa(idx.text[i], n, *args))
+        peak = torch.cuda.max_memory_allocated() - base
+        (sa_p, ties_p), p_s = wall_s(
+            lambda: SA.derive_sa_plain(idx.text[i], n, *args))
+        e = max(err(sa_k, sa_p), err(sa_k, idx.sa[i]))
+        check(e == 0 and ties_k == ties_p == idx.sa_ties[i],
+              f'{label}derive_sa of row {i} equals its plain version and the '
+              'index')
+        rows.append({'n': n, 'kernel_s': k_s, 'plain_s': p_s,
+                     'peak_gib': peak / 2**30, 'ties': ties_k})
+        log(f'{label}derive_sa row {i} ({n} bytes, n_pad {idx.n_pad}): '
+            f'kernels {k_s:.3f} s, plain {p_s:.3f} s, equal; SA-build peak '
+            f'{peak / 2**30:.2f} GiB above the resident index')
+        del sa_k, sa_p
+        torch.cuda.empty_cache()
+    return rows
 
 
 def aux_kernels(idx, row, entry):
@@ -369,13 +647,67 @@ def probe_kernel(idx, packed_np, lengths_np, entry):
     return lo_k, cnt_k
 
 
-def raw_kind_probe(dev):
-    """K4 on a small raw-kind index (large NUL-free alphabet, raw limbs)."""
-    import numpy as np
+def gather_kernel(idx, lo_k, cnt_k, entry, label=''):
+    """B8 against its plain version on every merged row, on the row's SA
+    and K4's bounds for the whole batch, timed."""
+    from pysubstringsearch_tpu_torch.ops import search as S
+
+    gather = []
+    for i in range(idx.num_chunks):
+        sa_i = idx.sa[i]
+        lo_i, cnt_i = lo_k[i].contiguous(), cnt_k[i].contiguous()
+        pos_k, qid_k = S.gather_hits_flat(sa_i, lo_i, cnt_i)
+        pos_p, qid_p = S.gather_hits_flat_plain(sa_i, lo_i, cnt_i)
+        check(pos_k.shape[0] == int(cnt_i.long().sum()), f'{label}B8 total')
+        gather.append((max(err(pos_k, pos_p), err(qid_k, qid_p)),
+                       cuda_ms(lambda: S.gather_hits_flat(sa_i, lo_i, cnt_i),
+                               5),
+                       cuda_ms(lambda: S.gather_hits_flat_plain(sa_i, lo_i,
+                                                                cnt_i), 2),
+                       int(pos_k.shape[0])))
+        del pos_k, qid_k, pos_p, qid_p
+    log(f'{label}gather_hits_flat per row (hits, kernel ms, plain ms): '
+        + ', '.join(f'{g[3]} {g[1]:.4f} {g[2]:.4f}' for g in gather))
+    entry('gather_hits_flat', f'{JAX_SEARCH}:1625', SEARCH_SRC,
+          max(g[0] for g in gather), sum(g[1] for g in gather),
+          sum(g[2] for g in gather))
+
+
+def raw_probe_check(ridx, rpats, label):
+    """K4 against its plain version on a small raw-kind index."""
     import torch
+
+    from pysubstringsearch_tpu_torch.ops import search as S
+
+    dev = ridx.device
+    rp, rl = S.pack_patterns(rpats)
+    raw_args = (ridx.text, ridx.lengths, ridx.sa, ridx.tables, ridx.limbs,
+                ridx.rank, ridx.present, torch.from_numpy(rp).to(dev),
+                torch.from_numpy(rl).to(dev), ridx.num_limbs, ridx._base,
+                ridx._depth, None)
+    rlo, rcnt = S.probe_phased(*raw_args)
+    rlo_p, rcnt_p = S.probe_phased_plain(*raw_args)
+    raw_err = max(err(rcnt, rcnt_p), err(rlo, rlo_p))
+    check(raw_err == 0, f'{label} probe equals plain (max err {raw_err})')
+    check(int(rcnt.sum()) >= len(rpats), f'{label} patterns found')
+    log(f'probe_phased {label} ({ridx.num_chunks} rows x {len(rpats)}): '
+        f'equal to plain, kernel '
+        f'{cuda_ms(lambda: S.probe_phased(*raw_args), 10):.4f} ms, plain '
+        f'{cuda_ms(lambda: S.probe_phased_plain(*raw_args), 2):.4f} ms')
+
+
+def raw_kind_probe(dev):
+    """Two small full-byte raw-kind chunks (255 distinct bytes, no NUL).
+    Derived on the card by ``'auto'``: its SA against native SA-IS, K7
+    with K3 at base 258 and K4 against their plain versions.  Uploaded
+    with ``mode='upload'``: K5, K6, K7 and K3 launched once a chunk, row
+    0's table and limbs equal the host builders', and K4 against its plain
+    version."""
+    import numpy as np
 
     from pysubstringsearch_tpu_torch.container import Chunk
     from pysubstringsearch_tpu_torch.models.index import DeviceIndex
+    from pysubstringsearch_tpu_torch.ops import kernels
     from pysubstringsearch_tpu_torch.ops import search as S
     from pysubstringsearch_tpu_torch.ops.suffix_array import (
         build_suffix_array,
@@ -390,25 +722,54 @@ def raw_kind_probe(dev):
         raw_chunks.append(Chunk(data=body,
                                 suffix_array=build_suffix_array(body)))
     ridx = DeviceIndex(raw_chunks, device=dev)
-    check(ridx.kind == 'raw' and ridx.mode == 'upload',
-          f'raw-kind upload index (got {ridx.kind}, {ridx.mode})')
+    check(ridx.kind == 'raw' and ridx.mode == 'derive'
+          and ridx._base == 258 and ridx.num_chunks == 1,
+          f'full-byte raw-kind derive index (got {ridx.kind}, {ridx.mode}, '
+          f'base {ridx._base}, {ridx.num_chunks} rows)')
+    n0 = int(ridx.row_data[0].size)
+    check(np.array_equal(ridx.sa[0, :n0].cpu().numpy(),
+                         build_suffix_array(ridx.row_data[0])),
+          'full-byte derived SA equals native SA-IS')
+    base, depth = ridx._base, ridx._depth
+    pv = S.seed_prefix(ridx.text[0], n0, ridx.rank, base, depth)
+    table = S.seed_table_from_prefix(pv, ridx.sa[0], n0, base, depth)
+    pv_p = S.seed_prefix_plain(ridx.text[0], n0, ridx.rank, base, depth)
+    table_err = max(err(pv, pv_p), err(table, ridx.tables[0]), err(
+        table, S.seed_table_from_prefix_plain(pv_p, ridx.sa[0], n0, base,
+                                              depth)))
+    check(table_err == 0, f'K7 + K3 at base 258 equal plain ({table_err})')
+    log(f'full-byte raw kind: derived SA equals native SA-IS; seed prefix '
+        f'and table at {base}^{depth} equal plain')
     rpats = [raw_chunks[i % 2].data[o: o + l].tobytes() for i, (o, l) in
              enumerate(zip(rr.integers(0, (4 << 20) - 64, size=2000),
                            rr.integers(1, 40, size=2000)))]
-    rp, rl = S.pack_patterns(rpats)
-    raw_args = (ridx.text, ridx.lengths, ridx.sa, ridx.tables, ridx.limbs,
-                ridx.rank, ridx.present, torch.from_numpy(rp).to(dev),
-                torch.from_numpy(rl).to(dev), ridx.num_limbs, ridx._base,
-                ridx._depth, None)
-    rlo, rcnt = S.probe_phased(*raw_args)
-    rlo_p, rcnt_p = S.probe_phased_plain(*raw_args)
-    raw_err = max(err(rcnt, rcnt_p), err(rlo, rlo_p))
-    check(raw_err == 0, f'raw-kind probe equals plain (max err {raw_err})')
-    check(int(rcnt.sum()) >= len(rpats), 'raw-kind patterns found')
-    log(f'probe_phased raw kind ({ridx.num_chunks} rows x {len(rpats)}): '
-        f'equal to plain, kernel '
-        f'{cuda_ms(lambda: S.probe_phased(*raw_args), 10):.4f} ms, plain '
-        f'{cuda_ms(lambda: S.probe_phased_plain(*raw_args), 2):.4f} ms')
+    raw_probe_check(ridx, rpats, 'full-byte raw derive')
+    del ridx, pv, pv_p, table
+
+    before = dict(kernels.LAUNCHES)
+    uidx = DeviceIndex(raw_chunks, device=dev, mode='upload')
+    check(uidx.kind == 'raw' and uidx.mode == 'upload'
+          and uidx.num_chunks == 2,
+          f'full-byte raw-kind upload index (got {uidx.kind}, {uidx.mode}, '
+          f'{uidx.num_chunks} rows)')
+    for name in ('raw_pack', 'raw_limb_planes', 'seed_prefix', 'seed_table'):
+        check(kernels.LAUNCHES[name] - before[name] == 2,
+              f'raw upload built its aux with {name} once a chunk')
+    c0 = raw_chunks[0]
+    rank = uidx.rank.cpu().numpy()
+    check(np.array_equal(uidx.tables[0].cpu().numpy(),
+                         S.build_seed_table_host(c0.data, c0.suffix_array,
+                                                 rank, uidx._base,
+                                                 uidx._depth)),
+          'raw upload row 0 seed table equals the host builder')
+    check(np.array_equal(uidx.limbs[0].cpu().numpy(), S.pad_limbs_host(
+        S.build_raw_limbs_host(c0.data, c0.suffix_array, uidx.num_limbs,
+                               uidx._depth), uidx.n_pad)),
+          'raw upload row 0 limbs equal the host builder')
+    log(f'full-byte raw upload: K5-K7 and K3 once a chunk; row 0 seed table '
+        f'at {uidx._base}^{uidx._depth} and {uidx.num_limbs} limb planes '
+        'equal the host builders')
+    raw_probe_check(uidx, rpats, 'full-byte raw upload')
 
 
 def lines_breakdown(idx, lo_k, cnt_k):
@@ -450,187 +811,148 @@ def lines_breakdown(idx, lo_k, cnt_k):
 
 def run_derive(idx_path, pats, dev):
     """Phases 3-6 on the derive main path; returns its numbers."""
-    import numpy as np
     import torch
 
-    import pysubstringsearch_tpu_torch as pss
-    from pysubstringsearch_tpu_torch.ops import kernels
     from pysubstringsearch_tpu_torch.ops import search as S
     from pysubstringsearch_tpu_torch.ops import suffix_array as SA
-    from pysubstringsearch_tpu_torch.ops.hostserve import pack_patterns_host
-    from pysubstringsearch_tpu_torch.ops.native import suffix_array_native
-
-    strs = [p.decode('latin-1') for p in pats]
 
     # ---- 3. the main path, launches counted ----
-    kernels.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    r = pss.Reader(idx_path)
-    check(r.wait_device_ready(), 'device index ready')
-    device_ready_s = time.perf_counter() - t0
-    load_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    r, launches, result = open_derive(idx_path, pats, 'ranked',
+                                      PATH_KERNELS, '')
     idx = r._index
-    check(idx.mode == 'derive' and idx.merged,
-          f'derive index over merged rows (mode {idx.mode})')
-    rows = [{'chunks': len(g), 'n': int(d.size), 'rounds': len(t),
-             'ties': t}
-            for g, d, t in zip(idx.groups, idx.row_data, idx.sa_ties)]
-    log(f'device ready: {device_ready_s:.2f} s; {idx.num_chunks} merged '
-        f'rows x n_pad {idx.n_pad} from {len(r._chunks)} chunks, chunks per '
-        f'row {[x["chunks"] for x in rows]}, row bytes '
-        f'{[x["n"] for x in rows]}; kind {idx.kind}, bits {idx._bits}, '
-        f'seed {idx._base}^{idx._depth}, {idx.num_limbs} limbs; device '
-        f'memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB resident, '
-        f'{load_peak_gib:.2f} GiB peak during the load')
-    for i, x in enumerate(rows):
+    for i, x in enumerate(result['rows']):
         log(f'row {i}: {x["rounds"]} B2 rounds, tie counts m {x["ties"]}')
-    after_multi, launches, e2e_s, phases, lines = main_path(
-        r, strs, pats, ('probe', 'extract', 'x-dev-gather', 'x-dev-lines',
-                        'line-tables'))
-    for name in PATH_KERNELS:
-        check(after_multi[name] > 0,
-              f'kernel {name} launched by search_multiple on the main path')
-    check(launches['gather_hits_flat'] > after_multi['gather_hits_flat'],
-          'search() of one pattern gathered its hits on the device')
-    log('reader phases: ' + r.profiler.report().replace('\n', ' | '))
-    tot = r.profiler.totals
-    split = ('index-alphabet', 'index-merge', 'index-alloc', 'index-h2d',
-             'index-sa', 'index-aux')
-    load_split = {k: tot[k] for k in split}
-    load_split['outside'] = tot['device-load'] - sum(load_split.values())
-    log('derive load split: ' + ', '.join(
-        f'{k} {v:.3f} s' for k, v in load_split.items())
-        + f', of device-load {tot["device-load"]:.3f} s')
 
     # ---- 4. kernels against their plain versions on the card ----
     entries = []
-
-    def entry(name, replaces, src, e, ms, plain_ms):
-        check(e == 0, f'{name} equals its plain version (max err {e})')
-        entries.append({
-            'name': name, 'route': 'cuda', 'source': src,
-            'replaces': replaces, 'launches': launches[name],
-            'max_abs_err': e, 'ms': ms, 'plain_ms': plain_ms,
-        })
-        log(f'{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
-            f'max abs err {e}')
-
+    entry = kernel_check('', entries, launches)
     aux_kernels(idx, 0, entry)
     packed_np, lengths_np = S.pack_patterns(pats)
     lo_k, cnt_k = probe_kernel(idx, packed_np, lengths_np, entry)
-
     bits = idx._bits
-    k0 = 2 * (30 // bits)
+    init_and_round(
+        idx, lambda t, n: SA.sa_init_ranked(t, n, idx.rank, bits),
+        lambda t, n: SA.sa_init_ranked_plain(t, n, idx.rank, bits),
+        2 * (30 // bits), entry, entry, 'sa_init_ranked', 330)
+    derive_rows = check_derive_rows(idx, '', idx.rank, bits)
+    gather_kernel(idx, lo_k, cnt_k, entry)
+
+    # ---- 5. device answers against the host native path ----
+    host_search_s = check_answers(r, idx, pats, packed_np, lengths_np,
+                                  result['lines'])
+    check_boundaries(r, idx)
+
+    # ---- 6. serving numbers ----
+    numbers = serving_numbers(r, idx, pats, packed_np, lengths_np,
+                              host_search_s)
+    numbers['lines_row0_s'] = lines_breakdown(idx, lo_k, cnt_k)
+    return {
+        **result, 'kernels': entries, 'derive_rows': derive_rows,
+        'resident_gib': torch.cuda.memory_allocated() / 2**30, **numbers,
+    }
+
+
+def odd_patterns(pats):
+    """Patterns holding NUL or a byte >= 0x80, which the raw kind's text
+    never holds: the host resolves NUL, and neither can match."""
+    return [b'\x00', pats[0] + b'\x00', pats[1][:2] + b'\x00' + pats[1][2:],
+            b'\x80', pats[2][:3] + b'\xff' + pats[2][3:],
+            pats[3] + '\u00e9'.encode()]
+
+
+def run_raw(idx_path, pats, dev, ranked_rows):
+    """Phase 8: raw-kind derive on its own container; returns its numbers
+    and its kernels' JSON rows."""
+    import numpy as np
+    import torch
+
+    from pysubstringsearch_tpu_torch.ops import search as S
+    from pysubstringsearch_tpu_torch.ops import suffix_array as SA
+    from pysubstringsearch_tpu_torch.ops.native import suffix_array_native
+
+    pats = pats + odd_patterns(pats)
+    r, launches, result = open_derive(idx_path, pats, 'raw', RAW_KERNELS,
+                                      'raw ')
+    idx = r._index
+    check(idx.num_chunks == 2,
+          f'raw derive index over 2 merged rows ({idx.num_chunks} rows)')
+    for i, (x, rk) in enumerate(zip(result['rows'], ranked_rows)):
+        log(f'raw row {i}: {x["rounds"]} B2 rounds from k = 6, tie counts m '
+            f'{x["ties"]}; ranked row {i}: {rk["rounds"]} rounds from '
+            f'k = 12, m {rk["ties"]}')
+
+    # The raw path's kernels against their plain versions, on row 0.
+    entries = []
+    entry = kernel_check('', entries, launches)
+    check_only = kernel_check('raw ')
+    m, round_ms, round_plain_ms = init_and_round(
+        idx, SA.sa_init_bytes, SA.sa_init_bytes_plain, SA.BYTE_INIT_WIDTH,
+        entry, check_only, 'sa_init_bytes', 271)
+
     n0 = int(idx.row_data[0].size)
-    text0 = idx.text[0]
-    init = SA.sa_init_ranked(text0, n0, idx.rank, bits)
-    plain = SA.sa_init_ranked_plain(text0, n0, idx.rank, bits)
-    entry('sa_init_ranked', f'{JAX_SA}:330', SA_SRC,
-          max(err(a, b) for a, b in zip(init, plain)),
-          cuda_ms(lambda: SA.sa_init_ranked(text0, n0, idx.rank, bits), 3),
-          cuda_ms(lambda: SA.sa_init_ranked_plain(text0, n0, idx.rank, bits),
-                  1))
-    del plain
-    state = [t.clone() for t in init]
-    pstate = [t.clone() for t in init]
-    m = SA.sa_refine_round(*state, k0)
-    pm = SA.sa_refine_round_plain(*pstate, k0)
-    check(m == pm == idx.sa_ties[0][0], f'round-1 tie counts {m} {pm}')
-    round_err = max(err(a, b) for a, b in zip(state, pstate))
-    del pstate
-
-    def restore():
-        for s, t in zip(state, init):
-            s.copy_(t)
-
-    entry('sa_refine_round', f'{JAX_SA}:394', SA_SRC, round_err,
-          cuda_ms(lambda: SA.sa_refine_round(*state, k0), 3, restore),
-          cuda_ms(lambda: SA.sa_refine_round_plain(*state, k0), 1, restore))
-    del state, init
+    text0, sa0 = idx.text[0], idx.sa[0]
+    base, depth, K = idx._base, idx._depth, idx.num_limbs
+    pv = S.seed_prefix(text0, n0, idx.rank, base, depth)
+    pv_p = S.seed_prefix_plain(text0, n0, idx.rank, base, depth)
+    entry('seed_prefix', f'{JAX_SEARCH}:971', SEARCH_SRC, err(pv, pv_p),
+          cuda_ms(lambda: S.seed_prefix(text0, n0, idx.rank, base, depth,
+                                        out=pv), 20),
+          cuda_ms(lambda: S.seed_prefix_plain(text0, n0, idx.rank, base,
+                                              depth), 3))
+    table = S.seed_table_from_prefix(pv, sa0, n0, base, depth)
+    table_ms = cuda_ms(lambda: S.seed_table_from_prefix(
+        pv, sa0, n0, base, depth, out=table), 20)
+    table_plain_ms = cuda_ms(lambda: S.seed_table_from_prefix_plain(
+        pv, sa0, n0, base, depth), 3)
+    check_only('seed_table', f'{JAX_SEARCH}:971', SEARCH_SRC,
+               max(err(table, idx.tables[0]), err(
+                   table, S.seed_table_from_prefix_plain(pv, sa0, n0, base,
+                                                         depth))),
+               table_ms, table_plain_ms)
+    del pv_p
+    packed = S.raw_pack(text0, n0, out=pv)
+    entry('raw_pack', f'{JAX_SEARCH}:833', SEARCH_SRC,
+          err(packed, S.raw_pack_plain(text0, n0)),
+          cuda_ms(lambda: S.raw_pack(text0, n0, out=packed), 20),
+          cuda_ms(lambda: S.raw_pack_plain(text0, n0), 3))
+    limbs = S.raw_limb_planes(packed, sa0, n0, depth, K)
+    entry('raw_limb_planes', f'{JAX_SEARCH}:862', SEARCH_SRC,
+          max(err(limbs, S.raw_limb_planes_plain(packed, sa0, n0, depth, K)),
+              err(limbs, idx.limbs[0])),
+          cuda_ms(lambda: S.raw_limb_planes(packed, sa0, n0, depth, K,
+                                            out=limbs), 20),
+          cuda_ms(lambda: S.raw_limb_planes_plain(packed, sa0, n0, depth, K),
+                  3))
+    del pv, packed, limbs, table
+    packed_np, lengths_np = S.pack_patterns(pats)
+    lo_k, cnt_k = probe_kernel(idx, packed_np, lengths_np, check_only)
+    gather_kernel(idx, lo_k, cnt_k, check_only, 'raw ')
+    del lo_k, cnt_k
     torch.cuda.empty_cache()
 
-    derive_rows = []
-    for i, d in enumerate(idx.row_data):
-        n = int(d.size)
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        (sa_k, ties_k), k_s = wall_s(
-            lambda: SA.derive_sa(idx.text[i], n, idx.rank, bits))
-        peak = torch.cuda.max_memory_allocated() - base
-        (sa_p, ties_p), p_s = wall_s(
-            lambda: SA.derive_sa_plain(idx.text[i], n, idx.rank, bits))
-        e = max(err(sa_k, sa_p), err(sa_k, idx.sa[i]))
-        check(e == 0 and ties_k == ties_p == idx.sa_ties[i],
-              f'derive_sa of row {i} equals its plain version and the index')
-        derive_rows.append({'n': n, 'kernel_s': k_s, 'plain_s': p_s,
-                            'peak_gib': peak / 2**30, 'ties': ties_k})
-        log(f'derive_sa row {i} ({n} bytes, n_pad {idx.n_pad}): kernels '
-            f'{k_s:.3f} s, plain {p_s:.3f} s, equal; SA-build peak '
-            f'{peak / 2**30:.2f} GiB above the resident index')
-        del sa_k, sa_p
-        torch.cuda.empty_cache()
+    derive_rows = check_derive_rows(idx, 'raw ')
     t0 = time.perf_counter()
     native0 = suffix_array_native(idx.row_data[0])
     native_s = time.perf_counter() - t0
     check(np.array_equal(idx.sa[0, :n0].cpu().numpy(), native0),
-          "row 0's derived SA equals the host's native SA-IS")
-    log(f"row 0's derived SA equals native SA-IS on the host "
+          "raw row 0's derived SA equals the host's native SA-IS")
+    log(f"raw row 0's derived SA equals native SA-IS on the host "
         f'({native_s:.2f} s for {n0} bytes)')
     del native0
 
-    gather = []
-    for i in range(idx.num_chunks):
-        sa_i = idx.sa[i]
-        lo_i, cnt_i = lo_k[i].contiguous(), cnt_k[i].contiguous()
-        pos_k, qid_k = S.gather_hits_flat(sa_i, lo_i, cnt_i)
-        pos_p, qid_p = S.gather_hits_flat_plain(sa_i, lo_i, cnt_i)
-        check(pos_k.shape[0] == int(cnt_i.long().sum()), 'B8 total')
-        gather.append((max(err(pos_k, pos_p), err(qid_k, qid_p)),
-                       cuda_ms(lambda: S.gather_hits_flat(sa_i, lo_i, cnt_i),
-                               5),
-                       cuda_ms(lambda: S.gather_hits_flat_plain(sa_i, lo_i,
-                                                                cnt_i), 2),
-                       int(pos_k.shape[0])))
-        del pos_k, qid_k, pos_p, qid_p
-    log('gather_hits_flat per row (hits, kernel ms, plain ms): '
-        + ', '.join(f'{g[3]} {g[1]:.4f} {g[2]:.4f}' for g in gather))
-    entry('gather_hits_flat', f'{JAX_SEARCH}:1625', SEARCH_SRC,
-          max(g[0] for g in gather), sum(g[1] for g in gather),
-          sum(g[2] for g in gather))
+    host_search_s = check_answers(r, idx, pats, packed_np, lengths_np,
+                                  result['lines'])
+    check_boundaries(r, idx)
+    p50 = probe_p50(idx, packed_np, lengths_np)
     raw_kind_probe(dev)
-
-    # ---- 5. device answers against the host native path ----
-    check_answers(r, idx, pats, packed_np, lengths_np)
-    hs = r._host_serving
-    chunks = r._chunks
-    bpats = [chunks[c].data[-6:].tobytes() + chunks[c + 1].data[:6].tobytes()
-             for c in range(len(chunks) - 1)]
-    bp, bl = S.pack_patterns(bpats)
-    crossings = idx.boundary_crossings(bp, bl)
-    check(int(crossings.sum()) > 0, 'boundary patterns cross merged rows')
-    check(np.array_equal(idx.count_matches(bp, bl).sum(0),
-                         hs.probe(*pack_patterns_host(bpats))[1].sum(0)),
-          'boundary patterns: counts equal the host')
-    dev_b = r._search_batch(bpats)
-    host_b = r._search_host_chunks(bpats)
-    check([sorted(x) for x in dev_b] == [sorted(x) for x in host_b],
-          'boundary patterns: results equal the host path')
-    log(f'{len(bpats)} chunk-boundary patterns: {int(crossings.sum())} '
-        f'crossing occurrences dropped, results equal the host path')
-
-    # ---- 6. serving numbers ----
-    numbers = serving_numbers(r, idx, pats, packed_np, lengths_np)
-    numbers['lines_row0_s'] = lines_breakdown(idx, lo_k, cnt_k)
     return {
-        'kernels': entries, 'device_ready_s': device_ready_s,
-        'load_split_s': load_split, 'load_peak_gib': load_peak_gib,
-        'search_multiple_s': e2e_s, 'search_multiple_phases_s': phases,
-        'lines': lines, 'rows': rows, 'n_pad': idx.n_pad,
-        'derive_rows': derive_rows, 'native_sais_row0_s': native_s,
+        **result, 'kernels': entries, 'derive_rows': derive_rows,
+        'native_sais_row0_s': native_s,
+        'round1_ms': {'kernel': round_ms, 'plain': round_plain_ms, 'm': m},
+        'seed_table_ms': {'kernel': table_ms, 'plain': table_plain_ms},
         'resident_gib': torch.cuda.memory_allocated() / 2**30,
-        'seed': [idx._base, idx._depth], 'num_limbs': idx.num_limbs,
-        **numbers,
+        'probe_p50_ms': p50, 'host_search_s': host_search_s,
+        'launches': launches,
     }
 
 
@@ -660,24 +982,16 @@ def run_upload(idx_path, pats, dev):
     for name in UPLOAD_KERNELS:
         check(after_multi[name] > 0, f'upload path launched {name}')
 
-    def entry(name, replaces, src, e, ms, plain_ms):
-        check(e == 0, f'upload {name} equals its plain version ({e})')
-        log(f'upload {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms')
-
+    entry = kernel_check('upload ')
     aux_kernels(idx, 0, entry)
     packed_np, lengths_np = S.pack_patterns(pats)
     probe_kernel(idx, packed_np, lengths_np, entry)
-    check_answers(r, idx, pats, packed_np, lengths_np)
-    numbers = serving_numbers(r, idx, pats, packed_np, lengths_np)
-    tot = r.profiler.totals
-    split = ('index-alphabet', 'index-alloc', 'index-host-copy', 'index-h2d',
-             'index-aux')
-    load_split = {k: tot[k] for k in split}
-    load_split['outside'] = tot['device-load'] - sum(load_split.values())
-    log('upload load split: ' + ', '.join(
-        f'{k} {v:.3f} s' for k, v in load_split.items())
-        + f', of device-load {tot["device-load"]:.3f} s')
-    return {'device_ready_s': device_ready_s, 'load_split_s': load_split,
+    host_search_s = check_answers(r, idx, pats, packed_np, lengths_np, lines)
+    numbers = serving_numbers(r, idx, pats, packed_np, lengths_np,
+                              host_search_s)
+    split = load_split(r, ('index-alphabet', 'index-alloc', 'index-host-copy',
+                           'index-h2d', 'index-aux'), 'upload')
+    return {'device_ready_s': device_ready_s, 'load_split_s': split,
             'search_multiple_s': e2e_s, 'search_multiple_phases_s': phases,
             'lines': lines, 'launches': launches,
             'resident_gib': torch.cuda.memory_allocated() / 2**30,

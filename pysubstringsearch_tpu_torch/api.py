@@ -238,8 +238,10 @@ class Reader:
     is ready, every batch is probed on the device (patterns longer than
     ``PAD_MARGIN`` excepted), and if it failed, the next query raises.
     ``index_mode`` forwards to :class:`DeviceIndex`: ``'auto'`` derives the
-    SA on a CUDA card over merged rows (ranked alphabets), ``'upload'``
-    keeps the container's chunks and SA.
+    SA on a CUDA card over merged rows (ranked alphabets and large NUL-free
+    ones, the raw kind), ``'upload'`` keeps the container's chunks and SA.
+    The digit kind (more than 62 distinct bytes with NUL) raises
+    ``NotImplementedError``.
     """
 
     def __init__(

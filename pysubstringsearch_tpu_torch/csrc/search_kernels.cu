@@ -1,7 +1,7 @@
-// Hand-written Hopper kernels of the device index: the three aux builders
-// that turn (text, SA) into rank-packed limb planes and a seed table, the
-// phased probe that answers a query batch against them, and the flat gather
-// of a merged row's hits.
+// Hand-written Hopper kernels of the device index: the aux builders that
+// turn (text, SA) into limb planes and a seed table (K1-K3 for rank digits,
+// K5-K7 with K3 for raw bytes), the phased probe that answers a query
+// batch against them, and the flat gather of a merged row's hits.
 //
 // Built by pysubstringsearch_tpu_torch/ops/kernels.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -c ... && nvcc -shared
@@ -58,28 +58,54 @@ __global__ void ranked_pack_kernel(const uint8_t* __restrict__ text,
 }
 
 // ---------------------------------------------------------------------------
-// K2, limb planes.  Replaces _ranked_limb_col_from_pack /
-// derive_limb_ranked_jit (ops/search.py), which write one plane per
-// dispatch.
+// K5, raw pack.  Replaces raw_pack_jit (ops/search.py).
 //
-// limbs[j * N + i] = packed[sa[i] + depth + D * j] for i < n, else 0, for
-// every plane j in one pass over sa.  Bound by memory: per slot one
-// coalesced 4-byte sa read, K scattered 4-byte packed reads (neighbouring
-// slots point anywhere in the text) and K coalesced writes.
+// out[p] = text[p .. p+3] big-endian with the top byte biased by -128 (the
+// raw limb encoding, order-preserving as a signed int32); a byte at or past
+// n is 0, so a position at or past n packs INT32_MIN, as the host builder
+// does.  The bias is the top byte's high bit flipped on unsigned bits, so no
+// signed shift overflows.  One thread per position.  Bound by memory: 1 byte
+// read (the 3 neighbours come from L1) and 4 bytes written per position.
 // ---------------------------------------------------------------------------
-__global__ void ranked_limb_planes_kernel(const int* __restrict__ packed,
-                                          const int* __restrict__ sa,
-                                          long long N, int n, int depth,
-                                          int bits, int num_limbs,
-                                          int* __restrict__ limbs) {
-  const int D = 30 / bits;
+__global__ void raw_pack_kernel(const uint8_t* __restrict__ text,
+                                long long N, long long n,
+                                int* __restrict__ out) {
+  for (long long p = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       p < N; p += (long long)gridDim.x * blockDim.x) {
+    uint32_t v = 0;
+    for (int d = 0; d < 4; ++d) {
+      long long q = p + d;
+      uint32_t b = q < n ? text[q] : 0u;
+      v = (v << 8) | b;
+    }
+    out[p] = static_cast<int>(v ^ 0x80000000u);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2 and K6, limb planes.  K2 replaces _ranked_limb_col_from_pack /
+// derive_limb_ranked_jit, K6 derive_limb_raw_jit and build_raw_limbs_device
+// (ops/search.py); both write one plane per dispatch.  One kernel serves
+// both: a plane gathers the pack at a stride of D text positions, D = 30 /
+// bits rank digits for K2 and 4 raw bytes for K6; each has its own entry
+// point (and so its own launch count).
+//
+// limbs[j * N + i] = packed[min(clip(sa[i]) + depth + D * j, N - 1)] for
+// i < n, else 0, for every plane j in one pass over sa.  Bound by memory:
+// per slot one coalesced 4-byte sa read, K scattered 4-byte packed reads
+// (neighbouring slots point anywhere in the text) and K coalesced writes.
+// ---------------------------------------------------------------------------
+__global__ void limb_planes_kernel(const int* __restrict__ packed,
+                                   const int* __restrict__ sa, long long N,
+                                   int n, int depth, int stride,
+                                   int num_limbs, int* __restrict__ limbs) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        i < N; i += (long long)gridDim.x * blockDim.x) {
     if (i < n) {
       long long s = sa[i];
       s = s < 0 ? 0 : (s > N - 1 ? N - 1 : s);
       for (int j = 0; j < num_limbs; ++j) {
-        long long idx = s + depth + (long long)D * j;
+        long long idx = s + depth + (long long)stride * j;
         idx = idx > N - 1 ? N - 1 : idx;
         limbs[(long long)j * N + i] = packed[idx];
       }
@@ -90,8 +116,40 @@ __global__ void ranked_limb_planes_kernel(const int* __restrict__ packed,
 }
 
 // ---------------------------------------------------------------------------
+// K7, seed prefix.  Replaces the prefix-value stream of
+// build_seed_table_device (ops/search.py, reached through
+// derive_table_raw_jit; with identity_rank() and base 258 it is also
+// build_bucket_table_device's), whose table the scatter-min and reverse
+// cummin then make; here K3 bisects it with shift 0.
+//
+// pv[p] = the `depth` rank digits of text[p ..] in base `base`, 0 for a
+// digit at or past n; base^depth <= 2^28, so it fits an int32.  The rank
+// map and the base are arguments, so a full-byte alphabet (base 258) is
+// served too.  One thread per position.  Bound by memory: 1 byte read and
+// 4 written per position; the rank map sits in shared memory.
+// ---------------------------------------------------------------------------
+__global__ void seed_prefix_kernel(const uint8_t* __restrict__ text,
+                                   long long N, long long n,
+                                   const int* __restrict__ rank, int base,
+                                   int depth, int* __restrict__ out) {
+  __shared__ int srank[256];
+  for (int i = threadIdx.x; i < 256; i += blockDim.x) srank[i] = rank[i];
+  __syncthreads();
+  for (long long p = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       p < N; p += (long long)gridDim.x * blockDim.x) {
+    int v = 0;
+    for (int d = 0; d < depth; ++d) {
+      long long q = p + d;
+      v = v * base + (q < n ? srank[text[q]] : 0);
+    }
+    out[p] = v;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // K3, seed table.  Replaces derive_table_from_pack_jit (ops/search.py),
-// a gather + scatter-min + reverse cummin.
+// a gather + scatter-min + reverse cummin, and the same tail of
+// build_seed_table_device, whose prefix values K7 makes (shift 0).
 //
 // table[k] = first SA slot i < n whose key packed[sa[i]] >> shift is >= k,
 // or n.  Keys never decrease in SA order, so one thread per k bisects them:
@@ -338,9 +396,39 @@ int pss_ranked_limb_planes(const void* packed, const void* sa, long long N,
                            void* limbs, void* stream) {
   unsigned grid = blocks_for(N);
   if (grid > 65536u * 16u) grid = 65536u * 16u;
-  ranked_limb_planes_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)packed, (const int*)sa, N, n, depth, bits, num_limbs,
+  limb_planes_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int*)packed, (const int*)sa, N, n, depth, 30 / bits, num_limbs,
       (int*)limbs);
+  return (int)cudaGetLastError();
+}
+
+int pss_raw_pack(const void* text, long long N, long long n, void* out,
+                 void* stream) {
+  unsigned grid = blocks_for(N);
+  if (grid > 65536u * 16u) grid = 65536u * 16u;
+  raw_pack_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)text, N, n, (int*)out);
+  return (int)cudaGetLastError();
+}
+
+int pss_raw_limb_planes(const void* packed, const void* sa, long long N,
+                        int n, int depth, int num_limbs, void* limbs,
+                        void* stream) {
+  unsigned grid = blocks_for(N);
+  if (grid > 65536u * 16u) grid = 65536u * 16u;
+  limb_planes_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int*)packed, (const int*)sa, N, n, depth, 4, num_limbs,
+      (int*)limbs);
+  return (int)cudaGetLastError();
+}
+
+int pss_seed_prefix(const void* text, long long N, long long n,
+                    const void* rank, int base, int depth, void* out,
+                    void* stream) {
+  unsigned grid = blocks_for(N);
+  if (grid > 65536u * 16u) grid = 65536u * 16u;
+  seed_prefix_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)text, N, n, (const int*)rank, base, depth, (int*)out);
   return (int)cudaGetLastError();
 }
 

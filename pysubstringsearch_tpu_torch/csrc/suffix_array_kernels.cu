@@ -1,9 +1,10 @@
 // Hand-written Hopper kernels of the device suffix-array build (derive
-// mode): the anchored init sort (B1), the tie-only doubling rounds (B2), and
-// the building blocks both are made of -- a stable LSD radix sort of
-// (uint64 key, int32 value) pairs, an exclusive sum scan and an inclusive
-// max scan over int32.  No library computes any of them: no cub::Device*
-// routine, no Thrust, no torch operator.
+// mode): the anchored init sorts (B1 on rank digits, B1b on bytes), the
+// tie-only doubling rounds (B2), and the building blocks they are made of
+// -- a stable LSD radix sort of (uint64 key, int32 value) pairs, an
+// exclusive sum scan and an inclusive max scan over int32.  No library
+// computes any of them: no cub::Device* routine, no Thrust, no torch
+// operator.
 //
 // Built by pysubstringsearch_tpu_torch/ops/kernels.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -c ... && nvcc -shared
@@ -350,6 +351,43 @@ __global__ void init_keys_kernel(const uint8_t* __restrict__ text,
   }
 }
 
+// ---------------------------------------------------------------------------
+// B1b, the 6-byte anchored init sort.  Replaces _init_round_anchored
+// (pysubstringsearch_tpu/ops/suffix_array.py, reached through
+// _segmented_kernel and _derive_sa_seg_jit), which sorts the pair (limb0,
+// limb1) of three base-257 digits each with a 2-key lax.sort.
+//
+// Digit q of position p is text[p + q] + 1, or 0 at or past n, so a NUL
+// byte stays above the past-end digit and the digit kind can reuse it.
+// key[p] = limb0 << 25 | limb1: 257^3 < 2^25, so the pair is one 50-bit key
+// that sorts as the JAX pair does, and the radix sort runs 7 passes (B1's
+// 60-bit key takes 8).  The rest is B1's pipeline unchanged: the forced pad
+// singletons, the group-start max-scan and the rank scatter.  Bound by
+// memory like B1: the sort moves about 7 x 32 bytes per slot; the key pass
+// reads 1 byte a slot (the 5 neighbours come from L1) and writes 12.
+// ---------------------------------------------------------------------------
+constexpr int kByteKeyBits = 50;
+
+__global__ void init_keys_bytes_kernel(const uint8_t* __restrict__ text,
+                                       long long N, long long n,
+                                       uint64_t* __restrict__ keys,
+                                       int* __restrict__ vals) {
+  for (long long p = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       p < N; p += static_cast<long long>(gridDim.x) * blockDim.x) {
+    uint64_t limb[2] = {0, 0};
+    if (p < n) {
+      for (int d = 0; d < 6; ++d) {
+        long long q = p + d;
+        uint64_t digit = q < n ? static_cast<uint64_t>(text[q]) + 1 : 0;
+        limb[d / 3] = limb[d / 3] * 257 + digit;
+      }
+    }
+    keys[p] = (limb[0] << 25) | limb[1];
+    vals[p] = static_cast<int>(p);
+  }
+}
+
 __global__ void init_groups_kernel(const uint64_t* __restrict__ keys,
                                    const int* __restrict__ idx, long long N,
                                    long long npad, int* __restrict__ sa,
@@ -389,6 +427,20 @@ InitBufs carve_init(Arena& a, long long N) {
   b.starts = a.take<int>(N);
   b.scan = a.take<int>(scan_scratch_elems(N));
   return b;
+}
+
+// The anchored init from (key, position) pairs already in b.keys / b.vals
+// (B1 and B1b differ only in their keys): sort, group starts with the pad
+// singletons forced, max-scan into gs, rank[sa[i]] = gs[i].
+void init_from_keys(const InitBufs& b, long long N, long long n,
+                    int key_bits, int* sa, int* rank, int* gs,
+                    cudaStream_t st) {
+  const unsigned grid = grid_for(N);
+  radix_sort_pairs(b.keys, b.vals, N, key_bits, b.sort, st);
+  init_groups_kernel<<<grid, kThreads, 0, st>>>(b.keys, b.vals, N, N - n, sa,
+                                                b.starts);
+  scan_levels<MaxOp>(b.starts, gs, N, false, b.scan, st);
+  scatter_rank_kernel<<<grid, kThreads, 0, st>>>(sa, gs, N, rank);
 }
 
 // ---------------------------------------------------------------------------
@@ -587,18 +639,27 @@ int pss_sa_init_ranked(const void* text, long long N, long long n,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Arena a{static_cast<char*>(scratch), 0};
   InitBufs b = carve_init(a, N);
-  const unsigned grid = grid_for(N);
-  init_keys_kernel<<<grid, kThreads, 0, st>>>(
+  init_keys_kernel<<<grid_for(N), kThreads, 0, st>>>(
       static_cast<const uint8_t*>(text), N, n,
       static_cast<const int*>(rank_map), bits, b.keys, b.vals);
-  radix_sort_pairs(b.keys, b.vals, N, 2 * (30 / bits) * bits, b.sort, st);
-  init_groups_kernel<<<grid, kThreads, 0, st>>>(b.keys, b.vals, N, N - n,
-                                                static_cast<int*>(sa),
-                                                b.starts);
-  scan_levels<MaxOp>(b.starts, static_cast<int*>(gs), N, false, b.scan, st);
-  scatter_rank_kernel<<<grid, kThreads, 0, st>>>(
-      static_cast<const int*>(sa), static_cast<const int*>(gs), N,
-      static_cast<int*>(rank));
+  init_from_keys(b, N, n, 2 * (30 / bits) * bits, static_cast<int*>(sa),
+                 static_cast<int*>(rank), static_cast<int*>(gs), st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- B1b ------------------------------------------------------------------
+
+// text uint8 [N] (true length n, n + 6 <= N); writes sa, rank, gs int32
+// [N].  Scratch as pss_sa_init_scratch_bytes(N).
+int pss_sa_init_bytes(const void* text, long long N, long long n, void* sa,
+                      void* rank, void* gs, void* scratch, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Arena a{static_cast<char*>(scratch), 0};
+  InitBufs b = carve_init(a, N);
+  init_keys_bytes_kernel<<<grid_for(N), kThreads, 0, st>>>(
+      static_cast<const uint8_t*>(text), N, n, b.keys, b.vals);
+  init_from_keys(b, N, n, kByteKeyBits, static_cast<int*>(sa),
+                 static_cast<int*>(rank), static_cast<int*>(gs), st);
   return static_cast<int>(cudaGetLastError());
 }
 

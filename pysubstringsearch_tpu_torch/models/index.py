@@ -10,16 +10,17 @@ rows (ops/search.py:probe_phased).
 Two ways to build it, as in the JAX package:
 
 - upload: every container chunk is one row and its SA comes from the
-  container.  For a ranked alphabet the text and SA are uploaded and the
-  limb planes and seed tables are built on the device (ops/search.py
-  K1-K3); for a large NUL-free alphabet the host builders make them and
-  they are uploaded.
-- derive (ranked alphabets): the container's chunks are concatenated into
-  merged rows of up to ``MERGE_CAP_DEFAULT`` bytes, only their text is
-  uploaded, each row's SA is built on the device (ops/suffix_array.py B1,
-  B2), and K1-K3 build limbs and tables from it.  A merged row can match
+  container; the text and SA are uploaded.
+- derive: the container's chunks are concatenated into merged rows of up
+  to ``MERGE_CAP_DEFAULT`` bytes, only their text is uploaded, and each
+  row's SA is built on the device (ops/suffix_array.py: B1 and B2 for a
+  ranked alphabet, B1b and B2 for the raw kind).  A merged row can match
   an occurrence that spans a source-chunk boundary; :meth:`count_matches`
   and the Reader's extraction drop those.
+
+Either way the limb planes and seed tables are built on the device from
+the rows' text and SA (ops/search.py): K1-K3 for the ranked kind, K5-K7
+with K3 for the raw kind.
 """
 
 from __future__ import annotations
@@ -91,10 +92,12 @@ class DeviceIndex:
           the container;
         - ``'derive'``: upload the text only and build each row's SA on the
           device; with ``merge`` (the default) the chunks are concatenated
-          into rows of up to ``MERGE_CAP_DEFAULT`` bytes.  Ranked alphabets
-          only: the raw kind's derive is not ported yet (ROADMAP A2, B12);
-        - ``'auto'``: derive on a CUDA device for a ranked alphabet, upload
-          otherwise (the CPU, and the raw kind until B12 is ported).
+          into rows of up to ``MERGE_CAP_DEFAULT`` bytes;
+        - ``'auto'``: derive on a CUDA device, upload on the CPU, as the
+          JAX package derives on an accelerator.
+
+        The digit kind (an alphabet of more than 62 bytes with NUL) raises
+        ``NotImplementedError`` in every mode (ROADMAP A3).
 
         ``profiler`` records the build's phases, each device phase ending
         in a synchronise: ``index-alphabet`` (the byte-presence scan that
@@ -125,16 +128,11 @@ class DeviceIndex:
         else:
             raise NotImplementedError(
                 'digit-kind index (an alphabet of more than 62 bytes that '
-                'contains NUL) is not ported yet (ROADMAP B11 and B12)'
+                'contains NUL) is not ported yet (ROADMAP A3: B11 and the '
+                'digit half of B12)'
             )
         if mode == 'auto':
-            mode = ('derive' if self.device.type == 'cuda'
-                    and self.kind == 'ranked' else 'upload')
-        if mode == 'derive' and self.kind != 'ranked':
-            raise NotImplementedError(
-                'derive mode for the raw kind (an alphabet of more than 62 '
-                'bytes without NUL) is not ported yet (ROADMAP A2, B12)'
-            )
+            mode = 'derive' if self.device.type == 'cuda' else 'upload'
         self.mode = mode
         self._bits = bits
         merge = (merge is None or merge) and mode == 'derive' \
@@ -183,7 +181,7 @@ class DeviceIndex:
             self._upload(chunks, prof)
         table_len = self._base ** self._depth + 1
         with prof.phase('index-aux'):
-            self._build_aux(chunks, rank, table_len)
+            self._build_aux(table_len)
             self._sync()
 
     def _set_geometry(self, sizes: typing.List[typing.List[int]]) -> None:
@@ -228,48 +226,44 @@ class DeviceIndex:
                 self.text[i, : d.size] = torch.from_numpy(host)
                 self._sync()
             with prof.phase('index-sa'):
-                _, ties = derive_sa(self.text[i], d.size, self.rank,
-                                    self._bits, out=self.sa[i])
+                # B1 on the rank digits for the ranked kind, B1b on the
+                # bytes (bits None) for the raw kind.
+                _, ties = derive_sa(
+                    self.text[i], d.size,
+                    self.rank if self.kind == 'ranked' else None,
+                    self._bits, out=self.sa[i],
+                )
                 self.sa_ties.append(ties)
                 self._sync()
 
-    def _build_aux(
-        self, chunks: typing.Sequence[Chunk], rank: np.ndarray, table_len: int
-    ) -> None:
-        """Limb planes and seed tables: K1-K3 on the device for the ranked
-        kind, the host builders for the raw kind."""
+    def _build_aux(self, table_len: int) -> None:
+        """Limb planes and seed tables of every row on the device, through
+        one int32 [n_pad] scratch row: K1, then K3 and K2 from the ranked
+        pack; or K7 and K3 from the prefix values, then K5 into the same
+        row and K6 from the raw pack."""
         C, n_pad, bits = self.num_chunks, self.n_pad, self._bits
-        if self.kind == 'ranked':
-            self.tables = torch.empty((C, table_len), dtype=torch.int32,
-                                      device=self.device)
-            self.limbs = torch.empty((C, self.num_limbs * n_pad),
-                                     dtype=torch.int32, device=self.device)
-            packed = torch.empty(n_pad, dtype=torch.int32,
+        base, depth, K = self._base, self._depth, self.num_limbs
+        self.tables = torch.empty((C, table_len), dtype=torch.int32,
+                                  device=self.device)
+        self.limbs = torch.empty((C, K * n_pad), dtype=torch.int32,
                                  device=self.device)
-            for i, d in enumerate(self.row_data):
-                search_ops.ranked_pack(self.text[i], d.size, self.rank, bits,
-                                       out=packed)
-                search_ops.seed_table(packed, self.sa[i], d.size, self._base,
-                                      self._depth, bits, out=self.tables[i])
-                search_ops.ranked_limb_planes(
-                    packed, self.sa[i], d.size, self._depth, bits,
-                    self.num_limbs, out=self.limbs[i],
-                )
-        else:
-            tables = np.zeros((C, table_len), dtype=np.int32)
-            limbs = np.zeros((C, self.num_limbs * n_pad), dtype=np.int32)
-            for i, c in enumerate(chunks):
-                tables[i] = search_ops.build_seed_table_host(
-                    c.data, c.suffix_array, rank, self._base, self._depth
-                )
-                limbs[i] = search_ops.pad_limbs_host(
-                    search_ops.build_raw_limbs_host(
-                        c.data, c.suffix_array, self.num_limbs, self._depth
-                    ),
-                    n_pad,
-                )
-            self.tables = torch.as_tensor(tables, device=self.device)
-            self.limbs = torch.as_tensor(limbs, device=self.device)
+        scratch = torch.empty(n_pad, dtype=torch.int32, device=self.device)
+        for i, d in enumerate(self.row_data):
+            text, sa, n = self.text[i], self.sa[i], d.size
+            if self.kind == 'ranked':
+                search_ops.ranked_pack(text, n, self.rank, bits, out=scratch)
+                search_ops.seed_table(scratch, sa, n, base, depth, bits,
+                                      out=self.tables[i])
+                search_ops.ranked_limb_planes(scratch, sa, n, depth, bits, K,
+                                              out=self.limbs[i])
+            else:
+                search_ops.seed_prefix(text, n, self.rank, base, depth,
+                                       out=scratch)
+                search_ops.seed_table_from_prefix(scratch, sa, n, base, depth,
+                                                  out=self.tables[i])
+                search_ops.raw_pack(text, n, out=scratch)
+                search_ops.raw_limb_planes(scratch, sa, n, depth, K,
+                                           out=self.limbs[i])
 
     @classmethod
     def from_arrays(
@@ -286,7 +280,8 @@ class DeviceIndex:
         ``boundaries`` (their interior end offsets in the row)."""
         if meta['kind'] not in ('ranked', 'raw'):
             raise NotImplementedError(
-                f"{meta['kind']}-kind index is not ported yet (ROADMAP B11)"
+                f"{meta['kind']}-kind index is not ported yet (ROADMAP A3: "
+                'B11)'
             )
         self = cls.__new__(cls)
         self.mode = meta.get('mode', 'upload')
@@ -329,10 +324,11 @@ class DeviceIndex:
     def _auto_num_limbs(self) -> int:
         """Most limb planes (at most RAW_LIMBS, at least 1) whose footprint
         fits the device.  Resident per row: text (1 B) + SA (4 B) + one
-        int32 per plane per slot, plus the seed table; besides that one
-        pack scratch row, and in derive mode one row's SA-build scratch
-        (sort keys, values and their double buffers, the working rank and
-        group starts; ops/suffix_array.SA_BUILD_BYTES_PER_SLOT)."""
+        int32 per plane per slot, plus the seed table; besides that the aux
+        build's one scratch row (the ranked pack, or the raw kind's prefix
+        values and then its pack), and in derive mode one row's SA-build
+        scratch (sort keys, values and their double buffers, the working
+        rank and group starts; ops/suffix_array.SA_BUILD_BYTES_PER_SLOT)."""
         C = max(self.num_chunks, 1)
         table_bytes = 4 * (self._base ** self._depth + 1)
         fixed = C * (5 * self.n_pad + table_bytes) + 4 * self.n_pad

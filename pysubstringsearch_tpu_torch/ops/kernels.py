@@ -49,6 +49,12 @@ _SIGNATURES: typing.Dict[str, list] = {
     'pss_ranked_limb_planes': [_P, _P, _L, _I, _I, _I, _I, _P, _P],
     # packed, sa, n, shift, size, table, stream
     'pss_seed_table': [_P, _P, _I, _I, _L, _P, _P],
+    # text, N, n, out, stream
+    'pss_raw_pack': [_P, _L, _L, _P, _P],
+    # packed, sa, N, n, depth, num_limbs, limbs, stream
+    'pss_raw_limb_planes': [_P, _P, _L, _I, _I, _I, _P, _P],
+    # text, N, n, rank, base, depth, out, stream
+    'pss_seed_prefix': [_P, _L, _L, _P, _I, _I, _P, _P],
     # text, n, sa, tables, limbs, rank, present, patterns, lengths,
     # C, B, L, n_pad, table_len, num_limbs, depth, base, bits,
     # lower, count, stream
@@ -64,6 +70,8 @@ _SIGNATURES: typing.Dict[str, list] = {
     'pss_radix_sort_pairs': [_P, _P, _L, _I, _P, _P],
     # text, N, n, rank_map, bits, sa, rank, gs, scratch, stream
     'pss_sa_init_ranked': [_P, _L, _L, _P, _I, _P, _P, _P, _P, _P],
+    # text, N, n, sa, rank, gs, scratch, stream
+    'pss_sa_init_bytes': [_P, _L, _L, _P, _P, _P, _P, _P],
     # gs, N, flags, dest, scratch, stream
     'pss_sa_tie_scan': [_P, _L, _P, _P, _P, _P],
     # sa, rank, gs, N, k, m, flags, dest, scratch, stream

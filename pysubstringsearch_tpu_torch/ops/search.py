@@ -22,12 +22,17 @@ A probe seeds its range from the table, bisects limb by limb through tie
 ranges, and compares raw bytes for patterns longer than the packed
 coverage.
 
-Five device functions carry the index; each is a CUDA kernel
-(``csrc/search_kernels.cu``) with a plain PyTorch version beside it:
+The device functions that carry the index are CUDA kernels
+(``csrc/search_kernels.cu``), each with a plain PyTorch version beside it:
 
 - :func:`ranked_pack`   (K1): next rank digits of every text position;
-- :func:`ranked_limb_planes` (K2): all limb planes in SA order;
-- :func:`seed_table`    (K3): the seed table from the pack;
+- :func:`ranked_limb_planes` (K2): all ranked limb planes in SA order;
+- :func:`seed_table`    (K3): the seed table from the ranked pack, and
+  :func:`seed_table_from_prefix` the same kernel on K7's prefix values;
+- :func:`raw_pack`      (K5): next 4 raw bytes of every text position;
+- :func:`raw_limb_planes` (K6): all raw limb planes in SA order;
+- :func:`seed_prefix`   (K7): the seed depth's rank digits of every text
+  position, for any rank map and base;
 - :func:`probe_phased`  (K4): the phased probe;
 - :func:`gather_hits_flat` (B8): a merged row's hits as flat (position,
   query) pairs.
@@ -44,7 +49,7 @@ import numpy as np
 import torch
 
 from . import kernels
-from .suffix_array import scan_exclusive_sum
+from .suffix_array import _shifted, scan_exclusive_sum
 
 #: Digit space for byte ranks in the full-byte seed table: byte b -> b + 1,
 #: past-the-end -> 0, and 257 as the +infinity digit.
@@ -278,11 +283,9 @@ def ranked_pack_plain(text: torch.Tensor, n: int, rank: torch.Tensor,
     N = text.shape[0]
     iota = torch.arange(N, device=text.device)
     e = torch.where(iota < n, rank.long()[text.long()], 0)
-    v = torch.zeros(N, dtype=torch.int64, device=text.device)
+    v = torch.zeros_like(e)
     for d in range(ranked_limb_bytes(bits)):
-        shifted = torch.zeros_like(e)
-        shifted[: max(N - d, 0)] = e[d:]
-        v = (v << bits) + shifted
+        v = (v << bits) + _shifted(e, d)
     return v.to(torch.int32)
 
 
@@ -307,20 +310,28 @@ def ranked_pack(text: torch.Tensor, n: int, rank: torch.Tensor, bits: int,
     return out
 
 
+def _limb_planes_plain(packed: torch.Tensor, sa: torch.Tensor, n: int,
+                       depth: int, stride: int,
+                       num_limbs: int) -> torch.Tensor:
+    """int32 [num_limbs * N], plane-major: ``limbs[j*N + i] =
+    packed[min(sa[i] + depth + stride*j, N - 1)]`` for i < n, else 0."""
+    N = packed.shape[0]
+    iota = torch.arange(N, device=packed.device)
+    s = sa.long().clamp(0, N - 1)
+    cols = []
+    for j in range(num_limbs):
+        idx = (s + depth + stride * j).clamp(0, N - 1)
+        cols.append(torch.where(iota < n, packed[idx], 0))
+    return torch.cat(cols).to(torch.int32)
+
+
 def ranked_limb_planes_plain(packed: torch.Tensor, sa: torch.Tensor, n: int,
                              depth: int, bits: int,
                              num_limbs: int) -> torch.Tensor:
     """Plain version of K2: int32 [num_limbs * N], plane-major;
     ``limbs[j*N + i] = packed[sa[i] + depth + D*j]`` for i < n, else 0."""
-    N = packed.shape[0]
-    D = ranked_limb_bytes(bits)
-    iota = torch.arange(N, device=packed.device)
-    s = sa.long().clamp(0, N - 1)
-    cols = []
-    for j in range(num_limbs):
-        idx = (s + depth + D * j).clamp(0, N - 1)
-        cols.append(torch.where(iota < n, packed[idx], 0))
-    return torch.cat(cols).to(torch.int32)
+    return _limb_planes_plain(packed, sa, n, depth, ranked_limb_bytes(bits),
+                              num_limbs)
 
 
 def ranked_limb_planes(packed: torch.Tensor, sa: torch.Tensor, n: int,
@@ -349,18 +360,52 @@ def ranked_limb_planes(packed: torch.Tensor, sa: torch.Tensor, n: int,
     return out
 
 
+def _table_plain(src: torch.Tensor, sa: torch.Tensor, n: int, size: int,
+                 shift: int) -> torch.Tensor:
+    """int32 [size], entry k = first SA slot i < n whose key ``src[sa[i]]
+    >> shift`` is >= k, or n."""
+    probes = torch.arange(size, dtype=torch.int64, device=src.device)
+    if n == 0:
+        return torch.zeros(size, dtype=torch.int32, device=src.device)
+    keys = src[sa[:n].long()].long() >> shift
+    return torch.searchsorted(keys, probes, side='left').to(torch.int32)
+
+
+def _table(src: torch.Tensor, sa: torch.Tensor, n: int, size: int,
+           shift: int, out: typing.Optional[torch.Tensor]) -> torch.Tensor:
+    """K3 on any int32 [N] key source whose keys never decrease in SA
+    order (see :func:`_table_plain`)."""
+    if out is None:
+        out = torch.empty(size, dtype=torch.int32, device=src.device)
+    if not kernels.route(src, sa, out):
+        out.copy_(_table_plain(src, sa, n, size, shift))
+        return out
+    kernels.check(src, 'packed', torch.int32, 1)
+    kernels.check(sa, 'sa', torch.int32, 1)
+    kernels.check(out, 'out', torch.int32, 1)
+    if out.shape[0] != size:
+        raise ValueError('seed_table: bad output shape')
+    with torch.cuda.device(src.device):
+        kernels.launch('seed_table', src.data_ptr(), sa.data_ptr(), int(n),
+                       shift, size, out.data_ptr())
+    return out
+
+
+def _check_ranked_table(base: int, depth: int, bits: int) -> int:
+    """The key shift of a ranked table from the pack; raises unless
+    ``base == 1 << bits`` and ``depth <= D``."""
+    if base != 1 << bits or depth > ranked_limb_bytes(bits):
+        raise ValueError('seed_table: base must be 1 << bits, depth <= D')
+    return (ranked_limb_bytes(bits) - depth) * bits
+
+
 def seed_table_plain(packed: torch.Tensor, sa: torch.Tensor, n: int,
                      base: int, depth: int, bits: int) -> torch.Tensor:
     """Plain version of K3: int32 [base^depth + 1], entry k = first SA slot
     whose ``depth``-digit key ``packed[sa[i]] >> ((D - depth) * bits)`` is
     >= k, or n."""
-    size = base ** depth + 1
-    probes = torch.arange(size, dtype=torch.int64, device=packed.device)
-    if n == 0:
-        return torch.zeros(size, dtype=torch.int32, device=packed.device)
-    shift = (ranked_limb_bytes(bits) - depth) * bits
-    keys = packed[sa[:n].long()].long() >> shift
-    return torch.searchsorted(keys, probes, side='left').to(torch.int32)
+    shift = _check_ranked_table(base, depth, bits)
+    return _table_plain(packed, sa, n, base ** depth + 1, shift)
 
 
 def seed_table(packed: torch.Tensor, sa: torch.Tensor, n: int, base: int,
@@ -368,23 +413,130 @@ def seed_table(packed: torch.Tensor, sa: torch.Tensor, n: int, base: int,
                out: typing.Optional[torch.Tensor] = None) -> torch.Tensor:
     """K3, seed table of one row from its ranked pack (see
     :func:`seed_table_plain`).  Needs ``base == 1 << bits``."""
-    if base != 1 << bits or depth > ranked_limb_bytes(bits):
-        raise ValueError('seed_table: base must be 1 << bits, depth <= D')
-    size = base ** depth + 1
+    shift = _check_ranked_table(base, depth, bits)
+    return _table(packed, sa, n, base ** depth + 1, shift, out)
+
+
+def seed_table_from_prefix_plain(pv: torch.Tensor, sa: torch.Tensor, n: int,
+                                 base: int, depth: int) -> torch.Tensor:
+    """Plain version of K3 on K7's prefix values: int32 [base^depth + 1],
+    entry k = first SA slot whose ``pv[sa[i]]`` is >= k, or n."""
+    return _table_plain(pv, sa, n, base ** depth + 1, 0)
+
+
+def seed_table_from_prefix(pv: torch.Tensor, sa: torch.Tensor, n: int,
+                           base: int, depth: int,
+                           out: typing.Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """K3, seed table of one row from K7's prefix values (shift 0; see
+    :func:`seed_table_from_prefix_plain`).  With :func:`seed_prefix` it
+    replaces ``build_seed_table_device``: ``pv`` never decreases in SA
+    order, so the bisection gives the JAX scatter-min and reverse cummin's
+    table."""
+    return _table(pv, sa, n, base ** depth + 1, 0, out)
+
+
+def raw_pack_plain(text: torch.Tensor, n: int) -> torch.Tensor:
+    """Plain version of K5: int32 [N], position p's next 4 bytes
+    big-endian with the top byte biased by -128; bytes at or past n are 0,
+    so a position at or past n packs INT32_MIN."""
+    iota = torch.arange(text.shape[0], device=text.device)
+    b = torch.where(iota < n, text.long(), 0)
+    v = b - 128
+    for d in range(1, 4):
+        v = v * 256 + _shifted(b, d)
+    return v.to(torch.int32)
+
+
+def raw_pack(text: torch.Tensor, n: int,
+             out: typing.Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K5, raw pack: int32 [N] for a uint8 [N] text row of true length
+    ``n`` (see :func:`raw_pack_plain`).  Replaces ``raw_pack_jit``."""
+    N = text.shape[0]
     if out is None:
-        out = torch.empty(size, dtype=torch.int32, device=packed.device)
+        out = torch.empty(N, dtype=torch.int32, device=text.device)
+    if not kernels.route(text, out):
+        out.copy_(raw_pack_plain(text, n))
+        return out
+    kernels.check(text, 'text', torch.uint8, 1)
+    kernels.check(out, 'out', torch.int32, 1)
+    if out.shape[0] != N:
+        raise ValueError('raw_pack: bad output shape')
+    with torch.cuda.device(text.device):
+        kernels.launch('raw_pack', text.data_ptr(), N, int(n),
+                       out.data_ptr())
+    return out
+
+
+def raw_limb_planes_plain(packed: torch.Tensor, sa: torch.Tensor, n: int,
+                          depth: int, num_limbs: int) -> torch.Tensor:
+    """Plain version of K6: int32 [num_limbs * N], plane-major;
+    ``limbs[j*N + i] = packed[min(sa[i] + depth + 4j, N - 1)]`` for i < n,
+    else 0."""
+    return _limb_planes_plain(packed, sa, n, depth, 4, num_limbs)
+
+
+def raw_limb_planes(packed: torch.Tensor, sa: torch.Tensor, n: int,
+                    depth: int, num_limbs: int,
+                    out: typing.Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """K6, raw limb planes: every plane of one row in one pass over ``sa``
+    from K5's pack (see :func:`raw_limb_planes_plain`).  Replaces
+    ``derive_limb_raw_jit`` and ``build_raw_limbs_device``."""
+    N = packed.shape[0]
+    if out is None:
+        out = torch.empty(num_limbs * N, dtype=torch.int32,
+                          device=packed.device)
     if not kernels.route(packed, sa, out):
-        out.copy_(seed_table_plain(packed, sa, n, base, depth, bits))
+        out.copy_(raw_limb_planes_plain(packed, sa, n, depth, num_limbs))
         return out
     kernels.check(packed, 'packed', torch.int32, 1)
     kernels.check(sa, 'sa', torch.int32, 1)
     kernels.check(out, 'out', torch.int32, 1)
-    if out.shape[0] != size:
-        raise ValueError('seed_table: bad output shape')
-    shift = (ranked_limb_bytes(bits) - depth) * bits
+    if sa.shape[0] != N or out.shape[0] != num_limbs * N:
+        raise ValueError('raw_limb_planes: bad shapes')
     with torch.cuda.device(packed.device):
-        kernels.launch('seed_table', packed.data_ptr(), sa.data_ptr(),
-                       int(n), shift, size, out.data_ptr())
+        kernels.launch('raw_limb_planes', packed.data_ptr(), sa.data_ptr(),
+                       N, int(n), depth, num_limbs, out.data_ptr())
+    return out
+
+
+def seed_prefix_plain(text: torch.Tensor, n: int, rank: torch.Tensor,
+                      base: int, depth: int) -> torch.Tensor:
+    """Plain version of K7: int32 [N], the ``depth`` rank digits of
+    ``text[p:]`` in base ``base``; a digit at or past n is 0."""
+    iota = torch.arange(text.shape[0], device=text.device)
+    e = torch.where(iota < n, rank.long()[text.long()], 0)
+    v = torch.zeros_like(e)
+    for d in range(depth):
+        v = v * base + _shifted(e, d)
+    return v.to(torch.int32)
+
+
+def seed_prefix(text: torch.Tensor, n: int, rank: torch.Tensor, base: int,
+                depth: int,
+                out: typing.Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K7, seed prefix: int32 [N] prefix values of a uint8 [N] text row of
+    true length ``n`` with the byte -> digit map ``rank`` int32 [256] (see
+    :func:`seed_prefix_plain`).  Any base of the table combinations (258
+    for a full-byte alphabet, with :func:`identity_rank` the digit kind's
+    bucket digits)."""
+    N = text.shape[0]
+    if (base, depth) not in _TABLE_COMBOS:
+        raise ValueError(f'seed_prefix: no table of {base}^{depth}')
+    if out is None:
+        out = torch.empty(N, dtype=torch.int32, device=text.device)
+    if not kernels.route(text, rank, out):
+        out.copy_(seed_prefix_plain(text, n, rank, base, depth))
+        return out
+    kernels.check(text, 'text', torch.uint8, 1)
+    kernels.check(rank, 'rank', torch.int32, 1)
+    kernels.check(out, 'out', torch.int32, 1)
+    if out.shape[0] != N or rank.shape[0] != 256:
+        raise ValueError('seed_prefix: bad shapes')
+    with torch.cuda.device(text.device):
+        kernels.launch('seed_prefix', text.data_ptr(), N, int(n),
+                       rank.data_ptr(), base, depth, out.data_ptr())
     return out
 
 

@@ -11,17 +11,20 @@ The SA of a string is unique, so both give identical bytes.
 
 Device (derive mode): :func:`derive_sa` builds a padded text row's SA by
 tie-only prefix doubling, as the JAX package's ``_segmented_kernel_ranked``
-does, in the anchored form
+(ranked alphabets) and ``_segmented_kernel`` (any other) do, in the
+anchored form
 
     sa[slot]  = text position occupying SA slot ``slot``
     rank[pos] = slot of the first member of pos's group
     gs[slot]  = rank[sa[slot]], the group start of every slot
 
-from two CUDA kernels (``csrc/suffix_array_kernels.cu``), each with a plain
+from CUDA kernels (``csrc/suffix_array_kernels.cu``), each with a plain
 PyTorch version beside it:
 
 - :func:`sa_init_ranked` (B1): the anchored init sort on 2 x (30 // bits)
   rank digits;
+- :func:`sa_init_bytes` (B1b): the anchored init sort on 6 byte + 1
+  digits;
 - :func:`sa_refine_round` (B2): one doubling round over the tied slots.
 
 Their building blocks are kernels of the same file, exposed for tests:
@@ -192,31 +195,43 @@ def _key_width(N: int) -> int:
     return N.bit_length()
 
 
-def _check_pad_contract(N: int, n: int, bits: int) -> None:
-    if bits not in (5, 6):
+#: Text positions the byte init (B1b) keys on, and so its pad margin.
+BYTE_INIT_WIDTH = 6
+
+
+def _check_pad_contract(N: int, n: int,
+                        bits: typing.Optional[int]) -> None:
+    """B1 needs ``n + 30 // bits <= N``, B1b (``bits`` None) ``n + 6 <=
+    N``."""
+    if bits is None:
+        margin = BYTE_INIT_WIDTH
+    elif bits in (5, 6):
+        margin = 30 // bits
+    else:
         raise ValueError(f'ranked digits are 5 or 6 bits, got {bits}')
-    # The derive path's PAD_MARGIN guarantees it: positions within D of the
-    # row's end lie past n, so the pad positions are exactly the all-zero
-    # key group and sort first.
-    if not (0 <= n and n + 30 // bits <= N):
+    # The derive path's PAD_MARGIN guarantees it: positions within the
+    # margin of the row's end lie past n, so the pad positions are exactly
+    # the all-zero key group and sort first, as in the JAX inits.
+    if not (0 <= n and n + margin <= N):
         raise ValueError(
-            f'pad contract: need n + {30 // bits} <= N, got n={n}, N={N}'
+            f'pad contract: need n + {margin} <= N, got n={n}, N={N}'
         )
 
 
-def sa_init_ranked_plain(text: torch.Tensor, n: int, rank: torch.Tensor,
-                         bits: int):
-    """Plain version of B1: (sa, rank, gs) int32 [N] of the anchored init
-    sort over the first 2D rank digits of every suffix (D = 30 // bits)."""
-    N = text.shape[0]
-    dev = text.device
+def _shifted(e: torch.Tensor, d: int) -> torch.Tensor:
+    """e[p + d], 0 past the end of the row."""
+    out = torch.zeros_like(e)
+    out[: max(e.shape[0] - d, 0)] = e[d:]
+    return out
+
+
+def _init_from_key(key: torch.Tensor, n: int):
+    """The anchored init from one int64 key per position: the stable sort,
+    the pad slots in their known order with singleton groups forced, the
+    group-start max-scan and the rank scatter."""
+    N = key.shape[0]
+    dev = key.device
     iota = torch.arange(N, device=dev)
-    e = torch.where(iota < n, rank.long()[text.long()], 0)
-    key = torch.zeros(N, dtype=torch.int64, device=dev)
-    for d in range(2 * (30 // bits)):
-        shifted = torch.zeros_like(e)
-        shifted[: max(N - d, 0)] = e[d:]
-        key = (key << bits) | shifted
     keys_s, idx = torch.sort(key, stable=True)
     npad = N - n
     sa = torch.where(iota < npad, N - 1 - iota, idx)
@@ -226,6 +241,18 @@ def sa_init_ranked_plain(text: torch.Tensor, n: int, rank: torch.Tensor,
     rk = torch.empty(N, dtype=torch.int64, device=dev)
     rk[sa] = gs
     return sa.to(torch.int32), rk.to(torch.int32), gs.to(torch.int32)
+
+
+def sa_init_ranked_plain(text: torch.Tensor, n: int, rank: torch.Tensor,
+                         bits: int):
+    """Plain version of B1: (sa, rank, gs) int32 [N] of the anchored init
+    sort over the first 2D rank digits of every suffix (D = 30 // bits)."""
+    iota = torch.arange(text.shape[0], device=text.device)
+    e = torch.where(iota < n, rank.long()[text.long()], 0)
+    key = torch.zeros_like(e)
+    for d in range(2 * (30 // bits)):
+        key = (key << bits) | _shifted(e, d)
+    return _init_from_key(key, n)
 
 
 def sa_init_ranked(text: torch.Tensor, n: int, rank: torch.Tensor,
@@ -250,6 +277,40 @@ def sa_init_ranked(text: torch.Tensor, n: int, rank: torch.Tensor,
         kernels.launch('sa_init_ranked', text.data_ptr(), N, int(n),
                        rank.data_ptr(), bits, sa.data_ptr(), rk.data_ptr(),
                        gs.data_ptr(), scratch.data_ptr())
+    return sa, rk, gs
+
+
+def sa_init_bytes_plain(text: torch.Tensor, n: int):
+    """Plain version of B1b: (sa, rank, gs) int32 [N] of the anchored init
+    sort over the first 6 digits of every suffix, digit byte + 1 and 0 at
+    or past n, keyed as ``limb0 << 25 | limb1`` (three base-257 digits
+    each, 257^3 < 2^25)."""
+    iota = torch.arange(text.shape[0], device=text.device)
+    e = torch.where(iota < n, text.long() + 1, 0)
+    limbs = [torch.zeros_like(e), torch.zeros_like(e)]
+    for d in range(BYTE_INIT_WIDTH):
+        limbs[d // 3] = limbs[d // 3] * 257 + _shifted(e, d)
+    return _init_from_key((limbs[0] << 25) | limbs[1], n)
+
+
+def sa_init_bytes(text: torch.Tensor, n: int):
+    """B1b, the 6-byte anchored init sort of a padded uint8 [N] text row of
+    true length ``n``: (sa, rank, gs) int32 [N] (see
+    :func:`sa_init_bytes_plain`).  Replaces ``_init_round_anchored``; needs
+    ``n + 6 <= N``."""
+    N = text.shape[0]
+    _check_pad_contract(N, n, None)
+    if not kernels.route(text):
+        return sa_init_bytes_plain(text, n)
+    kernels.check(text, 'text', torch.uint8, 1)
+    dev = text.device
+    sa, rk, gs = (torch.empty(N, dtype=torch.int32, device=dev)
+                  for _ in range(3))
+    scratch = kernels.scratch('sa_init', N, dev)
+    with torch.cuda.device(dev):
+        kernels.launch('sa_init_bytes', text.data_ptr(), N, int(n),
+                       sa.data_ptr(), rk.data_ptr(), gs.data_ptr(),
+                       scratch.data_ptr())
     return sa, rk, gs
 
 
@@ -349,11 +410,19 @@ def sa_roll_front(sa_full: torch.Tensor, n: int,
     return out
 
 
-def _derive(init, refine, roll, text, n, rank, bits, out):
+def _derive(init_ranked, init_bytes, refine, roll, text, n, rank, bits,
+            out):
     N = text.shape[0]
-    sa, rk, gs = init(text, n, rank, bits)
+    _check_pad_contract(N, n, bits)
+    if bits is None:
+        sa, rk, gs = init_bytes(text, n)
+        k = BYTE_INIT_WIDTH
+    else:
+        if rank is None:
+            raise ValueError('derive_sa: ranked digits need the rank map')
+        sa, rk, gs = init_ranked(text, n, rank, bits)
+        k = 2 * (30 // bits)
     ties: typing.List[int] = []
-    k = 2 * (30 // bits)
     while k < N:
         m = refine(sa, rk, gs, k)
         if m == 0:
@@ -364,22 +433,27 @@ def _derive(init, refine, roll, text, n, rank, bits, out):
     return roll(sa, n, out), ties
 
 
-def derive_sa(text: torch.Tensor, n: int, rank: torch.Tensor, bits: int,
+def derive_sa(text: torch.Tensor, n: int,
+              rank: typing.Optional[torch.Tensor] = None,
+              bits: typing.Optional[int] = None,
               out: typing.Optional[torch.Tensor] = None):
     """The SA of a padded uint8 [N] text row of true length ``n``, built on
     the row's device: (sa int32 [N] in the rolled-front layout of the JAX
-    ``_derive_sa_seg_ranked_jit``, the tie count m of every doubling round
-    run).  B1, then B2 from k = 2 * (30 // bits), doubling while k < N and
-    ties remain; the host reads each round's m once.  ``out`` (a row of the
-    stacked index) receives the SA when given."""
-    _check_pad_contract(text.shape[0], n, bits)
-    return _derive(sa_init_ranked, sa_refine_round, sa_roll_front, text, n,
-                   rank, bits, out)
+    ``derive_sa``, the tie count m of every doubling round run).  With
+    ``bits`` None, B1b and then B2 from k = 6 (``_derive_sa_seg_jit``);
+    with a ranked alphabet's ``rank`` and ``bits``, B1 and then B2 from k =
+    2 * (30 // bits) (``_derive_sa_seg_ranked_jit``).  The rounds double k
+    while k < N and ties remain; the host reads each round's m once.
+    ``out`` (a row of the stacked index) receives the SA when given."""
+    return _derive(sa_init_ranked, sa_init_bytes, sa_refine_round,
+                   sa_roll_front, text, n, rank, bits, out)
 
 
-def derive_sa_plain(text: torch.Tensor, n: int, rank: torch.Tensor,
-                    bits: int, out: typing.Optional[torch.Tensor] = None):
+def derive_sa_plain(text: torch.Tensor, n: int,
+                    rank: typing.Optional[torch.Tensor] = None,
+                    bits: typing.Optional[int] = None,
+                    out: typing.Optional[torch.Tensor] = None):
     """:func:`derive_sa` through the plain versions on any device."""
-    _check_pad_contract(text.shape[0], n, bits)
-    return _derive(sa_init_ranked_plain, sa_refine_round_plain,
-                   sa_roll_front_plain, text, n, rank, bits, out)
+    return _derive(sa_init_ranked_plain, sa_init_bytes_plain,
+                   sa_refine_round_plain, sa_roll_front_plain, text, n, rank,
+                   bits, out)

@@ -100,7 +100,7 @@ def test_aux_kernels_match_plain(cuda, kind, depth, K):
 @pytest.mark.parametrize('kind, mode', [
     ('ranked', 'upload'), ('ranked6', 'upload'), ('nul', 'upload'),
     ('raw', 'upload'), ('ranked', 'derive'), ('ranked6', 'derive'),
-    ('nul', 'derive'),
+    ('nul', 'derive'), ('raw', 'derive'),
 ])
 def test_index_and_probe_match_cpu(cuda, kind, mode):
     """A multi-row index built on the card equals the CPU one array for
@@ -246,3 +246,72 @@ def test_gather_hits_flat_matches_plain(cuda):
     assert torch.equal(pos, ppos) and torch.equal(qid, pqid)
     empty = torch.zeros(0, dtype=torch.int32, device=cuda)
     assert S.gather_hits_flat(sa_row, empty, empty)[0].shape == (0,)
+
+
+def _raw_row(size, seed, device):
+    """A raw-kind row: printable words (bytes 33-126) for the word text,
+    every byte but NUL for the rest."""
+    rng = np.random.default_rng(seed)
+    if size >= 1 << 24:
+        vocab = [bytes(rng.integers(33, 127, size=int(l), dtype=np.uint8))
+                 for l in rng.integers(3, 12, size=3000)]
+        data = np.frombuffer(b' '.join(vocab[i] for i in rng.integers(
+            0, 3000, size=size // 6))[:size], dtype=np.uint8).copy()
+    else:
+        data = rng.integers(1, 256, size=size, dtype=np.uint8)
+    n = data.size
+    N = _pad_len(n + S.PAD_MARGIN)
+    text = torch.zeros(N, dtype=torch.uint8, device=device)
+    text[:n] = torch.from_numpy(data)
+    return data, text, n
+
+
+@pytest.mark.parametrize('size', [1, (1 << 20) + 7, 1 << 24])
+def test_raw_kernels_match_plain(cuda, size):
+    """B1b, one B2 round from k = 6, the raw derive_sa, K5, K6 and K7 with
+    K3 (the row's own alphabet and the identity rank at base 258), each
+    bit for bit against its plain version."""
+    data, text, n = _raw_row(size, size, cuda)
+    before = dict(kernels.LAUNCHES)
+    init = SA.sa_init_bytes(text, n)
+    plain = SA.sa_init_bytes_plain(text, n)
+    for a, b in zip(init, plain):
+        assert torch.equal(a, b)
+    state = [t.clone() for t in init]
+    m = SA.sa_refine_round(*state, 6)
+    pm = SA.sa_refine_round_plain(*plain, 6)
+    assert m == pm
+    for a, b in zip(state, plain):
+        assert torch.equal(a, b)
+    sa, ties = SA.derive_sa(text, n)
+    psa, pties = SA.derive_sa_plain(text, n)
+    torch.cuda.synchronize()
+    assert ties == pties and torch.equal(sa, psa)
+    assert np.array_equal(sa[:n].cpu().numpy(), suffix_array_native(data))
+    if size >= 1 << 24:
+        assert len(ties) >= 2 and ties[0] == m > 0
+
+    packed = S.raw_pack(text, n)
+    assert torch.equal(packed, S.raw_pack_plain(text, n))
+    limbs = S.raw_limb_planes(packed, sa, n, 3, 3)
+    assert torch.equal(limbs, S.raw_limb_planes_plain(packed, sa, n, 3, 3))
+    host = S.pad_limbs_host(S.build_raw_limbs_host(
+        data, sa[:n].cpu().numpy(), 3, 3), text.shape[0])
+    assert np.array_equal(limbs.cpu().numpy(), host)
+    pres = np.bincount(data, minlength=256)[:256] > 0
+    rank, sigma = S.alphabet_rank(pres)
+    base, depth = S.pick_table_params(sigma, n)
+    ident, _ = S.identity_rank()
+    for rk, b, d in ((rank, base, depth), (ident, 258, 3)):
+        rk = torch.from_numpy(rk).to(cuda)
+        pv = S.seed_prefix(text, n, rk, b, d)
+        assert torch.equal(pv, S.seed_prefix_plain(text, n, rk, b, d))
+        table = S.seed_table_from_prefix(pv, sa, n, b, d)
+        assert torch.equal(table, S.seed_table_from_prefix_plain(pv, sa, n,
+                                                                 b, d))
+    assert np.array_equal(table.cpu().numpy(), S.build_seed_table_host(
+        data, sa[:n].cpu().numpy(), ident, 258, 3))
+    torch.cuda.synchronize()
+    for name in ('sa_init_bytes', 'sa_tie_scan', 'raw_pack',
+                 'raw_limb_planes', 'seed_prefix', 'seed_table'):
+        assert kernels.LAUNCHES[name] > before[name], name

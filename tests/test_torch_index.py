@@ -106,14 +106,16 @@ def test_unported_modes_raise():
     rng = np.random.default_rng(0)
     body = rng.integers(0, 256, size=3000, dtype=np.uint8)  # NUL, big sigma
     chunk = Chunk(data=body, suffix_array=suffix_array_numpy(body))
-    with pytest.raises(NotImplementedError, match='B11'):
-        DeviceIndex([chunk], device='cpu')
-    with pytest.raises(NotImplementedError, match='B11'):
-        DeviceIndex([chunk], device='cpu', mode='derive')
-    raw = np.where(body == 0, 1, body).astype(np.uint8)  # NUL-free
+    for mode in ('auto', 'upload', 'derive'):
+        with pytest.raises(NotImplementedError, match='A3.*B11'):
+            DeviceIndex([chunk], device='cpu', mode=mode)
+    # The raw kind (NUL-free) derives now.
+    raw = np.where(body == 0, 1, body).astype(np.uint8)
     raw_chunk = Chunk(data=raw, suffix_array=suffix_array_numpy(raw))
-    with pytest.raises(NotImplementedError, match='B12'):
-        DeviceIndex([raw_chunk], device='cpu', mode='derive')
+    idx = DeviceIndex([raw_chunk], device='cpu', mode='derive')
+    assert idx.kind == 'raw' and idx.mode == 'derive'
+    np.testing.assert_array_equal(idx.sa[0, : raw.size].numpy(),
+                                  raw_chunk.suffix_array)
     with pytest.raises(ValueError):
         DeviceIndex([chunk], device='cpu', mode='sideways')
 
