@@ -19,15 +19,18 @@ Phases (any failure raises and exits non-zero):
    merged row), and ``search`` answers one pattern, which must launch K4
    and B8 again; every kernel of the path must have launched;
 4. each kernel against its plain PyTorch version on the card, on the
-   index's own tensors, equal exactly, both timed with CUDA events: K1-K3
-   and B1 and one B2 round on row 0, K4 and B8 on every row x the whole
-   batch, and the whole ``derive_sa`` of every row;
+   index's own tensors, equal exactly, both timed with CUDA events beside
+   the kernel's bound (its inputs read once and outputs written once at
+   3.35 TB/s) and, where one PyTorch call computes the same function, that
+   call's time: K1-K3 and B1 and one B2 round on row 0, K4 and B8 on every
+   row x the whole batch, and the whole ``derive_sa`` of every row;
 5. the device path's answers against the host native path's: per-pattern
-   counts summed over rows and chunks, the line total of
-   ``search_multiple`` against one timed ``HostServing.search`` of the
-   batch, every pattern's result length, result multisets for a sample of
-   200, and one pattern across every container chunk boundary (which a
-   merged row must not match);
+   counts summed over rows and chunks; the lines ``search_multiple``
+   returned in 3 against one timed ``HostServing.search`` of the batch,
+   pattern by pattern (each pattern's block as long as the host's list and
+   holding its lines as a multiset); ``_search_batch`` per pattern for a
+   sample of 200; and one pattern across every container chunk boundary
+   (which a merged row must not match);
 6. serving numbers: probe p50 for the whole batch, the device probe
    against the native host probe for batches of 1-8 patterns, the split
    of the device load, and where row 0's line extraction goes;
@@ -48,8 +51,35 @@ Phases (any failure raises and exits non-zero):
    against native SA-IS, K7 with K3 at base 258, K4) and uploaded (K5-K7
    and K3 launched once a chunk, row 0's table and limbs against the host
    builders, K4);
-9. one JSON line of kernels, the card's name and power limit, and the
-   result line ``{"ok": true, "device": {...}}`` last.
+9. the digit kind: ``make_digit_corpus(--mb)`` (the lines of
+   ``make_raw_corpus(--mb // 2)`` as UTF-16LE: 97 distinct bytes with NUL)
+   written by the Writer at its default ``'auto'``, so on the card, with
+   launch counts from 0: B1b once for every chunk of at least 64 KiB, and
+   every chunk's SA against native SA-IS; then, counts from 0 again,
+   ``Reader(path)`` derives it (SA by B1b and B2, bucket table 258^3 and
+   5 limb planes by B12d from one K7 pass a row, probe B11, hits B8) and
+   answers 10k patterns of 4-12 characters, 500 of 4-12 bytes, the 200
+   deep ones, patterns of 1-2 bytes and patterns holding a byte >= 0x80
+   (count 0); K7, K3 and the limb planes on row 0 and B11 and B8 on every
+   row against their plain versions, timed; B11 on NUL and newline
+   patterns (every line hits) against its plain version and their counts
+   against the host; bench.py's byte sampler (10k patterns of 4-12 bytes)
+   through B11 and B8 against their plain versions and its counts against
+   the host, pattern by pattern, without lines; every row's
+   ``derive_sa``; the answers against the host as in 5; probe p50;
+   and a digit index of two 4 MiB chunks in ``mode='upload'`` (the digit
+   aux launched once a chunk, row 0's table and limbs against the host
+   builders, B11);
+10. B9 with launch counts from 0: ``suffix_array_torch(algorithm='full')``
+    on two 8 MiB digit chunks against native SA-IS, timed against
+    ``'segmented'``, and ``suffix_array_int(backend='torch')`` on 4 Mi
+    values at k = 2^20 against native; then B9's init and one round
+    against their plain versions, timed, and the whole byte and integer
+    doubling against plain;
+11. one JSON line of kernels (each with its launches on its path, error,
+    time, plain time, bound and library-call time), the card's name and
+    power limit, and the result line ``{"ok": true, "device": {...}}``
+    last.
 
 It exits non-zero, printing no result, when CUDA is unavailable or when
 it is run outside a checkout of the repository.
@@ -78,6 +108,19 @@ RAW_KERNELS = ('sa_init_bytes', 'sa_tie_scan', 'sa_refine_round',
                'sa_roll_front', 'seed_prefix', 'seed_table', 'raw_pack',
                'raw_limb_planes', 'probe_phased', 'scan_exclusive_sum',
                'gather_hits_flat')
+#: Entry points the digit-kind derive path launches.
+DIGIT_KERNELS = ('sa_init_bytes', 'sa_tie_scan', 'sa_refine_round',
+                 'sa_roll_front', 'seed_prefix', 'seed_table',
+                 'digit_limb_planes', 'probe_limbs', 'scan_exclusive_sum',
+                 'gather_hits_flat')
+#: Entry points the Writer's device build launches (B1b and B2).
+WRITER_KERNELS = ('sa_init_bytes', 'sa_tie_scan', 'sa_refine_round',
+                  'sa_roll_front')
+#: Entry points of B9's paths: the 'full' build and the integer alphabet.
+B9_KERNELS = ('sa_full_init_bytes', 'sa_full_round')
+
+#: Device memory rate of the H100 SXM (NVIDIA's data sheet), bytes/s.
+HBM_BYTES_PER_S = 3.35e12
 
 SEARCH_SRC = 'pysubstringsearch_tpu_torch/csrc/search_kernels.cu'
 SA_SRC = 'pysubstringsearch_tpu_torch/csrc/suffix_array_kernels.cu'
@@ -145,6 +188,72 @@ def err(a, b):
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
 
+def sort_ms(keys):
+    """Milliseconds of one stable ``torch.sort`` of int64 ``keys`` with its
+    indices: the library call beside a sort kernel."""
+    import torch
+
+    ms = cuda_ms(lambda: torch.sort(keys, stable=True), 3)
+    del keys
+    return ms
+
+
+def gather_ms(src, sa, offset, stride, K):
+    """Milliseconds of one ``torch.take`` of ``src`` at every limb plane's
+    indices ``sa[i] + offset + stride * j`` (made beforehand, untimed): the
+    library call beside a limb-plane kernel."""
+    import torch
+
+    N = src.shape[0]
+    idx = (sa.long().clamp(0, N - 1)[None, :] + offset
+           + stride * torch.arange(K, device=sa.device)[:, None])
+    idx = idx.clamp(max=N - 1).reshape(-1)
+    ms = cuda_ms(lambda: torch.take(src, idx), 5)
+    del idx
+    return ms
+
+
+def searchsorted_ms(src, sa, n, size, shift):
+    """Milliseconds of one ``torch.searchsorted`` of every table entry into
+    the keys ``src[sa[i]] >> shift`` in SA order (gathered beforehand): the
+    library call beside K3."""
+    import torch
+
+    keys = src[sa[:n].long()].long() >> shift
+    probes = torch.arange(size, dtype=torch.int64, device=src.device)
+    ms = cuda_ms(lambda: torch.searchsorted(keys, probes), 5)
+    del keys, probes
+    return ms
+
+
+def table_bytes(table):
+    """K3's bytes: the table written once and, for each entry, at least one
+    (SA slot, key) pair read."""
+    return 12 * table.shape[0]
+
+
+def probe_bytes(idx, packed_np):
+    """A probe's bytes: the patterns and lengths read once, and for each
+    (row, pattern) the bounds written and at least the four seed-table
+    entries read."""
+    C = idx.num_chunks
+    B, L = packed_np.shape
+    return B * L + 4 * B + C * B * 24
+
+
+def hit_slots(lower, count):
+    """int64 SA slots of every hit in B8's output order (made beforehand,
+    for the library gather)."""
+    import torch
+
+    count = count.long()
+    qid = torch.repeat_interleave(
+        torch.arange(count.shape[0], device=count.device), count)
+    starts = torch.cumsum(count, 0) - count
+    return (lower.long()[qid]
+            + torch.arange(qid.shape[0], device=count.device) - starts[qid])
+
+
 def sh(cmd):
     try:
         return subprocess.run(cmd, capture_output=True, text=True,
@@ -189,30 +298,50 @@ def main() -> int:
     log(f'kernel build (every csrc/*.cu in parallel, then one link): '
         f'{kernel_build_s:.2f} s')
 
-    # ---- 2. corpus and container (host) ----
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    result = {'kernel_build_s': kernel_build_s, 'phases_s': {}}
+    kernel_rows = []
     tmp_root = '/dev/shm' if os.path.isdir('/dev/shm') else None
     with tempfile.TemporaryDirectory(dir=tmp_root) as d:
-        idx_path, index_build_s, pats = build_container(
+        def timed(phase, fn):
+            t = time.perf_counter()
+            out = fn()
+            result['phases_s'][phase] = time.perf_counter() - t
+            log(f'phase {phase}: {result["phases_s"][phase]:.1f} s')
+            free()
+            return out
+
+        # ---- 2-7. the ranked corpus: derive main path, then upload ----
+        idx_path, result['index_build_s'], pats = build_container(
             pss, lambda: make_corpus(args.mb, args.seed)[0], d, 'corpus',
             args)
-        result = {'derive': run_derive(idx_path, pats, dev)}
-        gc.collect()
-        torch.cuda.empty_cache()
-        result['upload'] = run_upload(idx_path, pats, dev)
+        result['derive'] = timed('ranked', lambda: run_derive(idx_path, pats,
+                                                              dev))
+        kernel_rows += result['derive'].pop('kernels')
+        result['upload'] = timed('upload', lambda: run_upload(idx_path, pats,
+                                                              dev))
         os.remove(idx_path)
-        gc.collect()
-        torch.cuda.empty_cache()
         # ---- 8. the raw kind ----
-        raw_path, raw_build_s, raw_pats = build_container(
+        raw_path, result['raw_index_build_s'], raw_pats = build_container(
             pss, lambda: make_raw_corpus(args.mb, args.seed), d, 'raw', args)
-        result['raw'] = run_raw(raw_path, raw_pats, dev,
-                                result['derive']['rows'])
-    result['kernel_build_s'] = kernel_build_s
-    result['index_build_s'] = index_build_s
-    result['raw_index_build_s'] = raw_build_s
+        result['raw'] = timed('raw', lambda: run_raw(
+            raw_path, raw_pats, dev, result['derive']['rows']))
+        kernel_rows += result['raw'].pop('kernels')
+        os.remove(raw_path)
+        # ---- 9-11. the digit kind, written on the card; B9 ----
+        (digit_path, result['digit_writer'], (digit_pats, byte_pats),
+         native_sas, chunk_datas) = write_digit_container(pss, d, args)
+        result['digit'] = timed('digit', lambda: run_digit(
+            digit_path, digit_pats, byte_pats, dev, chunk_datas))
+        kernel_rows += result['digit'].pop('kernels')
+        result['b9'] = timed('b9', lambda: run_b9(chunk_datas, native_sas,
+                                                  dev))
+        kernel_rows += result['b9'].pop('kernels')
+        del chunk_datas
     result['total_s'] = time.perf_counter() - t_start
-    kernel_rows = (result['derive'].pop('kernels')
-                   + result['raw'].pop('kernels'))
     log('summary: ' + json.dumps(result))
     log(json.dumps({'kernels': kernel_rows}))
     log(card)
@@ -228,7 +357,9 @@ def make_raw_corpus(mb, seed=0):
     distinct bytes (94 printable, space, newline) and no NUL, the raw kind.
     Word lengths, the word indices and the lines are ``make_corpus``'s own:
     its lowercase draw is replayed and dropped so the seeded index draw
-    lines up, and the word bytes come from a second generator."""
+    lines up, and the word bytes come from a second generator.  Built with
+    numpy: the same bytes as a loop that joins 8 words a line until the
+    target size is reached."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -241,25 +372,23 @@ def make_raw_corpus(mb, seed=0):
              for l in word_len]
     target = mb * 1024 * 1024
     widx = rng.integers(0, nwords, size=target // 4)
-    parts = []
-    size = 0
-    i = 0
-    line_words = []
-    while size < target:
-        line_words.append(words[widx[i]])
-        i += 1
-        if len(line_words) == 8:
-            line = b' '.join(line_words)
-            parts.append(line)
-            size += len(line) + 1
-            line_words = []
-    return b'\n'.join(parts) + b'\n'
+    # A line is 8 words, 7 spaces and its newline; lines are added until
+    # their total reaches the target.
+    line_bytes = word_len[widx[: widx.size // 8 * 8]].reshape(-1, 8).sum(1) + 8
+    nlines = int(np.searchsorted(np.cumsum(line_bytes), target)) + 1
+    tokens = widx[: 8 * nlines]
+    last = np.arange(tokens.size) % 8 == 7
+    pieces = np.array([w + b' ' for w in words] + [w + b'\n' for w in words],
+                      dtype=object)
+    return b''.join(pieces[tokens + nwords * last].tolist())
 
 
-def build_container(pss, make, d, name, args):
+def build_container(pss, make, d, name, args, backend='native',
+                    sampler=None):
     """Make a corpus with ``make()`` and write it with the port's Writer in
-    ``--chunk-mb`` chunks; returns (container path, build seconds, the
-    sampled patterns)."""
+    ``--chunk-mb`` chunks, suffix arrays by ``backend``; returns (container
+    path, build seconds, the patterns ``sampler`` (default
+    :func:`sample_patterns`) draws from the corpus)."""
     import numpy as np
 
     t0 = time.perf_counter()
@@ -273,13 +402,15 @@ def build_container(pss, make, d, name, args):
     with open(corpus_path, 'wb') as f:
         f.write(corpus)
     t0 = time.perf_counter()
-    with pss.Writer(idx_path, max_chunk_len=args.chunk_mb << 20) as w:
+    with pss.Writer(idx_path, max_chunk_len=args.chunk_mb << 20,
+                    sa_backend=backend) as w:
         w.add_entries_from_file_lines(corpus_path)
     build_s = time.perf_counter() - t0
-    log(f'{name} index build (Writer, native SA-IS): {build_s:.2f} s, '
-        f'{len(corpus) / 1e6 / build_s:.1f} MB/s')
+    log(f'{name} index build (Writer, sa_backend {backend!r}): '
+        f'{build_s:.2f} s, {len(corpus) / 1e6 / build_s:.1f} MB/s')
     os.remove(corpus_path)
-    return idx_path, build_s, sample_patterns(corpus, args.queries)
+    return idx_path, build_s, (sampler or sample_patterns)(corpus,
+                                                           args.queries)
 
 
 def sample_patterns(corpus, nq):
@@ -298,12 +429,15 @@ def sample_patterns(corpus, nq):
     return pats
 
 
-def check_answers(r, idx, pats, packed_np, lengths_np, total_lines):
+def check_answers(r, idx, pats, packed_np, lengths_np, res):
     """The device path's answers against the host native path's: counts
-    for every pattern, ``search_multiple``'s line total (``total_lines``)
-    against ``HostServing.search`` of the batch, which is timed once here,
-    every pattern's result length, and result multisets for a sample of
-    200 patterns.  Returns the host search's seconds."""
+    for every pattern; ``search_multiple``'s lines (``res``, the main
+    path's own output, pattern after pattern) against
+    ``HostServing.search`` of the batch, which is timed once here: the
+    total, then each pattern's block of ``res`` (as long as the host's list
+    for it) holds the host's lines as a multiset, so every pattern's
+    result length and lines equal the host's; and ``_search_batch`` per
+    pattern for a sample of 200.  Returns the host search's seconds."""
     import numpy as np
 
     from pysubstringsearch_tpu_torch.ops.hostserve import pack_patterns_host
@@ -329,18 +463,22 @@ def check_answers(r, idx, pats, packed_np, lengths_np, total_lines):
     host_lines = sum(map(len, host_lists))
     log(f'HostServing.search({len(pats)}) on the host, one run: '
         f'{host_search_s:.3f} s, {host_lines} lines')
-    check(total_lines == host_lines,
-          f'search_multiple returned {total_lines} lines, the host path '
+    check(len(res) == host_lines,
+          f'search_multiple returned {len(res)} lines, the host path '
           f'{host_lines}')
-    dev_lists = r._search_batch(pats)
-    check([len(x) for x in dev_lists] == [len(x) for x in host_lists],
-          'per-pattern result lengths equal the host path')
+    off = 0
+    for i, want in enumerate(host_lists):
+        check(sorted(res[off: off + len(want)]) == sorted(want),
+              f'search_multiple lines of pattern {i} equal the host path')
+        off += len(want)
     sample = np.random.default_rng(4).choice(len(pats), 200, replace=False)
-    for i in sample:
-        check(sorted(dev_lists[i]) == sorted(host_lists[i]),
+    dev_lists = r._search_batch([pats[i] for i in sample])
+    for got, i in zip(dev_lists, sample):
+        check(sorted(got) == sorted(host_lists[i]),
               f'result multiset of pattern {i}')
-    log('line total and every pattern\'s result length equal the host '
-        'path; multisets equal for a sample of 200')
+    log('search_multiple\'s lines equal the host path\'s, pattern by '
+        'pattern (length and multiset); _search_batch equal for a sample '
+        'of 200')
     return host_search_s
 
 
@@ -408,9 +546,11 @@ def serving_numbers(r, idx, pats, packed_np, lengths_np, host_search_s):
             'host_search_s': host_search_s}
 
 
-def main_path(r, strs, pats, prof_keys):
-    """search_multiple of the batch and search of one pattern; returns
-    (launch counts, e2e seconds, phase seconds of the search_multiple)."""
+def main_path(r, strs, pats, prof_keys, probe='probe_phased'):
+    """search_multiple of the batch and search of one pattern, which must
+    launch the index's ``probe`` kernel once; returns (launch counts after
+    each, e2e seconds and phase seconds of the search_multiple, its
+    lines)."""
     from pysubstringsearch_tpu_torch.ops import kernels
 
     before = dict(r.profiler.totals)
@@ -424,31 +564,45 @@ def main_path(r, strs, pats, prof_keys):
     launches = dict(kernels.LAUNCHES)
     log(f'search_multiple({len(strs)}): {e2e_s:.3f} s, {len(res)} lines; '
         f'search(1 pattern): {len(one)} lines; launches {launches}')
-    check(launches['probe_phased'] == after['probe_phased'] + 1,
+    check(launches[probe] == after[probe] + 1,
           'search() of one pattern probed on the device')
     check(sorted(one) == sorted(r._search_host_chunks([pats[0]])[0]),
           'search() of one pattern equals the host path')
     log('phases of search_multiple: ' + ', '.join(
         f'{k} {v:.3f} s' for k, v in phases.items()))
-    return after, launches, e2e_s, phases, len(res)
+    return after, launches, e2e_s, phases, res
+
+
+def bound_ms(nbytes):
+    """The least milliseconds the card could take to move ``nbytes`` (each
+    input read once, each output written once) at its 3.35 TB/s."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def kernel_check(label='', entries=None, launches=None):
-    """The ``entry(name, replaces, src, max_abs_err, ms, plain_ms)``
-    callback of the kernel comparisons: checks that the kernel equals its
-    plain version and logs both times; with ``entries`` it also appends the
-    kernel's row of the JSON line, its launch count taken from
-    ``launches``."""
-    def entry(name, replaces, src, e, ms, plain_ms):
+    """The ``entry(name, replaces, src, max_abs_err, ms, plain_ms, nbytes,
+    library_ms)`` callback of the kernel comparisons: checks that the
+    kernel equals its plain version and logs both times, its bound from
+    ``nbytes`` (this run's inputs read once and outputs written once) and
+    the time of one PyTorch call computing the same function (None where
+    there is none); with ``entries`` it also appends the kernel's row of
+    the JSON line, its launch count taken from ``launches``.  Every kernel
+    here moves integers and runs no tensor-core or float work, so bytes
+    bound it."""
+    def entry(name, replaces, src, e, ms, plain_ms, nbytes, library_ms=None):
         check(e == 0, f'{label}{name} equals its plain version (max err {e})')
+        b_ms = bound_ms(nbytes)
         if entries is not None:
             entries.append({
                 'name': name, 'route': 'cuda', 'source': src,
                 'replaces': replaces, 'launches': launches[name],
                 'max_abs_err': e, 'ms': ms, 'plain_ms': plain_ms,
+                'bound_ms': b_ms, 'bound_by': 'bytes',
+                'library_ms': library_ms,
             })
+        lib = 'none' if library_ms is None else f'{library_ms:.4f} ms'
         log(f'{label}{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
-            f'max abs err {e}')
+            f'bound {b_ms:.4f} ms, library call {lib}, max abs err {e}')
     return entry
 
 
@@ -468,7 +622,8 @@ def open_derive(idx_path, pats, kind, path_kernels, label):
     """Launch counts set to 0, then ``Reader(path)`` derives its index over
     merged rows and answers the batch with ``search_multiple`` and one
     pattern with ``search``; every kernel in ``path_kernels`` must have
-    launched.  Returns (Reader, launch counts, the phase's numbers)."""
+    launched.  Returns (Reader, launch counts, search_multiple's lines, the
+    phase's numbers)."""
     import torch
 
     import pysubstringsearch_tpu_torch as pss
@@ -497,9 +652,10 @@ def open_derive(idx_path, pats, kind, path_kernels, label):
         f'{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident, '
         f'{load_peak_gib:.2f} GiB peak during the load')
     strs = [p.decode('latin-1') for p in pats]
-    after_multi, launches, e2e_s, phases, lines = main_path(
+    after_multi, launches, e2e_s, phases, res = main_path(
         r, strs, pats, ('probe', 'extract', 'x-dev-gather', 'x-dev-lines',
-                        'line-tables'))
+                        'line-tables'),
+        'probe_limbs' if kind == 'digit' else 'probe_phased')
     for name in path_kernels:
         check(after_multi[name] > 0,
               f'kernel {name} launched by search_multiple on the {kind} '
@@ -511,33 +667,36 @@ def open_derive(idx_path, pats, kind, path_kernels, label):
     split = load_split(r, ('index-alphabet', 'index-merge', 'index-alloc',
                            'index-h2d', 'index-sa', 'index-aux'),
                        f'{label}derive')
-    return r, launches, {
+    return r, launches, res, {
         'device_ready_s': device_ready_s, 'load_split_s': split,
         'load_peak_gib': load_peak_gib, 'search_multiple_s': e2e_s,
-        'search_multiple_phases_s': phases, 'lines': lines, 'rows': rows,
+        'search_multiple_phases_s': phases, 'lines': len(res), 'rows': rows,
         'n_pad': idx.n_pad, 'seed': [idx._base, idx._depth],
         'num_limbs': idx.num_limbs,
     }
 
 
-def init_and_round(idx, init, init_plain, k0, entry, round_entry, name,
-                   line):
+def init_and_round(idx, init, init_plain, key, k0, entry, round_entry,
+                   name, line):
     """The anchored init ``init`` (B1 or B1b, the entry ``name`` replacing
     ``JAX_SA:line``) and one B2 round from k = ``k0`` (to ``round_entry``)
-    against their plain versions on row 0, timed.  Returns the round's
-    (tie count m, kernel ms, plain ms)."""
+    against their plain versions on row 0, timed, each beside one
+    ``torch.sort`` of its keys (``key(text, n)`` for the init).  Returns
+    the round's (tie count m, kernel ms, plain ms)."""
     import torch
 
     from pysubstringsearch_tpu_torch.ops import suffix_array as SA
 
     n0 = int(idx.row_data[0].size)
     text0 = idx.text[0]
+    N = text0.shape[0]
     first = init(text0, n0)
     plain = init_plain(text0, n0)
     entry(name, f'{JAX_SA}:{line}', SA_SRC,
           max(err(a, b) for a, b in zip(first, plain)),
           cuda_ms(lambda: init(text0, n0), 3),
-          cuda_ms(lambda: init_plain(text0, n0), 1))
+          cuda_ms(lambda: init_plain(text0, n0), 1), 13 * N,
+          sort_ms(key(text0, n0)))
     del plain
     state = [t.clone() for t in first]
     pstate = [t.clone() for t in first]
@@ -555,7 +714,8 @@ def init_and_round(idx, init, init_plain, k0, entry, round_entry, name,
     plain_ms = cuda_ms(lambda: SA.sa_refine_round_plain(*state, k0), 1,
                        restore)
     round_entry('sa_refine_round', f'{JAX_SA}:394', SA_SRC, round_err, ms,
-                plain_ms)
+                plain_ms, 4 * N + 24 * m,
+                sort_ms(SA._round_keys(*first, k0)[2]))
     del state, first
     torch.cuda.empty_cache()
     return m, ms, plain_ms
@@ -600,13 +760,15 @@ def aux_kernels(idx, row, entry):
 
     n0 = int(idx.lengths[row])
     text0, sa0 = idx.text[row], idx.sa[row]
+    N = text0.shape[0]
     bits, depth, base, K = idx._bits, idx._depth, idx._base, idx.num_limbs
     packed = S.ranked_pack(text0, n0, idx.rank, bits)
     ref = S.ranked_pack_plain(text0, n0, idx.rank, bits)
     entry('ranked_pack', f'{JAX_SEARCH}:1166', SEARCH_SRC, err(packed, ref),
           cuda_ms(lambda: S.ranked_pack(text0, n0, idx.rank, bits,
                                         out=packed), 20),
-          cuda_ms(lambda: S.ranked_pack_plain(text0, n0, idx.rank, bits), 3))
+          cuda_ms(lambda: S.ranked_pack_plain(text0, n0, idx.rank, bits), 3),
+          5 * N)
     limbs = S.ranked_limb_planes(packed, sa0, n0, depth, bits, K)
     entry('ranked_limb_planes', f'{JAX_SEARCH}:1188', SEARCH_SRC,
           max(err(limbs, S.ranked_limb_planes_plain(packed, sa0, n0, depth,
@@ -615,7 +777,8 @@ def aux_kernels(idx, row, entry):
           cuda_ms(lambda: S.ranked_limb_planes(packed, sa0, n0, depth, bits,
                                                K, out=limbs), 20),
           cuda_ms(lambda: S.ranked_limb_planes_plain(packed, sa0, n0, depth,
-                                                     bits, K), 3))
+                                                     bits, K), 3),
+          8 * N + 4 * K * N, gather_ms(packed, sa0, depth, 30 // bits, K))
     table = S.seed_table(packed, sa0, n0, base, depth, bits)
     entry('seed_table', f'{JAX_SEARCH}:896', SEARCH_SRC,
           max(err(table, S.seed_table_plain(packed, sa0, n0, base, depth,
@@ -624,7 +787,10 @@ def aux_kernels(idx, row, entry):
           cuda_ms(lambda: S.seed_table(packed, sa0, n0, base, depth, bits,
                                        out=table), 20),
           cuda_ms(lambda: S.seed_table_plain(packed, sa0, n0, base, depth,
-                                             bits), 3))
+                                             bits), 3),
+          table_bytes(table), searchsorted_ms(
+              packed, sa0, n0, table.shape[0],
+              (30 // bits - depth) * bits))
 
 
 def probe_kernel(idx, packed_np, lengths_np, entry):
@@ -643,13 +809,16 @@ def probe_kernel(idx, packed_np, lengths_np, entry):
     entry('probe_phased', f'{JAX_SEARCH}:1261', SEARCH_SRC,
           max(err(cnt_k, cnt_p), err(lo_k, lo_p)),
           cuda_ms(lambda: S.probe_phased(*probe_args), 10),
-          cuda_ms(lambda: S.probe_phased_plain(*probe_args), 2))
+          cuda_ms(lambda: S.probe_phased_plain(*probe_args), 2),
+          probe_bytes(idx, packed_np))
     return lo_k, cnt_k
 
 
 def gather_kernel(idx, lo_k, cnt_k, entry, label=''):
     """B8 against its plain version on every merged row, on the row's SA
-    and K4's bounds for the whole batch, timed."""
+    and the probe's bounds for the whole batch, timed."""
+    import torch
+
     from pysubstringsearch_tpu_torch.ops import search as S
 
     gather = []
@@ -659,18 +828,22 @@ def gather_kernel(idx, lo_k, cnt_k, entry, label=''):
         pos_k, qid_k = S.gather_hits_flat(sa_i, lo_i, cnt_i)
         pos_p, qid_p = S.gather_hits_flat_plain(sa_i, lo_i, cnt_i)
         check(pos_k.shape[0] == int(cnt_i.long().sum()), f'{label}B8 total')
+        slot = hit_slots(lo_i, cnt_i)
         gather.append((max(err(pos_k, pos_p), err(qid_k, qid_p)),
                        cuda_ms(lambda: S.gather_hits_flat(sa_i, lo_i, cnt_i),
                                5),
                        cuda_ms(lambda: S.gather_hits_flat_plain(sa_i, lo_i,
                                                                 cnt_i), 2),
-                       int(pos_k.shape[0])))
-        del pos_k, qid_k, pos_p, qid_p
+                       int(pos_k.shape[0]),
+                       cuda_ms(lambda: torch.take(sa_i, slot), 5)))
+        del pos_k, qid_k, pos_p, qid_p, slot
     log(f'{label}gather_hits_flat per row (hits, kernel ms, plain ms): '
         + ', '.join(f'{g[3]} {g[1]:.4f} {g[2]:.4f}' for g in gather))
     entry('gather_hits_flat', f'{JAX_SEARCH}:1625', SEARCH_SRC,
           max(g[0] for g in gather), sum(g[1] for g in gather),
-          sum(g[2] for g in gather))
+          sum(g[2] for g in gather),
+          sum(12 * g[3] + 8 * lo_k.shape[1] for g in gather),
+          sum(g[4] for g in gather))
 
 
 def raw_probe_check(ridx, rpats, label):
@@ -709,9 +882,7 @@ def raw_kind_probe(dev):
     from pysubstringsearch_tpu_torch.models.index import DeviceIndex
     from pysubstringsearch_tpu_torch.ops import kernels
     from pysubstringsearch_tpu_torch.ops import search as S
-    from pysubstringsearch_tpu_torch.ops.suffix_array import (
-        build_suffix_array,
-    )
+    from pysubstringsearch_tpu_torch.ops.native import suffix_array_native
 
     rr = np.random.default_rng(3)
     raw_chunks = []
@@ -720,7 +891,7 @@ def raw_kind_probe(dev):
         body[::61] = 0x0A
         body[-1] = 0x0A
         raw_chunks.append(Chunk(data=body,
-                                suffix_array=build_suffix_array(body)))
+                                suffix_array=suffix_array_native(body)))
     ridx = DeviceIndex(raw_chunks, device=dev)
     check(ridx.kind == 'raw' and ridx.mode == 'derive'
           and ridx._base == 258 and ridx.num_chunks == 1,
@@ -728,7 +899,7 @@ def raw_kind_probe(dev):
           f'base {ridx._base}, {ridx.num_chunks} rows)')
     n0 = int(ridx.row_data[0].size)
     check(np.array_equal(ridx.sa[0, :n0].cpu().numpy(),
-                         build_suffix_array(ridx.row_data[0])),
+                         suffix_array_native(ridx.row_data[0])),
           'full-byte derived SA equals native SA-IS')
     base, depth = ridx._base, ridx._depth
     pv = S.seed_prefix(ridx.text[0], n0, ridx.rank, base, depth)
@@ -772,19 +943,21 @@ def raw_kind_probe(dev):
     raw_probe_check(uidx, rpats, 'full-byte raw upload')
 
 
-def lines_breakdown(idx, lo_k, cnt_k):
-    """Where row 0's share of ``x-dev-lines`` goes, on a fresh LineTable
-    (so its lazy line-id table is not built mid-measurement): the
-    newline bisection of the hits in SA order and in sorted order, the
-    dedup of the whole span step, the str materialisation, and the
-    per-call fixed cost of a one-hit batch."""
+def lines_breakdown(idx, lo_k, cnt_k, patterns=2000):
+    """Where row 0's share of ``x-dev-lines`` goes, for the hits of the
+    batch's first ``patterns`` patterns (a fifth of it, to keep the run
+    short), on a fresh LineTable (so its lazy line-id table is not built
+    mid-measurement): the newline bisection of the hits in SA order and in
+    sorted order, the dedup of the whole span step, the str
+    materialisation, and the per-call fixed cost of a one-hit batch."""
     import numpy as np
 
     from pysubstringsearch_tpu_torch.ops import search as S
     from pysubstringsearch_tpu_torch.ops.extract import LineTable
 
-    pos_d, qid_d = S.gather_hits_flat(idx.sa[0], lo_k[0].contiguous(),
-                                      cnt_k[0].contiguous())
+    pos_d, qid_d = S.gather_hits_flat(idx.sa[0],
+                                      lo_k[0, :patterns].contiguous(),
+                                      cnt_k[0, :patterns].contiguous())
     pos = pos_d.cpu().numpy().astype(np.int64)
     qid = qid_d.cpu().numpy().astype(np.int64)
     t0 = time.perf_counter()
@@ -804,7 +977,8 @@ def lines_breakdown(idx, lo_k, cnt_k):
     out['materialize_s'] = time.perf_counter() - t0
     out['one_hit_spans_ms'] = p50_ms(
         lambda: table.spans_for_positions(qid[:1], pos[:1]), 11)
-    log(f'row 0 line extraction ({pos.size} hits, {table.num_lines} lines): '
+    log(f'row 0 line extraction, first {patterns} patterns ({pos.size} '
+        f'hits, {table.num_lines} lines): '
         + ', '.join(f'{k} {v:.3f}' for k, v in out.items()))
     return out
 
@@ -817,7 +991,7 @@ def run_derive(idx_path, pats, dev):
     from pysubstringsearch_tpu_torch.ops import suffix_array as SA
 
     # ---- 3. the main path, launches counted ----
-    r, launches, result = open_derive(idx_path, pats, 'ranked',
+    r, launches, res, result = open_derive(idx_path, pats, 'ranked',
                                       PATH_KERNELS, '')
     idx = r._index
     for i, x in enumerate(result['rows']):
@@ -833,13 +1007,14 @@ def run_derive(idx_path, pats, dev):
     init_and_round(
         idx, lambda t, n: SA.sa_init_ranked(t, n, idx.rank, bits),
         lambda t, n: SA.sa_init_ranked_plain(t, n, idx.rank, bits),
+        lambda t, n: SA._ranked_key(t, n, idx.rank, bits),
         2 * (30 // bits), entry, entry, 'sa_init_ranked', 330)
     derive_rows = check_derive_rows(idx, '', idx.rank, bits)
     gather_kernel(idx, lo_k, cnt_k, entry)
 
     # ---- 5. device answers against the host native path ----
-    host_search_s = check_answers(r, idx, pats, packed_np, lengths_np,
-                                  result['lines'])
+    host_search_s = check_answers(r, idx, pats, packed_np, lengths_np, res)
+    del res
     check_boundaries(r, idx)
 
     # ---- 6. serving numbers ----
@@ -863,6 +1038,8 @@ def odd_patterns(pats):
 def run_raw(idx_path, pats, dev, ranked_rows):
     """Phase 8: raw-kind derive on its own container; returns its numbers
     and its kernels' JSON rows."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import numpy as np
     import torch
 
@@ -871,26 +1048,34 @@ def run_raw(idx_path, pats, dev, ranked_rows):
     from pysubstringsearch_tpu_torch.ops.native import suffix_array_native
 
     pats = pats + odd_patterns(pats)
-    r, launches, result = open_derive(idx_path, pats, 'raw', RAW_KERNELS,
-                                      'raw ')
+    r, launches, res, result = open_derive(idx_path, pats, 'raw',
+                                           RAW_KERNELS, 'raw ')
     idx = r._index
     check(idx.num_chunks == 2,
           f'raw derive index over 2 merged rows ({idx.num_chunks} rows)')
-    for i, (x, rk) in enumerate(zip(result['rows'], ranked_rows)):
+    for i, x in enumerate(result['rows']):
         log(f'raw row {i}: {x["rounds"]} B2 rounds from k = 6, tie counts m '
-            f'{x["ties"]}; ranked row {i}: {rk["rounds"]} rounds from '
-            f'k = 12, m {rk["ties"]}')
+            f'{x["ties"]}; ranked row {i}: {ranked_rows[i]["rounds"]} rounds '
+            f'from k = 12, m {ranked_rows[i]["ties"]}')
+
+    # Native SA-IS of row 0 on a host thread (it releases the GIL) while
+    # the card's checks run; its result is checked below.
+    native_pool = ThreadPoolExecutor(max_workers=1)
+    native_future = native_pool.submit(
+        lambda: (suffix_array_native(idx.row_data[0]), time.perf_counter()))
+    native_t0 = time.perf_counter()
 
     # The raw path's kernels against their plain versions, on row 0.
     entries = []
     entry = kernel_check('', entries, launches)
     check_only = kernel_check('raw ')
     m, round_ms, round_plain_ms = init_and_round(
-        idx, SA.sa_init_bytes, SA.sa_init_bytes_plain, SA.BYTE_INIT_WIDTH,
-        entry, check_only, 'sa_init_bytes', 271)
+        idx, SA.sa_init_bytes, SA.sa_init_bytes_plain, SA._byte_key,
+        SA.BYTE_INIT_WIDTH, entry, check_only, 'sa_init_bytes', 271)
 
     n0 = int(idx.row_data[0].size)
     text0, sa0 = idx.text[0], idx.sa[0]
+    N = text0.shape[0]
     base, depth, K = idx._base, idx._depth, idx.num_limbs
     pv = S.seed_prefix(text0, n0, idx.rank, base, depth)
     pv_p = S.seed_prefix_plain(text0, n0, idx.rank, base, depth)
@@ -898,7 +1083,7 @@ def run_raw(idx_path, pats, dev, ranked_rows):
           cuda_ms(lambda: S.seed_prefix(text0, n0, idx.rank, base, depth,
                                         out=pv), 20),
           cuda_ms(lambda: S.seed_prefix_plain(text0, n0, idx.rank, base,
-                                              depth), 3))
+                                              depth), 3), 5 * N)
     table = S.seed_table_from_prefix(pv, sa0, n0, base, depth)
     table_ms = cuda_ms(lambda: S.seed_table_from_prefix(
         pv, sa0, n0, base, depth, out=table), 20)
@@ -908,13 +1093,13 @@ def run_raw(idx_path, pats, dev, ranked_rows):
                max(err(table, idx.tables[0]), err(
                    table, S.seed_table_from_prefix_plain(pv, sa0, n0, base,
                                                          depth))),
-               table_ms, table_plain_ms)
+               table_ms, table_plain_ms, table_bytes(table))
     del pv_p
     packed = S.raw_pack(text0, n0, out=pv)
     entry('raw_pack', f'{JAX_SEARCH}:833', SEARCH_SRC,
           err(packed, S.raw_pack_plain(text0, n0)),
           cuda_ms(lambda: S.raw_pack(text0, n0, out=packed), 20),
-          cuda_ms(lambda: S.raw_pack_plain(text0, n0), 3))
+          cuda_ms(lambda: S.raw_pack_plain(text0, n0), 3), 5 * N)
     limbs = S.raw_limb_planes(packed, sa0, n0, depth, K)
     entry('raw_limb_planes', f'{JAX_SEARCH}:862', SEARCH_SRC,
           max(err(limbs, S.raw_limb_planes_plain(packed, sa0, n0, depth, K)),
@@ -922,7 +1107,7 @@ def run_raw(idx_path, pats, dev, ranked_rows):
           cuda_ms(lambda: S.raw_limb_planes(packed, sa0, n0, depth, K,
                                             out=limbs), 20),
           cuda_ms(lambda: S.raw_limb_planes_plain(packed, sa0, n0, depth, K),
-                  3))
+                  3), 8 * N + 4 * K * N, gather_ms(packed, sa0, depth, 4, K))
     del pv, packed, limbs, table
     packed_np, lengths_np = S.pack_patterns(pats)
     lo_k, cnt_k = probe_kernel(idx, packed_np, lengths_np, check_only)
@@ -931,17 +1116,18 @@ def run_raw(idx_path, pats, dev, ranked_rows):
     torch.cuda.empty_cache()
 
     derive_rows = check_derive_rows(idx, 'raw ')
-    t0 = time.perf_counter()
-    native0 = suffix_array_native(idx.row_data[0])
-    native_s = time.perf_counter() - t0
+    native0, native_end = native_future.result()
+    native_pool.shutdown()
+    native_s = native_end - native_t0
     check(np.array_equal(idx.sa[0, :n0].cpu().numpy(), native0),
           "raw row 0's derived SA equals the host's native SA-IS")
     log(f"raw row 0's derived SA equals native SA-IS on the host "
-        f'({native_s:.2f} s for {n0} bytes)')
+        f'({native_s:.2f} s for {n0} bytes, on a thread beside the card '
+        'checks)')
     del native0
 
-    host_search_s = check_answers(r, idx, pats, packed_np, lengths_np,
-                                  result['lines'])
+    host_search_s = check_answers(r, idx, pats, packed_np, lengths_np, res)
+    del res
     check_boundaries(r, idx)
     p50 = probe_p50(idx, packed_np, lengths_np)
     raw_kind_probe(dev)
@@ -977,8 +1163,9 @@ def run_upload(idx_path, pats, dev):
         f'{idx.num_chunks} x n_pad {idx.n_pad}, seed '
         f'{idx._base}^{idx._depth}, {idx.num_limbs} limbs; device memory '
         f'{torch.cuda.memory_allocated() / 2**30:.2f} GiB')
-    after_multi, launches, e2e_s, phases, lines = main_path(
+    after_multi, launches, e2e_s, phases, res = main_path(
         r, strs, pats, ('probe', 'extract', 'hs-spans', 'hs-fanout'))
+    lines = len(res)
     for name in UPLOAD_KERNELS:
         check(after_multi[name] > 0, f'upload path launched {name}')
 
@@ -986,7 +1173,8 @@ def run_upload(idx_path, pats, dev):
     aux_kernels(idx, 0, entry)
     packed_np, lengths_np = S.pack_patterns(pats)
     probe_kernel(idx, packed_np, lengths_np, entry)
-    host_search_s = check_answers(r, idx, pats, packed_np, lengths_np, lines)
+    host_search_s = check_answers(r, idx, pats, packed_np, lengths_np, res)
+    del res
     numbers = serving_numbers(r, idx, pats, packed_np, lengths_np,
                               host_search_s)
     split = load_split(r, ('index-alphabet', 'index-alloc', 'index-host-copy',
@@ -996,6 +1184,430 @@ def run_upload(idx_path, pats, dev):
             'lines': lines, 'launches': launches,
             'resident_gib': torch.cuda.memory_allocated() / 2**30,
             **numbers}
+
+
+def make_digit_corpus(mb, seed=0):
+    """The lines of ``make_raw_corpus(mb // 2)`` encoded as UTF-16LE,
+    ``\n`` included, as a UTF-16 log file is: 95 printable characters and
+    the newline, every second byte NUL, so 97 distinct bytes with NUL, the
+    digit kind.  The Writer splits at 0x0A, so every later line starts
+    with the newline's 0x00."""
+    return make_raw_corpus(mb // 2, seed).decode('ascii').encode('utf-16-le')
+
+
+def sample_digit_patterns(corpus, nq):
+    """Two batches over UTF-16 text.  The line batch: bench.py's sampler in
+    characters, ``nq`` patterns of 4-12 characters (8-24 bytes) at random
+    byte offsets (either parity, so half of them start with a NUL),
+    newlines replaced; then 500 patterns of 4-12 bytes from the byte
+    sampler and its 200 deep patterns of 23-200 bytes
+    (:func:`sample_patterns`).  The count batch: bench.py's byte sampler
+    itself, ``nq`` patterns of 4-12 bytes, whose 2-character patterns ask
+    for far more hits than lines can be made of in the run; it is held by
+    counts and by B11 and B8 against their plain versions."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    offs = rng.integers(0, len(corpus) - 32, size=nq)
+    lens = 2 * rng.integers(4, 13, size=nq)
+    pats = [corpus[o: o + l].replace(b'\n', b'x')
+            for o, l in zip(offs, lens)]
+    return (pats + sample_patterns(corpus, 500),
+            sample_patterns(corpus, nq)[:nq])
+
+
+#: Digit patterns of 1-2 bytes, shorter than the bucket depth: two with
+#: about 2.4 M hits each and two that UTF-16 of ASCII never holds.
+DIGIT_SHORT = [b'~', b'\x00~', b'ab', b'\x00\x00']
+#: Digit patterns holding a byte >= 0x80, which UTF-16 of ASCII never
+#: holds: count 0.
+DIGIT_HIGH = [b'\x80', b'\xff\xfe', b'q\x00\xe9', 'é'.encode('utf-16-le'),
+              b'\x00\xc3\xa9']
+#: Patterns of 1-2 bytes whose hits are every line of the corpus (NUL alone
+#: hits every second byte, 262 M times): their counts are checked against
+#: the host's and B11 against its plain version, but no lines are made.
+DIGIT_COUNT_ONLY = [b'\x00', b'\n\x00', b'\x00\n']
+
+
+def write_digit_container(pss, d, args):
+    """The digit corpus written by the port's Writer at the default
+    ``'auto'``, on the card: launch counts from 0 before it, B1b once for
+    every chunk of at least 64 KiB after it, and every chunk's SA against
+    native SA-IS (in a thread pool), timed.  Returns (container path,
+    numbers, (the line batch, the count batch), the native SAs and the
+    bytes of the first two chunks)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from pysubstringsearch_tpu_torch.container import read_container
+    from pysubstringsearch_tpu_torch.ops import kernels
+    from pysubstringsearch_tpu_torch.ops.native import suffix_array_native
+    from pysubstringsearch_tpu_torch.ops.suffix_array import DEVICE_MIN_N
+
+    kernels.reset_launches()
+    path, build_s, pats = build_container(
+        pss, lambda: make_digit_corpus(args.mb, args.seed), d, 'digit', args,
+        backend='auto', sampler=sample_digit_patterns)
+    launches = dict(kernels.LAUNCHES)
+    chunks = read_container(path).chunks
+    big = sum(c.data.size >= DEVICE_MIN_N for c in chunks)
+    check(launches['sa_init_bytes'] == big > 0,
+          f'the Writer built each of its {big} chunks of at least 64 KiB on '
+          f'the card (B1b launched {launches["sa_init_bytes"]} times)')
+    for name in WRITER_KERNELS:
+        check(launches[name] > 0, f'the Writer launched {name}')
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        native = list(pool.map(lambda c: suffix_array_native(c.data),
+                               chunks))
+    native_s = time.perf_counter() - t0
+    for i, (c, sa) in enumerate(zip(chunks, native)):
+        check(np.array_equal(c.suffix_array, sa),
+              f'digit chunk {i} SA built on the card equals native SA-IS')
+    log(f'digit Writer on the card: {len(chunks)} chunks ({big} of at least '
+        f'64 KiB built on the card), {build_s:.2f} s for the whole Writer; '
+        f'every chunk\'s SA equals native SA-IS, which took {native_s:.2f} s '
+        f'for all chunks in 8 threads; launches {launches}')
+    numbers = {'writer_s': build_s, 'native_sais_s': native_s,
+               'chunks': len(chunks), 'device_chunks': big,
+               'writer_launches': {k: launches[k] for k in WRITER_KERNELS}}
+    line_pats, byte_pats = pats
+    return (path, numbers, (line_pats + DIGIT_SHORT + DIGIT_HIGH, byte_pats),
+            native[:2], [c.data for c in chunks[:2]])
+
+
+def digit_aux_kernels(idx, entry, check_only):
+    """B12d on row 0: K7 at base 258 (the bucket depth and depth 3), K3 on
+    its values and the offset-2 stride-3 limb planes, against their plain
+    versions and the index's own table and limbs, timed."""
+    import torch
+
+    from pysubstringsearch_tpu_torch.ops import search as S
+
+    n0 = int(idx.row_data[0].size)
+    text0, sa0 = idx.text[0], idx.sa[0]
+    N, depth, K = text0.shape[0], idx._depth, idx.num_limbs
+    ident = idx.rank
+    pv = S.seed_prefix(text0, n0, ident, 258, depth)
+    check_only('seed_prefix', f'{JAX_SEARCH}:565', SEARCH_SRC,
+               err(pv, S.seed_prefix_plain(text0, n0, ident, 258, depth)),
+               cuda_ms(lambda: S.seed_prefix(text0, n0, ident, 258, depth,
+                                             out=pv), 20),
+               cuda_ms(lambda: S.seed_prefix_plain(text0, n0, ident, 258,
+                                                   depth), 3), 5 * N)
+    table = S.seed_table_from_prefix(pv, sa0, n0, 258, depth)
+    check_only('seed_table', f'{JAX_SEARCH}:565', SEARCH_SRC,
+               max(err(table, S.seed_table_from_prefix_plain(
+                   pv, sa0, n0, 258, depth)), err(table, idx.tables[0])),
+               cuda_ms(lambda: S.seed_table_from_prefix(
+                   pv, sa0, n0, 258, depth, out=table), 20),
+               cuda_ms(lambda: S.seed_table_from_prefix_plain(
+                   pv, sa0, n0, 258, depth), 3), table_bytes(table),
+               searchsorted_ms(pv, sa0, n0, table.shape[0], 0))
+    check_only('digit_bucket_table', f'{JAX_SEARCH}:565', SEARCH_SRC,
+               err(S.digit_bucket_table(text0, sa0, n0, depth),
+                   S.digit_bucket_table_plain(text0, sa0, n0, depth)),
+               cuda_ms(lambda: S.digit_bucket_table(text0, sa0, n0, depth,
+                                                    out=table, scratch=pv),
+                       20),
+               cuda_ms(lambda: S.digit_bucket_table_plain(text0, sa0, n0,
+                                                          depth), 3),
+               N + 4 * N + table_bytes(table))
+    del table
+    # The limbs from the depth-3 K7 values, as the index builds them at
+    # this depth (its table's K7 pass serves both).
+    pv = S.seed_prefix(text0, n0, ident, 258, 3, out=pv)
+    limbs = S.digit_limb_planes(text0, sa0, n0, K, prefix=pv)
+    entry('digit_limb_planes', f'{JAX_SEARCH}:535', SEARCH_SRC,
+          max(err(limbs, S.digit_limb_planes_plain(text0, sa0, n0, K)),
+              err(limbs, S.digit_limb_planes(text0, sa0, n0, K)),
+              err(limbs, idx.limbs[0])),
+          cuda_ms(lambda: S.digit_limb_planes(text0, sa0, n0, K, out=limbs,
+                                              prefix=pv), 20),
+          cuda_ms(lambda: S.digit_limb_planes_plain(text0, sa0, n0, K), 3),
+          8 * N + 4 * K * N, gather_ms(pv, sa0, 2, 3, K))
+    del pv, limbs
+    torch.cuda.empty_cache()
+
+
+def digit_probe_kernel(idx, packed_np, lengths_np, entry):
+    """B11 against its plain version on every row x the whole batch."""
+    import torch
+
+    from pysubstringsearch_tpu_torch.ops import search as S
+
+    dev = idx.device
+    args = (idx.text, idx.lengths, idx.sa, idx.tables, idx.limbs,
+            torch.from_numpy(packed_np).to(dev),
+            torch.from_numpy(lengths_np).to(dev), idx.num_limbs)
+    lo_k, cnt_k = S.probe_limbs(*args)
+    lo_p, cnt_p = S.probe_limbs_plain(*args)
+    entry('probe_limbs', f'{JAX_SEARCH}:384', SEARCH_SRC,
+          max(err(cnt_k, cnt_p), err(lo_k, lo_p)),
+          cuda_ms(lambda: S.probe_limbs(*args), 10),
+          cuda_ms(lambda: S.probe_limbs_plain(*args), 2),
+          probe_bytes(idx, packed_np))
+    return lo_k, cnt_k
+
+
+def digit_upload_check(dev, chunk_datas):
+    """A digit index of two small chunks (the first 4 MiB of two container
+    chunks, SA by native SA-IS) in ``mode='upload'``: the digit aux
+    launched once a chunk (K7 twice: the table's depth 2, the limbs' depth
+    3), row 0's table and limbs equal the host builders', and B11 over 2000
+    patterns equals its plain version."""
+    import numpy as np
+    import torch
+
+    from pysubstringsearch_tpu_torch.container import Chunk
+    from pysubstringsearch_tpu_torch.models.index import DeviceIndex
+    from pysubstringsearch_tpu_torch.ops import kernels
+    from pysubstringsearch_tpu_torch.ops import search as S
+    from pysubstringsearch_tpu_torch.ops.native import suffix_array_native
+
+    datas = [np.array(d[: 4 << 20]) for d in chunk_datas]
+    chunks = [Chunk(data=d, suffix_array=suffix_array_native(d))
+              for d in datas]
+    rng = np.random.default_rng(5)
+    pats = [datas[i % 2][o: o + l].tobytes() for i, (o, l) in
+            enumerate(zip(rng.integers(0, (4 << 20) - 64, size=2000),
+                          rng.integers(1, 40, size=2000)))]
+    before = dict(kernels.LAUNCHES)
+    uidx = DeviceIndex(chunks, device=dev, mode='upload')
+    check(uidx.kind == 'digit' and uidx.mode == 'upload'
+          and uidx.num_chunks == 2 and uidx._depth == 2,
+          f'digit upload index (got {uidx.kind}, {uidx.mode}, '
+          f'{uidx.num_chunks} rows, depth {uidx._depth})')
+    for name, per in (('seed_prefix', 2), ('seed_table', 1),
+                      ('digit_limb_planes', 1), ('probe_limbs', 0)):
+        check(kernels.LAUNCHES[name] - before[name] == 2 * per,
+              f'digit upload launched {name} {per} time(s) a chunk')
+    c0 = chunks[0]
+    check(np.array_equal(uidx.tables[0].cpu().numpy(),
+                         S.build_bucket_table_host(c0.data, c0.suffix_array,
+                                                   2)),
+          'digit upload row 0 bucket table equals the host builder')
+    check(np.array_equal(uidx.limbs[0].cpu().numpy(), S.pad_limbs_host(
+        S.build_limbs_host(c0.data, c0.suffix_array, uidx.num_limbs),
+        uidx.n_pad)), 'digit upload row 0 limbs equal the host builder')
+    rp, rl = S.pack_patterns(pats)
+    args = (uidx.text, uidx.lengths, uidx.sa, uidx.tables, uidx.limbs,
+            torch.from_numpy(rp).to(dev), torch.from_numpy(rl).to(dev),
+            uidx.num_limbs)
+    lo, cnt = S.probe_limbs(*args)
+    lo_p, cnt_p = S.probe_limbs_plain(*args)
+    e = max(err(cnt, cnt_p), err(lo, lo_p))
+    check(e == 0, f'digit upload B11 equals plain (max err {e})')
+    check(int((cnt > 0).sum()) > len(pats) // 2, 'digit upload patterns found')
+    log(f'digit upload: 2 rows x n_pad {uidx.n_pad}, {uidx.num_limbs} limbs, '
+        f'bucket depth 2; aux once a chunk; row 0 table and limbs equal the '
+        f'host builders; B11 over {len(pats)} patterns equals plain, kernel '
+        f'{cuda_ms(lambda: S.probe_limbs(*args), 10):.4f} ms, plain '
+        f'{cuda_ms(lambda: S.probe_limbs_plain(*args), 2):.4f} ms')
+
+
+def byte_sampler_check(r, idx, byte_pats):
+    """bench.py's byte sampler over the digit corpus, on the Reader's
+    index: B11 and B8 on every row x the whole batch against their plain
+    versions, timed, and the exact counts (``count_matches``) against
+    ``HostServing.probe``, pattern by pattern; no lines are made.  Returns
+    its numbers."""
+    import numpy as np
+
+    from pysubstringsearch_tpu_torch.ops import search as S
+    from pysubstringsearch_tpu_torch.ops.hostserve import pack_patterns_host
+
+    label = 'digit byte sampler '
+    bp, bl = S.pack_patterns(byte_pats)
+    times = {}
+
+    def note(name, replaces, src, e, ms, plain_ms, nbytes, library_ms=None):
+        kernel_check(label)(name, replaces, src, e, ms, plain_ms, nbytes,
+                            library_ms)
+        times[name] = {'kernel_ms': ms, 'plain_ms': plain_ms,
+                       'library_ms': library_ms}
+
+    lo_k, cnt_k = digit_probe_kernel(idx, bp, bl, note)
+    hits = int(cnt_k.long().sum())
+    gather_kernel(idx, lo_k, cnt_k, note, label)
+    del lo_k, cnt_k
+    cm = idx.count_matches(bp, bl).sum(0)
+    host = r._host_serving.probe(*pack_patterns_host(byte_pats))[1].sum(0)
+    check(np.array_equal(cm, host),
+          'byte sampler: counts equal the host, pattern by pattern')
+    top = np.sort(cm)[::-1]
+    log(f'{label}({len(byte_pats)} patterns of 4-12 bytes): {hits} suffix '
+        f'hits on the merged rows, {int(cm.sum())} matches, equal to the host '
+        f'pattern by pattern; the 10 largest counts {top[:10].tolist()}')
+    return {'patterns': len(byte_pats), 'suffix_hits': hits,
+            'matches': int(cm.sum()), **times}
+
+
+def run_digit(idx_path, pats, byte_pats, dev, chunk_datas):
+    """The digit phase: ``Reader(path)`` derives the digit index (B1b and
+    B2 from k = 6, B12d with one K7 pass a row, B11, B8) with launch counts
+    from 0; geometry, kernels against their plain versions, bench.py's
+    byte sampler by counts, every row's SA build, answers against the host
+    path, probe p50, and the small upload index."""
+    import numpy as np
+    import torch
+
+    from pysubstringsearch_tpu_torch.ops import search as S
+    from pysubstringsearch_tpu_torch.ops import suffix_array as SA
+    from pysubstringsearch_tpu_torch.ops.hostserve import pack_patterns_host
+
+    r, launches, res, result = open_derive(idx_path, pats, 'digit',
+                                           DIGIT_KERNELS, 'digit ')
+    idx = r._index
+    n_pad = SA._pad_len(max(d.size for d in idx.row_data) + S.PAD_MARGIN)
+    check(idx.num_chunks == 2 and idx._base == 258 and idx._depth == 3
+          and idx.num_limbs == 5 and idx.n_pad == n_pad,
+          f'digit geometry: 2 rows x n_pad {n_pad}, bucket 258^3, 5 limbs '
+          f'(got {idx.num_chunks} x {idx.n_pad}, {idx._base}^{idx._depth}, '
+          f'{idx.num_limbs})')
+    check(launches['seed_prefix'] == idx.num_chunks,
+          f'one K7 pass a row built the depth-3 tables and limbs (K7 '
+          f'launched {launches["seed_prefix"]} times for {idx.num_chunks} '
+          'rows)')
+    for i, x in enumerate(result['rows']):
+        log(f'digit row {i}: {x["rounds"]} B2 rounds from k = 6, tie counts '
+            f'm {x["ties"]}')
+    entries = []
+    entry = kernel_check('', entries, launches)
+    check_only = kernel_check('digit ')
+    digit_aux_kernels(idx, entry, check_only)
+    packed_np, lengths_np = S.pack_patterns(pats)
+    lo_k, cnt_k = digit_probe_kernel(idx, packed_np, lengths_np, entry)
+    gather_kernel(idx, lo_k, cnt_k, check_only, 'digit ')
+    n_high = len(DIGIT_HIGH)
+    check(int(cnt_k[:, -n_high:].sum()) == 0,
+          'patterns with a byte >= 0x80 count 0')
+    del lo_k, cnt_k
+    cp, cl = S.pack_patterns(DIGIT_COUNT_ONLY)
+    digit_probe_kernel(idx, cp, cl, check_only)
+    check(np.array_equal(idx.count_matches(cp, cl).sum(0),
+                         r._host_serving.probe(
+                             *pack_patterns_host(DIGIT_COUNT_ONLY))[1].sum(0)),
+          'NUL and newline patterns: counts equal the host')
+    log(f'count-only patterns {DIGIT_COUNT_ONLY}: counts '
+        f'{idx.count_matches(cp, cl).sum(0).tolist()} equal the host')
+    byte_sampler = byte_sampler_check(r, idx, byte_pats)
+    torch.cuda.empty_cache()
+    derive_rows = check_derive_rows(idx, 'digit ')
+    host_search_s = check_answers(r, idx, pats, packed_np, lengths_np, res)
+    del res
+    check_boundaries(r, idx)
+    p50 = probe_p50(idx, packed_np, lengths_np)
+    hs_cnt = r._host_serving.probe(*pack_patterns_host(pats))[1]
+    check(int(hs_cnt[:, -n_high:].sum()) == 0,
+          'the host path counts the >= 0x80 patterns 0 too')
+    resident = torch.cuda.memory_allocated() / 2**30
+    del r, idx
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    digit_upload_check(dev, chunk_datas)
+    return {**result, 'kernels': entries, 'derive_rows': derive_rows,
+            'resident_gib': resident, 'probe_p50_ms': p50,
+            'host_search_s': host_search_s, 'launches': launches,
+            'byte_sampler': byte_sampler}
+
+
+def run_b9(chunk_datas, native_sas, dev):
+    """B9's paths with launch counts from 0: ``suffix_array_torch(algorithm
+    ='full')`` on two 8 MiB digit chunks against native SA-IS, timed
+    against ``'segmented'``, and ``suffix_array_int(backend='torch')`` on
+    an int array of k = 2^20 against native; then B9's init and one round
+    against their plain versions on chunk 0's row, each beside one
+    ``torch.sort`` of its keys, and the whole byte and integer doubling
+    against plain."""
+    import numpy as np
+    import torch
+
+    from pysubstringsearch_tpu_torch.ops import kernels
+    from pysubstringsearch_tpu_torch.ops import suffix_array as SA
+
+    kernels.reset_launches()
+    times = {'full_s': [], 'segmented_s': []}
+    for data, want in zip(chunk_datas, native_sas):
+        sa, full_s = wall_s(lambda: SA.suffix_array_torch(data,
+                                                          algorithm='full'))
+        check(np.array_equal(sa, want),
+              'B9 full build of an 8 MiB chunk equals native SA-IS')
+        sa, seg_s = wall_s(lambda: SA.suffix_array_torch(data))
+        check(np.array_equal(sa, want), 'segmented build equals native')
+        times['full_s'].append(full_s)
+        times['segmented_s'].append(seg_s)
+    k = 1 << 20
+    vals = np.random.default_rng(7).integers(0, k, size=4 << 20,
+                                             dtype=np.int32)
+    vals[1::3] = vals[::3][: vals[1::3].size]  # repeats: several rounds
+    got, int_s = wall_s(lambda: SA.suffix_array_int(vals, k, 'torch'))
+    t0 = time.perf_counter()
+    want = SA.suffix_array_int(vals, k, 'native')
+    int_native_s = time.perf_counter() - t0
+    check(np.array_equal(got, want),
+          'B9 integer form equals native SA-IS at k = 2^20')
+    launches = dict(kernels.LAUNCHES)
+    for name in B9_KERNELS:
+        check(launches[name] > 0, f'B9 path launched {name}')
+    log(f'B9: full build {times["full_s"]} s against segmented '
+        f'{times["segmented_s"]} s per 8 MiB chunk (wall, upload and '
+        f'readback included), both equal native SA-IS; integer form at '
+        f'k = 2^20 over {vals.size} values {int_s:.3f} s (native '
+        f'{int_native_s:.3f} s), equal; launches '
+        f'{ {n: launches[n] for n in B9_KERNELS} }')
+
+    entries = []
+    entry = kernel_check('', entries, launches)
+    data = chunk_datas[0]
+    n = data.size
+    N = SA._pad_len(n + SA.BYTE_INIT_WIDTH)
+    text = torch.zeros(N, dtype=torch.uint8, device=dev)
+    text[:n] = torch.from_numpy(np.array(data))
+    first = SA.sa_full_init_bytes(text, n)
+    plain = SA.sa_full_init_bytes_plain(text, n)
+    check(first[2] == plain[2], 'B9 init rank counts equal')
+    entry('sa_full_init_bytes', f'{JAX_SA}:156', SA_SRC,
+          max(err(a, b) for a, b in zip(first[:2], plain[:2])),
+          cuda_ms(lambda: SA.sa_full_init_bytes(text, n), 5),
+          cuda_ms(lambda: SA.sa_full_init_bytes_plain(text, n), 2),
+          N + 8 * N, sort_ms(SA._byte_key(text, n)))
+    W = SA._key_width(N)
+    state = [t.clone() for t in first[:2]]
+    pstate = [t.clone() for t in first[:2]]
+    c = SA.sa_full_round(*state, 6, W)
+    pc = SA.sa_full_round_plain(*pstate, 6, W)
+    check(c == pc, f'B9 round counts {c} {pc}')
+    round_err = max(err(a, b) for a, b in zip(state, pstate))
+
+    def restore():
+        for s_, t in zip(state, first[:2]):
+            s_.copy_(t)
+
+    r = first[1].long()
+    keys = (r << W) | SA._shifted(r + 1, 6)
+    entry('sa_full_round', f'{JAX_SA}:183', SA_SRC, round_err,
+          cuda_ms(lambda: SA.sa_full_round(*state, 6, W), 5, restore),
+          cuda_ms(lambda: SA.sa_full_round_plain(*state, 6, W), 2, restore),
+          12 * N, sort_ms(keys))
+    del keys, r, state, pstate, plain
+    full_k = SA.sa_full_doubling(text, n)
+    check(torch.equal(full_k, SA.sa_full_doubling_plain(text, n)),
+          'B9 byte doubling equals its plain version, pad slots included')
+    ranks = torch.zeros(SA._pad_len(vals.size), dtype=torch.int32,
+                        device=dev)
+    ranks[:vals.size] = torch.from_numpy(vals + 1)
+    check(torch.equal(SA.sa_full_doubling_int(ranks),
+                      SA.sa_full_doubling_int_plain(ranks)),
+          'B9 integer doubling equals its plain version')
+    log(f'B9 on an {n}-byte row (N {N}): init, round, byte and integer '
+        'doubling equal their plain versions')
+    del full_k, ranks, text, first
+    torch.cuda.empty_cache()
+    return {'kernels': entries, 'launches': launches, **times,
+            'int_s': int_s, 'int_native_s': int_native_s}
 
 
 if __name__ == '__main__':

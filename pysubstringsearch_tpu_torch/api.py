@@ -45,6 +45,13 @@ class Writer:
     compiled OUT of libsais by not passing -fopenmp, build.rs:1-11) and
     completed chunks are appended to the file in submission order.  The
     resulting container bytes are identical to a synchronous build.
+
+    ``sa_backend`` picks the suffix-array builder
+    (ops/suffix_array.build_suffix_array): ``'auto'`` builds chunks of at
+    least 64 KiB on the CUDA card when one is present (B1b and B2, one
+    worker at a time on the card) and the rest with native SA-IS;
+    ``'torch'`` always builds on the card and raises without one;
+    ``'native'`` and ``'numpy'`` build on the host.
     """
 
     def __init__(
@@ -238,10 +245,9 @@ class Reader:
     is ready, every batch is probed on the device (patterns longer than
     ``PAD_MARGIN`` excepted), and if it failed, the next query raises.
     ``index_mode`` forwards to :class:`DeviceIndex`: ``'auto'`` derives the
-    SA on a CUDA card over merged rows (ranked alphabets and large NUL-free
-    ones, the raw kind), ``'upload'`` keeps the container's chunks and SA.
-    The digit kind (more than 62 distinct bytes with NUL) raises
-    ``NotImplementedError``.
+    SA on a CUDA card over merged rows for every alphabet kind (ranked, raw,
+    and digit: more than 62 distinct bytes with NUL, such as UTF-16 text),
+    ``'upload'`` keeps the container's chunks and SA.
     """
 
     def __init__(

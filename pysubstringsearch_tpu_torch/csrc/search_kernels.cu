@@ -1,7 +1,9 @@
 // Hand-written Hopper kernels of the device index: the aux builders that
 // turn (text, SA) into limb planes and a seed table (K1-K3 for rank digits,
-// K5-K7 with K3 for raw bytes), the phased probe that answers a query
-// batch against them, and the flat gather of a merged row's hits.
+// K5-K7 with K3 for raw bytes, K7 with K3 and the digit limb planes for
+// base-258 digits), the probes that answer a query batch against them (K4
+// phased, B11 over digit limbs), and the flat gather of a merged row's
+// hits.
 //
 // Built by pysubstringsearch_tpu_torch/ops/kernels.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -c ... && nvcc -shared
@@ -350,6 +352,108 @@ __global__ void probe_phased_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// B11, the digit-kind probe.  Replaces probe_bounds_limbs_loop with
+// _pattern_limb_targets, _limb_cmp3 and its deep _cmp3 loop, reached through
+// limbs_loop_batch_jit (ops/search.py).
+//
+// The digit kind keys suffixes on base-258 digits (byte + 1, 0 past the
+// end): the bucket table indexes the first `depth` (2 or 3) digits, and
+// limb j holds digits 2 + 3j .. 4 + 3j whatever the depth, so at depth 3
+// limb 0 overlaps the bucket's third digit.  One thread per (row, pattern)
+// runs both bisections of the JAX duplex:
+//   - the lower bound pads past the pattern with digit 0, the upper bound
+//     with 257 (above every real digit), in the bucket id and the limb
+//     targets alike, so a pattern shorter than the depth lands on the empty
+//     pad buckets beside its prefix and the empty pattern spans [0, n);
+//   - each seeds [table[bucket], table[bucket + 1]) and bisects for the
+//     first slot whose first k limbs compare >= its target (the upper: >),
+//     k = ceil((len - 2) / 3) clamped to [1, num_limbs].  The JAX program
+//     compares k_used limbs from the batch width instead; the limbs past a
+//     pattern's own k hold pad targets (all 0, or all 257), on which both
+//     comparisons agree slot for slot, so (lower, count) is the same;
+//   - a pattern longer than 2 + 3 * num_limbs bisects [lower, upper) again
+//     with K4's byte compare (cmp3).
+// Bound by latency like K4: a bisection step is one dependent scattered
+// 4-byte read, more only where leading limbs tie; the plane offsets are
+// 64-bit (2 x 5 x 272 Mi limbs pass 2^31).
+// ---------------------------------------------------------------------------
+constexpr int kDigitBase = 258;
+constexpr int kDigitLimbOffset = 2;
+constexpr int kDigitLimbStride = 3;
+constexpr int kProbeThreads = 128;
+
+__device__ int digit_at(const Lane& p, int q, int pad) {
+  return q < p.len ? p.pat[q] + 1 : pad;
+}
+
+// First slot in [lo, hi) whose first k limbs compare >= t (threshold 0) or
+// > t (threshold 1), lexicographically.
+__device__ int first_key(const int* __restrict__ limbs, long long n_pad,
+                         int lo, int hi, const int* t, int k, int threshold) {
+  while (lo < hi) {
+    const int mid = lo + ((hi - lo) >> 1);
+    int c = 0;
+    for (int j = 0; j < k; ++j) {
+      const int v = limbs[static_cast<long long>(j) * n_pad + mid];
+      if (v != t[j]) {
+        c = v < t[j] ? -1 : 1;
+        break;
+      }
+    }
+    if (c >= threshold) hi = mid; else lo = mid + 1;
+  }
+  return lo;
+}
+
+__global__ void probe_limbs_kernel(
+    const uint8_t* __restrict__ text, const int* __restrict__ n_rows,
+    const int* __restrict__ sa, const int* __restrict__ tables,
+    const int* __restrict__ limbs, const uint8_t* __restrict__ patterns,
+    const int* __restrict__ lengths, int B, int L, long long n_pad,
+    long long table_len, int depth, int num_limbs,
+    int* __restrict__ lower_out, int* __restrict__ count_out) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const long long r = blockIdx.y;
+  const int n = n_rows[r];
+  const int* table = tables + r * table_len;
+  const int* row_limbs = limbs + r * static_cast<long long>(num_limbs) * n_pad;
+  Lane p{patterns + static_cast<long long>(b) * L, lengths[b], L};
+
+  long long bucket_lo = 0, bucket_up = 0;
+  for (int q = 0; q < depth; ++q) {
+    bucket_lo = bucket_lo * kDigitBase + digit_at(p, q, 0);
+    bucket_up = bucket_up * kDigitBase + digit_at(p, q, kDigitBase - 1);
+  }
+  int k = p.len / kDigitLimbStride;  // ceil((len - 2) / 3) for len >= 2
+  k = k < 1 ? 1 : (k > num_limbs ? num_limbs : k);
+  int t_lo[kMaxLimbs], t_up[kMaxLimbs];
+  for (int j = 0; j < k; ++j) {
+    int vl = 0, vu = 0;
+    for (int i = 0; i < kDigitLimbStride; ++i) {
+      const int q = kDigitLimbOffset + kDigitLimbStride * j + i;
+      vl = vl * kDigitBase + digit_at(p, q, 0);
+      vu = vu * kDigitBase + digit_at(p, q, kDigitBase - 1);
+    }
+    t_lo[j] = vl;
+    t_up[j] = vu;
+  }
+  int A = first_key(row_limbs, n_pad, table[bucket_lo], table[bucket_lo + 1],
+                    t_lo, k, 0);
+  int Z = first_key(row_limbs, n_pad, table[bucket_up], table[bucket_up + 1],
+                    t_up, k, 1);
+  if (p.len > kDigitLimbOffset + kDigitLimbStride * num_limbs && A < Z) {
+    const uint8_t* row_text = text + r * n_pad;
+    const int* row_sa = sa + r * n_pad;
+    const int a = first_cmp(row_text, row_sa, n, A, Z, p, 0);
+    Z = first_cmp(row_text, row_sa, n, A, Z, p, 1);
+    A = a;
+  }
+  lower_out[r * B + b] = A;
+  count_out[r * B + b] = Z - A;
+}
+
+// ---------------------------------------------------------------------------
 // B8, flat hit gather.  Replaces _gather_flat_jit / gather_hits_flat
 // (pysubstringsearch_tpu/ops/search.py), which pads its output to a
 // power-of-two bucket and finds every output slot's query with a
@@ -422,6 +526,19 @@ int pss_raw_limb_planes(const void* packed, const void* sa, long long N,
   return (int)cudaGetLastError();
 }
 
+// B12d's limb planes: K7's depth-3 base-258 values (identity rank) gathered
+// at offset 2, stride 3, so limbs[j * N + i] = prefix[sa[i] + 2 + 3j], the
+// digits build_limbs_device packs.
+int pss_digit_limb_planes(const void* prefix, const void* sa, long long N,
+                          int n, int num_limbs, void* limbs, void* stream) {
+  unsigned grid = blocks_for(N);
+  if (grid > 65536u * 16u) grid = 65536u * 16u;
+  limb_planes_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int*)prefix, (const int*)sa, N, n, kDigitLimbOffset,
+      kDigitLimbStride, num_limbs, (int*)limbs);
+  return (int)cudaGetLastError();
+}
+
 int pss_seed_prefix(const void* text, long long N, long long n,
                     const void* rank, int base, int depth, void* out,
                     void* stream) {
@@ -457,6 +574,24 @@ int pss_probe_phased(const void* text, const void* n_rows, const void* sa,
       (const int*)present, (const uint8_t*)patterns, (const int*)lengths, B,
       L, n_pad, table_len, num_limbs, depth, base, bits, (int*)lower,
       (int*)count);
+  return (int)cudaGetLastError();
+}
+
+int pss_probe_limbs(const void* text, const void* n_rows, const void* sa,
+                    const void* tables, const void* limbs,
+                    const void* patterns, const void* lengths, int C, int B,
+                    int L, long long n_pad, long long table_len, int depth,
+                    int num_limbs, void* lower, void* count, void* stream) {
+  if (C <= 0 || B <= 0) return 0;
+  if (C > 65535 || num_limbs < 1 || num_limbs > kMaxLimbs || depth < 1 ||
+      depth > 3)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((B + kProbeThreads - 1) / kProbeThreads, C);
+  probe_limbs_kernel<<<grid, kProbeThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)text, (const int*)n_rows, (const int*)sa,
+      (const int*)tables, (const int*)limbs, (const uint8_t*)patterns,
+      (const int*)lengths, B, L, n_pad, table_len, depth, num_limbs,
+      (int*)lower, (int*)count);
   return (int)cudaGetLastError();
 }
 

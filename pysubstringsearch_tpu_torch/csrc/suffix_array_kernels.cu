@@ -1,6 +1,8 @@
 // Hand-written Hopper kernels of the device suffix-array build (derive
 // mode): the anchored init sorts (B1 on rank digits, B1b on bytes), the
-// tie-only doubling rounds (B2), and the building blocks they are made of
+// tie-only doubling rounds (B2), the full-sort doubling of the Writer's
+// 'full' build and of integer alphabets (B9), and the building blocks they
+// are made of
 // -- a stable LSD radix sort of (uint64 key, int32 value) pairs, an
 // exclusive sum scan and an inclusive max scan over int32.  No library
 // computes any of them: no cub::Device* routine, no Thrust, no torch
@@ -559,6 +561,99 @@ int key_width(long long N) {
   return w;
 }
 
+// ---------------------------------------------------------------------------
+// B9, full-sort prefix doubling.  Replaces _doubling_kernel with _init_round
+// and _doubling_round, and _int_doubling_kernel (ops/suffix_array.py),
+// reached through suffix_array_jax(algorithm='full'), derive_sa_full_jit
+// and suffix_array_int(backend='jax').
+//
+// Unlike B2, every round sorts all N positions:
+//   - the byte init keys every position on B1b's 6 digits (byte + 1, 0 at
+//     or past n; init_keys_bytes_kernel), the integer form starts from the
+//     caller's ranks (value + 1, pad 0);
+//   - a round keys position i as rank[i] << W | (rank[i + k] + 1), 0 past
+//     the row, with 2^W above every rank and N, and radix-sorts (key, i) on
+//     2W bits;
+//   - the relabel gives the sorted positions dense ranks: a key-change flag
+//     per slot, an inclusive sum scan of the flags, then sa[i] = pos and
+//     rank[pos] = label; count = the last label + 1, which the host reads to
+//     stop once every rank is distinct.
+// The JAX sort is unstable and this one stable, so a round's sa may order a
+// tie group differently; the dense ranks and the finished SA (every rank
+// distinct) are the same.  Bound by memory: a round's sort moves about
+// 2W / 8 x 24 bytes per slot (8 passes at W = 31), the key and relabel
+// passes 12 and 16 bytes.
+// ---------------------------------------------------------------------------
+__global__ void full_keys_kernel(const int* __restrict__ rank, long long N,
+                                 long long k, int W,
+                                 uint64_t* __restrict__ keys,
+                                 int* __restrict__ vals) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < N; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long q = i + k;
+    const uint64_t r2 =
+        q < N ? static_cast<uint64_t>(static_cast<unsigned>(rank[q])) + 1 : 0;
+    keys[i] = (static_cast<uint64_t>(static_cast<unsigned>(rank[i])) << W) |
+              r2;
+    vals[i] = static_cast<int>(i);
+  }
+}
+
+__global__ void full_flags_kernel(const uint64_t* __restrict__ keys,
+                                  long long N, int* __restrict__ flags) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < N; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    flags[i] = (i > 0 && keys[i] != keys[i - 1]) ? 1 : 0;
+  }
+}
+
+__global__ void full_relabel_kernel(const int* __restrict__ vals,
+                                    const int* __restrict__ labels,
+                                    long long N, int* __restrict__ sa,
+                                    int* __restrict__ rank,
+                                    int* __restrict__ count) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < N; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int p = vals[i];
+    const int l = labels[i];
+    sa[i] = p;
+    rank[p] = l;
+    if (i == N - 1) *count = l + 1;
+  }
+}
+
+struct FullBufs {
+  uint64_t* keys;
+  int* vals;
+  SortBufs sort;
+  int* labels;
+  int* scan;
+};
+
+FullBufs carve_full(Arena& a, long long N) {
+  FullBufs b;
+  b.keys = a.take<uint64_t>(N);
+  b.vals = a.take<int>(N);
+  b.sort = carve_sort(a, N);
+  b.labels = a.take<int>(N);
+  b.scan = a.take<int>(scan_scratch_elems(N));
+  return b;
+}
+
+// Sort the (key, position) pairs in b, then relabel: sa, rank and count.
+void full_relabel(const FullBufs& b, long long N, int key_bits, int* sa,
+                  int* rank, int* count, cudaStream_t st) {
+  const unsigned grid = grid_for(N);
+  radix_sort_pairs(b.keys, b.vals, N, key_bits, b.sort, st);
+  full_flags_kernel<<<grid, kThreads, 0, st>>>(b.keys, N, b.labels);
+  scan_levels<SumOp>(b.labels, b.labels, N, false, b.scan, st);
+  full_relabel_kernel<<<grid, kThreads, 0, st>>>(b.vals, b.labels, N, sa,
+                                                 rank, count);
+}
+
 // The SA rolled to the front, as _derive_sa_seg_ranked_jit returns it
 // (jnp.roll(sa_full, n - N)): out[j] = sa_full[(j + N - n) mod N].  A copy
 // kernel, bound by memory (8 bytes a slot), that writes straight into the
@@ -706,6 +801,46 @@ int pss_sa_refine_round(void* sa, void* rank, void* gs, long long N,
   refine_scatter_kernel<<<grid, kThreads, 0, st>>>(
       b.slots, b.vals, b.first_eq, m, static_cast<int*>(sa),
       static_cast<int*>(rank), static_cast<int*>(gs));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- B9 -------------------------------------------------------------------
+
+long long pss_sa_full_scratch_bytes(long long N) {
+  Arena a{nullptr, 0};
+  carve_full(a, N);
+  return static_cast<long long>(a.off);
+}
+
+// text uint8 [N] (true length n <= N); writes sa, rank int32 [N] of the
+// 6-byte init and count int32 [1], the number of distinct ranks.
+int pss_sa_full_init_bytes(const void* text, long long N, long long n,
+                           void* sa, void* rank, void* count, void* scratch,
+                           void* stream) {
+  if (N <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Arena a{static_cast<char*>(scratch), 0};
+  FullBufs b = carve_full(a, N);
+  init_keys_bytes_kernel<<<grid_for(N), kThreads, 0, st>>>(
+      static_cast<const uint8_t*>(text), N, n, b.keys, b.vals);
+  full_relabel(b, N, kByteKeyBits, static_cast<int*>(sa),
+               static_cast<int*>(rank), static_cast<int*>(count), st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One full round at offset k on sa, rank int32 [N] in place (every rank
+// below 2^W, 2^W > N); count int32 [1] gets the number of distinct ranks.
+int pss_sa_full_round(void* sa, void* rank, long long N, long long k, int W,
+                      void* count, void* scratch, void* stream) {
+  if (N <= 0) return 0;
+  if (W <= 0 || W > 31) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Arena a{static_cast<char*>(scratch), 0};
+  FullBufs b = carve_full(a, N);
+  full_keys_kernel<<<grid_for(N), kThreads, 0, st>>>(
+      static_cast<const int*>(rank), N, k, W, b.keys, b.vals);
+  full_relabel(b, N, 2 * W, static_cast<int*>(sa), static_cast<int*>(rank),
+               static_cast<int*>(count), st);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,8 +4,9 @@ on one device,
     text   [C, n_pad] uint8     sa     [C, n_pad] int32    lengths [C] int32
     tables [C, base^depth+1] int32    limbs  [C, num_limbs * n_pad] int32
 
-and a query batch is answered by one launch of the phased probe over all
-rows (ops/search.py:probe_phased).
+and a query batch is answered by one probe launch over all rows: the
+phased probe (ops/search.py:probe_phased) for the ranked and raw kinds, the
+digit-limb probe (ops/search.py:probe_limbs) for the digit kind.
 
 Two ways to build it, as in the JAX package:
 
@@ -14,13 +15,14 @@ Two ways to build it, as in the JAX package:
 - derive: the container's chunks are concatenated into merged rows of up
   to ``MERGE_CAP_DEFAULT`` bytes, only their text is uploaded, and each
   row's SA is built on the device (ops/suffix_array.py: B1 and B2 for a
-  ranked alphabet, B1b and B2 for the raw kind).  A merged row can match
-  an occurrence that spans a source-chunk boundary; :meth:`count_matches`
-  and the Reader's extraction drop those.
+  ranked alphabet, B1b and B2 for the raw and digit kinds).  A merged row
+  can match an occurrence that spans a source-chunk boundary;
+  :meth:`count_matches` and the Reader's extraction drop those.
 
 Either way the limb planes and seed tables are built on the device from
 the rows' text and SA (ops/search.py): K1-K3 for the ranked kind, K5-K7
-with K3 for the raw kind.
+with K3 for the raw kind, B12d (K7 at base 258 with K3 and the digit limb
+planes) for the digit kind.
 """
 
 from __future__ import annotations
@@ -71,6 +73,11 @@ def _merge_groups(sizes: typing.Sequence[int],
 class DeviceIndex:
     """Stacked padded rows on one device."""
 
+    #: Rows at least this long get the digit kind's 3-digit bucket table
+    #: (258^3 + 1 entries), shorter ones the 2-digit table, as in the JAX
+    #: package.
+    DEEP_TABLE_MIN_CHUNK = 8 << 20
+
     #: Text bytes of a merged derive row at most (a longer single chunk
     #: stays one row): its padded row of 256 or 272 MiB is the size the
     #: JAX package derives; read at construction.
@@ -96,8 +103,10 @@ class DeviceIndex:
         - ``'auto'``: derive on a CUDA device, upload on the CPU, as the
           JAX package derives on an accelerator.
 
-        The digit kind (an alphabet of more than 62 bytes with NUL) raises
-        ``NotImplementedError`` in every mode (ROADMAP A3).
+        The kind follows the alphabet, as in the JAX package: ``ranked``
+        (at most 62 distinct bytes), ``raw`` (more, without NUL) or
+        ``digit`` (more, with NUL: base-258 digits, bucket depth 3 for rows
+        of at least ``DEEP_TABLE_MIN_CHUNK`` bytes, else 2).
 
         ``profiler`` records the build's phases, each device phase ending
         in a synchronise: ``index-alphabet`` (the byte-presence scan that
@@ -113,8 +122,8 @@ class DeviceIndex:
         prof = profiler if profiler is not None else PhaseProfiler()
         self.num_source_chunks = len(chunks)
         # Limb encoding: rank-packed digits for alphabets of at most 62
-        # bytes (NUL-safe), raw 4-byte packing for larger NUL-free ones; the
-        # base-258 digit kind (large alphabets with NUL) is not ported yet.
+        # bytes (NUL-safe), raw 4-byte packing for larger NUL-free ones,
+        # base-258 digits for large alphabets with NUL.
         with prof.phase('index-alphabet'):
             pres = np.zeros(256, dtype=bool)
             for c in chunks:
@@ -126,11 +135,7 @@ class DeviceIndex:
         elif not pres[0]:
             self.kind = 'raw'
         else:
-            raise NotImplementedError(
-                'digit-kind index (an alphabet of more than 62 bytes that '
-                'contains NUL) is not ported yet (ROADMAP A3: B11 and the '
-                'digit half of B12)'
-            )
+            self.kind = 'digit'
         if mode == 'auto':
             mode = 'derive' if self.device.type == 'cuda' else 'upload'
         self.mode = mode
@@ -152,9 +157,16 @@ class DeviceIndex:
             self.row_data = [c.data for c in chunks]
         self._set_geometry([[chunks[i].data.size for i in g]
                             for g in self.groups])
-        rank, sigma = search_ops.alphabet_rank(pres)
         max_n = max([d.size for d in self.row_data] + [1])
-        self._base, self._depth = search_ops.pick_table_params(sigma, max_n)
+        if self.kind == 'digit':
+            rank, present = search_ops.identity_rank()
+            pres = present > 0
+            self._base = search_ops._RADIX
+            self._depth = 3 if max_n >= self.DEEP_TABLE_MIN_CHUNK else 2
+        else:
+            rank, sigma = search_ops.alphabet_rank(pres)
+            self._base, self._depth = search_ops.pick_table_params(sigma,
+                                                                   max_n)
         self.n_pad = _pad_len(max_n + search_ops.PAD_MARGIN)
         self.rank = torch.as_tensor(rank, device=self.device)
         self.present = torch.as_tensor(pres.astype(np.int32),
@@ -227,7 +239,7 @@ class DeviceIndex:
                 self._sync()
             with prof.phase('index-sa'):
                 # B1 on the rank digits for the ranked kind, B1b on the
-                # bytes (bits None) for the raw kind.
+                # bytes (bits None) for the raw and digit kinds.
                 _, ties = derive_sa(
                     self.text[i], d.size,
                     self.rank if self.kind == 'ranked' else None,
@@ -240,7 +252,10 @@ class DeviceIndex:
         """Limb planes and seed tables of every row on the device, through
         one int32 [n_pad] scratch row: K1, then K3 and K2 from the ranked
         pack; or K7 and K3 from the prefix values, then K5 into the same
-        row and K6 from the raw pack."""
+        row and K6 from the raw pack; or, for the digit kind, B12d's table
+        (K7 at the bucket depth, K3) and limbs (K7 at depth 3, the limb
+        planes at offset 2, stride 3; at depth 3 one K7 pass serves
+        both)."""
         C, n_pad, bits = self.num_chunks, self.n_pad, self._bits
         base, depth, K = self._base, self._depth, self.num_limbs
         self.tables = torch.empty((C, table_len), dtype=torch.int32,
@@ -256,6 +271,14 @@ class DeviceIndex:
                                       out=self.tables[i])
                 search_ops.ranked_limb_planes(scratch, sa, n, depth, bits, K,
                                               out=self.limbs[i])
+            elif self.kind == 'digit':
+                search_ops.digit_bucket_table(text, sa, n, depth,
+                                              out=self.tables[i],
+                                              scratch=scratch)
+                # At depth 3 the table's K7 values are the limb stream.
+                search_ops.digit_limb_planes(
+                    text, sa, n, K, out=self.limbs[i], scratch=scratch,
+                    prefix=scratch if depth == 3 else None)
             else:
                 search_ops.seed_prefix(text, n, self.rank, base, depth,
                                        out=scratch)
@@ -278,11 +301,8 @@ class DeviceIndex:
         ``bits``, ``base``, ``depth``, ``num_limbs``, and for merged rows
         ``mode``, ``groups`` (the source chunks of every row) and
         ``boundaries`` (their interior end offsets in the row)."""
-        if meta['kind'] not in ('ranked', 'raw'):
-            raise NotImplementedError(
-                f"{meta['kind']}-kind index is not ported yet (ROADMAP A3: "
-                'B11)'
-            )
+        if meta['kind'] not in ('ranked', 'raw', 'digit'):
+            raise ValueError(f"unknown index kind: {meta['kind']!r}")
         self = cls.__new__(cls)
         self.mode = meta.get('mode', 'upload')
         self.device = torch.device(device)
@@ -322,11 +342,12 @@ class DeviceIndex:
         return self
 
     def _auto_num_limbs(self) -> int:
-        """Most limb planes (at most RAW_LIMBS, at least 1) whose footprint
-        fits the device.  Resident per row: text (1 B) + SA (4 B) + one
-        int32 per plane per slot, plus the seed table; besides that the aux
-        build's one scratch row (the ranked pack, or the raw kind's prefix
-        values and then its pack), and in derive mode one row's SA-build
+        """Most limb planes (at most RAW_LIMBS, or KEY_LIMBS for the digit
+        kind; at least 1) whose footprint fits the device.  Resident per
+        row: text (1 B) + SA (4 B) + one int32 per plane per slot, plus the
+        seed table; besides that the aux build's one scratch row (the
+        ranked pack, or the raw kind's prefix values and then its pack, or
+        the digit kind's K7 values), and in derive mode one row's SA-build
         scratch (sort keys, values and their double buffers, the working
         rank and group starts; ops/suffix_array.SA_BUILD_BYTES_PER_SLOT)."""
         C = max(self.num_chunks, 1)
@@ -335,7 +356,9 @@ class DeviceIndex:
         if self.mode == 'derive':
             fixed += SA_BUILD_BYTES_PER_SLOT * self.n_pad
         fit = (_device_budget(self.device) - fixed) // (4 * C * self.n_pad)
-        return int(max(1, min(search_ops.RAW_LIMBS, fit)))
+        cap = (search_ops.KEY_LIMBS if self.kind == 'digit'
+               else search_ops.RAW_LIMBS)
+        return int(max(1, min(cap, fit)))
 
     def boundary_crossings(self, patterns: np.ndarray,
                            lengths: np.ndarray) -> np.ndarray:
@@ -393,9 +416,10 @@ class DeviceIndex:
         lengths: np.ndarray,  # int32 [B]
     ) -> typing.Tuple[np.ndarray, np.ndarray]:
         """(lower, count) int32 [C, B] host arrays: the SA range of each
-        pattern's matches in each row, from one probe launch.  On a merged
-        row the count includes occurrences that span a source-chunk
-        boundary (see :meth:`boundary_crossings`)."""
+        pattern's matches in each row, from one probe launch (B11 for the
+        digit kind, K4 for the others).  On a merged row the count includes
+        occurrences that span a source-chunk boundary (see
+        :meth:`boundary_crossings`)."""
         patterns = np.asarray(patterns, dtype=np.uint8)
         lengths = np.asarray(lengths, dtype=np.int32)
         B = patterns.shape[0]
@@ -403,14 +427,21 @@ class DeviceIndex:
             # A pattern wider than every row cannot match.
             zeros = np.zeros((self.num_chunks, B), dtype=np.int32)
             return zeros, zeros.copy()
-        lo, cnt = search_ops.probe_phased(
-            self.text, self.lengths, self.sa, self.tables, self.limbs,
-            self.rank, self.present,
-            torch.as_tensor(np.ascontiguousarray(patterns),
-                            device=self.device),
-            torch.as_tensor(lengths, device=self.device),
-            self.num_limbs, self._base, self._depth, self._bits,
-        )
+        pats_d = torch.as_tensor(np.ascontiguousarray(patterns),
+                                 device=self.device)
+        lens_d = torch.as_tensor(lengths, device=self.device)
+        if self.kind == 'digit':
+            # NUL is digit 1, so the digit kind needs no host check.
+            lo, cnt = search_ops.probe_limbs(
+                self.text, self.lengths, self.sa, self.tables, self.limbs,
+                pats_d, lens_d, self.num_limbs,
+            )
+        else:
+            lo, cnt = search_ops.probe_phased(
+                self.text, self.lengths, self.sa, self.tables, self.limbs,
+                self.rank, self.present, pats_d, lens_d,
+                self.num_limbs, self._base, self._depth, self._bits,
+            )
         lo, cnt = lo.cpu().numpy(), cnt.cpu().numpy()
         if self.kind == 'raw':
             # NUL-free text cannot contain a pattern with a 0x00 byte, and

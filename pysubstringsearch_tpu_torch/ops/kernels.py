@@ -10,7 +10,8 @@ any object is.  Every C entry point launches on the stream it is given
 :func:`launch` raises when that is not 0 and counts the launch.
 
 ``LAUNCHES`` holds one count per entry point.  Only :func:`launch` adds to
-it, once per call, so a run can show which kernels its path went through.
+it, once per call and under a lock (the Writer builds from a thread pool),
+so a run can show which kernels its path went through.
 
 :func:`route` and :func:`check` are the wrappers' shared guards: a wrapper
 takes its plain PyTorch version only for tensors on the CPU, and launches
@@ -61,6 +62,12 @@ _SIGNATURES: typing.Dict[str, list] = {
     'pss_probe_phased': [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _L, _L, _I, _I, _I, _I,
                          _P, _P, _P],
+    # prefix, sa, N, n, num_limbs, limbs, stream
+    'pss_digit_limb_planes': [_P, _P, _L, _I, _I, _P, _P],
+    # text, n, sa, tables, limbs, patterns, lengths, C, B, L, n_pad,
+    # table_len, depth, num_limbs, lower, count, stream
+    'pss_probe_limbs': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I,
+                        _I, _P, _P, _P],
     # sa, lower, count, offsets, B, pos, qid, stream
     'pss_gather_hits_flat': [_P, _P, _P, _P, _I, _P, _P, _P],
     # in, out, n, scratch, stream
@@ -78,11 +85,16 @@ _SIGNATURES: typing.Dict[str, list] = {
     'pss_sa_refine_round': [_P, _P, _P, _L, _L, _L, _P, _P, _P, _P],
     # sa_full, N, n, out, stream
     'pss_sa_roll_front': [_P, _L, _L, _P, _P],
+    # text, N, n, sa, rank, count, scratch, stream
+    'pss_sa_full_init_bytes': [_P, _L, _L, _P, _P, _P, _P, _P],
+    # sa, rank, N, k, W, count, scratch, stream
+    'pss_sa_full_round': [_P, _P, _L, _L, _I, _P, _P, _P],
 }
 
 #: Scratch sizers: pss_<name>_scratch_bytes(count) -> bytes.  Host
 #: functions; they launch nothing and are not counted.
-_SCRATCH = ('scan', 'radix_sort', 'sa_init', 'sa_tie', 'sa_refine')
+_SCRATCH = ('scan', 'radix_sort', 'sa_init', 'sa_tie', 'sa_refine',
+            'sa_full')
 
 #: Kernel name (the C entry point without its prefix) -> launches so far.
 LAUNCHES: typing.Dict[str, int] = {
@@ -90,6 +102,7 @@ LAUNCHES: typing.Dict[str, int] = {
 }
 
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 _LIB: typing.Optional[ctypes.CDLL] = None
 
 
@@ -156,7 +169,13 @@ def launch(name: str, *args) -> None:
     rc = getattr(lib, 'pss_' + name)(*args, stream)
     if rc != 0:
         raise RuntimeError(f'CUDA kernel {name} failed to launch: error {rc}')
-    LAUNCHES[name] += 1
+    count_launch(name)
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of ``name`` to ``LAUNCHES``; safe across threads."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 def scratch(name: str, count: int, device):
@@ -169,8 +188,9 @@ def scratch(name: str, count: int, device):
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def route(*tensors) -> bool:

@@ -99,6 +99,9 @@ def _load() -> typing.Optional[ctypes.CDLL]:
         vpp = ctypes.POINTER(ctypes.c_void_p)
         lib.tpuss_build_sa_u8.restype = ctypes.c_int32
         lib.tpuss_build_sa_u8.argtypes = [u8p, ctypes.c_int32, i32p]
+        lib.tpuss_build_sa_i32.restype = ctypes.c_int32
+        lib.tpuss_build_sa_i32.argtypes = [i32p, ctypes.c_int32,
+                                           ctypes.c_int32, i32p]
         lib.tpuss_probe_batch.restype = ctypes.c_int32
         lib.tpuss_probe_batch.argtypes = [
             u8p, ctypes.c_int32, i32p, u8p, i32p, ctypes.c_int32,
@@ -192,6 +195,28 @@ def suffix_array_native(data: np.ndarray) -> np.ndarray:
     )
     if rc != 0:
         raise RuntimeError(f'native SA-IS failed with code {rc}')
+    return sa
+
+
+def suffix_array_int_native(data: np.ndarray, k: int) -> np.ndarray:
+    """SA over an int32 alphabet [0, k) via the C++ SA-IS kernel
+    (``libsais_int`` parity); raises if the library is unavailable."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError('native int-alphabet SA-IS is not available')
+    data = np.ascontiguousarray(data, dtype=np.int32)
+    n = data.size
+    sa = np.empty(n, dtype=np.int32)
+    if n == 0:
+        return sa
+    rc = lib.tpuss_build_sa_i32(
+        data.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        ctypes.c_int32(n),
+        ctypes.c_int32(k),
+        sa.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+    )
+    if rc != 0:
+        raise RuntimeError(f'native int SA-IS failed with code {rc}')
     return sa
 
 

@@ -17,10 +17,12 @@ The device index stores, per row, a seed table and packed limb planes:
   after the seed depth packed into one int32: ``30 // bits`` rank digits
   for a ranked alphabet (at most 62 distinct bytes), or 4 raw bytes with
   the top one biased by -128 for a large NUL-free alphabet.
+- the digit kind (a large alphabet with NUL) keys on base-258 digits
+  (byte + 1, 0 past the end): a bucket table over the first 2 or 3 digits,
+  and limb j holding digits ``2 + 3j .. 4 + 3j`` whatever the depth.
 
-A probe seeds its range from the table, bisects limb by limb through tie
-ranges, and compares raw bytes for patterns longer than the packed
-coverage.
+A probe seeds its range from the table, bisects through the limbs, and
+compares raw bytes for patterns longer than the packed coverage.
 
 The device functions that carry the index are CUDA kernels
 (``csrc/search_kernels.cu``), each with a plain PyTorch version beside it:
@@ -33,7 +35,11 @@ The device functions that carry the index are CUDA kernels
 - :func:`raw_limb_planes` (K6): all raw limb planes in SA order;
 - :func:`seed_prefix`   (K7): the seed depth's rank digits of every text
   position, for any rank map and base;
+- :func:`digit_bucket_table` and :func:`digit_limb_planes` (B12d): the
+  digit kind's table and limbs, from K7's base-258 values with K3 and the
+  limb-plane kernel at offset 2, stride 3;
 - :func:`probe_phased`  (K4): the phased probe;
+- :func:`probe_limbs`   (B11): the digit kind's probe;
 - :func:`gather_hits_flat` (B8): a merged row's hits as flat (position,
   query) pairs.
 
@@ -71,6 +77,33 @@ PAD_MARGIN = 1024
 
 #: Limb planes of the raw and ranked encodings (the most the index keeps).
 RAW_LIMBS = 3
+
+#: Limb planes of the digit kind at most: each holds 3 base-258 digits, so
+#: the bucket's 2 digits and KEY_LIMBS limbs cover ``2 + 3 * KEY_LIMBS``
+#: bytes of every suffix.
+KEY_LIMBS = 5
+
+#: Digit-kind bucket tables: one entry per 2- or 3-digit prefix value plus
+#: a terminator.
+BUCKET_TABLE_SIZE = _RADIX * _RADIX + 1
+BUCKET_TABLE_SIZE_3 = _RADIX * _RADIX * _RADIX + 1
+
+#: The digit kind's limbs start at byte 2 whatever the bucket depth.
+DIGIT_LIMB_OFFSET = 2
+DIGIT_LIMB_STRIDE = 3
+
+
+def key_cover_bytes(num_limbs: int = KEY_LIMBS) -> int:
+    return DIGIT_LIMB_OFFSET + DIGIT_LIMB_STRIDE * num_limbs
+
+
+def bucket_depth(table_len: int) -> int:
+    """Prefix depth of a digit-kind bucket table from its length."""
+    if table_len == BUCKET_TABLE_SIZE:
+        return 2
+    if table_len == BUCKET_TABLE_SIZE_3:
+        return 3
+    raise ValueError(f'not a bucket table length: {table_len}')
 
 
 def table_params(table_len: int):
@@ -243,6 +276,43 @@ def pad_limbs_host(limbs: np.ndarray, n_pad: int) -> np.ndarray:
     for j in range(num_limbs):
         out[j * n_pad: j * n_pad + n] = limbs[j]
     return out
+
+
+def build_limbs_host(data: np.ndarray, sa: np.ndarray,
+                     num_limbs: int = KEY_LIMBS) -> np.ndarray:
+    """[num_limbs, n] int32 digit-kind limbs, plane-major: limb j of slot i
+    packs bytes ``sa[i]+2+3j .. +2`` as three base-258 digits (byte + 1, 0
+    past the end)."""
+    n = data.size
+    if n == 0:
+        return np.zeros((num_limbs, 0), dtype=np.int32)
+    digits = np.zeros(n + key_cover_bytes(num_limbs), dtype=np.int32)
+    digits[:n] = data.astype(np.int32) + 1
+    out = np.empty((num_limbs, n), dtype=np.int32)
+    base = sa.astype(np.int64) + DIGIT_LIMB_OFFSET
+    for j in range(num_limbs):
+        o = base + DIGIT_LIMB_STRIDE * j
+        out[j] = (digits[o] * _RADIX + digits[o + 1]) * _RADIX + digits[o + 2]
+    return out
+
+
+def build_bucket_table_host(data: np.ndarray, sa: np.ndarray,
+                            depth: int = 2) -> np.ndarray:
+    """Digit-kind bucket table: table[k] = first SA slot whose ``depth``
+    base-258 digit prefix value is >= k, or n."""
+    size = _RADIX ** depth + 1
+    n = data.size
+    if n == 0:
+        return np.zeros(size, dtype=np.int32)
+    b = np.zeros(n, dtype=np.int64)
+    for j in range(depth):
+        nxt = sa.astype(np.int64) + j
+        dj = np.where(
+            nxt < n, data[np.minimum(nxt, n - 1)].astype(np.int64) + 1, 0
+        )
+        b = b * _RADIX + dj  # non-decreasing over SA order
+    probes = np.arange(size, dtype=np.int64)
+    return np.searchsorted(b, probes, side='left').astype(np.int32)
 
 
 def host_probe_bounds(data: bytes, sa: np.ndarray, pattern: bytes):
@@ -614,6 +684,42 @@ def _first_true(lo: torch.Tensor, hi: torch.Tensor, pred) -> torch.Tensor:
         lo = torch.where(active & ~p, mid + 1, lo)
 
 
+def _deep_refine_plain(text, n, sa, patterns, lengths, cover: int,
+                       A: torch.Tensor, Z: torch.Tensor) -> None:
+    """Patterns longer than ``cover`` bytes: bisect each row's [A, Z) again
+    with a byte compare of the whole pattern against each suffix (a text
+    position at or past n reads as digit 0), in place."""
+    C, N = text.shape
+    dev = text.device
+    deep = torch.nonzero(lengths.long() > cover).flatten()
+    if not deep.numel():
+        return
+    plen = lengths.long()[deep]
+    Lp = int(plen.max())
+    pats = patterns[deep, :Lp].long()
+    jpos = torch.arange(Lp, device=dev)
+    jmask = jpos[None, :] < plen[:, None]
+    p1 = torch.where(jmask, pats + 1, 0)[None]
+    nrow = n.long()[:, None]
+
+    def cmp3(mid):
+        slot = torch.minimum(mid.clamp(min=0), (nrow - 1).clamp(min=0))
+        starts = sa.gather(1, slot).long()
+        pos = starts[..., None] + jpos
+        byte = text.gather(1, pos.clamp(0, N - 1).reshape(C, -1))
+        byte = byte.reshape(pos.shape).long()
+        s = torch.where(pos < nrow[..., None], byte + 1, 0)
+        d = torch.sign(s - p1) * jmask[None]
+        first = (d != 0).to(torch.int32).argmax(-1, keepdim=True)
+        return d.gather(-1, first).squeeze(-1)
+
+    a0, z0 = A[:, deep], Z[:, deep]
+    a = _first_true(a0, z0, lambda m: cmp3(m) >= 0)
+    z = _first_true(a0, z0, lambda m: cmp3(m) >= 1)
+    A[:, deep] = a
+    Z[:, deep] = z
+
+
 def probe_phased_plain(text, n, sa, tables, limbs, rank, present, patterns,
                        lengths, num_limbs: int, base: int, depth: int,
                        bits: typing.Optional[int]):
@@ -621,7 +727,6 @@ def probe_phased_plain(text, n, sa, tables, limbs, rank, present, patterns,
     against every row (see :func:`probe_phased`)."""
     C, N = text.shape
     B = patterns.shape[0]
-    dev = text.device
     bucket_lo, bucket_up, t_lo, t_up, k, bad = _lane_setup(
         patterns, lengths, rank, present, base, depth, num_limbs, bits
     )
@@ -652,32 +757,8 @@ def probe_phased_plain(text, n, sa, tables, limbs, rank, present, patterns,
         hi = torch.where(act, z, hi)
 
     D = 4 if bits is None else ranked_limb_bytes(bits)
-    deep = torch.nonzero(lengths.long() > depth + D * num_limbs).flatten()
-    if deep.numel():
-        plen = lengths.long()[deep]
-        Lp = int(plen.max())
-        pats = patterns[deep, :Lp].long()
-        jpos = torch.arange(Lp, device=dev)
-        jmask = jpos[None, :] < plen[:, None]
-        p1 = torch.where(jmask, pats + 1, 0)[None]
-        nrow = n.long()[:, None]
-
-        def cmp3(mid):
-            slot = torch.minimum(mid.clamp(min=0), (nrow - 1).clamp(min=0))
-            starts = sa.gather(1, slot).long()
-            pos = starts[..., None] + jpos
-            byte = text.gather(1, pos.clamp(0, N - 1).reshape(C, -1))
-            byte = byte.reshape(pos.shape).long()
-            s = torch.where(pos < nrow[..., None], byte + 1, 0)
-            d = torch.sign(s - p1) * jmask[None]
-            first = (d != 0).to(torch.int32).argmax(-1, keepdim=True)
-            return d.gather(-1, first).squeeze(-1)
-
-        a0, z0 = A[:, deep], Z[:, deep]
-        a = _first_true(a0, z0, lambda m: cmp3(m) >= 0)
-        z = _first_true(a0, z0, lambda m: cmp3(m) >= 1)
-        A[:, deep] = a
-        Z[:, deep] = z
+    _deep_refine_plain(text, n, sa, patterns, lengths,
+                       depth + D * num_limbs, A, Z)
     count = Z - A
     if bits is not None:
         count = torch.where(bad[None, :], 0, count)
@@ -727,6 +808,206 @@ def probe_phased(text, n, sa, tables, limbs, rank, present, patterns,
             tables.data_ptr(), limbs.data_ptr(), rank.data_ptr(),
             present.data_ptr(), patterns.data_ptr(), lengths.data_ptr(),
             C, B, L, N, table_len, num_limbs, depth, base, bits or 0,
+            lower.data_ptr(), count.data_ptr(),
+        )
+    return lower, count
+
+
+def _digit_stream(text: torch.Tensor, n: int, extra: int) -> torch.Tensor:
+    """int64 [N + extra]: byte + 1 for positions < n, else 0."""
+    N = text.shape[0]
+    iota = torch.arange(N + extra, device=text.device)
+    padded = torch.zeros(N + extra, dtype=torch.int64, device=text.device)
+    padded[:N] = text.long()
+    return torch.where(iota < n, padded + 1, 0)
+
+
+def digit_limb_planes_plain(text: torch.Tensor, sa: torch.Tensor, n: int,
+                            num_limbs: int) -> torch.Tensor:
+    """Plain version of B12d's limbs: int32 [num_limbs * N], plane-major;
+    for slot i < n, limb j packs the digits of bytes ``sa[i] + 2 + 3j ..
+    +2`` in base 258 (byte + 1, 0 at or past n); 0 for i >= n."""
+    N = text.shape[0]
+    d = _digit_stream(text, n, key_cover_bytes(num_limbs))
+    iota = torch.arange(N, device=text.device)
+    s = sa.long().clamp(0, N - 1)
+    cols = []
+    for j in range(num_limbs):
+        o = s + DIGIT_LIMB_OFFSET + DIGIT_LIMB_STRIDE * j
+        v = (d[o] * _RADIX + d[o + 1]) * _RADIX + d[o + 2]
+        cols.append(torch.where(iota < n, v, 0))
+    return torch.cat(cols).to(torch.int32)
+
+
+def _identity_rank_on(device) -> torch.Tensor:
+    return torch.as_tensor(identity_rank()[0], device=device)
+
+
+def digit_limb_planes(text: torch.Tensor, sa: torch.Tensor, n: int,
+                      num_limbs: int,
+                      out: typing.Optional[torch.Tensor] = None,
+                      scratch: typing.Optional[torch.Tensor] = None,
+                      prefix: typing.Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """B12d's limbs of one row (see :func:`digit_limb_planes_plain`): K7
+    with ``identity_rank()`` at base 258, depth 3 into ``scratch`` (int32
+    [N]), whose value at p is exactly the JAX limb stream at p, then the
+    limb-plane kernel at offset 2, stride 3.  ``prefix``, when given, holds
+    those K7 values already (a depth-3 :func:`digit_bucket_table` leaves
+    them in its scratch) and K7 is not run again.  Replaces
+    ``build_limbs_device``."""
+    N = text.shape[0]
+    if out is None:
+        out = torch.empty(num_limbs * N, dtype=torch.int32,
+                          device=text.device)
+    if not kernels.route(text, sa, out):
+        out.copy_(digit_limb_planes_plain(text, sa, n, num_limbs))
+        return out
+    kernels.check(sa, 'sa', torch.int32, 1)
+    kernels.check(out, 'out', torch.int32, 1)
+    if sa.shape[0] != N or out.shape[0] != num_limbs * N:
+        raise ValueError('digit_limb_planes: bad shapes')
+    if prefix is None:
+        pv = seed_prefix(text, n, _identity_rank_on(text.device), _RADIX, 3,
+                         out=scratch)
+    else:
+        kernels.check(prefix, 'prefix', torch.int32, 1)
+        if prefix.shape[0] != N or prefix.device != text.device:
+            raise ValueError('digit_limb_planes: bad prefix')
+        pv = prefix
+    with torch.cuda.device(text.device):
+        kernels.launch('digit_limb_planes', pv.data_ptr(), sa.data_ptr(), N,
+                       int(n), num_limbs, out.data_ptr())
+    return out
+
+
+def digit_bucket_table_plain(text: torch.Tensor, sa: torch.Tensor, n: int,
+                             depth: int) -> torch.Tensor:
+    """Plain version of B12d's table: int32 [258^depth + 1], entry k = first
+    SA slot i < n whose suffix's ``depth``-digit base-258 prefix is >= k,
+    or n."""
+    size = _RADIX ** depth + 1
+    if n == 0:
+        return torch.zeros(size, dtype=torch.int32, device=text.device)
+    d = _digit_stream(text, n, depth)
+    s = sa[:n].long()
+    key = torch.zeros(n, dtype=torch.int64, device=text.device)
+    for j in range(depth):
+        key = key * _RADIX + d[s + j]
+    probes = torch.arange(size, dtype=torch.int64, device=text.device)
+    return torch.searchsorted(key, probes, side='left').to(torch.int32)
+
+
+def digit_bucket_table(text: torch.Tensor, sa: torch.Tensor, n: int,
+                       depth: int,
+                       out: typing.Optional[torch.Tensor] = None,
+                       scratch: typing.Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """B12d's bucket table of one row (see
+    :func:`digit_bucket_table_plain`): K7 with ``identity_rank()`` at base
+    258 and this depth into ``scratch``, then K3 on its values.  Replaces
+    ``build_bucket_table_device``."""
+    if depth not in (2, 3):
+        raise ValueError(f'digit bucket depth is 2 or 3, got {depth}')
+    if not kernels.route(text, sa):
+        table = digit_bucket_table_plain(text, sa, n, depth)
+        return table if out is None else out.copy_(table)
+    pv = seed_prefix(text, n, _identity_rank_on(text.device), _RADIX, depth,
+                     out=scratch)
+    return seed_table_from_prefix(pv, sa, n, _RADIX, depth, out=out)
+
+
+def probe_limbs_plain(text, n, sa, tables, limbs, patterns, lengths,
+                      num_limbs: int):
+    """Plain version of B11: (lower, count) int32 [C, B] for a pattern batch
+    against every row of a digit-kind index (see :func:`probe_limbs`)."""
+    C, N = text.shape
+    B, L = patterns.shape
+    dev = text.device
+    depth = bucket_depth(tables.shape[1])
+    width = max(key_cover_bytes(num_limbs), depth)
+    raw = torch.zeros((B, width), dtype=torch.int64, device=dev)
+    cols = min(L, width)
+    raw[:, :cols] = patterns[:, :cols].long() + 1
+    lens = lengths.long()
+    in_len = torch.arange(width, device=dev)[None, :] < lens[:, None]
+    # ceil((len - 2) / 3) limbs, at least 1 and at most num_limbs.
+    k = torch.div(lens, DIGIT_LIMB_STRIDE, rounding_mode='floor')
+    k = k.clamp(1, num_limbs)
+    jj = torch.arange(num_limbs, device=dev)
+    used = (jj[None, :] < k[:, None])[None]  # [1, B, K]
+    limbs64 = limbs.long()
+
+    def first_key(pad: int, threshold: int):
+        dig = torch.where(in_len, raw, pad)
+        bucket = torch.zeros(B, dtype=torch.int64, device=dev)
+        for q in range(depth):
+            bucket = bucket * _RADIX + dig[:, q]
+        t = torch.stack([
+            (dig[:, o] * _RADIX + dig[:, o + 1]) * _RADIX + dig[:, o + 2]
+            for o in (DIGIT_LIMB_OFFSET + DIGIT_LIMB_STRIDE * j
+                      for j in range(num_limbs))
+        ], 1)[None]  # [1, B, K]
+
+        def pred(mid):
+            idx = jj * N + mid.clamp(0, N - 1)[..., None]  # [C, B, K]
+            v = limbs64.gather(1, idx.reshape(C, -1)).reshape(C, B, -1)
+            d = torch.sign(v - t) * used
+            first = (d != 0).to(torch.int32).argmax(-1, keepdim=True)
+            return d.gather(-1, first).squeeze(-1) >= threshold
+
+        lo = tables.gather(1, bucket[None, :].expand(C, B)).long()
+        hi = tables.gather(1, (bucket + 1)[None, :].expand(C, B)).long()
+        return _first_true(lo, hi, pred)
+
+    A = first_key(0, 0)
+    Z = first_key(_RADIX - 1, 1)
+    _deep_refine_plain(text, n, sa, patterns, lengths,
+                       key_cover_bytes(num_limbs), A, Z)
+    return A.to(torch.int32), (Z - A).to(torch.int32)
+
+
+def probe_limbs(text, n, sa, tables, limbs, patterns, lengths,
+                num_limbs: int):
+    """B11, the digit-kind probe: (lower, count) int32 [C, B].
+
+    text uint8 [C, N], n int32 [C], sa int32 [C, N], tables int32
+    [C, 258^d + 1] (d 2 or 3, read from the length), limbs int32
+    [C, num_limbs * N] plane-major (B12d), patterns uint8 [B, L] (zero
+    padded), lengths int32 [B].  Each pattern's lower and upper bound
+    bisect the limbs inside their bucket (the lower padded past the pattern
+    with digit 0, the upper with 257); a pattern longer than
+    ``key_cover_bytes(num_limbs)`` then bisects the text.  Replaces
+    ``probe_bounds_limbs_loop`` / ``limbs_loop_batch_jit``: ``lower`` and
+    ``count`` equal the JAX program's everywhere."""
+    C, N = text.shape
+    B, L = patterns.shape
+    if not kernels.route(text, n, sa, tables, limbs, patterns, lengths):
+        return probe_limbs_plain(text, n, sa, tables, limbs, patterns,
+                                 lengths, num_limbs)
+    for t, name, dt in (
+        (text, 'text', torch.uint8), (sa, 'sa', torch.int32),
+        (tables, 'tables', torch.int32), (limbs, 'limbs', torch.int32),
+        (patterns, 'patterns', torch.uint8),
+    ):
+        kernels.check(t, name, dt, 2)
+    kernels.check(n, 'n', torch.int32, 1)
+    kernels.check(lengths, 'lengths', torch.int32, 1)
+    table_len = tables.shape[1]
+    depth = bucket_depth(table_len)
+    if (sa.shape != (C, N) or tables.shape[0] != C
+            or limbs.shape != (C, num_limbs * N) or n.shape[0] != C
+            or lengths.shape[0] != B or not 1 <= num_limbs <= 8):
+        raise ValueError('probe_limbs: bad shapes')
+    lower = torch.empty((C, B), dtype=torch.int32, device=text.device)
+    count = torch.empty((C, B), dtype=torch.int32, device=text.device)
+    if C == 0 or B == 0:
+        return lower, count
+    with torch.cuda.device(text.device):
+        kernels.launch(
+            'probe_limbs', text.data_ptr(), n.data_ptr(), sa.data_ptr(),
+            tables.data_ptr(), limbs.data_ptr(), patterns.data_ptr(),
+            lengths.data_ptr(), C, B, L, N, table_len, depth, num_limbs,
             lower.data_ptr(), count.data_ptr(),
         )
     return lower, count

@@ -7,7 +7,7 @@ prefix sorts before any extension.
 - ``native``: the C++ SA-IS kernel in ``native/sais.cpp`` (:mod:`.native`);
 - ``numpy``: host prefix doubling, the ground truth for tests.
 
-The SA of a string is unique, so both give identical bytes.
+The SA of a string is unique, so every backend gives identical bytes.
 
 Device (derive mode): :func:`derive_sa` builds a padded text row's SA by
 tie-only prefix doubling, as the JAX package's ``_segmented_kernel_ranked``
@@ -25,7 +25,14 @@ PyTorch version beside it:
   rank digits;
 - :func:`sa_init_bytes` (B1b): the anchored init sort on 6 byte + 1
   digits;
-- :func:`sa_refine_round` (B2): one doubling round over the tied slots.
+- :func:`sa_refine_round` (B2): one doubling round over the tied slots;
+- :func:`sa_full_init_bytes` and :func:`sa_full_round` (B9): full-sort
+  prefix doubling with dense ranks, the JAX ``_doubling_kernel`` and
+  ``_int_doubling_kernel``.
+
+The Writer's device build (:func:`build_suffix_array` with ``'torch'``, or
+``'auto'`` on a CUDA card) runs :func:`suffix_array_torch`, and
+:func:`suffix_array_int` builds over an integer alphabet.
 
 Their building blocks are kernels of the same file, exposed for tests:
 :func:`radix_sort_pairs` (stable LSD radix sort of uint64 keys with int32
@@ -38,6 +45,7 @@ for bit.
 
 from __future__ import annotations
 
+import threading
 import typing
 
 import numpy as np
@@ -46,17 +54,14 @@ import torch
 from . import kernels
 
 __all__ = ['build_suffix_array', 'derive_sa', 'derive_sa_plain',
-           'suffix_array_numpy']
+           'suffix_array_int', 'suffix_array_numpy', 'suffix_array_torch']
 
 
-def suffix_array_numpy(data: np.ndarray) -> np.ndarray:
-    """Prefix-doubling SA on the host; ground truth for the native kernel."""
-    data = np.asarray(data, dtype=np.uint8)
-    n = data.size
+def _doubling_numpy(rank: np.ndarray) -> np.ndarray:
+    """Prefix-doubling SA on the host over int64 symbols."""
+    n = rank.size
     if n == 0:
         return np.empty(0, dtype=np.int32)
-    rank = data.astype(np.int64)
-    order = np.argsort(rank, kind='stable').astype(np.int64)
     k = 1
     while True:
         rank2 = np.full(n, -1, dtype=np.int64)
@@ -77,6 +82,11 @@ def suffix_array_numpy(data: np.ndarray) -> np.ndarray:
     return order.astype(np.int32)
 
 
+def suffix_array_numpy(data: np.ndarray) -> np.ndarray:
+    """Prefix-doubling SA on the host; ground truth for the native kernel."""
+    return _doubling_numpy(np.asarray(data, dtype=np.uint8).astype(np.int64))
+
+
 def _pad_len(n: int) -> int:
     """Padded row length for an n-byte row: a power of two below 16 MiB,
     16 MiB granularity above (the device index's row geometry)."""
@@ -89,17 +99,126 @@ def _pad_len(n: int) -> int:
     return p
 
 
+#: Chunks of at least this many bytes are built on the card by ``'auto'``
+#: when CUDA is available (the JAX package's ``_JAX_MIN_N``).
+DEVICE_MIN_N = 1 << 16
+
+#: Serialises the device part of every build, so the Writer's concurrent
+#: workers neither add up their memory peaks nor interleave their rounds.
+_DEVICE_BUILD_LOCK = threading.Lock()
+
+
 def build_suffix_array(data: np.ndarray, backend: str = 'auto') -> np.ndarray:
-    """Suffix array of ``data`` (uint8).  ``auto`` is the native SA-IS, or
-    numpy where no C++ compiler could build it."""
+    """Suffix array of ``data`` (uint8) with the chosen backend:
+    ``'native'`` (C++ SA-IS), ``'numpy'``, ``'torch'``
+    (:func:`suffix_array_torch` on the CUDA card; raises without one), or
+    ``'auto'``: the card for a
+    chunk of at least ``DEVICE_MIN_N`` bytes when CUDA is available, as the
+    JAX ``auto`` picks the device on a co-located accelerator, else native
+    SA-IS (numpy where no C++ compiler could build it)."""
     data = np.asarray(data, dtype=np.uint8)
+    if backend == 'numpy':
+        return suffix_array_numpy(data)
+    if backend == 'torch':
+        return suffix_array_torch(data)
     from . import native
 
-    if backend == 'numpy' or (backend == 'auto' and not native.available()):
-        return suffix_array_numpy(data)
-    if backend in ('native', 'auto'):
+    if backend == 'native':
         return native.suffix_array_native(data)
-    raise ValueError(f'unknown suffix-array backend: {backend!r}')
+    if backend != 'auto':
+        raise ValueError(f'unknown suffix-array backend: {backend!r}')
+    if data.size >= DEVICE_MIN_N and torch.cuda.is_available():
+        return suffix_array_torch(data)
+    if native.available():
+        return native.suffix_array_native(data)
+    return suffix_array_numpy(data)
+
+
+def _build_device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(
+            'the torch suffix-array build needs a CUDA device; it never '
+            'builds on the host'
+        )
+    return dev
+
+
+def suffix_array_torch(data: np.ndarray, *,
+                       device: typing.Union[str, torch.device] = 'cuda',
+                       algorithm: str = 'segmented') -> np.ndarray:
+    """The SA of ``data`` (uint8) built on ``device`` and read back as host
+    int32 [n], the counterpart of the JAX ``suffix_array_jax``.  The chunk
+    is padded to ``N = _pad_len(n + 6)``, B1b's contract.  ``'segmented'``
+    runs :func:`derive_sa` (B1b, then B2 from k = 6); ``'full'`` runs B9
+    (:func:`sa_full_doubling`).  On the CPU device the plain versions run.
+    The device part holds a module lock."""
+    data = np.asarray(data, dtype=np.uint8)
+    n = data.size
+    if n == 0:
+        return np.empty(0, dtype=np.int32)
+    if algorithm not in ('segmented', 'full'):
+        raise ValueError(f'unknown SA algorithm: {algorithm!r}')
+    dev = _build_device(device)
+    N = _pad_len(n + BYTE_INIT_WIDTH)
+    padded = np.zeros(N, dtype=np.uint8)
+    padded[:n] = data
+    with _DEVICE_BUILD_LOCK:
+        text = torch.from_numpy(padded).to(dev)
+        if algorithm == 'segmented':
+            sa = derive_sa(text, n)[0][:n]
+        else:
+            sa = sa_full_doubling(text, n)[N - n:]
+        return sa.cpu().numpy()
+
+
+def suffix_array_int(data: np.ndarray, k: typing.Optional[int] = None,
+                     backend: str = 'auto') -> np.ndarray:
+    """SA over an integer alphabet ``[0, k)`` (``libsais_int`` parity), a
+    proper prefix sorting before any extension; ``k`` defaults to
+    ``max(data) + 1``.  ``'native'`` and ``'auto'`` run the C++ SA-IS
+    (``'auto'`` falls back to numpy without it), ``'torch'`` B9's integer
+    form on the CUDA card (:func:`suffix_array_int_torch`), anything else
+    host prefix doubling."""
+    data = np.ascontiguousarray(data, dtype=np.int32)
+    if data.size and data.min() < 0:
+        raise ValueError('alphabet values must be non-negative')
+    if k is None:
+        k = int(data.max()) + 1 if data.size else 1
+    if data.size and int(data.max()) >= k:
+        raise ValueError('alphabet value out of range')
+    if k > 1 << 30:
+        raise ValueError('alphabet too large (k must be <= 2**30)')
+    if backend in ('native', 'auto'):
+        from . import native
+
+        if native.available():
+            return native.suffix_array_int_native(data, k)
+        if backend == 'native':
+            raise RuntimeError('native backend unavailable')
+    if backend == 'torch':
+        return suffix_array_int_torch(data)
+    return _doubling_numpy(data.astype(np.int64))
+
+
+def suffix_array_int_torch(data: np.ndarray, *,
+                           device: typing.Union[str, torch.device] = 'cuda'
+                           ) -> np.ndarray:
+    """The SA of int32 ``data`` (values in [0, 2^30)) by B9's integer form
+    on ``device`` (:func:`sa_full_doubling_int`), as the JAX
+    ``_suffix_array_int_jax``: ranks start as value + 1 in a row padded to
+    ``_pad_len(n)`` with 0."""
+    data = np.ascontiguousarray(data, dtype=np.int32)
+    n = data.size
+    if n == 0:
+        return np.empty(0, dtype=np.int32)
+    dev = _build_device(device)
+    N = _pad_len(n)
+    padded = np.zeros(N, dtype=np.int32)
+    padded[:n] = data + 1
+    with _DEVICE_BUILD_LOCK:
+        sa_full = sa_full_doubling_int(torch.from_numpy(padded).to(dev))
+        return sa_full[N - n:].cpu().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -186,8 +305,11 @@ def scan_inclusive_max(x: torch.Tensor) -> torch.Tensor:
 #: top of the row's text and SA: the working sa / rank / gs (12), and the
 #: init's sort keys, values and their double buffers with the group-start
 #: array (28), or a round's tie flags and offsets (8) with its buffers
-#: over at most every slot (36).
-SA_BUILD_BYTES_PER_SLOT = 56
+#: over at most every slot (36); with headroom over the largest peak
+#: measured, the digit kind's all-tied first round: 14.06 GiB above the
+#: index for a 256 Mi-slot row (56.2 bytes a slot, its SA output included;
+#: ``chip_smoke.py`` on an NVIDIA H100 80GB HBM3 at 700 W).
+SA_BUILD_BYTES_PER_SLOT = 60
 
 
 def _key_width(N: int) -> int:
@@ -243,16 +365,23 @@ def _init_from_key(key: torch.Tensor, n: int):
     return sa.to(torch.int32), rk.to(torch.int32), gs.to(torch.int32)
 
 
-def sa_init_ranked_plain(text: torch.Tensor, n: int, rank: torch.Tensor,
-                         bits: int):
-    """Plain version of B1: (sa, rank, gs) int32 [N] of the anchored init
-    sort over the first 2D rank digits of every suffix (D = 30 // bits)."""
+def _ranked_key(text: torch.Tensor, n: int, rank: torch.Tensor,
+                bits: int) -> torch.Tensor:
+    """int64 [N]: the first 2D rank digits of every suffix (D = 30 //
+    bits) packed big-endian, 0 for a digit at or past n."""
     iota = torch.arange(text.shape[0], device=text.device)
     e = torch.where(iota < n, rank.long()[text.long()], 0)
     key = torch.zeros_like(e)
     for d in range(2 * (30 // bits)):
         key = (key << bits) | _shifted(e, d)
-    return _init_from_key(key, n)
+    return key
+
+
+def sa_init_ranked_plain(text: torch.Tensor, n: int, rank: torch.Tensor,
+                         bits: int):
+    """Plain version of B1: (sa, rank, gs) int32 [N] of the anchored init
+    sort over :func:`_ranked_key`."""
+    return _init_from_key(_ranked_key(text, n, rank, bits), n)
 
 
 def sa_init_ranked(text: torch.Tensor, n: int, rank: torch.Tensor,
@@ -280,17 +409,22 @@ def sa_init_ranked(text: torch.Tensor, n: int, rank: torch.Tensor,
     return sa, rk, gs
 
 
-def sa_init_bytes_plain(text: torch.Tensor, n: int):
-    """Plain version of B1b: (sa, rank, gs) int32 [N] of the anchored init
-    sort over the first 6 digits of every suffix, digit byte + 1 and 0 at
-    or past n, keyed as ``limb0 << 25 | limb1`` (three base-257 digits
+def _byte_key(text: torch.Tensor, n: int) -> torch.Tensor:
+    """int64 [N]: the first 6 digits of every suffix, digit byte + 1 and 0
+    at or past n, keyed as ``limb0 << 25 | limb1`` (three base-257 digits
     each, 257^3 < 2^25)."""
     iota = torch.arange(text.shape[0], device=text.device)
     e = torch.where(iota < n, text.long() + 1, 0)
     limbs = [torch.zeros_like(e), torch.zeros_like(e)]
     for d in range(BYTE_INIT_WIDTH):
         limbs[d // 3] = limbs[d // 3] * 257 + _shifted(e, d)
-    return _init_from_key((limbs[0] << 25) | limbs[1], n)
+    return (limbs[0] << 25) | limbs[1]
+
+
+def sa_init_bytes_plain(text: torch.Tensor, n: int):
+    """Plain version of B1b: (sa, rank, gs) int32 [N] of the anchored init
+    sort over the first 6 digits of every suffix (:func:`_byte_key`)."""
+    return _init_from_key(_byte_key(text, n), n)
 
 
 def sa_init_bytes(text: torch.Tensor, n: int):
@@ -323,20 +457,26 @@ def _tied_plain(gs: torch.Tensor) -> torch.Tensor:
     return tied
 
 
+def _round_keys(sa: torch.Tensor, rank: torch.Tensor, gs: torch.Tensor,
+                k: int):
+    """A B2 round's (tied slots, their positions, their int64 keys
+    ``gs << W | (rank[pos + k] + 1)``, 0 past the row) in slot order."""
+    N = sa.shape[0]
+    slots = torch.nonzero(_tied_plain(gs)).flatten()
+    pos = sa[slots].long()
+    q = pos + k
+    r2 = torch.where(q < N, rank[q.clamp(max=N - 1)].long(), -1)
+    return slots, pos, (gs[slots].long() << _key_width(N)) | (r2 + 1)
+
+
 def sa_refine_round_plain(sa: torch.Tensor, rank: torch.Tensor,
                           gs: torch.Tensor, k: int) -> int:
     """Plain version of B2: refine every tied group by the rank ``k``
     positions on, in place; returns the tie count m."""
-    N = sa.shape[0]
-    slots = torch.nonzero(_tied_plain(gs)).flatten()
+    slots, pos, key = _round_keys(sa, rank, gs, k)
     m = slots.shape[0]
     if m == 0:
         return 0
-    pos = sa[slots].long()
-    g = gs[slots].long()
-    q = pos + k
-    r2 = torch.where(q < N, rank[q.clamp(max=N - 1)].long(), -1)
-    key = (g << _key_width(N)) | (r2 + 1)
     key_s, order = torch.sort(key, stable=True)
     pos_s = pos[order]
     change = torch.ones(m, dtype=torch.bool, device=sa.device)
@@ -457,3 +597,140 @@ def derive_sa_plain(text: torch.Tensor, n: int,
     return _derive(sa_init_ranked_plain, sa_init_bytes_plain,
                    sa_refine_round_plain, sa_roll_front_plain, text, n, rank,
                    bits, out)
+
+
+# ---------------------------------------------------------------------------
+# B9: full-sort prefix doubling
+# ---------------------------------------------------------------------------
+
+def _dense_relabel(keys_s: torch.Tensor, idx: torch.Tensor):
+    """(sa, rank, count) from stably sorted keys and their positions: dense
+    ranks in sorted order, 0 for the smallest key."""
+    change = torch.zeros(keys_s.shape[0], dtype=torch.int64,
+                         device=keys_s.device)
+    change[1:] = (keys_s[1:] != keys_s[:-1]).long()
+    labels = torch.cumsum(change, 0)
+    rank = torch.empty_like(labels)
+    rank[idx] = labels
+    return idx.to(torch.int32), rank.to(torch.int32), int(labels[-1]) + 1
+
+
+def sa_full_init_bytes_plain(text: torch.Tensor, n: int):
+    """Plain version of B9's init: (sa int32 [N], rank int32 [N], count):
+    every position stably sorted by B1b's 6-digit key (:func:`_byte_key`),
+    with dense ranks and their number."""
+    keys_s, idx = torch.sort(_byte_key(text, n), stable=True)
+    return _dense_relabel(keys_s, idx)
+
+
+def sa_full_init_bytes(text: torch.Tensor, n: int):
+    """B9's init on a uint8 [N] text row of true length ``n`` (see
+    :func:`sa_full_init_bytes_plain`): B1b's key kernel, the radix sort and
+    a dense relabel; the count is read back once.  Replaces
+    ``_init_round``."""
+    N = text.shape[0]
+    if not 0 <= n <= N:
+        raise ValueError(f'sa_full_init_bytes: need 0 <= n <= N, got {n}')
+    if not kernels.route(text):
+        return sa_full_init_bytes_plain(text, n)
+    kernels.check(text, 'text', torch.uint8, 1)
+    dev = text.device
+    sa, rk, count = (torch.empty(m, dtype=torch.int32, device=dev)
+                     for m in (N, N, 1))
+    with torch.cuda.device(dev):
+        scratch = kernels.scratch('sa_full', N, dev)
+        kernels.launch('sa_full_init_bytes', text.data_ptr(), N, int(n),
+                       sa.data_ptr(), rk.data_ptr(), count.data_ptr(),
+                       scratch.data_ptr())
+    return sa, rk, int(count)
+
+
+def _check_width(N: int, W: int) -> None:
+    if not 0 < W <= 31 or (1 << W) <= N:
+        raise ValueError(f'full round: need 2^W > N and W <= 31, got W={W}')
+
+
+def sa_full_round_plain(sa: torch.Tensor, rank: torch.Tensor, k: int,
+                        W: int) -> int:
+    """Plain version of a B9 round: every position stably sorted by
+    ``rank[i] << W | (rank[i + k] + 1)``, 0 past the row, then dense ranks,
+    in place; returns their number.  Every rank must be below 2^W - 1."""
+    _check_width(rank.shape[0], W)
+    r = rank.long()
+    keys_s, idx = torch.sort((r << W) | _shifted(r + 1, k), stable=True)
+    new_sa, new_rank, count = _dense_relabel(keys_s, idx)
+    sa.copy_(new_sa)
+    rank.copy_(new_rank)
+    return count
+
+
+def sa_full_round(sa: torch.Tensor, rank: torch.Tensor, k: int,
+                  W: int) -> int:
+    """One B9 round on int32 [N] (sa, rank) in place (see
+    :func:`sa_full_round_plain`): a key kernel, the radix sort on 2W bits
+    and a dense relabel; the count is read back once.  Replaces
+    ``_doubling_round``."""
+    N = rank.shape[0]
+    _check_width(N, W)
+    if not kernels.route(sa, rank):
+        return sa_full_round_plain(sa, rank, k, W)
+    kernels.check(sa, 'sa', torch.int32, 1)
+    kernels.check(rank, 'rank', torch.int32, 1)
+    if sa.shape[0] != N:
+        raise ValueError('sa_full_round: sa and rank differ in length')
+    dev = rank.device
+    count = torch.empty(1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        scratch = kernels.scratch('sa_full', N, dev)
+        kernels.launch('sa_full_round', sa.data_ptr(), rank.data_ptr(), N,
+                       int(k), W, count.data_ptr(), scratch.data_ptr())
+    return int(count)
+
+
+def _full_rounds(round_fn, sa, rank, count, k):
+    """Double k while k < N and some ranks tie, as ``_doubling_kernel``'s
+    loop; returns the last round's sa."""
+    N = rank.shape[0]
+    W = _key_width(N)
+    while k < N and count < N:
+        count = round_fn(sa, rank, k, W)
+        k *= 2
+    return sa
+
+
+def sa_full_doubling(text: torch.Tensor, n: int) -> torch.Tensor:
+    """B9, the SA of a padded uint8 [N] text row of true length ``n`` by
+    full-sort doubling, as the JAX ``_doubling_kernel`` returns it: int32
+    [N] with the pad positions first and the text's SA in the last n
+    slots.  The 6-byte init, then rounds from k = 6."""
+    sa, rank, count = sa_full_init_bytes(text, n)
+    return _full_rounds(sa_full_round, sa, rank, count, BYTE_INIT_WIDTH)
+
+
+def sa_full_doubling_plain(text: torch.Tensor, n: int) -> torch.Tensor:
+    """:func:`sa_full_doubling` through the plain versions on any device."""
+    sa, rank, count = sa_full_init_bytes_plain(text, n)
+    return _full_rounds(sa_full_round_plain, sa, rank, count,
+                        BYTE_INIT_WIDTH)
+
+
+def _int_doubling(round_fn, ranks: torch.Tensor) -> torch.Tensor:
+    rank = ranks.to(torch.int32).clone()
+    sa = torch.empty_like(rank)
+    # The first round keys the raw ranks (up to 2^30, so W = 31 at most);
+    # later rounds key dense ranks below N.
+    W0 = max(_key_width(rank.shape[0]), (int(rank.max()) + 1).bit_length())
+    count = round_fn(sa, rank, 1, W0)
+    return _full_rounds(round_fn, sa, rank, count, 2)
+
+
+def sa_full_doubling_int(ranks: torch.Tensor) -> torch.Tensor:
+    """B9's integer form, the JAX ``_int_doubling_kernel``: the SA of int32
+    [N] order-preserving ranks (value + 1, pad 0, at most 2^30), pad
+    positions first; the first round at k = 1, then doubling from k = 2."""
+    return _int_doubling(sa_full_round, ranks)
+
+
+def sa_full_doubling_int_plain(ranks: torch.Tensor) -> torch.Tensor:
+    """:func:`sa_full_doubling_int` through the plain round."""
+    return _int_doubling(sa_full_round_plain, ranks)

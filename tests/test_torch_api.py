@@ -108,13 +108,20 @@ def test_reader_without_container_extracts_rows(index_pair):
 
 
 def test_digit_kind_corpus_raises(tmp_path):
+    """A corpus with NUL in a wide alphabet (the digit kind) no longer
+    raises: its Reader answers as the JAX Reader does."""
     p = str(tmp_path / 'digit.idx')
     w = tpss.Writer(p)
     w.add_entry(bytes(range(0, 256)).decode('latin-1'))
+    w.add_entry('abc\x00abd')
     w.close()
     r = tpss.Reader(p, device='cpu')
-    with pytest.raises(NotImplementedError, match='B11'):
-        r.search('abc')
+    jr = jpss.Reader(p)
+    pats = ['abc', '\x00', 'c\x00a', 'bc\x00ab', '\x00\x01\x02', '', 'zzz']
+    got = [sorted(r.search(x)) for x in pats]
+    assert got == [sorted(jr.search(x)) for x in pats]
+    assert r._index.kind == 'digit'
+    assert got[0] and got[2] and got[3] and got[4] and not got[6]
 
 
 def test_cuda_reader_needs_cuda(index_pair, monkeypatch):

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 import pysubstringsearch_tpu_torch as pss
-from pysubstringsearch_tpu_torch.container import Chunk
+from pysubstringsearch_tpu_torch.container import Chunk, read_container
 from pysubstringsearch_tpu_torch.models.index import DeviceIndex
 from pysubstringsearch_tpu_torch.ops import kernels
 from pysubstringsearch_tpu_torch.ops import search as S
@@ -315,3 +315,153 @@ def test_raw_kernels_match_plain(cuda, size):
     for name in ('sa_init_bytes', 'sa_tie_scan', 'raw_pack',
                  'raw_limb_planes', 'seed_prefix', 'seed_table'):
         assert kernels.LAUNCHES[name] > before[name], name
+
+
+def _digit_body(size: int, seed: int) -> np.ndarray:
+    """UTF-16LE text of printable words: every second byte is NUL, so the
+    alphabet is wide and holds NUL, the digit kind."""
+    rng = np.random.default_rng(seed)
+    words = [bytes(rng.integers(33, 127, size=int(l), dtype=np.uint8))
+             for l in rng.integers(2, 8, size=400)]
+    text = b' '.join(words[i] for i in rng.integers(0, 400,
+                                                      size=size // 8 + 1))
+    body = np.frombuffer(text.decode().encode('utf-16-le')[:size],
+                         dtype=np.uint8).copy()
+    body[::97] = 0x0A
+    body[-1] = 0x0A
+    return body
+
+
+@pytest.mark.parametrize('size', [1, 70_000, 3_000_000])
+@pytest.mark.parametrize('depth', [2, 3])
+def test_digit_aux_kernels_match_plain(cuda, size, depth):
+    """B12d: the bucket table (K7 at base 258, K3) and the limb planes (K7
+    at depth 3, the limb-plane kernel at offset 2, stride 3), bit for bit
+    against their plain versions and the host builders."""
+    data = _digit_body(size, size)
+    n = data.size
+    N = _pad_len(n + S.PAD_MARGIN)
+    text = torch.zeros(N, dtype=torch.uint8, device=cuda)
+    text[:n] = torch.from_numpy(data)
+    sa, _ = SA.derive_sa(text, n)
+    before = dict(kernels.LAUNCHES)
+    scratch = torch.empty(N, dtype=torch.int32, device=cuda)
+    table = S.digit_bucket_table(text, sa, n, depth, scratch=scratch)
+    limbs = S.digit_limb_planes(text, sa, n, 5, scratch=scratch)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES['seed_prefix'] == before['seed_prefix'] + 2
+    assert kernels.LAUNCHES['seed_table'] == before['seed_table'] + 1
+    assert kernels.LAUNCHES['digit_limb_planes'] == \
+        before['digit_limb_planes'] + 1
+    assert torch.equal(table, S.digit_bucket_table_plain(text, sa, n, depth))
+    assert torch.equal(limbs, S.digit_limb_planes_plain(text, sa, n, 5))
+    if depth == 3:
+        # The index's route: the table's K7 values feed the limbs, so K7
+        # runs once for both.
+        before = dict(kernels.LAUNCHES)
+        pv = torch.empty(N, dtype=torch.int32, device=cuda)
+        S.digit_bucket_table(text, sa, n, 3, scratch=pv)
+        again = S.digit_limb_planes(text, sa, n, 5, prefix=pv)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES['seed_prefix'] == before['seed_prefix'] + 1
+        assert torch.equal(again, limbs)
+    sa_h = sa[:n].cpu().numpy()
+    assert np.array_equal(table.cpu().numpy(),
+                          S.build_bucket_table_host(data, sa_h, depth))
+    assert np.array_equal(limbs.cpu().numpy(), S.pad_limbs_host(
+        S.build_limbs_host(data, sa_h, 5), N))
+
+
+@pytest.mark.parametrize('mode, deep_min', [('upload', None),
+                                            ('derive', None),
+                                            ('derive', 1 << 16)])
+def test_digit_index_and_probe_match_cpu(cuda, monkeypatch, mode, deep_min):
+    """A digit-kind index built on the card equals the CPU one array for
+    array, and B11 equals its plain version for every (row, pattern),
+    lower bounds included, at both bucket depths."""
+    if deep_min is not None:
+        monkeypatch.setattr(DeviceIndex, 'DEEP_TABLE_MIN_CHUNK', deep_min)
+    bodies = [_digit_body(m, s) for s, m in enumerate((60_000, 777,
+                                                        90_000))]
+    bodies[1][:256] = np.arange(256, dtype=np.uint8)
+    chunks = [Chunk(data=b, suffix_array=suffix_array_numpy(b))
+              for b in bodies]
+    k7 = kernels.LAUNCHES['seed_prefix']
+    gpu = DeviceIndex(chunks, device=cuda, mode=mode)
+    cpu = DeviceIndex(chunks, device='cpu', mode=mode)
+    torch.cuda.synchronize()
+    assert gpu.kind == 'digit' and gpu._depth == (3 if deep_min else 2)
+    # K7 once a row at depth 3 (table and limbs share it), twice at 2.
+    assert kernels.LAUNCHES['seed_prefix'] - k7 == \
+        gpu.num_chunks * (1 if deep_min else 2)
+    for name in ('text', 'lengths', 'sa', 'tables', 'limbs', 'rank',
+                 'present'):
+        assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), name
+    pats = _patterns(bodies, 4)
+    pats += [bodies[0][i: i + l].tobytes() for i, l in
+             ((10, 16), (20, 17), (30, 18), (40, 19), (50, 200))]
+    packed, lengths = S.pack_patterns(pats)
+    before = kernels.LAUNCHES['probe_limbs']
+    lo_g, cnt_g = gpu.probe(packed, lengths)
+    assert kernels.LAUNCHES['probe_limbs'] == before + 1
+    lo_c, cnt_c = cpu.probe(packed, lengths)
+    np.testing.assert_array_equal(cnt_g, cnt_c)
+    np.testing.assert_array_equal(lo_g, lo_c)
+    assert (cnt_g > 0).sum() > 100
+
+
+@pytest.mark.parametrize('size', [1, 70_000, (1 << 22) + 3])
+def test_full_doubling_matches_plain(cuda, size):
+    """B9's byte form (init, every round, the finished SA with its pad
+    slots) and integer form against their plain versions and native
+    SA-IS."""
+    data = _digit_body(size, 3) if size > 1 else np.array([7], np.uint8)
+    n = data.size
+    N = _pad_len(n + 6)
+    text = torch.zeros(N, dtype=torch.uint8, device=cuda)
+    text[:n] = torch.from_numpy(data)
+    before = dict(kernels.LAUNCHES)
+    init = SA.sa_full_init_bytes(text, n)
+    pinit = SA.sa_full_init_bytes_plain(text, n)
+    assert init[2] == pinit[2]
+    assert all(torch.equal(a, b) for a, b in zip(init[:2], pinit[:2]))
+    sa = SA.sa_full_doubling(text, n)
+    assert torch.equal(sa, SA.sa_full_doubling_plain(text, n))
+    assert np.array_equal(sa[N - n:].cpu().numpy(), suffix_array_native(data))
+    assert np.array_equal(SA.suffix_array_torch(data, algorithm='full'),
+                          SA.suffix_array_torch(data))
+    vals = np.random.default_rng(size).integers(0, 1 << 20, size=n,
+                                                dtype=np.int32)
+    vals[::5] = vals[0]
+    ranks = torch.zeros(_pad_len(n), dtype=torch.int32, device=cuda)
+    ranks[:n] = torch.from_numpy(vals + 1)
+    assert torch.equal(SA.sa_full_doubling_int(ranks),
+                       SA.sa_full_doubling_int_plain(ranks))
+    assert np.array_equal(SA.suffix_array_int(vals, 1 << 20, 'torch'),
+                          SA.suffix_array_int(vals, 1 << 20, 'native'))
+    torch.cuda.synchronize()
+    for name in ('sa_full_init_bytes', 'sa_full_round'):
+        assert kernels.LAUNCHES[name] > before[name], name
+
+
+def test_writer_auto_builds_on_card(cuda, tmp_path):
+    """The Writer's default 'auto' builds every chunk of at least 64 KiB on
+    the card (one B1b launch each) from its thread pool, and writes the
+    bytes of a native build."""
+    src = tmp_path / 'corpus.txt'
+    src.write_bytes(_digit_body(700_000, 9).tobytes())
+    paths = {}
+    for backend in ('auto', 'native'):
+        paths[backend] = str(tmp_path / f'{backend}.idx')
+        before = kernels.LAUNCHES['sa_init_bytes']
+        with pss.Writer(paths[backend], max_chunk_len=100 << 10,
+                        sa_backend=backend) as w:
+            w.add_entries_from_file_lines(str(src))
+        launched = kernels.LAUNCHES['sa_init_bytes'] - before
+        sizes = [c.data.size for c in
+                 read_container(paths[backend]).chunks]
+        big = sum(s >= SA.DEVICE_MIN_N for s in sizes)
+        assert big >= 4
+        assert launched == (big if backend == 'auto' else 0)
+    with open(paths['auto'], 'rb') as f, open(paths['native'], 'rb') as g:
+        assert f.read() == g.read()

@@ -103,12 +103,18 @@ def test_probe_edge_shapes():
 
 
 def test_unported_modes_raise():
+    """Every alphabet kind builds in every mode; only a mode the index does
+    not know raises."""
     rng = np.random.default_rng(0)
     body = rng.integers(0, 256, size=3000, dtype=np.uint8)  # NUL, big sigma
     chunk = Chunk(data=body, suffix_array=suffix_array_numpy(body))
-    for mode in ('auto', 'upload', 'derive'):
-        with pytest.raises(NotImplementedError, match='A3.*B11'):
-            DeviceIndex([chunk], device='cpu', mode=mode)
+    # The digit kind (NUL in a wide alphabet) builds in every mode now.
+    for mode, built in (('auto', 'upload'), ('upload', 'upload'),
+                        ('derive', 'derive')):
+        idx = DeviceIndex([chunk], device='cpu', mode=mode)
+        assert idx.kind == 'digit' and idx.mode == built
+        np.testing.assert_array_equal(idx.sa[0, : body.size].numpy(),
+                                      chunk.suffix_array)
     # The raw kind (NUL-free) derives now.
     raw = np.where(body == 0, 1, body).astype(np.uint8)
     raw_chunk = Chunk(data=raw, suffix_array=suffix_array_numpy(raw))

@@ -388,9 +388,9 @@ def test_auto_mode_on_cpu_is_upload_for_every_ported_kind():
     assert raw.kind == 'raw' and raw.mode == 'upload'
     ranked = DeviceIndex(_chunks([b'abc\nabd\n', b'bcd\n']), device='cpu')
     assert ranked.kind == 'ranked' and ranked.mode == 'upload'
-    digit = _chunks([bytes(range(256)) + b'\n'])
-    with pytest.raises(NotImplementedError, match='A3'):
-        DeviceIndex(digit, device='cpu')
+    digit = DeviceIndex(_chunks([bytes(range(256)) + b'\n', b'a\x00b\n']),
+                        device='cpu')
+    assert digit.kind == 'digit' and digit.mode == 'upload'
 
 
 # ---------------------------------------------------------------------------
