@@ -23,7 +23,12 @@ Phases (any failure raises and exits non-zero):
    the kernel's bound (its inputs read once and outputs written once at
    3.35 TB/s) and, where one PyTorch call computes the same function, that
    call's time: K1-K3 and B1 and one B2 round on row 0, K4 and B8 on every
-   row x the whole batch, and the whole ``derive_sa`` of every row;
+   row x the whole batch, and the whole ``derive_sa`` of every row; then,
+   launch counts from 0, B13 (``bwt_from_sa_device``) on row 0 and on
+   chunk 0 and B15's capped gather of row 0's hits, each against its plain
+   version (B13 also against the host BWT and, on chunk 0, ``unbwt_native``
+   and ``bwt()``; the gather against B8's blocks), and B15's bucket table
+   at depth 2 and 3 against its plain version;
 5. the device path's answers against the host native path's: per-pattern
    counts summed over rows and chunks; the lines ``search_multiple``
    returned in 3 against one timed ``HostServing.search`` of the batch,
@@ -37,7 +42,18 @@ Phases (any failure raises and exits non-zero):
 7. the upload path (``Reader(path, index_mode='upload')``) after the derive
    Reader is freed: launch counts from 0, K1-K4 against their plain
    versions, counts against the host, and the same serving numbers;
-8. the raw kind after the upload Reader is freed: ``make_raw_corpus(--mb)``
+8. the scale-out path on the same container after the upload Reader is
+   freed: a 1-process NCCL group, the 63 chunks stacked as rows at the
+   upload geometry, and, launch counts from 0, ``make_sharded_build`` (B9
+   a row), ``make_sharded_probe`` (one B15 launch, then the all-gather)
+   and ``make_full_step``; every row's SA against native SA-IS, every B15
+   count against K4's upload count, B15 against its plain version, the
+   collectives timed; then ``ShardedReader`` on the card, a
+   ``MultiHostReader`` of two worker processes over ``convert_index``'s
+   two shards (a gloo group: one card holds one NCCL rank), and the CLI's
+   ``search`` and ``shard`` as processes, each against the single
+   Reader's lines for the first 2000 patterns;
+9. the raw kind after the scale-out phase: ``make_raw_corpus(--mb)``
    (``make_corpus`` with word bytes 33-126, so 96 distinct bytes and no
    NUL) in a container of its own; launch counts from 0, then ``Reader``
    derives it over merged rows (SA by B1b and B2 from k = 6, tables by K7
@@ -51,7 +67,7 @@ Phases (any failure raises and exits non-zero):
    against native SA-IS, K7 with K3 at base 258, K4) and uploaded (K5-K7
    and K3 launched once a chunk, row 0's table and limbs against the host
    builders, K4);
-9. the digit kind: ``make_digit_corpus(--mb)`` (the lines of
+10. the digit kind: ``make_digit_corpus(--mb)`` (the lines of
    ``make_raw_corpus(--mb // 2)`` as UTF-16LE: 97 distinct bytes with NUL)
    written by the Writer at its default ``'auto'``, so on the card, with
    launch counts from 0: B1b once for every chunk of at least 64 KiB, and
@@ -70,13 +86,13 @@ Phases (any failure raises and exits non-zero):
    and a digit index of two 4 MiB chunks in ``mode='upload'`` (the digit
    aux launched once a chunk, row 0's table and limbs against the host
    builders, B11);
-10. B9 with launch counts from 0: ``suffix_array_torch(algorithm='full')``
+11. B9 with launch counts from 0: ``suffix_array_torch(algorithm='full')``
     on two 8 MiB digit chunks against native SA-IS, timed against
     ``'segmented'``, and ``suffix_array_int(backend='torch')`` on 4 Mi
     values at k = 2^20 against native; then B9's init and one round
     against their plain versions, timed, and the whole byte and integer
     doubling against plain;
-11. one JSON line of kernels (each with its launches on its path, error,
+12. one JSON line of kernels (each with its launches on its path, error,
     time, plain time, bound and library-call time), the card's name and
     power limit, and the result line ``{"ok": true, "device": {...}}``
     last.
@@ -118,14 +134,25 @@ WRITER_KERNELS = ('sa_init_bytes', 'sa_tie_scan', 'sa_refine_round',
                   'sa_roll_front')
 #: Entry points of B9's paths: the 'full' build and the integer alphabet.
 B9_KERNELS = ('sa_full_init_bytes', 'sa_full_round')
+#: Entry points the scale-out path launches: B9 a row for the sharded
+#: build and the full step, B15 once for each probe.
+PARALLEL_KERNELS = ('sa_full_init_bytes', 'sa_full_round', 'sa_roll_front',
+                    'probe_bytes')
+#: Patterns (the first of the ranked batch) that ShardedReader,
+#: MultiHostReader and the CLI answer against the single Reader.
+SHARD_PATTERNS = 2000
+#: Seconds a MultiHostReader worker or a CLI process may take.
+WORKER_TIMEOUT_S = 600
 
 #: Device memory rate of the H100 SXM (NVIDIA's data sheet), bytes/s.
 HBM_BYTES_PER_S = 3.35e12
 
 SEARCH_SRC = 'pysubstringsearch_tpu_torch/csrc/search_kernels.cu'
 SA_SRC = 'pysubstringsearch_tpu_torch/csrc/suffix_array_kernels.cu'
+BWT_SRC = 'pysubstringsearch_tpu_torch/csrc/bwt_kernels.cu'
 JAX_SEARCH = 'pysubstringsearch_tpu/ops/search.py'
 JAX_SA = 'pysubstringsearch_tpu/ops/suffix_array.py'
+JAX_BWT = 'pysubstringsearch_tpu/ops/bwt.py'
 
 
 def log(*a):
@@ -323,15 +350,22 @@ def main() -> int:
         kernel_rows += result['derive'].pop('kernels')
         result['upload'] = timed('upload', lambda: run_upload(idx_path, pats,
                                                               dev))
+        upload_bounds = result['upload'].pop('bounds')
+        shard_ref = result['upload'].pop('shard_ref')
+        # ---- 8. the scale-out path on the same container ----
+        result['parallel'] = timed('parallel', lambda: run_parallel(
+            idx_path, pats, dev, upload_bounds, shard_ref, d))
+        kernel_rows += result['parallel'].pop('kernels')
+        del shard_ref, upload_bounds
         os.remove(idx_path)
-        # ---- 8. the raw kind ----
+        # ---- 9. the raw kind ----
         raw_path, result['raw_index_build_s'], raw_pats = build_container(
             pss, lambda: make_raw_corpus(args.mb, args.seed), d, 'raw', args)
         result['raw'] = timed('raw', lambda: run_raw(
             raw_path, raw_pats, dev, result['derive']['rows']))
         kernel_rows += result['raw'].pop('kernels')
         os.remove(raw_path)
-        # ---- 9-11. the digit kind, written on the card; B9 ----
+        # ---- 10-12. the digit kind, written on the card; B9 ----
         (digit_path, result['digit_writer'], (digit_pats, byte_pats),
          native_sas, chunk_datas) = write_digit_container(pss, d, args)
         result['digit'] = timed('digit', lambda: run_digit(
@@ -1011,6 +1045,7 @@ def run_derive(idx_path, pats, dev):
         2 * (30 // bits), entry, entry, 'sa_init_ranked', 330)
     derive_rows = check_derive_rows(idx, '', idx.rank, bits)
     gather_kernel(idx, lo_k, cnt_k, entry)
+    row0 = row0_bwt_and_b15(r, idx, lo_k, cnt_k, entries)
 
     # ---- 5. device answers against the host native path ----
     host_search_s = check_answers(r, idx, pats, packed_np, lengths_np, res)
@@ -1024,6 +1059,7 @@ def run_derive(idx_path, pats, dev):
     return {
         **result, 'kernels': entries, 'derive_rows': derive_rows,
         'resident_gib': torch.cuda.memory_allocated() / 2**30, **numbers,
+        'row0': row0,
     }
 
 
@@ -1172,9 +1208,13 @@ def run_upload(idx_path, pats, dev):
     entry = kernel_check('upload ')
     aux_kernels(idx, 0, entry)
     packed_np, lengths_np = S.pack_patterns(pats)
-    probe_kernel(idx, packed_np, lengths_np, entry)
+    lo_k, cnt_k = probe_kernel(idx, packed_np, lengths_np, entry)
+    bounds = (lo_k.cpu().numpy(), cnt_k.cpu().numpy())
+    del lo_k, cnt_k
     host_search_s = check_answers(r, idx, pats, packed_np, lengths_np, res)
     del res
+    # The single Reader's lines for the scale-out phase's patterns.
+    shard_ref = r._search_batch(pats[:SHARD_PATTERNS])
     numbers = serving_numbers(r, idx, pats, packed_np, lengths_np,
                               host_search_s)
     split = load_split(r, ('index-alphabet', 'index-alloc', 'index-host-copy',
@@ -1183,7 +1223,7 @@ def run_upload(idx_path, pats, dev):
             'search_multiple_s': e2e_s, 'search_multiple_phases_s': phases,
             'lines': lines, 'launches': launches,
             'resident_gib': torch.cuda.memory_allocated() / 2**30,
-            **numbers}
+            'bounds': bounds, 'shard_ref': shard_ref, **numbers}
 
 
 def make_digit_corpus(mb, seed=0):
@@ -1608,6 +1648,440 @@ def run_b9(chunk_datas, native_sas, dev):
     torch.cuda.empty_cache()
     return {'kernels': entries, 'launches': launches, **times,
             'int_s': int_s, 'int_native_s': int_native_s}
+
+
+def row0_bwt_and_b15(r, idx, lo_k, cnt_k, entries):
+    """B13 and B15's table and capped gather on the ranked derive index's
+    row 0.  Launch counts from 0, then the path: ``bwt_from_sa_device`` on
+    the row (``text[:n]``, ``sa[:n]`` of the rolled-front row) and on
+    container chunk 0 (text and SA uploaded), and ``gather_hit_positions``
+    of the batch's row-0 bounds at cap 64; every new kernel must have
+    launched.  Then each against its plain version on the card, timed: B13
+    also against the host ``bwt_from_sa`` of the same SA, ``unbwt_native``
+    of chunk 0's U returns the chunk and ``bwt()`` of it (SA built on the
+    card) gives the same U; the capped gather against the first min(count,
+    64) positions of each query's B8 block; ``build_bucket_table`` at depth
+    2 and 3 against its plain version.  Appends B13's and the gather's rows
+    to ``entries``; returns the numbers."""
+    import numpy as np
+    import torch
+
+    from pysubstringsearch_tpu_torch.ops import bwt as BWT
+    from pysubstringsearch_tpu_torch.ops import kernels
+    from pysubstringsearch_tpu_torch.ops import search as S
+    from pysubstringsearch_tpu_torch.ops.native import unbwt_native
+
+    dev = idx.device
+    n0 = int(idx.row_data[0].size)
+    text0, sa0 = idx.text[0, :n0], idx.sa[0, :n0]
+    c0 = r._chunks[0]
+    ctext = torch.from_numpy(np.array(c0.data)).to(dev)
+    csa = torch.from_numpy(np.array(c0.suffix_array, dtype=np.int32)).to(dev)
+    lo0, cnt0 = lo_k[0].contiguous(), cnt_k[0].contiguous()
+    kernels.reset_launches()
+    (u, p), b13_s = wall_s(lambda: BWT.bwt_from_sa_device(text0, sa0))
+    cu, cp = BWT.bwt_from_sa_device(ctext, csa)
+    capped = S.gather_hit_positions(idx.sa[0], lo0, cnt0, 64)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    check(launches['bwt_from_sa'] == 2 and launches['gather_hit_positions']
+          == 1, f'B13 launched twice and the capped gather once ({launches})')
+    entry = kernel_check('', entries, launches)
+
+    u_p, p_p = BWT.bwt_from_sa_device_plain(text0, sa0)
+    e = max(err(u, u_p), abs(int(p) - int(p_p)))
+    del u_p
+    t0 = time.perf_counter()
+    u_h, p_h = BWT.bwt_from_sa(idx.row_data[0], sa0.cpu().numpy())
+    host_s = time.perf_counter() - t0
+    check(np.array_equal(u.cpu().numpy(), u_h) and int(p) == p_h,
+          "B13 on row 0 equals the host bwt_from_sa of the row's SA")
+    del u_h
+    check(np.array_equal(unbwt_native(cu.cpu().numpy(), int(cp)), c0.data),
+          'unbwt_native of chunk 0\'s device BWT returns the chunk')
+    bu, bp = BWT.bwt(c0.data)
+    check(np.array_equal(bu, cu.cpu().numpy()) and bp == int(cp),
+          'bwt() of chunk 0 (SA built on the card) equals the device BWT')
+    # The library call: one torch.take of the text at U's source slots,
+    # made beforehand.
+    iota = torch.arange(n0, device=dev)
+    src = (sa0.long() - 1) % n0
+    src = src[torch.where(iota <= int(p) - 1, iota - 1, iota) % n0]
+    src[0] = n0 - 1
+    del iota
+    entry('bwt_from_sa', f'{JAX_BWT}:72', BWT_SRC, e,
+          cuda_ms(lambda: BWT.bwt_from_sa_device(text0, sa0), 10),
+          cuda_ms(lambda: BWT.bwt_from_sa_device_plain(text0, sa0), 2),
+          6 * n0, cuda_ms(lambda: torch.take(text0, src), 5))
+    del src
+    torch.cuda.empty_cache()
+    log(f'B13 on row 0 ({n0} bytes): {b13_s * 1e3:.3f} ms wall for the first '
+        f'call, equal to its plain version and to the host bwt_from_sa '
+        f'({host_s:.2f} s); chunk 0 ({c0.data.size} bytes): unbwt_native '
+        'returns it, bwt() agrees')
+
+    B = lo0.shape[0]
+    plain = S.gather_hit_positions_plain(idx.sa[0], lo0, cnt0, 64)
+    pos, _ = S.gather_hits_flat(idx.sa[0], lo0, cnt0)
+    cnt64 = cnt0.long()
+    off = torch.cumsum(cnt64, 0) - cnt64
+    cols = torch.arange(64, device=dev)
+    mask = cols[None, :] < cnt64.clamp(max=64)[:, None]
+    blocks = pos[(off[:, None] + cols)[mask]]
+    check(torch.equal(capped[mask], blocks) and bool((capped[~mask] == -1)
+                                                     .all()),
+          'each query\'s capped row equals the first min(count, 64) '
+          'positions of its B8 block')
+    slot = (lo0.long()[:, None] + cols).clamp(0, idx.n_pad - 1)
+    kept = int(cnt64.clamp(max=64).sum())
+    entry('gather_hit_positions', f'{JAX_SEARCH}:1603', SEARCH_SRC,
+          err(capped, plain),
+          cuda_ms(lambda: S.gather_hit_positions(idx.sa[0], lo0, cnt0, 64),
+                  10),
+          cuda_ms(lambda: S.gather_hit_positions_plain(idx.sa[0], lo0, cnt0,
+                                                       64), 3),
+          8 * B + 4 * kept + 4 * 64 * B,
+          cuda_ms(lambda: torch.take(idx.sa[0], slot), 10))
+    del pos, blocks, slot, plain
+    log(f'capped gather: {B} queries x 64 on row 0, {kept} positions kept')
+
+    tables = {}
+    check_only = kernel_check('row 0 ')
+    for depth in (2, 3):
+        t = S.build_bucket_table(idx.text[0], n0, idx.sa[0], depth)
+        t_p = S.digit_bucket_table_plain(idx.text[0], idx.sa[0], n0, depth)
+        ms = cuda_ms(lambda: S.build_bucket_table(idx.text[0], n0, idx.sa[0],
+                                                  depth), 10)
+        plain_ms = cuda_ms(lambda: S.digit_bucket_table_plain(
+            idx.text[0], idx.sa[0], n0, depth), 2)
+        check_only(f'build_bucket_table depth {depth}', f'{JAX_SEARCH}:299',
+                   SEARCH_SRC, err(t, t_p), ms, plain_ms,
+                   idx.n_pad + 4 * n0 + table_bytes(t))
+        tables[depth] = {'kernel_ms': ms, 'plain_ms': plain_ms,
+                         'bound_ms': bound_ms(idx.n_pad + 4 * n0
+                                              + table_bytes(t)),
+                         'entries': int(t.shape[0])}
+        del t, t_p
+    torch.cuda.empty_cache()
+    return {'b13_first_call_s': b13_s, 'host_bwt_s': host_s,
+            'bucket_tables': tables, 'launches': launches}
+
+
+MH_WORKER = r"""
+import json, os, pickle, sys, time
+rank, d, shards, device = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
+from pysubstringsearch_tpu_torch.parallel import multihost
+multihost.initialize('file://' + os.path.join(d, 'mh_rendezvous'), 2, rank,
+                     'gloo')
+t0 = time.perf_counter()
+r = multihost.MultiHostReader(shards, device=device)
+if device != 'cpu':
+    assert r.wait_device_ready(), 'device index load failed'
+ready_s = time.perf_counter() - t0
+with open(os.path.join(d, 'mh_patterns.pkl'), 'rb') as f:
+    pats = pickle.load(f)
+t0 = time.perf_counter()
+per = r._search_batch(pats)
+search_s = time.perf_counter() - t0
+if rank == 0:
+    with open(os.path.join(d, 'mh_result.pkl'), 'wb') as f:
+        pickle.dump(per, f)
+idx = r._local._index
+print(json.dumps({'rank': rank, 'chunks': len(r._local._chunks),
+                  'rows': idx.num_chunks, 'mode': idx.mode,
+                  'ready_s': ready_s, 'search_s': search_s,
+                  'lines': sum(map(len, per)),
+                  'jax_loaded': 'jax' in sys.modules}), flush=True)
+import torch.distributed as dist
+dist.destroy_process_group()
+"""
+
+
+def _repo_env():
+    env = dict(os.environ)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env['PYTHONPATH'] = here + os.pathsep + env.get('PYTHONPATH', '')
+    return env, here
+
+
+def run_multihost(shards, pats, ref, d, device):
+    """Two worker processes (``python3 -c``, importing only the port) join
+    a gloo group through ``file://``, each loads its own shard into a
+    Reader on ``device`` (deriving its index there) and answers ``pats``;
+    rank 0's merged result must equal ``ref`` pattern by pattern as a
+    multiset.  A worker's non-zero exit or timeout fails the run."""
+    import collections
+    import pickle
+
+    env, here = _repo_env()
+    with open(os.path.join(d, 'mh_patterns.pkl'), 'wb') as f:
+        pickle.dump(pats, f)
+    log('MultiHostReader: 2 worker processes on one card; one card cannot '
+        'hold two NCCL ranks, so the multi-process path runs its host '
+        'gather (gloo), which is the path that spans processes here')
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, '-c', MH_WORKER, str(rank), d, shards, str(device)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env, cwd=here) for rank in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=WORKER_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    stats = []
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0,
+              f'MultiHostReader worker {rank} exited {p.returncode}:\n'
+              + out[-3000:])
+        stats.append(json.loads(out.strip().splitlines()[-1]))
+    check(not any(s['jax_loaded'] for s in stats), 'workers loaded no JAX')
+    with open(os.path.join(d, 'mh_result.pkl'), 'rb') as f:
+        merged = pickle.load(f)
+    check(len(merged) == len(ref) and all(
+        collections.Counter(a) == collections.Counter(b)
+        for a, b in zip(merged, ref)),
+          'MultiHostReader result multisets equal the single Reader\'s, '
+          'pattern by pattern')
+    log(f'MultiHostReader: 2 processes, {wall:.1f} s wall; per rank '
+        f'{stats}; merged lines {sum(map(len, merged))} equal the single '
+        'Reader\'s')
+    return {'wall_s': wall, 'ranks': stats}
+
+
+def run_cli(idx_path, pats, ref, shards, d):
+    """``python3 -m pysubstringsearch_tpu_torch search <idx> <3 patterns>
+    --count-only`` (a Reader on the card) and ``shard`` once, as
+    subprocesses: the counts equal the single Reader's, and ``shard``
+    writes the manifest and shard files ``convert_index`` wrote."""
+    import shutil
+
+    env, here = _repo_env()
+    strs = [p.decode('latin-1') for p in pats[:3]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'pysubstringsearch_tpu_torch', 'search',
+         idx_path, *strs, '--count-only'], capture_output=True, text=True,
+        env=env, cwd=here, timeout=WORKER_TIMEOUT_S)
+    search_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f'CLI search exited {proc.returncode}:\n'
+          + proc.stderr[-3000:])
+    got = [ln.rsplit('\t', 1) for ln in proc.stdout.splitlines()]
+    check([(a, int(b)) for a, b in got]
+          == [(s, len(x)) for s, x in zip(strs, ref)],
+          f'CLI counts {got} equal the single Reader\'s')
+    out_dir = os.path.join(d, 'cli_shards')
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'pysubstringsearch_tpu_torch', 'shard',
+         idx_path, out_dir, '--shards', '2'], capture_output=True, text=True,
+        env=env, cwd=here, timeout=WORKER_TIMEOUT_S)
+    shard_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f'CLI shard exited {proc.returncode}:\n'
+          + proc.stderr[-3000:])
+    for name in sorted(os.listdir(shards)):
+        a, b = os.path.join(out_dir, name), os.path.join(shards, name)
+        if name.endswith('.json'):
+            with open(a, 'rb') as f, open(b, 'rb') as g:
+                check(f.read() == g.read(), f'CLI shard wrote {name} alike')
+        else:
+            check(os.path.getsize(a) == os.path.getsize(b),
+                  f'CLI shard wrote {name} of the same size')
+    shutil.rmtree(out_dir)
+    log(f'CLI: search of 3 patterns {search_s:.1f} s (a process, a Reader '
+        f'on the card), counts {got} equal; shard {shard_s:.1f} s, the '
+        'manifest of convert_index')
+    return {'search_s': search_s, 'shard_s': shard_s}
+
+
+def run_parallel(idx_path, pats, dev, upload_bounds, ref, d,
+                 backend='nccl'):
+    """The scale-out path on the ranked container, after the upload index
+    is freed.  A 1-process ``backend`` group (``file://`` in ``d``) and the
+    mesh of this card; the container's chunks stacked as rows [C, N_pad]
+    at the upload geometry.  Launch counts from 0, then the path:
+    ``make_sharded_build`` (B9 a row), ``make_sharded_probe`` over the
+    ranked batch (one B15 launch, then the all-gather) and
+    ``make_full_step``; every kernel of the path must have launched.  Then
+    every row's SA against the container's (native SA-IS), every B15 count
+    (and lower bound where it hits) against K4's in the upload phase, B15
+    against its plain version, the full step's bounds and totals, and the
+    times of B15, B9 a row and each collective.  Then ``ShardedReader``,
+    ``MultiHostReader`` (two processes) and the CLI over the first
+    ``SHARD_PATTERNS`` patterns against the single Reader's lines ``ref``.
+    """
+    import collections
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pysubstringsearch_tpu_torch.container import read_container
+    from pysubstringsearch_tpu_torch.ops import kernels
+    from pysubstringsearch_tpu_torch.ops import search as S
+    from pysubstringsearch_tpu_torch.ops.suffix_array import _pad_len
+    from pysubstringsearch_tpu_torch.parallel import mesh as M
+    from pysubstringsearch_tpu_torch.parallel import manifest, multihost
+    from pysubstringsearch_tpu_torch.parallel import sharded
+    from pysubstringsearch_tpu_torch.parallel.reader import (
+        ShardedIndex,
+        ShardedReader,
+    )
+
+    chunks = read_container(idx_path).chunks
+    C = len(chunks)
+    N = _pad_len(max(c.data.size for c in chunks) + S.PAD_MARGIN)
+    text_h = np.zeros((C, N), dtype=np.uint8)
+    for i, c in enumerate(chunks):
+        text_h[i, : c.data.size] = c.data
+    n_h = np.array([c.data.size for c in chunks], dtype=np.int32)
+    t0 = time.perf_counter()
+    multihost.initialize('file://' + os.path.join(d, 'pg_rendezvous'), 1, 0,
+                         backend)
+    init_s = time.perf_counter() - t0
+    out = {'rows': C, 'n_pad': N, 'init_s': init_s}
+    try:
+        mesh = M.make_mesh(dev)
+        check(mesh.distributed and mesh.world == 1 and mesh.size == 1,
+              f'a 1-process {backend} mesh')
+        text = torch.from_numpy(text_h).to(dev)
+        n = torch.from_numpy(n_h).to(dev)
+        del text_h
+        packed_np, lengths_np = S.pack_patterns(pats)
+        patterns = torch.from_numpy(packed_np).to(dev)
+        lengths = torch.from_numpy(lengths_np).to(dev)
+        log(f'scale-out: {C} rows x N_pad {N} ({C * N / 1e9:.2f} GB of text, '
+            f'{4 * C * N / 1e9:.2f} GB of SA), {len(pats)} patterns, '
+            f'{backend} group of 1 in {init_s:.2f} s')
+
+        # ---- the path, launch counts from 0 ----
+        kernels.reset_launches()
+        sa, build_s = wall_s(lambda: sharded.make_sharded_build(mesh)(text,
+                                                                      n))
+        gathered, probe_s = wall_s(lambda: sharded.make_sharded_probe(mesh)(
+            text, n, sa, patterns, lengths))
+        (bounds, totals), step_s = wall_s(lambda: sharded.make_full_step(
+            mesh)(text, n, patterns, lengths))
+        launches = dict(kernels.LAUNCHES)
+        for name in PARALLEL_KERNELS:
+            check(launches[name] > 0, f'the scale-out path launched {name}')
+        check(launches['probe_bytes'] == 2 and
+              launches['sa_full_init_bytes'] == 2 * C,
+              f'one B15 launch a probe and B9 once a row a build ({launches})')
+        log(f'scale-out path: sharded build {build_s:.2f} s '
+            f'({C / build_s:.2f} rows/s), sharded probe {probe_s * 1e3:.2f} '
+            f'ms wall, full step {step_s:.2f} s; launches '
+            f'{ {k: launches[k] for k in PARALLEL_KERNELS} }')
+
+        # ---- checks ----
+        for i, c in enumerate(chunks):
+            m = c.data.size
+            want = torch.from_numpy(np.array(c.suffix_array,
+                                             dtype=np.int32)).to(dev)
+            check(torch.equal(sa[i, :m], want),
+                  f'row {i}: the sharded build\'s SA equals native SA-IS')
+        del want
+        lo, cnt = gathered[..., 0], gathered[..., 1]
+        up_lo, up_cnt = upload_bounds
+        cnt_h = cnt.cpu().numpy()
+        check(np.array_equal(cnt_h, up_cnt),
+              'every B15 count equals K4\'s upload count, row by row')
+        hit = up_cnt > 0
+        check(np.array_equal(lo.cpu().numpy()[hit], up_lo[hit]),
+              'B15 lower bounds equal K4\'s wherever a pattern hits')
+        check(torch.equal(bounds, gathered),
+              'the full step\'s bounds equal the sharded probe\'s')
+        check(torch.equal(totals, cnt.sum(0).to(torch.int32)),
+              'the full step\'s totals are the column sums')
+        lo_p, cnt_p = S.probe_bytes_plain(text, n, sa, patterns, lengths)
+        e = max(err(lo_p, lo), err(cnt_p, cnt))
+        del lo_p, cnt_p
+        log(f'every row\'s SA equals native SA-IS; {int(cnt_h.sum())} suffix '
+            f'hits, counts equal K4\'s; the full step agrees')
+
+        entries = []
+        entry = kernel_check('', entries, launches)
+        lens = lengths_np.astype(np.int64).clip(0, packed_np.shape[1])
+        B = len(pats)
+        # Patterns and lengths read, bounds written, and for every (row,
+        # pattern) the two boundary suffixes each bisection ends on: their
+        # SA entries and as many text bytes as the pattern.
+        nbytes = (packed_np.size + 4 * B + 4 * C + 8 * C * B
+                  + 2 * C * int((4 + lens).sum()))
+        args = (text, n, sa, patterns, lengths)
+        entry('probe_bytes', f'{JAX_SEARCH}:265', SEARCH_SRC, e,
+              cuda_ms(lambda: S.probe_bytes(*args), 10),
+              cuda_ms(lambda: S.probe_bytes_plain(*args), 1), nbytes)
+        local = sharded.make_sharded_probe(mesh, gather=False)(*args)
+        gather_ms = cuda_ms(lambda: M.all_gather_rows(local, mesh), 10)
+        part = totals.clone()
+        reduce_ms = cuda_ms(lambda: M.all_reduce_sum(part, mesh), 10)
+        row_s = [wall_s(lambda: sharded.build_chunks(text[i: i + 1],
+                                                     n[i: i + 1]))[1]
+                 for i in (0, C - 1)]
+        log(f'collectives ({backend}, world 1): all_gather of the [{C}, {B}, '
+            f'2] bounds {gather_ms:.4f} ms, all_reduce of the [{B}] totals '
+            f'{reduce_ms:.4f} ms; B9 alone on row 0 {row_s[0]:.3f} s, on row '
+            f'{C - 1} {row_s[1]:.3f} s')
+        out.update({'kernels': entries, 'launches': {
+            k: launches[k] for k in PARALLEL_KERNELS}, 'build_s': build_s,
+            'build_rows_per_s': C / build_s, 'probe_wall_s': probe_s,
+            'full_step_s': step_s, 'all_gather_ms': gather_ms,
+            'all_reduce_ms': reduce_ms, 'b9_row_s': row_s,
+            'hits': int(cnt_h.sum())})
+        del sa, gathered, bounds, totals, local, lo, cnt, text, n
+        del patterns, lengths
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- ShardedReader on this card ----
+        sub = pats[:SHARD_PATTERNS]
+        strs = [p.decode('latin-1') for p in sub]
+        t0 = time.perf_counter()
+        sr = ShardedReader(idx_path, mesh)
+        check(sr.wait_device_ready(), 'ShardedReader device index ready')
+        ready_s = time.perf_counter() - t0
+        sidx = sr._index
+        check(isinstance(sidx, ShardedIndex) and len(sidx.parts) == 1
+              and sidx.mode == 'derive' and sidx.merged
+              and sr._C == sr._num_real,
+              f'ShardedReader: one placement, derive over merged rows '
+              f'({sr._C} rows)')
+        res, sm_s = wall_s(lambda: sr.search_multiple(strs))
+        off = 0
+        for i, want in enumerate(ref):
+            check(collections.Counter(res[off: off + len(want)])
+                  == collections.Counter(want),
+                  f'ShardedReader lines of pattern {i} equal the single '
+                  'Reader\'s')
+            off += len(want)
+        check(off == len(res), 'ShardedReader returned no extra lines')
+        log(f'ShardedReader on {[str(x) for x in mesh.devices]}: ready in '
+            f'{ready_s:.2f} s, {sr._C} rows, search_multiple of {len(sub)} '
+            f'patterns {sm_s:.2f} s, {len(res)} lines equal the single '
+            'Reader\'s pattern by pattern')
+        out['sharded_reader'] = {'ready_s': ready_s,
+                                 'search_multiple_s': sm_s,
+                                 'lines': len(res)}
+        del sr, sidx, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    shards = os.path.join(d, 'shards')
+    manifest.convert_index(idx_path, shards, 2)
+    out['multihost'] = run_multihost(shards, sub, ref, d, dev)
+    out['cli'] = run_cli(idx_path, sub, ref, shards, d)
+    import shutil
+
+    shutil.rmtree(shards)
+    return out
 
 
 if __name__ == '__main__':

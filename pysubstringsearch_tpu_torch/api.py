@@ -467,9 +467,10 @@ class Reader:
         if not cnt_r.any():
             return {}
         with self._prof.phase('x-dev-gather'):
+            sa_r = idx.row_sa(r)
             pos_d, qid_d = search_ops.gather_hits_flat(
-                idx.sa[r], torch.as_tensor(lo_r, device=idx.device),
-                torch.as_tensor(cnt_r, device=idx.device),
+                sa_r, torch.as_tensor(lo_r, device=sa_r.device),
+                torch.as_tensor(cnt_r, device=sa_r.device),
             )
             pos = pos_d.cpu().numpy().astype(np.int64)
             qid = qid_d.cpu().numpy().astype(np.int64)

@@ -2,8 +2,8 @@
 // turn (text, SA) into limb planes and a seed table (K1-K3 for rank digits,
 // K5-K7 with K3 for raw bytes, K7 with K3 and the digit limb planes for
 // base-258 digits), the probes that answer a query batch against them (K4
-// phased, B11 over digit limbs), and the flat gather of a merged row's
-// hits.
+// phased, B11 over digit limbs, B15 over bare text and SA), and the gathers
+// of hits (B8 flat for a merged row, B15 capped per query).
 //
 // Built by pysubstringsearch_tpu_torch/ops/kernels.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -c ... && nvcc -shared
@@ -482,6 +482,80 @@ __global__ void gather_hits_flat_kernel(const int* __restrict__ sa,
   }
 }
 
+// ---------------------------------------------------------------------------
+// B15, the byte-window bisection probe.  Replaces probe_bounds (unrolled)
+// and probe_bounds_loop (while_loop) with _duplex, _bisect_first_geq and
+// _cmp3 (pysubstringsearch_tpu/ops/search.py), vmapped over the rows by
+// parallel/sharded.py's _probe_chunks.  The two JAX forms compute the same
+// bounds, so this one kernel serves both names.
+//
+// No seed table and no limbs: the rows are bare (text, SA) pairs, as the
+// chunk-parallel build leaves them.  One thread per (row, pattern) runs both
+// lanes of the JAX duplex with K4's byte compare (cmp3): lower = first slot
+// in [0, n) whose suffix compares >= 0 with the pattern (a suffix that
+// starts with it compares 0), upper = first slot that compares >= 1.  cmp3
+// never decreases along the SA, so the upper search starts at lower and
+// the answer is the JAX one.  A byte at or past the row's own n ranks 0,
+// below every real byte (b + 1), so no thread reads past n into the next
+// row; the empty pattern counts n, an empty row 0.  A length past L
+// compares L bytes, as the JAX mask does.  Row offsets are 64-bit.  Bound
+// by latency: each bisection step is a dependent 4-byte SA read and a
+// scattered read of up to L text bytes; the first steps of every thread hit
+// the same few slots and stay in L2.
+// ---------------------------------------------------------------------------
+__global__ void probe_bytes_kernel(const uint8_t* __restrict__ text,
+                                   const int* __restrict__ n_rows,
+                                   const int* __restrict__ sa,
+                                   const uint8_t* __restrict__ patterns,
+                                   const int* __restrict__ lengths, int B,
+                                   int L, long long n_pad,
+                                   int* __restrict__ lower_out,
+                                   int* __restrict__ count_out) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const long long r = blockIdx.y;
+  const int n = n_rows[r];
+  const uint8_t* row_text = text + r * n_pad;
+  const int* row_sa = sa + r * n_pad;
+  int len = lengths[b];
+  len = len < 0 ? 0 : (len > L ? L : len);
+  const Lane p{patterns + static_cast<long long>(b) * L, len, L};
+  const int lower = first_cmp(row_text, row_sa, n, 0, n, p, 0);
+  const int upper = first_cmp(row_text, row_sa, n, lower, n, p, 1);
+  lower_out[r * B + b] = lower;
+  count_out[r * B + b] = upper - lower;
+}
+
+// ---------------------------------------------------------------------------
+// B15, the capped hit gather.  Replaces _gather_hits_jit /
+// gather_hit_positions (pysubstringsearch_tpu/ops/search.py).
+//
+// out[b * c + off] = sa[clip(lower[b] + off, 0, N - 1)] for off < count[b],
+// else -1; c = min(cap, N) columns.  One thread per output element: bound
+// by memory, 4 bytes written and at most 4 read per element, coalesced
+// along each query's SA range.
+// ---------------------------------------------------------------------------
+__global__ void gather_hit_positions_kernel(const int* __restrict__ sa,
+                                            const int* __restrict__ lower,
+                                            const int* __restrict__ count,
+                                            long long B, long long N, int c,
+                                            int* __restrict__ out) {
+  const long long total = B * c;
+  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       e < total; e += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long b = e / c;
+    const int off = static_cast<int>(e - b * c);
+    if (off < count[b]) {
+      long long s = static_cast<long long>(lower[b]) + off;
+      s = s < 0 ? 0 : (s > N - 1 ? N - 1 : s);
+      out[e] = sa[s];
+    } else {
+      out[e] = -1;
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -604,6 +678,32 @@ int pss_gather_hits_flat(const void* sa, const void* lower, const void* count,
   gather_hits_flat_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const int*)sa, (const int*)lower, (const int*)count,
       (const int*)offsets, B, (int*)pos, (int*)qid);
+  return (int)cudaGetLastError();
+}
+
+int pss_probe_bytes(const void* text, const void* n_rows, const void* sa,
+                    const void* patterns, const void* lengths, int C, int B,
+                    int L, long long n_pad, void* lower, void* count,
+                    void* stream) {
+  if (C <= 0 || B <= 0) return 0;
+  if (C > 65535 || L < 0) return (int)cudaErrorInvalidValue;
+  dim3 grid((B + kProbeThreads - 1) / kProbeThreads, C);
+  probe_bytes_kernel<<<grid, kProbeThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)text, (const int*)n_rows, (const int*)sa,
+      (const uint8_t*)patterns, (const int*)lengths, B, L, n_pad,
+      (int*)lower, (int*)count);
+  return (int)cudaGetLastError();
+}
+
+int pss_gather_hit_positions(const void* sa, const void* lower,
+                             const void* count, long long B, long long N,
+                             int c, void* out, void* stream) {
+  if (B <= 0 || c <= 0) return 0;
+  unsigned grid = blocks_for(B * c);
+  if (grid > 65536u * 16u) grid = 65536u * 16u;
+  gather_hit_positions_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int*)sa, (const int*)lower, (const int*)count, B, N, c,
+      (int*)out);
   return (int)cudaGetLastError();
 }
 

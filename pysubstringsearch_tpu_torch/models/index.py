@@ -116,10 +116,23 @@ class DeviceIndex:
         aligned host arrays), derive ``index-merge`` (the host
         concatenation of merged rows) and ``index-sa`` (B1 and B2 per
         row)."""
+        prof = profiler if profiler is not None else PhaseProfiler()
+        self._plan(chunks, device, mode, merge, num_limbs, prof)
+        self._build(chunks, prof)
+
+    def _plan(self, chunks: typing.Sequence[Chunk], device, mode: str,
+              merge: typing.Optional[bool], num_limbs: typing.Optional[int],
+              prof: PhaseProfiler, shares: int = 1) -> None:
+        """Everything decided over all chunks before any row is built: the
+        kind, mode, rows (``groups``, ``row_data``, geometry), table
+        parameters, ``n_pad``, ``num_limbs`` and the rank maps.  With
+        ``shares`` > 1 the rows are padded with empty ones (n = 0, no
+        source chunk, never a hit) to a multiple of ``shares``, and the
+        limb budget meters one share of them, as the JAX index does for a
+        mesh."""
         if mode not in ('auto', 'upload', 'derive'):
             raise ValueError(f'unknown DeviceIndex mode: {mode!r}')
         self.device = torch.device(device)
-        prof = profiler if profiler is not None else PhaseProfiler()
         self.num_source_chunks = len(chunks)
         # Limb encoding: rank-packed digits for alphabets of at most 62
         # bytes (NUL-safe), raw 4-byte packing for larger NUL-free ones,
@@ -155,6 +168,9 @@ class DeviceIndex:
         else:
             self.groups = [[i] for i in range(len(chunks))]
             self.row_data = [c.data for c in chunks]
+        while self.groups and len(self.groups) % shares:
+            self.groups.append([])
+            self.row_data.append(np.zeros(0, dtype=np.uint8))
         self._set_geometry([[chunks[i].data.size for i in g]
                             for g in self.groups])
         max_n = max([d.size for d in self.row_data] + [1])
@@ -172,13 +188,36 @@ class DeviceIndex:
         self.present = torch.as_tensor(pres.astype(np.int32),
                                        device=self.device)
         self.num_limbs = (
-            self._auto_num_limbs() if num_limbs is None else num_limbs
+            self._auto_num_limbs(shares) if num_limbs is None else num_limbs
         )
-        C, n_pad = self.num_chunks, self.n_pad
         self.lengths = torch.as_tensor(
             np.array([d.size for d in self.row_data], dtype=np.int32),
             device=self.device,
         )
+
+    def _part(self, rows: slice, device) -> 'DeviceIndex':
+        """An unbuilt index of this plan's rows ``rows`` on ``device``: the
+        plan's kind, tables, ``n_pad`` and limbs, its own rows' groups and
+        geometry.  :meth:`_build` then fills its arrays."""
+        part = DeviceIndex.__new__(DeviceIndex)
+        part.__dict__.update(self.__dict__)
+        part.device = torch.device(device)
+        part.groups = self.groups[rows]
+        part.row_data = self.row_data[rows]
+        part.boundaries = self.boundaries[rows]
+        part.group_offsets = self.group_offsets[rows]
+        part.num_chunks = len(part.groups)
+        part.merged = any(len(g) > 1 for g in part.groups)
+        part.lengths = self.lengths[rows].to(part.device)
+        part.rank = self.rank.to(part.device)
+        part.present = self.present.to(part.device)
+        return part
+
+    def _build(self, chunks: typing.Sequence[Chunk],
+               prof: PhaseProfiler) -> None:
+        """The planned rows' arrays on the device: text and SA (uploaded,
+        or the SA derived), then limb planes and seed tables."""
+        C, n_pad = self.num_chunks, self.n_pad
         #: Tie count m of every B2 round, per row (derive mode).
         self.sa_ties: typing.List[typing.List[int]] = []
         with prof.phase('index-alloc'):
@@ -187,7 +226,7 @@ class DeviceIndex:
             self.sa = torch.zeros((C, n_pad), dtype=torch.int32,
                                   device=self.device)
             self._sync()
-        if mode == 'derive':
+        if self.mode == 'derive':
             self._derive_sa(prof)
         else:
             self._upload(chunks, prof)
@@ -213,7 +252,10 @@ class DeviceIndex:
 
     def _upload(self, chunks: typing.Sequence[Chunk],
                 prof: PhaseProfiler) -> None:
-        for i, c in enumerate(chunks):
+        for i, g in enumerate(self.groups):
+            if not g:  # a padding row stays empty
+                continue
+            c = chunks[g[0]]
             with prof.phase('index-host-copy'):
                 # np.array: an aligned, writable copy of the container's
                 # mmap view (its SA view is generally unaligned).
@@ -231,6 +273,9 @@ class DeviceIndex:
         derive the SA into ``sa[i]``.  The limb planes are allocated only
         after this pass, once every row's SA-build scratch is freed."""
         for i, d in enumerate(self.row_data):
+            if d.size == 0:  # a padding row keeps its zero SA
+                self.sa_ties.append([])
+                continue
             with prof.phase('index-h2d'):
                 # Singleton rows are the container's read-only mmap views,
                 # which torch cannot wrap; merged rows are fresh arrays.
@@ -293,19 +338,26 @@ class DeviceIndex:
         cls,
         arrays: typing.Mapping[str, np.ndarray],
         meta: typing.Mapping[str, typing.Any],
-        device: typing.Union[str, torch.device] = 'cpu',
+        device: typing.Union[str, torch.device] = 'cuda',
     ) -> 'DeviceIndex':
         """An index over state built elsewhere (the JAX package's index,
         read back as numpy).  ``arrays``: ``text``, ``lengths``, ``sa``,
         ``tables``, ``limbs``, ``rank``, ``present``; ``meta``: ``kind``,
         ``bits``, ``base``, ``depth``, ``num_limbs``, and for merged rows
         ``mode``, ``groups`` (the source chunks of every row) and
-        ``boundaries`` (their interior end offsets in the row)."""
+        ``boundaries`` (their interior end offsets in the row).  The
+        arrays go to ``device``, the CUDA card unless the caller names
+        another; without one, ``'cuda'`` raises."""
         if meta['kind'] not in ('ranked', 'raw', 'digit'):
             raise ValueError(f"unknown index kind: {meta['kind']!r}")
         self = cls.__new__(cls)
         self.mode = meta.get('mode', 'upload')
         self.device = torch.device(device)
+        if self.device.type == 'cuda' and not torch.cuda.is_available():
+            raise RuntimeError(
+                "DeviceIndex.from_arrays(device='cuda') needs a CUDA device; "
+                "pass device='cpu' to run the plain PyTorch kernels"
+            )
 
         def put(name, dtype):
             # A copy: the caller's arrays may be read-only views.
@@ -341,7 +393,7 @@ class DeviceIndex:
         self.num_source_chunks = sum(len(g) for g in self.groups)
         return self
 
-    def _auto_num_limbs(self) -> int:
+    def _auto_num_limbs(self, shares: int = 1) -> int:
         """Most limb planes (at most RAW_LIMBS, or KEY_LIMBS for the digit
         kind; at least 1) whose footprint fits the device.  Resident per
         row: text (1 B) + SA (4 B) + one int32 per plane per slot, plus the
@@ -349,8 +401,10 @@ class DeviceIndex:
         ranked pack, or the raw kind's prefix values and then its pack, or
         the digit kind's K7 values), and in derive mode one row's SA-build
         scratch (sort keys, values and their double buffers, the working
-        rank and group starts; ops/suffix_array.SA_BUILD_BYTES_PER_SLOT)."""
-        C = max(self.num_chunks, 1)
+        rank and group starts; ops/suffix_array.SA_BUILD_BYTES_PER_SLOT).
+        With rows split over ``shares`` devices, each device's share of
+        the rows is metered."""
+        C = max(self.num_chunks // shares, 1)
         table_bytes = 4 * (self._base ** self._depth + 1)
         fixed = C * (5 * self.n_pad + table_bytes) + 4 * self.n_pad
         if self.mode == 'derive':
@@ -359,6 +413,10 @@ class DeviceIndex:
         cap = (search_ops.KEY_LIMBS if self.kind == 'digit'
                else search_ops.RAW_LIMBS)
         return int(max(1, min(cap, fit)))
+
+    def row_sa(self, r: int) -> torch.Tensor:
+        """Row ``r``'s int32 [n_pad] SA on its device."""
+        return self.sa[r]
 
     def boundary_crossings(self, patterns: np.ndarray,
                            lengths: np.ndarray) -> np.ndarray:

@@ -70,6 +70,12 @@ _SIGNATURES: typing.Dict[str, list] = {
                         _I, _P, _P, _P],
     # sa, lower, count, offsets, B, pos, qid, stream
     'pss_gather_hits_flat': [_P, _P, _P, _P, _I, _P, _P, _P],
+    # text, n, sa, patterns, lengths, C, B, L, n_pad, lower, count, stream
+    'pss_probe_bytes': [_P, _P, _P, _P, _P, _I, _I, _I, _L, _P, _P, _P],
+    # sa, lower, count, B, N, cap columns, out, stream
+    'pss_gather_hit_positions': [_P, _P, _P, _L, _L, _I, _P, _P],
+    # text, sa, n, primary, u, stream
+    'pss_bwt_from_sa': [_P, _P, _L, _P, _P, _P],
     # in, out, n, scratch, stream
     'pss_scan_exclusive_sum': [_P, _P, _L, _P, _P],
     'pss_scan_inclusive_max': [_P, _P, _L, _P, _P],

@@ -102,6 +102,8 @@ def _load() -> typing.Optional[ctypes.CDLL]:
         lib.tpuss_build_sa_i32.restype = ctypes.c_int32
         lib.tpuss_build_sa_i32.argtypes = [i32p, ctypes.c_int32,
                                            ctypes.c_int32, i32p]
+        lib.tpuss_unbwt.restype = ctypes.c_int32
+        lib.tpuss_unbwt.argtypes = [u8p, ctypes.c_int32, ctypes.c_int32, u8p]
         lib.tpuss_probe_batch.restype = ctypes.c_int32
         lib.tpuss_probe_batch.argtypes = [
             u8p, ctypes.c_int32, i32p, u8p, i32p, ctypes.c_int32,
@@ -250,3 +252,20 @@ def probe_batch_native(
     if rc != 0:
         raise RuntimeError(f'native probe_batch failed with code {rc}')
     return lo, cnt
+
+
+def unbwt_native(u: np.ndarray, primary_index: int) -> np.ndarray:
+    """Inverse BWT via the native LF walk (``libsais_unbwt`` parity);
+    raises if the library is unavailable or the primary index is bad."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError('native unbwt is not available')
+    u = np.ascontiguousarray(u, dtype=np.uint8)
+    out = np.empty(u.size, dtype=np.uint8)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    rc = lib.tpuss_unbwt(u.ctypes.data_as(u8p), ctypes.c_int32(u.size),
+                         ctypes.c_int32(primary_index),
+                         out.ctypes.data_as(u8p))
+    if rc != 0:
+        raise RuntimeError(f'native unbwt failed with code {rc}')
+    return out

@@ -41,7 +41,11 @@ The device functions that carry the index are CUDA kernels
 - :func:`probe_phased`  (K4): the phased probe;
 - :func:`probe_limbs`   (B11): the digit kind's probe;
 - :func:`gather_hits_flat` (B8): a merged row's hits as flat (position,
-  query) pairs.
+  query) pairs;
+- :func:`probe_bytes` (B15): the byte-window bisection over bare (text,
+  SA) rows, also as :func:`probe_bounds` / :func:`probe_bounds_loop`, with
+  :func:`build_bucket_table` (K7 and K3 again) and the capped gather
+  :func:`gather_hit_positions`.
 
 Each wrapper takes its plain version only for a tensor on the CPU.  On a
 CUDA tensor it launches the kernel or raises.
@@ -1060,3 +1064,160 @@ def gather_hits_flat(sa_row: torch.Tensor, lower: torch.Tensor,
                        offsets.data_ptr(), B, pos.data_ptr(),
                        qid.data_ptr())
     return pos, qid
+
+
+# ---------------------------------------------------------------------------
+# B15: the byte-window probe, bucket table and capped gather over bare
+# (text, SA) rows, as the chunk-parallel programs (parallel/sharded.py) use
+# them
+# ---------------------------------------------------------------------------
+
+def _cmp3_rows(text, n, sa, slots, p1, jmask):
+    """The JAX ``_cmp3`` for lanes [M] against rows [C]: int64 [C, M], -1
+    where the suffix at SA slot ``slots[r, m]`` (clipped to [0, n - 1]) is
+    below pattern m, 0 where it starts with it, +1 above.  ``p1`` int64
+    [M, L] is the pattern bytes + 1, 0 outside ``jmask``."""
+    C, N = text.shape
+    M, L = p1.shape
+    c = torch.minimum(slots.clamp(min=0), (n - 1).clamp(min=0)[:, None])
+    starts = sa.gather(1, c).long()
+    pos = starts[..., None] + torch.arange(L, device=text.device)
+    byte = text.gather(1, pos.clamp(0, N - 1).reshape(C, -1))
+    s = torch.where(pos < n[:, None, None], byte.reshape(C, M, L).long() + 1,
+                    0)
+    d = torch.sign(s - p1[None]) * jmask[None]
+    first = (d != 0).to(torch.int32).argmax(-1, keepdim=True)
+    return d.gather(-1, first).squeeze(-1)
+
+
+def probe_bytes_plain(text, n, sa, patterns, lengths):
+    """Plain version of B15: (lower, count) int32 [C, B], the JAX duplex
+    (``_duplex`` and ``_bisect_first_geq`` over ``_cmp3``), all [C, 2B]
+    lanes of a block of rows at once: lanes [0, B) bisect [0, n) for the
+    first slot comparing >= 0, lanes [B, 2B) for the first comparing >= 1;
+    count is their difference."""
+    C, N = text.shape
+    B, L = patterns.shape
+    dev = text.device
+    if L == 0:  # every pattern is empty; one zero column compares alike
+        patterns = torch.zeros((B, 1), dtype=torch.uint8, device=dev)
+        L = 1
+    jmask = (torch.arange(L, device=dev)[None, :]
+             < lengths.long().clamp(0, L)[:, None])
+    p1 = torch.where(jmask, patterns.long() + 1, 0)
+    p1, jmask = torch.cat([p1, p1]), torch.cat([jmask, jmask])
+    thresholds = torch.cat([torch.zeros(B, dtype=torch.int64, device=dev),
+                            torch.ones(B, dtype=torch.int64, device=dev)])
+    nrow = n.long()
+    lower = torch.empty((C, B), dtype=torch.int32, device=dev)
+    count = torch.empty((C, B), dtype=torch.int32, device=dev)
+    step = max(1, (1 << 24) // max(1, 2 * B * L))  # rows per block
+    for r0 in range(0, C, step):
+        t, s, nn = text[r0: r0 + step], sa[r0: r0 + step], nrow[r0: r0 + step]
+        lo = torch.zeros((t.shape[0], 2 * B), dtype=torch.int64, device=dev)
+        hi = nn[:, None].expand(-1, 2 * B).clone()
+        bounds = _first_true(
+            lo, hi, lambda m: _cmp3_rows(t, nn, s, m, p1, jmask) >= thresholds)
+        lower[r0: r0 + step] = bounds[:, :B]
+        count[r0: r0 + step] = bounds[:, B:] - bounds[:, :B]
+    return lower, count
+
+
+def probe_bytes(text, n, sa, patterns, lengths):
+    """B15, the byte-window bisection probe: (lower, count) int32 [C, B]
+    for uint8 [C, N] rows of true lengths n int32 [C] with head-aligned SA
+    int32 [C, N] (real entries in [0, n)), and a batch of uint8 [B, L]
+    zero-padded patterns of int32 [B] lengths, in one launch.  The empty
+    pattern counts n, an empty row 0, and no row is read past its own n.
+    This is the vmapped form of the JAX ``probe_bounds_loop``; see
+    :func:`probe_bytes_plain` for the semantics."""
+    C, N = text.shape
+    B, L = patterns.shape
+    if not kernels.route(text, n, sa, patterns, lengths):
+        return probe_bytes_plain(text, n, sa, patterns, lengths)
+    for t, name, dt, nd in (
+        (text, 'text', torch.uint8, 2), (n, 'n', torch.int32, 1),
+        (sa, 'sa', torch.int32, 2), (patterns, 'patterns', torch.uint8, 2),
+        (lengths, 'lengths', torch.int32, 1),
+    ):
+        kernels.check(t, name, dt, nd)
+    if sa.shape != (C, N) or n.shape[0] != C or lengths.shape[0] != B:
+        raise ValueError('probe_bytes: bad shapes')
+    lower = torch.empty((C, B), dtype=torch.int32, device=text.device)
+    count = torch.empty((C, B), dtype=torch.int32, device=text.device)
+    if C == 0 or B == 0:
+        return lower, count
+    with torch.cuda.device(text.device):
+        kernels.launch('probe_bytes', text.data_ptr(), n.data_ptr(),
+                       sa.data_ptr(), patterns.data_ptr(),
+                       lengths.data_ptr(), C, B, L, N, lower.data_ptr(),
+                       count.data_ptr())
+    return lower, count
+
+
+def probe_bounds(text, n, sa, patterns, lengths):
+    """(lower, count) int32 [B] of a pattern batch against one row: the
+    JAX single-row signature (text uint8 [N], n, sa int32 [N]), B15 with
+    C = 1 (:func:`probe_bytes`)."""
+    nt = torch.as_tensor([int(n)], dtype=torch.int32, device=text.device)
+    lower, count = probe_bytes(text[None], nt, sa[None], patterns, lengths)
+    return lower[0], count[0]
+
+
+#: The JAX loop form computes the same bounds as the unrolled one; B15
+#: serves both names.
+probe_bounds_loop = probe_bounds
+
+
+def build_bucket_table(text: torch.Tensor, n: int, sa: torch.Tensor,
+                       depth: int = 2) -> torch.Tensor:
+    """B15's bucket table, the JAX ``build_bucket_table``: int32
+    [258^depth + 1], entry k the first SA slot whose ``depth``-digit
+    base-258 prefix (byte + 1, 0 at or past n) is >= k, or n, for a padded
+    uint8 [N] row and its padded SA [N].  The same function as the digit
+    kind's :func:`digit_bucket_table` (K7 with ``identity_rank()``, then
+    K3), so no kernel of its own.  The row must carry ``depth - 1`` bytes
+    of margin past n, as the index's rows do: without it the JAX version
+    clips its windows and reads other bytes."""
+    n = int(n)
+    if n > 0 and n + depth - 1 > text.shape[0]:
+        raise ValueError('build_bucket_table: the row needs depth - 1 bytes '
+                         'of margin past n')
+    return digit_bucket_table(text, sa, n, depth)
+
+
+def gather_hit_positions_plain(sa: torch.Tensor, lower: torch.Tensor,
+                               count: torch.Tensor, cap: int) -> torch.Tensor:
+    """Plain version of B15's capped gather: int32 [B, min(cap, N)], entry
+    (b, off) the text position at SA slot ``lower[b] + off`` (clipped to
+    [0, N - 1]) for off < count[b], else -1."""
+    N = sa.shape[0]
+    off = torch.arange(min(cap, N), device=sa.device)[None, :]
+    slot = (lower.long()[:, None] + off).clamp(0, max(N - 1, 0))
+    return torch.where(off < count.long()[:, None], torch.take(sa, slot),
+                       -1).to(torch.int32)
+
+
+def gather_hit_positions(sa: torch.Tensor, lower: torch.Tensor,
+                         count: torch.Tensor, cap: int) -> torch.Tensor:
+    """B15, the capped hit gather: text positions of up to ``cap`` hits per
+    query from one row's int32 [N] SA and a batch's int32 [B] bounds, -1
+    padded, int32 [B, min(cap, N)] (see :func:`gather_hit_positions_plain`).
+    Replaces ``gather_hit_positions`` / ``_gather_hits_jit``."""
+    if not kernels.route(sa, lower, count):
+        return gather_hit_positions_plain(sa, lower, count, cap)
+    kernels.check(sa, 'sa', torch.int32, 1)
+    kernels.check(lower, 'lower', torch.int32, 1)
+    kernels.check(count, 'count', torch.int32, 1)
+    N, B = sa.shape[0], lower.shape[0]
+    if count.shape[0] != B:
+        raise ValueError('gather_hit_positions: lower and count differ')
+    c = min(int(cap), N)
+    out = torch.empty((B, max(c, 0)), dtype=torch.int32, device=sa.device)
+    if B == 0 or c <= 0:
+        return out
+    with torch.cuda.device(sa.device):
+        kernels.launch('gather_hit_positions', sa.data_ptr(),
+                       lower.data_ptr(), count.data_ptr(), B, N, c,
+                       out.data_ptr())
+    return out

@@ -1,0 +1,124 @@
+"""The 1-D mesh over the corpus-chunk axis, on ``torch.distributed``.
+
+The JAX package splits [C, ...] chunk-major arrays along axis 0 over a 1-D
+device ``Mesh`` (``P(CHUNK_AXIS)``), replicates the query batch, and joins
+per-chunk results with collectives.  Here a mesh is the process group the
+collectives run over, this process's rank in it and its size, and the
+devices this process places rows on: one for the chunk-parallel programs
+(parallel/sharded.py), which run one rank per device, or several for a
+single-process ``ShardedReader``.
+
+Rows split in contiguous blocks, as ``P(CHUNK_AXIS)`` splits axis 0: the
+row count is padded to a multiple of the mesh size with n = 0 rows (which
+never produce hits), and placement k owns rows ``[k * C / size, (k + 1) *
+C / size)``.  Collectives go over the mesh's group (NCCL for CUDA tensors,
+gloo for CPU tensors, as the group was made); without an initialised
+``torch.distributed`` the mesh is a world of one and they are the
+identity.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import typing
+
+import torch
+import torch.distributed as dist
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """``devices``: this process's row placements; ``group``: the process
+    group of the collectives (None: the default group); ``rank`` and
+    ``world``: this process's place in it; ``distributed``: whether
+    ``torch.distributed`` was initialised (else the collectives are the
+    identity)."""
+
+    devices: typing.Tuple[torch.device, ...]
+    group: typing.Any = None
+    rank: int = 0
+    world: int = 1
+    distributed: bool = False
+
+    @property
+    def size(self) -> int:
+        """Row placements over the whole mesh."""
+        return self.world * len(self.devices)
+
+    @property
+    def device(self) -> torch.device:
+        """This rank's one device (the chunk-parallel programs')."""
+        if len(self.devices) != 1:
+            raise ValueError(
+                f'the chunk-parallel programs run one device per rank; this '
+                f'mesh places rows on {len(self.devices)}'
+            )
+        return self.devices[0]
+
+
+def make_mesh(device: typing.Union[str, torch.device, typing.Sequence] =
+              'cuda', group=None) -> Mesh:
+    """The mesh of this process: ``device`` (one, or a sequence of row
+    placements) in ``group`` (None: the default group).  With
+    ``torch.distributed`` uninitialised it is a world of one, as the JAX
+    ``make_mesh()`` spans whatever devices exist.  A bare ``'cuda'`` in a
+    world of several ranks means this rank's card, ``cuda:<rank mod
+    device count>``."""
+    if isinstance(device, (str, torch.device)):
+        devices = (torch.device(device),)
+    else:
+        devices = tuple(torch.device(d) for d in device)
+    if not devices:
+        raise ValueError('a mesh needs at least one device')
+    if dist.is_available() and dist.is_initialized():
+        rank = dist.get_rank(group)
+        world = dist.get_world_size(group)
+        if (world > 1 and len(devices) == 1 and devices[0].type == 'cuda'
+                and devices[0].index is None):
+            devices = (torch.device('cuda',
+                                    rank % torch.cuda.device_count()),)
+        return Mesh(devices, group, rank, world, True)
+    if group is not None:
+        raise ValueError('a process group needs torch.distributed '
+                         'initialised')
+    return Mesh(devices)
+
+
+def pad_chunk_count(c: int, mesh: Mesh) -> int:
+    """Chunk count rounded up to a multiple of the mesh size (padding rows
+    carry n = 0 and never produce hits)."""
+    d = mesh.size
+    return -(-c // d) * d
+
+
+def rank_rows(c: int, mesh: Mesh) -> slice:
+    """This rank's contiguous block of ``c`` rows; ``c`` must be a multiple
+    of the world size (see :func:`pad_chunk_count`)."""
+    if c % mesh.world:
+        raise ValueError(
+            f'{c} rows do not split over {mesh.world} ranks; pad them to '
+            'pad_chunk_count'
+        )
+    per = c // mesh.world
+    return slice(mesh.rank * per, (mesh.rank + 1) * per)
+
+
+def all_gather_rows(local: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Every rank's [c, ...] block stacked in rank order, [world * c, ...],
+    on every rank (the JAX ``all_gather(..., tiled=True)``)."""
+    if not mesh.distributed:
+        return local
+    local = local.contiguous()
+    c = local.shape[0]
+    out = local.new_empty((mesh.world * c,) + tuple(local.shape[1:]))
+    dist.all_gather([out[i * c: (i + 1) * c] for i in range(mesh.world)],
+                    local, group=mesh.group)
+    return out
+
+
+def all_reduce_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum of ``x`` over the ranks, in place and returned (the JAX
+    ``psum``)."""
+    if mesh.distributed:
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=mesh.group)
+    return x

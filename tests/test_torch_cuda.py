@@ -465,3 +465,89 @@ def test_writer_auto_builds_on_card(cuda, tmp_path):
         assert launched == (big if backend == 'auto' else 0)
     with open(paths['auto'], 'rb') as f, open(paths['native'], 'rb') as g:
         assert f.read() == g.read()
+
+
+@pytest.mark.parametrize('size', [1, 70_000, 3_000_000])
+def test_probe_bytes_matches_plain(cuda, size):
+    """B15 over [C, N] rows (an empty one among them) equals its plain
+    version for every (row, pattern), lower bounds included, in one launch;
+    probe_bounds is its C = 1 case."""
+    bodies = [_body('nul', size, 11), _body('raw', max(size // 3, 1), 12),
+              np.zeros(0, np.uint8)]
+    N = _pad_len(max(b.size for b in bodies) + S.PAD_MARGIN)
+    text = torch.zeros((3, N), dtype=torch.uint8, device=cuda)
+    sa = torch.zeros((3, N), dtype=torch.int32, device=cuda)
+    for i, b in enumerate(bodies):
+        text[i, : b.size] = torch.from_numpy(b)
+        sa[i, : b.size] = torch.from_numpy(suffix_array_native(b))
+    n = torch.tensor([b.size for b in bodies], dtype=torch.int32,
+                     device=cuda)
+    pats = _patterns(bodies[:1], 3) if size > 100 else [b'', b'\n', b'a']
+    pats.append(bodies[0].tobytes()[:300] + b'x')  # longer than a row
+    packed, lengths = S.pack_patterns(pats)
+    p, l = torch.from_numpy(packed).to(cuda), torch.from_numpy(lengths).to(cuda)
+    before = kernels.LAUNCHES['probe_bytes']
+    lo, cnt = S.probe_bytes(text, n, sa, p, l)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES['probe_bytes'] == before + 1
+    lo_p, cnt_p = S.probe_bytes_plain(text, n, sa, p, l)
+    assert torch.equal(lo, lo_p) and torch.equal(cnt, cnt_p)
+    assert int(cnt[0, 0]) == bodies[0].size and int(cnt[2].abs().sum()) == 0
+    lo1, cnt1 = S.probe_bounds(text[0], bodies[0].size, sa[0], p, l)
+    assert torch.equal(lo1, lo[0]) and torch.equal(cnt1, cnt[0])
+
+
+@pytest.mark.parametrize('cap', [1, 64, 5000])
+def test_gather_hit_positions_matches_plain(cuda, cap):
+    body = _body('ranked', 200_000, 4)
+    N = _pad_len(body.size + S.PAD_MARGIN)
+    sa = torch.zeros(N, dtype=torch.int32, device=cuda)
+    sa[: body.size] = torch.from_numpy(suffix_array_native(body))
+    text = torch.zeros(N, dtype=torch.uint8, device=cuda)
+    text[: body.size] = torch.from_numpy(body)
+    packed, lengths = S.pack_patterns(_patterns([body], 5))
+    lo, cnt = S.probe_bounds(text, body.size, sa,
+                             torch.from_numpy(packed).to(cuda),
+                             torch.from_numpy(lengths).to(cuda))
+    before = kernels.LAUNCHES['gather_hit_positions']
+    out = S.gather_hit_positions(sa, lo, cnt, cap)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES['gather_hit_positions'] == before + 1
+    assert torch.equal(out, S.gather_hit_positions_plain(sa, lo, cnt, cap))
+    assert int((out >= 0).sum()) == int(cnt.clamp(max=cap).sum())
+
+
+@pytest.mark.parametrize('depth', [2, 3])
+def test_build_bucket_table_matches_plain(cuda, depth):
+    body = _body('raw', 300_000, 6)
+    N = _pad_len(body.size + S.PAD_MARGIN)
+    text = torch.zeros(N, dtype=torch.uint8, device=cuda)
+    text[: body.size] = torch.from_numpy(body)
+    sa = torch.zeros(N, dtype=torch.int32, device=cuda)
+    sa[: body.size] = torch.from_numpy(suffix_array_native(body))
+    table = S.build_bucket_table(text, body.size, sa, depth)
+    assert torch.equal(table, S.digit_bucket_table_plain(text, sa, body.size,
+                                                         depth))
+    assert np.array_equal(table.cpu().numpy(), S.build_bucket_table_host(
+        body, sa[: body.size].cpu().numpy(), depth))
+
+
+@pytest.mark.parametrize('size', [1, 2, 70_000, 3_000_000])
+def test_bwt_from_sa_device_matches_plain(cuda, size):
+    from pysubstringsearch_tpu_torch.ops import bwt as BWT
+    from pysubstringsearch_tpu_torch.ops.native import unbwt_native
+
+    body = _body('nul', size, 8)
+    sa_h = suffix_array_native(body)
+    text = torch.from_numpy(body).to(cuda)
+    sa = torch.from_numpy(sa_h).to(cuda)
+    before = kernels.LAUNCHES['bwt_from_sa']
+    u, p = BWT.bwt_from_sa_device(text, sa)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES['bwt_from_sa'] == before + 1
+    u_p, p_p = BWT.bwt_from_sa_device_plain(text, sa)
+    assert torch.equal(u, u_p) and int(p) == int(p_p) and p.dim() == 0
+    u_h, p_h = BWT.bwt_from_sa(body, sa_h)
+    assert np.array_equal(u.cpu().numpy(), u_h) and int(p) == p_h
+    if size > 1:
+        assert np.array_equal(unbwt_native(u.cpu().numpy(), int(p)), body)

@@ -25,7 +25,13 @@ def test_import_loads_no_jax():
     code = (
         'import json, sys; before = set(sys.modules); '
         'import pysubstringsearch_tpu_torch, '
-        'pysubstringsearch_tpu_torch.ops.kernels; '
+        'pysubstringsearch_tpu_torch.ops.kernels, '
+        'pysubstringsearch_tpu_torch.ops.bwt, '
+        'pysubstringsearch_tpu_torch.parallel.sharded, '
+        'pysubstringsearch_tpu_torch.parallel.multihost, '
+        'pysubstringsearch_tpu_torch.parallel.reader, '
+        'pysubstringsearch_tpu_torch.parallel.manifest, '
+        'pysubstringsearch_tpu_torch.__main__; '
         'print(json.dumps(sorted(set(sys.modules) - before)))'
     )
     proc = subprocess.run(
@@ -35,6 +41,7 @@ def test_import_loads_no_jax():
     assert proc.returncode == 0, proc.stderr
     loaded = json.loads(proc.stdout.strip().splitlines()[-1])
     assert 'pysubstringsearch_tpu_torch.api' in loaded
+    assert 'pysubstringsearch_tpu_torch.parallel.multihost' in loaded
     bad = [m for m in loaded if m.split('.')[0] in FORBIDDEN]
     assert not bad
 
