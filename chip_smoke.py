@@ -5,6 +5,12 @@ Run from the root of a checkout on a machine with a CUDA card:
 
     python3 chip_smoke.py            # 500 MB corpora, 10k + 200 patterns
 
+Every phase checks every pattern's count against the host path and runs
+its probe and gather kernels over the whole batch against their plain
+versions; it makes and checks lines (``search_multiple``) for its line
+batch: the first ``LINE_PATTERNS`` (2000) patterns with all its deep and
+odd ones.
+
 Phases (any failure raises and exits non-zero):
 
 1. print the torch / CUDA / nvcc versions and the card; build the CUDA
@@ -14,10 +20,11 @@ Phases (any failure raises and exits non-zero):
 3. the main path, with every kernel launch count set to 0 first:
    ``Reader(path)`` derives its index on the card over merged rows (text
    up, SA by B1 and B2, limbs and tables by K1-K3), ``wait_device_ready()``
-   must be True, ``search_multiple`` answers the 10k-pattern batch of
-   ``bench.py`` plus 200 patterns of 23-200 bytes (K4, then B8 on every
-   merged row), and ``search`` answers one pattern, which must launch K4
-   and B8 again; every kernel of the path must have launched;
+   must be True, ``search_multiple`` answers the line batch of the
+   10k-pattern batch of ``bench.py`` plus 200 patterns of 23-200 bytes (K4,
+   then B8 on every merged row), and ``search`` answers one pattern, which
+   must launch K4 and B8 again; every kernel of the path must have
+   launched;
 4. each kernel against its plain PyTorch version on the card, on the
    index's own tensors, equal exactly, both timed with CUDA events beside
    the kernel's bound (its inputs read once and outputs written once at
@@ -31,7 +38,8 @@ Phases (any failure raises and exits non-zero):
    at depth 2 and 3 against its plain version;
 5. the device path's answers against the host native path's: per-pattern
    counts summed over rows and chunks; the lines ``search_multiple``
-   returned in 3 against one timed ``HostServing.search`` of the batch,
+   returned in 3 against one timed ``HostServing.search`` of the line
+   batch,
    pattern by pattern (each pattern's block as long as the host's list and
    holding its lines as a multiset); ``_search_batch`` per pattern for a
    sample of 200; and one pattern across every container chunk boundary
@@ -92,7 +100,28 @@ Phases (any failure raises and exits non-zero):
     values at k = 2^20 against native; then B9's init and one round
     against their plain versions, timed, and the whole byte and integer
     doubling against plain;
-12. one JSON line of kernels (each with its launches on its path, error,
+12. the big-row derive (``bigrow``): the corpus of 2, made once, written by
+    the Writer at its defaults (one 512 MiB chunk, its SA built on the card
+    by B1b and B2, launch counts from 0) and checked against native SA-IS
+    of the corpus (run on a host thread since the corpus was made); then,
+    counts from 0, ``Reader(path)`` derives the
+    single row of N = 512 Mi through B10 (the 3-byte init and the windowed
+    passes, no B1, not poisoned; passes per round, m_w, ``index-sa`` and
+    the load's memory peak logged; the SA equal to the container's) and
+    answers the ranked batch (counts and lines against the host, one
+    ``search``, probe p50); B10's init, one pass and the whole doubler
+    against their plain versions on the row, timed beside their bounds and
+    one ``torch.sort`` of their keys; B1b + B2 on the same row, timed with
+    its memory peak, its SA equal; then a 400 MiB period-2 row (N = 416
+    Mi) in ``DeviceIndex(mode='derive')`` must be poisoned and re-derived
+    by B9 (SA equal to native SA-IS, also run on a host thread from the
+    start; time and peak logged), and a small
+    all-``a`` row must be poisoned in kernel and plain;
+13. B16 (``b16``): ``sort_bench`` at 2^24 and 2^26, launch counts from 0:
+    the scatter kernel equal to its plain version, timed beside its bound,
+    the plain and library scatters, one ``torch.sort`` of (key, value)
+    pairs and the port's ``radix_sort_pairs``;
+14. one JSON line of kernels (each with its launches on its path, error,
     time, plain time, bound and library-call time), the card's name and
     power limit, and the result line ``{"ok": true, "device": {...}}``
     last.
@@ -130,14 +159,33 @@ DIGIT_KERNELS = ('sa_init_bytes', 'sa_tie_scan', 'sa_refine_round',
                  'digit_limb_planes', 'probe_limbs', 'scan_exclusive_sum',
                  'gather_hits_flat')
 #: Entry points the Writer's device build launches (B1b and B2).
-WRITER_KERNELS = ('sa_init_bytes', 'sa_tie_scan', 'sa_refine_round',
-                  'sa_roll_front')
+WRITER_KERNELS = ('sa_init_bytes', 'sa_tie_scan', 'sa_refine_round')
+#: Entry points the big-row derive path launches: B10 and the ranked aux
+#: and probe (a single-chunk row extracts on the host, so no B8).
+BIGROW_KERNELS = ('sa_init3_bytes', 'sa_window_scan', 'sa_rotating_pass',
+                  'sa_roll_front', 'ranked_pack', 'ranked_limb_planes',
+                  'seed_table', 'probe_phased')
+#: Entry points a poisoned big row launches: B10 until the poison, then B9.
+FALLBACK_KERNELS = ('sa_init3_bytes', 'sa_window_scan', 'sa_full_init_bytes',
+                    'sa_full_round', 'sa_roll_front')
 #: Entry points of B9's paths: the 'full' build and the integer alphabet.
 B9_KERNELS = ('sa_full_init_bytes', 'sa_full_round')
 #: Entry points the scale-out path launches: B9 a row for the sharded
 #: build and the full step, B15 once for each probe.
 PARALLEL_KERNELS = ('sa_full_init_bytes', 'sa_full_round', 'sa_roll_front',
                     'probe_bytes')
+#: Bytes of the period-2 row that must poison B10 (N = 416 Mi, past
+#: SEGMENTED_MAX_N) and fall back to B9.
+POISON_ROW_BYTES = 400 << 20
+#: Patterns a phase makes and checks lines for (``line_batch``): the
+#: first of its batch, with all its deep and odd ones.  Every pattern's
+#: count is checked against the host, and the probe and gather kernels run
+#: over the whole batch against their plain versions; lines for the whole
+#: batch in every phase (about 22 M each) would take half the run's time
+#: limit on a slow host.
+LINE_PATTERNS = 2000
+#: The deep patterns (23-200 bytes) ``sample_patterns`` appends.
+DEEP_PATTERNS = 200
 #: Patterns (the first of the ranked batch) that ShardedReader,
 #: MultiHostReader and the CLI answer against the single Reader.
 SHARD_PATTERNS = 2000
@@ -298,6 +346,9 @@ def main() -> int:
     ap.add_argument('--seed', type=int, default=0, help='corpus seed')
     args = ap.parse_args()
 
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -342,9 +393,18 @@ def main() -> int:
             return out
 
         # ---- 2-7. the ranked corpus: derive main path, then upload ----
+        # Made once: the big-row phase writes the same bytes again.  Its
+        # native SA-IS references (of the corpus and of the poisoning row)
+        # run from now on, on two host threads beside every earlier phase.
+        t0 = time.perf_counter()
+        corpus = make_corpus(args.mb, args.seed)[0]
+        log(f'bench.make_corpus({args.mb}): {time.perf_counter() - t0:.1f} s')
+        adv = poison_row()
+        natives = ThreadPoolExecutor(max_workers=2)
+        refs = (natives.submit(timed_native, np.frombuffer(corpus, np.uint8)),
+                natives.submit(timed_native, adv))
         idx_path, result['index_build_s'], pats = build_container(
-            pss, lambda: make_corpus(args.mb, args.seed)[0], d, 'corpus',
-            args)
+            pss, lambda: corpus, d, 'corpus', args)
         result['derive'] = timed('ranked', lambda: run_derive(idx_path, pats,
                                                               dev))
         kernel_rows += result['derive'].pop('kernels')
@@ -375,6 +435,14 @@ def main() -> int:
                                                   dev))
         kernel_rows += result['b9'].pop('kernels')
         del chunk_datas
+        # ---- 12-13. the big-row derive (B10) and B16 ----
+        result['bigrow'] = timed('bigrow', lambda: run_bigrow(
+            corpus, adv, refs, pats, d, dev))
+        natives.shutdown()
+        kernel_rows += result['bigrow'].pop('kernels')
+        del corpus, adv, refs
+        result['b16'] = timed('b16', run_b16)
+        kernel_rows += result['b16'].pop('kernels')
     result['total_s'] = time.perf_counter() - t_start
     log('summary: ' + json.dumps(result))
     log(json.dumps({'kernels': kernel_rows}))
@@ -463,11 +531,17 @@ def sample_patterns(corpus, nq):
     return pats
 
 
-def check_answers(r, idx, pats, packed_np, lengths_np, res):
+def line_batch(pats, tail):
+    """The patterns a phase makes lines for: the first ``LINE_PATTERNS``
+    of its batch and its last ``tail`` (its deep and odd ones)."""
+    return pats[:LINE_PATTERNS] + pats[len(pats) - tail:]
+
+
+def check_answers(r, idx, pats, packed_np, lengths_np, res, lpats):
     """The device path's answers against the host native path's: counts
-    for every pattern; ``search_multiple``'s lines (``res``, the main
-    path's own output, pattern after pattern) against
-    ``HostServing.search`` of the batch, which is timed once here: the
+    for every pattern of ``pats``; ``search_multiple``'s lines for
+    ``lpats`` (``res``, the main path's own output, pattern after pattern)
+    against ``HostServing.search`` of them, which is timed once here: the
     total, then each pattern's block of ``res`` (as long as the host's list
     for it) holds the host's lines as a multiset, so every pattern's
     result length and lines equal the host's; and ``_search_batch`` per
@@ -492,10 +566,10 @@ def check_answers(r, idx, pats, packed_np, lengths_np, res):
     log(f'counts equal for all {cnt_h.shape[1]} patterns, '
         f'{int(cnt_h.sum())} suffix hits')
     t0 = time.perf_counter()
-    host_lists = hs.search(pats)
+    host_lists = hs.search(lpats)
     host_search_s = time.perf_counter() - t0
     host_lines = sum(map(len, host_lists))
-    log(f'HostServing.search({len(pats)}) on the host, one run: '
+    log(f'HostServing.search({len(lpats)}) on the host, one run: '
         f'{host_search_s:.3f} s, {host_lines} lines')
     check(len(res) == host_lines,
           f'search_multiple returned {len(res)} lines, the host path '
@@ -505,8 +579,9 @@ def check_answers(r, idx, pats, packed_np, lengths_np, res):
         check(sorted(res[off: off + len(want)]) == sorted(want),
               f'search_multiple lines of pattern {i} equal the host path')
         off += len(want)
-    sample = np.random.default_rng(4).choice(len(pats), 200, replace=False)
-    dev_lists = r._search_batch([pats[i] for i in sample])
+    sample = np.random.default_rng(4).choice(len(lpats), 200,
+                                             replace=False)
+    dev_lists = r._search_batch([lpats[i] for i in sample])
     for got, i in zip(dev_lists, sample):
         check(sorted(got) == sorted(host_lists[i]),
               f'result multiset of pattern {i}')
@@ -654,8 +729,9 @@ def load_split(r, split, label):
 
 def open_derive(idx_path, pats, kind, path_kernels, label):
     """Launch counts set to 0, then ``Reader(path)`` derives its index over
-    merged rows and answers the batch with ``search_multiple`` and one
-    pattern with ``search``; every kernel in ``path_kernels`` must have
+    merged rows and answers ``pats`` (a line batch) with
+    ``search_multiple`` and one pattern with ``search``; every kernel in
+    ``path_kernels`` must have
     launched.  Returns (Reader, launch counts, search_multiple's lines, the
     phase's numbers)."""
     import torch
@@ -769,13 +845,14 @@ def check_derive_rows(idx, label, *args):
         n = int(d.size)
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        (sa_k, ties_k), k_s = wall_s(
+        (sa_k, ties_k, pois_k), k_s = wall_s(
             lambda: SA.derive_sa(idx.text[i], n, *args))
         peak = torch.cuda.max_memory_allocated() - base
-        (sa_p, ties_p), p_s = wall_s(
+        (sa_p, ties_p, pois_p), p_s = wall_s(
             lambda: SA.derive_sa_plain(idx.text[i], n, *args))
         e = max(err(sa_k, sa_p), err(sa_k, idx.sa[i]))
-        check(e == 0 and ties_k == ties_p == idx.sa_ties[i],
+        check(e == 0 and ties_k == ties_p == idx.sa_ties[i]
+              and not pois_k and not pois_p,
               f'{label}derive_sa of row {i} equals its plain version and the '
               'index')
         rows.append({'n': n, 'kernel_s': k_s, 'plain_s': p_s,
@@ -1025,8 +1102,9 @@ def run_derive(idx_path, pats, dev):
     from pysubstringsearch_tpu_torch.ops import suffix_array as SA
 
     # ---- 3. the main path, launches counted ----
-    r, launches, res, result = open_derive(idx_path, pats, 'ranked',
-                                      PATH_KERNELS, '')
+    lpats = line_batch(pats, DEEP_PATTERNS)
+    r, launches, res, result = open_derive(idx_path, lpats, 'ranked',
+                                           PATH_KERNELS, '')
     idx = r._index
     for i, x in enumerate(result['rows']):
         log(f'row {i}: {x["rounds"]} B2 rounds, tie counts m {x["ties"]}')
@@ -1048,7 +1126,8 @@ def run_derive(idx_path, pats, dev):
     row0 = row0_bwt_and_b15(r, idx, lo_k, cnt_k, entries)
 
     # ---- 5. device answers against the host native path ----
-    host_search_s = check_answers(r, idx, pats, packed_np, lengths_np, res)
+    host_search_s = check_answers(r, idx, pats, packed_np, lengths_np, res,
+                                  lpats)
     del res
     check_boundaries(r, idx)
 
@@ -1084,7 +1163,8 @@ def run_raw(idx_path, pats, dev, ranked_rows):
     from pysubstringsearch_tpu_torch.ops.native import suffix_array_native
 
     pats = pats + odd_patterns(pats)
-    r, launches, res, result = open_derive(idx_path, pats, 'raw',
+    lpats = line_batch(pats, DEEP_PATTERNS + len(odd_patterns(pats)))
+    r, launches, res, result = open_derive(idx_path, lpats, 'raw',
                                            RAW_KERNELS, 'raw ')
     idx = r._index
     check(idx.num_chunks == 2,
@@ -1162,7 +1242,8 @@ def run_raw(idx_path, pats, dev, ranked_rows):
         'checks)')
     del native0
 
-    host_search_s = check_answers(r, idx, pats, packed_np, lengths_np, res)
+    host_search_s = check_answers(r, idx, pats, packed_np, lengths_np, res,
+                                  lpats)
     del res
     check_boundaries(r, idx)
     p50 = probe_p50(idx, packed_np, lengths_np)
@@ -1186,7 +1267,8 @@ def run_upload(idx_path, pats, dev):
     from pysubstringsearch_tpu_torch.ops import kernels
     from pysubstringsearch_tpu_torch.ops import search as S
 
-    strs = [p.decode('latin-1') for p in pats]
+    lpats = line_batch(pats, DEEP_PATTERNS)
+    strs = [p.decode('latin-1') for p in lpats]
     kernels.reset_launches()
     t0 = time.perf_counter()
     r = pss.Reader(idx_path, index_mode='upload')
@@ -1200,7 +1282,7 @@ def run_upload(idx_path, pats, dev):
         f'{idx._base}^{idx._depth}, {idx.num_limbs} limbs; device memory '
         f'{torch.cuda.memory_allocated() / 2**30:.2f} GiB')
     after_multi, launches, e2e_s, phases, res = main_path(
-        r, strs, pats, ('probe', 'extract', 'hs-spans', 'hs-fanout'))
+        r, strs, lpats, ('probe', 'extract', 'hs-spans', 'hs-fanout'))
     lines = len(res)
     for name in UPLOAD_KERNELS:
         check(after_multi[name] > 0, f'upload path launched {name}')
@@ -1211,7 +1293,8 @@ def run_upload(idx_path, pats, dev):
     lo_k, cnt_k = probe_kernel(idx, packed_np, lengths_np, entry)
     bounds = (lo_k.cpu().numpy(), cnt_k.cpu().numpy())
     del lo_k, cnt_k
-    host_search_s = check_answers(r, idx, pats, packed_np, lengths_np, res)
+    host_search_s = check_answers(r, idx, pats, packed_np, lengths_np, res,
+                                  lpats)
     del res
     # The single Reader's lines for the scale-out phase's patterns.
     shard_ref = r._search_batch(pats[:SHARD_PATTERNS])
@@ -1497,7 +1580,9 @@ def run_digit(idx_path, pats, byte_pats, dev, chunk_datas):
     from pysubstringsearch_tpu_torch.ops import suffix_array as SA
     from pysubstringsearch_tpu_torch.ops.hostserve import pack_patterns_host
 
-    r, launches, res, result = open_derive(idx_path, pats, 'digit',
+    lpats = line_batch(pats, DEEP_PATTERNS + len(DIGIT_SHORT)
+                       + len(DIGIT_HIGH))
+    r, launches, res, result = open_derive(idx_path, lpats, 'digit',
                                            DIGIT_KERNELS, 'digit ')
     idx = r._index
     n_pad = SA._pad_len(max(d.size for d in idx.row_data) + S.PAD_MARGIN)
@@ -1535,7 +1620,8 @@ def run_digit(idx_path, pats, byte_pats, dev, chunk_datas):
     byte_sampler = byte_sampler_check(r, idx, byte_pats)
     torch.cuda.empty_cache()
     derive_rows = check_derive_rows(idx, 'digit ')
-    host_search_s = check_answers(r, idx, pats, packed_np, lengths_np, res)
+    host_search_s = check_answers(r, idx, pats, packed_np, lengths_np, res,
+                                  lpats)
     del res
     check_boundaries(r, idx)
     p50 = probe_p50(idx, packed_np, lengths_np)
@@ -2082,6 +2168,309 @@ def run_parallel(idx_path, pats, dev, upload_bounds, ref, d,
 
     shutil.rmtree(shards)
     return out
+
+
+def write_bigrow(pss, corpus, d):
+    """The corpus written by the port's Writer at its defaults (one chunk
+    of at most 512 MiB, suffix arrays by ``'auto'``, so B1b and B2 on the
+    card), launch counts from 0.  Returns (container path, the chunk,
+    Writer seconds, launches)."""
+    from pysubstringsearch_tpu_torch.container import read_container
+    from pysubstringsearch_tpu_torch.ops import kernels
+
+    corpus_path = os.path.join(d, 'bigrow.txt')
+    path = os.path.join(d, 'bigrow.idx')
+    with open(corpus_path, 'wb') as f:
+        f.write(corpus)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with pss.Writer(path) as w:
+        w.add_entries_from_file_lines(corpus_path)
+    writer_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    os.remove(corpus_path)
+    chunks = read_container(path).chunks
+    check(len(chunks) == 1, f'the default Writer wrote one chunk '
+          f'({len(chunks)})')
+    check(launches['sa_init_bytes'] == 1 and launches['sa_init3_bytes'] == 0
+          and all(launches[k] > 0 for k in WRITER_KERNELS),
+          f'the Writer built the chunk on the card by B1b and B2 ({launches})')
+    log(f'bigrow Writer at its defaults: one chunk of {chunks[0].data.size} '
+        f'bytes in {writer_s:.2f} s ({len(corpus) / 1e6 / writer_s:.1f} '
+        f'MB/s), SA on the card; launches '
+        f'{ {k: launches[k] for k in WRITER_KERNELS} }')
+    return path, chunks[0], writer_s, launches
+
+
+def poison_row():
+    """``POISON_ROW_BYTES`` of ``ab`` repeated: two 3-byte groups of half
+    the row each, far over B10's window."""
+    import numpy as np
+
+    return np.frombuffer(b'ab' * (POISON_ROW_BYTES // 2), dtype=np.uint8)
+
+
+def timed_native(data):
+    """(native SA-IS of ``data``, its seconds); runs on a worker thread."""
+    from pysubstringsearch_tpu_torch.ops.native import suffix_array_native
+
+    t0 = time.perf_counter()
+    sa = suffix_array_native(data)
+    return sa, time.perf_counter() - t0
+
+
+def rotating_kernels(text, n, entry):
+    """B10's 3-byte init (its rows past 2^28), one pass from a copied init
+    state (k = 3, off = 0) and the whole doubler against their plain
+    versions on one row, equal exactly (both sorts are stable), each timed
+    beside its bound and one stable ``torch.sort`` of its keys; returns the
+    numbers and the kernels' SA."""
+    import torch
+
+    from pysubstringsearch_tpu_torch.ops import suffix_array as SA
+
+    N = text.shape[0]
+    first = SA.sa_init3_bytes(text, n)
+    plain = SA.sa_init3_bytes_plain(text, n)
+    entry('sa_init3_bytes', f'{JAX_SA}:485', SA_SRC,
+          max(err(a, b) for a, b in zip(first, plain)),
+          cuda_ms(lambda: SA.sa_init3_bytes(text, n), 3),
+          cuda_ms(lambda: SA.sa_init3_bytes_plain(text, n), 1), 13 * N,
+          sort_ms(SA._byte_key(text, n, 3)))
+    del plain
+    torch.cuda.empty_cache()
+    state = [t.clone() for t in first]
+    pstate = [t.clone() for t in first]
+    got = SA.sa_rotating_pass(*state, 3, 0)
+    want = SA.sa_rotating_pass_plain(*pstate, 3, 0)
+    m = got[3]
+    e = max([err(a, b) for a, b in zip(state, pstate)]
+            + [0 if got == want else 1])
+    del pstate
+    half, W = SA._rotating_sizes(N)
+    ctl = SA._new_ctl(N, 0, text.device)
+    flags = torch.empty(N, dtype=torch.int32, device=text.device)
+    dest = torch.empty(N + 1, dtype=torch.int32, device=text.device)
+    SA.sa_window_scan_plain(first[2], ctl, flags, dest, half, W)
+    keys = SA._round_keys(*first, 3, flags.bool())[2]
+    del ctl, flags, dest
+
+    def restore():
+        for s, t in zip(state, first):
+            s.copy_(t)
+
+    entry('sa_rotating_pass', f'{JAX_SA}:518', SA_SRC, e,
+          cuda_ms(lambda: SA.sa_rotating_pass(*state, 3, 0), 3, restore),
+          cuda_ms(lambda: SA.sa_rotating_pass_plain(*state, 3, 0), 1,
+                  restore), 4 * N + 24 * m, sort_ms(keys))
+    del state, first, keys
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (sa_k, pois_k, ties_k), k_s = wall_s(
+        lambda: SA.segmented_rotating_sa(text, n))
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    (sa_p, pois_p, ties_p), p_s = wall_s(
+        lambda: SA.segmented_rotating_sa_plain(text, n))
+    check(torch.equal(sa_k, sa_p) and pois_k == pois_p and ties_k == ties_p,
+          'segmented_rotating_sa equals its plain version (SA, poisoned, '
+          'every pass\'s m_w)')
+    del sa_p
+    log(f'segmented_rotating_sa on N {N}: kernels {k_s:.3f} s, plain '
+        f'{p_s:.3f} s, equal; {sum(map(len, ties_k))} passes, peak '
+        f'{peak:.2f} GiB above what was resident')
+    return {'m_first_pass': m, 'doubler_s': k_s, 'doubler_plain_s': p_s,
+            'doubler_peak_gib': peak, 'passes': [len(r) for r in ties_k]}, \
+        sa_k
+
+
+def run_bigrow(corpus, adv, refs, pats, d, dev):
+    """The big-row derive: the Writer at its defaults, the B10 derive
+    Reader over its one chunk with the kernels against their plain
+    versions, B1b + B2 on the same row, the answers against the host, and
+    the poisoning row ``adv`` re-derived by B9.  ``refs`` are the futures
+    of :func:`timed_native` of the corpus and of ``adv``.  Returns its
+    numbers and B10's kernel rows."""
+    import numpy as np
+    import torch
+
+    import pysubstringsearch_tpu_torch as pss
+    from pysubstringsearch_tpu_torch.container import Chunk
+    from pysubstringsearch_tpu_torch.models.index import DeviceIndex
+    from pysubstringsearch_tpu_torch.ops import kernels
+    from pysubstringsearch_tpu_torch.ops import search as S
+    from pysubstringsearch_tpu_torch.ops import suffix_array as SA
+    from pysubstringsearch_tpu_torch.utils.profiling import PhaseProfiler
+
+    path, chunk, writer_s, writer_launches = write_bigrow(pss, corpus, d)
+    n = chunk.data.size
+    check(chunk.data.tobytes() == corpus, 'the chunk holds the corpus')
+
+    # ---- the derive, launch counts from 0 ----
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r = pss.Reader(path)
+    check(r.wait_device_ready(), 'bigrow device index ready')
+    ready_s = time.perf_counter() - t0
+    load_peak = torch.cuda.max_memory_allocated() / 2**30
+    idx = r._index
+    load = dict(kernels.LAUNCHES)
+    N = idx.n_pad
+    check(idx.mode == 'derive' and idx.num_chunks == 1 and not idx.merged
+          and N > SA.SEGMENTED_MAX_N,
+          f'one derive row past SEGMENTED_MAX_N (rows {idx.num_chunks}, '
+          f'n_pad {N})')
+    check(idx.sa_poisoned == [False], 'the big row is not poisoned')
+    ties = idx.sa_ties[0]
+    passes = [len(r) for r in ties]
+    check(load['sa_init3_bytes'] == 1 and load['sa_rotating_pass']
+          == sum(passes) and load['sa_window_scan'] == sum(passes) + 1
+          and load['sa_init_ranked'] == 0 and load['sa_init_bytes'] == 0
+          and load['sa_tie_scan'] == 0 and load['sa_full_init_bytes'] == 0
+          and load['sa_roll_front'] == 1,
+          f'the row derived through B10 alone ({load})')
+    index_sa_s = r.profiler.totals['index-sa']
+    log(f'bigrow device ready: {ready_s:.2f} s; 1 row of {n} bytes, n_pad '
+        f'{N}; kind {idx.kind}, {idx.num_limbs} limbs; index-sa '
+        f'{index_sa_s:.3f} s; peak {load_peak:.2f} GiB during the load, '
+        f'{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident; B10 '
+        f'passes per round {passes}')
+    k0 = 3 if N > 1 << 28 else SA.BYTE_INIT_WIDTH
+    for i, ms in enumerate(ties):
+        log(f'  B10 round {i} (k {k0 << i}): m_w per pass {ms}')
+    split = load_split(r, ('index-alphabet', 'index-alloc', 'index-h2d',
+                           'index-sa', 'index-aux'), 'bigrow')
+    want = torch.from_numpy(np.array(chunk.suffix_array,
+                                     dtype=np.int32)).to(dev)
+    check(torch.equal(idx.sa[0, :n], want),
+          'the derived SA equals the container\'s (built by B1b + B2)')
+    del want
+
+    # ---- the answers, the main path ----
+    lpats = line_batch(pats, DEEP_PATTERNS)
+    strs = [p.decode('latin-1') for p in lpats]
+    after_multi, launches, e2e_s, phases, res = main_path(
+        r, strs, lpats, ('probe', 'extract', 'hs-spans', 'hs-fanout'))
+    for name in BIGROW_KERNELS:
+        check(after_multi[name] > 0, f'bigrow path launched {name}')
+    packed_np, lengths_np = S.pack_patterns(pats)
+    host_search_s = check_answers(r, idx, pats, packed_np, lengths_np, res,
+                                  lpats)
+    del res
+    p50 = probe_p50(idx, packed_np, lengths_np)
+
+    # ---- B10's kernels against their plain versions on the row ----
+    entries = []
+    entry = kernel_check('', entries, launches)
+    text0 = idx.text[0]
+    numbers, sa_b10 = rotating_kernels(text0, n, entry)
+    check(torch.equal(SA.sa_roll_front(sa_b10, n), idx.sa[0]),
+          'the doubler\'s SA rolled equals the index row')
+
+    # ---- B1b + B2, the route of rows up to SEGMENTED_MAX_N ----
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (sa_b2, ties_b2), b2_s = wall_s(lambda: SA.segmented_sa(text0, n))
+    b2_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    check(torch.equal(sa_b2, sa_b10), 'B1b + B2 gives B10\'s SA')
+    log(f'B1b + B2 on the same row: {b2_s:.3f} s wall, {len(ties_b2)} rounds '
+        f'(m {ties_b2}), peak {b2_peak:.2f} GiB above what was resident; '
+        f'B10 {numbers["doubler_s"]:.3f} s, peak '
+        f'{numbers["doubler_peak_gib"]:.2f} GiB')
+    del sa_b2, sa_b10
+    native, native_s = refs[0].result()
+    check(np.array_equal(chunk.suffix_array, native),
+          'the Writer\'s SA of the chunk equals native SA-IS')
+    log(f'native SA-IS of the {n}-byte chunk on the host: {native_s:.2f} s '
+        '(a thread beside the card since the corpus was made), equal')
+    del native, idx, r, text0, chunk
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.remove(path)
+
+    # ---- the fallback: a period-2 row poisons B10, B9 re-derives it ----
+    kernels.reset_launches()
+    prof = PhaseProfiler()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    # Derive mode never reads a chunk's SA: a zero-stride stand-in.
+    aidx, adv_s = wall_s(lambda: DeviceIndex(
+        [Chunk(data=adv, suffix_array=np.broadcast_to(np.int32(0),
+                                                      adv.shape))],
+        device=dev, mode='derive', profiler=prof))
+    adv_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    fl = dict(kernels.LAUNCHES)
+    check(aidx.sa_poisoned == [True] and aidx.n_pad > SA.SEGMENTED_MAX_N,
+          f'the period-2 row (n_pad {aidx.n_pad}) is poisoned')
+    for name in FALLBACK_KERNELS:
+        check(fl[name] > 0, f'the poisoned row launched {name}')
+    adv_native, adv_native_s = refs[1].result()
+    check(np.array_equal(aidx.sa[0, :adv.size].cpu().numpy(), adv_native),
+          'the B9 fallback\'s SA equals native SA-IS')
+    log(f'poisoned row: {adv.size} bytes of "ab", n_pad {aidx.n_pad}: '
+        f'DeviceIndex(mode="derive") {adv_s:.2f} s wall (index-sa '
+        f'{prof.totals["index-sa"]:.2f} s), peak {adv_peak:.2f} GiB above '
+        f'what was resident; B10 passes {aidx.sa_ties[0]} before the '
+        f'poison, B9 rounds {fl["sa_full_round"]}; SA equals native SA-IS '
+        f'({adv_native_s:.2f} s on the host); launches '
+        f'{ {k: fl[k] for k in FALLBACK_KERNELS} }')
+    adv_n_pad = aidx.n_pad
+    del aidx, adv_native
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = torch.zeros(4096, dtype=torch.uint8, device=dev)
+    small[:3000] = ord('a')
+    check(SA.segmented_rotating_sa(small, 3000)[1]
+          and SA.segmented_rotating_sa_plain(small, 3000)[1],
+          'a row of 3000 a bytes is poisoned in kernel and plain')
+    log('3000 a bytes at N 4096: poisoned in kernel and plain')
+    return {
+        'kernels': entries, 'writer_s': writer_s,
+        'writer_launches': {k: writer_launches[k] for k in WRITER_KERNELS},
+        'native_sais_s': native_s, 'device_ready_s': ready_s,
+        'index_sa_s': index_sa_s, 'load_split_s': split,
+        'load_peak_gib': load_peak, 'n_pad': N,
+        'passes': passes, 'm_w': ties, 'search_multiple_s': e2e_s,
+        'search_multiple_phases_s': phases, 'host_search_s': host_search_s,
+        'probe_p50_ms': p50, 'b2_s': b2_s, 'b2_ties': ties_b2,
+        'b2_peak_gib': b2_peak, **numbers,
+        'fallback': {'n': int(adv.size), 'n_pad': adv_n_pad,
+                     'wall_s': adv_s, 'index_sa_s': prof.totals['index-sa'],
+                     'peak_gib': adv_peak, 'b9_rounds': fl['sa_full_round'],
+                     'native_sais_s': adv_native_s},
+    }
+
+
+def run_b16():
+    """B16 through ``sort_bench`` at 2^24 and 2^26 with launch counts from
+    0: the scatter kernel equal to its plain version, beside one
+    ``torch.sort`` of (key, value) pairs and ``radix_sort_pairs``.
+    Returns the numbers and B16's kernel row (at 2^26)."""
+    from pysubstringsearch_tpu_torch import sort_bench
+    from pysubstringsearch_tpu_torch.ops import kernels
+
+    kernels.reset_launches()
+    runs = [sort_bench.measure(log2n) for log2n in (24, 26)]
+    launches = dict(kernels.LAUNCHES)
+    check(launches['scatter'] > 0 and launches['radix_sort_pairs'] > 0,
+          f'sort_bench launched the scatter and the radix sort ({launches})')
+    for x in runs:
+        check(x['radix_sort_max_abs_err'] == 0,
+              f'radix_sort_pairs equals torch.sort at n {x["n"]}')
+        log(f'sort_bench n {x["n"]}: scatter {x["scatter_ms"]:.4f} ms (bound '
+            f'{x["scatter_bound_ms"]:.4f}), plain {x["plain_scatter_ms"]:.4f}'
+            f', library scatter_ {x["library_scatter_ms"]:.4f}; torch.sort '
+            f'pairs {x["torch_sort_pairs_ms"]:.4f} ms, radix_sort_pairs '
+            f'{x["radix_sort_pairs_ms"]:.4f} ms')
+    entries = []
+    big = runs[-1]
+    kernel_check('b16 ', entries, launches)(
+        'scatter', 'benchmarks/pallas_sort_bench.py:77', SA_SRC,
+        max(x['scatter_max_abs_err'] for x in runs), big['scatter_ms'],
+        big['plain_scatter_ms'], 12 * big['n'], big['library_scatter_ms'])
+    return {'kernels': entries, 'runs': runs,
+            'launches': launches['scatter']}
 
 
 if __name__ == '__main__':

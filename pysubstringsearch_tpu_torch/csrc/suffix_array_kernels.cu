@@ -1,12 +1,13 @@
 // Hand-written Hopper kernels of the device suffix-array build (derive
 // mode): the anchored init sorts (B1 on rank digits, B1b on bytes), the
-// tie-only doubling rounds (B2), the full-sort doubling of the Writer's
-// 'full' build and of integer alphabets (B9), and the building blocks they
-// are made of
+// tie-only doubling rounds (B2), the rotating windowed doubler of rows over
+// 384 Mi (B10), the full-sort doubling of the Writer's 'full' build, of
+// integer alphabets and of B10's poisoned rows (B9), and the building
+// blocks they are made of
 // -- a stable LSD radix sort of (uint64 key, int32 value) pairs, an
-// exclusive sum scan and an inclusive max scan over int32.  No library
-// computes any of them: no cub::Device* routine, no Thrust, no torch
-// operator.
+// exclusive sum scan and an inclusive max scan over int32 -- with the radix
+// sort's store pass alone as a scatter (B16).  No library computes any of
+// them: no cub::Device* routine, no Thrust, no torch operator.
 //
 // Built by pysubstringsearch_tpu_torch/ops/kernels.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -c ... && nvcc -shared
@@ -316,6 +317,27 @@ void radix_sort_pairs(uint64_t* keys, int* vals, long long n, int key_bits,
 }
 
 // ---------------------------------------------------------------------------
+// B16, the store pass of an LSD radix sort on its own: out[dests[i]] =
+// values[i].  Replaces pallas_scatter (benchmarks/pallas_sort_bench.py),
+// which stored one element at a time from VMEM tiles of 8192 and never
+// lowered.  One thread an element: the reads of values and dests coalesce,
+// the 4-byte stores land wherever dests sends them, so a random
+// permutation costs a 32-byte sector for each 4 bytes written.  Bound by
+// memory: 12 bytes an element.  The dests must be distinct and inside out
+// (a permutation in the benchmark); that is the caller's contract and is
+// not checked here.
+// ---------------------------------------------------------------------------
+__global__ void scatter_kernel(const int* __restrict__ values,
+                               const int* __restrict__ dests, long long n,
+                               int* __restrict__ out) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    out[dests[i]] = values[i];
+  }
+}
+
+// ---------------------------------------------------------------------------
 // B1, the anchored init sort.  Replaces _init_round_anchored_ranked
 // (pysubstringsearch_tpu/ops/suffix_array.py), which sorts two int32 limbs
 // of D = 30 / bits rank digits with lax.sort.
@@ -367,9 +389,17 @@ __global__ void init_keys_kernel(const uint8_t* __restrict__ text,
 // singletons, the group-start max-scan and the rank scatter.  Bound by
 // memory like B1: the sort moves about 7 x 32 bytes per slot; the key pass
 // reads 1 byte a slot (the 5 neighbours come from L1) and writes 12.
+//
+// Every digit read is masked at q < n, so the pad positions are exactly the
+// all-zero key group for any 0 <= n <= N; the derive path's 6-byte margin
+// is its own contract, not this kernel's (B10 runs it on rows without one).
 // ---------------------------------------------------------------------------
 constexpr int kByteKeyBits = 50;
 
+// key[p] of the first kWidth digits (3 or 6): limb0 alone for 3, limb0 <<
+// 25 | limb1 for 6.  A template, so the digit loop unrolls and the limbs
+// stay in registers.
+template <int kWidth>
 __global__ void init_keys_bytes_kernel(const uint8_t* __restrict__ text,
                                        long long N, long long n,
                                        uint64_t* __restrict__ keys,
@@ -379,13 +409,14 @@ __global__ void init_keys_bytes_kernel(const uint8_t* __restrict__ text,
        p < N; p += static_cast<long long>(gridDim.x) * blockDim.x) {
     uint64_t limb[2] = {0, 0};
     if (p < n) {
-      for (int d = 0; d < 6; ++d) {
+#pragma unroll
+      for (int d = 0; d < kWidth; ++d) {
         long long q = p + d;
         uint64_t digit = q < n ? static_cast<uint64_t>(text[q]) + 1 : 0;
         limb[d / 3] = limb[d / 3] * 257 + digit;
       }
     }
-    keys[p] = (limb[0] << 25) | limb[1];
+    keys[p] = kWidth > 3 ? (limb[0] << 25) | limb[1] : limb[0];
     vals[p] = static_cast<int>(p);
   }
 }
@@ -559,6 +590,139 @@ int key_width(long long N) {
   int w = 1;
   while ((1LL << w) <= N) ++w;
   return w;
+}
+
+// B2's refine body on the m slots that `flags` marks (dest their buffer
+// indices): gather, radix sort on 2W bits, key-change starts, max-scan,
+// scatter.  Each marked group must be a contiguous run of slots, marked
+// from its first slot on.
+void refine_marked(int* sa, int* rank, int* gs, long long N, long long k,
+                   long long m, const int* flags, const int* dest,
+                   const RefineBufs& b, cudaStream_t st) {
+  const int W = key_width(N);
+  refine_gather_kernel<<<grid_for(N), kThreads, 0, st>>>(
+      flags, dest, sa, rank, gs, N, k, W, b.slots, b.keys, b.vals);
+  radix_sort_pairs(b.keys, b.vals, m, 2 * W, b.sort, st);
+  const unsigned grid = grid_for(m);
+  refine_change_kernel<<<grid, kThreads, 0, st>>>(b.keys, b.slots, m,
+                                                  b.starts);
+  scan_levels<MaxOp>(b.starts, b.first_eq, m, false, b.scan, st);
+  refine_scatter_kernel<<<grid, kThreads, 0, st>>>(b.slots, b.vals,
+                                                   b.first_eq, m, sa, rank,
+                                                   gs);
+}
+
+// ---------------------------------------------------------------------------
+// B10, the rotating windowed doubler of rows over 384 Mi padded.  Replaces
+// _init_round_anchored3, _rotating_init, _rotating_pass and the loop of
+// _rotating_steps_jit / segmented_rotating_sa (ops/suffix_array.py), which
+// the JAX derive_sa picks for those rows so that no sort exceeds S = N / 8
+// elements (S/2 = half, W = the window of group starts, S/2).
+//
+// pss_sa_init3_bytes is B1b's pipeline on a 3-digit key (d0 * 257 + d1) *
+// 257 + d2 < 2^25, so 4 radix passes.  One JAX pass is two launches that
+// share a device control block ctl int32 [5] = {off, m_w, poisoned,
+// any_tied, nxt}:
+//   - pss_sa_window_scan marks the window at ctl[0]: every tied slot whose
+//     group start g lies in [off, off + W) and whose member offset slot - g
+//     is below half (so whole groups of at most half members, whose slots
+//     the pass refines in place as B2 does).  flags, dest (their exclusive
+//     scan) and ctl[1] = m_w; ctl[2] = 1 when some tied slot has a member
+//     offset of half or more (a group too big for any window: the row is
+//     poisoned, and its caller falls back to B9); ctl[3] = 1 when any slot
+//     is tied.
+//   - pss_sa_rotating_pass refines the m_w marked slots by the rank k
+//     positions on (B2's body), then jumps: nxt = the least slot >= off + W
+//     that starts a tied group (N if none, or if off + W >= N) -> ctl[4],
+//     and ctl[0] = nxt < N ? nxt : 0.  The JAX pass samples a reverse
+//     cummin at off + W; a min-reduction over [off + W, N) is the same.
+// The host keeps k, reads ctl once a pass after the next window's scan,
+// doubles k when ctl[0] is back at 0, and stops when k >= N at off 0, when
+// nothing is tied, or at the first poisoned window.  Windows are swept in
+// the JAX order, so earlier windows refine later windows' r2 alike.
+// Bound by memory: a scan reads gs over the row and writes flags and dest
+// (12 bytes a slot with the scan's levels); a pass moves B2's 8 x 32 + 40
+// bytes per marked slot and reads gs from off + W on.
+// ---------------------------------------------------------------------------
+constexpr int kByte3KeyBits = 25;
+enum { kCtlOff = 0, kCtlMw, kCtlPoisoned, kCtlAnyTied, kCtlNext, kCtlSize };
+
+// flags[i] of the window at ctl[kCtlOff]; ctl[kCtlPoisoned] and
+// ctl[kCtlAnyTied] must be 0 before the launch.
+__global__ void window_flags_kernel(const int* __restrict__ gs, long long N,
+                                    long long half, long long W,
+                                    int* __restrict__ ctl,
+                                    int* __restrict__ flags) {
+  __shared__ int s_any, s_poisoned;
+  if (threadIdx.x == 0) {
+    s_any = 0;
+    s_poisoned = 0;
+  }
+  __syncthreads();
+  const long long off = ctl[kCtlOff];
+  bool any = false, poisoned = false;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < N; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int g = gs[i];
+    const bool tied =
+        (i + 1 < N && gs[i + 1] == g) || (i > 0 && gs[i - 1] == g);
+    bool sel = false;
+    if (tied) {
+      any = true;
+      if (i - g >= half) {
+        poisoned = true;
+      } else {
+        sel = g >= off && g < off + W;
+      }
+    }
+    flags[i] = sel ? 1 : 0;
+  }
+  if (any) s_any = 1;
+  if (poisoned) s_poisoned = 1;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (s_any) ctl[kCtlAnyTied] = 1;
+    if (s_poisoned) ctl[kCtlPoisoned] = 1;
+  }
+}
+
+__global__ void window_total_kernel(const int* __restrict__ dest,
+                                    long long N, int* __restrict__ ctl) {
+  ctl[kCtlMw] = dest[N];
+}
+
+__global__ void next_init_kernel(long long N, int* __restrict__ ctl) {
+  ctl[kCtlNext] = static_cast<int>(N);
+}
+
+// ctl[kCtlNext] = min(ctl[kCtlNext], the least slot >= off + W that starts
+// a tied group).  A thread's first hit in its grid-stride walk is its least.
+__global__ void next_start_kernel(const int* __restrict__ gs, long long N,
+                                  long long W, int* __restrict__ ctl) {
+  __shared__ int s_min;
+  if (threadIdx.x == 0) s_min = INT_MAX;
+  __syncthreads();
+  const long long lo = static_cast<long long>(ctl[kCtlOff]) + W;
+  for (long long i = lo + blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < N; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int g = gs[i];
+    const bool start = i == 0 || gs[i - 1] != g;
+    const bool tied =
+        (i + 1 < N && gs[i + 1] == g) || (i > 0 && gs[i - 1] == g);
+    if (start && tied) {
+      atomicMin(&s_min, static_cast<int>(i));
+      break;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0 && s_min != INT_MAX) atomicMin(&ctl[kCtlNext], s_min);
+}
+
+__global__ void next_finish_kernel(long long N, int* __restrict__ ctl) {
+  const int nxt = ctl[kCtlNext];
+  ctl[kCtlOff] = nxt < N ? nxt : 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -751,7 +915,7 @@ int pss_sa_init_bytes(const void* text, long long N, long long n, void* sa,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Arena a{static_cast<char*>(scratch), 0};
   InitBufs b = carve_init(a, N);
-  init_keys_bytes_kernel<<<grid_for(N), kThreads, 0, st>>>(
+  init_keys_bytes_kernel<6><<<grid_for(N), kThreads, 0, st>>>(
       static_cast<const uint8_t*>(text), N, n, b.keys, b.vals);
   init_from_keys(b, N, n, kByteKeyBits, static_cast<int*>(sa),
                  static_cast<int*>(rank), static_cast<int*>(gs), st);
@@ -785,22 +949,12 @@ int pss_sa_refine_round(void* sa, void* rank, void* gs, long long N,
                         long long k, long long m, const void* flags,
                         const void* dest, void* scratch, void* stream) {
   if (m <= 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   Arena a{static_cast<char*>(scratch), 0};
   RefineBufs b = carve_refine(a, m);
-  const int W = key_width(N);
-  refine_gather_kernel<<<grid_for(N), kThreads, 0, st>>>(
-      static_cast<const int*>(flags), static_cast<const int*>(dest),
-      static_cast<const int*>(sa), static_cast<const int*>(rank),
-      static_cast<const int*>(gs), N, k, W, b.slots, b.keys, b.vals);
-  radix_sort_pairs(b.keys, b.vals, m, 2 * W, b.sort, st);
-  const unsigned grid = grid_for(m);
-  refine_change_kernel<<<grid, kThreads, 0, st>>>(b.keys, b.slots, m,
-                                                  b.starts);
-  scan_levels<MaxOp>(b.starts, b.first_eq, m, false, b.scan, st);
-  refine_scatter_kernel<<<grid, kThreads, 0, st>>>(
-      b.slots, b.vals, b.first_eq, m, static_cast<int*>(sa),
-      static_cast<int*>(rank), static_cast<int*>(gs));
+  refine_marked(static_cast<int*>(sa), static_cast<int*>(rank),
+                static_cast<int*>(gs), N, k, m,
+                static_cast<const int*>(flags), static_cast<const int*>(dest),
+                b, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -821,7 +975,7 @@ int pss_sa_full_init_bytes(const void* text, long long N, long long n,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Arena a{static_cast<char*>(scratch), 0};
   FullBufs b = carve_full(a, N);
-  init_keys_bytes_kernel<<<grid_for(N), kThreads, 0, st>>>(
+  init_keys_bytes_kernel<6><<<grid_for(N), kThreads, 0, st>>>(
       static_cast<const uint8_t*>(text), N, n, b.keys, b.vals);
   full_relabel(b, N, kByteKeyBits, static_cast<int*>(sa),
                static_cast<int*>(rank), static_cast<int*>(count), st);
@@ -841,6 +995,78 @@ int pss_sa_full_round(void* sa, void* rank, long long N, long long k, int W,
       static_cast<const int*>(rank), N, k, W, b.keys, b.vals);
   full_relabel(b, N, 2 * W, static_cast<int*>(sa), static_cast<int*>(rank),
                static_cast<int*>(count), st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- B10 ------------------------------------------------------------------
+
+// text uint8 [N] (true length 0 <= n <= N); writes sa, rank, gs int32 [N]
+// of the 3-byte anchored init.  Scratch as pss_sa_init_scratch_bytes(N).
+int pss_sa_init3_bytes(const void* text, long long N, long long n, void* sa,
+                       void* rank, void* gs, void* scratch, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Arena a{static_cast<char*>(scratch), 0};
+  InitBufs b = carve_init(a, N);
+  init_keys_bytes_kernel<3><<<grid_for(N), kThreads, 0, st>>>(
+      static_cast<const uint8_t*>(text), N, n, b.keys, b.vals);
+  init_from_keys(b, N, n, kByte3KeyBits, static_cast<int*>(sa),
+                 static_cast<int*>(rank), static_cast<int*>(gs), st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Marks the window at ctl[0] (see the B10 section): flags int32 [N], dest
+// int32 [N + 1] (dest[N] = m_w), ctl int32 [5].  Scratch as
+// pss_sa_tie_scratch_bytes(N).
+int pss_sa_window_scan(const void* gs, long long N, long long half,
+                       long long W, void* ctl, void* flags, void* dest,
+                       void* scratch, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int* c = static_cast<int*>(ctl);
+  cudaMemsetAsync(c + kCtlPoisoned, 0, 2 * sizeof(int), st);
+  window_flags_kernel<<<grid_for(N), kThreads, 0, st>>>(
+      static_cast<const int*>(gs), N, half, W, c, static_cast<int*>(flags));
+  scan_levels<SumOp>(static_cast<const int*>(flags), static_cast<int*>(dest),
+                     N, true, static_cast<int*>(scratch), st);
+  scan_total_kernel<<<1, 1, 0, st>>>(static_cast<const int*>(flags),
+                                     static_cast<int*>(dest), N);
+  window_total_kernel<<<1, 1, 0, st>>>(static_cast<const int*>(dest), N, c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Refines the m marked slots of the last window scan by the rank k
+// positions on, in place, then moves ctl[0] to the next window.  Scratch as
+// pss_sa_refine_scratch_bytes(m).
+int pss_sa_rotating_pass(void* sa, void* rank, void* gs, long long N,
+                         long long k, long long m, long long W,
+                         const void* flags, const void* dest, void* ctl,
+                         void* scratch, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int* c = static_cast<int*>(ctl);
+  if (m > 0) {
+    Arena a{static_cast<char*>(scratch), 0};
+    RefineBufs b = carve_refine(a, m);
+    refine_marked(static_cast<int*>(sa), static_cast<int*>(rank),
+                  static_cast<int*>(gs), N, k, m,
+                  static_cast<const int*>(flags),
+                  static_cast<const int*>(dest), b, st);
+  }
+  next_init_kernel<<<1, 1, 0, st>>>(N, c);
+  next_start_kernel<<<grid_for(N), kThreads, 0, st>>>(
+      static_cast<const int*>(gs), N, W, c);
+  next_finish_kernel<<<1, 1, 0, st>>>(N, c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- B16 ------------------------------------------------------------------
+
+// out[dests[i]] = values[i] for i < n (dests distinct, inside out).
+int pss_scatter(const void* values, const void* dests, long long n, void* out,
+                void* stream) {
+  if (n <= 0) return 0;
+  scatter_kernel<<<grid_for(n), kThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(values), static_cast<const int*>(dests), n,
+      static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

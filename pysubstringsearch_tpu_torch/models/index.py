@@ -15,8 +15,10 @@ Two ways to build it, as in the JAX package:
 - derive: the container's chunks are concatenated into merged rows of up
   to ``MERGE_CAP_DEFAULT`` bytes, only their text is uploaded, and each
   row's SA is built on the device (ops/suffix_array.py: B1 and B2 for a
-  ranked alphabet, B1b and B2 for the raw and digit kinds).  A merged row
-  can match an occurrence that spans a source-chunk boundary;
+  ranked alphabet, B1b and B2 for the raw and digit kinds; B10 for every
+  kind on rows padded past ``SEGMENTED_MAX_N``, such as one default 512
+  MiB chunk, with B9 for a row B10 flags as poisoned).  A merged row can
+  match an occurrence that spans a source-chunk boundary;
   :meth:`count_matches` and the Reader's extraction drop those.
 
 Either way the limb planes and seed tables are built on the device from
@@ -34,17 +36,27 @@ import torch
 
 from ..container import Chunk
 from ..ops import search as search_ops
-from ..ops.suffix_array import SA_BUILD_BYTES_PER_SLOT, _pad_len, derive_sa
+from ..ops.suffix_array import (
+    SA_BUILD_BYTES_PER_SLOT,
+    _pad_len,
+    derive_sa,
+    derive_sa_full,
+)
 from ..utils.profiling import PhaseProfiler
 
 
 def _device_budget(device: torch.device) -> int:
-    """Device memory bytes the index may fill: 85% of what is free now, so
-    the probe's scratch still fits.  The CPU is not metered."""
+    """Device memory bytes the index may fill: 85% of what is free now,
+    counting the blocks PyTorch's caching allocator holds for no tensor
+    (this process reuses them; a Writer's card build just before leaves
+    tens of GiB there), so the probe's scratch still fits.  The CPU is not
+    metered."""
     if device.type == 'cpu':
         return 1 << 62
     free, _ = torch.cuda.mem_get_info(device)
-    return int(free * 0.85)
+    cached = (torch.cuda.memory_reserved(device)
+              - torch.cuda.memory_allocated(device))
+    return int((free + cached) * 0.85)
 
 
 def _merge_groups(sizes: typing.Sequence[int],
@@ -114,8 +126,8 @@ class DeviceIndex:
         ``index-h2d`` (the uploads), ``index-aux`` (limb planes and seed
         tables); upload adds ``index-host-copy`` (container views into
         aligned host arrays), derive ``index-merge`` (the host
-        concatenation of merged rows) and ``index-sa`` (B1 and B2 per
-        row)."""
+        concatenation of merged rows) and ``index-sa`` (each row's SA
+        build: B1 or B1b and B2, or B10, and B9 after a poisoned B10)."""
         prof = profiler if profiler is not None else PhaseProfiler()
         self._plan(chunks, device, mode, merge, num_limbs, prof)
         self._build(chunks, prof)
@@ -218,8 +230,12 @@ class DeviceIndex:
         """The planned rows' arrays on the device: text and SA (uploaded,
         or the SA derived), then limb planes and seed tables."""
         C, n_pad = self.num_chunks, self.n_pad
-        #: Tie count m of every B2 round, per row (derive mode).
-        self.sa_ties: typing.List[typing.List[int]] = []
+        #: Per row (derive mode), as ``derive_sa`` reports them: the tie
+        #: count m of every B2 round, or on a B10 row a list per round of
+        #: its passes' m_w; and whether B10 found the row poisoned (B9 then
+        #: re-derived it).
+        self.sa_ties: typing.List[list] = []
+        self.sa_poisoned: typing.List[bool] = []
         with prof.phase('index-alloc'):
             self.text = torch.zeros((C, n_pad), dtype=torch.uint8,
                                     device=self.device)
@@ -275,6 +291,7 @@ class DeviceIndex:
         for i, d in enumerate(self.row_data):
             if d.size == 0:  # a padding row keeps its zero SA
                 self.sa_ties.append([])
+                self.sa_poisoned.append(False)
                 continue
             with prof.phase('index-h2d'):
                 # Singleton rows are the container's read-only mmap views,
@@ -284,13 +301,19 @@ class DeviceIndex:
                 self._sync()
             with prof.phase('index-sa'):
                 # B1 on the rank digits for the ranked kind, B1b on the
-                # bytes (bits None) for the raw and digit kinds.
-                _, ties = derive_sa(
+                # bytes (bits None) for the raw and digit kinds; B10 on
+                # the bytes for every kind past SEGMENTED_MAX_N.
+                _, ties, poisoned = derive_sa(
                     self.text[i], d.size,
                     self.rank if self.kind == 'ranked' else None,
                     self._bits, out=self.sa[i],
                 )
+                if poisoned:
+                    # A group too big for B10's windows: re-derive by
+                    # full-sort doubling, as the JAX index does.
+                    derive_sa_full(self.text[i], d.size, out=self.sa[i])
                 self.sa_ties.append(ties)
+                self.sa_poisoned.append(poisoned)
                 self._sync()
 
     def _build_aux(self, table_len: int) -> None:
@@ -376,7 +399,7 @@ class DeviceIndex:
         self._bits = meta['bits']
         self._base, self._depth = meta['base'], meta['depth']
         self.num_limbs = meta['num_limbs']
-        self.sa_ties = []
+        self.sa_ties, self.sa_poisoned = [], []
         C, self.n_pad = self.text.shape
         lengths = np.asarray(arrays['lengths'])
         self.row_data = [

@@ -95,6 +95,14 @@ _SIGNATURES: typing.Dict[str, list] = {
     'pss_sa_full_init_bytes': [_P, _L, _L, _P, _P, _P, _P, _P],
     # sa, rank, N, k, W, count, scratch, stream
     'pss_sa_full_round': [_P, _P, _L, _L, _I, _P, _P, _P],
+    # text, N, n, sa, rank, gs, scratch, stream
+    'pss_sa_init3_bytes': [_P, _L, _L, _P, _P, _P, _P, _P],
+    # gs, N, half, W, ctl, flags, dest, scratch, stream
+    'pss_sa_window_scan': [_P, _L, _L, _L, _P, _P, _P, _P, _P],
+    # sa, rank, gs, N, k, m, W, flags, dest, ctl, scratch, stream
+    'pss_sa_rotating_pass': [_P, _P, _P, _L, _L, _L, _L, _P, _P, _P, _P, _P],
+    # values, dests, n, out, stream
+    'pss_scatter': [_P, _P, _L, _P, _P],
 }
 
 #: Scratch sizers: pss_<name>_scratch_bytes(count) -> bytes.  Host

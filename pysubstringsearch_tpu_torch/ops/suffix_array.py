@@ -10,9 +10,12 @@ prefix sorts before any extension.
 The SA of a string is unique, so every backend gives identical bytes.
 
 Device (derive mode): :func:`derive_sa` builds a padded text row's SA by
-tie-only prefix doubling, as the JAX package's ``_segmented_kernel_ranked``
-(ranked alphabets) and ``_segmented_kernel`` (any other) do, in the
-anchored form
+tie-only prefix doubling, as the JAX package's ``derive_sa`` does: rows of
+up to ``SEGMENTED_MAX_N`` padded slots by :func:`segmented_sa`
+(``_segmented_kernel_ranked`` for ranked alphabets, ``_segmented_kernel``
+for any other), longer ones by :func:`segmented_rotating_sa`, whose
+poisoned rows the caller re-derives with :func:`derive_sa_full`.  All work
+in the anchored form
 
     sa[slot]  = text position occupying SA slot ``slot``
     rank[pos] = slot of the first member of pos's group
@@ -26,6 +29,9 @@ PyTorch version beside it:
 - :func:`sa_init_bytes` (B1b): the anchored init sort on 6 byte + 1
   digits;
 - :func:`sa_refine_round` (B2): one doubling round over the tied slots;
+- :func:`sa_init3_bytes`, :func:`sa_window_scan` and
+  :func:`sa_rotating_pass` (B10): the 3-byte init and the windowed passes
+  of the rotating doubler;
 - :func:`sa_full_init_bytes` and :func:`sa_full_round` (B9): full-sort
   prefix doubling with dense ranks, the JAX ``_doubling_kernel`` and
   ``_int_doubling_kernel``.
@@ -36,7 +42,8 @@ The Writer's device build (:func:`build_suffix_array` with ``'torch'``, or
 
 Their building blocks are kernels of the same file, exposed for tests:
 :func:`radix_sort_pairs` (stable LSD radix sort of uint64 keys with int32
-values), :func:`scan_exclusive_sum` and :func:`scan_inclusive_max`.  Every
+values), :func:`scan_exclusive_sum` and :func:`scan_inclusive_max`; and
+:func:`scatter` (B16) is the radix sort's store pass alone.  Every
 wrapper takes its plain version only for CPU tensors; on a CUDA tensor it
 launches its kernel or raises.  The kernel sorts and the plain sorts are
 both stable and see positions in slot order, so on the card they agree bit
@@ -53,7 +60,8 @@ import torch
 
 from . import kernels
 
-__all__ = ['build_suffix_array', 'derive_sa', 'derive_sa_plain',
+__all__ = ['build_suffix_array', 'derive_sa', 'derive_sa_full',
+           'derive_sa_plain', 'segmented_rotating_sa', 'segmented_sa',
            'suffix_array_int', 'suffix_array_numpy', 'suffix_array_torch']
 
 
@@ -150,7 +158,8 @@ def suffix_array_torch(data: np.ndarray, *,
     """The SA of ``data`` (uint8) built on ``device`` and read back as host
     int32 [n], the counterpart of the JAX ``suffix_array_jax``.  The chunk
     is padded to ``N = _pad_len(n + 6)``, B1b's contract.  ``'segmented'``
-    runs :func:`derive_sa` (B1b, then B2 from k = 6); ``'full'`` runs B9
+    runs :func:`segmented_sa` (B1b, then B2 from k = 6) at every N, as the
+    JAX function runs ``_segmented_kernel``; ``'full'`` runs B9
     (:func:`sa_full_doubling`).  On the CPU device the plain versions run.
     The device part holds a module lock."""
     data = np.asarray(data, dtype=np.uint8)
@@ -166,10 +175,10 @@ def suffix_array_torch(data: np.ndarray, *,
     with _DEVICE_BUILD_LOCK:
         text = torch.from_numpy(padded).to(dev)
         if algorithm == 'segmented':
-            sa = derive_sa(text, n)[0][:n]
+            sa = segmented_sa(text, n)[0]
         else:
-            sa = sa_full_doubling(text, n)[N - n:]
-        return sa.cpu().numpy()
+            sa = sa_full_doubling(text, n)
+        return sa[N - n:].cpu().numpy()
 
 
 def suffix_array_int(data: np.ndarray, k: typing.Optional[int] = None,
@@ -255,6 +264,41 @@ def radix_sort_pairs(keys: torch.Tensor, vals: torch.Tensor, key_bits: int):
     return keys, vals
 
 
+def scatter_plain(values: torch.Tensor, dests: torch.Tensor,
+                  out: typing.Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version: ``out[dests] = values``, into a new tensor like
+    ``values`` when ``out`` is not given."""
+    if out is None:
+        out = torch.empty_like(values)
+    out[dests.long()] = values
+    return out
+
+
+def scatter(values: torch.Tensor, dests: torch.Tensor,
+            out: typing.Optional[torch.Tensor] = None) -> torch.Tensor:
+    """B16, the store pass of an LSD radix sort: ``out[dests[i]] =
+    values[i]`` for int32 [n] ``values`` and ``dests``, into int32 ``out``
+    (a new [n] tensor when not given).  Replaces ``pallas_scatter``
+    (``benchmarks/pallas_sort_bench.py``).  The caller's contract, as in
+    that benchmark, which scatters by a permutation: the dests are distinct
+    and inside ``out``; the card does not check it, and a slot no dest
+    names keeps what ``out`` held.  Any n: the JAX kernel's multiple of
+    8192 was the tile of its VMEM blocks, not a property of the function."""
+    if out is None:
+        out = torch.empty_like(values)
+    if not kernels.route(values, dests, out):
+        return scatter_plain(values, dests, out)
+    for t, name in ((values, 'values'), (dests, 'dests'), (out, 'out')):
+        kernels.check(t, name, torch.int32, 1)
+    n = values.shape[0]
+    if dests.shape[0] != n:
+        raise ValueError('scatter: values and dests differ in length')
+    with torch.cuda.device(values.device):
+        kernels.launch('scatter', values.data_ptr(), dests.data_ptr(), n,
+                       out.data_ptr())
+    return out
+
+
 def scan_exclusive_sum_plain(x: torch.Tensor) -> torch.Tensor:
     """Plain version: int32 [n + 1], out[i] = sum of x[:i], out[n] the
     total."""
@@ -308,7 +352,9 @@ def scan_inclusive_max(x: torch.Tensor) -> torch.Tensor:
 #: over at most every slot (36); with headroom over the largest peak
 #: measured, the digit kind's all-tied first round: 14.06 GiB above the
 #: index for a 256 Mi-slot row (56.2 bytes a slot, its SA output included;
-#: ``chip_smoke.py`` on an NVIDIA H100 80GB HBM3 at 700 W).
+#: ``chip_smoke.py`` on an NVIDIA H100 80GB HBM3 at 700 W).  Past
+#: SEGMENTED_MAX_N the same script measured less: B10 20.13 GiB at 512 Mi
+#: (40.3 bytes a slot), B9 after a poisoned B10 18.38 GiB at 416 Mi (45.3).
 SA_BUILD_BYTES_PER_SLOT = 60
 
 
@@ -409,16 +455,17 @@ def sa_init_ranked(text: torch.Tensor, n: int, rank: torch.Tensor,
     return sa, rk, gs
 
 
-def _byte_key(text: torch.Tensor, n: int) -> torch.Tensor:
-    """int64 [N]: the first 6 digits of every suffix, digit byte + 1 and 0
-    at or past n, keyed as ``limb0 << 25 | limb1`` (three base-257 digits
-    each, 257^3 < 2^25)."""
+def _byte_key(text: torch.Tensor, n: int,
+              width: int = BYTE_INIT_WIDTH) -> torch.Tensor:
+    """int64 [N]: the first ``width`` (6 or 3) digits of every suffix,
+    digit byte + 1 and 0 at or past n, keyed as ``limb0 << 25 | limb1``
+    (three base-257 digits each, 257^3 < 2^25), or ``limb0`` alone for 3."""
     iota = torch.arange(text.shape[0], device=text.device)
     e = torch.where(iota < n, text.long() + 1, 0)
     limbs = [torch.zeros_like(e), torch.zeros_like(e)]
-    for d in range(BYTE_INIT_WIDTH):
+    for d in range(width):
         limbs[d // 3] = limbs[d // 3] * 257 + _shifted(e, d)
-    return (limbs[0] << 25) | limbs[1]
+    return (limbs[0] << 25) | limbs[1] if width > 3 else limbs[0]
 
 
 def sa_init_bytes_plain(text: torch.Tensor, n: int):
@@ -432,19 +479,28 @@ def sa_init_bytes(text: torch.Tensor, n: int):
     true length ``n``: (sa, rank, gs) int32 [N] (see
     :func:`sa_init_bytes_plain`).  Replaces ``_init_round_anchored``; needs
     ``n + 6 <= N``."""
+    _check_pad_contract(text.shape[0], n, None)
+    return _init_bytes(text, n, 'sa_init_bytes', BYTE_INIT_WIDTH)
+
+
+def _init_bytes(text: torch.Tensor, n: int, name: str, width: int):
+    """The anchored init on ``width`` byte digits by the kernel ``name``
+    (B1b at 6, B10's at 3), on any ``0 <= n <= N``: the key kernel masks
+    every read at n, so the pad positions are exactly the all-zero key
+    group without a margin."""
     N = text.shape[0]
-    _check_pad_contract(N, n, None)
+    if not 0 <= n <= N:
+        raise ValueError(f'{name}: need 0 <= n <= N, got n={n}, N={N}')
     if not kernels.route(text):
-        return sa_init_bytes_plain(text, n)
+        return _init_from_key(_byte_key(text, n, width), n)
     kernels.check(text, 'text', torch.uint8, 1)
     dev = text.device
     sa, rk, gs = (torch.empty(N, dtype=torch.int32, device=dev)
                   for _ in range(3))
     scratch = kernels.scratch('sa_init', N, dev)
     with torch.cuda.device(dev):
-        kernels.launch('sa_init_bytes', text.data_ptr(), N, int(n),
-                       sa.data_ptr(), rk.data_ptr(), gs.data_ptr(),
-                       scratch.data_ptr())
+        kernels.launch(name, text.data_ptr(), N, int(n), sa.data_ptr(),
+                       rk.data_ptr(), gs.data_ptr(), scratch.data_ptr())
     return sa, rk, gs
 
 
@@ -458,11 +514,14 @@ def _tied_plain(gs: torch.Tensor) -> torch.Tensor:
 
 
 def _round_keys(sa: torch.Tensor, rank: torch.Tensor, gs: torch.Tensor,
-                k: int):
-    """A B2 round's (tied slots, their positions, their int64 keys
-    ``gs << W | (rank[pos + k] + 1)``, 0 past the row) in slot order."""
+                k: int, marked: typing.Optional[torch.Tensor] = None):
+    """A B2 round's (tied slots, or the ``marked`` ones, their positions,
+    their int64 keys ``gs << W | (rank[pos + k] + 1)``, 0 past the row) in
+    slot order."""
     N = sa.shape[0]
-    slots = torch.nonzero(_tied_plain(gs)).flatten()
+    if marked is None:
+        marked = _tied_plain(gs)
+    slots = torch.nonzero(marked).flatten()
     pos = sa[slots].long()
     q = pos + k
     r2 = torch.where(q < N, rank[q.clamp(max=N - 1)].long(), -1)
@@ -473,7 +532,15 @@ def sa_refine_round_plain(sa: torch.Tensor, rank: torch.Tensor,
                           gs: torch.Tensor, k: int) -> int:
     """Plain version of B2: refine every tied group by the rank ``k``
     positions on, in place; returns the tie count m."""
-    slots, pos, key = _round_keys(sa, rank, gs, k)
+    return _refine_plain(sa, rank, gs, k)
+
+
+def _refine_plain(sa: torch.Tensor, rank: torch.Tensor, gs: torch.Tensor,
+                  k: int, marked: typing.Optional[torch.Tensor] = None
+                  ) -> int:
+    """B2's refine body on the tied slots, or on the ``marked`` ones (whole
+    runs of their groups' first slots), in place; returns their count."""
+    slots, pos, key = _round_keys(sa, rank, gs, k, marked)
     m = slots.shape[0]
     if m == 0:
         return 0
@@ -550,8 +617,7 @@ def sa_roll_front(sa_full: torch.Tensor, n: int,
     return out
 
 
-def _derive(init_ranked, init_bytes, refine, roll, text, n, rank, bits,
-            out):
+def _segmented(init_ranked, init_bytes, refine, text, n, rank, bits):
     N = text.shape[0]
     _check_pad_contract(N, n, bits)
     if bits is None:
@@ -569,8 +635,265 @@ def _derive(init_ranked, init_bytes, refine, roll, text, n, rank, bits,
             break
         ties.append(m)
         k *= 2
-    del rk, gs
-    return roll(sa, n, out), ties
+    return sa, ties
+
+
+def segmented_sa(text: torch.Tensor, n: int,
+                 rank: typing.Optional[torch.Tensor] = None,
+                 bits: typing.Optional[int] = None):
+    """The anchored SA of a padded uint8 [N] text row of true length ``n``
+    by tie-only doubling, pad slots first as ``_segmented_kernel`` returns
+    it: (sa_full int32 [N], the tie count m of every round run).  With
+    ``bits`` None, B1b and then B2 from k = 6; with a ranked alphabet's
+    ``rank`` and ``bits``, B1 and then B2 from k = 2 * (30 // bits)
+    (``_segmented_kernel_ranked``).  The rounds double k while k < N and
+    ties remain; the host reads each round's m once."""
+    return _segmented(sa_init_ranked, sa_init_bytes, sa_refine_round, text,
+                      n, rank, bits)
+
+
+def segmented_sa_plain(text: torch.Tensor, n: int,
+                       rank: typing.Optional[torch.Tensor] = None,
+                       bits: typing.Optional[int] = None):
+    """:func:`segmented_sa` through the plain versions on any device."""
+    return _segmented(sa_init_ranked_plain, sa_init_bytes_plain,
+                      sa_refine_round_plain, text, n, rank, bits)
+
+
+# ---------------------------------------------------------------------------
+# B10: the rotating windowed doubler of rows over SEGMENTED_MAX_N
+# ---------------------------------------------------------------------------
+#
+# The JAX package sorts at most S = N / 8 elements at once on such rows, so
+# that a 512 MiB row's program fits 16 GB of HBM: each k-round sweeps the
+# slot space in windows, and a window refines every tied group whose start
+# slot lies in [off, off + W), W = S / 2, whole groups only.  A group of
+# more than S / 2 members cannot be refined in a window, so its presence
+# poisons the row, and the caller re-derives it by full-sort doubling (B9,
+# :func:`derive_sa_full`).  Natural text never trips it; one-symbol runs do.
+# The port keeps the schedule, the window and the poison rule exactly, so
+# its SA and its ``poisoned`` are the JAX function's.
+
+#: Padded rows longer than this derive through B10, shorter ones through
+#: B1/B1b and B2, as the JAX ``derive_sa`` splits at ``3 << 27``.
+SEGMENTED_MAX_N = 3 << 27
+
+#: B10's sort bound is S = N // _SEG_DIV slots (the JAX ``_SEG_DIV``).
+_SEG_DIV = 8
+
+#: Fields of B10's device control block, int32 [5] (``csrc``'s kCtl*).
+_CTL_OFF, _CTL_MW, _CTL_POISONED, _CTL_ANY_TIED, _CTL_NEXT = range(5)
+
+
+def _rotating_sizes(N: int) -> typing.Tuple[int, int]:
+    """(S // 2, W): the member-offset bound and the window of group starts
+    of a row of N slots, with the JAX ``S = max(N // 8, 8)`` and ``W =
+    max(S // 2, 4)``."""
+    S = max(N // _SEG_DIV, 8)
+    return S // 2, max(S // 2, 4)
+
+
+def sa_init3_bytes_plain(text: torch.Tensor, n: int):
+    """Plain version of B10's init: (sa, rank, gs) int32 [N] of the
+    anchored init sort over the first 3 digits of every suffix."""
+    return _init_from_key(_byte_key(text, n, 3), n)
+
+
+def sa_init3_bytes(text: torch.Tensor, n: int):
+    """B10's 3-byte anchored init of a uint8 [N] text row of true length
+    ``0 <= n <= N`` (no margin needed): (sa, rank, gs) int32 [N], k covered
+    = 3.  One (key, position) radix sort on 25 key bits, then B1b's anchored
+    tail.  Replaces ``_init_round_anchored3``."""
+    return _init_bytes(text, n, 'sa_init3_bytes', 3)
+
+
+def _new_ctl(N: int, off: int, device) -> torch.Tensor:
+    return torch.tensor([off, 0, 0, 0, N], dtype=torch.int32, device=device)
+
+
+def sa_window_scan_plain(gs: torch.Tensor, ctl: torch.Tensor,
+                         flags: torch.Tensor, dest: torch.Tensor, half: int,
+                         W: int) -> None:
+    """Plain version of B10's window scan: for the window at ``ctl[0]``,
+    ``flags`` int32 [N] marks every tied slot whose group start g lies in
+    [off, off + W) with a member offset ``slot - g`` below ``half``,
+    ``dest`` int32 [N + 1] is their exclusive scan with the count m_w last,
+    and ``ctl`` gets m_w, poisoned (a tied slot at a member offset of
+    ``half`` or more) and whether any slot is tied."""
+    N = gs.shape[0]
+    off = int(ctl[_CTL_OFF])
+    tied = _tied_plain(gs)
+    member = torch.arange(N, device=gs.device) - gs.long()
+    sel = tied & (member < half) & (gs >= off) & (gs.long() < off + W)
+    flags.copy_(sel.to(torch.int32))
+    dest.copy_(scan_exclusive_sum_plain(flags))
+    ctl[_CTL_MW] = dest[N]
+    ctl[_CTL_POISONED] = int(bool((tied & (member >= half)).any()))
+    ctl[_CTL_ANY_TIED] = int(bool(tied.any()))
+
+
+def sa_window_scan(gs: torch.Tensor, ctl: torch.Tensor, flags: torch.Tensor,
+                   dest: torch.Tensor, half: int, W: int) -> None:
+    """B10's window scan on the card, in place on ``flags``, ``dest`` and
+    the control block ``ctl`` int32 [5] (see
+    :func:`sa_window_scan_plain`); the window's offset is read from
+    ``ctl[0]`` on the device.  The selection of ``_rotating_pass``."""
+    if not kernels.route(gs, ctl, flags, dest):
+        return sa_window_scan_plain(gs, ctl, flags, dest, half, W)
+    N = gs.shape[0]
+    for t, name, size in ((gs, 'gs', N), (ctl, 'ctl', 5), (flags, 'flags', N),
+                          (dest, 'dest', N + 1)):
+        kernels.check(t, name, torch.int32, 1)
+        if t.shape[0] != size:
+            raise ValueError(f'sa_window_scan: {name} needs {size} entries')
+    dev = gs.device
+    with torch.cuda.device(dev):
+        scratch = kernels.scratch('sa_tie', N, dev)
+        kernels.launch('sa_window_scan', gs.data_ptr(), N, int(half), int(W),
+                       ctl.data_ptr(), flags.data_ptr(), dest.data_ptr(),
+                       scratch.data_ptr())
+
+
+def _window_refine_plain(sa, rank, gs, k, m, W, flags, dest, ctl) -> None:
+    """Plain version of :func:`_window_refine`."""
+    del m, dest  # the marks alone say which slots
+    N = gs.shape[0]
+    _refine_plain(sa, rank, gs, k, flags.bool())
+    off = int(ctl[_CTL_OFF])
+    start = torch.ones(N, dtype=torch.bool, device=gs.device)
+    start[1:] = gs[1:] != gs[:-1]
+    starts = torch.nonzero(start & _tied_plain(gs)).flatten()
+    later = starts[starts >= off + W]
+    nxt = int(later[0]) if later.numel() else N
+    ctl[_CTL_NEXT] = nxt
+    ctl[_CTL_OFF] = nxt if nxt < N else 0
+
+
+def _window_refine(sa, rank, gs, k, m, W, flags, dest, ctl) -> None:
+    """The rest of a B10 pass on the card (``pss_sa_rotating_pass``): B2's
+    refine body on the m marked slots of the last window scan by the rank
+    ``k`` positions on, in place, then the jump: ``ctl[4]`` = the least
+    slot at or past ``off + W`` that starts a tied group (N if none, or if
+    off + W >= N) and ``ctl[0]`` = it, or 0 at N."""
+    if not kernels.route(sa, rank, gs, flags, dest, ctl):
+        return _window_refine_plain(sa, rank, gs, k, m, W, flags, dest, ctl)
+    N = gs.shape[0]
+    for t, name in ((sa, 'sa'), (rank, 'rank'), (gs, 'gs')):
+        kernels.check(t, name, torch.int32, 1)
+        if t.shape[0] != N:
+            raise ValueError('sa_rotating_pass: sa, rank and gs differ in '
+                             'length')
+    dev = gs.device
+    with torch.cuda.device(dev):
+        scratch = kernels.scratch('sa_refine', m, dev)
+        kernels.launch('sa_rotating_pass', sa.data_ptr(), rank.data_ptr(),
+                       gs.data_ptr(), N, int(k), int(m), int(W),
+                       flags.data_ptr(), dest.data_ptr(), ctl.data_ptr(),
+                       scratch.data_ptr())
+
+
+def _pass(scan, refine, sa, rank, gs, k, off, poisoned):
+    N = gs.shape[0]
+    half, W = _rotating_sizes(N)
+    ctl = _new_ctl(N, off, gs.device)
+    flags = torch.empty(N, dtype=torch.int32, device=gs.device)
+    dest = torch.empty(N + 1, dtype=torch.int32, device=gs.device)
+    scan(gs, ctl, flags, dest, half, W)
+    _, m, pois, _, _ = ctl.tolist()
+    refine(sa, rank, gs, k, m, W, flags, dest, ctl)
+    off = int(ctl[_CTL_OFF])
+    # The jump lands at or past W >= 4, so 0 means the round is swept.
+    return (2 * k if off == 0 else k), off, poisoned or bool(pois), m
+
+
+def sa_rotating_pass(sa: torch.Tensor, rank: torch.Tensor, gs: torch.Tensor,
+                     k: int, off: int, poisoned: bool = False):
+    """One B10 pass, the JAX ``_rotating_pass``, on int32 [N] (sa, rank,
+    gs) in place: the window scan at ``off``, then the refine and the jump
+    (:func:`_window_refine`).  Returns the new (k, off, poisoned) and the
+    window's m_w.  Reads the control block twice (the loop of
+    :func:`segmented_rotating_sa` once a pass)."""
+    return _pass(sa_window_scan, _window_refine, sa, rank, gs, k, off,
+                 poisoned)
+
+
+def sa_rotating_pass_plain(sa: torch.Tensor, rank: torch.Tensor,
+                           gs: torch.Tensor, k: int, off: int,
+                           poisoned: bool = False):
+    """:func:`sa_rotating_pass` through the plain versions."""
+    return _pass(sa_window_scan_plain, _window_refine_plain, sa, rank, gs, k,
+                 off, poisoned)
+
+
+def _rotating(init6, init3, scan, refine, text, n):
+    N = text.shape[0]
+    if not 0 <= n <= N:
+        raise ValueError(f'segmented_rotating_sa: need 0 <= n <= N, got '
+                         f'n={n}, N={N}')
+    half, W = _rotating_sizes(N)
+    if N <= 1 << 28:
+        sa, rank, gs = init6(text, n)
+        k = BYTE_INIT_WIDTH
+    else:
+        sa, rank, gs = init3(text, n)
+        k = 3
+    dev = text.device
+    ctl = _new_ctl(N, 0, dev)
+    flags = torch.empty(N, dtype=torch.int32, device=dev)
+    dest = torch.empty(N + 1, dtype=torch.int32, device=dev)
+    scan(gs, ctl, flags, dest, half, W)
+    rounds: typing.List[typing.List[int]] = [[]]
+    poisoned = False
+    while True:
+        off, m, pois, any_tied, _ = ctl.tolist()  # the one read of a pass
+        if rounds[-1] and off == 0:  # the last pass swept its round
+            k *= 2
+            rounds.append([])
+        if not ((k < N or off > 0) and any_tied):
+            break
+        if pois:  # only ever turns on, and every caller discards the SA
+            poisoned = True
+            break
+        refine(sa, rank, gs, k, m, W, flags, dest, ctl)
+        rounds[-1].append(m)
+        scan(gs, ctl, flags, dest, half, W)
+    return sa, poisoned, [r for r in rounds if r]
+
+
+def segmented_rotating_sa(text: torch.Tensor, n: int):
+    """B10, the JAX ``segmented_rotating_sa``: the anchored SA of a uint8
+    [N] text row of true length ``0 <= n <= N``, pad slots first, by
+    windowed tie-only doubling that never sorts more than N / 8 elements.
+    The init is B1b's 6 bytes (k = 6) for N <= 2^28, else
+    :func:`sa_init3_bytes` (k = 3); then passes while k < N or a round is
+    mid-sweep, and some slot is tied, each a window scan and
+    :func:`_window_refine`, with one read of the control block a pass.
+    Returns (sa_full int32 [N], poisoned, the m_w of every pass, by
+    round).  ``poisoned`` True means the SA is not to be trusted: the row
+    holds a group too big for a window, and the loop stops at the first
+    window that finds one."""
+    return _rotating(_init6_any, sa_init3_bytes, sa_window_scan,
+                     _window_refine, text, n)
+
+
+def _init6_any(text: torch.Tensor, n: int):
+    """B1b on any ``0 <= n <= N``, the init of B10's rows up to 2^28 (the
+    JAX tests derive unpadded rows there)."""
+    return _init_bytes(text, n, 'sa_init_bytes', BYTE_INIT_WIDTH)
+
+
+def segmented_rotating_sa_plain(text: torch.Tensor, n: int):
+    """:func:`segmented_rotating_sa` through the plain versions."""
+    return _rotating(sa_init_bytes_plain, sa_init3_bytes_plain,
+                     sa_window_scan_plain, _window_refine_plain, text, n)
+
+
+def _derive(segmented, rotating, roll, text, n, rank, bits, out):
+    if text.shape[0] > SEGMENTED_MAX_N:
+        sa_full, poisoned, ties = rotating(text, n)
+    else:
+        (sa_full, ties), poisoned = segmented(text, n, rank, bits), False
+    return roll(sa_full, n, out), ties, poisoned
 
 
 def derive_sa(text: torch.Tensor, n: int,
@@ -578,15 +901,16 @@ def derive_sa(text: torch.Tensor, n: int,
               bits: typing.Optional[int] = None,
               out: typing.Optional[torch.Tensor] = None):
     """The SA of a padded uint8 [N] text row of true length ``n``, built on
-    the row's device: (sa int32 [N] in the rolled-front layout of the JAX
-    ``derive_sa``, the tie count m of every doubling round run).  With
-    ``bits`` None, B1b and then B2 from k = 6 (``_derive_sa_seg_jit``);
-    with a ranked alphabet's ``rank`` and ``bits``, B1 and then B2 from k =
-    2 * (30 // bits) (``_derive_sa_seg_ranked_jit``).  The rounds double k
-    while k < N and ties remain; the host reads each round's m once.
-    ``out`` (a row of the stacked index) receives the SA when given."""
-    return _derive(sa_init_ranked, sa_init_bytes, sa_refine_round,
-                   sa_roll_front, text, n, rank, bits, out)
+    the row's device, as the JAX ``derive_sa``: (sa int32 [N] rolled to the
+    front, ties, poisoned).  Rows of up to ``SEGMENTED_MAX_N`` slots take
+    :func:`segmented_sa` (``rank`` and ``bits`` pick B1 over B1b), with
+    ``ties`` the m of every round and ``poisoned`` False; longer rows take
+    :func:`segmented_rotating_sa`, which ignores ``rank`` and ``bits``, with
+    ``ties`` the m_w of every pass by round, and ``poisoned`` True where the
+    caller must re-derive the row (:func:`derive_sa_full`).  ``out`` (a row
+    of the stacked index) receives the SA when given."""
+    return _derive(segmented_sa, segmented_rotating_sa, sa_roll_front, text,
+                   n, rank, bits, out)
 
 
 def derive_sa_plain(text: torch.Tensor, n: int,
@@ -594,9 +918,8 @@ def derive_sa_plain(text: torch.Tensor, n: int,
                     bits: typing.Optional[int] = None,
                     out: typing.Optional[torch.Tensor] = None):
     """:func:`derive_sa` through the plain versions on any device."""
-    return _derive(sa_init_ranked_plain, sa_init_bytes_plain,
-                   sa_refine_round_plain, sa_roll_front_plain, text, n, rank,
-                   bits, out)
+    return _derive(segmented_sa_plain, segmented_rotating_sa_plain,
+                   sa_roll_front_plain, text, n, rank, bits, out)
 
 
 # ---------------------------------------------------------------------------
@@ -712,6 +1035,14 @@ def sa_full_doubling_plain(text: torch.Tensor, n: int) -> torch.Tensor:
     sa, rank, count = sa_full_init_bytes_plain(text, n)
     return _full_rounds(sa_full_round_plain, sa, rank, count,
                         BYTE_INIT_WIDTH)
+
+
+def derive_sa_full(text: torch.Tensor, n: int,
+                   out: typing.Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The JAX ``derive_sa_full_jit``: B9 (:func:`sa_full_doubling`) rolled
+    to the front, into ``out`` when given.  It re-derives a row that
+    :func:`segmented_rotating_sa` flags as poisoned."""
+    return sa_roll_front(sa_full_doubling(text, n), n, out)
 
 
 def _int_doubling(round_fn, ranks: torch.Tensor) -> torch.Tensor:

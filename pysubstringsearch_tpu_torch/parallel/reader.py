@@ -60,6 +60,7 @@ class ShardedIndex(DeviceIndex):
             part._build(chunks, prof)
             self.parts.append(part)
         self.sa_ties = [t for p in self.parts for t in p.sa_ties]
+        self.sa_poisoned = [x for p in self.parts for x in p.sa_poisoned]
 
     def row_sa(self, r: int) -> torch.Tensor:
         part = self.parts[r // self._rows_per_device]

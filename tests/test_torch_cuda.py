@@ -217,8 +217,8 @@ def test_sa_kernels_match_plain(cuda, size):
     assert m == pm > 0
     for a, b in zip(state, plain):
         assert torch.equal(a, b)
-    sa, ties = SA.derive_sa(text, n, rank, bits)
-    psa, pties = SA.derive_sa_plain(text, n, rank, bits)
+    sa, ties, _ = SA.derive_sa(text, n, rank, bits)
+    psa, pties, _ = SA.derive_sa_plain(text, n, rank, bits)
     torch.cuda.synchronize()
     assert ties == pties and ties[0] == m
     assert torch.equal(sa, psa)
@@ -283,8 +283,8 @@ def test_raw_kernels_match_plain(cuda, size):
     assert m == pm
     for a, b in zip(state, plain):
         assert torch.equal(a, b)
-    sa, ties = SA.derive_sa(text, n)
-    psa, pties = SA.derive_sa_plain(text, n)
+    sa, ties, _ = SA.derive_sa(text, n)
+    psa, pties, _ = SA.derive_sa_plain(text, n)
     torch.cuda.synchronize()
     assert ties == pties and torch.equal(sa, psa)
     assert np.array_equal(sa[:n].cpu().numpy(), suffix_array_native(data))
@@ -343,7 +343,7 @@ def test_digit_aux_kernels_match_plain(cuda, size, depth):
     N = _pad_len(n + S.PAD_MARGIN)
     text = torch.zeros(N, dtype=torch.uint8, device=cuda)
     text[:n] = torch.from_numpy(data)
-    sa, _ = SA.derive_sa(text, n)
+    sa = SA.derive_sa(text, n)[0]
     before = dict(kernels.LAUNCHES)
     scratch = torch.empty(N, dtype=torch.int32, device=cuda)
     table = S.digit_bucket_table(text, sa, n, depth, scratch=scratch)
@@ -530,6 +530,75 @@ def test_build_bucket_table_matches_plain(cuda, depth):
                                                          depth))
     assert np.array_equal(table.cpu().numpy(), S.build_bucket_table_host(
         body, sa[: body.size].cpu().numpy(), depth))
+
+
+@pytest.mark.parametrize('n, N', [(1, 8), (70_000, 1 << 17),
+                                  (3_000_000, 1 << 22), (1 << 20, 1 << 20)])
+def test_rotating_kernels_match_plain(cuda, n, N):
+    """B10 on the card: the 3-byte init, passes from the same state (the
+    control block, rank and gs after each, sa too: both sorts are stable),
+    and the whole doubler with the 6-byte init, bit for bit against their
+    plain versions and native SA-IS; the unpadded row has n = N."""
+    data = _raw_row(n, n + 1, 'cpu')[0]
+    text = torch.zeros(N, dtype=torch.uint8, device=cuda)
+    text[:n] = torch.from_numpy(data)
+    before = dict(kernels.LAUNCHES)
+    init = SA.sa_init3_bytes(text, n)
+    plain = SA.sa_init3_bytes_plain(text, n)
+    assert all(torch.equal(a, b) for a, b in zip(init, plain))
+    state = [t.clone() for t in init]
+    k, off, pois = 3, 0, False
+    pk, poff, ppois = 3, 0, False
+    for _ in range(6):
+        k, off, pois, m = SA.sa_rotating_pass(*state, k, off, pois)
+        pk, poff, ppois, pm = SA.sa_rotating_pass_plain(*plain, pk, poff,
+                                                        ppois)
+        assert (k, off, pois, m) == (pk, poff, ppois, pm)
+        assert all(torch.equal(a, b) for a, b in zip(state, plain))
+    sa, poisoned, ties = SA.segmented_rotating_sa(text, n)
+    psa, ppoisoned, pties = SA.segmented_rotating_sa_plain(text, n)
+    torch.cuda.synchronize()
+    assert not poisoned and not ppoisoned and ties == pties
+    assert torch.equal(sa, psa)
+    assert np.array_equal(sa[N - n:].cpu().numpy(), suffix_array_native(data))
+    for name in ('sa_init3_bytes', 'sa_init_bytes', 'sa_window_scan',
+                 'sa_rotating_pass'):
+        assert kernels.LAUNCHES[name] > before[name], name
+
+
+def test_rotating_poisoned_row_and_fallback(cuda, monkeypatch):
+    """A row of one repeated byte poisons B10 on the card as in its plain
+    version, and a derive index with the threshold lowered re-derives it
+    by B9, recorded per row and in the launch counts."""
+    text = torch.zeros(4096, dtype=torch.uint8, device=cuda)
+    text[:3000] = ord('a')
+    _, poisoned, _ = SA.segmented_rotating_sa(text, 3000)
+    _, ppoisoned, _ = SA.segmented_rotating_sa_plain(text, 3000)
+    assert poisoned and ppoisoned
+    monkeypatch.setattr(SA, 'SEGMENTED_MAX_N', 1024)
+    data = np.frombuffer(b'aaaaaaab' * 400 + b'\n', np.uint8)
+    chunks = [Chunk(data=data, suffix_array=suffix_array_native(data))]
+    before = dict(kernels.LAUNCHES)
+    idx = DeviceIndex(chunks, device=cuda, mode='derive')
+    torch.cuda.synchronize()
+    assert idx.sa_poisoned == [True]
+    for name in ('sa_window_scan', 'sa_full_init_bytes', 'sa_full_round'):
+        assert kernels.LAUNCHES[name] > before[name], name
+    assert np.array_equal(idx.sa[0, :data.size].cpu().numpy(),
+                          chunks[0].suffix_array)
+
+
+@pytest.mark.parametrize('n', [1, 8192, (1 << 20) + 3])
+def test_scatter_matches_plain(cuda, n):
+    rng = np.random.default_rng(n)
+    values = torch.from_numpy(rng.integers(0, 1 << 30, size=n,
+                                           dtype=np.int32)).to(cuda)
+    dests = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(cuda)
+    before = kernels.LAUNCHES['scatter']
+    out = SA.scatter(values, dests)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES['scatter'] == before + 1
+    assert torch.equal(out, SA.scatter_plain(values, dests))
 
 
 @pytest.mark.parametrize('size', [1, 2, 70_000, 3_000_000])

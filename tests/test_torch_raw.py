@@ -105,13 +105,13 @@ def test_byte_init_matches_jax(case):
 def test_raw_derive_sa_matches_jax_and_numpy(case):
     data = CASES[case]()
     padded, n = _padded(data), data.size
-    sa, ties = tsa.derive_sa(torch.from_numpy(padded), n)
+    sa, ties, tpois = tsa.derive_sa(torch.from_numpy(padded), n)
     jsa, poisoned = jsearch.derive_sa(jnp.asarray(padded), jnp.int32(n))
-    assert not poisoned
+    assert not poisoned and not tpois
     np.testing.assert_array_equal(sa.numpy(), np.asarray(jsa))
     np.testing.assert_array_equal(sa.numpy()[:n],
                                   tsa.suffix_array_numpy(data))
-    plain, pties = tsa.derive_sa_plain(torch.from_numpy(padded), n)
+    plain, pties, _ = tsa.derive_sa_plain(torch.from_numpy(padded), n)
     assert torch.equal(plain, sa) and pties == ties
     if case == 'repeat':
         # Every round stays fully tied until k passes the run length.
@@ -126,8 +126,8 @@ def test_raw_derive_ranks_nothing_and_launches_nothing_on_cpu():
     data = _raw_words(5, 2500)
     stack = torch.full((2, N), -7, dtype=torch.int32)
     before = dict(kernels.LAUNCHES)
-    sa, _ = tsa.derive_sa(torch.from_numpy(_padded(data)), data.size,
-                          out=stack[1])
+    sa, _, _ = tsa.derive_sa(torch.from_numpy(_padded(data)), data.size,
+                             out=stack[1])
     assert sa.data_ptr() == stack[1].data_ptr() and (stack[0] == -7).all()
     np.testing.assert_array_equal(stack[1, : data.size].numpy(),
                                   suffix_array_numpy(data))

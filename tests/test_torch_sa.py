@@ -107,13 +107,13 @@ def test_init_matches_jax(case):
 def test_derive_sa_matches_jax_and_numpy(case):
     data = CASES[case]()
     padded, n, rank, bits = _row(data)
-    sa, ties = tsa.derive_sa(
+    sa, ties, tpois = tsa.derive_sa(
         torch.from_numpy(padded), n, torch.from_numpy(rank), bits
     )
     jsa, poisoned = jsearch.derive_sa(
         jnp.asarray(padded), jnp.int32(n), jnp.asarray(rank), bits
     )
-    assert not poisoned
+    assert not poisoned and not tpois
     np.testing.assert_array_equal(sa.numpy(), np.asarray(jsa))
     np.testing.assert_array_equal(sa.numpy()[:n],
                                   tsa.suffix_array_numpy(data))
@@ -175,14 +175,14 @@ def test_derive_writes_into_out_row_and_launches_nothing_on_cpu():
     padded, n, rank, bits = _row(data)
     stack = torch.full((2, N), -7, dtype=torch.int32)
     before = dict(kernels.LAUNCHES)
-    sa, _ = tsa.derive_sa(torch.from_numpy(padded), n,
-                          torch.from_numpy(rank), bits, out=stack[1])
+    sa, _, _ = tsa.derive_sa(torch.from_numpy(padded), n,
+                             torch.from_numpy(rank), bits, out=stack[1])
     assert sa.data_ptr() == stack[1].data_ptr()
     assert (stack[0] == -7).all()
     np.testing.assert_array_equal(stack[1, :n].numpy(),
                                   tsa.suffix_array_numpy(data))
-    plain, _ = tsa.derive_sa_plain(torch.from_numpy(padded), n,
-                                   torch.from_numpy(rank), bits)
+    plain, _, _ = tsa.derive_sa_plain(torch.from_numpy(padded), n,
+                                      torch.from_numpy(rank), bits)
     assert torch.equal(plain, stack[1])
     assert kernels.LAUNCHES == before
 
