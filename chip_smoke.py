@@ -120,7 +120,11 @@ Phases (any failure raises and exits non-zero):
 13. B16 (``b16``): ``sort_bench`` at 2^24 and 2^26, launch counts from 0:
     the scatter kernel equal to its plain version, timed beside its bound,
     the plain and library scatters, one ``torch.sort`` of (key, value)
-    pairs and the port's ``radix_sort_pairs``;
+    pairs and the port's ``radix_sort_pairs`` (equal, with its pass
+    count), both sorts again at one B10 pass's shape (21 Mi pairs of
+    60-bit keys); and B8 on a skewed batch (one query of 2^24 + 3 hits
+    beside 10,000 small ones and runs of zero counts) against its plain
+    version, timed as a whole call and as the kernel alone;
 14. one JSON line of kernels (each with its launches on its path, error,
     time, plain time, bound and library-call time), the card's name and
     power limit, and the result line ``{"ok": true, "device": {...}}``
@@ -925,9 +929,31 @@ def probe_kernel(idx, packed_np, lengths_np, entry):
     return lo_k, cnt_k
 
 
+def gather_alone_ms(sa, lo, cnt, reps=5):
+    """Milliseconds of B8's kernel alone, its offsets scanned and its
+    total read beforehand (untimed): what the whole call costs above the
+    scan and the one host read."""
+    import torch
+
+    from pysubstringsearch_tpu_torch.ops import kernels
+    from pysubstringsearch_tpu_torch.ops import search as S
+
+    offsets = S.scan_exclusive_sum(cnt)
+    total = int(offsets[-1])
+    pos = torch.empty(total, dtype=torch.int32, device=sa.device)
+    qid = torch.empty_like(pos)
+    ms = cuda_ms(lambda: kernels.launch(
+        'gather_hits_flat', sa.data_ptr(), lo.data_ptr(), offsets.data_ptr(),
+        lo.shape[0], total, pos.data_ptr(), qid.data_ptr()), reps)
+    del pos, qid, offsets
+    return ms
+
+
 def gather_kernel(idx, lo_k, cnt_k, entry, label=''):
     """B8 against its plain version on every merged row, on the row's SA
-    and the probe's bounds for the whole batch, timed."""
+    and the probe's bounds for the whole batch, timed: the whole call (the
+    JSON line's time, as earlier runs timed it) and the kernel alone.
+    Returns the summed numbers."""
     import torch
 
     from pysubstringsearch_tpu_torch.ops import search as S
@@ -946,15 +972,64 @@ def gather_kernel(idx, lo_k, cnt_k, entry, label=''):
                        cuda_ms(lambda: S.gather_hits_flat_plain(sa_i, lo_i,
                                                                 cnt_i), 2),
                        int(pos_k.shape[0]),
-                       cuda_ms(lambda: torch.take(sa_i, slot), 5)))
+                       cuda_ms(lambda: torch.take(sa_i, slot), 5),
+                       gather_alone_ms(sa_i, lo_i, cnt_i)))
         del pos_k, qid_k, pos_p, qid_p, slot
-    log(f'{label}gather_hits_flat per row (hits, kernel ms, plain ms): '
-        + ', '.join(f'{g[3]} {g[1]:.4f} {g[2]:.4f}' for g in gather))
+    log(f'{label}gather_hits_flat per row (hits, call ms, kernel alone ms, '
+        'plain ms): ' + ', '.join(f'{g[3]} {g[1]:.4f} {g[5]:.4f} {g[2]:.4f}'
+                                  for g in gather))
+    numbers = {'hits': sum(g[3] for g in gather),
+               'call_ms': sum(g[1] for g in gather),
+               'kernel_alone_ms': sum(g[5] for g in gather),
+               'plain_ms': sum(g[2] for g in gather),
+               'library_ms': sum(g[4] for g in gather),
+               'bound_ms': bound_ms(sum(12 * g[3] + 8 * lo_k.shape[1]
+                                        for g in gather))}
     entry('gather_hits_flat', f'{JAX_SEARCH}:1625', SEARCH_SRC,
-          max(g[0] for g in gather), sum(g[1] for g in gather),
-          sum(g[2] for g in gather),
+          max(g[0] for g in gather), numbers['call_ms'], numbers['plain_ms'],
           sum(12 * g[3] + 8 * lo_k.shape[1] for g in gather),
-          sum(g[4] for g in gather))
+          numbers['library_ms'])
+    return numbers
+
+
+def skewed_gather_check(dev):
+    """B8 on ``sort_bench.skewed_batch``: one query of 2^24 + 3 hits
+    beside 10,000 small ones (0-300 hits) and runs of zero counts, over a
+    random permutation of 2^26 slots, against its plain version; timed
+    (the whole call and the kernel alone) beside its bound and one
+    ``torch.take`` at the hit slots made beforehand.  Returns the
+    numbers."""
+    import numpy as np
+    import torch
+
+    from pysubstringsearch_tpu_torch.ops import search as S
+    from pysubstringsearch_tpu_torch.sort_bench import skewed_batch
+
+    sa, lower, count = skewed_batch()
+    B = count.shape[0]
+    sa, lo, cnt = (torch.from_numpy(a).to(dev) for a in (sa, lower, count))
+    pos_k, qid_k = S.gather_hits_flat(sa, lo, cnt)
+    pos_p, qid_p = S.gather_hits_flat_plain(sa, lo, cnt)
+    e = max(err(pos_k, pos_p), err(qid_k, qid_p))
+    hits = int(pos_k.shape[0])
+    check(e == 0 and hits == int(count.astype(np.int64).sum()),
+          f'B8 on the skewed batch equals its plain version (max err {e})')
+    del pos_k, qid_k, pos_p, qid_p
+    slot = hit_slots(lo, cnt)
+    out = {'hits': hits, 'largest': int(count.max()),
+           'call_ms': cuda_ms(lambda: S.gather_hits_flat(sa, lo, cnt), 5),
+           'kernel_alone_ms': gather_alone_ms(sa, lo, cnt),
+           'plain_ms': cuda_ms(lambda: S.gather_hits_flat_plain(sa, lo, cnt),
+                               2),
+           'library_ms': cuda_ms(lambda: torch.take(sa, slot), 5),
+           'bound_ms': bound_ms(12 * hits + 8 * B)}
+    del slot, sa
+    log(f'B8 skewed batch ({B} queries, {hits} hits, one of {out["largest"]})'
+        f': call {out["call_ms"]:.4f} ms, kernel alone '
+        f'{out["kernel_alone_ms"]:.4f} ms, plain {out["plain_ms"]:.4f} ms, '
+        f'bound {out["bound_ms"]:.4f} ms, torch.take {out["library_ms"]:.4f}'
+        ' ms, equal')
+    return out
 
 
 def raw_probe_check(ridx, rpats, label):
@@ -1122,7 +1197,7 @@ def run_derive(idx_path, pats, dev):
         lambda t, n: SA._ranked_key(t, n, idx.rank, bits),
         2 * (30 // bits), entry, entry, 'sa_init_ranked', 330)
     derive_rows = check_derive_rows(idx, '', idx.rank, bits)
-    gather_kernel(idx, lo_k, cnt_k, entry)
+    gather = gather_kernel(idx, lo_k, cnt_k, entry)
     row0 = row0_bwt_and_b15(r, idx, lo_k, cnt_k, entries)
 
     # ---- 5. device answers against the host native path ----
@@ -1138,7 +1213,7 @@ def run_derive(idx_path, pats, dev):
     return {
         **result, 'kernels': entries, 'derive_rows': derive_rows,
         'resident_gib': torch.cuda.memory_allocated() / 2**30, **numbers,
-        'row0': row0,
+        'row0': row0, 'gather': gather,
     }
 
 
@@ -1227,7 +1302,7 @@ def run_raw(idx_path, pats, dev, ranked_rows):
     del pv, packed, limbs, table
     packed_np, lengths_np = S.pack_patterns(pats)
     lo_k, cnt_k = probe_kernel(idx, packed_np, lengths_np, check_only)
-    gather_kernel(idx, lo_k, cnt_k, check_only, 'raw ')
+    gather = gather_kernel(idx, lo_k, cnt_k, check_only, 'raw ')
     del lo_k, cnt_k
     torch.cuda.empty_cache()
 
@@ -1255,7 +1330,7 @@ def run_raw(idx_path, pats, dev, ranked_rows):
         'seed_table_ms': {'kernel': table_ms, 'plain': table_plain_ms},
         'resident_gib': torch.cuda.memory_allocated() / 2**30,
         'probe_p50_ms': p50, 'host_search_s': host_search_s,
-        'launches': launches,
+        'launches': launches, 'gather': gather,
     }
 
 
@@ -1553,7 +1628,7 @@ def byte_sampler_check(r, idx, byte_pats):
 
     lo_k, cnt_k = digit_probe_kernel(idx, bp, bl, note)
     hits = int(cnt_k.long().sum())
-    gather_kernel(idx, lo_k, cnt_k, note, label)
+    times['gather'] = gather_kernel(idx, lo_k, cnt_k, note, label)
     del lo_k, cnt_k
     cm = idx.count_matches(bp, bl).sum(0)
     host = r._host_serving.probe(*pack_patterns_host(byte_pats))[1].sum(0)
@@ -1604,7 +1679,7 @@ def run_digit(idx_path, pats, byte_pats, dev, chunk_datas):
     digit_aux_kernels(idx, entry, check_only)
     packed_np, lengths_np = S.pack_patterns(pats)
     lo_k, cnt_k = digit_probe_kernel(idx, packed_np, lengths_np, entry)
-    gather_kernel(idx, lo_k, cnt_k, check_only, 'digit ')
+    gather = gather_kernel(idx, lo_k, cnt_k, check_only, 'digit ')
     n_high = len(DIGIT_HIGH)
     check(int(cnt_k[:, -n_high:].sum()) == 0,
           'patterns with a byte >= 0x80 count 0')
@@ -1637,7 +1712,7 @@ def run_digit(idx_path, pats, byte_pats, dev, chunk_datas):
     return {**result, 'kernels': entries, 'derive_rows': derive_rows,
             'resident_gib': resident, 'probe_p50_ms': p50,
             'host_search_s': host_search_s, 'launches': launches,
-            'byte_sampler': byte_sampler}
+            'byte_sampler': byte_sampler, 'gather': gather}
 
 
 def run_b9(chunk_datas, native_sas, dev):
@@ -2249,10 +2324,9 @@ def rotating_kernels(text, n, entry):
     del pstate
     half, W = SA._rotating_sizes(N)
     ctl = SA._new_ctl(N, 0, text.device)
-    flags = torch.empty(N, dtype=torch.int32, device=text.device)
-    dest = torch.empty(N + 1, dtype=torch.int32, device=text.device)
+    flags, dest = SA._window_bufs(N, text.device)
     SA.sa_window_scan_plain(first[2], ctl, flags, dest, half, W)
-    keys = SA._round_keys(*first, 3, flags.bool())[2]
+    keys = SA._round_keys(*first, 3, SA._span_mask(flags, 0, N))[2]
     del ctl, flags, dest
 
     def restore():
@@ -2445,8 +2519,12 @@ def run_bigrow(corpus, adv, refs, pats, d, dev):
 def run_b16():
     """B16 through ``sort_bench`` at 2^24 and 2^26 with launch counts from
     0: the scatter kernel equal to its plain version, beside one
-    ``torch.sort`` of (key, value) pairs and ``radix_sort_pairs``.
-    Returns the numbers and B16's kernel row (at 2^26)."""
+    ``torch.sort`` of (key, value) pairs and ``radix_sort_pairs``; the two
+    sorts again at one B10 pass's shape (``measure_wide``); and B8 on a
+    skewed batch (:func:`skewed_gather_check`).  Returns the numbers and
+    B16's kernel row (at 2^26)."""
+    import torch
+
     from pysubstringsearch_tpu_torch import sort_bench
     from pysubstringsearch_tpu_torch.ops import kernels
 
@@ -2462,15 +2540,26 @@ def run_b16():
             f'{x["scatter_bound_ms"]:.4f}), plain {x["plain_scatter_ms"]:.4f}'
             f', library scatter_ {x["library_scatter_ms"]:.4f}; torch.sort '
             f'pairs {x["torch_sort_pairs_ms"]:.4f} ms, radix_sort_pairs '
-            f'{x["radix_sort_pairs_ms"]:.4f} ms')
+            f'{x["radix_sort_pairs_ms"]:.4f} ms ({x["radix_sort_passes"]} '
+            'passes)')
+    wide = sort_bench.measure_wide()
+    check(wide['radix_sort_max_abs_err'] == 0,
+          f'radix_sort_pairs equals torch.sort at B10\'s pass shape '
+          f'({wide["n"]} pairs, {wide["key_bits"]} bits)')
+    log(f'sort_bench at B10\'s pass shape, {wide["n"]} pairs of '
+        f'{wide["key_bits"]}-bit keys: radix_sort_pairs '
+        f'{wide["radix_sort_pairs_ms"]:.4f} ms ({wide["radix_sort_passes"]} '
+        f'passes), torch.sort pairs {wide["torch_sort_pairs_ms"]:.4f} ms, '
+        f'bound {wide["sort_bound_ms"]:.4f} ms, equal')
+    skewed = skewed_gather_check(torch.device('cuda'))
     entries = []
     big = runs[-1]
     kernel_check('b16 ', entries, launches)(
         'scatter', 'benchmarks/pallas_sort_bench.py:77', SA_SRC,
         max(x['scatter_max_abs_err'] for x in runs), big['scatter_ms'],
         big['plain_scatter_ms'], 12 * big['n'], big['library_scatter_ms'])
-    return {'kernels': entries, 'runs': runs,
-            'launches': launches['scatter']}
+    return {'kernels': entries, 'runs': runs, 'wide': wide,
+            'launches': launches['scatter'], 'b8_skewed': skewed}
 
 
 if __name__ == '__main__':

@@ -460,25 +460,60 @@ __global__ void probe_limbs_kernel(
 // searchsorted over the count prefix sums.
 //
 // pos[offsets[q] + t] = sa[lower[q] + t] and qid[offsets[q] + t] = q for
-// t < count[q], where offsets is the exclusive scan of count
-// (pss_scan_exclusive_sum).  One block per query copies its SA range, so
-// the output is exactly the hits, with no search.  Bound by memory: 4
-// bytes read and 8 written per hit, coalesced within each query's range.
+// t < count[q], where offsets int32 [B + 1] is the exclusive scan of count
+// (pss_scan_exclusive_sum) and total = offsets[B].  Parallel over output
+// slots, as the JAX gather is, so the time follows the hit total and not
+// the largest range: a block owns kGatherTile consecutive slots, bisects
+// offsets once for the query of its first slot and once for its last, and
+// each thread finds its slots' query inside that range (the last q with
+// offsets[q] <= o, which skips the zero-count queries that share an offset
+// with the next one), starting from its previous slot's query and first
+// trying the next one.  Stores are coalesced across threads, and so are the
+// sa reads within a query's run.  Bound by memory: 4 bytes read and 8
+// written a hit, and the offsets and lower bounds a query.
 // ---------------------------------------------------------------------------
+constexpr int kGatherItems = 16;
+constexpr int kGatherTile = kThreads * kGatherItems;
+
+// The last q in [lo, hi] with offsets[q] <= o, given offsets[lo] <= o.
+__device__ __forceinline__ int owner(const int* __restrict__ offsets, int lo,
+                                     int hi, long long o) {
+  if (lo == hi || offsets[lo + 1] > o) return lo;
+  lo += 1;
+  while (lo < hi) {
+    const int mid = lo + ((hi - lo + 1) >> 1);
+    if (offsets[mid] <= o) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  return lo;
+}
+
 __global__ void gather_hits_flat_kernel(const int* __restrict__ sa,
                                         const int* __restrict__ lower,
-                                        const int* __restrict__ count,
                                         const int* __restrict__ offsets,
-                                        int B, int* __restrict__ pos,
+                                        int B, long long total,
+                                        int* __restrict__ pos,
                                         int* __restrict__ qid) {
-  for (int q = blockIdx.x; q < B; q += gridDim.x) {
-    const int c = count[q];
-    const long long lo = lower[q];
-    const long long off = offsets[q];
-    for (int t = threadIdx.x; t < c; t += blockDim.x) {
-      pos[off + t] = sa[lo + t];
-      qid[off + t] = q;
-    }
+  __shared__ int s_q[2];
+  const long long tile = static_cast<long long>(blockIdx.x) * kGatherTile;
+  if (threadIdx.x < 2) {
+    const long long last = tile + kGatherTile < total ? tile + kGatherTile
+                                                      : total;
+    s_q[threadIdx.x] =
+        owner(offsets, 0, B - 1, threadIdx.x == 0 ? tile : last - 1);
+  }
+  __syncthreads();
+  int q = s_q[0];
+  const int q_last = s_q[1];
+  for (int r = 0; r < kGatherItems; ++r) {
+    const long long o = tile + r * kThreads + threadIdx.x;
+    if (o >= total) break;
+    q = owner(offsets, q, q_last, o);
+    pos[o] = sa[lower[q] + (o - offsets[q])];
+    qid[o] = q;
   }
 }
 
@@ -669,15 +704,17 @@ int pss_probe_limbs(const void* text, const void* n_rows, const void* sa,
   return (int)cudaGetLastError();
 }
 
-int pss_gather_hits_flat(const void* sa, const void* lower, const void* count,
-                         const void* offsets, int B, void* pos, void* qid,
-                         void* stream) {
-  if (B <= 0) return 0;
-  unsigned grid = (unsigned)B;
-  if (grid > 65536u * 16u) grid = 65536u * 16u;
-  gather_hits_flat_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)sa, (const int*)lower, (const int*)count,
-      (const int*)offsets, B, (int*)pos, (int*)qid);
+// offsets int32 [B + 1], the exclusive scan of the counts; total =
+// offsets[B], read by the caller, sizes pos and qid and the grid.
+int pss_gather_hits_flat(const void* sa, const void* lower,
+                         const void* offsets, int B, long long total,
+                         void* pos, void* qid, void* stream) {
+  if (B <= 0 || total <= 0) return 0;
+  const long long grid = (total + kGatherTile - 1) / kGatherTile;
+  gather_hits_flat_kernel<<<(unsigned)grid, kThreads, 0,
+                            (cudaStream_t)stream>>>(
+      (const int*)sa, (const int*)lower, (const int*)offsets, B, total,
+      (int*)pos, (int*)qid);
   return (int)cudaGetLastError();
 }
 

@@ -3,11 +3,11 @@
 // tie-only doubling rounds (B2), the rotating windowed doubler of rows over
 // 384 Mi (B10), the full-sort doubling of the Writer's 'full' build, of
 // integer alphabets and of B10's poisoned rows (B9), and the building
-// blocks they are made of
-// -- a stable LSD radix sort of (uint64 key, int32 value) pairs, an
-// exclusive sum scan and an inclusive max scan over int32 -- with the radix
-// sort's store pass alone as a scatter (B16).  No library computes any of
-// them: no cub::Device* routine, no Thrust, no torch operator.
+// blocks they are made of -- a stable one-sweep LSD radix sort of (uint64
+// key, int32 value) pairs, an exclusive sum scan and an inclusive max scan
+// over int32 -- with the radix sort's store pass alone as a scatter (B16).
+// No library computes any of them: no cub::Device* routine, no Thrust, no
+// torch operator.
 //
 // Built by pysubstringsearch_tpu_torch/ops/kernels.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -c ... && nvcc -shared
@@ -35,7 +35,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kRadixBits = 8;
 constexpr int kRadix = 1 << kRadixBits;
 static_assert(kRadix == kThreads, "one digit per thread in the sort passes");
-constexpr int kSortTile = 4096;  // elements per block in a sort pass
 constexpr int kScanItems = 8;
 constexpr int kScanTile = kThreads * kScanItems;
 constexpr unsigned kFull = 0xffffffffu;
@@ -112,28 +111,50 @@ __device__ int block_exclusive_scan(int x, int* total) {
   return Op::apply(s_warp[warp], excl);
 }
 
+__host__ __device__ inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
 // One tile per block; in == out is allowed (each thread reads its own
 // items before any write).  sums, when not null, gets each block's total.
+// A thread's 8 items are two 16-byte loads and stores where both buffers
+// are aligned (vec), so a warp moves 1 KB at a time.
 template <class Op>
 __global__ void scan_tile_kernel(const int* in, int* out, long long n,
-                                 int* sums, int exclusive) {
+                                 int* sums, int exclusive, int vec) {
   const long long base =
       static_cast<long long>(blockIdx.x) * kScanTile +
       static_cast<long long>(threadIdx.x) * kScanItems;
+  const bool whole = vec && base + kScanItems <= n;
   int v[kScanItems];
-  int acc = Op::identity();
-  for (int j = 0; j < kScanItems; ++j) {
-    long long i = base + j;
-    v[j] = i < n ? in[i] : Op::identity();
-    acc = Op::apply(acc, v[j]);
+  if (whole) {
+    const int4 a = *reinterpret_cast<const int4*>(in + base);
+    const int4 b = *reinterpret_cast<const int4*>(in + base + 4);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  } else {
+    for (int j = 0; j < kScanItems; ++j) {
+      const long long i = base + j;
+      v[j] = i < n ? in[i] : Op::identity();
+    }
   }
+  int acc = Op::identity();
+  for (int j = 0; j < kScanItems; ++j) acc = Op::apply(acc, v[j]);
   int total;
   int run = block_exclusive_scan<Op>(acc, &total);
   for (int j = 0; j < kScanItems; ++j) {
-    long long i = base + j;
-    int next = Op::apply(run, v[j]);
-    if (i < n) out[i] = exclusive ? run : next;
+    const int next = Op::apply(run, v[j]);
+    v[j] = exclusive ? run : next;
     run = next;
+  }
+  if (whole) {
+    *reinterpret_cast<int4*>(out + base) = make_int4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<int4*>(out + base + 4) =
+        make_int4(v[4], v[5], v[6], v[7]);
+  } else {
+    for (int j = 0; j < kScanItems; ++j) {
+      if (base + j < n) out[base + j] = v[j];
+    }
   }
   if (sums != nullptr && threadIdx.x == 0) sums[blockIdx.x] = total;
 }
@@ -165,14 +186,15 @@ void scan_levels(const int* in, int* out, long long n, bool exclusive,
                  int* scratch, cudaStream_t st) {
   if (n <= 0) return;
   const long long nb = cdiv(n, kScanTile);
+  const int vec = aligned16(in) && aligned16(out) ? 1 : 0;
   if (nb == 1) {
     scan_tile_kernel<Op><<<1, kThreads, 0, st>>>(in, out, n, nullptr,
-                                                 exclusive ? 1 : 0);
+                                                 exclusive ? 1 : 0, vec);
     return;
   }
   int* sums = scratch;
   scan_tile_kernel<Op><<<static_cast<unsigned>(nb), kThreads, 0, st>>>(
-      in, out, n, sums, exclusive ? 1 : 0);
+      in, out, n, sums, exclusive ? 1 : 0, vec);
   scan_levels<Op>(sums, sums, nb, true, scratch + nb, st);
   scan_add_kernel<Op><<<static_cast<unsigned>(nb), kThreads, 0, st>>>(
       out, n, sums);
@@ -184,136 +206,274 @@ __global__ void scan_total_kernel(const int* in, int* out, long long n) {
 }
 
 // ---------------------------------------------------------------------------
-// Stable LSD radix sort of (uint64 key, int32 value) pairs, 8 bits a pass,
-// only as many passes as the key's bit width needs.  Each pass is three
-// launches:
-//   1. a per-tile digit histogram (shared-memory atomics: counts only, so
-//      their order does not matter), stored digit-major;
-//   2. an exclusive sum scan of the histograms, which gives every (digit,
-//      tile) its first output slot in stable order;
-//   3. a scatter that ranks each element within its tile without atomics:
-//      the tile is walked in rounds of 256 elements in index order; inside
-//      a warp __match_any_sync finds the lanes with the same digit and the
-//      lower lanes among them give the rank; the per-warp counts are then
-//      scanned across the 8 warps per digit.  Equal digits therefore keep
-//      their input order, which is what makes every pass, and so the sort,
-//      stable.
-// Bound by memory on the card: a pass reads the keys twice and the values
-// once and writes both, 32 bytes per element, and the scatter's writes
-// land in up to 256 runs per round, so they coalesce poorly.  Simple
-// first; a one-sweep decoupled-lookback sort is later work.
+// Stable LSD radix sort of (uint64 key, int32 value) pairs, 8 bits a digit
+// pass, only as many passes as the key's bit width needs: a one-sweep sort
+// after Adinets and Merrill, "Onesweep: A Faster Least Significant Digit
+// Radix Sort for GPUs" (2022), written here without CUB.
+//   1. onesweep_hist_kernel reads the keys once and counts every pass's
+//      digits: shared-memory counts (a thread merges runs of one digit
+//      into one atomic, so keys whose high digits are all equal do not
+//      serialise on one counter), then global atomics.
+//      onesweep_bins_kernel scans each pass's 256 counts into the first
+//      output slot of every digit.
+//   2. onesweep_pass_kernel, one launch a pass.  A block takes the next
+//      tile of kSortTile pairs from the pass's atomic counter, so every
+//      earlier tile already runs on some SM and the look-back below cannot
+//      wait on a block that was never scheduled.  Each warp holds 16
+//      groups of 32 consecutive pairs in registers (warp-striped), so
+//      item j of lane l comes before item j of lane l + 1 and before item
+//      j + 1 of every lane; ranking items j in order with
+//      __match_any_sync, lanes with the same digit count up in lane
+//      order: the rank is stable within the warp.  The per-warp counts
+//      are scanned across warps (warp w's keys precede warp w + 1's), so
+//      the tile's order is stable too.
+//      Decoupled look-back: thread d publishes the tile's count of digit d
+//      (an aggregate), then walks back over earlier tiles' words, summing
+//      aggregates until it meets an inclusive prefix, and publishes its
+//      own inclusive prefix.  A word is 64 bits: the value (below 2^31)
+//      in the low half and a tag in the high half, 2 * pass + 1 for an
+//      aggregate and 2 * pass + 2 for a prefix, so an earlier pass's word
+//      reads as not yet published and the words are zeroed once a sort.
+//      The tile is then staged in shared memory in digit order and
+//      written out so that consecutive threads store consecutive slots of
+//      one digit's run, keys first, then values through the same buffer.
+// Every count, counter and status word lives in the caller's scratch and
+// is zeroed on the caller's stream, so sorts on several streams or threads
+// never share state.  Bound by memory: the histogram reads 8 bytes a pair,
+// each pass reads and writes 12; the status words add 0.5 bytes a pair.
 // ---------------------------------------------------------------------------
-__global__ void radix_hist_kernel(const uint64_t* __restrict__ keys,
-                                  long long n, int shift,
-                                  int* __restrict__ hist, int tiles) {
-  __shared__ int counts[kRadix];
-  counts[threadIdx.x] = 0;
+constexpr int kSortItems = 16;                    // pairs a thread holds
+constexpr int kSortTile = kThreads * kSortItems;  // pairs a block sorts
+constexpr int kWarpItems = 32 * kSortItems;
+constexpr int kMaxPasses = 8;                     // 64 key bits
+constexpr int kHistBlocks = 512;
+
+__global__ void __launch_bounds__(kThreads)
+onesweep_hist_kernel(const uint64_t* __restrict__ keys, long long n,
+                     int passes, unsigned* __restrict__ hist) {
+  __shared__ unsigned counts[kMaxPasses][kRadix];
+  for (int p = 0; p < kMaxPasses; ++p) counts[p][threadIdx.x] = 0;
   __syncthreads();
-  const long long begin = static_cast<long long>(blockIdx.x) * kSortTile;
-  const long long end = begin + kSortTile < n ? begin + kSortTile : n;
-  for (long long i = begin + threadIdx.x; i < end; i += kThreads) {
-    atomicAdd(&counts[(keys[i] >> shift) & (kRadix - 1)], 1);
+  for (long long base = static_cast<long long>(blockIdx.x) * kSortTile;
+       base < n; base += static_cast<long long>(gridDim.x) * kSortTile) {
+    uint64_t key[kSortItems];
+#pragma unroll
+    for (int r = 0; r < kSortItems; ++r) {
+      const long long i = base + r * kThreads + threadIdx.x;
+      key[r] = i < n ? keys[i] : 0;
+    }
+    // Item r is in the row when r * kThreads < left.
+    const long long left = n - base - threadIdx.x;
+#pragma unroll
+    for (int p = 0; p < kMaxPasses; ++p) {
+      if (p >= passes) break;
+      int prev = -1;
+      unsigned run = 0;
+#pragma unroll
+      for (int r = 0; r < kSortItems; ++r) {
+        if (r * kThreads >= left) break;
+        const int d = static_cast<int>((key[r] >> (kRadixBits * p)) &
+                                       (kRadix - 1));
+        if (d != prev) {
+          if (run) atomicAdd(&counts[p][prev], run);
+          prev = d;
+          run = 0;
+        }
+        ++run;
+      }
+      if (run) atomicAdd(&counts[p][prev], run);
+    }
   }
   __syncthreads();
-  hist[static_cast<long long>(threadIdx.x) * tiles + blockIdx.x] =
-      counts[threadIdx.x];
+  for (int p = 0; p < passes; ++p) {
+    const unsigned c = counts[p][threadIdx.x];
+    if (c) atomicAdd(&hist[p * kRadix + threadIdx.x], c);
+  }
 }
 
-__global__ void radix_scatter_kernel(const uint64_t* __restrict__ kin,
-                                     const int* __restrict__ vin,
-                                     uint64_t* __restrict__ kout,
-                                     int* __restrict__ vout, long long n,
-                                     int shift,
-                                     const int* __restrict__ offsets,
-                                     int tiles) {
-  __shared__ int base[kRadix];
-  __shared__ int warp_counts[kWarps][kRadix];
+// Block p turns pass p's 256 digit counts into their first output slots.
+__global__ void onesweep_bins_kernel(unsigned* __restrict__ hist) {
+  unsigned* h = hist + blockIdx.x * kRadix;
+  int total;
+  const int first =
+      block_exclusive_scan<SumOp>(static_cast<int>(h[threadIdx.x]), &total);
+  h[threadIdx.x] = static_cast<unsigned>(first);
+}
+
+__device__ __forceinline__ void status_store(unsigned long long* word,
+                                             unsigned tag, unsigned value) {
+  *reinterpret_cast<volatile unsigned long long*>(word) =
+      (static_cast<unsigned long long>(tag) << 32) | value;
+}
+
+__global__ void __launch_bounds__(kThreads)
+onesweep_pass_kernel(const uint64_t* __restrict__ kin,
+                     const int* __restrict__ vin, uint64_t* __restrict__ kout,
+                     int* __restrict__ vout, long long n, int pass,
+                     const unsigned* __restrict__ bins,
+                     unsigned long long* status, int* counter) {
+  __shared__ int s_tile;
+  __shared__ unsigned s_warp[kWarps][kRadix];  // per-warp counts, then offsets
+  __shared__ int s_local[kRadix];  // staged index of each digit's first pair
+  __shared__ int s_base[kRadix];   // its output slot minus that index
+  __shared__ union {
+    uint64_t keys[kSortTile];
+    int vals[kSortTile];
+  } s_stage;
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
-  base[t] = offsets[static_cast<long long>(t) * tiles + blockIdx.x];
-  for (int w = 0; w < kWarps; ++w) warp_counts[w][t] = 0;
+  if (t == 0) s_tile = atomicAdd(counter, 1);
+  for (int w = 0; w < kWarps; ++w) s_warp[w][t] = 0;
   __syncthreads();
-  const long long begin = static_cast<long long>(blockIdx.x) * kSortTile;
-  const long long end = begin + kSortTile < n ? begin + kSortTile : n;
+  const long long tile = s_tile;
+  const long long tile_base = tile * kSortTile;
+  const long long warp_base = tile_base + warp * kWarpItems + lane;
+  const int shift = kRadixBits * pass;
+  uint64_t key[kSortItems];
+  int val[kSortItems];
+  int slot[kSortItems];  // rank within the warp, then the staged index
+#pragma unroll
+  for (int j = 0; j < kSortItems; ++j) {
+    const long long i = warp_base + 32 * j;
+    key[j] = i < n ? kin[i] : 0;
+    val[j] = i < n ? vin[i] : 0;
+  }
   const unsigned lower_lanes = (1u << lane) - 1u;
-  for (long long start = begin; start < end; start += kThreads) {
-    const long long i = start + t;
-    const bool valid = i < end;
-    uint64_t key = 0;
-    int val = 0;
-    int digit = kRadix;  // past every real digit: invalid lanes group apart
-    if (valid) {
-      key = kin[i];
-      val = vin[i];
-      digit = static_cast<int>((key >> shift) & (kRadix - 1));
+#pragma unroll
+  for (int j = 0; j < kSortItems; ++j) {
+    const bool valid = warp_base + 32 * j < n;
+    // Past the end: a digit of its own, never counted.
+    const int d = valid ? static_cast<int>((key[j] >> shift) & (kRadix - 1))
+                        : kRadix;
+    const unsigned peers = __match_any_sync(kFull, d);
+    const unsigned below = peers & lower_lanes;
+    const unsigned before = valid ? s_warp[warp][d] : 0;
+    __syncwarp();
+    if (valid && below == 0) s_warp[warp][d] = before + __popc(peers);
+    __syncwarp();
+    slot[j] = static_cast<int>(before) + __popc(below);
+  }
+  __syncthreads();
+  // Thread t owns digit t: its per-warp counts become per-warp offsets.
+  unsigned count = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    const unsigned c = s_warp[w][t];
+    s_warp[w][t] = count;
+    count += c;
+  }
+  unsigned long long* mine = status + tile * kRadix + t;
+  const unsigned tag_agg = 2 * pass + 1;
+  const unsigned tag_prefix = 2 * pass + 2;
+  status_store(mine, tile == 0 ? tag_prefix : tag_agg,
+               tile == 0 ? bins[t] + count : count);
+  int tile_total;
+  const int local = block_exclusive_scan<SumOp>(static_cast<int>(count),
+                                                &tile_total);
+  unsigned first = bins[t];
+  if (tile > 0) {
+    first = 0;
+    for (long long p = tile - 1;; --p) {
+      const volatile unsigned long long* w =
+          reinterpret_cast<const volatile unsigned long long*>(
+              status + p * kRadix + t);
+      unsigned long long word;
+      do {
+        word = *w;
+      } while (static_cast<unsigned>(word >> 32) < tag_agg);
+      first += static_cast<unsigned>(word);
+      if (static_cast<unsigned>(word >> 32) == tag_prefix) break;
     }
-    const unsigned peers = __match_any_sync(kFull, digit);
-    const int before = __popc(peers & lower_lanes);
-    if (valid && before == 0) warp_counts[warp][digit] = __popc(peers);
-    __syncthreads();
-    // Thread t owns digit t: exclusive prefix of its count over the warps.
-    int total = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      int c = warp_counts[w][t];
-      warp_counts[w][t] = total;
-      total += c;
+    status_store(mine, tag_prefix, first + count);
+  }
+  s_local[t] = local;
+  s_base[t] = static_cast<int>(first) - local;
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kSortItems; ++j) {
+    if (warp_base + 32 * j < n) {
+      const int d = static_cast<int>((key[j] >> shift) & (kRadix - 1));
+      slot[j] += s_local[d] + static_cast<int>(s_warp[warp][d]);
+      s_stage.keys[slot[j]] = key[j];
     }
-    __syncthreads();
-    if (valid) {
-      const int dst = base[digit] + warp_counts[warp][digit] + before;
-      kout[dst] = key;
-      vout[dst] = val;
+  }
+  __syncthreads();
+  const long long rest = n - tile_base;
+  const int valid_count = rest < kSortTile ? static_cast<int>(rest)
+                                           : kSortTile;
+  int dst[kSortItems];
+#pragma unroll
+  for (int r = 0; r < kSortItems; ++r) {
+    const int i = r * kThreads + t;
+    if (i < valid_count) {
+      const uint64_t k = s_stage.keys[i];
+      dst[r] = s_base[(k >> shift) & (kRadix - 1)] + i;
+      kout[dst[r]] = k;
     }
-    __syncthreads();
-    base[t] += total;
-    for (int w = 0; w < kWarps; ++w) warp_counts[w][t] = 0;
-    __syncthreads();
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kSortItems; ++j) {
+    if (warp_base + 32 * j < n) s_stage.vals[slot[j]] = val[j];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kSortItems; ++r) {
+    const int i = r * kThreads + t;
+    if (i < valid_count) vout[dst[r]] = s_stage.vals[i];
   }
 }
 
 struct SortBufs {
   uint64_t* keys_alt;
   int* vals_alt;
-  int* hist;
-  int* scan;
+  unsigned long long* status;  // [tiles][kRadix]
+  unsigned* hist;              // [kMaxPasses][kRadix], then the counters
 };
 
+constexpr int kSortCounters = kMaxPasses * kRadix + kMaxPasses;
+
 SortBufs carve_sort(Arena& a, long long n) {
-  const long long tiles = cdiv(n, kSortTile);
   SortBufs s;
   s.keys_alt = a.take<uint64_t>(n);
   s.vals_alt = a.take<int>(n);
-  s.hist = a.take<int>(kRadix * tiles);
-  s.scan = a.take<int>(scan_scratch_elems(kRadix * tiles));
+  s.status = a.take<unsigned long long>(kRadix * cdiv(n, kSortTile));
+  s.hist = a.take<unsigned>(kSortCounters);
   return s;
 }
 
-// Sorts (keys, vals)[0, n) by the low key_bits bits of the keys; the
-// result is in keys / vals.
-void radix_sort_pairs(uint64_t* keys, int* vals, long long n, int key_bits,
-                      const SortBufs& s, cudaStream_t st) {
-  if (n <= 1 || key_bits <= 0) return;
-  const int tiles = static_cast<int>(cdiv(n, kSortTile));
-  uint64_t* kin = keys;
-  int* vin = vals;
-  uint64_t* kout = s.keys_alt;
-  int* vout = s.vals_alt;
-  for (int shift = 0; shift < key_bits; shift += kRadixBits) {
-    radix_hist_kernel<<<tiles, kThreads, 0, st>>>(kin, n, shift, s.hist,
-                                                  tiles);
-    scan_levels<SumOp>(s.hist, s.hist, static_cast<long long>(kRadix) * tiles,
-                       true, s.scan, st);
-    radix_scatter_kernel<<<tiles, kThreads, 0, st>>>(kin, vin, kout, vout, n,
-                                                     shift, s.hist, tiles);
-    uint64_t* kt = kin; kin = kout; kout = kt;
-    int* vt = vin; vin = vout; vout = vt;
+// Where a sort left its pairs: the caller's buffers or the alternates.
+struct Pairs {
+  uint64_t* keys;
+  int* vals;
+};
+
+// Sorts (keys, vals)[0, n) by the low key_bits bits of the keys (every key
+// below 2^key_bits); returns the buffers that hold the result.
+Pairs radix_sort_pairs(uint64_t* keys, int* vals, long long n, int key_bits,
+                       const SortBufs& s, cudaStream_t st) {
+  Pairs in{keys, vals};
+  if (n <= 1 || key_bits <= 0) return in;
+  const int passes = (key_bits + kRadixBits - 1) / kRadixBits;
+  const long long tiles = cdiv(n, kSortTile);
+  cudaMemsetAsync(s.status, 0, sizeof(unsigned long long) * kRadix * tiles,
+                  st);
+  cudaMemsetAsync(s.hist, 0, sizeof(unsigned) * kSortCounters, st);
+  const long long hist_blocks = tiles < kHistBlocks ? tiles : kHistBlocks;
+  onesweep_hist_kernel<<<static_cast<unsigned>(hist_blocks), kThreads, 0,
+                         st>>>(keys, n, passes, s.hist);
+  onesweep_bins_kernel<<<passes, kThreads, 0, st>>>(s.hist);
+  int* counters = reinterpret_cast<int*>(s.hist + kMaxPasses * kRadix);
+  Pairs out{s.keys_alt, s.vals_alt};
+  for (int p = 0; p < passes; ++p) {
+    onesweep_pass_kernel<<<static_cast<unsigned>(tiles), kThreads, 0, st>>>(
+        in.keys, in.vals, out.keys, out.vals, n, p, s.hist + p * kRadix,
+        s.status, counters + p);
+    const Pairs t = in;
+    in = out;
+    out = t;
   }
-  if (kin != keys) {
-    cudaMemcpyAsync(keys, kin, sizeof(uint64_t) * n, cudaMemcpyDeviceToDevice,
-                    st);
-    cudaMemcpyAsync(vals, vin, sizeof(int) * n, cudaMemcpyDeviceToDevice, st);
-  }
+  return in;
 }
 
 // ---------------------------------------------------------------------------
@@ -347,7 +507,7 @@ __global__ void scatter_kernel(const int* __restrict__ values,
 // the pairs are radix-sorted (8 passes); pad slots i < N - n hold
 // N - 1 - i and every slot up to N - n starts a group, as in the JAX
 // function; gs is the max-scan of the group-start slots and rank[sa[i]] =
-// gs[i].  Bound by memory: the sort is about 8 x 32 bytes per slot, the
+// gs[i].  Bound by memory: the sort is about 8 + 8 x 24 bytes per slot, the
 // rest a few passes of 4-12 bytes.
 // ---------------------------------------------------------------------------
 __global__ void init_keys_kernel(const uint8_t* __restrict__ text,
@@ -387,7 +547,7 @@ __global__ void init_keys_kernel(const uint8_t* __restrict__ text,
 // that sorts as the JAX pair does, and the radix sort runs 7 passes (B1's
 // 60-bit key takes 8).  The rest is B1's pipeline unchanged: the forced pad
 // singletons, the group-start max-scan and the rank scatter.  Bound by
-// memory like B1: the sort moves about 7 x 32 bytes per slot; the key pass
+// memory like B1: the sort moves about 8 + 7 x 24 bytes per slot; the key pass
 // reads 1 byte a slot (the 5 neighbours come from L1) and writes 12.
 //
 // Every digit read is masked at q < n, so the pad positions are exactly the
@@ -469,9 +629,10 @@ void init_from_keys(const InitBufs& b, long long N, long long n,
                     int key_bits, int* sa, int* rank, int* gs,
                     cudaStream_t st) {
   const unsigned grid = grid_for(N);
-  radix_sort_pairs(b.keys, b.vals, N, key_bits, b.sort, st);
-  init_groups_kernel<<<grid, kThreads, 0, st>>>(b.keys, b.vals, N, N - n, sa,
-                                                b.starts);
+  const Pairs sorted = radix_sort_pairs(b.keys, b.vals, N, key_bits, b.sort,
+                                        st);
+  init_groups_kernel<<<grid, kThreads, 0, st>>>(sorted.keys, sorted.vals, N,
+                                                N - n, sa, b.starts);
   scan_levels<MaxOp>(b.starts, gs, N, false, b.scan, st);
   scatter_rank_kernel<<<grid, kThreads, 0, st>>>(sa, gs, N, rank);
 }
@@ -486,7 +647,7 @@ void init_from_keys(const InitBufs& b, long long N, long long n,
 // exactly those m slots, in slot order:
 //   - gathers pos = sa[slot], g = gs[slot], r2 = rank[pos + k] or -1 past
 //     the row, and keys them (g << W) | (r2 + 1) with 2^W > N;
-//   - radix-sorts (key, pos) on 2W bits;
+//   - radix-sorts (key, pos) on 2W bits (B10 keys g - off, fewer bits);
 //   - relabels: tied groups are whole and contiguous in both slot and
 //     buffer order and the sort keeps them in g order, so buffer element b
 //     belongs at the b-th tied slot itself; its new label is the slot of
@@ -496,7 +657,7 @@ void init_from_keys(const InitBufs& b, long long N, long long n,
 // through lax.cond, because XLA allocates the larger branch statically;
 // here the buffer is sized from m each round, so one branch serves both.
 // Bound by memory: a round reads gs, flags and dest over the whole row
-// (12 bytes a slot) and moves about 8 x 32 + 40 bytes per tied slot.
+// (12 bytes a slot) and moves about 8 + 8 x 24 + 40 bytes per tied slot.
 // ---------------------------------------------------------------------------
 __global__ void tie_flags_kernel(const int* __restrict__ gs, long long N,
                                  int* __restrict__ flags) {
@@ -510,25 +671,34 @@ __global__ void tie_flags_kernel(const int* __restrict__ gs, long long N,
   }
 }
 
+enum { kCtlOff = 0, kCtlMw, kCtlPoisoned, kCtlAnyTied, kCtlNext, kCtlSize };
+
+// The marked slots of the span [off, off + span): flags and dest are
+// indexed from off, which is ctl[kCtlOff] (B10's window) or 0 without ctl
+// (B2, span N).  Keys (g - off) << W | (r2 + 1): every marked g is at least
+// off, and the order is that of (g, r2).
 __global__ void refine_gather_kernel(const int* __restrict__ flags,
                                      const int* __restrict__ dest,
                                      const int* __restrict__ sa,
                                      const int* __restrict__ rank,
                                      const int* __restrict__ gs, long long N,
-                                     long long k, int W,
+                                     long long span, long long k, int W,
+                                     const int* __restrict__ ctl,
                                      int* __restrict__ slots,
                                      uint64_t* __restrict__ keys,
                                      int* __restrict__ vals) {
-  for (long long s = blockIdx.x * static_cast<long long>(blockDim.x) +
+  const long long off = ctl != nullptr ? ctl[kCtlOff] : 0;
+  for (long long t = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
-       s < N; s += static_cast<long long>(gridDim.x) * blockDim.x) {
-    if (!flags[s]) continue;
-    const int b = dest[s];
+       t < span; t += static_cast<long long>(gridDim.x) * blockDim.x) {
+    if (!flags[t]) continue;
+    const long long s = off + t;
+    const int b = dest[t];
     const long long pos = sa[s];
     const long long q = pos + k;
     const long long r2 = q < N ? rank[q] : -1;
     slots[b] = static_cast<int>(s);
-    keys[b] = (static_cast<uint64_t>(static_cast<unsigned>(gs[s])) << W) |
+    keys[b] = (static_cast<uint64_t>(gs[s] - off) << W) |
               static_cast<uint64_t>(r2 + 1);
     vals[b] = static_cast<int>(pos);
   }
@@ -545,6 +715,9 @@ __global__ void refine_change_kernel(const uint64_t* __restrict__ keys,
   }
 }
 
+// A member whose new label f is its group's old start g keeps its rank
+// (rank[p] = gs[slot] = g before the round), so only the members of the
+// later subgroups of a split group pay the random rank store.
 __global__ void refine_scatter_kernel(const int* __restrict__ slots,
                                       const int* __restrict__ vals,
                                       const int* __restrict__ first_eq,
@@ -558,8 +731,10 @@ __global__ void refine_scatter_kernel(const int* __restrict__ slots,
     const int p = vals[b];
     const int f = first_eq[b];
     sa[s] = p;
-    rank[p] = f;
-    gs[s] = f;
+    if (f != gs[s]) {
+      rank[p] = f;
+      gs[s] = f;
+    }
   }
 }
 
@@ -592,22 +767,26 @@ int key_width(long long N) {
   return w;
 }
 
-// B2's refine body on the m slots that `flags` marks (dest their buffer
-// indices): gather, radix sort on 2W bits, key-change starts, max-scan,
-// scatter.  Each marked group must be a contiguous run of slots, marked
-// from its first slot on.
+// B2's refine body on the m slots that `flags` marks over the span (dest
+// their buffer indices; see refine_gather_kernel): gather, radix sort on
+// high_bits + W bits (g - off below 2^high_bits), key-change starts,
+// max-scan, scatter.  Each marked group must be a contiguous run of slots,
+// marked from its first slot on.
 void refine_marked(int* sa, int* rank, int* gs, long long N, long long k,
                    long long m, const int* flags, const int* dest,
+                   long long span, int high_bits, const int* ctl,
                    const RefineBufs& b, cudaStream_t st) {
   const int W = key_width(N);
-  refine_gather_kernel<<<grid_for(N), kThreads, 0, st>>>(
-      flags, dest, sa, rank, gs, N, k, W, b.slots, b.keys, b.vals);
-  radix_sort_pairs(b.keys, b.vals, m, 2 * W, b.sort, st);
+  refine_gather_kernel<<<grid_for(span), kThreads, 0, st>>>(
+      flags, dest, sa, rank, gs, N, span, k, W, ctl, b.slots, b.keys,
+      b.vals);
+  const Pairs sorted = radix_sort_pairs(b.keys, b.vals, m, high_bits + W,
+                                        b.sort, st);
   const unsigned grid = grid_for(m);
-  refine_change_kernel<<<grid, kThreads, 0, st>>>(b.keys, b.slots, m,
+  refine_change_kernel<<<grid, kThreads, 0, st>>>(sorted.keys, b.slots, m,
                                                   b.starts);
   scan_levels<MaxOp>(b.starts, b.first_eq, m, false, b.scan, st);
-  refine_scatter_kernel<<<grid, kThreads, 0, st>>>(b.slots, b.vals,
+  refine_scatter_kernel<<<grid, kThreads, 0, st>>>(b.slots, sorted.vals,
                                                    b.first_eq, m, sa, rank,
                                                    gs);
 }
@@ -626,32 +805,55 @@ void refine_marked(int* sa, int* rank, int* gs, long long N, long long k,
 //   - pss_sa_window_scan marks the window at ctl[0]: every tied slot whose
 //     group start g lies in [off, off + W) and whose member offset slot - g
 //     is below half (so whole groups of at most half members, whose slots
-//     the pass refines in place as B2 does).  flags, dest (their exclusive
-//     scan) and ctl[1] = m_w; ctl[2] = 1 when some tied slot has a member
-//     offset of half or more (a group too big for any window: the row is
-//     poisoned, and its caller falls back to B9); ctl[3] = 1 when any slot
-//     is tied.
+//     the pass refines in place as B2 does).  Every such slot lies in the
+//     span [off, off + L), L = min(N, W + half), so flags and dest (their
+//     exclusive scan, dest[L] = m_w = ctl[1]) cover the span alone,
+//     indexed from off, with 0 past N.  One read of gs over the whole row
+//     also gives ctl[2] = 1 when some tied slot has a member offset of
+//     half or more (a group too big for any window: the row is poisoned,
+//     and its caller falls back to B9) and ctl[3] = 1 when any slot is
+//     tied, exactly as the JAX pass reduces them.
 //   - pss_sa_rotating_pass refines the m_w marked slots by the rank k
-//     positions on (B2's body), then jumps: nxt = the least slot >= off + W
-//     that starts a tied group (N if none, or if off + W >= N) -> ctl[4],
-//     and ctl[0] = nxt < N ? nxt : 0.  The JAX pass samples a reverse
-//     cummin at off + W; a min-reduction over [off + W, N) is the same.
+//     positions on (B2's body over the span, keyed on g - off, which is
+//     below W), then jumps: nxt = the least slot >= off + W that starts a
+//     tied group (N if none, or if off + W >= N) -> ctl[4], and ctl[0] =
+//     nxt < N ? nxt : 0.  The JAX pass samples a reverse cummin at off + W;
+//     a min-reduction over [off + W, N) is the same.
 // The host keeps k, reads ctl once a pass after the next window's scan,
 // doubles k when ctl[0] is back at 0, and stops when k >= N at off 0, when
 // nothing is tied, or at the first poisoned window.  Windows are swept in
 // the JAX order, so earlier windows refine later windows' r2 alike.
-// Bound by memory: a scan reads gs over the row and writes flags and dest
-// (12 bytes a slot with the scan's levels); a pass moves B2's 8 x 32 + 40
-// bytes per marked slot and reads gs from off + W on.
+// Bound by memory: a scan reads gs over the row (4 bytes a slot) and
+// writes flags and dest over the span (8 bytes a span slot with the scan's
+// levels); a pass moves B2's sort bytes per marked slot and reads gs from
+// off + W on.
 // ---------------------------------------------------------------------------
 constexpr int kByte3KeyBits = 25;
-enum { kCtlOff = 0, kCtlMw, kCtlPoisoned, kCtlAnyTied, kCtlNext, kCtlSize };
 
-// flags[i] of the window at ctl[kCtlOff]; ctl[kCtlPoisoned] and
-// ctl[kCtlAnyTied] must be 0 before the launch.
+// Blocks of the two whole-row walks of a pass (the window scan's
+// reductions and the jump): a grid of a few waves whose threads loop,
+// instead of one short block per 256 slots, which at N = 512 Mi spent more
+// time scheduling blocks than reading gs.
+constexpr unsigned kWalkBlocks = 4096;
+
+unsigned walk_grid(long long n) {
+  const unsigned g = grid_for(n);
+  return g < kWalkBlocks ? g : kWalkBlocks;
+}
+
+// The span a window's marked slots lie in: [off, off + L).
+long long window_span(long long N, long long half, long long W) {
+  return W + half < N ? W + half : N;
+}
+
+// flags[t] for slot off + t of the window at ctl[kCtlOff] (0 past N), and
+// the whole row's poisoned and any-tied, which must be 0 before the
+// launch.  A thread takes 4 consecutive slots a step, one 16-byte load of
+// gs (with its two neighbours from the cache), so enough bytes are in
+// flight to keep the memory busy.
 __global__ void window_flags_kernel(const int* __restrict__ gs, long long N,
                                     long long half, long long W,
-                                    int* __restrict__ ctl,
+                                    long long span, int* __restrict__ ctl,
                                     int* __restrict__ flags) {
   __shared__ int s_any, s_poisoned;
   if (threadIdx.x == 0) {
@@ -660,24 +862,43 @@ __global__ void window_flags_kernel(const int* __restrict__ gs, long long N,
   }
   __syncthreads();
   const long long off = ctl[kCtlOff];
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long first = blockIdx.x * static_cast<long long>(blockDim.x) +
+                          threadIdx.x;
+  const bool aligned = aligned16(gs);
   bool any = false, poisoned = false;
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       i < N; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int g = gs[i];
-    const bool tied =
-        (i + 1 < N && gs[i + 1] == g) || (i > 0 && gs[i - 1] == g);
-    bool sel = false;
-    if (tied) {
-      any = true;
-      if (i - g >= half) {
-        poisoned = true;
-      } else {
-        sel = g >= off && g < off + W;
-      }
+  for (long long i0 = 4 * first; i0 < N; i0 += 4 * stride) {
+    int g[6];  // gs[i0 - 1 .. i0 + 4], -1 outside the row
+    g[0] = i0 > 0 ? gs[i0 - 1] : -1;
+    if (aligned && i0 + 4 <= N) {
+      const int4 v = *reinterpret_cast<const int4*>(gs + i0);
+      g[1] = v.x;
+      g[2] = v.y;
+      g[3] = v.z;
+      g[4] = v.w;
+    } else {
+      for (int j = 0; j < 4; ++j) g[1 + j] = i0 + j < N ? gs[i0 + j] : -1;
     }
-    flags[i] = sel ? 1 : 0;
+    g[5] = i0 + 4 < N ? gs[i0 + 4] : -1;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const long long i = i0 + j;
+      if (i >= N) break;
+      const int gi = g[1 + j];
+      const bool tied = g[j] == gi || g[2 + j] == gi;
+      bool sel = false;
+      if (tied) {
+        any = true;
+        if (i - gi >= half) {
+          poisoned = true;
+        } else {
+          sel = gi >= off && gi < off + W;
+        }
+      }
+      if (i >= off && i < off + span) flags[i - off] = sel ? 1 : 0;
+    }
   }
+  for (long long t = (N - off) + first; t < span; t += stride) flags[t] = 0;
   if (any) s_any = 1;
   if (poisoned) s_poisoned = 1;
   __syncthreads();
@@ -688,8 +909,8 @@ __global__ void window_flags_kernel(const int* __restrict__ gs, long long N,
 }
 
 __global__ void window_total_kernel(const int* __restrict__ dest,
-                                    long long N, int* __restrict__ ctl) {
-  ctl[kCtlMw] = dest[N];
+                                    long long span, int* __restrict__ ctl) {
+  ctl[kCtlMw] = dest[span];
 }
 
 __global__ void next_init_kernel(long long N, int* __restrict__ ctl) {
@@ -697,16 +918,22 @@ __global__ void next_init_kernel(long long N, int* __restrict__ ctl) {
 }
 
 // ctl[kCtlNext] = min(ctl[kCtlNext], the least slot >= off + W that starts
-// a tied group).  A thread's first hit in its grid-stride walk is its least.
+// a tied group).  A thread's first hit in its grid-stride walk is its least,
+// and a thread stops as soon as its block or some other block has a hit at
+// or below its slot, so once the first stride finds the answer the rest of
+// the row is not read.
 __global__ void next_start_kernel(const int* __restrict__ gs, long long N,
                                   long long W, int* __restrict__ ctl) {
   __shared__ int s_min;
   if (threadIdx.x == 0) s_min = INT_MAX;
   __syncthreads();
+  const volatile int* block_min = &s_min;
+  const volatile int* known = ctl + kCtlNext;
   const long long lo = static_cast<long long>(ctl[kCtlOff]) + W;
   for (long long i = lo + blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
        i < N; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    if (i >= *block_min || i >= *known) break;
     const int g = gs[i];
     const bool start = i == 0 || gs[i - 1] != g;
     const bool tied =
@@ -717,7 +944,7 @@ __global__ void next_start_kernel(const int* __restrict__ gs, long long N,
     }
   }
   __syncthreads();
-  if (threadIdx.x == 0 && s_min != INT_MAX) atomicMin(&ctl[kCtlNext], s_min);
+  if (threadIdx.x == 0 && s_min < *known) atomicMin(&ctl[kCtlNext], s_min);
 }
 
 __global__ void next_finish_kernel(long long N, int* __restrict__ ctl) {
@@ -745,7 +972,7 @@ __global__ void next_finish_kernel(long long N, int* __restrict__ ctl) {
 // The JAX sort is unstable and this one stable, so a round's sa may order a
 // tie group differently; the dense ranks and the finished SA (every rank
 // distinct) are the same.  Bound by memory: a round's sort moves about
-// 2W / 8 x 24 bytes per slot (8 passes at W = 31), the key and relabel
+// 8 + 2W / 8 x 24 bytes per slot (8 passes at W = 31), the key and relabel
 // passes 12 and 16 bytes.
 // ---------------------------------------------------------------------------
 __global__ void full_keys_kernel(const int* __restrict__ rank, long long N,
@@ -811,10 +1038,11 @@ FullBufs carve_full(Arena& a, long long N) {
 void full_relabel(const FullBufs& b, long long N, int key_bits, int* sa,
                   int* rank, int* count, cudaStream_t st) {
   const unsigned grid = grid_for(N);
-  radix_sort_pairs(b.keys, b.vals, N, key_bits, b.sort, st);
-  full_flags_kernel<<<grid, kThreads, 0, st>>>(b.keys, N, b.labels);
+  const Pairs sorted = radix_sort_pairs(b.keys, b.vals, N, key_bits, b.sort,
+                                        st);
+  full_flags_kernel<<<grid, kThreads, 0, st>>>(sorted.keys, N, b.labels);
   scan_levels<SumOp>(b.labels, b.labels, N, false, b.scan, st);
-  full_relabel_kernel<<<grid, kThreads, 0, st>>>(b.vals, b.labels, N, sa,
+  full_relabel_kernel<<<grid, kThreads, 0, st>>>(sorted.vals, b.labels, N, sa,
                                                  rank, count);
 }
 
@@ -875,10 +1103,18 @@ long long pss_radix_sort_scratch_bytes(long long n) {
 // key_bits bits of the keys.
 int pss_radix_sort_pairs(void* keys, void* vals, long long n, int key_bits,
                          void* scratch, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   Arena a{static_cast<char*>(scratch), 0};
   SortBufs s = carve_sort(a, n);
-  radix_sort_pairs(static_cast<uint64_t*>(keys), static_cast<int*>(vals), n,
-                   key_bits, s, static_cast<cudaStream_t>(stream));
+  const Pairs sorted = radix_sort_pairs(static_cast<uint64_t*>(keys),
+                                        static_cast<int*>(vals), n, key_bits,
+                                        s, st);
+  if (sorted.keys != keys) {
+    cudaMemcpyAsync(keys, sorted.keys, sizeof(uint64_t) * n,
+                    cudaMemcpyDeviceToDevice, st);
+    cudaMemcpyAsync(vals, sorted.vals, sizeof(int) * n,
+                    cudaMemcpyDeviceToDevice, st);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -954,7 +1190,8 @@ int pss_sa_refine_round(void* sa, void* rank, void* gs, long long N,
   refine_marked(static_cast<int*>(sa), static_cast<int*>(rank),
                 static_cast<int*>(gs), N, k, m,
                 static_cast<const int*>(flags), static_cast<const int*>(dest),
-                b, static_cast<cudaStream_t>(stream));
+                N, key_width(N), nullptr, b,
+                static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1014,32 +1251,36 @@ int pss_sa_init3_bytes(const void* text, long long N, long long n, void* sa,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Marks the window at ctl[0] (see the B10 section): flags int32 [N], dest
-// int32 [N + 1] (dest[N] = m_w), ctl int32 [5].  Scratch as
-// pss_sa_tie_scratch_bytes(N).
+// Marks the window at ctl[0] (see the B10 section): flags int32 [L], dest
+// int32 [L + 1] (dest[L] = m_w) over the window's span of L = min(N, W +
+// half) slots from off, ctl int32 [5].  Scratch as
+// pss_sa_tie_scratch_bytes(L).
 int pss_sa_window_scan(const void* gs, long long N, long long half,
                        long long W, void* ctl, void* flags, void* dest,
                        void* scratch, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* c = static_cast<int*>(ctl);
+  const long long span = window_span(N, half, W);
   cudaMemsetAsync(c + kCtlPoisoned, 0, 2 * sizeof(int), st);
-  window_flags_kernel<<<grid_for(N), kThreads, 0, st>>>(
-      static_cast<const int*>(gs), N, half, W, c, static_cast<int*>(flags));
+  window_flags_kernel<<<walk_grid(cdiv(N, 4)), kThreads, 0, st>>>(
+      static_cast<const int*>(gs), N, half, W, span, c,
+      static_cast<int*>(flags));
   scan_levels<SumOp>(static_cast<const int*>(flags), static_cast<int*>(dest),
-                     N, true, static_cast<int*>(scratch), st);
+                     span, true, static_cast<int*>(scratch), st);
   scan_total_kernel<<<1, 1, 0, st>>>(static_cast<const int*>(flags),
-                                     static_cast<int*>(dest), N);
-  window_total_kernel<<<1, 1, 0, st>>>(static_cast<const int*>(dest), N, c);
+                                     static_cast<int*>(dest), span);
+  window_total_kernel<<<1, 1, 0, st>>>(static_cast<const int*>(dest), span,
+                                       c);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Refines the m marked slots of the last window scan by the rank k
-// positions on, in place, then moves ctl[0] to the next window.  Scratch as
-// pss_sa_refine_scratch_bytes(m).
+// Refines the m marked slots of the last window scan (same N, half and W)
+// by the rank k positions on, in place, then moves ctl[0] to the next
+// window.  Scratch as pss_sa_refine_scratch_bytes(m).
 int pss_sa_rotating_pass(void* sa, void* rank, void* gs, long long N,
-                         long long k, long long m, long long W,
-                         const void* flags, const void* dest, void* ctl,
-                         void* scratch, void* stream) {
+                         long long k, long long m, long long half,
+                         long long W, const void* flags, const void* dest,
+                         void* ctl, void* scratch, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* c = static_cast<int*>(ctl);
   if (m > 0) {
@@ -1048,10 +1289,11 @@ int pss_sa_rotating_pass(void* sa, void* rank, void* gs, long long N,
     refine_marked(static_cast<int*>(sa), static_cast<int*>(rank),
                   static_cast<int*>(gs), N, k, m,
                   static_cast<const int*>(flags),
-                  static_cast<const int*>(dest), b, st);
+                  static_cast<const int*>(dest), window_span(N, half, W),
+                  key_width(W - 1), c, b, st);
   }
   next_init_kernel<<<1, 1, 0, st>>>(N, c);
-  next_start_kernel<<<grid_for(N), kThreads, 0, st>>>(
+  next_start_kernel<<<walk_grid(N), kThreads, 0, st>>>(
       static_cast<const int*>(gs), N, W, c);
   next_finish_kernel<<<1, 1, 0, st>>>(N, c);
   return static_cast<int>(cudaGetLastError());

@@ -68,8 +68,8 @@ _SIGNATURES: typing.Dict[str, list] = {
     # table_len, depth, num_limbs, lower, count, stream
     'pss_probe_limbs': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I,
                         _I, _P, _P, _P],
-    # sa, lower, count, offsets, B, pos, qid, stream
-    'pss_gather_hits_flat': [_P, _P, _P, _P, _I, _P, _P, _P],
+    # sa, lower, offsets, B, total, pos, qid, stream
+    'pss_gather_hits_flat': [_P, _P, _P, _I, _L, _P, _P, _P],
     # text, n, sa, patterns, lengths, C, B, L, n_pad, lower, count, stream
     'pss_probe_bytes': [_P, _P, _P, _P, _P, _I, _I, _I, _L, _P, _P, _P],
     # sa, lower, count, B, N, cap columns, out, stream
@@ -99,8 +99,9 @@ _SIGNATURES: typing.Dict[str, list] = {
     'pss_sa_init3_bytes': [_P, _L, _L, _P, _P, _P, _P, _P],
     # gs, N, half, W, ctl, flags, dest, scratch, stream
     'pss_sa_window_scan': [_P, _L, _L, _L, _P, _P, _P, _P, _P],
-    # sa, rank, gs, N, k, m, W, flags, dest, ctl, scratch, stream
-    'pss_sa_rotating_pass': [_P, _P, _P, _L, _L, _L, _L, _P, _P, _P, _P, _P],
+    # sa, rank, gs, N, k, m, half, W, flags, dest, ctl, scratch, stream
+    'pss_sa_rotating_pass': [_P, _P, _P, _L, _L, _L, _L, _L, _P, _P, _P, _P,
+                             _P],
     # values, dests, n, out, stream
     'pss_scatter': [_P, _P, _L, _P, _P],
 }

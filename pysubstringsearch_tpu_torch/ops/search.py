@@ -1039,7 +1039,8 @@ def gather_hits_flat(sa_row: torch.Tensor, lower: torch.Tensor,
     ``sum(count)`` entries for one row's int32 [N] SA and a batch's int32
     [B] bounds (see :func:`gather_hits_flat_plain`).  The offsets are the
     scan kernel's exclusive sum of ``count``; reading their total is the
-    one host synchronisation.  The total must stay below 2^31."""
+    one host synchronisation, and sizes the kernel's grid of output tiles.
+    The total must stay below 2^31."""
     if not kernels.route(sa_row, lower, count):
         return gather_hits_flat_plain(sa_row, lower, count)
     kernels.check(sa_row, 'sa_row', torch.int32, 1)
@@ -1060,9 +1061,8 @@ def gather_hits_flat(sa_row: torch.Tensor, lower: torch.Tensor,
     qid = torch.empty(total, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         kernels.launch('gather_hits_flat', sa_row.data_ptr(),
-                       lower.data_ptr(), count.data_ptr(),
-                       offsets.data_ptr(), B, pos.data_ptr(),
-                       qid.data_ptr())
+                       lower.data_ptr(), offsets.data_ptr(), B, total,
+                       pos.data_ptr(), qid.data_ptr())
     return pos, qid
 
 

@@ -348,13 +348,14 @@ def scan_inclusive_max(x: torch.Tensor) -> torch.Tensor:
 #: Device bytes one row's SA build holds per padded slot at its peak, on
 #: top of the row's text and SA: the working sa / rank / gs (12), and the
 #: init's sort keys, values and their double buffers with the group-start
-#: array (28), or a round's tie flags and offsets (8) with its buffers
-#: over at most every slot (36); with headroom over the largest peak
-#: measured, the digit kind's all-tied first round: 14.06 GiB above the
-#: index for a 256 Mi-slot row (56.2 bytes a slot, its SA output included;
-#: ``chip_smoke.py`` on an NVIDIA H100 80GB HBM3 at 700 W).  Past
-#: SEGMENTED_MAX_N the same script measured less: B10 20.13 GiB at 512 Mi
-#: (40.3 bytes a slot), B9 after a poisoned B10 18.38 GiB at 416 Mi (45.3).
+#: array and the one-sweep sort's status words (28.5), or a round's tie
+#: flags and offsets (8) with its buffers over at most every slot (36.5);
+#: with headroom over the largest peak measured, the digit kind's all-tied
+#: first round: 14.06 GiB above the index for a 256 Mi-slot row (56.2
+#: bytes a slot, its SA output included), and B1b + B2 on one 512 Mi row
+#: 27.71 GiB (55.4; ``chip_smoke.py`` on an NVIDIA H100 80GB HBM3 at
+#: 700 W).  B10 measured 20.25 GiB at 512 Mi (40.5 bytes a slot), B9 after
+#: a poisoned B10 18.49 GiB at 416 Mi (45.5).
 SA_BUILD_BYTES_PER_SLOT = 60
 
 
@@ -693,6 +694,23 @@ def _rotating_sizes(N: int) -> typing.Tuple[int, int]:
     return S // 2, max(S // 2, 4)
 
 
+def _window_span(N: int) -> int:
+    """L, the slots a window's marks cover from its offset: a marked slot
+    has its group start g in [off, off + W) and a member offset below
+    S // 2, so it lies in [off, off + W + S // 2), cut at the row's end."""
+    half, W = _rotating_sizes(N)
+    return min(N, W + half)
+
+
+def _span_mask(flags: torch.Tensor, off: int, N: int) -> torch.Tensor:
+    """The whole row's bool [N] marks of a window's span flags (slot off +
+    t for flags[t])."""
+    mask = torch.zeros(N, dtype=torch.bool, device=flags.device)
+    end = min(N, off + flags.shape[0])
+    mask[off:end] = flags[: end - off].bool()
+    return mask
+
+
 def sa_init3_bytes_plain(text: torch.Tensor, n: int):
     """Plain version of B10's init: (sa, rank, gs) int32 [N] of the
     anchored init sort over the first 3 digits of every suffix."""
@@ -711,23 +729,35 @@ def _new_ctl(N: int, off: int, device) -> torch.Tensor:
     return torch.tensor([off, 0, 0, 0, N], dtype=torch.int32, device=device)
 
 
+def _window_bufs(N: int, device) -> typing.Tuple[torch.Tensor, torch.Tensor]:
+    """A window scan's (flags int32 [L], dest int32 [L + 1]) over the span
+    of :func:`_window_span`."""
+    L = _window_span(N)
+    return (torch.empty(L, dtype=torch.int32, device=device),
+            torch.empty(L + 1, dtype=torch.int32, device=device))
+
+
 def sa_window_scan_plain(gs: torch.Tensor, ctl: torch.Tensor,
                          flags: torch.Tensor, dest: torch.Tensor, half: int,
                          W: int) -> None:
     """Plain version of B10's window scan: for the window at ``ctl[0]``,
-    ``flags`` int32 [N] marks every tied slot whose group start g lies in
-    [off, off + W) with a member offset ``slot - g`` below ``half``,
-    ``dest`` int32 [N + 1] is their exclusive scan with the count m_w last,
-    and ``ctl`` gets m_w, poisoned (a tied slot at a member offset of
-    ``half`` or more) and whether any slot is tied."""
+    ``flags`` int32 [L] marks the slots off + t of the window's span (L =
+    :func:`_window_span`, 0 past the row) that are tied, have their group
+    start g in [off, off + W) and a member offset ``slot - g`` below
+    ``half``; ``dest`` int32 [L + 1] is their exclusive scan with the count
+    m_w last, and ``ctl`` gets m_w and two whole-row reductions: poisoned
+    (a tied slot anywhere at a member offset of ``half`` or more) and
+    whether any slot is tied."""
     N = gs.shape[0]
     off = int(ctl[_CTL_OFF])
     tied = _tied_plain(gs)
     member = torch.arange(N, device=gs.device) - gs.long()
     sel = tied & (member < half) & (gs >= off) & (gs.long() < off + W)
-    flags.copy_(sel.to(torch.int32))
+    span = sel[off: off + flags.shape[0]]
+    flags.zero_()
+    flags[: span.shape[0]] = span.to(torch.int32)
     dest.copy_(scan_exclusive_sum_plain(flags))
-    ctl[_CTL_MW] = dest[N]
+    ctl[_CTL_MW] = dest[-1]
     ctl[_CTL_POISONED] = int(bool((tied & (member >= half)).any()))
     ctl[_CTL_ANY_TIED] = int(bool(tied.any()))
 
@@ -737,18 +767,23 @@ def sa_window_scan(gs: torch.Tensor, ctl: torch.Tensor, flags: torch.Tensor,
     """B10's window scan on the card, in place on ``flags``, ``dest`` and
     the control block ``ctl`` int32 [5] (see
     :func:`sa_window_scan_plain`); the window's offset is read from
-    ``ctl[0]`` on the device.  The selection of ``_rotating_pass``."""
+    ``ctl[0]`` on the device, so flags and dest cover the span from
+    whatever offset the last pass left there.  The selection of
+    ``_rotating_pass``."""
     if not kernels.route(gs, ctl, flags, dest):
         return sa_window_scan_plain(gs, ctl, flags, dest, half, W)
     N = gs.shape[0]
-    for t, name, size in ((gs, 'gs', N), (ctl, 'ctl', 5), (flags, 'flags', N),
-                          (dest, 'dest', N + 1)):
+    if (half, W) != _rotating_sizes(N):
+        raise ValueError('sa_window_scan: half and W must be the row\'s')
+    L = _window_span(N)
+    for t, name, size in ((gs, 'gs', N), (ctl, 'ctl', 5),
+                          (flags, 'flags', L), (dest, 'dest', L + 1)):
         kernels.check(t, name, torch.int32, 1)
         if t.shape[0] != size:
             raise ValueError(f'sa_window_scan: {name} needs {size} entries')
     dev = gs.device
     with torch.cuda.device(dev):
-        scratch = kernels.scratch('sa_tie', N, dev)
+        scratch = kernels.scratch('sa_tie', L, dev)
         kernels.launch('sa_window_scan', gs.data_ptr(), N, int(half), int(W),
                        ctl.data_ptr(), flags.data_ptr(), dest.data_ptr(),
                        scratch.data_ptr())
@@ -758,8 +793,8 @@ def _window_refine_plain(sa, rank, gs, k, m, W, flags, dest, ctl) -> None:
     """Plain version of :func:`_window_refine`."""
     del m, dest  # the marks alone say which slots
     N = gs.shape[0]
-    _refine_plain(sa, rank, gs, k, flags.bool())
     off = int(ctl[_CTL_OFF])
+    _refine_plain(sa, rank, gs, k, _span_mask(flags, off, N))
     start = torch.ones(N, dtype=torch.bool, device=gs.device)
     start[1:] = gs[1:] != gs[:-1]
     starts = torch.nonzero(start & _tied_plain(gs)).flatten()
@@ -771,10 +806,12 @@ def _window_refine_plain(sa, rank, gs, k, m, W, flags, dest, ctl) -> None:
 
 def _window_refine(sa, rank, gs, k, m, W, flags, dest, ctl) -> None:
     """The rest of a B10 pass on the card (``pss_sa_rotating_pass``): B2's
-    refine body on the m marked slots of the last window scan by the rank
-    ``k`` positions on, in place, then the jump: ``ctl[4]`` = the least
-    slot at or past ``off + W`` that starts a tied group (N if none, or if
-    off + W >= N) and ``ctl[0]`` = it, or 0 at N."""
+    refine body on the m marked slots of the last window scan (its span
+    flags and dest) by the rank ``k`` positions on, in place, keyed on
+    ``g - off`` (below W, so the sort runs fewer bits than B2's), then the
+    jump: ``ctl[4]`` = the least slot at or past ``off + W`` that starts a
+    tied group (N if none, or if off + W >= N) and ``ctl[0]`` = it, or 0
+    at N."""
     if not kernels.route(sa, rank, gs, flags, dest, ctl):
         return _window_refine_plain(sa, rank, gs, k, m, W, flags, dest, ctl)
     N = gs.shape[0]
@@ -783,11 +820,15 @@ def _window_refine(sa, rank, gs, k, m, W, flags, dest, ctl) -> None:
         if t.shape[0] != N:
             raise ValueError('sa_rotating_pass: sa, rank and gs differ in '
                              'length')
+    half, W_row = _rotating_sizes(N)
+    if W != W_row or flags.shape[0] != _window_span(N):
+        raise ValueError('sa_rotating_pass: W and the span flags must be '
+                         'the row\'s')
     dev = gs.device
     with torch.cuda.device(dev):
         scratch = kernels.scratch('sa_refine', m, dev)
         kernels.launch('sa_rotating_pass', sa.data_ptr(), rank.data_ptr(),
-                       gs.data_ptr(), N, int(k), int(m), int(W),
+                       gs.data_ptr(), N, int(k), int(m), half, W,
                        flags.data_ptr(), dest.data_ptr(), ctl.data_ptr(),
                        scratch.data_ptr())
 
@@ -796,8 +837,7 @@ def _pass(scan, refine, sa, rank, gs, k, off, poisoned):
     N = gs.shape[0]
     half, W = _rotating_sizes(N)
     ctl = _new_ctl(N, off, gs.device)
-    flags = torch.empty(N, dtype=torch.int32, device=gs.device)
-    dest = torch.empty(N + 1, dtype=torch.int32, device=gs.device)
+    flags, dest = _window_bufs(N, gs.device)
     scan(gs, ctl, flags, dest, half, W)
     _, m, pois, _, _ = ctl.tolist()
     refine(sa, rank, gs, k, m, W, flags, dest, ctl)
@@ -837,10 +877,8 @@ def _rotating(init6, init3, scan, refine, text, n):
     else:
         sa, rank, gs = init3(text, n)
         k = 3
-    dev = text.device
-    ctl = _new_ctl(N, 0, dev)
-    flags = torch.empty(N, dtype=torch.int32, device=dev)
-    dest = torch.empty(N + 1, dtype=torch.int32, device=dev)
+    ctl = _new_ctl(N, 0, text.device)
+    flags, dest = _window_bufs(N, text.device)
     scan(gs, ctl, flags, dest, half, W)
     rounds: typing.List[typing.List[int]] = [[]]
     poisoned = False

@@ -11,8 +11,9 @@ runs after one warm-up):
 
 - ``torch_sort_pairs_ms``: one stable ``torch.sort`` of the keys with the
   values gathered by its order (the benchmark's ``lax.sort`` of 2 operands);
-- ``radix_sort_pairs_ms``: the port's own radix sort of the same pairs on
-  30 key bits (4 passes of histogram, scan and scatter);
+- ``radix_sort_pairs_ms``: the port's own one-sweep radix sort of the same
+  pairs on 30 key bits (``radix_sort_passes``, 4: one histogram kernel,
+  then one kernel a pass);
 - ``plain_scatter_ms``: ``out[dests] = values``, B16's plain version (the
   benchmark's XLA scatter);
 - ``library_scatter_ms``: one ``Tensor.scatter_`` at int64 destinations made
@@ -21,8 +22,11 @@ runs after one warm-up):
   (``scatter_max_abs_err``), beside ``scatter_bound_ms``, its 12 bytes an
   element at 3.35 TB/s.
 
-It prints one JSON line with the card's name.  Without a CUDA card it
-prints nothing to stdout and exits 2: the numbers are the card's or none.
+:func:`measure_wide` times the same two sorts at the shape of one B10 pass
+on a 512 Mi row: ``WIDE_PAIRS`` (21 Mi) pairs of random 60-bit keys, 8
+passes; :func:`skewed_batch` makes B8's batch with one common pattern.  ``main`` prints one JSON line with the card's name, the B10
+shape's numbers under ``wide``.  Without a CUDA card it prints nothing to
+stdout and exits 2: the numbers are the card's or none.
 """
 
 from __future__ import annotations
@@ -39,8 +43,18 @@ from .ops import suffix_array as SA
 #: Device memory rate of the H100 SXM (NVIDIA's data sheet), bytes/s.
 HBM_BYTES_PER_S = 3.35e12
 
+#: Pairs and key bits of one B10 pass on a 512 Mi row: m_w about 21 M
+#: marked slots, keyed (group start << 30) | (r2 + 1).
+WIDE_PAIRS = 21 << 20
+WIDE_KEY_BITS = 60
 
-def _cuda_ms(fn, reps: int, setup=None) -> float:
+
+def passes(key_bits: int) -> int:
+    """Digit passes of ``radix_sort_pairs`` on ``key_bits`` bits."""
+    return -(-key_bits // 8)
+
+
+def cuda_ms(fn, reps: int, setup=None) -> float:
     """Mean milliseconds of ``fn`` over ``reps`` runs after one warm-up,
     CUDA events around each run; ``setup`` (untimed) runs before each."""
     total = 0.0
@@ -57,6 +71,25 @@ def _cuda_ms(fn, reps: int, setup=None) -> float:
         if i:
             total += start.elapsed_time(end)
     return total / reps
+
+
+def skewed_batch(seed: int = 7, slots: int = 1 << 26,
+                 big: int = (1 << 24) + 3, big_lower: int = 12_345):
+    """B8's skewed batch, numpy int32 (sa, lower, count): a random
+    permutation of ``slots`` SA slots and 10,001 queries of 0-300 hits,
+    every fifth, a run of 300 and the last 3 at zero, the middle one of
+    ``big`` hits from ``big_lower`` (one common pattern in a batch)."""
+    rng = np.random.default_rng(seed)
+    sa = rng.permutation(slots).astype(np.int32)
+    B = 10_001
+    count = rng.integers(0, 301, size=B).astype(np.int32)
+    count[::5] = 0
+    count[100:400] = 0
+    count[-3:] = 0
+    count[B // 2] = big
+    lower = rng.integers(0, slots - 301, size=B).astype(np.int32)
+    lower[B // 2] = big_lower
+    return sa, lower, count
 
 
 def measure(log2n: int, reps: int = 10) -> typing.Dict[str, typing.Any]:
@@ -94,17 +127,53 @@ def measure(log2n: int, reps: int = 10) -> typing.Dict[str, typing.Any]:
     return {
         'n': n, 'log2n': log2n, 'reps': reps,
         'device': torch.cuda.get_device_name(dev),
-        'torch_sort_pairs_ms': _cuda_ms(torch_pairs, reps),
-        'radix_sort_pairs_ms': _cuda_ms(
+        'torch_sort_pairs_ms': cuda_ms(torch_pairs, reps),
+        'radix_sort_pairs_ms': cuda_ms(
             lambda: SA.radix_sort_pairs(work_k, work_v, 30), reps, reset),
+        'radix_sort_passes': passes(30),
         'radix_sort_max_abs_err': sort_err,
-        'plain_scatter_ms': _cuda_ms(lambda: SA.scatter_plain(vals, dests),
+        'plain_scatter_ms': cuda_ms(lambda: SA.scatter_plain(vals, dests),
                                      reps),
-        'library_scatter_ms': _cuda_ms(lambda: lib_out.scatter_(0, d64, vals),
+        'library_scatter_ms': cuda_ms(lambda: lib_out.scatter_(0, d64, vals),
                                        reps),
-        'scatter_ms': _cuda_ms(lambda: SA.scatter(vals, dests, out), reps),
+        'scatter_ms': cuda_ms(lambda: SA.scatter(vals, dests, out), reps),
         'scatter_max_abs_err': err,
         'scatter_bound_ms': 12 * n / HBM_BYTES_PER_S * 1e3,
+    }
+
+
+def measure_wide(n: int = WIDE_PAIRS, key_bits: int = WIDE_KEY_BITS,
+                 reps: int = 10) -> typing.Dict[str, typing.Any]:
+    """``radix_sort_pairs`` against one stable ``torch.sort`` of the pairs
+    at B10's pass shape: n random int64 keys below 2^key_bits (numpy's
+    ``default_rng(1)``) with the values 0..n-1."""
+    dev = torch.device('cuda')
+    rng = np.random.default_rng(1)
+    keys = torch.from_numpy(rng.integers(0, 1 << key_bits, n,
+                                         dtype=np.int64)).to(dev)
+    vals = torch.arange(n, dtype=torch.int32, device=dev)
+    work_k, work_v = keys.clone(), vals.clone()
+
+    def reset():
+        work_k.copy_(keys)
+        work_v.copy_(vals)
+
+    def torch_pairs():
+        ks, order = torch.sort(keys, stable=True)
+        return ks, vals[order]
+
+    rk, rv = SA.radix_sort_pairs(work_k, work_v, key_bits)
+    tk, tv = torch_pairs()
+    err = max(int((rk - tk).abs().max()), int((rv - tv).abs().max()))
+    del tk, tv
+    return {
+        'n': n, 'key_bits': key_bits, 'radix_sort_passes': passes(key_bits),
+        'torch_sort_pairs_ms': cuda_ms(torch_pairs, reps),
+        'radix_sort_pairs_ms': cuda_ms(
+            lambda: SA.radix_sort_pairs(work_k, work_v, key_bits), reps,
+            reset),
+        'radix_sort_max_abs_err': err,
+        'sort_bound_ms': 24 * n / HBM_BYTES_PER_S * 1e3,
     }
 
 
@@ -115,7 +184,7 @@ def main(argv: typing.Optional[typing.List[str]] = None) -> int:
         print('sort_bench: no CUDA device; nothing to measure',
               file=sys.stderr)
         return 2
-    print(json.dumps(measure(log2n)), flush=True)
+    print(json.dumps({**measure(log2n), 'wide': measure_wide()}), flush=True)
     return 0
 
 

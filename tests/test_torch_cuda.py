@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import pysubstringsearch_tpu_torch as pss
+from pysubstringsearch_tpu_torch import sort_bench
 from pysubstringsearch_tpu_torch.container import Chunk, read_container
 from pysubstringsearch_tpu_torch.models.index import DeviceIndex
 from pysubstringsearch_tpu_torch.ops import kernels
@@ -174,6 +175,78 @@ def test_radix_sort_matches_stable_torch_sort(cuda, n):
     assert torch.equal(vs, order.to(torch.int32))
 
 
+def _sort_keys(n, key_bits, kind, device):
+    """int64 keys below 2^key_bits: random, all equal, sorted or
+    reversed."""
+    g = torch.Generator(device='cpu').manual_seed(n + key_bits)
+    if kind == 'equal':
+        return torch.full((n,), (1 << key_bits) - 3, dtype=torch.int64,
+                          device=device)
+    keys = torch.randint(0, 1 << key_bits, (n,), generator=g,
+                         dtype=torch.int64).to(device)
+    if kind == 'sorted':
+        keys = torch.sort(keys).values
+    elif kind == 'reversed':
+        keys = torch.sort(keys, descending=True).values
+    return keys
+
+
+SORT_TILE = 4096  # pairs a block of the one-sweep sort takes
+
+
+SORT_CASES = [(n, bits, 'random') for bits in (25, 30, 55, 60, 62)
+              for n in (0, 1, SORT_TILE - 1, SORT_TILE, SORT_TILE + 1,
+                        (1 << 24) + 5)]
+SORT_CASES += [(n, 60, kind) for kind in ('equal', 'sorted', 'reversed')
+               for n in (SORT_TILE + 1, (1 << 24) + 5)]
+
+
+@pytest.mark.parametrize('n, key_bits, kind', SORT_CASES)
+def test_onesweep_sort_matches_stable_torch_sort(cuda, n, key_bits, kind):
+    """The one-sweep radix sort, bit for bit with stable torch.sort, at
+    every pass count the builds use, around one tile and past 2^24, and on
+    all-equal (one digit a pass), sorted and reversed keys."""
+    keys = _sort_keys(n, key_bits, kind, cuda)
+    vals = torch.arange(n, dtype=torch.int32, device=cuda)
+    ref_k, order = torch.sort(keys, stable=True)
+    ks, vs = SA.radix_sort_pairs(keys.clone(), vals.clone(), key_bits)
+    torch.cuda.synchronize()
+    assert torch.equal(ks, ref_k)
+    assert torch.equal(vs, order.to(torch.int32))
+
+
+def test_onesweep_sorts_on_two_threads(cuda):
+    """Two sorts at once on two threads, each on its own stream: the tile
+    counters and status words live in each call's scratch."""
+    import threading
+
+    n = (1 << 22) + 17
+    inputs = [_sort_keys(n, bits, 'random', cuda) for bits in (55, 30)]
+    refs = [torch.sort(k, stable=True) for k in inputs]
+    torch.cuda.synchronize()
+    out = [None, None]
+
+    def run(i):
+        stream = torch.cuda.Stream()
+        with torch.cuda.stream(stream):
+            for _ in range(4):
+                ks, vs = SA.radix_sort_pairs(
+                    inputs[i].clone(),
+                    torch.arange(n, dtype=torch.int32, device=cuda),
+                    (55, 30)[i])
+            stream.synchronize()
+        out[i] = (ks, vs)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    for (ks, vs), (rk, order) in zip(out, refs):
+        assert torch.equal(ks, rk)
+        assert torch.equal(vs, order.to(torch.int32))
+
+
 @pytest.mark.parametrize('n', [1, 2049, (1 << 22) + 5])
 def test_scans_match_cumsum_and_cummax(cuda, n):
     g = torch.Generator(device='cpu').manual_seed(n)
@@ -246,6 +319,23 @@ def test_gather_hits_flat_matches_plain(cuda):
     assert torch.equal(pos, ppos) and torch.equal(qid, pqid)
     empty = torch.zeros(0, dtype=torch.int32, device=cuda)
     assert S.gather_hits_flat(sa_row, empty, empty)[0].shape == (0,)
+
+
+@pytest.mark.parametrize('big', [1 << 16, (1 << 24) + 3])
+def test_gather_hits_flat_skewed_batch(cuda, big):
+    """B8 parallel over output slots: one query holding most of the hits
+    beside 10,000 small ones and runs of zero counts, the total crossing
+    many output tiles."""
+    sa_row, lower, count = sort_bench.skewed_batch(big, 1 << 25, big, 777)
+    sa_row, lo, cnt = (torch.from_numpy(a).to(cuda)
+                       for a in (sa_row, lower, count))
+    before = kernels.LAUNCHES['gather_hits_flat']
+    pos, qid = S.gather_hits_flat(sa_row, lo, cnt)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES['gather_hits_flat'] == before + 1
+    ppos, pqid = S.gather_hits_flat_plain(sa_row, lo, cnt)
+    assert pos.shape == (int(count.astype(np.int64).sum()),)
+    assert torch.equal(pos, ppos) and torch.equal(qid, pqid)
 
 
 def _raw_row(size, seed, device):

@@ -104,6 +104,25 @@ def test_init3_matches_jax(n, sigma):
                                   _within_groups(jsa, jgs))
 
 
+def _pass_against_jax(sa, rk, gs, k, off, poisoned, N):
+    """One plain pass and one JAX ``_rotating_pass`` from the same state,
+    compared; returns the pass's (k, off, poisoned, m_w)."""
+    S = max(N // _SEG_DIV, 8)
+    _, W = tsa._rotating_sizes(N)
+    state = (jnp.int32(k), jnp.int32(off), jnp.bool_(poisoned),
+             jnp.asarray(sa.numpy()), jnp.asarray(rk.numpy()),
+             jnp.asarray(gs.numpy()))
+    jk, joff, jpois, jsa, jrk, jgs = (np.asarray(a) for a in _jpass(
+        state, N, S, W))
+    out = tsa.sa_rotating_pass_plain(sa, rk, gs, k, off, poisoned)
+    assert out[:3] == (int(jk), int(joff), bool(jpois))
+    np.testing.assert_array_equal(rk.numpy(), jrk)
+    np.testing.assert_array_equal(gs.numpy(), jgs)
+    np.testing.assert_array_equal(_within_groups(sa.numpy(), jgs),
+                                  _within_groups(jsa, jgs))
+    return out
+
+
 PASS_CASES = {
     'words': lambda: _words(4000, 1),
     'period2': lambda: np.frombuffer(b'ab' * 1500, np.uint8),
@@ -130,24 +149,62 @@ def test_rotating_pass_matches_jax(case):
     for _ in range(12):
         if not bool(tsa._tied_plain(gs).any()):
             break
-        state = (jnp.int32(k), jnp.int32(off), jnp.bool_(poisoned),
-                 jnp.asarray(sa.numpy()), jnp.asarray(rk.numpy()),
-                 jnp.asarray(gs.numpy()))
-        jk, joff, jpois, jsa, jrk, jgs = (np.asarray(a) for a in _jpass(
-            state, N, S, W))
-        k, off, poisoned, m = tsa.sa_rotating_pass_plain(sa, rk, gs, k, off,
-                                                         poisoned)
-        assert (k, off, poisoned) == (int(jk), int(joff), bool(jpois))
-        np.testing.assert_array_equal(rk.numpy(), jrk)
-        np.testing.assert_array_equal(gs.numpy(), jgs)
-        np.testing.assert_array_equal(_within_groups(sa.numpy(), jgs),
-                                      _within_groups(jsa, jgs))
+        k, off, poisoned, m = _pass_against_jax(sa, rk, gs, k, off, poisoned,
+                                                N)
         assert 0 <= m <= S
         offsets.add(off)
     if case in ('one_byte', 'period2', 'boundary_257'):
         assert poisoned
     else:
         assert not poisoned and len(offsets) > 1  # mid-round windows
+
+
+SPAN_CASES = {
+    # n = N, so no pad slots: late windows' spans [off, off + W + S / 2)
+    # run past the row's end.
+    'span_past_end_words': lambda: _words(4096, 6),
+    'span_past_end_small': lambda: _random(4096, 3, 7),
+    # n well below N: the first window holds only the pad singletons, so it
+    # marks nothing (m_w = 0) and jumps.
+    'empty_window_words': lambda: _words(3000, 8),
+    'empty_window_small': lambda: _random(2500, 3, 9),
+}
+
+
+@pytest.mark.parametrize('case', list(SPAN_CASES))
+def test_rotating_pass_span_edges(case):
+    """Passes whose window span crosses the row's end, or whose window
+    marks nothing, against the JAX pass from the same state; the span
+    flags of the plain scan are the whole-row selection cut to the span."""
+    data = SPAN_CASES[case]()
+    n, N = data.size, 4096
+    half, W = tsa._rotating_sizes(N)
+    L = tsa._window_span(N)
+    assert L == W + half < N
+    sa, rk, gs = tsa.sa_init_bytes_plain(torch.from_numpy(_padded(data, N)),
+                                         n)
+    k, off, poisoned = 6, 0, False
+    seen = set()
+    for _ in range(40):
+        if poisoned or not bool(tsa._tied_plain(gs).any()) or k >= N:
+            break
+        ctl = tsa._new_ctl(N, off, 'cpu')
+        flags, dest = tsa._window_bufs(N, 'cpu')
+        tsa.sa_window_scan_plain(gs, ctl, flags, dest, half, W)
+        mask = tsa._span_mask(flags, off, N)
+        assert not bool(mask[:off].any()) and not bool(
+            mask[min(N, off + L):].any())
+        assert int(dest[-1]) == int(mask.sum()) == int(ctl[1])
+        start = off
+        k, off, poisoned, m = _pass_against_jax(sa, rk, gs, k, off,
+                                                poisoned, N)
+        assert m == int(ctl[1])
+        if start + L > N and m > 0:
+            seen.add('span_past_end')
+        if m == 0:
+            seen.add('empty_window')
+    want = case.rsplit('_', 1)[0]
+    assert want in seen, seen
 
 
 def _oracle_cases():
@@ -365,5 +422,14 @@ def test_scatter_plain_matches_the_bench_reference(n):
 def test_sort_bench_needs_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     assert sort_bench.main(['12']) != 0
+    out = capsys.readouterr()
+    assert out.out == '' and 'CUDA' in out.err
+
+
+def test_sa_bench_needs_a_card(monkeypatch, capsys):
+    from pysubstringsearch_tpu_torch import sa_bench
+
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    assert sa_bench.main(['--profile']) == 2
     out = capsys.readouterr()
     assert out.out == '' and 'CUDA' in out.err

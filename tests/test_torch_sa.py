@@ -214,6 +214,41 @@ def test_gather_hits_flat_matches_jax(B, zero):
     np.testing.assert_array_equal(qid.numpy(), np.asarray(jqid)[:total])
 
 
+#: B8's output tile on the card: 256 threads x 16 hits.
+GATHER_TILE = 4096
+
+
+@pytest.mark.parametrize('case', ['one_big', 'big_first', 'big_last'])
+def test_gather_hits_flat_skewed_matches_jax(case):
+    """A skewed batch: one query holding most of the hits, runs of zero
+    counts (at the start and the end too), and a total that crosses
+    several of the card's output tiles; the port's gather against the JAX
+    one."""
+    rng = np.random.default_rng(len(case))
+    size = 1 << 16
+    sa_row = rng.permutation(size).astype(np.int32)
+    B = 600
+    count = rng.integers(0, 40, size=B).astype(np.int32)
+    count[::4] = 0
+    count[:7] = 0
+    count[-5:] = 0
+    count[200:260] = 0
+    big = {'one_big': B // 2, 'big_first': 7, 'big_last': B - 6}[case]
+    count[big] = 5 * GATHER_TILE + 123
+    lower = rng.integers(0, size - 40, size=B).astype(np.int32)
+    lower[big] = 1000
+    total = int(count.sum())
+    assert total > 5 * GATHER_TILE and count[big] > total // 2
+    pos, qid = tsearch.gather_hits_flat(
+        torch.from_numpy(sa_row), torch.from_numpy(lower),
+        torch.from_numpy(count))
+    jpos, jqid = jsearch.gather_hits_flat(
+        jnp.asarray(sa_row), jnp.asarray(lower), jnp.asarray(count), total)
+    assert pos.shape == qid.shape == (total,)
+    np.testing.assert_array_equal(pos.numpy(), np.asarray(jpos)[:total])
+    np.testing.assert_array_equal(qid.numpy(), np.asarray(jqid)[:total])
+
+
 def test_gather_hits_flat_empty_batch():
     # The JAX gather reads cum[-1] and needs one query; the port returns
     # empty arrays for an empty batch.
