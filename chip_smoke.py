@@ -29,13 +29,15 @@ Phases (any failure raises and exits non-zero):
    index's own tensors, equal exactly, both timed with CUDA events beside
    the kernel's bound (its inputs read once and outputs written once at
    3.35 TB/s) and, where one PyTorch call computes the same function, that
-   call's time: K1-K3 and B1 and one B2 round on row 0, K4 and B8 on every
-   row x the whole batch, and the whole ``derive_sa`` of every row; then,
-   launch counts from 0, B13 (``bwt_from_sa_device``) on row 0 and on
-   chunk 0 and B15's capped gather of row 0's hits, each against its plain
-   version (B13 also against the host BWT and, on chunk 0, ``unbwt_native``
-   and ``bwt()``; the gather against B8's blocks), and B15's bucket table
-   at depth 2 and 3 against its plain version;
+   call's time: K1-K3 and B1 and one B2 round on row 0 (with the sizes of
+   its tied groups and its device time by kernel from ``torch.profiler``),
+   K4 and B8 on every row x the whole batch, and the whole ``derive_sa`` of
+   every row; then, launch counts from 0, B13 (``bwt_from_sa_device``) on
+   row 0 and on chunk 0 and B15's capped gather of row 0's hits, each
+   against its plain version (B13 also against the host BWT and, on chunk
+   0, ``unbwt_native`` and ``bwt()``; the gather against B8's blocks, and
+   its kernel's device time beside ``torch.take``'s), and B15's bucket
+   table at depth 2 and 3 against its plain version;
 5. the device path's answers against the host native path's: per-pattern
    counts summed over rows and chunks; the lines ``search_multiple``
    returned in 3 against one timed ``HostServing.search`` of the line
@@ -84,7 +86,8 @@ Phases (any failure raises and exits non-zero):
    5 limb planes by B12d from one K7 pass a row, probe B11, hits B8) and
    answers 10k patterns of 4-12 characters, 500 of 4-12 bytes, the 200
    deep ones, patterns of 1-2 bytes and patterns holding a byte >= 0x80
-   (count 0); K7, K3 and the limb planes on row 0 and B11 and B8 on every
+   (count 0); K7, K3 and the limb planes on row 0, B1b and one B2 round
+   on row 0 (group sizes and device time as above), and B11 and B8 on every
    row against their plain versions, timed; B11 on NUL and newline
    patterns (every line hits) against its plain version and their counts
    against the host; bench.py's byte sampler (10k patterns of 4-12 bytes)
@@ -261,6 +264,29 @@ def wall_s(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def device_times(fn):
+    """Device microseconds of one run of ``fn`` by kernel, from
+    ``torch.profiler``'s ``key_averages``: (total, [[kernel, us, calls],
+    ...] largest first)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    # acc_events: the profiler may flush its buffers mid-run, and would then
+    # report only the kernels after the last flush.
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    key = ('device_time_total' if events and hasattr(events[0],
+                                                     'device_time_total')
+           else 'cuda_time_total')
+    rows = sorted(((getattr(e, key), e.count,
+                    e.key.replace('(anonymous namespace)::', '').split('(')[0])
+                   for e in events if getattr(e, key) > 0), reverse=True)
+    return sum(r[0] for r in rows), [[n, us, c] for us, c, n in rows]
 
 
 def err(a, b):
@@ -791,12 +817,13 @@ def open_derive(idx_path, pats, kind, path_kernels, label):
 
 
 def init_and_round(idx, init, init_plain, key, k0, entry, round_entry,
-                   name, line):
+                   name, line, label=''):
     """The anchored init ``init`` (B1 or B1b, the entry ``name`` replacing
     ``JAX_SA:line``) and one B2 round from k = ``k0`` (to ``round_entry``)
     against their plain versions on row 0, timed, each beside one
-    ``torch.sort`` of its keys (``key(text, n)`` for the init).  Returns
-    the round's (tie count m, kernel ms, plain ms)."""
+    ``torch.sort`` of its keys (``key(text, n)`` for the init); logs the
+    sizes of round 1's tied groups and the round's device time by kernel.
+    Returns the round's (tie count m, kernel ms, plain ms, the numbers)."""
     import torch
 
     from pysubstringsearch_tpu_torch.ops import suffix_array as SA
@@ -824,15 +851,25 @@ def init_and_round(idx, init, init_plain, key, k0, entry, round_entry,
         for s, t in zip(state, first):
             s.copy_(t)
 
+    hist = SA.tie_group_histogram(first[2])
+    restore()
+    total_us, by_kernel = device_times(
+        lambda: SA.sa_refine_round(*state, k0))
     ms = cuda_ms(lambda: SA.sa_refine_round(*state, k0), 3, restore)
     plain_ms = cuda_ms(lambda: SA.sa_refine_round_plain(*state, k0), 1,
                        restore)
+    lib_ms = sort_ms(SA._round_keys(*first, k0)[2])
     round_entry('sa_refine_round', f'{JAX_SA}:394', SA_SRC, round_err, ms,
-                plain_ms, 4 * N + 24 * m,
-                sort_ms(SA._round_keys(*first, k0)[2]))
+                plain_ms, 4 * N + 24 * m, lib_ms)
+    log(f'{label}B2 round 1 (k {k0}, m {m}): tied groups by size '
+        f'{json.dumps(hist)} ([groups, slots]); device time '
+        f'{total_us / 1e3:.4f} ms by kernel (us, calls) '
+        + json.dumps([[n, round(us, 1), c] for n, us, c in by_kernel]))
     del state, first
     torch.cuda.empty_cache()
-    return m, ms, plain_ms
+    return m, ms, plain_ms, {'m': m, 'ms': ms, 'plain_ms': plain_ms,
+                             'sort_keys_ms': lib_ms, 'histogram': hist,
+                             'device_us': total_us, 'by_kernel_us': by_kernel}
 
 
 def check_derive_rows(idx, label, *args):
@@ -1191,11 +1228,11 @@ def run_derive(idx_path, pats, dev):
     packed_np, lengths_np = S.pack_patterns(pats)
     lo_k, cnt_k = probe_kernel(idx, packed_np, lengths_np, entry)
     bits = idx._bits
-    init_and_round(
+    round1 = init_and_round(
         idx, lambda t, n: SA.sa_init_ranked(t, n, idx.rank, bits),
         lambda t, n: SA.sa_init_ranked_plain(t, n, idx.rank, bits),
         lambda t, n: SA._ranked_key(t, n, idx.rank, bits),
-        2 * (30 // bits), entry, entry, 'sa_init_ranked', 330)
+        2 * (30 // bits), entry, entry, 'sa_init_ranked', 330)[3]
     derive_rows = check_derive_rows(idx, '', idx.rank, bits)
     gather = gather_kernel(idx, lo_k, cnt_k, entry)
     row0 = row0_bwt_and_b15(r, idx, lo_k, cnt_k, entries)
@@ -1213,7 +1250,7 @@ def run_derive(idx_path, pats, dev):
     return {
         **result, 'kernels': entries, 'derive_rows': derive_rows,
         'resident_gib': torch.cuda.memory_allocated() / 2**30, **numbers,
-        'row0': row0, 'gather': gather,
+        'row0': row0, 'gather': gather, 'round1': round1,
     }
 
 
@@ -1260,9 +1297,9 @@ def run_raw(idx_path, pats, dev, ranked_rows):
     entries = []
     entry = kernel_check('', entries, launches)
     check_only = kernel_check('raw ')
-    m, round_ms, round_plain_ms = init_and_round(
+    m, round_ms, round_plain_ms, round1 = init_and_round(
         idx, SA.sa_init_bytes, SA.sa_init_bytes_plain, SA._byte_key,
-        SA.BYTE_INIT_WIDTH, entry, check_only, 'sa_init_bytes', 271)
+        SA.BYTE_INIT_WIDTH, entry, check_only, 'sa_init_bytes', 271, 'raw ')
 
     n0 = int(idx.row_data[0].size)
     text0, sa0 = idx.text[0], idx.sa[0]
@@ -1327,6 +1364,7 @@ def run_raw(idx_path, pats, dev, ranked_rows):
         **result, 'kernels': entries, 'derive_rows': derive_rows,
         'native_sais_row0_s': native_s,
         'round1_ms': {'kernel': round_ms, 'plain': round_plain_ms, 'm': m},
+        'round1': round1,
         'seed_table_ms': {'kernel': table_ms, 'plain': table_plain_ms},
         'resident_gib': torch.cuda.memory_allocated() / 2**30,
         'probe_p50_ms': p50, 'host_search_s': host_search_s,
@@ -1694,6 +1732,10 @@ def run_digit(idx_path, pats, byte_pats, dev, chunk_datas):
         f'{idx.count_matches(cp, cl).sum(0).tolist()} equal the host')
     byte_sampler = byte_sampler_check(r, idx, byte_pats)
     torch.cuda.empty_cache()
+    round1 = init_and_round(
+        idx, SA.sa_init_bytes, SA.sa_init_bytes_plain, SA._byte_key,
+        SA.BYTE_INIT_WIDTH, check_only, check_only, 'sa_init_bytes', 271,
+        'digit ')[3]
     derive_rows = check_derive_rows(idx, 'digit ')
     host_search_s = check_answers(r, idx, pats, packed_np, lengths_np, res,
                                   lpats)
@@ -1712,7 +1754,8 @@ def run_digit(idx_path, pats, byte_pats, dev, chunk_datas):
     return {**result, 'kernels': entries, 'derive_rows': derive_rows,
             'resident_gib': resident, 'probe_p50_ms': p50,
             'host_search_s': host_search_s, 'launches': launches,
-            'byte_sampler': byte_sampler, 'gather': gather}
+            'byte_sampler': byte_sampler, 'gather': gather,
+            'round1': round1}
 
 
 def run_b9(chunk_datas, native_sas, dev):
@@ -1895,16 +1938,32 @@ def row0_bwt_and_b15(r, idx, lo_k, cnt_k, entries):
           'positions of its B8 block')
     slot = (lo0.long()[:, None] + cols).clamp(0, idx.n_pad - 1)
     kept = int(cnt64.clamp(max=64).sum())
+    # A call takes some microseconds: many runs, and the device time of the
+    # kernel alone and of torch.take's kernel from the profiler.
+    call_ms = cuda_ms(lambda: S.gather_hit_positions(idx.sa[0], lo0, cnt0,
+                                                     64), 200)
+    take_ms = cuda_ms(lambda: torch.take(idx.sa[0], slot), 200)
+    kernel_us = device_times(lambda: [S.gather_hit_positions(
+        idx.sa[0], lo0, cnt0, 64) for _ in range(100)])
+    take_us = device_times(lambda: [torch.take(idx.sa[0], slot)
+                                    for _ in range(100)])
+    gather_numbers = {
+        'call_ms': call_ms, 'take_call_ms': take_ms,
+        'kernel_device_ms': kernel_us[0] / 100 / 1e3,
+        'take_device_ms': take_us[0] / 100 / 1e3,
+        'kernels': [kernel_us[1], take_us[1]]}
     entry('gather_hit_positions', f'{JAX_SEARCH}:1603', SEARCH_SRC,
-          err(capped, plain),
-          cuda_ms(lambda: S.gather_hit_positions(idx.sa[0], lo0, cnt0, 64),
-                  10),
+          err(capped, plain), call_ms,
           cuda_ms(lambda: S.gather_hit_positions_plain(idx.sa[0], lo0, cnt0,
                                                        64), 3),
-          8 * B + 4 * kept + 4 * 64 * B,
-          cuda_ms(lambda: torch.take(idx.sa[0], slot), 10))
+          8 * B + 4 * kept + 4 * 64 * B, take_ms)
     del pos, blocks, slot, plain
-    log(f'capped gather: {B} queries x 64 on row 0, {kept} positions kept')
+    log(f'capped gather: {B} queries x 64 on row 0, {kept} positions kept; '
+        f'whole call {call_ms:.4f} ms (torch.take {take_ms:.4f} ms); device '
+        f'time a call: kernel {gather_numbers["kernel_device_ms"]:.5f} ms, '
+        f'torch.take {gather_numbers["take_device_ms"]:.5f} ms '
+        f'({json.dumps(gather_numbers["kernels"])})')
+
 
     tables = {}
     check_only = kernel_check('row 0 ')
@@ -1925,7 +1984,8 @@ def row0_bwt_and_b15(r, idx, lo_k, cnt_k, entries):
         del t, t_p
     torch.cuda.empty_cache()
     return {'b13_first_call_s': b13_s, 'host_bwt_s': host_s,
-            'bucket_tables': tables, 'launches': launches}
+            'bucket_tables': tables, 'launches': launches,
+            'capped_gather': gather_numbers}
 
 
 MH_WORKER = r"""
@@ -2536,10 +2596,14 @@ def run_b16():
     for x in runs:
         check(x['radix_sort_max_abs_err'] == 0,
               f'radix_sort_pairs equals torch.sort at n {x["n"]}')
+        check(x['blocked_scatter_max_abs_err'] == 0,
+              f'scatter_blocked equals the plain scatter at n {x["n"]}')
         log(f'sort_bench n {x["n"]}: scatter {x["scatter_ms"]:.4f} ms (bound '
-            f'{x["scatter_bound_ms"]:.4f}), plain {x["plain_scatter_ms"]:.4f}'
-            f', library scatter_ {x["library_scatter_ms"]:.4f}; torch.sort '
-            f'pairs {x["torch_sort_pairs_ms"]:.4f} ms, radix_sort_pairs '
+            f'{x["scatter_bound_ms"]:.4f}), blocked by destination '
+            f'{x["blocked_scatter_ms"]:.4f}, plain '
+            f'{x["plain_scatter_ms"]:.4f}, library scatter_ '
+            f'{x["library_scatter_ms"]:.4f}; torch.sort pairs '
+            f'{x["torch_sort_pairs_ms"]:.4f} ms, radix_sort_pairs '
             f'{x["radix_sort_pairs_ms"]:.4f} ms ({x["radix_sort_passes"]} '
             'passes)')
     wide = sort_bench.measure_wide()

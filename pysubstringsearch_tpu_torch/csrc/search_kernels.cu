@@ -566,27 +566,52 @@ __global__ void probe_bytes_kernel(const uint8_t* __restrict__ text,
 // gather_hit_positions (pysubstringsearch_tpu/ops/search.py).
 //
 // out[b * c + off] = sa[clip(lower[b] + off, 0, N - 1)] for off < count[b],
-// else -1; c = min(cap, N) columns.  One thread per output element: bound
-// by memory, 4 bytes written and at most 4 read per element, coalesced
-// along each query's SA range.
+// else -1; c = min(cap, N) columns.  A 2-D launch: a warp per query row
+// (threadIdx.y picks the row, blockIdx.x a group of kGatherRows rows), its
+// lanes along the columns, 4 consecutive columns a lane, so the row's
+// bounds are loaded once by lane 0 and broadcast, no index is divided, the
+// -1 fill happens in the same pass and a lane stores 16 bytes where the row
+// is 16-byte aligned (c a multiple of 4).  Bound by memory: 4 bytes written
+// an element and at most 4 read, coalesced along each query's SA range.
 // ---------------------------------------------------------------------------
+constexpr int kGatherRows = 8;
+
 __global__ void gather_hit_positions_kernel(const int* __restrict__ sa,
                                             const int* __restrict__ lower,
                                             const int* __restrict__ count,
                                             long long B, long long N, int c,
                                             int* __restrict__ out) {
-  const long long total = B * c;
-  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       e < total; e += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const long long b = e / c;
-    const int off = static_cast<int>(e - b * c);
-    if (off < count[b]) {
-      long long s = static_cast<long long>(lower[b]) + off;
-      s = s < 0 ? 0 : (s > N - 1 ? N - 1 : s);
-      out[e] = sa[s];
+  const long long b =
+      static_cast<long long>(blockIdx.x) * kGatherRows + threadIdx.y;
+  if (b >= B) return;
+  const int lane = threadIdx.x;
+  long long lo = 0;
+  int cnt = 0;
+  if (lane == 0) {
+    lo = lower[b];
+    cnt = count[b];
+  }
+  lo = __shfl_sync(0xffffffffu, lo, 0);
+  cnt = __shfl_sync(0xffffffffu, cnt, 0);
+  int* row = out + b * c;
+  const bool vec = (c & 3) == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  for (int col = 4 * lane; col < c; col += 4 * 32) {
+    int v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int off = col + i;
+      if (off < cnt) {
+        long long s = lo + off;
+        s = s < 0 ? 0 : (s > N - 1 ? N - 1 : s);
+        v[i] = sa[s];
+      } else {
+        v[i] = -1;
+      }
+    }
+    if (vec) {
+      *reinterpret_cast<int4*>(row + col) = make_int4(v[0], v[1], v[2], v[3]);
     } else {
-      out[e] = -1;
+      for (int i = 0; i < 4 && col + i < c; ++i) row[col + i] = v[i];
     }
   }
 }
@@ -736,9 +761,10 @@ int pss_gather_hit_positions(const void* sa, const void* lower,
                              const void* count, long long B, long long N,
                              int c, void* out, void* stream) {
   if (B <= 0 || c <= 0) return 0;
-  unsigned grid = blocks_for(B * c);
-  if (grid > 65536u * 16u) grid = 65536u * 16u;
-  gather_hit_positions_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  const long long blocks = (B + kGatherRows - 1) / kGatherRows;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  gather_hit_positions_kernel<<<(unsigned)blocks, dim3(32, kGatherRows), 0,
+                                (cudaStream_t)stream>>>(
       (const int*)sa, (const int*)lower, (const int*)count, B, N, c,
       (int*)out);
   return (int)cudaGetLastError();

@@ -5,7 +5,8 @@
 // integer alphabets and of B10's poisoned rows (B9), and the building
 // blocks they are made of -- a stable one-sweep LSD radix sort of (uint64
 // key, int32 value) pairs, an exclusive sum scan and an inclusive max scan
-// over int32 -- with the radix sort's store pass alone as a scatter (B16).
+// over int32 -- with the radix sort's store pass alone as a scatter (B16),
+// direct and blocked by destination.
 // No library computes any of them: no cub::Device* routine, no Thrust, no
 // torch operator.
 //
@@ -83,9 +84,9 @@ struct MaxOp {
 
 // Exclusive scan of one value per thread across the block; *total gets
 // the block's reduction.  Called once per kernel.
-template <class Op>
+template <class Op, int NW = kWarps>
 __device__ int block_exclusive_scan(int x, int* total) {
-  __shared__ int s_warp[kWarps + 1];
+  __shared__ int s_warp[NW + 1];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   int incl = x;
@@ -97,17 +98,17 @@ __device__ int block_exclusive_scan(int x, int* total) {
   __syncthreads();
   if (threadIdx.x == 0) {
     int run = Op::identity();
-    for (int w = 0; w < kWarps; ++w) {
+    for (int w = 0; w < NW; ++w) {
       int t = s_warp[w];
       s_warp[w] = run;
       run = Op::apply(run, t);
     }
-    s_warp[kWarps] = run;
+    s_warp[NW] = run;
   }
   __syncthreads();
   int excl = __shfl_up_sync(kFull, incl, 1);
   if (lane == 0) excl = Op::identity();
-  *total = s_warp[kWarps];
+  *total = s_warp[NW];
   return Op::apply(s_warp[warp], excl);
 }
 
@@ -117,11 +118,16 @@ __host__ __device__ inline bool aligned16(const void* p) {
 
 // One tile per block; in == out is allowed (each thread reads its own
 // items before any write).  sums, when not null, gets each block's total.
+// With dn not null the scan covers min(n, *dn) items (a count known only
+// on the device; n is the host's bound): later items read as the identity
+// and are not written.
 // A thread's 8 items are two 16-byte loads and stores where both buffers
 // are aligned (vec), so a warp moves 1 KB at a time.
 template <class Op>
 __global__ void scan_tile_kernel(const int* in, int* out, long long n,
-                                 int* sums, int exclusive, int vec) {
+                                 const int* dn, int* sums, int exclusive,
+                                 int vec) {
+  if (dn != nullptr && *dn < n) n = *dn;
   const long long base =
       static_cast<long long>(blockIdx.x) * kScanTile +
       static_cast<long long>(threadIdx.x) * kScanItems;
@@ -162,7 +168,9 @@ __global__ void scan_tile_kernel(const int* in, int* out, long long n,
 // out[i] = carry of i's tile (op) out[i]; carries are the exclusive scan
 // of the tile totals.
 template <class Op>
-__global__ void scan_add_kernel(int* out, long long n, const int* carries) {
+__global__ void scan_add_kernel(int* out, long long n, const int* dn,
+                                const int* carries) {
+  if (dn != nullptr && *dn < n) n = *dn;
   const int c = carries[blockIdx.x];
   long long i = static_cast<long long>(blockIdx.x) * kScanTile + threadIdx.x;
   for (int j = 0; j < kScanItems; ++j, i += kThreads) {
@@ -181,23 +189,24 @@ long long scan_scratch_elems(long long n) {
   return total;
 }
 
+// A scan of n items, or of min(n, *dn) with a device count dn.
 template <class Op>
 void scan_levels(const int* in, int* out, long long n, bool exclusive,
-                 int* scratch, cudaStream_t st) {
+                 int* scratch, cudaStream_t st, const int* dn = nullptr) {
   if (n <= 0) return;
   const long long nb = cdiv(n, kScanTile);
   const int vec = aligned16(in) && aligned16(out) ? 1 : 0;
   if (nb == 1) {
-    scan_tile_kernel<Op><<<1, kThreads, 0, st>>>(in, out, n, nullptr,
+    scan_tile_kernel<Op><<<1, kThreads, 0, st>>>(in, out, n, dn, nullptr,
                                                  exclusive ? 1 : 0, vec);
     return;
   }
   int* sums = scratch;
   scan_tile_kernel<Op><<<static_cast<unsigned>(nb), kThreads, 0, st>>>(
-      in, out, n, sums, exclusive ? 1 : 0, vec);
+      in, out, n, dn, sums, exclusive ? 1 : 0, vec);
   scan_levels<Op>(sums, sums, nb, true, scratch + nb, st);
   scan_add_kernel<Op><<<static_cast<unsigned>(nb), kThreads, 0, st>>>(
-      out, n, sums);
+      out, n, dn, sums);
 }
 
 // out[n] = the total of an exclusive sum scan of in[0, n).
@@ -237,10 +246,20 @@ __global__ void scan_total_kernel(const int* in, int* out, long long n) {
 //      The tile is then staged in shared memory in digit order and
 //      written out so that consecutive threads store consecutive slots of
 //      one digit's run, keys first, then values through the same buffer.
+//   3. A pass whose 256 counts put every pair in one bin would move the
+//      pairs without reordering them: onesweep_bins_kernel marks it, and its
+//      kernel returns at once.  Each pass kernel reads its pairs from the
+//      buffer the earlier executed passes left them in (the parity of
+//      their number), and onesweep_fix_kernel copies the result into the
+//      buffer the host expects from the full pass count, only when one
+//      skipped pass made that parity differ.
+// The count of pairs may be known only on the device (dn, with n the
+// host's bound: B2's large groups); every kernel reads it there.
 // Every count, counter and status word lives in the caller's scratch and
 // is zeroed on the caller's stream, so sorts on several streams or threads
 // never share state.  Bound by memory: the histogram reads 8 bytes a pair,
-// each pass reads and writes 12; the status words add 0.5 bytes a pair.
+// each executed pass reads and writes 12; the status words add 0.5 bytes a
+// pair.
 // ---------------------------------------------------------------------------
 constexpr int kSortItems = 16;                    // pairs a thread holds
 constexpr int kSortTile = kThreads * kSortItems;  // pairs a block sorts
@@ -250,8 +269,9 @@ constexpr int kHistBlocks = 512;
 
 __global__ void __launch_bounds__(kThreads)
 onesweep_hist_kernel(const uint64_t* __restrict__ keys, long long n,
-                     int passes, unsigned* __restrict__ hist) {
+                     const int* dn, int passes, unsigned* __restrict__ hist) {
   __shared__ unsigned counts[kMaxPasses][kRadix];
+  if (dn != nullptr && *dn < n) n = *dn;
   for (int p = 0; p < kMaxPasses; ++p) counts[p][threadIdx.x] = 0;
   __syncthreads();
   for (long long base = static_cast<long long>(blockIdx.x) * kSortTile;
@@ -291,13 +311,28 @@ onesweep_hist_kernel(const uint64_t* __restrict__ keys, long long n,
   }
 }
 
-// Block p turns pass p's 256 digit counts into their first output slots.
-__global__ void onesweep_bins_kernel(unsigned* __restrict__ hist) {
+// Block p turns pass p's 256 digit counts into their first output slots,
+// and sets skip[p] when one digit holds every pair.
+__global__ void onesweep_bins_kernel(unsigned* __restrict__ hist,
+                                     int* __restrict__ skip) {
+  __shared__ int s_one_bin;
   unsigned* h = hist + blockIdx.x * kRadix;
+  if (threadIdx.x == 0) s_one_bin = 0;
+  const unsigned c = h[threadIdx.x];
   int total;
-  const int first =
-      block_exclusive_scan<SumOp>(static_cast<int>(h[threadIdx.x]), &total);
+  const int first = block_exclusive_scan<SumOp>(static_cast<int>(c), &total);
+  if (static_cast<int>(c) == total) s_one_bin = 1;
   h[threadIdx.x] = static_cast<unsigned>(first);
+  __syncthreads();
+  if (threadIdx.x == 0) skip[blockIdx.x] = s_one_bin;
+}
+
+// Executed passes before pass p: their parity says which buffer holds the
+// pairs.
+__device__ __forceinline__ int executed_before(const int* skip, int p) {
+  int e = 0;
+  for (int q = 0; q < p; ++q) e += skip[q] ? 0 : 1;
+  return e;
 }
 
 __device__ __forceinline__ void status_store(unsigned long long* word,
@@ -307,10 +342,10 @@ __device__ __forceinline__ void status_store(unsigned long long* word,
 }
 
 __global__ void __launch_bounds__(kThreads)
-onesweep_pass_kernel(const uint64_t* __restrict__ kin,
-                     const int* __restrict__ vin, uint64_t* __restrict__ kout,
-                     int* __restrict__ vout, long long n, int pass,
+onesweep_pass_kernel(uint64_t* kmain, int* vmain, uint64_t* kalt,
+                     int* valt, long long n, const int* dn, int pass,
                      const unsigned* __restrict__ bins,
+                     const int* __restrict__ skip,
                      unsigned long long* status, int* counter) {
   __shared__ int s_tile;
   __shared__ unsigned s_warp[kWarps][kRadix];  // per-warp counts, then offsets
@@ -320,6 +355,13 @@ onesweep_pass_kernel(const uint64_t* __restrict__ kin,
     uint64_t keys[kSortTile];
     int vals[kSortTile];
   } s_stage;
+  if (skip[pass]) return;
+  if (dn != nullptr && *dn < n) n = *dn;
+  const bool odd = executed_before(skip, pass) & 1;
+  const uint64_t* __restrict__ kin = odd ? kalt : kmain;
+  const int* __restrict__ vin = odd ? valt : vmain;
+  uint64_t* __restrict__ kout = odd ? kmain : kalt;
+  int* __restrict__ vout = odd ? vmain : valt;
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
@@ -328,6 +370,7 @@ onesweep_pass_kernel(const uint64_t* __restrict__ kin,
   __syncthreads();
   const long long tile = s_tile;
   const long long tile_base = tile * kSortTile;
+  if (tile_base >= n) return;  // past a device count: no later tile waits
   const long long warp_base = tile_base + warp * kWarpItems + lane;
   const int shift = kRadixBits * pass;
   uint64_t key[kSortItems];
@@ -424,14 +467,35 @@ onesweep_pass_kernel(const uint64_t* __restrict__ kin,
   }
 }
 
+// Copies the pairs into the buffers the host expects from `passes` (odd:
+// the alternates) when the executed passes left them in the other ones.
+__global__ void onesweep_fix_kernel(uint64_t* kmain, int* vmain,
+                                    uint64_t* kalt, int* valt, long long n,
+                                    const int* dn, int passes,
+                                    const int* __restrict__ skip) {
+  const bool in_alt = executed_before(skip, passes) & 1;
+  if (in_alt == static_cast<bool>(passes & 1)) return;
+  if (dn != nullptr && *dn < n) n = *dn;
+  const uint64_t* ks = in_alt ? kalt : kmain;
+  const int* vs = in_alt ? valt : vmain;
+  uint64_t* kd = in_alt ? kmain : kalt;
+  int* vd = in_alt ? vmain : valt;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    kd[i] = ks[i];
+    vd[i] = vs[i];
+  }
+}
+
 struct SortBufs {
   uint64_t* keys_alt;
   int* vals_alt;
   unsigned long long* status;  // [tiles][kRadix]
-  unsigned* hist;              // [kMaxPasses][kRadix], then the counters
+  unsigned* hist;  // [kMaxPasses][kRadix], the counters, the skip flags
 };
 
-constexpr int kSortCounters = kMaxPasses * kRadix + kMaxPasses;
+constexpr int kSortCounters = kMaxPasses * kRadix + 2 * kMaxPasses;
 
 SortBufs carve_sort(Arena& a, long long n) {
   SortBufs s;
@@ -449,11 +513,15 @@ struct Pairs {
 };
 
 // Sorts (keys, vals)[0, n) by the low key_bits bits of the keys (every key
-// below 2^key_bits); returns the buffers that hold the result.
+// below 2^key_bits); returns the buffers that hold the result: the
+// alternates after an odd number of passes.  With dn the device holds the
+// count, at most n.
 Pairs radix_sort_pairs(uint64_t* keys, int* vals, long long n, int key_bits,
-                       const SortBufs& s, cudaStream_t st) {
-  Pairs in{keys, vals};
-  if (n <= 1 || key_bits <= 0) return in;
+                       const SortBufs& s, cudaStream_t st,
+                       const int* dn = nullptr) {
+  if ((dn == nullptr && n <= 1) || n <= 0 || key_bits <= 0) {
+    return Pairs{keys, vals};
+  }
   const int passes = (key_bits + kRadixBits - 1) / kRadixBits;
   const long long tiles = cdiv(n, kSortTile);
   cudaMemsetAsync(s.status, 0, sizeof(unsigned long long) * kRadix * tiles,
@@ -461,19 +529,19 @@ Pairs radix_sort_pairs(uint64_t* keys, int* vals, long long n, int key_bits,
   cudaMemsetAsync(s.hist, 0, sizeof(unsigned) * kSortCounters, st);
   const long long hist_blocks = tiles < kHistBlocks ? tiles : kHistBlocks;
   onesweep_hist_kernel<<<static_cast<unsigned>(hist_blocks), kThreads, 0,
-                         st>>>(keys, n, passes, s.hist);
-  onesweep_bins_kernel<<<passes, kThreads, 0, st>>>(s.hist);
+                         st>>>(keys, n, dn, passes, s.hist);
   int* counters = reinterpret_cast<int*>(s.hist + kMaxPasses * kRadix);
-  Pairs out{s.keys_alt, s.vals_alt};
+  int* skip = counters + kMaxPasses;
+  onesweep_bins_kernel<<<passes, kThreads, 0, st>>>(s.hist, skip);
   for (int p = 0; p < passes; ++p) {
     onesweep_pass_kernel<<<static_cast<unsigned>(tiles), kThreads, 0, st>>>(
-        in.keys, in.vals, out.keys, out.vals, n, p, s.hist + p * kRadix,
-        s.status, counters + p);
-    const Pairs t = in;
-    in = out;
-    out = t;
+        keys, vals, s.keys_alt, s.vals_alt, n, dn, p, s.hist + p * kRadix,
+        skip, s.status, counters + p);
   }
-  return in;
+  onesweep_fix_kernel<<<grid_for(n) < 4096 ? grid_for(n) : 4096, kThreads, 0,
+                        st>>>(keys, vals, s.keys_alt, s.vals_alt, n, dn,
+                              passes, skip);
+  return passes & 1 ? Pairs{s.keys_alt, s.vals_alt} : Pairs{keys, vals};
 }
 
 // ---------------------------------------------------------------------------
@@ -495,6 +563,78 @@ __global__ void scatter_kernel(const int* __restrict__ values,
        i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
     out[dests[i]] = values[i];
   }
+}
+
+// The same store blocked by destination: the (dest, value) pairs are first
+// partitioned by dest's top 8 bits with one one-sweep pass (keys bin << 32
+// | dest), so that the stores of the second kernel walk the 256 bins in
+// order and each bin's stores meet in a few MB of L2 instead of landing
+// anywhere in the row.  About 68 bytes an element instead of 12, traded
+// for stores that L2 can merge: the anchored inits' rank[sa[i]] = gs[i], a
+// full permutation, takes this form (sort_bench times it beside
+// scatter_kernel); B2's rank stores, a subset beside other work, do not.
+__global__ void scatter_bin_keys_kernel(const int* __restrict__ values,
+                                        const int* __restrict__ dests,
+                                        long long n, int shift,
+                                        uint64_t* __restrict__ keys,
+                                        int* __restrict__ vals) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const unsigned d = static_cast<unsigned>(dests[i]);
+    keys[i] = (static_cast<uint64_t>(d >> shift) << 32) | d;
+    vals[i] = values[i];
+  }
+}
+
+// Every pass before `pass` is marked skipped, so the pass reads the pairs
+// where the key kernel wrote them.
+__global__ void skip_below_kernel(int* skip, int pass) {
+  if (threadIdx.x < pass) skip[threadIdx.x] = 1;
+}
+
+__global__ void scatter_binned_kernel(const uint64_t* __restrict__ keys,
+                                      const int* __restrict__ vals,
+                                      long long n, int* __restrict__ out) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    out[static_cast<unsigned>(keys[i])] = vals[i];
+  }
+}
+
+// out[dests[i]] = values[i] for n distinct dests below `range`, blocked by
+// destination, with keys / vals [n] and the sort's buffers s as scratch.
+void blocked_scatter(const int* values, const int* dests, long long n,
+                     long long range, int* out, uint64_t* keys, int* vals,
+                     const SortBufs& s, cudaStream_t st) {
+  if (n <= 0) return;
+  int top = 0;  // dest >> top is the dest's 8-bit bin
+  while ((range - 1) >> (top + kRadixBits) > 0) ++top;
+  scatter_bin_keys_kernel<<<grid_for(n), kThreads, 0, st>>>(values, dests, n,
+                                                            top, keys, vals);
+  constexpr int kBinPass = 4;  // key bits 32-39: the bin
+  const long long tiles = cdiv(n, kSortTile);
+  cudaMemsetAsync(s.status, 0, sizeof(unsigned long long) * kRadix * tiles,
+                  st);
+  cudaMemsetAsync(s.hist, 0, sizeof(unsigned) * kSortCounters, st);
+  onesweep_hist_kernel<<<tiles < kHistBlocks ? static_cast<unsigned>(tiles)
+                                             : kHistBlocks,
+                         kThreads, 0, st>>>(keys, n, nullptr, kBinPass + 1,
+                                            s.hist);
+  int* counters = reinterpret_cast<int*>(s.hist + kMaxPasses * kRadix);
+  int* skip = counters + kMaxPasses;
+  onesweep_bins_kernel<<<kBinPass + 1, kThreads, 0, st>>>(s.hist, skip);
+  skip_below_kernel<<<1, 32, 0, st>>>(skip, kBinPass);
+  onesweep_pass_kernel<<<static_cast<unsigned>(tiles), kThreads, 0, st>>>(
+      keys, vals, s.keys_alt, s.vals_alt, n, nullptr, kBinPass,
+      s.hist + kBinPass * kRadix, skip, s.status, counters + kBinPass);
+  // A pass that found one bin leaves the pairs where they were.
+  onesweep_fix_kernel<<<grid_for(n) < 4096 ? grid_for(n) : 4096, kThreads, 0,
+                        st>>>(keys, vals, s.keys_alt, s.vals_alt, n, nullptr,
+                              kBinPass + 1, skip);
+  scatter_binned_kernel<<<grid_for(n), kThreads, 0, st>>>(
+      s.keys_alt, s.vals_alt, n, out);
 }
 
 // ---------------------------------------------------------------------------
@@ -594,16 +734,6 @@ __global__ void init_groups_kernel(const uint64_t* __restrict__ keys,
   }
 }
 
-__global__ void scatter_rank_kernel(const int* __restrict__ sa,
-                                    const int* __restrict__ gs, long long N,
-                                    int* __restrict__ rank) {
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       i < N; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    rank[sa[i]] = gs[i];
-  }
-}
-
 struct InitBufs {
   uint64_t* keys;
   int* vals;
@@ -634,79 +764,540 @@ void init_from_keys(const InitBufs& b, long long N, long long n,
   init_groups_kernel<<<grid, kThreads, 0, st>>>(sorted.keys, sorted.vals, N,
                                                 N - n, sa, b.starts);
   scan_levels<MaxOp>(b.starts, gs, N, false, b.scan, st);
-  scatter_rank_kernel<<<grid, kThreads, 0, st>>>(sa, gs, N, rank);
+  // rank[sa[i]] = gs[i], a full permutation of random stores: blocked by
+  // destination, in the sort's buffers, which the groups kernel has read.
+  blocked_scatter(gs, sa, N, N, rank, b.keys, b.vals, b.sort, st);
 }
 
 // ---------------------------------------------------------------------------
 // B2, one tie-only doubling round.  Replaces the body of _segmented_loop
 // with _tied_flags and _relabel_and_scatter (ops/suffix_array.py).
 //
-// pss_sa_tie_scan flags every slot whose group has two or more members and
-// scans the flags into each tied slot's buffer index; dest[N] is the tie
-// count m, which the host reads once.  pss_sa_refine_round then, for
-// exactly those m slots, in slot order:
-//   - gathers pos = sa[slot], g = gs[slot], r2 = rank[pos + k] or -1 past
-//     the row, and keys them (g << W) | (r2 + 1) with 2^W > N;
-//   - radix-sorts (key, pos) on 2W bits (B10 keys g - off, fewer bits);
-//   - relabels: tied groups are whole and contiguous in both slot and
-//     buffer order and the sort keeps them in g order, so buffer element b
-//     belongs at the b-th tied slot itself; its new label is the slot of
-//     the first element with its key (a max-scan of the key-change slots);
-//   - scatters sa, rank and gs back.
-// The JAX loop caps the buffer at N/8 and falls back to a full-size sort
-// through lax.cond, because XLA allocates the larger branch statically;
-// here the buffer is sized from m each round, so one branch serves both.
-// Bound by memory: a round reads gs, flags and dest over the whole row
-// (12 bytes a slot) and moves about 8 + 8 x 24 + 40 bytes per tied slot.
+// The round refines every tied group (two or more members) by r2 = rank[pos
+// + k], -1 past the row: new label = slot of the first member with its
+// (group, r2) in sorted order.  The JAX body sorts (g, r2) over the tied
+// buffer because XLA has no segmented sort; but the buffer, filled in slot
+// order, is already ordered by g, so all that is left is to order r2
+// within each group: a segmented sort, which never sorts g's bits.
+//   - pss_sa_tie_scan (launch 1) compacts the round's tied slots into the
+//     list tl (slot order): a count kernel and an emit kernel over the
+//     candidates, whose per-tile counts are scanned in between, so no flag
+//     or offset array over the candidates is written.  The candidates are
+//     the whole row in the first round, else the last round's list, since
+//     groups only ever split.  counts[0] = m, which the host reads once.
+//   - pss_sa_refine_round (launch 2) reads every member's r2, group start
+//     and position first (seg_gather_kernel: the JAX round reads the old
+//     ranks), and classes its group by size from gs: tiny (at most kTiny
+//     members), medium (at most kSegT) or large.  A tiny member finds its
+//     place by counting the smaller r2 in its group (seg_tiny_kernel, a
+//     thread each, no sort); a block sorts the medium groups that start in
+//     its kSegT list positions in shared memory (seg_small_kernel); the
+//     large members are compacted and keyed (large-group ordinal, r2 + 1)
+//     -- the ordinal is the member's group start in the large list over
+//     kSegT, distinct because each large group has more than kSegT members
+//     -- and go through the one-sweep sort on their device count, W +
+//     log2(m / kSegT) bits instead of 2W; then key changes, a max-scan and
+//     the scatter.  Every path stores rank only where the label changed.
+// The returned tl is the next round's candidate list.  Bound by memory and
+// by the random rank gather and store: the tie scan reads gs around each
+// candidate twice and writes 4 bytes a member; a tiny or medium member is
+// read once and written once (about 40 bytes with two random 4-byte
+// accesses), a large one moves the sort's 24 bytes a pass.
 // ---------------------------------------------------------------------------
-__global__ void tie_flags_kernel(const int* __restrict__ gs, long long N,
-                                 int* __restrict__ flags) {
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       i < N; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int g = gs[i];
-    const bool tied =
-        (i + 1 < N && gs[i + 1] == g) || (i > 0 && gs[i - 1] == g);
-    flags[i] = tied ? 1 : 0;
+enum { kCtlOff = 0, kCtlMw, kCtlPoisoned, kCtlAnyTied, kCtlNext, kCtlSize };
+
+constexpr int kTiny = 32;             // a tiny group has at most kTiny members
+constexpr int kSegLogT = 12;
+constexpr int kSegT = 1 << kSegLogT;  // a medium one at most kSegT
+constexpr int kSegThreads = 512;
+constexpr int kSegWarps = kSegThreads / 32;
+constexpr int kSegItems = 16;
+constexpr int kSegCap = kSegThreads * kSegItems;  // members a block may take
+static_assert(kSegCap == 2 * kSegT, "a block takes the groups starting in "
+              "its kSegT positions, each of at most kSegT members");
+// A block's staged word: the member's offset from the block's first list
+// position above its sort key (group << W | (r2 + 1), at most 13 + 31 bits).
+constexpr int kSegIdxShift = 51;
+constexpr uint64_t kSegKeyMask = (1ull << kSegIdxShift) - 1;
+constexpr unsigned kClassBit = 0x80000000u;  // gl: large; r2b: tiny
+constexpr size_t kSegSmem = sizeof(uint64_t) * kSegCap +
+                            sizeof(unsigned) * kSegWarps * kRadix;
+
+// Bits W with 2^W > N: group starts and r2 + 1 both fit in W bits.
+int key_width(long long N) {
+  int w = 1;
+  while ((1LL << w) <= N) ++w;
+  return w;
+}
+
+int bit_length(long long x) {
+  int b = 0;
+  while (x > 0) {
+    ++b;
+    x >>= 1;
+  }
+  return b;
+}
+
+unsigned walk_grid(long long n);
+
+// Group g has more than `size` members: slot g + size is in it.
+__device__ __forceinline__ bool group_above(const int* gs, long long N, int g,
+                                            int size) {
+  const long long q = static_cast<long long>(g) + size;
+  return q < N && gs[q] == g;
+}
+
+// Stream compaction in two passes over n items, kCompactTile a block: the
+// count kernel writes each tile's count of items for which p.test(i)
+// holds, those counts are scanned (offs, with the total at offs[tiles]),
+// and the emit kernel recounts its tile and calls p.emit(i, o) with o the
+// item's place among them, in order.  Item q of thread t is base + q *
+// kThreads + t, so neighbouring threads read neighbouring items; the emit
+// kernel places them with one ballot a warp and item.  With dn the device
+// holds the count.
+constexpr int kCompactItems = 8;
+constexpr int kCompactTile = kThreads * kCompactItems;
+
+template <class P>
+__global__ void compact_count_kernel(P p, long long n, const int* dn,
+                                     int* __restrict__ counts) {
+  if (dn != nullptr && *dn < n) n = *dn;
+  const long long base = static_cast<long long>(blockIdx.x) * kCompactTile +
+                         threadIdx.x;
+  int c = 0;
+#pragma unroll
+  for (int q = 0; q < kCompactItems; ++q) {
+    const long long i = base + q * kThreads;
+    c += i < n && p.test(i) ? 1 : 0;
+  }
+  int total;
+  block_exclusive_scan<SumOp>(c, &total);
+  if (threadIdx.x == 0) counts[blockIdx.x] = total;
+}
+
+template <class P>
+__global__ void compact_emit_kernel(P p, long long n, const int* dn,
+                                    const int* __restrict__ offs) {
+  __shared__ int s_off[kCompactItems * kWarps];  // item-major, then warp
+  if (dn != nullptr && *dn < n) n = *dn;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long base = static_cast<long long>(blockIdx.x) * kCompactTile +
+                         threadIdx.x;
+  unsigned ballot[kCompactItems];
+#pragma unroll
+  for (int q = 0; q < kCompactItems; ++q) {
+    const long long i = base + q * kThreads;
+    ballot[q] = __ballot_sync(kFull, i < n && p.test(i));
+    if (lane == 0) s_off[q * kWarps + warp] = __popc(ballot[q]);
+  }
+  __syncthreads();
+  if (warp == 0) {  // exclusive scan of the 64 counts, two a lane
+    static_assert(kCompactItems * kWarps == 64, "two counts a lane");
+    const int a = s_off[2 * lane];
+    const int b = s_off[2 * lane + 1];
+    int incl = a + b;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += y;
+    }
+    const int excl = incl - a - b;
+    s_off[2 * lane] = excl;
+    s_off[2 * lane + 1] = excl + a;
+  }
+  __syncthreads();
+  const long long first = offs[blockIdx.x];
+  const unsigned lower_lanes = (1u << lane) - 1u;
+#pragma unroll
+  for (int q = 0; q < kCompactItems; ++q) {
+    if (ballot[q] >> lane & 1u) {
+      p.emit(base + q * kThreads,
+             first + s_off[q * kWarps + warp] + __popc(ballot[q] & lower_lanes));
+    }
   }
 }
 
-enum { kCtlOff = 0, kCtlMw, kCtlPoisoned, kCtlAnyTied, kCtlNext, kCtlSize };
+struct CompactBufs {
+  int* counts;  // [tiles]
+  int* offs;    // [tiles + 1]
+  int* scan;
+};
 
-// The marked slots of the span [off, off + span): flags and dest are
-// indexed from off, which is ctl[kCtlOff] (B10's window) or 0 without ctl
-// (B2, span N).  Keys (g - off) << W | (r2 + 1): every marked g is at least
-// off, and the order is that of (g, r2).
-__global__ void refine_gather_kernel(const int* __restrict__ flags,
-                                     const int* __restrict__ dest,
-                                     const int* __restrict__ sa,
-                                     const int* __restrict__ rank,
-                                     const int* __restrict__ gs, long long N,
-                                     long long span, long long k, int W,
-                                     const int* __restrict__ ctl,
-                                     int* __restrict__ slots,
-                                     uint64_t* __restrict__ keys,
-                                     int* __restrict__ vals) {
-  const long long off = ctl != nullptr ? ctl[kCtlOff] : 0;
+CompactBufs carve_compact(Arena& a, long long n) {
+  const long long tiles = cdiv(n, kCompactTile);
+  CompactBufs b;
+  b.counts = a.take<int>(tiles);
+  b.offs = a.take<int>(tiles + 1);
+  b.scan = a.take<int>(scan_scratch_elems(tiles));
+  return b;
+}
+
+// Compacts n items (at most n; *dn on the device when given); the number
+// emitted ends up at b.offs + tiles, returned.
+template <class P>
+const int* compact(const P& p, long long n, const int* dn,
+                   const CompactBufs& b, cudaStream_t st) {
+  const long long tiles = cdiv(n, kCompactTile);
+  if (tiles > 0) {
+    compact_count_kernel<<<static_cast<unsigned>(tiles), kThreads, 0, st>>>(
+        p, n, dn, b.counts);
+    scan_levels<SumOp>(b.counts, b.offs, tiles, true, b.scan, st);
+  }
+  scan_total_kernel<<<1, 1, 0, st>>>(b.counts, b.offs, tiles);
+  if (tiles > 0) {
+    compact_emit_kernel<<<static_cast<unsigned>(tiles), kThreads, 0, st>>>(
+        p, n, dn, b.offs);
+  }
+  return b.offs + tiles;
+}
+
+// Candidate b is slot cand[b], or b without a list; it is kept when tied.
+struct TiePred {
+  const int* gs;
+  long long N;
+  const int* cand;
+  int* tl;
+  __device__ long long slot(long long b) const {
+    return cand != nullptr ? cand[b] : b;
+  }
+  __device__ bool test(long long b) const {
+    const long long s = slot(b);
+    const int g = gs[s];
+    return (s + 1 < N && gs[s + 1] == g) || (s > 0 && gs[s - 1] == g);
+  }
+  __device__ void emit(long long b, long long o) const {
+    tl[o] = static_cast<int>(slot(b));
+  }
+};
+
+// List position t is kept when its group is large, as the sort's pair at
+// its place o among the large members: key (its group's start in that
+// order >> kSegLogT) << W | (r2 + 1), value its position; lslot[o] gets its
+// slot.
+struct LargePred {
+  const unsigned* gl;
+  const unsigned* r2b;
+  const int* posb;
+  const int* tl;
+  int W;
+  uint64_t* keys;
+  int* vals;
+  int* lslot;
+  __device__ bool test(long long t) const { return (gl[t] & kClassBit) != 0; }
+  __device__ void emit(long long t, long long o) const {
+    const int s = tl[t];
+    const long long lstart = o - (s - static_cast<long long>(gl[t] & ~kClassBit));
+    keys[o] = (static_cast<uint64_t>(lstart >> kSegLogT) << W) |
+              (r2b[t] & ~kClassBit);
+    vals[o] = posb[t];
+    lslot[o] = s;
+  }
+};
+
+__global__ void copy_count_kernel(const int* from, int* to) { *to = *from; }
+
+// The members' reads, before the round stores anything.
+struct SegGather {
+  const int* sa;
+  const int* rank;
+  const int* gs;
+  long long N;
+  long long k;
+  unsigned* r2b;
+  unsigned* gl;
+  int* posb;
+  // List position t holds slot s: r2b = r2 + 1 (| kClassBit for a tiny
+  // group), gl = g (| kClassBit for a large group), posb = the position.
+  __device__ void operator()(long long t, int s) const {
+    const int g = gs[s];
+    const int pos = sa[s];
+    const long long q = static_cast<long long>(pos) + k;
+    const long long r2 = q < N ? rank[q] : -1;
+    const bool tiny = !group_above(gs, N, g, kTiny);
+    r2b[t] = static_cast<unsigned>(r2 + 1) | (tiny ? kClassBit : 0);
+    gl[t] = static_cast<unsigned>(g) |
+            (!tiny && group_above(gs, N, g, kSegT) ? kClassBit : 0);
+    posb[t] = pos;
+  }
+};
+
+__global__ void seg_gather_kernel(const int* __restrict__ tl, long long m,
+                                  SegGather read) {
   for (long long t = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
-       t < span; t += static_cast<long long>(gridDim.x) * blockDim.x) {
-    if (!flags[t]) continue;
-    const long long s = off + t;
-    const int b = dest[t];
-    const long long pos = sa[s];
-    const long long q = pos + k;
-    const long long r2 = q < N ? rank[q] : -1;
-    slots[b] = static_cast<int>(s);
-    keys[b] = (static_cast<uint64_t>(gs[s] - off) << W) |
-              static_cast<uint64_t>(r2 + 1);
-    vals[b] = static_cast<int>(pos);
+       t < m; t += static_cast<long long>(gridDim.x) * blockDim.x) {
+    read(t, tl[t]);
+  }
+}
+
+// B10's window: the marked span slots (flags, dest from the window scan,
+// slot off + b for flags[b]) are listed into tl as they are read.
+__global__ void seg_gather_marks_kernel(const int* __restrict__ flags,
+                                        const int* __restrict__ dest,
+                                        long long span, const int* ctl,
+                                        int* __restrict__ tl,
+                                        SegGather read) {
+  const long long off = ctl[kCtlOff];
+  for (long long b = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       b < span; b += static_cast<long long>(gridDim.x) * blockDim.x) {
+    if (!flags[b]) continue;
+    const int t = dest[b];
+    const int s = static_cast<int>(off + b);
+    tl[t] = s;
+    read(t, s);
+  }
+}
+
+// A window's marks, for the refine that lists them itself.
+struct Marks {
+  const int* flags;
+  const int* dest;
+  long long span;
+  const int* ctl;
+};
+
+// A tiny member's new slot is g + (members with a smaller r2) + (earlier
+// members with its r2), its label g + (members with a smaller r2): one
+// thread a member, reading its group's r2 (at most kTiny, from cache).
+__global__ void seg_tiny_kernel(const int* __restrict__ tl, long long m,
+                                const unsigned* __restrict__ r2b,
+                                const unsigned* __restrict__ gl,
+                                const int* __restrict__ posb,
+                                int* __restrict__ sa, int* __restrict__ rank,
+                                int* __restrict__ gs) {
+  for (long long t = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       t < m; t += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const unsigned w = r2b[t];
+    if (!(w & kClassBit)) continue;
+    const unsigned r = w & ~kClassBit;
+    const unsigned g = gl[t];  // a tiny group is never large
+    const long long b0 = t - (tl[t] - static_cast<long long>(g));
+    const long long end = b0 + kTiny < m ? b0 + kTiny : m;
+    int lt = 0, eq = 0;
+    for (long long j = b0; j < end && gl[j] == g; ++j) {
+      const unsigned rj = r2b[j] & ~kClassBit;
+      lt += rj < r ? 1 : 0;
+      eq += rj == r && j < t ? 1 : 0;
+    }
+    const int p = posb[t];
+    const int slot = static_cast<int>(g) + lt + eq;
+    sa[slot] = p;
+    if (lt) {
+      const int f = static_cast<int>(g) + lt;
+      gs[slot] = f;
+      rank[p] = f;
+    }
+  }
+}
+
+__device__ __forceinline__ unsigned long long warp_or64(unsigned long long x) {
+  const unsigned lo = __reduce_or_sync(kFull, static_cast<unsigned>(x));
+  const unsigned hi = __reduce_or_sync(kFull, static_cast<unsigned>(x >> 32));
+  return (static_cast<unsigned long long>(hi) << 32) | lo;
+}
+
+__device__ __forceinline__ unsigned long long warp_and64(unsigned long long x) {
+  const unsigned lo = __reduce_and_sync(kFull, static_cast<unsigned>(x));
+  const unsigned hi = __reduce_and_sync(kFull, static_cast<unsigned>(x >> 32));
+  return (static_cast<unsigned long long>(hi) << 32) | lo;
+}
+
+// Block b refines the medium groups whose first list position lies in [b *
+// kSegT, (b + 1) * kSegT): fewer than kSegCap members.  It compacts them
+// into shared memory as (offset, group << W | (r2 + 1)) words, group being
+// the member's group's first index there, and radix-sorts the words 8 bits
+// a pass, stably (warp-striped items ranked with __match_any_sync, as the
+// one-sweep pass ranks them), skipping every digit that no two of its keys
+// differ in.  Each member's run start (a max-scan of the key changes: per
+// warp with shuffles, then across warps) gives its new label, and sa, gs
+// and rank are stored, rank only where the label changed.
+__global__ void __launch_bounds__(kSegThreads, 2)
+seg_small_kernel(const int* __restrict__ tl, long long m,
+                 const unsigned* __restrict__ r2b,
+                 const unsigned* __restrict__ gl,
+                 const int* __restrict__ posb, int W, int* __restrict__ sa,
+                 int* __restrict__ rank, int* __restrict__ gs) {
+  extern __shared__ uint4 seg_smem[];
+  uint64_t* stage = reinterpret_cast<uint64_t*>(seg_smem);
+  unsigned* swarp = reinterpret_cast<unsigned*>(stage + kSegCap);
+  __shared__ unsigned long long s_or, s_and;
+  __shared__ int s_digit[kRadix];
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const long long base = static_cast<long long>(blockIdx.x) * kSegT;
+  if (t == 0) {
+    s_or = 0;
+    s_and = ~0ull;
+  }
+  // Members: thread t tests positions base + 16 t .. base + 16 t + 15.
+  const long long i0 = base + static_cast<long long>(t) * kSegItems;
+  unsigned gv[kSegItems], rv[kSegItems];
+  int tv[kSegItems];
+  if (i0 + kSegItems <= m) {  // 16-byte loads: i0 is a multiple of 16
+#pragma unroll
+    for (int v = 0; v < kSegItems / 4; ++v) {
+      const uint4 a = reinterpret_cast<const uint4*>(gl + i0)[v];
+      const uint4 b = reinterpret_cast<const uint4*>(r2b + i0)[v];
+      const int4 c = reinterpret_cast<const int4*>(tl + i0)[v];
+      gv[4 * v] = a.x; gv[4 * v + 1] = a.y; gv[4 * v + 2] = a.z; gv[4 * v + 3] = a.w;
+      rv[4 * v] = b.x; rv[4 * v + 1] = b.y; rv[4 * v + 2] = b.z; rv[4 * v + 3] = b.w;
+      tv[4 * v] = c.x; tv[4 * v + 1] = c.y; tv[4 * v + 2] = c.z; tv[4 * v + 3] = c.w;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < kSegItems; ++q) {
+      const bool in = i0 + q < m;
+      gv[q] = in ? gl[i0 + q] : kClassBit;
+      rv[q] = in ? r2b[i0 + q] : 0;
+      tv[q] = in ? tl[i0 + q] : 0;
+    }
+  }
+  unsigned mine = 0;
+#pragma unroll
+  for (int q = 0; q < kSegItems; ++q) {
+    if (!(gv[q] & kClassBit) && !(rv[q] & kClassBit)) {
+      const long long b0 = i0 + q - (tv[q] - static_cast<long long>(gv[q]));
+      if (b0 >= base && b0 < base + kSegT) mine |= 1u << q;
+    }
+  }
+  int cnt;
+  int ci = block_exclusive_scan<SumOp, kSegWarps>(__popc(mine), &cnt);
+  if (cnt == 0) return;
+  unsigned long long kor = 0, kand = ~0ull;
+#pragma unroll
+  for (int q = 0; q < kSegItems; ++q) {
+    if (!(mine >> q & 1u)) continue;
+    const long long i = i0 + q;
+    const long long grp = ci - (tv[q] - static_cast<long long>(gv[q]));
+    const uint64_t key = (static_cast<uint64_t>(grp) << W) | rv[q];
+    stage[ci++] = (static_cast<uint64_t>(i - base) << kSegIdxShift) | key;
+    kor |= key;
+    kand &= key;
+  }
+  kor = warp_or64(kor);
+  kand = warp_and64(kand);
+  if (lane == 0) {
+    atomicOr(&s_or, kor);
+    atomicAnd(&s_and, kand);
+  }
+  __syncthreads();
+  const uint64_t vary = s_or ^ s_and;
+  // Each warp takes a contiguous run of 32 jn members (its items j < jn),
+  // jn the fewest that cover cnt, so every warp has work however few
+  // members the block holds, and warp order stays member order.
+  const int jn = (cnt + kSegThreads - 1) / kSegThreads;
+  const int wbase = warp * 32 * jn + lane;
+  const unsigned lower_lanes = (1u << lane) - 1u;
+  for (int shift = 0; shift < kSegIdxShift; shift += kRadixBits) {
+    if (((vary >> shift) & (kRadix - 1)) == 0) continue;  // one digit
+    uint64_t item[kSegItems];
+    unsigned slot2[kSegItems / 2];  // two 16-bit ranks a word
+    for (int x = t; x < kSegWarps * kRadix; x += kSegThreads) swarp[x] = 0;
+#pragma unroll
+    for (int j = 0; j < kSegItems; ++j) {
+      const int idx = wbase + 32 * j;
+      item[j] = j < jn && idx < cnt ? stage[idx] : 0;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kSegItems; ++j) {
+      if (j >= jn) break;
+      const bool valid = wbase + 32 * j < cnt;
+      const int d = valid ? static_cast<int>((item[j] >> shift) &
+                                             (kRadix - 1))
+                          : kRadix;
+      const unsigned peers = __match_any_sync(kFull, d);
+      const unsigned below = peers & lower_lanes;
+      const unsigned before = valid ? swarp[warp * kRadix + d] : 0;
+      __syncwarp();
+      if (valid && below == 0) {
+        swarp[warp * kRadix + d] = before + __popc(peers);
+      }
+      __syncwarp();
+      const unsigned r = before + __popc(below);
+      if (j & 1) {
+        slot2[j >> 1] |= r << 16;
+      } else {
+        slot2[j >> 1] = r;
+      }
+    }
+    __syncthreads();
+    unsigned count = 0;
+    if (t < kRadix) {
+      for (int w = 0; w < kSegWarps; ++w) {
+        const unsigned x = swarp[w * kRadix + t];
+        swarp[w * kRadix + t] = count;
+        count += x;
+      }
+    }
+    int total;
+    const int start = block_exclusive_scan<SumOp, kSegWarps>(
+        t < kRadix ? static_cast<int>(count) : 0, &total);
+    if (t < kRadix) s_digit[t] = start;
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kSegItems; ++j) {
+      if (j >= jn) break;
+      if (wbase + 32 * j < cnt) {
+        const int d = static_cast<int>((item[j] >> shift) & (kRadix - 1));
+        const int r = static_cast<int>((slot2[j >> 1] >> (16 * (j & 1))) &
+                                       0xffffu);
+        stage[s_digit[d] + static_cast<int>(swarp[warp * kRadix + d]) + r] =
+            item[j];
+      }
+    }
+    __syncthreads();
+  }
+  // Run starts in sorted order, warp-striped: index wbase + 32 j.
+  int run[kSegItems];
+  int carry = INT_MIN;
+#pragma unroll
+  for (int j = 0; j < kSegItems; ++j) {
+    const int idx = wbase + 32 * j;
+    int v = INT_MIN;
+    if (j < jn && idx < cnt &&
+        (idx == 0 || ((stage[idx] ^ stage[idx - 1]) & kSegKeyMask) != 0)) {
+      v = idx;
+    }
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, v, o);
+      if (lane >= o && y > v) v = y;
+    }
+    run[j] = v > carry ? v : carry;
+    carry = __shfl_sync(kFull, run[j], 31);
+  }
+  int total;
+  const int prefix = __shfl_sync(
+      kFull, block_exclusive_scan<MaxOp, kSegWarps>(
+                 lane == 31 ? carry : INT_MIN, &total), 0);
+#pragma unroll
+  for (int j = 0; j < kSegItems; ++j) {
+    const int idx = wbase + 32 * j;
+    if (j >= jn || idx >= cnt) break;
+    const uint64_t w = stage[idx];
+    const int r = run[j] > prefix ? run[j] : prefix;
+    const long long i = base + static_cast<long long>(w >> kSegIdxShift);
+    const int g = static_cast<int>(gl[i]);
+    const int grp = static_cast<int>((w & kSegKeyMask) >> W);
+    const int p = posb[i];
+    const int slot = g + (idx - grp);
+    sa[slot] = p;
+    if (r != grp) {  // a later subgroup: its label changed
+      gs[slot] = g + (r - grp);
+      rank[p] = g + (r - grp);
+    }
   }
 }
 
 __global__ void refine_change_kernel(const uint64_t* __restrict__ keys,
                                      const int* __restrict__ slots,
-                                     long long m, int* __restrict__ starts) {
+                                     long long m, const int* dn,
+                                     int* __restrict__ starts) {
+  if (dn != nullptr && *dn < m) m = *dn;
   for (long long b = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
        b < m; b += static_cast<long long>(gridDim.x) * blockDim.x) {
@@ -721,9 +1312,11 @@ __global__ void refine_change_kernel(const uint64_t* __restrict__ keys,
 __global__ void refine_scatter_kernel(const int* __restrict__ slots,
                                       const int* __restrict__ vals,
                                       const int* __restrict__ first_eq,
-                                      long long m, int* __restrict__ sa,
+                                      long long m, const int* dn,
+                                      int* __restrict__ sa,
                                       int* __restrict__ rank,
                                       int* __restrict__ gs) {
+  if (dn != nullptr && *dn < m) m = *dn;
   for (long long b = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
        b < m; b += static_cast<long long>(gridDim.x) * blockDim.x) {
@@ -738,57 +1331,91 @@ __global__ void refine_scatter_kernel(const int* __restrict__ slots,
   }
 }
 
-struct RefineBufs {
-  int* slots;
+// The refine's buffers over m members.  r2b, gl and posb are dead once the
+// large keys are made and the tiny and medium members stored, so the
+// sort's alternate buffers reuse them.
+struct SegBufs {
+  unsigned* r2b;
+  unsigned* gl;
+  int* posb;
+  int* lslot;
+  int* first_eq;
   uint64_t* keys;
   int* vals;
   SortBufs sort;
-  int* starts;
-  int* first_eq;
+  CompactBufs compact;
   int* scan;
+  int* tl;  // the list, when the caller keeps none (B10)
 };
 
-RefineBufs carve_refine(Arena& a, long long m) {
-  RefineBufs b;
-  b.slots = a.take<int>(m);
+SegBufs carve_seg(Arena& a, long long m, bool own_list) {
+  SegBufs b;
+  const size_t x = a.off;
+  Arena gather{a.base, x};
+  b.r2b = gather.take<unsigned>(m);
+  b.gl = gather.take<unsigned>(m);
+  b.posb = gather.take<int>(m);
+  Arena alt{a.base, x};
+  b.sort.keys_alt = alt.take<uint64_t>(m);
+  b.sort.vals_alt = alt.take<int>(m);
+  a.off = gather.off > alt.off ? gather.off : alt.off;
+  b.lslot = a.take<int>(m);
+  b.first_eq = a.take<int>(m);
   b.keys = a.take<uint64_t>(m);
   b.vals = a.take<int>(m);
-  b.sort = carve_sort(a, m);
-  b.starts = a.take<int>(m);
-  b.first_eq = a.take<int>(m);
+  b.sort.status = a.take<unsigned long long>(kRadix * cdiv(m, kSortTile));
+  b.sort.hist = a.take<unsigned>(kSortCounters);
+  b.compact = carve_compact(a, m);
   b.scan = a.take<int>(scan_scratch_elems(m));
+  b.tl = own_list ? a.take<int>(m) : nullptr;
   return b;
 }
 
-// Bits W with 2^W > N: group starts and r2 + 1 both fit in W bits.
-int key_width(long long N) {
-  int w = 1;
-  while ((1LL << w) <= N) ++w;
-  return w;
-}
-
-// B2's refine body on the m slots that `flags` marks over the span (dest
-// their buffer indices; see refine_gather_kernel): gather, radix sort on
-// high_bits + W bits (g - off below 2^high_bits), key-change starts,
-// max-scan, scatter.  Each marked group must be a contiguous run of slots,
-// marked from its first slot on.
-void refine_marked(int* sa, int* rank, int* gs, long long N, long long k,
-                   long long m, const int* flags, const int* dest,
-                   long long span, int high_bits, const int* ctl,
-                   const RefineBufs& b, cudaStream_t st) {
+// The refine of the m listed members (see the B2 section); counts[1] gets
+// the large members' count.  With marks, the list tl is written from them
+// first, by the gather.
+void seg_refine(int* sa, int* rank, int* gs, long long N, long long k,
+                int* tl, long long m, int* counts, const SegBufs& b,
+                cudaStream_t st, const Marks* marks = nullptr) {
+  if (m <= 0) return;
   const int W = key_width(N);
-  refine_gather_kernel<<<grid_for(span), kThreads, 0, st>>>(
-      flags, dest, sa, rank, gs, N, span, k, W, ctl, b.slots, b.keys,
-      b.vals);
-  const Pairs sorted = radix_sort_pairs(b.keys, b.vals, m, high_bits + W,
-                                        b.sort, st);
   const unsigned grid = grid_for(m);
-  refine_change_kernel<<<grid, kThreads, 0, st>>>(sorted.keys, b.slots, m,
-                                                  b.starts);
-  scan_levels<MaxOp>(b.starts, b.first_eq, m, false, b.scan, st);
-  refine_scatter_kernel<<<grid, kThreads, 0, st>>>(b.slots, sorted.vals,
-                                                   b.first_eq, m, sa, rank,
-                                                   gs);
+  const SegGather read{sa, rank, gs, N, k, b.r2b, b.gl, b.posb};
+  if (marks != nullptr) {
+    seg_gather_marks_kernel<<<grid_for(marks->span), kThreads, 0, st>>>(
+        marks->flags, marks->dest, marks->span, marks->ctl, tl, read);
+  } else {
+    seg_gather_kernel<<<grid, kThreads, 0, st>>>(tl, m, read);
+  }
+  const int* ml = compact(
+      LargePred{b.gl, b.r2b, b.posb, tl, W, b.keys, b.vals, b.lslot}, m,
+      nullptr, b.compact, st);
+  copy_count_kernel<<<1, 1, 0, st>>>(ml, counts + 1);
+  seg_tiny_kernel<<<grid, kThreads, 0, st>>>(tl, m, b.r2b, b.gl, b.posb, sa,
+                                             rank, gs);
+  static bool smem_set = false;
+  if (!smem_set) {
+    cudaFuncSetAttribute(seg_small_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(kSegSmem));
+    smem_set = true;
+  }
+  seg_small_kernel<<<static_cast<unsigned>(cdiv(m, kSegT)), kSegThreads,
+                     kSegSmem, st>>>(tl, m, b.r2b, b.gl, b.posb, W, sa, rank,
+                                     gs);
+  const Pairs sorted = radix_sort_pairs(
+      b.keys, b.vals, m, W + bit_length((m - 1) >> kSegLogT), b.sort, st,
+      ml);
+  // The large path's grid-stride kernels run on a few waves of blocks: its
+  // count is on the device, often 0, and a grid sized by m would spend
+  // its time scheduling blocks that exit at once.
+  const unsigned large_grid = walk_grid(m);
+  int* first_eq = b.first_eq;
+  refine_change_kernel<<<large_grid, kThreads, 0, st>>>(
+      sorted.keys, b.lslot, m, ml, first_eq);
+  scan_levels<MaxOp>(first_eq, first_eq, m, false, b.scan, st, ml);
+  refine_scatter_kernel<<<large_grid, kThreads, 0, st>>>(
+      b.lslot, sorted.vals, first_eq, m, ml, sa, rank, gs);
 }
 
 // ---------------------------------------------------------------------------
@@ -813,9 +1440,9 @@ void refine_marked(int* sa, int* rank, int* gs, long long N, long long k,
 //     half or more (a group too big for any window: the row is poisoned,
 //     and its caller falls back to B9) and ctl[3] = 1 when any slot is
 //     tied, exactly as the JAX pass reduces them.
-//   - pss_sa_rotating_pass refines the m_w marked slots by the rank k
-//     positions on (B2's body over the span, keyed on g - off, which is
-//     below W), then jumps: nxt = the least slot >= off + W that starts a
+//   - pss_sa_rotating_pass compacts the m_w marked slots into a list and
+//     refines them by the rank k positions on with B2's segmented refine
+//     (whole groups of at most half members), then jumps: nxt = the least slot >= off + W that starts a
 //     tied group (N if none, or if off + W >= N) -> ctl[4], and ctl[0] =
 //     nxt < N ? nxt : 0.  The JAX pass samples a reverse cummin at off + W;
 //     a min-reduction over [off + W, N) is the same.
@@ -825,8 +1452,8 @@ void refine_marked(int* sa, int* rank, int* gs, long long N, long long k,
 // the JAX order, so earlier windows refine later windows' r2 alike.
 // Bound by memory: a scan reads gs over the row (4 bytes a slot) and
 // writes flags and dest over the span (8 bytes a span slot with the scan's
-// levels); a pass moves B2's sort bytes per marked slot and reads gs from
-// off + W on.
+// levels); a pass moves B2's refine bytes per marked slot and reads gs
+// from off + W on.
 // ---------------------------------------------------------------------------
 constexpr int kByte3KeyBits = 25;
 
@@ -1164,35 +1791,57 @@ long long pss_sa_tie_scratch_bytes(long long N) {
   return pss_scan_scratch_bytes(N);
 }
 
-// flags int32 [N], dest int32 [N + 1]; dest[N] = the tie count m.
-int pss_sa_tie_scan(const void* gs, long long N, void* flags, void* dest,
-                    void* scratch, void* stream) {
+long long pss_sa_round_scratch_bytes(long long c) {
+  Arena a{nullptr, 0};
+  carve_compact(a, c);
+  return static_cast<long long>(a.off);
+}
+
+// The round's tie scan over c candidates: the slots cand int32 [c], or
+// every slot of the row when cand is null (c = N).  Writes the tied list
+// tl int32 [c] (its first m entries, in slot order) and counts[0] = m.
+// Scratch as pss_sa_round_scratch_bytes(c).
+int pss_sa_tie_scan(const void* gs, long long N, const void* cand,
+                    long long c, void* tl, void* counts, void* scratch,
+                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  tie_flags_kernel<<<grid_for(N), kThreads, 0, st>>>(
-      static_cast<const int*>(gs), N, static_cast<int*>(flags));
-  return pss_scan_exclusive_sum(flags, dest, N, scratch, stream);
+  Arena a{static_cast<char*>(scratch), 0};
+  const CompactBufs b = carve_compact(a, c);
+  const int* m = compact(TiePred{static_cast<const int*>(gs), N,
+                                 static_cast<const int*>(cand),
+                                 static_cast<int*>(tl)},
+                         c, nullptr, b, st);
+  copy_count_kernel<<<1, 1, 0, st>>>(m, static_cast<int*>(counts));
+  return static_cast<int>(cudaGetLastError());
 }
 
 long long pss_sa_refine_scratch_bytes(long long m) {
   Arena a{nullptr, 0};
-  carve_refine(a, m);
+  carve_seg(a, m, false);
   return static_cast<long long>(a.off);
 }
 
-// Refines the m tied slots (flags and dest from pss_sa_tie_scan) by the
-// rank k positions on; sa, rank, gs int32 [N] are updated in place.
+// Refines the m listed slots (tl from pss_sa_tie_scan) by the rank k
+// positions on; sa, rank, gs int32 [N] are updated in place; counts[1]
+// gets the members of groups over kSegT.  Scratch as
+// pss_sa_refine_scratch_bytes(m).
 int pss_sa_refine_round(void* sa, void* rank, void* gs, long long N,
-                        long long k, long long m, const void* flags,
-                        const void* dest, void* scratch, void* stream) {
+                        long long k, long long m, void* tl, void* counts,
+                        void* scratch, void* stream) {
   if (m <= 0) return 0;
   Arena a{static_cast<char*>(scratch), 0};
-  RefineBufs b = carve_refine(a, m);
-  refine_marked(static_cast<int*>(sa), static_cast<int*>(rank),
-                static_cast<int*>(gs), N, k, m,
-                static_cast<const int*>(flags), static_cast<const int*>(dest),
-                N, key_width(N), nullptr, b,
-                static_cast<cudaStream_t>(stream));
+  const SegBufs b = carve_seg(a, m, false);
+  seg_refine(static_cast<int*>(sa), static_cast<int*>(rank),
+             static_cast<int*>(gs), N, k, static_cast<int*>(tl), m,
+             static_cast<int*>(counts), b, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
+}
+
+long long pss_sa_pass_scratch_bytes(long long m) {
+  Arena a{nullptr, 0};
+  carve_seg(a, m, true);
+  a.take<int>(2);
+  return static_cast<long long>(a.off);
 }
 
 // ---- B9 -------------------------------------------------------------------
@@ -1275,8 +1924,9 @@ int pss_sa_window_scan(const void* gs, long long N, long long half,
 }
 
 // Refines the m marked slots of the last window scan (same N, half and W)
-// by the rank k positions on, in place, then moves ctl[0] to the next
-// window.  Scratch as pss_sa_refine_scratch_bytes(m).
+// by the rank k positions on, in place (B2's tie scan over the window's
+// marks, then its refine), then moves ctl[0] to the next window.  Scratch
+// as pss_sa_pass_scratch_bytes(m).
 int pss_sa_rotating_pass(void* sa, void* rank, void* gs, long long N,
                          long long k, long long m, long long half,
                          long long W, const void* flags, const void* dest,
@@ -1284,13 +1934,14 @@ int pss_sa_rotating_pass(void* sa, void* rank, void* gs, long long N,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* c = static_cast<int*>(ctl);
   if (m > 0) {
+    const long long span = window_span(N, half, W);
     Arena a{static_cast<char*>(scratch), 0};
-    RefineBufs b = carve_refine(a, m);
-    refine_marked(static_cast<int*>(sa), static_cast<int*>(rank),
-                  static_cast<int*>(gs), N, k, m,
-                  static_cast<const int*>(flags),
-                  static_cast<const int*>(dest), window_span(N, half, W),
-                  key_width(W - 1), c, b, st);
+    const SegBufs b = carve_seg(a, m, true);
+    const Marks marks{static_cast<const int*>(flags),
+                      static_cast<const int*>(dest), span, c};
+    seg_refine(static_cast<int*>(sa), static_cast<int*>(rank),
+               static_cast<int*>(gs), N, k, b.tl, m, a.take<int>(2), b, st,
+               &marks);
   }
   next_init_kernel<<<1, 1, 0, st>>>(N, c);
   next_start_kernel<<<walk_grid(N), kThreads, 0, st>>>(
@@ -1309,6 +1960,28 @@ int pss_scatter(const void* values, const void* dests, long long n, void* out,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(values), static_cast<const int*>(dests), n,
       static_cast<int*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+long long pss_scatter_blocked_scratch_bytes(long long n) {
+  Arena a{nullptr, 0};
+  a.take<uint64_t>(n);
+  a.take<int>(n);
+  carve_sort(a, n);
+  return static_cast<long long>(a.off);
+}
+
+// out[dests[i]] = values[i] as pss_scatter, blocked by destination.
+int pss_scatter_blocked(const void* values, const void* dests, long long n,
+                        void* out, void* scratch, void* stream) {
+  if (n <= 0) return 0;
+  Arena a{static_cast<char*>(scratch), 0};
+  uint64_t* keys = a.take<uint64_t>(n);
+  int* vals = a.take<int>(n);
+  const SortBufs s = carve_sort(a, n);
+  blocked_scatter(static_cast<const int*>(values),
+                  static_cast<const int*>(dests), n, n, static_cast<int*>(out),
+                  keys, vals, s, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -100,7 +100,7 @@ def bwt_from_sa_device(text: torch.Tensor, sa: torch.Tensor):
         raise ValueError('bwt_from_sa_device: empty text')
     u = torch.empty(n, dtype=torch.uint8, device=text.device)
     primary = torch.zeros((), dtype=torch.int32, device=text.device)
-    with torch.cuda.device(text.device):
+    with kernels.on(text.device):
         kernels.launch('bwt_from_sa', text.data_ptr(), sa.data_ptr(), n,
                        primary.data_ptr(), u.data_ptr())
     return u, primary

@@ -20,6 +20,7 @@ its kernel (or raises) for tensors on a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import os
@@ -85,9 +86,9 @@ _SIGNATURES: typing.Dict[str, list] = {
     'pss_sa_init_ranked': [_P, _L, _L, _P, _I, _P, _P, _P, _P, _P],
     # text, N, n, sa, rank, gs, scratch, stream
     'pss_sa_init_bytes': [_P, _L, _L, _P, _P, _P, _P, _P],
-    # gs, N, flags, dest, scratch, stream
-    'pss_sa_tie_scan': [_P, _L, _P, _P, _P, _P],
-    # sa, rank, gs, N, k, m, flags, dest, scratch, stream
+    # gs, N, cand, c, tl, counts, scratch, stream
+    'pss_sa_tie_scan': [_P, _L, _P, _L, _P, _P, _P, _P],
+    # sa, rank, gs, N, k, m, tl, counts, scratch, stream
     'pss_sa_refine_round': [_P, _P, _P, _L, _L, _L, _P, _P, _P, _P],
     # sa_full, N, n, out, stream
     'pss_sa_roll_front': [_P, _L, _L, _P, _P],
@@ -104,12 +105,14 @@ _SIGNATURES: typing.Dict[str, list] = {
                              _P],
     # values, dests, n, out, stream
     'pss_scatter': [_P, _P, _L, _P, _P],
+    # values, dests, n, out, scratch, stream
+    'pss_scatter_blocked': [_P, _P, _L, _P, _P, _P],
 }
 
 #: Scratch sizers: pss_<name>_scratch_bytes(count) -> bytes.  Host
 #: functions; they launch nothing and are not counted.
-_SCRATCH = ('scan', 'radix_sort', 'sa_init', 'sa_tie', 'sa_refine',
-            'sa_full')
+_SCRATCH = ('scan', 'radix_sort', 'sa_init', 'sa_tie', 'sa_round',
+            'sa_refine', 'sa_pass', 'sa_full', 'scatter_blocked')
 
 #: Kernel name (the C entry point without its prefix) -> launches so far.
 LAUNCHES: typing.Dict[str, int] = {
@@ -173,15 +176,55 @@ def library() -> ctypes.CDLL:
         return _LIB
 
 
+_FNS: typing.Dict[str, typing.Any] = {}
+_NO_GUARD = contextlib.nullcontext()
+#: torch's C calls for the current device and its raw stream, where the
+#: CUDA build of torch has them (looked up once; one tuple, bound whole).
+_C_CALLS: typing.Optional[tuple] = None
+
+
+def _c_calls() -> tuple:
+    global _C_CALLS
+    if _C_CALLS is None:
+        import torch
+
+        _C_CALLS = (getattr(torch._C, '_cuda_getDevice', None),
+                    getattr(torch._C, '_cuda_getCurrentRawStream', None))
+    return _C_CALLS
+
+
+def _current_stream() -> int:
+    """The raw current stream of the current device: two C calls where the
+    CUDA build of torch has them, else through a Stream object."""
+    device, raw = _c_calls()
+    if raw is not None:
+        return raw(device())
+    import torch
+
+    return torch.cuda.current_stream().cuda_stream
+
+
+def on(device):
+    """``torch.cuda.device(device)``, or a no-op context when ``device`` is
+    already the current one: every wrapper launches inside it, and a
+    kernel of a few microseconds should not pay a device switch there and
+    back."""
+    current = _c_calls()[0]
+    if current is not None and device.index == current():
+        return _NO_GUARD
+    import torch
+
+    return torch.cuda.device(device)
+
+
 def launch(name: str, *args) -> None:
     """Launch kernel ``name`` (without the ``pss_`` prefix) on the current
     stream of the calling thread's current device and count it.  The caller
     passes every argument but the stream."""
-    import torch
-
-    lib = library()
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = getattr(lib, 'pss_' + name)(*args, stream)
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = _FNS[name] = getattr(library(), 'pss_' + name)
+    rc = fn(*args, _current_stream())
     if rc != 0:
         raise RuntimeError(f'CUDA kernel {name} failed to launch: error {rc}')
     count_launch(name)
@@ -210,18 +253,20 @@ def reset_launches() -> None:
 
 def route(*tensors) -> bool:
     """True for the CUDA kernel, False for the plain version (CPU tensors);
-    raises on mixed or other devices."""
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(
-            f'tensors on several devices: {sorted(map(str, devs))}'
-        )
-    dev = devs.pop()
-    if dev.type == 'cpu':
+    raises on mixed or other devices.  Reads flags and indices only, which
+    costs less than comparing device objects: a small kernel's whole call
+    pays for every wrapper's checks."""
+    first = tensors[0]
+    if first.is_cuda:
+        index = first.get_device()
+        if all(t.is_cuda and t.get_device() == index for t in tensors):
+            return True
+    elif first.is_cpu and all(t.is_cpu for t in tensors):
         return False
-    if dev.type != 'cuda':
-        raise ValueError(f'no kernel for device {dev}')
-    return True
+    devs = sorted({str(t.device) for t in tensors})
+    if len(devs) != 1:
+        raise ValueError(f'tensors on several devices: {devs}')
+    raise ValueError(f'no kernel for device {devs[0]}')
 
 
 def check(t, name: str, dtype, ndim: int) -> None:

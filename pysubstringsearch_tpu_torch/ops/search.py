@@ -378,7 +378,7 @@ def ranked_pack(text: torch.Tensor, n: int, rank: torch.Tensor, bits: int,
     kernels.check(out, 'out', torch.int32, 1)
     if out.shape[0] != N or rank.shape[0] != 256 or bits not in (5, 6):
         raise ValueError('ranked_pack: bad shapes or bits')
-    with torch.cuda.device(text.device):
+    with kernels.on(text.device):
         kernels.launch('ranked_pack', text.data_ptr(), N, int(n),
                        rank.data_ptr(), bits, out.data_ptr())
     return out
@@ -427,7 +427,7 @@ def ranked_limb_planes(packed: torch.Tensor, sa: torch.Tensor, n: int,
     kernels.check(out, 'out', torch.int32, 1)
     if sa.shape[0] != N or out.shape[0] != num_limbs * N:
         raise ValueError('ranked_limb_planes: bad shapes')
-    with torch.cuda.device(packed.device):
+    with kernels.on(packed.device):
         kernels.launch('ranked_limb_planes', packed.data_ptr(),
                        sa.data_ptr(), N, int(n), depth, bits, num_limbs,
                        out.data_ptr())
@@ -459,7 +459,7 @@ def _table(src: torch.Tensor, sa: torch.Tensor, n: int, size: int,
     kernels.check(out, 'out', torch.int32, 1)
     if out.shape[0] != size:
         raise ValueError('seed_table: bad output shape')
-    with torch.cuda.device(src.device):
+    with kernels.on(src.device):
         kernels.launch('seed_table', src.data_ptr(), sa.data_ptr(), int(n),
                        shift, size, out.data_ptr())
     return out
@@ -536,7 +536,7 @@ def raw_pack(text: torch.Tensor, n: int,
     kernels.check(out, 'out', torch.int32, 1)
     if out.shape[0] != N:
         raise ValueError('raw_pack: bad output shape')
-    with torch.cuda.device(text.device):
+    with kernels.on(text.device):
         kernels.launch('raw_pack', text.data_ptr(), N, int(n),
                        out.data_ptr())
     return out
@@ -569,7 +569,7 @@ def raw_limb_planes(packed: torch.Tensor, sa: torch.Tensor, n: int,
     kernels.check(out, 'out', torch.int32, 1)
     if sa.shape[0] != N or out.shape[0] != num_limbs * N:
         raise ValueError('raw_limb_planes: bad shapes')
-    with torch.cuda.device(packed.device):
+    with kernels.on(packed.device):
         kernels.launch('raw_limb_planes', packed.data_ptr(), sa.data_ptr(),
                        N, int(n), depth, num_limbs, out.data_ptr())
     return out
@@ -608,7 +608,7 @@ def seed_prefix(text: torch.Tensor, n: int, rank: torch.Tensor, base: int,
     kernels.check(out, 'out', torch.int32, 1)
     if out.shape[0] != N or rank.shape[0] != 256:
         raise ValueError('seed_prefix: bad shapes')
-    with torch.cuda.device(text.device):
+    with kernels.on(text.device):
         kernels.launch('seed_prefix', text.data_ptr(), N, int(n),
                        rank.data_ptr(), base, depth, out.data_ptr())
     return out
@@ -806,7 +806,7 @@ def probe_phased(text, n, sa, tables, limbs, rank, present, patterns,
     count = torch.empty((C, B), dtype=torch.int32, device=text.device)
     if C == 0 or B == 0:
         return lower, count
-    with torch.cuda.device(text.device):
+    with kernels.on(text.device):
         kernels.launch(
             'probe_phased', text.data_ptr(), n.data_ptr(), sa.data_ptr(),
             tables.data_ptr(), limbs.data_ptr(), rank.data_ptr(),
@@ -879,7 +879,7 @@ def digit_limb_planes(text: torch.Tensor, sa: torch.Tensor, n: int,
         if prefix.shape[0] != N or prefix.device != text.device:
             raise ValueError('digit_limb_planes: bad prefix')
         pv = prefix
-    with torch.cuda.device(text.device):
+    with kernels.on(text.device):
         kernels.launch('digit_limb_planes', pv.data_ptr(), sa.data_ptr(), N,
                        int(n), num_limbs, out.data_ptr())
     return out
@@ -1007,7 +1007,7 @@ def probe_limbs(text, n, sa, tables, limbs, patterns, lengths,
     count = torch.empty((C, B), dtype=torch.int32, device=text.device)
     if C == 0 or B == 0:
         return lower, count
-    with torch.cuda.device(text.device):
+    with kernels.on(text.device):
         kernels.launch(
             'probe_limbs', text.data_ptr(), n.data_ptr(), sa.data_ptr(),
             tables.data_ptr(), limbs.data_ptr(), patterns.data_ptr(),
@@ -1059,7 +1059,7 @@ def gather_hits_flat(sa_row: torch.Tensor, lower: torch.Tensor,
         raise ValueError('gather_hits_flat: the hit total overflows int32')
     pos = torch.empty(total, dtype=torch.int32, device=dev)
     qid = torch.empty(total, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    with kernels.on(dev):
         kernels.launch('gather_hits_flat', sa_row.data_ptr(),
                        lower.data_ptr(), offsets.data_ptr(), B, total,
                        pos.data_ptr(), qid.data_ptr())
@@ -1147,7 +1147,7 @@ def probe_bytes(text, n, sa, patterns, lengths):
     count = torch.empty((C, B), dtype=torch.int32, device=text.device)
     if C == 0 or B == 0:
         return lower, count
-    with torch.cuda.device(text.device):
+    with kernels.on(text.device):
         kernels.launch('probe_bytes', text.data_ptr(), n.data_ptr(),
                        sa.data_ptr(), patterns.data_ptr(),
                        lengths.data_ptr(), C, B, L, N, lower.data_ptr(),
@@ -1213,10 +1213,10 @@ def gather_hit_positions(sa: torch.Tensor, lower: torch.Tensor,
     if count.shape[0] != B:
         raise ValueError('gather_hit_positions: lower and count differ')
     c = min(int(cap), N)
-    out = torch.empty((B, max(c, 0)), dtype=torch.int32, device=sa.device)
+    out = sa.new_empty((B, max(c, 0)))  # int32 on sa's device, no parsing
     if B == 0 or c <= 0:
         return out
-    with torch.cuda.device(sa.device):
+    with kernels.on(sa.device):
         kernels.launch('gather_hit_positions', sa.data_ptr(),
                        lower.data_ptr(), count.data_ptr(), B, N, c,
                        out.data_ptr())

@@ -28,7 +28,9 @@ PyTorch version beside it:
   rank digits;
 - :func:`sa_init_bytes` (B1b): the anchored init sort on 6 byte + 1
   digits;
-- :func:`sa_refine_round` (B2): one doubling round over the tied slots;
+- :func:`sa_round` (B2): one doubling round over the tied slots of a
+  candidate list, the last round's (:func:`sa_refine_round` over the whole
+  row), as a segmented sort of the already ordered groups;
 - :func:`sa_init3_bytes`, :func:`sa_window_scan` and
   :func:`sa_rotating_pass` (B10): the 3-byte init and the windowed passes
   of the rotating doubler;
@@ -43,7 +45,8 @@ The Writer's device build (:func:`build_suffix_array` with ``'torch'``, or
 Their building blocks are kernels of the same file, exposed for tests:
 :func:`radix_sort_pairs` (stable LSD radix sort of uint64 keys with int32
 values), :func:`scan_exclusive_sum` and :func:`scan_inclusive_max`; and
-:func:`scatter` (B16) is the radix sort's store pass alone.  Every
+:func:`scatter` (B16) is the radix sort's store pass alone
+(:func:`scatter_blocked` the same blocked by destination).  Every
 wrapper takes its plain version only for CPU tensors; on a CUDA tensor it
 launches its kernel or raises.  The kernel sorts and the plain sorts are
 both stable and see positions in slot order, so on the card they agree bit
@@ -258,7 +261,7 @@ def radix_sort_pairs(keys: torch.Tensor, vals: torch.Tensor, key_bits: int):
     if vals.shape[0] != n:
         raise ValueError('radix_sort_pairs: keys and vals differ in length')
     scratch = kernels.scratch('radix_sort', n, keys.device)
-    with torch.cuda.device(keys.device):
+    with kernels.on(keys.device):
         kernels.launch('radix_sort_pairs', keys.data_ptr(), vals.data_ptr(),
                        n, key_bits, scratch.data_ptr())
     return keys, vals
@@ -293,9 +296,33 @@ def scatter(values: torch.Tensor, dests: torch.Tensor,
     n = values.shape[0]
     if dests.shape[0] != n:
         raise ValueError('scatter: values and dests differ in length')
-    with torch.cuda.device(values.device):
+    with kernels.on(values.device):
         kernels.launch('scatter', values.data_ptr(), dests.data_ptr(), n,
                        out.data_ptr())
+    return out
+
+
+def scatter_blocked(values: torch.Tensor, dests: torch.Tensor,
+                    out: typing.Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`scatter` blocked by destination: the pairs are first
+    partitioned by the top 8 bits of their dests with one one-sweep pass,
+    then stored bin by bin, so that a bin's stores meet in L2.  Same
+    contract and plain version as :func:`scatter`; ``sort_bench`` measures
+    it beside the direct store; the anchored inits store their ranks the
+    same way in their own kernels."""
+    if out is None:
+        out = torch.empty_like(values)
+    if not kernels.route(values, dests, out):
+        return scatter_plain(values, dests, out)
+    for t, name in ((values, 'values'), (dests, 'dests'), (out, 'out')):
+        kernels.check(t, name, torch.int32, 1)
+    n = values.shape[0]
+    if dests.shape[0] != n:
+        raise ValueError('scatter_blocked: values and dests differ in length')
+    with kernels.on(values.device):
+        scratch = kernels.scratch('scatter_blocked', n, values.device)
+        kernels.launch('scatter_blocked', values.data_ptr(), dests.data_ptr(),
+                       n, out.data_ptr(), scratch.data_ptr())
     return out
 
 
@@ -316,7 +343,7 @@ def scan_exclusive_sum(x: torch.Tensor) -> torch.Tensor:
     n = x.shape[0]
     out = torch.empty(n + 1, dtype=torch.int32, device=x.device)
     scratch = kernels.scratch('scan', n, x.device)
-    with torch.cuda.device(x.device):
+    with kernels.on(x.device):
         kernels.launch('scan_exclusive_sum', x.data_ptr(), out.data_ptr(), n,
                        scratch.data_ptr())
     return out
@@ -335,7 +362,7 @@ def scan_inclusive_max(x: torch.Tensor) -> torch.Tensor:
     n = x.shape[0]
     out = torch.empty(n, dtype=torch.int32, device=x.device)
     scratch = kernels.scratch('scan', n, x.device)
-    with torch.cuda.device(x.device):
+    with kernels.on(x.device):
         kernels.launch('scan_inclusive_max', x.data_ptr(), out.data_ptr(), n,
                        scratch.data_ptr())
     return out
@@ -348,14 +375,14 @@ def scan_inclusive_max(x: torch.Tensor) -> torch.Tensor:
 #: Device bytes one row's SA build holds per padded slot at its peak, on
 #: top of the row's text and SA: the working sa / rank / gs (12), and the
 #: init's sort keys, values and their double buffers with the group-start
-#: array and the one-sweep sort's status words (28.5), or a round's tie
-#: flags and offsets (8) with its buffers over at most every slot (36.5);
-#: with headroom over the largest peak measured, the digit kind's all-tied
-#: first round: 14.06 GiB above the index for a 256 Mi-slot row (56.2
-#: bytes a slot, its SA output included), and B1b + B2 on one 512 Mi row
-#: 27.71 GiB (55.4; ``chip_smoke.py`` on an NVIDIA H100 80GB HBM3 at
-#: 700 W).  B10 measured 20.25 GiB at 512 Mi (40.5 bytes a slot), B9 after
-#: a poisoned B10 18.49 GiB at 416 Mi (45.5).
+#: array and the one-sweep sort's status words (28.5), or a round's tied
+#: list (4) with its refine's buffers over at most every slot (32.5).  The
+#: largest peaks measured (``chip_smoke.py`` on an NVIDIA H100 80GB HBM3 at
+#: 700 W): the digit derive 12.13 GiB above the index for a 256 Mi-slot
+#: row (48.5 bytes a slot, its SA output included), B1b + B2 on one 512 Mi
+#: row 23.77 GiB (47.5), B9 after a poisoned B10 18.49 GiB at 416 Mi
+#: (45.5), B10 20.25 GiB at 512 Mi (40.5); a round over every slot could
+#: reach 48.5, and the constant keeps headroom over it.
 SA_BUILD_BYTES_PER_SLOT = 60
 
 
@@ -449,7 +476,7 @@ def sa_init_ranked(text: torch.Tensor, n: int, rank: torch.Tensor,
     sa, rk, gs = (torch.empty(N, dtype=torch.int32, device=dev)
                   for _ in range(3))
     scratch = kernels.scratch('sa_init', N, dev)
-    with torch.cuda.device(dev):
+    with kernels.on(dev):
         kernels.launch('sa_init_ranked', text.data_ptr(), N, int(n),
                        rank.data_ptr(), bits, sa.data_ptr(), rk.data_ptr(),
                        gs.data_ptr(), scratch.data_ptr())
@@ -499,7 +526,7 @@ def _init_bytes(text: torch.Tensor, n: int, name: str, width: int):
     sa, rk, gs = (torch.empty(N, dtype=torch.int32, device=dev)
                   for _ in range(3))
     scratch = kernels.scratch('sa_init', N, dev)
-    with torch.cuda.device(dev):
+    with kernels.on(dev):
         kernels.launch(name, text.data_ptr(), N, int(n), sa.data_ptr(),
                        rk.data_ptr(), gs.data_ptr(), scratch.data_ptr())
     return sa, rk, gs
@@ -518,76 +545,184 @@ def _round_keys(sa: torch.Tensor, rank: torch.Tensor, gs: torch.Tensor,
                 k: int, marked: typing.Optional[torch.Tensor] = None):
     """A B2 round's (tied slots, or the ``marked`` ones, their positions,
     their int64 keys ``gs << W | (rank[pos + k] + 1)``, 0 past the row) in
-    slot order."""
+    slot order: what the JAX round sorts."""
     N = sa.shape[0]
     if marked is None:
         marked = _tied_plain(gs)
     slots = torch.nonzero(marked).flatten()
     pos = sa[slots].long()
-    q = pos + k
-    r2 = torch.where(q < N, rank[q.clamp(max=N - 1)].long(), -1)
-    return slots, pos, (gs[slots].long() << _key_width(N)) | (r2 + 1)
+    return slots, pos, (gs[slots].long() << _key_width(N)) | _r2_plus1(
+        rank, pos, k)
+
+
+def _r2_plus1(rank: torch.Tensor, pos: torch.Tensor, k: int) -> torch.Tensor:
+    """int64 rank[pos + k] + 1, 0 past the row."""
+    N = rank.shape[0]
+    q = pos.long() + k
+    return torch.where(q < N, rank[q.clamp(max=N - 1)].long(), -1) + 1
+
+
+#: B2's small-group bound: a tied group of at most this many members is
+#: refined without a global sort (by counting its members up to 32, by a
+#: block's shared-memory radix sort above), a larger one by the one-sweep
+#: sort on its (large-group ordinal, r2 + 1) key (``csrc``'s kSegT).  Set
+#: from round 1's group sizes on the chip corpora (PERF.md §5): groups of
+#: 2048-4095 members hold 56% of the raw row's tied slots, and a block of
+#: 512 threads holds 2 x SEG_T members in registers and 80 KB of shared
+#: memory.
+SEG_T = 4096
+
+
+def tie_list_plain(gs: torch.Tensor,
+                   cand: typing.Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+    """B2's carried list: int32 [m], the tied slots (``_tied_flags`` of
+    ``gs``) in slot order, taken from the candidate slots ``cand`` (the
+    last round's list; every slot when None)."""
+    tied = _tied_plain(gs)
+    if cand is None:
+        return torch.nonzero(tied).flatten().to(torch.int32)
+    cand = cand.long()
+    return cand[tied[cand]].to(torch.int32)
+
+
+def split_groups_plain(gs: torch.Tensor, tl: torch.Tensor,
+                       seg_t: int = SEG_T) -> torch.Tensor:
+    """bool [m]: list member t lies in a large group, one of more than
+    ``seg_t`` members (slot ``g + seg_t`` still has group start g)."""
+    N = gs.shape[0]
+    g = gs[tl.long()].long()
+    q = g + seg_t
+    return (q < N) & (gs[q.clamp(max=N - 1)].long() == g)
+
+
+def large_keys_plain(sa: torch.Tensor, rank: torch.Tensor, gs: torch.Tensor,
+                     tl: torch.Tensor, large: torch.Tensor, k: int,
+                     seg_t: int = SEG_T) -> torch.Tensor:
+    """int64 keys of the large members in list order: (the member's group
+    start in the large list >> log2 ``seg_t``) << W | (r2 + 1).  Each large
+    group has more than ``seg_t`` members, so the ordinals of two groups
+    differ, and the key orders as (g, r2) does on W + log2(m / seg_t) bits
+    instead of 2W."""
+    if seg_t & (seg_t - 1):
+        raise ValueError('large_keys_plain: seg_t must be a power of two')
+    s = tl.long()[large]
+    j = torch.arange(s.shape[0], device=s.device)
+    lstart = j - (s - gs[s].long())
+    return ((lstart >> (seg_t.bit_length() - 1)) << _key_width(
+        gs.shape[0])) | _r2_plus1(rank, sa[s], k)
+
+
+def refine_list_plain(sa: torch.Tensor, rank: torch.Tensor, gs: torch.Tensor,
+                      k: int, tl: torch.Tensor, seg_t: int = SEG_T) -> None:
+    """B2's refine of the listed slots ``tl`` (whole groups, slot order) by
+    the rank ``k`` positions on, in place, as the card splits it: the small
+    groups sorted by (g, r2) among themselves, the large ones by
+    :func:`large_keys_plain`; then every member's new label is the slot of
+    the first member with its (g, r2)."""
+    m = tl.shape[0]
+    if m == 0:
+        return
+    t = tl.long()
+    pos = sa[t].long()
+    full = (gs[t].long() << _key_width(sa.shape[0])) | _r2_plus1(rank, pos,
+                                                                 k)
+    large = split_groups_plain(gs, tl, seg_t)
+    perm = torch.empty(m, dtype=torch.int64, device=sa.device)
+    for sel, key in ((~large, full[~large]),
+                     (large, large_keys_plain(sa, rank, gs, tl, large, k,
+                                              seg_t))):
+        where = torch.nonzero(sel).flatten()
+        perm[where] = where[torch.sort(key, stable=True)[1]]
+    key_s, pos_s = full[perm], pos[perm]
+    change = torch.ones(m, dtype=torch.bool, device=sa.device)
+    change[1:] = key_s[1:] != key_s[:-1]
+    first_eq = torch.cummax(torch.where(change, t, 0), 0).values
+    first_eq = first_eq.to(torch.int32)
+    sa[t] = pos_s.to(torch.int32)
+    rank[pos_s] = first_eq
+    gs[t] = first_eq
+
+
+def sa_round_plain(sa: torch.Tensor, rank: torch.Tensor, gs: torch.Tensor,
+                   k: int, cand: typing.Optional[torch.Tensor] = None,
+                   seg_t: int = SEG_T):
+    """Plain version of :func:`sa_round`."""
+    tl = tie_list_plain(gs, cand)
+    refine_list_plain(sa, rank, gs, k, tl, seg_t)
+    return tl.shape[0], tl
+
+
+def sa_round(sa: torch.Tensor, rank: torch.Tensor, gs: torch.Tensor, k: int,
+             cand: typing.Optional[torch.Tensor] = None):
+    """B2, one tie-only doubling round on int32 [N] (sa, rank, gs), in
+    place, over the candidate slots ``cand`` (the last round's list, or
+    every slot when None): returns (m, the round's tied list int32 [m]),
+    the next round's candidates, since groups only split.  Two launches:
+    ``sa_tie_scan`` (the list and its count m, read back once) and
+    ``sa_refine_round`` (the segmented sort: groups of at most ``SEG_T``
+    members in shared memory, larger ones by the one-sweep sort).  Replaces
+    the body of ``_segmented_loop`` with ``_tied_flags`` and
+    ``_relabel_and_scatter``."""
+    if cand is None:
+        on_card = kernels.route(sa, rank, gs)
+    else:
+        on_card = kernels.route(sa, rank, gs, cand)
+    if not on_card:
+        return sa_round_plain(sa, rank, gs, k, cand)
+    for t, name in ((sa, 'sa'), (rank, 'rank'), (gs, 'gs')):
+        kernels.check(t, name, torch.int32, 1)
+    N = sa.shape[0]
+    if rank.shape[0] != N or gs.shape[0] != N:
+        raise ValueError('sa_round: sa, rank and gs differ in length')
+    if cand is not None:
+        kernels.check(cand, 'cand', torch.int32, 1)
+    c = N if cand is None else cand.shape[0]
+    dev = sa.device
+    tl = torch.empty(c, dtype=torch.int32, device=dev)
+    counts = torch.empty(2, dtype=torch.int32, device=dev)
+    with kernels.on(dev):
+        scratch = kernels.scratch('sa_round', c, dev)
+        kernels.launch('sa_tie_scan', gs.data_ptr(), N,
+                       None if cand is None else cand.data_ptr(), c,
+                       tl.data_ptr(), counts.data_ptr(), scratch.data_ptr())
+        m = int(counts[0])
+        del scratch
+        if m:
+            scratch = kernels.scratch('sa_refine', m, dev)
+            kernels.launch('sa_refine_round', sa.data_ptr(), rank.data_ptr(),
+                           gs.data_ptr(), N, int(k), m, tl.data_ptr(),
+                           counts.data_ptr(), scratch.data_ptr())
+    return m, tl[:m]
 
 
 def sa_refine_round_plain(sa: torch.Tensor, rank: torch.Tensor,
                           gs: torch.Tensor, k: int) -> int:
     """Plain version of B2: refine every tied group by the rank ``k``
     positions on, in place; returns the tie count m."""
-    return _refine_plain(sa, rank, gs, k)
-
-
-def _refine_plain(sa: torch.Tensor, rank: torch.Tensor, gs: torch.Tensor,
-                  k: int, marked: typing.Optional[torch.Tensor] = None
-                  ) -> int:
-    """B2's refine body on the tied slots, or on the ``marked`` ones (whole
-    runs of their groups' first slots), in place; returns their count."""
-    slots, pos, key = _round_keys(sa, rank, gs, k, marked)
-    m = slots.shape[0]
-    if m == 0:
-        return 0
-    key_s, order = torch.sort(key, stable=True)
-    pos_s = pos[order]
-    change = torch.ones(m, dtype=torch.bool, device=sa.device)
-    change[1:] = key_s[1:] != key_s[:-1]
-    first_eq = torch.cummax(torch.where(change, slots, 0), 0).values
-    first_eq = first_eq.to(torch.int32)
-    sa[slots] = pos_s.to(torch.int32)
-    rank[pos_s] = first_eq
-    gs[slots] = first_eq
-    return m
+    return sa_round_plain(sa, rank, gs, k)[0]
 
 
 def sa_refine_round(sa: torch.Tensor, rank: torch.Tensor, gs: torch.Tensor,
                     k: int) -> int:
-    """B2, one tie-only doubling round on int32 [N] (sa, rank, gs), in
-    place; returns the tie count m, read back once (see
-    :func:`sa_refine_round_plain`).  Replaces the body of
-    ``_segmented_loop`` with ``_tied_flags`` and ``_relabel_and_scatter``;
-    the round's buffers are sized from m, so no full-size fallback
-    branch exists."""
-    if not kernels.route(sa, rank, gs):
-        return sa_refine_round_plain(sa, rank, gs, k)
-    for t, name in ((sa, 'sa'), (rank, 'rank'), (gs, 'gs')):
-        kernels.check(t, name, torch.int32, 1)
-    N = sa.shape[0]
-    if rank.shape[0] != N or gs.shape[0] != N:
-        raise ValueError('sa_refine_round: sa, rank and gs differ in length')
-    dev = sa.device
-    flags = torch.empty(N, dtype=torch.int32, device=dev)
-    dest = torch.empty(N + 1, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        scratch = kernels.scratch('sa_tie', N, dev)
-        kernels.launch('sa_tie_scan', gs.data_ptr(), N, flags.data_ptr(),
-                       dest.data_ptr(), scratch.data_ptr())
-        del scratch
-        m = int(dest[N])
-        if m == 0:
-            return 0
-        scratch = kernels.scratch('sa_refine', m, dev)
-        kernels.launch('sa_refine_round', sa.data_ptr(), rank.data_ptr(),
-                       gs.data_ptr(), N, int(k), m, flags.data_ptr(),
-                       dest.data_ptr(), scratch.data_ptr())
-    return m
+    """B2, one tie-only doubling round over every slot of the row:
+    :func:`sa_round` without a candidate list; returns the tie count m."""
+    return sa_round(sa, rank, gs, k)[0]
+
+
+def tie_group_histogram(gs: torch.Tensor) -> typing.Dict[str, list]:
+    """The tied groups of ``gs`` by size class, ``{class: [groups,
+    slots]}`` for 2, 3-16, 17-256, 257-4096 and above 4096 members, from
+    one ``torch.unique_consecutive`` on ``gs``'s device."""
+    g = gs[_tied_plain(gs)]
+    _, sizes = torch.unique_consecutive(g, return_counts=True)
+    sizes = sizes.long()
+    out = {}
+    for name, lo, hi in (('2', 2, 2), ('3-16', 3, 16), ('17-256', 17, 256),
+                         ('257-4096', 257, 4096), ('>4096', 4097, None)):
+        sel = sizes >= lo if hi is None else (sizes >= lo) & (sizes <= hi)
+        out[name] = [int(sel.sum()), int(sizes[sel].sum())]
+    return out
 
 
 def sa_roll_front_plain(sa_full: torch.Tensor, n: int,
@@ -612,13 +747,13 @@ def sa_roll_front(sa_full: torch.Tensor, n: int,
     kernels.check(out, 'out', torch.int32, 1)
     if out.shape[0] != N:
         raise ValueError('sa_roll_front: bad output shape')
-    with torch.cuda.device(sa_full.device):
+    with kernels.on(sa_full.device):
         kernels.launch('sa_roll_front', sa_full.data_ptr(), N, int(n),
                        out.data_ptr())
     return out
 
 
-def _segmented(init_ranked, init_bytes, refine, text, n, rank, bits):
+def _segmented(init_ranked, init_bytes, round_fn, text, n, rank, bits):
     N = text.shape[0]
     _check_pad_contract(N, n, bits)
     if bits is None:
@@ -630,8 +765,9 @@ def _segmented(init_ranked, init_bytes, refine, text, n, rank, bits):
         sa, rk, gs = init_ranked(text, n, rank, bits)
         k = 2 * (30 // bits)
     ties: typing.List[int] = []
+    cand = None  # every slot, then the last round's tied list
     while k < N:
-        m = refine(sa, rk, gs, k)
+        m, cand = round_fn(sa, rk, gs, k, cand)
         if m == 0:
             break
         ties.append(m)
@@ -648,17 +784,23 @@ def segmented_sa(text: torch.Tensor, n: int,
     ``bits`` None, B1b and then B2 from k = 6; with a ranked alphabet's
     ``rank`` and ``bits``, B1 and then B2 from k = 2 * (30 // bits)
     (``_segmented_kernel_ranked``).  The rounds double k while k < N and
-    ties remain; the host reads each round's m once."""
-    return _segmented(sa_init_ranked, sa_init_bytes, sa_refine_round, text,
-                      n, rank, bits)
+    ties remain; the host reads each round's m once.  Each round after the
+    first reads only the last round's tied list (:func:`sa_round`)."""
+    return _segmented(sa_init_ranked, sa_init_bytes, sa_round, text, n, rank,
+                      bits)
 
 
 def segmented_sa_plain(text: torch.Tensor, n: int,
                        rank: typing.Optional[torch.Tensor] = None,
-                       bits: typing.Optional[int] = None):
-    """:func:`segmented_sa` through the plain versions on any device."""
-    return _segmented(sa_init_ranked_plain, sa_init_bytes_plain,
-                      sa_refine_round_plain, text, n, rank, bits)
+                       bits: typing.Optional[int] = None,
+                       seg_t: int = SEG_T):
+    """:func:`segmented_sa` through the plain versions on any device, with
+    the small-group bound ``seg_t``."""
+    def round_fn(sa, rk, gs, k, cand):
+        return sa_round_plain(sa, rk, gs, k, cand, seg_t)
+
+    return _segmented(sa_init_ranked_plain, sa_init_bytes_plain, round_fn,
+                      text, n, rank, bits)
 
 
 # ---------------------------------------------------------------------------
@@ -782,7 +924,7 @@ def sa_window_scan(gs: torch.Tensor, ctl: torch.Tensor, flags: torch.Tensor,
         if t.shape[0] != size:
             raise ValueError(f'sa_window_scan: {name} needs {size} entries')
     dev = gs.device
-    with torch.cuda.device(dev):
+    with kernels.on(dev):
         scratch = kernels.scratch('sa_tie', L, dev)
         kernels.launch('sa_window_scan', gs.data_ptr(), N, int(half), int(W),
                        ctl.data_ptr(), flags.data_ptr(), dest.data_ptr(),
@@ -794,7 +936,8 @@ def _window_refine_plain(sa, rank, gs, k, m, W, flags, dest, ctl) -> None:
     del m, dest  # the marks alone say which slots
     N = gs.shape[0]
     off = int(ctl[_CTL_OFF])
-    _refine_plain(sa, rank, gs, k, _span_mask(flags, off, N))
+    refine_list_plain(sa, rank, gs, k, torch.nonzero(
+        _span_mask(flags, off, N)).flatten().to(torch.int32))
     start = torch.ones(N, dtype=torch.bool, device=gs.device)
     start[1:] = gs[1:] != gs[:-1]
     starts = torch.nonzero(start & _tied_plain(gs)).flatten()
@@ -805,11 +948,10 @@ def _window_refine_plain(sa, rank, gs, k, m, W, flags, dest, ctl) -> None:
 
 
 def _window_refine(sa, rank, gs, k, m, W, flags, dest, ctl) -> None:
-    """The rest of a B10 pass on the card (``pss_sa_rotating_pass``): B2's
-    refine body on the m marked slots of the last window scan (its span
-    flags and dest) by the rank ``k`` positions on, in place, keyed on
-    ``g - off`` (below W, so the sort runs fewer bits than B2's), then the
-    jump: ``ctl[4]`` = the least slot at or past ``off + W`` that starts a
+    """The rest of a B10 pass on the card (``pss_sa_rotating_pass``): the
+    m marked slots of the last window scan (its span flags and dest)
+    compacted into a list and refined by B2's segmented refine by the rank
+    ``k`` positions on, in place, then the jump: ``ctl[4]`` = the least slot at or past ``off + W`` that starts a
     tied group (N if none, or if off + W >= N) and ``ctl[0]`` = it, or 0
     at N."""
     if not kernels.route(sa, rank, gs, flags, dest, ctl):
@@ -825,8 +967,8 @@ def _window_refine(sa, rank, gs, k, m, W, flags, dest, ctl) -> None:
         raise ValueError('sa_rotating_pass: W and the span flags must be '
                          'the row\'s')
     dev = gs.device
-    with torch.cuda.device(dev):
-        scratch = kernels.scratch('sa_refine', m, dev)
+    with kernels.on(dev):
+        scratch = kernels.scratch('sa_pass', m, dev)
         kernels.launch('sa_rotating_pass', sa.data_ptr(), rank.data_ptr(),
                        gs.data_ptr(), N, int(k), int(m), half, W,
                        flags.data_ptr(), dest.data_ptr(), ctl.data_ptr(),
@@ -998,7 +1140,7 @@ def sa_full_init_bytes(text: torch.Tensor, n: int):
     dev = text.device
     sa, rk, count = (torch.empty(m, dtype=torch.int32, device=dev)
                      for m in (N, N, 1))
-    with torch.cuda.device(dev):
+    with kernels.on(dev):
         scratch = kernels.scratch('sa_full', N, dev)
         kernels.launch('sa_full_init_bytes', text.data_ptr(), N, int(n),
                        sa.data_ptr(), rk.data_ptr(), count.data_ptr(),
@@ -1041,7 +1183,7 @@ def sa_full_round(sa: torch.Tensor, rank: torch.Tensor, k: int,
         raise ValueError('sa_full_round: sa and rank differ in length')
     dev = rank.device
     count = torch.empty(1, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    with kernels.on(dev):
         scratch = kernels.scratch('sa_full', N, dev)
         kernels.launch('sa_full_round', sa.data_ptr(), rank.data_ptr(), N,
                        int(k), W, count.data_ptr(), scratch.data_ptr())

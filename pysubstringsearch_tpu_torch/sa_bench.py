@@ -15,15 +15,20 @@ times (``sort_bench.cuda_ms``: the mean of ``REPS`` runs after one warm-up):
   and 2^29 x 25 bits;
 - B8 (``gather_hits_flat``, the whole call) on ``sort_bench.skewed_batch``:
   one query of 2^24 + 3 hits beside 10,000 small ones;
+- B15's capped gather (``gather_hit_positions``, the whole call) of 64
+  columns for the skewed batch's 10,001 queries;
 - on ``bench.make_corpus(500)`` as one row padded to 512 Mi slots (cached
   in ``--corpus``): B10's init, its first pass (k = 3, off = 0) from the
   init's state, the whole doubler (wall seconds, passes, peak GiB above
-  what was resident) and B1b + B2 on the same row (wall, peak).
+  what was resident), B1b + B2 on the same row (wall, peak) and B2's round
+  1 after B1b (k = 6) from a copy of B1b's state.
 
-With ``--profile`` it first prints the device time of B10's init and of
-that first pass by kernel (``torch.profiler``'s ``key_averages``), one
-``PROFILE`` line each.  Without a CUDA card it prints nothing to stdout
-and exits 2.
+With ``--profile`` it first prints the device time by kernel
+(``torch.profiler``'s ``key_averages``) of B10's init, of that first pass
+and of B2's round 1, one ``PROFILE`` line each, and the group sizes of
+round 1's tied groups (``HISTOGRAM``: groups and slots of 2, 3-16, 17-256,
+257-4096 and more members).  Without a CUDA card it prints nothing to
+stdout and exits 2.
 """
 
 import argparse
@@ -50,7 +55,10 @@ def _profile(torch, label, fn):
     """One PROFILE line: device microseconds by kernel of one run."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    torch.cuda.synchronize()
+    # acc_events: the profiler may flush its buffers mid-run, and would then
+    # report only the kernels after the last flush.
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
         fn()
         torch.cuda.synchronize()
     events = prof.key_averages()
@@ -111,6 +119,9 @@ def main(argv=None) -> int:
     sa, lo, cnt = (torch.from_numpy(a).to(dev) for a in bench.skewed_batch())
     out['b8_skewed_ms'] = bench.cuda_ms(
         lambda: S.gather_hits_flat(sa, lo, cnt), REPS)
+    # Many runs: one call takes some microseconds.
+    out['b15_gather_ms'] = bench.cuda_ms(
+        lambda: S.gather_hit_positions(sa, lo, cnt, 64), 50 * REPS)
     del sa
     torch.cuda.empty_cache()
 
@@ -154,6 +165,20 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats()
     _, out['b1b_b2_s'] = _wall_s(torch, lambda: SA.segmented_sa(text, n))
     out['b1b_b2_peak_gib'] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    first = SA.sa_init_bytes(text, n)
+    state = [t.clone() for t in first]
+    if args.profile:
+        hist = getattr(SA, 'tie_group_histogram', None)
+        if hist is not None:
+            print('HISTOGRAM ' + json.dumps({'label': 'b2 round 1 after b1b',
+                                             'groups_slots': hist(first[2])}),
+                  flush=True)
+        _profile(torch, 'b2 round 1 k6',
+                 lambda: SA.sa_refine_round(*state, SA.BYTE_INIT_WIDTH))
+        restore()
+    out['b2_round1_m'] = SA.sa_refine_round(*state, SA.BYTE_INIT_WIDTH)
+    out['b2_round1_ms'] = bench.cuda_ms(
+        lambda: SA.sa_refine_round(*state, SA.BYTE_INIT_WIDTH), REPS, restore)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -20,7 +20,11 @@ runs after one warm-up):
   beforehand;
 - ``scatter_ms``: the B16 kernel, which must equal the plain version
   (``scatter_max_abs_err``), beside ``scatter_bound_ms``, its 12 bytes an
-  element at 3.35 TB/s.
+  element at 3.35 TB/s;
+- ``blocked_scatter_ms``: the same store blocked by destination
+  (``suffix_array.scatter_blocked``: one one-sweep pass on the dests' top 8
+  bits, then the stores bin by bin), equal to the plain version
+  (``blocked_scatter_max_abs_err``).
 
 :func:`measure_wide` times the same two sorts at the shape of one B10 pass
 on a 512 Mi row: ``WIDE_PAIRS`` (21 Mi) pairs of random 60-bit keys, 8
@@ -121,6 +125,8 @@ def measure(log2n: int, reps: int = 10) -> typing.Dict[str, typing.Any]:
     out = SA.scatter(vals, dests)
     plain = SA.scatter_plain(vals, dests)
     err = int((out - plain).abs().max())
+    blocked = SA.scatter_blocked(vals, dests)
+    blocked_err = int((blocked - plain).abs().max())
     del tk, tv, plain
     d64 = dests.long()
     lib_out = torch.empty_like(vals)
@@ -138,6 +144,9 @@ def measure(log2n: int, reps: int = 10) -> typing.Dict[str, typing.Any]:
                                        reps),
         'scatter_ms': cuda_ms(lambda: SA.scatter(vals, dests, out), reps),
         'scatter_max_abs_err': err,
+        'blocked_scatter_ms': cuda_ms(
+            lambda: SA.scatter_blocked(vals, dests, blocked), reps),
+        'blocked_scatter_max_abs_err': blocked_err,
         'scatter_bound_ms': 12 * n / HBM_BYTES_PER_S * 1e3,
     }
 

@@ -607,6 +607,99 @@ def test_gather_hit_positions_matches_plain(cuda, cap):
     assert int((out >= 0).sum()) == int(cnt.clamp(max=cap).sum())
 
 
+@pytest.mark.parametrize('B, cap, edge', [
+    (0, 64, 'none'), (3000, 1, 'zeros'), (3000, 64, 'tail'),
+    (3000, 70_000, 'tail'), (3000, 63, 'zeros')])
+def test_gather_hit_positions_edges(cuda, B, cap, edge):
+    """B = 0, cap 1, 64 and above N, a row width that is no multiple of 4
+    (scalar stores), zero counts, and bounds near N - 1 whose counts run
+    past the row."""
+    rng = np.random.default_rng(B + cap)
+    N = 65_536
+    sa = torch.from_numpy(rng.permutation(N).astype(np.int32)).to(cuda)
+    lo = rng.integers(0, N, B).astype(np.int32)
+    cnt = rng.integers(0, 300, B).astype(np.int32)
+    if edge == 'zeros':
+        cnt[::2] = 0
+    if edge == 'tail':
+        lo[-4:] = [N - 1, N - 2, N - 3, N - 250]
+        cnt[-4:] = [5, 80, 1, 300]
+    lo, cnt = (torch.from_numpy(a).to(cuda) for a in (lo, cnt))
+    before = kernels.LAUNCHES['gather_hit_positions']
+    out = S.gather_hit_positions(sa, lo, cnt, cap)
+    torch.cuda.synchronize()
+    assert out.shape == (B, min(cap, N))
+    assert kernels.LAUNCHES['gather_hit_positions'] == before + (B > 0)
+    assert torch.equal(out, S.gather_hit_positions_plain(sa, lo, cnt, cap))
+
+
+def _group_state(sizes, seed, device, singles=3):
+    """An anchored (sa, rank, gs) over groups of the given sizes, each after
+    ``singles`` singleton slots, SA order random: one round's input."""
+    rng = np.random.default_rng(seed)
+    gs = []
+    for size in sizes:
+        gs.extend(range(len(gs), len(gs) + singles))
+        gs.extend([len(gs)] * size)
+    gs = np.asarray(gs, dtype=np.int32)
+    sa = rng.permutation(gs.size).astype(np.int32)
+    rank = np.empty(gs.size, dtype=np.int32)
+    rank[sa] = gs
+    return [torch.from_numpy(a).to(device) for a in (sa, rank, gs)]
+
+
+_T = SA.SEG_T
+GROUP_STATES = {
+    'around_t': ([_T - 1, _T, _T + 1, 2 * _T, 2, 3, 70, 3 * _T, 5], 3),
+    'whole_row': ([3 * _T + 7], 0),
+    'all_pairs': ([2] * 20_000, 0),
+    'many_small': (list(np.random.default_rng(1).integers(2, 600, 3000)), 2),
+}
+
+
+@pytest.mark.parametrize('case', list(GROUP_STATES))
+@pytest.mark.parametrize('k', [1, 7])
+def test_segmented_round_matches_plain(cuda, case, k):
+    """B2's two launches (the tie scan's list, the segmented refine: groups
+    of up to SEG_T in shared memory, larger ones by the ordinal-keyed sort)
+    against the plain stages at T's real value, bit for bit, with the next
+    round's list taken from this one's."""
+    sizes, singles = GROUP_STATES[case]
+    state = _group_state(sizes, k, cuda, singles)
+    plain = [t.clone() for t in state]
+    before = dict(kernels.LAUNCHES)
+    m, tl = SA.sa_round(*state, k)
+    pm, ptl = SA.sa_round_plain(*plain, k)
+    torch.cuda.synchronize()
+    assert m == pm and torch.equal(tl, ptl)
+    for a, b in zip(state, plain):
+        assert torch.equal(a, b)
+    assert kernels.LAUNCHES['sa_tie_scan'] == before['sa_tie_scan'] + 1
+    assert kernels.LAUNCHES['sa_refine_round'] == before['sa_refine_round'] + 1
+    m2, tl2 = SA.sa_round(*state, 2 * k, tl)
+    pm2, ptl2 = SA.sa_round_plain(*plain, 2 * k, ptl)
+    assert m2 == pm2 and torch.equal(tl2, ptl2)
+    for a, b in zip(state, plain):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize('case', ['period2', 'one_group', 'empty', 'one'])
+def test_segmented_sa_edge_rows(cuda, case):
+    data = {'period2': np.frombuffer(b'ab' * 30_000, np.uint8),
+            'one_group': np.full(20_000, 97, np.uint8),
+            'empty': np.zeros(0, np.uint8),
+            'one': np.array([7], np.uint8)}[case]
+    n = data.size
+    N = _pad_len(n + S.PAD_MARGIN)
+    text = torch.zeros(N, dtype=torch.uint8, device=cuda)
+    text[:n] = torch.from_numpy(data.copy())
+    sa, ties = SA.segmented_sa(text, n)
+    psa, pties = SA.segmented_sa_plain(text, n)
+    torch.cuda.synchronize()
+    assert ties == pties and torch.equal(sa, psa)
+    assert np.array_equal(sa[N - n:].cpu().numpy(), suffix_array_numpy(data))
+
+
 @pytest.mark.parametrize('depth', [2, 3])
 def test_build_bucket_table_matches_plain(cuda, depth):
     body = _body('raw', 300_000, 6)
@@ -688,6 +781,17 @@ def test_scatter_matches_plain(cuda, n):
     out = SA.scatter(values, dests)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES['scatter'] == before + 1
+    assert torch.equal(out, SA.scatter_plain(values, dests))
+
+
+@pytest.mark.parametrize('n', [1, 300, (1 << 20) + 3])
+def test_scatter_blocked_matches_plain(cuda, n):
+    rng = np.random.default_rng(n + 1)
+    values = torch.from_numpy(rng.integers(0, 1 << 30, size=n,
+                                           dtype=np.int32)).to(cuda)
+    dests = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(cuda)
+    out = SA.scatter_blocked(values, dests)
+    torch.cuda.synchronize()
     assert torch.equal(out, SA.scatter_plain(values, dests))
 
 

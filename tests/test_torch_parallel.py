@@ -183,6 +183,30 @@ def test_gather_hit_positions_matches_jax(cap):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize('B, cap, edge', [
+    (0, 64, 'none'), (40, 1, 'zeros'), (40, 64, 'tail'), (40, 5000, 'tail'),
+    (40, 63, 'zeros')])
+def test_gather_hit_positions_edges_match_jax(B, cap, edge):
+    """The capped gather at B = 0, cap 1, 64 and above N, a row width that
+    is no multiple of 4, zero counts, and bounds near N - 1 whose counts
+    run past the row (clipped to N - 1)."""
+    rng = np.random.default_rng(B + cap)
+    N = 1024
+    sa = rng.permutation(N).astype(np.int32)
+    lo = rng.integers(0, N, B).astype(np.int32)
+    cnt = rng.integers(0, 90, B).astype(np.int32)
+    if edge == 'zeros':
+        cnt[::2] = 0
+    if edge == 'tail':
+        lo[-4:] = [N - 1, N - 2, N - 3, N - 70]
+        cnt[-4:] = [5, 80, 1, 90]
+    want = np.asarray(jsearch.gather_hit_positions(
+        jnp.asarray(sa), jnp.asarray(lo), jnp.asarray(cnt), cap))
+    got = tsearch.gather_hit_positions(_t(sa), _t(lo), _t(cnt), cap)
+    assert got.shape == (B, min(cap, N)) == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 @pytest.fixture(scope='module')
 def jax_mesh():
     import jax

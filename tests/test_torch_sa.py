@@ -25,7 +25,9 @@ from pysubstringsearch_tpu.ops.suffix_array import (
     _init_round,
     _init_round_anchored_ranked,
     _relabel_and_scatter,
+    _segmented_kernel,
     _suffix_array_int_jax,
+    _tied_flags,
     suffix_array_jax,
 )
 from pysubstringsearch_tpu.ops.suffix_array import (
@@ -467,3 +469,184 @@ def test_concurrent_device_builds_are_right():
     assert not any(t.is_alive() for t in threads)
     for d, sa in zip(datas, out):
         np.testing.assert_array_equal(sa, tsa.suffix_array_numpy(d))
+
+
+# ---------------------------------------------------------------------------
+# B2's segmented round: the carried tied list, the split into small and
+# large groups by T, the large-group ordinal key, and the list refine, as
+# plain stages with a small T, against the JAX round and numpy.
+# ---------------------------------------------------------------------------
+
+_jtied = jax.jit(_tied_flags)
+_jsegmented = jax.jit(_segmented_kernel)
+
+#: A small T for the plain stages, so groups of T - 1 to 2T members stay
+#: small rows.
+SEG_T = 8
+
+
+def _state_of_groups(sizes, seed, singles=3):
+    """An anchored (sa, rank, gs) over groups of the given sizes, each after
+    ``singles`` singleton slots, with a random SA order: any permutation is a
+    valid state for one round."""
+    rng = np.random.default_rng(seed)
+    gs = []
+    for size in sizes:
+        for _ in range(singles):
+            gs.append(len(gs))
+        start = len(gs)
+        gs.extend([start] * size)
+    gs = np.asarray(gs, dtype=np.int32)
+    n = gs.size
+    sa = rng.permutation(n).astype(np.int32)
+    rank = np.empty(n, dtype=np.int32)
+    rank[sa] = gs
+    return sa, rank, gs
+
+
+GROUP_CASES = {
+    'around_t': [SEG_T - 1, SEG_T, SEG_T + 1, 2 * SEG_T, 2, 3, 5 * SEG_T],
+    'whole_row': 'whole',
+    'all_pairs': [2] * 40,
+}
+
+
+def _group_case(name, seed=0):
+    if GROUP_CASES[name] == 'whole':
+        n = 5 * SEG_T + 3
+        sa = np.random.default_rng(seed).permutation(n).astype(np.int32)
+        return sa, np.zeros(n, np.int32), np.zeros(n, np.int32)
+    return _state_of_groups(GROUP_CASES[name], seed,
+                            singles=0 if name == 'all_pairs' else 3)
+
+
+def _jax_round(sa, rk, gs, k):
+    """One JAX round body (``_segmented_loop``'s buffer fed to
+    ``_relabel_and_scatter``) on numpy state; returns numpy (sa, rank,
+    gs)."""
+    tied = np.asarray(_jtied(jnp.asarray(gs)))
+    slots = np.flatnonzero(tied)
+    pos = sa[slots]
+    q = pos.astype(np.int64) + k
+    r2 = np.where(q < gs.size, rk[np.minimum(q, gs.size - 1)], -1)
+    return tuple(np.asarray(a) for a in _jrelabel(
+        jnp.asarray(gs[slots]), jnp.asarray(r2.astype(np.int32)),
+        jnp.asarray(pos), jnp.asarray(sa), jnp.asarray(rk),
+        jnp.asarray(gs)))
+
+
+@pytest.mark.parametrize('case', list(GROUP_CASES))
+@pytest.mark.parametrize('k', [1, 5])
+def test_list_refine_matches_jax_relabel(case, k):
+    sa, rk, gs = _group_case(case, k)
+    jsa, jrk, jgs = _jax_round(sa, rk, gs, k)
+    t_sa, t_rk, t_gs = (torch.from_numpy(a.copy()) for a in (sa, rk, gs))
+    m, tl = tsa.sa_round_plain(t_sa, t_rk, t_gs, k, None, SEG_T)
+    assert m == int(np.asarray(_jtied(jnp.asarray(gs))).sum())
+    np.testing.assert_array_equal(t_rk.numpy(), jrk)
+    np.testing.assert_array_equal(t_gs.numpy(), jgs)
+    np.testing.assert_array_equal(_within_groups(t_sa.numpy(), jgs),
+                                  _within_groups(jsa, jgs))
+    # The next round's list from this one's equals the next _tied_flags.
+    nxt = tsa.tie_list_plain(t_gs, tl)
+    np.testing.assert_array_equal(
+        nxt.numpy(), np.flatnonzero(np.asarray(_jtied(jnp.asarray(jgs)))))
+
+
+@pytest.mark.parametrize('case', list(GROUP_CASES))
+def test_split_groups_by_t(case):
+    sa, rk, gs = _group_case(case)
+    t_gs = torch.from_numpy(gs)
+    tl = tsa.tie_list_plain(t_gs)
+    large = tsa.split_groups_plain(t_gs, tl, SEG_T).numpy()
+    g = gs[tl.numpy()]
+    sizes = np.bincount(gs, minlength=gs.size)[g]
+    np.testing.assert_array_equal(large, sizes > SEG_T)
+    if case == 'around_t':
+        # T - 1 and T stay small, T + 1, 2T and 5T are large.
+        assert sorted(set(sizes[large])) == [SEG_T + 1, 2 * SEG_T,
+                                              5 * SEG_T]
+    if case == 'all_pairs':
+        assert not large.any()
+
+
+@pytest.mark.parametrize('case', ['around_t', 'whole_row'])
+def test_large_ordinal_key_orders_as_group_and_r2(case):
+    """The large members' keys, (group start in the large list >> log2 T)
+    << W | (r2 + 1), give the same stable order as the (g, r2) keys, on
+    fewer bits."""
+    sa, rk, gs = _group_case(case, 2)
+    t_sa, t_rk, t_gs = (torch.from_numpy(a) for a in (sa, rk, gs))
+    tl = tsa.tie_list_plain(t_gs)
+    large = tsa.split_groups_plain(t_gs, tl, SEG_T)
+    assert large.any()
+    k = 3
+    key = tsa.large_keys_plain(t_sa, t_rk, t_gs, tl, large, k, SEG_T)
+    s = tl.long()[large]
+    full = tsa._round_keys(t_sa, t_rk, t_gs, k)[2]
+    full = full[torch.isin(torch.nonzero(tsa._tied_plain(t_gs)).flatten(),
+                           s)]
+    assert torch.equal(torch.sort(key, stable=True)[1],
+                       torch.sort(full, stable=True)[1])
+    groups = int(large.sum()) // (SEG_T + 1) + 1
+    W = tsa._key_width(gs.size)
+    assert int(key.max()) < 1 << (W + groups.bit_length())
+    with pytest.raises(ValueError, match='power of two'):
+        tsa.large_keys_plain(t_sa, t_rk, t_gs, tl, large, k, 6)
+
+
+TEXT_CASES = {
+    'period2': lambda: np.frombuffer(b'ab' * 700, dtype=np.uint8).copy(),
+    'one_group': lambda: np.full(900, 120, dtype=np.uint8),
+    'words': lambda: _words(6, 3000, letters=3),
+    'empty': lambda: np.zeros(0, dtype=np.uint8),
+    'one': lambda: np.array([100], dtype=np.uint8),
+}
+
+
+@pytest.mark.parametrize('case', list(TEXT_CASES))
+@pytest.mark.parametrize('seg_t', [SEG_T, tsa.SEG_T])
+def test_segmented_plain_stages_match_jax_and_numpy(case, seg_t):
+    """``segmented_sa_plain`` through the list stages (B1b, then rounds
+    from k = 6) against the JAX ``_segmented_kernel`` and numpy."""
+    data = TEXT_CASES[case]()
+    n = data.size
+    padded = np.zeros(N, dtype=np.uint8)
+    padded[:n] = data
+    sa, ties = tsa.segmented_sa_plain(torch.from_numpy(padded), n,
+                                      seg_t=seg_t)
+    want = np.asarray(_jsegmented(jnp.asarray(padded), jnp.int32(n)))
+    np.testing.assert_array_equal(sa.numpy()[N - n:], want[N - n:])
+    np.testing.assert_array_equal(sa.numpy()[N - n:],
+                                  tsa.suffix_array_numpy(data))
+    if case == 'one_group':
+        assert ties[0] == n - 5  # every suffix but the last 5 tied
+    if case in ('empty', 'one'):
+        assert ties == []
+
+
+@pytest.mark.parametrize('case', ['period2', 'words', 'one_group'])
+def test_carried_list_is_tied_flags_of_each_round(case):
+    """Each round's list, taken from the last round's, is exactly
+    ``_tied_flags`` of the round's gs."""
+    data = TEXT_CASES[case]()
+    padded = np.zeros(N, dtype=np.uint8)
+    padded[:data.size] = data
+    sa, rk, gs = tsa.sa_init_bytes_plain(torch.from_numpy(padded), data.size)
+    k, cand, rounds = 6, None, 0
+    while k < N:
+        want = np.flatnonzero(np.asarray(_jtied(jnp.asarray(gs.numpy()))))
+        m, cand = tsa.sa_round_plain(sa, rk, gs, k, cand, SEG_T)
+        np.testing.assert_array_equal(cand.numpy(), want)
+        if m == 0:
+            break
+        rounds += 1
+        k *= 2
+    assert rounds >= 2
+
+
+def test_tie_group_histogram():
+    _, _, gs = _state_of_groups([2, 2, 5, 17, 300, 5000], 0)
+    h = tsa.tie_group_histogram(torch.from_numpy(gs))
+    assert h == {'2': [2, 4], '3-16': [1, 5], '17-256': [1, 17],
+                 '257-4096': [1, 300], '>4096': [1, 5000]}
