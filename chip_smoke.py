@@ -29,8 +29,10 @@ Phases (any failure raises and exits non-zero):
    index's own tensors, equal exactly, both timed with CUDA events beside
    the kernel's bound (its inputs read once and outputs written once at
    3.35 TB/s) and, where one PyTorch call computes the same function, that
-   call's time: K1-K3 and B1 and one B2 round on row 0 (with the sizes of
-   its tied groups and its device time by kernel from ``torch.profiler``),
+   call's time: K1-K3 and B1 and one B2 round on row 0 (B1's path, its
+   buckets by its keys' top 16, 24 and 32 bits and its device time by
+   kernel from ``torch.profiler``; the round's tied groups by size and
+   its device time by kernel),
    K4 and B8 on every row x the whole batch, and the whole ``derive_sa`` of
    every row; then, launch counts from 0, B13 (``bwt_from_sa_device``) on
    row 0 and on chunk 0 and B15's capped gather of row 0's hits, each
@@ -87,7 +89,9 @@ Phases (any failure raises and exits non-zero):
    answers 10k patterns of 4-12 characters, 500 of 4-12 bytes, the 200
    deep ones, patterns of 1-2 bytes and patterns holding a byte >= 0x80
    (count 0); K7, K3 and the limb planes on row 0, B1b and one B2 round
-   on row 0 (group sizes and device time as above), and B11 and B8 on every
+   on row 0 (paths, buckets, group sizes and device time as above), B1b
+   on the Writer's first chunk (one launch, padded as the Writer pads it,
+   with its path, buckets and device time), and B11 and B8 on every
    row against their plain versions, timed; B11 on NUL and newline
    patterns (every line hits) against its plain version and their counts
    against the host; bench.py's byte sampler (10k patterns of 4-12 bytes)
@@ -816,14 +820,45 @@ def open_derive(idx_path, pats, kind, path_kernels, label):
     }
 
 
-def init_and_round(idx, init, init_plain, key, k0, entry, round_entry,
-                   name, line, label=''):
+def init_profile(init, text, n, key, key_bits, cut, label, name):
+    """The path the anchored init ``init`` (B1 or B1b) takes on ``text``,
+    its device time by kernel, and the buckets of its keys (``key(text,
+    n)``, ``key_bits`` wide) by their top 16, 24 and 32 bits and its own
+    ``cut``; logged and returned."""
+    import torch
+
+    from pysubstringsearch_tpu_torch.ops import suffix_array as SA
+
+    stats = torch.zeros(3, dtype=torch.int32, device=text.device)
+    init(text, n, stats=stats)
+    path, est, large = stats.tolist()
+    total_us, by_kernel = device_times(lambda: init(text, n))
+    keys = key(text, n)
+    buckets = {c: SA.bucket_histogram(keys, key_bits, c)
+               for c in sorted({16, 24, 32, cut})}
+    del keys
+    log(f'{label}{name}: path {path} (1 the top {cut} bits and bucket sorts, '
+        f'2 the full sort, 3 the full sort after the large cap), large '
+        f'members estimated {est}, counted {large}; device time '
+        f'{total_us / 1e3:.4f} ms by kernel (us, calls) '
+        + json.dumps([[k, round(us, 1), c] for k, us, c in by_kernel])
+        + f'; buckets by top key bits {json.dumps(buckets)} ([buckets, '
+        'slots] of 1, 2-32, 33-4096 and more members)')
+    return {'path': path, 'large_estimated': est, 'large': large,
+            'device_us': total_us, 'by_kernel_us': by_kernel,
+            'buckets': buckets}
+
+
+def init_and_round(idx, init, init_plain, key, key_bits, cut, k0, entry,
+                   round_entry, name, line, label=''):
     """The anchored init ``init`` (B1 or B1b, the entry ``name`` replacing
     ``JAX_SA:line``) and one B2 round from k = ``k0`` (to ``round_entry``)
     against their plain versions on row 0, timed, each beside one
     ``torch.sort`` of its keys (``key(text, n)`` for the init); logs the
-    sizes of round 1's tied groups and the round's device time by kernel.
-    Returns the round's (tie count m, kernel ms, plain ms, the numbers)."""
+    init's path, device time by kernel and buckets (:func:`init_profile`),
+    the sizes of round 1's tied groups and the round's device time by
+    kernel.  Returns the round's (tie count m, kernel ms, plain ms, the
+    numbers)."""
     import torch
 
     from pysubstringsearch_tpu_torch.ops import suffix_array as SA
@@ -833,12 +868,15 @@ def init_and_round(idx, init, init_plain, key, k0, entry, round_entry,
     N = text0.shape[0]
     first = init(text0, n0)
     plain = init_plain(text0, n0)
+    init_ms = cuda_ms(lambda: init(text0, n0), 3)
+    init_sort_ms = sort_ms(key(text0, n0))
     entry(name, f'{JAX_SA}:{line}', SA_SRC,
-          max(err(a, b) for a, b in zip(first, plain)),
-          cuda_ms(lambda: init(text0, n0), 3),
-          cuda_ms(lambda: init_plain(text0, n0), 1), 13 * N,
-          sort_ms(key(text0, n0)))
+          max(err(a, b) for a, b in zip(first, plain)), init_ms,
+          cuda_ms(lambda: init_plain(text0, n0), 1), 13 * N, init_sort_ms)
     del plain
+    init_numbers = {'ms': init_ms, 'sort_keys_ms': init_sort_ms,
+                    **init_profile(init, text0, n0, key, key_bits, cut,
+                                   label, name)}
     state = [t.clone() for t in first]
     pstate = [t.clone() for t in first]
     m = SA.sa_refine_round(*state, k0)
@@ -869,7 +907,8 @@ def init_and_round(idx, init, init_plain, key, k0, entry, round_entry,
     torch.cuda.empty_cache()
     return m, ms, plain_ms, {'m': m, 'ms': ms, 'plain_ms': plain_ms,
                              'sort_keys_ms': lib_ms, 'histogram': hist,
-                             'device_us': total_us, 'by_kernel_us': by_kernel}
+                             'device_us': total_us, 'by_kernel_us': by_kernel,
+                             'init': init_numbers}
 
 
 def check_derive_rows(idx, label, *args):
@@ -1229,10 +1268,11 @@ def run_derive(idx_path, pats, dev):
     lo_k, cnt_k = probe_kernel(idx, packed_np, lengths_np, entry)
     bits = idx._bits
     round1 = init_and_round(
-        idx, lambda t, n: SA.sa_init_ranked(t, n, idx.rank, bits),
+        idx, lambda t, n, **kw: SA.sa_init_ranked(t, n, idx.rank, bits, **kw),
         lambda t, n: SA.sa_init_ranked_plain(t, n, idx.rank, bits),
         lambda t, n: SA._ranked_key(t, n, idx.rank, bits),
-        2 * (30 // bits), entry, entry, 'sa_init_ranked', 330)[3]
+        SA.RANKED_KEY_BITS, SA.INIT_CUT_RANKED, 2 * (30 // bits), entry,
+        entry, 'sa_init_ranked', 330)[3]
     derive_rows = check_derive_rows(idx, '', idx.rank, bits)
     gather = gather_kernel(idx, lo_k, cnt_k, entry)
     row0 = row0_bwt_and_b15(r, idx, lo_k, cnt_k, entries)
@@ -1299,7 +1339,8 @@ def run_raw(idx_path, pats, dev, ranked_rows):
     check_only = kernel_check('raw ')
     m, round_ms, round_plain_ms, round1 = init_and_round(
         idx, SA.sa_init_bytes, SA.sa_init_bytes_plain, SA._byte_key,
-        SA.BYTE_INIT_WIDTH, entry, check_only, 'sa_init_bytes', 271, 'raw ')
+        SA.BYTE_KEY_BITS, SA.INIT_CUT_BYTES, SA.BYTE_INIT_WIDTH, entry,
+        check_only, 'sa_init_bytes', 271, 'raw ')
 
     n0 = int(idx.row_data[0].size)
     text0, sa0 = idx.text[0], idx.sa[0]
@@ -1680,6 +1721,37 @@ def byte_sampler_check(r, idx, byte_pats):
             'matches': int(cm.sum()), **times}
 
 
+def writer_chunk_init(data, entry):
+    """B1b on one chunk the digit Writer built on the card, padded as
+    ``suffix_array_torch`` pads it (N = _pad_len(n + 6)): against its plain
+    version, timed as one launch beside ``torch.sort`` of its keys, with
+    its path, device time by kernel and buckets."""
+    import numpy as np
+    import torch
+
+    from pysubstringsearch_tpu_torch.ops import suffix_array as SA
+
+    n = int(data.size)
+    N = SA._pad_len(n + SA.BYTE_INIT_WIDTH)
+    text = torch.zeros(N, dtype=torch.uint8, device='cuda')
+    text[:n] = torch.from_numpy(np.array(data, dtype=np.uint8)).cuda()
+    got = SA.sa_init_bytes(text, n)
+    want = SA.sa_init_bytes_plain(text, n)
+    e = max(err(a, b) for a, b in zip(got, want))
+    del got, want
+    ms = cuda_ms(lambda: SA.sa_init_bytes(text, n), 20)
+    plain_ms = cuda_ms(lambda: SA.sa_init_bytes_plain(text, n), 3)
+    lib_ms = sort_ms(SA._byte_key(text, n))
+    entry('sa_init_bytes', f'{JAX_SA}:271', SA_SRC, e, ms, plain_ms, 13 * N,
+          lib_ms)
+    prof = init_profile(SA.sa_init_bytes, text, n, SA._byte_key,
+                        SA.BYTE_KEY_BITS, SA.INIT_CUT_BYTES,
+                        f'digit Writer chunk ({n} bytes, N {N}) ',
+                        'sa_init_bytes')
+    return {'n': n, 'N': N, 'ms': ms, 'plain_ms': plain_ms,
+            'sort_keys_ms': lib_ms, **prof}
+
+
 def run_digit(idx_path, pats, byte_pats, dev, chunk_datas):
     """The digit phase: ``Reader(path)`` derives the digit index (B1b and
     B2 from k = 6, B12d with one K7 pass a row, B11, B8) with launch counts
@@ -1734,8 +1806,9 @@ def run_digit(idx_path, pats, byte_pats, dev, chunk_datas):
     torch.cuda.empty_cache()
     round1 = init_and_round(
         idx, SA.sa_init_bytes, SA.sa_init_bytes_plain, SA._byte_key,
-        SA.BYTE_INIT_WIDTH, check_only, check_only, 'sa_init_bytes', 271,
-        'digit ')[3]
+        SA.BYTE_KEY_BITS, SA.INIT_CUT_BYTES, SA.BYTE_INIT_WIDTH, check_only,
+        check_only, 'sa_init_bytes', 271, 'digit ')[3]
+    chunk_init = writer_chunk_init(chunk_datas[0], check_only)
     derive_rows = check_derive_rows(idx, 'digit ')
     host_search_s = check_answers(r, idx, pats, packed_np, lengths_np, res,
                                   lpats)
@@ -1755,7 +1828,7 @@ def run_digit(idx_path, pats, byte_pats, dev, chunk_datas):
             'resident_gib': resident, 'probe_p50_ms': p50,
             'host_search_s': host_search_s, 'launches': launches,
             'byte_sampler': byte_sampler, 'gather': gather,
-            'round1': round1}
+            'round1': round1, 'chunk_init': chunk_init}
 
 
 def run_b9(chunk_datas, native_sas, dev):

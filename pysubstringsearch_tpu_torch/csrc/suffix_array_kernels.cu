@@ -120,14 +120,18 @@ __host__ __device__ inline bool aligned16(const void* p) {
 // items before any write).  sums, when not null, gets each block's total.
 // With dn not null the scan covers min(n, *dn) items (a count known only
 // on the device; n is the host's bound): later items read as the identity
-// and are not written.
+// and are not written, and a block past the count returns at once (no
+// block before it reads its total).
 // A thread's 8 items are two 16-byte loads and stores where both buffers
 // are aligned (vec), so a warp moves 1 KB at a time.
 template <class Op>
 __global__ void scan_tile_kernel(const int* in, int* out, long long n,
                                  const int* dn, int* sums, int exclusive,
                                  int vec) {
-  if (dn != nullptr && *dn < n) n = *dn;
+  if (dn != nullptr) {
+    if (*dn < n) n = *dn;
+    if (static_cast<long long>(blockIdx.x) * kScanTile >= n) return;
+  }
   const long long base =
       static_cast<long long>(blockIdx.x) * kScanTile +
       static_cast<long long>(threadIdx.x) * kScanItems;
@@ -171,6 +175,7 @@ template <class Op>
 __global__ void scan_add_kernel(int* out, long long n, const int* dn,
                                 const int* carries) {
   if (dn != nullptr && *dn < n) n = *dn;
+  if (static_cast<long long>(blockIdx.x) * kScanTile >= n) return;
   const int c = carries[blockIdx.x];
   long long i = static_cast<long long>(blockIdx.x) * kScanTile + threadIdx.x;
   for (int j = 0; j < kScanItems; ++j, i += kThreads) {
@@ -341,10 +346,12 @@ __device__ __forceinline__ void status_store(unsigned long long* word,
       (static_cast<unsigned long long>(tag) << 32) | value;
 }
 
+// Pass `pass` of a sort sorts by the 8-bit digit at `shift`; its skip flag,
+// its tags and the parity of the executed passes before it use `pass`.
 __global__ void __launch_bounds__(kThreads)
 onesweep_pass_kernel(uint64_t* kmain, int* vmain, uint64_t* kalt,
                      int* valt, long long n, const int* dn, int pass,
-                     const unsigned* __restrict__ bins,
+                     int shift, const unsigned* __restrict__ bins,
                      const int* __restrict__ skip,
                      unsigned long long* status, int* counter) {
   __shared__ int s_tile;
@@ -356,7 +363,10 @@ onesweep_pass_kernel(uint64_t* kmain, int* vmain, uint64_t* kalt,
     int vals[kSortTile];
   } s_stage;
   if (skip[pass]) return;
-  if (dn != nullptr && *dn < n) n = *dn;
+  if (dn != nullptr) {
+    if (*dn < n) n = *dn;
+    if (n <= 0) return;  // a sort of nothing, or a path not taken
+  }
   const bool odd = executed_before(skip, pass) & 1;
   const uint64_t* __restrict__ kin = odd ? kalt : kmain;
   const int* __restrict__ vin = odd ? valt : vmain;
@@ -372,7 +382,6 @@ onesweep_pass_kernel(uint64_t* kmain, int* vmain, uint64_t* kalt,
   const long long tile_base = tile * kSortTile;
   if (tile_base >= n) return;  // past a device count: no later tile waits
   const long long warp_base = tile_base + warp * kWarpItems + lane;
-  const int shift = kRadixBits * pass;
   uint64_t key[kSortItems];
   int val[kSortItems];
   int slot[kSortItems];  // rank within the warp, then the staged index
@@ -512,16 +521,12 @@ struct Pairs {
   int* vals;
 };
 
-// Sorts (keys, vals)[0, n) by the low key_bits bits of the keys (every key
-// below 2^key_bits); returns the buffers that hold the result: the
-// alternates after an odd number of passes.  With dn the device holds the
-// count, at most n.
-Pairs radix_sort_pairs(uint64_t* keys, int* vals, long long n, int key_bits,
-                       const SortBufs& s, cudaStream_t st,
-                       const int* dn = nullptr) {
-  if ((dn == nullptr && n <= 1) || n <= 0 || key_bits <= 0) {
-    return Pairs{keys, vals};
-  }
+// The histogram and the passes of radix_sort_pairs, without the copy
+// back: returns the device skip flags, whose executed passes' parity says
+// where the pairs are.  n >= 1, key_bits >= 1.
+const int* radix_sort_passes(uint64_t* keys, int* vals, long long n,
+                             int key_bits, const SortBufs& s, cudaStream_t st,
+                             const int* dn) {
   const int passes = (key_bits + kRadixBits - 1) / kRadixBits;
   const long long tiles = cdiv(n, kSortTile);
   cudaMemsetAsync(s.status, 0, sizeof(unsigned long long) * kRadix * tiles,
@@ -535,9 +540,24 @@ Pairs radix_sort_pairs(uint64_t* keys, int* vals, long long n, int key_bits,
   onesweep_bins_kernel<<<passes, kThreads, 0, st>>>(s.hist, skip);
   for (int p = 0; p < passes; ++p) {
     onesweep_pass_kernel<<<static_cast<unsigned>(tiles), kThreads, 0, st>>>(
-        keys, vals, s.keys_alt, s.vals_alt, n, dn, p, s.hist + p * kRadix,
-        skip, s.status, counters + p);
+        keys, vals, s.keys_alt, s.vals_alt, n, dn, p, kRadixBits * p,
+        s.hist + p * kRadix, skip, s.status, counters + p);
   }
+  return skip;
+}
+
+// Sorts (keys, vals)[0, n) by the low key_bits bits of the keys (every key
+// below 2^key_bits); returns the buffers that hold the result: the
+// alternates after an odd number of passes.  With dn the device holds the
+// count, at most n.
+Pairs radix_sort_pairs(uint64_t* keys, int* vals, long long n, int key_bits,
+                       const SortBufs& s, cudaStream_t st,
+                       const int* dn = nullptr) {
+  if ((dn == nullptr && n <= 1) || n <= 0 || key_bits <= 0) {
+    return Pairs{keys, vals};
+  }
+  const int passes = (key_bits + kRadixBits - 1) / kRadixBits;
+  const int* skip = radix_sort_passes(keys, vals, n, key_bits, s, st, dn);
   onesweep_fix_kernel<<<grid_for(n) < 4096 ? grid_for(n) : 4096, kThreads, 0,
                         st>>>(keys, vals, s.keys_alt, s.vals_alt, n, dn,
                               passes, skip);
@@ -628,7 +648,8 @@ void blocked_scatter(const int* values, const int* dests, long long n,
   skip_below_kernel<<<1, 32, 0, st>>>(skip, kBinPass);
   onesweep_pass_kernel<<<static_cast<unsigned>(tiles), kThreads, 0, st>>>(
       keys, vals, s.keys_alt, s.vals_alt, n, nullptr, kBinPass,
-      s.hist + kBinPass * kRadix, skip, s.status, counters + kBinPass);
+      kRadixBits * kBinPass, s.hist + kBinPass * kRadix, skip, s.status,
+      counters + kBinPass);
   // A pass that found one bin leaves the pairs where they were.
   onesweep_fix_kernel<<<grid_for(n) < 4096 ? grid_for(n) : 4096, kThreads, 0,
                         st>>>(keys, vals, s.keys_alt, s.vals_alt, n, nullptr,
@@ -638,68 +659,22 @@ void blocked_scatter(const int* values, const int* dests, long long n,
 }
 
 // ---------------------------------------------------------------------------
-// B1, the anchored init sort.  Replaces _init_round_anchored_ranked
-// (pysubstringsearch_tpu/ops/suffix_array.py), which sorts two int32 limbs
-// of D = 30 / bits rank digits with lax.sort.
-//
-// key[p] = the 2D rank digits of text[p .. p+2D-1] packed big-endian, 0 for
-// a digit at or past n (so exactly limb0 << 30 | limb1, 60 bits), value p;
-// the pairs are radix-sorted (8 passes); pad slots i < N - n hold
-// N - 1 - i and every slot up to N - n starts a group, as in the JAX
-// function; gs is the max-scan of the group-start slots and rank[sa[i]] =
-// gs[i].  Bound by memory: the sort is about 8 + 8 x 24 bytes per slot, the
-// rest a few passes of 4-12 bytes.
-// ---------------------------------------------------------------------------
-__global__ void init_keys_kernel(const uint8_t* __restrict__ text,
-                                 long long N, long long n,
-                                 const int* __restrict__ rank, int bits,
-                                 uint64_t* __restrict__ keys,
-                                 int* __restrict__ vals) {
-  __shared__ int srank[256];
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) srank[i] = rank[i];
-  __syncthreads();
-  const int width = 2 * (30 / bits);
-  for (long long p = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       p < N; p += static_cast<long long>(gridDim.x) * blockDim.x) {
-    uint64_t key = 0;
-    if (p < n) {
-      for (int d = 0; d < width; ++d) {
-        long long q = p + d;
-        uint64_t digit = q < n ? static_cast<uint64_t>(srank[text[q]]) : 0;
-        key = (key << bits) | digit;
-      }
-    }
-    keys[p] = key;
-    vals[p] = static_cast<int>(p);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// B1b, the 6-byte anchored init sort.  Replaces _init_round_anchored
-// (pysubstringsearch_tpu/ops/suffix_array.py, reached through
-// _segmented_kernel and _derive_sa_seg_jit), which sorts the pair (limb0,
-// limb1) of three base-257 digits each with a 2-key lax.sort.
-//
-// Digit q of position p is text[p + q] + 1, or 0 at or past n, so a NUL
-// byte stays above the past-end digit and the digit kind can reuse it.
-// key[p] = limb0 << 25 | limb1: 257^3 < 2^25, so the pair is one 50-bit key
-// that sorts as the JAX pair does, and the radix sort runs 7 passes (B1's
-// 60-bit key takes 8).  The rest is B1's pipeline unchanged: the forced pad
-// singletons, the group-start max-scan and the rank scatter.  Bound by
-// memory like B1: the sort moves about 8 + 7 x 24 bytes per slot; the key pass
-// reads 1 byte a slot (the 5 neighbours come from L1) and writes 12.
-//
-// Every digit read is masked at q < n, so the pad positions are exactly the
-// all-zero key group for any 0 <= n <= N; the derive path's 6-byte margin
-// is its own contract, not this kernel's (B10 runs it on rows without one).
+// The anchored inits' keys.  B1's key of position p is the 2D rank digits
+// of text[p .. p+2D-1] (D = 30 / bits) packed big-endian, 0 for a digit at
+// or past n: exactly the JAX limb0 << 30 | limb1, 60 bits.  The byte key
+// (B1b, B9's init, B10's init) has digit q = text[p + q] + 1, or 0 at or
+// past n, so a NUL byte stays above the past-end digit and the digit kind
+// can reuse it; its 6 digits are keyed limb0 << 25 | limb1 (three base-257
+// digits a limb, 257^3 < 2^25), one 50-bit key that sorts as the JAX pair
+// (limb0, limb1) does, and its 3 digits limb0 alone.  Every digit read is
+// masked at q < n, so the pad positions are exactly the all-zero key group
+// for any 0 <= n <= N; the derive path's margin is its own contract, not
+// the kernels' (B10 runs them on rows without one).  B1, B1b and B10 make
+// their keys inside init_hist_kernel (section "B1 and B1b"); B9's init
+// writes them with this kernel.
 // ---------------------------------------------------------------------------
 constexpr int kByteKeyBits = 50;
 
-// key[p] of the first kWidth digits (3 or 6): limb0 alone for 3, limb0 <<
-// 25 | limb1 for 6.  A template, so the digit loop unrolls and the limbs
-// stay in registers.
-template <int kWidth>
 __global__ void init_keys_bytes_kernel(const uint8_t* __restrict__ text,
                                        long long N, long long n,
                                        uint64_t* __restrict__ keys,
@@ -710,63 +685,15 @@ __global__ void init_keys_bytes_kernel(const uint8_t* __restrict__ text,
     uint64_t limb[2] = {0, 0};
     if (p < n) {
 #pragma unroll
-      for (int d = 0; d < kWidth; ++d) {
+      for (int d = 0; d < 6; ++d) {
         long long q = p + d;
         uint64_t digit = q < n ? static_cast<uint64_t>(text[q]) + 1 : 0;
         limb[d / 3] = limb[d / 3] * 257 + digit;
       }
     }
-    keys[p] = kWidth > 3 ? (limb[0] << 25) | limb[1] : limb[0];
+    keys[p] = (limb[0] << 25) | limb[1];
     vals[p] = static_cast<int>(p);
   }
-}
-
-__global__ void init_groups_kernel(const uint64_t* __restrict__ keys,
-                                   const int* __restrict__ idx, long long N,
-                                   long long npad, int* __restrict__ sa,
-                                   int* __restrict__ starts) {
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       i < N; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    sa[i] = i < npad ? static_cast<int>(N - 1 - i) : idx[i];
-    const bool changed = i <= npad || keys[i] != keys[i - 1];
-    starts[i] = changed ? static_cast<int>(i) : 0;
-  }
-}
-
-struct InitBufs {
-  uint64_t* keys;
-  int* vals;
-  SortBufs sort;
-  int* starts;
-  int* scan;
-};
-
-InitBufs carve_init(Arena& a, long long N) {
-  InitBufs b;
-  b.keys = a.take<uint64_t>(N);
-  b.vals = a.take<int>(N);
-  b.sort = carve_sort(a, N);
-  b.starts = a.take<int>(N);
-  b.scan = a.take<int>(scan_scratch_elems(N));
-  return b;
-}
-
-// The anchored init from (key, position) pairs already in b.keys / b.vals
-// (B1 and B1b differ only in their keys): sort, group starts with the pad
-// singletons forced, max-scan into gs, rank[sa[i]] = gs[i].
-void init_from_keys(const InitBufs& b, long long N, long long n,
-                    int key_bits, int* sa, int* rank, int* gs,
-                    cudaStream_t st) {
-  const unsigned grid = grid_for(N);
-  const Pairs sorted = radix_sort_pairs(b.keys, b.vals, N, key_bits, b.sort,
-                                        st);
-  init_groups_kernel<<<grid, kThreads, 0, st>>>(sorted.keys, sorted.vals, N,
-                                                N - n, sa, b.starts);
-  scan_levels<MaxOp>(b.starts, gs, N, false, b.scan, st);
-  // rank[sa[i]] = gs[i], a full permutation of random stores: blocked by
-  // destination, in the sort's buffers, which the groups kernel has read.
-  blocked_scatter(gs, sa, N, N, rank, b.keys, b.vals, b.sort, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -816,7 +743,7 @@ constexpr int kSegCap = kSegThreads * kSegItems;  // members a block may take
 static_assert(kSegCap == 2 * kSegT, "a block takes the groups starting in "
               "its kSegT positions, each of at most kSegT members");
 // A block's staged word: the member's offset from the block's first list
-// position above its sort key (group << W | (r2 + 1), at most 13 + 31 bits).
+// position above its sort key (group << W | key, at most 13 + 38 bits).
 constexpr int kSegIdxShift = 51;
 constexpr uint64_t kSegKeyMask = (1ull << kSegIdxShift) - 1;
 constexpr unsigned kClassBit = 0x80000000u;  // gl: large; r2b: tiny
@@ -971,27 +898,100 @@ struct TiePred {
   }
 };
 
+// The members of a segmented sort, list position t each, as the block
+// kernel and the large path read them (M): slot(t) its slot, group(t) the
+// slot of its group's first member (groups are runs of consecutive slots,
+// listed in slot order), key(t) its sort key within the group (M::Key),
+// pos(t) the position that lands in its slot, large(t) whether its group
+// has more than kSegT members, and load() a block's items at once.  B2
+// reads the gathered round (RoundMembers), the anchored inits the top-bits
+// buckets (InitMembers).
+//
+// A sink (Out) stores each member's result: put(slot, p, f, g) with f its
+// new label, g its group's start, and label(s) the label slot s holds
+// before the stage.
+struct RoundMembers {
+  using Key = unsigned;
+  const int* tl;
+  const unsigned* r2b;  // r2 + 1, | kClassBit for a tiny group
+  const unsigned* gl;   // g, | kClassBit for a large group
+  const int* posb;
+  __device__ long long slot(long long t) const { return tl[t]; }
+  __device__ long long group(long long t) const { return gl[t] & ~kClassBit; }
+  __device__ Key key(long long t) const { return r2b[t] & ~kClassBit; }
+  __device__ int pos(long long t) const { return posb[t]; }
+  __device__ bool large(long long t) const { return (gl[t] & kClassBit) != 0; }
+  // Items i0 .. i0 + kSegItems - 1 (i0 a multiple of kSegItems): off[q] =
+  // the member's offset in its group for a medium group's member, else -1,
+  // and its key.  16-byte loads where the items are all in the list.
+  __device__ void load(long long i0, long long m, int* off, Key* key) const {
+    unsigned gv[kSegItems], rv[kSegItems];
+    int tv[kSegItems];
+    if (i0 + kSegItems <= m) {
+#pragma unroll
+      for (int v = 0; v < kSegItems / 4; ++v) {
+        const uint4 a = reinterpret_cast<const uint4*>(gl + i0)[v];
+        const uint4 b = reinterpret_cast<const uint4*>(r2b + i0)[v];
+        const int4 c = reinterpret_cast<const int4*>(tl + i0)[v];
+        gv[4 * v] = a.x; gv[4 * v + 1] = a.y; gv[4 * v + 2] = a.z; gv[4 * v + 3] = a.w;
+        rv[4 * v] = b.x; rv[4 * v + 1] = b.y; rv[4 * v + 2] = b.z; rv[4 * v + 3] = b.w;
+        tv[4 * v] = c.x; tv[4 * v + 1] = c.y; tv[4 * v + 2] = c.z; tv[4 * v + 3] = c.w;
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < kSegItems; ++q) {
+        const bool in = i0 + q < m;
+        gv[q] = in ? gl[i0 + q] : kClassBit;
+        rv[q] = in ? r2b[i0 + q] : 0;
+        tv[q] = in ? tl[i0 + q] : 0;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kSegItems; ++q) {
+      const bool medium = !(gv[q] & kClassBit) && !(rv[q] & kClassBit);
+      off[q] = medium ? tv[q] - static_cast<int>(gv[q]) : -1;
+      key[q] = rv[q];
+    }
+  }
+};
+
+// B2's stores: sa always, gs and rank only where the label changed (a
+// member whose label stays its group's start keeps both).
+struct RoundOut {
+  int* sa;
+  int* rank;
+  int* gs;
+  __device__ int label(long long s) const { return gs[s]; }
+  __device__ void put(long long slot, int p, int f, long long g) const {
+    sa[slot] = p;
+    if (f != g) {
+      gs[slot] = f;
+      rank[p] = f;
+    }
+  }
+};
+
 // List position t is kept when its group is large, as the sort's pair at
 // its place o among the large members: key (its group's start in that
-// order >> kSegLogT) << W | (r2 + 1), value its position; lslot[o] gets its
-// slot.
+// order >> kSegLogT) << W | its key, value its position; lslot[o] gets its
+// slot.  Places from cap on are not written (the inits' capacity; their
+// caller then drops the large path).
+template <class M>
 struct LargePred {
-  const unsigned* gl;
-  const unsigned* r2b;
-  const int* posb;
-  const int* tl;
+  M mem;
   int W;
   uint64_t* keys;
   int* vals;
   int* lslot;
-  __device__ bool test(long long t) const { return (gl[t] & kClassBit) != 0; }
+  long long cap;
+  __device__ bool test(long long t) const { return mem.large(t); }
   __device__ void emit(long long t, long long o) const {
-    const int s = tl[t];
-    const long long lstart = o - (s - static_cast<long long>(gl[t] & ~kClassBit));
-    keys[o] = (static_cast<uint64_t>(lstart >> kSegLogT) << W) |
-              (r2b[t] & ~kClassBit);
-    vals[o] = posb[t];
-    lslot[o] = s;
+    if (o >= cap) return;
+    const long long s = mem.slot(t);
+    const long long lstart = o - (s - mem.group(t));
+    keys[o] = (static_cast<uint64_t>(lstart >> kSegLogT) << W) | mem.key(t);
+    vals[o] = mem.pos(t);
+    lslot[o] = static_cast<int>(s);
   }
 };
 
@@ -1107,19 +1107,17 @@ __device__ __forceinline__ unsigned long long warp_and64(unsigned long long x) {
 
 // Block b refines the medium groups whose first list position lies in [b *
 // kSegT, (b + 1) * kSegT): fewer than kSegCap members.  It compacts them
-// into shared memory as (offset, group << W | (r2 + 1)) words, group being
-// the member's group's first index there, and radix-sorts the words 8 bits
-// a pass, stably (warp-striped items ranked with __match_any_sync, as the
-// one-sweep pass ranks them), skipping every digit that no two of its keys
-// differ in.  Each member's run start (a max-scan of the key changes: per
-// warp with shuffles, then across warps) gives its new label, and sa, gs
-// and rank are stored, rank only where the label changed.
+// into shared memory as (offset, group << W | key) words, group being the
+// member's group's first index there, and radix-sorts the words 8 bits a
+// pass, stably
+// (warp-striped items ranked with __match_any_sync, as the one-sweep pass
+// ranks them), skipping every digit that no two of its keys differ in.
+// Each member's run start (a max-scan of the key changes: per warp with
+// shuffles, then across warps) gives its new label, and the sink stores
+// it.
+template <class M, class Out>
 __global__ void __launch_bounds__(kSegThreads, 2)
-seg_small_kernel(const int* __restrict__ tl, long long m,
-                 const unsigned* __restrict__ r2b,
-                 const unsigned* __restrict__ gl,
-                 const int* __restrict__ posb, int W, int* __restrict__ sa,
-                 int* __restrict__ rank, int* __restrict__ gs) {
+seg_small_kernel(M mem, long long m, const int* dm, int W, Out out) {
   extern __shared__ uint4 seg_smem[];
   uint64_t* stage = reinterpret_cast<uint64_t*>(seg_smem);
   unsigned* swarp = reinterpret_cast<unsigned*>(stage + kSegCap);
@@ -1128,39 +1126,23 @@ seg_small_kernel(const int* __restrict__ tl, long long m,
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
+  if (dm != nullptr && *dm < m) m = *dm;
   const long long base = static_cast<long long>(blockIdx.x) * kSegT;
+  if (base >= m) return;
   if (t == 0) {
     s_or = 0;
     s_and = ~0ull;
   }
   // Members: thread t tests positions base + 16 t .. base + 16 t + 15.
   const long long i0 = base + static_cast<long long>(t) * kSegItems;
-  unsigned gv[kSegItems], rv[kSegItems];
-  int tv[kSegItems];
-  if (i0 + kSegItems <= m) {  // 16-byte loads: i0 is a multiple of 16
-#pragma unroll
-    for (int v = 0; v < kSegItems / 4; ++v) {
-      const uint4 a = reinterpret_cast<const uint4*>(gl + i0)[v];
-      const uint4 b = reinterpret_cast<const uint4*>(r2b + i0)[v];
-      const int4 c = reinterpret_cast<const int4*>(tl + i0)[v];
-      gv[4 * v] = a.x; gv[4 * v + 1] = a.y; gv[4 * v + 2] = a.z; gv[4 * v + 3] = a.w;
-      rv[4 * v] = b.x; rv[4 * v + 1] = b.y; rv[4 * v + 2] = b.z; rv[4 * v + 3] = b.w;
-      tv[4 * v] = c.x; tv[4 * v + 1] = c.y; tv[4 * v + 2] = c.z; tv[4 * v + 3] = c.w;
-    }
-  } else {
-#pragma unroll
-    for (int q = 0; q < kSegItems; ++q) {
-      const bool in = i0 + q < m;
-      gv[q] = in ? gl[i0 + q] : kClassBit;
-      rv[q] = in ? r2b[i0 + q] : 0;
-      tv[q] = in ? tl[i0 + q] : 0;
-    }
-  }
+  int off[kSegItems];
+  typename M::Key kv[kSegItems];
+  mem.load(i0, m, off, kv);
   unsigned mine = 0;
 #pragma unroll
   for (int q = 0; q < kSegItems; ++q) {
-    if (!(gv[q] & kClassBit) && !(rv[q] & kClassBit)) {
-      const long long b0 = i0 + q - (tv[q] - static_cast<long long>(gv[q]));
+    if (off[q] >= 0) {
+      const long long b0 = i0 + q - off[q];
       if (b0 >= base && b0 < base + kSegT) mine |= 1u << q;
     }
   }
@@ -1172,8 +1154,8 @@ seg_small_kernel(const int* __restrict__ tl, long long m,
   for (int q = 0; q < kSegItems; ++q) {
     if (!(mine >> q & 1u)) continue;
     const long long i = i0 + q;
-    const long long grp = ci - (tv[q] - static_cast<long long>(gv[q]));
-    const uint64_t key = (static_cast<uint64_t>(grp) << W) | rv[q];
+    const long long grp = ci - off[q];
+    const uint64_t key = (static_cast<uint64_t>(grp) << W) | kv[q];
     stage[ci++] = (static_cast<uint64_t>(i - base) << kSegIdxShift) | key;
     kor |= key;
     kand &= key;
@@ -1281,16 +1263,27 @@ seg_small_kernel(const int* __restrict__ tl, long long m,
     const uint64_t w = stage[idx];
     const int r = run[j] > prefix ? run[j] : prefix;
     const long long i = base + static_cast<long long>(w >> kSegIdxShift);
-    const int g = static_cast<int>(gl[i]);
+    const long long g = mem.group(i);
     const int grp = static_cast<int>((w & kSegKeyMask) >> W);
-    const int p = posb[i];
-    const int slot = g + (idx - grp);
-    sa[slot] = p;
-    if (r != grp) {  // a later subgroup: its label changed
-      gs[slot] = g + (r - grp);
-      rank[p] = g + (r - grp);
-    }
+    out.put(g + (idx - grp), mem.pos(i), static_cast<int>(g + (r - grp)),
+            g);
   }
+}
+
+// One launch of seg_small_kernel over m list positions, kSegT a block,
+// with the shared memory it asks for.
+template <class M, class Out>
+void launch_seg_small(const M& mem, long long m, const int* dm, int W,
+                      const Out& out, cudaStream_t st) {
+  static bool smem_set = false;
+  if (!smem_set) {
+    cudaFuncSetAttribute(seg_small_kernel<M, Out>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(kSegSmem));
+    smem_set = true;
+  }
+  seg_small_kernel<<<static_cast<unsigned>(cdiv(m, kSegT)), kSegThreads,
+                     kSegSmem, st>>>(mem, m, dm, W, out);
 }
 
 __global__ void refine_change_kernel(const uint64_t* __restrict__ keys,
@@ -1306,28 +1299,20 @@ __global__ void refine_change_kernel(const uint64_t* __restrict__ keys,
   }
 }
 
-// A member whose new label f is its group's old start g keeps its rank
-// (rank[p] = gs[slot] = g before the round), so only the members of the
-// later subgroups of a split group pay the random rank store.
+// In B2 a member whose new label f is its group's old start g keeps its
+// rank (rank[p] = gs[slot] = g before the round), so only the members of
+// the later subgroups of a split group pay the random rank store.
+template <class Out>
 __global__ void refine_scatter_kernel(const int* __restrict__ slots,
                                       const int* __restrict__ vals,
                                       const int* __restrict__ first_eq,
-                                      long long m, const int* dn,
-                                      int* __restrict__ sa,
-                                      int* __restrict__ rank,
-                                      int* __restrict__ gs) {
+                                      long long m, const int* dn, Out out) {
   if (dn != nullptr && *dn < m) m = *dn;
   for (long long b = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
        b < m; b += static_cast<long long>(gridDim.x) * blockDim.x) {
     const int s = slots[b];
-    const int p = vals[b];
-    const int f = first_eq[b];
-    sa[s] = p;
-    if (f != gs[s]) {
-      rank[p] = f;
-      gs[s] = f;
-    }
+    out.put(s, vals[b], first_eq[b], out.label(s));
   }
 }
 
@@ -1387,22 +1372,15 @@ void seg_refine(int* sa, int* rank, int* gs, long long N, long long k,
   } else {
     seg_gather_kernel<<<grid, kThreads, 0, st>>>(tl, m, read);
   }
+  const RoundMembers mem{tl, b.r2b, b.gl, b.posb};
+  const RoundOut out{sa, rank, gs};
   const int* ml = compact(
-      LargePred{b.gl, b.r2b, b.posb, tl, W, b.keys, b.vals, b.lslot}, m,
+      LargePred<RoundMembers>{mem, W, b.keys, b.vals, b.lslot, m}, m,
       nullptr, b.compact, st);
   copy_count_kernel<<<1, 1, 0, st>>>(ml, counts + 1);
   seg_tiny_kernel<<<grid, kThreads, 0, st>>>(tl, m, b.r2b, b.gl, b.posb, sa,
                                              rank, gs);
-  static bool smem_set = false;
-  if (!smem_set) {
-    cudaFuncSetAttribute(seg_small_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(kSegSmem));
-    smem_set = true;
-  }
-  seg_small_kernel<<<static_cast<unsigned>(cdiv(m, kSegT)), kSegThreads,
-                     kSegSmem, st>>>(tl, m, b.r2b, b.gl, b.posb, W, sa, rank,
-                                     gs);
+  launch_seg_small(mem, m, nullptr, W, out, st);
   const Pairs sorted = radix_sort_pairs(
       b.keys, b.vals, m, W + bit_length((m - 1) >> kSegLogT), b.sort, st,
       ml);
@@ -1415,7 +1393,633 @@ void seg_refine(int* sa, int* rank, int* gs, long long N, long long k,
       sorted.keys, b.lslot, m, ml, first_eq);
   scan_levels<MaxOp>(first_eq, first_eq, m, false, b.scan, st, ml);
   refine_scatter_kernel<<<large_grid, kThreads, 0, st>>>(
-      b.lslot, sorted.vals, first_eq, m, ml, sa, rank, gs);
+      b.lslot, sorted.vals, first_eq, m, ml, out);
+}
+
+// ---------------------------------------------------------------------------
+// B1 and B1b, the anchored init sorts.  B1 replaces
+// _init_round_anchored_ranked (pysubstringsearch_tpu/ops/suffix_array.py),
+// which sorts two int32 limbs of D = 30 / bits rank digits with lax.sort;
+// B1b replaces _init_round_anchored (reached through _segmented_kernel and
+// _derive_sa_seg_jit), which sorts the pair (limb0, limb1) of three
+// base-257 byte digits each.  Both return, bit for bit, the stable sort of
+// their keys (see "The anchored inits' keys"): pad slots i < N - n hold
+// N - 1 - i, every slot up to N - n starts a group, gs is the max-scan of
+// the group starts and rank[sa[i]] = gs[i].  B10's init (pss_sa_init3_bytes,
+// a 25-bit key of 3 byte digits) is the same function on the full path
+// alone: its key has no low bits worth a bucket stage.
+//
+// A full LSD sort of the 60- or 50-bit keys runs 8 or 7 passes of 12-byte
+// pairs; here the key is split at its top `cut` bits instead:
+//   1. init_hist_kernel makes every (key, position) pair from the text (1
+//      byte a slot, the neighbours from L1), writes it and counts the
+//      digits of the top passes; for every 17th position it also counts
+//      the top bits' bucket in a hashed table, from which
+//      init_decide_kernel estimates the slots in buckets of more than kSegT
+//      members.
+//   2. Where that estimate is at most 1 / kCrossDiv of the row (the hybrid
+//      path), ceil(cut / 8) one-sweep passes sort the pairs by the top bits
+//      alone, none skipped, so the buffer they end in is known to the host.
+//      Each top-bits bucket is then a run of slots in position order, and
+//      the low bits are sorted within it by B2's segmented stages
+//      (InitMembers): a bucket of at most kSegT members in a block's shared
+//      memory, a larger one by the one-sweep sort on (its ordinal in the
+//      large list, the low bits), at most cap members.  The stages write sa
+//      and gs (InitOut): no groups kernel, no whole-row max-scan of the
+//      sorted keys, only the bucket starts'.
+//   3. Otherwise, or where more than cap members turned out large (the
+//      estimate samples), the full path: a one-sweep sort of the whole key
+//      (one-bin digits skipped), the groups read from whichever buffer the
+//      executed passes left (no copy back) and the max-scan.  The digit
+//      kind's UTF-16 rows take it: 3
+//      characters fill their 50-bit key, and nearly every slot lies in a
+//      large bucket.
+//   4. rank[sa[i]] = gs[i], blocked by destination without a sort pass:
+//      the pad slots (the top-bits bucket 0, exactly the positions past n)
+//      are closed-form, rank included, since their positions are
+//      contiguous; the real slots' (position, label) pairs are appended to
+//      their position's bin (RankBins: each position is one destination,
+//      so bin b holds exactly the positions [b << bshift, (b + 1) <<
+//      bshift) below n and starts there), then stored bin by bin, so that
+//      a bin's stores meet in a few MB of L2.
+// A path not taken costs its launches: each of its kernels reads a device
+// count (ctl) that is 0 for it (B10's init launches no hybrid stage).  Bound by memory: the hybrid path moves
+// 1 + 12 bytes a slot to make the pairs, (cut / 8) x 24 in its top passes,
+// about 40 in the bucket stages (the pairs twice, the bucket starts, sa
+// and gs) and 28 in the rank store, against 12 + 8 + 7 x 24 + 60 for a
+// full sort, its groups and a blocked store.
+// ---------------------------------------------------------------------------
+enum { kIPath = 0, kIEst, kILarge, kIHybridN, kIFullN, kICtl };
+
+constexpr int kSampleStride = 17;  // odd: the digit kind alternates bytes
+constexpr int kCrossDiv = 8;
+constexpr int kCutRanked = 24;  // B1: 3 top passes, 36 low bits
+constexpr int kCutBytes = 32;   // B1b: 4 top passes, 18 low bits
+
+// A thread's text window for the keys of positions p0 .. p0 + 15 (p0 a
+// multiple of 16): the bytes p0 .. p0 + 31 (two 16-byte loads where they
+// lie in the row and the text is 16-byte aligned, else byte loads),
+// byte(j) = text[p0 + j] (0 past the row) and real(j) = p0 + j < n.
+// Indexed only by constants once the callers' loops unroll, so the words
+// stay in registers.
+struct TextWindow {
+  unsigned w[8];
+  long long p0;
+  long long n;
+  __device__ TextWindow(const uint8_t* text, long long N, long long n_,
+                        long long p) : p0(p), n(n_) {
+    if (p0 + 32 <= N && aligned16(text)) {
+      const uint4 a = reinterpret_cast<const uint4*>(text + p0)[0];
+      const uint4 b = reinterpret_cast<const uint4*>(text + p0)[1];
+      w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
+      w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
+    } else {
+#pragma unroll
+      for (int v = 0; v < 8; ++v) {
+        unsigned word = 0;
+        for (int j = 0; j < 4; ++j) {
+          const long long q = p0 + 4 * v + j;
+          word |= static_cast<unsigned>(q < N ? text[q] : 0) << (8 * j);
+        }
+        w[v] = word;
+      }
+    }
+  }
+  __device__ int byte(int j) const {
+    return static_cast<int>((w[j >> 2] >> (8 * (j & 3))) & 0xffu);
+  }
+  __device__ bool real(int j) const { return p0 + j < n; }
+};
+
+// B1's key source: kWidth = 2D digits of 60 / kWidth bits through the byte
+// -> rank map; 16 consecutive keys shift one digit in each.
+template <int kWidth>
+struct RankedSrc {
+  static constexpr bool kRankMap = true;
+  static constexpr int bits = 60 / kWidth;
+  const uint8_t* text;
+  long long n;
+  const int* rank;
+  __device__ void keys16(const TextWindow& tw, const int* srank,
+                         uint64_t* key) const {
+    constexpr int width = kWidth;
+    constexpr uint64_t mask = (1ull << (width * bits)) - 1;
+    uint64_t k = 0;
+#pragma unroll
+    for (int d = 0; d < width - 1; ++d) {
+      k = (k << bits) |
+          (tw.real(d) ? static_cast<uint64_t>(srank[tw.byte(d)]) : 0);
+    }
+#pragma unroll
+    for (int r = 0; r < kSortItems; ++r) {
+      const int j = r + width - 1;
+      k = ((k << bits) |
+           (tw.real(j) ? static_cast<uint64_t>(srank[tw.byte(j)]) : 0)) &
+          mask;
+      key[r] = tw.real(r) ? k : 0;
+    }
+  }
+};
+
+// B1b's key source (kWidth 6: limb0 << 25 | limb1) and B10's (kWidth 3:
+// limb0 alone), from a window of the digits that slides one byte a key.
+template <int kWidth>
+struct ByteSrc {
+  static constexpr bool kRankMap = false;
+  const uint8_t* text;
+  long long n;
+  const int* rank;  // unused
+  __device__ void keys16(const TextWindow& tw, const int*,
+                         uint64_t* key) const {
+    uint64_t d[kWidth];
+#pragma unroll
+    for (int j = 0; j < kWidth - 1; ++j) {
+      d[j + 1] = tw.real(j) ? static_cast<uint64_t>(tw.byte(j)) + 1 : 0;
+    }
+#pragma unroll
+    for (int r = 0; r < kSortItems; ++r) {
+#pragma unroll
+      for (int j = 0; j < kWidth - 1; ++j) d[j] = d[j + 1];
+      const int last = r + kWidth - 1;
+      d[kWidth - 1] =
+          tw.real(last) ? static_cast<uint64_t>(tw.byte(last)) + 1 : 0;
+      const uint64_t limb0 = (d[0] * 257 + d[1]) * 257 + d[2];
+      uint64_t k = limb0;
+      if constexpr (kWidth == 6) {
+        k = (limb0 << 25) |
+            ((d[kWidth - 3] * 257 + d[kWidth - 2]) * 257 + d[kWidth - 1]);
+      }
+      key[r] = tw.real(r) ? k : 0;
+    }
+  }
+};
+
+__device__ __forceinline__ unsigned sample_bin(uint64_t top, int bits) {
+  return static_cast<unsigned>((top * 0x9E3779B97F4A7C15ull) >> (64 - bits));
+}
+
+// The pairs (key, position) of every slot, the counts of the `sets`
+// digits at low, low + 8, ... (runs of one digit merged as in
+// onesweep_hist_kernel) and, unless samp is null, the sampled bucket
+// counts.  A thread makes the
+// keys of 16 consecutive positions from one text window; they are staged
+// in shared memory (padded a word every 16, so the lanes' stores and loads
+// meet no bank twice) and stored in the pass kernels' striped order.
+template <class Src>
+__global__ void __launch_bounds__(kThreads)
+init_hist_kernel(Src src, long long N, int low, int sets,
+                 uint64_t* __restrict__ keys, int* __restrict__ vals,
+                 int* __restrict__ samp, int samp_bits,
+                 unsigned* __restrict__ hist) {
+  __shared__ unsigned counts[kMaxPasses][kRadix];
+  __shared__ uint64_t s_keys[kSortTile + kSortTile / kSortItems];
+  __shared__ int s_rank[Src::kRankMap ? kRadix : 1];
+  const int t = threadIdx.x;
+  for (int c = 0; c < kMaxPasses; ++c) counts[c][t] = 0;
+  if constexpr (Src::kRankMap) s_rank[t] = src.rank[t];
+  __syncthreads();
+  for (long long base = static_cast<long long>(blockIdx.x) * kSortTile;
+       base < N; base += static_cast<long long>(gridDim.x) * kSortTile) {
+    const long long p0 = base + static_cast<long long>(t) * kSortItems;
+    uint64_t key[kSortItems];
+    src.keys16(TextWindow(src.text, N, src.n, p0), s_rank, key);
+    const long long left = N - p0;
+    for (int c = 0; c < sets; ++c) {
+      const int shift = low + kRadixBits * c;
+      int prev = -1;
+      unsigned run = 0;
+#pragma unroll
+      for (int r = 0; r < kSortItems; ++r) {
+        if (r >= left) break;
+        const int d = static_cast<int>((key[r] >> shift) & (kRadix - 1));
+        if (d != prev) {
+          if (run) atomicAdd(&counts[c][prev], run);
+          prev = d;
+          run = 0;
+        }
+        ++run;
+      }
+      if (run) atomicAdd(&counts[c][prev], run);
+    }
+#pragma unroll
+    for (int r = 0; r < kSortItems; ++r) {
+      const long long i = p0 + r;
+      if (samp != nullptr && i < src.n &&
+          static_cast<unsigned>(i) % kSampleStride == 0) {
+        atomicAdd(&samp[sample_bin(key[r] >> low, samp_bits)], 1);
+      }
+      s_keys[t * (kSortItems + 1) + r] = key[r];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < kSortItems; ++r) {
+      const int e = r * kThreads + t;
+      const long long i = base + e;
+      if (i < N) {
+        keys[i] = s_keys[e + e / kSortItems];
+        vals[i] = static_cast<int>(i);
+      }
+    }
+    __syncthreads();
+  }
+  __syncthreads();
+  for (int c = 0; c < sets; ++c) {
+    const unsigned x = counts[c][t];
+    if (x) atomicAdd(&hist[c * kRadix + t], x);
+  }
+}
+
+// Every top pass runs, so the host knows where they leave the pairs.
+__global__ void init_skips_kernel(int* skip, int passes) {
+  if (static_cast<int>(threadIdx.x) < passes) skip[threadIdx.x] = 0;
+}
+
+// ctl[kIEst] += the samples in table bins whose bucket, scaled up, has more
+// than kSegT members.
+__global__ void samp_large_kernel(const int* __restrict__ samp,
+                                  long long size, int* __restrict__ ctl) {
+  int sum = 0;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < size; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int c = samp[i];
+    if (static_cast<long long>(c) * kSampleStride > kSegT) sum += c;
+  }
+  int total;
+  block_exclusive_scan<SumOp>(sum, &total);
+  if (threadIdx.x == 0 && total) atomicAdd(&ctl[kIEst], total);
+}
+
+// The path: the hybrid one where it may be taken (a hybrid init, not B10's)
+// and the estimate allows it, else the full sort.
+__global__ void init_decide_kernel(int* ctl, long long N, long long n,
+                                   bool may_hybrid) {
+  const long long est = static_cast<long long>(ctl[kIEst]) * kSampleStride;
+  const bool hybrid = may_hybrid && est * kCrossDiv <= n;
+  ctl[kIEst] = static_cast<int>(est < INT_MAX ? est : INT_MAX);
+  ctl[kIPath] = hybrid ? 1 : 2;
+  ctl[kIHybridN] = hybrid ? static_cast<int>(N) : 0;
+  ctl[kIFullN] = hybrid ? 0 : static_cast<int>(N);
+}
+
+// After the large members are counted: more than cap turns the hybrid path
+// off (path 3) and the full one on.
+__global__ void init_guard_kernel(int* ml, long long cap, long long N,
+                                  int* ctl) {
+  const int large = *ml;
+  ctl[kILarge] = large;
+  if (large > cap) {
+    *ml = 0;
+    ctl[kIPath] = 3;
+    ctl[kIHybridN] = 0;
+    ctl[kIFullN] = static_cast<int>(N);
+  }
+}
+
+// starts[i] = i where slot i starts a bucket (its top bits differ from
+// slot i - 1's, or i <= npad), else 0; the max-scan gives each slot its
+// bucket's start.
+__global__ void bucket_starts_kernel(const uint64_t* __restrict__ keys,
+                                     long long N, long long npad, int low,
+                                     const int* dn, int* __restrict__ starts) {
+  if (*dn == 0) return;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < N; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const bool start = i <= npad || (keys[i] >> low) != (keys[i - 1] >> low);
+    starts[i] = start ? static_cast<int>(i) : 0;
+  }
+}
+
+// The inits' members: the real slots (npad and on) of the top-bits-sorted
+// pairs, its bucket the group (bs, the bucket starts), its low key bits
+// the key.  Every bucket of at most kSegT members goes to the block kernel,
+// a single member included (the tiny kernel is B2's alone).
+struct InitMembers {
+  using Key = uint64_t;
+  const uint64_t* keys;
+  const int* vals;
+  const int* bs;
+  long long N;
+  long long npad;
+  uint64_t mask;
+  __device__ long long slot(long long t) const { return t; }
+  __device__ long long group(long long t) const { return bs[t]; }
+  __device__ Key key(long long t) const { return keys[t] & mask; }
+  __device__ int pos(long long t) const { return vals[t]; }
+  __device__ bool large(long long t) const {
+    return group_above(bs, N, bs[t], kSegT);
+  }
+  __device__ void load(long long i0, long long m, int* off, Key* key) const {
+    int g[kSegItems];
+    uint64_t k[kSegItems];
+    if (i0 + kSegItems <= m) {
+#pragma unroll
+      for (int v = 0; v < kSegItems / 4; ++v) {
+        const int4 a = reinterpret_cast<const int4*>(bs + i0)[v];
+        g[4 * v] = a.x; g[4 * v + 1] = a.y; g[4 * v + 2] = a.z; g[4 * v + 3] = a.w;
+      }
+#pragma unroll
+      for (int v = 0; v < kSegItems / 2; ++v) {
+        const uint4 a = reinterpret_cast<const uint4*>(keys + i0)[v];
+        k[2 * v] = (static_cast<uint64_t>(a.y) << 32) | a.x;
+        k[2 * v + 1] = (static_cast<uint64_t>(a.w) << 32) | a.z;
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < kSegItems; ++q) {
+        const bool in = i0 + q < m;
+        g[q] = in ? bs[i0 + q] : -1;
+        k[q] = in ? keys[i0 + q] : 0;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kSegItems; ++q) {
+      const bool member =
+          g[q] >= npad && !group_above(bs, N, g[q], kSegT);
+      off[q] = member ? static_cast<int>(i0 + q - g[q]) : -1;
+      key[q] = k[q] & mask;
+    }
+  }
+};
+
+// The inits' stores: sa and gs of every slot (the rank store's pairs are
+// made from them afterwards).
+struct InitOut {
+  int* sa;
+  int* gs;
+  __device__ int label(long long) const { return 0; }
+  __device__ void put(long long slot, int p, int f, long long) const {
+    sa[slot] = p;
+    gs[slot] = f;
+  }
+};
+
+// The destinations' bins of the rank store: a position's top 8 bits; bin b
+// holds the positions [b << shift, (b + 1) << shift) below n, each one
+// destination, so its run of pairs starts at b << shift.
+struct RankBins {
+  uint64_t* pairs;
+  unsigned* cursor;  // [kRadix]: the pairs each bin holds so far
+  int shift;
+  __device__ unsigned bin(int p) const {
+    return static_cast<unsigned>(p) >> shift;
+  }
+  // The index of the first of c pairs that join bin b.
+  __device__ unsigned claim(int b, unsigned c) const {
+    return c ? (static_cast<unsigned>(b) << shift) + atomicAdd(&cursor[b], c)
+             : 0;
+  }
+};
+
+// The full path's groups, from the buffers its executed passes left the
+// pairs in; starts as bucket_starts_kernel's.
+__global__ void init_groups_parity_kernel(
+    const uint64_t* __restrict__ kmain, const int* __restrict__ vmain,
+    const uint64_t* __restrict__ kalt, const int* __restrict__ valt,
+    const int* __restrict__ skip, int passes, long long N, long long npad,
+    const int* dn, int* __restrict__ sa, int* __restrict__ starts) {
+  if (*dn == 0) return;
+  const bool odd = executed_before(skip, passes) & 1;
+  const uint64_t* keys = odd ? kalt : kmain;
+  const int* idx = odd ? valt : vmain;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < N; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    sa[i] = i < npad ? static_cast<int>(N - 1 - i) : idx[i];
+    const bool changed = i <= npad || keys[i] != keys[i - 1];
+    starts[i] = changed ? static_cast<int>(i) : 0;
+  }
+}
+
+// The rank store's pairs (position << 32 | label) of the real slots npad
+// .. N - 1 into their bins, kSortTile slots a block at a time: the tile's
+// pairs are counted by bin, each bin's run claimed once, and the pairs
+// staged in shared memory in bin order, so that neighbouring threads store
+// neighbouring places of a run.
+__global__ void __launch_bounds__(kThreads)
+init_bin_pairs_kernel(const int* __restrict__ sa, const int* __restrict__ gs,
+                      long long N, long long npad, RankBins out) {
+  __shared__ unsigned s_bin[kRadix];  // counts, then each bin's first index
+  __shared__ unsigned s_at[kRadix];   // each bin's run in out.pairs
+  __shared__ uint64_t s_pairs[kSortTile];
+  const int t = threadIdx.x;
+  for (long long base = npad + static_cast<long long>(blockIdx.x) *
+                                   kSortTile;
+       base < N; base += static_cast<long long>(gridDim.x) * kSortTile) {
+    s_bin[t] = 0;
+    __syncthreads();
+    unsigned loc[kSortItems];
+#pragma unroll
+    for (int q = 0; q < kSortItems; ++q) {
+      const long long i = base + q * kThreads + t;
+      loc[q] = i < N ? atomicAdd(&s_bin[out.bin(sa[i])], 1u) : 0;
+    }
+    __syncthreads();
+    const unsigned c = s_bin[t];
+    int total;
+    const int first = block_exclusive_scan<SumOp>(static_cast<int>(c), &total);
+    s_at[t] = out.claim(t, c);
+    s_bin[t] = static_cast<unsigned>(first);
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < kSortItems; ++q) {
+      const long long i = base + q * kThreads + t;
+      if (i < N) {
+        const int p = sa[i];
+        s_pairs[s_bin[out.bin(p)] + loc[q]] =
+            (static_cast<uint64_t>(static_cast<unsigned>(p)) << 32) |
+            static_cast<unsigned>(gs[i]);
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < kSortItems; ++r) {
+      const int e = r * kThreads + t;
+      if (e < total) {
+        const uint64_t w = s_pairs[e];
+        const unsigned bin = out.bin(static_cast<int>(w >> 32));
+        out.pairs[s_at[bin] + (e - s_bin[bin])] = w;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The pad slots s < npad, closed-form: position N - 1 - s, a group each.
+__global__ void init_pads_kernel(long long N, long long npad,
+                                 int* __restrict__ sa, int* __restrict__ rank,
+                                 int* __restrict__ gs) {
+  for (long long s = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       s < npad; s += static_cast<long long>(gridDim.x) * blockDim.x) {
+    sa[s] = static_cast<int>(N - 1 - s);
+    gs[s] = static_cast<int>(s);
+    rank[N - 1 - s] = static_cast<int>(s);
+  }
+}
+
+// rank[p] = label for the n binned pairs.
+__global__ void rank_store_kernel(const uint64_t* __restrict__ pairs,
+                                  long long n, int* __restrict__ rank) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const uint64_t w = pairs[i];
+    rank[w >> 32] = static_cast<int>(static_cast<unsigned>(w));
+  }
+}
+
+struct InitBufs {
+  bool hybrid;     // the hybrid path's buffers are carved (B1, B1b)
+  uint64_t* keys;  // the sorts' pairs and their alternates
+  int* vals;
+  uint64_t* keys_alt;
+  int* vals_alt;
+  unsigned long long* status;
+  unsigned* hist;   // the top passes' counts, pass counters and skip flags
+  unsigned* lhist;  // the large sort's and the full sort's
+  unsigned* cursor;
+  int* ctl;
+  int* samp;
+  int samp_bits;
+  long long cap;  // large members the hybrid path takes
+  uint64_t* lkeys;
+  int* lvals;
+  int* lslot;
+  CompactBufs compact;
+  int* scan;
+};
+
+InitBufs carve_init(Arena& a, long long N, bool hybrid) {
+  InitBufs b{};
+  b.hybrid = hybrid;
+  b.keys = a.take<uint64_t>(N);
+  b.vals = a.take<int>(N);
+  b.keys_alt = a.take<uint64_t>(N);
+  b.vals_alt = a.take<int>(N);
+  b.status = a.take<unsigned long long>(kRadix * cdiv(N, kSortTile));
+  b.hist = a.take<unsigned>(kSortCounters);
+  b.lhist = a.take<unsigned>(kSortCounters);
+  b.cursor = a.take<unsigned>(kRadix);
+  b.ctl = a.take<int>(kICtl);
+  b.scan = a.take<int>(scan_scratch_elems(N));
+  if (hybrid) {
+    const int bits = bit_length(N) - 6;
+    b.samp_bits = bits < 10 ? 10 : bits > 22 ? 22 : bits;
+    b.samp = a.take<int>(1LL << b.samp_bits);
+    b.cap = cdiv(N, 4);
+    b.lkeys = a.take<uint64_t>(b.cap);
+    b.lvals = a.take<int>(b.cap);
+    b.lslot = a.take<int>(b.cap);
+    b.compact = carve_compact(a, N);
+  }
+  return b;
+}
+
+// The anchored init of `key_bits`-bit keys made by src, split at the top
+// `cut` bits (see the section's head), on the full path alone unless
+// b.hybrid; stats, when not null, gets int32 [3]: the path taken (1
+// hybrid, 2 full, 3 full after the cap), the estimated large members, the
+// counted ones (0 on the full path).
+template <class Src>
+void anchored_init(const Src& src, long long N, long long n, int key_bits,
+                   int cut, int* sa, int* rank, int* gs, const InitBufs& b,
+                   int* stats, cudaStream_t st) {
+  const long long npad = N - n;
+  const int P = (key_bits + kRadixBits - 1) / kRadixBits;
+  const int Q = (cut + kRadixBits - 1) / kRadixBits;
+  const int low = key_bits - cut;
+  const long long tiles = cdiv(N, kSortTile);
+  const unsigned walk = walk_grid(N);
+  int bshift = 0;  // a destination's bin is its top 8 bits
+  while ((N - 1) >> (bshift + kRadixBits) > 0) ++bshift;
+  int* counters = reinterpret_cast<int*>(b.hist + kMaxPasses * kRadix);
+  int* skip = counters + kMaxPasses;
+  const int* hyb_n = b.ctl + kIHybridN;
+  const int* full_n = b.ctl + kIFullN;
+  const bool in_alt = Q & 1;  // where the top passes leave the pairs
+  uint64_t* kin = in_alt ? b.keys_alt : b.keys;
+  int* vin = in_alt ? b.vals_alt : b.vals;
+  const InitOut out{sa, gs};
+
+  // 1. the pairs, their top digits' counts, the sampled buckets, the path
+  cudaMemsetAsync(b.cursor, 0, sizeof(unsigned) * kRadix, st);
+  cudaMemsetAsync(b.ctl, 0, sizeof(int) * kICtl, st);
+  if (b.hybrid) {
+    cudaMemsetAsync(b.status, 0,
+                    sizeof(unsigned long long) * kRadix * tiles, st);
+    cudaMemsetAsync(b.hist, 0, sizeof(unsigned) * kSortCounters, st);
+    cudaMemsetAsync(b.samp, 0, sizeof(int) << b.samp_bits, st);
+  }
+  init_hist_kernel<<<tiles < kHistBlocks ? static_cast<unsigned>(tiles)
+                                         : kHistBlocks,
+                     kThreads, 0, st>>>(src, N, low, b.hybrid ? Q : 0, b.keys,
+                                        b.vals, b.samp, b.samp_bits, b.hist);
+  if (b.hybrid) {
+    onesweep_bins_kernel<<<Q, kThreads, 0, st>>>(b.hist, skip);
+    init_skips_kernel<<<1, 32, 0, st>>>(skip, Q);
+    samp_large_kernel<<<walk_grid(1LL << b.samp_bits), kThreads, 0, st>>>(
+        b.samp, 1LL << b.samp_bits, b.ctl);
+  }
+  init_decide_kernel<<<1, 1, 0, st>>>(b.ctl, N, n, b.hybrid);
+
+  // 2. the hybrid path: the top passes, then the bucket stages
+  if (b.hybrid) {
+    for (int q = 0; q < Q; ++q) {
+      onesweep_pass_kernel<<<static_cast<unsigned>(tiles), kThreads, 0,
+                             st>>>(b.keys, b.vals, b.keys_alt, b.vals_alt, N,
+                                   hyb_n, q, low + kRadixBits * q,
+                                   b.hist + q * kRadix, skip, b.status,
+                                   counters + q);
+    }
+    // The bucket starts live in rank, which is written last.
+    bucket_starts_kernel<<<walk, kThreads, 0, st>>>(kin, N, npad, low, hyb_n,
+                                                    rank);
+    scan_levels<MaxOp>(rank, rank, N, false, b.scan, st, hyb_n);
+    const InitMembers mem{kin, vin, rank, N, npad, (1ull << low) - 1};
+    int* ml = const_cast<int*>(compact(
+        LargePred<InitMembers>{mem, low, b.lkeys, b.lvals, b.lslot, b.cap}, N,
+        hyb_n, b.compact, st));
+    init_guard_kernel<<<1, 1, 0, st>>>(ml, b.cap, N, b.ctl);
+    launch_seg_small(mem, N, hyb_n, low, out, st);
+    // The large members' sort, its alternates in the sorted pairs' buffers,
+    // which the stages above have read.
+    const Pairs sorted = radix_sort_pairs(
+        b.lkeys, b.lvals, b.cap, low + bit_length((b.cap - 1) >> kSegLogT),
+        SortBufs{kin, vin, b.status, b.lhist}, st, ml);
+    int* first_eq = reinterpret_cast<int*>(sorted.keys == b.lkeys ? kin
+                                                                  : b.lkeys);
+    const unsigned large_grid = walk_grid(b.cap);
+    refine_change_kernel<<<large_grid, kThreads, 0, st>>>(
+        sorted.keys, b.lslot, b.cap, ml, first_eq);
+    scan_levels<MaxOp>(first_eq, first_eq, b.cap, false, b.scan, st, ml);
+    refine_scatter_kernel<<<large_grid, kThreads, 0, st>>>(
+        b.lslot, sorted.vals, first_eq, b.cap, ml, out);
+  }
+
+  // 3. the full path: the sort, the groups (starts in rank), the max-scan
+  const int* skip_full = radix_sort_passes(
+      b.keys, b.vals, N, key_bits,
+      SortBufs{b.keys_alt, b.vals_alt, b.status, b.lhist}, st, full_n);
+  init_groups_parity_kernel<<<walk, kThreads, 0, st>>>(
+      b.keys, b.vals, b.keys_alt, b.vals_alt, skip_full, P, N, npad, full_n,
+      sa, rank);
+  scan_levels<MaxOp>(rank, gs, N, false, b.scan, st, full_n);
+
+  // 4. rank[sa[i]] = gs[i]: the pads closed-form, the real slots' pairs
+  // appended to their bins (in the sorted pairs' keys buffer, which both
+  // paths have read), then stored bin by bin
+  const RankBins bins{in_alt ? b.keys_alt : b.keys, b.cursor, bshift};
+  init_bin_pairs_kernel<<<walk_grid(cdiv(N, kSortItems)), kThreads, 0, st>>>(
+      sa, gs, N, npad, bins);
+  init_pads_kernel<<<walk_grid(npad), kThreads, 0, st>>>(N, npad, sa, rank,
+                                                         gs);
+  rank_store_kernel<<<grid_for(n), kThreads, 0, st>>>(bins.pairs, n, rank);
+  if (stats != nullptr) {
+    cudaMemcpyAsync(stats, b.ctl, 3 * sizeof(int), cudaMemcpyDeviceToDevice,
+                    st);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1425,8 +2029,8 @@ void seg_refine(int* sa, int* rank, int* gs, long long N, long long k,
 // the JAX derive_sa picks for those rows so that no sort exceeds S = N / 8
 // elements (S/2 = half, W = the window of group starts, S/2).
 //
-// pss_sa_init3_bytes is B1b's pipeline on a 3-digit key (d0 * 257 + d1) *
-// 257 + d2 < 2^25, so 4 radix passes.  One JAX pass is two launches that
+// pss_sa_init3_bytes is B1b's full path on a 3-digit key (d0 * 257 + d1) *
+// 257 + d2 < 2^25, so at most 4 radix passes.  One JAX pass is two launches that
 // share a device control block ctl int32 [5] = {off, m_w, poisoned,
 // any_tied, nxt}:
 //   - pss_sa_window_scan marks the window at ctl[0]: every tied slot whose
@@ -1745,43 +2349,56 @@ int pss_radix_sort_pairs(void* keys, void* vals, long long n, int key_bits,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- B1 -------------------------------------------------------------------
+// ---- B1 and B1b -----------------------------------------------------------
 
-long long pss_sa_init_scratch_bytes(long long N) {
+long long pss_sa_hybrid_scratch_bytes(long long N) {
   Arena a{nullptr, 0};
-  carve_init(a, N);
+  carve_init(a, N, true);
   return static_cast<long long>(a.off);
 }
 
-// text uint8 [N] (true length n, n + 30/bits <= N), rank_map int32 [256];
-// writes sa, rank, gs int32 [N].
+// text uint8 [N] (true length 0 <= n <= N), rank_map int32 [256] (every
+// byte of the text ranked 1 or more); writes sa, rank, gs int32 [N]; the
+// device picks the path; stats, when not null, int32 [3] (see
+// anchored_init).
+// Scratch as pss_sa_hybrid_scratch_bytes(N).
 int pss_sa_init_ranked(const void* text, long long N, long long n,
                        const void* rank_map, int bits, void* sa, void* rank,
-                       void* gs, void* scratch, void* stream) {
+                       void* gs, void* scratch, void* stats,
+                       void* stream) {
+  if (N <= 0) return 0;
+  if (bits != 5 && bits != 6) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Arena a{static_cast<char*>(scratch), 0};
-  InitBufs b = carve_init(a, N);
-  init_keys_kernel<<<grid_for(N), kThreads, 0, st>>>(
-      static_cast<const uint8_t*>(text), N, n,
-      static_cast<const int*>(rank_map), bits, b.keys, b.vals);
-  init_from_keys(b, N, n, 2 * (30 / bits) * bits, static_cast<int*>(sa),
-                 static_cast<int*>(rank), static_cast<int*>(gs), st);
+  const InitBufs b = carve_init(a, N, true);
+  const uint8_t* t = static_cast<const uint8_t*>(text);
+  const int* map = static_cast<const int*>(rank_map);
+  int* out[3] = {static_cast<int*>(sa), static_cast<int*>(rank),
+                 static_cast<int*>(gs)};
+  // 2D digits of `bits` bits: 60 key bits either way.
+  if (bits == 5) {
+    anchored_init(RankedSrc<12>{t, n, map}, N, n, 60, kCutRanked, out[0],
+                  out[1], out[2], b, static_cast<int*>(stats), st);
+  } else {
+    anchored_init(RankedSrc<10>{t, n, map}, N, n, 60, kCutRanked, out[0],
+                  out[1], out[2], b, static_cast<int*>(stats), st);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- B1b ------------------------------------------------------------------
-
-// text uint8 [N] (true length n, n + 6 <= N); writes sa, rank, gs int32
-// [N].  Scratch as pss_sa_init_scratch_bytes(N).
+// text uint8 [N] (true length 0 <= n <= N); as pss_sa_init_ranked on the
+// 6-byte key.
 int pss_sa_init_bytes(const void* text, long long N, long long n, void* sa,
-                      void* rank, void* gs, void* scratch, void* stream) {
+                      void* rank, void* gs, void* scratch, void* stats,
+                      void* stream) {
+  if (N <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Arena a{static_cast<char*>(scratch), 0};
-  InitBufs b = carve_init(a, N);
-  init_keys_bytes_kernel<6><<<grid_for(N), kThreads, 0, st>>>(
-      static_cast<const uint8_t*>(text), N, n, b.keys, b.vals);
-  init_from_keys(b, N, n, kByteKeyBits, static_cast<int*>(sa),
-                 static_cast<int*>(rank), static_cast<int*>(gs), st);
+  const InitBufs b = carve_init(a, N, true);
+  const ByteSrc<6> src{static_cast<const uint8_t*>(text), n, nullptr};
+  anchored_init(src, N, n, kByteKeyBits, kCutBytes, static_cast<int*>(sa),
+                static_cast<int*>(rank), static_cast<int*>(gs), b,
+                static_cast<int*>(stats), st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1861,7 +2478,7 @@ int pss_sa_full_init_bytes(const void* text, long long N, long long n,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Arena a{static_cast<char*>(scratch), 0};
   FullBufs b = carve_full(a, N);
-  init_keys_bytes_kernel<6><<<grid_for(N), kThreads, 0, st>>>(
+  init_keys_bytes_kernel<<<grid_for(N), kThreads, 0, st>>>(
       static_cast<const uint8_t*>(text), N, n, b.keys, b.vals);
   full_relabel(b, N, kByteKeyBits, static_cast<int*>(sa),
                static_cast<int*>(rank), static_cast<int*>(count), st);
@@ -1886,17 +2503,25 @@ int pss_sa_full_round(void* sa, void* rank, long long N, long long k, int W,
 
 // ---- B10 ------------------------------------------------------------------
 
+long long pss_sa_init_scratch_bytes(long long N) {
+  Arena a{nullptr, 0};
+  carve_init(a, N, false);
+  return static_cast<long long>(a.off);
+}
+
 // text uint8 [N] (true length 0 <= n <= N); writes sa, rank, gs int32 [N]
-// of the 3-byte anchored init.  Scratch as pss_sa_init_scratch_bytes(N).
+// of the 3-byte anchored init, on the full path.  Scratch as
+// pss_sa_init_scratch_bytes(N).
 int pss_sa_init3_bytes(const void* text, long long N, long long n, void* sa,
                        void* rank, void* gs, void* scratch, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (N <= 0) return 0;
   Arena a{static_cast<char*>(scratch), 0};
-  InitBufs b = carve_init(a, N);
-  init_keys_bytes_kernel<3><<<grid_for(N), kThreads, 0, st>>>(
-      static_cast<const uint8_t*>(text), N, n, b.keys, b.vals);
-  init_from_keys(b, N, n, kByte3KeyBits, static_cast<int*>(sa),
-                 static_cast<int*>(rank), static_cast<int*>(gs), st);
+  const InitBufs b = carve_init(a, N, false);
+  const ByteSrc<3> src{static_cast<const uint8_t*>(text), n, nullptr};
+  anchored_init(src, N, n, kByte3KeyBits, kByte3KeyBits,
+                static_cast<int*>(sa), static_cast<int*>(rank),
+                static_cast<int*>(gs), b, nullptr,
+                static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 

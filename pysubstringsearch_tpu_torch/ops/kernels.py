@@ -82,10 +82,10 @@ _SIGNATURES: typing.Dict[str, list] = {
     'pss_scan_inclusive_max': [_P, _P, _L, _P, _P],
     # keys, vals, n, key_bits, scratch, stream
     'pss_radix_sort_pairs': [_P, _P, _L, _I, _P, _P],
-    # text, N, n, rank_map, bits, sa, rank, gs, scratch, stream
-    'pss_sa_init_ranked': [_P, _L, _L, _P, _I, _P, _P, _P, _P, _P],
-    # text, N, n, sa, rank, gs, scratch, stream
-    'pss_sa_init_bytes': [_P, _L, _L, _P, _P, _P, _P, _P],
+    # text, N, n, rank_map, bits, sa, rank, gs, scratch, stats, stream
+    'pss_sa_init_ranked': [_P, _L, _L, _P, _I, _P, _P, _P, _P, _P, _P],
+    # text, N, n, sa, rank, gs, scratch, stats, stream
+    'pss_sa_init_bytes': [_P, _L, _L, _P, _P, _P, _P, _P, _P],
     # gs, N, cand, c, tl, counts, scratch, stream
     'pss_sa_tie_scan': [_P, _L, _P, _L, _P, _P, _P, _P],
     # sa, rank, gs, N, k, m, tl, counts, scratch, stream
@@ -111,8 +111,8 @@ _SIGNATURES: typing.Dict[str, list] = {
 
 #: Scratch sizers: pss_<name>_scratch_bytes(count) -> bytes.  Host
 #: functions; they launch nothing and are not counted.
-_SCRATCH = ('scan', 'radix_sort', 'sa_init', 'sa_tie', 'sa_round',
-            'sa_refine', 'sa_pass', 'sa_full', 'scatter_blocked')
+_SCRATCH = ('scan', 'radix_sort', 'sa_hybrid', 'sa_init', 'sa_tie',
+            'sa_round', 'sa_refine', 'sa_pass', 'sa_full', 'scatter_blocked')
 
 #: Kernel name (the C entry point without its prefix) -> launches so far.
 LAUNCHES: typing.Dict[str, int] = {

@@ -27,7 +27,10 @@ PyTorch version beside it:
 - :func:`sa_init_ranked` (B1): the anchored init sort on 2 x (30 // bits)
   rank digits;
 - :func:`sa_init_bytes` (B1b): the anchored init sort on 6 byte + 1
-  digits;
+  digits; both split their keys at the top bits (the hybrid path:
+  :func:`bucket_split_plain`, :func:`large_buckets_plain`,
+  :func:`large_bucket_keys_plain`, :func:`bucket_sort_plain`) unless most
+  slots would land in large buckets;
 - :func:`sa_round` (B2): one doubling round over the tied slots of a
   candidate list, the last round's (:func:`sa_refine_round` over the whole
   row), as a segmented sort of the already ordered groups;
@@ -374,15 +377,16 @@ def scan_inclusive_max(x: torch.Tensor) -> torch.Tensor:
 
 #: Device bytes one row's SA build holds per padded slot at its peak, on
 #: top of the row's text and SA: the working sa / rank / gs (12), and the
-#: init's sort keys, values and their double buffers with the group-start
-#: array and the one-sweep sort's status words (28.5), or a round's tied
-#: list (4) with its refine's buffers over at most every slot (32.5).  The
-#: largest peaks measured (``chip_smoke.py`` on an NVIDIA H100 80GB HBM3 at
-#: 700 W): the digit derive 12.13 GiB above the index for a 256 Mi-slot
-#: row (48.5 bytes a slot, its SA output included), B1b + B2 on one 512 Mi
-#: row 23.77 GiB (47.5), B9 after a poisoned B10 18.49 GiB at 416 Mi
-#: (45.5), B10 20.25 GiB at 512 Mi (40.5); a round over every slot could
-#: reach 48.5, and the constant keeps headroom over it.
+#: init's (key, position) pairs and their double buffers with its list of
+#: up to N / 4 large members and the one-sweep sort's status words (28.5),
+#: or a round's tied list (4) with its refine's buffers over at most every
+#: slot (32.5).  The largest peaks measured (``chip_smoke.py`` on an NVIDIA
+#: H100 80GB HBM3 at 700 W): the digit derive 12.13 GiB above the index for
+#: a 256 Mi-slot row (48.5 bytes a slot, its SA output included), B1b + B2
+#: on one 512 Mi row 23.77 GiB (47.5), B9 after a poisoned B10 18.49 GiB at
+#: 416 Mi (45.5), B10 18.25 GiB at 512 Mi (36.5, ``sa_bench.py``); a round
+#: over every slot could reach 48.5, and the constant keeps headroom over
+#: it.
 SA_BUILD_BYTES_PER_SLOT = 60
 
 
@@ -458,12 +462,54 @@ def sa_init_ranked_plain(text: torch.Tensor, n: int, rank: torch.Tensor,
     return _init_from_key(_ranked_key(text, n, rank, bits), n)
 
 
+#: The anchored inits' key widths: B1's 2D digits of ``bits`` bits (60 for
+#: both 5 and 6), B1b's two 25-bit limbs.
+RANKED_KEY_BITS = 60
+BYTE_KEY_BITS = 50
+
+#: The top key bits the hybrid init sorts by before its bucket stages
+#: (``csrc``'s kCutRanked, kCutBytes).  Set from the buckets of the
+#: derive rows measured on an H100 (PERF.md §6): at 24 bits 0.9% of the
+#: ranked row's slots lie in buckets of more than ``SEG_T`` members, the
+#: raw row's 35% (0.7% at 32).
+INIT_CUT_RANKED = 24
+INIT_CUT_BYTES = 32
+
+
+def _init_launch(name: str, text: torch.Tensor, n: int, extra: tuple,
+                 stats: typing.Optional[torch.Tensor]):
+    """sa, rank, gs int32 [N] of the hybrid init ``name`` (B1 or B1b) on
+    the card; ``extra`` are the arguments between n and the outputs."""
+    if stats is not None:
+        kernels.check(stats, 'stats', torch.int32, 1)
+        if stats.shape[0] != 3 or stats.device != text.device:
+            raise ValueError(f'{name}: stats must be int32 [3] on the '
+                             'text\'s device')
+    N = text.shape[0]
+    dev = text.device
+    sa, rk, gs = (torch.empty(N, dtype=torch.int32, device=dev)
+                  for _ in range(3))
+    with kernels.on(dev):
+        scratch = kernels.scratch('sa_hybrid', N, dev)
+        kernels.launch(name, text.data_ptr(), N, int(n), *extra,
+                       sa.data_ptr(), rk.data_ptr(), gs.data_ptr(),
+                       scratch.data_ptr(),
+                       None if stats is None else stats.data_ptr())
+    return sa, rk, gs
+
+
 def sa_init_ranked(text: torch.Tensor, n: int, rank: torch.Tensor,
-                   bits: int):
+                   bits: int, *,
+                   stats: typing.Optional[torch.Tensor] = None):
     """B1, the anchored init sort of a padded uint8 [N] text row of true
     length ``n`` with the byte -> rank map ``rank`` int32 [256]: (sa, rank,
     gs) int32 [N] (see :func:`sa_init_ranked_plain`).  Replaces
-    ``_init_round_anchored_ranked``; needs ``n + 30 // bits <= N``."""
+    ``_init_round_anchored_ranked``; needs ``n + 30 // bits <= N``.  On
+    the card the device picks the hybrid path (the top ``INIT_CUT_RANKED``
+    key bits, then bucket sorts) or a full sort of the key, and ``stats``
+    (int32 [3] on the card) receives the path taken (1 hybrid, 2 full, 3
+    full after too many large members), the estimated and the counted
+    large members."""
     N = text.shape[0]
     _check_pad_contract(N, n, bits)
     if not kernels.route(text, rank):
@@ -472,15 +518,8 @@ def sa_init_ranked(text: torch.Tensor, n: int, rank: torch.Tensor,
     kernels.check(rank, 'rank', torch.int32, 1)
     if rank.shape[0] != 256:
         raise ValueError('sa_init_ranked: rank must have 256 entries')
-    dev = text.device
-    sa, rk, gs = (torch.empty(N, dtype=torch.int32, device=dev)
-                  for _ in range(3))
-    scratch = kernels.scratch('sa_init', N, dev)
-    with kernels.on(dev):
-        kernels.launch('sa_init_ranked', text.data_ptr(), N, int(n),
-                       rank.data_ptr(), bits, sa.data_ptr(), rk.data_ptr(),
-                       gs.data_ptr(), scratch.data_ptr())
-    return sa, rk, gs
+    return _init_launch('sa_init_ranked', text, n, (rank.data_ptr(), bits),
+                        stats)
 
 
 def _byte_key(text: torch.Tensor, n: int,
@@ -502,26 +541,31 @@ def sa_init_bytes_plain(text: torch.Tensor, n: int):
     return _init_from_key(_byte_key(text, n), n)
 
 
-def sa_init_bytes(text: torch.Tensor, n: int):
+def sa_init_bytes(text: torch.Tensor, n: int, *,
+                  stats: typing.Optional[torch.Tensor] = None):
     """B1b, the 6-byte anchored init sort of a padded uint8 [N] text row of
     true length ``n``: (sa, rank, gs) int32 [N] (see
     :func:`sa_init_bytes_plain`).  Replaces ``_init_round_anchored``; needs
-    ``n + 6 <= N``."""
+    ``n + 6 <= N``.  ``stats`` as in :func:`sa_init_ranked`, the hybrid
+    path cutting at ``INIT_CUT_BYTES`` bits."""
     _check_pad_contract(text.shape[0], n, None)
-    return _init_bytes(text, n, 'sa_init_bytes', BYTE_INIT_WIDTH)
+    return _init_bytes(text, n, 'sa_init_bytes', BYTE_INIT_WIDTH, stats)
 
 
-def _init_bytes(text: torch.Tensor, n: int, name: str, width: int):
+def _init_bytes(text: torch.Tensor, n: int, name: str, width: int,
+                stats: typing.Optional[torch.Tensor] = None):
     """The anchored init on ``width`` byte digits by the kernel ``name``
-    (B1b at 6, B10's at 3), on any ``0 <= n <= N``: the key kernel masks
-    every read at n, so the pad positions are exactly the all-zero key
-    group without a margin."""
+    (B1b's hybrid init at 6, B10's full sort at 3), on any ``0 <= n <= N``:
+    the keys mask every read at n, so the pad positions are exactly the
+    all-zero key group without a margin."""
     N = text.shape[0]
     if not 0 <= n <= N:
         raise ValueError(f'{name}: need 0 <= n <= N, got n={n}, N={N}')
     if not kernels.route(text):
         return _init_from_key(_byte_key(text, n, width), n)
     kernels.check(text, 'text', torch.uint8, 1)
+    if width == BYTE_INIT_WIDTH:
+        return _init_launch(name, text, n, (), stats)
     dev = text.device
     sa, rk, gs = (torch.empty(N, dtype=torch.int32, device=dev)
                   for _ in range(3))
@@ -644,6 +688,81 @@ def refine_list_plain(sa: torch.Tensor, rank: torch.Tensor, gs: torch.Tensor,
     gs[t] = first_eq
 
 
+def bucket_split_plain(key: torch.Tensor, n: int, key_bits: int, cut: int):
+    """The hybrid init's first stage: the positions of int64 [N] ``key``
+    stably sorted by the top ``cut`` of the keys' ``key_bits`` bits alone,
+    as its top passes leave them: (the keys int64 [N] in that order, their
+    positions int64 [N], bs int64 [N] the start slot of every slot's
+    bucket).  The pad positions (key 0, past ``n``) come first, each a
+    bucket of its own."""
+    N = key.shape[0]
+    top_s, order = torch.sort(key >> (key_bits - cut), stable=True)
+    iota = torch.arange(N, device=key.device)
+    start = iota <= N - n
+    start[1:] |= top_s[1:] != top_s[:-1]
+    return key[order], order, torch.cummax(torch.where(start, iota, 0),
+                                           0).values
+
+
+def large_buckets_plain(bs: torch.Tensor,
+                        seg_t: int = SEG_T) -> torch.Tensor:
+    """bool [N]: each slot's bucket, from the bucket starts ``bs``, has
+    more than ``seg_t`` members (the large path); a bucket of at most
+    ``seg_t`` is sorted in one block's shared memory, a single member or a
+    pad slot included."""
+    return torch.bincount(bs, minlength=bs.shape[0])[bs] > seg_t
+
+
+def large_bucket_keys_plain(keys_s: torch.Tensor, bs: torch.Tensor,
+                            large: torch.Tensor, low: int,
+                            seg_t: int = SEG_T) -> torch.Tensor:
+    """int64 keys of the large buckets' members in slot order: (the
+    member's bucket start in the list of large members >> log2 ``seg_t``)
+    << ``low`` | its low ``low`` key bits.  Each large bucket has more than
+    ``seg_t`` members, so two buckets' ordinals differ, and the key orders
+    as (bucket, low bits) does."""
+    if seg_t & (seg_t - 1):
+        raise ValueError('large_bucket_keys_plain: seg_t must be a power of '
+                         'two')
+    s = torch.nonzero(large).flatten()
+    lstart = torch.arange(s.shape[0], device=s.device) - (s - bs[s])
+    return ((lstart >> (seg_t.bit_length() - 1)) << low) | (
+        keys_s[s] & ((1 << low) - 1))
+
+
+def bucket_sort_plain(keys_s: torch.Tensor, order: torch.Tensor,
+                      bs: torch.Tensor, n: int, low: int,
+                      seg_t: int = SEG_T):
+    """The hybrid init's bucket stages on :func:`bucket_split_plain`'s
+    output: each bucket's members sorted stably by their low ``low`` key
+    bits, the buckets of at most ``seg_t`` among themselves, the large ones
+    by :func:`large_bucket_keys_plain`; pad slots i < N - n hold N - 1 - i.
+    Returns (sa, rank, gs) int32 [N]: each slot's label is the first slot
+    of its run of equal keys, and rank[sa[i]] = gs[i]."""
+    N = keys_s.shape[0]
+    dev = keys_s.device
+    is_large = large_buckets_plain(bs, seg_t)
+    lowk = keys_s & ((1 << low) - 1)
+    perm = torch.empty(N, dtype=torch.int64, device=dev)
+    small = torch.nonzero(~is_large).flatten()
+    # (bucket, low bits) in two stable sorts: the pair can pass 63 bits.
+    by_low = small[torch.sort(lowk[small], stable=True)[1]]
+    perm[small] = by_low[torch.sort(bs[by_low], stable=True)[1]]
+    large = torch.nonzero(is_large).flatten()
+    perm[large] = large[torch.sort(large_bucket_keys_plain(
+        keys_s, bs, is_large, low, seg_t), stable=True)[1]]
+    key_s = keys_s[perm]
+    iota = torch.arange(N, device=dev)
+    npad = N - n
+    sa = torch.where(iota < npad, N - 1 - iota, order[perm])
+    start = iota <= npad
+    start[1:] |= key_s[1:] != key_s[:-1]
+    gs = torch.cummax(torch.where(start, iota, 0), 0).values
+    rk = torch.empty(N, dtype=torch.int64, device=dev)
+    rk[sa] = gs
+    return sa.to(torch.int32), rk.to(torch.int32), gs.to(torch.int32)
+
+
 def sa_round_plain(sa: torch.Tensor, rank: torch.Tensor, gs: torch.Tensor,
                    k: int, cand: typing.Optional[torch.Tensor] = None,
                    seg_t: int = SEG_T):
@@ -720,6 +839,23 @@ def tie_group_histogram(gs: torch.Tensor) -> typing.Dict[str, list]:
     out = {}
     for name, lo, hi in (('2', 2, 2), ('3-16', 3, 16), ('17-256', 17, 256),
                          ('257-4096', 257, 4096), ('>4096', 4097, None)):
+        sel = sizes >= lo if hi is None else (sizes >= lo) & (sizes <= hi)
+        out[name] = [int(sel.sum()), int(sizes[sel].sum())]
+    return out
+
+
+def bucket_histogram(key: torch.Tensor, key_bits: int,
+                     cut: int) -> typing.Dict[str, list]:
+    """An anchored init's buckets by size class: the real positions' keys
+    (the pad positions' are 0) grouped by their top ``cut`` of
+    ``key_bits`` bits, ``{class: [buckets, slots]}`` for 1, 2-32, 33-4096
+    and above 4096 members, on ``key``'s device."""
+    top = torch.sort(key[key != 0] >> (key_bits - cut)).values
+    _, sizes = torch.unique_consecutive(top, return_counts=True)
+    sizes = sizes.long()
+    out = {}
+    for name, lo, hi in (('1', 1, 1), ('2-32', 2, 32), ('33-4096', 33, 4096),
+                         ('>4096', 4097, None)):
         sel = sizes >= lo if hi is None else (sizes >= lo) & (sizes <= hi)
         out[name] = [int(sel.sum()), int(sizes[sel].sum())]
     return out
@@ -862,8 +998,9 @@ def sa_init3_bytes_plain(text: torch.Tensor, n: int):
 def sa_init3_bytes(text: torch.Tensor, n: int):
     """B10's 3-byte anchored init of a uint8 [N] text row of true length
     ``0 <= n <= N`` (no margin needed): (sa, rank, gs) int32 [N], k covered
-    = 3.  One (key, position) radix sort on 25 key bits, then B1b's anchored
-    tail.  Replaces ``_init_round_anchored3``."""
+    = 3.  B1b's kernels on the full path alone: one (key, position) radix
+    sort on 25 key bits, its groups and the binned rank store.  Replaces
+    ``_init_round_anchored3``."""
     return _init_bytes(text, n, 'sa_init3_bytes', 3)
 
 

@@ -23,11 +23,23 @@ times (``sort_bench.cuda_ms``: the mean of ``REPS`` runs after one warm-up):
   what was resident), B1b + B2 on the same row (wall, peak) and B2's round
   1 after B1b (k = 6) from a copy of B1b's state.
 
+With ``--inits`` it also times the anchored inits on the rows
+``chip_smoke.py`` derives (cached beside ``--corpus``): B1 on the first
+268,400,000 bytes of ``bench.make_corpus(500)`` padded to 272 Mi slots,
+B1b on as many bytes of ``make_raw_corpus(500)`` (272 Mi) and of
+``make_digit_corpus(500)`` (256 Mi), and B1b on the digit corpus's first
+8,388,563 bytes, the size of the digit Writer's first 8 MiB chunk, padded
+as the Writer pads it (8 Mi slots), each beside one stable ``torch.sort``
+of its keys; then B9's init and its round at k = 6 on that chunk.
+
 With ``--profile`` it first prints the device time by kernel
-(``torch.profiler``'s ``key_averages``) of B10's init, of that first pass
-and of B2's round 1, one ``PROFILE`` line each, and the group sizes of
-round 1's tied groups (``HISTOGRAM``: groups and slots of 2, 3-16, 17-256,
-257-4096 and more members).  Without a CUDA card it prints nothing to
+(``torch.profiler``'s ``key_averages``) of B10's init, of that first pass,
+of B1b and of B2's round 1 on the 512 Mi row (and, with ``--inits``, of
+each init row), one ``PROFILE`` line each, the group sizes of round 1's
+tied groups (``HISTOGRAM``: groups and slots of 2, 3-16, 17-256, 257-4096
+and more members) and, with ``--inits``, each init row's buckets by the
+top 16, 24 and 32 bits of its keys (``BUCKETS``: buckets and slots of 1,
+2-32, 33-4096 and more members).  Without a CUDA card it prints nothing to
 stdout and exits 2.
 """
 
@@ -73,12 +85,90 @@ def _profile(torch, label, fn):
         flush=True)
 
 
+#: The init rows: (label, corpus maker in chip_smoke.py, bytes, slots).
+INIT_ROWS = (('b1 ranked', 'ranked', 268_400_000, 272 << 20),
+             ('b1b raw', 'raw', 268_400_000, 272 << 20),
+             ('b1b digit', 'digit', 268_400_000, 1 << 28),
+             ('b1b digit chunk', 'digit', 8_388_563, 8 << 20))
+
+
+def _init_rows(torch, np, SA, S, bench, args, out):
+    """B1 and B1b on ``INIT_ROWS``, timed beside ``torch.sort`` of their
+    keys; with ``--profile`` also their device time by kernel and their
+    bucket sizes by the top 16, 24 and 32 key bits."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        'chip_smoke', os.path.join(root, 'chip_smoke.py'))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    dev = torch.device('cuda')
+    cache = {}
+    for label, kind, nbytes, N in INIT_ROWS:
+        if kind not in cache:
+            path = os.path.join(os.path.dirname(args.corpus),
+                                f'sa_bench_{kind}.npy')
+            if kind == 'ranked':
+                path = args.corpus
+            if not os.path.exists(path):
+                make = {'raw': smoke.make_raw_corpus,
+                        'digit': smoke.make_digit_corpus}[kind]
+                np.save(path, np.frombuffer(make(500), np.uint8))
+            cache[kind] = np.load(path, mmap_mode='r')
+        data = np.asarray(cache[kind][:nbytes])
+        text = torch.zeros(N, dtype=torch.uint8, device=dev)
+        text[:nbytes] = torch.from_numpy(data).to(dev)
+        n = nbytes
+        if kind == 'ranked':
+            pres = np.bincount(data, minlength=256)[:256] > 0
+            rank_np, sigma = S.alphabet_rank(pres)
+            bits = S.ranked_bits(sigma)
+            rank = torch.from_numpy(rank_np).to(dev)
+            init = lambda: SA.sa_init_ranked(text, n, rank, bits)
+            key, key_bits = SA._ranked_key(text, n, rank, bits), \
+                2 * (30 // bits) * bits
+        else:
+            init = lambda: SA.sa_init_bytes(text, n)
+            key, key_bits = SA._byte_key(text, n), 50
+        tag = label.replace(' ', '_')
+        if args.profile:
+            hist = getattr(SA, 'bucket_histogram', None)
+            if hist is not None:
+                print('BUCKETS ' + json.dumps({
+                    'label': label, 'n': n, 'N': N, 'key_bits': key_bits,
+                    'by_cut': {cut: hist(key, key_bits, cut)
+                               for cut in (16, 24, 32)}}), flush=True)
+            _profile(torch, label, init)
+        out[f'{tag}_ms'] = bench.cuda_ms(init, REPS)
+        out[f'{tag}_sort_keys_ms'] = bench.cuda_ms(
+            lambda: torch.sort(key, stable=True), REPS)
+        del key
+        if label == 'b1b digit chunk':  # B9's init and round, the same chunk
+            out['b9_init_ms'] = bench.cuda_ms(
+                lambda: SA.sa_full_init_bytes(text, n), 10 * REPS)
+            first = SA.sa_full_init_bytes(text, n)[:2]
+            state = [t.clone() for t in first]
+
+            def restore():
+                for st, t in zip(state, first):
+                    st.copy_(t)
+
+            W = SA._key_width(N)
+            out['b9_round_ms'] = bench.cuda_ms(
+                lambda: SA.sa_full_round(*state, SA.BYTE_INIT_WIDTH, W),
+                10 * REPS, restore)
+            del first, state
+        del text
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     own = os.path.dirname(os.path.abspath(__file__))
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--tree', default=os.path.dirname(own),
                     help='checkout whose package to time (default: this one)')
     ap.add_argument('--profile', action='store_true')
+    ap.add_argument('--inits', action='store_true',
+                    help='also time B1 and B1b on the derive rows')
     ap.add_argument('--corpus', default=os.path.join(
         tempfile.gettempdir(), 'sa_bench_corpus.npy'))
     args = ap.parse_args(argv)
@@ -165,6 +255,13 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats()
     _, out['b1b_b2_s'] = _wall_s(torch, lambda: SA.segmented_sa(text, n))
     out['b1b_b2_peak_gib'] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    # Again, with the scratch sizes already in PyTorch's cache.
+    _, out['b1b_b2_warm_s'] = _wall_s(torch,
+                                      lambda: SA.segmented_sa(text, n))
+    if args.profile:
+        _profile(torch, 'b1b 512 Mi', lambda: SA.sa_init_bytes(text, n))
+    out['b1b_512_ms'] = bench.cuda_ms(lambda: SA.sa_init_bytes(text, n),
+                                      REPS)
     first = SA.sa_init_bytes(text, n)
     state = [t.clone() for t in first]
     if args.profile:
@@ -179,6 +276,10 @@ def main(argv=None) -> int:
     out['b2_round1_m'] = SA.sa_refine_round(*state, SA.BYTE_INIT_WIDTH)
     out['b2_round1_ms'] = bench.cuda_ms(
         lambda: SA.sa_refine_round(*state, SA.BYTE_INIT_WIDTH), REPS, restore)
+    del state, first, text
+    torch.cuda.empty_cache()
+    if args.inits:
+        _init_rows(torch, np, SA, S, bench, args, out)
     print(json.dumps(out), flush=True)
     return 0
 

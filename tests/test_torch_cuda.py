@@ -814,3 +814,132 @@ def test_bwt_from_sa_device_matches_plain(cuda, size):
     assert np.array_equal(u.cpu().numpy(), u_h) and int(p) == p_h
     if size > 1:
         assert np.array_equal(unbwt_native(u.cpu().numpy(), int(p)), body)
+
+
+def _seg_t_body(rng) -> np.ndarray:
+    """Random lowercase text with 4096 copies of 'XYZD' and 4097 of 'QRSD',
+    each followed by 6 random lowercase bytes: two top-bits buckets of B1b
+    (cut 32: the first 3 bytes and the top bits of the 4th) of exactly
+    SEG_T and SEG_T + 1 members."""
+    parts = []
+    for marker, copies in ((b'XYZD', SA.SEG_T), (b'QRSD', SA.SEG_T + 1)):
+        tails = rng.integers(97, 123, size=(copies, 6), dtype=np.uint8)
+        parts += [marker + t.tobytes() for t in tails]
+    rng.shuffle(parts)
+    filler = rng.integers(97, 123, size=400_000, dtype=np.uint8).tobytes()
+    return np.frombuffer(b''.join(parts) + filler, np.uint8).copy()
+
+
+def _sample_miss_body(rng) -> np.ndarray:
+    """Periods of 17 bytes, 3 random capitals then 14 'a's: the positions
+    the init samples (every 17th) start unique-ish buckets, the others
+    mostly one bucket of 'aaaa', so the estimate says small and the count
+    says more than the hybrid path's cap."""
+    rows = np.full((60_000, 17), ord('a'), np.uint8)
+    rows[:, :3] = rng.integers(65, 91, size=(60_000, 3), dtype=np.uint8)
+    return rows.reshape(-1)
+
+
+def _init_case(case, device):
+    """(text [N] on device, n, rank map or None, bits or None) of a case:
+    a ranked row runs B1, any other B1b."""
+    rng = np.random.default_rng(len(case))
+    if case == 'ranked_words':
+        _, text, n, rank, bits = _word_row(3_000_000, 5, device)
+        return text, n, rank, bits
+    if case == 'ranked6':
+        data = _body('ranked6', 2_000_000, 3)
+    elif case == 'raw_words':
+        return _raw_row(1 << 24, 7, device)[1:] + (None, None)
+    elif case == 'raw_random':
+        return _raw_row(1 << 20, 8, device)[1:] + (None, None)
+    elif case == 'utf16':
+        data = _digit_body(4_000_000, 4)
+    elif case == 'one_bucket':
+        data = np.full(300_000, ord('e'), np.uint8)
+    elif case == 'seg_t':
+        data = _seg_t_body(rng)
+    elif case == 'sample_miss':
+        data = _sample_miss_body(rng)
+    else:  # 'empty', 'one', 'margin'
+        data = rng.integers(1, 256, size={'empty': 0, 'one': 1,
+                                          'margin': 65_530}[case],
+                            dtype=np.uint8)
+    n = data.size
+    N = 1 << 16 if case == 'margin' else _pad_len(n + S.PAD_MARGIN)
+    text = torch.zeros(N, dtype=torch.uint8, device=device)
+    text[:n] = torch.from_numpy(data)
+    if case == 'ranked6':
+        pres = np.bincount(data, minlength=256)[:256] > 0
+        rank, sigma = S.alphabet_rank(pres)
+        return text, n, torch.from_numpy(rank).to(device), \
+            S.ranked_bits(sigma)
+    return text, n, None, None
+
+
+#: The path the device picks where the case decides it: 1 the hybrid one,
+#: 2 the full sort (the estimate), 3 the full sort after the hybrid path's
+#: cap.
+INIT_AUTO_PATH = {'utf16': 2, 'one_bucket': 2, 'sample_miss': 3,
+                  'seg_t': 1, 'ranked_words': 1, 'raw_random': 1,
+                  'empty': 1, 'one': 1, 'margin': 1}
+
+
+@pytest.mark.parametrize('case', ['ranked_words', 'ranked6', 'raw_words',
+                                  'raw_random', 'utf16', 'one_bucket',
+                                  'seg_t', 'sample_miss', 'empty', 'one',
+                                  'margin'])
+def test_anchored_init_paths_match_plain(cuda, case):
+    """B1 and B1b on the card, on the path the device picks, bit for bit
+    against their plain versions (a stable sort of the whole key), with
+    the path each took: the cases reach all three paths."""
+    text, n, rank, bits = _init_case(case, cuda)
+    stats = torch.full((3,), -1, dtype=torch.int32, device=cuda)
+    name = 'sa_init_bytes' if bits is None else 'sa_init_ranked'
+    before = kernels.LAUNCHES[name]
+    if bits is None:
+        got = SA.sa_init_bytes(text, n, stats=stats)
+        want = SA.sa_init_bytes_plain(text, n)
+    else:
+        got = SA.sa_init_ranked(text, n, rank, bits, stats=stats)
+        want = SA.sa_init_ranked_plain(text, n, rank, bits)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    taken, est, large = stats.tolist()
+    assert taken in (1, 2, 3), (taken, est, large)
+    if taken == 2:
+        assert large == 0
+    if case in INIT_AUTO_PATH:
+        assert taken == INIT_AUTO_PATH[case], (taken, est, large)
+    if case == 'seg_t':
+        _, _, bs = SA.bucket_split_plain(SA._byte_key(text.cpu(), n), n,
+                                         SA.BYTE_KEY_BITS,
+                                         SA.INIT_CUT_BYTES)
+        sizes = set(torch.bincount(bs).tolist())
+        assert {SA.SEG_T, SA.SEG_T + 1} <= sizes
+
+
+@pytest.mark.parametrize('name', ['sa_init_ranked', 'sa_init_bytes',
+                                  'sa_init3_bytes'])
+def test_anchored_inits_on_offset_views(cuda, name):
+    """B1, B1b and B10's init read their text through 16-byte loads only
+    where it is 16-byte aligned: a row that is a view one byte into its
+    buffer gives the plain versions' result, bit for bit."""
+    data, _, n, rank, bits = _word_row(300_000, 11, 'cpu')
+    N = _pad_len(n + S.PAD_MARGIN)
+    buf = torch.zeros(N + 1, dtype=torch.uint8, device=cuda)
+    buf[1:n + 1] = torch.from_numpy(data.copy())
+    text = buf[1:]
+    assert text.data_ptr() % 16 != 0
+    if name == 'sa_init_ranked':
+        rank = rank.to(cuda)
+        got = SA.sa_init_ranked(text, n, rank, bits)
+        want = SA.sa_init_ranked_plain(text, n, rank, bits)
+    else:
+        got = getattr(SA, name)(text, n)
+        want = getattr(SA, name + '_plain')(text, n)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -23,6 +23,7 @@ from pysubstringsearch_tpu.ops.suffix_array import (
     _doubling_kernel,
     _doubling_round,
     _init_round,
+    _init_round_anchored,
     _init_round_anchored_ranked,
     _relabel_and_scatter,
     _segmented_kernel,
@@ -650,3 +651,105 @@ def test_tie_group_histogram():
     h = tsa.tie_group_histogram(torch.from_numpy(gs))
     assert h == {'2': [2, 4], '3-16': [1, 5], '17-256': [1, 17],
                  '257-4096': [1, 300], '>4096': [1, 5000]}
+
+
+_jinit_bytes = jax.jit(_init_round_anchored)
+
+
+def _marker_text(seg_t: int, seed: int) -> np.ndarray:
+    """Lowercase text holding seg_t copies of 'XYZD' and seg_t + 1 of 'QRSD'
+    (each followed by 6 random lowercase bytes): two top-bits buckets of
+    B1b's key (its first 3 bytes and the top bits of the 4th) of exactly
+    seg_t and seg_t + 1 members."""
+    rng = np.random.default_rng(seed)
+    parts = [m + rng.integers(97, 123, size=6, dtype=np.uint8).tobytes()
+             for m, c in ((b'XYZD', seg_t), (b'QRSD', seg_t + 1))
+             for _ in range(c)]
+    rng.shuffle(parts)
+    filler = rng.integers(97, 123, size=1500, dtype=np.uint8).tobytes()
+    return np.frombuffer(b''.join(parts) + filler, np.uint8).copy()
+
+
+#: Rows for the hybrid init's stages: (text, ranked or not).
+HYBRID_CASES = {
+    'words5': lambda: (_words(1, 3000), True),
+    'wide6': lambda: (CASES['wide6'](), True),
+    'seg_t': lambda: (_marker_text(16, 3), False),
+    'one_bucket': lambda: (np.full(2000, 101, np.uint8), False),
+    'utf16': lambda: (np.frombuffer(('ab' * 900).encode('utf-16-le'),
+                                    np.uint8).copy(), False),
+    'raw_words': lambda: (_words(4, 3000, letters=40) + 33, False),
+    'empty': lambda: (np.zeros(0, np.uint8), False),
+    'one': lambda: (np.array([100], np.uint8), False),
+}
+
+
+@pytest.mark.parametrize('case', list(HYBRID_CASES))
+@pytest.mark.parametrize('seg_t', [16, tsa.SEG_T])
+def test_hybrid_init_stages_match_jax(case, seg_t):
+    """B1 and B1b's hybrid path through its plain stages (the top-bits
+    split, the per-class bucket sort, the large ordinal key) against the
+    JAX inits: rank and gs exactly, the pad slots exactly, sa within
+    groups; and bit for bit the plain full sort of the key."""
+    data, ranked = HYBRID_CASES[case]()
+    if ranked:
+        padded, n, rank, bits = _row(data)
+        text = torch.from_numpy(padded)
+        key = tsa._ranked_key(text, n, torch.from_numpy(rank), bits)
+        key_bits, cut = tsa.RANKED_KEY_BITS, tsa.INIT_CUT_RANKED
+        want = (np.asarray(a) for a in _jinit(
+            jnp.asarray(padded), jnp.int32(n), jnp.asarray(rank), bits))
+    else:
+        padded, n = _bytes_row(data), data.size
+        text = torch.from_numpy(padded)
+        key = tsa._byte_key(text, n)
+        key_bits, cut = tsa.BYTE_KEY_BITS, tsa.INIT_CUT_BYTES
+        want = (np.asarray(a) for a in _jinit_bytes(jnp.asarray(padded),
+                                                    jnp.int32(n)))
+    jsa, jrk, jgs = want
+    keys_s, order, bs = tsa.bucket_split_plain(key, n, key_bits, cut)
+    npad = N - n
+    # The pad bucket: the positions past n, first, each a bucket of its own.
+    assert torch.equal(order[:npad], torch.arange(n, N))
+    starts = min(npad + 1, N)
+    assert torch.equal(bs[:starts], torch.arange(starts))
+    large = tsa.large_buckets_plain(bs, seg_t)
+    sizes = torch.bincount(bs[npad:], minlength=N)[bs[npad:]]
+    if case == 'seg_t' and seg_t == 16:
+        assert {seg_t, seg_t + 1} <= set(sizes.tolist())
+        assert not bool(large[npad:][sizes == seg_t].any())
+        assert bool(large[npad:][sizes == seg_t + 1].all())
+    if case == 'one_bucket':
+        # All but the last 3 suffixes: the top 32 bits are 3 bytes and the
+        # top of the 4th.
+        assert int(sizes.max()) == n - 3
+    if case == 'utf16' and seg_t == 16:
+        assert float(large[npad:].float().mean()) > 0.99
+    if bool(large.any()):
+        lkey = tsa.large_bucket_keys_plain(keys_s, bs, large,
+                                           key_bits - cut, seg_t)
+        s = torch.nonzero(large).flatten()
+        assert torch.equal(torch.sort(lkey, stable=True)[1],
+                           torch.sort(keys_s[s], stable=True)[1])
+    sa, rk, gs = tsa.bucket_sort_plain(keys_s, order, bs, n, key_bits - cut,
+                                       seg_t)
+    np.testing.assert_array_equal(rk.numpy(), jrk)
+    np.testing.assert_array_equal(gs.numpy(), jgs)
+    np.testing.assert_array_equal(sa.numpy()[:npad], jsa[:npad])
+    np.testing.assert_array_equal(_within_groups(sa.numpy(), jgs),
+                                  _within_groups(jsa, jgs))
+    for a, b in zip((sa, rk, gs), tsa._init_from_key(key, n)):
+        assert torch.equal(a, b)
+
+
+def test_bucket_histogram():
+    key = torch.tensor([0, 0, 5 << 10, 5 << 10 | 1, 7 << 10, 9 << 10] +
+                       [3 << 10] * 40 + [4 << 10] * 5000, dtype=torch.int64)
+    assert tsa.bucket_histogram(key, 20, 10) == {
+        '1': [2, 2], '2-32': [1, 2], '33-4096': [1, 40], '>4096': [1, 5000]}
+
+
+def test_large_bucket_keys_need_a_power_of_two():
+    keys_s, _, bs = tsa.bucket_split_plain(torch.arange(1, 9) << 4, 8, 8, 4)
+    with pytest.raises(ValueError, match='power of two'):
+        tsa.large_bucket_keys_plain(keys_s, bs, bs >= 0, 4, 6)
