@@ -180,7 +180,7 @@ BIGROW_KERNELS = ('sa_init3_bytes', 'sa_window_scan', 'sa_rotating_pass',
 FALLBACK_KERNELS = ('sa_init3_bytes', 'sa_window_scan', 'sa_full_init_bytes',
                     'sa_full_round', 'sa_roll_front')
 #: Entry points of B9's paths: the 'full' build and the integer alphabet.
-B9_KERNELS = ('sa_full_init_bytes', 'sa_full_round')
+B9_KERNELS = ('sa_full_init_bytes', 'sa_full_init_ranks', 'sa_full_round')
 #: Entry points the scale-out path launches: B9 a row for the sharded
 #: build and the full step, B15 once for each probe.
 PARALLEL_KERNELS = ('sa_full_init_bytes', 'sa_full_round', 'sa_roll_front',
@@ -324,15 +324,27 @@ def gather_ms(src, sa, offset, stride, K):
 
 def searchsorted_ms(src, sa, n, size, shift):
     """Milliseconds of one ``torch.searchsorted`` of every table entry into
-    the keys ``src[sa[i]] >> shift`` in SA order (gathered beforehand): the
-    library call beside K3."""
+    the keys ``src[sa[i]] >> shift`` in SA order, gathered beforehand (the
+    library call beside K3), and of the same with the gather timed too
+    (what a PyTorch user pays for K3's function)."""
     import torch
 
-    keys = src[sa[:n].long()].long() >> shift
+    def gather():
+        return src[sa[:n].long()].long() >> shift
+
+    keys = gather()
     probes = torch.arange(size, dtype=torch.int64, device=src.device)
     ms = cuda_ms(lambda: torch.searchsorted(keys, probes), 5)
+    with_gather_ms = cuda_ms(lambda: torch.searchsorted(gather(), probes), 5)
     del keys, probes
-    return ms
+    return ms, with_gather_ms
+
+
+def pad_slots(N, n, dev):
+    """The pad slots of B9's sa_full, closed-form: [N - 1, ..., n]."""
+    import torch
+
+    return torch.arange(N - 1, n - 1, -1, dtype=torch.int32, device=dev)
 
 
 def table_bytes(table):
@@ -732,7 +744,8 @@ def kernel_check(label='', entries=None, launches=None):
     the JSON line, its launch count taken from ``launches``.  Every kernel
     here moves integers and runs no tensor-core or float work, so bytes
     bound it."""
-    def entry(name, replaces, src, e, ms, plain_ms, nbytes, library_ms=None):
+    def entry(name, replaces, src, e, ms, plain_ms, nbytes, library_ms=None,
+              library_gather_ms=None):
         check(e == 0, f'{label}{name} equals its plain version (max err {e})')
         b_ms = bound_ms(nbytes)
         if entries is not None:
@@ -743,7 +756,11 @@ def kernel_check(label='', entries=None, launches=None):
                 'bound_ms': b_ms, 'bound_by': 'bytes',
                 'library_ms': library_ms,
             })
+            if library_gather_ms is not None:
+                entries[-1]['library_gather_ms'] = library_gather_ms
         lib = 'none' if library_ms is None else f'{library_ms:.4f} ms'
+        if library_gather_ms is not None:
+            lib += f' ({library_gather_ms:.4f} ms with its gather)'
         log(f'{label}{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
             f'bound {b_ms:.4f} ms, library call {lib}, max abs err {e}')
     return entry
@@ -979,7 +996,7 @@ def aux_kernels(idx, row, entry):
                                        out=table), 20),
           cuda_ms(lambda: S.seed_table_plain(packed, sa0, n0, base, depth,
                                              bits), 3),
-          table_bytes(table), searchsorted_ms(
+          table_bytes(table), *searchsorted_ms(
               packed, sa0, n0, table.shape[0],
               (30 // bits - depth) * bits))
 
@@ -1362,7 +1379,8 @@ def run_raw(idx_path, pats, dev, ranked_rows):
                max(err(table, idx.tables[0]), err(
                    table, S.seed_table_from_prefix_plain(pv, sa0, n0, base,
                                                          depth))),
-               table_ms, table_plain_ms, table_bytes(table))
+               table_ms, table_plain_ms, table_bytes(table),
+               *searchsorted_ms(pv, sa0, n0, table.shape[0], 0))
     del pv_p
     packed = S.raw_pack(text0, n0, out=pv)
     entry('raw_pack', f'{JAX_SEARCH}:833', SEARCH_SRC,
@@ -1581,7 +1599,7 @@ def digit_aux_kernels(idx, entry, check_only):
                    pv, sa0, n0, 258, depth, out=table), 20),
                cuda_ms(lambda: S.seed_table_from_prefix_plain(
                    pv, sa0, n0, 258, depth), 3), table_bytes(table),
-               searchsorted_ms(pv, sa0, n0, table.shape[0], 0))
+               *searchsorted_ms(pv, sa0, n0, table.shape[0], 0))
     check_only('digit_bucket_table', f'{JAX_SEARCH}:565', SEARCH_SRC,
                err(S.digit_bucket_table(text0, sa0, n0, depth),
                    S.digit_bucket_table_plain(text0, sa0, n0, depth)),
@@ -1834,11 +1852,12 @@ def run_digit(idx_path, pats, byte_pats, dev, chunk_datas):
 def run_b9(chunk_datas, native_sas, dev):
     """B9's paths with launch counts from 0: ``suffix_array_torch(algorithm
     ='full')`` on two 8 MiB digit chunks against native SA-IS, timed
-    against ``'segmented'``, and ``suffix_array_int(backend='torch')`` on
-    an int array of k = 2^20 against native; then B9's init and one round
-    against their plain versions on chunk 0's row, each beside one
-    ``torch.sort`` of its keys, and the whole byte and integer doubling
-    against plain."""
+    against ``'segmented'``, with the rounds of each build, and
+    ``suffix_array_int(backend='torch')`` on an int array of k = 2^20
+    against native; then B9's byte and integer inits and one round against
+    their plain versions on chunk 0's row, each beside one ``torch.sort``
+    of its keys, and the whole byte and integer doubling against plain,
+    pad slots included, which must be [N - 1, ..., n]."""
     import numpy as np
     import torch
 
@@ -1846,10 +1865,13 @@ def run_b9(chunk_datas, native_sas, dev):
     from pysubstringsearch_tpu_torch.ops import suffix_array as SA
 
     kernels.reset_launches()
-    times = {'full_s': [], 'segmented_s': []}
+    times = {'full_s': [], 'segmented_s': [], 'full_rounds': []}
     for data, want in zip(chunk_datas, native_sas):
+        before = kernels.LAUNCHES['sa_full_round']
         sa, full_s = wall_s(lambda: SA.suffix_array_torch(data,
                                                           algorithm='full'))
+        times['full_rounds'].append(kernels.LAUNCHES['sa_full_round'] -
+                                    before)
         check(np.array_equal(sa, want),
               'B9 full build of an 8 MiB chunk equals native SA-IS')
         sa, seg_s = wall_s(lambda: SA.suffix_array_torch(data))
@@ -1860,7 +1882,9 @@ def run_b9(chunk_datas, native_sas, dev):
     vals = np.random.default_rng(7).integers(0, k, size=4 << 20,
                                              dtype=np.int32)
     vals[1::3] = vals[::3][: vals[1::3].size]  # repeats: several rounds
+    before = kernels.LAUNCHES['sa_full_round']
     got, int_s = wall_s(lambda: SA.suffix_array_int(vals, k, 'torch'))
+    times['int_rounds'] = kernels.LAUNCHES['sa_full_round'] - before
     t0 = time.perf_counter()
     want = SA.suffix_array_int(vals, k, 'native')
     int_native_s = time.perf_counter() - t0
@@ -1871,9 +1895,10 @@ def run_b9(chunk_datas, native_sas, dev):
         check(launches[name] > 0, f'B9 path launched {name}')
     log(f'B9: full build {times["full_s"]} s against segmented '
         f'{times["segmented_s"]} s per 8 MiB chunk (wall, upload and '
-        f'readback included), both equal native SA-IS; integer form at '
-        f'k = 2^20 over {vals.size} values {int_s:.3f} s (native '
-        f'{int_native_s:.3f} s), equal; launches '
+        f'readback included), both equal native SA-IS, B9 rounds '
+        f'{times["full_rounds"]}; integer form at k = 2^20 over '
+        f'{vals.size} values {int_s:.3f} s (native {int_native_s:.3f} s), '
+        f'equal, {times["int_rounds"]} rounds after its init; launches '
         f'{ {n: launches[n] for n in B9_KERNELS} }')
 
     entries = []
@@ -1894,10 +1919,17 @@ def run_b9(chunk_datas, native_sas, dev):
     W = SA._key_width(N)
     state = [t.clone() for t in first[:2]]
     pstate = [t.clone() for t in first[:2]]
+    sorted_state = [t.clone() for t in first[:2]]
     c = SA.sa_full_round(*state, 6, W)
     pc = SA.sa_full_round_plain(*pstate, 6, W)
     check(c == pc, f'B9 round counts {c} {pc}')
-    round_err = max(err(a, b) for a, b in zip(state, pstate))
+    # The same round on its full-sort path, which the loop takes while few
+    # ranks are distinct.
+    check(SA._full_round(*sorted_state, 6, W, n, 0)[0] == pc,
+          'B9 round counts on the full-sort path')
+    round_err = max(err(a, b) for a, b in zip(state + sorted_state,
+                                               pstate + pstate))
+    del sorted_state
 
     def restore():
         for s_, t in zip(state, first[:2]):
@@ -1913,12 +1945,30 @@ def run_b9(chunk_datas, native_sas, dev):
     full_k = SA.sa_full_doubling(text, n)
     check(torch.equal(full_k, SA.sa_full_doubling_plain(text, n)),
           'B9 byte doubling equals its plain version, pad slots included')
-    ranks = torch.zeros(SA._pad_len(vals.size), dtype=torch.int32,
-                        device=dev)
-    ranks[:vals.size] = torch.from_numpy(vals + 1)
-    check(torch.equal(SA.sa_full_doubling_int(ranks),
-                      SA.sa_full_doubling_int_plain(ranks)),
+    check(torch.equal(full_k[:N - n], pad_slots(N, n, dev)),
+          'B9 byte doubling writes the pad slots [N - 1, ..., n]')
+    m = vals.size
+    ranks = torch.zeros(SA._pad_len(m), dtype=torch.int32, device=dev)
+    ranks[:m] = torch.from_numpy(vals + 1)
+    Ni = ranks.shape[0]
+    iinit = SA.sa_full_init_int(ranks, m)
+    piinit = SA.sa_full_init_int_plain(ranks, m)
+    check(iinit[2:] == piinit[2:], 'B9 integer init counts equal')
+    r = ranks.long()
+    Wi = max(SA._key_width(Ni), int(r.max() + 1).bit_length())
+    keys = (r << Wi) | SA._shifted(r + 1, 1)
+    entry('sa_full_init_ranks', f'{JAX_SA}:632', SA_SRC,
+          max(err(a, b) for a, b in zip(iinit[:2], piinit[:2])),
+          cuda_ms(lambda: SA.sa_full_init_int(ranks, m), 5),
+          cuda_ms(lambda: SA.sa_full_init_int_plain(ranks, m), 2),
+          12 * Ni, sort_ms(keys))
+    del keys, r, iinit, piinit
+    full_i = SA.sa_full_doubling_int(ranks, m)
+    check(torch.equal(full_i, SA.sa_full_doubling_int_plain(ranks, m)),
           'B9 integer doubling equals its plain version')
+    check(torch.equal(full_i[:Ni - m], pad_slots(Ni, m, dev)),
+          'B9 integer doubling writes the pad slots [N - 1, ..., n]')
+    del full_i
     log(f'B9 on an {n}-byte row (N {N}): init, round, byte and integer '
         'doubling equal their plain versions')
     del full_k, ranks, text, first
@@ -2257,6 +2307,7 @@ def run_parallel(idx_path, pats, dev, upload_bounds, ref, d,
         kernels.reset_launches()
         sa, build_s = wall_s(lambda: sharded.make_sharded_build(mesh)(text,
                                                                       n))
+        build_rounds = kernels.LAUNCHES['sa_full_round']
         gathered, probe_s = wall_s(lambda: sharded.make_sharded_probe(mesh)(
             text, n, sa, patterns, lengths))
         (bounds, totals), step_s = wall_s(lambda: sharded.make_full_step(
@@ -2267,9 +2318,11 @@ def run_parallel(idx_path, pats, dev, upload_bounds, ref, d,
         check(launches['probe_bytes'] == 2 and
               launches['sa_full_init_bytes'] == 2 * C,
               f'one B15 launch a probe and B9 once a row a build ({launches})')
-        log(f'scale-out path: sharded build {build_s:.2f} s '
-            f'({C / build_s:.2f} rows/s), sharded probe {probe_s * 1e3:.2f} '
-            f'ms wall, full step {step_s:.2f} s; launches '
+        out['b9_rounds_per_row'] = build_rounds / C
+        log(f'scale-out path: sharded build {build_s:.4f} s '
+            f'({C / build_s:.2f} rows/s, B9 {build_rounds / C:.2f} rounds '
+            f'a row), sharded probe {probe_s * 1e3:.2f} ms wall, full step '
+            f'{step_s:.2f} s; launches '
             f'{ {k: launches[k] for k in PARALLEL_KERNELS} }')
 
         # ---- checks ----
@@ -2279,6 +2332,8 @@ def run_parallel(idx_path, pats, dev, upload_bounds, ref, d,
                                              dtype=np.int32)).to(dev)
             check(torch.equal(sa[i, :m], want),
                   f'row {i}: the sharded build\'s SA equals native SA-IS')
+            check(torch.equal(sa[i, m:], pad_slots(N, m, dev)),
+                  f'row {i}: the pad slots are [N - 1, ..., n]')
         del want
         lo, cnt = gathered[..., 0], gathered[..., 1]
         up_lo, up_cnt = upload_bounds
@@ -2615,6 +2670,9 @@ def run_bigrow(corpus, adv, refs, pats, d, dev):
     adv_native, adv_native_s = refs[1].result()
     check(np.array_equal(aidx.sa[0, :adv.size].cpu().numpy(), adv_native),
           'the B9 fallback\'s SA equals native SA-IS')
+    check(torch.equal(aidx.sa[0, adv.size:],
+                      pad_slots(aidx.n_pad, adv.size, dev)),
+          'the B9 fallback\'s pad slots are [N - 1, ..., n]')
     log(f'poisoned row: {adv.size} bytes of "ab", n_pad {aidx.n_pad}: '
         f'DeviceIndex(mode="derive") {adv_s:.2f} s wall (index-sa '
         f'{prof.totals["index-sa"]:.2f} s), peak {adv_peak:.2f} GiB above '

@@ -154,24 +154,95 @@ __global__ void seed_prefix_kernel(const uint8_t* __restrict__ text,
 // build_seed_table_device, whose prefix values K7 makes (shift 0).
 //
 // table[k] = first SA slot i < n whose key packed[sa[i]] >> shift is >= k,
-// or n.  Keys never decrease in SA order, so one thread per k bisects them:
-// no atomics and no scan across blocks.  Bound by latency: about log2(n)
-// pairs of dependent scattered reads per entry, but the first steps of
-// every thread hit the same few slots and stay in L2.
+// or n.  Keys never decrease in SA order, so a bisection finds each entry.
+// Bound by latency: a bisection of the whole row is about log2(n) steps of
+// two dependent scattered loads (sa[mid], then packed[sa[mid]]), so the
+// entries share their steps:
+//   1. seed_coarse_kernel bisects the row for every kSeedRun-th entry
+//      only (one thread each): coarse[c] = table[c * kSeedRun].
+//   2. seed_fine_kernel, a block per run of kSeedRun entries, whose
+//      answers lie in [lo, hi] = [coarse[b], coarse[b + 1]]: the block
+//      gathers the keys of S = min(hi - lo, kSeedSamples) evenly spaced
+//      slots of that range into shared memory, the last one hi - 1, all
+//      loads in flight together; each thread bisects the samples for its
+//      entries and finishes in global memory inside the gap between two
+//      samples, log2((hi - lo) / S) steps (none where the range has at
+//      most kSeedSamples slots: every key is staged).  Entries in one gap
+//      walk the same slots, so their loads meet in L1.
+// No pass gathers every slot's key: a row has about 8 slots an entry
+// (ranked, 32^5 + 1 entries over 268 M slots), and such a pass would read
+// 8 random keys for every entry written.  The samples cost two random
+// loads each and the gaps' steps mostly hit L1, so few samples win: 64 a
+// block measured faster than 128 to 1024 on that row.
 // ---------------------------------------------------------------------------
-__global__ void seed_table_kernel(const int* __restrict__ packed,
-                                  const int* __restrict__ sa, int n,
-                                  int shift, long long size,
-                                  int* __restrict__ table) {
-  for (long long k = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       k < size; k += (long long)gridDim.x * blockDim.x) {
-    int lo = 0, hi = n;
-    while (lo < hi) {
-      int mid = lo + ((hi - lo) >> 1);
-      long long key = packed[sa[mid]] >> shift;
-      if (key >= k) hi = mid; else lo = mid + 1;
+constexpr int kSeedRun = 1024;     // entries a fine block
+constexpr int kSeedSamples = 64;   // keys a fine block stages
+
+__device__ __forceinline__ int seed_key(const int* __restrict__ packed,
+                                        const int* __restrict__ sa,
+                                        long long i, int shift) {
+  return packed[sa[i]] >> shift;
+}
+
+// The first slot in [lo, hi) whose key is >= k, or hi.
+__device__ __forceinline__ long long seed_bisect(
+    const int* __restrict__ packed, const int* __restrict__ sa, long long lo,
+    long long hi, long long k, int shift) {
+  while (lo < hi) {
+    const long long mid = lo + ((hi - lo) >> 1);
+    if (seed_key(packed, sa, mid, shift) >= k) {
+      hi = mid;
+    } else {
+      lo = mid + 1;
     }
-    table[k] = lo;
+  }
+  return lo;
+}
+
+__global__ void seed_coarse_kernel(const int* __restrict__ packed,
+                                   const int* __restrict__ sa, int n,
+                                   int shift, long long runs,
+                                   int* __restrict__ coarse) {
+  for (long long c = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       c <= runs; c += (long long)gridDim.x * blockDim.x) {
+    coarse[c] = static_cast<int>(
+        seed_bisect(packed, sa, 0, n, c * kSeedRun, shift));
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+seed_fine_kernel(const int* __restrict__ packed, const int* __restrict__ sa,
+                 int shift, long long size, const int* __restrict__ coarse,
+                 int* __restrict__ table) {
+  __shared__ int skey[kSeedSamples];
+  const long long k0 = blockIdx.x * (long long)kSeedRun;
+  const long long lo = coarse[blockIdx.x];
+  const long long hi = coarse[blockIdx.x + 1];
+  const long long R = hi - lo;
+  const int S = R < kSeedSamples ? static_cast<int>(R) : kSeedSamples;
+  // Sample j is slot lo + (j + 1) R / S - 1; the gap before it starts
+  // after sample j - 1, at lo + j R / S.
+  for (int j = threadIdx.x; j < S; j += kThreads) {
+    skey[j] = seed_key(packed, sa, lo + ((j + 1) * R) / S - 1, shift);
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < kSeedRun; e += kThreads) {
+    const long long k = k0 + e;
+    if (k >= size) break;
+    int a = 0, b = S;
+    while (a < b) {
+      const int mid = (a + b) >> 1;
+      if (skey[mid] >= k) {
+        b = mid;
+      } else {
+        a = mid + 1;
+      }
+    }
+    const long long ans =
+        a == S ? hi
+               : seed_bisect(packed, sa, lo + (a * R) / S,
+                             lo + ((a + 1) * R) / S - 1, k, shift);
+    table[k] = static_cast<int>(ans);
   }
 }
 
@@ -683,13 +754,25 @@ int pss_seed_prefix(const void* text, long long N, long long n,
   return (int)cudaGetLastError();
 }
 
+// coarse: scratch of pss_seed_table_scratch_bytes(size).
 int pss_seed_table(const void* packed, const void* sa, int n, int shift,
-                   long long size, void* table, void* stream) {
-  unsigned grid = blocks_for(size);
+                   long long size, void* coarse, void* table, void* stream) {
+  if (size <= 0) return 0;
+  const long long runs = (size + kSeedRun - 1) / kSeedRun;
+  cudaStream_t st = (cudaStream_t)stream;
+  unsigned grid = blocks_for(runs + 1);
   if (grid > 65536u * 16u) grid = 65536u * 16u;
-  seed_table_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)packed, (const int*)sa, n, shift, size, (int*)table);
+  seed_coarse_kernel<<<grid, kThreads, 0, st>>>(
+      (const int*)packed, (const int*)sa, n, shift, runs, (int*)coarse);
+  seed_fine_kernel<<<static_cast<unsigned>(runs), kThreads, 0, st>>>(
+      (const int*)packed, (const int*)sa, shift, size, (const int*)coarse,
+      (int*)table);
   return (int)cudaGetLastError();
+}
+
+long long pss_seed_table_scratch_bytes(long long size) {
+  return static_cast<long long>(sizeof(int)) *
+         ((size + kSeedRun - 1) / kSeedRun + 1);
 }
 
 int pss_probe_phased(const void* text, const void* n_rows, const void* sa,

@@ -671,30 +671,9 @@ void blocked_scatter(const int* values, const int* dests, long long n,
 // for any 0 <= n <= N; the derive path's margin is its own contract, not
 // the kernels' (B10 runs them on rows without one).  B1, B1b and B10 make
 // their keys inside init_hist_kernel (section "B1 and B1b"); B9's init
-// writes them with this kernel.
+// keys the same digits through the text's byte map (section "B9").
 // ---------------------------------------------------------------------------
 constexpr int kByteKeyBits = 50;
-
-__global__ void init_keys_bytes_kernel(const uint8_t* __restrict__ text,
-                                       long long N, long long n,
-                                       uint64_t* __restrict__ keys,
-                                       int* __restrict__ vals) {
-  for (long long p = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       p < N; p += static_cast<long long>(gridDim.x) * blockDim.x) {
-    uint64_t limb[2] = {0, 0};
-    if (p < n) {
-#pragma unroll
-      for (int d = 0; d < 6; ++d) {
-        long long q = p + d;
-        uint64_t digit = q < n ? static_cast<uint64_t>(text[q]) + 1 : 0;
-        limb[d / 3] = limb[d / 3] * 257 + digit;
-      }
-    }
-    keys[p] = (limb[0] << 25) | limb[1];
-    vals[p] = static_cast<int>(p);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // B2, one tie-only doubling round.  Replaces the body of _segmented_loop
@@ -956,7 +935,8 @@ struct RoundMembers {
 };
 
 // B2's stores: sa always, gs and rank only where the label changed (a
-// member whose label stays its group's start keeps both).
+// member whose label stays its group's start keeps both).  B9 relabels
+// every slot after the refine and passes no rank.
 struct RoundOut {
   int* sa;
   int* rank;
@@ -966,7 +946,7 @@ struct RoundOut {
     sa[slot] = p;
     if (f != g) {
       gs[slot] = f;
-      rank[p] = f;
+      if (rank != nullptr) rank[p] = f;
     }
   }
 };
@@ -1023,7 +1003,8 @@ struct SegGather {
 };
 
 __global__ void seg_gather_kernel(const int* __restrict__ tl, long long m,
-                                  SegGather read) {
+                                  const int* dm, SegGather read) {
+  if (dm != nullptr && *dm < m) m = *dm;
   for (long long t = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
        t < m; t += static_cast<long long>(gridDim.x) * blockDim.x) {
@@ -1062,11 +1043,13 @@ struct Marks {
 // members with its r2), its label g + (members with a smaller r2): one
 // thread a member, reading its group's r2 (at most kTiny, from cache).
 __global__ void seg_tiny_kernel(const int* __restrict__ tl, long long m,
+                                const int* dm,
                                 const unsigned* __restrict__ r2b,
                                 const unsigned* __restrict__ gl,
                                 const int* __restrict__ posb,
                                 int* __restrict__ sa, int* __restrict__ rank,
                                 int* __restrict__ gs) {
+  if (dm != nullptr && *dm < m) m = *dm;
   for (long long t = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
        t < m; t += static_cast<long long>(gridDim.x) * blockDim.x) {
@@ -1088,7 +1071,7 @@ __global__ void seg_tiny_kernel(const int* __restrict__ tl, long long m,
     if (lt) {
       const int f = static_cast<int>(g) + lt;
       gs[slot] = f;
-      rank[p] = f;
+      if (rank != nullptr) rank[p] = f;
     }
   }
 }
@@ -1358,29 +1341,32 @@ SegBufs carve_seg(Arena& a, long long m, bool own_list) {
 
 // The refine of the m listed members (see the B2 section); counts[1] gets
 // the large members' count.  With marks, the list tl is written from them
-// first, by the gather.
+// first, by the gather.  With dm the device holds the count (m its bound);
+// without store_rank the ranks are read for r2 and never written.
 void seg_refine(int* sa, int* rank, int* gs, long long N, long long k,
                 int* tl, long long m, int* counts, const SegBufs& b,
-                cudaStream_t st, const Marks* marks = nullptr) {
+                cudaStream_t st, const Marks* marks = nullptr,
+                const int* dm = nullptr, bool store_rank = true) {
   if (m <= 0) return;
   const int W = key_width(N);
   const unsigned grid = grid_for(m);
+  int* rank_out = store_rank ? rank : nullptr;
   const SegGather read{sa, rank, gs, N, k, b.r2b, b.gl, b.posb};
   if (marks != nullptr) {
     seg_gather_marks_kernel<<<grid_for(marks->span), kThreads, 0, st>>>(
         marks->flags, marks->dest, marks->span, marks->ctl, tl, read);
   } else {
-    seg_gather_kernel<<<grid, kThreads, 0, st>>>(tl, m, read);
+    seg_gather_kernel<<<grid, kThreads, 0, st>>>(tl, m, dm, read);
   }
   const RoundMembers mem{tl, b.r2b, b.gl, b.posb};
-  const RoundOut out{sa, rank, gs};
+  const RoundOut out{sa, rank_out, gs};
   const int* ml = compact(
-      LargePred<RoundMembers>{mem, W, b.keys, b.vals, b.lslot, m}, m,
-      nullptr, b.compact, st);
+      LargePred<RoundMembers>{mem, W, b.keys, b.vals, b.lslot, m}, m, dm,
+      b.compact, st);
   copy_count_kernel<<<1, 1, 0, st>>>(ml, counts + 1);
-  seg_tiny_kernel<<<grid, kThreads, 0, st>>>(tl, m, b.r2b, b.gl, b.posb, sa,
-                                             rank, gs);
-  launch_seg_small(mem, m, nullptr, W, out, st);
+  seg_tiny_kernel<<<grid, kThreads, 0, st>>>(tl, m, dm, b.r2b, b.gl, b.posb,
+                                             sa, rank_out, gs);
+  launch_seg_small(mem, m, dm, W, out, st);
   const Pairs sorted = radix_sort_pairs(
       b.keys, b.vals, m, W + bit_length((m - 1) >> kSegLogT), b.sort, st,
       ml);
@@ -2184,28 +2170,135 @@ __global__ void next_finish_kernel(long long N, int* __restrict__ ctl) {
 }
 
 // ---------------------------------------------------------------------------
-// B9, full-sort prefix doubling.  Replaces _doubling_kernel with _init_round
-// and _doubling_round, and _int_doubling_kernel (ops/suffix_array.py),
-// reached through suffix_array_jax(algorithm='full'), derive_sa_full_jit
-// and suffix_array_int(backend='jax').
+// B9, prefix doubling with dense ranks.  Replaces _doubling_kernel with
+// _init_round and _doubling_round, and _int_doubling_kernel
+// (ops/suffix_array.py), reached through suffix_array_jax(algorithm='full'),
+// derive_sa_full_jit and suffix_array_int(backend='jax').
 //
-// Unlike B2, every round sorts all N positions:
-//   - the byte init keys every position on B1b's 6 digits (byte + 1, 0 at
-//     or past n; init_keys_bytes_kernel), the integer form starts from the
-//     caller's ranks (value + 1, pad 0);
-//   - a round keys position i as rank[i] << W | (rank[i + k] + 1), 0 past
-//     the row, with 2^W above every rank and N, and radix-sorts (key, i) on
-//     2W bits;
-//   - the relabel gives the sorted positions dense ranks: a key-change flag
-//     per slot, an inclusive sum scan of the flags, then sa[i] = pos and
-//     rank[pos] = label; count = the last label + 1, which the host reads to
-//     stop once every rank is distinct.
-// The JAX sort is unstable and this one stable, so a round's sa may order a
-// tie group differently; the dense ranks and the finished SA (every rank
-// distinct) are the same.  Bound by memory: a round's sort moves about
-// 8 + 2W / 8 x 24 bytes per slot (8 passes at W = 31), the key and relabel
-// passes 12 and 16 bytes.
+// The ranks are the JAX functions': rank[pos] = the number of distinct keys
+// below pos's, sa the positions in key order, ties in position order (every
+// sort here is stable, so every init and round leaves them so).  count
+// int32 [2] gets the number of distinct ranks and the rank of slot npad = N
+// - n, the first real slot (the count again when n = 0).  Pad keys are 0,
+// below every real key, so the pads hold ranks [0, count[1]) and the host
+// stops once the real slots hold n distinct ranks: one readback a round.
+//   - The byte init sorts B1b's 6 digits through the text's byte map:
+//     full_present_kernel marks the bytes that occur and
+//     full_keys_bytes_kernel keys each position on 6 digits of b bits, b =
+//     bit_length(distinct bytes), bytes numbered 1.. in order and 0 at or
+//     past n as B1b's digits: the same order and ties as the 50-bit key in
+//     6b bits.  The sort skips every pass whose digit is one bin, so text
+//     of at most 31 distinct bytes (lowercase words) sorts 30 bits in 4
+//     passes where B1b's byte digits take 7.  The relabel reads the pairs
+//     wherever the executed passes left them: no copy back.
+//   - The integer init (the JAX first round, k = 1 on value + 1) keys
+//     rank[i] << W | (rank[i + 1] + 1) and sorts 2W bits.
+//   - A round never sorts the rank bits again while at least N / 8 ranks
+//     are distinct (the host knows their count): sa already lists every
+//     group (one rank) as a run of slots.  full_starts_kernel marks the runs'
+//     first slots and a max-scan gives every slot its group's start (gs,
+//     the anchored form); B2's tie scan lists the tied slots, and B2's
+//     segmented refine orders each group by r2 = rank[pos + k] + 1 (0 past
+//     the row) -- tiny groups by counting, medium ones in a block's shared
+//     memory, large ones by the one-sweep sort on (ordinal, r2) -- on the
+//     device's count of tied slots, updating sa and gs in place.  The new
+//     groups' first slots (gs[s] == s) are then counted by an inclusive
+//     scan into the dense ranks.  With fewer distinct ranks most slots lie
+//     in large groups, whose refine is a sort of them with more traffic a
+//     slot (a gather, a compaction, the scatter) than the integer init's
+//     sort of every slot on 2W bits, which such a round runs instead (a
+//     400 MiB period-2 row, B10's poisoned fallback, stays there for most
+//     of its 27 rounds).
+//   - Both store rank[sa[s]] = label blocked by destination: the pairs go
+//     to their position's bin (the inits' RankBins, no sort pass), then a
+//     block takes 32 Ki positions of a bin and writes their labels from
+//     shared memory in position order (rank_stage_kernel), where a direct
+//     store would pay a 32-byte sector for every 4 bytes.
+// Bound by memory: the byte init reads the text twice, then writes 12
+// bytes a slot, moves 24 a pass (4 passes for lowercase text), 20 to
+// relabel and 28 to store the ranks; a round gathers one random rank a
+// slot for the group starts, scans (8 bytes a slot), lists the tied slots
+// (8), refines them (about 40 bytes each, B2's), relabels (12) and stores
+// the ranks (28).
 // ---------------------------------------------------------------------------
+static_assert(kThreads == 256, "one byte value a thread");
+
+// mask bit b (word b >> 5) is set for every byte b of text[0, n); the
+// mask is zeroed by the caller.  A thread reads 16 consecutive bytes, one
+// 16-byte load where they lie in the text and it is aligned, and stores
+// only bytes not yet seen: most of a block's stores would hit a few words
+// (UTF-16 text is half NUL).
+__global__ void full_present_kernel(const uint8_t* __restrict__ text,
+                                    long long n, unsigned* __restrict__ mask) {
+  __shared__ unsigned char seen[kThreads];
+  seen[threadIdx.x] = 0;
+  __syncthreads();
+  const bool vec = aligned16(text);
+  for (long long p = 16 * (blockIdx.x * static_cast<long long>(blockDim.x) +
+                           threadIdx.x);
+       p < n; p += 16 * static_cast<long long>(gridDim.x) * blockDim.x) {
+    if (vec && p + 16 <= n) {
+      const uint4 w = *reinterpret_cast<const uint4*>(text + p);
+      const unsigned words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int q = 0; q < 16; ++q) {
+        const unsigned b = (words[q >> 2] >> (8 * (q & 3))) & 255;
+        if (!seen[b]) seen[b] = 1;
+      }
+    } else {
+      for (long long q = p; q < p + 16 && q < n; ++q) {
+        if (!seen[text[q]]) seen[text[q]] = 1;
+      }
+    }
+  }
+  __syncthreads();
+  // Warp w holds bytes 32 w .. 32 w + 31: one atomic a word a block.
+  const unsigned word = __ballot_sync(kFull, seen[threadIdx.x] != 0);
+  if ((threadIdx.x & 31) == 0 && word != 0) {
+    atomicOr(&mask[threadIdx.x >> 5], word);
+  }
+}
+
+// Blocks of full_present_kernel: a few waves, each thread looping, so the
+// blocks' atomics on the mask stay few.
+constexpr unsigned kPresentBlocks = 512;
+
+__global__ void full_keys_bytes_kernel(const uint8_t* __restrict__ text,
+                                       long long N, long long n,
+                                       const unsigned* __restrict__ mask,
+                                       uint64_t* __restrict__ keys,
+                                       int* __restrict__ vals) {
+  __shared__ unsigned short digit[kThreads];
+  __shared__ int s_bits;
+  const int t = threadIdx.x;
+  int below = __popc(mask[t >> 5] & ((1u << (t & 31)) - 1u));
+  for (int w = 0; w < (t >> 5); ++w) below += __popc(mask[w]);
+  digit[t] = static_cast<unsigned short>(below + 1);
+  if (t == 0) {
+    int total = 0;
+    for (int w = 0; w < kThreads / 32; ++w) total += __popc(mask[w]);
+    s_bits = 32 - __clz(total);
+  }
+  __syncthreads();
+  const int b = s_bits;
+  for (long long p = blockIdx.x * static_cast<long long>(blockDim.x) + t;
+       p < N; p += static_cast<long long>(gridDim.x) * blockDim.x) {
+    uint64_t key = 0;
+    if (p < n) {
+#pragma unroll
+      for (int d = 0; d < 6; ++d) {
+        const long long q = p + d;
+        key = (key << b) | (q < n ? digit[text[q]] : 0u);
+      }
+    }
+    keys[p] = key;
+    vals[p] = static_cast<int>(p);
+  }
+}
+
+// Bits of the mapped 6-digit key: 9 a digit at most (256 distinct bytes).
+constexpr int kFullByteKeyBits = 6 * 9;
+
 __global__ void full_keys_kernel(const int* __restrict__ rank, long long N,
                                  long long k, int W,
                                  uint64_t* __restrict__ keys,
@@ -2222,28 +2315,92 @@ __global__ void full_keys_kernel(const int* __restrict__ rank, long long N,
   }
 }
 
-__global__ void full_flags_kernel(const uint64_t* __restrict__ keys,
-                                  long long N, int* __restrict__ flags) {
+// sa[i] = the sorted positions and flags[i] = 1 where sorted key i
+// differs from key i - 1, the pairs read from the buffers the executed
+// passes left them in.
+__global__ void full_flags_kernel(const uint64_t* __restrict__ kmain,
+                                  const uint64_t* __restrict__ kalt,
+                                  const int* __restrict__ vmain,
+                                  const int* __restrict__ valt,
+                                  const int* __restrict__ skip, int passes,
+                                  long long N, int* __restrict__ sa,
+                                  int* __restrict__ flags) {
+  const bool odd = executed_before(skip, passes) & 1;
+  const uint64_t* keys = odd ? kalt : kmain;
+  const int* vals = odd ? valt : vmain;
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
        i < N; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    sa[i] = vals[i];
     flags[i] = (i > 0 && keys[i] != keys[i - 1]) ? 1 : 0;
   }
 }
 
-__global__ void full_relabel_kernel(const int* __restrict__ vals,
-                                    const int* __restrict__ labels,
-                                    long long N, int* __restrict__ sa,
-                                    int* __restrict__ rank,
-                                    int* __restrict__ count) {
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+// labels: the dense rank of every slot (0 at slot 0).
+__global__ void full_counts_kernel(const int* __restrict__ labels,
+                                   long long N, long long npad,
+                                   int* __restrict__ count) {
+  count[0] = labels[N - 1] + 1;
+  count[1] = npad < N ? labels[npad] : labels[N - 1] + 1;
+}
+
+// gs[s] = s where slot s starts a group (its rank differs from slot s -
+// 1's), else 0: the max-scan makes it every slot's group start.  One
+// gather a slot: a warp's lanes hold consecutive slots and pass their
+// ranks up, and lane 0 reads its predecessor's.
+__global__ void full_starts_kernel(const int* __restrict__ sa,
+                                   const int* __restrict__ rank, long long N,
+                                   int* __restrict__ gs) {
+  const int lane = threadIdx.x & 31;
+  for (long long s = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
-       i < N; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int p = vals[i];
-    const int l = labels[i];
-    sa[i] = p;
-    rank[p] = l;
-    if (i == N - 1) *count = l + 1;
+       s - lane < N; s += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int r = s < N ? rank[sa[s]] : 0;
+    int prev = __shfl_up_sync(kFull, r, 1);
+    if (lane == 0 && s > 0 && s < N) prev = rank[sa[s - 1]];
+    if (s < N) gs[s] = s == 0 || prev != r ? static_cast<int>(s) : 0;
+  }
+}
+
+// flags[s] = 1 where slot s > 0 starts a group after the refine: their
+// inclusive scan is every slot's dense rank.
+__global__ void full_group_flags_kernel(const int* __restrict__ gs,
+                                        long long N, int* __restrict__ flags) {
+  for (long long s = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       s < N; s += static_cast<long long>(gridDim.x) * blockDim.x) {
+    flags[s] = s > 0 && gs[s] == s ? 1 : 0;
+  }
+}
+
+// rank[p] = label for the binned (position << 32 | label) pairs of all N
+// positions, kStagePos positions a block: bin b holds exactly the
+// positions [b << shift, (b + 1) << shift) at those places, so the block
+// reads the bins its positions lie in, keeps its own pairs in shared
+// memory and writes them out in position order, whole sectors at a time.
+// Where a bin is wider than a block, each of its blocks reads all of it.
+constexpr int kStagePos = 1 << 15;  // 128 KB of labels a block
+constexpr int kStageThreads = 1024;
+
+__global__ void __launch_bounds__(kStageThreads)
+rank_stage_kernel(const uint64_t* __restrict__ pairs, long long N, int shift,
+                  int* __restrict__ rank) {
+  extern __shared__ int stage_smem[];
+  const long long lo = static_cast<long long>(blockIdx.x) * kStagePos;
+  const long long hi = lo + kStagePos < N ? lo + kStagePos : N;
+  const long long bin0 = (lo >> shift) << shift;
+  long long bin1 = (((hi - 1) >> shift) + 1) << shift;
+  if (bin1 > N) bin1 = N;
+  for (long long i = bin0 + threadIdx.x; i < bin1; i += kStageThreads) {
+    const uint64_t w = pairs[i];
+    const long long p = static_cast<long long>(w >> 32) - lo;
+    if (p >= 0 && p < kStagePos) {
+      stage_smem[p] = static_cast<int>(static_cast<unsigned>(w));
+    }
+  }
+  __syncthreads();
+  for (long long p = lo + threadIdx.x; p < hi; p += kStageThreads) {
+    rank[p] = stage_smem[p - lo];
   }
 }
 
@@ -2253,6 +2410,8 @@ struct FullBufs {
   SortBufs sort;
   int* labels;
   int* scan;
+  unsigned* mask;    // [8]
+  unsigned* cursor;  // [kRadix]
 };
 
 FullBufs carve_full(Arena& a, long long N) {
@@ -2262,19 +2421,90 @@ FullBufs carve_full(Arena& a, long long N) {
   b.sort = carve_sort(a, N);
   b.labels = a.take<int>(N);
   b.scan = a.take<int>(scan_scratch_elems(N));
+  b.mask = a.take<unsigned>(kThreads / 32);
+  b.cursor = a.take<unsigned>(kRadix);
   return b;
 }
 
-// Sort the (key, position) pairs in b, then relabel: sa, rank and count.
-void full_relabel(const FullBufs& b, long long N, int key_bits, int* sa,
-                  int* rank, int* count, cudaStream_t st) {
+struct FullRoundBufs {
+  int* gs;
+  int* counts;       // [2], the refine's
+  unsigned* cursor;  // [kRadix]
+  CompactBufs tie;
+  SegBufs seg;
+};
+
+FullRoundBufs carve_full_round(Arena& a, long long N) {
+  FullRoundBufs b;
+  b.gs = a.take<int>(N);
+  b.counts = a.take<int>(2);
+  b.cursor = a.take<unsigned>(kRadix);
+  b.tie = carve_compact(a, N);
+  b.seg = carve_seg(a, N, true);
+  return b;
+}
+
+// rank[sa[i]] = labels[i] for all N slots, blocked by destination: the
+// pairs go to their position's bin (top 8 bits, init_bin_pairs_kernel),
+// then each bin is stored from shared memory where a bin spans at most
+// two blocks' positions, else straight from the bins (rank_store_kernel).
+void full_rank_store(const int* sa, const int* labels, long long N,
+                     uint64_t* pairs, unsigned* cursor, int* rank,
+                     cudaStream_t st) {
+  int shift = 0;
+  while ((N - 1) >> (shift + kRadixBits) > 0) ++shift;
+  cudaMemsetAsync(cursor, 0, sizeof(unsigned) * kRadix, st);
+  init_bin_pairs_kernel<<<walk_grid(cdiv(N, kSortItems)), kThreads, 0, st>>>(
+      sa, labels, N, 0, RankBins{pairs, cursor, shift});
+  if ((1LL << shift) <= 2LL * kStagePos) {
+    static bool smem_set = false;
+    const int bytes = static_cast<int>(sizeof(int)) * kStagePos;
+    if (!smem_set) {
+      cudaFuncSetAttribute(rank_stage_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+      smem_set = true;
+    }
+    rank_stage_kernel<<<static_cast<unsigned>(cdiv(N, kStagePos)),
+                        kStageThreads, bytes, st>>>(pairs, N, shift, rank);
+  } else {
+    rank_store_kernel<<<grid_for(N), kThreads, 0, st>>>(pairs, N, rank);
+  }
+}
+
+// Sort the (key, position) pairs in b on key_bits, then relabel: sa, rank
+// and count.
+void full_relabel(const FullBufs& b, long long N, long long npad,
+                  int key_bits, int* sa, int* rank, int* count,
+                  cudaStream_t st) {
   const unsigned grid = grid_for(N);
-  const Pairs sorted = radix_sort_pairs(b.keys, b.vals, N, key_bits, b.sort,
-                                        st);
-  full_flags_kernel<<<grid, kThreads, 0, st>>>(sorted.keys, N, b.labels);
+  const int passes = (key_bits + kRadixBits - 1) / kRadixBits;
+  const int* skip = radix_sort_passes(b.keys, b.vals, N, key_bits, b.sort,
+                                      st, nullptr);
+  full_flags_kernel<<<grid, kThreads, 0, st>>>(
+      b.keys, b.sort.keys_alt, b.vals, b.sort.vals_alt, skip, passes, N, sa,
+      b.labels);
   scan_levels<SumOp>(b.labels, b.labels, N, false, b.scan, st);
-  full_relabel_kernel<<<grid, kThreads, 0, st>>>(sorted.vals, b.labels, N, sa,
-                                                 rank, count);
+  full_counts_kernel<<<1, 1, 0, st>>>(b.labels, N, npad, count);
+  // The sorted pairs are dead: their keys buffer takes the rank pairs.
+  full_rank_store(sa, b.labels, N, b.keys, b.cursor, rank, st);
+}
+
+void full_round(int* sa, int* rank, long long N, long long k, long long npad,
+                int* count, const FullRoundBufs& b, cudaStream_t st) {
+  const unsigned grid = grid_for(N);
+  full_starts_kernel<<<grid, kThreads, 0, st>>>(sa, rank, N, b.gs);
+  scan_levels<MaxOp>(b.gs, b.gs, N, false, b.seg.scan, st);
+  const int* m = compact(TiePred{b.gs, N, nullptr, b.seg.tl}, N, nullptr,
+                         b.tie, st);
+  seg_refine(sa, rank, b.gs, N, k, b.seg.tl, N, b.counts, b.seg, st,
+             nullptr, m, false);
+  int* labels = b.seg.first_eq;
+  full_group_flags_kernel<<<grid, kThreads, 0, st>>>(b.gs, N, labels);
+  scan_levels<SumOp>(labels, labels, N, false, b.seg.scan, st);
+  full_counts_kernel<<<1, 1, 0, st>>>(labels, N, npad, count);
+  // The refine's keys are dead: they take the rank pairs.
+  full_rank_store(sa, labels, N, b.seg.keys, b.cursor, rank, st);
 }
 
 // The SA rolled to the front, as _derive_sa_seg_ranked_jit returns it
@@ -2466,11 +2696,13 @@ long long pss_sa_pass_scratch_bytes(long long m) {
 long long pss_sa_full_scratch_bytes(long long N) {
   Arena a{nullptr, 0};
   carve_full(a, N);
-  return static_cast<long long>(a.off);
+  Arena r{nullptr, 0};
+  carve_full_round(r, N);
+  return static_cast<long long>(a.off > r.off ? a.off : r.off);
 }
 
 // text uint8 [N] (true length n <= N); writes sa, rank int32 [N] of the
-// 6-byte init and count int32 [1], the number of distinct ranks.
+// 6-byte init and count int32 [2] (see the B9 section).
 int pss_sa_full_init_bytes(const void* text, long long N, long long n,
                            void* sa, void* rank, void* count, void* scratch,
                            void* stream) {
@@ -2478,26 +2710,58 @@ int pss_sa_full_init_bytes(const void* text, long long N, long long n,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Arena a{static_cast<char*>(scratch), 0};
   FullBufs b = carve_full(a, N);
-  init_keys_bytes_kernel<<<grid_for(N), kThreads, 0, st>>>(
-      static_cast<const uint8_t*>(text), N, n, b.keys, b.vals);
-  full_relabel(b, N, kByteKeyBits, static_cast<int*>(sa),
+  const uint8_t* t = static_cast<const uint8_t*>(text);
+  cudaMemsetAsync(b.mask, 0, sizeof(unsigned) * (kThreads / 32), st);
+  const unsigned pgrid = grid_for(cdiv(n, 16));
+  full_present_kernel<<<pgrid < kPresentBlocks ? pgrid : kPresentBlocks,
+                        kThreads, 0, st>>>(t, n, b.mask);
+  full_keys_bytes_kernel<<<grid_for(N), kThreads, 0, st>>>(t, N, n, b.mask,
+                                                           b.keys, b.vals);
+  full_relabel(b, N, N - n, kFullByteKeyBits, static_cast<int*>(sa),
                static_cast<int*>(rank), static_cast<int*>(count), st);
   return static_cast<int>(cudaGetLastError());
 }
 
-// One full round at offset k on sa, rank int32 [N] in place (every rank
-// below 2^W, 2^W > N); count int32 [1] gets the number of distinct ranks.
-int pss_sa_full_round(void* sa, void* rank, long long N, long long k, int W,
-                      void* count, void* scratch, void* stream) {
+// rank int32 [N]: value + 1 of the first N - npad positions, 0 after, every
+// value below 2^W; the JAX first round at k = 1, in place, with sa int32
+// [N] and count int32 [2].
+int pss_sa_full_init_ranks(void* sa, void* rank, long long N, long long npad,
+                           int W, void* count, void* scratch, void* stream) {
   if (N <= 0) return 0;
   if (W <= 0 || W > 31) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Arena a{static_cast<char*>(scratch), 0};
   FullBufs b = carve_full(a, N);
   full_keys_kernel<<<grid_for(N), kThreads, 0, st>>>(
-      static_cast<const int*>(rank), N, k, W, b.keys, b.vals);
-  full_relabel(b, N, 2 * W, static_cast<int*>(sa), static_cast<int*>(rank),
-               static_cast<int*>(count), st);
+      static_cast<const int*>(rank), N, 1, W, b.keys, b.vals);
+  full_relabel(b, N, npad, 2 * W, static_cast<int*>(sa),
+               static_cast<int*>(rank), static_cast<int*>(count), st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One round at offset k on sa, rank int32 [N] in place (dense ranks, sa
+// their order with ties in position order, as every init and round leaves
+// them); count int32 [2] as the B9 section says, npad = N - n.  With sort
+// set, the round sorts every slot on 2W bits (every rank below 2^W - 1)
+// instead of refining the groups.
+int pss_sa_full_round(void* sa, void* rank, long long N, long long k, int W,
+                      long long npad, int sort, void* count, void* scratch,
+                      void* stream) {
+  if (N <= 0) return 0;
+  if (W <= 0 || W > 31) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Arena a{static_cast<char*>(scratch), 0};
+  int* r = static_cast<int*>(rank);
+  int* c = static_cast<int*>(count);
+  if (sort) {
+    FullBufs b = carve_full(a, N);
+    full_keys_kernel<<<grid_for(N), kThreads, 0, st>>>(r, N, k, W, b.keys,
+                                                       b.vals);
+    full_relabel(b, N, npad, 2 * W, static_cast<int*>(sa), r, c, st);
+  } else {
+    FullRoundBufs b = carve_full_round(a, N);
+    full_round(static_cast<int*>(sa), r, N, k, npad, c, b, st);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -49,8 +49,8 @@ _SIGNATURES: typing.Dict[str, list] = {
     'pss_ranked_pack': [_P, _L, _I, _P, _I, _P, _P],
     # packed, sa, N, n, depth, bits, num_limbs, limbs, stream
     'pss_ranked_limb_planes': [_P, _P, _L, _I, _I, _I, _I, _P, _P],
-    # packed, sa, n, shift, size, table, stream
-    'pss_seed_table': [_P, _P, _I, _I, _L, _P, _P],
+    # packed, sa, n, shift, size, scratch, table, stream
+    'pss_seed_table': [_P, _P, _I, _I, _L, _P, _P, _P],
     # text, N, n, out, stream
     'pss_raw_pack': [_P, _L, _L, _P, _P],
     # packed, sa, N, n, depth, num_limbs, limbs, stream
@@ -94,8 +94,10 @@ _SIGNATURES: typing.Dict[str, list] = {
     'pss_sa_roll_front': [_P, _L, _L, _P, _P],
     # text, N, n, sa, rank, count, scratch, stream
     'pss_sa_full_init_bytes': [_P, _L, _L, _P, _P, _P, _P, _P],
-    # sa, rank, N, k, W, count, scratch, stream
-    'pss_sa_full_round': [_P, _P, _L, _L, _I, _P, _P, _P],
+    # sa, rank, N, npad, W, count, scratch, stream
+    'pss_sa_full_init_ranks': [_P, _P, _L, _L, _I, _P, _P, _P],
+    # sa, rank, N, k, W, npad, sort, count, scratch, stream
+    'pss_sa_full_round': [_P, _P, _L, _L, _I, _L, _I, _P, _P, _P],
     # text, N, n, sa, rank, gs, scratch, stream
     'pss_sa_init3_bytes': [_P, _L, _L, _P, _P, _P, _P, _P],
     # gs, N, half, W, ctl, flags, dest, scratch, stream
@@ -112,7 +114,8 @@ _SIGNATURES: typing.Dict[str, list] = {
 #: Scratch sizers: pss_<name>_scratch_bytes(count) -> bytes.  Host
 #: functions; they launch nothing and are not counted.
 _SCRATCH = ('scan', 'radix_sort', 'sa_hybrid', 'sa_init', 'sa_tie',
-            'sa_round', 'sa_refine', 'sa_pass', 'sa_full', 'scatter_blocked')
+            'sa_round', 'sa_refine', 'sa_pass', 'sa_full', 'scatter_blocked',
+            'seed_table')
 
 #: Kernel name (the C entry point without its prefix) -> launches so far.
 LAUNCHES: typing.Dict[str, int] = {

@@ -460,8 +460,9 @@ def _table(src: torch.Tensor, sa: torch.Tensor, n: int, size: int,
     if out.shape[0] != size:
         raise ValueError('seed_table: bad output shape')
     with kernels.on(src.device):
+        scratch = kernels.scratch('seed_table', size, src.device)
         kernels.launch('seed_table', src.data_ptr(), sa.data_ptr(), int(n),
-                       shift, size, out.data_ptr())
+                       shift, size, scratch.data_ptr(), out.data_ptr())
     return out
 
 

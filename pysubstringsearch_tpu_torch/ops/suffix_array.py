@@ -37,9 +37,10 @@ PyTorch version beside it:
 - :func:`sa_init3_bytes`, :func:`sa_window_scan` and
   :func:`sa_rotating_pass` (B10): the 3-byte init and the windowed passes
   of the rotating doubler;
-- :func:`sa_full_init_bytes` and :func:`sa_full_round` (B9): full-sort
-  prefix doubling with dense ranks, the JAX ``_doubling_kernel`` and
-  ``_int_doubling_kernel``.
+- :func:`sa_full_init_bytes`, :func:`sa_full_init_int` and
+  :func:`sa_full_round` (B9): prefix doubling with dense ranks, the JAX
+  ``_doubling_kernel`` and ``_int_doubling_kernel``, until the real slots
+  are distinct, the pad slots then written in closed form.
 
 The Writer's device build (:func:`build_suffix_array` with ``'torch'``, or
 ``'auto'`` on a CUDA card) runs :func:`suffix_array_torch`, and
@@ -232,7 +233,7 @@ def suffix_array_int_torch(data: np.ndarray, *,
     padded = np.zeros(N, dtype=np.int32)
     padded[:n] = data + 1
     with _DEVICE_BUILD_LOCK:
-        sa_full = sa_full_doubling_int(torch.from_numpy(padded).to(dev))
+        sa_full = sa_full_doubling_int(torch.from_numpy(padded).to(dev), n)
         return sa_full[N - n:].cpu().numpy()
 
 
@@ -1240,49 +1241,69 @@ def derive_sa_plain(text: torch.Tensor, n: int,
 
 
 # ---------------------------------------------------------------------------
-# B9: full-sort prefix doubling
+# B9: prefix doubling with dense ranks
 # ---------------------------------------------------------------------------
 
-def _dense_relabel(keys_s: torch.Tensor, idx: torch.Tensor):
-    """(sa, rank, count) from stably sorted keys and their positions: dense
-    ranks in sorted order, 0 for the smallest key."""
-    change = torch.zeros(keys_s.shape[0], dtype=torch.int64,
-                         device=keys_s.device)
+def _dense_relabel(keys_s: torch.Tensor, idx: torch.Tensor, n: int):
+    """(sa, rank, count, real) from stably sorted keys and their positions:
+    dense ranks in sorted order, 0 for the smallest key; ``real`` is the
+    number of distinct ranks in the last ``n`` slots (the real positions:
+    pad keys are the smallest)."""
+    N = keys_s.shape[0]
+    change = torch.zeros(N, dtype=torch.int64, device=keys_s.device)
     change[1:] = (keys_s[1:] != keys_s[:-1]).long()
     labels = torch.cumsum(change, 0)
     rank = torch.empty_like(labels)
     rank[idx] = labels
-    return idx.to(torch.int32), rank.to(torch.int32), int(labels[-1]) + 1
+    count = int(labels[-1]) + 1
+    pads = int(labels[N - n]) if n else count
+    return idx.to(torch.int32), rank.to(torch.int32), count, count - pads
+
+
+def _full_counts(count: torch.Tensor):
+    """(count, real) from a B9 kernel's int32 [2], read back once: the
+    distinct ranks and the rank of the first real slot."""
+    c, pads = count.tolist()
+    return c, c - pads
+
+
+def _full_init_bytes_plain(text: torch.Tensor, n: int):
+    keys_s, idx = torch.sort(_byte_key(text, n), stable=True)
+    return _dense_relabel(keys_s, idx, n)
 
 
 def sa_full_init_bytes_plain(text: torch.Tensor, n: int):
     """Plain version of B9's init: (sa int32 [N], rank int32 [N], count):
     every position stably sorted by B1b's 6-digit key (:func:`_byte_key`),
     with dense ranks and their number."""
-    keys_s, idx = torch.sort(_byte_key(text, n), stable=True)
-    return _dense_relabel(keys_s, idx)
+    return _full_init_bytes_plain(text, n)[:3]
 
 
-def sa_full_init_bytes(text: torch.Tensor, n: int):
-    """B9's init on a uint8 [N] text row of true length ``n`` (see
-    :func:`sa_full_init_bytes_plain`): B1b's key kernel, the radix sort and
-    a dense relabel; the count is read back once.  Replaces
-    ``_init_round``."""
+def _full_init_bytes(text: torch.Tensor, n: int):
     N = text.shape[0]
     if not 0 <= n <= N:
         raise ValueError(f'sa_full_init_bytes: need 0 <= n <= N, got {n}')
     if not kernels.route(text):
-        return sa_full_init_bytes_plain(text, n)
+        return _full_init_bytes_plain(text, n)
     kernels.check(text, 'text', torch.uint8, 1)
     dev = text.device
     sa, rk, count = (torch.empty(m, dtype=torch.int32, device=dev)
-                     for m in (N, N, 1))
+                     for m in (N, N, 2))
     with kernels.on(dev):
         scratch = kernels.scratch('sa_full', N, dev)
         kernels.launch('sa_full_init_bytes', text.data_ptr(), N, int(n),
                        sa.data_ptr(), rk.data_ptr(), count.data_ptr(),
                        scratch.data_ptr())
-    return sa, rk, int(count)
+    return (sa, rk) + _full_counts(count)
+
+
+def sa_full_init_bytes(text: torch.Tensor, n: int):
+    """B9's init on a uint8 [N] text row of true length ``n`` (see
+    :func:`sa_full_init_bytes_plain`): the 6 digits keyed through the
+    text's byte map (6 x bit_length(distinct bytes) bits), the radix sort
+    and a dense relabel; the counts are read back once.  Replaces
+    ``_init_round``."""
+    return _full_init_bytes(text, n)[:3]
 
 
 def _check_width(N: int, W: int) -> None:
@@ -1290,68 +1311,142 @@ def _check_width(N: int, W: int) -> None:
         raise ValueError(f'full round: need 2^W > N and W <= 31, got W={W}')
 
 
+def _full_key_round_plain(sa: torch.Tensor, rank: torch.Tensor, k: int,
+                          W: int, n: int, count: typing.Optional[int] = None):
+    """Every position stably sorted by ``rank[i] << W | (rank[i + k] +
+    1)``, 0 past the row, then dense ranks, in place: (count, real).
+    ``count`` (the ranks' number before the round) picks the kernel's
+    path and changes nothing here."""
+    _check_width(rank.shape[0], W)
+    r = rank.long()
+    keys_s, idx = torch.sort((r << W) | _shifted(r + 1, k), stable=True)
+    new_sa, new_rank, count, real = _dense_relabel(keys_s, idx, n)
+    sa.copy_(new_sa)
+    rank.copy_(new_rank)
+    return count, real
+
+
 def sa_full_round_plain(sa: torch.Tensor, rank: torch.Tensor, k: int,
                         W: int) -> int:
     """Plain version of a B9 round: every position stably sorted by
     ``rank[i] << W | (rank[i + k] + 1)``, 0 past the row, then dense ranks,
     in place; returns their number.  Every rank must be below 2^W - 1."""
-    _check_width(rank.shape[0], W)
-    r = rank.long()
-    keys_s, idx = torch.sort((r << W) | _shifted(r + 1, k), stable=True)
-    new_sa, new_rank, count = _dense_relabel(keys_s, idx)
-    sa.copy_(new_sa)
-    rank.copy_(new_rank)
-    return count
+    return _full_key_round_plain(sa, rank, k, W, rank.shape[0])[0]
 
 
-def sa_full_round(sa: torch.Tensor, rank: torch.Tensor, k: int,
-                  W: int) -> int:
-    """One B9 round on int32 [N] (sa, rank) in place (see
-    :func:`sa_full_round_plain`): a key kernel, the radix sort on 2W bits
-    and a dense relabel; the count is read back once.  Replaces
-    ``_doubling_round``."""
+#: A B9 round sorts every slot instead of refining the groups while fewer
+#: than N / FULL_SORT_DIV ranks are distinct (see the B9 section of
+#: ``csrc/suffix_array_kernels.cu``).
+FULL_SORT_DIV = 8
+
+
+def _full_round(sa: torch.Tensor, rank: torch.Tensor, k: int, W: int,
+                n: int, count: typing.Optional[int] = None):
     N = rank.shape[0]
     _check_width(N, W)
     if not kernels.route(sa, rank):
-        return sa_full_round_plain(sa, rank, k, W)
+        return _full_key_round_plain(sa, rank, k, W, n)
     kernels.check(sa, 'sa', torch.int32, 1)
     kernels.check(rank, 'rank', torch.int32, 1)
     if sa.shape[0] != N:
         raise ValueError('sa_full_round: sa and rank differ in length')
     dev = rank.device
-    count = torch.empty(1, dtype=torch.int32, device=dev)
+    sort = count is not None and count * FULL_SORT_DIV < N
+    counts = torch.empty(2, dtype=torch.int32, device=dev)
     with kernels.on(dev):
         scratch = kernels.scratch('sa_full', N, dev)
         kernels.launch('sa_full_round', sa.data_ptr(), rank.data_ptr(), N,
-                       int(k), W, count.data_ptr(), scratch.data_ptr())
-    return int(count)
+                       int(k), W, N - int(n), int(sort), counts.data_ptr(),
+                       scratch.data_ptr())
+    return _full_counts(counts)
 
 
-def _full_rounds(round_fn, sa, rank, count, k):
-    """Double k while k < N and some ranks tie, as ``_doubling_kernel``'s
-    loop; returns the last round's sa."""
+def sa_full_round(sa: torch.Tensor, rank: torch.Tensor, k: int,
+                  W: int) -> int:
+    """One B9 round on int32 [N] (sa, rank) in place (see
+    :func:`sa_full_round_plain`), for dense ranks and ``sa`` their order
+    with ties in position order, as every init and round leaves them.  It
+    never sorts the rank bits again: each group, a run of slots, is
+    ordered by ``rank[i + k]`` with B2's segmented refine, then every slot
+    is relabelled; the count is read back once.  (The doubling loop passes
+    the last count, and sorts every slot while fewer than N /
+    ``FULL_SORT_DIV`` ranks are distinct.)  Replaces ``_doubling_round``."""
+    return _full_round(sa, rank, k, W, rank.shape[0])[0]
+
+
+def _int_width(rank: torch.Tensor) -> int:
+    # Raw ranks reach 2^30, so W = 31 at most.
+    return max(_key_width(rank.shape[0]), (int(rank.max()) + 1).bit_length())
+
+
+def sa_full_init_int_plain(ranks: torch.Tensor, n: int):
+    """Plain version of B9's integer init, the JAX first round of
+    ``_int_doubling_kernel``: (sa, rank, count, real) of int32 [N]
+    ``ranks`` (value + 1 in the first ``n`` slots, 0 after, at most 2^30)
+    sorted by ``rank[i] << W | (rank[i + 1] + 1)``; ``real`` is the
+    number of distinct ranks in the last ``n`` slots."""
+    rank = ranks.to(torch.int32).clone()
+    sa = torch.empty_like(rank)
+    count, real = _full_key_round_plain(sa, rank, 1, _int_width(rank), n)
+    return sa, rank, count, real
+
+
+def sa_full_init_int(ranks: torch.Tensor, n: int):
+    """B9's integer init (see :func:`sa_full_init_int_plain`): a key
+    kernel, the radix sort on 2W bits and a dense relabel, the counts read
+    back once."""
+    N = ranks.shape[0]
+    if not 0 <= n <= N:
+        raise ValueError(f'sa_full_init_int: need 0 <= n <= N, got {n}')
+    if not kernels.route(ranks):
+        return sa_full_init_int_plain(ranks, n)
+    kernels.check(ranks, 'ranks', torch.int32, 1)
+    W = _int_width(ranks)
+    _check_width(N, W)
+    rank = ranks.clone()
+    sa = torch.empty_like(rank)
+    count = torch.empty(2, dtype=torch.int32, device=rank.device)
+    with kernels.on(rank.device):
+        scratch = kernels.scratch('sa_full', N, rank.device)
+        kernels.launch('sa_full_init_ranks', sa.data_ptr(), rank.data_ptr(),
+                       N, N - int(n), W, count.data_ptr(), scratch.data_ptr())
+    return (sa, rank) + _full_counts(count)
+
+
+def _full_rounds(round_fn, sa, rank, count, real, k, n):
+    """Double k while k < N and the last ``n`` slots (the real positions)
+    hold fewer than n distinct ranks, then write the pad slots in closed
+    form, [N - 1, ..., n]: the layout the JAX ``_doubling_kernel`` states.
+    Pad keys sort below every real key, so once the real slots are
+    distinct no later round moves one, and the JAX loop's later rounds
+    (``num_ranks < N`` never holds while two pads tie) only order pads.
+    Returns sa."""
     N = rank.shape[0]
     W = _key_width(N)
-    while k < N and count < N:
-        count = round_fn(sa, rank, k, W)
+    while k < N and real < n:
+        count, real = round_fn(sa, rank, k, W, n, count)
         k *= 2
+    sa[:N - n] = torch.arange(N - 1, n - 1, -1, dtype=torch.int32,
+                              device=sa.device)
     return sa
 
 
 def sa_full_doubling(text: torch.Tensor, n: int) -> torch.Tensor:
     """B9, the SA of a padded uint8 [N] text row of true length ``n`` by
-    full-sort doubling, as the JAX ``_doubling_kernel`` returns it: int32
-    [N] with the pad positions first and the text's SA in the last n
-    slots.  The 6-byte init, then rounds from k = 6."""
-    sa, rank, count = sa_full_init_bytes(text, n)
-    return _full_rounds(sa_full_round, sa, rank, count, BYTE_INIT_WIDTH)
+    prefix doubling with dense ranks, as the JAX ``_doubling_kernel``
+    returns it: int32 [N] with the pad positions first, [N - 1, ..., n],
+    and the text's SA in the last n slots.  The 6-byte init, then rounds
+    from k = 6 until the real slots are distinct."""
+    sa, rank, count, real = _full_init_bytes(text, n)
+    return _full_rounds(_full_round, sa, rank, count, real, BYTE_INIT_WIDTH,
+                        n)
 
 
 def sa_full_doubling_plain(text: torch.Tensor, n: int) -> torch.Tensor:
     """:func:`sa_full_doubling` through the plain versions on any device."""
-    sa, rank, count = sa_full_init_bytes_plain(text, n)
-    return _full_rounds(sa_full_round_plain, sa, rank, count,
-                        BYTE_INIT_WIDTH)
+    sa, rank, count, real = _full_init_bytes_plain(text, n)
+    return _full_rounds(_full_key_round_plain, sa, rank, count, real,
+                        BYTE_INIT_WIDTH, n)
 
 
 def derive_sa_full(text: torch.Tensor, n: int,
@@ -1362,23 +1457,16 @@ def derive_sa_full(text: torch.Tensor, n: int,
     return sa_roll_front(sa_full_doubling(text, n), n, out)
 
 
-def _int_doubling(round_fn, ranks: torch.Tensor) -> torch.Tensor:
-    rank = ranks.to(torch.int32).clone()
-    sa = torch.empty_like(rank)
-    # The first round keys the raw ranks (up to 2^30, so W = 31 at most);
-    # later rounds key dense ranks below N.
-    W0 = max(_key_width(rank.shape[0]), (int(rank.max()) + 1).bit_length())
-    count = round_fn(sa, rank, 1, W0)
-    return _full_rounds(round_fn, sa, rank, count, 2)
-
-
-def sa_full_doubling_int(ranks: torch.Tensor) -> torch.Tensor:
+def sa_full_doubling_int(ranks: torch.Tensor, n: int) -> torch.Tensor:
     """B9's integer form, the JAX ``_int_doubling_kernel``: the SA of int32
-    [N] order-preserving ranks (value + 1, pad 0, at most 2^30), pad
-    positions first; the first round at k = 1, then doubling from k = 2."""
-    return _int_doubling(sa_full_round, ranks)
+    [N] order-preserving ranks (value + 1 in the first ``n`` slots, pad 0
+    after, at most 2^30), pad positions first, [N - 1, ..., n]; the init
+    at k = 1, then rounds from k = 2 until the real slots are distinct."""
+    sa, rank, count, real = sa_full_init_int(ranks, n)
+    return _full_rounds(_full_round, sa, rank, count, real, 2, n)
 
 
-def sa_full_doubling_int_plain(ranks: torch.Tensor) -> torch.Tensor:
-    """:func:`sa_full_doubling_int` through the plain round."""
-    return _int_doubling(sa_full_round_plain, ranks)
+def sa_full_doubling_int_plain(ranks: torch.Tensor, n: int) -> torch.Tensor:
+    """:func:`sa_full_doubling_int` through the plain versions."""
+    sa, rank, count, real = sa_full_init_int_plain(ranks, n)
+    return _full_rounds(_full_key_round_plain, sa, rank, count, real, 2, n)

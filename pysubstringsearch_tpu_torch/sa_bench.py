@@ -30,17 +30,30 @@ B1b on as many bytes of ``make_raw_corpus(500)`` (272 Mi) and of
 ``make_digit_corpus(500)`` (256 Mi), and B1b on the digit corpus's first
 8,388,563 bytes, the size of the digit Writer's first 8 MiB chunk, padded
 as the Writer pads it (8 Mi slots), each beside one stable ``torch.sort``
-of its keys; then B9's init and its round at k = 6 on that chunk.
+of its keys.  On the ranked and digit rows it then derives the SA and
+times K3 (``k3_ranked``: the 32^5 + 1 table from the ranked pack;
+``k3_digit``: the 258^3 + 1 table from K7's values) beside one
+``torch.searchsorted`` of every entry into the keys in SA order, gathered
+beforehand (``_searchsorted_ms``) and with the gather timed too
+(``_gather_searchsorted_ms``).  Then B9 on that digit chunk
+(``b9_digit_chunk``) and on the ranked corpus's first 8,388,563 bytes at
+the Writer's padding, 8 Mi (``b9_ranked_chunk``), and at the scale-out
+rows', 16 Mi (``b9_ranked_chunk16``): its init and its round at k = 6 from
+the init's state, each beside one stable ``torch.sort`` of its keys, and
+the whole build (``sa_full_doubling``: wall seconds, the mean of ``REPS``
+runs after a warm-up, and its rounds); and the whole B9 build of 400 MiB
+of ``ab`` at 416 Mi slots, the row B10 poisons (``b9_ab_build_s``, one run
+after a warm-up, and ``b9_ab_rounds``).
 
 With ``--profile`` it first prints the device time by kernel
 (``torch.profiler``'s ``key_averages``) of B10's init, of that first pass,
 of B1b and of B2's round 1 on the 512 Mi row (and, with ``--inits``, of
-each init row), one ``PROFILE`` line each, the group sizes of round 1's
-tied groups (``HISTOGRAM``: groups and slots of 2, 3-16, 17-256, 257-4096
-and more members) and, with ``--inits``, each init row's buckets by the
-top 16, 24 and 32 bits of its keys (``BUCKETS``: buckets and slots of 1,
-2-32, 33-4096 and more members).  Without a CUDA card it prints nothing to
-stdout and exits 2.
+each init row, each K3 table and B9's init and round), one ``PROFILE``
+line each, the group sizes of round 1's tied groups (``HISTOGRAM``: groups
+and slots of 2, 3-16, 17-256, 257-4096 and more members) and, with
+``--inits``, each init row's buckets by the top 16, 24 and 32 bits of its
+keys (``BUCKETS``: buckets and slots of 1, 2-32, 33-4096 and more
+members).  Without a CUDA card it prints nothing to stdout and exits 2.
 """
 
 import argparse
@@ -92,10 +105,76 @@ INIT_ROWS = (('b1 ranked', 'ranked', 268_400_000, 272 << 20),
              ('b1b digit chunk', 'digit', 8_388_563, 8 << 20))
 
 
+def _k3(torch, bench, out, tag, table, src, sa, n, shift, profile):
+    """K3 (``table()``) beside ``torch.searchsorted`` of its entries into
+    the keys ``src[sa[i]] >> shift`` of slots i < n, gathered beforehand,
+    and with the gather timed too."""
+    if profile:
+        _profile(torch, f'k3 {tag}', table)
+    out[f'k3_{tag}_ms'] = bench.cuda_ms(table, REPS)
+
+    def gather():
+        return src[sa[:n].long()].long() >> shift
+
+    keys = gather()
+    probes = torch.arange(table().shape[0], dtype=torch.int64,
+                          device=src.device)
+    out[f'k3_{tag}_searchsorted_ms'] = bench.cuda_ms(
+        lambda: torch.searchsorted(keys, probes), REPS)
+    out[f'k3_{tag}_gather_searchsorted_ms'] = bench.cuda_ms(
+        lambda: torch.searchsorted(gather(), probes), REPS)
+
+
+def _b9(torch, SA, kernels, bench, out, tag, text, n, profile):
+    """B9's init and its round at k = 6 from the init's state, each beside
+    one stable ``torch.sort`` of its keys, then the whole build (wall,
+    rounds)."""
+    N = text.shape[0]
+    W = SA._key_width(N)
+    first = SA.sa_full_init_bytes(text, n)[:2]
+    state = [t.clone() for t in first]
+
+    def restore():
+        for st, t in zip(state, first):
+            st.copy_(t)
+
+    def init():
+        return SA.sa_full_init_bytes(text, n)
+
+    def round6():
+        return SA.sa_full_round(*state, SA.BYTE_INIT_WIDTH, W)
+
+    if profile:
+        _profile(torch, f'b9 init {tag}', init)
+        restore()
+        _profile(torch, f'b9 round k6 {tag}', round6)
+    out[f'b9_{tag}_init_ms'] = bench.cuda_ms(init, 10 * REPS)
+    out[f'b9_{tag}_round_ms'] = bench.cuda_ms(round6, 10 * REPS, restore)
+    key = SA._byte_key(text, n)
+    out[f'b9_{tag}_init_sort_keys_ms'] = bench.cuda_ms(
+        lambda: torch.sort(key, stable=True), REPS)
+    r = first[1].long()
+    key = (r << W) | SA._shifted(r + 1, SA.BYTE_INIT_WIDTH)
+    out[f'b9_{tag}_round_sort_keys_ms'] = bench.cuda_ms(
+        lambda: torch.sort(key, stable=True), REPS)
+    del key, r, first, state
+    SA.sa_full_doubling(text, n)  # warm-up: scratch sizes cached
+    before = kernels.LAUNCHES['sa_full_round']
+    total = 0.0
+    for _ in range(REPS):
+        total += _wall_s(torch, lambda: SA.sa_full_doubling(text, n))[1]
+    out[f'b9_{tag}_build_s'] = total / REPS
+    out[f'b9_{tag}_rounds'] = (kernels.LAUNCHES['sa_full_round'] -
+                               before) // REPS
+
+
 def _init_rows(torch, np, SA, S, bench, args, out):
     """B1 and B1b on ``INIT_ROWS``, timed beside ``torch.sort`` of their
-    keys; with ``--profile`` also their device time by kernel and their
-    bucket sizes by the top 16, 24 and 32 key bits."""
+    keys, K3 on the ranked and digit rows and B9 on 8 MiB chunks; with
+    ``--profile`` also their device time by kernel and the inits' bucket
+    sizes by the top 16, 24 and 32 key bits."""
+    from pysubstringsearch_tpu_torch.ops import kernels
+
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     spec = importlib.util.spec_from_file_location(
         'chip_smoke', os.path.join(root, 'chip_smoke.py'))
@@ -142,23 +221,50 @@ def _init_rows(torch, np, SA, S, bench, args, out):
         out[f'{tag}_sort_keys_ms'] = bench.cuda_ms(
             lambda: torch.sort(key, stable=True), REPS)
         del key
-        if label == 'b1b digit chunk':  # B9's init and round, the same chunk
-            out['b9_init_ms'] = bench.cuda_ms(
-                lambda: SA.sa_full_init_bytes(text, n), 10 * REPS)
-            first = SA.sa_full_init_bytes(text, n)[:2]
-            state = [t.clone() for t in first]
-
-            def restore():
-                for st, t in zip(state, first):
-                    st.copy_(t)
-
-            W = SA._key_width(N)
-            out['b9_round_ms'] = bench.cuda_ms(
-                lambda: SA.sa_full_round(*state, SA.BYTE_INIT_WIDTH, W),
-                10 * REPS, restore)
-            del first, state
+        if label == 'b1 ranked':  # K3 of the ranked derive row
+            sa = SA.derive_sa(text, n, rank, bits)[0]
+            base, depth = S.pick_table_params(sigma, n)
+            packed = S.ranked_pack(text, n, rank, bits)
+            tbl = S.seed_table(packed, sa, n, base, depth, bits)
+            _k3(torch, bench, out, 'ranked', lambda: S.seed_table(
+                packed, sa, n, base, depth, bits, out=tbl), packed, sa, n,
+                (30 // bits - depth) * bits, args.profile)
+            del sa, packed, tbl
+        elif label == 'b1b digit':  # K3 of the digit derive row (K7's values)
+            sa = SA.derive_sa(text, n)[0]
+            ident = torch.from_numpy(S.identity_rank()[0]).to(dev)
+            pv = S.seed_prefix(text, n, ident, 258, 3)
+            tbl = S.seed_table_from_prefix(pv, sa, n, 258, 3)
+            _k3(torch, bench, out, 'digit', lambda: S.seed_table_from_prefix(
+                pv, sa, n, 258, 3, out=tbl), pv, sa, n, 0, args.profile)
+            del sa, pv, tbl
+        elif label == 'b1b digit chunk':  # B9 on the same chunk
+            _b9(torch, SA, kernels, bench, out, 'digit_chunk', text, n,
+                args.profile)
         del text
         torch.cuda.empty_cache()
+    # B9 on the ranked corpus's first 8 MiB chunk, as the Writer pads it and
+    # as the scale-out rows are padded.
+    n = 8_388_563
+    data = np.asarray(cache['ranked'][:n])
+    for tag, N in (('ranked_chunk', 8 << 20), ('ranked_chunk16', 16 << 20)):
+        text = torch.zeros(N, dtype=torch.uint8, device=dev)
+        text[:n] = torch.from_numpy(data).to(dev)
+        _b9(torch, SA, kernels, bench, out, tag, text, n, args.profile)
+        del text
+        torch.cuda.empty_cache()
+    # B9 on B10's poisoned fallback: 400 MiB of "ab" at N = 416 Mi.
+    n = 400 << 20
+    text = torch.zeros(416 << 20, dtype=torch.uint8, device=dev)
+    text[:n] = torch.tensor([97, 98], dtype=torch.uint8,
+                            device=dev).repeat(n // 2)
+    SA.sa_full_doubling(text, n)  # warm-up: scratch sizes cached
+    before = kernels.LAUNCHES['sa_full_round']
+    _, out['b9_ab_build_s'] = _wall_s(torch,
+                                      lambda: SA.sa_full_doubling(text, n))
+    out['b9_ab_rounds'] = kernels.LAUNCHES['sa_full_round'] - before
+    del text
+    torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:

@@ -22,7 +22,12 @@ def _corpus(name: str) -> np.ndarray:
     rng = np.random.default_rng(sum(map(ord, name)))
     if name == 'empty':
         return np.zeros(0, dtype=np.uint8)
-    if name == 's27':  # sigma <= 30: 5-bit digits, 6 per limb
+    if name == 'skew':  # one seed bucket holds most of the row
+        data = np.where(rng.random(3000) < 0.9, 97,
+                        rng.integers(98, 123, size=3000)).astype(np.uint8)
+    elif name == 'one':  # n = 1: a table far longer than the row
+        return np.array([98], dtype=np.uint8)
+    elif name == 's27':  # sigma <= 30: 5-bit digits, 6 per limb
         data = rng.integers(97, 123, size=3000, dtype=np.uint8)
     elif name == 's60':  # sigma <= 62: 6-bit digits, 5 per limb
         data = rng.integers(40, 99, size=3000, dtype=np.uint8)
@@ -36,7 +41,7 @@ def _corpus(name: str) -> np.ndarray:
 #: (corpus, seed depth, limb planes)
 CASES = [
     ('s27', 2, 3), ('s27', 4, 2), ('s60', 2, 3), ('s60', 3, 1),
-    ('nul', 3, 3), ('empty', 2, 3),
+    ('nul', 3, 3), ('empty', 2, 3), ('skew', 3, 2), ('one', 4, 1),
 ]
 
 

@@ -500,6 +500,106 @@ def test_digit_index_and_probe_match_cpu(cuda, monkeypatch, mode, deep_min):
     assert (cnt_g > 0).sum() > 100
 
 
+@pytest.mark.parametrize('kind,n,N', [
+    ('words', 70_000, 1 << 17), ('words', 70_000, 1 << 18),
+    ('words', (1 << 20) - 9, 1 << 20), ('words', (1 << 20) + 5, 1 << 21),
+    ('repeat', 3000, 4096), ('digit', 200_000, 1 << 19),
+    ('one', 1, 8), ('empty', 0, 64)])
+def test_full_rounds_match_plain(cuda, kind, n, N):
+    """B9's init and every round of its loop on the card against the plain
+    versions (sa, dense ranks and both counts), each round both as the
+    segmented refine and as the full sort, n = N - 9 up to n about N / 2;
+    one sa_full_round launch a round; the loop's result with its
+    closed-form pads equal to the plain loop's and native SA-IS."""
+    if kind == 'words':
+        data = np.frombuffer(b' '.join(
+            b'%x' % w for w in np.random.default_rng(n).integers(
+                0, 3000, size=n))[:n], np.uint8).copy()
+    elif kind == 'digit':
+        data = _digit_body(n, 5)
+    else:
+        data = np.full(n, ord('a'), np.uint8)
+    text = torch.zeros(N, dtype=torch.uint8, device=cuda)
+    text[:n] = torch.from_numpy(data)
+    init = SA._full_init_bytes(text, n)
+    pinit = SA._full_init_bytes_plain(text.cpu(), n)
+    assert init[2:] == pinit[2:]
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(init[:2], pinit[:2]))
+    sa, rank, _, real = init
+    psa, prank = (t.clone() for t in pinit[:2])
+    W, k, rounds = SA._key_width(N), 6, 0
+    before = kernels.LAUNCHES['sa_full_round']
+    while k < N and real < n:
+        want = SA._full_key_round_plain(psa, prank, k, W, n)
+        for count in (None, 0):  # the segmented refine, then the full sort
+            state = [sa.clone(), rank.clone()]
+            counts = SA._full_round(*state, k, W, n, count)
+            assert counts == want, (k, count)
+            assert torch.equal(state[0].cpu(), psa)
+            assert torch.equal(state[1].cpu(), prank)
+        sa, rank = state
+        real, k, rounds = want[1], 2 * k, rounds + 1
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES['sa_full_round'] - before == 2 * rounds
+    before = kernels.LAUNCHES['sa_full_round']
+    full = SA.sa_full_doubling(text, n)
+    assert kernels.LAUNCHES['sa_full_round'] - before == rounds
+    assert torch.equal(full.cpu(), SA.sa_full_doubling_plain(text.cpu(), n))
+    assert torch.equal(full[:N - n].cpu(),
+                       torch.arange(N - 1, n - 1, -1, dtype=torch.int32))
+    if n:
+        assert np.array_equal(full[N - n:].cpu().numpy(),
+                              suffix_array_native(data))
+    vals = data.astype(np.int32)
+    ranks = torch.zeros(N, dtype=torch.int32, device=cuda)
+    ranks[:n] = torch.from_numpy(vals + 1)
+    iinit = SA.sa_full_init_int(ranks, n)
+    piinit = SA.sa_full_init_int_plain(ranks.cpu(), n)
+    assert iinit[2:] == piinit[2:]
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(iinit[:2], piinit[:2]))
+    assert torch.equal(SA.sa_full_doubling_int(ranks, n).cpu(),
+                       SA.sa_full_doubling_int_plain(ranks.cpu(), n))
+
+
+def _seed_rows():
+    """(name, sorted keys [n], shift, size): the K3 rows the derive path
+    never makes but must survive."""
+    rng = np.random.default_rng(4)
+    n = 300_000
+    yield 'uniform', np.sort(rng.integers(0, 1 << 15, n)), 0, (1 << 15) + 1
+    skew = np.sort(np.where(rng.random(n) < 0.97, 777,
+                            rng.integers(0, 1 << 15, n)))
+    yield 'one bucket', skew, 0, (1 << 15) + 1
+    yield 'sparse', np.sort(rng.choice([5, 40_000, 900_000], n)), 0, 1 << 20
+    yield 'shifted', np.sort(rng.integers(-(1 << 22), 1 << 22, n)), 9, \
+        (1 << 21) + 1
+    yield 'longer than n', np.sort(rng.integers(0, 1 << 22, 500)), 2, \
+        (1 << 20) + 1
+    yield 'n = 1', np.array([3]), 0, 4097
+    yield 'n = 0', np.zeros(0, np.int64), 0, 4097
+
+
+@pytest.mark.parametrize('row', list(range(7)))
+def test_seed_table_matches_plain_on_skewed_rows(cuda, row):
+    """K3 against its plain version on rows the main path does not make:
+    one bucket holding 97% of the row, long runs of empty entries, a table
+    longer than n, n = 0 and 1, shift 0 and above, negative keys."""
+    name, keys, shift, size = list(_seed_rows())[row]
+    n = keys.size
+    N = n + 37
+    rng = np.random.default_rng(row)
+    sa = rng.permutation(N).astype(np.int32)
+    packed = np.full(N, -(1 << 31), np.int64)
+    packed[sa[:n]] = keys << shift
+    packed = torch.from_numpy(packed.astype(np.int32)).to(cuda)
+    sa = torch.from_numpy(sa).to(cuda)
+    before = kernels.LAUNCHES['seed_table']
+    got = S._table(packed, sa, n, size, shift, None)
+    assert kernels.LAUNCHES['seed_table'] == before + 1
+    want = S._table_plain(packed.cpu(), sa.cpu(), n, size, shift)
+    assert torch.equal(got.cpu(), want), name
+
+
 @pytest.mark.parametrize('size', [1, 70_000, (1 << 22) + 3])
 def test_full_doubling_matches_plain(cuda, size):
     """B9's byte form (init, every round, the finished SA with its pad
@@ -525,13 +625,16 @@ def test_full_doubling_matches_plain(cuda, size):
     vals[::5] = vals[0]
     ranks = torch.zeros(_pad_len(n), dtype=torch.int32, device=cuda)
     ranks[:n] = torch.from_numpy(vals + 1)
-    assert torch.equal(SA.sa_full_doubling_int(ranks),
-                       SA.sa_full_doubling_int_plain(ranks))
+    assert torch.equal(SA.sa_full_doubling_int(ranks, n),
+                       SA.sa_full_doubling_int_plain(ranks, n))
     assert np.array_equal(SA.suffix_array_int(vals, 1 << 20, 'torch'),
                           SA.suffix_array_int(vals, 1 << 20, 'native'))
     torch.cuda.synchronize()
-    for name in ('sa_full_init_bytes', 'sa_full_round'):
+    for name in ('sa_full_init_bytes', 'sa_full_init_ranks'):
         assert kernels.LAUNCHES[name] > before[name], name
+    # One byte is settled by the init: no round runs.
+    rounds = kernels.LAUNCHES['sa_full_round'] - before['sa_full_round']
+    assert (rounds > 0) == (size > 1)
 
 
 def test_writer_auto_builds_on_card(cuda, tmp_path):

@@ -23,6 +23,7 @@ from pysubstringsearch_tpu.ops.suffix_array import (
     _doubling_kernel,
     _doubling_round,
     _init_round,
+    _int_doubling_kernel,
     _init_round_anchored,
     _init_round_anchored_ranked,
     _relabel_and_scatter,
@@ -330,6 +331,101 @@ def test_full_doubling_matches_jax_and_numpy(case):
                                   tsa.suffix_array_numpy(data))
     assert torch.equal(sa, tsa.sa_full_doubling_plain(
         torch.from_numpy(padded), n))
+
+
+_jint = jax.jit(_int_doubling_kernel)
+
+
+def _lcp_max(data: np.ndarray) -> int:
+    """The longest common prefix of two neighbours in the SA of data."""
+    sa, best = tsa.suffix_array_numpy(data), 0
+    for s, t in zip(sa[:-1], sa[1:]):
+        a, b = data[s:], data[t:]
+        m = min(a.size, b.size)
+        neq = np.flatnonzero(a[:m] != b[:m])
+        best = max(best, int(neq[0]) if neq.size else m)
+    return best
+
+
+def _rounds_needed(data: np.ndarray, k0: int, width: int) -> int:
+    """Rounds k = k0, 2 k0, ... below ``width`` until prefixes of 2k
+    separate every pair of real suffixes (they part within lcp + 1)."""
+    need, rounds, k = _lcp_max(data) + 1, 0, k0
+    while k < min(width, need):
+        rounds, k = rounds + 1, 2 * k
+    return rounds
+
+
+def _count_rounds(monkeypatch):
+    calls = []
+    real = tsa._full_key_round_plain
+
+    def spy(*args):
+        calls.append(args[2])
+        return real(*args)
+
+    monkeypatch.setattr(tsa, '_full_key_round_plain', spy)
+    return calls
+
+
+@pytest.mark.parametrize('padding', ['tight', 'wide'])
+@pytest.mark.parametrize('case', ['words5', 'wide6', 'short', 'repeat',
+                                  'one', 'nul'])
+def test_full_doubling_stops_when_the_text_is_settled(case, padding,
+                                                      monkeypatch):
+    """B9 stops once the real slots hold distinct ranks and writes the pad
+    slots in closed form: slots [N - n, N) equal the JAX loop's and numpy,
+    the pads are [N - 1, ..., n], and the rounds are the ones the text
+    needs -- fewer than the JAX loop's on words, whose pads tie until k
+    passes N, and all of them on ``repeat`` at the tight padding."""
+    data = FULL_CASES[case]()
+    n = data.size
+    # The Writer's padding, or the scale-out rows' (at least 2n).
+    width = tsa._pad_len(n + 6) if padding == 'tight' else 2 * N
+    padded = np.zeros(width, dtype=np.uint8)
+    padded[:n] = data
+    calls = _count_rounds(monkeypatch)
+    sa = tsa.sa_full_doubling(torch.from_numpy(padded), n).numpy()
+    jsa = np.asarray(_jfull(jnp.asarray(padded), jnp.int32(n)))
+    np.testing.assert_array_equal(sa[width - n:], jsa[width - n:])
+    np.testing.assert_array_equal(sa[width - n:], tsa.suffix_array_numpy(data))
+    np.testing.assert_array_equal(sa[:width - n],
+                                  np.arange(width - 1, n - 1, -1))
+    rounds = len(calls)
+    assert rounds == _rounds_needed(data, 6, width)
+    jax_rounds = _rounds_needed(np.zeros(width, dtype=np.uint8), 6, width)
+    if case == 'words5':
+        assert rounds < jax_rounds
+    if case == 'repeat' and padding == 'tight':
+        assert rounds == jax_rounds
+    plain = tsa.sa_full_doubling_plain(torch.from_numpy(padded), n)
+    assert torch.equal(torch.from_numpy(sa), plain)
+
+
+@pytest.mark.parametrize('n, k', [(1, 1), (100, 3), (1000, 50), (1900, 4),
+                                  (2000, 1 << 20)])
+def test_int_doubling_stops_when_the_values_are_settled(n, k, monkeypatch):
+    """B9's integer form at a padding of at least 2n: slots [N - n, N)
+    equal ``_int_doubling_kernel`` and numpy, the pads are closed-form, and
+    the rounds after the init are the ones the values need."""
+    width = 2 * N
+    vals = np.random.default_rng(n).integers(0, k, size=n, dtype=np.int32)
+    if k == 4:
+        vals[n // 2:] = vals[: n - n // 2]  # a long repeat: real ties
+    ranks = np.zeros(width, dtype=np.int32)
+    ranks[:n] = vals + 1
+    calls = _count_rounds(monkeypatch)
+    sa = tsa.sa_full_doubling_int(torch.from_numpy(ranks), n).numpy()
+    jsa = np.asarray(_jint(jnp.asarray(ranks), jnp.int32(n)))
+    want = tsa.suffix_array_int(vals, k, 'numpy')
+    np.testing.assert_array_equal(sa[width - n:], jsa[width - n:])
+    np.testing.assert_array_equal(sa[width - n:], want)
+    np.testing.assert_array_equal(sa[:width - n],
+                                  np.arange(width - 1, n - 1, -1))
+    assert calls[0] == 1  # the init, the JAX first round at k = 1
+    assert len(calls) - 1 == _rounds_needed(vals, 2, width)
+    assert torch.equal(torch.from_numpy(sa), tsa.sa_full_doubling_int_plain(
+        torch.from_numpy(ranks), n))
 
 
 @pytest.mark.parametrize('n, k', [(1, 1), (7, 2), (100, 3), (1000, 50),
