@@ -69,14 +69,15 @@ Phases (any failure raises and exits non-zero):
    (``make_corpus`` with word bytes 33-126, so 96 distinct bytes and no
    NUL) in a container of its own; launch counts from 0, then ``Reader``
    derives it over merged rows (SA by B1b and B2 from k = 6, tables by K7
-   and K3, limbs by K5 and K6) and answers the same kind of batch plus a
-   few patterns holding NUL or a byte >= 0x80; B1b, one B2 round, K5, K6,
-   K7 and K3 against their plain versions on row 0, timed; every row's
+   and K3, limbs by K6 from the text, no K5) and answers the same kind of
+   batch plus a few patterns holding NUL or a byte >= 0x80; B1b, one B2
+   round, K5, K6, K7 and K3 against their plain versions on row 0, timed
+   (K5, the JAX raw_pack_jit's counterpart, on no path); every row's
    ``derive_sa`` against its plain version and row 0's SA against the
    host's native SA-IS; K4 and B8 on every row against their plain
    versions; the answers against the host as in 5; probe p50; and two
    small full-byte chunks (255 distinct bytes), derived on the card (SA
-   against native SA-IS, K7 with K3 at base 258, K4) and uploaded (K5-K7
+   against native SA-IS, K7 with K3 at base 258, K4) and uploaded (K6, K7
    and K3 launched once a chunk, row 0's table and limbs against the host
    builders, K4);
 10. the digit kind: ``make_digit_corpus(--mb)`` (the lines of
@@ -85,7 +86,8 @@ Phases (any failure raises and exits non-zero):
    launch counts from 0: B1b once for every chunk of at least 64 KiB, and
    every chunk's SA against native SA-IS; then, counts from 0 again,
    ``Reader(path)`` derives it (SA by B1b and B2, bucket table 258^3 and
-   5 limb planes by B12d from one K7 pass a row, probe B11, hits B8) and
+   5 limb planes by B12d: one K7 pass a row for the table, the planes from
+   the text; probe B11, hits B8) and
    answers 10k patterns of 4-12 characters, 500 of 4-12 bytes, the 200
    deep ones, patterns of 1-2 bytes and patterns holding a byte >= 0x80
    (count 0); K7, K3 and the limb planes on row 0, B1b and one B2 round
@@ -161,7 +163,7 @@ UPLOAD_KERNELS = ('ranked_pack', 'ranked_limb_planes', 'seed_table',
                   'probe_phased')
 #: Entry points the raw-kind derive path launches.
 RAW_KERNELS = ('sa_init_bytes', 'sa_tie_scan', 'sa_refine_round',
-               'sa_roll_front', 'seed_prefix', 'seed_table', 'raw_pack',
+               'sa_roll_front', 'seed_prefix', 'seed_table',
                'raw_limb_planes', 'probe_phased', 'scan_exclusive_sum',
                'gather_hits_flat')
 #: Entry points the digit-kind derive path launches.
@@ -977,16 +979,19 @@ def aux_kernels(idx, row, entry):
                                         out=packed), 20),
           cuda_ms(lambda: S.ranked_pack_plain(text0, n0, idx.rank, bits), 3),
           5 * N)
-    limbs = S.ranked_limb_planes(packed, sa0, n0, depth, bits, K)
+    limbs = S.ranked_limb_planes(text0, sa0, n0, idx.rank, depth, bits, K)
     entry('ranked_limb_planes', f'{JAX_SEARCH}:1188', SEARCH_SRC,
-          max(err(limbs, S.ranked_limb_planes_plain(packed, sa0, n0, depth,
+          max(err(limbs, S.ranked_limb_planes_text_plain(
+              text0, sa0, n0, idx.rank, depth, bits, K)),
+              err(limbs, S.ranked_limb_planes_plain(packed, sa0, n0, depth,
                                                      bits, K)),
               err(limbs, idx.limbs[row])),
-          cuda_ms(lambda: S.ranked_limb_planes(packed, sa0, n0, depth, bits,
-                                               K, out=limbs), 20),
-          cuda_ms(lambda: S.ranked_limb_planes_plain(packed, sa0, n0, depth,
-                                                     bits, K), 3),
-          8 * N + 4 * K * N, gather_ms(packed, sa0, depth, 30 // bits, K))
+          cuda_ms(lambda: S.ranked_limb_planes(text0, sa0, n0, idx.rank,
+                                               depth, bits, K, out=limbs),
+                  20),
+          cuda_ms(lambda: S.ranked_limb_planes_text_plain(
+              text0, sa0, n0, idx.rank, depth, bits, K), 3),
+          5 * N + 4 * K * N, gather_ms(packed, sa0, depth, 30 // bits, K))
     table = S.seed_table(packed, sa0, n0, base, depth, bits)
     entry('seed_table', f'{JAX_SEARCH}:896', SEARCH_SRC,
           max(err(table, S.seed_table_plain(packed, sa0, n0, base, depth,
@@ -1152,7 +1157,7 @@ def raw_kind_probe(dev):
     """Two small full-byte raw-kind chunks (255 distinct bytes, no NUL).
     Derived on the card by ``'auto'``: its SA against native SA-IS, K7
     with K3 at base 258 and K4 against their plain versions.  Uploaded
-    with ``mode='upload'``: K5, K6, K7 and K3 launched once a chunk, row
+    with ``mode='upload'``: K6, K7 and K3 launched once a chunk, row
     0's table and limbs equal the host builders', and K4 against its plain
     version."""
     import numpy as np
@@ -1202,7 +1207,7 @@ def raw_kind_probe(dev):
           and uidx.num_chunks == 2,
           f'full-byte raw-kind upload index (got {uidx.kind}, {uidx.mode}, '
           f'{uidx.num_chunks} rows)')
-    for name in ('raw_pack', 'raw_limb_planes', 'seed_prefix', 'seed_table'):
+    for name in ('raw_limb_planes', 'seed_prefix', 'seed_table'):
         check(kernels.LAUNCHES[name] - before[name] == 2,
               f'raw upload built its aux with {name} once a chunk')
     c0 = raw_chunks[0]
@@ -1216,7 +1221,7 @@ def raw_kind_probe(dev):
         S.build_raw_limbs_host(c0.data, c0.suffix_array, uidx.num_limbs,
                                uidx._depth), uidx.n_pad)),
           'raw upload row 0 limbs equal the host builder')
-    log(f'full-byte raw upload: K5-K7 and K3 once a chunk; row 0 seed table '
+    log(f'full-byte raw upload: K6, K7 and K3 once a chunk; row 0 seed table '
         f'at {uidx._base}^{uidx._depth} and {uidx.num_limbs} limb planes '
         'equal the host builders')
     raw_probe_check(uidx, rpats, 'full-byte raw upload')
@@ -1382,19 +1387,26 @@ def run_raw(idx_path, pats, dev, ranked_rows):
                table_ms, table_plain_ms, table_bytes(table),
                *searchsorted_ms(pv, sa0, n0, table.shape[0], 0))
     del pv_p
+    # K5 is on no path since K6 gathers the text; it is held against its
+    # plain version here, and the library gather beside K6 reads its pack.
+    check(launches['raw_pack'] == 0,
+          'the raw derive path launched no raw pack (K6 reads the text)')
     packed = S.raw_pack(text0, n0, out=pv)
     entry('raw_pack', f'{JAX_SEARCH}:833', SEARCH_SRC,
           err(packed, S.raw_pack_plain(text0, n0)),
           cuda_ms(lambda: S.raw_pack(text0, n0, out=packed), 20),
           cuda_ms(lambda: S.raw_pack_plain(text0, n0), 3), 5 * N)
-    limbs = S.raw_limb_planes(packed, sa0, n0, depth, K)
+    limbs = S.raw_limb_planes(text0, sa0, n0, depth, K)
     entry('raw_limb_planes', f'{JAX_SEARCH}:862', SEARCH_SRC,
-          max(err(limbs, S.raw_limb_planes_plain(packed, sa0, n0, depth, K)),
+          max(err(limbs, S.raw_limb_planes_text_plain(text0, sa0, n0, depth,
+                                                      K)),
+              err(limbs, S.raw_limb_planes_plain(packed, sa0, n0, depth, K)),
               err(limbs, idx.limbs[0])),
-          cuda_ms(lambda: S.raw_limb_planes(packed, sa0, n0, depth, K,
+          cuda_ms(lambda: S.raw_limb_planes(text0, sa0, n0, depth, K,
                                             out=limbs), 20),
-          cuda_ms(lambda: S.raw_limb_planes_plain(packed, sa0, n0, depth, K),
-                  3), 8 * N + 4 * K * N, gather_ms(packed, sa0, depth, 4, K))
+          cuda_ms(lambda: S.raw_limb_planes_text_plain(text0, sa0, n0, depth,
+                                                       K), 3),
+          5 * N + 4 * K * N, gather_ms(packed, sa0, depth, 4, K))
     del pv, packed, limbs, table
     packed_np, lengths_np = S.pack_patterns(pats)
     lo_k, cnt_k = probe_kernel(idx, packed_np, lengths_np, check_only)
@@ -1573,9 +1585,9 @@ def write_digit_container(pss, d, args):
 
 
 def digit_aux_kernels(idx, entry, check_only):
-    """B12d on row 0: K7 at base 258 (the bucket depth and depth 3), K3 on
-    its values and the offset-2 stride-3 limb planes, against their plain
-    versions and the index's own table and limbs, timed."""
+    """B12d on row 0: K7 at base 258 (the bucket depth), K3 on its values
+    and the offset-2 stride-3 limb planes from the text, against their
+    plain versions and the index's own table and limbs, timed."""
     import torch
 
     from pysubstringsearch_tpu_torch.ops import search as S
@@ -1610,18 +1622,17 @@ def digit_aux_kernels(idx, entry, check_only):
                                                           depth), 3),
                N + 4 * N + table_bytes(table))
     del table
-    # The limbs from the depth-3 K7 values, as the index builds them at
-    # this depth (its table's K7 pass serves both).
+    # The limbs from the text; the library gather beside them takes the
+    # depth-3 K7 values, the stream the JAX program gathers.
+    limbs = S.digit_limb_planes(text0, sa0, n0, K)
     pv = S.seed_prefix(text0, n0, ident, 258, 3, out=pv)
-    limbs = S.digit_limb_planes(text0, sa0, n0, K, prefix=pv)
     entry('digit_limb_planes', f'{JAX_SEARCH}:535', SEARCH_SRC,
           max(err(limbs, S.digit_limb_planes_plain(text0, sa0, n0, K)),
-              err(limbs, S.digit_limb_planes(text0, sa0, n0, K)),
               err(limbs, idx.limbs[0])),
-          cuda_ms(lambda: S.digit_limb_planes(text0, sa0, n0, K, out=limbs,
-                                              prefix=pv), 20),
+          cuda_ms(lambda: S.digit_limb_planes(text0, sa0, n0, K, out=limbs),
+                  20),
           cuda_ms(lambda: S.digit_limb_planes_plain(text0, sa0, n0, K), 3),
-          8 * N + 4 * K * N, gather_ms(pv, sa0, 2, 3, K))
+          5 * N + 4 * K * N, gather_ms(pv, sa0, 2, 3, K))
     del pv, limbs
     torch.cuda.empty_cache()
 
@@ -1649,9 +1660,9 @@ def digit_probe_kernel(idx, packed_np, lengths_np, entry):
 def digit_upload_check(dev, chunk_datas):
     """A digit index of two small chunks (the first 4 MiB of two container
     chunks, SA by native SA-IS) in ``mode='upload'``: the digit aux
-    launched once a chunk (K7 twice: the table's depth 2, the limbs' depth
-    3), row 0's table and limbs equal the host builders', and B11 over 2000
-    patterns equals its plain version."""
+    launched once a chunk (K7 and K3 for the table, the limb planes from
+    the text), row 0's table and limbs equal the host builders', and B11
+    over 2000 patterns equals its plain version."""
     import numpy as np
     import torch
 
@@ -1674,7 +1685,7 @@ def digit_upload_check(dev, chunk_datas):
           and uidx.num_chunks == 2 and uidx._depth == 2,
           f'digit upload index (got {uidx.kind}, {uidx.mode}, '
           f'{uidx.num_chunks} rows, depth {uidx._depth})')
-    for name, per in (('seed_prefix', 2), ('seed_table', 1),
+    for name, per in (('seed_prefix', 1), ('seed_table', 1),
                       ('digit_limb_planes', 1), ('probe_limbs', 0)):
         check(kernels.LAUNCHES[name] - before[name] == 2 * per,
               f'digit upload launched {name} {per} time(s) a chunk')
@@ -1795,7 +1806,7 @@ def run_digit(idx_path, pats, byte_pats, dev, chunk_datas):
           f'(got {idx.num_chunks} x {idx.n_pad}, {idx._base}^{idx._depth}, '
           f'{idx.num_limbs})')
     check(launches['seed_prefix'] == idx.num_chunks,
-          f'one K7 pass a row built the depth-3 tables and limbs (K7 '
+          f'one K7 pass a row built the depth-3 tables, none the limbs (K7 '
           f'launched {launches["seed_prefix"]} times for {idx.num_chunks} '
           'rows)')
     for i, x in enumerate(result['rows']):

@@ -1,9 +1,11 @@
 // Hand-written Hopper kernels of the device index: the aux builders that
-// turn (text, SA) into limb planes and a seed table (K1-K3 for rank digits,
-// K5-K7 with K3 for raw bytes, K7 with K3 and the digit limb planes for
-// base-258 digits), the probes that answer a query batch against them (K4
-// phased, B11 over digit limbs, B15 over bare text and SA), and the gathers
-// of hits (B8 flat for a merged row, B15 capped per query).
+// turn (text, SA) into limb planes and a seed table (K2, K6 and the digit
+// limb planes gather text windows; K1 and K3 make the ranked table, K7 and
+// K3 the raw and digit ones; K5, the raw pack, is the counterpart of the
+// JAX raw_pack_jit and serves no path of the port), the probes that
+// answer a query batch against them (K4 phased, B11 over digit limbs, B15
+// over bare text and SA), and the gathers of hits (B8 flat for a merged
+// row, B15 capped per query).
 //
 // Built by pysubstringsearch_tpu_torch/ops/kernels.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -c ... && nvcc -shared
@@ -85,36 +87,218 @@ __global__ void raw_pack_kernel(const uint8_t* __restrict__ text,
 }
 
 // ---------------------------------------------------------------------------
-// K2 and K6, limb planes.  K2 replaces _ranked_limb_col_from_pack /
-// derive_limb_ranked_jit, K6 derive_limb_raw_jit and build_raw_limbs_device
-// (ops/search.py); both write one plane per dispatch.  One kernel serves
-// both: a plane gathers the pack at a stride of D text positions, D = 30 /
-// bits rank digits for K2 and 4 raw bytes for K6; each has its own entry
-// point (and so its own launch count).
+// K2, K6 and B12d's limb planes, from the text.  K2 replaces
+// _ranked_limb_col_from_pack / derive_limb_ranked_jit, K6
+// derive_limb_raw_jit and build_raw_limbs_device, B12d's limbs
+// build_limbs_device (ops/search.py); the JAX programs gather a packed
+// stream (K1's, K5's or the base-258 one) once a plane.  One kernel
+// template serves the three, each with its own entry point (and so its own
+// launch count): plane j of slot i < n packs the D digits of text positions
+// start_j .. start_j + D - 1, start_j = clip(sa[i]) + off + D * j:
+//   ranked: D = 30 / bits rank digits (srank[byte]), big-endian at `bits`
+//           bits each, off = depth;
+//   raw:    D = 4 bytes big-endian, the top one biased by -128 (its high bit
+//           flipped on unsigned bits), off = depth;
+//   digit:  D = 3 base-258 digits (byte + 1), off = 2;
+// a digit at or past n is 0, and a slot i >= n is 0 in every plane.  The
+// ranked and raw planes keep the pack gather's clamp, start_j = min(start_j,
+// N - 1) (a plane past the row's end is the pack's value at N - 1, which
+// is not 0 when n = N); the digit planes never had one (their plain version
+// and the JAX program read 0 past n).
 //
-// limbs[j * N + i] = packed[min(clip(sa[i]) + depth + D * j, N - 1)] for
-// i < n, else 0, for every plane j in one pass over sa.  Bound by memory:
-// per slot one coalesced 4-byte sa read, K scattered 4-byte packed reads
-// (neighbouring slots point anywhere in the text) and K coalesced writes.
+// Bound by memory: per slot one coalesced 4-byte sa read, K coalesced
+// 4-byte writes, and the scattered read of the window's D * K <= 18 text
+// bytes (neighbouring slots point anywhere in the text), which is where the
+// time goes.  Gathering the text instead of a 4-byte pack of it touches
+// 1.3-1.5 32-byte sectors a slot instead of 2-2.5 (K reads 4 bytes apart
+// by D positions), and no pass builds the pack for it.  A thread takes
+// kLimbSlots slots: one 16-byte sa load, then every slot's window as
+// aligned 16-byte loads through the read-only path, all in flight before
+// the first is used; digits are cut from registers (funnel shifts) and each
+// plane's kLimbSlots values leave as one 16-byte store.  A window that
+// would leave the row, or reach a clamped plane, takes byte loads.
 // ---------------------------------------------------------------------------
-__global__ void limb_planes_kernel(const int* __restrict__ packed,
-                                   const int* __restrict__ sa, long long N,
-                                   int n, int depth, int stride,
-                                   int num_limbs, int* __restrict__ limbs) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < N; i += (long long)gridDim.x * blockDim.x) {
-    if (i < n) {
-      long long s = sa[i];
-      s = s < 0 ? 0 : (s > N - 1 ? N - 1 : s);
-      for (int j = 0; j < num_limbs; ++j) {
-        long long idx = s + depth + (long long)stride * j;
-        idx = idx > N - 1 ? N - 1 : idx;
-        limbs[(long long)j * N + i] = packed[idx];
-      }
-    } else {
-      for (int j = 0; j < num_limbs; ++j) limbs[(long long)j * N + i] = 0;
+constexpr int kLimbRanked = 0;
+constexpr int kLimbRaw = 1;
+constexpr int kLimbDigit = 2;
+constexpr int kLimbSlots = 4;  // slots a thread
+constexpr int kDigitBase = 258;
+constexpr int kDigitLimbOffset = 2;
+constexpr int kDigitLimbStride = 3;
+
+template <int KIND>
+__device__ __forceinline__ uint32_t limb_digit(uint32_t byte,
+                                               const int* srank) {
+  if (KIND == kLimbRanked) return static_cast<uint32_t>(srank[byte]);
+  if (KIND == kLimbRaw) return byte;
+  return byte + 1;
+}
+
+// One plane's value from its D digits, first digit first.
+template <int KIND, int D>
+__device__ __forceinline__ uint32_t limb_fold(uint32_t v, uint32_t digit) {
+  if (KIND == kLimbRanked) return (v << (30 / D)) + digit;
+  if (KIND == kLimbRaw) return (v << 8) | digit;
+  return v * kDigitBase + digit;
+}
+
+template <int KIND>
+__device__ __forceinline__ uint32_t limb_finish(uint32_t v) {
+  return KIND == kLimbRaw ? v ^ 0x80000000u : v;
+}
+
+// A slot's planes by byte loads: windows near the row's end, and the
+// clamped planes of the ranked and raw kinds.
+template <int KIND, int D, int KMAX>
+__device__ __forceinline__ void limb_slot_bytes(const uint8_t* __restrict__ text,
+                                const int* srank, long long N, long long n,
+                                long long q0, uint32_t* v) {
+#pragma unroll
+  for (int j = 0; j < KMAX; ++j) {
+    long long start = q0 + static_cast<long long>(D) * j;
+    if (KIND != kLimbDigit && start > N - 1) start = N - 1;
+    uint32_t x = 0;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const long long q = start + d;
+      x = limb_fold<KIND, D>(x, q < n ? limb_digit<KIND>(text[q], srank) : 0u);
+    }
+    v[j] = limb_finish<KIND>(x);
+  }
+}
+
+template <int KIND, int D, int KMAX>
+__global__ void __launch_bounds__(kThreads)
+limb_planes_kernel(const uint8_t* __restrict__ text,
+                   const int* __restrict__ rank, const int* __restrict__ sa,
+                   long long N, long long n, int off, int K,
+                   int* __restrict__ limbs) {
+  constexpr int kMaxW = D * KMAX;                // window bytes at most
+  constexpr int kChunks = (15 + kMaxW + 15) / 16;  // 16-byte loads at most
+  constexpr int kWords = (kMaxW + 3) / 4;
+  __shared__ int srank[256];
+  if (KIND == kLimbRanked) {
+    for (int t = threadIdx.x; t < 256; t += blockDim.x) srank[t] = rank[t];
+    __syncthreads();
+  }
+  const long long i0 =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) *
+      kLimbSlots;
+  if (i0 >= N) return;
+  const int W = D * K;
+  const bool vec =
+      (N & 3) == 0 && i0 + kLimbSlots <= N &&
+      ((reinterpret_cast<uintptr_t>(sa) | reinterpret_cast<uintptr_t>(limbs)) &
+       15) == 0;
+  int s[kLimbSlots];
+  if (vec) {
+    const int4 q = *reinterpret_cast<const int4*>(sa + i0);
+    s[0] = q.x; s[1] = q.y; s[2] = q.z; s[3] = q.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kLimbSlots; ++k) s[k] = i0 + k < N ? sa[i0 + k] : 0;
+  }
+  // Every window's loads first, so they are in flight together.
+  const uintptr_t lo = reinterpret_cast<uintptr_t>(text);
+  const uintptr_t hi = lo + static_cast<uintptr_t>(N);
+  long long q0[kLimbSlots];
+  bool fast[kLimbSlots];
+  uint4 c[kLimbSlots][kChunks];
+#pragma unroll
+  for (int k = 0; k < kLimbSlots; ++k) {
+    long long p = s[k];
+    p = p < 0 ? 0 : (p > N - 1 ? N - 1 : p);
+    q0[k] = p + off;
+    const uintptr_t a = lo + static_cast<uintptr_t>(q0[k]);
+    const uintptr_t a0 = a & ~static_cast<uintptr_t>(15);
+    const int need = static_cast<int>(a - a0) + W;  // bytes from a0
+    fast[k] = i0 + k < n && q0[k] + W <= N && a0 >= lo &&
+              a0 + static_cast<uintptr_t>((need + 15) & ~15) <= hi;
+#pragma unroll
+    for (int m = 0; m < kChunks; ++m) c[k][m] = make_uint4(0, 0, 0, 0);
+    if (fast[k]) {
+      const uint4* src = reinterpret_cast<const uint4*>(a0);
+      c[k][0] = __ldg(src);
+      if (kChunks > 1 && need > 16) c[k][1] = __ldg(src + 1);
+      if (kChunks > 2 && need > 32) c[k][2] = __ldg(src + 2);
     }
   }
+  uint32_t v[kLimbSlots][KMAX];
+#pragma unroll
+  for (int k = 0; k < kLimbSlots; ++k) {
+    if (i0 + k >= n) {
+#pragma unroll
+      for (int j = 0; j < KMAX; ++j) v[k][j] = 0;
+    } else if (fast[k]) {
+      uint32_t w[4 * kChunks];
+#pragma unroll
+      for (int m = 0; m < kChunks; ++m) {
+        w[4 * m] = c[k][m].x; w[4 * m + 1] = c[k][m].y;
+        w[4 * m + 2] = c[k][m].z; w[4 * m + 3] = c[k][m].w;
+      }
+      // Align the window to w[0] byte 0: whole words by two selects (no
+      // dynamically indexed array, which would go to local memory), then
+      // the bytes by a funnel shift.
+      const int o = static_cast<int>((lo + q0[k]) & 15);
+      if (o & 8) {
+#pragma unroll
+        for (int m = 0; m + 2 < 4 * kChunks; ++m) w[m] = w[m + 2];
+      }
+      if (o & 4) {
+#pragma unroll
+        for (int m = 0; m + 1 < 4 * kChunks; ++m) w[m] = w[m + 1];
+      }
+      const int sh = (o & 3) * 8;
+      uint32_t b[kWords];
+#pragma unroll
+      for (int m = 0; m < kWords; ++m) b[m] = __funnelshift_r(w[m], w[m + 1], sh);
+      // Digits at or past n are 0: window byte t is text position q0 + t.
+      const long long left = n - q0[k];
+      const int L = left < 0 ? 0 : (left > kMaxW ? kMaxW : static_cast<int>(left));
+#pragma unroll
+      for (int j = 0; j < KMAX; ++j) {
+        uint32_t x = 0;
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          const int t = D * j + d;
+          const uint32_t byte = (b[t >> 2] >> (8 * (t & 3))) & 0xffu;
+          x = limb_fold<KIND, D>(x, t < L ? limb_digit<KIND>(byte, srank) : 0u);
+        }
+        v[k][j] = limb_finish<KIND>(x);
+      }
+    } else {
+      limb_slot_bytes<KIND, D, KMAX>(text, srank, N, n, q0[k], v[k]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < KMAX; ++j) {
+    if (j >= K) break;
+    int* plane = limbs + static_cast<long long>(j) * N;
+    if (vec) {
+      *reinterpret_cast<uint4*>(plane + i0) =
+          make_uint4(v[0][j], v[1][j], v[2][j], v[3][j]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kLimbSlots; ++k)
+        if (i0 + k < N) plane[i0 + k] = static_cast<int>(v[k][j]);
+    }
+  }
+}
+
+template <int KIND, int D, int KMAX>
+int launch_limb_planes(const void* text, const void* rank, const void* sa,
+                       long long N, long long n, int off, int K, void* limbs,
+                       void* stream) {
+  if (N <= 0) return 0;
+  if (K < 1 || K > KMAX || n < 0 || n > N) return (int)cudaErrorInvalidValue;
+  const long long threads = (N + kLimbSlots - 1) / kLimbSlots;
+  const long long grid = (threads + kThreads - 1) / kThreads;
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  limb_planes_kernel<KIND, D, KMAX>
+      <<<static_cast<unsigned>(grid), kThreads, 0, (cudaStream_t)stream>>>(
+          (const uint8_t*)text, (const int*)rank, (const int*)sa, N, n, off,
+          K, (int*)limbs);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -448,9 +632,6 @@ __global__ void probe_phased_kernel(
 // 4-byte read, more only where leading limbs tie; the plane offsets are
 // 64-bit (2 x 5 x 272 Mi limbs pass 2^31).
 // ---------------------------------------------------------------------------
-constexpr int kDigitBase = 258;
-constexpr int kDigitLimbOffset = 2;
-constexpr int kDigitLimbStride = 3;
 constexpr int kProbeThreads = 128;
 
 __device__ int digit_at(const Lane& p, int q, int pad) {
@@ -700,15 +881,17 @@ int pss_ranked_pack(const void* text, long long N, int n, const void* rank,
   return (int)cudaGetLastError();
 }
 
-int pss_ranked_limb_planes(const void* packed, const void* sa, long long N,
-                           int n, int depth, int bits, int num_limbs,
-                           void* limbs, void* stream) {
-  unsigned grid = blocks_for(N);
-  if (grid > 65536u * 16u) grid = 65536u * 16u;
-  limb_planes_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)packed, (const int*)sa, N, n, depth, 30 / bits, num_limbs,
-      (int*)limbs);
-  return (int)cudaGetLastError();
+int pss_ranked_limb_planes(const void* text, const void* rank,
+                           const void* sa, long long N, long long n,
+                           int depth, int bits, int num_limbs, void* limbs,
+                           void* stream) {
+  if (bits == 5)
+    return launch_limb_planes<kLimbRanked, 6, 3>(text, rank, sa, N, n, depth,
+                                                 num_limbs, limbs, stream);
+  if (bits == 6)
+    return launch_limb_planes<kLimbRanked, 5, 3>(text, rank, sa, N, n, depth,
+                                                 num_limbs, limbs, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 int pss_raw_pack(const void* text, long long N, long long n, void* out,
@@ -720,28 +903,20 @@ int pss_raw_pack(const void* text, long long N, long long n, void* out,
   return (int)cudaGetLastError();
 }
 
-int pss_raw_limb_planes(const void* packed, const void* sa, long long N,
-                        int n, int depth, int num_limbs, void* limbs,
+int pss_raw_limb_planes(const void* text, const void* sa, long long N,
+                        long long n, int depth, int num_limbs, void* limbs,
                         void* stream) {
-  unsigned grid = blocks_for(N);
-  if (grid > 65536u * 16u) grid = 65536u * 16u;
-  limb_planes_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)packed, (const int*)sa, N, n, depth, 4, num_limbs,
-      (int*)limbs);
-  return (int)cudaGetLastError();
+  return launch_limb_planes<kLimbRaw, 4, 3>(text, nullptr, sa, N, n, depth,
+                                            num_limbs, limbs, stream);
 }
 
-// B12d's limb planes: K7's depth-3 base-258 values (identity rank) gathered
-// at offset 2, stride 3, so limbs[j * N + i] = prefix[sa[i] + 2 + 3j], the
-// digits build_limbs_device packs.
-int pss_digit_limb_planes(const void* prefix, const void* sa, long long N,
-                          int n, int num_limbs, void* limbs, void* stream) {
-  unsigned grid = blocks_for(N);
-  if (grid > 65536u * 16u) grid = 65536u * 16u;
-  limb_planes_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)prefix, (const int*)sa, N, n, kDigitLimbOffset,
-      kDigitLimbStride, num_limbs, (int*)limbs);
-  return (int)cudaGetLastError();
+// B12d's limb planes: limbs[j * N + i] = the base-258 digits of text bytes
+// sa[i] + 2 + 3j .. + 2, the digits build_limbs_device packs.
+int pss_digit_limb_planes(const void* text, const void* sa, long long N,
+                          long long n, int num_limbs, void* limbs,
+                          void* stream) {
+  return launch_limb_planes<kLimbDigit, kDigitLimbStride, 5>(
+      text, nullptr, sa, N, n, kDigitLimbOffset, num_limbs, limbs, stream);
 }
 
 int pss_seed_prefix(const void* text, long long N, long long n,

@@ -22,9 +22,9 @@ Two ways to build it, as in the JAX package:
   :meth:`count_matches` and the Reader's extraction drop those.
 
 Either way the limb planes and seed tables are built on the device from
-the rows' text and SA (ops/search.py): K1-K3 for the ranked kind, K5-K7
-with K3 for the raw kind, B12d (K7 at base 258 with K3 and the digit limb
-planes) for the digit kind.
+the rows' text and SA (ops/search.py): K1-K3 for the ranked kind, K7 with
+K3 and K6 for the raw kind, B12d (K7 at base 258 with K3, and the digit
+limb planes) for the digit kind; the limb planes gather the text.
 """
 
 from __future__ import annotations
@@ -318,12 +318,10 @@ class DeviceIndex:
 
     def _build_aux(self, table_len: int) -> None:
         """Limb planes and seed tables of every row on the device, through
-        one int32 [n_pad] scratch row: K1, then K3 and K2 from the ranked
-        pack; or K7 and K3 from the prefix values, then K5 into the same
-        row and K6 from the raw pack; or, for the digit kind, B12d's table
-        (K7 at the bucket depth, K3) and limbs (K7 at depth 3, the limb
-        planes at offset 2, stride 3; at depth 3 one K7 pass serves
-        both)."""
+        one int32 [n_pad] scratch row: K1, then K3 from the ranked pack; or
+        K7 and K3 from the prefix values; or, for the digit kind, B12d's
+        table (K7 at the bucket depth, K3).  The limb planes (K2, K6 or
+        B12d's) are gathered from the text itself."""
         C, n_pad, bits = self.num_chunks, self.n_pad, self._bits
         base, depth, K = self._base, self._depth, self.num_limbs
         self.tables = torch.empty((C, table_len), dtype=torch.int32,
@@ -337,23 +335,20 @@ class DeviceIndex:
                 search_ops.ranked_pack(text, n, self.rank, bits, out=scratch)
                 search_ops.seed_table(scratch, sa, n, base, depth, bits,
                                       out=self.tables[i])
-                search_ops.ranked_limb_planes(scratch, sa, n, depth, bits, K,
-                                              out=self.limbs[i])
+                search_ops.ranked_limb_planes(text, sa, n, self.rank, depth,
+                                              bits, K, out=self.limbs[i])
             elif self.kind == 'digit':
                 search_ops.digit_bucket_table(text, sa, n, depth,
                                               out=self.tables[i],
                                               scratch=scratch)
-                # At depth 3 the table's K7 values are the limb stream.
-                search_ops.digit_limb_planes(
-                    text, sa, n, K, out=self.limbs[i], scratch=scratch,
-                    prefix=scratch if depth == 3 else None)
+                search_ops.digit_limb_planes(text, sa, n, K,
+                                             out=self.limbs[i])
             else:
                 search_ops.seed_prefix(text, n, self.rank, base, depth,
                                        out=scratch)
                 search_ops.seed_table_from_prefix(scratch, sa, n, base, depth,
                                                   out=self.tables[i])
-                search_ops.raw_pack(text, n, out=scratch)
-                search_ops.raw_limb_planes(scratch, sa, n, depth, K,
+                search_ops.raw_limb_planes(text, sa, n, depth, K,
                                            out=self.limbs[i])
 
     @classmethod
@@ -421,8 +416,7 @@ class DeviceIndex:
         kind; at least 1) whose footprint fits the device.  Resident per
         row: text (1 B) + SA (4 B) + one int32 per plane per slot, plus the
         seed table; besides that the aux build's one scratch row (the
-        ranked pack, or the raw kind's prefix values and then its pack, or
-        the digit kind's K7 values), and in derive mode one row's SA-build
+        ranked pack, or the raw or digit kind's K7 values), and in derive mode one row's SA-build
         scratch (sort keys, values and their double buffers, the working
         rank and group starts; ops/suffix_array.SA_BUILD_BYTES_PER_SLOT).
         With rows split over ``shares`` devices, each device's share of

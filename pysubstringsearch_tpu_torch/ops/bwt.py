@@ -88,7 +88,9 @@ def bwt_from_sa_device(text: torch.Tensor, sa: torch.Tensor):
     index tensor) from uint8 [n] text and its int32 [n] SA, a permutation of
     [0, n) (see :func:`bwt_from_sa_device_plain`).  Nothing crosses to the
     host.  Raises for n = 0, as the JAX argmin of an empty array does.
-    Replaces the JAX ``bwt_from_sa_device``."""
+    The kernel gathers into an n-byte scratch, then shifts the slots up to
+    the primary index by one byte into U.  Replaces the JAX
+    ``bwt_from_sa_device``."""
     n = text.shape[0]
     if not kernels.route(text, sa):
         return bwt_from_sa_device_plain(text, sa)
@@ -100,9 +102,10 @@ def bwt_from_sa_device(text: torch.Tensor, sa: torch.Tensor):
         raise ValueError('bwt_from_sa_device: empty text')
     u = torch.empty(n, dtype=torch.uint8, device=text.device)
     primary = torch.zeros((), dtype=torch.int32, device=text.device)
+    scratch = torch.empty(n, dtype=torch.uint8, device=text.device)
     with kernels.on(text.device):
         kernels.launch('bwt_from_sa', text.data_ptr(), sa.data_ptr(), n,
-                       primary.data_ptr(), u.data_ptr())
+                       primary.data_ptr(), u.data_ptr(), scratch.data_ptr())
     return u, primary
 
 

@@ -47,14 +47,14 @@ _L = ctypes.c_longlong
 _SIGNATURES: typing.Dict[str, list] = {
     # text, N, n, rank, bits, out, stream
     'pss_ranked_pack': [_P, _L, _I, _P, _I, _P, _P],
-    # packed, sa, N, n, depth, bits, num_limbs, limbs, stream
-    'pss_ranked_limb_planes': [_P, _P, _L, _I, _I, _I, _I, _P, _P],
+    # text, rank, sa, N, n, depth, bits, num_limbs, limbs, stream
+    'pss_ranked_limb_planes': [_P, _P, _P, _L, _L, _I, _I, _I, _P, _P],
     # packed, sa, n, shift, size, scratch, table, stream
     'pss_seed_table': [_P, _P, _I, _I, _L, _P, _P, _P],
     # text, N, n, out, stream
     'pss_raw_pack': [_P, _L, _L, _P, _P],
-    # packed, sa, N, n, depth, num_limbs, limbs, stream
-    'pss_raw_limb_planes': [_P, _P, _L, _I, _I, _I, _P, _P],
+    # text, sa, N, n, depth, num_limbs, limbs, stream
+    'pss_raw_limb_planes': [_P, _P, _L, _L, _I, _I, _P, _P],
     # text, N, n, rank, base, depth, out, stream
     'pss_seed_prefix': [_P, _L, _L, _P, _I, _I, _P, _P],
     # text, n, sa, tables, limbs, rank, present, patterns, lengths,
@@ -63,8 +63,8 @@ _SIGNATURES: typing.Dict[str, list] = {
     'pss_probe_phased': [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _L, _L, _I, _I, _I, _I,
                          _P, _P, _P],
-    # prefix, sa, N, n, num_limbs, limbs, stream
-    'pss_digit_limb_planes': [_P, _P, _L, _I, _I, _P, _P],
+    # text, sa, N, n, num_limbs, limbs, stream
+    'pss_digit_limb_planes': [_P, _P, _L, _L, _I, _P, _P],
     # text, n, sa, tables, limbs, patterns, lengths, C, B, L, n_pad,
     # table_len, depth, num_limbs, lower, count, stream
     'pss_probe_limbs': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I,
@@ -75,8 +75,8 @@ _SIGNATURES: typing.Dict[str, list] = {
     'pss_probe_bytes': [_P, _P, _P, _P, _P, _I, _I, _I, _L, _P, _P, _P],
     # sa, lower, count, B, N, cap columns, out, stream
     'pss_gather_hit_positions': [_P, _P, _P, _L, _L, _I, _P, _P],
-    # text, sa, n, primary, u, stream
-    'pss_bwt_from_sa': [_P, _P, _L, _P, _P, _P],
+    # text, sa, n, primary, u, scratch, stream
+    'pss_bwt_from_sa': [_P, _P, _L, _P, _P, _P, _P],
     # in, out, n, scratch, stream
     'pss_scan_exclusive_sum': [_P, _P, _L, _P, _P],
     'pss_scan_inclusive_max': [_P, _P, _L, _P, _P],

@@ -28,16 +28,19 @@ The device functions that carry the index are CUDA kernels
 (``csrc/search_kernels.cu``), each with a plain PyTorch version beside it:
 
 - :func:`ranked_pack`   (K1): next rank digits of every text position;
-- :func:`ranked_limb_planes` (K2): all ranked limb planes in SA order;
+- :func:`ranked_limb_planes` (K2): all ranked limb planes in SA order,
+  gathered from the text (the JAX program gathers K1's pack);
 - :func:`seed_table`    (K3): the seed table from the ranked pack, and
   :func:`seed_table_from_prefix` the same kernel on K7's prefix values;
-- :func:`raw_pack`      (K5): next 4 raw bytes of every text position;
-- :func:`raw_limb_planes` (K6): all raw limb planes in SA order;
+- :func:`raw_pack`      (K5): next 4 raw bytes of every text position,
+  the JAX ``raw_pack_jit``'s counterpart (no path of the port needs it);
+- :func:`raw_limb_planes` (K6): all raw limb planes in SA order, from the
+  text;
 - :func:`seed_prefix`   (K7): the seed depth's rank digits of every text
   position, for any rank map and base;
 - :func:`digit_bucket_table` and :func:`digit_limb_planes` (B12d): the
-  digit kind's table and limbs, from K7's base-258 values with K3 and the
-  limb-plane kernel at offset 2, stride 3;
+  digit kind's table from K7's base-258 values with K3, and its limbs by
+  the limb-plane kernel at offset 2, stride 3;
 - :func:`probe_phased`  (K4): the phased probe;
 - :func:`probe_limbs`   (B11): the digit kind's probe;
 - :func:`gather_hits_flat` (B8): a merged row's hits as flat (position,
@@ -408,29 +411,82 @@ def ranked_limb_planes_plain(packed: torch.Tensor, sa: torch.Tensor, n: int,
                               num_limbs)
 
 
-def ranked_limb_planes(packed: torch.Tensor, sa: torch.Tensor, n: int,
-                       depth: int, bits: int, num_limbs: int,
+def _window_planes_plain(digits: torch.Tensor, sa: torch.Tensor, n: int,
+                         off: int, D: int, num_limbs: int, scale: int,
+                         bias: int, clamp: bool) -> torch.Tensor:
+    """int32 [num_limbs * N], plane-major, from a text's digits (int32
+    [N + pad], 0 at or past n): plane j of slot i < n folds the D digits
+    from ``start = clip(sa[i]) + off + D*j`` (at most N - 1 where
+    ``clamp``) as ``v * scale + digit``, plus ``bias``; 0 for i >= n.
+    Positions stay int32 (N + pad < 2^31) and one plane is built at a
+    time, so a row past 2^31 plane offsets fits beside the kernel's."""
+    N = sa.shape[0]
+    s = sa.clamp(0, N - 1)
+    valid = torch.arange(N, dtype=torch.int32, device=sa.device) < n
+    out = torch.empty(num_limbs * N, dtype=torch.int32, device=sa.device)
+    for j in range(num_limbs):
+        start = s + (off + D * j)
+        if clamp:
+            start = start.clamp(max=N - 1)
+        v = torch.zeros(N, dtype=torch.int64, device=sa.device)
+        for d in range(D):
+            v = v * scale + digits[start + d]
+        out[j * N:(j + 1) * N] = torch.where(valid, v + bias, 0)
+    return out
+
+
+def _text_digits(text: torch.Tensor, n: int, values: torch.Tensor,
+                 pad: int) -> torch.Tensor:
+    """int32 [N + pad]: ``values`` (a digit per text position) below n,
+    else 0."""
+    N = text.shape[0]
+    out = torch.zeros(N + pad, dtype=torch.int32, device=text.device)
+    out[:N] = torch.where(torch.arange(N, device=text.device) < n, values, 0)
+    return out
+
+
+def ranked_limb_planes_text_plain(text: torch.Tensor, sa: torch.Tensor,
+                                  n: int, rank: torch.Tensor, depth: int,
+                                  bits: int,
+                                  num_limbs: int) -> torch.Tensor:
+    """K2 from the text, as its kernel computes it: plane j of slot i < n
+    packs the rank digits of text positions ``min(clip(sa[i]) + depth +
+    D*j, N - 1) ..`` (D = 30 // bits), 0 at or past n.  Equals
+    :func:`ranked_limb_planes_plain` of K1's pack."""
+    D = ranked_limb_bytes(bits)
+    digits = _text_digits(text, n, rank[text.long()], D)
+    return _window_planes_plain(digits, sa, n, depth, D, num_limbs,
+                                1 << bits, 0, True)
+
+
+def ranked_limb_planes(text: torch.Tensor, sa: torch.Tensor, n: int,
+                       rank: torch.Tensor, depth: int, bits: int,
+                       num_limbs: int,
                        out: typing.Optional[torch.Tensor] = None,
                        ) -> torch.Tensor:
-    """K2, limb planes: every plane of one row in one pass over ``sa``
-    (see :func:`ranked_limb_planes_plain`)."""
-    N = packed.shape[0]
+    """K2, limb planes: every plane of one row in one pass over ``sa``,
+    gathered from the text with the rank map ``rank`` int32 [256] (see
+    :func:`ranked_limb_planes_text_plain`; the JAX program gathers K1's
+    pack, :func:`ranked_limb_planes_plain`, to the same planes)."""
+    N = text.shape[0]
     if out is None:
         out = torch.empty(num_limbs * N, dtype=torch.int32,
-                          device=packed.device)
-    if not kernels.route(packed, sa, out):
-        out.copy_(ranked_limb_planes_plain(packed, sa, n, depth, bits,
-                                           num_limbs))
+                          device=text.device)
+    if not kernels.route(text, sa, rank, out):
+        out.copy_(ranked_limb_planes_text_plain(text, sa, n, rank, depth,
+                                                bits, num_limbs))
         return out
-    kernels.check(packed, 'packed', torch.int32, 1)
+    kernels.check(text, 'text', torch.uint8, 1)
+    kernels.check(rank, 'rank', torch.int32, 1)
     kernels.check(sa, 'sa', torch.int32, 1)
     kernels.check(out, 'out', torch.int32, 1)
-    if sa.shape[0] != N or out.shape[0] != num_limbs * N:
-        raise ValueError('ranked_limb_planes: bad shapes')
-    with kernels.on(packed.device):
-        kernels.launch('ranked_limb_planes', packed.data_ptr(),
-                       sa.data_ptr(), N, int(n), depth, bits, num_limbs,
-                       out.data_ptr())
+    if (sa.shape[0] != N or out.shape[0] != num_limbs * N
+            or rank.shape[0] != 256 or bits not in (5, 6)):
+        raise ValueError('ranked_limb_planes: bad shapes or bits')
+    with kernels.on(text.device):
+        kernels.launch('ranked_limb_planes', text.data_ptr(),
+                       rank.data_ptr(), sa.data_ptr(), N, int(n), depth,
+                       bits, num_limbs, out.data_ptr())
     return out
 
 
@@ -551,27 +607,41 @@ def raw_limb_planes_plain(packed: torch.Tensor, sa: torch.Tensor, n: int,
     return _limb_planes_plain(packed, sa, n, depth, 4, num_limbs)
 
 
-def raw_limb_planes(packed: torch.Tensor, sa: torch.Tensor, n: int,
+def raw_limb_planes_text_plain(text: torch.Tensor, sa: torch.Tensor,
+                               n: int, depth: int,
+                               num_limbs: int) -> torch.Tensor:
+    """K6 from the text, as its kernel computes it: plane j of slot i < n
+    is the 4 bytes from ``min(clip(sa[i]) + depth + 4j, N - 1)``
+    big-endian, the top one biased by -128, a byte at or past n 0.  Equals
+    :func:`raw_limb_planes_plain` of K5's pack."""
+    digits = _text_digits(text, n, text.int(), 4)
+    return _window_planes_plain(digits, sa, n, depth, 4, num_limbs, 256,
+                                -(1 << 31), True)
+
+
+def raw_limb_planes(text: torch.Tensor, sa: torch.Tensor, n: int,
                     depth: int, num_limbs: int,
                     out: typing.Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
-    """K6, raw limb planes: every plane of one row in one pass over ``sa``
-    from K5's pack (see :func:`raw_limb_planes_plain`).  Replaces
-    ``derive_limb_raw_jit`` and ``build_raw_limbs_device``."""
-    N = packed.shape[0]
+    """K6, raw limb planes: every plane of one row in one pass over ``sa``,
+    gathered from the text (see :func:`raw_limb_planes_text_plain`; the JAX
+    programs gather K5's pack, :func:`raw_limb_planes_plain`, to the same
+    planes).  Replaces ``derive_limb_raw_jit`` and
+    ``build_raw_limbs_device``."""
+    N = text.shape[0]
     if out is None:
         out = torch.empty(num_limbs * N, dtype=torch.int32,
-                          device=packed.device)
-    if not kernels.route(packed, sa, out):
-        out.copy_(raw_limb_planes_plain(packed, sa, n, depth, num_limbs))
+                          device=text.device)
+    if not kernels.route(text, sa, out):
+        out.copy_(raw_limb_planes_text_plain(text, sa, n, depth, num_limbs))
         return out
-    kernels.check(packed, 'packed', torch.int32, 1)
+    kernels.check(text, 'text', torch.uint8, 1)
     kernels.check(sa, 'sa', torch.int32, 1)
     kernels.check(out, 'out', torch.int32, 1)
     if sa.shape[0] != N or out.shape[0] != num_limbs * N:
         raise ValueError('raw_limb_planes: bad shapes')
-    with kernels.on(packed.device):
-        kernels.launch('raw_limb_planes', packed.data_ptr(), sa.data_ptr(),
+    with kernels.on(text.device):
+        kernels.launch('raw_limb_planes', text.data_ptr(), sa.data_ptr(),
                        N, int(n), depth, num_limbs, out.data_ptr())
     return out
 
@@ -832,16 +902,11 @@ def digit_limb_planes_plain(text: torch.Tensor, sa: torch.Tensor, n: int,
     """Plain version of B12d's limbs: int32 [num_limbs * N], plane-major;
     for slot i < n, limb j packs the digits of bytes ``sa[i] + 2 + 3j ..
     +2`` in base 258 (byte + 1, 0 at or past n); 0 for i >= n."""
-    N = text.shape[0]
-    d = _digit_stream(text, n, key_cover_bytes(num_limbs))
-    iota = torch.arange(N, device=text.device)
-    s = sa.long().clamp(0, N - 1)
-    cols = []
-    for j in range(num_limbs):
-        o = s + DIGIT_LIMB_OFFSET + DIGIT_LIMB_STRIDE * j
-        v = (d[o] * _RADIX + d[o + 1]) * _RADIX + d[o + 2]
-        cols.append(torch.where(iota < n, v, 0))
-    return torch.cat(cols).to(torch.int32)
+    digits = _text_digits(text, n, text.int() + 1,
+                          key_cover_bytes(num_limbs))
+    return _window_planes_plain(digits, sa, n, DIGIT_LIMB_OFFSET,
+                                DIGIT_LIMB_STRIDE, num_limbs, _RADIX, 0,
+                                False)
 
 
 def _identity_rank_on(device) -> torch.Tensor:
@@ -850,17 +915,11 @@ def _identity_rank_on(device) -> torch.Tensor:
 
 def digit_limb_planes(text: torch.Tensor, sa: torch.Tensor, n: int,
                       num_limbs: int,
-                      out: typing.Optional[torch.Tensor] = None,
-                      scratch: typing.Optional[torch.Tensor] = None,
-                      prefix: typing.Optional[torch.Tensor] = None
+                      out: typing.Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
-    """B12d's limbs of one row (see :func:`digit_limb_planes_plain`): K7
-    with ``identity_rank()`` at base 258, depth 3 into ``scratch`` (int32
-    [N]), whose value at p is exactly the JAX limb stream at p, then the
-    limb-plane kernel at offset 2, stride 3.  ``prefix``, when given, holds
-    those K7 values already (a depth-3 :func:`digit_bucket_table` leaves
-    them in its scratch) and K7 is not run again.  Replaces
-    ``build_limbs_device``."""
+    """B12d's limbs of one row, gathered from the text (see
+    :func:`digit_limb_planes_plain`) by the limb-plane kernel at offset 2,
+    stride 3, base 258.  Replaces ``build_limbs_device``."""
     N = text.shape[0]
     if out is None:
         out = torch.empty(num_limbs * N, dtype=torch.int32,
@@ -868,21 +927,14 @@ def digit_limb_planes(text: torch.Tensor, sa: torch.Tensor, n: int,
     if not kernels.route(text, sa, out):
         out.copy_(digit_limb_planes_plain(text, sa, n, num_limbs))
         return out
+    kernels.check(text, 'text', torch.uint8, 1)
     kernels.check(sa, 'sa', torch.int32, 1)
     kernels.check(out, 'out', torch.int32, 1)
     if sa.shape[0] != N or out.shape[0] != num_limbs * N:
         raise ValueError('digit_limb_planes: bad shapes')
-    if prefix is None:
-        pv = seed_prefix(text, n, _identity_rank_on(text.device), _RADIX, 3,
-                         out=scratch)
-    else:
-        kernels.check(prefix, 'prefix', torch.int32, 1)
-        if prefix.shape[0] != N or prefix.device != text.device:
-            raise ValueError('digit_limb_planes: bad prefix')
-        pv = prefix
     with kernels.on(text.device):
-        kernels.launch('digit_limb_planes', pv.data_ptr(), sa.data_ptr(), N,
-                       int(n), num_limbs, out.data_ptr())
+        kernels.launch('digit_limb_planes', text.data_ptr(), sa.data_ptr(),
+                       N, int(n), num_limbs, out.data_ptr())
     return out
 
 

@@ -45,10 +45,34 @@ runs after a warm-up, and its rounds); and the whole B9 build of 400 MiB
 of ``ab`` at 416 Mi slots, the row B10 poisons (``b9_ab_build_s``, one run
 after a warm-up, and ``b9_ab_rounds``).
 
+With ``--gathers`` it times the SA-order gathers on the same derive rows
+(``GATHER_ROWS``, their SA derived on the card): K2 (``k2_ranked``, 3
+planes), K6 (``k6_raw``, 3 planes) and B12d's limb planes
+(``b12d_digit``, 5 planes), each a whole call (``_ms``) beside one
+``torch.take`` of the same planes from the pack the JAX program gathers
+(K1's, K5's, or K7's depth-3 base-258 values; indices made beforehand,
+``_take_ms``) and that pack's own pass (``_pack_ms``); and B13 on the
+ranked corpus's first 268,434,495 bytes (``b13_ms``) beside
+``text[(sa - 1) % n]`` (``b13_library_ms``) and one ``torch.take`` at
+indices made beforehand (``b13_take_ms``).  Beside each: the roofline
+bound (``_bound_ms``: inputs read once, outputs written once at 3.35
+TB/s) and the sector floor, the 32-byte sectors that these inputs'
+scattered reads touch, summed over slots, over 3.35 TB/s: the limb
+planes' for the text windows (``_sector_count_text``,
+``_sector_floor_text_ms``) and for the pack's K words
+(``_sector_count_pack``, ``_sector_floor_pack_ms``), B13's one a slot.
+The same counted in 64-byte DRAM accesses, the unit a scattered read
+that misses the L2 costs on the card (``_access_count_*``,
+``_access_floor_*``), and the rate of them the timed call reached on its
+own route (``_access_tbs``, TB/s).  A tree whose limb-plane wrappers take
+the pack (``packed`` first) is timed on the pack, made beforehand (the
+digit planes on K7's values, as its index builds them at depth 3).
+
 With ``--profile`` it first prints the device time by kernel
 (``torch.profiler``'s ``key_averages``) of B10's init, of that first pass,
 of B1b and of B2's round 1 on the 512 Mi row (and, with ``--inits``, of
-each init row, each K3 table and B9's init and round), one ``PROFILE``
+each init row, each K3 table and B9's init and round; with ``--gathers``,
+each gather), one ``PROFILE``
 line each, the group sizes of round 1's tied groups (``HISTOGRAM``: groups
 and slots of 2, 3-16, 17-256, 257-4096 and more members) and, with
 ``--inits``, each init row's buckets by the top 16, 24 and 32 bits of its
@@ -168,6 +192,187 @@ def _b9(torch, SA, kernels, bench, out, tag, text, n, profile):
                                before) // REPS
 
 
+def _smoke():
+    """This checkout's ``chip_smoke.py`` as a module (its corpus makers)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        'chip_smoke', os.path.join(root, 'chip_smoke.py'))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def _row(torch, np, smoke, args, cache, kind, nbytes, N):
+    """(bytes, uint8 [N] text on the card) of the first ``nbytes`` of the
+    ``kind`` corpus, zero-padded; the corpora are cached beside
+    ``--corpus`` and in ``cache``."""
+    if kind not in cache:
+        path = os.path.join(os.path.dirname(args.corpus),
+                            f'sa_bench_{kind}.npy')
+        if kind == 'ranked':
+            path = args.corpus
+        if not os.path.exists(path):
+            make = {'raw': smoke.make_raw_corpus,
+                    'digit': smoke.make_digit_corpus}[kind]
+            np.save(path, np.frombuffer(make(500), np.uint8))
+        cache[kind] = np.load(path, mmap_mode='r')
+    data = np.asarray(cache[kind][:nbytes])
+    text = torch.zeros(N, dtype=torch.uint8, device='cuda')
+    text[:nbytes] = torch.from_numpy(data).to('cuda')
+    return data, text
+
+
+#: The limb-plane rows: (tag, corpus, bytes, slots), as ``INIT_ROWS``.
+GATHER_ROWS = (('k2_ranked', 'ranked', 268_400_000, 272 << 20),
+               ('k6_raw', 'raw', 268_400_000, 272 << 20),
+               ('b12d_digit', 'digit', 268_400_000, 1 << 28))
+#: B13's row: the ranked corpus's first bytes as the ranked derive index's
+#: row 0 holds them, in a row of 272 Mi slots.
+B13_BYTES = 268_434_495
+#: Bytes of a sector, of a DRAM access on the card (two sectors: the
+#: access a scattered read that misses the L2 costs), and the card's
+#: memory rate (bytes/s).
+SECTOR = 32
+DRAM_ACCESS = 64
+HBM_BYTES_PER_S = 3.35e12
+
+
+def _floor_ms(nbytes):
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _window_sectors(torch, base, sa, n, off, width, unit=SECTOR):
+    """``unit``-byte blocks a slot's scattered reads of ``width`` bytes
+    from byte address ``base + clip(sa[i]) + off`` touch, summed over
+    slots i < n."""
+    a = base + sa[:n].long() + off
+    return int(((a + width - 1) // unit - a // unit + 1).sum())
+
+
+def _pack_sectors(torch, base, sa, n, N, off, D, K, unit=SECTOR):
+    """Distinct ``unit``-byte blocks of a slot's K 4-byte reads of a pack at
+    byte address ``base``, positions ``min(clip(sa[i]) + off + D*j, N -
+    1)``, summed over slots i < n (the positions never decrease in j)."""
+    s = sa[:n].long().clamp(0, N - 1)
+    total, prev = 0, None
+    for j in range(K):
+        sec = (base + 4 * (s + off + D * j).clamp(max=N - 1)) // unit
+        total += n if prev is None else int((sec != prev).sum())
+        prev = sec
+    return total
+
+
+def _gathers(torch, np, SA, S, bench, args, out):
+    """The SA-order gathers: K2, K6 and B12d's limb planes on the derive
+    rows and B13 on the ranked row, each a whole call beside the library
+    call and the sector floor of its scattered reads (for the limb planes
+    of both routes: the text windows the kernel reads now, and the pack's
+    K words the JAX program gathers); with ``--profile`` each by kernel.
+    Either tree's entry points: a ``packed`` first argument is the pack
+    route, whose pack (K1, K5, or K7 at depth 3 for the digit kind) is made
+    beforehand and timed on its own."""
+    import inspect
+
+    from pysubstringsearch_tpu_torch.ops import bwt as BWT
+
+    smoke = _smoke()
+    dev = torch.device('cuda')
+    cache = {}
+    for tag, kind, n, N in GATHER_ROWS:
+        data, text = _row(torch, np, smoke, args, cache, kind, n, N)
+        pres = np.bincount(data, minlength=256)[:256] > 0
+        K = S.KEY_LIMBS if kind == 'digit' else S.RAW_LIMBS
+        if kind == 'ranked':
+            rank_np, sigma = S.alphabet_rank(pres)
+            bits = S.ranked_bits(sigma)
+            rank = torch.from_numpy(rank_np).to(dev)
+            sa = SA.derive_sa(text, n, rank, bits)[0]
+            depth = S.pick_table_params(sigma, n)[1]
+            D, off = 30 // bits, depth
+            pack = lambda: S.ranked_pack(text, n, rank, bits)
+            fn = S.ranked_limb_planes
+            args_text = (text, sa, n, rank, depth, bits, K)
+            args_pack = lambda p: (p, sa, n, depth, bits, K)
+        elif kind == 'raw':
+            sa = SA.derive_sa(text, n)[0]
+            rank_np, sigma = S.alphabet_rank(pres)
+            depth = S.pick_table_params(sigma, n)[1]
+            D, off = 4, depth
+            pack = lambda: S.raw_pack(text, n)
+            fn = S.raw_limb_planes
+            args_text = (text, sa, n, depth, K)
+            args_pack = lambda p: (p, sa, n, depth, K)
+        else:
+            sa = SA.derive_sa(text, n)[0]
+            ident = torch.from_numpy(S.identity_rank()[0]).to(dev)
+            D, off = 3, 2
+            pack = lambda: S.seed_prefix(text, n, ident, 258, 3)
+            fn = S.digit_limb_planes
+            args_text = (text, sa, n, K)
+        params = list(inspect.signature(fn).parameters)
+        packed = pack()
+        out[f'{tag}_pack_ms'] = bench.cuda_ms(pack, REPS)
+        limbs = torch.empty(K * N, dtype=torch.int32, device=dev)
+        if params[0] == 'packed':
+            call = lambda: fn(*args_pack(packed), out=limbs)
+        elif 'prefix' in params:  # the digit planes on K7's depth-3 values
+            call = lambda: fn(*args_text, out=limbs, prefix=packed)
+        else:
+            call = lambda: fn(*args_text, out=limbs)
+        if args.profile:
+            _profile(torch, tag, call)
+        out[f'{tag}_ms'] = bench.cuda_ms(call, REPS)
+        # torch.take of the same planes from the pack, indices made
+        # beforehand: the library call beside the kernel.
+        idx = (sa.long().clamp(0, N - 1)[None, :] + off
+               + D * torch.arange(K, device=dev)[:, None])
+        idx = idx.clamp(max=N - 1).reshape(-1)
+        out[f'{tag}_take_ms'] = bench.cuda_ms(
+            lambda: torch.take(packed, idx), REPS)
+        del idx
+        for route, base in (('text', text.data_ptr()),
+                            ('pack', packed.data_ptr())):
+            for unit, name in ((SECTOR, 'sector'), (DRAM_ACCESS, 'access')):
+                if route == 'text':
+                    c = _window_sectors(torch, base, sa, n, off, D * K, unit)
+                else:
+                    c = _pack_sectors(torch, base, sa, n, N, off, D, K, unit)
+                out[f'{tag}_{name}_count_{route}'] = c
+                out[f'{tag}_{name}_floor_{route}_ms'] = _floor_ms(unit * c)
+        # The rate of 64-byte accesses the timed call reached on its route.
+        route = ('pack' if params[0] == 'packed' or 'prefix' in params
+                 else 'text')
+        out[f'{tag}_access_tbs'] = (DRAM_ACCESS
+                                    * out[f'{tag}_access_count_{route}']
+                                    / out[f'{tag}_ms'] / 1e9)
+        out[f'{tag}_bound_ms'] = _floor_ms(5 * N + 4 * K * N)
+        del sa, packed, limbs, text
+        torch.cuda.empty_cache()
+
+    # B13 on the ranked corpus's first B13_BYTES bytes and their SA.
+    n = B13_BYTES
+    data, text = _row(torch, np, smoke, args, cache, 'ranked', n, 272 << 20)
+    rank_np, sigma = S.alphabet_rank(
+        np.bincount(data, minlength=256)[:256] > 0)
+    bits = S.ranked_bits(sigma)
+    sa = SA.derive_sa(text, n, torch.from_numpy(rank_np).to(dev), bits)[0]
+    t0, s0 = text[:n], sa[:n]
+    call = lambda: BWT.bwt_from_sa_device(t0, s0)
+    if args.profile:
+        _profile(torch, 'b13', call)
+    out['b13_ms'] = bench.cuda_ms(call, REPS)
+    out['b13_library_ms'] = bench.cuda_ms(lambda: t0[(s0 - 1) % n], REPS)
+    src = (s0.long() - 1) % n
+    out['b13_take_ms'] = bench.cuda_ms(lambda: torch.take(t0, src), REPS)
+    out['b13_sector_count'] = n
+    out['b13_sector_floor_ms'] = _floor_ms(SECTOR * n)
+    out['b13_access_floor_ms'] = _floor_ms(DRAM_ACCESS * n)
+    out['b13_access_tbs'] = DRAM_ACCESS * n / out['b13_ms'] / 1e9
+    out['b13_bound_ms'] = _floor_ms(6 * n)
+    del src, sa, s0, t0, text
+    torch.cuda.empty_cache()
+
+
 def _init_rows(torch, np, SA, S, bench, args, out):
     """B1 and B1b on ``INIT_ROWS``, timed beside ``torch.sort`` of their
     keys, K3 on the ranked and digit rows and B9 on 8 MiB chunks; with
@@ -175,27 +380,11 @@ def _init_rows(torch, np, SA, S, bench, args, out):
     sizes by the top 16, 24 and 32 key bits."""
     from pysubstringsearch_tpu_torch.ops import kernels
 
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    spec = importlib.util.spec_from_file_location(
-        'chip_smoke', os.path.join(root, 'chip_smoke.py'))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = _smoke()
     dev = torch.device('cuda')
     cache = {}
     for label, kind, nbytes, N in INIT_ROWS:
-        if kind not in cache:
-            path = os.path.join(os.path.dirname(args.corpus),
-                                f'sa_bench_{kind}.npy')
-            if kind == 'ranked':
-                path = args.corpus
-            if not os.path.exists(path):
-                make = {'raw': smoke.make_raw_corpus,
-                        'digit': smoke.make_digit_corpus}[kind]
-                np.save(path, np.frombuffer(make(500), np.uint8))
-            cache[kind] = np.load(path, mmap_mode='r')
-        data = np.asarray(cache[kind][:nbytes])
-        text = torch.zeros(N, dtype=torch.uint8, device=dev)
-        text[:nbytes] = torch.from_numpy(data).to(dev)
+        data, text = _row(torch, np, smoke, args, cache, kind, nbytes, N)
         n = nbytes
         if kind == 'ranked':
             pres = np.bincount(data, minlength=256)[:256] > 0
@@ -275,6 +464,9 @@ def main(argv=None) -> int:
     ap.add_argument('--profile', action='store_true')
     ap.add_argument('--inits', action='store_true',
                     help='also time B1 and B1b on the derive rows')
+    ap.add_argument('--gathers', action='store_true',
+                    help='also time the SA-order gathers (K2, K6, B12d, '
+                    'B13)')
     ap.add_argument('--corpus', default=os.path.join(
         tempfile.gettempdir(), 'sa_bench_corpus.npy'))
     args = ap.parse_args(argv)
@@ -386,6 +578,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     if args.inits:
         _init_rows(torch, np, SA, S, bench, args, out)
+    if args.gathers:
+        _gathers(torch, np, SA, S, bench, args, out)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -95,7 +95,12 @@ def test_limb_planes_match_jax(case):
         packed, torch.from_numpy(sa), n, depth, bits, K
     ).numpy()
     wrapped = tsearch.ranked_limb_planes(
-        packed, torch.from_numpy(sa), n, depth, bits, K
+        torch.from_numpy(text), torch.from_numpy(sa), n,
+        torch.from_numpy(rank), depth, bits, K
+    ).numpy()
+    twin = tsearch.ranked_limb_planes_text_plain(
+        torch.from_numpy(text), torch.from_numpy(sa), n,
+        torch.from_numpy(rank), depth, bits, K
     ).numpy()
     host = jsearch.pad_limbs_host(
         jsearch.build_ranked_limbs_host(data, sa[:n], rank, K, depth, bits),
@@ -109,7 +114,60 @@ def test_limb_planes_match_jax(case):
                     jnp.asarray(sa))
     np.testing.assert_array_equal(plain, host)
     np.testing.assert_array_equal(plain, np.asarray(buf)[0])
+    np.testing.assert_array_equal(twin, plain)
     np.testing.assert_array_equal(wrapped, plain)
+
+
+#: A row length that is not a multiple of 16, and true lengths at its end:
+#: every window of the last suffixes crosses n, and at n = N - 1 and N the
+#: row's end too (a plane past N - 1 takes the pack's value at N - 1).
+N_EDGE = 4099
+EDGE_NS = (N_EDGE, N_EDGE - 1, N_EDGE - tsearch.PAD_MARGIN, N_EDGE - 7)
+
+
+@pytest.mark.parametrize('n', EDGE_NS)
+@pytest.mark.parametrize('name, depth, K', [('s27', 2, 3), ('s60', 3, 3),
+                                            ('s27', 6, 1)])
+def test_ranked_limb_planes_from_text_at_row_edges(name, depth, K, n):
+    """K2's text twin (and the wrapper's CPU path) equals the plain version
+    on K1's pack, and the JAX plane program on the same pack, at true
+    lengths up to the row's end; the JAX pack, whose roll wraps in the last
+    D - 1 positions, and the host builder, which never clamps, agree where
+    no window reaches those positions."""
+    data = _corpus(name)
+    data = np.resize(data, n)
+    text = np.zeros(N_EDGE, dtype=np.uint8)
+    text[:n] = data
+    # Bytes past n must not count: the kernel and its twin mask them.
+    text[n:] = 0x61
+    sa = np.empty(N_EDGE, dtype=np.int32)
+    sa[:n] = suffix_array_numpy(data)
+    sa[n:] = np.arange(N_EDGE - 1, n - 1, -1)
+    pres = np.bincount(data, minlength=256)[:256] > 0
+    rank, sigma = jsearch.alphabet_rank(pres)
+    bits = jsearch.ranked_bits(sigma)
+    D = jsearch.ranked_limb_bytes(bits)
+    depth = min(depth, D)
+    t, s, r = (torch.from_numpy(a) for a in (text, sa, rank))
+    packed = tsearch.ranked_pack_plain(t, n, r, bits)
+    spec = tsearch.ranked_limb_planes_plain(packed, s, n, depth, bits, K)
+    twin = tsearch.ranked_limb_planes_text_plain(t, s, n, r, depth, bits, K)
+    wrapped = tsearch.ranked_limb_planes(t, s, n, r, depth, bits, K)
+    assert torch.equal(twin, spec) and torch.equal(wrapped, spec)
+    plane = jsearch.derive_limb_ranked_jit(depth, bits)
+    buf = jnp.zeros((1, K * N_EDGE), jnp.int32)
+    for j in range(K):
+        buf = plane(buf, jnp.int32(0), jnp.int32(j),
+                    jnp.asarray(packed.numpy()), jnp.int32(n),
+                    jnp.asarray(sa))
+    np.testing.assert_array_equal(spec.numpy(), np.asarray(buf)[0])
+    if n + depth + D * K <= N_EDGE - D:
+        jpacked = _jax_pack(text, n, rank, bits)
+        np.testing.assert_array_equal(jpacked[: N_EDGE - D],
+                                      packed.numpy()[: N_EDGE - D])
+        host = jsearch.pad_limbs_host(jsearch.build_ranked_limbs_host(
+            data, sa[:n], rank, K, depth, bits), N_EDGE)
+        np.testing.assert_array_equal(spec.numpy(), host)
 
 
 @pytest.mark.parametrize('case', CASES, ids=lambda c: f'{c[0]}-d{c[1]}-k{c[2]}')

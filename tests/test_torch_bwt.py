@@ -77,6 +77,27 @@ def test_bwt_from_sa_device_random_matches_jax():
         assert bytes(u.numpy()) == bytes(np.asarray(uj)) and int(p) == int(pj)
 
 
+@pytest.mark.parametrize('n', [1, 2, 17, 4099])
+@pytest.mark.parametrize('where', ['first', 'last'])
+def test_bwt_from_sa_device_primary_at_either_end(n, where):
+    """B13's plain version (the wrapper's CPU path) equals the JAX device
+    function and the host transform when the slot of suffix 0 is the
+    first (i0 = 0) or the last (i0 = n - 1), on a permutation of [0, n) as
+    the kernel takes it, at row lengths that are not multiples of 16."""
+    rng = np.random.default_rng(n)
+    arr = rng.integers(0, 256, size=n, dtype=np.uint8)
+    sa = rng.permutation(n).astype(np.int32)
+    i0 = 0 if where == 'first' else n - 1
+    j = int(np.nonzero(sa == 0)[0][0])
+    sa[j], sa[i0] = sa[i0], 0
+    uj, pj = J.bwt_from_sa_device(jnp.asarray(arr), jnp.asarray(sa))
+    u, p = T.bwt_from_sa_device(torch.from_numpy(arr), torch.from_numpy(sa))
+    assert int(pj) == i0 + 1
+    assert bytes(u.numpy()) == bytes(np.asarray(uj)) and int(p) == int(pj)
+    uh, ph = T.bwt_from_sa(arr, sa)
+    assert bytes(uh) == bytes(u.numpy()) and ph == int(p)
+
+
 @pytest.mark.parametrize('data', CASES[1:], ids=range(len(CASES) - 1))
 def test_bwt_aux_matches_jax(data):
     arr = _arr(data)

@@ -82,7 +82,7 @@ def test_aux_kernels_match_plain(cuda, kind, depth, K):
     rk = torch.from_numpy(rank).to(cuda)
     before = dict(kernels.LAUNCHES)
     packed = S.ranked_pack(text, n, rk, bits)
-    limbs = S.ranked_limb_planes(packed, sa, n, depth, bits, K)
+    limbs = S.ranked_limb_planes(text, sa, n, rk, depth, bits, K)
     table = S.seed_table(packed, sa, n, base, depth, bits)
     torch.cuda.synchronize()
     for name in ('ranked_pack', 'ranked_limb_planes', 'seed_table'):
@@ -91,6 +91,8 @@ def test_aux_kernels_match_plain(cuda, kind, depth, K):
     assert torch.equal(packed, ref)
     assert torch.equal(limbs, S.ranked_limb_planes_plain(ref, sa, n, depth,
                                                          bits, K))
+    assert torch.equal(limbs, S.ranked_limb_planes_text_plain(
+        text, sa, n, rk, depth, bits, K))
     assert torch.equal(table, S.seed_table_plain(ref, sa, n, base, depth,
                                                  bits))
     host = S.pad_limbs_host(S.build_ranked_limbs_host(
@@ -383,8 +385,10 @@ def test_raw_kernels_match_plain(cuda, size):
 
     packed = S.raw_pack(text, n)
     assert torch.equal(packed, S.raw_pack_plain(text, n))
-    limbs = S.raw_limb_planes(packed, sa, n, 3, 3)
+    limbs = S.raw_limb_planes(text, sa, n, 3, 3)
     assert torch.equal(limbs, S.raw_limb_planes_plain(packed, sa, n, 3, 3))
+    assert torch.equal(limbs, S.raw_limb_planes_text_plain(text, sa, n, 3,
+                                                           3))
     host = S.pad_limbs_host(S.build_raw_limbs_host(
         data, sa[:n].cpu().numpy(), 3, 3), text.shape[0])
     assert np.array_equal(limbs.cpu().numpy(), host)
@@ -425,9 +429,9 @@ def _digit_body(size: int, seed: int) -> np.ndarray:
 @pytest.mark.parametrize('size', [1, 70_000, 3_000_000])
 @pytest.mark.parametrize('depth', [2, 3])
 def test_digit_aux_kernels_match_plain(cuda, size, depth):
-    """B12d: the bucket table (K7 at base 258, K3) and the limb planes (K7
-    at depth 3, the limb-plane kernel at offset 2, stride 3), bit for bit
-    against their plain versions and the host builders."""
+    """B12d: the bucket table (K7 at base 258, K3) and the limb planes (the
+    limb-plane kernel on the text at offset 2, stride 3, no K7), bit for
+    bit against their plain versions and the host builders."""
     data = _digit_body(size, size)
     n = data.size
     N = _pad_len(n + S.PAD_MARGIN)
@@ -437,29 +441,134 @@ def test_digit_aux_kernels_match_plain(cuda, size, depth):
     before = dict(kernels.LAUNCHES)
     scratch = torch.empty(N, dtype=torch.int32, device=cuda)
     table = S.digit_bucket_table(text, sa, n, depth, scratch=scratch)
-    limbs = S.digit_limb_planes(text, sa, n, 5, scratch=scratch)
+    limbs = S.digit_limb_planes(text, sa, n, 5)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES['seed_prefix'] == before['seed_prefix'] + 2
+    assert kernels.LAUNCHES['seed_prefix'] == before['seed_prefix'] + 1
     assert kernels.LAUNCHES['seed_table'] == before['seed_table'] + 1
     assert kernels.LAUNCHES['digit_limb_planes'] == \
         before['digit_limb_planes'] + 1
     assert torch.equal(table, S.digit_bucket_table_plain(text, sa, n, depth))
     assert torch.equal(limbs, S.digit_limb_planes_plain(text, sa, n, 5))
-    if depth == 3:
-        # The index's route: the table's K7 values feed the limbs, so K7
-        # runs once for both.
-        before = dict(kernels.LAUNCHES)
-        pv = torch.empty(N, dtype=torch.int32, device=cuda)
-        S.digit_bucket_table(text, sa, n, 3, scratch=pv)
-        again = S.digit_limb_planes(text, sa, n, 5, prefix=pv)
-        torch.cuda.synchronize()
-        assert kernels.LAUNCHES['seed_prefix'] == before['seed_prefix'] + 1
-        assert torch.equal(again, limbs)
+    # The JAX program's route: K7's depth-3 values gathered at offset 2,
+    # stride 3, on a row padded past n.
+    pv = S.seed_prefix(text, n, torch.from_numpy(S.identity_rank()[0]).to(
+        cuda), 258, 3)
+    assert torch.equal(limbs, S._limb_planes_plain(pv, sa, n, 2, 3, 5))
     sa_h = sa[:n].cpu().numpy()
     assert np.array_equal(table.cpu().numpy(),
                           S.build_bucket_table_host(data, sa_h, depth))
     assert np.array_equal(limbs.cpu().numpy(), S.pad_limbs_host(
         S.build_limbs_host(data, sa_h, 5), N))
+
+
+def _limb_row(kind, N, n, seed, dev, text_off=0, sa_off=0):
+    """A text row of N bytes (random bytes of the kind's alphabet below n,
+    other bytes past it, which must not count) and an SA row: a
+    permutation of [0, n) with the row's last suffixes n - 1, n - 2, n - 3
+    in its first slots, then the pads N - 1, ..., n; each as a view
+    ``text_off`` or ``sa_off`` elements into its buffer (misaligned for the
+    kernel's 16-byte loads and stores when not 0)."""
+    rng = np.random.default_rng(seed)
+    lo, hi = {'ranked': (97, 123), 'ranked6': (50, 108), 'raw': (33, 127),
+              'digit': (0, 256)}[kind]
+    body = rng.integers(lo, hi, size=N, dtype=np.uint8)
+    body[n:] = 0x7f
+    sa = np.empty(N, dtype=np.int32)
+    sa[:n] = rng.permutation(n)
+    if n >= 3:
+        sa[:3] = [n - 1, n - 2, n - 3]
+    sa[n:] = np.arange(N - 1, n - 1, -1)
+    tbuf = torch.zeros(N + text_off, dtype=torch.uint8, device=dev)
+    sbuf = torch.zeros(N + sa_off, dtype=torch.int32, device=dev)
+    text, sa_t = tbuf[text_off:], sbuf[sa_off:]
+    text.copy_(torch.from_numpy(body))
+    sa_t.copy_(torch.from_numpy(sa))
+    return body, text, sa_t
+
+
+def _limb_planes_both(kind, text, sa, n, depth, K, body, spec=True):
+    """(kernel planes, their plain version) of one kind; the ranked and raw
+    plain versions on the pack are the text twins' specification, so with
+    ``spec`` the twin is held against them too."""
+    N = text.shape[0]
+    if kind.startswith('ranked'):
+        pres = np.bincount(body[:n], minlength=256)[:256] > 0
+        rank, sigma = S.alphabet_rank(pres)
+        bits = S.ranked_bits(max(sigma, 2))
+        rk = torch.from_numpy(rank).to(text.device)
+        depth = min(depth, S.ranked_limb_bytes(bits))
+        got = S.ranked_limb_planes(text, sa, n, rk, depth, bits, K)
+        want = S.ranked_limb_planes_text_plain(text, sa, n, rk, depth, bits,
+                                               K)
+        if spec:
+            assert torch.equal(want, S.ranked_limb_planes_plain(
+                S.ranked_pack_plain(text, n, rk, bits), sa, n, depth, bits,
+                K))
+    elif kind == 'raw':
+        got = S.raw_limb_planes(text, sa, n, depth, K)
+        want = S.raw_limb_planes_text_plain(text, sa, n, depth, K)
+        if spec:
+            assert torch.equal(want, S.raw_limb_planes_plain(
+                S.raw_pack_plain(text, n), sa, n, depth, K))
+    else:
+        got = S.digit_limb_planes(text, sa, n, K)
+        want = S.digit_limb_planes_plain(text, sa, n, K)
+    assert got.shape == (K * N,)
+    return got, want
+
+
+@pytest.mark.parametrize('kind, depth, K', [
+    ('ranked', 2, 3), ('ranked6', 3, 2), ('raw', 3, 3), ('raw', 2, 1),
+    ('digit', 0, 5), ('digit', 0, 2)])
+@pytest.mark.parametrize('N', [70_000, 70_001, 4_099])
+@pytest.mark.parametrize('at', ['N', 'N-1', 'N-PAD', 'one'])
+@pytest.mark.parametrize('offsets', [(0, 0), (1, 0), (5, 1)])
+def test_limb_planes_match_plain_at_row_edges(cuda, kind, depth, K, N, at,
+                                              offsets):
+    """K2, K6 and B12d's limb planes bit for bit against their plain
+    versions at true lengths up to the row's end (n = N and N - 1, where
+    a ranked or raw plane past N - 1 takes the pack's value at N - 1),
+    with windows crossing n, row lengths that are not multiples of 16, and
+    text and SA views off the 16-byte alignment (the byte-load and scalar
+    paths)."""
+    n = {'N': N, 'N-1': N - 1, 'N-PAD': N - S.PAD_MARGIN, 'one': 1}[at]
+    body, text, sa = _limb_row(kind, N, n, N + n, cuda, *offsets)
+    kname = {'ranked': 'ranked_limb_planes', 'ranked6': 'ranked_limb_planes',
+             'raw': 'raw_limb_planes', 'digit': 'digit_limb_planes'}[kind]
+    before = kernels.LAUNCHES[kname]
+    got, want = _limb_planes_both(kind, text, sa, n, depth, K, body)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[kname] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize('kind, K', [('ranked', 3), ('raw', 3),
+                                     ('digit', 5)])
+def test_limb_planes_past_2_31_plane_offsets(cuda, kind, K):
+    """The limb planes of a row whose K * N plane offsets pass 2^31 (so
+    the last plane's offsets need 64 bits), against their plain versions;
+    a random SA row (the kernels take any int32 values) keeps the set-up
+    short.  Skips where the card lacks the memory (the plain version holds
+    about 30 bytes a slot beside the planes)."""
+    N = ((1 << 31) // K + (1 << 22)) // 16 * 16
+    n = N - 7
+    need = N * (5 + 8 * K + 32) + (4 << 30)
+    if torch.cuda.mem_get_info()[0] < need:
+        pytest.skip(f'needs {need / 2**30:.0f} GiB of free device memory')
+    g = torch.Generator(device=cuda)
+    g.manual_seed(K)
+    lo, hi = {'ranked': (97, 123), 'raw': (33, 127), 'digit': (0, 256)}[kind]
+    text = torch.randint(lo, hi, (N,), generator=g, device=cuda,
+                         dtype=torch.uint8)
+    sa = torch.randint(0, n, (N,), generator=g, device=cuda,
+                       dtype=torch.int32)
+    sa[:3] = torch.tensor([n - 1, n - 2, n - 3], dtype=torch.int32)
+    body = text[: 1 << 20].cpu().numpy()  # the alphabet
+    got, want = _limb_planes_both(kind, text, sa, n, 3, K, body, spec=False)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    del got, want
+    torch.cuda.empty_cache()
 
 
 @pytest.mark.parametrize('mode, deep_min', [('upload', None),
@@ -481,9 +590,8 @@ def test_digit_index_and_probe_match_cpu(cuda, monkeypatch, mode, deep_min):
     cpu = DeviceIndex(chunks, device='cpu', mode=mode)
     torch.cuda.synchronize()
     assert gpu.kind == 'digit' and gpu._depth == (3 if deep_min else 2)
-    # K7 once a row at depth 3 (table and limbs share it), twice at 2.
-    assert kernels.LAUNCHES['seed_prefix'] - k7 == \
-        gpu.num_chunks * (1 if deep_min else 2)
+    # K7 once a row, for the table: the limbs gather the text.
+    assert kernels.LAUNCHES['seed_prefix'] - k7 == gpu.num_chunks
     for name in ('text', 'lengths', 'sa', 'tables', 'limbs', 'rank',
                  'present'):
         assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), name
@@ -917,6 +1025,55 @@ def test_bwt_from_sa_device_matches_plain(cuda, size):
     assert np.array_equal(u.cpu().numpy(), u_h) and int(p) == p_h
     if size > 1:
         assert np.array_equal(unbwt_native(u.cpu().numpy(), int(p)), body)
+
+
+@pytest.mark.parametrize('n', [1, 2, 16, 17, 4_099, 1 << 20, (1 << 20) + 5])
+@pytest.mark.parametrize('where', ['first', 'last', 'middle'])
+@pytest.mark.parametrize('off', [0, 1])
+def test_bwt_from_sa_device_primary_anywhere(cuda, n, where, off):
+    """B13 on a permutation of [0, n) whose suffix 0 sits in the first
+    slot, the last or a middle one (the chunk of the byte shift that holds
+    i0), against its plain version and the host transform; text and SA as
+    views ``off`` elements into their buffers (the scalar paths), at
+    lengths that are not multiples of 16."""
+    from pysubstringsearch_tpu_torch.ops import bwt as BWT
+
+    rng = np.random.default_rng(n + off)
+    body = rng.integers(0, 256, size=n, dtype=np.uint8)
+    perm = rng.permutation(n).astype(np.int32)
+    i0 = {'first': 0, 'last': n - 1, 'middle': (n - 1) // 2 + 7 * (n > 20)}[
+        where]
+    j = int(np.nonzero(perm == 0)[0][0])
+    perm[j], perm[i0] = perm[i0], 0
+    tbuf = torch.zeros(n + off, dtype=torch.uint8, device=cuda)
+    sbuf = torch.zeros(n + off, dtype=torch.int32, device=cuda)
+    text, sa = tbuf[off:], sbuf[off:]
+    text.copy_(torch.from_numpy(body))
+    sa.copy_(torch.from_numpy(perm))
+    u, p = BWT.bwt_from_sa_device(text, sa)
+    u_p, p_p = BWT.bwt_from_sa_device_plain(text, sa)
+    torch.cuda.synchronize()
+    assert int(p) == i0 + 1 == int(p_p) and torch.equal(u, u_p)
+    u_h, p_h = BWT.bwt_from_sa(body, perm)
+    assert np.array_equal(u.cpu().numpy(), u_h) and int(p) == p_h
+
+
+def test_bwt_from_sa_device_in_several_passes(cuda):
+    """B13 on a row long enough for several gather passes (each takes the
+    slots whose source byte lies in one slice of the text), suffix 0 in a
+    middle slot, against its plain version."""
+    from pysubstringsearch_tpu_torch.ops import bwt as BWT
+
+    n = (100 << 20) + 5
+    g = torch.Generator(device=cuda)
+    g.manual_seed(11)
+    text = torch.randint(0, 256, (n,), generator=g, device=cuda,
+                         dtype=torch.uint8)
+    sa = torch.randperm(n, generator=g, device=cuda).to(torch.int32)
+    u, p = BWT.bwt_from_sa_device(text, sa)
+    u_p, p_p = BWT.bwt_from_sa_device_plain(text, sa)
+    torch.cuda.synchronize()
+    assert int(p) == int(p_p) and torch.equal(u, u_p)
 
 
 def _seg_t_body(rng) -> np.ndarray:

@@ -96,8 +96,9 @@ def test_digit_limb_planes_match_jax(case, K):
 @pytest.mark.parametrize('case', ['nul_heavy', 'all_bytes', 'utf16'])
 @pytest.mark.parametrize('K', [1, 5])
 def test_digit_limbs_are_k7_at_depth_3_from_offset_2_stride_3(case, K):
-    """The card builds the limbs as K7 (identity rank, base 258, depth 3)
-    gathered by the limb-plane kernel at offset 2, stride 3."""
+    """The limbs are K7's values (identity rank, base 258, depth 3)
+    gathered at offset 2, stride 3: the stream the JAX program gathers,
+    which the card's kernel reads the text for instead."""
     data, text, sa = _row(case)
     n = data.size
     ident = torch.from_numpy(tsearch.identity_rank()[0])
@@ -108,6 +109,42 @@ def test_digit_limbs_are_k7_at_depth_3_from_offset_2_stride_3(case, K):
     plain = tsearch.digit_limb_planes_plain(torch.from_numpy(text),
                                             torch.from_numpy(sa), n, K)
     assert torch.equal(composed, plain)
+
+
+#: A row length that is not a multiple of 16, and true lengths at its end:
+#: windows of the last suffixes cross n, and at n = N - 1 and N the row's
+#: end, where a digit is 0.
+N_EDGE = 4099
+EDGE_NS = (N_EDGE, N_EDGE - 1, N_EDGE - PAD_MARGIN, N_EDGE - 7)
+
+
+@pytest.mark.parametrize('n', EDGE_NS)
+@pytest.mark.parametrize('case, K', [('all_bytes', 5), ('utf16', 2)])
+def test_digit_limb_planes_at_row_edges(case, K, n):
+    """B12d's plain version (and the wrapper's CPU path) equals the JAX
+    ``build_limbs_device`` and the host builder at true lengths up to the
+    row's end; K7's depth-3 values gathered at offset 2, stride 3 agree
+    below n = N (at n = N the gather's clamp to N - 1 would read a digit)."""
+    data = np.resize(CASES[case](), n)
+    text = np.zeros(N_EDGE, dtype=np.uint8)
+    text[:n] = data
+    text[n:] = 0xff  # bytes past n must not count
+    sa = np.empty(N_EDGE, dtype=np.int32)
+    sa[:n] = suffix_array_numpy(data)
+    sa[n:] = np.arange(N_EDGE - 1, n - 1, -1)
+    t, s = torch.from_numpy(text), torch.from_numpy(sa)
+    plain = tsearch.digit_limb_planes_plain(t, s, n, K)
+    assert torch.equal(tsearch.digit_limb_planes(t, s, n, K), plain)
+    want = np.asarray(_jlimbs(jnp.asarray(text), n, jnp.asarray(sa), K))
+    np.testing.assert_array_equal(plain.numpy(), want)
+    np.testing.assert_array_equal(plain.numpy(), tsearch.pad_limbs_host(
+        tsearch.build_limbs_host(data, sa[:n], K), N_EDGE))
+    if n < N_EDGE:
+        ident = torch.from_numpy(tsearch.identity_rank()[0])
+        pv = tsearch.seed_prefix_plain(t, n, ident, 258, 3)
+        assert torch.equal(plain, tsearch._limb_planes_plain(
+            pv, s, n, tsearch.DIGIT_LIMB_OFFSET, tsearch.DIGIT_LIMB_STRIDE,
+            K))
 
 
 @pytest.mark.parametrize('case', ['nul_heavy', 'all_bytes', 'utf16',

@@ -164,8 +164,11 @@ def test_raw_pack_and_limb_planes_match_jax(case, depth, K):
     np.testing.assert_array_equal(packed.numpy(), np.asarray(jpacked))
     # Past n every byte is 0, so the biased pack is INT32_MIN.
     assert (packed.numpy()[n:] == np.iinfo(np.int32).min).all()
-    limbs = tsearch.raw_limb_planes(packed, torch.from_numpy(sa), n, depth,
-                                    K)
+    limbs = tsearch.raw_limb_planes(torch.from_numpy(text),
+                                    torch.from_numpy(sa), n, depth, K)
+    np.testing.assert_array_equal(
+        limbs.numpy(), tsearch.raw_limb_planes_plain(
+            packed, torch.from_numpy(sa), n, depth, K).numpy())
     plane = jsearch.derive_limb_raw_jit(depth)
     buf = jnp.zeros((1, K * N), jnp.int32)
     for j in range(K):
@@ -179,6 +182,51 @@ def test_raw_pack_and_limb_planes_match_jax(case, depth, K):
         limbs.numpy(),
         np.asarray(jsearch.build_raw_limbs_device(
             jnp.asarray(text), n, jnp.asarray(sa), K, depth)))
+
+
+#: A row length that is not a multiple of 16, and true lengths at its end
+#: (windows of the last suffixes cross n, and at n = N - 1 and N the row's
+#: end: a plane past N - 1 takes the pack's value at N - 1).
+N_EDGE = 4099
+EDGE_NS = (N_EDGE, N_EDGE - 1, N_EDGE - PAD_MARGIN, N_EDGE - 7)
+
+
+@pytest.mark.parametrize('n', EDGE_NS)
+@pytest.mark.parametrize('case, depth, K', [('printable', 3, 3),
+                                            ('fullbyte', 2, 1)])
+def test_raw_limb_planes_from_text_at_row_edges(case, depth, K, n):
+    """K6's text twin (and the wrapper's CPU path) equals the plain version
+    on K5's pack and the JAX programs (``raw_pack_jit`` and
+    ``derive_limb_raw_jit``) at true lengths up to the row's end; the host
+    builder and ``build_raw_limbs_device``, which never clamp, agree below
+    n = N."""
+    data = np.resize(CASES[case](), n)
+    text = np.zeros(N_EDGE, dtype=np.uint8)
+    text[:n] = data
+    text[n:] = 0x7e  # bytes past n must not count
+    sa = np.empty(N_EDGE, dtype=np.int32)
+    sa[:n] = suffix_array_numpy(data)
+    sa[n:] = np.arange(N_EDGE - 1, n - 1, -1)
+    t, s = torch.from_numpy(text), torch.from_numpy(sa)
+    packed = tsearch.raw_pack_plain(t, n)
+    spec = tsearch.raw_limb_planes_plain(packed, s, n, depth, K)
+    twin = tsearch.raw_limb_planes_text_plain(t, s, n, depth, K)
+    wrapped = tsearch.raw_limb_planes(t, s, n, depth, K)
+    assert torch.equal(twin, spec) and torch.equal(wrapped, spec)
+    jpacked = jsearch.raw_pack_jit(depth)(jnp.asarray(text), jnp.int32(n))
+    np.testing.assert_array_equal(packed.numpy(), np.asarray(jpacked))
+    plane = jsearch.derive_limb_raw_jit(depth)
+    buf = jnp.zeros((1, K * N_EDGE), jnp.int32)
+    for j in range(K):
+        buf = plane(buf, jnp.int32(0), jnp.int32(j), jpacked, jnp.int32(n),
+                    jnp.asarray(sa))
+    np.testing.assert_array_equal(spec.numpy(), np.asarray(buf)[0])
+    if n < N_EDGE:
+        np.testing.assert_array_equal(spec.numpy(), np.asarray(
+            jsearch.build_raw_limbs_device(jnp.asarray(text), n,
+                                           jnp.asarray(sa), K, depth)))
+        np.testing.assert_array_equal(spec.numpy(), jsearch.pad_limbs_host(
+            jsearch.build_raw_limbs_host(data, sa[:n], K, depth), N_EDGE))
 
 
 def _rank_of(data: np.ndarray):
