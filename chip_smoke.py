@@ -29,7 +29,9 @@ Phases (any failure raises and exits non-zero):
    index's own tensors, equal exactly, both timed with CUDA events beside
    the kernel's bound (its inputs read once and outputs written once at
    3.35 TB/s) and, where one PyTorch call computes the same function, that
-   call's time: K1-K3 and B1 and one B2 round on row 0 (B1's path, its
+   call's time: K1-K3 and B1 and one B2 round on row 0 (K1 also on a
+   small row cut from it, N = n = 4111, whose last pack tile is partial;
+   B1's path, its
    buckets by its keys' top 16, 24 and 32 bits and its device time by
    kernel from ``torch.profiler``; the round's tied groups by size and
    its device time by kernel),
@@ -72,7 +74,8 @@ Phases (any failure raises and exits non-zero):
    and K3, limbs by K6 from the text, no K5) and answers the same kind of
    batch plus a few patterns holding NUL or a byte >= 0x80; B1b, one B2
    round, K5, K6, K7 and K3 against their plain versions on row 0, timed
-   (K5, the JAX raw_pack_jit's counterpart, on no path); every row's
+   (K5, the JAX raw_pack_jit's counterpart, on no path; K7 also on a row
+   of N = n = 4111 cut from row 0); every row's
    ``derive_sa`` against its plain version and row 0's SA against the
    host's native SA-IS; K4 and B8 on every row against their plain
    versions; the answers against the host as in 5; probe p50; and two
@@ -978,7 +981,7 @@ def aux_kernels(idx, row, entry):
           cuda_ms(lambda: S.ranked_pack(text0, n0, idx.rank, bits,
                                         out=packed), 20),
           cuda_ms(lambda: S.ranked_pack_plain(text0, n0, idx.rank, bits), 3),
-          5 * N)
+          n0 + 4 * N)
     limbs = S.ranked_limb_planes(text0, sa0, n0, idx.rank, depth, bits, K)
     entry('ranked_limb_planes', f'{JAX_SEARCH}:1188', SEARCH_SRC,
           max(err(limbs, S.ranked_limb_planes_text_plain(
@@ -1004,6 +1007,35 @@ def aux_kernels(idx, row, entry):
           table_bytes(table), *searchsorted_ms(
               packed, sa0, n0, table.shape[0],
               (30 // bits - depth) * bits))
+
+
+#: Length of the small pack rows: N mod 16 = 15, so the row's last tile of
+#: the pack kernels (16 positions a thread) is partial.
+PACK_EDGE_N = 4111
+
+
+def pack_edge_row(idx, label=''):
+    """K1 (ranked kind) or K7 (raw kind, the index's table base and depth)
+    on a small row cut from row 0, ``PACK_EDGE_N`` slots with n = N, so the
+    last positions' windows cross both n and the row's end, bit for bit
+    against its plain version on the card."""
+    from pysubstringsearch_tpu_torch.ops import search as S
+
+    N = PACK_EDGE_N
+    text = idx.text[0, :N].clone()
+    if idx.kind == 'ranked':
+        name = 'ranked_pack'
+        got = S.ranked_pack(text, N, idx.rank, idx._bits)
+        want = S.ranked_pack_plain(text, N, idx.rank, idx._bits)
+    else:
+        name = 'seed_prefix'
+        got = S.seed_prefix(text, N, idx.rank, idx._base, idx._depth)
+        want = S.seed_prefix_plain(text, N, idx.rank, idx._base, idx._depth)
+    e = err(got, want)
+    check(e == 0, f'{label}{name} on a row of N = n = {N} equals its plain '
+          f'version (max err {e})')
+    log(f'{label}{name} on a row of N = n = {N} (N mod 16 = {N % 16}): '
+        'equal to its plain version')
 
 
 def probe_kernel(idx, packed_np, lengths_np, entry):
@@ -1286,6 +1318,7 @@ def run_derive(idx_path, pats, dev):
     entries = []
     entry = kernel_check('', entries, launches)
     aux_kernels(idx, 0, entry)
+    pack_edge_row(idx)
     packed_np, lengths_np = S.pack_patterns(pats)
     lo_k, cnt_k = probe_kernel(idx, packed_np, lengths_np, entry)
     bits = idx._bits
@@ -1374,7 +1407,8 @@ def run_raw(idx_path, pats, dev, ranked_rows):
           cuda_ms(lambda: S.seed_prefix(text0, n0, idx.rank, base, depth,
                                         out=pv), 20),
           cuda_ms(lambda: S.seed_prefix_plain(text0, n0, idx.rank, base,
-                                              depth), 3), 5 * N)
+                                              depth), 3), n0 + 4 * N)
+    pack_edge_row(idx, 'raw ')
     table = S.seed_table_from_prefix(pv, sa0, n0, base, depth)
     table_ms = cuda_ms(lambda: S.seed_table_from_prefix(
         pv, sa0, n0, base, depth, out=table), 20)
@@ -1602,7 +1636,7 @@ def digit_aux_kernels(idx, entry, check_only):
                cuda_ms(lambda: S.seed_prefix(text0, n0, ident, 258, depth,
                                              out=pv), 20),
                cuda_ms(lambda: S.seed_prefix_plain(text0, n0, ident, 258,
-                                                   depth), 3), 5 * N)
+                                                   depth), 3), n0 + 4 * N)
     table = S.seed_table_from_prefix(pv, sa0, n0, 258, depth)
     check_only('seed_table', f'{JAX_SEARCH}:565', SEARCH_SRC,
                max(err(table, S.seed_table_from_prefix_plain(

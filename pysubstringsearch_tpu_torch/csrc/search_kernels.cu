@@ -33,32 +33,182 @@ inline unsigned blocks_for(long long n) {
 }
 
 // ---------------------------------------------------------------------------
-// K1, ranked pack.  Replaces _ranked_pack_device / ranked_pack_jit
-// (pysubstringsearch_tpu/ops/search.py).
+// K1, ranked pack, and K7, seed prefix: one streaming template.  K1
+// replaces _ranked_pack_device / ranked_pack_jit, K7 the prefix-value
+// stream of build_seed_table_device (reached through derive_table_raw_jit;
+// with identity_rank() and base 258 it is also build_bucket_table_device's),
+// whose table K3 then bisects (pysubstringsearch_tpu/ops/search.py).
 //
-// out[p] = the rank digits of text[p .. p+D-1], big-endian at `bits` bits
-// each (D = 30 / bits); a position at or past n has digit 0.  One thread
-// per position.  Bound by memory: 1 byte read (the D-1 neighbours come from
-// L1) and 4 bytes written per position; the rank map sits in shared memory.
+// out[p] folds the D digits srank[text[p]], ..., srank[text[p + D - 1]],
+// first digit first; a digit at or past n is 0, and so is one at or past N
+// (text is never read at or past N, and only by a wide load past n):
+//   kPackShift (K1): v = (v << bits) + digit, D = 30 / bits (6 at bits 5,
+//                    5 at bits 6);
+//   kPackBase  (K7): v = v * base + digit, D = depth (2-5), base^depth <=
+//                    2^28 (base 258 serves a full-byte alphabet).
+//
+// Bound by memory: the n text bytes read once, 4 bytes written a position
+// of the row (a tile from n on reads nothing).  A thread owns a
+// tile of kPackTile = 16 positions p0 .. p0 + 15 (p0 a multiple of 16 from
+// the row's start): one aligned 16-byte load; the D - 1 <= 5 bytes after
+// the tile from the next lane's first 8 bytes (__shfl_down_sync; the lanes
+// of a warp hold consecutive tiles), or by an 8-byte load at a warp's last
+// lane; each of the 16 + D - 1 bytes through the byte map once (shared
+// memory, 256 ints); the 16 values folded in registers, every loop
+// unrolled.  A warp of 32 full tiles stages its 512 values in shared
+// memory and stores them with four 16-byte store instructions, each
+// writing 512 contiguous bytes.  A lane's own four 16-byte stores, 64
+// bytes apart across the warp, held the kernels at 0.75-0.83 ms on the
+// derive rows against 0.47-0.52 staged, where `text.to(torch.int32)` takes
+// 0.49-0.55 (sa_bench.py --packs on an H100).  A row's last warp of tiles
+// (at most 512 positions) takes scalar stores, and its partial tile byte
+// loads.  A text or out view off the 16-byte alignment launches the
+// byte-load form (VEC false): the same tiles and folds, byte loads and
+// scalar stores.
+//
+// nvcc -Xptxas -v (sm_90a): 32-40 registers in the VEC form, 61-63 in the
+// byte-load form, 0 bytes of stack and of spills in every instantiation;
+// 17,408 bytes of shared memory a block.  The byte map's lookups hit
+// random banks (3 bytes of the raw corpus a bank), but K7 on the raw and
+// digit rows runs as fast as K1 on the ranked one, whose letters each own
+// a bank, so the lookups do not set the pace.
 // ---------------------------------------------------------------------------
-__global__ void ranked_pack_kernel(const uint8_t* __restrict__ text,
-                                   long long N, int n,
-                                   const int* __restrict__ rank, int bits,
-                                   int* __restrict__ out) {
+constexpr int kPackShift = 0;
+constexpr int kPackBase = 1;
+constexpr int kPackTile = 16;
+
+// A warp's 512 staged values, as 16-byte units.
+constexpr int kPackStage = kPackTile * 32 / 4;
+
+// The slot of 16-byte unit u in a warp's stage: the low 3 bits XOR the
+// next 3, so 8 lanes storing units 4l + m (a lane's own tile) or loading
+// units 32k + l (a coalesced row) each hit 8 distinct groups of 4 banks.
+__device__ __forceinline__ int pack_swizzle(int u) {
+  return (u & ~7) | ((u ^ (u >> 3)) & 7);
+}
+
+// Byte k of a little-endian word array: k is a constant once unrolled, so
+// the array stays in registers.
+__device__ __forceinline__ uint32_t byte_of(const uint32_t* w, int k) {
+  return (w[k >> 2] >> (8 * (k & 3))) & 0xffu;
+}
+
+template <int MODE, int D, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+pack_tile_kernel(const uint8_t* __restrict__ text, long long N, long long n,
+                 const int* __restrict__ rank, int base,
+                 int* __restrict__ out) {
+  constexpr int kBytes = kPackTile + D - 1;  // 17-21
   __shared__ int srank[256];
+  __shared__ uint4 stage[kThreads / 32 * kPackStage];
   for (int i = threadIdx.x; i < 256; i += blockDim.x) srank[i] = rank[i];
   __syncthreads();
-  const int D = 30 / bits;
-  for (long long p = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       p < N; p += (long long)gridDim.x * blockDim.x) {
-    int v = 0;
-    for (int d = 0; d < D; ++d) {
-      long long q = p + d;
-      int digit = q < n ? srank[text[q]] : 0;
-      v = (v << bits) + digit;
+  const long long tiles = (N + kPackTile - 1) / kPackTile;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const int lane = threadIdx.x & 31;
+  // The loop runs per warp (w0, its first tile, is the same on every lane),
+  // so all 32 lanes reach the shuffles.
+  for (long long w0 = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      (threadIdx.x & ~31);
+       w0 < tiles; w0 += stride) {
+    const long long p0 = (w0 + lane) * kPackTile;
+    // w[0..3]: the tile's bytes, w[4..5]: the 8 after it; 0 where unread.
+    // Bytes at or past n are not needed (their digits are 0), so a tile
+    // from n on loads nothing; a 16- or 8-byte load may pass n, never N.
+    uint32_t w[6] = {0, 0, 0, 0, 0, 0};
+    if (VEC) {
+      if (p0 < n && p0 + kPackTile <= N) {
+        const uint4 c = *reinterpret_cast<const uint4*>(text + p0);
+        w[0] = c.x; w[1] = c.y; w[2] = c.z; w[3] = c.w;
+      } else {
+#pragma unroll
+        for (int k = 0; k < kPackTile; ++k)
+          if (p0 + k < n) w[k >> 2] |= static_cast<uint32_t>(text[p0 + k])
+                                       << (8 * (k & 3));
+      }
+      w[4] = __shfl_down_sync(0xffffffffu, w[0], 1);
+      w[5] = __shfl_down_sync(0xffffffffu, w[1], 1);
+      if (lane == 31) {
+        const long long q = p0 + kPackTile;
+        if (q < n && q + 8 <= N) {
+          const uint2 e = *reinterpret_cast<const uint2*>(text + q);
+          w[4] = e.x;
+          w[5] = e.y;
+        } else {
+          w[4] = 0;
+          w[5] = 0;
+#pragma unroll
+          for (int k = 0; k < D - 1; ++k)
+            if (q + k < n) w[4 + (k >> 2)] |= static_cast<uint32_t>(text[q + k])
+                                             << (8 * (k & 3));
+        }
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < kBytes; ++k)
+        if (p0 + k < n) w[k >> 2] |= static_cast<uint32_t>(text[p0 + k])
+                                     << (8 * (k & 3));
     }
-    out[p] = v;
+    if (p0 >= N) continue;
+    // Digits: byte k is text position p0 + k, 0 at or past n (<= N).
+    const long long left = n - p0;
+    const int L = left < 0 ? 0 : (left > kBytes ? kBytes : static_cast<int>(left));
+    uint32_t dg[kBytes];
+#pragma unroll
+    for (int k = 0; k < kBytes; ++k)
+      dg[k] = k < L ? static_cast<uint32_t>(srank[byte_of(w, k)]) : 0u;
+    uint32_t v[kPackTile];
+#pragma unroll
+    for (int i = 0; i < kPackTile; ++i) {
+      uint32_t x = 0;
+#pragma unroll
+      for (int d = 0; d < D; ++d)
+        x = MODE == kPackShift ? (x << (30 / D)) + dg[i + d]
+                               : x * static_cast<uint32_t>(base) + dg[i + d];
+      v[i] = x;
+    }
+    if (VEC && (w0 + 32) * kPackTile <= N) {
+      // A whole warp of full tiles: its 512 values leave through shared
+      // memory, so each 16-byte store instruction writes 512 contiguous
+      // bytes (a lane's own four would each touch 32 separate 64-byte
+      // spans).  pack_swizzle keeps both sides free of bank conflicts.
+      uint4* buf = stage + (threadIdx.x >> 5) * kPackStage;
+      __syncwarp();  // the warp's reads of the last tile are done
+#pragma unroll
+      for (int m = 0; m < kPackTile / 4; ++m)
+        buf[pack_swizzle(4 * lane + m)] =
+            make_uint4(v[4 * m], v[4 * m + 1], v[4 * m + 2], v[4 * m + 3]);
+      __syncwarp();
+      uint4* dst = reinterpret_cast<uint4*>(out + w0 * kPackTile);
+#pragma unroll
+      for (int m = 0; m < kPackTile / 4; ++m)
+        dst[32 * m + lane] = buf[pack_swizzle(32 * m + lane)];
+    } else {
+#pragma unroll
+      for (int i = 0; i < kPackTile; ++i)
+        if (p0 + i < N) out[p0 + i] = static_cast<int>(v[i]);
+    }
   }
+}
+
+template <int MODE, int D>
+int launch_pack(const void* text, long long N, long long n, const void* rank,
+                int base, void* out, void* stream) {
+  if (N <= 0) return 0;
+  n = n < 0 ? 0 : (n > N ? N : n);
+  const long long tiles = (N + kPackTile - 1) / kPackTile;
+  unsigned grid = blocks_for(tiles);
+  if (grid > 65536u * 16u) grid = 65536u * 16u;
+  const bool vec = ((reinterpret_cast<uintptr_t>(text) |
+                     reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (vec)
+    pack_tile_kernel<MODE, D, true><<<grid, kThreads, 0, st>>>(
+        (const uint8_t*)text, N, n, (const int*)rank, base, (int*)out);
+  else
+    pack_tile_kernel<MODE, D, false><<<grid, kThreads, 0, st>>>(
+        (const uint8_t*)text, N, n, (const int*)rank, base, (int*)out);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -299,37 +449,6 @@ int launch_limb_planes(const void* text, const void* rank, const void* sa,
           (const uint8_t*)text, (const int*)rank, (const int*)sa, N, n, off,
           K, (int*)limbs);
   return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// K7, seed prefix.  Replaces the prefix-value stream of
-// build_seed_table_device (ops/search.py, reached through
-// derive_table_raw_jit; with identity_rank() and base 258 it is also
-// build_bucket_table_device's), whose table the scatter-min and reverse
-// cummin then make; here K3 bisects it with shift 0.
-//
-// pv[p] = the `depth` rank digits of text[p ..] in base `base`, 0 for a
-// digit at or past n; base^depth <= 2^28, so it fits an int32.  The rank
-// map and the base are arguments, so a full-byte alphabet (base 258) is
-// served too.  One thread per position.  Bound by memory: 1 byte read and
-// 4 written per position; the rank map sits in shared memory.
-// ---------------------------------------------------------------------------
-__global__ void seed_prefix_kernel(const uint8_t* __restrict__ text,
-                                   long long N, long long n,
-                                   const int* __restrict__ rank, int base,
-                                   int depth, int* __restrict__ out) {
-  __shared__ int srank[256];
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) srank[i] = rank[i];
-  __syncthreads();
-  for (long long p = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       p < N; p += (long long)gridDim.x * blockDim.x) {
-    int v = 0;
-    for (int d = 0; d < depth; ++d) {
-      long long q = p + d;
-      v = v * base + (q < n ? srank[text[q]] : 0);
-    }
-    out[p] = v;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -874,11 +993,11 @@ extern "C" {
 
 int pss_ranked_pack(const void* text, long long N, int n, const void* rank,
                     int bits, void* out, void* stream) {
-  unsigned grid = blocks_for(N);
-  if (grid > 65536u * 16u) grid = 65536u * 16u;
-  ranked_pack_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)text, N, n, (const int*)rank, bits, (int*)out);
-  return (int)cudaGetLastError();
+  if (bits == 5)
+    return launch_pack<kPackShift, 6>(text, N, n, rank, 0, out, stream);
+  if (bits == 6)
+    return launch_pack<kPackShift, 5>(text, N, n, rank, 0, out, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 int pss_ranked_limb_planes(const void* text, const void* rank,
@@ -922,11 +1041,13 @@ int pss_digit_limb_planes(const void* text, const void* sa, long long N,
 int pss_seed_prefix(const void* text, long long N, long long n,
                     const void* rank, int base, int depth, void* out,
                     void* stream) {
-  unsigned grid = blocks_for(N);
-  if (grid > 65536u * 16u) grid = 65536u * 16u;
-  seed_prefix_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)text, N, n, (const int*)rank, base, depth, (int*)out);
-  return (int)cudaGetLastError();
+  switch (depth) {
+    case 2: return launch_pack<kPackBase, 2>(text, N, n, rank, base, out, stream);
+    case 3: return launch_pack<kPackBase, 3>(text, N, n, rank, base, out, stream);
+    case 4: return launch_pack<kPackBase, 4>(text, N, n, rank, base, out, stream);
+    case 5: return launch_pack<kPackBase, 5>(text, N, n, rank, base, out, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // coarse: scratch of pss_seed_table_scratch_bytes(size).

@@ -68,11 +68,35 @@ own route (``_access_tbs``, TB/s).  A tree whose limb-plane wrappers take
 the pack (``packed`` first) is timed on the pack, made beforehand (the
 digit planes on K7's values, as its index builds them at depth 3).
 
+With ``--packs`` it times the streaming packs on ``PACK_ROWS``: K1
+(``k1_ranked``, bits 5 on the ranked 272 Mi row) and K7 (``k7_raw`` at the
+raw row's 128^3 table, 272 Mi; ``k7_digit`` at 258^3 with
+``identity_rank()``, 256 Mi), and the same on one upload chunk of each kind
+(8,388,563 bytes in a row of 16 Mi slots, ``_chunk``; the digit chunk at
+258^2, the depth its upload index picks), each beside its bound
+(``_bound_ms``: the n text bytes read and 4 bytes written a position of
+the row, at 3.35 TB/s; no byte at or past n is needed) and
+``text.to(torch.int32)`` of the same row (``_to_int32_ms``), a copy that
+moves 5 bytes a position of the row: the card's streaming rate, not a
+library call of the same function.  It uses only entry points that older
+trees have too.
+
+With ``--probe-bounds`` it recounts the probes' bounds at ``chip_smoke.py``'s
+batches (about two minutes, most of it the two Writers): K4 on the ranked
+derive index, B15 on the ranked container's 63 chunks as rows and B11 on
+the digit derive index.  The plain bisection runs on the card with each
+step recorded (``_SectorRecorder``), and the distinct 32-byte sectors its
+steps read over the whole batch (``_sectors``), with the patterns, lengths
+and bounds, over 3.35 TB/s make the bound (``_bound_ms``; the patterns,
+lengths and bounds alone are ``_pattern_bound_ms``).  The recording
+replaces helpers of ``ops.search`` for the run and raises where the plain
+probes no longer bisect through them as it expects.
+
 With ``--profile`` it first prints the device time by kernel
 (``torch.profiler``'s ``key_averages``) of B10's init, of that first pass,
 of B1b and of B2's round 1 on the 512 Mi row (and, with ``--inits``, of
 each init row, each K3 table and B9's init and round; with ``--gathers``,
-each gather), one ``PROFILE``
+each gather; with ``--packs``, each pack), one ``PROFILE``
 line each, the group sizes of round 1's tied groups (``HISTOGRAM``: groups
 and slots of 2, 3-16, 17-256, 257-4096 and more members) and, with
 ``--inits``, each init row's buckets by the top 16, 24 and 32 bits of its
@@ -373,6 +397,420 @@ def _gathers(torch, np, SA, S, bench, args, out):
     torch.cuda.empty_cache()
 
 
+#: The pack rows: (tag, corpus, bytes, slots).  The derive rows K1 and K7
+#: stream on the main path, and one upload chunk of each kind: the digit
+#: Writer's first chunk size, padded as the upload index pads its rows.
+PACK_ROWS = (('k1_ranked', 'ranked', 268_400_000, 272 << 20),
+             ('k7_raw', 'raw', 268_400_000, 272 << 20),
+             ('k7_digit', 'digit', 268_400_000, 1 << 28),
+             ('k1_ranked_chunk', 'ranked', 8_388_563, 16 << 20),
+             ('k7_raw_chunk', 'raw', 8_388_563, 16 << 20),
+             ('k7_digit_chunk', 'digit', 8_388_563, 16 << 20))
+
+
+def _packs(torch, np, S, bench, args, out):
+    """K1 and K7 on ``PACK_ROWS`` with the parameters their index picks
+    (K1 at the alphabet's bits; K7 at the raw table's base and depth, or at
+    base 258 and the digit bucket depth with ``identity_rank()``), each
+    beside its bound (the n text bytes read and 4 bytes written a position
+    of the row, ``_floor_ms``) and ``text.to(torch.int32)`` of the same
+    row, a copy that moves 5 bytes a position of the row (the card's
+    streaming rate, not a library call of the same function).  With
+    ``--profile`` one ``PROFILE`` line of the device time by kernel of one
+    call of each, all in one profiler session (in a process that opens
+    several, only the first recorded these kernels)."""
+    from pysubstringsearch_tpu_torch.models.index import DeviceIndex
+
+    smoke = _smoke()
+    dev = torch.device('cuda')
+    cache = {}
+    calls = []
+    for tag, kind, n, N in PACK_ROWS:
+        data, text = _row(torch, np, smoke, args, cache, kind, n, N)
+        pres = np.bincount(data, minlength=256)[:256] > 0
+        dst = torch.empty(N, dtype=torch.int32, device=dev)
+        if kind == 'ranked':
+            rank_np, sigma = S.alphabet_rank(pres)
+            bits = S.ranked_bits(sigma)
+            rank = torch.from_numpy(rank_np).to(dev)
+            call = (lambda text=text, n=n, rank=rank, bits=bits, dst=dst:
+                    S.ranked_pack(text, n, rank, bits, out=dst))
+            out[f'{tag}_bits'] = bits
+        else:
+            if kind == 'raw':
+                rank_np, sigma = S.alphabet_rank(pres)
+                base, depth = S.pick_table_params(sigma, n)
+            else:
+                rank_np = S.identity_rank()[0]
+                base = 258
+                depth = 3 if n >= DeviceIndex.DEEP_TABLE_MIN_CHUNK else 2
+            rank = torch.from_numpy(rank_np).to(dev)
+            call = (lambda text=text, n=n, rank=rank, base=base, depth=depth,
+                    dst=dst: S.seed_prefix(text, n, rank, base, depth,
+                                           out=dst))
+            out[f'{tag}_table'] = f'{base}^{depth}'
+        out[f'{tag}_ms'] = bench.cuda_ms(call, 10 * REPS)
+        out[f'{tag}_bound_ms'] = _floor_ms(n + 4 * N)
+        out[f'{tag}_to_int32_ms'] = bench.cuda_ms(
+            lambda: text.to(torch.int32), 10 * REPS)
+        calls.append((tag, call))
+    if args.profile:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            for _, call in calls:
+                call()
+                torch.cuda.synchronize()
+        kernels = sorted((e.time_range.start, e.name,
+                          e.time_range.elapsed_us()) for e in prof.events()
+                         if e.device_type == DeviceType.CUDA)
+        labels = ([t for t, _ in calls] if len(kernels) == len(calls)
+                  else ['packs'] * len(kernels))
+        for label, (_, name, us) in zip(labels, kernels):
+            print('PROFILE ' + json.dumps({
+                'label': label, 'device_us': us, 'by_kernel_us': [[
+                    name.replace('(anonymous namespace)::', '').split('(')[0],
+                    us, 1]]}), flush=True)
+    del calls
+    torch.cuda.empty_cache()
+
+
+def _expect(ok, what):
+    """Raise unless ``ok``: the sector count no longer follows the plain
+    probes."""
+    if not ok:
+        raise RuntimeError(f'--probe-bounds: {what}')
+
+
+class _SectorRecorder:
+    """The 32-byte sectors the plain probes' bisection steps read, gathered
+    while they run: ``ops.search._first_true`` is replaced by the same
+    bisection that first hands each step's (mid, active lanes) to
+    ``on_step``, ``_cmp3_rows`` (B15's compare) records its lanes' reads
+    before comparing, and ``_deep_refine_plain`` routes its steps to the
+    byte compare's count.  A step reads, per active lane, what the kernel's
+    own step must: one limb word (K4's phase), the limbs up to the first
+    that differs from the target (B11), or the SA word and the text bytes
+    up to the first that differs from the pattern, none at or past n (the
+    byte compare).  Sectors are byte addresses // 32 on the card, so a
+    sector read by many steps or lanes counts once.
+
+    The count rests on the plain probes calling these helpers as they do
+    now, so every departure raises: ``calls`` and ``deep_calls`` count the
+    bisections (``_probe_sectors`` holds them to the probe's own number),
+    ``steps`` the steps handed to ``on_step`` with an active lane and
+    ``window_lanes`` the lanes whose byte-compare reads were recorded."""
+
+    def __init__(self, torch, S):
+        self.torch, self.S = torch, S
+        self.sectors = []
+        self.active = None
+        self.on_step = None
+        self.calls = 0
+        self.deep_calls = 0
+        self.steps = 0
+        self.window_lanes = 0
+
+    def add(self, addr):
+        self.sectors.append(self.torch.unique(addr // SECTOR))
+
+    def count(self):
+        if not self.sectors:
+            return 0
+        return int(self.torch.unique(self.torch.cat(self.sectors)).numel())
+
+    def first_true(self, lo, hi, pred):
+        torch = self.torch
+        self.calls += 1
+        while True:
+            active = lo < hi
+            if not bool(active.any()):
+                self.active = None
+                return lo
+            mid = torch.div(lo + hi, 2, rounding_mode='floor')
+            self.active = active
+            if self.on_step is not None:
+                self.steps += 1
+                self.on_step(mid, active)
+            p = pred(mid)
+            hi = torch.where(active & p, mid, hi)
+            lo = torch.where(active & ~p, mid + 1, lo)
+
+    def windows(self, text, n, sa, slots, p1, jmask, active):
+        """The byte compare's reads for lanes [C, M] of rows ``text`` [C,
+        N] at SA ``slots`` (clipped to [0, n - 1]): each active lane's SA
+        word, and its suffix's bytes up to the first that differs from the
+        pattern (``p1``, byte + 1 inside ``jmask``), below n."""
+        torch = self.torch
+        C, N = text.shape
+        M, L = p1.shape
+        dev = text.device
+        n = n.long()
+        c = torch.minimum(slots.clamp(min=0), (n - 1).clamp(min=0)[:, None])
+        rows = torch.arange(C, device=dev)[:, None]
+        self.window_lanes += int(active.sum())
+        self.add((sa.data_ptr() + 4 * (rows * sa.stride(0) + c))[active])
+        starts = sa.gather(1, c).long()
+        pos = starts[..., None] + torch.arange(L, device=dev)
+        byte = text.gather(1, pos.clamp(0, N - 1).reshape(C, -1))
+        s = torch.where(pos < n[:, None, None],
+                        byte.reshape(C, M, L).long() + 1, 0)
+        diff = (s != p1[None]) & jmask[None]
+        need = torch.where(diff.any(-1),
+                           diff.to(torch.int32).argmax(-1).long() + 1,
+                           jmask.sum(1)[None, :])
+        read = torch.minimum(need, (n[:, None] - starts).clamp(min=0))
+        a0 = text.data_ptr() + rows * text.stride(0) + starts
+        sel = active & (read > 0)
+        first = (a0 // SECTOR)[sel]
+        span = ((a0 + read - 1) // SECTOR)[sel] - first + 1
+        skip = torch.repeat_interleave(torch.cumsum(span, 0) - span, span)
+        self.add(SECTOR * (torch.repeat_interleave(first, span)
+                           + torch.arange(skip.numel(), device=dev) - skip))
+
+    def patch(self):
+        """Context: the recording helpers in ``ops.search``."""
+        import contextlib
+
+        S = self.S
+        saved = (S._first_true, S._cmp3_rows, S._deep_refine_plain)
+        cmp3, deep_refine = saved[1], saved[2]
+
+        def cmp3_rows(text, n, sa, slots, p1, jmask):
+            _expect(self.active is not None,
+                    '_cmp3_rows called outside a recorded bisection')
+            self.windows(text, n, sa, slots, p1, jmask, self.active)
+            return cmp3(text, n, sa, slots, p1, jmask)
+
+        def deep(text, n, sa, patterns, lengths, cover, A, Z):
+            torch = self.torch
+            sel = torch.nonzero(lengths.long() > cover).flatten()
+            if not sel.numel():
+                return deep_refine(text, n, sa, patterns, lengths, cover, A,
+                                   Z)
+            plen = lengths.long()[sel]
+            jmask = (torch.arange(int(plen.max()), device=text.device)[None]
+                     < plen[:, None])
+            p1 = torch.where(jmask,
+                             patterns[sel, :jmask.shape[1]].long() + 1, 0)
+            prev = self.on_step
+            self.on_step = lambda mid, act: self.windows(
+                text, n, sa, mid, p1, jmask, act)
+            calls, lanes = self.calls, self.window_lanes
+            try:
+                deep_refine(text, n, sa, patterns, lengths, cover, A, Z)
+            finally:
+                self.on_step = prev
+            _expect(self.calls - calls == 2 and self.window_lanes > lanes,
+                    f'the deep refine ran {self.calls - calls} bisections '
+                    f'(2 expected) over {self.window_lanes - lanes} lanes')
+            self.deep_calls += 2
+
+        @contextlib.contextmanager
+        def ctx():
+            S._first_true, S._cmp3_rows, S._deep_refine_plain = (
+                self.first_true, cmp3_rows, deep)
+            try:
+                yield self
+            finally:
+                S._first_true, S._cmp3_rows, S._deep_refine_plain = saved
+
+        return ctx()
+
+
+def _probe_sectors(torch, S, kind, args):
+    """(distinct 32-byte sectors the plain bisection of ``kind`` reads,
+    its lower bounds, its counts) for ``args``, the probe's own arguments:
+    ``'k4'`` (``probe_phased_plain``: the seed-table entries, one limb word
+    a phase step, the deep byte compares), ``'b11'``
+    (``probe_limbs_plain``: the bucket-table entries, the limbs a step
+    compares, the deep byte compares) or ``'b15'`` (``probe_bytes_plain``:
+    the byte compare at every step)."""
+    rec = _SectorRecorder(torch, S)
+    if kind == 'k4':
+        (text, n, sa, tables, limbs, rank, present, patterns, lengths, K,
+         base, depth, bits) = args
+        C, N = text.shape
+        rows = torch.arange(C, device=text.device)[:, None]
+        b_lo, b_up, _, _, k, _ = S._lane_setup(
+            patterns, lengths, rank, present, base, depth, K, bits)
+        t0 = tables.data_ptr() + 4 * rows * tables.stride(0)
+        rec.add((t0 + 4 * b_lo[None]).flatten())
+        rec.add((t0 + 4 * b_up[None]).flatten())
+        rec.add((t0 + 4 * (b_lo + 1)[None])[:, k >= 1].flatten())
+        tables_only = rec.count()
+
+        def step(mid, act):  # phase j = (call - 1) // 2: a, then z
+            j = (rec.calls - 1) // 2
+            _expect(j < K, f'K4 phase {j} of {K} limbs')
+            rec.add((limbs.data_ptr() + 4 * (
+                rows * limbs.stride(0) + j * N + mid.clamp(0, N - 1)))[act])
+        rec.on_step = step
+        with rec.patch():
+            lower, count = S.probe_phased_plain(*args)
+        phased = rec.calls - rec.deep_calls
+        _expect(phased % 2 == 0 and 2 <= phased <= 2 * K and rec.steps,
+                f'K4 ran {phased} phase bisections over {rec.steps} steps '
+                f'(2 a phase, {K} phases at most)')
+    elif kind == 'b11':
+        text, n, sa, tables, limbs, patterns, lengths, K = args
+        C, N = text.shape
+        B = patterns.shape[0]
+        dev = text.device
+        rows = torch.arange(C, device=dev)[:, None]
+        depth = S.bucket_depth(tables.shape[1])
+        width = max(S.key_cover_bytes(K), depth)
+        raw = torch.zeros((B, width), dtype=torch.int64, device=dev)
+        cols = min(patterns.shape[1], width)
+        raw[:, :cols] = patterns[:, :cols].long() + 1
+        in_len = (torch.arange(width, device=dev)[None, :]
+                  < lengths.long()[:, None])
+        k = torch.div(lengths.long(), S.DIGIT_LIMB_STRIDE,
+                      rounding_mode='floor').clamp(1, K)
+        jj = torch.arange(K, device=dev)
+        t0 = tables.data_ptr() + 4 * rows * tables.stride(0)
+        targets = []
+        for pad in (0, S._RADIX - 1):  # the lower's call, then the upper's
+            dig = torch.where(in_len, raw, pad)
+            bucket = torch.zeros(B, dtype=torch.int64, device=dev)
+            for q in range(depth):
+                bucket = bucket * S._RADIX + dig[:, q]
+            rec.add((t0 + 4 * bucket[None]).flatten())
+            rec.add((t0 + 4 * (bucket + 1)[None]).flatten())
+            targets.append(torch.stack([
+                (dig[:, o] * S._RADIX + dig[:, o + 1]) * S._RADIX
+                + dig[:, o + 2]
+                for o in (S.DIGIT_LIMB_OFFSET + S.DIGIT_LIMB_STRIDE * j
+                          for j in range(K))], 1))
+
+        def step(mid, act):
+            t = targets[rec.calls - 1]
+            idx = (jj * N + mid.clamp(0, N - 1)[..., None]).reshape(C, -1)
+            v = limbs.gather(1, idx).reshape(C, B, K).long()
+            used = jj[None, :] < k[:, None]
+            diff = (v != t[None]) & used[None]
+            planes = torch.where(diff.any(-1),
+                                 diff.to(torch.int32).argmax(-1).long() + 1,
+                                 k[None, :])
+            read = act[..., None] & (jj < planes[..., None])
+            addr = limbs.data_ptr() + 4 * (rows[..., None] * limbs.stride(0)
+                                           + idx.reshape(C, B, K))
+            rec.add(addr[read])
+        tables_only = rec.count()
+        rec.on_step = step
+        with rec.patch():
+            lower, count = S.probe_limbs_plain(*args)
+        _expect(rec.calls - rec.deep_calls == 2 and rec.steps,
+                f'B11 ran {rec.calls - rec.deep_calls} bisections over '
+                f'{rec.steps} steps (2 expected)')
+    else:
+        text, n, sa, patterns, lengths = args
+        B, L = patterns.shape
+        step = max(1, (1 << 24) // max(1, 2 * B * max(L, 1)))
+        blocks = -(-text.shape[0] // step)  # probe_bytes_plain's row blocks
+        tables_only = 0
+        with rec.patch():
+            lower, count = S.probe_bytes_plain(*args)
+        _expect(rec.calls == blocks and rec.window_lanes,
+                f'B15 ran {rec.calls} bisections ({blocks} row blocks) over '
+                f'{rec.window_lanes} lanes')
+    sectors = rec.count()
+    _expect(sectors > tables_only,
+            f'{kind}: {sectors} sectors, {tables_only} of them table entries')
+    return sectors, lower, count
+
+
+def _probe_bounds(torch, np, S, args, out):
+    """The probes' bounds recounted at ``chip_smoke.py``'s batches: K4 on
+    the ranked derive index (2 merged rows, the 10,200 patterns), B11 on
+    the digit derive index (2 rows, 10,709 patterns) and B15 on the ranked
+    container's chunks stacked as rows at the upload geometry (63 rows,
+    the 10,200 patterns).  Each container is written by the port's Writer
+    on the card (SA equal to native SA-IS) in 8 MiB chunks, as the script
+    writes it.  For each: the distinct 32-byte sectors its plain bisection
+    reads (``_probe_sectors``, checked against the kernel's answers), the
+    bytes they and the patterns, lengths and bounds make, and that over
+    3.35 TB/s (``_bound_ms``)."""
+    import types
+
+    import pysubstringsearch_tpu_torch as pss
+    from pysubstringsearch_tpu_torch.container import read_container
+    from pysubstringsearch_tpu_torch.ops.suffix_array import _pad_len
+
+    smoke = _smoke()
+    dev = torch.device('cuda')
+    ns = types.SimpleNamespace(chunk_mb=8, queries=10_000)
+    corpus = np.load(args.corpus).tobytes()
+
+    def record(tag, kind, probe, probe_args, patterns_np):
+        sectors, lo_p, cnt_p = _probe_sectors(torch, S, kind, probe_args)
+        lo_k, cnt_k = probe(*probe_args)
+        if not (torch.equal(lo_p, lo_k) and torch.equal(cnt_p, cnt_k)):
+            raise RuntimeError(f'{tag}: the plain probe differs from the '
+                               'kernel')
+        C = probe_args[0].shape[0]
+        B, L = patterns_np.shape
+        nbytes = SECTOR * sectors + B * L + 4 * B + 8 * C * B
+        out[f'{tag}_sectors'] = sectors
+        out[f'{tag}_pattern_bound_ms'] = _floor_ms(B * L + 4 * B + 8 * C * B)
+        out[f'{tag}_bound_ms'] = _floor_ms(nbytes)
+        print(f'PROBE_BOUND {tag}: {C} rows x {B} patterns, {sectors} '
+              f'sectors, bound {out[f"{tag}_bound_ms"]:.4f} ms', flush=True)
+
+    tmp_root = '/dev/shm' if os.path.isdir('/dev/shm') else None
+    with tempfile.TemporaryDirectory(dir=tmp_root) as d:
+        path, _, pats = smoke.build_container(pss, lambda: corpus, d,
+                                              'corpus', ns, backend='auto')
+        del corpus
+        packed_np, lengths_np = S.pack_patterns(pats)
+        patterns = torch.from_numpy(packed_np).to(dev)
+        lengths = torch.from_numpy(lengths_np).to(dev)
+        r = pss.Reader(path)
+        r.wait_device_ready()
+        idx = r._index
+        record('k4', 'k4', S.probe_phased,
+               (idx.text, idx.lengths, idx.sa, idx.tables, idx.limbs,
+                idx.rank, idx.present, patterns, lengths, idx.num_limbs,
+                idx._base, idx._depth, idx._bits), packed_np)
+        del r, idx
+        torch.cuda.empty_cache()
+        chunks = read_container(path).chunks
+        N = _pad_len(max(c.data.size for c in chunks) + S.PAD_MARGIN)
+        text = torch.zeros((len(chunks), N), dtype=torch.uint8, device=dev)
+        sa = torch.zeros((len(chunks), N), dtype=torch.int32, device=dev)
+        for i, c in enumerate(chunks):
+            text[i, :c.data.size] = torch.from_numpy(np.array(c.data))
+            sa[i, :c.data.size] = torch.from_numpy(
+                np.array(c.suffix_array, dtype=np.int32))
+        n = torch.tensor([c.data.size for c in chunks], dtype=torch.int32,
+                         device=dev)
+        del chunks
+        record('b15', 'b15', S.probe_bytes,
+               (text, n, sa, patterns, lengths), packed_np)
+        del text, sa, n
+        os.remove(path)
+        torch.cuda.empty_cache()
+
+        path, _, (line_pats, _) = smoke.build_container(
+            pss, lambda: smoke.make_digit_corpus(500), d, 'digit', ns,
+            backend='auto', sampler=smoke.sample_digit_patterns)
+        pats = line_pats + smoke.DIGIT_SHORT + smoke.DIGIT_HIGH
+        packed_np, lengths_np = S.pack_patterns(pats)
+        r = pss.Reader(path)
+        r.wait_device_ready()
+        idx = r._index
+        record('b11', 'b11', S.probe_limbs,
+               (idx.text, idx.lengths, idx.sa, idx.tables, idx.limbs,
+                torch.from_numpy(packed_np).to(dev),
+                torch.from_numpy(lengths_np).to(dev), idx.num_limbs),
+               packed_np)
+        del r, idx
+        torch.cuda.empty_cache()
+
+
 def _init_rows(torch, np, SA, S, bench, args, out):
     """B1 and B1b on ``INIT_ROWS``, timed beside ``torch.sort`` of their
     keys, K3 on the ranked and digit rows and B9 on 8 MiB chunks; with
@@ -467,6 +905,11 @@ def main(argv=None) -> int:
     ap.add_argument('--gathers', action='store_true',
                     help='also time the SA-order gathers (K2, K6, B12d, '
                     'B13)')
+    ap.add_argument('--packs', action='store_true',
+                    help='also time the streaming packs (K1, K7)')
+    ap.add_argument('--probe-bounds', action='store_true',
+                    help="also count the sectors the probes' bisections "
+                    'read (K4, B11, B15)')
     ap.add_argument('--corpus', default=os.path.join(
         tempfile.gettempdir(), 'sa_bench_corpus.npy'))
     args = ap.parse_args(argv)
@@ -580,6 +1023,10 @@ def main(argv=None) -> int:
         _init_rows(torch, np, SA, S, bench, args, out)
     if args.gathers:
         _gathers(torch, np, SA, S, bench, args, out)
+    if args.packs:
+        _packs(torch, np, S, bench, args, out)
+    if args.probe_bounds:
+        _probe_bounds(torch, np, S, args, out)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -170,6 +170,37 @@ def test_ranked_limb_planes_from_text_at_row_edges(name, depth, K, n):
         np.testing.assert_array_equal(spec.numpy(), host)
 
 
+#: Row lengths at the port's pack tiles (16 positions a thread): a whole
+#: number of tiles, one position into the next, one short of it.
+TILE_NS = (4096, 4097, 4111)
+
+
+@pytest.mark.parametrize('N', TILE_NS)
+@pytest.mark.parametrize('at', ['0', '1', 'N-D', 'N-1', 'N'])
+@pytest.mark.parametrize('bits', [5, 6])
+def test_ranked_pack_matches_jax_at_tile_edges(N, at, bits):
+    """K1's plain version (and the wrapper's CPU path) against
+    ``ranked_pack_jit`` at rows that end in a partial tile and true lengths
+    0, 1 and up to the row's end, where windows cross n and N; bytes past
+    n must not count.  The JAX roll wraps into the last D - 1 positions,
+    so those are compared only with the port's own zeros."""
+    D = jsearch.ranked_limb_bytes(bits)
+    n = {'0': 0, '1': 1, 'N-D': N - D, 'N-1': N - 1, 'N': N}[at]
+    rng = np.random.default_rng(N * 8 + n + bits)
+    lo, hi = (97, 123) if bits == 5 else (40, 99)
+    text = rng.integers(lo, hi, size=N, dtype=np.uint8)
+    rank, sigma = jsearch.alphabet_rank(
+        np.bincount(text, minlength=256)[:256] > 0)
+    assert jsearch.ranked_bits(sigma) == bits
+    t, r = torch.from_numpy(text), torch.from_numpy(rank)
+    plain = tsearch.ranked_pack_plain(t, n, r, bits).numpy()
+    ref = _jax_pack(text, n, rank, bits)
+    np.testing.assert_array_equal(plain[: N - D], ref[: N - D])
+    np.testing.assert_array_equal(tsearch.ranked_pack(t, n, r, bits).numpy(),
+                                  plain)
+    assert not plain[n:].any()
+
+
 @pytest.mark.parametrize('case', CASES, ids=lambda c: f'{c[0]}-d{c[1]}-k{c[2]}')
 def test_seed_table_matches_jax(case):
     data, text, sa, rank, bits, base, depth, K = _row(*case)

@@ -100,6 +100,55 @@ def test_aux_kernels_match_plain(cuda, kind, depth, K):
     assert np.array_equal(limbs.cpu().numpy(), host)
 
 
+#: K1 at both digit widths and K7 at every table combination.
+PACK_MODES = [('ranked_pack', 5, 0), ('ranked_pack', 6, 0)] + [
+    ('seed_prefix', base, depth) for base, depth in S._TABLE_COMBOS]
+
+
+@pytest.mark.parametrize('name, a, b', PACK_MODES,
+                         ids=lambda m: str(m))
+@pytest.mark.parametrize('N', [4096, 4097, 4111, (1 << 20) + 15])
+@pytest.mark.parametrize('at', ['0', '1', 'N-D', 'N-1', 'N'])
+@pytest.mark.parametrize('offsets', [(0, 0), (1, 0), (0, 1)])
+def test_packs_match_plain_at_tile_edges(cuda, name, a, b, N, at, offsets):
+    """K1 (``a`` bits) and K7 (base ``a``, depth ``b``) bit for bit against
+    their plain versions, one launch each: rows that end in a partial tile
+    (the byte loads and scalar stores of a row's last tile), true lengths
+    0, 1 and up to the row's end (windows crossing n and N, bytes past n
+    that must not count), and a text view one byte into its buffer or an
+    out view one int into its own (off the 16-byte alignment: the
+    byte-load form)."""
+    D = S.ranked_limb_bytes(a) if name == 'ranked_pack' else b
+    n = {'0': 0, '1': 1, 'N-D': N - D, 'N-1': N - 1, 'N': N}[at]
+    rng = np.random.default_rng(N + n + a + b)
+    if name == 'ranked_pack' or a != 258:
+        size = 30 if name == 'ranked_pack' and a == 5 else (
+            62 if name == 'ranked_pack' else a - 2)
+        alphabet = rng.choice(256, size=size, replace=False).astype(np.uint8)
+        body = alphabet[rng.integers(0, size, size=N)]
+        rank = S.alphabet_rank(np.bincount(alphabet, minlength=256)[:256]
+                               > 0)[0]
+    else:
+        body = rng.integers(0, 256, size=N, dtype=np.uint8)
+        rank = S.identity_rank()[0]
+    toff, ooff = offsets
+    text = torch.zeros(N + toff, dtype=torch.uint8, device=cuda)[toff:]
+    text.copy_(torch.from_numpy(body))
+    out = torch.full((N + ooff,), -1, dtype=torch.int32, device=cuda)[ooff:]
+    rk = torch.from_numpy(rank).to(cuda)
+    before = kernels.LAUNCHES[name]
+    if name == 'ranked_pack':
+        got = S.ranked_pack(text, n, rk, a, out=out)
+        want = S.ranked_pack_plain(text, n, rk, a)
+    else:
+        got = S.seed_prefix(text, n, rk, a, b, out=out)
+        want = S.seed_prefix_plain(text, n, rk, a, b)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    assert got.data_ptr() == out.data_ptr()
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize('kind, mode', [
     ('ranked', 'upload'), ('ranked6', 'upload'), ('nul', 'upload'),
     ('raw', 'upload'), ('ranked', 'derive'), ('ranked6', 'derive'),

@@ -11,6 +11,7 @@ not.
 """
 
 import collections
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -269,6 +270,86 @@ def test_seed_prefix_with_identity_rank_is_the_bucket_table(case, depth):
                                            depth)
     want = _jbucket(jnp.asarray(text), n, jnp.asarray(sa), depth)
     np.testing.assert_array_equal(table.numpy(), np.asarray(want))
+
+
+#: Row lengths at the port's pack tiles (16 positions a thread): a whole
+#: number of tiles, one position into the next, one short of it.
+TILE_NS = (4096, 4097, 4111)
+
+
+def _tile_row(N: int, n: int, base: int, seed: int):
+    """(text, rank) of N random bytes with a rank map of the table's base:
+    an alphabet of base - 2 bytes (the pads take the other two digits), or
+    every byte with ``identity_rank()`` at base 258."""
+    rng = np.random.default_rng(seed)
+    if base == 258:
+        return (rng.integers(0, 256, size=N, dtype=np.uint8),
+                tsearch.identity_rank()[0])
+    alphabet = rng.choice(256, size=base - 2, replace=False).astype(np.uint8)
+    text = alphabet[rng.integers(0, alphabet.size, size=N)]
+    rank, _ = tsearch.alphabet_rank(
+        np.bincount(alphabet, minlength=256)[:256] > 0)
+    return text, rank
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_prefix(base: int, depth: int):
+    """The prefix values of ``build_seed_table_device``, line for line
+    (the JAX function keeps them inside; its table is held below)."""
+    def f(text, n, rank):
+        N = text.shape[0]
+        iota = jax.lax.broadcasted_iota(jnp.int32, (N,), 0)
+        d = jnp.where(iota < n, jnp.take(rank, text.astype(jnp.int32)), 0)
+        pv = jnp.zeros((N,), jnp.int32)
+        for j in range(depth):
+            pv = pv * base + jnp.where(iota + j < n, jnp.roll(d, -j), 0)
+        return pv
+    return jax.jit(f)
+
+
+@pytest.mark.parametrize('N', TILE_NS)
+@pytest.mark.parametrize('at', ['0', '1', 'N-D', 'N-1', 'N'])
+@pytest.mark.parametrize('base, depth', tsearch._TABLE_COMBOS)
+def test_seed_prefix_matches_jax_at_tile_edges(N, at, base, depth):
+    """K7's plain version (and the wrapper's CPU path) against the JAX
+    prefix values at every table combination, at rows that end in a
+    partial tile and true lengths 0, 1 and up to the row's end; bytes past
+    n must not count."""
+    n = {'0': 0, '1': 1, 'N-D': N - depth, 'N-1': N - 1, 'N': N}[at]
+    text, rank = _tile_row(N, n, base, N + n + base + depth)
+    t, r = torch.from_numpy(text), torch.from_numpy(rank)
+    plain = tsearch.seed_prefix_plain(t, n, r, base, depth).numpy()
+    np.testing.assert_array_equal(
+        plain, np.asarray(_jax_prefix(base, depth)(
+            jnp.asarray(text), jnp.int32(n), jnp.asarray(rank))))
+    np.testing.assert_array_equal(
+        tsearch.seed_prefix(t, n, r, base, depth).numpy(), plain)
+    assert not plain[n:].any()
+
+
+@pytest.mark.parametrize('N', TILE_NS)
+@pytest.mark.parametrize('at', ['0', '1', 'N-D', 'N-1', 'N'])
+@pytest.mark.parametrize('base, depth', [
+    (b, d) for b, d in tsearch._TABLE_COMBOS if b ** d <= 48 << 20])
+def test_seed_prefix_table_matches_jax_at_tile_edges(N, at, base, depth):
+    """The table of K7's plain values over the row's SA equals
+    ``build_seed_table_device``'s (through ``derive_table_raw_jit``) at the
+    same tile edges as the values above: rows of a whole number of tiles,
+    one past and one short, and n = 0, 1, N - depth, N - 1 and N.  Every
+    table an index can pick (``pick_table_params`` caps them at 48 Mi
+    entries); the values of the larger combinations are held above."""
+    n = {'0': 0, '1': 1, 'N-D': N - depth, 'N-1': N - 1, 'N': N}[at]
+    text, rank = _tile_row(N, n, base, n + base + depth)
+    sa = np.zeros(N, dtype=np.int32)
+    sa[:n] = suffix_array_numpy(text[:n])
+    pv = tsearch.seed_prefix_plain(torch.from_numpy(text), n,
+                                   torch.from_numpy(rank), base, depth)
+    table = tsearch.seed_table_from_prefix_plain(pv, torch.from_numpy(sa), n,
+                                                 base, depth)
+    jtable = jsearch.derive_table_raw_jit(base, depth)(
+        jnp.zeros((1, base ** depth + 1), jnp.int32), jnp.int32(0),
+        jnp.asarray(text), jnp.int32(n), jnp.asarray(sa), jnp.asarray(rank))
+    np.testing.assert_array_equal(table.numpy(), np.asarray(jtable)[0])
 
 
 def test_seed_prefix_rejects_unknown_tables():
