@@ -726,102 +726,369 @@ __global__ void probe_phased_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// The wide byte compare of B15's probe and B11's deep refine: the JAX _cmp3
+// (pysubstringsearch_tpu/ops/search.py) of one pattern against one suffix,
+// 16 bytes at a time.  A byte ranks as its value + 1 and a text position at
+// or past the row's n as 0, below every byte, so the first position where
+// the suffix and the pattern differ decides, and a suffix that ends first
+// ranks below.  The text comes in aligned 16-byte loads cut in registers:
+// the chunk that holds the window's first byte, and the next one only when
+// the bytes it adds are needed (no difference in the first chunk's part, and
+// pattern and text go on past it); a chunk without a byte below n is never
+// loaded, and a load never leaves the tensor (byte loads at its two ends).
+// The first 32 pattern bytes sit in registers (Pattern), the rest is loaded
+// like the text.  The first differing byte is the lowest set byte of the
+// XOR (__ffs, word by word), so the compare costs a load instruction a 16
+// bytes and no byte loop.  The caller passes m, a multiple of 16 that the
+// suffix is known to share with the pattern (the classic bound of a
+// bisection: every suffix between two boundaries shares at least the
+// lesser of their common prefixes with the pattern), and gets back the
+// first differing position.
+// ---------------------------------------------------------------------------
+
+// The bytes [lo, hi) of one tensor: the only ones a load may touch.
+struct Span {
+  const uint8_t* lo;
+  const uint8_t* hi;
+};
+
+// The aligned 16 bytes at a, as four little-endian words; a byte outside
+// the span reads 0.
+__device__ __forceinline__ void chunk16(const uint8_t* a, const Span& s,
+                                        uint32_t x[4]) {
+  if (a >= s.lo && a + 16 <= s.hi) {
+    const uint4 c = __ldg(reinterpret_cast<const uint4*>(a));
+    x[0] = c.x;
+    x[1] = c.y;
+    x[2] = c.z;
+    x[3] = c.w;
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) x[k] = 0;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    if (a + j >= s.lo && a + j < s.hi)
+      x[j >> 2] |= static_cast<uint32_t>(a[j]) << (8 * (j & 3));
+}
+
+// w = bytes o .. o + 15 of the 32 bytes x, y (o in [0, 16)): two word
+// selects and a funnel shift, no indexing that would leave the registers.
+__device__ __forceinline__ void funnel16(const uint32_t x[4],
+                                         const uint32_t y[4], int o,
+                                         uint32_t w[4]) {
+  uint32_t v[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    const uint32_t lo = k < 4 ? x[k] : y[k - 4];
+    const uint32_t hi = k + 2 < 4 ? x[k + 2] : y[k - 2];
+    v[k] = o & 8 ? hi : lo;
+  }
+#pragma unroll
+  for (int k = 0; k < 5; ++k) v[k] = o & 4 ? v[k + 1] : v[k];
+  const uint32_t sh = (o & 3) * 8;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) w[k] = __funnelshift_r(v[k], v[k + 1], sh);
+}
+
+// Bytes a .. a + 15 where only the first `want` matter (the others are
+// unspecified): one aligned load, two where the window crosses a chunk.
+__device__ __forceinline__ void window16(const uint8_t* a, int want,
+                                         const Span& s, uint32_t w[4]) {
+  const int o = static_cast<int>(reinterpret_cast<uintptr_t>(a) & 15);
+  uint32_t x[4], y[4] = {0, 0, 0, 0};
+  chunk16(a - o, s, x);
+  if (o + want > 16) chunk16(a - o + 16, s, y);
+  funnel16(x, y, o, w);
+}
+
+// The index of the first byte where w and p differ, 16 if none.
+__device__ __forceinline__ int first_diff(const uint32_t w[4],
+                                          const uint32_t p[4]) {
+  int idx = 16;
+#pragma unroll
+  for (int k = 3; k >= 0; --k) {
+    const uint32_t d = w[k] ^ p[k];
+    if (d) idx = 4 * k + ((__ffs(static_cast<int>(d)) - 1) >> 3);
+  }
+  return idx;
+}
+
+__device__ __forceinline__ uint32_t byte_of16(const uint32_t w[4], int e) {
+  const uint32_t word = e & 8 ? (e & 4 ? w[3] : w[2]) : (e & 4 ? w[1] : w[0]);
+  return (word >> (8 * (e & 3))) & 0xffu;
+}
+
+// A pattern: its bytes, its length and its first 32 bytes in registers.
+struct Pattern {
+  const uint8_t* p;
+  int len;
+  uint32_t w[8];
+};
+
+__device__ __forceinline__ Pattern load_pattern(const uint8_t* p, int len,
+                                                const Span& s) {
+  Pattern pt;
+  pt.p = p;
+  pt.len = len;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) pt.w[k] = 0;
+  if (len > 0) window16(p, len < 16 ? len : 16, s, pt.w);
+  if (len > 16) window16(p + 16, len < 32 ? len - 16 : 16, s, pt.w + 4);
+  return pt;
+}
+
+// The compare of the pattern with the suffix at text position `start` of
+// a row (its first byte `row`, n real bytes), from pattern byte m (a
+// multiple of 16 below len, shared with the suffix).  *sign: -1 the suffix
+// ranks below the pattern, 0 it starts with it, +1 above.  Returns the
+// first position where the two differ (len if none).
+__device__ int wide_cmp(const uint8_t* row, int n, int start,
+                        const Pattern& pt, int m, const Span& ts,
+                        const Span& ps, int* sign) {
+  const uint8_t* a = row + start + m;
+  const int o = static_cast<int>(reinterpret_cast<uintptr_t>(a) & 15);
+  const uint8_t* base = a - o;
+  int left = n - (start + m);  // text bytes from the window on
+  uint32_t nx[4];              // the next chunk, when loaded
+  bool have = false;
+  while (true) {
+    const int lim = pt.len - m < 16 ? pt.len - m : 16;
+    const int tl = left <= 0 ? 0 : (left >= 16 ? 16 : left);
+    const int need = lim < tl ? lim : tl;
+    uint32_t p[4];
+    if (m < 32) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) p[k] = m == 0 ? pt.w[k] : pt.w[k + 4];
+    } else {
+      window16(pt.p + m, lim, ps, p);
+    }
+    uint32_t x[4] = {0, 0, 0, 0}, y[4] = {0, 0, 0, 0}, w[4];
+    if (have) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) x[k] = nx[k];
+    } else if (need > 0) {
+      chunk16(base, ts, x);
+    }
+    have = false;
+    funnel16(x, y, o, w);
+    int idx = first_diff(w, p);
+    if (idx >= 16 - o && need > 16 - o) {
+      chunk16(base + 16, ts, nx);
+      have = true;
+      funnel16(x, nx, o, w);
+      idx = first_diff(w, p);
+    }
+    const int e = idx < tl ? idx : tl;
+    if (e < lim) {
+      *sign = e >= tl || byte_of16(w, e) < byte_of16(p, e) ? -1 : 1;
+      return m + e;
+    }
+    if (pt.len - m <= 16) {
+      *sign = 0;
+      return pt.len;
+    }
+    m += 16;
+    base += 16;
+    left -= 16;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // B11, the digit-kind probe.  Replaces probe_bounds_limbs_loop with
 // _pattern_limb_targets, _limb_cmp3 and its deep _cmp3 loop, reached through
-// limbs_loop_batch_jit (ops/search.py).
+// limbs_loop_batch_jit (pysubstringsearch_tpu/ops/search.py).
 //
 // The digit kind keys suffixes on base-258 digits (byte + 1, 0 past the
 // end): the bucket table indexes the first `depth` (2 or 3) digits, and
 // limb j holds digits 2 + 3j .. 4 + 3j whatever the depth, so at depth 3
-// limb 0 overlaps the bucket's third digit.  One thread per (row, pattern)
-// runs both bisections of the JAX duplex:
+// limb 0 overlaps the bucket's third digit.  The two bounds of the JAX
+// duplex:
 //   - the lower bound pads past the pattern with digit 0, the upper bound
 //     with 257 (above every real digit), in the bucket id and the limb
 //     targets alike, so a pattern shorter than the depth lands on the empty
 //     pad buckets beside its prefix and the empty pattern spans [0, n);
-//   - each seeds [table[bucket], table[bucket + 1]) and bisects for the
+//   - each seeds [table[bucket], table[bucket + 1]) and searches for the
 //     first slot whose first k limbs compare >= its target (the upper: >),
 //     k = ceil((len - 2) / 3) clamped to [1, num_limbs].  The JAX program
 //     compares k_used limbs from the batch width instead; the limbs past a
 //     pattern's own k hold pad targets (all 0, or all 257), on which both
 //     comparisons agree slot for slot, so (lower, count) is the same;
-//   - a pattern longer than 2 + 3 * num_limbs bisects [lower, upper) again
-//     with K4's byte compare (cmp3).
-// Bound by latency like K4: a bisection step is one dependent scattered
-// 4-byte read, more only where leading limbs tie; the plane offsets are
-// 64-bit (2 x 5 x 272 Mi limbs pass 2^31).
+//   - a pattern longer than cover = 2 + 3 * num_limbs searches [lower,
+//     upper) again with the wide byte compare, from byte cover & ~15 on:
+//     every suffix of that range shares the first cover digits with it.
+// The parent, one thread a (row, pattern), ran each bound's bisection as
+// about 15 steps of dependent limb loads (each limb after the last, the
+// targets in a 64-byte stack frame), then the deep refine with K4's byte
+// loop: 338-342 us on the line batch (2 rows x 10,709) and 86-89 us on the
+// count batch (2 x 10,000) with only 21.4k threads on the card
+// (sa_bench.py --probes on an H100).  Here a (row, pattern) owns
+// 2 * kLimbLanes lanes, kLimbLanes a bound, each group running a
+// (kLimbLanes + 1)-ary search: every round each lane reads its probe
+// slot's first kEagerLimbs limbs together and the rest only where those
+// tie with the target, a ballot counts the probes below the target, and
+// the range shrinks to the gap between two probes.  The deep refine runs
+// the same search with the wide compare, each round starting at the lesser
+// common prefix of its two boundary probes (shuffled from the lanes that
+// read them).  Wider groups cut the rounds but not the time: 8 lanes a
+// bound with every limb read at once took 108-110 us on the line batch
+// and 62 us on the count batch, 4 lanes 85 and 53, 2 lanes 77-81 and
+// 41-44, one lane 121-129 and 62-70 (the same variants); the limb planes
+// are read at random, so the search pays for the loads it adds.  The
+// slots are monotone in the SA order, so any search finds the JAX
+// program's first slot.  Plane offsets are 64-bit (2 x 5 x 272 Mi limbs
+// pass 2^31).
 // ---------------------------------------------------------------------------
 constexpr int kProbeThreads = 128;
+constexpr int kLimbLanes = 2;  // lanes of one bound
+constexpr unsigned kLimbLaneMask = (1u << kLimbLanes) - 1;
+constexpr int kLimbPatterns = kProbeThreads / (2 * kLimbLanes);
+// Limbs a probe reads before its first comparison; the others one at a
+// time, where the limbs before them tie with the target.
+constexpr int kEagerLimbs = 2;
 
-__device__ int digit_at(const Lane& p, int q, int pad) {
-  return q < p.len ? p.pat[q] + 1 : pad;
+__device__ __forceinline__ int digit_of(const uint8_t* p, int len, int q,
+                                        int pad) {
+  return q < len ? p[q] + 1 : pad;
 }
 
-// First slot in [lo, hi) whose first k limbs compare >= t (threshold 0) or
-// > t (threshold 1), lexicographically.
-__device__ int first_key(const int* __restrict__ limbs, long long n_pad,
-                         int lo, int hi, const int* t, int k, int threshold) {
-  while (lo < hi) {
-    const int mid = lo + ((hi - lo) >> 1);
-    int c = 0;
-    for (int j = 0; j < k; ++j) {
-      const int v = limbs[static_cast<long long>(j) * n_pad + mid];
-      if (v != t[j]) {
-        c = v < t[j] ? -1 : 1;
-        break;
-      }
-    }
-    if (c >= threshold) hi = mid; else lo = mid + 1;
+// One round's probes over [lo, hi): lane i of the group reads slot
+// lo + (R (i + 1)) / (kLimbLanes + 1) (R = hi - lo > kLimbLanes), or
+// lo + i in the last round; a lane past hi answers true.  The first slot
+// where `pred` holds is then lo + f, or in the gap after the f-th probe,
+// f the probes that answer false (the first f, since pred is monotone).
+__device__ __forceinline__ long long probe_slot(long long lo, long long hi,
+                                                int i) {
+  const long long R = hi - lo;
+  return R <= kLimbLanes ? lo + i : lo + (R * (i + 1)) / (kLimbLanes + 1);
+}
+
+// Advances [lo, hi) by a round whose ballot (one bit a lane of the
+// group) says which probes held; returns true when the answer (lo) is
+// final.
+__device__ __forceinline__ bool probe_round(long long& lo, long long& hi,
+                                            unsigned held, int* f_out) {
+  const long long R = hi - lo;
+  const int f = __popc(~held & kLimbLaneMask);
+  *f_out = f;
+  if (R <= kLimbLanes) {
+    lo += f;
+    return true;
   }
-  return lo;
+  const long long nlo = f == 0 ? lo : lo + (R * f) / (kLimbLanes + 1) + 1;
+  hi = f == kLimbLanes ? hi : lo + (R * (f + 1)) / (kLimbLanes + 1);
+  lo = nlo;
+  return lo >= hi;
 }
 
-__global__ void probe_limbs_kernel(
-    const uint8_t* __restrict__ text, const int* __restrict__ n_rows,
-    const int* __restrict__ sa, const int* __restrict__ tables,
-    const int* __restrict__ limbs, const uint8_t* __restrict__ patterns,
-    const int* __restrict__ lengths, int B, int L, long long n_pad,
-    long long table_len, int depth, int num_limbs,
-    int* __restrict__ lower_out, int* __restrict__ count_out) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+__global__ void __launch_bounds__(kProbeThreads)
+probe_limbs_kernel(const uint8_t* __restrict__ text,
+                   const int* __restrict__ n_rows, const int* __restrict__ sa,
+                   const int* __restrict__ tables,
+                   const int* __restrict__ limbs,
+                   const uint8_t* __restrict__ patterns,
+                   const int* __restrict__ lengths, int B, int L,
+                   long long n_pad, long long table_len, int depth,
+                   int num_limbs, int* __restrict__ lower_out,
+                   int* __restrict__ count_out) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kLimbPatterns + threadIdx.x / (2 * kLimbLanes);
+  if (b >= B) return;  // a pattern's lanes leave together
+  const int upper = (lane / kLimbLanes) & 1;  // 0: the lower bound, 1: upper
+  const int i = lane % kLimbLanes;
+  const int first = lane & ~(kLimbLanes - 1);  // this bound's first lane
+  const unsigned mine = kLimbLaneMask << first;
+  const unsigned both = static_cast<unsigned>(  // the pattern's lanes
+      ((1ull << (2 * kLimbLanes)) - 1) << (lane & ~(2 * kLimbLanes - 1)));
   const long long r = blockIdx.y;
   const int n = n_rows[r];
   const int* table = tables + r * table_len;
   const int* row_limbs = limbs + r * static_cast<long long>(num_limbs) * n_pad;
-  Lane p{patterns + static_cast<long long>(b) * L, lengths[b], L};
+  const uint8_t* pat = patterns + static_cast<long long>(b) * L;
+  const int len = lengths[b];
+  const int pad = upper ? kDigitBase - 1 : 0;
 
-  long long bucket_lo = 0, bucket_up = 0;
-  for (int q = 0; q < depth; ++q) {
-    bucket_lo = bucket_lo * kDigitBase + digit_at(p, q, 0);
-    bucket_up = bucket_up * kDigitBase + digit_at(p, q, kDigitBase - 1);
-  }
-  int k = p.len / kDigitLimbStride;  // ceil((len - 2) / 3) for len >= 2
+  long long bucket = 0;
+  for (int q = 0; q < depth; ++q)
+    bucket = bucket * kDigitBase + digit_of(pat, len, q, pad);
+  int k = len / kDigitLimbStride;  // ceil((len - 2) / 3) for len >= 2
   k = k < 1 ? 1 : (k > num_limbs ? num_limbs : k);
-  int t_lo[kMaxLimbs], t_up[kMaxLimbs];
-  for (int j = 0; j < k; ++j) {
-    int vl = 0, vu = 0;
-    for (int i = 0; i < kDigitLimbStride; ++i) {
-      const int q = kDigitLimbOffset + kDigitLimbStride * j + i;
-      vl = vl * kDigitBase + digit_at(p, q, 0);
-      vu = vu * kDigitBase + digit_at(p, q, kDigitBase - 1);
-    }
-    t_lo[j] = vl;
-    t_up[j] = vu;
+  int t[kMaxLimbs];
+#pragma unroll
+  for (int j = 0; j < kMaxLimbs; ++j) {
+    int v = 0;
+#pragma unroll
+    for (int d = 0; d < kDigitLimbStride; ++d)
+      v = v * kDigitBase +
+          digit_of(pat, len, kDigitLimbOffset + kDigitLimbStride * j + d, pad);
+    t[j] = j < k ? v : 0;
   }
-  int A = first_key(row_limbs, n_pad, table[bucket_lo], table[bucket_lo + 1],
-                    t_lo, k, 0);
-  int Z = first_key(row_limbs, n_pad, table[bucket_up], table[bucket_up + 1],
-                    t_up, k, 1);
-  if (p.len > kDigitLimbOffset + kDigitLimbStride * num_limbs && A < Z) {
+
+  long long lo = table[bucket], hi = table[bucket + 1];
+  while (true) {
+    const long long s = probe_slot(lo, hi, i);
+    bool held = true;
+    if (s < hi) {
+      int v[kEagerLimbs];
+#pragma unroll
+      for (int j = 0; j < kEagerLimbs; ++j)
+        v[j] = j < k ? __ldg(row_limbs + static_cast<long long>(j) * n_pad + s)
+                     : 0;
+      int c = 0;
+#pragma unroll
+      for (int j = 0; j < kMaxLimbs; ++j) {
+        if (c == 0 && j < k) {
+          const int x = j < kEagerLimbs
+              ? v[j < kEagerLimbs ? j : 0]
+              : __ldg(row_limbs + static_cast<long long>(j) * n_pad + s);
+          if (x != t[j]) c = x < t[j] ? -1 : 1;
+        }
+      }
+      held = c >= upper;
+    }
+    const unsigned bits = __ballot_sync(mine, held) >> first;
+    int f;
+    if (probe_round(lo, hi, bits, &f)) break;
+  }
+  long long A = __shfl_sync(both, lo, 0, 2 * kLimbLanes);
+  long long Z = __shfl_sync(both, lo, kLimbLanes, 2 * kLimbLanes);
+
+  const int cover = kDigitLimbOffset + kDigitLimbStride * num_limbs;
+  if (len > cover && A < Z) {
+    const Span ts{text, text + static_cast<long long>(gridDim.y) * n_pad};
+    const Span ps{patterns, patterns + static_cast<long long>(B) * L};
     const uint8_t* row_text = text + r * n_pad;
     const int* row_sa = sa + r * n_pad;
-    const int a = first_cmp(row_text, row_sa, n, A, Z, p, 0);
-    Z = first_cmp(row_text, row_sa, n, A, Z, p, 1);
-    A = a;
+    const Pattern pt = load_pattern(pat, len, ps);
+    lo = A;
+    hi = Z;
+    int llcp = cover, rlcp = cover;
+    while (true) {
+      const long long s = probe_slot(lo, hi, i);
+      bool held = true;
+      int l = len;
+      if (s < hi) {
+        int sign;
+        const int m = (llcp < rlcp ? llcp : rlcp) & ~15;
+        l = wide_cmp(row_text, n, __ldg(row_sa + s), pt, m, ts, ps, &sign);
+        held = sign >= upper;
+      }
+      const unsigned bits = __ballot_sync(mine, held) >> first;
+      int f;
+      if (probe_round(lo, hi, bits, &f)) break;
+      // The new boundaries are probes f - 1 and f: their common prefixes.
+      const int lf = __shfl_sync(mine, l, f > 0 ? f - 1 : 0, kLimbLanes);
+      const int rf = __shfl_sync(mine, l, f < kLimbLanes ? f : 0, kLimbLanes);
+      if (f > 0) llcp = lf;
+      if (f < kLimbLanes) rlcp = rf;
+    }
+    A = __shfl_sync(both, lo, 0, 2 * kLimbLanes);
+    Z = __shfl_sync(both, lo, kLimbLanes, 2 * kLimbLanes);
   }
-  lower_out[r * B + b] = A;
-  count_out[r * B + b] = Z - A;
+  if (i == 0 && upper == 0) {
+    lower_out[r * B + b] = static_cast<int>(A);
+    count_out[r * B + b] = static_cast<int>(Z - A);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -896,40 +1163,169 @@ __global__ void gather_hits_flat_kernel(const int* __restrict__ sa,
 // bounds, so this one kernel serves both names.
 //
 // No seed table and no limbs: the rows are bare (text, SA) pairs, as the
-// chunk-parallel build leaves them.  One thread per (row, pattern) runs both
-// lanes of the JAX duplex with K4's byte compare (cmp3): lower = first slot
-// in [0, n) whose suffix compares >= 0 with the pattern (a suffix that
-// starts with it compares 0), upper = first slot that compares >= 1.  cmp3
-// never decreases along the SA, so the upper search starts at lower and
-// the answer is the JAX one.  A byte at or past the row's own n ranks 0,
-// below every real byte (b + 1), so no thread reads past n into the next
-// row; the empty pattern counts n, an empty row 0.  A length past L
-// compares L bytes, as the JAX mask does.  Row offsets are 64-bit.  Bound
-// by latency: each bisection step is a dependent 4-byte SA read and a
-// scattered read of up to L text bytes; the first steps of every thread hit
-// the same few slots and stay in L2.
+// chunk-parallel build leaves them.  lower = first slot in [0, n) whose
+// suffix compares >= 0 with the pattern (a suffix that starts with it
+// compares 0), upper = first slot that compares >= 1; count = upper -
+// lower.  A byte at or past the row's own n ranks 0, below every real byte
+// (b + 1), so no byte past n is compared; the empty pattern counts n, an
+// empty row 0.  A length past L compares L bytes, as the JAX mask does.
+// Row offsets are 64-bit.
+//
+// One thread a (row, pattern): 63 x 10.2k of them on the scale-out rows.
+// The parent ran the duplex's two bisections one after the other (about
+// 2 x 23 steps at n = 8 Mi), each step a dependent SA load and then K4's
+// byte loop, a text and a pattern byte load for every byte compared: 233 M
+// load instructions over the batch, every one divergent across the warp,
+// in 1801-1837 us (sa_bench.py --probe-bounds counts the loads on the
+// recorded steps, --probes times the kernel; an H100).  The same steps
+// with one aligned 16-byte text load where the byte loop read byte by byte
+// issue 64 M.  Here:
+//   - the wide compare (above), the pattern's first 32 bytes in registers;
+//   - one loop for both bounds: they bisect [0, n) together until a slot
+//     starts with the pattern (a pattern that never occurs, all the way),
+//     then the lower bound finishes [lo, mid) and the upper [mid + 1, hi)
+//     in the same loop, so the lanes of a warp stay on one code path;
+//   - each step's compare starts at the lesser common prefix of its
+//     range's two boundaries (rounded down to 16), which the deep patterns
+//     (23-200 bytes) need once the range holds their matches;
+//   - the block's row's top kStageLevels levels of the bisection tree
+//     (255 nodes: SA entry and first 16 text bytes) are staged in shared
+//     memory by the block's threads together, so a thread's first 8 steps
+//     read no global memory unless its pattern and the node's suffix share
+//     16 bytes.
+// What held the first version with the same loads at 992 us was the
+// instruction stream, not the loads: the compare in 64-bit shifts and the
+// two bounds' searches in two loops that split a warp's lanes; a 32-bit
+// compare in one loop took it to 497 us, the staged levels to 482-484
+// (sa_bench.py --probes variants on an H100, at 72 registers, 28 warps an
+// SM).  Loading the next step's two candidate SA entries ahead (more loads
+// in flight) lost 8%; a 64-register cap spilled and lost 17%; staging 10
+// or 11 levels, or blocks of 256, lost 4-13%.  The slots are monotone in
+// the SA order, so the first slot found is the JAX bisection's.
 // ---------------------------------------------------------------------------
-__global__ void probe_bytes_kernel(const uint8_t* __restrict__ text,
-                                   const int* __restrict__ n_rows,
-                                   const int* __restrict__ sa,
-                                   const uint8_t* __restrict__ patterns,
-                                   const int* __restrict__ lengths, int B,
-                                   int L, long long n_pad,
-                                   int* __restrict__ lower_out,
-                                   int* __restrict__ count_out) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+// Levels of a row's bisection tree that a block stages in shared memory:
+// nodes 1 .. kStageNodes - 1, node 1 the range [0, n), node 2i + 1 the
+// upper half of node i, 2i the lower.
+constexpr int kStageLevels = 8;
+constexpr int kStageNodes = 1 << kStageLevels;
+constexpr int kBytesThreads = 128;
+
+__global__ void __launch_bounds__(kBytesThreads)
+probe_bytes_kernel(const uint8_t* __restrict__ text,
+                   const int* __restrict__ n_rows, const int* __restrict__ sa,
+                   const uint8_t* __restrict__ patterns,
+                   const int* __restrict__ lengths, int B, int L,
+                   long long n_pad, int* __restrict__ lower_out,
+                   int* __restrict__ count_out) {
+  // Node i's suffix: its first 16 bytes, its SA entry, its bytes below n.
+  __shared__ uint4 s_win[kStageNodes];
+  __shared__ int s_sa[kStageNodes];
+  __shared__ int s_tl[kStageNodes];
   const long long r = blockIdx.y;
   const int n = n_rows[r];
+  const Span ts{text, text + static_cast<long long>(gridDim.y) * n_pad};
   const uint8_t* row_text = text + r * n_pad;
   const int* row_sa = sa + r * n_pad;
+  for (int node = threadIdx.x + 1; node < kStageNodes; node += blockDim.x) {
+    int lo = 0, hi = n;
+    for (int k = 30 - __clz(node); k >= 0; --k) {
+      const int mid = lo + ((hi - lo) >> 1);
+      if ((node >> k) & 1) lo = mid + 1; else hi = mid;
+    }
+    uint32_t w[4] = {0, 0, 0, 0};
+    int s = 0, tl = 0;
+    if (lo < hi) {
+      s = __ldg(row_sa + lo + ((hi - lo) >> 1));
+      tl = n - s < 16 ? n - s : 16;
+      if (tl > 0) window16(row_text + s, tl, ts, w);
+    }
+    s_win[node] = make_uint4(w[0], w[1], w[2], w[3]);
+    s_sa[node] = s;
+    s_tl[node] = tl;
+  }
+  __syncthreads();
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
   int len = lengths[b];
   len = len < 0 ? 0 : (len > L ? L : len);
-  const Lane p{patterns + static_cast<long long>(b) * L, len, L};
-  const int lower = first_cmp(row_text, row_sa, n, 0, n, p, 0);
-  const int upper = first_cmp(row_text, row_sa, n, lower, n, p, 1);
+  int lower = 0, count = n > 0 ? n : 0;  // the empty pattern
+  if (len > 0 && n > 0) {
+    const Span ps{patterns, patterns + static_cast<long long>(B) * L};
+    const Pattern pt =
+        load_pattern(patterns + static_cast<long long>(b) * L, len, ps);
+    const int lim0 = len < 16 ? len : 16;
+    // [lo, hi), its node of the tree (kStageNodes once past the staged
+    // levels) and the common prefixes of the suffixes at lo - 1 and hi.
+    int lo = 0, hi = n, node = 1, llcp = 0, rlcp = 0;
+    int phase = 0;  // 0: both bounds, 1: the lower, 2: the upper
+    int zlo = 0, zhi = 0, zr = 0, znode = 0;  // the upper's, set aside
+    while (true) {
+      if (lo >= hi) {
+        if (phase != 1) break;
+        lower = lo;
+        lo = zlo;
+        hi = zhi;
+        node = znode;
+        llcp = len;
+        rlcp = zr;
+        phase = 2;
+        continue;
+      }
+      const int mid = lo + ((hi - lo) >> 1);
+      int sign, l;
+      if (node < kStageNodes) {
+        // The staged first 16 bytes decide, unless the pattern goes on
+        // past them and they all match.
+        const uint4 c = s_win[node];
+        const uint32_t w[4] = {c.x, c.y, c.z, c.w};
+        const int tl = s_tl[node];
+        const int idx = first_diff(w, pt.w);
+        const int e = idx < tl ? idx : tl;
+        if (e < lim0) {
+          sign = e >= tl || byte_of16(w, e) < byte_of16(pt.w, e) ? -1 : 1;
+          l = e;
+        } else if (len <= 16) {
+          sign = 0;
+          l = len;
+        } else {
+          l = wide_cmp(row_text, n, s_sa[node], pt, 16, ts, ps, &sign);
+        }
+      } else {
+        l = wide_cmp(row_text, n, __ldg(row_sa + mid), pt,
+                     (llcp < rlcp ? llcp : rlcp) & ~15, ts, ps, &sign);
+      }
+      if (phase == 0 && sign == 0) {
+        // Slot mid starts with the pattern: the lower bound lies in [lo,
+        // mid], the upper in [mid + 1, hi]; the lower goes first.
+        zlo = mid + 1;
+        zhi = hi;
+        zr = rlcp;
+        znode = node < kStageNodes ? 2 * node + 1 : kStageNodes;
+        hi = mid;
+        rlcp = len;
+        node = node < kStageNodes ? 2 * node : kStageNodes;
+        phase = 1;
+        continue;
+      }
+      const bool left = sign >= (phase == 2 ? 1 : 0);
+      if (left) {
+        hi = mid;
+        rlcp = l;
+      } else {
+        lo = mid + 1;
+        llcp = l;
+      }
+      node = node < kStageNodes ? 2 * node + !left : kStageNodes;
+    }
+    if (phase == 0) {
+      lower = lo;
+      count = 0;
+    } else {
+      count = lo - lower;
+    }
+  }
   lower_out[r * B + b] = lower;
-  count_out[r * B + b] = upper - lower;
+  count_out[r * B + b] = count;
 }
 
 // ---------------------------------------------------------------------------
@@ -1099,7 +1495,7 @@ int pss_probe_limbs(const void* text, const void* n_rows, const void* sa,
   if (C > 65535 || num_limbs < 1 || num_limbs > kMaxLimbs || depth < 1 ||
       depth > 3)
     return (int)cudaErrorInvalidValue;
-  dim3 grid((B + kProbeThreads - 1) / kProbeThreads, C);
+  dim3 grid((B + kLimbPatterns - 1) / kLimbPatterns, C);
   probe_limbs_kernel<<<grid, kProbeThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)text, (const int*)n_rows, (const int*)sa,
       (const int*)tables, (const int*)limbs, (const uint8_t*)patterns,
@@ -1128,8 +1524,8 @@ int pss_probe_bytes(const void* text, const void* n_rows, const void* sa,
                     void* stream) {
   if (C <= 0 || B <= 0) return 0;
   if (C > 65535 || L < 0) return (int)cudaErrorInvalidValue;
-  dim3 grid((B + kProbeThreads - 1) / kProbeThreads, C);
-  probe_bytes_kernel<<<grid, kProbeThreads, 0, (cudaStream_t)stream>>>(
+  dim3 grid((B + kBytesThreads - 1) / kBytesThreads, C);
+  probe_bytes_kernel<<<grid, kBytesThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)text, (const int*)n_rows, (const int*)sa,
       (const uint8_t*)patterns, (const int*)lengths, B, L, n_pad,
       (int*)lower, (int*)count);

@@ -90,7 +90,21 @@ steps read over the whole batch (``_sectors``), with the patterns, lengths
 and bounds, over 3.35 TB/s make the bound (``_bound_ms``; the patterns,
 lengths and bounds alone are ``_pattern_bound_ms``).  The recording
 replaces helpers of ``ops.search`` for the run and raises where the plain
-probes no longer bisect through them as it expects.
+probes no longer bisect through them as it expects.  Over the recorded
+byte-compare steps it also counts the load instructions a byte loop
+(``_byte_loop_loads``: the SA word, a pattern byte and a text byte for
+every byte compared) and a 16-byte compare (``_chunk16_loads``: the SA
+word and the aligned 16-byte text chunks of the same bytes) issue.
+
+With ``--probes`` it first (before anything else, so that its profiler
+session is the process's first) times the probes on the same indexes and
+batches (``_probes``): K4, B15's probe on the 63 chunk rows and B11 on the
+line and count batches, each held against its plain version, as a whole
+call (``_ms``), back to back (``_back_to_back_ms``) and, with
+``--profile``, by device time (``_device_us``); then ptxas's registers,
+stack and spills of the probe kernels of ROOT's source (``ptxas``).  The
+two containers are written once beside ``--corpus`` and read by later
+runs of any tree.  ``--no-base`` skips the default measurements above.
 
 With ``--profile`` it first prints the device time by kernel
 (``torch.profiler``'s ``key_averages``) of B10's init, of that first pass,
@@ -502,7 +516,13 @@ class _SectorRecorder:
     now, so every departure raises: ``calls`` and ``deep_calls`` count the
     bisections (``_probe_sectors`` holds them to the probe's own number),
     ``steps`` the steps handed to ``on_step`` with an active lane and
-    ``window_lanes`` the lanes whose byte-compare reads were recorded."""
+    ``window_lanes`` the lanes whose byte-compare reads were recorded.
+
+    For the byte compares it also counts load instructions per lane and
+    step: ``byte_loads``, a byte loop's (the SA word, then a pattern byte
+    and, below n, a text byte for every byte compared, up to the first that
+    differs), and ``chunk_loads``, a 16-byte compare's (the SA word, then
+    the aligned 16-byte text chunks that hold those text bytes)."""
 
     def __init__(self, torch, S):
         self.torch, self.S = torch, S
@@ -513,6 +533,8 @@ class _SectorRecorder:
         self.deep_calls = 0
         self.steps = 0
         self.window_lanes = 0
+        self.byte_loads = 0
+        self.chunk_loads = 0
 
     def add(self, addr):
         self.sectors.append(self.torch.unique(addr // SECTOR))
@@ -565,6 +587,9 @@ class _SectorRecorder:
         read = torch.minimum(need, (n[:, None] - starts).clamp(min=0))
         a0 = text.data_ptr() + rows * text.stride(0) + starts
         sel = active & (read > 0)
+        self.byte_loads += int((1 + need + read)[active].sum())
+        self.chunk_loads += int(active.sum()) + int(
+            ((a0 + read - 1) // 16 - a0 // 16 + 1)[sel].sum())
         first = (a0 // SECTOR)[sel]
         span = ((a0 + read - 1) // SECTOR)[sel] - first + 1
         skip = torch.repeat_interleave(torch.cumsum(span, 0) - span, span)
@@ -623,7 +648,8 @@ class _SectorRecorder:
 
 def _probe_sectors(torch, S, kind, args):
     """(distinct 32-byte sectors the plain bisection of ``kind`` reads,
-    its lower bounds, its counts) for ``args``, the probe's own arguments:
+    its lower bounds, its counts, the recorder) for ``args``, the probe's
+    own arguments:
     ``'k4'`` (``probe_phased_plain``: the seed-table entries, one limb word
     a phase step, the deep byte compares), ``'b11'``
     (``probe_limbs_plain``: the bucket-table entries, the limbs a step
@@ -720,7 +746,197 @@ def _probe_sectors(torch, S, kind, args):
     sectors = rec.count()
     _expect(sectors > tables_only,
             f'{kind}: {sectors} sectors, {tables_only} of them table entries')
-    return sectors, lower, count
+    return sectors, lower, count, rec
+
+
+def _probe_containers(np, args):
+    """``chip_smoke.py``'s two probe containers and batches: (the ranked
+    container, its 10,200 patterns, the digit container, its line batch of
+    10,709 patterns, its count batch of 10,000).  Each container is written
+    by the port's Writer on the card (SA equal to native SA-IS) in 8 MiB
+    chunks, as the script writes it, once: it is kept beside ``--corpus``
+    (``sa_bench_probe_*.idx``) for the next run, of this tree or another;
+    the batches are drawn again from the corpora each run."""
+    import types
+
+    import pysubstringsearch_tpu_torch as pss
+
+    smoke = _smoke()
+    ns = types.SimpleNamespace(chunk_mb=8, queries=10_000)
+    d = os.path.dirname(os.path.abspath(args.corpus))
+    digit_npy = os.path.join(d, 'sa_bench_digit.npy')
+    if not os.path.exists(digit_npy):
+        np.save(digit_npy, np.frombuffer(smoke.make_digit_corpus(500),
+                                         np.uint8))
+    paths = []
+    for name, corpus, sampler in (
+            ('sa_bench_probe_ranked', np.load(args.corpus).tobytes(),
+             smoke.sample_patterns),
+            ('sa_bench_probe_digit', np.load(digit_npy).tobytes(),
+             smoke.sample_digit_patterns)):
+        path = os.path.join(d, f'{name}.idx')
+        if os.path.exists(path):
+            pats = sampler(corpus, ns.queries)
+        else:
+            path, _, pats = smoke.build_container(
+                pss, lambda corpus=corpus: corpus, d, name, ns,
+                backend='auto', sampler=sampler)
+        paths.append((path, pats))
+        del corpus
+    (ranked, pats), (digit, (line, count)) = paths
+    return (ranked, pats, digit,
+            line + smoke.DIGIT_SHORT + smoke.DIGIT_HIGH, count)
+
+
+def _probe_rows(torch, np, path):
+    """(text, n, sa) of a container's chunks stacked as rows of the upload
+    geometry (B15's rows in ``chip_smoke.py``'s scale-out phase)."""
+    from pysubstringsearch_tpu_torch.container import read_container
+    from pysubstringsearch_tpu_torch.ops import search as S
+    from pysubstringsearch_tpu_torch.ops.suffix_array import _pad_len
+
+    dev = torch.device('cuda')
+    chunks = read_container(path).chunks
+    N = _pad_len(max(c.data.size for c in chunks) + S.PAD_MARGIN)
+    text = torch.zeros((len(chunks), N), dtype=torch.uint8, device=dev)
+    sa = torch.zeros((len(chunks), N), dtype=torch.int32, device=dev)
+    for i, c in enumerate(chunks):
+        text[i, :c.data.size] = torch.from_numpy(np.array(c.data))
+        sa[i, :c.data.size] = torch.from_numpy(
+            np.array(c.suffix_array, dtype=np.int32))
+    n = torch.tensor([c.data.size for c in chunks], dtype=torch.int32,
+                     device=dev)
+    return text, n, sa
+
+
+#: The probe kernels' entry points, by their launch-count names.
+PROBE_KERNELS = {'k4': 'probe_phased', 'b15': 'probe_bytes',
+                 'b11_line': 'probe_limbs', 'b11_count': 'probe_limbs'}
+
+
+def _ptxas(tree):
+    """nvcc -Xptxas -v of ``tree``'s ``search_kernels.cu``: {kernel: its
+    registers, stack and spill lines} for the probe kernels."""
+    import re
+    import subprocess
+
+    from pysubstringsearch_tpu_torch.ops import kernels
+
+    src = os.path.join(tree, 'pysubstringsearch_tpu_torch', 'csrc',
+                       'search_kernels.cu')
+    with tempfile.TemporaryDirectory() as d:
+        res = subprocess.run(
+            [kernels.nvcc_path(), '-gencode', 'arch=compute_90a,code=sm_90a',
+             '-std=c++17', '-O3', '-Xcompiler', '-fPIC', '-c', '-Xptxas',
+             '-v', '-o', os.path.join(d, 'x.o'), src],
+            capture_output=True, text=True, check=True)
+    found, name = {}, None
+    for line in res.stderr.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1) if 'probe' in m.group(1) else None
+        elif name and ('registers' in line or 'stack frame' in line):
+            found.setdefault(name, []).append(line.split('info    :')[-1]
+                                              .strip())
+    return found
+
+
+def _probes(torch, np, S, bench, args, out):
+    """The probes on ``chip_smoke.py``'s indexes and batches: K4 on the
+    ranked derive index (2 merged rows x 10,200 patterns), B15 on the
+    ranked container's 63 chunks as rows (x 10,200), B11 on the digit
+    derive index (2 rows) with the line batch (10,709) and the count batch
+    (10,000).  Each is held against its plain version (lower and count,
+    bit for bit) and timed as a whole call (``_ms``: CUDA events around
+    one call after a synchronise, ``bench.cuda_ms``) and back to back
+    (``_back_to_back_ms``: events around ``10 * REPS`` calls in a row, so
+    the host's launch work overlaps the kernels); with ``--profile`` one
+    profiler session runs each once (``PROFILE`` lines of the kernel's
+    device time; the session is the process's first, as ``--probes`` runs
+    before everything else).  Then ptxas's registers and spills of the
+    probe kernels (``ptxas``)."""
+    import pysubstringsearch_tpu_torch as pss
+    from pysubstringsearch_tpu_torch.ops import kernels
+
+    dev = torch.device('cuda')
+    ranked, pats, digit, line, count = _probe_containers(np, args)
+
+    def batch(p):
+        packed, lengths = S.pack_patterns(p)
+        return (torch.from_numpy(packed).to(dev),
+                torch.from_numpy(lengths).to(dev))
+
+    calls = []
+    readers = [pss.Reader(ranked), pss.Reader(digit)]
+    for r in readers:
+        r.wait_device_ready()
+    idx = readers[0]._index
+    k4 = (idx.text, idx.lengths, idx.sa, idx.tables, idx.limbs, idx.rank,
+          idx.present, *batch(pats), idx.num_limbs, idx._base, idx._depth,
+          idx._bits)
+    calls.append(('k4', S.probe_phased, S.probe_phased_plain, k4))
+    b15 = (*_probe_rows(torch, np, ranked), *batch(pats))
+    calls.append(('b15', S.probe_bytes, S.probe_bytes_plain, b15))
+    idx = readers[1]._index
+    for tag, p in (('b11_line', line), ('b11_count', count)):
+        calls.append((tag, S.probe_limbs, S.probe_limbs_plain,
+                      (idx.text, idx.lengths, idx.sa, idx.tables, idx.limbs,
+                       *batch(p), idx.num_limbs)))
+    del idx
+    if args.profile:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        for _, fn, _, a in calls:  # warm-up: the library is built
+            fn(*a)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            for _, fn, _, a in calls:
+                fn(*a)
+                torch.cuda.synchronize()
+        found = sorted((e.time_range.start, e.name,
+                        e.time_range.elapsed_us()) for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        labels = ([t for t, *_ in calls] if len(found) == len(calls)
+                  else ['probes'] * len(found))
+        for label, (_, name, us) in zip(labels, found):
+            out[f'{label}_device_us'] = us
+            print('PROFILE ' + json.dumps({
+                'label': label, 'device_us': us, 'by_kernel_us': [[
+                    name.replace('(anonymous namespace)::', '').split('(')[0],
+                    us, 1]]}), flush=True)
+    for tag, fn, plain, a in calls:
+        before = kernels.LAUNCHES[PROBE_KERNELS[tag]]
+        lo, cnt = fn(*a)
+        torch.cuda.synchronize()
+        _expect(kernels.LAUNCHES[PROBE_KERNELS[tag]] == before + 1,
+                f'{tag}: one launch of {PROBE_KERNELS[tag]} a probe')
+        lo_p, cnt_p = plain(*a)
+        if not (torch.equal(lo, lo_p) and torch.equal(cnt, cnt_p)):
+            raise RuntimeError(f'--probes: {tag} differs from its plain '
+                               'version')
+        out[f'{tag}_shape'] = [lo.shape[0], lo.shape[1]]
+        out[f'{tag}_hits'] = int(cnt.long().sum())
+        out[f'{tag}_ms'] = bench.cuda_ms(lambda: fn(*a), 10 * REPS)
+        reps = 10 * REPS
+        fn(*a)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn(*a)
+        end.record()
+        torch.cuda.synchronize()
+        out[f'{tag}_back_to_back_ms'] = start.elapsed_time(end) / reps
+        print(f'PROBE {tag}: {lo.shape[0]} rows x {lo.shape[1]} patterns, '
+              f'{out[f"{tag}_ms"]:.4f} ms a call, '
+              f'{out[f"{tag}_back_to_back_ms"]:.4f} back to back',
+              flush=True)
+    del calls, readers, k4, b15
+    torch.cuda.empty_cache()
+    out['ptxas'] = _ptxas(args.tree)
 
 
 def _probe_bounds(torch, np, S, args, out):
@@ -728,25 +944,18 @@ def _probe_bounds(torch, np, S, args, out):
     the ranked derive index (2 merged rows, the 10,200 patterns), B11 on
     the digit derive index (2 rows, 10,709 patterns) and B15 on the ranked
     container's chunks stacked as rows at the upload geometry (63 rows,
-    the 10,200 patterns).  Each container is written by the port's Writer
-    on the card (SA equal to native SA-IS) in 8 MiB chunks, as the script
-    writes it.  For each: the distinct 32-byte sectors its plain bisection
-    reads (``_probe_sectors``, checked against the kernel's answers), the
-    bytes they and the patterns, lengths and bounds make, and that over
-    3.35 TB/s (``_bound_ms``)."""
-    import types
-
+    the 10,200 patterns), from ``_probe_containers``.  For each: the
+    distinct 32-byte sectors its plain bisection reads
+    (``_probe_sectors``, checked against the kernel's answers), the bytes
+    they and the patterns, lengths and bounds make, and that over 3.35
+    TB/s (``_bound_ms``)."""
     import pysubstringsearch_tpu_torch as pss
-    from pysubstringsearch_tpu_torch.container import read_container
-    from pysubstringsearch_tpu_torch.ops.suffix_array import _pad_len
 
-    smoke = _smoke()
     dev = torch.device('cuda')
-    ns = types.SimpleNamespace(chunk_mb=8, queries=10_000)
-    corpus = np.load(args.corpus).tobytes()
 
     def record(tag, kind, probe, probe_args, patterns_np):
-        sectors, lo_p, cnt_p = _probe_sectors(torch, S, kind, probe_args)
+        sectors, lo_p, cnt_p, rec = _probe_sectors(torch, S, kind,
+                                                   probe_args)
         lo_k, cnt_k = probe(*probe_args)
         if not (torch.equal(lo_p, lo_k) and torch.equal(cnt_p, cnt_k)):
             raise RuntimeError(f'{tag}: the plain probe differs from the '
@@ -757,58 +966,39 @@ def _probe_bounds(torch, np, S, args, out):
         out[f'{tag}_sectors'] = sectors
         out[f'{tag}_pattern_bound_ms'] = _floor_ms(B * L + 4 * B + 8 * C * B)
         out[f'{tag}_bound_ms'] = _floor_ms(nbytes)
+        out[f'{tag}_compare_lane_steps'] = rec.window_lanes
+        out[f'{tag}_byte_loop_loads'] = rec.byte_loads
+        out[f'{tag}_chunk16_loads'] = rec.chunk_loads
         print(f'PROBE_BOUND {tag}: {C} rows x {B} patterns, {sectors} '
               f'sectors, bound {out[f"{tag}_bound_ms"]:.4f} ms', flush=True)
 
-    tmp_root = '/dev/shm' if os.path.isdir('/dev/shm') else None
-    with tempfile.TemporaryDirectory(dir=tmp_root) as d:
-        path, _, pats = smoke.build_container(pss, lambda: corpus, d,
-                                              'corpus', ns, backend='auto')
-        del corpus
-        packed_np, lengths_np = S.pack_patterns(pats)
-        patterns = torch.from_numpy(packed_np).to(dev)
-        lengths = torch.from_numpy(lengths_np).to(dev)
-        r = pss.Reader(path)
-        r.wait_device_ready()
-        idx = r._index
-        record('k4', 'k4', S.probe_phased,
-               (idx.text, idx.lengths, idx.sa, idx.tables, idx.limbs,
-                idx.rank, idx.present, patterns, lengths, idx.num_limbs,
-                idx._base, idx._depth, idx._bits), packed_np)
-        del r, idx
-        torch.cuda.empty_cache()
-        chunks = read_container(path).chunks
-        N = _pad_len(max(c.data.size for c in chunks) + S.PAD_MARGIN)
-        text = torch.zeros((len(chunks), N), dtype=torch.uint8, device=dev)
-        sa = torch.zeros((len(chunks), N), dtype=torch.int32, device=dev)
-        for i, c in enumerate(chunks):
-            text[i, :c.data.size] = torch.from_numpy(np.array(c.data))
-            sa[i, :c.data.size] = torch.from_numpy(
-                np.array(c.suffix_array, dtype=np.int32))
-        n = torch.tensor([c.data.size for c in chunks], dtype=torch.int32,
-                         device=dev)
-        del chunks
-        record('b15', 'b15', S.probe_bytes,
-               (text, n, sa, patterns, lengths), packed_np)
-        del text, sa, n
-        os.remove(path)
-        torch.cuda.empty_cache()
-
-        path, _, (line_pats, _) = smoke.build_container(
-            pss, lambda: smoke.make_digit_corpus(500), d, 'digit', ns,
-            backend='auto', sampler=smoke.sample_digit_patterns)
-        pats = line_pats + smoke.DIGIT_SHORT + smoke.DIGIT_HIGH
-        packed_np, lengths_np = S.pack_patterns(pats)
-        r = pss.Reader(path)
-        r.wait_device_ready()
-        idx = r._index
-        record('b11', 'b11', S.probe_limbs,
-               (idx.text, idx.lengths, idx.sa, idx.tables, idx.limbs,
-                torch.from_numpy(packed_np).to(dev),
-                torch.from_numpy(lengths_np).to(dev), idx.num_limbs),
-               packed_np)
-        del r, idx
-        torch.cuda.empty_cache()
+    ranked, pats, digit, line, _ = _probe_containers(np, args)
+    packed_np, lengths_np = S.pack_patterns(pats)
+    patterns = torch.from_numpy(packed_np).to(dev)
+    lengths = torch.from_numpy(lengths_np).to(dev)
+    r = pss.Reader(ranked)
+    r.wait_device_ready()
+    idx = r._index
+    record('k4', 'k4', S.probe_phased,
+           (idx.text, idx.lengths, idx.sa, idx.tables, idx.limbs, idx.rank,
+            idx.present, patterns, lengths, idx.num_limbs, idx._base,
+            idx._depth, idx._bits), packed_np)
+    del r, idx
+    torch.cuda.empty_cache()
+    record('b15', 'b15', S.probe_bytes,
+           (*_probe_rows(torch, np, ranked), patterns, lengths), packed_np)
+    torch.cuda.empty_cache()
+    packed_np, lengths_np = S.pack_patterns(line)
+    r = pss.Reader(digit)
+    r.wait_device_ready()
+    idx = r._index
+    record('b11', 'b11', S.probe_limbs,
+           (idx.text, idx.lengths, idx.sa, idx.tables, idx.limbs,
+            torch.from_numpy(packed_np).to(dev),
+            torch.from_numpy(lengths_np).to(dev), idx.num_limbs),
+           packed_np)
+    del r, idx
+    torch.cuda.empty_cache()
 
 
 def _init_rows(torch, np, SA, S, bench, args, out):
@@ -894,48 +1084,11 @@ def _init_rows(torch, np, SA, S, bench, args, out):
     torch.cuda.empty_cache()
 
 
-def main(argv=None) -> int:
-    own = os.path.dirname(os.path.abspath(__file__))
-    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--tree', default=os.path.dirname(own),
-                    help='checkout whose package to time (default: this one)')
-    ap.add_argument('--profile', action='store_true')
-    ap.add_argument('--inits', action='store_true',
-                    help='also time B1 and B1b on the derive rows')
-    ap.add_argument('--gathers', action='store_true',
-                    help='also time the SA-order gathers (K2, K6, B12d, '
-                    'B13)')
-    ap.add_argument('--packs', action='store_true',
-                    help='also time the streaming packs (K1, K7)')
-    ap.add_argument('--probe-bounds', action='store_true',
-                    help="also count the sectors the probes' bisections "
-                    'read (K4, B11, B15)')
-    ap.add_argument('--corpus', default=os.path.join(
-        tempfile.gettempdir(), 'sa_bench_corpus.npy'))
-    args = ap.parse_args(argv)
-
-    import numpy as np
-    import torch
-
-    if not torch.cuda.is_available():
-        print('sa_bench: no CUDA device; nothing to measure', file=sys.stderr)
-        return 2
-    # Run as a script, this file's own directory leads sys.path; the
-    # package comes from the chosen checkout's root instead.
-    sys.path = [p for p in sys.path if os.path.abspath(p) != own]
-    sys.path.insert(0, os.path.abspath(args.tree))
-    from pysubstringsearch_tpu_torch.ops import search as S
-    from pysubstringsearch_tpu_torch.ops import suffix_array as SA
-
-    # This checkout's sort_bench, bound to the chosen checkout's package.
-    spec = importlib.util.spec_from_file_location(
-        'pysubstringsearch_tpu_torch.sort_bench',
-        os.path.join(own, 'sort_bench.py'))
-    bench = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(bench)
-
+def _base(torch, np, SA, S, bench, args, out):
+    """The default measurements: the sorts, B8 and B15's gather on the
+    skewed batch, then B10, B1b and B2 on the ranked corpus as one 512 Mi
+    row."""
     dev = torch.device('cuda')
-    out = {'tree': args.tree, 'device': torch.cuda.get_device_name(0)}
     sort_err = 0
     # 64 Mi as sort_bench's, one B10 pass's shape, B10's init at 512 Mi.
     for n, bits in ((1 << 26, 30), (bench.WIDE_PAIRS, bench.WIDE_KEY_BITS),
@@ -956,10 +1109,6 @@ def main(argv=None) -> int:
     del sa
     torch.cuda.empty_cache()
 
-    if not os.path.exists(args.corpus):
-        from bench import make_corpus  # the checkout's, on sys.path
-
-        np.save(args.corpus, np.frombuffer(make_corpus(500, 0)[0], np.uint8))
     data = np.load(args.corpus)
     n = data.size
     text = torch.zeros(1 << 29, dtype=torch.uint8, device=dev)
@@ -1019,6 +1168,63 @@ def main(argv=None) -> int:
         lambda: SA.sa_refine_round(*state, SA.BYTE_INIT_WIDTH), REPS, restore)
     del state, first, text
     torch.cuda.empty_cache()
+
+
+def main(argv=None) -> int:
+    own = os.path.dirname(os.path.abspath(__file__))
+    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--tree', default=os.path.dirname(own),
+                    help='checkout whose package to time (default: this one)')
+    ap.add_argument('--profile', action='store_true')
+    ap.add_argument('--inits', action='store_true',
+                    help='also time B1 and B1b on the derive rows')
+    ap.add_argument('--gathers', action='store_true',
+                    help='also time the SA-order gathers (K2, K6, B12d, '
+                    'B13)')
+    ap.add_argument('--packs', action='store_true',
+                    help='also time the streaming packs (K1, K7)')
+    ap.add_argument('--probe-bounds', action='store_true',
+                    help="also count the sectors the probes' bisections "
+                    'read (K4, B11, B15)')
+    ap.add_argument('--probes', action='store_true',
+                    help='first time the probes (K4, B15, B11) and print '
+                    "ptxas's registers and spills of their kernels")
+    ap.add_argument('--no-base', action='store_true',
+                    help='skip the sorts, B8, the B15 gather, B10, B1b and '
+                    'B2 on the 512 Mi row')
+    ap.add_argument('--corpus', default=os.path.join(
+        tempfile.gettempdir(), 'sa_bench_corpus.npy'))
+    args = ap.parse_args(argv)
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print('sa_bench: no CUDA device; nothing to measure', file=sys.stderr)
+        return 2
+    # Run as a script, this file's own directory leads sys.path; the
+    # package comes from the chosen checkout's root instead.
+    sys.path = [p for p in sys.path if os.path.abspath(p) != own]
+    sys.path.insert(0, os.path.abspath(args.tree))
+    from pysubstringsearch_tpu_torch.ops import search as S
+    from pysubstringsearch_tpu_torch.ops import suffix_array as SA
+
+    # This checkout's sort_bench, bound to the chosen checkout's package.
+    spec = importlib.util.spec_from_file_location(
+        'pysubstringsearch_tpu_torch.sort_bench',
+        os.path.join(own, 'sort_bench.py'))
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+
+    out = {'tree': args.tree, 'device': torch.cuda.get_device_name(0)}
+    if not os.path.exists(args.corpus):
+        from bench import make_corpus  # the checkout's, on sys.path
+
+        np.save(args.corpus, np.frombuffer(make_corpus(500, 0)[0], np.uint8))
+    if args.probes:
+        _probes(torch, np, S, bench, args, out)
+    if not args.no_base:
+        _base(torch, np, SA, S, bench, args, out)
     if args.inits:
         _init_rows(torch, np, SA, S, bench, args, out)
     if args.gathers:

@@ -817,34 +817,222 @@ def test_writer_auto_builds_on_card(cuda, tmp_path):
         assert f.read() == g.read()
 
 
-@pytest.mark.parametrize('size', [1, 70_000, 3_000_000])
-def test_probe_bytes_matches_plain(cuda, size):
-    """B15 over [C, N] rows (an empty one among them) equals its plain
-    version for every (row, pattern), lower bounds included, in one launch;
-    probe_bounds is its C = 1 case."""
-    bodies = [_body('nul', size, 11), _body('raw', max(size // 3, 1), 12),
-              np.zeros(0, np.uint8)]
-    N = _pad_len(max(b.size for b in bodies) + S.PAD_MARGIN)
-    text = torch.zeros((3, N), dtype=torch.uint8, device=cuda)
-    sa = torch.zeros((3, N), dtype=torch.int32, device=cuda)
+def _probe_rows(bodies, device, N=None, off=0):
+    """(text, n, sa) of ``bodies`` as [C, N] rows (N by default the
+    padding of the longest, so rows off the 16-byte alignment where N is
+    no multiple of 16), the text a view ``off`` bytes into its buffer; SA
+    by native SA-IS, 0 past n."""
+    N = N or _pad_len(max(b.size for b in bodies) + S.PAD_MARGIN)
+    C = len(bodies)
+    buf = torch.zeros(C * N + off, dtype=torch.uint8, device=device)
+    text = buf[off:].view(C, N)
+    sa = torch.zeros((C, N), dtype=torch.int32, device=device)
     for i, b in enumerate(bodies):
         text[i, : b.size] = torch.from_numpy(b)
-        sa[i, : b.size] = torch.from_numpy(suffix_array_native(b))
+        if b.size:
+            sa[i, : b.size] = torch.from_numpy(suffix_array_native(b))
     n = torch.tensor([b.size for b in bodies], dtype=torch.int32,
-                     device=cuda)
-    pats = _patterns(bodies[:1], 3) if size > 100 else [b'', b'\n', b'a']
-    pats.append(bodies[0].tobytes()[:300] + b'x')  # longer than a row
+                     device=device)
+    return text, n, sa
+
+
+def _slices(bodies, lengths, per, seed, misses=True):
+    """``per`` slices of each length from each body, each beside a near
+    miss (its last byte flipped)."""
+    rng = np.random.default_rng(seed)
+    pats = []
+    for l in lengths:
+        for b in bodies:
+            if b.size < l:
+                continue
+            for o in rng.integers(0, b.size - l + 1, size=per):
+                p = b[o: o + l].tobytes()
+                pats.append(p)
+                if misses:
+                    pats.append(p[:-1] + bytes([p[-1] ^ 1]))
+    return pats
+
+
+def _row_end_patterns(bodies, lengths):
+    """Each body's last bytes, and the same with a byte after them: the
+    suffixes that end at n must rank below every byte, 0x00 included."""
+    pats = []
+    for b in bodies:
+        for l in lengths:
+            if 0 < l <= b.size:
+                tail = b[b.size - l:].tobytes()
+                pats += [tail, tail + b'\x00', tail + b'\x01', tail + b'\xff']
+    return pats
+
+
+def _repeats(size, seed):
+    """A random block repeated with a few bytes changed: suffixes that
+    share hundreds of bytes."""
+    rng = np.random.default_rng(seed)
+    block = rng.integers(97, 103, size=997, dtype=np.uint8)
+    body = np.tile(block, size // block.size + 1)[:size]
+    body[rng.integers(0, size, size=size // 500)] = 0x7a
+    return body
+
+
+#: B15's cases: row sizes, and the edges of the wide compare.
+PROBE_BYTES_CASES = [1, 70_000, 3_000_000, 'lengths', 'long_matches',
+                     'row_ends', 'offset_rows', 'repeated', 'offsets64']
+
+
+def _probe_bytes_case(case, device):
+    """(text, n, sa, patterns, lengths) of one of ``PROBE_BYTES_CASES``:
+    row sizes 1 to 3 M (an empty row among them), pattern lengths around
+    16 and 32 and past L, patterns that match 100-300 bytes of many
+    suffixes, 0x00 and 0xFF at the row ends, rows off the 16-byte
+    alignment in a text view off it, one pattern 512 times, and rows whose
+    offsets pass 2^31."""
+    if isinstance(case, int):
+        bodies = [_body('nul', case, 11), _body('raw', max(case // 3, 1), 12),
+                  np.zeros(0, np.uint8)]
+        pats = _patterns(bodies[:1], 3) if case > 100 else [b'', b'\n', b'a']
+        pats.append(bodies[0].tobytes()[:300] + b'x')  # longer than a row
+        text, n, sa = _probe_rows(bodies, device)
+    elif case == 'offsets64':
+        bodies = [_body('nul', 5_000, 1), _body('raw', 70_001, 2),
+                  _body('nul', 4_099, 3)]
+        pats = [b''] + _slices(bodies, (1, 7, 16, 17, 33, 200), 3, 4)
+        text, n, sa = _probe_rows(bodies, device, N=(1 << 30) + 48)
+    else:
+        bodies = {
+            'lengths': lambda: [_body('nul', 70_000, 5), _body('raw', 9_001, 6)],
+            'long_matches': lambda: [_repeats(30_011, 7), _repeats(4_099, 8)],
+            'row_ends': lambda: [
+                np.append(_body('nul', 4_098, 9), [0xff, 0x00]),
+                np.append(_body('raw', 70_000, 10), [0x00, 0xff]),
+                np.array([0x00], np.uint8), np.array([0xff], np.uint8),
+                np.zeros(0, np.uint8)],
+            'offset_rows': lambda: [_body('raw', 4_099, 12),
+                                    _body('nul', 20_003, 13)],
+            'repeated': lambda: [_body('nul', 50_000, 14)],
+        }[case]()
+        pats = [b'', b'\x00', b'\xff']
+        if case == 'lengths':
+            pats += _slices(bodies, (15, 16, 17, 31, 32, 33, 48, 49), 8, 15)
+        elif case == 'long_matches':
+            pats += _slices(bodies, (100, 150, 299, 300), 8, 16)
+        elif case == 'row_ends':
+            pats += _row_end_patterns(bodies, (1, 2, 3, 15, 16, 17, 33))
+        elif case == 'offset_rows':
+            pats += _slices(bodies, (1, 5, 16, 17, 40), 10, 17)
+            pats += _row_end_patterns(bodies, (1, 16, 17))
+        else:
+            pats = [bodies[0][123: 163].tobytes()] * 512
+        off = 3 if case == 'offset_rows' else 0
+        N = _pad_len(max(b.size for b in bodies) + S.PAD_MARGIN) + 5 * (off > 0)
+        text, n, sa = _probe_rows(bodies, device, N=N, off=off)
     packed, lengths = S.pack_patterns(pats)
-    p, l = torch.from_numpy(packed).to(cuda), torch.from_numpy(lengths).to(cuda)
+    if case == 'lengths':  # a length past L compares L bytes
+        lengths[::7] = packed.shape[1] + 9
+    return (text, n, sa, torch.from_numpy(packed).to(device),
+            torch.from_numpy(lengths).to(device))
+
+
+@pytest.mark.parametrize('case', PROBE_BYTES_CASES)
+def test_probe_bytes_matches_plain(cuda, case):
+    """B15 over [C, N] rows (an empty one among them) equals its plain
+    version for every (row, pattern), lower bounds included, in one launch,
+    at the edges of its wide compare (``_probe_bytes_case``); probe_bounds
+    is its C = 1 case."""
+    if case == 'offsets64' and torch.cuda.mem_get_info()[0] < 20 << 30:
+        pytest.skip('needs 20 GiB of free device memory')
+    text, n, sa, p, l = _probe_bytes_case(case, cuda)
     before = kernels.LAUNCHES['probe_bytes']
     lo, cnt = S.probe_bytes(text, n, sa, p, l)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES['probe_bytes'] == before + 1
     lo_p, cnt_p = S.probe_bytes_plain(text, n, sa, p, l)
     assert torch.equal(lo, lo_p) and torch.equal(cnt, cnt_p)
-    assert int(cnt[0, 0]) == bodies[0].size and int(cnt[2].abs().sum()) == 0
-    lo1, cnt1 = S.probe_bounds(text[0], bodies[0].size, sa[0], p, l)
-    assert torch.equal(lo1, lo[0]) and torch.equal(cnt1, cnt[0])
+    if isinstance(case, int):
+        assert int(cnt[0, 0]) == case and int(cnt[2].abs().sum()) == 0
+        lo1, cnt1 = S.probe_bounds(text[0], case, sa[0], p, l)
+        assert torch.equal(lo1, lo[0]) and torch.equal(cnt1, cnt[0])
+    else:
+        assert int((cnt > 0).sum()) > 0
+    del text, sa
+    torch.cuda.empty_cache()
+
+
+def _nul_runs(size, seed):
+    """UTF-16 text with runs of 48 NULs every 64 bytes: NUL-led buckets of
+    over a million slots in a 3 MB row."""
+    body = _digit_body(size, seed)
+    body.reshape(-1, 64)[:, 16:] = 0  # size is a multiple of 64
+    return body
+
+
+#: B11's cases: bucket depth 2 or 3, 1, 2 or 5 limbs, and the edges.
+PROBE_LIMBS_CASES = ['depth2', 'depth3', 'k1', 'k2', 'big_bucket',
+                     'repeated', 'offsets64']
+
+
+def _probe_limbs_case(case, device):
+    """(text, n, sa, tables, limbs, patterns, lengths, num_limbs) of one of
+    ``PROBE_LIMBS_CASES``: UTF-16 rows (with every byte value, 0x00 and
+    0xFF at the row ends, an empty row and a one-slot row), patterns
+    shorter than the bucket depth, k at 1 and at num_limbs, deep patterns
+    of 100-300 bytes past the key cover, a NUL-led bucket of over a million
+    slots, one pattern many times, and plane offsets past 2^31."""
+    depth, K, N = {'depth2': (2, 5, None), 'depth3': (3, 5, None),
+                   'k1': (2, 1, None), 'k2': (3, 2, None),
+                   'big_bucket': (2, 5, None), 'repeated': (3, 5, None),
+                   'offsets64': (2, 5, (1 << 28) + 16)}[case]
+    if case == 'big_bucket':
+        bodies = [_nul_runs(3 << 20, 21)]
+    else:
+        bodies = [_digit_body(60_001, 22), _digit_body(777, 23),
+                  np.array([0xff], np.uint8), np.zeros(0, np.uint8)]
+        bodies[0][-2:] = [0xff, 0x00]
+        bodies[1][:256] = np.arange(256, dtype=np.uint8)
+        if case == 'offsets64':
+            bodies = bodies[:2]
+    text, n, sa = _probe_rows(bodies, device, N=N)
+    C, Np = text.shape
+    tables = torch.stack([S.digit_bucket_table(text[i], sa[i], int(n[i]),
+                                               depth) for i in range(C)])
+    limbs = torch.stack([S.digit_limb_planes(text[i], sa[i], int(n[i]), K)
+                         for i in range(C)])
+    pats = [b'', b'\x00', b'\x00\x00', b'a', b'a\x00', b'\xff', b'\xff\x00',
+            b'\x00\xff']
+    cover = S.key_cover_bytes(K)
+    if case == 'repeated':
+        pats = [bodies[0][301: 301 + cover + 40].tobytes()] * 300 + [b'\x00'] * 20
+    elif case == 'big_bucket':
+        pats += [b'\x00' * l for l in (3, 17, 18, 40, 60)]
+        pats += _slices(bodies, (2, 6, 17, 18, 64, 150), 6, 24)
+    else:
+        pats += _slices(bodies, (1, 2, 3, 5, 6, 8, 15, 16, cover, cover + 1,
+                                 31, 32, 33, 100, 300), 4, 25)
+        pats += _row_end_patterns(bodies, (1, 2, 3, cover, cover + 2))
+    packed, lengths = S.pack_patterns(pats)
+    return (text, n, sa, tables, limbs, torch.from_numpy(packed).to(device),
+            torch.from_numpy(lengths).to(device), K)
+
+
+@pytest.mark.parametrize('case', PROBE_LIMBS_CASES)
+def test_probe_limbs_matches_plain(cuda, case):
+    """B11 equals its plain version for every (row, pattern), lower bounds
+    included, in one launch, at the edges of its cooperative search and
+    its deep wide compare (``_probe_limbs_case``)."""
+    if case == 'offsets64' and torch.cuda.mem_get_info()[0] < 24 << 30:
+        pytest.skip('needs 24 GiB of free device memory')
+    args = _probe_limbs_case(case, cuda)
+    before = kernels.LAUNCHES['probe_limbs']
+    lo, cnt = S.probe_limbs(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES['probe_limbs'] == before + 1
+    lo_p, cnt_p = S.probe_limbs_plain(*args)
+    assert torch.equal(lo, lo_p) and torch.equal(cnt, cnt_p)
+    assert int((cnt > 0).sum()) > 0
+    if case == 'big_bucket':
+        assert int(cnt[0, 1]) > 1 << 20  # b'\x00'
+    del args
+    torch.cuda.empty_cache()
 
 
 @pytest.mark.parametrize('cap', [1, 64, 5000])

@@ -226,11 +226,41 @@ def _probe_patterns(rows, boundary):
     return pats
 
 
+def _edge_patterns(rows, case, cover):
+    """Patterns at the edges of the port's B11 kernel: lengths around 16
+    and 32 and past the key cover, 100-300 bytes, each row's last bytes
+    (0x00 and 0xFF end row 0) with a byte after them, near misses; or one
+    deep pattern and one short one many times."""
+    if case == 'repeated':
+        return ([rows[1][500: 500 + cover + 30].tobytes()] * 40
+                + [b'\x00'] * 20)
+    rng = np.random.default_rng(17)
+    pats = [b'', b'\x00', b'\xff', b'\x00\xff']
+    for l in (15, 16, 17, cover, cover + 1, 31, 32, 33, 100, 300):
+        for r in rows:
+            for o in rng.integers(0, r.size - l + 1, size=3):
+                p = r[o: o + l].tobytes()
+                pats += [p, p[:-1] + bytes([p[-1] ^ 1])]
+    for r in rows:
+        for l in (1, 2, 3, cover, cover + 2):
+            tail = r[r.size - l:].tobytes()
+            pats += [tail, tail + b'\x00', tail + b'\x01']
+    return pats
+
+
 @pytest.mark.parametrize('depth', [2, 3])
 @pytest.mark.parametrize('K', [5, 2])
-@pytest.mark.parametrize('deep', [False, True])
+@pytest.mark.parametrize('deep', [False, True, 'edges', 'repeated'])
 def test_probe_limbs_matches_jax(depth, K, deep):
+    """B11's plain version equals the JAX ``limbs_loop_batch_jit``, lower
+    bounds included, on two UTF-16 rows: the line patterns within the key
+    cover or past it, and the edges of the port's kernel
+    (``_edge_patterns``)."""
     rows, text, sa, boundary = _probe_rows()
+    if not isinstance(deep, bool):
+        rows[0][-2:] = [0xFF, 0x00]
+        text[0, rows[0].size - 2: rows[0].size] = [0xFF, 0x00]
+        sa[0, :rows[0].size] = suffix_array_numpy(rows[0])
     n = np.array([d.size for d in rows], dtype=np.int32)
     tables = np.stack([np.asarray(_jbucket(jnp.asarray(text[i]), int(n[i]),
                                            jnp.asarray(sa[i]), depth))
@@ -239,12 +269,15 @@ def test_probe_limbs_matches_jax(depth, K, deep):
                                          jnp.asarray(sa[i]), K))
                       for i in range(2)])
     cover = tsearch.key_cover_bytes(K)
-    pats = [p for p in _probe_patterns(rows, boundary)
-            if deep or len(p) <= cover]
+    if isinstance(deep, bool):
+        pats = [p for p in _probe_patterns(rows, boundary)
+                if deep or len(p) <= cover]
+    else:
+        pats = _edge_patterns(rows, deep, cover)
     packed, lengths = pack_patterns(pats)
-    assert (packed.shape[1] > cover) == deep
+    assert (packed.shape[1] > cover) == bool(deep)
     jlo, jcnt = (np.asarray(x) for x in jsearch.limbs_loop_batch_jit(
-        deep, K)(jnp.asarray(text), jnp.asarray(n), jnp.asarray(sa),
+        bool(deep), K)(jnp.asarray(text), jnp.asarray(n), jnp.asarray(sa),
                  jnp.asarray(tables), jnp.asarray(limbs),
                  jnp.asarray(packed), jnp.asarray(lengths)))
     lo, cnt = tsearch.probe_limbs(

@@ -95,15 +95,53 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-@pytest.mark.parametrize('n', [0, 1, 2, 37, 1500])
-def test_probe_matches_jax_probe_bounds(n):
+def _edge_case(case: str):
+    """(row, patterns) at the edges of the port's wide byte compare:
+    lengths around 16 and 32 (and near misses), a row of repeated blocks
+    whose suffixes share hundreds of bytes with 100-300-byte patterns,
+    0x00 and 0xFF at the row's end with patterns that run into it, and one
+    pattern many times."""
+    rng = np.random.default_rng(7)
+    if case == 'long':
+        block = rng.integers(97, 100, size=311, dtype=np.uint8)
+        data = np.tile(block, 7)
+        data[rng.integers(0, data.size, size=5)] = 0x7a
+    else:
+        data = _odd_row(1501, 13)
+    if case == 'row_ends':
+        data[-2:] = [0xFF, 0x00]
+    pats = [b'', b'\x00', b'\xff']
+    if case == 'repeated':
+        return data, [b''] + [data[200: 233].tobytes()] * 64
+    lengths = {'lengths': (15, 16, 17, 31, 32, 33), 'long': (100, 200, 300),
+               'row_ends': (1, 2, 16, 17)}[case]
+    for l in lengths:
+        for o in rng.integers(0, data.size - l + 1, size=5):
+            p = data[o: o + l].tobytes()
+            pats += [p, p[:-1] + bytes([p[-1] ^ 1])]
+        if case == 'row_ends':
+            tail = data[data.size - l:].tobytes()
+            pats += [tail, tail + b'\x00', tail + b'\x01', tail + b'\xff']
+    return data, pats
+
+
+@pytest.mark.parametrize('case', [0, 1, 2, 37, 1500, 'lengths', 'long',
+                                  'row_ends', 'repeated'])
+def test_probe_matches_jax_probe_bounds(case):
     """B15's plain version equals the JAX unrolled and loop forms on one
     row: empty pattern (count n), empty row (count 0), patterns longer than
-    the row, NUL and high bytes, near misses."""
-    data = _odd_row(n, n)
+    the row, NUL and high bytes, near misses; and at the edges of the
+    kernel's wide compare (``_edge_case``)."""
+    if isinstance(case, int):
+        n = case
+        data = _odd_row(n, n)
+        pats = _patterns(data, n)
+    else:
+        data, pats = _edge_case(case)
+        n = data.size
     N = _pad_len(n + 64)
     text, sa = _row(data, N)
-    packed, lengths = jsearch.pack_patterns(_patterns(data, n))
+    packed, lengths = jsearch.pack_patterns(pats)
     jargs = (jnp.asarray(text), n, jnp.asarray(sa), jnp.asarray(packed),
              jnp.asarray(lengths))
     lo_u, cnt_u = map(np.asarray, jsearch.probe_bounds(*jargs))
@@ -116,6 +154,10 @@ def test_probe_matches_jax_probe_bounds(n):
     np.testing.assert_array_equal(lo_l, lo_u)
     np.testing.assert_array_equal(cnt_l, cnt_u)
     assert cnt_u[0] == n  # the empty pattern
+    if not isinstance(case, int):
+        for b, p in enumerate(pats):
+            assert cnt_u[b] == sum(data[s: s + len(p)].tobytes() == p
+                                   for s in range(n)), p
 
 
 def test_probe_rows_match_vmapped_jax_on_sharded_corpus():
