@@ -78,8 +78,9 @@ Phases (any failure raises and exits non-zero):
    of N = n = 4111 cut from row 0); every row's
    ``derive_sa`` against its plain version and row 0's SA against the
    host's native SA-IS; K4 and B8 on every row against their plain
-   versions; the answers against the host as in 5; probe p50; and two
-   small full-byte chunks (255 distinct bytes), derived on the card (SA
+   versions; the answers against the host as in 5; probe p50, and the
+   probe's host NUL check (``DeviceIndex.probe``'s lines for the raw kind)
+   timed alone on the batch; and two small full-byte chunks (255 distinct bytes), derived on the card (SA
    against native SA-IS, K7 with K3 at base 258, K4) and uploaded (K6, K7
    and K3 launched once a chunk, row 0's table and limbs against the host
    builders, K4);
@@ -121,7 +122,7 @@ Phases (any failure raises and exits non-zero):
     passes, no B1, not poisoned; passes per round, m_w, ``index-sa`` and
     the load's memory peak logged; the SA equal to the container's) and
     answers the ranked batch (counts and lines against the host, one
-    ``search``, probe p50); B10's init, one pass and the whole doubler
+    ``search``, probe p50, K4 against its plain version); B10's init, one pass and the whole doubler
     against their plain versions on the row, timed beside their bounds and
     one ``torch.sort`` of their keys; B1b + B2 on the same row, timed with
     its memory peak, its SA equal; then a 400 MiB period-2 row (N = 416
@@ -1162,6 +1163,37 @@ def skewed_gather_check(dev):
     return out
 
 
+def nul_check_ms(packed_np, lengths_np, rows, probe_p50_ms):
+    """The raw probe's host NUL check alone: the lines of
+    ``DeviceIndex.probe`` (models/index.py) that clear the answers of the
+    patterns holding NUL, run on this batch and answer arrays of the
+    index's shape, median of 21; logged beside the probe p50."""
+    import numpy as np
+
+    lo = np.zeros((rows, packed_np.shape[0]), dtype=np.int32)
+    cnt = np.ones_like(lo)
+    ts = []
+    for _ in range(21):
+        t0 = time.perf_counter()
+        jpos = np.arange(packed_np.shape[1])[None, :]
+        has_nul = np.any(
+            (packed_np == 0) & (jpos < lengths_np[:, None]), axis=1
+        )
+        if has_nul.any():
+            out_lo = np.where(has_nul[None, :], 0, lo)
+            out_cnt = np.where(has_nul[None, :], 0, cnt)
+        ts.append(time.perf_counter() - t0)
+    check(has_nul.any() and not out_cnt[:, has_nul].any()
+          and out_lo.shape == lo.shape,
+          'raw NUL check: the batch holds NUL patterns, cleared')
+    ms = sorted(ts)[len(ts) // 2] * 1e3
+    log(f'raw probe host NUL check alone ({int(has_nul.sum())} of '
+        f'{packed_np.shape[0]} patterns with NUL, {rows} rows): {ms:.3f} ms, '
+        f'{100 * ms / probe_p50_ms:.1f}% of the probe p50 '
+        f'{probe_p50_ms:.3f} ms')
+    return ms
+
+
 def raw_probe_check(ridx, rpats, label):
     """K4 against its plain version on a small raw-kind index."""
     import torch
@@ -1464,6 +1496,7 @@ def run_raw(idx_path, pats, dev, ranked_rows):
     del res
     check_boundaries(r, idx)
     p50 = probe_p50(idx, packed_np, lengths_np)
+    nul_ms = nul_check_ms(packed_np, lengths_np, idx.num_chunks, p50)
     raw_kind_probe(dev)
     return {
         **result, 'kernels': entries, 'derive_rows': derive_rows,
@@ -1472,7 +1505,8 @@ def run_raw(idx_path, pats, dev, ranked_rows):
         'round1': round1,
         'seed_table_ms': {'kernel': table_ms, 'plain': table_plain_ms},
         'resident_gib': torch.cuda.memory_allocated() / 2**30,
-        'probe_p50_ms': p50, 'host_search_s': host_search_s,
+        'probe_p50_ms': p50, 'nul_check_ms': nul_ms,
+        'host_search_s': host_search_s,
         'launches': launches, 'gather': gather,
     }
 
@@ -2666,6 +2700,9 @@ def run_bigrow(corpus, adv, refs, pats, d, dev):
                                   lpats)
     del res
     p50 = probe_p50(idx, packed_np, lengths_np)
+    lo_k, cnt_k = probe_kernel(idx, packed_np, lengths_np,
+                               kernel_check('bigrow '))
+    del lo_k, cnt_k
 
     # ---- B10's kernels against their plain versions on the row ----
     entries = []

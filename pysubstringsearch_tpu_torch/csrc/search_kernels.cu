@@ -550,185 +550,9 @@ seed_fine_kernel(const int* __restrict__ packed, const int* __restrict__ sa,
 }
 
 // ---------------------------------------------------------------------------
-// K4, phased probe.  Replaces probe_bounds_phased (ops/search.py), reached
-// via phased_batch_jit / phased_class_exec, with its seeding (_duplex,
-// _pattern_buckets_ranked, _ranked_targets, _raw_targets) and its deep
-// text-window refinement (_cmp3, _gather_suffix_windows) folded in.
-//
-// One thread per (row, pattern).  The thread
-//   1. seeds [lo, hi) from the table: the lower bound's bucket pads past the
-//      pattern with digit 0, the upper bound's with base-1; an alphabet-
-//      absent byte within the seed depth collapses both ids (count 0); a
-//      pattern of exactly `depth` bytes takes the next bucket as its upper
-//      bound;
-//   2. bisects limb plane by limb plane: A = first slot with limb >= the
-//      lower target, Z = first slot with limb > the upper target, then
-//      descends into [A, Z) for the next limb while it is non-empty;
-//   3. for a pattern longer than the packed coverage, bisects [A, Z) again
-//      with a byte compare of the whole pattern against each suffix (a text
-//      position at or past n reads as digit 0).
-// bits == 0 selects the raw 4-byte limb encoding (top byte biased by -128),
-// otherwise rank digits at `bits` bits.  A ranked pattern with an absent
-// byte inside the coverage gets count 0.  The empty pattern counts n.
-//
-// Each lane runs its own loop, so no lane pays for the slowest one (the
-// XLA while_loop's cost, which the TPU build's per-class program ladder
-// worked around).  Bound by latency: every bisection step is one dependent
-// scattered 4-byte read; the rank and present maps sit in shared memory.
-// ---------------------------------------------------------------------------
-struct Lane {
-  const uint8_t* pat;
-  int len;
-  int L;
-  __device__ int byte_at(int q) const { return q < L ? pat[q] : 0; }
-};
-
-__device__ int limb_target(const Lane& p, const int* srank, int depth,
-                           int bits, int j, bool upper) {
-  if (bits == 0) {
-    int v = 0;
-    for (int i = 0; i < 4; ++i) {
-      int q = depth + 4 * j + i;
-      int b = q < p.len ? p.byte_at(q) : (upper ? 255 : 0);
-      if (i == 0) b -= 128;
-      v = v * 256 + b;
-    }
-    return v;
-  }
-  const int D = 30 / bits;
-  int v = 0;
-  for (int i = 0; i < D; ++i) {
-    int q = depth + D * j + i;
-    int digit = q < p.len ? srank[p.byte_at(q)] : (upper ? (1 << bits) - 1 : 0);
-    v = (v << bits) + digit;
-  }
-  return v;
-}
-
-// First slot in [lo, hi) whose plane value is >= t (strict: > t).
-__device__ int first_limb(const int* __restrict__ plane, int lo, int hi,
-                          int t, bool strict) {
-  while (lo < hi) {
-    int mid = lo + ((hi - lo) >> 1);
-    int v = plane[mid];
-    bool pred = strict ? v > t : v >= t;
-    if (pred) hi = mid; else lo = mid + 1;
-  }
-  return lo;
-}
-
-// Three-way compare of the pattern against the suffix at SA slot `slot`:
-// -1 suffix < pattern, 0 pattern is a prefix of it, +1 greater.
-__device__ int cmp3(const uint8_t* __restrict__ text,
-                    const int* __restrict__ sa, int n, int slot,
-                    const Lane& p) {
-  int c = slot < 0 ? 0 : slot;
-  int last = n - 1 > 0 ? n - 1 : 0;
-  c = c > last ? last : c;
-  long long start = sa[c];
-  for (int q = 0; q < p.len; ++q) {
-    long long pos = start + q;
-    int s = pos < n ? text[pos] + 1 : 0;
-    int v = p.pat[q] + 1;
-    if (s != v) return s < v ? -1 : 1;
-  }
-  return 0;
-}
-
-__device__ int first_cmp(const uint8_t* text, const int* sa, int n, int lo,
-                         int hi, const Lane& p, int threshold) {
-  while (lo < hi) {
-    int mid = lo + ((hi - lo) >> 1);
-    if (cmp3(text, sa, n, mid, p) >= threshold) hi = mid; else lo = mid + 1;
-  }
-  return lo;
-}
-
-__global__ void probe_phased_kernel(
-    const uint8_t* __restrict__ text, const int* __restrict__ n_rows,
-    const int* __restrict__ sa, const int* __restrict__ tables,
-    const int* __restrict__ limbs, const int* __restrict__ rank,
-    const int* __restrict__ present, const uint8_t* __restrict__ patterns,
-    const int* __restrict__ lengths, int B, int L, long long n_pad,
-    long long table_len, int num_limbs, int depth, int base, int bits,
-    int* __restrict__ lower_out, int* __restrict__ count_out) {
-  __shared__ int srank[256];
-  __shared__ int spres[256];
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) {
-    srank[i] = rank[i];
-    spres[i] = present[i];
-  }
-  __syncthreads();
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const long long r = blockIdx.y;
-  const int n = n_rows[r];
-  const uint8_t* row_text = text + r * n_pad;
-  const int* row_sa = sa + r * n_pad;
-  const int* table = tables + r * table_len;
-  const int* row_limbs = limbs + r * (long long)num_limbs * n_pad;
-  Lane p{patterns + (long long)b * L, lengths[b], L};
-
-  // 1. Seed buckets.
-  int first_bad = depth;
-  for (int q = 0; q < depth && q < p.len; ++q) {
-    if (!spres[p.byte_at(q)]) { first_bad = q; break; }
-  }
-  long long bucket_lo = 0, bucket_up = 0;
-  for (int q = 0; q < depth; ++q) {
-    int rq = srank[p.byte_at(q)];
-    int dl = q < p.len ? rq : 0;
-    int du = q < p.len ? rq : base - 1;
-    if (q == first_bad) { dl = rq; du = rq; }
-    if (q > first_bad) { dl = 0; du = 0; }
-    bucket_lo = bucket_lo * base + dl;
-    bucket_up = bucket_up * base + du;
-  }
-  const int min_ld = p.len < depth ? p.len : depth;
-  const bool bump = p.len == depth && first_bad >= min_ld;
-  int A = table[bucket_lo];
-  int Z = table[bucket_up + (bump ? 1 : 0)];
-
-  // 2. Limb phases within the shared seed range.
-  const int D = bits == 0 ? 4 : 30 / bits;
-  const int k = p.len <= depth
-      ? 0 : min((p.len - depth + D - 1) / D, num_limbs);
-  if (k >= 1) {
-    int lo = A, hi = table[bucket_lo + 1];
-    for (int j = 0; j < k; ++j) {
-      const int* plane = row_limbs + (long long)j * n_pad;
-      int t_lo = limb_target(p, srank, depth, bits, j, false);
-      int t_up = limb_target(p, srank, depth, bits, j, true);
-      A = first_limb(plane, lo, hi, t_lo, false);
-      Z = first_limb(plane, lo, hi, t_up, true);
-      if (!(j + 1 < k && A < Z)) break;
-      lo = A;
-      hi = Z;
-    }
-  }
-
-  // 3. Deep byte refinement past the packed coverage.
-  if (p.len > depth + D * num_limbs && A < Z) {
-    int a = first_cmp(row_text, row_sa, n, A, Z, p, 0);
-    Z = first_cmp(row_text, row_sa, n, A, Z, p, 1);
-    A = a;
-  }
-
-  int count = Z - A;
-  if (bits != 0 && count != 0) {
-    const int cover = depth + D * num_limbs;
-    for (int q = 0; q < p.len && q < cover; ++q) {
-      if (!spres[p.byte_at(q)]) { count = 0; break; }
-    }
-  }
-  lower_out[r * B + b] = A;
-  count_out[r * B + b] = count;
-}
-
-// ---------------------------------------------------------------------------
-// The wide byte compare of B15's probe and B11's deep refine: the JAX _cmp3
-// (pysubstringsearch_tpu/ops/search.py) of one pattern against one suffix,
-// 16 bytes at a time.  A byte ranks as its value + 1 and a text position at
+// The wide byte compare of B15's probe and of B11's and K4's deep refines:
+// the JAX _cmp3 (pysubstringsearch_tpu/ops/search.py) of one pattern against
+// one suffix, 16 bytes at a time.  A byte ranks as its value + 1 and a text position at
 // or past the row's n as 0, below every byte, so the first position where
 // the suffix and the pattern differ decides, and a suffix that ends first
 // ranks below.  The text comes in aligned 16-byte loads cut in registers:
@@ -1090,6 +914,484 @@ probe_limbs_kernel(const uint8_t* __restrict__ text,
     count_out[r * B + b] = static_cast<int>(Z - A);
   }
 }
+
+// ---------------------------------------------------------------------------
+// K4, phased probe.  Replaces probe_bounds_phased (ops/search.py), reached
+// via phased_batch_jit / phased_class_exec, with its seeding (_duplex,
+// _pattern_buckets_ranked, _ranked_targets, _raw_targets, _tiny_map) and its
+// deep text-window refinement (_cmp3, _gather_suffix_windows) folded in.
+//
+// The JAX program, for the ranked and raw kinds:
+//   1. seeds [lo, hi) from the table: the lower bound's bucket pads past the
+//      pattern with digit 0, the upper bound's with base-1; an alphabet-
+//      absent byte within the seed depth collapses both ids; a pattern of
+//      exactly `depth` bytes takes the next bucket as its upper bound;
+//   2. bisects limb plane by limb plane: A = first slot with limb >= the
+//      lower target, Z = first slot with limb > the upper target, then
+//      descends into [A, Z) for the next limb while it is non-empty, k
+//      phases for a pattern with k limbs past the depth;
+//   3. for a pattern longer than the cover (depth + D * num_limbs bytes),
+//      bisects [A, Z) again with a byte compare of the whole pattern
+//      against each suffix (a text position at or past n reads as digit 0).
+// bits == 0 selects the raw 4-byte limb encoding (top byte biased by -128),
+// otherwise rank digits at `bits` bits.  A ranked pattern with an absent
+// byte inside the cover gets count 0.  The empty pattern counts n.
+//
+// Two kernels, chosen by the batch's (row, pattern) pairs.  Up to
+// kPhasedPairsWide pairs (the derive rows' 2 x 10k) a thread a pair leaves
+// most of the card idle, and the parent, one thread each with both bounds'
+// bisections in turn and a byte loop from byte 0 for the deep refine, spent
+// five sixths of its 77-78 us on the 2 x 197 patterns past the cover.
+// probe_phased_kernel gives a pair 2 * kLimbLanes lanes, B11's groups:
+// kLimbLanes a bound, both bounds at once.  Step 2 is one (kLimbLanes + 1)-
+// ary search a bound over the seed bucket [table[b], table[b + 1]) for the
+// first slot whose first k limbs compare lexicographically >= the bound's
+// targets (the upper: >), kEagerLimbs limbs read at once and the rest
+// where those tie.  It lands on the phases' slots: limbs before the last
+// lie inside the pattern, so their two targets agree and each phase's
+// [A, Z) is the slots equal to the pattern so far, and a phase that ends
+// with A = Z ends where the lexicographic search ends, at the first slot
+// past the prefix.  Step 3 is B11's deep refine, each round from the
+// lesser common prefix of its two boundary probes, on a compare that
+// reads the text 64 bytes at a time (wide_cmp64).  The first round starts
+// at byte cover & ~15 where every suffix of [A, Z) shares the cover bytes
+// with the pattern: a limb tie is a byte tie only for a pattern whose
+// cover bytes are all in the row's alphabet (an absent byte borrows the
+// next present byte's rank, so its digits tie with that byte's) and, for
+// raw limbs, are not NUL (a raw limb packs NUL like a position past n).
+// Any other pattern compares from byte 0, as the JAX program does.
+//
+// Past kPhasedPairsWide pairs (the upload geometry's 63 x 2k or 63 x 10k)
+// the card is full, and the limb search is bound by its random reads,
+// which lanes add: a 3-ary round reads two slots where a bisection step
+// reads one.  probe_phased_wide_kernel keeps a thread a pair and runs both
+// bounds in one bisection loop: one read serves both while their ranges
+// agree, and the two reads are in flight together once they split; its
+// deep refine bisects with wide_cmp from the same start.  The rank and
+// present maps sit in shared memory in both.  Row, plane and text offsets
+// are 64-bit (the ranked derive's 2 x 3 x 272 Mi limbs pass 2^31).
+// ---------------------------------------------------------------------------
+
+// K4's deep compare: wide_cmp's contract, with the text read 64 bytes at a
+// time: the up to five aligned chunks that hold the next 64 bytes are loaded
+// together, so a match of l bytes waits on about l / 64 dependent loads.
+__device__ int wide_cmp64(const uint8_t* row, int n, int start,
+                          const Pattern& pt, int m, const Span& ts,
+                          const Span& ps, int* sign) {
+  const uint8_t* a = row + start + m;
+  const int o = static_cast<int>(reinterpret_cast<uintptr_t>(a) & 15);
+  const uint8_t* base = a - o;
+  int left = n - (start + m);  // text bytes from the window on
+  while (true) {
+    const int want = pt.len - m < 64 ? pt.len - m : 64;
+    const int have = left <= 0 ? 0 : (left >= 64 ? 64 : left);
+    const int need = want < have ? want : have;
+    uint32_t x[5][4];
+#pragma unroll
+    for (int c = 0; c < 5; ++c) {
+      if (16 * c < o + need) {
+        chunk16(base + 16 * c, ts, x[c]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[c][e] = 0;
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const int mg = m + 16 * g;
+      const int lim = pt.len - mg < 16 ? pt.len - mg : 16;
+      const int lg = left - 16 * g;
+      const int tl = lg <= 0 ? 0 : (lg >= 16 ? 16 : lg);
+      uint32_t p[4];
+      if (mg < 32) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[e] = mg == 0 ? pt.w[e] : pt.w[e + 4];
+      } else {
+        window16(pt.p + mg, lim, ps, p);
+      }
+      uint32_t w[4];
+      funnel16(x[g], x[g + 1], o, w);
+      const int idx = first_diff(w, p);
+      const int e = idx < tl ? idx : tl;
+      if (e < lim) {
+        *sign = e >= tl || byte_of16(w, e) < byte_of16(p, e) ? -1 : 1;
+        return mg + e;
+      }
+      if (pt.len - mg <= 16) {
+        *sign = 0;
+        return pt.len;
+      }
+    }
+    m += 64;
+    base += 64;
+    left -= 64;
+  }
+}
+
+// Byte q of a pattern row of L bytes; 0 past L.
+__device__ __forceinline__ int pattern_byte(const uint8_t* pat, int L,
+                                            int q) {
+  return q < L ? pat[q] : 0;
+}
+
+// The target of limb j for one bound: the pattern's bytes depth + D j ..
+// depth + D j + D - 1 packed as the limb planes pack the text (raw: 4
+// bytes, the first biased by -128; ranked: D rank digits of `bits` bits),
+// each byte past the pattern as the bound's pad.
+__device__ __forceinline__ int phased_target(const uint8_t* pat, int L,
+                                             int len, const int* srank,
+                                             int depth, int bits, int D,
+                                             int j, bool upper) {
+  const int q0 = depth + D * j;
+  int v = 0;
+  if (bits == 0) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int q = q0 + e;
+      int c = q < len ? pattern_byte(pat, L, q) : (upper ? 255 : 0);
+      if (e == 0) c -= 128;
+      v = v * 256 + c;
+    }
+    return v;
+  }
+  for (int e = 0; e < D; ++e) {
+    const int q = q0 + e;
+    const int digit = q < len ? srank[pattern_byte(pat, L, q)]
+                              : (upper ? (1 << bits) - 1 : 0);
+    v = (v << bits) + digit;
+  }
+  return v;
+}
+
+// The seed buckets of both bounds: the lower bound's id pads past the
+// pattern with digit 0, the upper bound's with base - 1; an absent byte
+// within the depth collapses both ids (digit 0 after it); a pattern of
+// exactly `depth` present bytes takes the next bucket as its upper bound.
+struct Seed {
+  long long lo, up;
+};
+
+__device__ __forceinline__ Seed phased_seed(const uint8_t* pat, int L,
+                                            int len, const int* srank,
+                                            const int* spres, int depth,
+                                            int base) {
+  int first_bad = depth;
+  for (int q = 0; q < depth && q < len; ++q) {
+    if (!spres[pattern_byte(pat, L, q)]) {
+      first_bad = q;
+      break;
+    }
+  }
+  Seed seed{0, 0};
+  for (int q = 0; q < depth; ++q) {
+    const int rq = srank[pattern_byte(pat, L, q)];
+    int dl = q < len ? rq : 0;
+    int du = q < len ? rq : base - 1;
+    if (q == first_bad) dl = du = rq;
+    if (q > first_bad) dl = du = 0;
+    seed.lo = seed.lo * base + dl;
+    seed.up = seed.up * base + du;
+  }
+  if (len == depth && first_bad >= len) seed.up += 1;
+  return seed;
+}
+
+// Whether a limb tie over the cover is a byte tie: every cover byte of the
+// pattern is in the row's alphabet and, for raw limbs, not NUL.
+__device__ __forceinline__ bool cover_ties(const uint8_t* pat, int L,
+                                           int cover, const int* spres,
+                                           int bits) {
+  for (int q = 0; q < cover; ++q) {
+    const int c = pattern_byte(pat, L, q);
+    if (!spres[c] || (bits == 0 && c == 0)) return false;
+  }
+  return true;
+}
+
+// A ranked pattern with a byte inside the cover that the alphabet lacks:
+// its count is 0.
+__device__ __forceinline__ bool absent_in_cover(const uint8_t* pat, int L,
+                                                int len, int cover,
+                                                const int* spres, int bits) {
+  if (bits == 0) return false;
+  for (int q = 0; q < len && q < cover; ++q)
+    if (!spres[pattern_byte(pat, L, q)]) return true;
+  return false;
+}
+
+__global__ void __launch_bounds__(kProbeThreads)
+probe_phased_kernel(const uint8_t* __restrict__ text,
+                    const int* __restrict__ n_rows,
+                    const int* __restrict__ sa,
+                    const int* __restrict__ tables,
+                    const int* __restrict__ limbs,
+                    const int* __restrict__ rank,
+                    const int* __restrict__ present,
+                    const uint8_t* __restrict__ patterns,
+                    const int* __restrict__ lengths, int B, int L,
+                    long long n_pad, long long table_len, int num_limbs,
+                    int depth, int base, int bits,
+                    int* __restrict__ lower_out, int* __restrict__ count_out) {
+  __shared__ int srank[256];
+  __shared__ int spres[256];
+  for (int e = threadIdx.x; e < 256; e += blockDim.x) {
+    srank[e] = rank[e];
+    spres[e] = present[e];
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kLimbPatterns + threadIdx.x / (2 * kLimbLanes);
+  if (b >= B) return;  // a pattern's lanes leave together
+  const int upper = (lane / kLimbLanes) & 1;  // 0: the lower bound, 1: upper
+  const int i = lane % kLimbLanes;
+  const int first = lane & ~(kLimbLanes - 1);  // this bound's first lane
+  const unsigned mine = kLimbLaneMask << first;
+  const unsigned both = static_cast<unsigned>(  // the pattern's lanes
+      ((1ull << (2 * kLimbLanes)) - 1) << (lane & ~(2 * kLimbLanes - 1)));
+  const long long r = blockIdx.y;
+  const int n = n_rows[r];
+  const int* table = tables + r * table_len;
+  const int* row_limbs = limbs + r * static_cast<long long>(num_limbs) * n_pad;
+  const uint8_t* pat = patterns + static_cast<long long>(b) * L;
+  const int len = lengths[b];
+
+  const Seed seed = phased_seed(pat, L, len, srank, spres, depth, base);
+  const int D = bits == 0 ? 4 : 30 / bits;
+  const int cover = depth + D * num_limbs;
+  int k = len <= depth ? 0 : (len - depth + D - 1) / D;
+  k = k > num_limbs ? num_limbs : k;
+
+  // 2. The limb phases as one lexicographic search a bound; a pattern
+  // within the depth takes its bound from the table.
+  long long lo;
+  if (k == 0) {
+    lo = table[upper ? seed.up : seed.lo];
+  } else {
+    int t[kMaxLimbs];
+#pragma unroll
+    for (int j = 0; j < kMaxLimbs; ++j)
+      t[j] = j < k ? phased_target(pat, L, len, srank, depth, bits, D, j,
+                                   upper)
+                   : 0;
+    lo = table[seed.lo];
+    long long hi = table[seed.lo + 1];
+    while (true) {
+      const long long s = probe_slot(lo, hi, i);
+      bool held = true;
+      if (s < hi) {
+        int v[kEagerLimbs];
+#pragma unroll
+        for (int j = 0; j < kEagerLimbs; ++j)
+          v[j] = j < k
+              ? __ldg(row_limbs + static_cast<long long>(j) * n_pad + s) : 0;
+        int c = 0;
+#pragma unroll
+        for (int j = 0; j < kMaxLimbs; ++j) {
+          if (c == 0 && j < k) {
+            const int x = j < kEagerLimbs
+                ? v[j < kEagerLimbs ? j : 0]
+                : __ldg(row_limbs + static_cast<long long>(j) * n_pad + s);
+            if (x != t[j]) c = x < t[j] ? -1 : 1;
+          }
+        }
+        held = c >= upper;
+      }
+      const unsigned ballot = __ballot_sync(mine, held) >> first;
+      int f;
+      if (probe_round(lo, hi, ballot, &f)) break;
+    }
+  }
+  long long A = __shfl_sync(both, lo, 0, 2 * kLimbLanes);
+  long long Z = __shfl_sync(both, lo, kLimbLanes, 2 * kLimbLanes);
+
+  // 3. The deep refine past the cover.
+  if (len > cover && A < Z) {
+    const Span ts{text, text + static_cast<long long>(gridDim.y) * n_pad};
+    const Span ps{patterns, patterns + static_cast<long long>(B) * L};
+    const uint8_t* row_text = text + r * n_pad;
+    const int* row_sa = sa + r * n_pad;
+    const Pattern pt = load_pattern(pat, len, ps);
+    lo = A;
+    long long hi = Z;
+    int llcp = cover_ties(pat, L, cover, spres, bits) ? cover : 0;
+    int rlcp = llcp;
+    while (true) {
+      const long long s = probe_slot(lo, hi, i);
+      bool held = true;
+      int l = len;
+      if (s < hi) {
+        int sign;
+        const int m = (llcp < rlcp ? llcp : rlcp) & ~15;
+        l = wide_cmp64(row_text, n, __ldg(row_sa + s), pt, m, ts, ps, &sign);
+        held = sign >= upper;
+      }
+      const unsigned ballot = __ballot_sync(mine, held) >> first;
+      int f;
+      if (probe_round(lo, hi, ballot, &f)) break;
+      // The new boundaries are probes f - 1 and f: their common prefixes.
+      const int lf = __shfl_sync(mine, l, f > 0 ? f - 1 : 0, kLimbLanes);
+      const int rf = __shfl_sync(mine, l, f < kLimbLanes ? f : 0, kLimbLanes);
+      if (f > 0) llcp = lf;
+      if (f < kLimbLanes) rlcp = rf;
+    }
+    A = __shfl_sync(both, lo, 0, 2 * kLimbLanes);
+    Z = __shfl_sync(both, lo, kLimbLanes, 2 * kLimbLanes);
+  }
+
+  if (i == 0 && upper == 0) {
+    lower_out[r * B + b] = static_cast<int>(A);
+    count_out[r * B + b] =
+        absent_in_cover(pat, L, len, cover, spres, bits) ? 0 : Z - A;
+  }
+}
+
+// The lexicographic compare of the first k limbs of slot s with targets t
+// (t[j * kThreads], in shared memory): limb 0 given, the others loaded
+// while the ones before them tie.  -1 below, 0 equal, +1 above.
+__device__ __forceinline__ int limbs_cmp(const int* __restrict__ row_limbs,
+                                         long long n_pad, int s, int k,
+                                         int x0, const int* t) {
+  int c = x0 == t[0] ? 0 : (x0 < t[0] ? -1 : 1);
+  for (int j = 1; c == 0 && j < k; ++j) {
+    const int x = __ldg(row_limbs + static_cast<long long>(j) * n_pad + s);
+    const int tj = t[j * kThreads];
+    if (x != tj) c = x < tj ? -1 : 1;
+  }
+  return c;
+}
+
+// The first slot in [lo, hi) whose suffix compares >= the pattern (upper:
+// >) by the wide compare from the prefix its two boundaries share.
+__device__ __forceinline__ int deep_bisect(const uint8_t* row_text,
+                                           const int* __restrict__ row_sa,
+                                           int n, int lo, int hi, int m0,
+                                           const Pattern& pt, const Span& ts,
+                                           const Span& ps, int upper) {
+  int llcp = m0, rlcp = m0;
+  while (lo < hi) {
+    const int mid = lo + ((hi - lo) >> 1);
+    int sign;
+    const int m = (llcp < rlcp ? llcp : rlcp) & ~15;
+    const int l = wide_cmp(row_text, n, __ldg(row_sa + mid), pt, m, ts, ps,
+                           &sign);
+    if (sign >= upper) {
+      hi = mid;
+      rlcp = l;
+    } else {
+      lo = mid + 1;
+      llcp = l;
+    }
+  }
+  return lo;
+}
+
+// K4 where the batch already fills the card: one thread a (row, pattern),
+// both bounds in one bisection loop.  While the two searches' ranges agree
+// a step reads one slot's limbs for both targets; once they split, each
+// reads its own slot, the two loads in flight together.  The targets wait
+// in shared memory.
+__global__ void __launch_bounds__(kThreads, 4)
+probe_phased_wide_kernel(const uint8_t* __restrict__ text,
+                         const int* __restrict__ n_rows,
+                         const int* __restrict__ sa,
+                         const int* __restrict__ tables,
+                         const int* __restrict__ limbs,
+                         const int* __restrict__ rank,
+                         const int* __restrict__ present,
+                         const uint8_t* __restrict__ patterns,
+                         const int* __restrict__ lengths, int B, int L,
+                         long long n_pad, long long table_len, int num_limbs,
+                         int depth, int base, int bits,
+                         int* __restrict__ lower_out,
+                         int* __restrict__ count_out) {
+  __shared__ int srank[256];
+  __shared__ int spres[256];
+  __shared__ int stgt[2 * kMaxLimbs * kThreads];
+  for (int e = threadIdx.x; e < 256; e += blockDim.x) {
+    srank[e] = rank[e];
+    spres[e] = present[e];
+  }
+  __syncthreads();
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const long long r = blockIdx.y;
+  const int n = n_rows[r];
+  const int* table = tables + r * table_len;
+  const int* row_limbs = limbs + r * static_cast<long long>(num_limbs) * n_pad;
+  const uint8_t* pat = patterns + static_cast<long long>(b) * L;
+  const int len = lengths[b];
+
+  const Seed seed = phased_seed(pat, L, len, srank, spres, depth, base);
+  const int D = bits == 0 ? 4 : 30 / bits;
+  const int cover = depth + D * num_limbs;
+  int k = len <= depth ? 0 : (len - depth + D - 1) / D;
+  k = k > num_limbs ? num_limbs : k;
+
+  // 2. The limb phases as one lexicographic search a bound.
+  int A, Z;
+  if (k == 0) {
+    A = table[seed.lo];
+    Z = table[seed.up];
+  } else {
+    int* tl = stgt + threadIdx.x;
+    int* tu = tl + kMaxLimbs * kThreads;
+    for (int j = 0; j < k; ++j) {
+      tl[j * kThreads] =
+          phased_target(pat, L, len, srank, depth, bits, D, j, false);
+      tu[j * kThreads] =
+          phased_target(pat, L, len, srank, depth, bits, D, j, true);
+    }
+    int la = table[seed.lo], ha = table[seed.lo + 1];
+    int lz = la, hz = ha;
+    while (la < ha && la == lz && ha == hz) {  // the shared steps
+      const int mid = la + ((ha - la) >> 1);
+      const int x0 = __ldg(row_limbs + mid);
+      if (limbs_cmp(row_limbs, n_pad, mid, k, x0, tl) >= 0) ha = mid;
+      else la = mid + 1;
+      if (limbs_cmp(row_limbs, n_pad, mid, k, x0, tu) > 0) hz = mid;
+      else lz = mid + 1;
+    }
+    while (la < ha || lz < hz) {  // apart, both loads in flight
+      const int ma = la + ((ha - la) >> 1);
+      const int mz = lz + ((hz - lz) >> 1);
+      const int xa = la < ha ? __ldg(row_limbs + ma) : 0;
+      const int xz = lz < hz ? __ldg(row_limbs + mz) : 0;
+      if (la < ha) {
+        if (limbs_cmp(row_limbs, n_pad, ma, k, xa, tl) >= 0) ha = ma;
+        else la = ma + 1;
+      }
+      if (lz < hz) {
+        if (limbs_cmp(row_limbs, n_pad, mz, k, xz, tu) > 0) hz = mz;
+        else lz = mz + 1;
+      }
+    }
+    A = la;
+    Z = lz;
+  }
+
+  // 3. The deep refine past the cover.
+  if (len > cover && A < Z) {
+    const Span ts{text, text + static_cast<long long>(gridDim.y) * n_pad};
+    const Span ps{patterns, patterns + static_cast<long long>(B) * L};
+    const uint8_t* row_text = text + r * n_pad;
+    const int* row_sa = sa + r * n_pad;
+    const Pattern pt = load_pattern(pat, len, ps);
+    const int m0 = cover_ties(pat, L, cover, spres, bits) ? cover : 0;
+    const int a = deep_bisect(row_text, row_sa, n, A, Z, m0, pt, ts, ps, 0);
+    Z = deep_bisect(row_text, row_sa, n, a, Z, m0, pt, ts, ps, 1);
+    A = a;
+  }
+
+  lower_out[r * B + b] = A;
+  count_out[r * B + b] =
+      absent_in_cover(pat, L, len, cover, spres, bits) ? 0 : Z - A;
+}
+
+// Batches of more (row, pattern) pairs than this take a thread a pair
+// (probe_phased_wide_kernel): about two waves of probe_phased_kernel on an
+// H100 (7 blocks of 32 pairs an SM at 72 registers), past which its lanes
+// only add limb reads.
+constexpr long long kPhasedPairsWide = 1 << 16;
 
 // ---------------------------------------------------------------------------
 // B8, flat hit gather.  Replaces _gather_flat_jit / gather_hits_flat
@@ -1476,13 +1778,23 @@ int pss_probe_phased(const void* text, const void* n_rows, const void* sa,
                      void* stream) {
   if (C <= 0 || B <= 0) return 0;
   if (C > 65535 || num_limbs > kMaxLimbs) return (int)cudaErrorInvalidValue;
-  dim3 grid(blocks_for(B), C);
-  probe_phased_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)text, (const int*)n_rows, (const int*)sa,
-      (const int*)tables, (const int*)limbs, (const int*)rank,
-      (const int*)present, (const uint8_t*)patterns, (const int*)lengths, B,
-      L, n_pad, table_len, num_limbs, depth, base, bits, (int*)lower,
-      (int*)count);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (static_cast<long long>(C) * B > kPhasedPairsWide) {
+    probe_phased_wide_kernel<<<dim3(blocks_for(B), C), kThreads, 0, st>>>(
+        (const uint8_t*)text, (const int*)n_rows, (const int*)sa,
+        (const int*)tables, (const int*)limbs, (const int*)rank,
+        (const int*)present, (const uint8_t*)patterns, (const int*)lengths,
+        B, L, n_pad, table_len, num_limbs, depth, base, bits, (int*)lower,
+        (int*)count);
+  } else {
+    const dim3 grid((B + kLimbPatterns - 1) / kLimbPatterns, C);
+    probe_phased_kernel<<<grid, kProbeThreads, 0, st>>>(
+        (const uint8_t*)text, (const int*)n_rows, (const int*)sa,
+        (const int*)tables, (const int*)limbs, (const int*)rank,
+        (const int*)present, (const uint8_t*)patterns, (const int*)lengths,
+        B, L, n_pad, table_len, num_limbs, depth, base, bits, (int*)lower,
+        (int*)count);
+  }
   return (int)cudaGetLastError();
 }
 

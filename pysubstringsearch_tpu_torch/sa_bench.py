@@ -82,29 +82,37 @@ library call of the same function.  It uses only entry points that older
 trees have too.
 
 With ``--probe-bounds`` it recounts the probes' bounds at ``chip_smoke.py``'s
-batches (about two minutes, most of it the two Writers): K4 on the ranked
-derive index, B15 on the ranked container's 63 chunks as rows and B11 on
-the digit derive index.  The plain bisection runs on the card with each
-step recorded (``_SectorRecorder``), and the distinct 32-byte sectors its
-steps read over the whole batch (``_sectors``), with the patterns, lengths
-and bounds, over 3.35 TB/s make the bound (``_bound_ms``; the patterns,
-lengths and bounds alone are ``_pattern_bound_ms``).  The recording
-replaces helpers of ``ops.search`` for the run and raises where the plain
-probes no longer bisect through them as it expects.  Over the recorded
-byte-compare steps it also counts the load instructions a byte loop
-(``_byte_loop_loads``: the SA word, a pattern byte and a text byte for
-every byte compared) and a 16-byte compare (``_chunk16_loads``: the SA
-word and the aligned 16-byte text chunks of the same bytes) issue.
+batches (about three minutes, most of it the three Writers): K4 on the
+ranked derive index (``k4``), on the raw derive index (``k4_raw``) and on
+the ranked container's 63 chunks in the upload geometry (``k4_upload``),
+B15 on those chunks as rows and B11 on the digit derive index with the
+line batch (``b11``) and the count batch (``b11_count``).  The plain
+bisection runs on the card with each step recorded (``_SectorRecorder``),
+and the distinct 32-byte sectors its steps read over the whole batch
+(``_sectors``), with the patterns, lengths and bounds, over 3.35 TB/s make
+the bound (``_bound_ms``; the patterns, lengths and bounds alone are
+``_pattern_bound_ms``).  The recording replaces helpers of ``ops.search``
+for the run and raises where the plain probes no longer bisect through
+them as it expects.  Over the recorded byte-compare steps it also counts
+the load instructions a byte loop (``_byte_loop_loads``: the SA word, a
+pattern byte and a text byte for every byte compared) and a 16-byte
+compare (``_chunk16_loads``: the SA word and the aligned 16-byte text
+chunks of the same bytes) issue.
 
 With ``--probes`` it first (before anything else, so that its profiler
 session is the process's first) times the probes on the same indexes and
-batches (``_probes``): K4, B15's probe on the 63 chunk rows and B11 on the
-line and count batches, each held against its plain version, as a whole
-call (``_ms``), back to back (``_back_to_back_ms``) and, with
-``--profile``, by device time (``_device_us``); then ptxas's registers,
-stack and spills of the probe kernels of ROOT's source (``ptxas``).  The
-two containers are written once beside ``--corpus`` and read by later
-runs of any tree.  ``--no-base`` skips the default measurements above.
+batches (``_probes``): K4 on the ranked derive batch (``k4``) and on its
+patterns up to the key cover and past it (``k4_short``, ``k4_deep``), on
+the raw derive index (``k4_raw``) and in the upload geometry with that
+batch and with the 2200 patterns ``search_multiple`` probes there
+(``k4_upload``, ``k4_upload_line``), B15's probe on the 63 chunk rows
+and B11 on the line and count batches, each held against its plain
+version, as a whole call (``_ms``), back to back (``_back_to_back_ms``)
+and, with ``--profile``, by device time (``_device_us``); then ptxas's
+registers, stack and spills of the probe kernels of ROOT's source
+(``ptxas``).  The three containers are
+written once beside ``--corpus`` and read by later runs of any tree.
+``--no-base`` skips the default measurements above.
 
 With ``--profile`` it first prints the device time by kernel
 (``torch.profiler``'s ``key_averages``) of B10's init, of that first pass,
@@ -750,11 +758,12 @@ def _probe_sectors(torch, S, kind, args):
 
 
 def _probe_containers(np, args):
-    """``chip_smoke.py``'s two probe containers and batches: (the ranked
+    """``chip_smoke.py``'s three probe containers and batches: (the ranked
     container, its 10,200 patterns, the digit container, its line batch of
-    10,709 patterns, its count batch of 10,000).  Each container is written
-    by the port's Writer on the card (SA equal to native SA-IS) in 8 MiB
-    chunks, as the script writes it, once: it is kept beside ``--corpus``
+    10,709 patterns, its count batch of 10,000, the raw container, its
+    10,206 patterns).  Each container is written by the port's Writer on
+    the card (SA equal to native SA-IS) in 8 MiB chunks, as the script
+    writes it, once: it is kept beside ``--corpus``
     (``sa_bench_probe_*.idx``) for the next run, of this tree or another;
     the batches are drawn again from the corpora each run."""
     import types
@@ -764,16 +773,20 @@ def _probe_containers(np, args):
     smoke = _smoke()
     ns = types.SimpleNamespace(chunk_mb=8, queries=10_000)
     d = os.path.dirname(os.path.abspath(args.corpus))
-    digit_npy = os.path.join(d, 'sa_bench_digit.npy')
-    if not os.path.exists(digit_npy):
-        np.save(digit_npy, np.frombuffer(smoke.make_digit_corpus(500),
-                                         np.uint8))
+    made = {}
+    for name, make in (('digit', lambda: smoke.make_digit_corpus(500)),
+                       ('raw', lambda: smoke.make_raw_corpus(500))):
+        npy = os.path.join(d, f'sa_bench_{name}.npy')
+        if not os.path.exists(npy):
+            np.save(npy, np.frombuffer(make(), np.uint8))
+        made[name] = npy
     paths = []
-    for name, corpus, sampler in (
-            ('sa_bench_probe_ranked', np.load(args.corpus).tobytes(),
-             smoke.sample_patterns),
-            ('sa_bench_probe_digit', np.load(digit_npy).tobytes(),
-             smoke.sample_digit_patterns)):
+    for name, npy, sampler in (
+            ('sa_bench_probe_ranked', args.corpus, smoke.sample_patterns),
+            ('sa_bench_probe_digit', made['digit'],
+             smoke.sample_digit_patterns),
+            ('sa_bench_probe_raw', made['raw'], smoke.sample_patterns)):
+        corpus = np.load(npy).tobytes()
         path = os.path.join(d, f'{name}.idx')
         if os.path.exists(path):
             pats = sampler(corpus, ns.queries)
@@ -783,9 +796,10 @@ def _probe_containers(np, args):
                 backend='auto', sampler=sampler)
         paths.append((path, pats))
         del corpus
-    (ranked, pats), (digit, (line, count)) = paths
+    (ranked, pats), (digit, (line, count)), (raw, raw_pats) = paths
     return (ranked, pats, digit,
-            line + smoke.DIGIT_SHORT + smoke.DIGIT_HIGH, count)
+            line + smoke.DIGIT_SHORT + smoke.DIGIT_HIGH, count, raw,
+            raw_pats + smoke.odd_patterns(raw_pats))
 
 
 def _probe_rows(torch, np, path):
@@ -810,7 +824,10 @@ def _probe_rows(torch, np, path):
 
 
 #: The probe kernels' entry points, by their launch-count names.
-PROBE_KERNELS = {'k4': 'probe_phased', 'b15': 'probe_bytes',
+PROBE_KERNELS = {'k4': 'probe_phased', 'k4_short': 'probe_phased',
+                 'k4_deep': 'probe_phased', 'k4_raw': 'probe_phased',
+                 'k4_upload': 'probe_phased',
+                 'k4_upload_line': 'probe_phased', 'b15': 'probe_bytes',
                  'b11_line': 'probe_limbs', 'b11_count': 'probe_limbs'}
 
 
@@ -841,58 +858,86 @@ def _ptxas(tree):
     return found
 
 
+def _k4_args(idx, patterns, lengths):
+    """K4's arguments for index ``idx`` and a batch on its device."""
+    return (idx.text, idx.lengths, idx.sa, idx.tables, idx.limbs, idx.rank,
+            idx.present, patterns, lengths, idx.num_limbs, idx._base,
+            idx._depth, idx._bits)
+
+
 def _probes(torch, np, S, bench, args, out):
     """The probes on ``chip_smoke.py``'s indexes and batches: K4 on the
-    ranked derive index (2 merged rows x 10,200 patterns), B15 on the
-    ranked container's 63 chunks as rows (x 10,200), B11 on the digit
-    derive index (2 rows) with the line batch (10,709) and the count batch
-    (10,000).  Each is held against its plain version (lower and count,
-    bit for bit) and timed as a whole call (``_ms``: CUDA events around
-    one call after a synchronise, ``bench.cuda_ms``) and back to back
-    (``_back_to_back_ms``: events around ``10 * REPS`` calls in a row, so
-    the host's launch work overlaps the kernels); with ``--profile`` one
-    profiler session runs each once (``PROFILE`` lines of the kernel's
-    device time; the session is the process's first, as ``--probes`` runs
-    before everything else).  Then ptxas's registers and spills of the
-    probe kernels (``ptxas``)."""
+    ranked derive index (2 merged rows x 10,200 patterns; then the same
+    rows with the patterns up to its key cover, ``k4_short``, and past it,
+    ``k4_deep``), on the raw derive index (2 rows x 10,206, ``k4_raw``) and
+    on the ranked container's 63 chunks in the upload geometry
+    (``k4_upload``; with chip_smoke's line batch of 2200 patterns,
+    ``k4_upload_line``), B15 on those chunks as rows (x 10,200), B11 on the
+    digit derive index (2 rows) with the line batch (10,709) and the count
+    batch (10,000).  Each is held against its plain version (lower and
+    count, bit for bit) and timed as a whole call (``_ms``: CUDA events
+    around one call after a synchronise, ``bench.cuda_ms``) and back to
+    back (``_back_to_back_ms``: events around ``10 * REPS`` calls in a
+    row, so the host's launch work overlaps the kernels); with
+    ``--profile`` one profiler session runs each once (``PROFILE`` lines
+    of the kernel's device time; the session is the process's first, as
+    ``--probes`` runs before everything else).  Then ptxas's registers and
+    spills of the probe kernels (``ptxas``)."""
     import pysubstringsearch_tpu_torch as pss
     from pysubstringsearch_tpu_torch.ops import kernels
 
     dev = torch.device('cuda')
-    ranked, pats, digit, line, count = _probe_containers(np, args)
+    smoke = _smoke()
+    ranked, pats, digit, line, count, raw, raw_pats = _probe_containers(
+        np, args)
 
     def batch(p):
         packed, lengths = S.pack_patterns(p)
         return (torch.from_numpy(packed).to(dev),
                 torch.from_numpy(lengths).to(dev))
 
-    calls = []
-    readers = [pss.Reader(ranked), pss.Reader(digit)]
+    # (tag, kernel, plain version, arguments, the reader they come from):
+    # each reader is dropped after its last call's check, so that the
+    # plain versions (K4's holds its limbs as int64) find room.
+    readers = [pss.Reader(ranked), pss.Reader(raw),
+               pss.Reader(ranked, index_mode='upload'), pss.Reader(digit)]
     for r in readers:
         r.wait_device_ready()
     idx = readers[0]._index
-    k4 = (idx.text, idx.lengths, idx.sa, idx.tables, idx.limbs, idx.rank,
-          idx.present, *batch(pats), idx.num_limbs, idx._base, idx._depth,
-          idx._bits)
-    calls.append(('k4', S.probe_phased, S.probe_phased_plain, k4))
-    b15 = (*_probe_rows(torch, np, ranked), *batch(pats))
-    calls.append(('b15', S.probe_bytes, S.probe_bytes_plain, b15))
-    idx = readers[1]._index
+    cover = S.ranked_cover_bytes(idx.num_limbs, idx._depth, idx._bits)
+    calls = [(tag, S.probe_phased, S.probe_phased_plain,
+              _k4_args(idx, *batch(part)), 0) for tag, part in (
+                  ('k4', pats),
+                  ('k4_short', [p for p in pats if len(p) <= cover]),
+                  ('k4_deep', [p for p in pats if len(p) > cover]))]
+    calls.append(('k4_raw', S.probe_phased, S.probe_phased_plain,
+                  _k4_args(readers[1]._index, *batch(raw_pats)), 1))
+    idx = readers[2]._index
+    calls.append(('k4_upload', S.probe_phased, S.probe_phased_plain,
+                  _k4_args(idx, *batch(pats)), 2))
+    # The line batch that search_multiple probes (2200 patterns).
+    calls.append(('k4_upload_line', S.probe_phased, S.probe_phased_plain,
+                  _k4_args(idx, *batch(smoke.line_batch(
+                      pats, smoke.DEEP_PATTERNS))), 2))
+    # B15's rows are the upload index's own text and SA.
+    calls.append(('b15', S.probe_bytes, S.probe_bytes_plain,
+                  (idx.text, idx.lengths, idx.sa, *batch(pats)), 2))
+    idx = readers[3]._index
     for tag, p in (('b11_line', line), ('b11_count', count)):
         calls.append((tag, S.probe_limbs, S.probe_limbs_plain,
                       (idx.text, idx.lengths, idx.sa, idx.tables, idx.limbs,
-                       *batch(p), idx.num_limbs)))
+                       *batch(p), idx.num_limbs), 3))
     del idx
     if args.profile:
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
-        for _, fn, _, a in calls:  # warm-up: the library is built
+        for _, fn, _, a, _ in calls:  # warm-up: the library is built
             fn(*a)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA],
                      acc_events=True) as prof:
-            for _, fn, _, a in calls:
+            for _, fn, _, a, _ in calls:
                 fn(*a)
                 torch.cuda.synchronize()
         found = sorted((e.time_range.start, e.name,
@@ -906,7 +951,11 @@ def _probes(torch, np, S, bench, args, out):
                 'label': label, 'device_us': us, 'by_kernel_us': [[
                     name.replace('(anonymous namespace)::', '').split('(')[0],
                     us, 1]]}), flush=True)
-    for tag, fn, plain, a in calls:
+    # The readers' builds leave cached blocks that K4's plain version
+    # (its limbs as int64, 12.75 GiB on the derive rows) may not fit into.
+    torch.cuda.empty_cache()
+    while calls:
+        tag, fn, plain, a, ri = calls.pop(0)
         before = kernels.LAUNCHES[PROBE_KERNELS[tag]]
         lo, cnt = fn(*a)
         torch.cuda.synchronize()
@@ -934,17 +983,22 @@ def _probes(torch, np, S, bench, args, out):
               f'{out[f"{tag}_ms"]:.4f} ms a call, '
               f'{out[f"{tag}_back_to_back_ms"]:.4f} back to back',
               flush=True)
-    del calls, readers, k4, b15
-    torch.cuda.empty_cache()
+        del a, lo, cnt, lo_p, cnt_p
+        if all(c[4] != ri for c in calls):
+            readers[ri] = None
+            torch.cuda.empty_cache()
     out['ptxas'] = _ptxas(args.tree)
 
 
 def _probe_bounds(torch, np, S, args, out):
     """The probes' bounds recounted at ``chip_smoke.py``'s batches: K4 on
-    the ranked derive index (2 merged rows, the 10,200 patterns), B11 on
-    the digit derive index (2 rows, 10,709 patterns) and B15 on the ranked
-    container's chunks stacked as rows at the upload geometry (63 rows,
-    the 10,200 patterns), from ``_probe_containers``.  For each: the
+    the ranked derive index (2 merged rows, the 10,200 patterns), in the
+    upload geometry (63 rows, ``k4_upload``) and on the raw derive index
+    (2 rows, 10,206 patterns, ``k4_raw``), B11 on the digit derive index
+    (2 rows; the line batch of 10,709 patterns and the count batch of
+    10,000, ``b11_count``) and B15 on the ranked container's chunks
+    stacked as rows at the upload geometry (63 rows, the 10,200 patterns),
+    from ``_probe_containers``.  For each: the
     distinct 32-byte sectors its plain bisection reads
     (``_probe_sectors``, checked against the kernel's answers), the bytes
     they and the patterns, lengths and bounds make, and that over 3.35
@@ -972,31 +1026,39 @@ def _probe_bounds(torch, np, S, args, out):
         print(f'PROBE_BOUND {tag}: {C} rows x {B} patterns, {sectors} '
               f'sectors, bound {out[f"{tag}_bound_ms"]:.4f} ms', flush=True)
 
-    ranked, pats, digit, line, _ = _probe_containers(np, args)
+    ranked, pats, digit, line, count, raw, raw_pats = _probe_containers(
+        np, args)
     packed_np, lengths_np = S.pack_patterns(pats)
     patterns = torch.from_numpy(packed_np).to(dev)
     lengths = torch.from_numpy(lengths_np).to(dev)
-    r = pss.Reader(ranked)
-    r.wait_device_ready()
-    idx = r._index
-    record('k4', 'k4', S.probe_phased,
-           (idx.text, idx.lengths, idx.sa, idx.tables, idx.limbs, idx.rank,
-            idx.present, patterns, lengths, idx.num_limbs, idx._base,
-            idx._depth, idx._bits), packed_np)
-    del r, idx
-    torch.cuda.empty_cache()
+    for tag, path, mode, batch in (('k4', ranked, 'auto', None),
+                                   ('k4_upload', ranked, 'upload', None),
+                                   ('k4_raw', raw, 'auto', raw_pats)):
+        r = pss.Reader(path, index_mode=mode)
+        r.wait_device_ready()
+        if batch is None:
+            b_np, args_p = packed_np, (patterns, lengths)
+        else:
+            b_np, l_np = S.pack_patterns(batch)
+            args_p = (torch.from_numpy(b_np).to(dev),
+                      torch.from_numpy(l_np).to(dev))
+        record(tag, 'k4', S.probe_phased,
+               _k4_args(r._index, *args_p), b_np)
+        del r, args_p
+        torch.cuda.empty_cache()
     record('b15', 'b15', S.probe_bytes,
            (*_probe_rows(torch, np, ranked), patterns, lengths), packed_np)
     torch.cuda.empty_cache()
-    packed_np, lengths_np = S.pack_patterns(line)
     r = pss.Reader(digit)
     r.wait_device_ready()
     idx = r._index
-    record('b11', 'b11', S.probe_limbs,
-           (idx.text, idx.lengths, idx.sa, idx.tables, idx.limbs,
-            torch.from_numpy(packed_np).to(dev),
-            torch.from_numpy(lengths_np).to(dev), idx.num_limbs),
-           packed_np)
+    for tag, batch in (('b11', line), ('b11_count', count)):
+        packed_np, lengths_np = S.pack_patterns(batch)
+        record(tag, 'b11', S.probe_limbs,
+               (idx.text, idx.lengths, idx.sa, idx.tables, idx.limbs,
+                torch.from_numpy(packed_np).to(dev),
+                torch.from_numpy(lengths_np).to(dev), idx.num_limbs),
+               packed_np)
     del r, idx
     torch.cuda.empty_cache()
 

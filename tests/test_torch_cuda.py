@@ -1035,6 +1035,183 @@ def test_probe_limbs_matches_plain(cuda, case):
     torch.cuda.empty_cache()
 
 
+#: K4's cases: ranked (bits 5 and 6) and raw limbs at 1, 3 and 8 limbs, and
+#: the edges of the cooperative search and the deep wide compare.
+PROBE_PHASED_CASES = ['ranked_k1', 'ranked_k3', 'ranked_k8', 'ranked6_k3',
+                      'raw_k1', 'raw_k3', 'raw_k8', 'raw_depth3',
+                      'long_matches', 'long_matches_raw', 'offset_rows',
+                      'offset_rows_raw', 'past_L', 'past_L_raw', 'repeated',
+                      'offsets64']
+
+
+def _phased_index(bodies, kind, K, device, N=None, off=0):
+    """K4's arguments but the batch: ``bodies`` as [C, N] rows
+    (``_probe_rows``) with their seed tables and limb planes, ranked limbs
+    (``kind`` 'ranked') or raw, from the plain builders, and the rank and
+    present maps of their alphabet: (text, n, sa, tables, limbs, rank,
+    present, K, base, depth, bits)."""
+    text, n, sa = _probe_rows(bodies, device, N=N, off=off)
+    C, Np = text.shape
+    pres = np.zeros(256, dtype=bool)
+    for b in bodies:
+        pres |= np.bincount(b, minlength=256)[:256] > 0
+    rank, sigma = S.alphabet_rank(pres)
+    bits = S.ranked_bits(sigma) if kind == 'ranked' else None
+    assert kind == 'raw' or bits is not None
+    base, depth = S.pick_table_params(sigma, max(b.size for b in bodies))
+    rk = torch.from_numpy(rank).to(device)
+    tables = torch.empty((C, base ** depth + 1), dtype=torch.int32,
+                         device=device)
+    limbs = torch.empty((C, K * Np), dtype=torch.int32, device=device)
+    for i in range(C):
+        ni = int(n[i])
+        if bits is None:
+            pv = S.seed_prefix_plain(text[i], ni, rk, base, depth)
+            tables[i] = S.seed_table_from_prefix_plain(pv, sa[i], ni, base,
+                                                       depth)
+            limbs[i] = S.raw_limb_planes_text_plain(text[i], sa[i], ni,
+                                                    depth, K)
+        else:
+            pv = S.ranked_pack_plain(text[i], ni, rk, bits)
+            tables[i] = S.seed_table_plain(pv, sa[i], ni, base, depth, bits)
+            limbs[i] = S.ranked_limb_planes_text_plain(text[i], sa[i], ni, rk,
+                                                       depth, bits, K)
+        del pv
+    present = torch.from_numpy(pres.astype(np.int32)).to(device)
+    return text, n, sa, tables, limbs, rk, present, K, base, depth, bits
+
+
+def _phased_traps(bodies, kind, depth, cover, seed):
+    """Patterns whose limbs tie with suffixes they do not start: ranked,
+    slices past the cover with 'a' (rank r) turned into '`' (absent, so of
+    rank r as well) before byte cover & ~15, where the wide compare would
+    start; raw, a NUL there, and a row's last bytes followed by NULs past
+    the cover (a raw limb packs NUL like a position past n)."""
+    m0 = cover & ~15
+    pats = []
+    for p in _slices(bodies[:1], (cover + 1, cover + 9, 40, 70), 12, seed,
+                     misses=False):
+        b = bytearray(p)
+        at = [q for q in range(depth, min(m0, len(b))) if b[q] == 0x61]
+        if kind == 'ranked':
+            for q in at:
+                b[q] = 0x60
+            pats += [p, bytes(b)]
+            if at:
+                b = bytearray(p)
+                b[at[-1]] = 0x60
+                pats.append(bytes(b))
+        else:
+            q = depth + seed % max(1, min(m0, len(b)) - depth)
+            b[min(q, len(b) - 1)] = 0
+            pats += [p, bytes(b)]
+    if kind == 'raw':
+        for body in bodies:
+            for t in (1, depth, depth + 1, 7, 15):
+                if 0 < t <= body.size:
+                    tail = body[body.size - t:].tobytes()
+                    pats += [tail + b'\x00' * (cover + 5 - t),
+                             tail + b'\x00' * (cover - t)]
+    return pats
+
+
+def _probe_phased_case(case, device):
+    """K4's arguments (``probe_phased``) for one of ``PROBE_PHASED_CASES``:
+    ranked rows (bits 5 and 6, NUL among the bytes of one) and raw rows at
+    1, 3 and 8 limbs (the raw cover past 16 at 8), an empty and a one-slot
+    row; every pattern length from 0 to the cover + 3 (so every phase count
+    and the exact-depth bump) and 16, 17, 32, 33, 48, 64 and 100, near
+    misses, row ends; the trap patterns of ``_phased_traps``; deep patterns
+    of 100-300 bytes that match many suffixes; rows off the 16-byte
+    alignment in a text view off it; lengths past L; one pattern 512
+    times; and plane offsets past 2^31 (row 2 of three rows of 2^27 + 16
+    slots at 8 limbs)."""
+    kind = 'raw' if 'raw' in case else 'ranked'
+    K = (1 if case.endswith('k1') else 8 if case.endswith(('k8', '64'))
+         or case.startswith(('past_L', 'long_matches_raw')) else 3)
+    N, off = None, 0
+    if case.startswith('long_matches'):
+        bodies = [_repeats(30_011, 7), _repeats(4_099, 8)]
+    elif case == 'raw_depth3':  # 128^3 seed buckets and 4 limbs
+        bodies = [_limb_row('raw', 2_200_000, 2_200_000, 30, 'cpu')[0]]
+        bodies[0][::53] = 0x0A
+        K = 4
+    elif case == 'offsets64':
+        bodies = [_body('nul', 5_000, 1), _body('ranked', 70_001, 2),
+                  _body('nul', 4_099, 3)]
+        N = (1 << 27) + 16
+    else:
+        body = 'ranked6' if case.startswith('ranked6') else kind
+        bodies = [_body(body, 70_000, 31), _body('nul', 4_099, 32),
+                  np.array([0x0A], np.uint8), np.zeros(0, np.uint8)]
+        if body != 'ranked':
+            bodies[1] = _body(body, 4_099, 32)
+        if case.startswith('offset_rows'):
+            bodies = bodies[:2]
+            N = _pad_len(70_000 + S.PAD_MARGIN) + 5
+            off = 3
+    args = _phased_index(bodies, kind, K, device, N=N, off=off)
+    depth = args[9]
+    D = 4 if args[10] is None else S.ranked_limb_bytes(args[10])
+    cover = depth + D * K
+    pats = [b'', b'\n', b'a', b'\x00', b'\xff']
+    if case == 'repeated':
+        pats = [bodies[0][123: 123 + cover + 40].tobytes()] * 512
+    elif case.startswith('long_matches'):  # traps with wide tie ranges
+        pats += _slices(bodies, (cover + 1, 100, 150, 299, 300), 8, 16)
+        pats += _phased_traps(bodies, kind, depth, cover, K)
+    elif case.startswith('past_L'):  # L = 8, lengths up to the cover
+        pats += _slices(bodies, (1, 2, 3, 5, 7, 8), 6, 17)
+    else:
+        pats.append(b'\x00' * (cover + 2))
+        lens = sorted(set(range(1, cover + 4)) | {16, 17, 32, 33, 48, 64, 100})
+        pats += _slices(bodies, lens, 2 if K == 8 else 3, K + len(case))
+        pats += _row_end_patterns(bodies, (1, 2, depth, cover - 1, cover,
+                                           cover + 1))
+        pats += _phased_traps(bodies, kind, depth, cover, K)
+    packed, lengths = S.pack_patterns(pats)
+    if case.startswith('past_L'):  # bytes past L read as 0
+        L = packed.shape[1]
+        lengths[::5] = L + 1
+        lengths[1::5] = min(cover, L + 9)
+        lengths[2::5] = cover
+    return (*args[:7], torch.from_numpy(packed).to(device),
+            torch.from_numpy(lengths).to(device), *args[7:])
+
+
+#: kPhasedPairsWide in csrc/search_kernels.cu: K4 gives a batch of more
+#: (row, pattern) pairs a thread a pair (probe_phased_wide_kernel).
+PHASED_PAIRS_WIDE = 1 << 16
+
+
+@pytest.mark.parametrize('kernel', ['lanes', 'wide'])
+@pytest.mark.parametrize('case', PROBE_PHASED_CASES)
+def test_probe_phased_matches_plain(cuda, case, kernel):
+    """K4 equals its plain version for every (row, pattern), lower bounds
+    included (on misses too), in one launch, at the edges of its
+    cooperative search and its deep wide compare
+    (``_probe_phased_case``); ``'wide'`` repeats the batch past
+    ``PHASED_PAIRS_WIDE`` pairs, so the thread-a-pair kernel answers."""
+    if case == 'offsets64' and torch.cuda.mem_get_info()[0] < 48 << 30:
+        pytest.skip('needs 48 GiB of free device memory')
+    args = list(_probe_phased_case(case, cuda))
+    C, B = args[0].shape[0], args[7].shape[0]
+    if kernel == 'wide':
+        reps = PHASED_PAIRS_WIDE // (C * B) + 1
+        args[7] = args[7].repeat(reps, 1)
+        args[8] = args[8].repeat(reps)
+    assert (C * args[7].shape[0] > PHASED_PAIRS_WIDE) == (kernel == 'wide')
+    before = kernels.LAUNCHES['probe_phased']
+    lo, cnt = S.probe_phased(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES['probe_phased'] == before + 1
+    lo_p, cnt_p = S.probe_phased_plain(*args)
+    assert torch.equal(lo, lo_p) and torch.equal(cnt, cnt_p)
+    assert int((cnt > 0).sum()) > 0
+    del args
+    torch.cuda.empty_cache()
+
+
 @pytest.mark.parametrize('cap', [1, 64, 5000])
 def test_gather_hit_positions_matches_plain(cuda, cap):
     body = _body('ranked', 200_000, 4)

@@ -245,3 +245,95 @@ def test_several_rows_in_one_probe():
     )
     for r, d in enumerate(datas):
         np.testing.assert_array_equal(cnt[r].numpy(), brute_counts(d, pats))
+
+
+def _repeated_block(size, seed, lo=97, hi=103):
+    """A random block repeated with a few bytes changed: suffixes that
+    share hundreds of bytes."""
+    rng = np.random.default_rng(seed)
+    block = rng.integers(lo, hi, size=397, dtype=np.uint8)
+    arr = np.tile(block, size // block.size + 1)[:size]
+    arr[rng.integers(0, size, size=size // 300)] = hi
+    return arr.tobytes()
+
+
+def _edge_case(case):
+    """(corpus, row, patterns, patterns that brute force decides) of one of
+    ``EDGE_CASES``, built with numpy from a seed."""
+    rng = np.random.default_rng(len(case))
+    if case == 'absent_ties':
+        # 'b' and '`' absent: each borrows the rank of the next present
+        # byte, so a pattern with one ties in the limbs with 'c' or 'a'.
+        arr = rng.choice(np.frombuffer(b'acdefghij\n', np.uint8), size=4000)
+        data = arr.tobytes()
+        row = build_row(data, 'ranked', 3)
+        cover = jsearch.ranked_cover_bytes(3, row['depth'], row['bits'])
+        pats = []
+        for l in (cover - 1, cover, cover + 1, cover + 7, 40):
+            for i in rng.integers(0, len(data) - l, size=6):
+                p = bytearray(data[i: i + l])
+                pats.append(bytes(p))
+                for q in range(row['depth'], min(16, l)):
+                    if p[q] in b'ac':
+                        p[q] -= 1  # 'a' -> '`', 'c' -> 'b'
+                pats.append(bytes(p))
+        return data, row, pats, pats
+    if case == 'raw_nul':
+        arr = rng.integers(1, 256, size=3000, dtype=np.uint8)
+        data = arr.tobytes()
+        row = build_row(data, 'ranked-seed', jsearch.RAW_LIMBS)
+        cover = jsearch.raw_cover_bytes(jsearch.RAW_LIMBS, row['depth'])
+        clean = sample_patterns(data, 7)
+        pats = list(clean)
+        for t in (1, 2, row['depth'], 5, cover - 1):
+            tail = data[len(data) - t:]
+            pats += [tail + b'\x00', tail + b'\x00' * (cover + 3 - t)]
+        for i in rng.integers(0, len(data) - 40, size=12):
+            p = bytearray(data[i: i + 30])
+            p[int(rng.integers(row['depth'], 16))] = 0
+            pats.append(bytes(p))
+        pats += [b'\x00', b'\x00' * (cover + 2)]
+        return data, row, pats, clean
+    if case.startswith('deep_repeats'):
+        raw = case.endswith('raw')
+        data = _repeated_block(5000, 3, *((1, 200) if raw else (97, 103)))
+        row = build_row(data, 'd2' if raw else 'ranked', 3)
+        pats = [data[i: i + l] for l in (100, 150, 299, 300)
+                for i in rng.integers(0, len(data) - l, size=5)]
+        pats += [p[:-1] + bytes([p[-1] ^ 1]) for p in pats[::3]]
+        return data, row, pats, pats
+    K = int(case.split('_')[1])  # raw_4_limbs, raw_8_limbs
+    data = CORPORA[3]
+    row = build_row(data, 'd2' if K == 4 else 'ranked-seed', K)
+    cover = jsearch.raw_cover_bytes(K, row['depth'])
+    pats = sample_patterns(data, K)
+    for l in range(1, cover + 4):
+        i = int(rng.integers(0, len(data) - l))
+        pats.append(data[i: i + l])
+    return data, row, pats, pats
+
+
+EDGE_CASES = ['absent_ties', 'raw_nul', 'deep_repeats', 'deep_repeats_raw',
+              'raw_4_limbs', 'raw_8_limbs']
+
+
+@pytest.mark.parametrize('case', EDGE_CASES)
+def test_edge_corpora_match_jax(case):
+    """The plain phased probe against the JAX ``probe_bounds_phased`` and
+    brute force where the kernel's shortcuts meet their edges: ranked
+    patterns whose absent bytes tie in the limbs with present ones inside
+    the cover, raw patterns with NUL (packed like a position past n;
+    the Reader resolves them on the host, so only the JAX program decides
+    them), deep patterns of 100-300 bytes over repeated text, and raw limbs
+    at 4 and 8 limbs (a cover past 16 bytes).  Counts and lower bounds
+    equal the JAX ones for every pattern, misses included, and the counts
+    equal brute force for the patterns it decides."""
+    data, row, pats, decided = _edge_case(case)
+    lo_j, cnt_j, lo_t, cnt_t = run_both(row, pats)
+    np.testing.assert_array_equal(cnt_t, cnt_j)
+    np.testing.assert_array_equal(lo_t, lo_j)
+    hit = cnt_t > 0
+    index = {p: i for i, p in enumerate(pats)}
+    sel = [index[p] for p in decided]
+    np.testing.assert_array_equal(cnt_t[sel], brute_counts(data, decided))
+    assert hit.sum() > 0
