@@ -16,15 +16,20 @@ Phases (any failure raises and exits non-zero):
 1. print the torch / CUDA / nvcc versions and the card; build the CUDA
    kernels from ``pysubstringsearch_tpu_torch/csrc`` and time the build;
 2. build ``bench.make_corpus(--mb)`` into a container in 8 MiB chunks with
-   the port's Writer (native SA-IS, host only);
+   the port's Writer (native SA-IS, host only), then again at
+   ``sa_backend='auto'`` (the ``writer`` phase: the chunks its rule sends
+   to the card, both walls, the containers equal);
 3. the main path, with every kernel launch count set to 0 first:
    ``Reader(path)`` derives its index on the card over merged rows (text
-   up, SA by B1 and B2, limbs and tables by K1-K3), ``wait_device_ready()``
-   must be True, ``search_multiple`` answers the line batch of the
-   10k-pattern batch of ``bench.py`` plus 200 patterns of 23-200 bytes (K4,
-   then B8 on every merged row), and ``search`` answers one pattern, which
-   must launch K4 and B8 again; every kernel of the path must have
-   launched;
+   up, SA by B1 and B2, limbs and tables by K1-K3, then the ``device-warm``
+   probe), ``wait_device_ready()`` must be True, and on the device route
+   (forced with the routing knobs, :func:`forced`) ``search_multiple``
+   answers the line batch of the 10k-pattern batch of ``bench.py`` plus
+   200 patterns of 23-200 bytes (K4, then B8 on every merged row), and
+   ``search`` answers one pattern, which must launch K4 and B8 again;
+   every kernel of the path must have launched; then the line batch and
+   one pattern under the routing rule, the route each took and its lines
+   against the device route's;
 4. each kernel against its plain PyTorch version on the card, on the
    index's own tensors, equal exactly, both timed with CUDA events beside
    the kernel's bound (its inputs read once and outputs written once at
@@ -52,7 +57,15 @@ Phases (any failure raises and exits non-zero):
    (which a merged row must not match);
 6. serving numbers: probe p50 for the whole batch, the device probe
    against the native host probe for batches of 1-8 patterns, the split
-   of the device load, and where row 0's line extraction goes;
+   of the device load, and where row 0's line extraction goes; the
+   routing constants on this card and host (link rates and the 1-pattern
+   round trip the load measured, the host probe's seconds a (pattern,
+   chunk), B1b + B2 and native SA-IS on an 8 MiB chunk); and the route
+   sweep: batches of 1, 16, 256 and 2200 line patterns, each route forced
+   in turn and under the rule, each run's wall, route (from the launch
+   counts of K4 and B8 and the ``x-host-*`` phases), lines (equal across
+   routes) and phases, and the smallest per-row readback at which the
+   host beat the device route;
 7. the upload path (``Reader(path, index_mode='upload')``) after the derive
    Reader is freed: launch counts from 0, K1-K4 against their plain
    versions, counts against the host, and the same serving numbers;
@@ -72,7 +85,8 @@ Phases (any failure raises and exits non-zero):
    NUL) in a container of its own; launch counts from 0, then ``Reader``
    derives it over merged rows (SA by B1b and B2 from k = 6, tables by K7
    and K3, limbs by K6 from the text, no K5) and answers the same kind of
-   batch plus a few patterns holding NUL or a byte >= 0x80; B1b, one B2
+   batch plus a few patterns holding NUL or a byte >= 0x80 (on the device
+   route, then under the rule, as in 3); B1b, one B2
    round, K5, K6, K7 and K3 against their plain versions on row 0, timed
    (K5, the JAX raw_pack_jit's counterpart, on no path; K7 also on a row
    of N = n = 4111 cut from row 0); every row's
@@ -87,12 +101,14 @@ Phases (any failure raises and exits non-zero):
 10. the digit kind: ``make_digit_corpus(--mb)`` (the lines of
    ``make_raw_corpus(--mb // 2)`` as UTF-16LE: 97 distinct bytes with NUL)
    written by the Writer at its default ``'auto'``, so on the card, with
-   launch counts from 0: B1b once for every chunk of at least 64 KiB, and
+   launch counts from 0: B1b once for every chunk its rule sends to the
+   card (every chunk of at least 64 KiB, at the H100's rates), and
    every chunk's SA against native SA-IS; then, counts from 0 again,
    ``Reader(path)`` derives it (SA by B1b and B2, bucket table 258^3 and
    5 limb planes by B12d: one K7 pass a row for the table, the planes from
    the text; probe B11, hits B8) and
-   answers 10k patterns of 4-12 characters, 500 of 4-12 bytes, the 200
+   answers (on the device route, then under the rule, as in 3) 10k
+   patterns of 4-12 characters, 500 of 4-12 bytes, the 200
    deep ones, patterns of 1-2 bytes and patterns holding a byte >= 0x80
    (count 0); K7, K3 and the limb planes on row 0, B1b and one B2 round
    on row 0 (paths, buckets, group sizes and device time as above), B1b
@@ -148,6 +164,7 @@ it is run outside a checkout of the repository.
 """
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -457,8 +474,10 @@ def main() -> int:
                 natives.submit(timed_native, adv))
         idx_path, result['index_build_s'], pats = build_container(
             pss, lambda: corpus, d, 'corpus', args)
+        result['writer'] = timed('writer', lambda: writer_auto_check(
+            pss, corpus, d, args, idx_path, result['index_build_s'], card))
         result['derive'] = timed('ranked', lambda: run_derive(idx_path, pats,
-                                                              dev))
+                                                              dev, card))
         kernel_rows += result['derive'].pop('kernels')
         result['upload'] = timed('upload', lambda: run_upload(idx_path, pats,
                                                               dev))
@@ -662,7 +681,8 @@ def check_boundaries(r, idx):
                          r._host_serving.probe(
                              *pack_patterns_host(bpats))[1].sum(0)),
           'boundary patterns: counts equal the host')
-    dev_b = r._search_batch(bpats)
+    with forced('device', r):  # the route that must drop crossings
+        dev_b = r._search_batch(bpats)
     host_b = r._search_host_chunks(bpats)
     check([sorted(x) for x in dev_b] == [sorted(x) for x in host_b],
           'boundary patterns: results equal the host path')
@@ -698,7 +718,8 @@ def serving_numbers(r, idx, pats, packed_np, lengths_np, host_search_s):
         log(f'probe of {b} pattern(s), p50 of 51: device '
             f'{small[b]["device"]:.4f} ms, native host '
             f'{small[b]["host"]:.4f} ms')
-    one_dev = p50_ms(lambda: r._search_batch([pats[1]]))
+    with forced('device', r):
+        one_dev = p50_ms(lambda: r._search_batch([pats[1]]))
     one_host = p50_ms(lambda: r._search_host_chunks([pats[1]]))
     log(f'search of 1 pattern end to end, p50 of 51: device route '
         f'{one_dev:.4f} ms, host route {one_host:.4f} ms')
@@ -708,20 +729,22 @@ def serving_numbers(r, idx, pats, packed_np, lengths_np, host_search_s):
 
 
 def main_path(r, strs, pats, prof_keys, probe='probe_phased'):
-    """search_multiple of the batch and search of one pattern, which must
-    launch the index's ``probe`` kernel once; returns (launch counts after
-    each, e2e seconds and phase seconds of the search_multiple, its
-    lines)."""
+    """search_multiple of the batch and search of one pattern on the device
+    route (forced, so that every kernel of the path launches), the one
+    pattern launching the index's ``probe`` kernel once; returns (launch
+    counts after each, e2e seconds and phase seconds of the
+    search_multiple, its lines)."""
     from pysubstringsearch_tpu_torch.ops import kernels
 
     before = dict(r.profiler.totals)
-    t0 = time.perf_counter()
-    res = r.search_multiple(strs)
-    e2e_s = time.perf_counter() - t0
-    phases = {k: r.profiler.totals.get(k, 0.0) - before.get(k, 0.0)
-              for k in prof_keys}
-    after = dict(kernels.LAUNCHES)
-    one = r.search(strs[0])
+    with forced('device', r):
+        t0 = time.perf_counter()
+        res = r.search_multiple(strs)
+        e2e_s = time.perf_counter() - t0
+        phases = {k: r.profiler.totals.get(k, 0.0) - before.get(k, 0.0)
+                  for k in prof_keys}
+        after = dict(kernels.LAUNCHES)
+        one = r.search(strs[0])
     launches = dict(kernels.LAUNCHES)
     log(f'search_multiple({len(strs)}): {e2e_s:.3f} s, {len(res)} lines; '
         f'search(1 pattern): {len(one)} lines; launches {launches}')
@@ -732,6 +755,262 @@ def main_path(r, strs, pats, prof_keys, probe='probe_phased'):
     log('phases of search_multiple: ' + ', '.join(
         f'{k} {v:.3f} s' for k, v in phases.items()))
     return after, launches, e2e_s, phases, res
+
+
+#: The Reader's routes a run can force (:func:`forced`), and the rule.
+ROUTES = ('device', 'host_rows', 'whole_batch', 'tiny', 'rule')
+#: Profiler phases read around a routed run.
+ROUTE_PHASES = ('probe', 'extract', 'line-tables', 'x-dev-gather',
+                'x-dev-lines', 'x-host-probe', 'x-host-gather',
+                'x-host-spans', 'x-host-lines', 'hs-probe', 'hs-spans',
+                'hs-fanout')
+
+
+@contextlib.contextmanager
+def forced(route, r):
+    """Force one of Reader ``r``'s routes with the JAX package's knobs, or
+    none for ``'rule'``: ``'device'`` (``HOST_PROBE_UNIT_S`` infinite and
+    ``_READBACK_CAP`` past any readback: the device probe and, on merged
+    rows, B8); ``'host_rows'`` (``_READBACK_CAP`` 0, the round trip 0 and
+    no ``HostServing``, as a Reader without a container has: each merged
+    row re-probed on the host); ``'whole_batch'`` (``_READBACK_CAP`` 0 and
+    the round trip 0: the device probe, then ``HostServing.search`` when
+    every merged row has hits); ``'tiny'`` (a round trip of 1000 s: the
+    host alone)."""
+    from pysubstringsearch_tpu_torch import api
+
+    saved = (api.HOST_PROBE_UNIT_S, api.Reader._READBACK_CAP,
+             os.environ.get('TPUSS_DEVICE_RTT'))
+    hs = r._host_serving
+    try:
+        if route == 'device':
+            api.HOST_PROBE_UNIT_S = float('inf')
+            api.Reader._READBACK_CAP = 1 << 62
+        elif route in ('host_rows', 'whole_batch'):
+            api.Reader._READBACK_CAP = 0
+            os.environ['TPUSS_DEVICE_RTT'] = '0'
+            if route == 'host_rows':
+                r._hostserve_obj = None
+        elif route == 'tiny':
+            os.environ['TPUSS_DEVICE_RTT'] = '1000'
+        elif route != 'rule':
+            raise ValueError(route)
+        yield
+    finally:
+        api.HOST_PROBE_UNIT_S, api.Reader._READBACK_CAP = saved[:2]
+        if saved[2] is None:
+            os.environ.pop('TPUSS_DEVICE_RTT', None)
+        else:
+            os.environ['TPUSS_DEVICE_RTT'] = saved[2]
+        r._hostserve_obj, r._hostserve_tried = hs, True
+
+
+def routed(r, strs, route, probe='probe_phased', reps=1):
+    """``search_multiple(strs)`` under ``route`` (:func:`forced`): (its
+    lines, the median wall of ``reps`` runs in seconds, the route the run
+    took as the launch counts of the probe kernel and B8 and the
+    ``x-host-*`` phases show it, each phase's seconds in the last run)."""
+    from pysubstringsearch_tpu_torch.ops import kernels
+
+    walls = []
+    with forced(route, r):
+        for _ in range(reps):
+            before = dict(kernels.LAUNCHES)
+            pbefore = (dict(r.profiler.totals), dict(r.profiler.counts))
+            t0 = time.perf_counter()
+            res = r.search_multiple(strs)
+            walls.append(time.perf_counter() - t0)
+            probes = kernels.LAUNCHES[probe] - before[probe]
+            gathers = (kernels.LAUNCHES['gather_hits_flat']
+                       - before['gather_hits_flat'])
+            host_rows = (r.profiler.counts.get('x-host-probe', 0)
+                         - pbefore[1].get('x-host-probe', 0))
+    phases = {k: r.profiler.totals.get(k, 0.0) - pbefore[0].get(k, 0.0)
+              for k in ROUTE_PHASES if r.profiler.totals.get(k, 0.0)
+              > pbefore[0].get(k, 0.0)}
+    if not probes:
+        took = 'host (no probe)'
+    else:
+        took = ' + '.join(
+            [f'device rows ({gathers} B8)'] * bool(gathers)
+            + [f'host rows ({host_rows} chunk probes)'] * bool(host_rows)
+        ) or 'probe + HostServing (search or extract)'
+    return res, sorted(walls)[len(walls) // 2], took, phases
+
+
+def multiset_key(lines):
+    """An order-free key of a list of lines (their count and the sum of
+    their hashes): two routes' ``search_multiple`` of one batch return the
+    same lines pattern after pattern, each pattern's in another order."""
+    return len(lines), sum(map(hash, lines)) & ((1 << 64) - 1)
+
+
+def rule_runs(r, strs, label, device_lines, probe='probe_phased'):
+    """The line batch and its first pattern under the rule: route, wall,
+    lines and phases logged and returned; the lines must equal the device
+    route's (``device_lines``, the main path's ``search_multiple`` of the
+    batch, and the first pattern's, searched here)."""
+    with forced('device', r):
+        one = r.search_multiple(strs[:1])
+    out = {}
+    for name, batch, want, reps in (('line_batch', strs, device_lines, 1),
+                                    ('one_pattern', strs[:1], one, 5)):
+        res, wall, took, phases = routed(r, batch, 'rule', probe, reps)
+        check(multiset_key(res) == multiset_key(want),
+              f'{label}the rule\'s lines equal the device route\'s '
+              f'({name})')
+        out[name] = {'patterns': len(batch), 'wall_s': wall, 'route': took,
+                     'lines': len(res), 'phases_s': phases}
+        log(f'{label}under the rule, {name} ({len(batch)} patterns): '
+            f'{wall:.4f} s, route {took}, {len(res)} lines; phases '
+            + json.dumps({k: round(v, 6) for k, v in phases.items()}))
+    return out
+
+
+def route_sweep(r, idx, lpats, card):
+    """Batches of 1, 16, 256 and all of ``lpats`` (the line batch) on the
+    ranked derive rows: each route forced in turn and the rule, each run's
+    wall (median of 5 runs below 256 patterns), route, lines and phases,
+    and each batch's hits per row (the readback at 4 bytes a hit).  Every
+    route's lines must equal the device route's.  Returns the sweep and
+    the smallest per-row readback (of the rows with hits) at which the
+    route that exceeding ``_READBACK_CAP`` on every row sends a batch to
+    (``whole_batch``) was faster than the device route."""
+    from pysubstringsearch_tpu_torch.ops import search as S
+
+    sweep = []
+    for B in (1, 16, 256, len(lpats)):
+        sub = lpats[:B]
+        strs = [p.decode('latin-1') for p in sub]
+        packed_np, lengths_np = S.pack_patterns(sub)
+        hits = idx.probe(packed_np, lengths_np)[1].clip(min=0).sum(1)
+        row = {'patterns': B, 'hits_per_row': hits.tolist(),
+               'readback_bytes_per_row': (4 * hits).tolist(), 'routes': {}}
+        want = None
+        for route in ROUTES:
+            res, wall, took, phases = routed(r, strs, route,
+                                             reps=5 if B < 256 else 1)
+            if want is None:
+                want = multiset_key(res)
+            check(multiset_key(res) == want,
+                  f'sweep: route {route} returned the device route\'s lines '
+                  f'for {B} patterns')
+            row['routes'][route] = {'wall_s': wall, 'route': took,
+                                    'lines': len(res), 'phases_s': phases}
+            log(f'sweep B={B} ({card}): {route}: {wall:.4f} s, took {took}, '
+                f'{len(res)} lines, hits per row {hits.tolist()}; phases '
+                + json.dumps({k: round(v, 6) for k, v in phases.items()}))
+        sweep.append(row)
+    faster = [min(b for b in x['readback_bytes_per_row'] if b > 0)
+              for x in sweep if any(x['readback_bytes_per_row'])
+              and x['routes']['whole_batch']['wall_s']
+              < x['routes']['device']['wall_s']]
+    cap = min(faster) if faster else None
+    log(f'sweep: smallest per-row readback at which the host (whole batch) '
+        f'beat the device route: {cap} bytes ({card})')
+    return sweep, cap
+
+
+def routing_constants(r, idx, lpats, card):
+    """The routing constants on this card and its host: the link rates and
+    the 1-pattern probe's round trip the Reader's load measured (and a p50
+    of 51 such probes beside it), the host probe's seconds per (pattern,
+    chunk) from ``HostServing.probe`` of the line batch over the
+    container's chunks (median of 5), and the two build rates on chunk 0:
+    B1b + B2 (``segmented_sa`` on the padded chunk already on the card,
+    CUDA events, no transfers) and one ``native.suffix_array_native``
+    call."""
+    import numpy as np
+    import torch
+
+    from pysubstringsearch_tpu_torch.ops import search as S
+    from pysubstringsearch_tpu_torch.ops import suffix_array as SA
+    from pysubstringsearch_tpu_torch.ops.hostserve import (
+        HOST_PROBE_UNIT_S, pack_patterns_host)
+    from pysubstringsearch_tpu_torch.ops.native import suffix_array_native
+
+    hs = r._host_serving
+    hp, hl = pack_patterns_host(lpats)
+    cells = len(lpats) * hs.num_chunks
+    unit_s = p50_ms(lambda: hs.probe(hp, hl), 5) / 1e3 / cells
+    sp, sl = S.pack_patterns(lpats[:1])
+    rtt_p50 = p50_ms(lambda: idx.probe(sp, sl)) / 1e3
+    chunk = r._chunks[0].data
+    n = int(chunk.size)
+    N = SA._pad_len(n + SA.BYTE_INIT_WIDTH)
+    padded = torch.zeros(N, dtype=torch.uint8, device=idx.device)
+    padded[:n] = torch.from_numpy(np.array(chunk)).to(idx.device)
+    check(np.array_equal(SA.segmented_sa(padded, n)[0][N - n:].cpu().numpy(),
+                         r._chunks[0].suffix_array),
+          'B1b + B2 on chunk 0 equal its container SA')
+    device_ms = cuda_ms(lambda: SA.segmented_sa(padded, n), 3)
+    del padded
+    t0 = time.perf_counter()
+    suffix_array_native(chunk)
+    native_s = time.perf_counter() - t0
+    out = {
+        'card': card,
+        'link_mbps': list(SA._LINK_RATES) if SA._LINK_RATES else None,
+        'device_rtt_s': SA._DEVICE_RTT, 'probe_1_p50_s': rtt_p50,
+        'host_probe_unit_s': unit_s, 'host_probe_cells': cells,
+        'device_build_mbps': n / 1e6 / (device_ms / 1e3),
+        'native_build_mbps': n / 1e6 / native_s, 'chunk_bytes': n,
+        'in_use': {'link_mbps': list(SA.host_device_link_mbps(probe=False)),
+                   'device_rtt_s': SA.device_rtt_estimate(idx.device),
+                   'host_probe_unit_s': HOST_PROBE_UNIT_S,
+                   'device_build_mbps': SA._DEVICE_BUILD_MBPS,
+                   'native_build_mbps': SA._NATIVE_BUILD_MBPS,
+                   'readback_cap': r._READBACK_CAP},
+    }
+    log(f'routing constants ({card}): link {out["link_mbps"]} MB/s (H2D, '
+        f'D2H; 4 MB each, at load); 1-pattern probe round trip '
+        f'{SA._DEVICE_RTT} s at load (fastest of 3), p50 of 51 {rtt_p50:.6f}'
+        f' s; host probe {unit_s * 1e6:.4f} us a (pattern, chunk) '
+        f'({len(lpats)} patterns x {hs.num_chunks} chunks, median of 5); '
+        f'build rates on a {n}-byte chunk: B1b + B2 {device_ms:.3f} ms '
+        f'({out["device_build_mbps"]:.1f} MB/s, device time), native SA-IS '
+        f'{native_s:.3f} s ({out["native_build_mbps"]:.2f} MB/s); in use '
+        + json.dumps(out['in_use']))
+    return out
+
+
+def writer_auto_check(pss, corpus, d, args, native_path, native_s, card):
+    """The ranked corpus written again by the Writer at ``'auto'``, which
+    builds each chunk on the card or natively by its rule, launch counts
+    from 0: its wall beside the ``'native'`` Writer's (``native_s``), the
+    chunks it built on the card, and the container's bytes (so every SA)
+    equal to the native one's."""
+    from pysubstringsearch_tpu_torch.container import read_container
+    from pysubstringsearch_tpu_torch.ops import kernels
+    from pysubstringsearch_tpu_torch.ops import suffix_array as SA
+
+    corpus_path = os.path.join(d, 'auto.txt')
+    path = os.path.join(d, 'auto.idx')
+    with open(corpus_path, 'wb') as f:
+        f.write(corpus)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with pss.Writer(path, max_chunk_len=args.chunk_mb << 20,
+                    sa_backend='auto') as w:
+        w.add_entries_from_file_lines(corpus_path)
+    auto_s = time.perf_counter() - t0
+    os.remove(corpus_path)
+    sizes = [c.data.size for c in read_container(path).chunks]
+    on_card = sum(s >= SA.DEVICE_MIN_N and SA._device_build_worthwhile(s)
+                  for s in sizes)
+    check(kernels.LAUNCHES['sa_init_bytes'] == on_card,
+          f"the 'auto' Writer built the {on_card} chunks its rule sends to "
+          f"the card there (B1b launched {kernels.LAUNCHES['sa_init_bytes']}"
+          ' times)')
+    with open(path, 'rb') as f, open(native_path, 'rb') as g:
+        equal = f.read() == g.read()
+    check(equal, "the 'auto' Writer's container equals the 'native' one's")
+    os.remove(path)
+    log(f"ranked Writer ({card}): 'auto' {auto_s:.2f} s ({on_card} of "
+        f"{len(sizes)} chunks on the card), 'native' {native_s:.2f} s; "
+        'containers (every SA) equal')
+    return {'auto_s': auto_s, 'native_s': native_s, 'chunks': len(sizes),
+            'on_card': on_card, 'equal': equal}
 
 
 def bound_ms(nbytes):
@@ -819,10 +1098,10 @@ def open_derive(idx_path, pats, kind, path_kernels, label):
         f'{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident, '
         f'{load_peak_gib:.2f} GiB peak during the load')
     strs = [p.decode('latin-1') for p in pats]
+    probe = 'probe_limbs' if kind == 'digit' else 'probe_phased'
     after_multi, launches, e2e_s, phases, res = main_path(
         r, strs, pats, ('probe', 'extract', 'x-dev-gather', 'x-dev-lines',
-                        'line-tables'),
-        'probe_limbs' if kind == 'digit' else 'probe_phased')
+                        'line-tables'), probe)
     for name in path_kernels:
         check(after_multi[name] > 0,
               f'kernel {name} launched by search_multiple on the {kind} '
@@ -834,7 +1113,12 @@ def open_derive(idx_path, pats, kind, path_kernels, label):
     split = load_split(r, ('index-alphabet', 'index-merge', 'index-alloc',
                            'index-h2d', 'index-sa', 'index-aux'),
                        f'{label}derive')
+    warm_s = r.profiler.totals['device-warm']
+    log(f'{label}device-warm (the 8-pattern warm probe and the round-trip '
+        f'measurement, after device-load, before ready): {warm_s:.4f} s')
+    rule = rule_runs(r, strs, label, res, probe)
     return r, launches, res, {
+        'rule': rule, 'device_warm_s': warm_s,
         'device_ready_s': device_ready_s, 'load_split_s': split,
         'load_peak_gib': load_peak_gib, 'search_multiple_s': e2e_s,
         'search_multiple_phases_s': phases, 'lines': len(res), 'rows': rows,
@@ -1331,8 +1615,9 @@ def lines_breakdown(idx, lo_k, cnt_k, patterns=2000):
     return out
 
 
-def run_derive(idx_path, pats, dev):
-    """Phases 3-6 on the derive main path; returns its numbers."""
+def run_derive(idx_path, pats, dev, card):
+    """Phases 3-6 on the derive main path, then the routing constants and
+    the route sweep; returns its numbers."""
     import torch
 
     from pysubstringsearch_tpu_torch.ops import search as S
@@ -1374,6 +1659,10 @@ def run_derive(idx_path, pats, dev):
     numbers = serving_numbers(r, idx, pats, packed_np, lengths_np,
                               host_search_s)
     numbers['lines_row0_s'] = lines_breakdown(idx, lo_k, cnt_k)
+    del lo_k, cnt_k
+    numbers['constants'] = routing_constants(r, idx, lpats, card)
+    numbers['sweep'], numbers['readback_cap_from_sweep'] = route_sweep(
+        r, idx, lpats, card)
     return {
         **result, 'kernels': entries, 'derive_rows': derive_rows,
         'resident_gib': torch.cuda.memory_allocated() / 2**30, **numbers,
@@ -1618,7 +1907,8 @@ def write_digit_container(pss, d, args):
     from pysubstringsearch_tpu_torch.container import read_container
     from pysubstringsearch_tpu_torch.ops import kernels
     from pysubstringsearch_tpu_torch.ops.native import suffix_array_native
-    from pysubstringsearch_tpu_torch.ops.suffix_array import DEVICE_MIN_N
+    from pysubstringsearch_tpu_torch.ops.suffix_array import (
+        DEVICE_MIN_N, _device_build_worthwhile)
 
     kernels.reset_launches()
     path, build_s, pats = build_container(
@@ -1626,10 +1916,11 @@ def write_digit_container(pss, d, args):
         backend='auto', sampler=sample_digit_patterns)
     launches = dict(kernels.LAUNCHES)
     chunks = read_container(path).chunks
-    big = sum(c.data.size >= DEVICE_MIN_N for c in chunks)
+    big = sum(c.data.size >= DEVICE_MIN_N
+              and _device_build_worthwhile(c.data.size) for c in chunks)
     check(launches['sa_init_bytes'] == big > 0,
-          f'the Writer built each of its {big} chunks of at least 64 KiB on '
-          f'the card (B1b launched {launches["sa_init_bytes"]} times)')
+          f'the Writer built each of its {big} chunks that its rule sends to '
+          f'the card there (B1b launched {launches["sa_init_bytes"]} times)')
     for name in WRITER_KERNELS:
         check(launches[name] > 0, f'the Writer launched {name}')
     t0 = time.perf_counter()
@@ -1640,8 +1931,8 @@ def write_digit_container(pss, d, args):
     for i, (c, sa) in enumerate(zip(chunks, native)):
         check(np.array_equal(c.suffix_array, sa),
               f'digit chunk {i} SA built on the card equals native SA-IS')
-    log(f'digit Writer on the card: {len(chunks)} chunks ({big} of at least '
-        f'64 KiB built on the card), {build_s:.2f} s for the whole Writer; '
+    log(f'digit Writer on the card: {len(chunks)} chunks ({big} built on '
+        f'the card by the rule), {build_s:.2f} s for the whole Writer; '
         f'every chunk\'s SA equals native SA-IS, which took {native_s:.2f} s '
         f'for all chunks in 8 threads; launches {launches}')
     numbers = {'writer_s': build_s, 'native_sais_s': native_s,

@@ -19,6 +19,7 @@ from __future__ import annotations
 import collections
 import os
 import threading
+import time
 import typing
 from concurrent.futures import Future, ThreadPoolExecutor
 
@@ -30,8 +31,12 @@ from .models.index import DeviceIndex
 from .ops import native as native_ops
 from .ops import search as search_ops
 from .ops.extract import LineTable
-from .ops.hostserve import HostServing, pack_patterns_host
-from .ops.suffix_array import build_suffix_array
+from .ops.hostserve import HOST_PROBE_UNIT_S, HostServing, pack_patterns_host
+from .ops.suffix_array import (
+    build_suffix_array,
+    device_rtt_estimate,
+    host_device_link_mbps,
+)
 from .utils.profiling import PhaseProfiler
 
 
@@ -47,9 +52,12 @@ class Writer:
     resulting container bytes are identical to a synchronous build.
 
     ``sa_backend`` picks the suffix-array builder
-    (ops/suffix_array.build_suffix_array): ``'auto'`` builds chunks of at
-    least 64 KiB on the CUDA card when one is present (B1b and B2, one
-    worker at a time on the card) and the rest with native SA-IS;
+    (ops/suffix_array.build_suffix_array): ``'auto'`` builds a chunk of at
+    least 64 KiB on the CUDA card when one is present and the card's build
+    with its transfers is estimated faster than native SA-IS
+    (``_device_build_worthwhile``: the link rates and
+    ``TPUSS_DEVICE_BUILD_MBPS``, ``TPUSS_NATIVE_BUILD_MBPS``; B1b and B2,
+    one worker at a time on the card), the rest with native SA-IS;
     ``'torch'`` always builds on the card and raises without one;
     ``'native'`` and ``'numpy'`` build on the host.
     """
@@ -235,19 +243,39 @@ class Writer:
             pass
 
 
+def native_available_for_probe() -> bool:
+    """True when the native host bisection can answer: the Reader's host
+    routes need it."""
+    return native_ops.probe_batch_available()
+
+
 class Reader:
     """Index reader whose probe runs on a device.
 
     ``device`` is where the index lives: ``'cuda'`` (the default) raises
     when no CUDA device is present, ``'cpu'`` runs the kernels' plain
     PyTorch versions.  On CUDA the index builds on a background thread
-    while the native host path answers queries off the container; once it
-    is ready, every batch is probed on the device (patterns longer than
-    ``PAD_MARGIN`` excepted), and if it failed, the next query raises.
-    ``index_mode`` forwards to :class:`DeviceIndex`: ``'auto'`` derives the
-    SA on a CUDA card over merged rows for every alphabet kind (ranked, raw,
-    and digit: more than 62 distinct bytes with NUL, such as UTF-16 text),
+    (``TPUSS_BG_LOAD``: ``0``, ``false`` or ``no`` load it synchronously at
+    the first query, anything else on a thread on any device) while the
+    native host path answers queries off the container; the thread then
+    warms the probe, measures the device's round trip and the link, and
+    marks the index ready.  If the load failed, the next query raises.
+    ``index_mode`` forwards to :class:`DeviceIndex` (env
+    ``TPUSS_INDEX_MODE`` overrides it): ``'auto'`` derives the SA on a
+    CUDA card over merged rows for every alphabet kind (ranked, raw, and
+    digit: more than 62 distinct bytes with NUL, such as UTF-16 text),
     ``'upload'`` keeps the container's chunks and SA.
+
+    Once the index is ready a batch takes the cheapest of the JAX Reader's
+    routes, by its cost model: patterns longer than ``PAD_MARGIN`` go to
+    the host; a batch whose host estimate (patterns x chunks x
+    ``HOST_PROBE_UNIT_S``) is under the device round trip
+    (``device_rtt_estimate``) goes to the host whole; else the device
+    probes it, and each merged row's lines come either from a device hit
+    gather (B8) read back, or, when the host is estimated cheaper or the
+    readback passes ``_READBACK_CAP``, from the native host bisection of
+    the row's source chunks (``x-host-*`` phases); when every merged row
+    takes the host, the whole batch goes to ``HostServing.search``.
     """
 
     def __init__(
@@ -282,18 +310,26 @@ class Reader:
         self._hostserve_obj: typing.Optional[HostServing] = None
         self._hostserve_tried = False
         self._prof = prof if prof is not None else PhaseProfiler()
-        self._index_mode = index_mode
+        self._index_mode = os.environ.get('TPUSS_INDEX_MODE', index_mode)
         self._device_index: typing.Optional[DeviceIndex] = None
         self._row_tables: typing.Optional[typing.List[LineTable]] = None
         self._chunk_tables: typing.Dict[int, LineTable] = {}
         self._device_exc: typing.Optional[BaseException] = None
         self._device_ready = threading.Event()
         self._bg_thread: typing.Optional[threading.Thread] = None
-        if self.device.type == 'cuda' and chunks:
+        if self._background_load_default() and chunks:
             self._bg_thread = threading.Thread(
                 target=self._bg_load, name='pss-device-load', daemon=True
             )
             self._bg_thread.start()
+
+    def _background_load_default(self) -> bool:
+        """``TPUSS_BG_LOAD`` when set (``0``, ``false`` and ``no`` load
+        synchronously), else a background load on a CUDA device."""
+        flag = os.environ.get('TPUSS_BG_LOAD')
+        if flag is not None:
+            return flag not in ('0', 'false', 'no')
+        return self.device.type == 'cuda'
 
     @classmethod
     def from_chunks(
@@ -311,13 +347,47 @@ class Reader:
         return DeviceIndex(self._chunks, device=self.device,
                            mode=self._index_mode, profiler=self._prof)
 
+    def _warm_tunnel_async(self) -> None:
+        """A 1 KiB round trip to the device on a side thread, so the first
+        transfers of the process (the CUDA context, the copy engines) are
+        set up beside the index build instead of in front of the first
+        probe."""
+        device = self.device
+
+        def warm():
+            try:
+                torch.zeros(1024, dtype=torch.uint8).to(device).cpu()
+            except Exception:  # best effort: the load reports device faults
+                pass
+
+        threading.Thread(
+            target=warm, name='pss-link-warm', daemon=True
+        ).start()
+
     def _bg_load(self) -> None:
+        self._warm_tunnel_async()
         try:
             with self._prof.phase('device-load'):
                 index = self._build_device_index()
-                # The builders launch asynchronously: a fault in them
-                # surfaces here, before the index is marked ready.
-                torch.cuda.synchronize(self.device)
+                if self.device.type == 'cuda':
+                    # The builders launch asynchronously: a fault in them
+                    # surfaces here, before the index is marked ready.
+                    torch.cuda.synchronize(self.device)
+            with self._prof.phase('device-warm'):
+                # One probe before "ready", so the first query pays no
+                # first-launch cost; then the round trip of a 1-pattern
+                # probe, measured once and cached for the routes.
+                probe_pats = np.full((8, 4), ord('e'), dtype=np.uint8)
+                probe_lens = np.full((8,), 4, dtype=np.int32)
+                index.probe(probe_pats, probe_lens)
+                device_rtt_estimate(self.device, index)
+            # The link rates route extraction; measured here, once, while
+            # the device is idle.  A failure leaves the defaults and does
+            # not fail a built index.
+            try:
+                host_device_link_mbps(self.device)
+            except Exception:
+                pass
             self._device_index = index
         except BaseException as exc:  # noqa: BLE001 — re-raised on access
             self._device_exc = exc
@@ -327,10 +397,14 @@ class Reader:
     @property
     def profiler(self) -> PhaseProfiler:
         """Per-phase timings: ``load-container``, ``device-load`` (split
-        into :class:`DeviceIndex`'s ``index-*`` phases), ``line-tables``,
+        into :class:`DeviceIndex`'s ``index-*`` phases), ``device-warm``
+        (the warm probe and the round-trip measurement), ``line-tables``,
         ``host-serve``, ``probe``, ``extract`` (of which, for merged rows,
         ``x-dev-gather``, the device gather and its readback, and
-        ``x-dev-lines``, the line materialisation)."""
+        ``x-dev-lines``, the line materialisation, on the device route;
+        ``x-host-probe``, ``x-host-gather``, ``x-host-spans`` and
+        ``x-host-lines``, summed over the source chunks, on the host
+        route)."""
         return self._prof
 
     @property
@@ -373,6 +447,16 @@ class Reader:
                     LineTable(d) for d in self._index.row_data
                 ]
         return self._row_tables
+
+    #: Bytes of a merged row's hit readback (4 a hit) past which the row's
+    #: lines come from the native host bisection instead of the device
+    #: gather (env ``TPUSS_READBACK_CAP``, read at import).  The default is
+    #: one hit under the smallest readback at which chip_smoke.py's sweep
+    #: over its ranked derive rows found the host route faster than the
+    #: device route: 48,320 bytes, the smaller row's 12,080 hits of 16
+    #: patterns (host 7.8 ms, device 51.1 ms; at 1 pattern, 4 bytes, the
+    #: device won), on an NVIDIA H100 80GB HBM3 at 700.00 W (2026-10-18).
+    _READBACK_CAP = int(os.environ.get('TPUSS_READBACK_CAP', '48316'))
 
     @property
     def _host_serving(self) -> typing.Optional[HostServing]:
@@ -428,6 +512,13 @@ class Reader:
                 out[i] = lines
             return out
         idx = self._index
+        if native_available_for_probe():
+            # A batch so small that the whole host bisection costs less
+            # than the device probe's fixed round trip.
+            host_est = (len(patterns) * max(idx.num_source_chunks, 1)
+                        * HOST_PROBE_UNIT_S)
+            if host_est < device_rtt_estimate(self.device):
+                return self._search_host_chunks(patterns)
         packed, lengths = search_ops.pack_patterns(patterns)
         with self._prof.phase('probe'):
             lo, cnt = idx.probe(packed, lengths)
@@ -438,12 +529,47 @@ class Reader:
                 # Probe rows are container chunks, so the device bounds
                 # feed the native span extraction directly.
                 return hs.extract(lo, cnt)
+            if hs is not None and idx.merged and self._host_extract_all(cnt):
+                # Every merged row would take the host route: the native
+                # pipeline over the container chunks answers the whole
+                # batch, with no crossing filter to apply.
+                return hs.search(patterns)
             out = [[] for _ in patterns]
+            # Rows run one after another: the host route inside a row
+            # already spreads over the cores.
             for r in range(idx.num_chunks):
                 per = self._extract_row(r, packed, lengths, lo[r], cnt[r])
                 for b, lines in per.items():
                     out[b].extend(lines)
             return out
+
+    def _row_takes_host(self, B: int, group_size: int, total: int) -> bool:
+        """The cost model of a merged row of ``group_size`` source chunks
+        and ``total`` hits for a batch of ``B`` patterns: the host
+        re-probe (B x chunks x ``HOST_PROBE_UNIT_S``) against the device
+        gather (the round trip plus 4 bytes a hit over the link), or a
+        readback past ``_READBACK_CAP``."""
+        _, d2h = host_device_link_mbps(self.device)
+        host_est = B * group_size * HOST_PROBE_UNIT_S
+        dev_est = device_rtt_estimate(self.device) + total * 4 / max(
+            d2h * 1e6, 1e-9
+        )
+        return host_est < dev_est or total * 4 > self._READBACK_CAP
+
+    def _host_extract_all(self, cnt: np.ndarray) -> bool:
+        """True when every merged row's extraction would take the host
+        route (:meth:`_row_takes_host`); rows of one chunk do not count."""
+        if not native_ops.probe_batch_available():
+            return False
+        idx = self._index
+        B = cnt.shape[1]
+        for r in range(idx.num_chunks):
+            if len(idx.groups[r]) <= 1:
+                continue  # cheap on either route
+            total = int(np.maximum(cnt[r], 0).sum())
+            if not self._row_takes_host(B, len(idx.groups[r]), total):
+                return False
+        return True
 
     def _extract_row(
         self,
@@ -453,10 +579,17 @@ class Reader:
         lo_r: np.ndarray,
         cnt_r: np.ndarray,
     ) -> typing.Dict[int, typing.List[str]]:
-        """One probe row's lines.  A row that is one container chunk
-        gathers from the chunk's host SA; a merged row gathers its hits on
-        the device (B8), reads them back, and drops the occurrences that
-        span a source-chunk boundary."""
+        """One probe row's lines, by the cheapest route:
+
+        - a row that is one container chunk gathers from the chunk's host
+          SA;
+        - a merged row on the device route gathers its hits on the device
+          (B8), reads them back, and drops the occurrences that span a
+          source-chunk boundary;
+        - a merged row on the host route (:meth:`_row_takes_host`)
+          re-probes each source chunk with the native bisection, which
+          never crosses a boundary, and gathers from the chunk's host SA.
+        """
         idx = self._index
         table = self.row_tables[r]
         group = idx.groups[r]
@@ -464,19 +597,74 @@ class Reader:
             return table.extract_lines_batch(
                 self._chunks[group[0]].suffix_array, lo_r, cnt_r
             )
-        if not cnt_r.any():
-            return {}
-        with self._prof.phase('x-dev-gather'):
-            sa_r = idx.row_sa(r)
-            pos_d, qid_d = search_ops.gather_hits_flat(
-                sa_r, torch.as_tensor(lo_r, device=sa_r.device),
-                torch.as_tensor(cnt_r, device=sa_r.device),
+        total = int(np.maximum(cnt_r, 0).sum())
+        use_host = (native_ops.probe_batch_available()
+                    and self._row_takes_host(packed.shape[0], len(group),
+                                             total))
+        if not use_host:
+            if not cnt_r.any():
+                return {}
+            with self._prof.phase('x-dev-gather'):
+                sa_r = idx.row_sa(r)
+                pos_d, qid_d = search_ops.gather_hits_flat(
+                    sa_r, torch.as_tensor(lo_r, device=sa_r.device),
+                    torch.as_tensor(cnt_r, device=sa_r.device),
+                )
+                pos = pos_d.cpu().numpy().astype(np.int64)
+                qid = qid_d.cpu().numpy().astype(np.int64)
+            pos, qid = self._drop_crossings(r, packed, lengths, pos, qid)
+            with self._prof.phase('x-dev-lines'):
+                return table.lines_for_positions(qid, pos)
+
+        # Host route: per source chunk, the native bisection, the gather
+        # from its host SA and the numpy span stage (which release the GIL)
+        # in a pool; the str materialisation, which holds the GIL, on this
+        # thread in chunk order.  Lines are chunk-local (every chunk ends
+        # with \n), so per-chunk dedup is the row's.
+        def one(j_c):
+            j, c = j_c
+            chunk = self._chunks[c]
+            t0 = time.perf_counter()
+            lo_c, cnt_c = native_ops.probe_batch_native(
+                chunk.data, chunk.suffix_array, packed, lengths
             )
-            pos = pos_d.cpu().numpy().astype(np.int64)
-            qid = qid_d.cpu().numpy().astype(np.int64)
-        pos, qid = self._drop_crossings(r, packed, lengths, pos, qid)
-        with self._prof.phase('x-dev-lines'):
-            return table.lines_for_positions(qid, pos)
+            t1 = time.perf_counter()
+            cnt_c = np.maximum(cnt_c.astype(np.int64), 0)
+            seg = np.repeat(np.arange(cnt_c.size, dtype=np.int64), cnt_c)
+            firsts = np.cumsum(cnt_c) - cnt_c
+            offs = (
+                np.repeat(lo_c.astype(np.int64) - firsts, cnt_c)
+                + np.arange(int(cnt_c.sum()), dtype=np.int64)
+            )
+            pos = chunk.suffix_array[offs].astype(np.int64)
+            t2 = time.perf_counter()
+            spans = table.spans_for_positions(
+                seg, pos + int(idx.group_offsets[r][j])
+            )
+            t3 = time.perf_counter()
+            return spans, (t1 - t0, t2 - t1, t3 - t2)
+
+        per_chunk = []
+        with ThreadPoolExecutor(
+            max_workers=min(8, os.cpu_count() or 1)
+        ) as pool:
+            futures = [pool.submit(one, jc) for jc in enumerate(group)]
+            for f in futures:
+                spans, (tp, tg, ts) = f.result()
+                self._prof.add('x-host-probe', tp)
+                self._prof.add('x-host-gather', tg)
+                self._prof.add('x-host-spans', ts)
+                t0 = time.perf_counter()
+                per_chunk.append(table.materialize_spans(spans))
+                self._prof.add('x-host-lines', time.perf_counter() - t0)
+        merged: typing.Dict[int, typing.List[str]] = {}
+        for per in per_chunk:
+            for b, lines in per.items():
+                if b in merged:
+                    merged[b].extend(lines)
+                else:
+                    merged[b] = lines
+        return merged
 
     def _drop_crossings(
         self,

@@ -13,8 +13,9 @@ Two ways to build it, as in the JAX package:
 - upload: every container chunk is one row and its SA comes from the
   container; the text and SA are uploaded.
 - derive: the container's chunks are concatenated into merged rows of up
-  to ``MERGE_CAP_DEFAULT`` bytes, only their text is uploaded, and each
-  row's SA is built on the device (ops/suffix_array.py: B1 and B2 for a
+  to ``TPUSS_MERGE_CAP`` bytes (default ``MERGE_CAP_DEFAULT``;
+  ``TPUSS_MERGE=0`` keeps a chunk a row), only their text is uploaded, and
+  each row's SA is built on the device (ops/suffix_array.py: B1 and B2 for a
   ranked alphabet, B1b and B2 for the raw and digit kinds; B10 for every
   kind on rows padded past ``SEGMENTED_MAX_N``, such as one default 512
   MiB chunk, with B9 for a row B10 flags as poisoned).  A merged row can
@@ -25,10 +26,15 @@ Either way the limb planes and seed tables are built on the device from
 the rows' text and SA (ops/search.py): K1-K3 for the ranked kind, K7 with
 K3 and K6 for the raw kind, B12d (K7 at base 258 with K3, and the digit
 limb planes) for the digit kind; the limb planes gather the text.
+
+:meth:`DeviceIndex.plan` makes the rows' geometry alone, with nothing on
+the device, and :meth:`DeviceIndex.probe_device_parts` leaves a probe's
+bounds on the device for callers that read them there.
 """
 
 from __future__ import annotations
 
+import os
 import typing
 
 import numpy as np
@@ -92,7 +98,8 @@ class DeviceIndex:
 
     #: Text bytes of a merged derive row at most (a longer single chunk
     #: stays one row): its padded row of 256 or 272 MiB is the size the
-    #: JAX package derives; read at construction.
+    #: JAX package derives.  The default of ``TPUSS_MERGE_CAP``, both read
+    #: at construction.
     MERGE_CAP_DEFAULT = 256 << 20
 
     def __init__(
@@ -110,8 +117,10 @@ class DeviceIndex:
         - ``'upload'``: each container chunk is one row, with its SA from
           the container;
         - ``'derive'``: upload the text only and build each row's SA on the
-          device; with ``merge`` (the default) the chunks are concatenated
-          into rows of up to ``MERGE_CAP_DEFAULT`` bytes;
+          device; with ``merge`` (default on; ``TPUSS_MERGE=0`` turns it
+          off when ``merge`` is None) the chunks are concatenated into rows
+          of up to ``TPUSS_MERGE_CAP`` bytes (default
+          ``MERGE_CAP_DEFAULT``);
         - ``'auto'``: derive on a CUDA device, upload on the CPU, as the
           JAX package derives on an accelerator.
 
@@ -131,6 +140,29 @@ class DeviceIndex:
         prof = profiler if profiler is not None else PhaseProfiler()
         self._plan(chunks, device, mode, merge, num_limbs, prof)
         self._build(chunks, prof)
+
+    @classmethod
+    def plan(
+        cls,
+        chunks: typing.Sequence[Chunk],
+        *,
+        device: typing.Union[str, torch.device] = 'cuda',
+        num_limbs: typing.Optional[int] = None,
+        mode: str = 'auto',
+        merge: typing.Optional[bool] = None,
+        profiler: typing.Optional[PhaseProfiler] = None,
+    ) -> 'DeviceIndex':
+        """A geometry-only instance: every planning attribute (``kind``,
+        ``mode``, ``groups``, ``row_data``, ``boundaries``,
+        ``group_offsets``, ``n_pad``, ``num_limbs``, the table parameters,
+        :attr:`cover_bytes`, :meth:`probe_class_keys`) and no tensor on
+        the device; the arguments are the constructor's.
+        :meth:`warm_probe` on it builds the kernel library before the
+        index exists."""
+        self = cls.__new__(cls)
+        self._plan(chunks, device, mode, merge, num_limbs,
+                   profiler if profiler is not None else PhaseProfiler())
+        return self
 
     def _plan(self, chunks: typing.Sequence[Chunk], device, mode: str,
               merge: typing.Optional[bool], num_limbs: typing.Optional[int],
@@ -165,12 +197,15 @@ class DeviceIndex:
             mode = 'derive' if self.device.type == 'cuda' else 'upload'
         self.mode = mode
         self._bits = bits
-        merge = (merge is None or merge) and mode == 'derive' \
-            and len(chunks) > 1
+        if merge is None:
+            merge = os.environ.get('TPUSS_MERGE', '1') != '0'
+        merge = merge and mode == 'derive' and len(chunks) > 1
         if merge:
+            cap = int(os.environ.get('TPUSS_MERGE_CAP',
+                                     str(self.MERGE_CAP_DEFAULT)))
             with prof.phase('index-merge'):
                 self.groups = _merge_groups(
-                    [c.data.size for c in chunks], self.MERGE_CAP_DEFAULT
+                    [c.data.size for c in chunks], cap
                 )
                 self.row_data = [
                     chunks[g[0]].data if len(g) == 1
@@ -196,15 +231,13 @@ class DeviceIndex:
             self._base, self._depth = search_ops.pick_table_params(sigma,
                                                                    max_n)
         self.n_pad = _pad_len(max_n + search_ops.PAD_MARGIN)
-        self.rank = torch.as_tensor(rank, device=self.device)
-        self.present = torch.as_tensor(pres.astype(np.int32),
-                                       device=self.device)
+        # Host arrays: the plan places nothing on the device (_build does).
+        self._rank_host = np.asarray(rank, dtype=np.int32)
+        self._present_host = pres.astype(np.int32)
+        self._lengths_host = np.array([d.size for d in self.row_data],
+                                      dtype=np.int32)
         self.num_limbs = (
             self._auto_num_limbs(shares) if num_limbs is None else num_limbs
-        )
-        self.lengths = torch.as_tensor(
-            np.array([d.size for d in self.row_data], dtype=np.int32),
-            device=self.device,
         )
 
     def _part(self, rows: slice, device) -> 'DeviceIndex':
@@ -220,9 +253,7 @@ class DeviceIndex:
         part.group_offsets = self.group_offsets[rows]
         part.num_chunks = len(part.groups)
         part.merged = any(len(g) > 1 for g in part.groups)
-        part.lengths = self.lengths[rows].to(part.device)
-        part.rank = self.rank.to(part.device)
-        part.present = self.present.to(part.device)
+        part._lengths_host = self._lengths_host[rows]
         return part
 
     def _build(self, chunks: typing.Sequence[Chunk],
@@ -237,6 +268,11 @@ class DeviceIndex:
         self.sa_ties: typing.List[list] = []
         self.sa_poisoned: typing.List[bool] = []
         with prof.phase('index-alloc'):
+            self.rank = torch.as_tensor(self._rank_host, device=self.device)
+            self.present = torch.as_tensor(self._present_host,
+                                           device=self.device)
+            self.lengths = torch.as_tensor(self._lengths_host,
+                                           device=self.device)
             self.text = torch.zeros((C, n_pad), dtype=torch.uint8,
                                     device=self.device)
             self.sa = torch.zeros((C, n_pad), dtype=torch.int32,
@@ -485,23 +521,74 @@ class DeviceIndex:
         _, cnt = self.probe(patterns, lengths)
         return cnt - self.boundary_crossings(patterns, lengths)
 
-    def probe(
+    @property
+    def cover_bytes(self) -> int:
+        """Pattern bytes the seed table and the limb planes resolve; past
+        them the probe refines on the text."""
+        if self.kind == 'ranked':
+            return search_ops.ranked_cover_bytes(self.num_limbs, self._depth,
+                                                 self._bits)
+        if self.kind == 'raw':
+            return search_ops.raw_cover_bytes(self.num_limbs, self._depth)
+        return search_ops.key_cover_bytes(self.num_limbs)
+
+    def probe_class_keys(self, lengths: np.ndarray) -> list:
+        """The launches a batch with these pattern lengths makes: ``[]``
+        for the digit kind (one B11 launch, nothing to choose) and for an
+        index without rows, as in the JAX package; else one key, K4's
+        ``('probe_phased', kernel)``, where ``kernel`` is the one the
+        batch's (row, pattern) pair count selects
+        (``search_ops.PHASED_PAIRS_WIDE``).  The JAX package compiles a
+        program per length class; K4 makes one launch a batch."""
+        B = np.asarray(lengths).shape[0]
+        if self.kind == 'digit' or self.num_chunks == 0 or B == 0:
+            return []
+        wide = self.num_chunks * B > search_ops.PHASED_PAIRS_WIDE
+        return [('probe_phased', 'probe_phased_wide_kernel' if wide
+                 else 'probe_phased_kernel')]
+
+    def warm_probe(self, lengths: np.ndarray, parallel: bool = True) -> None:
+        """Make the first probe of a batch with these pattern lengths cost
+        what later ones do: on a CUDA index, build (or load) the kernel
+        library, and on a built index launch one probe of the batch's
+        shape.  ``parallel`` is the JAX signature's (it compiles its
+        per-class programs in parallel); the port has one library."""
+        del parallel
+        if self.device.type != 'cuda':
+            return
+        from ..ops import kernels
+
+        kernels.library()
+        lengths = np.asarray(lengths, dtype=np.int32)
+        if lengths.size and hasattr(self, 'text'):
+            pats = np.zeros((lengths.size, max(int(lengths.max()), 1)),
+                            dtype=np.uint8)
+            self.probe(pats, lengths)
+
+    def probe_device_parts(
         self,
         patterns: np.ndarray,  # uint8 [B, L]
         lengths: np.ndarray,  # int32 [B]
-    ) -> typing.Tuple[np.ndarray, np.ndarray]:
-        """(lower, count) int32 [C, B] host arrays: the SA range of each
-        pattern's matches in each row, from one probe launch (B11 for the
-        digit kind, K4 for the others).  On a merged row the count includes
-        occurrences that span a source-chunk boundary (see
-        :meth:`boundary_crossings`)."""
+    ) -> typing.List[typing.Tuple[np.ndarray, torch.Tensor, torch.Tensor]]:
+        """``[(members, lower, count)]``: the batch's probe on the device
+        with no readback, as the JAX method returns it: ``members`` the
+        host indices [B] of the patterns, ``lower`` and ``count`` int32
+        [C, B] tensors on the index's device, from one launch (B11 for the
+        digit kind, K4 for the others); one part, where the JAX package
+        has one a length class.  On a merged row the count includes
+        occurrences across a source-chunk boundary (see
+        :meth:`boundary_crossings`), and for the raw kind a pattern that
+        holds NUL keeps the kernel's unmasked bounds: :meth:`probe` zeroes
+        them on the host, as the JAX ``probe`` does."""
         patterns = np.asarray(patterns, dtype=np.uint8)
         lengths = np.asarray(lengths, dtype=np.int32)
         B = patterns.shape[0]
+        members = np.arange(B)
         if self.num_chunks == 0 or B == 0 or patterns.shape[1] > self.n_pad:
             # A pattern wider than every row cannot match.
-            zeros = np.zeros((self.num_chunks, B), dtype=np.int32)
-            return zeros, zeros.copy()
+            zeros = torch.zeros((self.num_chunks, B), dtype=torch.int32,
+                                device=self.device)
+            return [(members, zeros, zeros.clone())]
         pats_d = torch.as_tensor(np.ascontiguousarray(patterns),
                                  device=self.device)
         lens_d = torch.as_tensor(lengths, device=self.device)
@@ -517,7 +604,27 @@ class DeviceIndex:
                 self.rank, self.present, pats_d, lens_d,
                 self.num_limbs, self._base, self._depth, self._bits,
             )
-        lo, cnt = lo.cpu().numpy(), cnt.cpu().numpy()
+        return [(members, lo, cnt)]
+
+    def probe(
+        self,
+        patterns: np.ndarray,  # uint8 [B, L]
+        lengths: np.ndarray,  # int32 [B]
+    ) -> typing.Tuple[np.ndarray, np.ndarray]:
+        """(lower, count) int32 [C, B] host arrays: the SA range of each
+        pattern's matches in each row, :meth:`probe_device_parts` read back
+        in one transfer.  On a merged row the count includes occurrences
+        that span a source-chunk boundary (see
+        :meth:`boundary_crossings`)."""
+        patterns = np.asarray(patterns, dtype=np.uint8)
+        lengths = np.asarray(lengths, dtype=np.int32)
+        B = patterns.shape[0]
+        if self.num_chunks == 0 or B == 0 or patterns.shape[1] > self.n_pad:
+            zeros = np.zeros((self.num_chunks, B), dtype=np.int32)
+            return zeros, zeros.copy()
+        # One part, every pattern of the batch in order.
+        (_, lo_d, cnt_d), = self.probe_device_parts(patterns, lengths)
+        lo, cnt = torch.stack((lo_d, cnt_d)).cpu().numpy()
         if self.kind == 'raw':
             # NUL-free text cannot contain a pattern with a 0x00 byte, and
             # the raw packing cannot represent one: resolve on the host.

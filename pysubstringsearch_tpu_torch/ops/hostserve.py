@@ -18,8 +18,9 @@ path is two ctypes calls: a miss costs one bisection per chunk and returns
 before any extraction state is touched.
 
 This is the serving path while the device index loads in the background,
-the path for patterns too long for the device rows, and the extraction
-backend behind the device probe.
+the path for patterns too long for the device rows, the Reader's
+tiny-batch and whole-batch routes, and the extraction backend behind the
+device probe of container-chunk rows.
 """
 
 from __future__ import annotations
@@ -32,7 +33,16 @@ import numpy as np
 from . import native as native_ops
 from ..container import Chunk
 
-__all__ = ['HostServing', 'pack_patterns_host']
+__all__ = ['HostServing', 'pack_patterns_host', 'HOST_PROBE_UNIT_S']
+
+#: Wall seconds per (pattern, chunk) cell of a threaded ``tpuss_probe_multi``
+#: call: the Reader's routing constant for the host probe.  The default,
+#: 0.3303 us, is chip_smoke.py's ``HostServing.probe`` of its ranked line
+#: batch (2200 patterns) over the 63 chunks of its ranked container
+#: (median of 5), on the host of an NVIDIA H100 80GB HBM3 at 700.00 W
+#: (2026-10-18); env ``TPUSS_HOST_PROBE_US`` overrides it, in microseconds.
+HOST_PROBE_UNIT_S = float(os.environ.get('TPUSS_HOST_PROBE_US',
+                                         '0.3303')) * 1e-6
 
 
 def pack_patterns_host(

@@ -146,6 +146,13 @@ def available() -> bool:
     return _load() is not None
 
 
+def probe_batch_available() -> bool:
+    """True when the native host bisection (:func:`probe_batch_native`)
+    can run: the routes that re-probe on the host need it."""
+    lib = _load()
+    return lib is not None and hasattr(lib, 'tpuss_probe_batch')
+
+
 _FASTEXT = None
 _FASTEXT_TRIED = False
 

@@ -85,6 +85,12 @@ PAD_MARGIN = 1024
 #: Limb planes of the raw and ranked encodings (the most the index keeps).
 RAW_LIMBS = 3
 
+#: K4's split (``kPhasedPairsWide`` in ``csrc/search_kernels.cu``): a batch
+#: of more (row, pattern) pairs than this launches
+#: ``probe_phased_wide_kernel``, a thread a pair; up to it,
+#: ``probe_phased_kernel``, 4 lanes a pair.
+PHASED_PAIRS_WIDE = 1 << 16
+
 #: Limb planes of the digit kind at most: each holds 3 base-258 digits, so
 #: the bucket's 2 digits and KEY_LIMBS limbs cover ``2 + 3 * KEY_LIMBS``
 #: bytes of every suffix.

@@ -43,8 +43,11 @@ PyTorch version beside it:
   are distinct, the pad slots then written in closed form.
 
 The Writer's device build (:func:`build_suffix_array` with ``'torch'``, or
-``'auto'`` on a CUDA card) runs :func:`suffix_array_torch`, and
-:func:`suffix_array_int` builds over an integer alphabet.
+``'auto'`` on a CUDA card where :func:`_device_build_worthwhile` finds it
+faster than native SA-IS) runs :func:`suffix_array_torch`, and
+:func:`suffix_array_int` builds over an integer alphabet.  The routing
+constants live here too: :func:`host_device_link_mbps`,
+:func:`device_rtt_estimate` and the two build rates.
 
 Their building blocks are kernels of the same file, exposed for tests:
 :func:`radix_sort_pairs` (stable LSD radix sort of uint64 keys with int32
@@ -59,7 +62,9 @@ for bit.
 
 from __future__ import annotations
 
+import os
 import threading
+import time
 import typing
 
 import numpy as np
@@ -68,8 +73,9 @@ import torch
 from . import kernels
 
 __all__ = ['build_suffix_array', 'derive_sa', 'derive_sa_full',
-           'derive_sa_plain', 'segmented_rotating_sa', 'segmented_sa',
-           'suffix_array_int', 'suffix_array_numpy', 'suffix_array_torch']
+           'derive_sa_plain', 'device_rtt_estimate', 'host_device_link_mbps',
+           'segmented_rotating_sa', 'segmented_sa', 'suffix_array_int',
+           'suffix_array_numpy', 'suffix_array_torch']
 
 
 def _doubling_numpy(rank: np.ndarray) -> np.ndarray:
@@ -114,23 +120,136 @@ def _pad_len(n: int) -> int:
     return p
 
 
-#: Chunks of at least this many bytes are built on the card by ``'auto'``
-#: when CUDA is available (the JAX package's ``_JAX_MIN_N``).
+#: Below this many bytes ``'auto'`` never builds on the card (the JAX
+#: package's ``_JAX_MIN_N``).
 DEVICE_MIN_N = 1 << 16
 
 #: Serialises the device part of every build, so the Writer's concurrent
 #: workers neither add up their memory peaks nor interleave their rounds.
 _DEVICE_BUILD_LOCK = threading.Lock()
 
+# ---------------------------------------------------------------------------
+# Routing constants: the link, the device round trip, the build rates
+# ---------------------------------------------------------------------------
+
+#: (H2D, D2H) MB/s of the CUDA card, cached by :func:`host_device_link_mbps`.
+_LINK_RATES: typing.Optional[typing.Tuple[float, float]] = None
+
+#: (H2D, D2H) MB/s that ``host_device_link_mbps(probe=False)`` returns when
+#: nothing is cached: one 4 MB transfer each way between numpy and the
+#: card, as :func:`host_device_link_mbps` measures it at a Reader's load,
+#: in chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W (2026-10-18).
+LINK_MBPS_DEFAULT = (5592.0, 6354.0)
+
+#: Seconds of a 1-pattern ``DeviceIndex.probe``, cached by
+#: :func:`device_rtt_estimate`.
+_DEVICE_RTT: typing.Optional[float] = None
+
+#: The round trip :func:`device_rtt_estimate` returns on CUDA before one
+#: was measured: chip_smoke.py's 1-pattern probe of its ranked derive
+#: index at load (the fastest of 3), NVIDIA H100 80GB HBM3 at 700.00 W
+#: (2026-10-18).
+DEVICE_RTT_DEFAULT_S = 1.18e-4
+
+#: Planning rates of the auto backend (MB/s of text), env-tunable.  The
+#: device rate is B1b + B2 on an 8 MiB chunk of chip_smoke.py's ranked
+#: corpus (2.873 ms), device time only (the link terms are added apart);
+#: the native rate one ``native.suffix_array_native`` call on the same
+#: chunk (0.457 s); both on an NVIDIA H100 80GB HBM3 at 700.00 W and its
+#: host (2026-10-18).
+_DEVICE_BUILD_MBPS = float(os.environ.get('TPUSS_DEVICE_BUILD_MBPS', '2919'))
+_NATIVE_BUILD_MBPS = float(os.environ.get('TPUSS_NATIVE_BUILD_MBPS',
+                                          '18.35'))
+
+
+def host_device_link_mbps(device: typing.Union[str, torch.device] = 'cuda',
+                          probe: bool = True) -> typing.Tuple[float, float]:
+    """(H2D, D2H) MB/s between the host and ``device``, measured once per
+    process: a throwaway 1 KiB round trip, then one 4 MB ``torch`` copy
+    from numpy to the card and one back to numpy, the result cached.  A
+    device build ships the text up and the SA down, and the Reader's
+    device extraction reads 4 bytes a hit back, so the link, not the
+    kernels, can decide a route.  ``TPUSS_LINK_MBPS=h2d,d2h`` overrides
+    (and is cached) without measuring; a CPU ``device`` moves nothing and
+    reports ``(inf, inf)``.  ``probe=False`` never transfers: it returns
+    the cached rates, else ``LINK_MBPS_DEFAULT``."""
+    global _LINK_RATES
+    if _LINK_RATES is not None:
+        return _LINK_RATES
+    override = os.environ.get('TPUSS_LINK_MBPS')
+    if override:
+        h2d_s, d2h_s = override.split(',')
+        _LINK_RATES = (float(h2d_s), float(d2h_s))
+        return _LINK_RATES
+    dev = torch.device(device)
+    if dev.type == 'cpu':
+        return (float('inf'), float('inf'))
+    if not probe:
+        return LINK_MBPS_DEFAULT
+    torch.zeros(1024, dtype=torch.uint8).to(dev).cpu()
+    mb = 4.0
+    host = np.zeros(int(mb * 1e6), dtype=np.uint8)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    up = torch.from_numpy(host).to(dev)
+    torch.cuda.synchronize(dev)
+    h2d = mb / max(time.perf_counter() - t0, 1e-9)
+    down = torch.zeros(host.size, dtype=torch.uint8, device=dev)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    down.cpu().numpy()
+    d2h = mb / max(time.perf_counter() - t0, 1e-9)
+    del up, down
+    _LINK_RATES = (h2d, d2h)
+    return _LINK_RATES
+
+
+def device_rtt_estimate(device: typing.Union[str, torch.device] = 'cuda',
+                        index=None) -> float:
+    """Seconds of the fixed cost every device probe pays: the round trip of
+    a 1-pattern ``DeviceIndex.probe`` (upload, launch, readback).  The
+    Reader sends a batch to the host bisection when the host's estimate is
+    below it.  0 on the CPU, where the tests keep exercising the device
+    path; ``TPUSS_DEVICE_RTT`` (seconds) overrides it on CUDA.  Given a
+    built CUDA ``index`` and nothing cached, it measures the probe once
+    (the fastest of three) and caches it; before that it returns
+    ``DEVICE_RTT_DEFAULT_S``."""
+    global _DEVICE_RTT
+    if torch.device(device).type == 'cpu':
+        return 0.0
+    override = os.environ.get('TPUSS_DEVICE_RTT')
+    if override:
+        return float(override)
+    if _DEVICE_RTT is None and index is not None:
+        pats = np.full((1, 4), ord('e'), dtype=np.uint8)
+        lens = np.full((1,), 4, dtype=np.int32)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            index.probe(pats, lens)
+            times.append(time.perf_counter() - t0)
+        _DEVICE_RTT = min(times)
+    return DEVICE_RTT_DEFAULT_S if _DEVICE_RTT is None else _DEVICE_RTT
+
+
+def _device_build_worthwhile(n: int) -> bool:
+    """Whether text up + the card's build + SA down beats native SA-IS for
+    an n-byte chunk, at the cached (or default) link rates."""
+    h2d, d2h = host_device_link_mbps(probe=False)
+    mb = n / 1e6
+    device_s = mb / h2d + mb / _DEVICE_BUILD_MBPS + 4.0 * mb / d2h
+    native_s = mb / _NATIVE_BUILD_MBPS
+    return device_s < native_s
+
 
 def build_suffix_array(data: np.ndarray, backend: str = 'auto') -> np.ndarray:
     """Suffix array of ``data`` (uint8) with the chosen backend:
     ``'native'`` (C++ SA-IS), ``'numpy'``, ``'torch'``
     (:func:`suffix_array_torch` on the CUDA card; raises without one), or
-    ``'auto'``: the card for a
-    chunk of at least ``DEVICE_MIN_N`` bytes when CUDA is available, as the
-    JAX ``auto`` picks the device on a co-located accelerator, else native
-    SA-IS (numpy where no C++ compiler could build it)."""
+    ``'auto'``, the JAX rule: native SA-IS for a chunk under
+    ``DEVICE_MIN_N`` bytes, without CUDA, or where
+    :func:`_device_build_worthwhile` finds the card slower; else the card
+    (numpy where no C++ compiler could build the native kernel)."""
     data = np.asarray(data, dtype=np.uint8)
     if backend == 'numpy':
         return suffix_array_numpy(data)
@@ -142,7 +261,14 @@ def build_suffix_array(data: np.ndarray, backend: str = 'auto') -> np.ndarray:
         return native.suffix_array_native(data)
     if backend != 'auto':
         raise ValueError(f'unknown suffix-array backend: {backend!r}')
-    if data.size >= DEVICE_MIN_N and torch.cuda.is_available():
+    cuda = torch.cuda.is_available()
+    if native.available() and (
+        data.size < DEVICE_MIN_N
+        or not cuda
+        or not _device_build_worthwhile(data.size)
+    ):
+        return native.suffix_array_native(data)
+    if data.size >= DEVICE_MIN_N and cuda:
         return suffix_array_torch(data)
     if native.available():
         return native.suffix_array_native(data)

@@ -66,6 +66,13 @@ class ShardedIndex(DeviceIndex):
         part = self.parts[r // self._rows_per_device]
         return part.sa[r % self._rows_per_device]
 
+    def probe_device_parts(self, patterns: np.ndarray, lengths: np.ndarray):
+        """Not available: the rows live on several devices, and one
+        tensor cannot hold their bounds (ROADMAP G5)."""
+        raise NotImplementedError(
+            'ShardedIndex.probe_device_parts: the rows live on several '
+            'devices (ROADMAP G5); use probe')
+
     def probe(self, patterns: np.ndarray, lengths: np.ndarray):
         """(lower, count) int32 [C, B] host arrays: each device's probe
         launch over its rows, joined in row order."""

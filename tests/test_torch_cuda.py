@@ -183,7 +183,7 @@ def test_index_and_probe_match_cpu(cuda, kind, mode):
     assert (cnt_g > 0).sum() > 100
 
 
-def test_reader_on_card_matches_cpu_reader(cuda, tmp_path):
+def test_reader_on_card_matches_cpu_reader(cuda, tmp_path, monkeypatch):
     rng = np.random.default_rng(7)
     words = [bytes(rng.integers(97, 123, size=int(l), dtype=np.uint8))
              for l in rng.integers(3, 10, size=300)]
@@ -200,10 +200,16 @@ def test_reader_on_card_matches_cpu_reader(cuda, tmp_path):
     assert gpu.wait_device_ready(timeout=300)
     assert gpu._index.mode == 'derive' and gpu._index.merged
     cpu = pss.Reader(path, device='cpu')
-    before = kernels.LAUNCHES['gather_hits_flat']
-    assert collections.Counter(gpu.search_multiple(pats)) == \
-        collections.Counter(cpu.search_multiple(pats))
-    assert kernels.LAUNCHES['gather_hits_flat'] > before
+    want = collections.Counter(cpu.search_multiple(pats))
+    # Under the routing rule, then on the device route forced (the host
+    # estimate infinite, no readback cap), which gathers on the card.
+    assert collections.Counter(gpu.search_multiple(pats)) == want
+    with monkeypatch.context() as m:
+        m.setattr(pss.api, 'HOST_PROBE_UNIT_S', float('inf'))
+        m.setattr(pss.api.Reader, '_READBACK_CAP', 1 << 62)
+        before = kernels.LAUNCHES['gather_hits_flat']
+        assert collections.Counter(gpu.search_multiple(pats)) == want
+        assert kernels.LAUNCHES['gather_hits_flat'] > before
     up = pss.Reader(path, index_mode='upload')
     assert up.wait_device_ready(timeout=300) and up._index.mode == 'upload'
     assert collections.Counter(up.search_multiple(pats)) == \

@@ -551,6 +551,9 @@ def test_raw_reader_derive_matches_jax_reader(container, monkeypatch):
     lines, path = container
     monkeypatch.setenv('TPUSS_MERGE_CAP', str(20 << 10))
     monkeypatch.setattr(DeviceIndex, 'MERGE_CAP_DEFAULT', 20 << 10)
+    # The JAX Reader's readback cap on both, so both take the device route.
+    monkeypatch.setattr(tpss.api.Reader, '_READBACK_CAP',
+                        jpss.api.Reader._READBACK_CAP)
     tr = tpss.Reader(path, device='cpu', index_mode='derive')
     jr = jpss.Reader(path, index_mode='derive')
     idx = tr._index
