@@ -146,7 +146,18 @@ Phases (any failure raises and exits non-zero):
     by B9 (SA equal to native SA-IS, also run on a host thread from the
     start; time and peak logged), and a small
     all-``a`` row must be poisoned in kernel and plain;
-13. B16 (``b16``): ``sort_bench`` at 2^24 and 2^26, launch counts from 0:
+13. B14g (``giant``), ``make_giant_chunk_build``: the big row's SA again
+    with its positions split over ``GIANT_PLACEMENTS`` (4) placements of
+    the card, launch counts from 0 (B14g's kernels, the radix sort, the
+    max scan and the scatter must launch), against native SA-IS of 12 and
+    the pad slots in closed form, its wall, rounds, memory peak (at most
+    ``SA_BUILD_BYTES_PER_SLOT`` bytes a slot with the text) and every
+    sort's largest receive against 2B + S; its kernels against their
+    plain versions on the row's shapes, timed beside their bounds; then
+    on a 1-process NCCL group (every exchange an ``all_to_all_single``)
+    an 8 MiB chunk of the corpus against B9 and native SA-IS and 64 MiB
+    of ``ab`` (all ties) against its closed form and B9;
+14. B16 (``b16``): ``sort_bench`` at 2^24 and 2^26, launch counts from 0:
     the scatter kernel equal to its plain version, timed beside its bound,
     the plain and library scatters, one ``torch.sort`` of (key, value)
     pairs and the port's ``radix_sort_pairs`` (equal, with its pass
@@ -154,7 +165,7 @@ Phases (any failure raises and exits non-zero):
     60-bit keys); and B8 on a skewed batch (one query of 2^24 + 3 hits
     beside 10,000 small ones and runs of zero counts) against its plain
     version, timed as a whole call and as the kernel alone;
-14. one JSON line of kernels (each with its launches on its path, error,
+15. one JSON line of kernels (each with its launches on its path, error,
     time, plain time, bound and library-call time), the card's name and
     power limit, and the result line ``{"ok": true, "device": {...}}``
     last.
@@ -211,6 +222,17 @@ PARALLEL_KERNELS = ('sa_full_init_bytes', 'sa_full_round', 'sa_roll_front',
 #: Bytes of the period-2 row that must poison B10 (N = 416 Mi, past
 #: SEGMENTED_MAX_N) and fall back to B9.
 POISON_ROW_BYTES = 400 << 20
+#: Entry points of B14g's steps of its own (the giant build also runs the
+#: radix sort, the max scan and the scatter).
+GIANT_KERNELS = ('giant_byte_keys', 'giant_round_keys', 'giant_cuts',
+                 'giant_partition', 'giant_flags', 'radix_sort_pairs',
+                 'scan_inclusive_max', 'scatter')
+#: Placements of one card the giant build splits the big row over.
+GIANT_PLACEMENTS = 4
+#: The world-1 giant builds: an 8 MiB chunk of the corpus (its padded row
+#: 8 Mi) and a period-2 row, all ties, of 64 MiB.
+GIANT_CHUNK_BYTES = (8 << 20) - 300
+GIANT_PERIOD2_BYTES = 64 << 20
 #: Patterns a phase makes and checks lines for (``line_batch``): the
 #: first of its batch, with all its deep and odd ones.  Every pattern's
 #: count is checked against the host, and the probe and gather kernels run
@@ -235,6 +257,7 @@ BWT_SRC = 'pysubstringsearch_tpu_torch/csrc/bwt_kernels.cu'
 JAX_SEARCH = 'pysubstringsearch_tpu/ops/search.py'
 JAX_SA = 'pysubstringsearch_tpu/ops/suffix_array.py'
 JAX_BWT = 'pysubstringsearch_tpu/ops/bwt.py'
+GIANT_SRC = 'pysubstringsearch_tpu/parallel/sharded.py:93'
 
 
 def log(*a):
@@ -511,6 +534,10 @@ def main() -> int:
             corpus, adv, refs, pats, d, dev))
         natives.shutdown()
         kernel_rows += result['bigrow'].pop('kernels')
+        # ---- 13. B14g on the big row ----
+        result['giant'] = timed('giant', lambda: run_giant(corpus, refs[0],
+                                                           d, dev))
+        kernel_rows += result['giant'].pop('kernels')
         del corpus, adv, refs
         result['b16'] = timed('b16', run_b16)
         kernel_rows += result['b16'].pop('kernels')
@@ -3078,6 +3105,224 @@ def run_bigrow(corpus, adv, refs, pats, d, dev):
                      'peak_gib': adv_peak, 'b9_rounds': fl['sa_full_round'],
                      'native_sais_s': adv_native_s},
     }
+
+
+def period2_sa(N, dev):
+    """The SA of ``ab`` repeated to an even N: the ``a`` suffixes from the
+    shortest, then the ``b`` suffixes from the shortest."""
+    import torch
+
+    return torch.cat([torch.arange(N - 2, -1, -2, dtype=torch.int32,
+                                   device=dev),
+                      torch.arange(N - 1, 0, -2, dtype=torch.int32,
+                                   device=dev)])
+
+
+def giant_kernels(text, n, sa, S, entry):
+    """B14g's kernels against their plain versions at the shapes of the
+    big row split in ``S`` blocks (B = N / S), each timed beside its bound
+    and, where one PyTorch call computes the same function, that call:
+    (a) the byte keys of the last block and the round keys at k = 6 from
+    the final ranks (the inverse of ``sa``), (b) the cuts of that block's
+    sorted keys at S - 1 of its keys and the partition by owner of the
+    sorted positions of slots [0, B) with their slots as group starts, (c)
+    the flags of the sorted keys."""
+    import torch
+
+    from pysubstringsearch_tpu_torch.ops import suffix_array as SA
+
+    N = text.shape[0]
+    B = N // S
+    s = S - 1
+    p0 = s * B
+    blk, halo = text[p0:], text[N:]
+    got = SA.giant_byte_keys(blk, halo, p0, n)
+    want = SA.giant_byte_keys_plain(blk, halo, p0, n)
+    entry('giant_byte_keys', GIANT_SRC, SA_SRC,
+          max(err(a, b) for a, b in zip(got, want)),
+          cuda_ms(lambda: SA.giant_byte_keys(blk, halo, p0, n), 5),
+          cuda_ms(lambda: SA.giant_byte_keys_plain(blk, halo, p0, n), 1),
+          13 * B)
+    del got, want
+    inv = torch.empty(N, dtype=torch.int32, device=text.device)
+    SA.scatter(torch.arange(N, dtype=torch.int32, device=text.device), sa,
+               inv)
+    rank = inv[p0:].clone()
+    r2 = inv[p0 + 6:].clone()
+    del inv
+    W = SA._key_width(N)
+    got = SA.giant_round_keys(rank, r2, W, p0)
+    want = SA.giant_round_keys_plain(rank, r2, W, p0)
+    entry('giant_round_keys', GIANT_SRC, SA_SRC,
+          max(err(a, b) for a, b in zip(got, want)),
+          cuda_ms(lambda: SA.giant_round_keys(rank, r2, W, p0), 5),
+          cuda_ms(lambda: SA.giant_round_keys_plain(rank, r2, W, p0), 1),
+          20 * B)
+    del want, rank, r2
+    keys, vals = got
+    del got
+    SA.radix_sort_pairs(keys, vals, 2 * W)
+    pick = torch.tensor([r * B // S for r in range(1, S)],
+                        device=text.device)
+    skeys, spos = keys[pick], vals[pick]
+    cuts = SA.giant_cuts(keys, vals, skeys, spos)
+    entry('giant_cuts', GIANT_SRC, SA_SRC,
+          err(cuts, SA.giant_cuts_plain(keys, vals, skeys, spos)),
+          cuda_ms(lambda: SA.giant_cuts(keys, vals, skeys, spos), 20),
+          cuda_ms(lambda: SA.giant_cuts_plain(keys, vals, skeys, spos), 1),
+          (S - 1) * (12 + 12 * B.bit_length()) + 8 * (S - 1),
+          cuda_ms(lambda: torch.searchsorted(keys, skeys), 20))
+    pred = int(keys[0]) - 1
+    v, st = SA.giant_flags(keys, B, pred, True, N - n)
+    pv, pst = SA.giant_flags_plain(keys, B, pred, True, N - n)
+    entry('giant_flags', GIANT_SRC, SA_SRC, max(err(v, pv), err(st, pst)),
+          cuda_ms(lambda: SA.giant_flags(keys, B, pred, True, N - n), 5),
+          cuda_ms(lambda: SA.giant_flags_plain(keys, B, pred, True, N - n),
+                  1), 12 * B + 8)
+    del keys, vals, v, pv
+    pos = sa[:B].clone()
+    gs = torch.arange(B, dtype=torch.int32, device=text.device)
+    got = SA.giant_partition(pos, gs, 7, B, S)
+    want = SA.giant_partition_plain(pos, gs, 7, B, S)
+    entry('giant_partition', GIANT_SRC, SA_SRC,
+          max(err(a, b) for a, b in zip(got, want)),
+          cuda_ms(lambda: SA.giant_partition(pos, gs, 7, B, S), 5),
+          cuda_ms(lambda: SA.giant_partition_plain(pos, gs, 7, B, S), 1),
+          16 * B + 4 * S)
+    del got, want, pos, gs
+    torch.cuda.empty_cache()
+
+
+def run_giant(corpus, native_ref, d, dev):
+    """B14g, ``make_giant_chunk_build``: the big row (the ranked corpus,
+    n = 524,288,061 in N = 512 Mi) on four placements of this card, launch
+    counts from 0, against native SA-IS (``native_ref``, bigrow's future)
+    and the pad slots in closed form, with its wall, rounds, memory peak
+    and every sort's largest receive against 2B + S; then its kernels
+    against their plain versions on that row's shapes; then a 1-process
+    NCCL group (world 1, every exchange through ``all_to_all_single``) on
+    an 8 MiB chunk of the corpus (against native SA-IS and B9) and a 64
+    MiB period-2 row, all ties (against its closed form and B9).  Returns
+    its numbers and the kernels' rows."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pysubstringsearch_tpu_torch.ops import kernels
+    from pysubstringsearch_tpu_torch.ops import suffix_array as SA
+    from pysubstringsearch_tpu_torch.ops.native import suffix_array_native
+    from pysubstringsearch_tpu_torch.parallel import mesh as M
+    from pysubstringsearch_tpu_torch.parallel import multihost, sharded
+
+    S = GIANT_PLACEMENTS
+    data = np.frombuffer(corpus, np.uint8)
+    n = data.size
+    N = SA._pad_len(n)
+    text = torch.zeros(N, dtype=torch.uint8, device=dev)
+    text[:n] = torch.from_numpy(data.copy()).to(dev)
+    mesh = M.make_mesh([f'cuda:{torch.cuda.current_device()}'] * S)
+    build = sharded.make_giant_chunk_build(mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the path, launch counts from 0 ----
+    kernels.reset_launches()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sa, wall = wall_s(lambda: build(text, n))
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = dict(kernels.LAUNCHES)
+    st = dict(build.stats)
+    for name in GIANT_KERNELS:
+        check(launches[name] > 0, f'the giant build launched {name}')
+    slot_bytes = (peak + N) / N
+    check(slot_bytes <= SA.SA_BUILD_BYTES_PER_SLOT,
+          f'the giant build peaks at {slot_bytes:.2f} bytes a slot, text '
+          f'included, within {SA.SA_BUILD_BYTES_PER_SLOT}')
+    check(max(st['max_recv']) <= st['recv_bound'],
+          f'no shard received more than 2B + S ({st})')
+    native, _ = native_ref.result()
+    check(sa.shape == (N,) and sa.device == text.device,
+          'the one-process build returns all of sa_full on the card')
+    check(torch.equal(sa[N - n:], torch.from_numpy(native).to(dev)),
+          'the giant build\'s SA equals native SA-IS')
+    check(torch.equal(sa[: N - n], pad_slots(N, n, dev)),
+          'the giant build\'s pad slots are [N - 1, ..., n]')
+    del native
+    log(f'giant build on {S} placements of one card, {n} bytes in N {N} '
+        f'(B {N // S}): {wall:.3f} s wall, {st["rounds"]} rounds after the '
+        f'init, peak {peak / 2**30:.2f} GiB above what was resident '
+        f'({slot_bytes:.2f} bytes a slot with the text); largest receive a '
+        f'sort {st["max_recv"]} against 2B + S = {st["recv_bound"]}; SA '
+        f'equals native SA-IS, pads closed-form; launches '
+        f'{ {k: launches[k] for k in GIANT_KERNELS} }')
+    out = {'n': n, 'n_pad': N, 'placements': S, 'wall_s': wall,
+           'rounds': st['rounds'], 'max_recv': st['max_recv'],
+           'recv_bound': st['recv_bound'], 'peak_gib': peak / 2**30,
+           'bytes_per_slot': slot_bytes,
+           'launches': {k: launches[k] for k in GIANT_KERNELS}}
+
+    # ---- the kernels against their plain versions ----
+    entries = []
+    giant_kernels(text, n, sa, S, kernel_check('giant ', entries, launches))
+    del sa, text
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- a 1-process NCCL group: the exchanges through collectives ----
+    multihost.initialize('file://' + os.path.join(d, 'giant_rendezvous'), 1,
+                         0, 'nccl')
+    try:
+        mesh1 = M.make_mesh(dev)
+        check(mesh1.distributed and mesh1.size == 1,
+              'a 1-process NCCL mesh')
+        build1 = sharded.make_giant_chunk_build(mesh1)
+        # The group's first collectives set up its communicator: a 64-slot
+        # row takes that cost, apart from the timed builds.
+        tiny = torch.tensor(list(b'abracadabra'), dtype=torch.uint8,
+                            device=dev)
+        tiny = torch.cat([tiny, tiny.new_zeros(64 - tiny.shape[0])])
+        got, first_s = wall_s(lambda: build1(tiny, 11))
+        check(torch.equal(got, SA.sa_full_doubling(tiny, 11)),
+              'the world-1 giant build of a 64-slot row equals B9')
+        chunk = data[: GIANT_CHUNK_BYTES]
+        Nc = SA._pad_len(chunk.size)
+        row = torch.zeros(Nc, dtype=torch.uint8, device=dev)
+        row[: chunk.size] = torch.from_numpy(chunk.copy()).to(dev)
+        got, chunk_s = wall_s(lambda: build1(row, chunk.size))
+        chunk_rounds = build1.stats['rounds']
+        check(torch.equal(got, SA.sa_full_doubling(row, chunk.size)),
+              'the world-1 giant build of an 8 MiB chunk equals B9')
+        check(np.array_equal(got[Nc - chunk.size:].cpu().numpy(),
+                             suffix_array_native(chunk)),
+              'the world-1 giant build of an 8 MiB chunk equals native')
+        ab = torch.tensor([97, 98], dtype=torch.uint8, device=dev).repeat(
+            GIANT_PERIOD2_BYTES // 2)
+        got, ab_s = wall_s(lambda: build1(ab, ab.shape[0]))
+        ab_stats = dict(build1.stats)
+        check(torch.equal(got, period2_sa(ab.shape[0], dev)),
+              'the world-1 giant build of the period-2 row equals its '
+              'closed form')
+        check(torch.equal(got, SA.sa_full_doubling(ab, ab.shape[0])),
+              'the world-1 giant build of the period-2 row equals B9')
+        check(max(ab_stats['max_recv']) <= ab_stats['recv_bound'],
+              'world 1: no receive over 2B + S')
+        del got, ab, row, tiny
+    finally:
+        dist.destroy_process_group()
+    log(f'giant build on a 1-process NCCL group: a 64-slot row first '
+        f'{first_s:.3f} s (the communicator\'s set-up); an 8 MiB chunk '
+        f'({chunk.size} bytes, N {Nc}) {chunk_s:.3f} s, {chunk_rounds} '
+        f'rounds, equal to B9 and native SA-IS; {GIANT_PERIOD2_BYTES} bytes '
+        f'of "ab" {ab_s:.3f} s, {ab_stats["rounds"]} rounds, equal to its '
+        'closed form and B9')
+    out.update({'kernels': entries, 'world1_first_s': first_s,
+                'world1_chunk_s': chunk_s,
+                'world1_chunk_rounds': chunk_rounds,
+                'world1_period2_s': ab_s,
+                'world1_period2_rounds': ab_stats['rounds']})
+    torch.cuda.empty_cache()
+    return out
 
 
 def run_b16():

@@ -2522,6 +2522,245 @@ __global__ void roll_front_kernel(const int* __restrict__ src, long long N,
   }
 }
 
+// ---------------------------------------------------------------------------
+// B14g: the per-shard steps of one row's B9 split over S shards.  Replaces
+// make_giant_chunk_build (pysubstringsearch_tpu/parallel/sharded.py:93-115),
+// where XLA partitions the lax.sort of every B9 round into a distributed
+// sort; there is no such partitioner here, so parallel/sharded.py runs each
+// round as a sample sort over torch.distributed (or device copies between
+// the placements of one process), on this file's radix sort, max scan and
+// scatter, and on these kernels for the steps none of them does:
+//   (a) giant_byte_keys_kernel, giant_round_keys_kernel: B9's keys of one
+//       shard's block of B positions, with the positions as values: the
+//       6-byte init key (B1b's layout, limb0 << 25 | limb1, 50 bits) from
+//       the block's text and the 5 bytes past it, or a round's key
+//       rank[i] << W | (rank[i + k] + 1) from the block's group starts and
+//       the fetched shifted ranks (0 past the row).  A fused elementwise
+//       pass, which Triton would do as well; it stays in CUDA so that the
+//       path builds from this one library.
+//   (b) giant_cuts_kernel: where the S - 1 (key, position) splitters cut a
+//       shard sorted by (key, position), one binary search a splitter (the
+//       pieces of a sorted shard are contiguous, so nothing moves); and
+//       giant_part_count_kernel + giant_part_scatter_kernel: (position,
+//       group start) pairs partitioned by owner shard, position / B,
+//       stably, into per-owner slices, positions made local to the owner's
+//       block and group starts raised to the carried-in one.  A block owns
+//       a contiguous range; it counts its owners in shared memory, the
+//       (owner, block) counts are scanned owner-major, and the block
+//       stores each round of 256 pairs at its owner's running offset, a
+//       pair's place among its warp's pairs of the same owner from
+//       __match_any_sync and among earlier warps' from per-warp counts.
+//   (c) giant_flags_kernel: the relabel's group-start candidates, slot
+//       off + i where the key differs from its predecessor (for i = 0 the
+//       last key of the nearest non-empty earlier shard, carried in by the
+//       host) and -1 elsewhere, with the shard's last such slot and the
+//       number of them at real slots (>= N - n); the max scan over the
+//       candidates then gives every slot its group start.
+// All are bound by memory: (a) writes 12 bytes a position and reads 1 or
+// 8, (b)'s partition reads 8 bytes a pair twice and writes 8, (c) reads 8
+// and writes 4; (b)'s cuts read S log2(m) keys.
+// ---------------------------------------------------------------------------
+constexpr int kGiantMaxShards = 256;
+constexpr int kPartBlocks = 1024;  // blocks of a partition, at most
+
+__global__ void giant_byte_keys_kernel(const uint8_t* __restrict__ text,
+                                       long long m,
+                                       const uint8_t* __restrict__ halo,
+                                       long long h, long long p0, long long n,
+                                       uint64_t* __restrict__ keys,
+                                       int* __restrict__ vals) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < m; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    unsigned limb[2] = {0u, 0u};
+#pragma unroll
+    for (int d = 0; d < 6; ++d) {
+      const long long j = i + d;
+      unsigned e = 0u;
+      if (p0 + j < n) {
+        if (j < m) {
+          e = text[j] + 1u;
+        } else if (j - m < h) {
+          e = halo[j - m] + 1u;
+        }
+      }
+      limb[d / 3] = limb[d / 3] * 257u + e;
+    }
+    keys[i] = (static_cast<uint64_t>(limb[0]) << 25) | limb[1];
+    vals[i] = static_cast<int>(p0 + i);
+  }
+}
+
+__global__ void giant_round_keys_kernel(const int* __restrict__ rank,
+                                        const int* __restrict__ r2,
+                                        long long m, long long c, int W,
+                                        long long p0,
+                                        uint64_t* __restrict__ keys,
+                                        int* __restrict__ vals) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < m; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const uint64_t low = i < c ? static_cast<uint64_t>(r2[i]) + 1u : 0u;
+    keys[i] = (static_cast<uint64_t>(rank[i]) << W) | low;
+    vals[i] = static_cast<int>(p0 + i);
+  }
+}
+
+// cuts[j] = the number of pairs of (keys, vals)[0, m), sorted by (key,
+// value), below splitter j = (skeys[j], spos[j]).
+__global__ void giant_cuts_kernel(const uint64_t* __restrict__ keys,
+                                  const int* __restrict__ vals, long long m,
+                                  const uint64_t* __restrict__ skeys,
+                                  const int* __restrict__ spos, int ns,
+                                  long long* __restrict__ cuts) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= ns) return;
+  const uint64_t sk = skeys[j];
+  const int sp = spos[j];
+  long long lo = 0, hi = m;
+  while (lo < hi) {
+    const long long mid = lo + (hi - lo) / 2;
+    const uint64_t k = keys[mid];
+    if (k < sk || (k == sk && vals[mid] < sp)) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  cuts[j] = lo;
+}
+
+// Block b of nb owns pairs [b * per, min(m, (b + 1) * per)).
+__device__ inline void part_range(long long m, int nb, long long* lo,
+                                  long long* hi) {
+  const long long per = (m + nb - 1) / nb;
+  *lo = blockIdx.x * per;
+  *hi = *lo + per < m ? *lo + per : m;
+}
+
+// counts[d * nb + b] = pairs of block b owned by shard d.
+__global__ void __launch_bounds__(kThreads)
+    giant_part_count_kernel(const int* __restrict__ pos, long long m,
+                            long long B, int S, int nb,
+                            int* __restrict__ counts) {
+  __shared__ int hist[kGiantMaxShards];
+  for (int d = threadIdx.x; d < S; d += kThreads) hist[d] = 0;
+  __syncthreads();
+  long long lo, hi;
+  part_range(m, nb, &lo, &hi);
+  const int lane = threadIdx.x & 31;
+  for (long long base = lo; base < hi; base += kThreads) {
+    const long long i = base + threadIdx.x;
+    const int d = i < hi ? static_cast<int>(pos[i] / B) : -1;
+    const unsigned peers = __match_any_sync(kFull, d);
+    if (d >= 0 && lane == __ffs(peers) - 1) {
+      atomicAdd(&hist[d], __popc(peers));
+    }
+  }
+  __syncthreads();
+  for (int d = threadIdx.x; d < S; d += kThreads) {
+    counts[static_cast<long long>(d) * nb + blockIdx.x] = hist[d];
+  }
+}
+
+// totals[d] = pairs owned by shard d, from the owner-major exclusive scan
+// (its total at [S * nb]).
+__global__ void giant_part_totals_kernel(const int* __restrict__ offs, int S,
+                                         int nb, int* __restrict__ totals) {
+  const int d = blockIdx.x * blockDim.x + threadIdx.x;
+  if (d < S) {
+    totals[d] = offs[static_cast<long long>(d + 1) * nb] -
+                offs[static_cast<long long>(d) * nb];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    giant_part_scatter_kernel(const int* __restrict__ pos,
+                              const int* __restrict__ gs, long long m,
+                              long long B, int S, int nb, int floor_gs,
+                              const int* __restrict__ offs,
+                              int* __restrict__ out_pos,
+                              int* __restrict__ out_gs) {
+  __shared__ int base[kGiantMaxShards];
+  __shared__ int warp_counts[kWarps][kGiantMaxShards];
+  for (int d = threadIdx.x; d < S; d += kThreads) {
+    base[d] = offs[static_cast<long long>(d) * nb + blockIdx.x];
+    for (int w = 0; w < kWarps; ++w) warp_counts[w][d] = 0;
+  }
+  __syncthreads();
+  long long lo, hi;
+  part_range(m, nb, &lo, &hi);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (long long start = lo; start < hi; start += kThreads) {
+    const long long i = start + threadIdx.x;
+    const bool valid = i < hi;
+    const int p = valid ? pos[i] : 0;
+    const int d = valid ? static_cast<int>(p / B) : -1;
+    const unsigned peers = __match_any_sync(kFull, d);
+    const bool leader = lane == __ffs(peers) - 1;
+    if (valid && leader) warp_counts[warp][d] = __popc(peers);
+    __syncthreads();
+    if (valid) {
+      int o = base[d] + __popc(peers & ((1u << lane) - 1u));
+      for (int w = 0; w < warp; ++w) o += warp_counts[w][d];
+      out_pos[o] = static_cast<int>(p - static_cast<long long>(d) * B);
+      const int g = gs[i];
+      out_gs[o] = g > floor_gs ? g : floor_gs;
+    }
+    __syncthreads();
+    if (valid && leader) {
+      atomicAdd(&base[d], __popc(peers));
+      warp_counts[warp][d] = 0;
+    }
+    __syncthreads();
+  }
+}
+
+__global__ void giant_stats_init_kernel(int* stats) {
+  stats[0] = -1;
+  stats[1] = 0;
+}
+
+// v[i] = off + i where keys[i] starts a run of equal keys (i = 0 against
+// pred when has_pred), else -1; stats[0] = max of those slots (-1 if
+// none), stats[1] = how many of them are at or past real_lo.
+__global__ void __launch_bounds__(kThreads)
+    giant_flags_kernel(const uint64_t* __restrict__ keys, long long m,
+                       long long off, uint64_t pred, int has_pred,
+                       long long real_lo, int* __restrict__ v,
+                       int* __restrict__ stats) {
+  int best = -1;
+  int real = 0;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < m; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const uint64_t prev = i > 0 ? keys[i - 1] : pred;
+    const bool f = (i == 0 && !has_pred) || keys[i] != prev;
+    const int slot = static_cast<int>(off + i);
+    v[i] = f ? slot : -1;
+    if (f) {
+      best = slot;  // slots grow along a thread's loop
+      real += off + i >= real_lo ? 1 : 0;
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    const int b = __shfl_down_sync(kFull, best, o);
+    best = b > best ? b : best;
+    real += __shfl_down_sync(kFull, real, o);
+  }
+  if ((threadIdx.x & 31) == 0) {
+    if (best >= 0) atomicMax(&stats[0], best);
+    if (real) atomicAdd(&stats[1], real);
+  }
+}
+
+// Blocks of a partition of m pairs: one per 2048, at most kPartBlocks.
+int giant_part_blocks(long long m) {
+  const long long nb = cdiv(m, kThreads * 8);
+  return static_cast<int>(nb < 1 ? 1 : (nb > kPartBlocks ? kPartBlocks : nb));
+}
+
 }  // namespace
 
 extern "C" {
@@ -2881,6 +3120,107 @@ int pss_sa_roll_front(const void* sa_full, long long N, long long n,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   roll_front_kernel<<<grid_for(N), kThreads, 0, st>>>(
       static_cast<const int*>(sa_full), N, n, static_cast<int*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- B14g -----------------------------------------------------------------
+
+// keys uint64 [m], vals int32 [m]: B9's 6-byte init key of positions p0 +
+// i of a row of true length n, from text uint8 [m] (the block) and halo
+// uint8 [h] (the bytes after it, h <= 5, fewer at the row's end).
+int pss_giant_byte_keys(const void* text, long long m, const void* halo,
+                        long long h, long long p0, long long n, void* keys,
+                        void* vals, void* stream) {
+  if (m <= 0) return 0;
+  giant_byte_keys_kernel<<<grid_for(m), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(text), m,
+      static_cast<const uint8_t*>(halo), h, p0, n,
+      static_cast<uint64_t*>(keys), static_cast<int*>(vals));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// keys uint64 [m] = rank[i] << W | (i < c ? r2[i] + 1 : 0), vals = p0 + i.
+int pss_giant_round_keys(const void* rank, const void* r2, long long m,
+                         long long c, int W, long long p0, void* keys,
+                         void* vals, void* stream) {
+  if (m <= 0) return 0;
+  giant_round_keys_kernel<<<grid_for(m), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(rank), static_cast<const int*>(r2), m, c, W,
+      p0, static_cast<uint64_t*>(keys), static_cast<int*>(vals));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// cuts int64 [ns]: where each (skeys, spos) splitter cuts the sorted pairs.
+int pss_giant_cuts(const void* keys, const void* vals, long long m,
+                   const void* skeys, const void* spos, int ns, void* cuts,
+                   void* stream) {
+  if (ns <= 0) return 0;
+  giant_cuts_kernel<<<(ns + kThreads - 1) / kThreads, kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint64_t*>(keys), static_cast<const int*>(vals), m,
+      static_cast<const uint64_t*>(skeys), static_cast<const int*>(spos), ns,
+      static_cast<long long*>(cuts));
+  return static_cast<int>(cudaGetLastError());
+}
+
+long long pss_giant_part_scratch_bytes(long long S) {
+  Arena a{nullptr, 0};
+  a.take<int>(S * kPartBlocks);
+  a.take<int>(S * kPartBlocks + 1);
+  a.take<int>(scan_scratch_elems(S * kPartBlocks));
+  return static_cast<long long>(a.off);
+}
+
+// out_pos, out_gs int32 [m]: the pairs (pos[i] - d * B, max(gs[i],
+// floor_gs)) stably partitioned by owner d = pos[i] / B < S <= 256;
+// totals int32 [S] their counts.
+int pss_giant_partition(const void* pos, const void* gs, long long m,
+                        long long B, int S, int floor_gs, void* out_pos,
+                        void* out_gs, void* totals, void* scratch,
+                        void* stream) {
+  if (S < 1 || S > kGiantMaxShards) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (m <= 0) {
+    cudaMemsetAsync(totals, 0, sizeof(int) * S, st);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int nb = giant_part_blocks(m);
+  Arena a{static_cast<char*>(scratch), 0};
+  const long long cap = static_cast<long long>(S) * kPartBlocks;
+  int* counts = a.take<int>(cap);
+  int* offs = a.take<int>(cap + 1);
+  int* scan = a.take<int>(scan_scratch_elems(cap));
+  const long long c = static_cast<long long>(S) * nb;
+  giant_part_count_kernel<<<nb, kThreads, 0, st>>>(
+      static_cast<const int*>(pos), m, B, S, nb, counts);
+  scan_levels<SumOp>(counts, offs, c, true, scan, st);
+  scan_total_kernel<<<1, 1, 0, st>>>(counts, offs, c);
+  giant_part_totals_kernel<<<1, kGiantMaxShards, 0, st>>>(
+      offs, S, nb, static_cast<int*>(totals));
+  giant_part_scatter_kernel<<<nb, kThreads, 0, st>>>(
+      static_cast<const int*>(pos), static_cast<const int*>(gs), m, B, S, nb,
+      floor_gs, offs, static_cast<int*>(out_pos), static_cast<int*>(out_gs));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// v int32 [m], stats int32 [2] (see giant_flags_kernel).
+int pss_giant_flags(const void* keys, long long m, long long off,
+                    long long pred, int has_pred, long long real_lo, void* v,
+                    void* stats, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  giant_stats_init_kernel<<<1, 1, 0, st>>>(static_cast<int*>(stats));
+  if (m > 0) {
+    long long g = grid_for(m);
+    giant_flags_kernel<<<static_cast<unsigned>(g < 4096 ? g : 4096), kThreads,
+                         0, st>>>(static_cast<const uint64_t*>(keys), m, off,
+                                  static_cast<uint64_t>(pred), has_pred,
+                                  real_lo, static_cast<int*>(v),
+                                  static_cast<int*>(stats));
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -109,13 +109,23 @@ _SIGNATURES: typing.Dict[str, list] = {
     'pss_scatter': [_P, _P, _L, _P, _P],
     # values, dests, n, out, scratch, stream
     'pss_scatter_blocked': [_P, _P, _L, _P, _P, _P],
+    # text, m, halo, h, p0, n, keys, vals, stream
+    'pss_giant_byte_keys': [_P, _L, _P, _L, _L, _L, _P, _P, _P],
+    # rank, r2, m, c, W, p0, keys, vals, stream
+    'pss_giant_round_keys': [_P, _P, _L, _L, _I, _L, _P, _P, _P],
+    # keys, vals, m, split keys, split positions, splitters, cuts, stream
+    'pss_giant_cuts': [_P, _P, _L, _P, _P, _I, _P, _P],
+    # pos, gs, m, B, S, floor, out_pos, out_gs, totals, scratch, stream
+    'pss_giant_partition': [_P, _P, _L, _L, _I, _I, _P, _P, _P, _P, _P],
+    # keys, m, off, pred, has_pred, real_lo, v, stats, stream
+    'pss_giant_flags': [_P, _L, _L, _L, _I, _L, _P, _P, _P],
 }
 
 #: Scratch sizers: pss_<name>_scratch_bytes(count) -> bytes.  Host
 #: functions; they launch nothing and are not counted.
 _SCRATCH = ('scan', 'radix_sort', 'sa_hybrid', 'sa_init', 'sa_tie',
             'sa_round', 'sa_refine', 'sa_pass', 'sa_full', 'scatter_blocked',
-            'seed_table')
+            'seed_table', 'giant_part')
 
 #: Kernel name (the C entry point without its prefix) -> launches so far.
 LAUNCHES: typing.Dict[str, int] = {

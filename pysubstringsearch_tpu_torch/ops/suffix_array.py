@@ -40,7 +40,11 @@ PyTorch version beside it:
 - :func:`sa_full_init_bytes`, :func:`sa_full_init_int` and
   :func:`sa_full_round` (B9): prefix doubling with dense ranks, the JAX
   ``_doubling_kernel`` and ``_int_doubling_kernel``, until the real slots
-  are distinct, the pad slots then written in closed form.
+  are distinct, the pad slots then written in closed form
+  (:func:`suffix_array_device` is the JAX name over it);
+- :func:`giant_byte_keys`, :func:`giant_round_keys`, :func:`giant_cuts`,
+  :func:`giant_partition` and :func:`giant_flags` (B14g): the per-shard
+  steps of B9 split over a mesh (``parallel/sharded.py``).
 
 The Writer's device build (:func:`build_suffix_array` with ``'torch'``, or
 ``'auto'`` on a CUDA card where :func:`_device_build_worthwhile` finds it
@@ -74,8 +78,8 @@ from . import kernels
 
 __all__ = ['build_suffix_array', 'derive_sa', 'derive_sa_full',
            'derive_sa_plain', 'device_rtt_estimate', 'host_device_link_mbps',
-           'segmented_rotating_sa', 'segmented_sa', 'suffix_array_int',
-           'suffix_array_numpy', 'suffix_array_torch']
+           'segmented_rotating_sa', 'segmented_sa', 'suffix_array_device',
+           'suffix_array_int', 'suffix_array_numpy', 'suffix_array_torch']
 
 
 def _doubling_numpy(rank: np.ndarray) -> np.ndarray:
@@ -1596,3 +1600,208 @@ def sa_full_doubling_int_plain(ranks: torch.Tensor, n: int) -> torch.Tensor:
     """:func:`sa_full_doubling_int` through the plain versions."""
     sa, rank, count, real = sa_full_init_int_plain(ranks, n)
     return _full_rounds(_full_key_round_plain, sa, rank, count, real, 2, n)
+
+
+def suffix_array_device(data_padded: torch.Tensor, n) -> torch.Tensor:
+    """The JAX ``suffix_array_device``: B9 (:func:`sa_full_doubling`) from
+    device to device on ``data_padded``'s own device, with no host copy:
+    int32 [N], pad-first, the SA of ``data_padded[:n]`` in ``out[N - n:]``.
+    The port writes the pad slots as [N - 1, ..., n]; the JAX kernel sorts
+    unstably and orders them otherwise, so only ``out[N - n:]`` compares
+    with it."""
+    return sa_full_doubling(data_padded, int(n))
+
+
+# ---------------------------------------------------------------------------
+# B14g: the per-shard steps of one row's B9 split over a mesh
+# ---------------------------------------------------------------------------
+#
+# ``parallel/sharded.py:make_giant_chunk_build`` runs B9 on a row whose
+# positions are split in S blocks of B = N / S, one a shard, as a sample
+# sort a round.  These kernels are its steps that no kernel above does;
+# the sorts are :func:`radix_sort_pairs`, the relabel's scan
+# :func:`scan_inclusive_max` and the rank store :func:`scatter`.
+
+#: Shards a distributed build may span (the partition's shared counts).
+GIANT_MAX_SHARDS = 256
+
+
+def giant_byte_keys_plain(text: torch.Tensor, halo: torch.Tensor, p0: int,
+                          n: int):
+    """Plain version of (a) at the init: (keys int64 [m], positions int32
+    [m]) of the block ``text`` uint8 [m] holding positions [p0, p0 + m) of
+    a row of true length ``n``, ``halo`` the (at most 5) bytes after it:
+    B9's 6-byte key (:func:`_byte_key`) of every position."""
+    m = text.shape[0]
+    ext = torch.zeros(m + BYTE_INIT_WIDTH - 1, dtype=torch.uint8,
+                      device=text.device)
+    ext[:m] = text
+    ext[m: m + halo.shape[0]] = halo
+    keys = _byte_key(ext, min(max(n - p0, 0), ext.shape[0]))[:m]
+    return keys, torch.arange(p0, p0 + m, dtype=torch.int32,
+                              device=text.device)
+
+
+def giant_byte_keys(text: torch.Tensor, halo: torch.Tensor, p0: int,
+                    n: int):
+    """(a) at the init, B14g's 6-byte keys of one shard's block (see
+    :func:`giant_byte_keys_plain`)."""
+    if not kernels.route(text, halo):
+        return giant_byte_keys_plain(text, halo, p0, n)
+    kernels.check(text, 'text', torch.uint8, 1)
+    kernels.check(halo, 'halo', torch.uint8, 1)
+    m = text.shape[0]
+    keys = torch.empty(m, dtype=torch.int64, device=text.device)
+    vals = torch.empty(m, dtype=torch.int32, device=text.device)
+    with kernels.on(text.device):
+        kernels.launch('giant_byte_keys', text.data_ptr(), m, halo.data_ptr(),
+                       halo.shape[0], int(p0), int(n), keys.data_ptr(),
+                       vals.data_ptr())
+    return keys, vals
+
+
+def giant_round_keys_plain(rank: torch.Tensor, r2: torch.Tensor, W: int,
+                           p0: int):
+    """Plain version of (a) in a round: (keys int64 [m], positions int32
+    [m]) with ``rank[i] << W | (r2[i] + 1)``, 0 in place of ``r2[i] + 1``
+    for i at or past ``r2``'s length (positions past the row)."""
+    m = rank.shape[0]
+    low = torch.zeros(m, dtype=torch.int64, device=rank.device)
+    low[: r2.shape[0]] = r2.long() + 1
+    return ((rank.long() << W) | low,
+            torch.arange(p0, p0 + m, dtype=torch.int32, device=rank.device))
+
+
+def giant_round_keys(rank: torch.Tensor, r2: torch.Tensor, W: int, p0: int):
+    """(a) in a round, B14g's doubling keys of one shard's block from its
+    group starts ``rank`` int32 [m] and the fetched ``rank[i + k]`` int32
+    [c <= m] (see :func:`giant_round_keys_plain`)."""
+    if not kernels.route(rank, r2):
+        return giant_round_keys_plain(rank, r2, W, p0)
+    kernels.check(rank, 'rank', torch.int32, 1)
+    kernels.check(r2, 'r2', torch.int32, 1)
+    m, c = rank.shape[0], r2.shape[0]
+    if c > m:
+        raise ValueError('giant_round_keys: more shifted ranks than ranks')
+    keys = torch.empty(m, dtype=torch.int64, device=rank.device)
+    vals = torch.empty(m, dtype=torch.int32, device=rank.device)
+    with kernels.on(rank.device):
+        kernels.launch('giant_round_keys', rank.data_ptr(), r2.data_ptr(), m,
+                       c, int(W), int(p0), keys.data_ptr(), vals.data_ptr())
+    return keys, vals
+
+
+def giant_cuts_plain(keys: torch.Tensor, vals: torch.Tensor,
+                     skeys: torch.Tensor, spos: torch.Tensor) -> torch.Tensor:
+    """Plain version of (b)'s cuts: int64 [s], the number of pairs of
+    (``keys``, ``vals``) below each splitter (``skeys[j]``, ``spos[j]``) in
+    (key, value) order."""
+    k, sk = keys[None, :], skeys[:, None]
+    below = (k < sk) | ((k == sk) & (vals[None, :].long()
+                                     < spos[:, None].long()))
+    return below.sum(1)
+
+
+def giant_cuts(keys: torch.Tensor, vals: torch.Tensor, skeys: torch.Tensor,
+               spos: torch.Tensor) -> torch.Tensor:
+    """(b) by splitters: where the (key, position) splitters (``skeys``
+    int64, ``spos`` int32 [s]) cut int64 ``keys`` with int32 ``vals``
+    sorted by (key, value), one binary search a splitter (see
+    :func:`giant_cuts_plain`); the pieces of a sorted shard are
+    contiguous, so nothing moves."""
+    if not kernels.route(keys, vals, skeys, spos):
+        return giant_cuts_plain(keys, vals, skeys, spos)
+    kernels.check(keys, 'keys', torch.int64, 1)
+    kernels.check(vals, 'vals', torch.int32, 1)
+    kernels.check(skeys, 'skeys', torch.int64, 1)
+    kernels.check(spos, 'spos', torch.int32, 1)
+    if vals.shape[0] != keys.shape[0] or spos.shape[0] != skeys.shape[0]:
+        raise ValueError('giant_cuts: keys and vals, or the splitters\' '
+                         'keys and positions, differ in length')
+    cuts = torch.empty(skeys.shape[0], dtype=torch.int64, device=keys.device)
+    with kernels.on(keys.device):
+        kernels.launch('giant_cuts', keys.data_ptr(), vals.data_ptr(),
+                       keys.shape[0], skeys.data_ptr(), spos.data_ptr(),
+                       skeys.shape[0], cuts.data_ptr())
+    return cuts
+
+
+def giant_partition_plain(pos: torch.Tensor, gs: torch.Tensor, floor: int,
+                          B: int, S: int):
+    """Plain version of (b) by owner: the pairs (``pos[i] - d * B``,
+    ``max(gs[i], floor)``) of owner d = ``pos[i] // B`` in a stable order
+    by owner, and the count of every owner, int32 [S]."""
+    d = torch.div(pos.long(), B, rounding_mode='floor')
+    order = torch.sort(d, stable=True).indices
+    return ((pos.long() - d * B)[order].to(torch.int32),
+            torch.clamp(gs, min=floor)[order].to(torch.int32),
+            torch.bincount(d, minlength=S).to(torch.int32))
+
+
+def giant_partition(pos: torch.Tensor, gs: torch.Tensor, floor: int, B: int,
+                    S: int):
+    """(b) by owner: int32 [m] positions and group starts partitioned
+    stably by the shard that owns each position, positions made local to
+    its block and group starts raised to ``floor`` (the group start carried
+    in from earlier shards); returns (positions, group starts, counts int32
+    [S]) (see :func:`giant_partition_plain`).  The caller's contract, as
+    :func:`scatter`'s: every position lies in [0, S * B); the card does not
+    check it."""
+    if not 1 <= S <= GIANT_MAX_SHARDS:
+        raise ValueError(f'giant_partition: 1 <= S <= {GIANT_MAX_SHARDS}, '
+                         f'got {S}')
+    if not kernels.route(pos, gs):
+        return giant_partition_plain(pos, gs, floor, B, S)
+    kernels.check(pos, 'pos', torch.int32, 1)
+    kernels.check(gs, 'gs', torch.int32, 1)
+    m = pos.shape[0]
+    if gs.shape[0] != m:
+        raise ValueError('giant_partition: pos and gs differ in length')
+    out_pos, out_gs = torch.empty_like(pos), torch.empty_like(gs)
+    totals = torch.empty(S, dtype=torch.int32, device=pos.device)
+    with kernels.on(pos.device):
+        scratch = kernels.scratch('giant_part', S, pos.device)
+        kernels.launch('giant_partition', pos.data_ptr(), gs.data_ptr(), m,
+                       int(B), int(S), int(floor), out_pos.data_ptr(),
+                       out_gs.data_ptr(), totals.data_ptr(),
+                       scratch.data_ptr())
+    return out_pos, out_gs, totals
+
+
+def giant_flags_plain(keys: torch.Tensor, off: int, pred: int,
+                      has_pred: bool, real_lo: int):
+    """Plain version of (c): (v int32 [m], stats int32 [2]) with ``v[i] =
+    off + i`` where ``keys[i]`` differs from its predecessor (``pred`` for
+    i = 0, none when not ``has_pred``), else -1; ``stats`` the largest
+    such slot (-1 if none) and how many of them are at or past
+    ``real_lo``."""
+    m = keys.shape[0]
+    f = torch.ones(m, dtype=torch.bool, device=keys.device)
+    f[1:] = keys[1:] != keys[:-1]
+    if m and has_pred:
+        f[0] = bool(keys[0] != pred)
+    slots = off + torch.arange(m, device=keys.device)
+    v = torch.where(f, slots, -1).to(torch.int32)
+    best = int(v.max()) if m else -1
+    real = int((f & (slots >= real_lo)).sum())
+    return v, torch.tensor([best, real], dtype=torch.int32,
+                           device=keys.device)
+
+
+def giant_flags(keys: torch.Tensor, off: int, pred: int, has_pred: bool,
+                real_lo: int):
+    """(c), the relabel's group-start candidates of a shard's sorted keys
+    at global slots [off, off + m), with the predecessor key carried in
+    (see :func:`giant_flags_plain`); :func:`scan_inclusive_max` of ``v``
+    gives every slot its group start, up to the carry."""
+    if not kernels.route(keys):
+        return giant_flags_plain(keys, off, pred, has_pred, real_lo)
+    kernels.check(keys, 'keys', torch.int64, 1)
+    m = keys.shape[0]
+    v = torch.empty(m, dtype=torch.int32, device=keys.device)
+    stats = torch.empty(2, dtype=torch.int32, device=keys.device)
+    with kernels.on(keys.device):
+        kernels.launch('giant_flags', keys.data_ptr(), m, int(off), int(pred),
+                       int(bool(has_pred)), int(real_lo), v.data_ptr(),
+                       stats.data_ptr())
+    return v, stats

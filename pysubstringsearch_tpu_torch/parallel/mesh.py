@@ -15,6 +15,11 @@ C / size)``.  Collectives go over the mesh's group (NCCL for CUDA tensors,
 gloo for CPU tensors, as the group was made); without an initialised
 ``torch.distributed`` the mesh is a world of one and they are the
 identity.
+
+One row split over every placement (``make_giant_chunk_build``) holds its
+shards as :func:`shard_places` lists them, and moves data between them
+with :func:`exchange_runs` (an all-to-all with split sizes) and
+:func:`gather_shards` (small per-shard tensors to every process).
 """
 
 from __future__ import annotations
@@ -122,3 +127,85 @@ def all_reduce_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     if mesh.distributed:
         dist.all_reduce(x, op=dist.ReduceOp.SUM, group=mesh.group)
     return x
+
+
+def shard_places(mesh: Mesh) -> typing.List[typing.Tuple[int, torch.device]]:
+    """The (shard, device) pairs this process holds of a program that
+    splits one array over every placement of the mesh, shard s owning its
+    s-th block: all of them on a one-process mesh (shard s on
+    ``devices[s]``, which may all be one card), or shard ``rank`` on this
+    rank's device over a group of ranks with one placement each.  A mesh
+    of several ranks with several placements each raises."""
+    if mesh.distributed and len(mesh.devices) == 1:
+        return [(mesh.rank, mesh.devices[0])]
+    if mesh.world == 1:
+        return list(enumerate(mesh.devices))
+    raise ValueError(
+        f'a mesh of {mesh.world} ranks with {len(mesh.devices)} placements '
+        'each: a program over every placement takes one rank with several, '
+        'or ranks with one each'
+    )
+
+
+def _by_collectives(mesh: Mesh) -> bool:
+    return mesh.distributed and len(mesh.devices) == 1
+
+
+def exchange_runs(sends: typing.Sequence[typing.Sequence[torch.Tensor]],
+                  counts: typing.Sequence[typing.Sequence[int]],
+                  mesh: Mesh):
+    """All-to-all between the shards of :func:`shard_places`: ``sends[j]``
+    holds local shard j's 1-D tensors (several of one length, moved
+    alike), each the runs for shards 0..S-1 in order, ``counts[j][t]``
+    elements for shard t.  Returns (``recvs``, ``recv_counts``):
+    ``recvs[j]`` local shard j's tensors, the runs it received from shards
+    0..S-1 concatenated in that order, on its device, and
+    ``recv_counts[j][s]`` their lengths.  Over ranks the counts go first,
+    then each tensor by ``all_to_all_single`` with split sizes (zeros
+    included); between the placements of one process each run is a device
+    copy."""
+    if _by_collectives(mesh):
+        (send,), (cnt,) = sends, counts
+        dev = mesh.devices[0]
+        mine = torch.tensor([int(c) for c in cnt], dtype=torch.int64,
+                            device=dev)
+        theirs = torch.empty_like(mine)
+        dist.all_to_all_single(theirs, mine, group=mesh.group)
+        rcnt = theirs.tolist()
+        outs = []
+        for x in send:
+            out = x.new_empty(sum(rcnt))
+            dist.all_to_all_single(out, x.contiguous(), rcnt,
+                                   [int(c) for c in cnt], group=mesh.group)
+            outs.append(out)
+        return [tuple(outs)], [rcnt]
+    places = shard_places(mesh)
+    starts = []
+    for cnt in counts:
+        acc, st = 0, []
+        for c in cnt:
+            st.append(acc)
+            acc += int(c)
+        starts.append(st)
+    recvs, rcounts = [], []
+    for t, dev in places:
+        rc = [int(counts[s][t]) for s in range(len(places))]
+        recvs.append(tuple(
+            torch.cat([sends[s][q][starts[s][t]: starts[s][t] + rc[s]].to(dev)
+                       for s in range(len(places))])
+            for q in range(len(sends[0]))))
+        rcounts.append(rc)
+    return recvs, rcounts
+
+
+def gather_shards(xs: typing.Sequence[torch.Tensor],
+                  mesh: Mesh) -> torch.Tensor:
+    """[S, ...] on the CPU, on every process: each shard's small tensor of
+    one shape (``xs[j]`` local shard j's), in shard order."""
+    if _by_collectives(mesh):
+        (x,) = xs
+        x = x.contiguous()
+        out = [torch.empty_like(x) for _ in range(mesh.world)]
+        dist.all_gather(out, x, group=mesh.group)
+        return torch.stack(out).cpu()
+    return torch.stack([x.cpu() for x in xs])

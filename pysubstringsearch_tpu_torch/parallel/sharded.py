@@ -16,8 +16,11 @@ lengths replicated), host arrays or tensors, moves this rank's contiguous
 block of rows to its device, and returns what the JAX ``out_specs`` give:
 this rank's block (``P(CHUNK_AXIS)``) or the gathered result, the same on
 every rank (``P()``).  C must split evenly over the ranks
-(:func:`~.mesh.pad_chunk_count`).  ``make_giant_chunk_build``, one row's
-build spread over every rank, is not ported yet.
+(:func:`~.mesh.pad_chunk_count`).
+
+:func:`make_giant_chunk_build` (B14g) builds ONE row's suffix array with
+its positions split over every placement of the mesh: B9 as a sample sort
+a round (see :class:`_GiantBuild`).
 """
 
 from __future__ import annotations
@@ -28,8 +31,32 @@ import numpy as np
 import torch
 
 from ..ops.search import probe_bytes
-from ..ops.suffix_array import sa_full_doubling, sa_roll_front
-from .mesh import Mesh, all_gather_rows, all_reduce_sum, rank_rows
+from ..ops.suffix_array import (
+    BYTE_INIT_WIDTH,
+    BYTE_KEY_BITS,
+    GIANT_MAX_SHARDS,
+    _check_width,
+    _key_width,
+    giant_byte_keys,
+    giant_cuts,
+    giant_flags,
+    giant_partition,
+    giant_round_keys,
+    radix_sort_pairs,
+    sa_full_doubling,
+    sa_roll_front,
+    scan_inclusive_max,
+    scatter,
+)
+from .mesh import (
+    Mesh,
+    all_gather_rows,
+    all_reduce_sum,
+    exchange_runs,
+    gather_shards,
+    rank_rows,
+    shard_places,
+)
 
 
 def build_chunks(text: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
@@ -117,3 +144,257 @@ def make_full_step(mesh: Mesh) -> typing.Callable:
         return bounds, totals
 
     return step
+
+
+class _GiantBuild:
+    """One call of :func:`make_giant_chunk_build`: B9 (the JAX
+    ``_doubling_kernel``) on a padded uint8 [N] row whose positions are
+    split in S = ``mesh.size`` blocks of B = N / S, shard s owning [s * B,
+    (s + 1) * B), as a sample sort a round over the shards.
+
+    1. Init: B9's 6-byte key of each block's positions (kernel (a),
+       :func:`giant_byte_keys`), from the block's text and the 5 bytes
+       after it, fetched from the shards that hold them.
+    2. A round at k: the shifted ranks ``rank[i + k]`` of a block lie in
+       at most two shards, fetched with one exchange whose other split
+       sizes are 0 (none past N: they key as 0); the key ``rank[i] << W |
+       (rank[i + k] + 1)`` (kernel (a), :func:`giant_round_keys`), W =
+       bit_length(N) bits each, ranks being group starts (the slot of the
+       group's first member).
+    3. Sort every shard's (key, position) pairs locally
+       (:func:`radix_sort_pairs`, stable, so equal keys stay in position
+       order); S - 1 regular samples a shard, gathered; every (S - 1)-th
+       of the sorted samples is a splitter.  The splitters are (key,
+       position) pairs, so a run of equal keys (every early round of
+       ``abab...``) can span shards; with regular sampling no shard then
+       receives more than 2B + S pairs (``stats['max_recv']`` against
+       ``stats['recv_bound']``).
+    4. Cut every sorted shard at the splitters (kernel (b),
+       :func:`giant_cuts`), exchange the pieces and sort the S received
+       runs stably by key: source order is position order, so the shard
+       ends in (key, position) order.
+    5. Relabel: a slot starts a group where its key differs from its
+       predecessor's, for a shard's first slot the last key of the nearest
+       non-empty earlier shard (kernel (c), :func:`giant_flags`); a max
+       scan (:func:`scan_inclusive_max`) gives every slot its group start,
+       up to the one carried in from earlier shards.  The build stops when
+       the real slots (the last n) are all group starts, B9's settled
+       stop, or at k >= N.
+    6. Otherwise each (position, group start) pair goes home, partitioned
+       by owner (kernel (b), :func:`giant_partition`, which also adds the
+       carry) and stored into the owner's rank block (:func:`scatter`).
+    7. Finish: the sorted positions rebalanced into blocks of B, the pad
+       slots written in closed form, [N - 1, ..., n].
+
+    No step gathers the row on one shard.  Counts, splitters and
+    per-shard summaries cross on the host; the pairs stay on the devices.
+    """
+
+    def __init__(self, mesh: Mesh, places, text: torch.Tensor, n: int):
+        if text.dim() != 1:
+            raise ValueError('make_giant_chunk_build: the row must be 1-D, '
+                             f'got shape {tuple(text.shape)}')
+        N, S = text.shape[0], mesh.size
+        if N % S:
+            raise ValueError(f'make_giant_chunk_build: a row of {N} slots '
+                             f'does not split over {S} shards')
+        if not 0 <= n <= N:
+            raise ValueError(f'make_giant_chunk_build: need 0 <= n <= N, '
+                             f'got n={n}, N={N}')
+        self.W = _key_width(N)
+        _check_width(N, self.W)
+        self.mesh, self.places = mesh, places
+        self.N, self.n, self.S, self.B = N, n, S, N // S
+        B = self.B
+        self.text = [text[s * B: (s + 1) * B].to(dev, torch.uint8)
+                     .contiguous() for s, dev in places]
+        self.rank: typing.List[torch.Tensor] = []
+        self.stats = {'shards': S, 'block': B, 'rounds': 0, 'max_recv': [],
+                      'recv_bound': 2 * B + S}
+
+    def _fetch(self, blocks, k: int, length: int) -> typing.List[torch.Tensor]:
+        """Each local shard s's values at positions [s * B + k, s * B + k +
+        length), cut at N, of the array held as ``blocks``: one exchange,
+        each holder sending the part of its block in each window."""
+        N, B, S = self.N, self.B, self.S
+        sends, counts = [], []
+        for (t, _), blk in zip(self.places, blocks):
+            cnt, pieces = [], []
+            for s in range(S):
+                a = s * B + k
+                lo, hi = max(a, t * B), min(a + length, N, (t + 1) * B)
+                cnt.append(max(hi - lo, 0))
+                if lo < hi:
+                    pieces.append((lo - t * B, hi - t * B))
+            if not pieces:
+                send = blk[:0]
+            elif all(p[1] == q[0] for p, q in zip(pieces, pieces[1:])):
+                send = blk[pieces[0][0]: pieces[-1][1]]
+            else:  # overlapping windows: blocks shorter than the halo
+                send = torch.cat([blk[a:b] for a, b in pieces])
+            sends.append((send,))
+            counts.append(cnt)
+        return [r[0] for r in exchange_runs(sends, counts, self.mesh)[0]]
+
+    def _splits(self, keys, vals) -> typing.List[typing.List[int]]:
+        """Every local shard's sorted pairs cut at the S - 1 splitters:
+        the counts it sends to shards 0..S-1."""
+        S, B = self.S, self.B
+        if S == 1:
+            return [[kk.shape[0]] for kk in keys]
+        pick = torch.tensor([r * B // S for r in range(1, S)])
+        samples = [torch.stack([kk[pick.to(kk.device)],
+                                vv[pick.to(vv.device)].long()], 1)
+                   for kk, vv in zip(keys, vals)]
+        g = gather_shards(samples, self.mesh).reshape(-1, 2).numpy()
+        g = g[np.lexsort((g[:, 1], g[:, 0]))][S - 2::S - 1][:S - 1]
+        counts = []
+        for (_, dev), kk, vv in zip(self.places, keys, vals):
+            cuts = giant_cuts(
+                kk, vv, torch.from_numpy(g[:, 0].copy()).to(dev),
+                torch.from_numpy(g[:, 1].astype(np.int32)).to(dev)).tolist()
+            edges = [0] + cuts + [kk.shape[0]]
+            counts.append([edges[d + 1] - edges[d] for d in range(S)])
+        return counts
+
+    def _sort_relabel(self, keys: list, vals: list, bits: int):
+        """Steps 3-5 on the local shards' (key, position) pairs, which the
+        lists give up: (sorted positions, group starts, carried-in group
+        starts, real group starts, global offsets, pairs a shard)."""
+        for kk, vv in zip(keys, vals):
+            radix_sort_pairs(kk, vv, bits)
+        counts = self._splits(keys, vals)
+        sends = list(zip(keys, vals))
+        keys.clear()
+        vals.clear()
+        recvs = exchange_runs(sends, counts, self.mesh)[0]
+        del sends
+        metas = []
+        for (_, dev), (kk, vv) in zip(self.places, recvs):
+            radix_sort_pairs(kk, vv, bits)
+            meta = torch.full((2,), -1, dtype=torch.int64, device=dev)
+            meta[0] = kk.shape[0]
+            if kk.shape[0]:
+                meta[1] = kk[-1]
+            metas.append(meta)
+        meta = gather_shards(metas, self.mesh).tolist()
+        sizes = [m for m, _ in meta]
+        offs = [sum(sizes[:s]) for s in range(self.S)]
+        self.stats['max_recv'].append(max(sizes))
+        pos, gs, sts = [], [], []
+        while recvs:
+            kk, vv = recvs.pop(0)
+            s = self.places[len(pos)][0]
+            pred = next((meta[i][1] for i in range(s - 1, -1, -1) if sizes[i]),
+                        None)
+            v, st = giant_flags(kk, offs[s], 0 if pred is None else pred,
+                                pred is not None, self.N - self.n)
+            del kk
+            sts.append(st)
+            gs.append(scan_inclusive_max(v) if v.shape[0] else v)
+            pos.append(vv)
+            del v, vv
+        st = gather_shards(sts, self.mesh).tolist()
+        carries = [max([-1] + [last for last, _ in st[:s]])
+                   for s, _ in self.places]
+        return pos, gs, carries, sum(r for _, r in st), offs, sizes
+
+    def _send_home(self, pos: list, gs: list, carries) -> None:
+        """Step 6: every (position, group start) pair into its owner's rank
+        block; the lists are given up."""
+        sends, counts = [], []
+        for c in carries:
+            p, g, tot = giant_partition(pos.pop(0), gs.pop(0), c, self.B,
+                                        self.S)
+            sends.append((p, g))
+            counts.append(tot.tolist())
+            del p, g
+        recvs = exchange_runs(sends, counts, self.mesh)[0]
+        del sends
+        for (p, g), rank in zip(recvs, self.rank):
+            scatter(g, p, out=rank)
+
+    def _finish(self, pos: list, offs, sizes) -> torch.Tensor:
+        """Step 7: this process's slots of sa_full, on its first
+        placement."""
+        N, B, S, n = self.N, self.B, self.S, self.n
+        sends, counts = [], []
+        for s, _ in self.places:
+            lo, hi = offs[s], offs[s] + sizes[s]
+            counts.append([max(min(hi, (t + 1) * B) - max(lo, t * B), 0)
+                           for t in range(S)])
+            sends.append((pos.pop(0),))
+        recvs = exchange_runs(sends, counts, self.mesh)[0]
+        del sends
+        blocks = []
+        for (t, dev), (blk,) in zip(self.places, recvs):
+            c = min(max(N - n - t * B, 0), B)
+            if c:
+                top = N - 1 - t * B
+                blk[:c] = torch.arange(top, top - c, -1, dtype=torch.int32,
+                                       device=dev)
+            blocks.append(blk)
+        if len(blocks) == 1:
+            return blocks[0]
+        first = self.places[0][1]
+        return torch.cat([b.to(first) for b in blocks])
+
+    def run(self) -> torch.Tensor:
+        B, n, W = self.B, self.n, self.W
+        halo = self._fetch(self.text, B, BYTE_INIT_WIDTH - 1)
+        keys, vals = [], []
+        for (s, _), t, h in zip(self.places, self.text, halo):
+            kk, vv = giant_byte_keys(t, h, s * B, n)
+            keys.append(kk)
+            vals.append(vv)
+            del kk, vv
+        del halo
+        pos, gs, carries, real, offs, sizes = self._sort_relabel(
+            keys, vals, BYTE_KEY_BITS)
+        self.rank = [torch.empty(B, dtype=torch.int32, device=dev)
+                     for _, dev in self.places]
+        k = BYTE_INIT_WIDTH
+        while k < self.N and real < n:
+            self._send_home(pos, gs, carries)
+            r2 = self._fetch(self.rank, k, B)
+            for (s, _), rank in zip(self.places, self.rank):
+                kk, vv = giant_round_keys(rank, r2.pop(0), W, s * B)
+                keys.append(kk)
+                vals.append(vv)
+                del kk, vv
+            pos, gs, carries, real, offs, sizes = self._sort_relabel(
+                keys, vals, 2 * W)
+            self.stats['rounds'] += 1
+            k *= 2
+        del gs
+        self.rank = []
+        return self._finish(pos, offs, sizes)
+
+
+def make_giant_chunk_build(mesh: Mesh) -> typing.Callable:
+    """B14g: ``(text_padded [N] uint8, n) -> sa_full``, the SA build of ONE
+    row with its positions split over every placement of ``mesh``, for a
+    row whose build working set exceeds one device.  It computes exactly
+    :func:`~..ops.suffix_array.suffix_array_device`: pad-first, [N - 1,
+    ..., n] then the SA of ``text_padded[:n]``.  The row comes as a host
+    array or a tensor, whole, on every rank; each process gets its
+    contiguous N / world slots of ``sa_full`` on its first placement (a
+    one-process mesh all [N]), as the JAX ``P(CHUNK_AXIS)`` out-sharding
+    gives them.  The mesh is one process with S placements (which may
+    all be one card) or S ranks with one placement each; S must divide N.
+    The callable's ``stats`` describe its last call: ``rounds`` after the
+    init, ``max_recv`` (the most pairs a shard received, per sort) and
+    ``recv_bound`` (2B + S).  See :class:`_GiantBuild`."""
+    places = shard_places(mesh)
+    if mesh.size > GIANT_MAX_SHARDS:
+        raise ValueError(f'make_giant_chunk_build: at most '
+                         f'{GIANT_MAX_SHARDS} shards, the mesh has '
+                         f'{mesh.size}')
+
+    def build(text_padded, n):
+        job = _GiantBuild(mesh, places, _tensor(text_padded), int(n))
+        build.stats = job.stats
+        return job.run()
+
+    build.stats = {}
+    return build

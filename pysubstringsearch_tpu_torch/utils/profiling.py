@@ -1,4 +1,4 @@
-"""Structured per-phase wall-clock timing.
+"""Structured per-phase wall-clock timing, and device traces.
 
 Usage:
 
@@ -10,12 +10,16 @@ Usage:
 Timings are host wall clock.  A phase that launches device work must end
 in ``torch.cuda.synchronize()`` (or a host readback) inside the phase, or it
 measures only the enqueue.
+
+``with trace_to(log_dir): ...`` records a block with ``torch.profiler``
+and writes its Chrome trace into ``log_dir``.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import os
 import threading
 import time
 import typing
@@ -50,3 +54,33 @@ class PhaseProfiler:
                 f'  x{self.counts[name]}'
             )
         return '\n'.join(lines)
+
+
+@contextlib.contextmanager
+def trace_to(log_dir: str):
+    """Trace the block with ``torch.profiler`` (the JAX package's
+    ``jax.profiler`` trace): CPU activity always, CUDA kernels too when a
+    CUDA device is present.  On exit, also after an error, it writes one
+    Chrome trace file (``chrome://tracing``, Perfetto) into ``log_dir``,
+    made if missing, and yields the profiler for ``key_averages()``.
+    Kernels that are still running at exit are recorded only if the block
+    ends in ``torch.cuda.synchronize()``.  In a long process the profiler
+    can drop the kernels of its later sessions (G7): trace early, or read
+    device time from CUDA events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    # acc_events: the profiler may flush its buffers mid-block and would
+    # then keep only the events after the last flush.
+    prof = profile(activities=activities, acc_events=True)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(
+            log_dir, f'trace-{os.getpid()}-{time.time_ns()}.json'))

@@ -1623,3 +1623,116 @@ def test_anchored_inits_on_offset_views(cuda, name):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# ---- B14g: one row's B9 split over a mesh ---------------------------------
+
+def _giant_launches():
+    return {k: kernels.LAUNCHES[k] for k in (
+        'giant_byte_keys', 'giant_round_keys', 'giant_cuts',
+        'giant_partition', 'giant_flags')}
+
+
+@pytest.mark.parametrize('S', [4, 8])
+def test_giant_kernels_match_plain(cuda, S):
+    """Kernels (a)-(c) of B14g against their plain versions on 2^24 keys:
+    the byte and round keys of the first and last shard of a 2^24 row (the
+    last one's halo and shifted ranks cut at the row's end), the cuts of a
+    sorted shard at S - 1 (key, position) splitters, the partition by owner
+    of 2^24 (position, group start) pairs, and the flags of 2^24 sorted
+    keys with ties, with and without a predecessor."""
+    N = 1 << 24
+    n = N - 1000
+    B = N // S
+    rng = np.random.default_rng(S)
+    row = torch.zeros(N, dtype=torch.uint8, device=cuda)
+    row[:n] = torch.from_numpy(_body('ranked', n, S)).to(cuda)
+    for s in (0, S - 1):
+        text = row[s * B: (s + 1) * B]
+        halo = row[(s + 1) * B: (s + 1) * B + 5]
+        got = SA.giant_byte_keys(text, halo, s * B, n)
+        want = SA.giant_byte_keys_plain(text, halo, s * B, n)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        rank = torch.from_numpy(rng.integers(0, N, size=B).astype(
+            np.int32)).to(cuda)
+        r2 = rank[: B - 777 * s].flip(0).contiguous()
+        got = SA.giant_round_keys(rank, r2, 25, s * B)
+        want = SA.giant_round_keys_plain(rank, r2, 25, s * B)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    keys, vals = SA.giant_round_keys(rank, r2, 25, (S - 1) * B)
+    keys = keys >> 20  # ties
+    SA.radix_sort_pairs(keys, vals, 50)
+    pick = torch.randint(0, B, (S - 1,), device=cuda)
+    skeys, spos = keys[pick].sort().values, vals[pick] + 1
+    cuts = SA.giant_cuts(keys, vals, skeys, spos)
+    assert torch.equal(cuts, SA.giant_cuts_plain(keys, vals, skeys, spos))
+    m = 1 << 24
+    pos = torch.randperm(N, device=cuda)[:m].to(torch.int32)
+    gs = torch.randint(-1, N, (m,), device=cuda, dtype=torch.int32)
+    got = SA.giant_partition(pos, gs, 12345, B, S)
+    want = SA.giant_partition_plain(pos, gs, 12345, B, S)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    keys = torch.sort(torch.randint(0, 1 << 22, (m,), device=cuda)).values
+    for has_pred, pred in ((False, 0), (True, int(keys[0])),
+                           (True, int(keys[0]) - 1)):
+        got = SA.giant_flags(keys, 777, pred, has_pred, 777 + m // 3)
+        want = SA.giant_flags_plain(keys, 777, pred, has_pred, 777 + m // 3)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize('case', ['ranked_8mib', 'period2', 'n_eq_N',
+                                  'tiny'])
+def test_giant_build_on_one_card(cuda, case):
+    """B14g on four placements of one card (eight for the tiny row) equals
+    B9 (``sa_full_doubling``) on the card, pad slots included, and
+    launches every kernel of its path."""
+    from pysubstringsearch_tpu_torch.parallel import mesh as M
+    from pysubstringsearch_tpu_torch.parallel import sharded
+
+    data = {'ranked_8mib': lambda: _body('ranked', (8 << 20) - 300, 5),
+            'period2': lambda: np.frombuffer(b'ab' * (1 << 18), np.uint8),
+            'n_eq_N': lambda: _body('raw', 1 << 16, 6),
+            'tiny': lambda: np.frombuffer(b'abaab', np.uint8)}[case]()
+    n = data.size
+    N = _pad_len(n) if case != 'tiny' else 8
+    text = torch.zeros(N, dtype=torch.uint8, device=cuda)
+    text[:n] = torch.from_numpy(data.copy()).to(cuda)
+    S = 8 if case == 'tiny' else 4
+    build = sharded.make_giant_chunk_build(M.make_mesh(['cuda:0'] * S))
+    before = _giant_launches()
+    got = build(text, n)
+    after = _giant_launches()
+    assert got.device == text.device and got.shape == (N,)
+    assert torch.equal(got, SA.sa_full_doubling(text, n))
+    for name in after:  # a row settled by the init sends no ranks home
+        if build.stats['rounds'] or name not in ('giant_round_keys',
+                                                 'giant_partition'):
+            assert after[name] > before[name], name
+    assert max(build.stats['max_recv']) <= build.stats['recv_bound']
+    if case == 'ranked_8mib':
+        assert np.array_equal(got[N - n:].cpu().numpy(),
+                              suffix_array_native(data))
+
+
+def test_trace_to_records_the_probe_kernel(cuda, tmp_path):
+    """``trace_to`` around one ``DeviceIndex.probe`` writes a trace that
+    names the probe's kernel."""
+    import glob
+    import json
+
+    from pysubstringsearch_tpu_torch.utils.profiling import trace_to
+
+    bodies = [_body('ranked', 30_000, 3)]
+    chunks = [Chunk(data=b, suffix_array=suffix_array_numpy(b))
+              for b in bodies]
+    idx = DeviceIndex(chunks, device=cuda, mode='derive')
+    packed, lengths = S.pack_patterns(_patterns(bodies, 4, 50))
+    idx.probe(packed, lengths)
+    torch.cuda.synchronize()
+    with trace_to(str(tmp_path)):
+        idx.probe(packed, lengths)
+        torch.cuda.synchronize()
+    (path,) = glob.glob(str(tmp_path / '*.json'))
+    with open(path) as f:
+        names = {e.get('name', '') for e in json.load(f)['traceEvents']}
+    assert any('probe_phased' in name for name in names), sorted(names)[:50]

@@ -1,0 +1,454 @@
+"""The last modules of the port on the CPU against the JAX package and a
+numpy ground truth: ``make_giant_chunk_build`` (B14g, one row's B9 split
+over a mesh: 8 CPU placements in one process and two gloo ranks), the
+plain versions of its kernels, ``suffix_array_device``, ``trace_to`` and
+the package's type stubs."""
+
+import ast
+import glob
+import inspect
+import json
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import pysubstringsearch_tpu_torch as tpss
+from pysubstringsearch_tpu.ops import suffix_array as jsa
+from pysubstringsearch_tpu.parallel import mesh as jmesh
+from pysubstringsearch_tpu.parallel import sharded as jsharded
+from pysubstringsearch_tpu_torch.ops import suffix_array as SA
+from pysubstringsearch_tpu_torch.parallel import mesh as tmesh
+from pysubstringsearch_tpu_torch.parallel import sharded as tsharded
+from pysubstringsearch_tpu_torch.utils.profiling import trace_to
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _jax_case():
+    """``tests/test_sharded.py``'s giant-chunk case: seed 7, n = 5000 bytes
+    of 97-104 in a row of N = 8192."""
+    rng = np.random.default_rng(7)
+    n, N = 5000, 8192
+    data = rng.integers(97, 105, size=n, dtype=np.uint8)
+    padded = np.zeros(N, np.uint8)
+    padded[:n] = data
+    return data, padded, n, N
+
+
+def _padded(data, N):
+    out = np.zeros(N, np.uint8)
+    out[: len(data)] = data
+    return out
+
+
+def _check_sa_full(sa_full, data, N):
+    n = len(data)
+    want = SA.suffix_array_numpy(data) if n else np.zeros(0, np.int32)
+    np.testing.assert_array_equal(sa_full[N - n:], want)
+    np.testing.assert_array_equal(sa_full[: N - n],
+                                  np.arange(N - 1, n - 1, -1))
+
+
+def _texts():
+    rng = np.random.default_rng(11)
+    return {
+        'random': (rng.integers(97, 101, size=200, dtype=np.uint8), 256),
+        'one_byte': (np.full(250, ord('a'), np.uint8), 256),
+        'period2': (np.frombuffer(b'ab' * 125, np.uint8), 256),
+        'period3': (np.frombuffer((b'abc' * 84)[:250], np.uint8), 256),
+        'n0': (np.zeros(0, np.uint8), 16),
+        'n1': (np.array([7], np.uint8), 16),
+        'n_eq_N': (rng.integers(0, 4, size=64, dtype=np.uint8), 64),
+        'short_blocks': (rng.integers(97, 99, size=13, dtype=np.uint8), 16),
+    }
+
+
+TEXTS = _texts()
+
+
+def test_giant_build_matches_jax_on_eight_placements():
+    """B14g on a one-process mesh of 8 CPU placements against the JAX
+    ``make_giant_chunk_build`` on conftest's 8-device CPU mesh: the real
+    slots equal, the pad slots [N - 1, ..., n] (the JAX kernel orders its
+    pad slots otherwise)."""
+    data, padded, n, N = _jax_case()
+    want = np.asarray(jsharded.make_giant_chunk_build(jmesh.make_mesh())(
+        padded, np.int32(n)))
+    build = tsharded.make_giant_chunk_build(tmesh.make_mesh(['cpu'] * 8))
+    got = build(padded, np.int32(n))
+    assert got.dtype == torch.int32 and got.shape == (N,)
+    np.testing.assert_array_equal(got.numpy()[N - n:], want[N - n:])
+    np.testing.assert_array_equal(got.numpy()[: N - n],
+                                  np.arange(N - 1, n - 1, -1))
+    assert build.stats['shards'] == 8 and build.stats['block'] == N // 8
+    assert max(build.stats['max_recv']) <= build.stats['recv_bound']
+
+
+@pytest.mark.parametrize('S', [1, 2, 4, 8])
+@pytest.mark.parametrize('name', sorted(TEXTS))
+def test_giant_build_matches_numpy(name, S):
+    """Every text at every mesh size against ``suffix_array_numpy``, the
+    pad slots in closed form, and no shard receiving more than 2B + S
+    pairs in any sort."""
+    data, N = TEXTS[name]
+    build = tsharded.make_giant_chunk_build(tmesh.make_mesh(['cpu'] * S))
+    got = build(torch.from_numpy(_padded(data, N)), len(data))
+    _check_sa_full(got.numpy(), data, N)
+    st = build.stats
+    assert st['recv_bound'] == 2 * (N // S) + S
+    assert len(st['max_recv']) == st['rounds'] + 1
+    assert max(st['max_recv']) <= st['recv_bound'], st
+
+
+@pytest.mark.parametrize('name', ['random', 'period2', 'one_byte'])
+def test_giant_build_runs_b9s_rounds(name, monkeypatch):
+    """The distributed build stops where B9 does: as many rounds after the
+    init as ``sa_full_doubling_plain`` runs, counted by a spy."""
+    data, N = TEXTS[name]
+    calls = []
+    real = SA._full_key_round_plain
+
+    def spy(*args, **kwargs):
+        calls.append(args[2])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(SA, '_full_key_round_plain', spy)
+    text = torch.from_numpy(_padded(data, N))
+    want = SA.sa_full_doubling_plain(text, len(data))
+    build = tsharded.make_giant_chunk_build(tmesh.make_mesh(['cpu'] * 4))
+    got = build(text, len(data))
+    assert torch.equal(got, want)
+    assert build.stats['rounds'] == len(calls) > 0
+
+
+def test_giant_build_takes_tensors_and_host_arrays():
+    data, padded, n, N = _jax_case()
+    build = tsharded.make_giant_chunk_build(tmesh.make_mesh('cpu'))
+    ro = padded.copy()
+    ro.setflags(write=False)
+    a = build(ro, n)
+    b = build(torch.from_numpy(padded), torch.tensor(n))
+    assert torch.equal(a, b)
+    _check_sa_full(a.numpy(), data, N)
+
+
+def test_giant_build_errors():
+    build = tsharded.make_giant_chunk_build(tmesh.make_mesh(['cpu'] * 8))
+    with pytest.raises(ValueError, match='does not split'):
+        build(np.zeros(12, np.uint8), 4)
+    with pytest.raises(ValueError, match='0 <= n <= N'):
+        build(np.zeros(16, np.uint8), 17)
+    with pytest.raises(ValueError, match='0 <= n <= N'):
+        build(np.zeros(16, np.uint8), -1)
+    with pytest.raises(ValueError, match='1-D'):
+        build(np.zeros((2, 8), np.uint8), 4)
+    mixed = tmesh.Mesh((torch.device('cpu'),) * 2, None, 0, 2, True)
+    with pytest.raises(ValueError, match='placements'):
+        tsharded.make_giant_chunk_build(mixed)
+    with pytest.raises(ValueError, match='at most'):
+        tsharded.make_giant_chunk_build(tmesh.make_mesh(['cpu'] * 257))
+    with pytest.raises(ValueError, match='S <='):
+        SA.giant_partition(torch.zeros(1, dtype=torch.int32),
+                           torch.zeros(1, dtype=torch.int32), 0, 1, 0)
+
+
+def test_shard_places_and_exchange():
+    """Shards of a one-process mesh exchange runs by device copies, in
+    source order, zero-length runs included; small tensors gather in shard
+    order."""
+    mesh = tmesh.make_mesh(['cpu'] * 3)
+    assert [s for s, _ in tmesh.shard_places(mesh)] == [0, 1, 2]
+    sends = [(torch.arange(4) + 10 * j, torch.arange(4) * -1 - 10 * j)
+             for j in range(3)]
+    counts = [[1, 0, 3], [2, 2, 0], [0, 0, 4]]
+    recvs, rcounts = tmesh.exchange_runs(sends, counts, mesh)
+    assert rcounts == [[1, 2, 0], [0, 2, 0], [3, 0, 4]]
+    assert recvs[0][0].tolist() == [0, 10, 11]
+    assert recvs[1][0].tolist() == [12, 13]
+    assert recvs[2][0].tolist() == [1, 2, 3, 20, 21, 22, 23]
+    assert recvs[2][1].tolist() == [-1, -2, -3, -20, -21, -22, -23]
+    g = tmesh.gather_shards([torch.tensor([j, -j]) for j in range(3)], mesh)
+    assert g.tolist() == [[0, 0], [1, -1], [2, -2]]
+
+
+# ---- the plain versions of kernels (a)-(c) against numpy ------------------
+
+def _np_byte_keys(row, n):
+    N = row.size
+    e = np.where(np.arange(N) < n, row.astype(np.int64) + 1, 0)
+    ext = np.concatenate([e, np.zeros(6, np.int64)])
+    limbs = [np.zeros(N, np.int64), np.zeros(N, np.int64)]
+    for d in range(6):
+        limbs[d // 3] = limbs[d // 3] * 257 + ext[d: d + N]
+    return (limbs[0] << 25) | limbs[1]
+
+
+@pytest.mark.parametrize('S', [1, 3, 8])
+@pytest.mark.parametrize('n', [0, 1, 37, 60, 64])
+def test_byte_keys_plain(S, n):
+    rng = np.random.default_rng(n + S)
+    N = 64 if S != 3 else 63
+    n = min(n, N)
+    row = rng.integers(0, 256, size=N, dtype=np.uint8)
+    want = _np_byte_keys(row, n)
+    B = N // S
+    for s in range(S):
+        text = torch.from_numpy(row[s * B: (s + 1) * B].copy())
+        halo = torch.from_numpy(row[(s + 1) * B: (s + 1) * B + 5].copy())
+        keys, vals = SA.giant_byte_keys(text, halo, s * B, n)
+        np.testing.assert_array_equal(keys.numpy(), want[s * B: (s + 1) * B])
+        np.testing.assert_array_equal(vals.numpy(), np.arange(s * B,
+                                                              (s + 1) * B))
+
+
+@pytest.mark.parametrize('c', [0, 1, 50, 64])
+def test_round_keys_plain(c):
+    rng = np.random.default_rng(c)
+    rank = rng.integers(0, 1 << 12, size=64).astype(np.int32)
+    r2 = rng.integers(0, 1 << 12, size=c).astype(np.int32)
+    keys, vals = SA.giant_round_keys(torch.from_numpy(rank),
+                                     torch.from_numpy(r2), 13, 640)
+    low = np.zeros(64, np.int64)
+    low[:c] = r2.astype(np.int64) + 1
+    np.testing.assert_array_equal(keys.numpy(),
+                                  (rank.astype(np.int64) << 13) | low)
+    np.testing.assert_array_equal(vals.numpy(), np.arange(640, 704))
+
+
+@pytest.mark.parametrize('seed', range(4))
+def test_cuts_plain(seed):
+    rng = np.random.default_rng(seed)
+    m = int(rng.integers(0, 300))
+    keys = rng.integers(0, 6, size=m).astype(np.int64)
+    vals = rng.permutation(1000)[:m].astype(np.int32)
+    order = np.lexsort((vals, keys))
+    keys, vals = keys[order], vals[order]
+    sk = rng.integers(-1, 7, size=7).astype(np.int64)
+    sp = rng.integers(0, 1000, size=7).astype(np.int32)
+    got = SA.giant_cuts(torch.from_numpy(keys), torch.from_numpy(vals),
+                        torch.from_numpy(sk), torch.from_numpy(sp))
+    pairs = list(zip(keys.tolist(), vals.tolist()))
+    want = [sum(p < (a, b) for p in pairs) for a, b in zip(sk.tolist(),
+                                                           sp.tolist())]
+    assert got.tolist() == want
+
+
+@pytest.mark.parametrize('S', [1, 2, 5, 8])
+def test_partition_plain(S):
+    rng = np.random.default_rng(S)
+    B = 37
+    pos = rng.permutation(S * B)[: int(rng.integers(0, S * B))].astype(
+        np.int32)
+    gs = rng.integers(-1, 500, size=pos.size).astype(np.int32)
+    p, g, tot = SA.giant_partition(torch.from_numpy(pos),
+                                   torch.from_numpy(gs), 9, B, S)
+    owner = pos // B
+    order = np.argsort(owner, kind='stable')
+    np.testing.assert_array_equal(p.numpy(), (pos - owner * B)[order])
+    np.testing.assert_array_equal(g.numpy(), np.maximum(gs, 9)[order])
+    np.testing.assert_array_equal(tot.numpy(),
+                                  np.bincount(owner, minlength=S))
+
+
+@pytest.mark.parametrize('has_pred', [False, True])
+@pytest.mark.parametrize('m', [0, 1, 200])
+def test_flags_plain(m, has_pred):
+    rng = np.random.default_rng(m)
+    keys = np.sort(rng.integers(0, 40, size=m)).astype(np.int64)
+    pred = int(keys[0]) if m and has_pred else 3
+    off, real_lo = 1000, 1100
+    v, stats = SA.giant_flags(torch.from_numpy(keys), off, pred, has_pred,
+                              real_lo)
+    f = np.ones(m, bool)
+    f[1:] = keys[1:] != keys[:-1]
+    if m and has_pred:
+        f[0] = keys[0] != pred
+    slots = off + np.arange(m)
+    want = np.where(f, slots, -1)
+    np.testing.assert_array_equal(v.numpy(), want)
+    assert stats.tolist() == [int(want.max()) if m else -1,
+                              int((f & (slots >= real_lo)).sum())]
+
+
+# ---- two gloo ranks -------------------------------------------------------
+
+GIANT_WORKER = r'''
+import os, sys
+import numpy as np
+import torch
+rank, tmp = int(sys.argv[1]), sys.argv[2]
+from pysubstringsearch_tpu_torch.parallel import mesh as mesh_lib, multihost
+from pysubstringsearch_tpu_torch.parallel import sharded
+multihost.initialize('file://' + os.path.join(tmp, 'rendezvous'), 2, rank,
+                     'gloo')
+mesh = mesh_lib.make_mesh('cpu')
+assert (mesh.rank, mesh.world, mesh.size) == (rank, 2, 2)
+inp = np.load(os.path.join(tmp, 'inputs.npz'))
+build = sharded.make_giant_chunk_build(mesh)
+out = {}
+for name in ('jax', 'period2', 'n0'):
+    out[name] = build(inp[name], int(inp[name + '_n'])).numpy()
+    assert out[name].shape == (inp[name].size // 2,)
+    assert max(build.stats['max_recv']) <= build.stats['recv_bound']
+    out[name + '_rounds'] = np.int64(build.stats['rounds'])
+np.savez(os.path.join(tmp, f'out{rank}.npz'), **out)
+assert 'jax' not in sys.modules and 'pysubstringsearch_tpu' not in sys.modules
+print(f'WORKER{rank}_OK', flush=True)
+'''
+
+
+def test_giant_build_on_two_gloo_ranks(tmp_path):
+    """Two processes that import only the port join a gloo group through
+    ``file://``; each builds its block of the row.  Their blocks joined
+    equal the JAX function's real slots and the closed-form pads, and the
+    one-process build's rounds."""
+    data, padded, n, N = _jax_case()
+    ab = np.frombuffer(b'ab' * 500, np.uint8)
+    np.savez(tmp_path / 'inputs.npz', jax=padded, jax_n=n,
+             period2=_padded(ab, 1024), period2_n=ab.size,
+             n0=np.zeros(16, np.uint8), n0_n=0)
+    script = tmp_path / 'worker.py'
+    script.write_text(GIANT_WORKER)
+    env = dict(os.environ)
+    env['PYTHONPATH'] = REPO + os.pathsep + env.get('PYTHONPATH', '')
+    procs = [subprocess.Popen(
+        [sys.executable, str(script), str(rank), str(tmp_path)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
+        cwd=REPO) for rank in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=240)[0])
+    except subprocess.TimeoutExpired:
+        pytest.fail('a worker process timed out')
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f'worker {rank} failed:\n{out}'
+        assert f'WORKER{rank}_OK' in out
+    res = [np.load(tmp_path / f'out{rank}.npz') for rank in range(2)]
+    want = np.asarray(jsharded.make_giant_chunk_build(jmesh.make_mesh())(
+        padded, np.int32(n)))
+    got = np.concatenate([r['jax'] for r in res])
+    np.testing.assert_array_equal(got[N - n:], want[N - n:])
+    _check_sa_full(got, data, N)
+    _check_sa_full(np.concatenate([r['period2'] for r in res]), ab, 1024)
+    _check_sa_full(np.concatenate([r['n0'] for r in res]),
+                   np.zeros(0, np.uint8), 16)
+    one = tsharded.make_giant_chunk_build(tmesh.make_mesh(['cpu'] * 2))
+    one(_padded(ab, 1024), ab.size)
+    assert int(res[0]['period2_rounds']) == one.stats['rounds']
+
+
+# ---- suffix_array_device, trace_to, the stubs -----------------------------
+
+@pytest.mark.parametrize('n', [0, 1, 1000, 1018, 1024])
+def test_suffix_array_device_matches_jax(n):
+    rng = np.random.default_rng(n)
+    N = 1024
+    padded = np.zeros(N, np.uint8)
+    padded[:n] = rng.integers(97, 100, size=n, dtype=np.uint8)
+    want = np.asarray(jsa.suffix_array_device(jnp.asarray(padded), n))
+    text = torch.from_numpy(padded)
+    got = SA.suffix_array_device(text, np.int32(n))
+    assert got.dtype == torch.int32 and got.device == text.device
+    np.testing.assert_array_equal(got.numpy()[N - n:], want[N - n:])
+    np.testing.assert_array_equal(got.numpy()[: N - n],
+                                  np.arange(N - 1, n - 1, -1))
+
+
+def test_trace_to_writes_a_chrome_trace(tmp_path):
+    log_dir = tmp_path / 'traces' / 'run'
+    with trace_to(str(log_dir)) as prof:
+        torch.arange(1000).cumsum(0)
+    files = glob.glob(str(log_dir / '*.json'))
+    assert len(files) == 1
+    with open(files[0]) as f:
+        trace = json.load(f)
+    names = {e.get('name') for e in trace['traceEvents']}
+    assert 'aten::cumsum' in names
+    assert any(e.key == 'aten::cumsum' for e in prof.key_averages())
+
+
+def test_trace_to_writes_on_error(tmp_path):
+    with pytest.raises(RuntimeError, match='inside'):
+        with trace_to(str(tmp_path)):
+            torch.ones(3).sum()
+            raise RuntimeError('inside')
+    assert len(glob.glob(str(tmp_path / '*.json'))) == 1
+
+
+def _stub_classes():
+    path = os.path.join(os.path.dirname(tpss.__file__), '__init__.pyi')
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    return {node.name: node for node in tree.body
+            if isinstance(node, ast.ClassDef)}
+
+
+def _stub_params(fn):
+    """(name, kind, has default) of a stub function's parameters, as
+    ``inspect`` names the kinds."""
+    a = fn.args
+    P = inspect.Parameter
+    out = []
+    pos = a.posonlyargs + a.args
+    defaults = [None] * (len(pos) - len(a.defaults)) + list(a.defaults)
+    for arg, d in zip(pos, defaults):
+        out.append((arg.arg, P.POSITIONAL_OR_KEYWORD, d is not None))
+    if a.vararg:
+        out.append((a.vararg.arg, P.VAR_POSITIONAL, False))
+    for arg, d in zip(a.kwonlyargs, a.kw_defaults):
+        out.append((arg.arg, P.KEYWORD_ONLY, d is not None))
+    if a.kwarg:
+        out.append((a.kwarg.arg, P.VAR_KEYWORD, False))
+    return out
+
+
+@pytest.mark.parametrize('cls', ['Writer', 'Reader'])
+def test_stubs_match_the_classes(cls):
+    """Every method and property of the stub has the real one's
+    parameters (names, kinds, which have defaults), and every public one of
+    the class is in the stub."""
+    stub = _stub_classes()[cls]
+    real = getattr(tpss, cls)
+    stubbed = {}
+    for fn in stub.body:
+        if not isinstance(fn, ast.FunctionDef):
+            continue
+        decos = {d.id for d in fn.decorator_list if isinstance(d, ast.Name)}
+        stubbed[fn.name] = fn
+        attr = inspect.getattr_static(real, fn.name)
+        if 'property' in decos:
+            assert isinstance(attr, property), fn.name
+            continue
+        if 'classmethod' in decos:
+            assert isinstance(attr, classmethod), fn.name
+            attr = attr.__func__
+        params = [(p.name, p.kind, p.default is not inspect.Parameter.empty)
+                  for p in inspect.signature(attr).parameters.values()]
+        assert params == _stub_params(fn), fn.name
+    public = {name for name in vars(real) if not name.startswith('_')}
+    assert public <= set(stubbed), public - set(stubbed)
+    assert {'__init__', '__enter__', '__exit__'} & set(vars(real)) <= set(
+        stubbed)
+
+
+def test_package_data_lists_the_stubs():
+    with open(os.path.join(REPO, 'pyproject.toml')) as f:
+        line = next(ln for ln in f if ln.startswith(
+            'pysubstringsearch_tpu_torch = '))
+    pkg = os.path.dirname(tpss.__file__)
+    for name in ('py.typed', '__init__.pyi'):
+        assert f'"{name}"' in line
+        assert os.path.exists(os.path.join(pkg, name))
