@@ -3172,6 +3172,9 @@ def giant_kernels(text, n, sa, S, entry):
           cuda_ms(lambda: SA.giant_cuts_plain(keys, vals, skeys, spos), 1),
           (S - 1) * (12 + 12 * B.bit_length()) + 8 * (S - 1),
           cuda_ms(lambda: torch.searchsorted(keys, skeys), 20))
+    log(f'giant_cuts: at most {SA.giant_cuts_rounds(B)} dependent rounds of '
+        f'loads on {B} sorted pairs, where a binary search takes '
+        f'{B.bit_length()}')
     pred = int(keys[0]) - 1
     v, st = SA.giant_flags(keys, B, pred, True, N - n)
     pv, pst = SA.giant_flags_plain(keys, B, pred, True, N - n)

@@ -2539,29 +2539,32 @@ __global__ void roll_front_kernel(const int* __restrict__ src, long long N,
 //       pass, which Triton would do as well; it stays in CUDA so that the
 //       path builds from this one library.
 //   (b) giant_cuts_kernel: where the S - 1 (key, position) splitters cut a
-//       shard sorted by (key, position), one binary search a splitter (the
-//       pieces of a sorted shard are contiguous, so nothing moves); and
-//       giant_part_count_kernel + giant_part_scatter_kernel: (position,
-//       group start) pairs partitioned by owner shard, position / B,
-//       stably, into per-owner slices, positions made local to the owner's
-//       block and group starts raised to the carried-in one.  A block owns
-//       a contiguous range; it counts its owners in shared memory, the
-//       (owner, block) counts are scanned owner-major, and the block
-//       stores each round of 256 pairs at its owner's running offset, a
-//       pair's place among its warp's pairs of the same owner from
-//       __match_any_sync and among earlier warps' from per-warp counts.
+//       shard sorted by (key, position) (the pieces of a sorted shard are
+//       contiguous, so nothing moves); and giant_part_hist_kernel +
+//       giant_part_scatter_kernel: (position, group start) pairs
+//       partitioned by owner shard, position / B, stably, into per-owner
+//       slices, positions made local to the owner's block and group starts
+//       raised to the carried-in one.  Both are redesigns for this card;
+//       see their own notes.
 //   (c) giant_flags_kernel: the relabel's group-start candidates, slot
 //       off + i where the key differs from its predecessor (for i = 0 the
 //       last key of the nearest non-empty earlier shard, carried in by the
 //       host) and -1 elsewhere, with the shard's last such slot and the
 //       number of them at real slots (>= N - n); the max scan over the
 //       candidates then gives every slot its group start.
-// All are bound by memory: (a) writes 12 bytes a position and reads 1 or
-// 8, (b)'s partition reads 8 bytes a pair twice and writes 8, (c) reads 8
-// and writes 4; (b)'s cuts read S log2(m) keys.
+// (a), (c) and the partition are bound by memory: (a) writes 12 bytes a
+// position and reads 1 or 8, the partition reads 8 bytes a pair and writes
+// 8 (and reads the positions once more), (c) reads 8 and writes 4.  The
+// cuts move next to nothing; their floor is their dependent rounds of
+// loads.
 // ---------------------------------------------------------------------------
 constexpr int kGiantMaxShards = 256;
-constexpr int kPartBlocks = 1024;  // blocks of a partition, at most
+static_assert(kGiantMaxShards == kThreads, "one owner a thread");
+constexpr int kPartItems = 16;                    // pairs a thread places
+constexpr int kPartTile = kThreads * kPartItems;  // pairs a block places
+constexpr int kPartWarpItems = 32 * kPartItems;
+constexpr int kPartMinBlocks = 3;  // blocks of the look-back pass an SM
+constexpr int kPartHistBlocks = 1024;  // blocks of the histogram, at most
 
 __global__ void giant_byte_keys_kernel(const uint8_t* __restrict__ text,
                                        long long m,
@@ -2607,113 +2610,318 @@ __global__ void giant_round_keys_kernel(const int* __restrict__ rank,
 }
 
 // cuts[j] = the number of pairs of (keys, vals)[0, m), sorted by (key,
-// value), below splitter j = (skeys[j], spos[j]).
-__global__ void giant_cuts_kernel(const uint64_t* __restrict__ keys,
-                                  const int* __restrict__ vals, long long m,
-                                  const uint64_t* __restrict__ skeys,
-                                  const int* __restrict__ spos, int ns,
-                                  long long* __restrict__ cuts) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= ns) return;
-  const uint64_t sk = skeys[j];
-  const int sp = spos[j];
-  long long lo = 0, hi = m;
+// value), below splitter j = (skeys[j], spos[j]).  Bound by dependent
+// loads, not bytes: a binary search a thread would leave S - 1 threads of
+// the card waiting out log2(m) DRAM round trips one after another (27 at
+// m = 128 Mi).  So a block takes a splitter and searches 256-ary: each round its threads test 256
+// evenly spaced pairs of the interval still open, key and value loaded
+// together, and __syncthreads_count of those below the splitter narrows
+// the interval to fewer than step = ceil(len / 256) pairs; a round with
+// step 1 tests every pair left and ends the search.  That is at most
+// ceil(log256 m) + 1 dependent rounds (4 at m = 128 Mi, giant_cuts_rounds
+// on the host).  A wider round measured slower (4 probes a thread,
+// 1024-ary in 3 rounds): one SM issues every probe of a splitter as a
+// separate sector request.  Keys compare as int64, as torch orders them.
+__global__ void __launch_bounds__(kThreads)
+    giant_cuts_kernel(const long long* __restrict__ keys,
+                      const int* __restrict__ vals, long long m,
+                      const long long* __restrict__ skeys,
+                      const int* __restrict__ spos,
+                      long long* __restrict__ cuts) {
+  const long long sk = skeys[blockIdx.x];
+  const int sp = spos[blockIdx.x];
+  long long lo = 0, hi = m;  // the cut lies in [lo, hi]
   while (lo < hi) {
-    const long long mid = lo + (hi - lo) / 2;
-    const uint64_t k = keys[mid];
-    if (k < sk || (k == sk && vals[mid] < sp)) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
+    const long long step = (hi - lo + kThreads - 1) / kThreads;
+    // Probe t tests pair lo + (t + 1) * step - 1; the probes below the
+    // splitter are a prefix of them, as the pairs below it are of the
+    // shard.
+    const long long i = lo + (threadIdx.x + 1) * step - 1;
+    bool below = false;
+    if (i < hi) {
+      const long long k = keys[i];
+      const int v = vals[i];
+      below = k < sk || (k == sk && v < sp);
     }
+    const long long c = __syncthreads_count(below);
+    lo += c * step;
+    hi = lo + step - 1 < hi ? lo + step - 1 : hi;
   }
-  cuts[j] = lo;
+  if (threadIdx.x == 0) cuts[blockIdx.x] = lo;
 }
 
-// Block b of nb owns pairs [b * per, min(m, (b + 1) * per)).
-__device__ inline void part_range(long long m, int nb, long long* lo,
-                                  long long* hi) {
-  const long long per = (m + nb - 1) / nb;
-  *lo = blockIdx.x * per;
-  *hi = *lo + per < m ? *lo + per : m;
+// The partition by owner d = p / B: a stable multi-split in two passes over
+// tiles of kPartTile pairs, 16 a thread:
+//   1. giant_part_hist_kernel reads the positions as 16-byte vectors and
+//      adds every owner's count into totals;
+//   2. giant_part_scatter_kernel takes its tile in launch order from an
+//      atomic counter, loads its positions warp-striped (pair j of a lane
+//      at warp base + 32 j + lane: 128-byte rows, and the rank order is
+//      the load order), ranks each pair among its tile's pairs of the same
+//      owner as onesweep_pass_kernel ranks a digit (the warp's peers, a
+//      running count a warp, the warps' counts scanned, one block scan
+//      over the owners), finds its tile's offset within every owner by
+//      decoupled look-back over status words, stages the tile in shared
+//      memory in owner order, and stores each owner's run with
+//      consecutive threads on consecutive slots.
+// Bound by memory: 16 bytes a pair moved once, and the positions read a
+// second time.  The look-back pass is bound by the tiles it keeps in
+// flight, so what it holds in registers decides its speed: the group
+// starts are loaded only after the ranking, which lets three blocks share
+// an SM (two, with them loaded beside the positions, measured slower);
+// the look-back reads a window of predecessors at once.
+// The owner is p / B in 32-bit arithmetic: the host passes rcp = floor((2^32
+// - 1) / B), and for p < 2^31 __umulhi(p, rcp) is p / B or one less
+// (p / B - p * rcp / 2^32 < p (B + 1) / (B 2^32) + 1 < 2), which one
+// compare corrects.
+__device__ __forceinline__ unsigned part_owner(unsigned p, unsigned B,
+                                               unsigned rcp,
+                                               unsigned* local) {
+  unsigned d = __umulhi(p, rcp);
+  unsigned r = p - d * B;
+  if (r >= B) {
+    ++d;
+    r -= B;
+  }
+  *local = r;
+  return d;
 }
 
-// counts[d * nb + b] = pairs of block b owned by shard d.
+// Lanes of the warp whose pair is valid and has owner d, from one ballot a
+// bit of the owner (bits = ceil(log2 S)): cheaper than __match_any_sync,
+// and warp-uniform since bits is.
+__device__ __forceinline__ unsigned owner_peers(unsigned d, bool valid,
+                                                int bits) {
+  unsigned peers = __ballot_sync(kFull, valid);
+  for (int b = 0; b < bits; ++b) {
+    const bool set = (d >> b) & 1u;
+    const unsigned with = __ballot_sync(kFull, set);
+    peers &= set ? with : ~with;
+  }
+  return peers;
+}
+
+// KC > 0 (S <= KC): a thread counts its pairs' owners in KC registers,
+// with no vote and no atomic a pair, and the warp sums them at the end;
+// KC = 0: a leader a distinct owner of the warp adds its peers into
+// shared memory.
+template <int KC>
 __global__ void __launch_bounds__(kThreads)
-    giant_part_count_kernel(const int* __restrict__ pos, long long m,
-                            long long B, int S, int nb,
-                            int* __restrict__ counts) {
+    giant_part_hist_kernel(const int* __restrict__ pos, long long m,
+                           unsigned B, unsigned rcp, int bits,
+                           int* __restrict__ totals) {
   __shared__ int hist[kGiantMaxShards];
-  for (int d = threadIdx.x; d < S; d += kThreads) hist[d] = 0;
+  const int t = threadIdx.x;
+  const unsigned lower = (1u << (t & 31)) - 1u;
+  hist[t] = 0;
   __syncthreads();
-  long long lo, hi;
-  part_range(m, nb, &lo, &hi);
-  const int lane = threadIdx.x & 31;
-  for (long long base = lo; base < hi; base += kThreads) {
-    const long long i = base + threadIdx.x;
-    const int d = i < hi ? static_cast<int>(pos[i] / B) : -1;
-    const unsigned peers = __match_any_sync(kFull, d);
-    if (d >= 0 && lane == __ffs(peers) - 1) {
-      atomicAdd(&hist[d], __popc(peers));
+  int counts[KC > 0 ? KC : 1] = {};
+  const bool vec = aligned16(pos);
+  const long long tiles = (m + kPartTile - 1) / kPartTile;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    // Pair e of vector q of a thread: base + 4 (t + kThreads q) + e.
+    const long long base = tile * kPartTile;
+    const bool whole = base + kPartTile <= m;
+    unsigned p[kPartItems];
+    if (vec && whole) {
+      const int4* v = reinterpret_cast<const int4*>(pos + base) + t;
+#pragma unroll
+      for (int q = 0; q < kPartItems / 4; ++q) {
+        const int4 x = __ldcs(v + kThreads * q);
+        p[4 * q] = x.x;
+        p[4 * q + 1] = x.y;
+        p[4 * q + 2] = x.z;
+        p[4 * q + 3] = x.w;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kPartItems; ++j) {
+        const long long i = base + 4 * (t + kThreads * (j / 4)) + j % 4;
+        p[j] = i < m ? pos[i] : 0u;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kPartItems; ++j) {
+      const bool valid =
+          whole || base + 4 * (t + kThreads * (j / 4)) + j % 4 < m;
+      unsigned local;
+      const unsigned d = part_owner(p[j], B, rcp, &local);
+      if (KC > 0) {
+#pragma unroll
+        for (int k = 0; k < (KC > 0 ? KC : 1); ++k) {
+          counts[k] += valid && d == static_cast<unsigned>(k);
+        }
+      } else {
+        const unsigned peers = owner_peers(d, valid, bits);
+        if (valid && (peers & lower) == 0) {
+          atomicAdd(&hist[d], __popc(peers));
+        }
+      }
+    }
+  }
+  if (KC > 0) {
+#pragma unroll
+    for (int k = 0; k < (KC > 0 ? KC : 1); ++k) {
+      const int c = __reduce_add_sync(kFull, counts[k]);
+      if ((t & 31) == 0 && c) atomicAdd(&hist[k], c);
     }
   }
   __syncthreads();
-  for (int d = threadIdx.x; d < S; d += kThreads) {
-    counts[static_cast<long long>(d) * nb + blockIdx.x] = hist[d];
+  if (hist[t]) atomicAdd(&totals[t], hist[t]);
+}
+
+// Tile `tile`'s exclusive prefix for owner t: the counts of its owner in
+// tiles 0..tile-1, from the status words of its predecessors, read
+// kPartWindow at a time with every load in flight; the walk stops at the
+// nearest inclusive prefix (tag 2), summing the tile counts (tag 1) on
+// the way and waiting where a word is not yet written (tag 0).  A walk a
+// word at a time, as one-sweep passes take it, costs one L2 round trip a
+// predecessor, and with hundreds of tiles in flight a tile finds the
+// nearest prefix several tiles back.
+constexpr int kPartWindow = 8;
+
+__device__ __forceinline__ unsigned part_lookback(
+    const unsigned long long* status, long long tile, int S, int t) {
+  unsigned before = 0;
+  for (long long q = tile - 1;; q -= kPartWindow) {
+    unsigned long long w[kPartWindow];
+#pragma unroll
+    for (int k = 0; k < kPartWindow; ++k) {
+      w[k] = q - k >= 0
+                 ? *reinterpret_cast<const volatile unsigned long long*>(
+                       status + (q - k) * S + t)
+                 : 2ull << 32;  // before tile 0: a prefix of 0
+    }
+    bool done = false;
+#pragma unroll
+    for (int k = 0; k < kPartWindow; ++k) {
+      if (!done) {
+        unsigned long long word = w[k];
+        while (static_cast<unsigned>(word >> 32) == 0u) {
+          word = *reinterpret_cast<const volatile unsigned long long*>(
+              status + (q - k) * S + t);
+        }
+        before += static_cast<unsigned>(word);
+        done = static_cast<unsigned>(word >> 32) == 2u;
+      }
+    }
+    if (done) return before;
   }
 }
 
-// totals[d] = pairs owned by shard d, from the owner-major exclusive scan
-// (its total at [S * nb]).
-__global__ void giant_part_totals_kernel(const int* __restrict__ offs, int S,
-                                         int nb, int* __restrict__ totals) {
-  const int d = blockIdx.x * blockDim.x + threadIdx.x;
-  if (d < S) {
-    totals[d] = offs[static_cast<long long>(d + 1) * nb] -
-                offs[static_cast<long long>(d) * nb];
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kPartMinBlocks)
     giant_part_scatter_kernel(const int* __restrict__ pos,
                               const int* __restrict__ gs, long long m,
-                              long long B, int S, int nb, int floor_gs,
-                              const int* __restrict__ offs,
+                              unsigned B, unsigned rcp, int bits, int S,
+                              int floor_gs, const int* __restrict__ totals,
+                              unsigned long long* status, int* counter,
                               int* __restrict__ out_pos,
                               int* __restrict__ out_gs) {
-  __shared__ int base[kGiantMaxShards];
-  __shared__ int warp_counts[kWarps][kGiantMaxShards];
-  for (int d = threadIdx.x; d < S; d += kThreads) {
-    base[d] = offs[static_cast<long long>(d) * nb + blockIdx.x];
-    for (int w = 0; w < kWarps; ++w) warp_counts[w][d] = 0;
+  __shared__ int s_tile;
+  __shared__ unsigned s_warp[kWarps][kGiantMaxShards];  // counts, offsets
+  __shared__ int s_local[kGiantMaxShards];  // staged index of owner's first
+  __shared__ int s_base[kGiantMaxShards];   // its output slot minus that
+  __shared__ int s_pos[kPartTile];
+  __shared__ int s_gs[kPartTile];
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  if (t == 0) s_tile = atomicAdd(counter, 1);
+  for (int w = 0; w < kWarps; ++w) s_warp[w][t] = 0;
+  __syncthreads();
+  const long long tile = s_tile;
+  const long long tile_base = tile * kPartTile;
+  const long long rest = m - tile_base;
+  const int valid_count = rest < kPartTile ? static_cast<int>(rest)
+                                           : kPartTile;
+  // Pair j of a lane: warp's first + 32 j + lane, 32-bit offsets from it.
+  const int first = warp * kPartWarpItems + lane;
+  const int* __restrict__ pt = pos + tile_base + first;
+  const int* __restrict__ gt = gs + tile_base + first;
+  int p[kPartItems];
+#pragma unroll
+  for (int j = 0; j < kPartItems; ++j) {
+    p[j] = first + 32 * j < valid_count ? __ldcs(pt + 32 * j) : 0;
+  }
+  // Owner t's first output slot, while the tile's loads are in flight.
+  int total;
+  const int start = block_exclusive_scan<SumOp>(t < S ? totals[t] : 0,
+                                                &total);
+  unsigned slot[kPartItems];  // rank within the warp, then the staged index
+  const unsigned lower = (1u << lane) - 1u;
+#pragma unroll
+  for (int j = 0; j < kPartItems; ++j) {
+    const bool valid = first + 32 * j < valid_count;
+    unsigned local;
+    const unsigned d = part_owner(p[j], B, rcp, &local);
+    const unsigned peers = owner_peers(d, valid, bits);
+    const unsigned below = peers & lower;
+    const unsigned before = valid ? s_warp[warp][d] : 0u;
+    __syncwarp();
+    if (valid && below == 0) s_warp[warp][d] = before + __popc(peers);
+    __syncwarp();
+    slot[j] = before + __popc(below);
   }
   __syncthreads();
-  long long lo, hi;
-  part_range(m, nb, &lo, &hi);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (long long start = lo; start < hi; start += kThreads) {
-    const long long i = start + threadIdx.x;
-    const bool valid = i < hi;
-    const int p = valid ? pos[i] : 0;
-    const int d = valid ? static_cast<int>(p / B) : -1;
-    const unsigned peers = __match_any_sync(kFull, d);
-    const bool leader = lane == __ffs(peers) - 1;
-    if (valid && leader) warp_counts[warp][d] = __popc(peers);
-    __syncthreads();
-    if (valid) {
-      int o = base[d] + __popc(peers & ((1u << lane) - 1u));
-      for (int w = 0; w < warp; ++w) o += warp_counts[w][d];
-      out_pos[o] = static_cast<int>(p - static_cast<long long>(d) * B);
-      const int g = gs[i];
-      out_gs[o] = g > floor_gs ? g : floor_gs;
+  // Thread t owns owner t: its per-warp counts become per-warp offsets,
+  // and its count in this tile goes out at once (tag 1: the tile's count,
+  // 2: the count in tiles 0..tile; 0, the caller's zeroed scratch, not yet
+  // written), before the staging and the look-back.
+  unsigned count = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    const unsigned c = s_warp[w][t];
+    s_warp[w][t] = count;
+    count += c;
+  }
+  unsigned long long* mine = status + tile * S + t;
+  if (t < S) status_store(mine, tile == 0 ? 2u : 1u, count);
+  int tile_total;
+  const int local = block_exclusive_scan<SumOp>(static_cast<int>(count),
+                                                &tile_total);
+  s_local[t] = local;
+  __syncthreads();
+  // Stage the positions in owner order, then issue the group starts'
+  // loads (kept out of registers until now, so that three blocks fit an
+  // SM) and stage them once the look-back, which needs only `count`, is
+  // done.
+#pragma unroll
+  for (int j = 0; j < kPartItems; ++j) {
+    if (first + 32 * j < valid_count) {
+      unsigned loc;
+      const unsigned d = part_owner(p[j], B, rcp, &loc);
+      slot[j] += s_local[d] + s_warp[warp][d];
+      s_pos[slot[j]] = p[j];
     }
-    __syncthreads();
-    if (valid && leader) {
-      atomicAdd(&base[d], __popc(peers));
-      warp_counts[warp][d] = 0;
+  }
+  int g[kPartItems];
+#pragma unroll
+  for (int j = 0; j < kPartItems; ++j) {
+    g[j] = first + 32 * j < valid_count ? __ldcs(gt + 32 * j) : 0;
+  }
+  if (t < S) {
+    unsigned before_tile = 0;
+    if (tile > 0) {
+      before_tile = part_lookback(status, tile, S, t);
+      status_store(mine, 2u, before_tile + count);
     }
-    __syncthreads();
+    s_base[t] = start + static_cast<int>(before_tile) - local;
+  }
+#pragma unroll
+  for (int j = 0; j < kPartItems; ++j) {
+    if (first + 32 * j < valid_count) s_gs[slot[j]] = g[j];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kPartItems; ++r) {
+    const int i = r * kThreads + t;
+    if (i < valid_count) {
+      unsigned loc;
+      const unsigned d = part_owner(s_pos[i], B, rcp, &loc);
+      const int dst = s_base[d] + i;
+      out_pos[dst] = static_cast<int>(loc);
+      const int gg = s_gs[i];
+      out_gs[dst] = gg > floor_gs ? gg : floor_gs;
+    }
   }
 }
 
@@ -2755,10 +2963,17 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Blocks of a partition of m pairs: one per 2048, at most kPartBlocks.
-int giant_part_blocks(long long m) {
-  const long long nb = cdiv(m, kThreads * 8);
-  return static_cast<int>(nb < 1 ? 1 : (nb > kPartBlocks ? kPartBlocks : nb));
+// The partition's scratch: status words and the tile counter.
+struct PartBufs {
+  unsigned long long* status;  // [tiles][S]
+  int* counter;
+};
+
+PartBufs carve_part(Arena& a, long long m, long long S) {
+  PartBufs b;
+  b.status = a.take<unsigned long long>(cdiv(m, kPartTile) * S);
+  b.counter = a.take<int>(1);
+  return b;
 }
 
 }  // namespace
@@ -3157,53 +3372,63 @@ int pss_giant_cuts(const void* keys, const void* vals, long long m,
                    const void* skeys, const void* spos, int ns, void* cuts,
                    void* stream) {
   if (ns <= 0) return 0;
-  giant_cuts_kernel<<<(ns + kThreads - 1) / kThreads, kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint64_t*>(keys), static_cast<const int*>(vals), m,
-      static_cast<const uint64_t*>(skeys), static_cast<const int*>(spos), ns,
+  giant_cuts_kernel<<<ns, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(keys), static_cast<const int*>(vals), m,
+      static_cast<const long long*>(skeys), static_cast<const int*>(spos),
       static_cast<long long*>(cuts));
   return static_cast<int>(cudaGetLastError());
 }
 
-long long pss_giant_part_scratch_bytes(long long S) {
+long long pss_giant_part_scratch_bytes(long long m, long long S) {
   Arena a{nullptr, 0};
-  a.take<int>(S * kPartBlocks);
-  a.take<int>(S * kPartBlocks + 1);
-  a.take<int>(scan_scratch_elems(S * kPartBlocks));
+  carve_part(a, m, S);
   return static_cast<long long>(a.off);
 }
 
 // out_pos, out_gs int32 [m]: the pairs (pos[i] - d * B, max(gs[i],
 // floor_gs)) stably partitioned by owner d = pos[i] / B < S <= 256;
-// totals int32 [S] their counts.
+// totals int32 [S] their counts.  The scratch holds
+// pss_giant_part_scratch_bytes(m, S) bytes and is zeroed here.
 int pss_giant_partition(const void* pos, const void* gs, long long m,
                         long long B, int S, int floor_gs, void* out_pos,
                         void* out_gs, void* totals, void* scratch,
                         void* stream) {
-  if (S < 1 || S > kGiantMaxShards) {
+  if (S < 1 || S > kGiantMaxShards || B < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (m <= 0) {
-    cudaMemsetAsync(totals, 0, sizeof(int) * S, st);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const int nb = giant_part_blocks(m);
+  cudaMemsetAsync(totals, 0, sizeof(int) * S, st);
+  if (m <= 0) return static_cast<int>(cudaGetLastError());
+  // Positions are below 2^31, so a B past 2^32 - 1 owns them all as
+  // 2^32 - 1 does.
+  const unsigned b32 = B > 0xffffffffLL ? 0xffffffffu
+                                        : static_cast<unsigned>(B);
+  const unsigned rcp = 0xffffffffu / b32;
+  int bits = 0;
+  while ((1 << bits) < S) ++bits;
   Arena a{static_cast<char*>(scratch), 0};
-  const long long cap = static_cast<long long>(S) * kPartBlocks;
-  int* counts = a.take<int>(cap);
-  int* offs = a.take<int>(cap + 1);
-  int* scan = a.take<int>(scan_scratch_elems(cap));
-  const long long c = static_cast<long long>(S) * nb;
-  giant_part_count_kernel<<<nb, kThreads, 0, st>>>(
-      static_cast<const int*>(pos), m, B, S, nb, counts);
-  scan_levels<SumOp>(counts, offs, c, true, scan, st);
-  scan_total_kernel<<<1, 1, 0, st>>>(counts, offs, c);
-  giant_part_totals_kernel<<<1, kGiantMaxShards, 0, st>>>(
-      offs, S, nb, static_cast<int*>(totals));
-  giant_part_scatter_kernel<<<nb, kThreads, 0, st>>>(
-      static_cast<const int*>(pos), static_cast<const int*>(gs), m, B, S, nb,
-      floor_gs, offs, static_cast<int*>(out_pos), static_cast<int*>(out_gs));
+  const PartBufs b = carve_part(a, m, S);
+  cudaMemsetAsync(scratch, 0, a.off, st);
+  const long long tiles = cdiv(m, kPartTile);
+  const unsigned hist_blocks = static_cast<unsigned>(
+      tiles < kPartHistBlocks ? tiles : kPartHistBlocks);
+  const int* p = static_cast<const int*>(pos);
+  int* tot = static_cast<int*>(totals);
+  if (S <= 4) {
+    giant_part_hist_kernel<4><<<hist_blocks, kThreads, 0, st>>>(
+        p, m, b32, rcp, bits, tot);
+  } else if (S <= 8) {
+    giant_part_hist_kernel<8><<<hist_blocks, kThreads, 0, st>>>(
+        p, m, b32, rcp, bits, tot);
+  } else {
+    giant_part_hist_kernel<0><<<hist_blocks, kThreads, 0, st>>>(
+        p, m, b32, rcp, bits, tot);
+  }
+  giant_part_scatter_kernel<<<static_cast<unsigned>(tiles), kThreads, 0,
+                              st>>>(
+      static_cast<const int*>(pos), static_cast<const int*>(gs), m, b32, rcp,
+      bits, S, floor_gs, static_cast<const int*>(totals), b.status,
+      b.counter, static_cast<int*>(out_pos), static_cast<int*>(out_gs));
   return static_cast<int>(cudaGetLastError());
 }
 

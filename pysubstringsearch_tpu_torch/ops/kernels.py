@@ -121,11 +121,13 @@ _SIGNATURES: typing.Dict[str, list] = {
     'pss_giant_flags': [_P, _L, _L, _L, _I, _L, _P, _P, _P],
 }
 
-#: Scratch sizers: pss_<name>_scratch_bytes(count) -> bytes.  Host
-#: functions; they launch nothing and are not counted.
-_SCRATCH = ('scan', 'radix_sort', 'sa_hybrid', 'sa_init', 'sa_tie',
-            'sa_round', 'sa_refine', 'sa_pass', 'sa_full', 'scatter_blocked',
-            'seed_table', 'giant_part')
+#: Scratch sizers: pss_<name>_scratch_bytes(count) -> bytes, or of more
+#: counts where the value says so.  Host functions; they launch nothing and
+#: are not counted.
+_SCRATCH = {'scan': 1, 'radix_sort': 1, 'sa_hybrid': 1, 'sa_init': 1,
+            'sa_tie': 1, 'sa_round': 1, 'sa_refine': 1, 'sa_pass': 1,
+            'sa_full': 1, 'scatter_blocked': 1, 'seed_table': 1,
+            'giant_part': 2}
 
 #: Kernel name (the C entry point without its prefix) -> launches so far.
 LAUNCHES: typing.Dict[str, int] = {
@@ -181,9 +183,9 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        for name in _SCRATCH:
+        for name, counts in _SCRATCH.items():
             fn = getattr(lib, f'pss_{name}_scratch_bytes')
-            fn.argtypes = [_L]
+            fn.argtypes = [_L] * counts
             fn.restype = _L
         _LIB = lib
         return _LIB
@@ -249,12 +251,15 @@ def count_launch(name: str) -> None:
         LAUNCHES[name] += 1
 
 
-def scratch(name: str, count: int, device):
+def scratch(name: str, count, device):
     """An uninitialised uint8 scratch tensor on ``device`` of the size
-    ``pss_<name>_scratch_bytes(count)`` asks for."""
+    ``pss_<name>_scratch_bytes(count)`` asks for; ``count`` is a tuple for
+    a sizer of several counts."""
     import torch
 
-    size = getattr(library(), f'pss_{name}_scratch_bytes')(int(count))
+    counts = count if isinstance(count, tuple) else (count,)
+    size = getattr(library(), f'pss_{name}_scratch_bytes')(
+        *(int(c) for c in counts))
     return torch.empty(size, dtype=torch.uint8, device=device)
 
 

@@ -1703,27 +1703,51 @@ def giant_cuts_plain(keys: torch.Tensor, vals: torch.Tensor,
 
 
 def giant_cuts(keys: torch.Tensor, vals: torch.Tensor, skeys: torch.Tensor,
-               spos: torch.Tensor) -> torch.Tensor:
+               spos: torch.Tensor,
+               out: typing.Optional[torch.Tensor] = None) -> torch.Tensor:
     """(b) by splitters: where the (key, position) splitters (``skeys``
     int64, ``spos`` int32 [s]) cut int64 ``keys`` with int32 ``vals``
-    sorted by (key, value), one binary search a splitter (see
+    sorted by (key, value), one block a splitter in a 256-ary search of
+    :func:`giant_cuts_rounds` dependent rounds (see
     :func:`giant_cuts_plain`); the pieces of a sorted shard are
-    contiguous, so nothing moves."""
-    if not kernels.route(keys, vals, skeys, spos):
-        return giant_cuts_plain(keys, vals, skeys, spos)
+    contiguous, so nothing moves.  Into int64 ``out`` [s] when given, so
+    that the cuts of several shards come back in one copy."""
+    if out is None:
+        out = torch.empty(skeys.shape[0], dtype=torch.int64,
+                          device=keys.device)
+    if not kernels.route(keys, vals, skeys, spos, out):
+        out.copy_(giant_cuts_plain(keys, vals, skeys, spos))
+        return out
     kernels.check(keys, 'keys', torch.int64, 1)
     kernels.check(vals, 'vals', torch.int32, 1)
     kernels.check(skeys, 'skeys', torch.int64, 1)
     kernels.check(spos, 'spos', torch.int32, 1)
-    if vals.shape[0] != keys.shape[0] or spos.shape[0] != skeys.shape[0]:
+    kernels.check(out, 'out', torch.int64, 1)
+    if (vals.shape[0] != keys.shape[0] or spos.shape[0] != skeys.shape[0]
+            or out.shape[0] != skeys.shape[0]):
         raise ValueError('giant_cuts: keys and vals, or the splitters\' '
-                         'keys and positions, differ in length')
-    cuts = torch.empty(skeys.shape[0], dtype=torch.int64, device=keys.device)
+                         'keys, positions and cuts, differ in length')
     with kernels.on(keys.device):
         kernels.launch('giant_cuts', keys.data_ptr(), vals.data_ptr(),
                        keys.shape[0], skeys.data_ptr(), spos.data_ptr(),
-                       skeys.shape[0], cuts.data_ptr())
-    return cuts
+                       skeys.shape[0], out.data_ptr())
+    return out
+
+
+#: Pairs :func:`giant_cuts`'s kernel tests in one round of its search.
+GIANT_CUT_FAN = 256
+
+
+def giant_cuts_rounds(m: int) -> int:
+    """Dependent rounds of loads :func:`giant_cuts`'s kernel takes at most
+    on ``m`` sorted pairs: each leaves fewer than ceil(len /
+    ``GIANT_CUT_FAN``) pairs open, the last tests every pair left (4 at m
+    = 2^27, where a binary search takes 27)."""
+    rounds = 0
+    while m > 0:
+        m = -(-m // GIANT_CUT_FAN) - 1
+        rounds += 1
+    return rounds
 
 
 def giant_partition_plain(pos: torch.Tensor, gs: torch.Tensor, floor: int,
@@ -1739,28 +1763,36 @@ def giant_partition_plain(pos: torch.Tensor, gs: torch.Tensor, floor: int,
 
 
 def giant_partition(pos: torch.Tensor, gs: torch.Tensor, floor: int, B: int,
-                    S: int):
+                    S: int, totals: typing.Optional[torch.Tensor] = None):
     """(b) by owner: int32 [m] positions and group starts partitioned
     stably by the shard that owns each position, positions made local to
     its block and group starts raised to ``floor`` (the group start carried
     in from earlier shards); returns (positions, group starts, counts int32
-    [S]) (see :func:`giant_partition_plain`).  The caller's contract, as
-    :func:`scatter`'s: every position lies in [0, S * B); the card does not
-    check it."""
+    [S]) (see :func:`giant_partition_plain`), the counts into int32
+    ``totals`` [S] when given, so that several shards' counts come back in
+    one copy.  The caller's contract, as :func:`scatter`'s: every position
+    lies in [0, S * B); the card does not check it."""
     if not 1 <= S <= GIANT_MAX_SHARDS:
         raise ValueError(f'giant_partition: 1 <= S <= {GIANT_MAX_SHARDS}, '
                          f'got {S}')
-    if not kernels.route(pos, gs):
-        return giant_partition_plain(pos, gs, floor, B, S)
+    if B < 1:
+        raise ValueError(f'giant_partition: B >= 1, got {B}')
+    if totals is None:
+        totals = torch.empty(S, dtype=torch.int32, device=pos.device)
+    if not kernels.route(pos, gs, totals):
+        p, g, tot = giant_partition_plain(pos, gs, floor, B, S)
+        totals.copy_(tot)
+        return p, g, totals
     kernels.check(pos, 'pos', torch.int32, 1)
     kernels.check(gs, 'gs', torch.int32, 1)
+    kernels.check(totals, 'totals', torch.int32, 1)
     m = pos.shape[0]
-    if gs.shape[0] != m:
-        raise ValueError('giant_partition: pos and gs differ in length')
+    if gs.shape[0] != m or totals.shape[0] != S:
+        raise ValueError('giant_partition: pos and gs differ in length, or '
+                         'totals is not [S]')
     out_pos, out_gs = torch.empty_like(pos), torch.empty_like(gs)
-    totals = torch.empty(S, dtype=torch.int32, device=pos.device)
     with kernels.on(pos.device):
-        scratch = kernels.scratch('giant_part', S, pos.device)
+        scratch = kernels.scratch('giant_part', (m, S), pos.device)
         kernels.launch('giant_partition', pos.data_ptr(), gs.data_ptr(), m,
                        int(B), int(S), int(floor), out_pos.data_ptr(),
                        out_gs.data_ptr(), totals.data_ptr(),

@@ -201,11 +201,14 @@ def exchange_runs(sends: typing.Sequence[typing.Sequence[torch.Tensor]],
 def gather_shards(xs: typing.Sequence[torch.Tensor],
                   mesh: Mesh) -> torch.Tensor:
     """[S, ...] on the CPU, on every process: each shard's small tensor of
-    one shape (``xs[j]`` local shard j's), in shard order."""
+    one shape (``xs[j]`` local shard j's), in shard order; one copy to the
+    host when the shards share a device."""
     if _by_collectives(mesh):
         (x,) = xs
         x = x.contiguous()
         out = [torch.empty_like(x) for _ in range(mesh.world)]
         dist.all_gather(out, x, group=mesh.group)
         return torch.stack(out).cpu()
+    if len({x.device for x in xs}) == 1:
+        return torch.stack(list(xs)).cpu()
     return torch.stack([x.cpu() for x in xs])

@@ -209,6 +209,8 @@ class _GiantBuild:
         self.text = [text[s * B: (s + 1) * B].to(dev, torch.uint8)
                      .contiguous() for s, dev in places]
         self.rank: typing.List[torch.Tensor] = []
+        #: The regular samples' indices in a sorted block, by device.
+        self.pick: typing.Dict[torch.device, torch.Tensor] = {}
         self.stats = {'shards': S, 'block': B, 'rounds': 0, 'max_recv': [],
                       'recv_bound': 2 * B + S}
 
@@ -236,23 +238,66 @@ class _GiantBuild:
             counts.append(cnt)
         return [r[0] for r in exchange_runs(sends, counts, self.mesh)[0]]
 
+    def _rows(self, width: int, dtype: torch.dtype):
+        """One [shards on d, ``width``] tensor a device d of this process
+        (by device) and every local shard's row of it, so that a step's
+        results for all the shards of a device come back in one copy
+        (:meth:`_read_rows`)."""
+        shards: typing.Dict[torch.device, int] = {}
+        for _, dev in self.places:
+            shards[dev] = shards.get(dev, 0) + 1
+        bufs = {dev: torch.empty((k, width), dtype=dtype, device=dev)
+                for dev, k in shards.items()}
+        rows, taken = [], dict.fromkeys(bufs, 0)
+        for _, dev in self.places:
+            rows.append(bufs[dev][taken[dev]])
+            taken[dev] += 1
+        return bufs, rows
+
+    def _read_rows(self, bufs) -> typing.List[typing.List[int]]:
+        """Every local shard's row of :meth:`_rows`' tensors on the host:
+        one copy, and one wait, a device."""
+        host = {dev: iter(buf.tolist()) for dev, buf in bufs.items()}
+        return [next(host[dev]) for _, dev in self.places]
+
+    def _splitters(self, g: np.ndarray, dev: torch.device):
+        """The (key, position) splitters ``g`` int64 [S - 1, 2] on ``dev``
+        in one copy: an int64 buffer of the keys, then the positions packed
+        as int32; returns (keys int64, positions int32) views of it."""
+        s = g.shape[0]
+        host = np.zeros(s + (s + 1) // 2, np.int64)
+        host[:s] = g[:, 0]
+        host[s:].view(np.int32)[:s] = g[:, 1]
+        buf = torch.from_numpy(host)
+        if dev.type == 'cuda':
+            buf = buf.pin_memory().to(dev, non_blocking=True)
+        else:
+            buf = buf.to(dev)
+        return buf[:s], buf[s:].view(torch.int32)[:s]
+
     def _splits(self, keys, vals) -> typing.List[typing.List[int]]:
         """Every local shard's sorted pairs cut at the S - 1 splitters:
-        the counts it sends to shards 0..S-1."""
+        the counts it sends to shards 0..S-1.  The splitters go to each
+        device once and the cuts come back once a device."""
         S, B = self.S, self.B
         if S == 1:
             return [[kk.shape[0]] for kk in keys]
-        pick = torch.tensor([r * B // S for r in range(1, S)])
-        samples = [torch.stack([kk[pick.to(kk.device)],
-                                vv[pick.to(vv.device)].long()], 1)
-                   for kk, vv in zip(keys, vals)]
+        samples = []
+        for (_, dev), kk, vv in zip(self.places, keys, vals):
+            if dev not in self.pick:
+                self.pick[dev] = torch.tensor(
+                    [r * B // S for r in range(1, S)], device=dev)
+            pick = self.pick[dev]
+            samples.append(torch.stack([kk[pick], vv[pick].long()], 1))
         g = gather_shards(samples, self.mesh).reshape(-1, 2).numpy()
         g = g[np.lexsort((g[:, 1], g[:, 0]))][S - 2::S - 1][:S - 1]
+        bufs, rows = self._rows(S - 1, torch.int64)
+        splitters = {dev: self._splitters(g, dev) for dev in bufs}
+        for (_, dev), kk, vv, row in zip(self.places, keys, vals, rows):
+            giant_cuts(kk, vv, *splitters[dev], out=row)
         counts = []
-        for (_, dev), kk, vv in zip(self.places, keys, vals):
-            cuts = giant_cuts(
-                kk, vv, torch.from_numpy(g[:, 0].copy()).to(dev),
-                torch.from_numpy(g[:, 1].astype(np.int32)).to(dev)).tolist()
+        for (_, dev), kk, cuts in zip(self.places, keys,
+                                      self._read_rows(bufs)):
             edges = [0] + cuts + [kk.shape[0]]
             counts.append([edges[d + 1] - edges[d] for d in range(S)])
         return counts
@@ -302,14 +347,14 @@ class _GiantBuild:
     def _send_home(self, pos: list, gs: list, carries) -> None:
         """Step 6: every (position, group start) pair into its owner's rank
         block; the lists are given up."""
-        sends, counts = [], []
-        for c in carries:
-            p, g, tot = giant_partition(pos.pop(0), gs.pop(0), c, self.B,
-                                        self.S)
+        sends = []
+        bufs, rows = self._rows(self.S, torch.int32)
+        for c, row in zip(carries, rows):
+            p, g, _ = giant_partition(pos.pop(0), gs.pop(0), c, self.B,
+                                      self.S, totals=row)
             sends.append((p, g))
-            counts.append(tot.tolist())
             del p, g
-        recvs = exchange_runs(sends, counts, self.mesh)[0]
+        recvs = exchange_runs(sends, self._read_rows(bufs), self.mesh)[0]
         del sends
         for (p, g), rank in zip(recvs, self.rank):
             scatter(g, p, out=rank)

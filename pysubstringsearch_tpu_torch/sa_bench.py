@@ -114,6 +114,16 @@ registers, stack and spills of the probe kernels of ROOT's source
 written once beside ``--corpus`` and read by later runs of any tree.
 ``--no-base`` skips the default measurements above.
 
+With ``--giant`` it first (before anything else, so that its profiler
+session is the process's first) builds the suffix array of ``--corpus``
+as one row of 512 Mi slots with ``make_giant_chunk_build`` (B14g) over 4
+placements of the card: one build by device time a kernel and a step
+(``giant_build_by_kernel_us``, ``giant_build_by_step_us``, the card's
+busy span), its untraced wall (``giant_build_s``), and its five kernels at
+that row's shapes (B = 128 Mi), each by device time and as a whole call
+beside its bound, the cuts beside ``torch.searchsorted`` and the
+partition at 4, 64 and 256 owners (see ``_giant``).
+
 With ``--profile`` it first prints the device time by kernel
 (``torch.profiler``'s ``key_averages``) of B10's init, of that first pass,
 of B1b and of B2's round 1 on the 512 Mi row (and, with ``--inits``, of
@@ -1063,6 +1073,194 @@ def _probe_bounds(torch, np, S, args, out):
     torch.cuda.empty_cache()
 
 
+#: Placements of one card the giant build splits the 512 Mi row over, as
+#: ``chip_smoke.py``'s ``giant`` phase does.
+GIANT_PLACEMENTS = 4
+#: Owner counts the partition is timed at on the same 128 Mi pairs.
+GIANT_PARTITION_S = (4, 64, 256)
+#: B14g's steps by the device activities that carry them (a part of the
+#: kernel's or activity's name; the first step that matches); anything
+#: else is ``other``.
+GIANT_STEPS = (('radix sort', ('onesweep_',)),
+               ('partition', ('giant_part_',)),
+               ('cuts', ('giant_cuts',)),
+               ('flags', ('giant_flags', 'giant_stats')),
+               ('keys', ('giant_byte_keys', 'giant_round_keys')),
+               ('max scan', ('scan_tile_kernel', 'scan_add_kernel')),
+               ('rank store', ('scatter_kernel',)),
+               ('copies', ('Memcpy', 'CatArrayBatchedCopy')),
+               ('memset', ('Memset',)))
+
+
+def _kernel_name(name):
+    return name.replace('(anonymous namespace)::', '').split('(')[0]
+
+
+def _giant_step(name):
+    for step, parts in GIANT_STEPS:
+        if any(p in name for p in parts):
+            return step
+    return 'other'
+
+
+def _giant(torch, np, SA, bench, args, out):
+    """B14g on ``--corpus`` as one row of N = 512 Mi slots over
+    ``GIANT_PLACEMENTS`` placements of the card, and its five kernels at
+    that row's shapes (B = 128 Mi), as ``chip_smoke.py``'s
+    ``giant_kernels`` makes their inputs: the byte keys of the last block,
+    the round keys at k = 6 from the final ranks, the cuts of those keys
+    sorted at S - 1 of them (beside ``torch.searchsorted`` of the splitter
+    keys, the library yardstick), the flags, and the partition of the
+    sorted positions of slots [0, B) at S = 4, 64 and 256 (B = N / S).
+    One warm-up build gives the SA; then one profiler session, the
+    process's first (G7), traces a second build and one call of every
+    kernel, each opened by a marker kernel (``torch.cuda._sleep``) and
+    closed by a synchronise: ``giant_build_by_kernel_us`` and
+    ``giant_build_by_step_us`` sum the build's device activities by name
+    and by step (``GIANT_STEPS``), ``giant_build_device_us`` all of them
+    against the span from the first to the last (``giant_build_span_us``),
+    and ``<kernel>_device_us`` each call's.  Outside the session: every
+    kernel held against its plain version, its whole call (``_ms``, CUDA
+    events around one call, ``bench.cuda_ms``), its bound (``_bound_ms``:
+    inputs read once, outputs written once, at 3.35 TB/s), the cuts'
+    dependent rounds against a binary search's, and the build's wall
+    untraced (``giant_build_s``; the warm-up's ``giant_build_first_s``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pysubstringsearch_tpu_torch.ops import kernels
+    from pysubstringsearch_tpu_torch.parallel import mesh as M
+    from pysubstringsearch_tpu_torch.parallel import sharded
+
+    dev = torch.device('cuda')
+    data = np.load(args.corpus)
+    n = data.size
+    N = SA._pad_len(n)
+    S = GIANT_PLACEMENTS
+    B = N // S
+    text = torch.zeros(N, dtype=torch.uint8, device=dev)
+    text[:n] = torch.from_numpy(data).to(dev)
+    del data
+    build = sharded.make_giant_chunk_build(
+        M.make_mesh([f'cuda:{torch.cuda.current_device()}'] * S))
+    sa, out['giant_build_first_s'] = _wall_s(torch, lambda: build(text, n))
+    out['giant_rounds'] = build.stats['rounds']
+    out['giant_max_recv'] = build.stats['max_recv']
+    _expect(torch.equal(sa[: N - n], torch.arange(
+        N - 1, n - 1, -1, dtype=torch.int32, device=dev)),
+        'the giant build\'s pad slots are [N - 1, ..., n]')
+
+    # Inputs at the row's shapes, as chip_smoke.giant_kernels makes them.
+    p0 = (S - 1) * B
+    blk, halo = text[p0:], text[N:]
+    inv = torch.empty(N, dtype=torch.int32, device=dev)
+    SA.scatter(torch.arange(N, dtype=torch.int32, device=dev), sa, inv)
+    rank, r2 = inv[p0:].clone(), inv[p0 + 6:].clone()
+    del inv
+    W = SA._key_width(N)
+    keys, vals = SA.giant_round_keys(rank, r2, W, p0)
+    SA.radix_sort_pairs(keys, vals, 2 * W)
+    pick = torch.tensor([r * B // S for r in range(1, S)], device=dev)
+    skeys, spos = keys[pick], vals[pick]
+    pred = int(keys[0]) - 1
+    pos = sa[:B].clone()
+    gs = torch.arange(B, dtype=torch.int32, device=dev)
+    calls = [
+        ('giant_byte_keys', lambda: SA.giant_byte_keys(blk, halo, p0, n),
+         lambda: SA.giant_byte_keys_plain(blk, halo, p0, n), 13 * B),
+        ('giant_round_keys', lambda: SA.giant_round_keys(rank, r2, W, p0),
+         lambda: SA.giant_round_keys_plain(rank, r2, W, p0), 20 * B),
+        ('giant_cuts', lambda: SA.giant_cuts(keys, vals, skeys, spos),
+         lambda: SA.giant_cuts_plain(keys, vals, skeys, spos),
+         (S - 1) * (12 + 12 * B.bit_length()) + 8 * (S - 1)),
+        ('giant_cuts_searchsorted', lambda: torch.searchsorted(keys, skeys),
+         None, None),
+        ('giant_flags', lambda: SA.giant_flags(keys, B, pred, True, N - n),
+         lambda: SA.giant_flags_plain(keys, B, pred, True, N - n),
+         12 * B + 8),
+    ]
+    for s in GIANT_PARTITION_S:
+        calls.append((
+            f'giant_partition_s{s}',
+            lambda s=s: SA.giant_partition(pos, gs, 7, N // s, s),
+            lambda s=s: SA.giant_partition_plain(pos, gs, 7, N // s, s),
+            16 * B + 4 * s))
+    for _, fn, _, _ in calls:  # warm-up
+        fn()
+    torch.cuda.synchronize()
+
+    # A marker kernel opens every traced section, so the device activities
+    # split by order, whatever the skew between host and device clocks.
+    labels = ['giant_build'] + [c[0] for c in calls]
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        torch.cuda._sleep(1)
+        del sa
+        sa = build(text, n)
+        torch.cuda.synchronize()
+        for _, fn, _, _ in calls:
+            torch.cuda._sleep(1)
+            fn()
+            torch.cuda.synchronize()
+    acts = sorted((e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+    sections = []
+    for e in acts:
+        if 'spin_kernel' in e.name:
+            sections.append([])
+        elif sections:
+            sections[-1].append(e)
+    _expect(len(sections) == len(labels),
+            f'{len(sections)} traced sections for {len(labels)} calls')
+    for label, section in zip(labels, sections):
+        by_name = {}
+        for e in section:
+            name = _kernel_name(e.name)
+            us, count = by_name.get(name, (0.0, 0))
+            by_name[name] = (us + e.time_range.elapsed_us(), count + 1)
+        total = sum(us for us, _ in by_name.values())
+        out[f'{label}_device_us'] = total
+        line = {'label': label, 'device_us': total,
+                'by_kernel_us': sorted(([k, us, c] for k, (us, c)
+                                        in by_name.items()),
+                                       key=lambda r: -r[1])}
+        if label == 'giant_build':
+            steps = {}
+            for e in section:
+                step = _giant_step(e.name)
+                steps[step] = steps.get(step, 0.0) + e.time_range.elapsed_us()
+            span = (section[-1].time_range.end - section[0].time_range.start
+                    if section else 0)
+            out['giant_build_span_us'] = span
+            out['giant_build_by_step_us'] = steps
+            out['giant_build_by_kernel_us'] = line['by_kernel_us']
+            line['by_step_us'] = steps
+            line['span_us'] = span
+        print('PROFILE ' + json.dumps(line), flush=True)
+
+    for tag, fn, plain, nbytes in calls:
+        if plain is not None:
+            got, want = fn(), plain()
+            if isinstance(got, torch.Tensor):
+                got, want = (got,), (want,)
+            _expect(all(torch.equal(a, b) for a, b in zip(got, want)),
+                    f'{tag} equals its plain version')
+            out[f'{tag}_bound_ms'] = _floor_ms(nbytes)
+            del got, want
+        out[f'{tag}_ms'] = bench.cuda_ms(
+            fn, 20 if 'cuts' in tag or 'partition' in tag else REPS)
+    out['giant_cuts_rounds'] = SA.giant_cuts_rounds(B) if hasattr(
+        SA, 'giant_cuts_rounds') else None
+    out['giant_cuts_binary_search_rounds'] = B.bit_length()
+    out['giant_launches'] = {k: v for k, v in kernels.LAUNCHES.items()
+                             if k.startswith('giant_')}
+    del keys, vals, rank, r2, pos, gs, sa, calls
+    torch.cuda.empty_cache()
+    _, out['giant_build_s'] = _wall_s(torch, lambda: build(text, n))
+    del text
+    torch.cuda.empty_cache()
+
+
 def _init_rows(torch, np, SA, S, bench, args, out):
     """B1 and B1b on ``INIT_ROWS``, timed beside ``torch.sort`` of their
     keys, K3 on the ranked and digit rows and B9 on 8 MiB chunks; with
@@ -1251,6 +1449,9 @@ def main(argv=None) -> int:
     ap.add_argument('--probes', action='store_true',
                     help='first time the probes (K4, B15, B11) and print '
                     "ptxas's registers and spills of their kernels")
+    ap.add_argument('--giant', action='store_true',
+                    help='first profile one B14g build of the 512 Mi row '
+                    'on 4 placements and time its kernels')
     ap.add_argument('--no-base', action='store_true',
                     help='skip the sorts, B8, the B15 gather, B10, B1b and '
                     'B2 on the 512 Mi row')
@@ -1283,6 +1484,8 @@ def main(argv=None) -> int:
         from bench import make_corpus  # the checkout's, on sys.path
 
         np.save(args.corpus, np.frombuffer(make_corpus(500, 0)[0], np.uint8))
+    if args.giant:
+        _giant(torch, np, SA, bench, args, out)
     if args.probes:
         _probes(torch, np, S, bench, args, out)
     if not args.no_base:

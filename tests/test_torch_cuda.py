@@ -1680,6 +1680,80 @@ def test_giant_kernels_match_plain(cuda, S):
         assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+@pytest.mark.parametrize('case', ['splitters255', 'tie_run'])
+def test_giant_cuts_edges_match_plain(cuda, case):
+    """The cuts' 256-ary search against its plain version: 2^24 pairs in
+    (key, position) order with 255 splitters (the first below every pair,
+    the last above), and a run of 5000 equal keys, longer than a round's
+    256 probes, with splitters inside it, at its ends and beside them."""
+    rng = np.random.default_rng(17)
+    if case == 'splitters255':
+        m = 1 << 24
+        raw = torch.from_numpy(rng.integers(0, 1 << 20, size=m)).to(cuda)
+        keys, order = torch.sort(raw, stable=True)
+        vals = order.to(torch.int32)
+        pick = torch.from_numpy(np.sort(rng.integers(0, m, size=255))).to(
+            cuda)
+        skeys = keys[pick].clone()
+        spos = (vals[pick] + torch.from_numpy(
+            rng.integers(-1, 2, size=255).astype(np.int32)).to(cuda))
+        skeys[0], skeys[-1] = -1, 1 << 21
+    else:
+        keys = torch.cat([torch.full((1000,), 1), torch.full((5000,), 7),
+                          torch.full((1000,), 9)]).to(cuda)
+        vals = torch.cat([torch.arange(1000), torch.arange(0, 10000, 2),
+                          torch.arange(1000)]).to(cuda, torch.int32)
+        sp = [-1, 0, 1, 2, 511, 512, 513, 4999, 5000, 9998, 9999, 10 ** 6]
+        skeys = torch.tensor([7] * len(sp) + [1, 9, 0, 10], device=cuda)
+        spos = torch.tensor(sp + [10 ** 6, -1, 5, 0], dtype=torch.int32,
+                            device=cuda)
+    before = kernels.LAUNCHES['giant_cuts']
+    cuts = SA.giant_cuts(keys, vals, skeys, spos)
+    assert kernels.LAUNCHES['giant_cuts'] == before + 1
+    assert torch.equal(cuts, SA.giant_cuts_plain(keys, vals, skeys, spos))
+    out = torch.empty((2, skeys.shape[0]), dtype=torch.int64, device=cuda)
+    SA.giant_cuts(keys, vals, skeys, spos, out=out[1])
+    assert torch.equal(out[1], cuts)
+
+
+@pytest.mark.parametrize('layout', ['random', 'one_owner', 'offset'])
+@pytest.mark.parametrize('S', [1, 4, 8, 256])
+def test_giant_partition_edges_match_plain(cuda, S, layout):
+    """The two-pass partition against its plain version on m = 2^24 - 1
+    pairs (off the 4096-pair tile) with B = 2^31 / S - 3, not a power of
+    two: positions over every block, all in one owner's block, or read
+    from views one element off the 16-byte alignment (the histogram's
+    scalar loads); group starts on both sides of the floor."""
+    rng = np.random.default_rng(S)
+    m = (1 << 24) - 1
+    B = (1 << 31) // S - 3
+    if layout == 'one_owner':
+        pos = (S // 2) * B + rng.integers(0, B, size=m)
+    else:
+        pos = rng.integers(0, S * B, size=m)
+    gs = rng.integers(-1, 1 << 30, size=m)
+    pos = torch.from_numpy(pos.astype(np.int32)).to(cuda)
+    gs = torch.from_numpy(gs.astype(np.int32)).to(cuda)
+    if layout == 'offset':
+        pos = torch.cat([pos[:1], pos])[1:]
+        gs = torch.cat([gs[:1], gs])[1:]
+        assert pos.data_ptr() % 16 and gs.data_ptr() % 16
+    before = kernels.LAUNCHES['giant_partition']
+    got = SA.giant_partition(pos, gs, 1 << 29, B, S)
+    assert kernels.LAUNCHES['giant_partition'] == before + 1
+    want = SA.giant_partition_plain(pos, gs, 1 << 29, B, S)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    if layout == 'one_owner':
+        assert int(got[2][S // 2]) == m
+
+
+def test_giant_partition_of_nothing(cuda):
+    """m = 0: counts of zero, empty outputs, one launch."""
+    empty = torch.empty(0, dtype=torch.int32, device=cuda)
+    p, g, tot = SA.giant_partition(empty, empty, 3, 37, 5)
+    assert p.shape == g.shape == (0,) and tot.tolist() == [0] * 5
+
+
 @pytest.mark.parametrize('case', ['ranked_8mib', 'period2', 'n_eq_N',
                                   'tiny'])
 def test_giant_build_on_one_card(cuda, case):

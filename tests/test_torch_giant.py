@@ -277,6 +277,135 @@ def test_flags_plain(m, has_pred):
                               int((f & (slots >= real_lo)).sum())]
 
 
+def _cuts_case(case):
+    """(keys, vals, splitter keys, splitter positions) of a cuts edge."""
+    rng = np.random.default_rng(len(case))
+    if case == 'tie_run':  # 1500 equal keys; splitters inside, at, beside
+        keys = np.concatenate([np.full(5, 2), np.full(1500, 3),
+                               np.full(7, 4)]).astype(np.int64)
+        vals = np.concatenate([np.arange(5), np.arange(100, 3100, 2),
+                               np.arange(7)]).astype(np.int32)
+        sk = np.array([3, 3, 3, 3, 3, 3, 2, 4], np.int64)
+        sp = np.array([-1, 100, 101, 2150, 3098, 5000, 99, -3], np.int32)
+        return keys, vals, sk, sp
+    m = {'m0': 0, 'm1': 1, 'below_all': 300, 'above_all': 300,
+         'splitters255': 4000}[case]
+    keys = np.sort(rng.integers(10, 20, size=m)).astype(np.int64)
+    vals = rng.permutation(10 * m + 1)[:m].astype(np.int32)
+    order = np.lexsort((vals, keys))
+    keys, vals = keys[order], vals[order]
+    if case == 'below_all':
+        sk = np.array([9, 10, 10], np.int64)
+        sp = np.array([10 ** 6, -1, int(vals[0]) if m else 0], np.int32)
+    elif case == 'above_all':
+        sk = np.array([20, 19, 19], np.int64)
+        sp = np.array([-5, int(vals[-1]) + 1, 2 ** 31 - 1], np.int32)
+    elif case == 'splitters255':
+        pick = np.sort(rng.integers(0, m, size=255))
+        sk, sp = keys[pick], vals[pick] + rng.integers(-1, 2, size=255)
+        sp = sp.astype(np.int32)
+    else:  # m0, m1: splitters on both sides of every pair
+        sk = np.array([9, 15, 15, 21], np.int64)
+        sp = np.array([0, -1, 2 ** 31 - 1, 0], np.int32)
+        if m:
+            sk[1:3] = keys[0]
+    return keys, vals, sk, sp
+
+
+@pytest.mark.parametrize('case', ['below_all', 'above_all', 'tie_run', 'm0',
+                                  'm1', 'splitters255'])
+def test_cuts_plain_edges(case):
+    """The cuts against numpy's (key, position) order at the kernel's
+    edges: splitters below and above every pair, a run of equal keys
+    longer than a round of the kernel's probes with splitters on both
+    sides of its positions, m = 0 and 1, and 255 splitters; written into
+    ``out``."""
+    keys, vals, sk, sp = _cuts_case(case)
+    out = torch.full((sk.size,), -7, dtype=torch.int64)
+    got = SA.giant_cuts(torch.from_numpy(keys), torch.from_numpy(vals),
+                        torch.from_numpy(sk), torch.from_numpy(sp), out=out)
+    assert got is out
+    order = np.lexsort((vals, keys))
+    assert np.array_equal(order, np.arange(keys.size))
+    # Pairs below each splitter: (key, value) < (sk, sp) lexicographically.
+    want = [int(np.sum((keys < a) | ((keys == a) & (vals < b))))
+            for a, b in zip(sk.tolist(), sp.tolist())]
+    assert out.tolist() == want
+
+
+@pytest.mark.parametrize('m', [0, 1, 2, 255, 256, 257, 1024, 1025, 65536,
+                               65537, 1 << 24, 1 << 27, (1 << 31) - 1])
+def test_cuts_rounds(m):
+    """The kernel's dependent rounds: at most ceil(log256 m) + 1, 4 at the
+    2^27 pairs of a shard of the 512 Mi row, where a binary search takes
+    27."""
+    r = SA.giant_cuts_rounds(m)
+    bound = 0 if m == 0 else 1 + next(k for k in range(6) if 256 ** k >= m)
+    assert r <= bound
+    assert r == {0: 0, 1: 1, 256: 1, 257: 2, 1 << 27: 4}.get(m, r)
+
+
+def _partition_case(case):
+    """(pos, gs, floor, B, S) of a partition edge."""
+    rng = np.random.default_rng(len(case))
+    S, B = {'S1': (1, 2 ** 7 - 1), 'S3': (3, 2 ** 9 + 1),
+            'S256': (256, 2 ** 5 - 1), 'one_owner': (8, 2 ** 8 + 1),
+            'm0': (4, 2 ** 6 + 1), 'below_floor': (5, 2 ** 8 - 1)}[case]
+    m = {'S256': 6000, 'm0': 0}.get(case, 3 * B)
+    if case == 'one_owner':  # every pair in shard 5's block
+        pos = 5 * B + rng.integers(0, B, size=m)
+    else:
+        pos = rng.integers(0, S * B, size=m)
+    gs = rng.integers(0, 10 ** 6, size=m)
+    floor = 7
+    if case == 'below_floor':  # most group starts under the carried one
+        floor = 10 ** 6 - 1000
+    return pos.astype(np.int32), gs.astype(np.int32), floor, B, S
+
+
+@pytest.mark.parametrize('case', ['S1', 'S3', 'S256', 'one_owner', 'm0',
+                                  'below_floor'])
+def test_partition_plain_edges(case):
+    """The partition against numpy at S = 1, 3 and 256, B = 2^k +- 1,
+    every pair to one owner, m = 0 and group starts below the floor;
+    counts into ``totals``."""
+    pos, gs, floor, B, S = _partition_case(case)
+    totals = torch.full((S,), -1, dtype=torch.int32)
+    p, g, tot = SA.giant_partition(torch.from_numpy(pos),
+                                   torch.from_numpy(gs), floor, B, S,
+                                   totals=totals)
+    assert tot is totals
+    owner = pos // B
+    order = np.argsort(owner, kind='stable')
+    np.testing.assert_array_equal(p.numpy(), (pos - owner * B)[order])
+    np.testing.assert_array_equal(g.numpy(), np.maximum(gs, floor)[order])
+    np.testing.assert_array_equal(tot.numpy(),
+                                  np.bincount(owner, minlength=S))
+
+
+def test_giant_build_reads_back_once_a_step(monkeypatch):
+    """On 8 placements of one device a sort reads its cuts back in one
+    copy and a round its partition counts in one: the build's host reads
+    are three a sort (cuts, sizes, relabel summaries) and one a round,
+    whatever the number of placements, and its SA is unchanged."""
+    calls = []
+    tolist = torch.Tensor.tolist
+
+    def counted(self):
+        calls.append(tuple(self.shape))
+        return tolist(self)
+
+    data, padded, n, N = _jax_case()
+    build = tsharded.make_giant_chunk_build(tmesh.make_mesh(['cpu'] * 8))
+    monkeypatch.setattr(torch.Tensor, 'tolist', counted)
+    got = build(padded, n).numpy()
+    monkeypatch.undo()
+    rounds = build.stats['rounds']
+    assert len(calls) == 3 * (rounds + 1) + rounds, calls
+    assert sorted(set(calls)) == sorted({(8, 7), (8, 8), (8, 2)})
+    _check_sa_full(got, data, N)
+
+
 # ---- two gloo ranks -------------------------------------------------------
 
 GIANT_WORKER = r'''
