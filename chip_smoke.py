@@ -157,7 +157,8 @@ Phases (any failure raises and exits non-zero):
     on a 1-process NCCL group (every exchange an ``all_to_all_single``)
     an 8 MiB chunk of the corpus against B9 and native SA-IS and 64 MiB
     of ``ab`` (all ties) against its closed form and B9;
-14. B16 (``b16``): ``sort_bench`` at 2^24 and 2^26, launch counts from 0:
+14. B16 (``b16``): ``sort_bench`` at 2^24, 2^26 and 2^27 (the giant
+    build's rank store, a permutation of 128 Mi), launch counts from 0:
     the scatter kernel equal to its plain version, timed beside its bound,
     the plain and library scatters, one ``torch.sort`` of (key, value)
     pairs and the port's ``radix_sort_pairs`` (equal, with its pass
@@ -1777,7 +1778,7 @@ def run_raw(idx_path, pats, dev, ranked_rows):
     entry('raw_pack', f'{JAX_SEARCH}:833', SEARCH_SRC,
           err(packed, S.raw_pack_plain(text0, n0)),
           cuda_ms(lambda: S.raw_pack(text0, n0, out=packed), 20),
-          cuda_ms(lambda: S.raw_pack_plain(text0, n0), 3), 5 * N)
+          cuda_ms(lambda: S.raw_pack_plain(text0, n0), 3), n0 + 4 * N)
     limbs = S.raw_limb_planes(text0, sa0, n0, depth, K)
     entry('raw_limb_planes', f'{JAX_SEARCH}:862', SEARCH_SRC,
           max(err(limbs, S.raw_limb_planes_text_plain(text0, sa0, n0, depth,
@@ -3329,19 +3330,21 @@ def run_giant(corpus, native_ref, d, dev):
 
 
 def run_b16():
-    """B16 through ``sort_bench`` at 2^24 and 2^26 with launch counts from
-    0: the scatter kernel equal to its plain version, beside one
+    """B16 through ``sort_bench`` at 2^24, 2^26 and 2^27 (the giant
+    build's rank store) with launch counts from 0: the scatter kernel
+    equal to its plain version, beside one
     ``torch.sort`` of (key, value) pairs and ``radix_sort_pairs``; the two
     sorts again at one B10 pass's shape (``measure_wide``); and B8 on a
     skewed batch (:func:`skewed_gather_check`).  Returns the numbers and
-    B16's kernel row (at 2^26)."""
+    B16's kernel row (at 2^27)."""
     import torch
 
     from pysubstringsearch_tpu_torch import sort_bench
     from pysubstringsearch_tpu_torch.ops import kernels
 
     kernels.reset_launches()
-    runs = [sort_bench.measure(log2n) for log2n in (24, 26)]
+    runs = [sort_bench.measure(log2n) for log2n in
+            (24, 26, sort_bench.GIANT_RANK_STORE_LOG2N)]
     launches = dict(kernels.LAUNCHES)
     check(launches['scatter'] > 0 and launches['radix_sort_pairs'] > 0,
           f'sort_bench launched the scatter and the radix sort ({launches})')

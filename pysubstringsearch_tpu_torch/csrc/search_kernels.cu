@@ -2,7 +2,8 @@
 // turn (text, SA) into limb planes and a seed table (K2, K6 and the digit
 // limb planes gather text windows; K1 and K3 make the ranked table, K7 and
 // K3 the raw and digit ones; K5, the raw pack, is the counterpart of the
-// JAX raw_pack_jit and serves no path of the port), the probes that
+// JAX raw_pack_jit, serves no path of the port and runs on K1's
+// template), the probes that
 // answer a query batch against them (K4 phased, B11 over digit limbs, B15
 // over bare text and SA), and the gathers of hits (B8 flat for a merged
 // row, B15 capped per query).
@@ -33,11 +34,12 @@ inline unsigned blocks_for(long long n) {
 }
 
 // ---------------------------------------------------------------------------
-// K1, ranked pack, and K7, seed prefix: one streaming template.  K1
-// replaces _ranked_pack_device / ranked_pack_jit, K7 the prefix-value
-// stream of build_seed_table_device (reached through derive_table_raw_jit;
-// with identity_rank() and base 258 it is also build_bucket_table_device's),
-// whose table K3 then bisects (pysubstringsearch_tpu/ops/search.py).
+// K1, ranked pack, K7, seed prefix, and K5, raw pack: one streaming
+// template.  K1 replaces _ranked_pack_device / ranked_pack_jit, K7 the
+// prefix-value stream of build_seed_table_device (reached through
+// derive_table_raw_jit; with identity_rank() and base 258 it is also
+// build_bucket_table_device's), whose table K3 then bisects, K5
+// raw_pack_jit (pysubstringsearch_tpu/ops/search.py).
 //
 // out[p] folds the D digits srank[text[p]], ..., srank[text[p + D - 1]],
 // first digit first; a digit at or past n is 0, and so is one at or past N
@@ -45,7 +47,12 @@ inline unsigned blocks_for(long long n) {
 //   kPackShift (K1): v = (v << bits) + digit, D = 30 / bits (6 at bits 5,
 //                    5 at bits 6);
 //   kPackBase  (K7): v = v * base + digit, D = depth (2-5), base^depth <=
-//                    2^28 (base 258 serves a full-byte alphabet).
+//                    2^28 (base 258 serves a full-byte alphabet);
+//   kPackRaw   (K5): the bytes themselves (no byte map), D = 4, v = (v <<
+//                    8) | byte, then the top bit flipped: the top byte
+//                    biased by -128, the raw limb encoding, without a
+//                    signed shift.  A position at or past n packs
+//                    INT32_MIN, as the host builder does.
 //
 // Bound by memory: the n text bytes read once, 4 bytes written a position
 // of the row (a tile from n on reads nothing).  A thread owns a
@@ -75,6 +82,7 @@ inline unsigned blocks_for(long long n) {
 // ---------------------------------------------------------------------------
 constexpr int kPackShift = 0;
 constexpr int kPackBase = 1;
+constexpr int kPackRaw = 2;
 constexpr int kPackTile = 16;
 
 // A warp's 512 staged values, as 16-byte units.
@@ -101,8 +109,10 @@ pack_tile_kernel(const uint8_t* __restrict__ text, long long N, long long n,
   constexpr int kBytes = kPackTile + D - 1;  // 17-21
   __shared__ int srank[256];
   __shared__ uint4 stage[kThreads / 32 * kPackStage];
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) srank[i] = rank[i];
-  __syncthreads();
+  if (MODE != kPackRaw) {
+    for (int i = threadIdx.x; i < 256; i += blockDim.x) srank[i] = rank[i];
+    __syncthreads();
+  }
   const long long tiles = (N + kPackTile - 1) / kPackTile;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   const int lane = threadIdx.x & 31;
@@ -156,7 +166,9 @@ pack_tile_kernel(const uint8_t* __restrict__ text, long long N, long long n,
     uint32_t dg[kBytes];
 #pragma unroll
     for (int k = 0; k < kBytes; ++k)
-      dg[k] = k < L ? static_cast<uint32_t>(srank[byte_of(w, k)]) : 0u;
+      dg[k] = k >= L ? 0u
+              : MODE == kPackRaw ? byte_of(w, k)
+                                 : static_cast<uint32_t>(srank[byte_of(w, k)]);
     uint32_t v[kPackTile];
 #pragma unroll
     for (int i = 0; i < kPackTile; ++i) {
@@ -164,8 +176,9 @@ pack_tile_kernel(const uint8_t* __restrict__ text, long long N, long long n,
 #pragma unroll
       for (int d = 0; d < D; ++d)
         x = MODE == kPackShift ? (x << (30 / D)) + dg[i + d]
+            : MODE == kPackRaw ? (x << 8) | dg[i + d]
                                : x * static_cast<uint32_t>(base) + dg[i + d];
-      v[i] = x;
+      v[i] = MODE == kPackRaw ? x ^ 0x80000000u : x;
     }
     if (VEC && (w0 + 32) * kPackTile <= N) {
       // A whole warp of full tiles: its 512 values leave through shared
@@ -209,31 +222,6 @@ int launch_pack(const void* text, long long N, long long n, const void* rank,
     pack_tile_kernel<MODE, D, false><<<grid, kThreads, 0, st>>>(
         (const uint8_t*)text, N, n, (const int*)rank, base, (int*)out);
   return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// K5, raw pack.  Replaces raw_pack_jit (ops/search.py).
-//
-// out[p] = text[p .. p+3] big-endian with the top byte biased by -128 (the
-// raw limb encoding, order-preserving as a signed int32); a byte at or past
-// n is 0, so a position at or past n packs INT32_MIN, as the host builder
-// does.  The bias is the top byte's high bit flipped on unsigned bits, so no
-// signed shift overflows.  One thread per position.  Bound by memory: 1 byte
-// read (the 3 neighbours come from L1) and 4 bytes written per position.
-// ---------------------------------------------------------------------------
-__global__ void raw_pack_kernel(const uint8_t* __restrict__ text,
-                                long long N, long long n,
-                                int* __restrict__ out) {
-  for (long long p = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       p < N; p += (long long)gridDim.x * blockDim.x) {
-    uint32_t v = 0;
-    for (int d = 0; d < 4; ++d) {
-      long long q = p + d;
-      uint32_t b = q < n ? text[q] : 0u;
-      v = (v << 8) | b;
-    }
-    out[p] = static_cast<int>(v ^ 0x80000000u);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1713,11 +1701,7 @@ int pss_ranked_limb_planes(const void* text, const void* rank,
 
 int pss_raw_pack(const void* text, long long N, long long n, void* out,
                  void* stream) {
-  unsigned grid = blocks_for(N);
-  if (grid > 65536u * 16u) grid = 65536u * 16u;
-  raw_pack_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)text, N, n, (int*)out);
-  return (int)cudaGetLastError();
+  return launch_pack<kPackRaw, 4>(text, N, n, nullptr, 0, out, stream);
 }
 
 int pss_raw_limb_planes(const void* text, const void* sa, long long N,

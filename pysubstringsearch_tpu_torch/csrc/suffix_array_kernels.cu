@@ -6,7 +6,7 @@
 // blocks they are made of -- a stable one-sweep LSD radix sort of (uint64
 // key, int32 value) pairs, an exclusive sum scan and an inclusive max scan
 // over int32 -- with the radix sort's store pass alone as a scatter (B16),
-// direct and blocked by destination.
+// binned in shared memory and blocked by destination.
 // No library computes any of them: no cub::Device* routine, no Thrust, no
 // torch operator.
 //
@@ -27,6 +27,7 @@
 #include <climits>
 #include <cstddef>
 #include <cstdint>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -568,31 +569,306 @@ Pairs radix_sort_pairs(uint64_t* keys, int* vals, long long n, int key_bits,
 // B16, the store pass of an LSD radix sort on its own: out[dests[i]] =
 // values[i].  Replaces pallas_scatter (benchmarks/pallas_sort_bench.py),
 // which stored one element at a time from VMEM tiles of 8192 and never
-// lowered.  One thread an element: the reads of values and dests coalesce,
-// the 4-byte stores land wherever dests sends them, so a random
-// permutation costs a 32-byte sector for each 4 bytes written.  Bound by
-// memory: 12 bytes an element.  The dests must be distinct and inside out
-// (a permutation in the benchmark); that is the caller's contract and is
-// not checked here.
+// lowered; the giant build's rank store (parallel/sharded.py _send_home)
+// runs it on each shard's rank block.  The dests must be distinct (a
+// permutation in the benchmark and the rank store); that is the caller's
+// contract and is not checked.  A dest outside out is dropped, and a slot
+// no dest names keeps what out held.
+//
+// Bound by memory: 12 bytes an element.  Stored one element at a time, a
+// random permutation of a 256-512 MiB destination (5-10x the L2) costs a
+// partial 32-byte sector in DRAM for every 4 bytes (about 0.16 TB/s of
+// useful bytes on an H100).  So the store is binned: the destination
+// range is cut into bins of kBinSlots = 2^16 slots, which a cluster of
+// kBinBlocks = 2 blocks assembles in its shared memory (128 KiB a block),
+// and three kernels write each byte of out once, in whole 16-byte stores:
+//   1. scatter_count_kernel counts the pairs of every bin (shared-memory
+//      counters, one global add a block and bin); the exclusive scan of
+//      the counts gives each bin's first slot in an 8-byte (dest, value)
+//      scratch.
+//   2. scatter_distribute_kernel takes a tile of kDistTile = 16384 pairs,
+//      counts them by bin in shared memory (the shared atomic gives each
+//      pair its rank in its bin), claims each present bin's run of the
+//      scratch with one global atomicAdd, stages the tile in bin order and
+//      writes its runs contiguously.  The dests are distinct, so the order
+//      inside a bin is free: no stable ranking, no look-back.
+//   3. scatter_assemble_kernel: the cluster of a bin loads out's range
+//      first only where the bin has fewer pairs than slots, puts every
+//      value at dest - bin start (half of them into the other block's
+//      shared memory) and writes the range out whole.
+// A permutation moves 4 + 16 + 12 = 32 bytes an element, 2.7x the bound.
+// The distribute sets the pace: the shorter its runs, the slower (about 8
+// pairs a run at 2^27 slots).  Measured on an H100 (PERF.md): one block a
+// bin of 2^15 slots (runs half as long) lost more in the distribute than
+// the cluster's remote stores cost; clusters of 4 (2^17 slots) lost as
+// much in the assemble's remote stores as they gained; tiles of 8192
+// pairs and a distribute that loads its next tile while it writes the
+// last were slower.  The bins of one pass cover at most kScatterPassBins *
+// kBinSlots = 2^29 slots; a larger out is stored in windows of that many
+// slots, each pass reading every pair again.
 // ---------------------------------------------------------------------------
-__global__ void scatter_kernel(const int* __restrict__ values,
-                               const int* __restrict__ dests, long long n,
-                               int* __restrict__ out) {
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    out[dests[i]] = values[i];
+constexpr int kBinBlockLog = 15;                       // slots a block owns
+constexpr int kBinBlockSlots = 1 << kBinBlockLog;      // 128 KiB of int32
+constexpr int kBinBlocks = 2;                          // a bin's cluster
+constexpr int kBinLog = kBinBlockLog + 1;
+static_assert(kBinBlocks << kBinBlockLog == 1 << kBinLog, "bin geometry");
+constexpr int kDistThreads = 512;
+constexpr int kDistItems = 32;                         // pairs a thread
+constexpr int kDistTile = kDistThreads * kDistItems;   // 16384 pairs
+constexpr int kAsmThreads = 1024;
+constexpr int kCountThreads = 1024;
+// Bins one pass counts: a distribute tile stages 8 bytes a pair and keeps
+// two ints a bin, within a block's 227 KiB of shared memory.
+constexpr int kScatterPassBins = 8192;
+constexpr int kDistSmem = 8 * kDistTile + 8 * kScatterPassBins;
+static_assert(kDistSmem <= 232448, "a distribute block's shared memory");
+
+__device__ __forceinline__ void count_dest(int* sc, int d, long long lo,
+                                           long long span) {
+  const long long o = static_cast<long long>(d) - lo;
+  if (static_cast<unsigned long long>(o) <
+      static_cast<unsigned long long>(span))
+    atomicAdd(&sc[static_cast<int>(o >> kBinLog)], 1);
+}
+
+// counts[b] += the dests in bin b of the window [lo, lo + span), b < nb.
+__global__ void __launch_bounds__(kCountThreads)
+scatter_count_kernel(const int* __restrict__ dests, long long n, long long lo,
+                     long long span, int nb, int vec,
+                     int* __restrict__ counts) {
+  extern __shared__ int sc[];
+  for (int i = threadIdx.x; i < nb; i += kCountThreads) sc[i] = 0;
+  __syncthreads();
+  const long long stride = static_cast<long long>(gridDim.x) * kCountThreads;
+  const long long t0 =
+      static_cast<long long>(blockIdx.x) * kCountThreads + threadIdx.x;
+  long long tail = 0;
+  if (vec) {
+    const long long n4 = n >> 2;
+    const int4* d4 = reinterpret_cast<const int4*>(dests);
+    for (long long i = t0; i < n4; i += stride) {
+      const int4 d = d4[i];
+      count_dest(sc, d.x, lo, span);
+      count_dest(sc, d.y, lo, span);
+      count_dest(sc, d.z, lo, span);
+      count_dest(sc, d.w, lo, span);
+    }
+    tail = n4 << 2;
+  }
+  for (long long i = tail + t0; i < n; i += stride)
+    count_dest(sc, dests[i], lo, span);
+  __syncthreads();
+  for (int i = threadIdx.x; i < nb; i += kCountThreads)
+    if (sc[i]) atomicAdd(&counts[i], sc[i]);
+}
+
+// Tile blockIdx.x of the pairs into its bins' runs of `pairs`: offsets[b]
+// is bin b's first pair, fill[b] the pairs claimed so far.  Thread t holds
+// pairs 4 (k kDistThreads + t) + 0..3 of the tile, k < kDistItems / 4,
+// loaded 16 bytes at a time where the tile is whole and both inputs are
+// aligned.  nvcc -Xptxas -v (sm_90a): 123 registers, no spills; one block
+// an SM.
+__global__ void __launch_bounds__(kDistThreads)
+scatter_distribute_kernel(const int* __restrict__ values,
+                          const int* __restrict__ dests, long long n,
+                          long long lo, long long span, int nb, int vec,
+                          const int* __restrict__ offsets,
+                          int* __restrict__ fill, int2* __restrict__ pairs) {
+  constexpr int kWarpsD = kDistThreads / 32;
+  extern __shared__ int4 dist_smem[];
+  int2* stage = reinterpret_cast<int2*>(dist_smem);
+  int* off = reinterpret_cast<int*>(stage + kDistTile);  // counts, firsts
+  int* delta = off + nb;                                  // run - tile first
+  __shared__ int s_warp[kWarpsD + 1];
+  for (int i = threadIdx.x; i < nb; i += kDistThreads) off[i] = 0;
+  __syncthreads();
+  const long long base = static_cast<long long>(blockIdx.x) * kDistTile;
+  int d[kDistItems], v[kDistItems], r[kDistItems];
+  if (vec && base + kDistTile <= n) {
+#pragma unroll
+    for (int k = 0; k < kDistItems / 4; ++k) {
+      const long long i = base + 4LL * (k * kDistThreads + threadIdx.x);
+      const int4 dd = *reinterpret_cast<const int4*>(dests + i);
+      const int4 vv = *reinterpret_cast<const int4*>(values + i);
+      d[4 * k] = dd.x; d[4 * k + 1] = dd.y; d[4 * k + 2] = dd.z;
+      d[4 * k + 3] = dd.w;
+      v[4 * k] = vv.x; v[4 * k + 1] = vv.y; v[4 * k + 2] = vv.z;
+      v[4 * k + 3] = vv.w;
+    }
+  } else {
+    // A pair past n gets dest lo - 1, outside every bin.
+    const int none = static_cast<int>(lo - 1);
+#pragma unroll
+    for (int k = 0; k < kDistItems / 4; ++k) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const long long i = base + 4LL * (k * kDistThreads + threadIdx.x) + j;
+        d[4 * k + j] = i < n ? dests[i] : none;
+        v[4 * k + j] = i < n ? values[i] : 0;
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kDistItems; ++k) {
+    const long long o = static_cast<long long>(d[k]) - lo;
+    r[k] = static_cast<unsigned long long>(o) <
+                   static_cast<unsigned long long>(span)
+               ? atomicAdd(&off[static_cast<int>(o >> kBinLog)], 1)
+               : -1;
+  }
+  __syncthreads();
+  // Exclusive scan of the tile's counts in place, a warp a run of bins
+  // (lane-strided, so no bank conflicts), and one claim a present bin.
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int per = (nb + 32 * kWarpsD - 1) / (32 * kWarpsD) * 32;
+  const int b0 = warp * per;
+  int sum = 0;
+  for (int b = b0 + lane; b < b0 + per && b < nb; b += 32) sum += off[b];
+  sum = __reduce_add_sync(kFull, sum);
+  if (lane == 0) s_warp[warp] = sum;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int run = 0;
+    for (int w = 0; w < kWarpsD; ++w) {
+      const int t = s_warp[w];
+      s_warp[w] = run;
+      run += t;
+    }
+    s_warp[kWarpsD] = run;
+  }
+  __syncthreads();
+  int carry = s_warp[warp];
+  for (int b = b0 + lane; b < b0 + per; b += 32) {
+    const int c = b < nb ? off[b] : 0;
+    int incl = c;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += y;
+    }
+    const int first = carry + incl - c;
+    if (c) {
+      off[b] = first;
+      delta[b] = offsets[b] + atomicAdd(&fill[b], c) - first;
+    }
+    carry += __shfl_sync(kFull, incl, 31);
+  }
+  const int total = s_warp[kWarpsD];
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kDistItems; ++k) {
+    if (r[k] >= 0) {
+      const int b = static_cast<int>((static_cast<long long>(d[k]) - lo) >>
+                                     kBinLog);
+      stage[off[b] + r[k]] = make_int2(d[k], v[k]);
+    }
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < total; j += kDistThreads) {
+    const int2 p = stage[j];
+    const int b =
+        static_cast<int>((static_cast<long long>(p.x) - lo) >> kBinLog);
+    pairs[static_cast<long long>(delta[b]) + j] = p;
   }
 }
 
-// The same store blocked by destination: the (dest, value) pairs are first
-// partitioned by dest's top 8 bits with one one-sweep pass (keys bin << 32
-// | dest), so that the stores of the second kernel walk the 256 bins in
-// order and each bin's stores meet in a few MB of L2 instead of landing
-// anywhere in the row.  About 68 bytes an element instead of 12, traded
-// for stores that L2 can merge: the anchored inits' rank[sa[i]] = gs[i], a
-// full permutation, takes this form (sort_bench times it beside
-// scatter_kernel); B2's rank stores, a subset beside other work, do not.
+// int32 [len] between shared and global memory, 16 bytes at a time where
+// vec (both 16-byte aligned).
+__device__ __forceinline__ void copy_ints(int* __restrict__ to,
+                                          const int* __restrict__ from,
+                                          int len, int vec) {
+  int done = 0;
+  if (vec) {
+    const int len4 = len >> 2;
+    const int4* f4 = reinterpret_cast<const int4*>(from);
+    int4* t4 = reinterpret_cast<int4*>(to);
+#pragma unroll 4
+    for (int i = threadIdx.x; i < len4; i += kAsmThreads) t4[i] = f4[i];
+    done = len4 << 2;
+  }
+  for (int i = done + threadIdx.x; i < len; i += kAsmThreads) to[i] = from[i];
+}
+
+// Bin blockIdx.x / kBinBlocks of the window at lo: its counts[b] pairs from
+// offsets[b] into out.  Block q of the bin's cluster owns slots [q
+// kBinBlockSlots, (q + 1) kBinBlockSlots) of it and reads a kBinBlocks-th
+// of its pairs, storing each value into the owner's shared memory.
+__global__ void __cluster_dims__(kBinBlocks, 1, 1)
+__launch_bounds__(kAsmThreads)
+scatter_assemble_kernel(const int2* __restrict__ pairs,
+                        const int* __restrict__ offsets,
+                        const int* __restrict__ counts, long long lo,
+                        long long span, int vec, int* __restrict__ out) {
+  extern __shared__ int4 asm_smem[];
+  int* slots = reinterpret_cast<int*>(asm_smem);
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  const int bin = blockIdx.x / kBinBlocks;
+  const int q = static_cast<int>(cluster.block_rank());
+  const int cnt = counts[bin];
+  if (cnt == 0) return;  // the whole cluster returns
+  const long long s0 = lo + (static_cast<long long>(bin) << kBinLog);
+  long long blen = lo + span - s0;
+  if (blen > (1LL << kBinLog)) blen = 1LL << kBinLog;
+  long long mlen = blen - static_cast<long long>(q) * kBinBlockSlots;
+  mlen = mlen < 0 ? 0 : (mlen > kBinBlockSlots ? kBinBlockSlots : mlen);
+  int* dst = out + s0 + static_cast<long long>(q) * kBinBlockSlots;
+  if (cnt < blen) copy_ints(slots, dst, static_cast<int>(mlen), vec);
+  cluster.sync();  // every block of the cluster runs, its range loaded
+  int* owner[kBinBlocks];
+#pragma unroll
+  for (int k = 0; k < kBinBlocks; ++k)
+    owner[k] = cluster.map_shared_rank(slots, k);
+  auto put = [&](int dest, int value) {
+    const int o = static_cast<int>(static_cast<long long>(dest) - s0);
+    owner[o >> kBinBlockLog][o & (kBinBlockSlots - 1)] = value;
+  };
+  // Pairs [a, e): 16-byte loads of two pairs from the first even index,
+  // the odd ends one pair each.
+  const long long beg = offsets[bin];
+  const long long a = beg + static_cast<long long>(cnt) * q / kBinBlocks;
+  const long long e = beg + static_cast<long long>(cnt) * (q + 1) / kBinBlocks;
+  long long a2 = (a + 1) & ~1LL;
+  if (a2 > e) a2 = e;
+  long long e2 = e & ~1LL;
+  if (e2 < a2) e2 = a2;
+  if (threadIdx.x == 0 && a < a2) {
+    const int2 p = pairs[a];
+    put(p.x, p.y);
+  }
+  if (threadIdx.x == 1 && e2 < e) {
+    const int2 p = pairs[e2];
+    put(p.x, p.y);
+  }
+  const int4* p4 = reinterpret_cast<const int4*>(pairs);
+  const long long v0 = a2 >> 1, v1 = e2 >> 1;
+  for (long long i = v0 + threadIdx.x; i < v1; i += 4 * kAsmThreads) {
+    int4 x[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (i + u * kAsmThreads < v1) x[u] = p4[i + u * kAsmThreads];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (i + u * kAsmThreads < v1) {
+        put(x[u].x, x[u].y);
+        put(x[u].z, x[u].w);
+      }
+    }
+  }
+  cluster.sync();  // every value is in place; no remote store follows
+  copy_ints(dst, slots, static_cast<int>(mlen), vec);
+}
+
+// The same store blocked by destination (sort_bench's point of
+// comparison): the (dest, value) pairs are first partitioned by dest's top
+// 8 bits with one one-sweep pass (keys bin << 32 | dest), so that the
+// stores of the second kernel walk the 256 bins in order and each bin's
+// stores meet in a few MB of L2 instead of landing anywhere in the row.
+// About 68 bytes an element instead of 12, traded for stores that L2 can
+// merge: the anchored inits' rank[sa[i]] = gs[i], a full permutation,
+// takes this form in their own kernels; B2's rank stores, a subset beside
+// other work, do not.
 __global__ void scatter_bin_keys_kernel(const int* __restrict__ values,
                                         const int* __restrict__ dests,
                                         long long n, int shift,
@@ -656,6 +932,65 @@ void blocked_scatter(const int* values, const int* dests, long long n,
                               kBinPass + 1, skip);
   scatter_binned_kernel<<<grid_for(n), kThreads, 0, st>>>(
       s.keys_alt, s.vals_alt, n, out);
+}
+
+// B16's scratch: the (dest, value) pairs, a pass's counts and claims,
+// their scan and the scan's own scratch.
+struct ScatterBufs {
+  int2* pairs;
+  int* counts;  // [kScatterPassBins], then the claims [kScatterPassBins]
+  int* offsets;
+  int* scan;
+};
+
+ScatterBufs carve_scatter(Arena& a, long long n) {
+  ScatterBufs b;
+  b.pairs = a.take<int2>(n);
+  b.counts = a.take<int>(2LL * kScatterPassBins);
+  b.offsets = a.take<int>(kScatterPassBins);
+  b.scan = a.take<int>(scan_scratch_elems(kScatterPassBins));
+  return b;
+}
+
+// out[dests[i]] = values[i] for i < n into out [out_len] (see B16 above).
+void scatter_binned(const int* values, const int* dests, long long n,
+                    int* out, long long out_len, const ScatterBufs& b,
+                    cudaStream_t st) {
+  constexpr long long kWindow = static_cast<long long>(kScatterPassBins)
+                                << kBinLog;
+  constexpr int kAsmSmem = static_cast<int>(sizeof(int)) * kBinBlockSlots;
+  if (out_len > (1LL << 31)) out_len = 1LL << 31;  // int32 dests
+  int device = 0, sms = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  // Set on every call: the attribute is the current device's.
+  cudaFuncSetAttribute(scatter_distribute_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       kDistSmem);
+  cudaFuncSetAttribute(scatter_assemble_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, kAsmSmem);
+  const int in_vec = aligned16(values) && aligned16(dests) ? 1 : 0;
+  const int out_vec = aligned16(out) ? 1 : 0;
+  long long count_grid = cdiv(n, 8LL * kCountThreads);
+  if (count_grid > 2LL * sms) count_grid = 2LL * sms;
+  const unsigned dist_grid = static_cast<unsigned>(cdiv(n, kDistTile));
+  int* fill = b.counts + kScatterPassBins;
+  for (long long lo = 0; lo < out_len; lo += kWindow) {
+    const long long span = out_len - lo < kWindow ? out_len - lo : kWindow;
+    const int nb = static_cast<int>(cdiv(span, 1LL << kBinLog));
+    cudaMemsetAsync(b.counts, 0, sizeof(int) * nb, st);
+    cudaMemsetAsync(fill, 0, sizeof(int) * nb, st);
+    scatter_count_kernel<<<static_cast<unsigned>(count_grid), kCountThreads,
+                           sizeof(int) * nb, st>>>(dests, n, lo, span, nb,
+                                                   in_vec, b.counts);
+    scan_levels<SumOp>(b.counts, b.offsets, nb, true, b.scan, st);
+    scatter_distribute_kernel<<<dist_grid, kDistThreads,
+                                8 * kDistTile + 8 * nb, st>>>(
+        values, dests, n, lo, span, nb, in_vec, b.offsets, fill, b.pairs);
+    scatter_assemble_kernel<<<static_cast<unsigned>(nb) * kBinBlocks,
+                              kAsmThreads, kAsmSmem, st>>>(
+        b.pairs, b.offsets, b.counts, lo, span, out_vec, out);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -3295,14 +3630,22 @@ int pss_sa_rotating_pass(void* sa, void* rank, void* gs, long long N,
 
 // ---- B16 ------------------------------------------------------------------
 
-// out[dests[i]] = values[i] for i < n (dests distinct, inside out).
+long long pss_scatter_scratch_bytes(long long n) {
+  Arena a{nullptr, 0};
+  carve_scatter(a, n);
+  return static_cast<long long>(a.off);
+}
+
+// out[dests[i]] = values[i] for i < n into out [out_len] (dests distinct);
+// scratch of pss_scatter_scratch_bytes(n).
 int pss_scatter(const void* values, const void* dests, long long n, void* out,
-                void* stream) {
-  if (n <= 0) return 0;
-  scatter_kernel<<<grid_for(n), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(values), static_cast<const int*>(dests), n,
-      static_cast<int*>(out));
+                long long out_len, void* scratch, void* stream) {
+  if (n <= 0 || out_len <= 0) return 0;
+  Arena a{static_cast<char*>(scratch), 0};
+  scatter_binned(static_cast<const int*>(values),
+                 static_cast<const int*>(dests), n, static_cast<int*>(out),
+                 out_len, carve_scatter(a, n),
+                 static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -105,8 +105,8 @@ _SIGNATURES: typing.Dict[str, list] = {
     # sa, rank, gs, N, k, m, half, W, flags, dest, ctl, scratch, stream
     'pss_sa_rotating_pass': [_P, _P, _P, _L, _L, _L, _L, _L, _P, _P, _P, _P,
                              _P],
-    # values, dests, n, out, stream
-    'pss_scatter': [_P, _P, _L, _P, _P],
+    # values, dests, n, out, out_len, scratch, stream
+    'pss_scatter': [_P, _P, _L, _P, _L, _P, _P],
     # values, dests, n, out, scratch, stream
     'pss_scatter_blocked': [_P, _P, _L, _P, _P, _P],
     # text, m, halo, h, p0, n, keys, vals, stream
@@ -126,7 +126,8 @@ _SIGNATURES: typing.Dict[str, list] = {
 #: are not counted.
 _SCRATCH = {'scan': 1, 'radix_sort': 1, 'sa_hybrid': 1, 'sa_init': 1,
             'sa_tie': 1, 'sa_round': 1, 'sa_refine': 1, 'sa_pass': 1,
-            'sa_full': 1, 'scatter_blocked': 1, 'seed_table': 1,
+            'sa_full': 1, 'scatter': 1, 'scatter_blocked': 1,
+            'seed_table': 1,
             'giant_part': 2}
 
 #: Kernel name (the C entry point without its prefix) -> launches so far.

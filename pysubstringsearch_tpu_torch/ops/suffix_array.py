@@ -401,6 +401,16 @@ def radix_sort_pairs(keys: torch.Tensor, vals: torch.Tensor, key_bits: int):
     return keys, vals
 
 
+#: B16's geometry, as ``csrc/suffix_array_kernels.cu`` fixes it: the
+#: slots of one bin (a cluster of two blocks assembles it in shared
+#: memory), the pairs of one distribute tile, and the slots one pass of
+#: bins covers (a larger ``out`` takes a pass a window of that many
+#: slots).  The tests probe the kernel's edges with them.
+SCATTER_BIN_SLOTS = 1 << 16
+SCATTER_TILE = 16384
+SCATTER_PASS_SLOTS = 1 << 29
+
+
 def scatter_plain(values: torch.Tensor, dests: torch.Tensor,
                   out: typing.Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version: ``out[dests] = values``, into a new tensor like
@@ -416,11 +426,15 @@ def scatter(values: torch.Tensor, dests: torch.Tensor,
     """B16, the store pass of an LSD radix sort: ``out[dests[i]] =
     values[i]`` for int32 [n] ``values`` and ``dests``, into int32 ``out``
     (a new [n] tensor when not given).  Replaces ``pallas_scatter``
-    (``benchmarks/pallas_sort_bench.py``).  The caller's contract, as in
-    that benchmark, which scatters by a permutation: the dests are distinct
-    and inside ``out``; the card does not check it, and a slot no dest
-    names keeps what ``out`` held.  Any n: the JAX kernel's multiple of
-    8192 was the tile of its VMEM blocks, not a property of the function."""
+    (``benchmarks/pallas_sort_bench.py``); the giant build's rank store
+    runs it.  The caller's contract, as in that benchmark, which scatters
+    by a permutation: the dests are distinct and inside ``out``; the card
+    does not check it, and a slot no dest names keeps what ``out`` held.
+    Any n: the JAX kernel's multiple of 8192 was the tile of its VMEM
+    blocks, not a property of the function.  On the card a binned store
+    (``SCATTER_BIN_SLOTS``): count by bin, distribute the pairs into an 8
+    bytes a pair scratch in bin order, assemble each bin in shared memory
+    and write it whole; one counted launch."""
     if out is None:
         out = torch.empty_like(values)
     if not kernels.route(values, dests, out):
@@ -431,8 +445,9 @@ def scatter(values: torch.Tensor, dests: torch.Tensor,
     if dests.shape[0] != n:
         raise ValueError('scatter: values and dests differ in length')
     with kernels.on(values.device):
+        scratch = kernels.scratch('scatter', n, values.device)
         kernels.launch('scatter', values.data_ptr(), dests.data_ptr(), n,
-                       out.data_ptr())
+                       out.data_ptr(), out.shape[0], scratch.data_ptr())
     return out
 
 
@@ -442,7 +457,7 @@ def scatter_blocked(values: torch.Tensor, dests: torch.Tensor,
     partitioned by the top 8 bits of their dests with one one-sweep pass,
     then stored bin by bin, so that a bin's stores meet in L2.  Same
     contract and plain version as :func:`scatter`; ``sort_bench`` measures
-    it beside the direct store; the anchored inits store their ranks the
+    it beside the binned store; the anchored inits store their ranks the
     same way in their own kernels."""
     if out is None:
         out = torch.empty_like(values)

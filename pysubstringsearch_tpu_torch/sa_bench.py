@@ -69,11 +69,13 @@ the pack (``packed`` first) is timed on the pack, made beforehand (the
 digit planes on K7's values, as its index builds them at depth 3).
 
 With ``--packs`` it times the streaming packs on ``PACK_ROWS``: K1
-(``k1_ranked``, bits 5 on the ranked 272 Mi row) and K7 (``k7_raw`` at the
+(``k1_ranked``, bits 5 on the ranked 272 Mi row), K7 (``k7_raw`` at the
 raw row's 128^3 table, 272 Mi; ``k7_digit`` at 258^3 with
-``identity_rank()``, 256 Mi), and the same on one upload chunk of each kind
-(8,388,563 bytes in a row of 16 Mi slots, ``_chunk``; the digit chunk at
-258^2, the depth its upload index picks), each beside its bound
+``identity_rank()``, 256 Mi) and K5 (``k5_raw``, the raw pack on the raw
+row, held against its plain version), and the same on one upload chunk
+of each kind (8,388,563 bytes in a row of 16 Mi slots, ``_chunk``; the
+digit chunk at 258^2, the depth its upload index picks), each beside its
+bound
 (``_bound_ms``: the n text bytes read and 4 bytes written a position of
 the row, at 3.35 TB/s; no byte at or past n is needed) and
 ``text.to(torch.int32)`` of the same row (``_to_int32_ms``), a copy that
@@ -434,6 +436,7 @@ def _gathers(torch, np, SA, S, bench, args, out):
 #: Writer's first chunk size, padded as the upload index pads its rows.
 PACK_ROWS = (('k1_ranked', 'ranked', 268_400_000, 272 << 20),
              ('k7_raw', 'raw', 268_400_000, 272 << 20),
+             ('k5_raw', 'raw', 268_400_000, 272 << 20),
              ('k7_digit', 'digit', 268_400_000, 1 << 28),
              ('k1_ranked_chunk', 'ranked', 8_388_563, 16 << 20),
              ('k7_raw_chunk', 'raw', 8_388_563, 16 << 20),
@@ -441,12 +444,13 @@ PACK_ROWS = (('k1_ranked', 'ranked', 268_400_000, 272 << 20),
 
 
 def _packs(torch, np, S, bench, args, out):
-    """K1 and K7 on ``PACK_ROWS`` with the parameters their index picks
+    """K1, K7 and K5 on ``PACK_ROWS`` with the parameters their index picks
     (K1 at the alphabet's bits; K7 at the raw table's base and depth, or at
-    base 258 and the digit bucket depth with ``identity_rank()``), each
-    beside its bound (the n text bytes read and 4 bytes written a position
-    of the row, ``_floor_ms``) and ``text.to(torch.int32)`` of the same
-    row, a copy that moves 5 bytes a position of the row (the card's
+    base 258 and the digit bucket depth with ``identity_rank()``; K5 has
+    none), each beside its bound (the n text bytes read and 4 bytes
+    written a position of the row, ``_floor_ms``) and
+    ``text.to(torch.int32)`` of the same row, a copy that moves 5 bytes a
+    position of the row (the card's
     streaming rate, not a library call of the same function).  With
     ``--profile`` one ``PROFILE`` line of the device time by kernel of one
     call of each, all in one profiler session (in a process that opens
@@ -468,6 +472,11 @@ def _packs(torch, np, S, bench, args, out):
             call = (lambda text=text, n=n, rank=rank, bits=bits, dst=dst:
                     S.ranked_pack(text, n, rank, bits, out=dst))
             out[f'{tag}_bits'] = bits
+        elif tag.startswith('k5'):
+            call = (lambda text=text, n=n, dst=dst:
+                    S.raw_pack(text, n, out=dst))
+            _expect(torch.equal(call(), S.raw_pack_plain(text, n)),
+                    f'{tag} equals its plain version')
         else:
             if kind == 'raw':
                 rank_np, sigma = S.alphabet_rank(pres)
@@ -1086,8 +1095,11 @@ GIANT_STEPS = (('radix sort', ('onesweep_',)),
                ('cuts', ('giant_cuts',)),
                ('flags', ('giant_flags', 'giant_stats')),
                ('keys', ('giant_byte_keys', 'giant_round_keys')),
+               # B16: the direct store of older trees, or the count,
+               # distribute and assemble kernels with the sum scan of the
+               # bins' counts (the build's only sum scan).
+               ('rank store', ('scatter_', 'SumOp')),
                ('max scan', ('scan_tile_kernel', 'scan_add_kernel')),
-               ('rank store', ('scatter_kernel',)),
                ('copies', ('Memcpy', 'CatArrayBatchedCopy')),
                ('memset', ('Memset',)))
 
@@ -1442,7 +1454,7 @@ def main(argv=None) -> int:
                     help='also time the SA-order gathers (K2, K6, B12d, '
                     'B13)')
     ap.add_argument('--packs', action='store_true',
-                    help='also time the streaming packs (K1, K7)')
+                    help='also time the streaming packs (K1, K7, K5)')
     ap.add_argument('--probe-bounds', action='store_true',
                     help="also count the sectors the probes' bisections "
                     'read (K4, B11, B15)')

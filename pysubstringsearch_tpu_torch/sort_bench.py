@@ -20,7 +20,8 @@ runs after one warm-up):
   beforehand;
 - ``scatter_ms``: the B16 kernel, which must equal the plain version
   (``scatter_max_abs_err``), beside ``scatter_bound_ms``, its 12 bytes an
-  element at 3.35 TB/s;
+  element at 3.35 TB/s;  at n = 2^27 (``GIANT_RANK_STORE_LOG2N``) that is
+  the giant build's rank store, a permutation of a shard's 128 Mi slots;
 - ``blocked_scatter_ms``: the same store blocked by destination
   (``suffix_array.scatter_blocked``: one one-sweep pass on the dests' top 8
   bits, then the stores bin by bin), equal to the plain version
@@ -46,6 +47,10 @@ from .ops import suffix_array as SA
 
 #: Device memory rate of the H100 SXM (NVIDIA's data sheet), bytes/s.
 HBM_BYTES_PER_S = 3.35e12
+
+#: log2 of the giant build's rank store: each of 4 shards of a 512 Mi row
+#: scatters a permutation of its 128 Mi slots (``parallel/sharded.py``).
+GIANT_RANK_STORE_LOG2N = 27
 
 #: Pairs and key bits of one B10 pass on a 512 Mi row: m_w about 21 M
 #: marked slots, keyed (group start << 30) | (r2 + 1).

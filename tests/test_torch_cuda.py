@@ -466,6 +466,33 @@ def test_raw_kernels_match_plain(cuda, size):
         assert kernels.LAUNCHES[name] > before[name], name
 
 
+#: A raw row length that is a multiple of neither 16 (a thread's tile)
+#: nor 512 (a warp's staged stores), and true lengths at its end.
+K5_N = 100_003
+K5_NS = (0, K5_N - 3, K5_N - 2, K5_N - 1, K5_N)
+
+
+@pytest.mark.parametrize('offset', [0, 1])
+@pytest.mark.parametrize('n', K5_NS)
+def test_raw_pack_matches_plain_at_row_edges(cuda, n, offset):
+    """K5 on K1's tile template against ``raw_pack_plain`` at true lengths
+    up to the row's end, on an aligned row and output (the 16-byte form)
+    and on views one element off the alignment (the byte-load form); bytes
+    past n must not count."""
+    body = _body('raw', K5_N, 11)
+    buf = torch.full((K5_N + 1,), 0x7e, dtype=torch.uint8, device=cuda)
+    text = buf[offset: offset + K5_N]
+    text[:n] = torch.from_numpy(body[:n]).to(cuda)
+    out = torch.empty(K5_N + 1, dtype=torch.int32,
+                      device=cuda)[offset: offset + K5_N]
+    before = kernels.LAUNCHES['raw_pack']
+    packed = S.raw_pack(text, n, out=out)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES['raw_pack'] == before + 1
+    assert torch.equal(packed, S.raw_pack_plain(text, n))
+    assert (packed[n:] == torch.iinfo(torch.int32).min).all()
+
+
 def _digit_body(size: int, seed: int) -> np.ndarray:
     """UTF-16LE text of printable words: every second byte is NUL, so the
     alphabet is wide and holds NUL, the digit kind."""
@@ -1413,6 +1440,81 @@ def test_scatter_matches_plain(cuda, n):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES['scatter'] == before + 1
     assert torch.equal(out, SA.scatter_plain(values, dests))
+
+
+def _scatter_case(case: str):
+    """(values, dests, preset out) of a B16 case, numpy int32, made from a
+    seed: permutations at the bin and tile edges and of the giant rank
+    store's 2^27 slots, and partial covers of a larger ``out`` preset to a
+    sentinel whose untouched slots must survive."""
+    R, T = SA.SCATTER_BIN_SLOTS, SA.SCATTER_TILE
+    rng = np.random.default_rng(len(case))
+    perms = {'empty': 0, 'one': 1, 'bin_minus_1': R - 1, 'bin': R,
+             'bin_plus_1': R + 1, 'ragged_tile': 3 * T + 5,
+             'giant_rank_store': 1 << 27}
+    if case in perms:
+        n = perms[case]
+        dests = rng.permutation(n).astype(np.int32)
+        out = np.full(max(n, 1), -7, np.int32)
+    elif case == 'partial':
+        out = np.full(10_000_019, -7, np.int32)
+        dests = rng.choice(out.size, 3_000_000, replace=False)
+    elif case == 'one_bin':
+        out = np.full(10 * R + 17, -7, np.int32)
+        dests = 3 * R + rng.choice(R, 20_000, replace=False)
+    elif case == 'descending':
+        dests = np.arange(5_000_003, dtype=np.int64)[::-1]
+        out = np.full(dests.size, -7, np.int32)
+    elif case == 'past_one_pass':
+        out = np.full(SA.SCATTER_PASS_SLOTS + R + 3, -7, np.int32)
+        dests = rng.choice(out.size, 1 << 22, replace=False)
+        dests[:3] = [0, out.size - 1, SA.SCATTER_PASS_SLOTS]
+    else:
+        raise ValueError(case)
+    values = rng.integers(-(1 << 31), 1 << 31, size=dests.size,
+                          dtype=np.int64).astype(np.int32)
+    return values, dests.astype(np.int32), out
+
+
+SCATTER_CASES = ('empty', 'one', 'bin_minus_1', 'bin', 'bin_plus_1',
+                 'ragged_tile', 'giant_rank_store', 'partial', 'one_bin',
+                 'descending', 'past_one_pass')
+
+
+@pytest.mark.parametrize('case', SCATTER_CASES)
+def test_scatter_binned_matches_plain(cuda, case):
+    """B16 against ``scatter_plain`` at its edges: no pair and one, the bin
+    edges, a tile not whole, the giant rank store's 2^27 permutation, a
+    partial cover (slots no dest names keep the sentinel), every dest in
+    one bin, dests in descending order and an ``out`` past one pass of
+    bins; one counted launch a call."""
+    values, dests, preset = _scatter_case(case)
+    v, d = torch.from_numpy(values).to(cuda), torch.from_numpy(dests).to(cuda)
+    out = torch.from_numpy(preset).to(cuda)
+    want = SA.scatter_plain(v, d, out.clone())
+    before = kernels.LAUNCHES['scatter']
+    assert SA.scatter(v, d, out) is out
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES['scatter'] == before + 1
+    assert torch.equal(out, want)
+
+
+def test_scatter_binned_unaligned_views(cuda):
+    """B16 on views one element off the 16-byte alignment (the scalar
+    loads and stores) against ``scatter_plain``."""
+    rng = np.random.default_rng(5)
+    n = 1_000_001
+    buf_v = torch.from_numpy(rng.integers(0, 1 << 30, size=n + 1,
+                                          dtype=np.int32)).to(cuda)
+    buf_d = torch.zeros(n + 1, dtype=torch.int32, device=cuda)
+    buf_d[1:] = torch.from_numpy(rng.permutation(n + 5)[:n].astype(
+        np.int32)).to(cuda)
+    buf_o = torch.full((n + 6,), -7, dtype=torch.int32, device=cuda)
+    v, d, out = buf_v[1:], buf_d[1:], buf_o[1:]
+    want = SA.scatter_plain(v, d, out.clone())
+    SA.scatter(v, d, out)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want) and int(buf_o[0]) == -7
 
 
 @pytest.mark.parametrize('n', [1, 300, (1 << 20) + 3])

@@ -192,6 +192,26 @@ N_EDGE = 4099
 EDGE_NS = (N_EDGE, N_EDGE - 1, N_EDGE - PAD_MARGIN, N_EDGE - 7)
 
 
+#: K5's row edges: true lengths 0 and N - 3 .. N of a row that is a
+#: multiple of neither 16 nor 512 (the kernel's tile and a warp's stores).
+K5_EDGE_NS = (0, N_EDGE - 3, N_EDGE - 2, N_EDGE - 1, N_EDGE)
+
+
+@pytest.mark.parametrize('n', K5_EDGE_NS)
+@pytest.mark.parametrize('case', ['printable', 'fullbyte'])
+def test_raw_pack_matches_jax_at_row_edges(case, n):
+    """K5 (its wrapper's CPU path, the specification the card's kernel is
+    held to) against the JAX ``raw_pack_jit`` at true lengths up to the
+    row's end: the last positions' windows cross n, and bytes past n,
+    here not 0, must not count."""
+    text = np.full(N_EDGE, 0x7e, dtype=np.uint8)
+    text[:n] = np.resize(CASES[case](), n)
+    packed = tsearch.raw_pack(torch.from_numpy(text), n)
+    jpacked = jsearch.raw_pack_jit(3)(jnp.asarray(text), jnp.int32(n))
+    np.testing.assert_array_equal(packed.numpy(), np.asarray(jpacked))
+    assert (packed.numpy()[n:] == np.iinfo(np.int32).min).all()
+
+
 @pytest.mark.parametrize('n', EDGE_NS)
 @pytest.mark.parametrize('case, depth, K', [('printable', 3, 3),
                                             ('fullbyte', 2, 1)])

@@ -419,6 +419,31 @@ def test_scatter_plain_matches_the_bench_reference(n):
         tsa.scatter(v, torch.from_numpy(ranks)).numpy(), np.sort(values))
 
 
+@pytest.mark.parametrize('case', ['partial_cover', 'one_bin'])
+def test_scatter_matches_the_xla_scatter_on_a_preset_out(case):
+    """B16's wrapper on CPU tensors (the specification its kernel is held
+    to) against ``jnp.asarray(preset).at[d].set(v)``: a partial cover of a
+    larger ``out`` preset to a sentinel, whose untouched slots keep it, and
+    every dest in one of B16's bins."""
+    rng = np.random.default_rng(len(case))
+    R = tsa.SCATTER_BIN_SLOTS
+    if case == 'partial_cover':
+        preset = np.full(50_003, -7, np.int32)
+        dests = rng.choice(preset.size, 20_000, replace=False)
+    else:
+        preset = np.full(4 * R + 5, -7, np.int32)
+        dests = 2 * R + rng.choice(R, 3000, replace=False)
+    dests = dests.astype(np.int32)
+    values = rng.integers(0, 1 << 30, size=dests.size).astype(np.int32)
+    want = np.asarray(jnp.asarray(preset).at[jnp.asarray(dests)].set(
+        jnp.asarray(values)))
+    out = torch.from_numpy(preset.copy())
+    assert tsa.scatter(torch.from_numpy(values), torch.from_numpy(dests),
+                       out) is out
+    np.testing.assert_array_equal(out.numpy(), want)
+    assert (out.numpy() == -7).sum() == preset.size - dests.size
+
+
 def test_sort_bench_needs_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     assert sort_bench.main(['12']) != 0
