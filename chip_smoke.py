@@ -149,7 +149,8 @@ Phases (any failure raises and exits non-zero):
 13. B14g (``giant``), ``make_giant_chunk_build``: the big row's SA again
     with its positions split over ``GIANT_PLACEMENTS`` (4) placements of
     the card, launch counts from 0 (B14g's kernels, the radix sort, the
-    max scan and the scatter must launch), against native SA-IS of 12 and
+    max scan and the scatter must launch; one local sort and one merge of
+    the received runs a shard a sort), against native SA-IS of 12 and
     the pad slots in closed form, its wall, rounds, memory peak (at most
     ``SA_BUILD_BYTES_PER_SLOT`` bytes a slot with the text) and every
     sort's largest receive against 2B + S; its kernels against their
@@ -226,8 +227,8 @@ POISON_ROW_BYTES = 400 << 20
 #: Entry points of B14g's steps of its own (the giant build also runs the
 #: radix sort, the max scan and the scatter).
 GIANT_KERNELS = ('giant_byte_keys', 'giant_round_keys', 'giant_cuts',
-                 'giant_partition', 'giant_flags', 'radix_sort_pairs',
-                 'scan_inclusive_max', 'scatter')
+                 'giant_partition', 'giant_flags', 'giant_merge',
+                 'radix_sort_pairs', 'scan_inclusive_max', 'scatter')
 #: Placements of one card the giant build splits the big row over.
 GIANT_PLACEMENTS = 4
 #: The world-1 giant builds: an 8 MiB chunk of the corpus (its padded row
@@ -3119,6 +3120,28 @@ def period2_sa(N, dev):
                                    device=dev)])
 
 
+def received_runs(rank, W, lo, hi, k, S):
+    """The runs a shard holding group starts [lo, hi) receives in a round
+    at ``k`` of the giant build over ``S`` sources, from the ranks ``rank``
+    int32 [N] (distinct: the final ones): (keys int64 ``rank[i] << W |
+    (rank[i + k] + 1)``, 0 in place of ``rank[i + k] + 1`` past the row;
+    positions int32; run lengths), run s the positions of source block s
+    (N / S each) with a rank in [lo, hi), sorted by (key, position)."""
+    import torch
+
+    N = rank.shape[0]
+    pos = torch.nonzero((rank >= lo) & (rank < hi)).flatten()
+    low = torch.zeros_like(pos)
+    inside = pos + k < N
+    low[inside] = rank[pos[inside] + k].long() + 1
+    keys = (rank[pos].long() << W) | low
+    src = torch.div(pos, N // S, rounding_mode='floor')
+    order = torch.sort(keys, stable=True).indices
+    order = order[torch.sort(src[order], stable=True).indices]
+    runs = torch.bincount(src, minlength=S).tolist()
+    return keys[order], pos[order].to(torch.int32), runs
+
+
 def giant_kernels(text, n, sa, S, entry):
     """B14g's kernels against their plain versions at the shapes of the
     big row split in ``S`` blocks (B = N / S), each timed beside its bound
@@ -3127,7 +3150,11 @@ def giant_kernels(text, n, sa, S, entry):
     the final ranks (the inverse of ``sa``), (b) the cuts of that block's
     sorted keys at S - 1 of its keys and the partition by owner of the
     sorted positions of slots [0, B) with their slots as group starts, (c)
-    the flags of the sorted keys."""
+    the flags of the sorted keys and the max scan of those flags, and the
+    merge of the S runs shard 1 receives at k = 6 (:func:`received_runs`),
+    beside ``radix_sort_pairs`` of the same runs (the sort it replaces)
+    and a stable ``torch.sort`` with the positions gathered (the
+    library call)."""
     import torch
 
     from pysubstringsearch_tpu_torch.ops import suffix_array as SA
@@ -3150,8 +3177,33 @@ def giant_kernels(text, n, sa, S, entry):
                inv)
     rank = inv[p0:].clone()
     r2 = inv[p0 + 6:].clone()
-    del inv
     W = SA._key_width(N)
+    mk, mv, runs = received_runs(inv, W, B, 2 * B, 6, S)
+    del inv
+    m = mk.shape[0]
+    # The merge gives its inputs up (an even number of rounds merges in
+    # place): every call runs on copies restored before it, untimed.
+    work = [mk.clone(), mv.clone()]
+
+    def restore():
+        work[0].copy_(mk)
+        work[1].copy_(mv)
+
+    want = SA.giant_merge_plain(mk, mv, runs)
+    got = SA.giant_merge(work[0], work[1], runs)
+    e = max(err(a, b) for a, b in zip(got, want))
+    del got, want
+    radix_ms = cuda_ms(lambda: SA.radix_sort_pairs(work[0], work[1], 2 * W),
+                       5, restore)
+    merge_ms = cuda_ms(lambda: SA.giant_merge(work[0], work[1], runs), 5,
+                       restore)
+    entry('giant_merge', GIANT_SRC, SA_SRC, e, merge_ms,
+          cuda_ms(lambda: SA.giant_merge_plain(mk, mv, runs), 1), 24 * m,
+          cuda_ms(lambda: SA.giant_merge_plain(mk, mv, runs), 3))
+    log(f'giant_merge: {m} pairs in {S} runs {runs} of {2 * W}-bit keys; '
+        f'radix_sort_pairs of the same runs {radix_ms:.4f} ms, '
+        f'{radix_ms / merge_ms:.2f}x the merge\'s {merge_ms:.4f} ms')
+    del mk, mv, work
     got = SA.giant_round_keys(rank, r2, W, p0)
     want = SA.giant_round_keys_plain(rank, r2, W, p0)
     entry('giant_round_keys', GIANT_SRC, SA_SRC,
@@ -3183,6 +3235,11 @@ def giant_kernels(text, n, sa, S, entry):
           cuda_ms(lambda: SA.giant_flags(keys, B, pred, True, N - n), 5),
           cuda_ms(lambda: SA.giant_flags_plain(keys, B, pred, True, N - n),
                   1), 12 * B + 8)
+    entry('scan_inclusive_max', GIANT_SRC, SA_SRC,
+          err(SA.scan_inclusive_max(v), SA.scan_inclusive_max_plain(v)),
+          cuda_ms(lambda: SA.scan_inclusive_max(v), 5),
+          cuda_ms(lambda: SA.scan_inclusive_max_plain(v), 1), 8 * B,
+          cuda_ms(lambda: torch.cummax(v, 0), 5))
     del keys, vals, v, pv
     pos = sa[:B].clone()
     gs = torch.arange(B, dtype=torch.int32, device=text.device)
@@ -3239,6 +3296,10 @@ def run_giant(corpus, native_ref, d, dev):
     st = dict(build.stats)
     for name in GIANT_KERNELS:
         check(launches[name] > 0, f'the giant build launched {name}')
+    sorts = S * (st['rounds'] + 1)
+    check(launches['radix_sort_pairs'] == launches['giant_merge'] == sorts,
+          f'the giant build sorted each shard\'s pairs once and merged its '
+          f'received runs once a sort ({sorts})')
     slot_bytes = (peak + N) / N
     check(slot_bytes <= SA.SA_BUILD_BYTES_PER_SLOT,
           f'the giant build peaks at {slot_bytes:.2f} bytes a slot, text '

@@ -566,6 +566,130 @@ Pairs radix_sort_pairs(uint64_t* keys, int* vals, long long n, int key_bits,
 }
 
 // ---------------------------------------------------------------------------
+// The inclusive max scan of pss_scan_inclusive_max (B14g's relabel, the
+// JAX lax.cummax) in one pass of decoupled look-back.  scan_levels<MaxOp>
+// reads and writes every element twice (its tile scan, then the carries
+// added back) and stays for the builds' internal scans, which take device
+// counts; this pass reads each element once and writes it once, 8 bytes an
+// element, the bound.  A block takes the next tile of kMaxScanTile elements
+// from an atomic counter (so every earlier tile already runs and the
+// look-back cannot wait on a block never scheduled), loads 16 consecutive
+// elements a thread as four 16-byte vectors where both buffers are
+// aligned, scans them in the block, publishes the tile's maximum (tag 1)
+// and, once warp 0 has read back over its predecessors' words 32 at a time
+// to the nearest inclusive prefix (tag 2), its own prefix, then writes the
+// tile with the carry.  A word holds the value in its low half and the tag
+// in its high half; the scratch is zeroed on the caller's stream.
+// ---------------------------------------------------------------------------
+constexpr int kMaxScanThreads = 256;
+constexpr int kMaxScanItems = 16;
+constexpr int kMaxScanTile = kMaxScanThreads * kMaxScanItems;
+
+__global__ void __launch_bounds__(kMaxScanThreads)
+    max_scan_kernel(const int* in, int* out, long long n,
+                    unsigned long long* status, int* counter, int vec) {
+  __shared__ int s_tile;
+  __shared__ int s_carry;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  if (t == 0) s_tile = atomicAdd(counter, 1);
+  __syncthreads();
+  const long long tile = s_tile;
+  const long long base =
+      tile * kMaxScanTile + static_cast<long long>(t) * kMaxScanItems;
+  const bool whole = vec && base + kMaxScanItems <= n;
+  int v[kMaxScanItems];
+  if (whole) {
+    const int4* src = reinterpret_cast<const int4*>(in + base);
+#pragma unroll
+    for (int q = 0; q < kMaxScanItems / 4; ++q) {
+      const int4 x = src[q];
+      v[4 * q] = x.x;
+      v[4 * q + 1] = x.y;
+      v[4 * q + 2] = x.z;
+      v[4 * q + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kMaxScanItems; ++j) {
+      v[j] = base + j < n ? in[base + j] : INT_MIN;
+    }
+  }
+  int acc = INT_MIN;
+#pragma unroll
+  for (int j = 0; j < kMaxScanItems; ++j) acc = MaxOp::apply(acc, v[j]);
+  int total;
+  int run = block_exclusive_scan<MaxOp, kMaxScanThreads / 32>(acc, &total);
+  unsigned long long* mine = status + tile;
+  if (t == 0) {
+    status_store(mine, tile == 0 ? 2u : 1u, static_cast<unsigned>(total));
+    s_carry = INT_MIN;
+  }
+  if (t < 32 && tile > 0) {
+    int carry = INT_MIN;
+    for (long long q = tile - 1;; q -= 32) {
+      const long long at = q - lane;  // lane 0 the nearest predecessor
+      unsigned long long w =
+          at >= 0 ? *reinterpret_cast<const volatile unsigned long long*>(
+                        status + at)
+                  : (2ull << 32) | static_cast<unsigned>(INT_MIN);
+      while (__any_sync(kFull, static_cast<unsigned>(w >> 32) == 0u)) {
+        if (static_cast<unsigned>(w >> 32) == 0u) {
+          w = *reinterpret_cast<const volatile unsigned long long*>(status +
+                                                                    at);
+        }
+      }
+      const unsigned prefixes =
+          __ballot_sync(kFull, static_cast<unsigned>(w >> 32) == 2u);
+      int x = static_cast<int>(static_cast<unsigned>(w));
+      if (prefixes && lane > __ffs(prefixes) - 1) x = INT_MIN;
+      for (int o = 16; o > 0; o >>= 1) {
+        x = MaxOp::apply(x, __shfl_xor_sync(kFull, x, o));
+      }
+      carry = MaxOp::apply(carry, x);
+      if (prefixes) break;
+    }
+    if (t == 0) {
+      status_store(mine, 2u,
+                   static_cast<unsigned>(MaxOp::apply(carry, total)));
+      s_carry = carry;
+    }
+  }
+  __syncthreads();
+  run = MaxOp::apply(run, s_carry);
+#pragma unroll
+  for (int j = 0; j < kMaxScanItems; ++j) {
+    run = MaxOp::apply(run, v[j]);
+    v[j] = run;
+  }
+  if (whole) {
+    int4* dst = reinterpret_cast<int4*>(out + base);
+#pragma unroll
+    for (int q = 0; q < kMaxScanItems / 4; ++q) {
+      dst[q] = make_int4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kMaxScanItems; ++j) {
+      if (base + j < n) out[base + j] = v[j];
+    }
+  }
+}
+
+// The max scan's scratch: a status word a tile and the tile counter.
+struct MaxScanBufs {
+  unsigned long long* status;
+  int* counter;
+};
+
+MaxScanBufs carve_max_scan(Arena& a, long long n) {
+  MaxScanBufs b;
+  b.status = a.take<unsigned long long>(cdiv(n, kMaxScanTile));
+  b.counter = a.take<int>(1);
+  return b;
+}
+
+// ---------------------------------------------------------------------------
 // B16, the store pass of an LSD radix sort on its own: out[dests[i]] =
 // values[i].  Replaces pallas_scatter (benchmarks/pallas_sort_bench.py),
 // which stored one element at a time from VMEM tiles of 8192 and never
@@ -2863,8 +2987,9 @@ __global__ void roll_front_kernel(const int* __restrict__ src, long long N,
 // where XLA partitions the lax.sort of every B9 round into a distributed
 // sort; there is no such partitioner here, so parallel/sharded.py runs each
 // round as a sample sort over torch.distributed (or device copies between
-// the placements of one process), on this file's radix sort, max scan and
-// scatter, and on these kernels for the steps none of them does:
+// the placements of one process), on this file's radix sort (a shard's
+// local pairs), max scan and scatter, and on these kernels for the steps
+// none of them does:
 //   (a) giant_byte_keys_kernel, giant_round_keys_kernel: B9's keys of one
 //       shard's block of B positions, with the positions as values: the
 //       6-byte init key (B1b's layout, limb0 << 25 | limb1, 50 bits) from
@@ -2887,6 +3012,9 @@ __global__ void roll_front_kernel(const int* __restrict__ src, long long N,
 //       host) and -1 elsewhere, with the shard's last such slot and the
 //       number of them at real slots (>= N - n); the max scan over the
 //       candidates then gives every slot its group start.
+//   (d) giant_merge_rank_kernel + giant_merge_segments_kernel: the S
+//       sorted runs a shard receives merged into its (key, position)
+//       order (see their own notes).
 // (a), (c) and the partition are bound by memory: (a) writes 12 bytes a
 // position and reads 1 or 8, the partition reads 8 bytes a pair and writes
 // 8 (and reads the positions once more), (c) reads 8 and writes 4.  The
@@ -3298,6 +3426,335 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Step 4's merge of the S runs a shard receives (giant_merge).  Each run
+// is sorted by (key, position), and the runs come in source order, which
+// is position order, so the shard's (key, position) order is the stable
+// sort of their concatenation, (key, run, index): a merge.  A round merges
+// consecutive runs kMergeWays at a time, pairs (run 2g with run 2g + 1),
+// reading and writing each pair once (24 bytes a pair), until one run is
+// left: ceil(log2 S) rounds, 2 at S = 4 and 8 at 256, where the radix sort
+// it replaces makes 6-8 passes of 24 bytes and a histogram.  A round:
+//   1. giant_merge_rank_kernel: every run of a group of w runs gives a
+//      sample every gap = kMergeTile / w pairs, and each sample's co-rank
+//      in each run of its group -- the run's pairs before it: keys <= its
+//      key in an earlier run, < in a later one, its own index in its own
+//      run -- by a binary search a lane, w lanes a sample.  The samples
+//      before it in (key, run, index) order are the sum over the runs of
+//      ceil(co-rank / gap), which is where its co-ranks go in the group's
+//      list: the list comes out sorted, with no sort.
+//   2. giant_merge_segments_kernel: a block a listed sample merges the
+//      pairs from it up to the next one (or the group's end).  Between two
+//      consecutive samples no run has a sample of its own, so each run
+//      gives at most gap pairs and the segment at most kMergeTile; its
+//      first output slot is the group's first plus the sum of its
+//      co-ranks.  The block loads the sub-runs into shared memory
+//      (consecutive threads on consecutive pairs, every load of a thread
+//      in flight at once), merges them there (merge_level: a merge-path
+//      search a thread, then a serial merge of its kMergeItems slots; for
+//      w > 2, ceil(log2 w) such levels), carrying each pair's slot in the
+//      segment so that its value moves once, and writes the segment out in
+//      order.
+// Measured on an H100 at 128 Mi pairs (PERF.md): merging 4 or 16 runs in
+// one round (w = 4 or 16, the levels in shared memory) was slower than
+// pairs at S = 4, 64 and 256, though at S = 4 it moves half the bytes: a
+// round is held by its blocks' chains of latency (the list rows, then the
+// pairs, then the levels), not by its bytes, and a segment holds
+// kMergeTile / w pairs on average.  Ranking each pair by a binary search
+// in every other sub-run, the first form, spent most of its time in the
+// searches' issue slots; a serial merge spends a compare a pair.  Keys
+// compare as int64, as torch orders them.
+constexpr int kMergeWays = 2;
+constexpr int kMergeTile = 2048;
+constexpr int kMergeThreads = 256;
+constexpr int kMergeItems = kMergeTile / kMergeThreads;  // pairs a thread
+constexpr int kMergeMaxRuns = kGiantMaxShards;
+static_assert(kMergeTile % kMergeThreads == 0, "whole items a thread");
+static_assert(kMergeTile <= 65536, "a segment's slots fit 16 bits");
+
+// One round's runs, by value in the kernels' parameters: run c holds pairs
+// [off[c], off[c + 1]) and its samples are list rows [smp[c], smp[c + 1]).
+struct MergeRound {
+  long long off[kMergeMaxRuns + 1];
+  int smp[kMergeMaxRuns + 1];
+  int runs;
+  int ways;  // runs a group merges; the last group may have fewer
+  int gap;   // pairs between a run's samples
+};
+
+// The run whose samples hold list row (or sample) s: the last c with
+// smp[c] <= s, for 0 <= s < smp[runs].
+__device__ __forceinline__ int merge_run_of(const MergeRound& r,
+                                            long long s) {
+  int lo = 0, hi = r.runs;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (r.smp[mid] <= s) {
+      lo = mid;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// The pairs of sorted keys[lo, lo + n) before key: those <= key when upper
+// (an earlier run), those < key otherwise.
+template <class Keys>
+__device__ __forceinline__ long long merge_count(Keys keys, long long lo,
+                                                 long long n, long long key,
+                                                 bool upper) {
+  const long long first = lo;
+  while (n > 0) {
+    const long long half = n >> 1;
+    const long long k = keys[lo + half];
+    if (upper ? k <= key : k < key) {
+      lo += half + 1;
+      n -= half + 1;
+    } else {
+      n = half;
+    }
+  }
+  return lo - first;
+}
+
+// lanes = 2^lanes_log >= ways lanes a sample, in one warp; list row
+// (smp[first run of the group] + samples before it), column i, gets the
+// sample's co-rank in run i of its group.
+__global__ void __launch_bounds__(kThreads)
+    giant_merge_rank_kernel(const long long* __restrict__ keys,
+                            const __grid_constant__ MergeRound r,
+                            int lanes_log, int* __restrict__ list) {
+  const long long tid =
+      blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  const long long s = tid >> lanes_log;
+  const int i = static_cast<int>(tid & ((1 << lanes_log) - 1));
+  const bool live = s < r.smp[r.runs];
+  int first = 0, ways = 0;
+  long long co = 0;
+  int before = 0;
+  if (live) {
+    const int c = merge_run_of(r, s);
+    const int g = c / r.ways;
+    first = g * r.ways;
+    ways = (r.runs - first < r.ways ? r.runs - first : r.ways);
+    const int j = c - first;
+    const long long own = (s - r.smp[c]) * r.gap;
+    if (i == j) {
+      co = own;
+    } else if (i < ways) {
+      const long long key = keys[r.off[c] + own];
+      co = merge_count(keys, r.off[first + i],
+                       r.off[first + i + 1] - r.off[first + i], key, i < j);
+    }
+    if (i < ways) before = static_cast<int>((co + r.gap - 1) / r.gap);
+  }
+  for (int o = 1; o < (1 << lanes_log); o <<= 1) {
+    before += __shfl_xor_sync(kFull, before, o);
+  }
+  if (live && i < ways) {
+    list[(static_cast<long long>(r.smp[first]) + before) * r.ways + i] =
+        static_cast<int>(co);
+  }
+}
+
+// The sub-run of segment slot e: the last j < ways with so[j] <= e (never
+// an empty one, since so[ways] > e).
+__device__ __forceinline__ int merge_sub_run(const int* so, int ways, int e) {
+  int lo = 0, hi = ways;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (so[mid] <= e) {
+      lo = mid;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// A segment's keys lie in shared memory at msw(slot): the slot's low 4
+// bits XORed with its next 8, so that threads reading slots 2, 4, 8 or 16
+// apart (the serial merges' heads, the merge-path searches) hit distinct
+// 8-byte bank pairs where slot order would put them all on a few.
+__device__ __forceinline__ int msw(int i) {
+  return i ^ (((i >> 4) ^ (i >> 8)) & 15);
+}
+
+// Where slot o of a merge level falls: the pair of lists (2g, 2g + 1) whose
+// span [xs, ye) holds it (the earlier list [xs, xe)), and how many of the
+// pair's first o - xs slots come from each list (ia, ib): a merge-path
+// search, ties to the earlier list, which holds the lower runs.
+__device__ __forceinline__ void merge_path(const long long* s_key,
+                                           const int* so, int p, int o,
+                                           int* xs, int* xe, int* ye, int* ia,
+                                           int* ib) {
+  int g = 0;  // the last pair whose span starts at or before o
+  while (2 * g + 2 < p && so[2 * g + 2] <= o) ++g;
+  *xs = so[2 * g];
+  *xe = so[2 * g + 1 < p ? 2 * g + 1 : p];
+  *ye = so[2 * g + 2 < p ? 2 * g + 2 : p];
+  const int nx = *xe - *xs, ny = *ye - *xe;
+  const int d = o - *xs;
+  int lo = d - ny > 0 ? d - ny : 0;
+  int hi = d < nx ? d : nx;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const bool before =
+        s_key[msw(*xs + mid)] <= s_key[msw(*xe + d - 1 - mid)];
+    lo = before ? mid + 1 : lo;
+    hi = before ? hi : mid;
+  }
+  *ia = *xs + lo;  // the heads, as slots
+  *ib = *xe + d - lo;
+}
+
+// One level of the segment's merge tree in shared memory: the p sorted
+// lists at so[0..p] (list i holds slots [so[i], so[i + 1])) are merged in
+// pairs, list 2g with list 2g + 1 (the last alone when p is odd), each
+// pair into its own span.  Thread t makes the level's slots [t E, t E + E)
+// (E = kMergeItems): a merge-path search where its first slot (or a
+// pair's first slot inside its range) falls, then a serial merge with the
+// two heads' keys in registers, one shared load a slot and no branch; its
+// keys and original slots stay in registers until a barrier, then go back
+// in place.
+__device__ __forceinline__ void merge_level(long long* s_key,
+                                            unsigned short* s_idx,
+                                            const int* so, int p, int size) {
+  long long rk[kMergeItems];
+  unsigned short ri[kMergeItems];
+  const int o0 = threadIdx.x * kMergeItems;
+  int xe = 0, ye = 0, ia = 0, ib = 0;
+  long long ka = 0, kb = 0;
+#pragma unroll
+  for (int q = 0; q < kMergeItems; ++q) {
+    const int o = o0 + q;
+    if (o < size) {
+      if (q == 0 || o >= ye) {
+        int xs;
+        merge_path(s_key, so, p, o, &xs, &xe, &ye, &ia, &ib);
+        ka = ia < xe ? s_key[msw(ia)] : 0;
+        kb = ib < ye ? s_key[msw(ib)] : 0;
+      }
+      const bool take_x = ib >= ye || (ia < xe && ka <= kb);
+      const int at = take_x ? ia : ib;
+      rk[q] = take_x ? ka : kb;
+      ri[q] = s_idx[at];
+      ia += take_x ? 1 : 0;
+      ib += take_x ? 0 : 1;
+      const int next = at + 1;
+      const long long k =
+          next < (take_x ? xe : ye) ? s_key[msw(next)] : 0;
+      ka = take_x ? k : ka;
+      kb = take_x ? kb : k;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < kMergeItems; ++q) {
+    if (o0 + q < size) {
+      s_key[msw(o0 + q)] = rk[q];
+      s_idx[o0 + q] = ri[q];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kMergeThreads)
+    giant_merge_segments_kernel(const long long* __restrict__ keys,
+                                const int* __restrict__ vals,
+                                const __grid_constant__ MergeRound r,
+                                const int* __restrict__ list,
+                                long long* __restrict__ out_keys,
+                                int* __restrict__ out_vals) {
+  __shared__ long long s_key[kMergeTile];
+  __shared__ int s_val[kMergeTile];
+  __shared__ unsigned short s_idx[kMergeTile];
+  __shared__ int s_lo[kMergeWays];
+  __shared__ int s_so[kMergeWays + 1];  // the lists' starts in the segment
+  __shared__ long long s_src[kMergeWays];
+  __shared__ long long s_dst;
+  const long long b = blockIdx.x;
+  const int t = threadIdx.x;
+  const int first = merge_run_of(r, b) / r.ways * r.ways;
+  const int ways = r.runs - first < r.ways ? r.runs - first : r.ways;
+  const int end = r.smp[first + ways];
+  if (t < ways) {
+    const int lo = list[b * r.ways + t];
+    const long long hi =
+        b + 1 < end ? list[(b + 1) * r.ways + t]
+                    : r.off[first + t + 1] - r.off[first + t];
+    s_lo[t] = lo;
+    s_so[t + 1] = static_cast<int>(hi - lo);
+    s_src[t] = r.off[first + t] + lo;
+  }
+  __syncthreads();
+  if (t == 0) {
+    long long below = 0;
+    int acc = 0;
+    for (int i = 0; i < ways; ++i) {
+      below += s_lo[i];
+      const int len = s_so[i + 1];
+      s_so[i] = acc;
+      acc += len;
+    }
+    s_so[ways] = acc;
+    s_dst = r.off[first] + below;
+  }
+  __syncthreads();
+  const int size = s_so[ways];
+  // Every load of a thread in flight before the first is used: slot
+  // t + q * kMergeThreads, consecutive threads on consecutive pairs.
+  long long key[kMergeItems];
+  int val[kMergeItems];
+#pragma unroll
+  for (int q = 0; q < kMergeItems; ++q) {
+    const int e = t + q * kMergeThreads;
+    if (e < size) {
+      const int j = merge_sub_run(s_so, ways, e);
+      const long long at = s_src[j] + (e - s_so[j]);
+      key[q] = keys[at];
+      val[q] = vals[at];
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kMergeItems; ++q) {
+    const int e = t + q * kMergeThreads;
+    if (e < size) {
+      s_key[msw(e)] = key[q];
+      s_val[e] = val[q];
+      s_idx[e] = static_cast<unsigned short>(e);
+    }
+  }
+  __syncthreads();
+  // ceil(log2 ways) levels of pairwise merges; s_so then holds the merged
+  // lists' starts.
+  for (int p = ways; p > 1; p = (p + 1) >> 1) {
+    merge_level(s_key, s_idx, s_so, p, size);
+    __syncthreads();
+    if (t == 0) {
+      for (int g = 0; 2 * g < p; ++g) s_so[g] = s_so[2 * g];
+      s_so[(p + 1) >> 1] = size;
+    }
+    __syncthreads();
+  }
+  const long long dst = s_dst;
+#pragma unroll
+  for (int q = 0; q < kMergeItems; ++q) {
+    const int o = t + q * kMergeThreads;
+    if (o < size) {
+      out_keys[dst + o] = s_key[msw(o)];
+      out_vals[dst + o] = s_val[s_idx[o]];
+    }
+  }
+}
+
+// The list of the largest round: at most m / gap + runs rows of w columns,
+// gap = kMergeTile / w, for the first round's w (the widest).
+int* carve_merge(Arena& a, long long m, long long runs) {
+  const long long w = runs < kMergeWays ? runs : kMergeWays;
+  const long long gap = w > 0 ? kMergeTile / w : 1;
+  return a.take<int>((m / gap + runs + 1) * (w > 0 ? w : 1));
+}
+
 // The partition's scratch: status words and the tile counter.
 struct PartBufs {
   unsigned long long* status;  // [tiles][S]
@@ -3334,12 +3791,26 @@ int pss_scan_exclusive_sum(const void* in, void* out, long long n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// out int32 [n]: out[i] = max of in[0, i].
+long long pss_scan_max_scratch_bytes(long long n) {
+  Arena a{nullptr, 0};
+  carve_max_scan(a, n);
+  return static_cast<long long>(a.off);
+}
+
+// out int32 [n]: out[i] = max of in[0, i], in one look-back pass; the
+// scratch holds pss_scan_max_scratch_bytes(n) bytes and is zeroed here.
 int pss_scan_inclusive_max(const void* in, void* out, long long n,
                            void* scratch, void* stream) {
-  scan_levels<MaxOp>(static_cast<const int*>(in), static_cast<int*>(out), n,
-                     false, static_cast<int*>(scratch),
-                     static_cast<cudaStream_t>(stream));
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Arena a{static_cast<char*>(scratch), 0};
+  const MaxScanBufs b = carve_max_scan(a, n);
+  cudaMemsetAsync(scratch, 0, a.off, st);
+  const int vec = aligned16(in) && aligned16(out) ? 1 : 0;
+  max_scan_kernel<<<static_cast<unsigned>(cdiv(n, kMaxScanTile)),
+                    kMaxScanThreads, 0, st>>>(static_cast<const int*>(in),
+                             static_cast<int*>(out), n, b.status, b.counter,
+                             vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -3772,6 +4243,76 @@ int pss_giant_partition(const void* pos, const void* gs, long long m,
       static_cast<const int*>(pos), static_cast<const int*>(gs), m, b32, rcp,
       bits, S, floor_gs, static_cast<const int*>(totals), b.status,
       b.counter, static_cast<int*>(out_pos), static_cast<int*>(out_gs));
+  return static_cast<int>(cudaGetLastError());
+}
+
+long long pss_giant_merge_scratch_bytes(long long m, long long S) {
+  Arena a{nullptr, 0};
+  carve_merge(a, m, S);
+  return static_cast<long long>(a.off);
+}
+
+// keys int64 [m] with vals int32 [m] hold S <= 256 runs of the host's
+// lengths runs int64 [S] (summing to m), each sorted by (key, value); the
+// pairs in (key, run, index) order, the stable sort of the concatenation,
+// go to out_keys / out_vals after an odd number of rounds and back into
+// keys / vals after an even one: a round merges the non-empty runs
+// kMergeWays at a time, until one is left (no round for at most one).  The scratch holds
+// pss_giant_merge_scratch_bytes(m, S) bytes.
+int pss_giant_merge(void* keys, void* vals, long long m, const void* runs,
+                    int S, void* out_keys, void* out_vals, void* scratch,
+                    void* stream) {
+  if (S < 0 || S > kMergeMaxRuns) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  MergeRound r;
+  r.runs = 0;
+  long long at = 0;
+  const long long* len = static_cast<const long long*>(runs);
+  for (int s = 0; s < S; ++s) {
+    if (len[s] < 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (len[s] > 0) {
+      r.off[r.runs++] = at;
+      at += len[s];
+    }
+  }
+  if (at != m) return static_cast<int>(cudaErrorInvalidValue);
+  r.off[r.runs] = m;
+  int* list = static_cast<int*>(scratch);
+  long long* src_k = static_cast<long long*>(keys);
+  int* src_v = static_cast<int*>(vals);
+  long long* dst_k = static_cast<long long*>(out_keys);
+  int* dst_v = static_cast<int*>(out_vals);
+  while (r.runs > 1) {
+    r.ways = r.runs < kMergeWays ? r.runs : kMergeWays;
+    r.gap = kMergeTile / r.ways;
+    int rows = 0;
+    for (int c = 0; c < r.runs; ++c) {
+      r.smp[c] = rows;
+      rows += static_cast<int>(cdiv(r.off[c + 1] - r.off[c], r.gap));
+    }
+    r.smp[r.runs] = rows;
+    int lanes_log = 0;
+    while ((1 << lanes_log) < r.ways) ++lanes_log;
+    const long long threads = static_cast<long long>(rows) << lanes_log;
+    giant_merge_rank_kernel<<<static_cast<unsigned>(cdiv(threads, kThreads)),
+                              kThreads, 0, st>>>(src_k, r, lanes_log, list);
+    giant_merge_segments_kernel<<<static_cast<unsigned>(rows), kMergeThreads,
+                                  0, st>>>(src_k, src_v, r, list, dst_k,
+                                           dst_v);
+    // Group g becomes run g of the next round.
+    int next = 0;
+    for (int c = 0; c < r.runs; c += r.ways) r.off[next++] = r.off[c];
+    r.off[next] = m;
+    r.runs = next;
+    long long* tk = src_k;
+    src_k = dst_k;
+    dst_k = tk;
+    int* tv = src_v;
+    src_v = dst_v;
+    dst_v = tv;
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

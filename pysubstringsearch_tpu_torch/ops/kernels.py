@@ -119,16 +119,18 @@ _SIGNATURES: typing.Dict[str, list] = {
     'pss_giant_partition': [_P, _P, _L, _L, _I, _I, _P, _P, _P, _P, _P],
     # keys, m, off, pred, has_pred, real_lo, v, stats, stream
     'pss_giant_flags': [_P, _L, _L, _L, _I, _L, _P, _P, _P],
+    # keys, vals, m, host run lengths, S, out_keys, out_vals, scratch, stream
+    'pss_giant_merge': [_P, _P, _L, _P, _I, _P, _P, _P, _P],
 }
 
 #: Scratch sizers: pss_<name>_scratch_bytes(count) -> bytes, or of more
 #: counts where the value says so.  Host functions; they launch nothing and
 #: are not counted.
-_SCRATCH = {'scan': 1, 'radix_sort': 1, 'sa_hybrid': 1, 'sa_init': 1,
-            'sa_tie': 1, 'sa_round': 1, 'sa_refine': 1, 'sa_pass': 1,
-            'sa_full': 1, 'scatter': 1, 'scatter_blocked': 1,
+_SCRATCH = {'scan': 1, 'scan_max': 1, 'radix_sort': 1, 'sa_hybrid': 1,
+            'sa_init': 1, 'sa_tie': 1, 'sa_round': 1, 'sa_refine': 1,
+            'sa_pass': 1, 'sa_full': 1, 'scatter': 1, 'scatter_blocked': 1,
             'seed_table': 1,
-            'giant_part': 2}
+            'giant_part': 2, 'giant_merge': 2}
 
 #: Kernel name (the C entry point without its prefix) -> launches so far.
 LAUNCHES: typing.Dict[str, int] = {

@@ -43,8 +43,9 @@ PyTorch version beside it:
   are distinct, the pad slots then written in closed form
   (:func:`suffix_array_device` is the JAX name over it);
 - :func:`giant_byte_keys`, :func:`giant_round_keys`, :func:`giant_cuts`,
-  :func:`giant_partition` and :func:`giant_flags` (B14g): the per-shard
-  steps of B9 split over a mesh (``parallel/sharded.py``).
+  :func:`giant_partition`, :func:`giant_flags` and :func:`giant_merge`
+  (B14g): the per-shard steps of B9 split over a mesh
+  (``parallel/sharded.py``).
 
 The Writer's device build (:func:`build_suffix_array` with ``'torch'``, or
 ``'auto'`` on a CUDA card where :func:`_device_build_worthwhile` finds it
@@ -503,14 +504,22 @@ def scan_inclusive_max_plain(x: torch.Tensor) -> torch.Tensor:
     return torch.cummax(x, 0).values.to(torch.int32)
 
 
+#: Elements a block of :func:`scan_inclusive_max`'s look-back pass scans
+#: (``kMaxScanTile`` in ``csrc/suffix_array_kernels.cu``); the tests probe
+#: its edges.
+SCAN_MAX_TILE = 4096
+
+
 def scan_inclusive_max(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive max scan of int32 [n] (``lax.cummax``)."""
+    """Inclusive max scan of int32 [n] (``lax.cummax``).  On the card one
+    pass of decoupled look-back over tiles of ``SCAN_MAX_TILE``: each
+    element read once and written once."""
     if not kernels.route(x):
         return scan_inclusive_max_plain(x)
     kernels.check(x, 'x', torch.int32, 1)
     n = x.shape[0]
     out = torch.empty(n, dtype=torch.int32, device=x.device)
-    scratch = kernels.scratch('scan', n, x.device)
+    scratch = kernels.scratch('scan_max', n, x.device)
     with kernels.on(x.device):
         kernels.launch('scan_inclusive_max', x.data_ptr(), out.data_ptr(), n,
                        scratch.data_ptr())
@@ -1634,7 +1643,7 @@ def suffix_array_device(data_padded: torch.Tensor, n) -> torch.Tensor:
 # ``parallel/sharded.py:make_giant_chunk_build`` runs B9 on a row whose
 # positions are split in S blocks of B = N / S, one a shard, as a sample
 # sort a round.  These kernels are its steps that no kernel above does;
-# the sorts are :func:`radix_sort_pairs`, the relabel's scan
+# a shard's local sort is :func:`radix_sort_pairs`, the relabel's scan
 # :func:`scan_inclusive_max` and the rank store :func:`scatter`.
 
 #: Shards a distributed build may span (the partition's shared counts).
@@ -1852,3 +1861,82 @@ def giant_flags(keys: torch.Tensor, off: int, pred: int, has_pred: bool,
                        int(bool(has_pred)), int(real_lo), v.data_ptr(),
                        stats.data_ptr())
     return v, stats
+
+
+#: Runs one round of :func:`giant_merge`'s kernels merges into one
+#: (``kMergeWays``: pairs), and the most pairs one of its segments holds
+#: (``kMergeTile``; a group of w runs samples every
+#: ``GIANT_MERGE_TILE // w`` pairs of each), as
+#: ``csrc/suffix_array_kernels.cu`` fixes them; the tests probe the edges.
+GIANT_MERGE_WAYS = 2
+GIANT_MERGE_TILE = 2048
+
+
+def _merge_runs(keys: torch.Tensor, vals: torch.Tensor, runs) -> list:
+    runs = [int(r) for r in runs]
+    m = keys.shape[0]
+    if vals.shape[0] != m:
+        raise ValueError('giant_merge: keys and vals differ in length')
+    if any(r < 0 for r in runs) or sum(runs) != m:
+        raise ValueError(f'giant_merge: run lengths {runs[:8]}... must be '
+                         f'non-negative and sum to m = {m}')
+    if len(runs) > GIANT_MAX_SHARDS:
+        raise ValueError(f'giant_merge: at most {GIANT_MAX_SHARDS} runs, '
+                         f'got {len(runs)}')
+    return runs
+
+
+def giant_merge_rounds(runs) -> int:
+    """Rounds :func:`giant_merge`'s kernels take on runs of these lengths:
+    the non-empty runs merged ``GIANT_MERGE_WAYS`` at a time until one is
+    left (0 for at most one, then ceil(log2) of their number: 2 at 4, 8 at
+    256)."""
+    left = sum(1 for r in runs if r)
+    rounds = 0
+    while left > 1:
+        left = -(-left // GIANT_MERGE_WAYS)
+        rounds += 1
+    return rounds
+
+
+def giant_merge_plain(keys: torch.Tensor, vals: torch.Tensor, runs):
+    """Plain version of the merge: (keys, vals) of the concatenated runs of
+    lengths ``runs`` in (key, run, index) order, a stable sort by key of
+    the concatenation, as :func:`radix_sort_pairs` sorts it.  Raises when
+    the run lengths do not sum to m."""
+    _merge_runs(keys, vals, runs)
+    keys_s, order = torch.sort(keys, stable=True)
+    return keys_s, vals[order]
+
+
+def giant_merge(keys: torch.Tensor, vals: torch.Tensor, runs):
+    """Step 4 of the giant build: int64 ``keys`` with int32 ``vals`` [m]
+    hold S <= ``GIANT_MAX_SHARDS`` runs of the host lengths ``runs``
+    (summing to m), each sorted by (key, value); returns the pairs in (key,
+    run, index) order (see :func:`giant_merge_plain`), which is the
+    shard's (key, position) order when the runs come in position order.
+    The caller's contract: the runs are sorted; the card does not check
+    it.  On the card rounds of pairwise merges (``GIANT_MERGE_WAYS``
+    runs into one), 24 bytes a pair a round, behind one counted launch;
+    the result comes in new tensors after an odd number of rounds
+    (:func:`giant_merge_rounds`) and in ``keys`` / ``vals`` otherwise, new
+    tensors of the same size then serving as the rounds' other buffer, so
+    the caller gives the inputs up and takes the returned pair."""
+    runs = _merge_runs(keys, vals, runs)
+    if not kernels.route(keys, vals):
+        return giant_merge_plain(keys, vals, runs)
+    kernels.check(keys, 'keys', torch.int64, 1)
+    kernels.check(vals, 'vals', torch.int32, 1)
+    m = keys.shape[0]
+    rounds = giant_merge_rounds(runs)
+    if rounds:
+        out_k, out_v = torch.empty_like(keys), torch.empty_like(vals)
+    else:
+        out_k, out_v = keys, vals
+    lengths = np.asarray(runs, dtype=np.int64)
+    with kernels.on(keys.device):
+        scratch = kernels.scratch('giant_merge', (m, len(runs)), keys.device)
+        kernels.launch('giant_merge', keys.data_ptr(), vals.data_ptr(), m,
+                       lengths.ctypes.data, len(runs), out_k.data_ptr(),
+                       out_v.data_ptr(), scratch.data_ptr())
+    return (out_k, out_v) if rounds % 2 else (keys, vals)

@@ -40,6 +40,7 @@ from ..ops.suffix_array import (
     giant_byte_keys,
     giant_cuts,
     giant_flags,
+    giant_merge,
     giant_partition,
     giant_round_keys,
     radix_sort_pairs,
@@ -170,9 +171,11 @@ class _GiantBuild:
        receives more than 2B + S pairs (``stats['max_recv']`` against
        ``stats['recv_bound']``).
     4. Cut every sorted shard at the splitters (kernel (b),
-       :func:`giant_cuts`), exchange the pieces and sort the S received
-       runs stably by key: source order is position order, so the shard
-       ends in (key, position) order.
+       :func:`giant_cuts`) and exchange the pieces.  A shard receives S
+       runs, each sorted by (key, position), in source order, which is
+       position order, so merging them by (key, run) (:func:`giant_merge`,
+       with the exchange's receive counts as the run lengths) leaves the
+       shard in (key, position) order.
     5. Relabel: a slot starts a group where its key differs from its
        predecessor's, for a shard's first slot the last key of the nearest
        non-empty earlier shard (kernel (c), :func:`giant_flags`); a max
@@ -312,11 +315,12 @@ class _GiantBuild:
         sends = list(zip(keys, vals))
         keys.clear()
         vals.clear()
-        recvs = exchange_runs(sends, counts, self.mesh)[0]
+        recvs, runs = exchange_runs(sends, counts, self.mesh)
         del sends
         metas = []
-        for (_, dev), (kk, vv) in zip(self.places, recvs):
-            radix_sort_pairs(kk, vv, bits)
+        for j, (_, dev) in enumerate(self.places):
+            kk, vv = giant_merge(*recvs[j], runs[j])
+            recvs[j] = (kk, vv)
             meta = torch.full((2,), -1, dtype=torch.int64, device=dev)
             meta[0] = kk.shape[0]
             if kk.shape[0]:

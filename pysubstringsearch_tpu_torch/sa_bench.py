@@ -123,8 +123,11 @@ placements of the card: one build by device time a kernel and a step
 (``giant_build_by_kernel_us``, ``giant_build_by_step_us``, the card's
 busy span), its untraced wall (``giant_build_s``), and its five kernels at
 that row's shapes (B = 128 Mi), each by device time and as a whole call
-beside its bound, the cuts beside ``torch.searchsorted`` and the
-partition at 4, 64 and 256 owners (see ``_giant``).
+beside its bound, the cuts beside ``torch.searchsorted``, the max scan
+beside ``torch.cummax``, the partition at 4, 64 and 256 owners and the
+merge of one shard's received runs at 4, 64 and 256 sources beside
+``radix_sort_pairs`` and ``torch.sort`` of the same runs (see
+``_giant``).
 
 With ``--profile`` it first prints the device time by kernel
 (``torch.profiler``'s ``key_averages``) of B10's init, of that first pass,
@@ -1085,12 +1088,31 @@ def _probe_bounds(torch, np, S, args, out):
 #: Placements of one card the giant build splits the 512 Mi row over, as
 #: ``chip_smoke.py``'s ``giant`` phase does.
 GIANT_PLACEMENTS = 4
-#: Owner counts the partition is timed at on the same 128 Mi pairs.
+#: Owner counts the partition is timed at on the same 128 Mi pairs, and
+#: source counts the merge of one shard's received pairs is timed at.
 GIANT_PARTITION_S = (4, 64, 256)
+
+
+def _received_runs(torch, rank, W, lo, hi, k, S):
+    """``chip_smoke.received_runs``: the (keys, positions, run lengths) a
+    shard holding group starts [lo, hi) receives in a round at ``k`` over
+    ``S`` sources, from the distinct ranks ``rank``."""
+    N = rank.shape[0]
+    pos = torch.nonzero((rank >= lo) & (rank < hi)).flatten()
+    low = torch.zeros_like(pos)
+    inside = pos + k < N
+    low[inside] = rank[pos[inside] + k].long() + 1
+    keys = (rank[pos].long() << W) | low
+    src = torch.div(pos, N // S, rounding_mode='floor')
+    order = torch.sort(keys, stable=True).indices
+    order = order[torch.sort(src[order], stable=True).indices]
+    runs = torch.bincount(src, minlength=S).tolist()
+    return keys[order], pos[order].to(torch.int32), runs
 #: B14g's steps by the device activities that carry them (a part of the
 #: kernel's or activity's name; the first step that matches); anything
 #: else is ``other``.
 GIANT_STEPS = (('radix sort', ('onesweep_',)),
+               ('merge', ('giant_merge_',)),
                ('partition', ('giant_part_',)),
                ('cuts', ('giant_cuts',)),
                ('flags', ('giant_flags', 'giant_stats')),
@@ -1099,7 +1121,9 @@ GIANT_STEPS = (('radix sort', ('onesweep_',)),
                # distribute and assemble kernels with the sum scan of the
                # bins' counts (the build's only sum scan).
                ('rank store', ('scatter_', 'SumOp')),
-               ('max scan', ('scan_tile_kernel', 'scan_add_kernel')),
+               # The two-level scan of older trees, or the look-back pass.
+               ('max scan', ('scan_tile_kernel', 'scan_add_kernel',
+                             'max_scan_kernel')),
                ('copies', ('Memcpy', 'CatArrayBatchedCopy')),
                ('memset', ('Memset',)))
 
@@ -1115,6 +1139,46 @@ def _giant_step(name):
     return 'other'
 
 
+def _merges(torch, SA, bench, inv, W, B, out):
+    """The pairs shard 1 receives in a round at k = 6 (group starts [B,
+    2B) of the final ranks ``inv``) over 4, 64 and 256 sources
+    (``GIANT_PARTITION_S``): ``radix_sort_pairs`` of them, the sort a tree
+    before the merge ran on them (``giant_merge_s<S>_radix_ms``), a stable
+    ``torch.sort`` with the positions gathered (``_torch_sort_ms``, the
+    library call), their bound (``_bound_ms``, 24 bytes a pair) and, where
+    the tree has it, ``giant_merge`` held against its plain version
+    (``_ms``); each call on copies restored before it, untimed (an even
+    number of rounds merges in place)."""
+    for S in GIANT_PARTITION_S:
+        mk, mv, runs = _received_runs(torch, inv, W, B, 2 * B, 6, S)
+        work = [mk.clone(), mv.clone()]
+
+        def restore():
+            work[0].copy_(mk)
+            work[1].copy_(mv)
+
+        tag = f'giant_merge_s{S}'
+        out[f'{tag}_pairs'] = mk.shape[0]
+        out[f'{tag}_bound_ms'] = _floor_ms(24 * mk.shape[0])
+        out[f'{tag}_radix_ms'] = bench.cuda_ms(
+            lambda: SA.radix_sort_pairs(work[0], work[1], 2 * W), REPS,
+            restore)
+        out[f'{tag}_torch_sort_ms'] = bench.cuda_ms(
+            lambda: mv[torch.sort(mk, stable=True).indices], REPS)
+        if hasattr(SA, 'giant_merge'):
+            restore()
+            got = SA.giant_merge(work[0], work[1], runs)
+            want = SA.giant_merge_plain(mk, mv, runs)
+            _expect(all(torch.equal(a, b) for a, b in zip(got, want)),
+                    f'{tag} equals its plain version')
+            del got, want
+            out[f'{tag}_ms'] = bench.cuda_ms(
+                lambda: SA.giant_merge(work[0], work[1], runs), REPS,
+                restore)
+        del work, mk, mv
+        torch.cuda.empty_cache()
+
+
 def _giant(torch, np, SA, bench, args, out):
     """B14g on ``--corpus`` as one row of N = 512 Mi slots over
     ``GIANT_PLACEMENTS`` placements of the card, and its five kernels at
@@ -1122,8 +1186,12 @@ def _giant(torch, np, SA, bench, args, out):
     ``giant_kernels`` makes their inputs: the byte keys of the last block,
     the round keys at k = 6 from the final ranks, the cuts of those keys
     sorted at S - 1 of them (beside ``torch.searchsorted`` of the splitter
-    keys, the library yardstick), the flags, and the partition of the
-    sorted positions of slots [0, B) at S = 4, 64 and 256 (B = N / S).
+    keys, the library yardstick), the flags, the max scan of the flags
+    beside ``torch.cummax``, the merge of the runs shard 1 receives at S =
+    4, 64 and 256 sources beside the radix sort it replaces
+    (:func:`_merges`, outside the profiler session: the merge gives its
+    inputs up), and the partition of the sorted positions of slots
+    [0, B) at S = 4, 64 and 256 (B = N / S).
     One warm-up build gives the SA; then one profiler session, the
     process's first (G7), traces a second build and one call of every
     kernel, each opened by a marker kernel (``torch.cuda._sleep``) and
@@ -1168,8 +1236,9 @@ def _giant(torch, np, SA, bench, args, out):
     inv = torch.empty(N, dtype=torch.int32, device=dev)
     SA.scatter(torch.arange(N, dtype=torch.int32, device=dev), sa, inv)
     rank, r2 = inv[p0:].clone(), inv[p0 + 6:].clone()
-    del inv
     W = SA._key_width(N)
+    _merges(torch, SA, bench, inv, W, B, out)
+    del inv
     keys, vals = SA.giant_round_keys(rank, r2, W, p0)
     SA.radix_sort_pairs(keys, vals, 2 * W)
     pick = torch.tensor([r * B // S for r in range(1, S)], device=dev)
@@ -1177,6 +1246,7 @@ def _giant(torch, np, SA, bench, args, out):
     pred = int(keys[0]) - 1
     pos = sa[:B].clone()
     gs = torch.arange(B, dtype=torch.int32, device=dev)
+    flags = SA.giant_flags(keys, B, pred, True, N - n)[0]
     calls = [
         ('giant_byte_keys', lambda: SA.giant_byte_keys(blk, halo, p0, n),
          lambda: SA.giant_byte_keys_plain(blk, halo, p0, n), 13 * B),
@@ -1190,6 +1260,11 @@ def _giant(torch, np, SA, bench, args, out):
         ('giant_flags', lambda: SA.giant_flags(keys, B, pred, True, N - n),
          lambda: SA.giant_flags_plain(keys, B, pred, True, N - n),
          12 * B + 8),
+    ]
+    calls += [
+        ('scan_inclusive_max', lambda: SA.scan_inclusive_max(flags),
+         lambda: SA.scan_inclusive_max_plain(flags), 8 * B),
+        ('scan_cummax', lambda: torch.cummax(flags, 0), None, None),
     ]
     for s in GIANT_PARTITION_S:
         calls.append((
@@ -1266,7 +1341,7 @@ def _giant(torch, np, SA, bench, args, out):
     out['giant_cuts_binary_search_rounds'] = B.bit_length()
     out['giant_launches'] = {k: v for k, v in kernels.LAUNCHES.items()
                              if k.startswith('giant_')}
-    del keys, vals, rank, r2, pos, gs, sa, calls
+    del keys, vals, rank, r2, pos, gs, sa, calls, flags
     torch.cuda.empty_cache()
     _, out['giant_build_s'] = _wall_s(torch, lambda: build(text, n))
     del text

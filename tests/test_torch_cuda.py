@@ -1732,7 +1732,126 @@ def test_anchored_inits_on_offset_views(cuda, name):
 def _giant_launches():
     return {k: kernels.LAUNCHES[k] for k in (
         'giant_byte_keys', 'giant_round_keys', 'giant_cuts',
-        'giant_partition', 'giant_flags')}
+        'giant_partition', 'giant_flags', 'giant_merge')}
+
+
+def _merge_case(S, m, layout, bits, seed, device):
+    """(keys int64, positions int32, run lengths) of S runs of m pairs as a
+    shard receives them: each sorted by (key, position), positions rising
+    from run to run.  ``layout``: 'random' cuts, 'sparse' (runs of 0 and 1
+    pairs, the rest in the middle run), 'one_run' (every pair in the
+    middle run); keys of ``bits`` bits, or all equal at 0."""
+    rng = np.random.default_rng([S, m, bits, seed])
+    if layout == 'random':
+        cuts = np.sort(rng.integers(0, m + 1, size=S - 1))
+        lengths = np.diff(np.concatenate([[0], cuts, [m]])).tolist()
+    else:
+        lengths = [0] * S
+        if layout == 'sparse':
+            lengths = [int(x) for x in rng.integers(0, 2, size=S)]
+            lengths[S // 2] = 0
+            lengths[S // 2] = max(m - sum(lengths), 0)
+            while sum(lengths) > m:
+                lengths[lengths.index(1)] = 0
+        else:
+            lengths[S // 2] = m
+    g = torch.Generator(device='cpu').manual_seed(int(rng.integers(1 << 30)))
+    if bits:
+        keys = torch.randint(0, 1 << bits, (m,), generator=g,
+                             dtype=torch.int64)
+        keys[: min(m, 3)] = (1 << bits) - 1  # the top bit in use
+    else:
+        keys = torch.zeros(m, dtype=torch.int64)
+    keys = keys.to(device)
+    run = torch.repeat_interleave(
+        torch.arange(S, device=device),
+        torch.tensor(lengths, dtype=torch.int64, device=device))
+    order = torch.sort(keys, stable=True).indices
+    order = order[torch.sort(run[order], stable=True).indices]
+    return keys[order], order.to(torch.int32), lengths
+
+
+@pytest.mark.parametrize('m', [0, 1, SA.GIANT_MERGE_TILE - 1,
+                               SA.GIANT_MERGE_TILE, SA.GIANT_MERGE_TILE + 1])
+@pytest.mark.parametrize('S', [1, 2, 4, 7, 64, 256])
+def test_giant_merge_matches_plain(cuda, S, m):
+    """The merge against its plain version (a stable ``torch.sort``) at
+    the segment capacity's edges, S from 1 (no round) to 256 (eight rounds
+    of pairwise merges), 60-bit keys, random cuts (empty runs included);
+    one counted launch a call."""
+    keys, pos, lengths = _merge_case(S, m, 'random', 60, 0, cuda)
+    want = SA.giant_merge_plain(keys, pos, lengths)
+    before = kernels.LAUNCHES['giant_merge']
+    got = SA.giant_merge(keys, pos, lengths)
+    assert kernels.LAUNCHES['giant_merge'] == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize('case', [
+    'sparse_s64', 'sparse_s256', 'one_run_s4', 'one_run_s256',
+    'receive_2b_s', 'equal_s4', 'equal_s256', 'bits48', 'bits60', 's17',
+    'big'])
+def test_giant_merge_edges_match_plain(cuda, case):
+    """The merge against its plain version where it could go wrong: runs of
+    0 and 1 pairs around one large run, every pair in one run (S = 4 and
+    256), a receive of 2B + S pairs (B = 2^20, S = 4), all keys equal (the
+    order from the run alone, as in every early round of ``abab...``), 48-
+    and 60-bit keys, 17 runs (a group of one run in every round) and 2^27
+    pairs, the 512 Mi row's shard at S = 4."""
+    S, m, layout, bits = {
+        'sparse_s64': (64, 50_000, 'sparse', 60),
+        'sparse_s256': (256, 70_001, 'sparse', 60),
+        'one_run_s4': (4, 100_003, 'one_run', 60),
+        'one_run_s256': (256, 100_003, 'one_run', 60),
+        'receive_2b_s': (4, (2 << 20) + 4, 'random', 60),
+        'equal_s4': (4, 1 << 20, 'random', 0),
+        'equal_s256': (256, 1 << 20, 'random', 0),
+        'bits48': (4, 1 << 22, 'random', 48),
+        'bits60': (4, 1 << 22, 'random', 60),
+        's17': (17, 300_007, 'random', 60),
+        'big': (4, 1 << 27, 'random', 60),
+    }[case]
+    keys, pos, lengths = _merge_case(S, m, layout, bits, 1, cuda)
+    want = SA.giant_merge_plain(keys, pos, lengths)
+    before = kernels.LAUNCHES['giant_merge']
+    got = SA.giant_merge(keys, pos, lengths)
+    assert kernels.LAUNCHES['giant_merge'] == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize('kind', ['descending', 'constant', 'random'])
+@pytest.mark.parametrize('n', [0, 1, SA.SCAN_MAX_TILE - 1, SA.SCAN_MAX_TILE,
+                               SA.SCAN_MAX_TILE + 1, 1 << 27])
+def test_scan_inclusive_max_matches_cummax(cuda, n, kind):
+    """The look-back max scan against ``torch.cummax`` at the tile's edges
+    and at 2^27 elements, on descending values (the first carries through
+    every tile), constant ones and random ones; one counted launch a
+    call."""
+    g = torch.Generator(device='cpu').manual_seed(n)
+    if kind == 'descending':
+        x = torch.arange(n, 0, -1, dtype=torch.int32) - (1 << 30)
+    elif kind == 'constant':
+        x = torch.full((n,), -7, dtype=torch.int32)
+    else:
+        x = torch.randint(-(1 << 31), (1 << 31) - 1, (n,), generator=g,
+                          dtype=torch.int32)
+    x = x.to(cuda)
+    before = kernels.LAUNCHES['scan_inclusive_max']
+    got = SA.scan_inclusive_max(x)
+    assert kernels.LAUNCHES['scan_inclusive_max'] == before + 1
+    assert torch.equal(got, torch.cummax(x, 0).values)
+
+
+@pytest.mark.parametrize('n', [SA.SCAN_MAX_TILE + 3, (1 << 22) + 5])
+def test_scan_inclusive_max_off_alignment(cuda, n):
+    """Input read through a view one element off the 16-byte alignment
+    (the scalar loads)."""
+    g = torch.Generator(device='cpu').manual_seed(n)
+    buf = torch.randint(-1000, 1 << 20, (n + 1,), generator=g,
+                        dtype=torch.int32).to(cuda)
+    x = buf[1:]
+    assert x.data_ptr() % 16
+    assert torch.equal(SA.scan_inclusive_max(x), torch.cummax(x, 0).values)
 
 
 @pytest.mark.parametrize('S', [4, 8])

@@ -406,6 +406,145 @@ def test_giant_build_reads_back_once_a_step(monkeypatch):
     _check_sa_full(got, data, N)
 
 
+# ---- step 4's merge of the received runs -----------------------------------
+
+def _merge_case(S, case, seed=0):
+    """(keys int64, positions int32, run lengths) of S runs as a shard
+    receives them: each sorted by (key, position), run s holding positions
+    of source block s only, so positions rise from run to run."""
+    rng = np.random.default_rng([S, len(case), seed])
+    B = 300
+    if case == 'empty_runs':  # every other run empty, and the last
+        lengths = [int(rng.integers(1, B)) if s % 2 == 0 and s < S - 1
+                   else 0 for s in range(S)]
+        if not any(lengths):
+            lengths[0] = 5
+    elif case == 'unequal':  # one long run among short ones
+        lengths = [int(rng.integers(0, 4)) for _ in range(S)]
+        lengths[S // 2] = B
+    else:
+        lengths = [int(rng.integers(0, B)) for _ in range(S)]
+    keys, pos = [], []
+    for s, length in enumerate(lengths):
+        if case == 'all_equal':
+            k = np.full(length, 1 << 40, np.int64)
+        else:
+            k = rng.integers(0, 50, size=length).astype(np.int64) << 54
+        p = s * B + rng.permutation(B)[:length]
+        o = np.lexsort((p, k))
+        keys.append(k[o])
+        pos.append(p[o].astype(np.int32))
+    return np.concatenate(keys), np.concatenate(pos), lengths
+
+
+@pytest.mark.parametrize('case', ['random', 'empty_runs', 'all_equal',
+                                  'unequal'])
+@pytest.mark.parametrize('S', [1, 2, 4, 7, 64])
+def test_giant_merge_plain_matches_lexsort(S, case):
+    """The merge's plain version, through the wrapper, against numpy's
+    lexsort by (key, index in the concatenation), which for runs in source
+    order is (key, position)."""
+    keys, pos, lengths = _merge_case(S, case)
+    got_k, got_v = SA.giant_merge(torch.from_numpy(keys),
+                                  torch.from_numpy(pos), lengths)
+    order = np.lexsort((np.arange(keys.size), keys))
+    np.testing.assert_array_equal(got_k.numpy(), keys[order])
+    np.testing.assert_array_equal(got_v.numpy(), pos[order])
+    np.testing.assert_array_equal(
+        order, np.lexsort((pos.astype(np.int64), keys)))
+
+
+@pytest.mark.parametrize('runs', [[3, 5], [8, -1], [], [1] * 257])
+def test_giant_merge_rejects_bad_runs(runs):
+    """Run lengths that do not sum to m, a negative one, none for 7 pairs
+    and more runs than shards raise, in the plain version too."""
+    m = 7 if sum(runs) != 257 else 257
+    keys = torch.zeros(m, dtype=torch.int64)
+    vals = torch.zeros(m, dtype=torch.int32)
+    for fn in (SA.giant_merge, SA.giant_merge_plain):
+        with pytest.raises(ValueError, match='giant_merge'):
+            fn(keys, vals, runs)
+
+
+@pytest.mark.parametrize('runs,rounds', [([], 0), ([0, 0], 0), ([5], 0),
+                                         ([0, 5, 0], 0), ([1, 1], 1),
+                                         ([1] * 4, 2), ([1, 0, 1, 1], 2),
+                                         ([1] * 7, 3), ([1] * 17, 5),
+                                         ([1] * 256, 8), ([1] * 255 + [0], 8)])
+def test_giant_merge_rounds(runs, rounds):
+    """Non-empty runs merge in pairs: ceil(log2) of their number rounds, 2
+    at S = 4, 3 at 7, 8 at 256, none with at most one non-empty run."""
+    assert SA.giant_merge_rounds(runs) == rounds
+
+
+def _merge_rows():
+    rng = np.random.default_rng(23)
+    words = [rng.integers(97, 123, size=int(n), dtype=np.uint8).tobytes()
+             for n in rng.integers(2, 7, size=40)]
+    text = b' '.join(words[i] for i in rng.integers(0, 40, size=1200))
+    return {'words': np.frombuffer(text[:3000], np.uint8),
+            'abab': np.frombuffer(b'ab' * 1500, np.uint8)}
+
+
+def _check_received_runs(keys, pos, runs, B):
+    """The runs of one merge as the build hands them over: as long as the
+    exchange's receive counts, each sorted by (key, position), run s
+    holding positions of source block s only, and their merge by (key,
+    run) in (key, position) order."""
+    assert sum(runs) == keys.size == pos.size
+    at = 0
+    for s, length in enumerate(runs):
+        k, p = keys[at: at + length], pos[at: at + length]
+        assert np.all((k[1:] > k[:-1]) | ((k[1:] == k[:-1]) & (p[1:] > p[:-1])))
+        assert np.all((p >= s * B) & (p < (s + 1) * B))
+        at += length
+    order = np.argsort(keys, kind='stable')
+    k, p = keys[order], pos[order]
+    assert np.all((k[1:] > k[:-1]) | ((k[1:] == k[:-1]) & (p[1:] > p[:-1])))
+
+
+def _spy_merges(module, B):
+    """Wrap ``module``'s ``exchange_runs`` and ``giant_merge`` so that every
+    merge is checked against the receive counts of the exchange before it
+    (:func:`_check_received_runs`); returns the merges' run lengths."""
+    state = {'rc': None, 'j': 0, 'calls': []}
+    exchange, merge = module.exchange_runs, module.giant_merge
+
+    def spy_exchange(sends, counts, mesh):
+        recvs, rc = exchange(sends, counts, mesh)
+        state['rc'], state['j'] = rc, 0
+        return recvs, rc
+
+    def spy_merge(keys, vals, runs):
+        assert list(runs) == list(state['rc'][state['j']])
+        state['j'] += 1
+        _check_received_runs(keys.numpy(), vals.numpy(), list(runs), B)
+        state['calls'].append(list(runs))
+        return merge(keys, vals, runs)
+
+    module.exchange_runs, module.giant_merge = spy_exchange, spy_merge
+    return state['calls']
+
+
+@pytest.mark.parametrize('name', ['words', 'abab'])
+def test_giant_build_merges_the_exchanged_runs(name, monkeypatch):
+    """On 8 placements every sort's received runs reach ``giant_merge``
+    with the exchange's receive counts as their lengths, 8 runs a shard,
+    each sorted by (key, position) with positions rising from run to run,
+    one merge a shard a sort; the SA is unchanged."""
+    data = _merge_rows()[name]
+    N, S = 4096, 8
+    monkeypatch.setattr(tsharded, 'exchange_runs', tsharded.exchange_runs)
+    monkeypatch.setattr(tsharded, 'giant_merge', tsharded.giant_merge)
+    calls = _spy_merges(tsharded, N // S)
+    build = tsharded.make_giant_chunk_build(tmesh.make_mesh(['cpu'] * S))
+    got = build(_padded(data, N), data.size).numpy()
+    _check_sa_full(got, data, N)
+    assert len(calls) == S * (build.stats['rounds'] + 1)
+    assert all(len(runs) == S for runs in calls)
+    assert max(max(runs) for runs in calls) > 0
+
+
 # ---- two gloo ranks -------------------------------------------------------
 
 GIANT_WORKER = r'''
@@ -477,6 +616,85 @@ def test_giant_build_on_two_gloo_ranks(tmp_path):
     one = tsharded.make_giant_chunk_build(tmesh.make_mesh(['cpu'] * 2))
     one(_padded(ab, 1024), ab.size)
     assert int(res[0]['period2_rounds']) == one.stats['rounds']
+
+
+GIANT_MERGE_WORKER = r'''
+import os, sys
+import numpy as np
+import torch
+rank, tmp = int(sys.argv[1]), sys.argv[2]
+from pysubstringsearch_tpu_torch.parallel import mesh as mesh_lib, multihost
+from pysubstringsearch_tpu_torch.parallel import sharded
+multihost.initialize('file://' + os.path.join(tmp, 'rendezvous'), 2, rank,
+                     'gloo')
+mesh = mesh_lib.make_mesh('cpu')
+inp = np.load(os.path.join(tmp, 'inputs.npz'))
+import importlib.util
+spec = importlib.util.spec_from_file_location('giant_spies',
+                                              os.path.join(tmp, 'spies.py'))
+spies = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(spies)
+out = {}
+for name in ('words', 'abab'):
+    row = inp[name]
+    calls = spies.spy_merges(sharded, row.size // 2)
+    build = sharded.make_giant_chunk_build(mesh)
+    out[name] = build(row, int(inp[name + '_n'])).numpy()
+    assert len(calls) == build.stats['rounds'] + 1, calls
+    assert all(len(runs) == 2 for runs in calls), calls
+    out[name + '_merges'] = np.int64(len(calls))
+np.savez(os.path.join(tmp, f'out{rank}.npz'), **out)
+assert 'jax' not in sys.modules and 'pysubstringsearch_tpu' not in sys.modules
+# Both ranks done before either tears the group down.
+torch.distributed.barrier()
+torch.distributed.destroy_process_group()
+print(f'WORKER{rank}_OK', flush=True)
+'''
+
+
+def test_giant_build_merges_the_exchanged_runs_on_two_gloo_ranks(tmp_path):
+    """Two gloo ranks (processes that import only the port), each merging
+    the 2 runs it receives a sort: the same checks as on 8 placements,
+    against the exchange over ``all_to_all_single``, on the word and
+    ``abab`` rows; the joined blocks equal numpy's SA."""
+    rows = _merge_rows()
+    N = 4096
+    np.savez(tmp_path / 'inputs.npz',
+             **{k: _padded(v, N) for k, v in rows.items()},
+             **{k + '_n': v.size for k, v in rows.items()})
+    src = 'import numpy as np\n\n\n' + inspect.getsource(
+        _check_received_runs).replace('def _check_received_runs',
+                                      'def check_received_runs') + \
+        '\n\n' + inspect.getsource(_spy_merges).replace(
+            'def _spy_merges', 'def spy_merges').replace(
+            '_check_received_runs(', 'check_received_runs(')
+    (tmp_path / 'spies.py').write_text(src)
+    script = tmp_path / 'worker.py'
+    script.write_text(GIANT_MERGE_WORKER)
+    env = dict(os.environ)
+    env['PYTHONPATH'] = REPO + os.pathsep + env.get('PYTHONPATH', '')
+    procs = [subprocess.Popen(
+        [sys.executable, str(script), str(rank), str(tmp_path)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
+        cwd=REPO) for rank in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=240)[0])
+    except subprocess.TimeoutExpired:
+        pytest.fail('a worker process timed out')
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f'worker {rank} failed:\n{out}'
+        assert f'WORKER{rank}_OK' in out
+    res = [np.load(tmp_path / f'out{rank}.npz') for rank in range(2)]
+    for name, data in rows.items():
+        _check_sa_full(np.concatenate([r[name] for r in res]), data, N)
+        assert int(res[0][name + '_merges']) == int(res[1][name + '_merges'])
 
 
 # ---- suffix_array_device, trace_to, the stubs -----------------------------
