@@ -148,13 +148,15 @@ Phases (any failure raises and exits non-zero):
     all-``a`` row must be poisoned in kernel and plain;
 13. B14g (``giant``), ``make_giant_chunk_build``: the big row's SA again
     with its positions split over ``GIANT_PLACEMENTS`` (4) placements of
-    the card, launch counts from 0 (B14g's kernels, the radix sort, the
-    max scan and the scatter must launch; one local sort and one merge of
-    the received runs a shard a sort), against native SA-IS of 12 and
-    the pad slots in closed form, its wall, rounds, memory peak (at most
-    ``SA_BUILD_BYTES_PER_SLOT`` bytes a slot with the text) and every
-    sort's largest receive against 2B + S; its kernels against their
-    plain versions on the row's shapes, timed beside their bounds; then
+    the card, launch counts from 0 (B14g's kernels, the radix sort and
+    the scatter must launch; one local sort and one merge of the received
+    runs a shard a sort), against native SA-IS of 12 and the pad slots in
+    closed form, its wall, rounds, the pairs each sort took (N, then the
+    tied positions), memory peak (at most ``SA_BUILD_BYTES_PER_SLOT``
+    bytes a slot with the text) and every sort's largest receive against
+    2 max_s m_s + S and 2B + S; its kernels against their plain versions
+    on the row's shapes (the round keys, cuts, flags, relabel and
+    partition on B9's state at k = 6), timed beside their bounds; then
     on a 1-process NCCL group (every exchange an ``all_to_all_single``)
     an 8 MiB chunk of the corpus against B9 and native SA-IS and 64 MiB
     of ``ab`` (all ties) against its closed form and B9;
@@ -225,10 +227,10 @@ PARALLEL_KERNELS = ('sa_full_init_bytes', 'sa_full_round', 'sa_roll_front',
 #: SEGMENTED_MAX_N) and fall back to B9.
 POISON_ROW_BYTES = 400 << 20
 #: Entry points of B14g's steps of its own (the giant build also runs the
-#: radix sort, the max scan and the scatter).
+#: radix sort and the scatter).
 GIANT_KERNELS = ('giant_byte_keys', 'giant_round_keys', 'giant_cuts',
-                 'giant_partition', 'giant_flags', 'giant_merge',
-                 'radix_sort_pairs', 'scan_inclusive_max', 'scatter')
+                 'giant_partition', 'giant_flags', 'giant_relabel',
+                 'giant_merge', 'radix_sort_pairs', 'scatter')
 #: Placements of one card the giant build splits the big row over.
 GIANT_PLACEMENTS = 4
 #: The world-1 giant builds: an 8 MiB chunk of the corpus (its padded row
@@ -3142,19 +3144,41 @@ def received_runs(rank, W, lo, hi, k, S):
     return keys[order], pos[order].to(torch.int32), runs
 
 
+def k6_ranks(text, n):
+    """B9's group starts at k = 6 of the row ``text`` (uint8 [N], true
+    length n) by position, int32 [N], a tied position's marked
+    (``GIANT_UNSETTLED``): the giant build's init keys of the whole row
+    sorted, flagged and relabelled as one list, then stored by
+    position."""
+    import torch
+
+    from pysubstringsearch_tpu_torch.ops import suffix_array as SA
+
+    N = text.shape[0]
+    keys, vals = SA.giant_byte_keys(text, text[N:], 0, n)
+    SA.radix_sort_pairs(keys, vals, SA.BYTE_KEY_BITS)
+    gs = SA.giant_relabel(keys, 0, None, None, 63, -1, -1)
+    del keys
+    return SA.scatter(gs, vals, torch.empty(N, dtype=torch.int32,
+                                            device=text.device))
+
+
 def giant_kernels(text, n, sa, S, entry):
     """B14g's kernels against their plain versions at the shapes of the
     big row split in ``S`` blocks (B = N / S), each timed beside its bound
     and, where one PyTorch call computes the same function, that call:
-    (a) the byte keys of the last block and the round keys at k = 6 from
-    the final ranks (the inverse of ``sa``), (b) the cuts of that block's
-    sorted keys at S - 1 of its keys and the partition by owner of the
-    sorted positions of slots [0, B) with their slots as group starts, (c)
-    the flags of the sorted keys and the max scan of those flags, and the
-    merge of the S runs shard 1 receives at k = 6 (:func:`received_runs`),
-    beside ``radix_sort_pairs`` of the same runs (the sort it replaces)
-    and a stable ``torch.sort`` with the positions gathered (the
-    library call)."""
+    (a) the byte keys of the last block; the merge of the S runs shard 1
+    receives at k = 6 (:func:`received_runs`, from the final ranks, the
+    inverse of ``sa``), beside ``radix_sort_pairs`` of the same runs (the
+    sort it replaces) and a stable ``torch.sort`` with the positions
+    gathered (the library call); then B9's state at k = 6 of the whole
+    row (its init keys sorted, flagged and relabelled as one list, the
+    group starts stored by position: a tied position's marked) gives the
+    last block's compacted round keys at k = 6, whose sorted list stands
+    for a shard's list: (b) the cuts of it at S - 1 of its keys, (c) its
+    flags and relabel (whole, and its second half with the first half's
+    carries), and the partition by owner of its positions with the
+    relabel's group starts.  Returns the unsettled share of the block."""
     import torch
 
     from pysubstringsearch_tpu_torch.ops import suffix_array as SA
@@ -3163,6 +3187,7 @@ def giant_kernels(text, n, sa, S, entry):
     B = N // S
     s = S - 1
     p0 = s * B
+    dev = text.device
     blk, halo = text[p0:], text[N:]
     got = SA.giant_byte_keys(blk, halo, p0, n)
     want = SA.giant_byte_keys_plain(blk, halo, p0, n)
@@ -3172,11 +3197,8 @@ def giant_kernels(text, n, sa, S, entry):
           cuda_ms(lambda: SA.giant_byte_keys_plain(blk, halo, p0, n), 1),
           13 * B)
     del got, want
-    inv = torch.empty(N, dtype=torch.int32, device=text.device)
-    SA.scatter(torch.arange(N, dtype=torch.int32, device=text.device), sa,
-               inv)
-    rank = inv[p0:].clone()
-    r2 = inv[p0 + 6:].clone()
+    inv = torch.empty(N, dtype=torch.int32, device=dev)
+    SA.scatter(torch.arange(N, dtype=torch.int32, device=dev), sa, inv)
     W = SA._key_width(N)
     mk, mv, runs = received_runs(inv, W, B, 2 * B, 6, S)
     del inv
@@ -3204,54 +3226,70 @@ def giant_kernels(text, n, sa, S, entry):
         f'radix_sort_pairs of the same runs {radix_ms:.4f} ms, '
         f'{radix_ms / merge_ms:.2f}x the merge\'s {merge_ms:.4f} ms')
     del mk, mv, work
-    got = SA.giant_round_keys(rank, r2, W, p0)
+    rank_all = k6_ranks(text, n)
+    rank, r2 = rank_all[p0:].clone(), rank_all[p0 + 6:].clone()
+    del rank_all
+    live = int((rank < 0).sum())
+    got = SA.giant_round_keys(rank, r2, W, p0, live)
     want = SA.giant_round_keys_plain(rank, r2, W, p0)
+    check(int(got[2]) == live, f'giant_round_keys counted {int(got[2])} '
+          f'unsettled positions, the host {live}')
     entry('giant_round_keys', GIANT_SRC, SA_SRC,
           max(err(a, b) for a, b in zip(got, want)),
-          cuda_ms(lambda: SA.giant_round_keys(rank, r2, W, p0), 5),
+          cuda_ms(lambda: SA.giant_round_keys(rank, r2, W, p0, live), 5),
           cuda_ms(lambda: SA.giant_round_keys_plain(rank, r2, W, p0), 1),
-          20 * B)
+          4 * B + 16 * live + 4)
+    log(f'giant_round_keys: {live} of the last block\'s {B} positions '
+        f'unsettled at k = 6 ({live / B:.4f})')
     del want, rank, r2
-    keys, vals = got
+    keys, vals, _ = got
     del got
     SA.radix_sort_pairs(keys, vals, 2 * W)
-    pick = torch.tensor([r * B // S for r in range(1, S)],
-                        device=text.device)
+    m = keys.shape[0]
+    pick = torch.tensor([r * m // S for r in range(1, S)], device=dev)
     skeys, spos = keys[pick], vals[pick]
     cuts = SA.giant_cuts(keys, vals, skeys, spos)
     entry('giant_cuts', GIANT_SRC, SA_SRC,
           err(cuts, SA.giant_cuts_plain(keys, vals, skeys, spos)),
           cuda_ms(lambda: SA.giant_cuts(keys, vals, skeys, spos), 20),
           cuda_ms(lambda: SA.giant_cuts_plain(keys, vals, skeys, spos), 1),
-          (S - 1) * (12 + 12 * B.bit_length()) + 8 * (S - 1),
+          (S - 1) * (12 + 12 * m.bit_length()) + 8 * (S - 1),
           cuda_ms(lambda: torch.searchsorted(keys, skeys), 20))
-    log(f'giant_cuts: at most {SA.giant_cuts_rounds(B)} dependent rounds of '
-        f'loads on {B} sorted pairs, where a binary search takes '
-        f'{B.bit_length()}')
-    pred = int(keys[0]) - 1
-    v, st = SA.giant_flags(keys, B, pred, True, N - n)
-    pv, pst = SA.giant_flags_plain(keys, B, pred, True, N - n)
-    entry('giant_flags', GIANT_SRC, SA_SRC, max(err(v, pv), err(st, pst)),
-          cuda_ms(lambda: SA.giant_flags(keys, B, pred, True, N - n), 5),
-          cuda_ms(lambda: SA.giant_flags_plain(keys, B, pred, True, N - n),
-                  1), 12 * B + 8)
-    entry('scan_inclusive_max', GIANT_SRC, SA_SRC,
-          err(SA.scan_inclusive_max(v), SA.scan_inclusive_max_plain(v)),
-          cuda_ms(lambda: SA.scan_inclusive_max(v), 5),
-          cuda_ms(lambda: SA.scan_inclusive_max_plain(v), 1), 8 * B,
-          cuda_ms(lambda: torch.cummax(v, 0), 5))
-    del keys, vals, v, pv
-    pos = sa[:B].clone()
-    gs = torch.arange(B, dtype=torch.int32, device=text.device)
-    got = SA.giant_partition(pos, gs, 7, B, S)
-    want = SA.giant_partition_plain(pos, gs, 7, B, S)
+    log(f'giant_cuts: at most {SA.giant_cuts_rounds(m)} dependent rounds of '
+        f'loads on {m} sorted pairs, where a binary search takes '
+        f'{m.bit_length()}')
+    real_lo = (N - n) << W
+    args = (keys, 0, None, None, W)
+    st = SA.giant_flags(*args, real_lo)
+    entry('giant_flags', GIANT_SRC, SA_SRC,
+          err(st, SA.giant_flags_plain(*args, real_lo)),
+          cuda_ms(lambda: SA.giant_flags(*args, real_lo), 5),
+          cuda_ms(lambda: SA.giant_flags_plain(*args, real_lo), 1),
+          8 * m + 12)
+    gs = SA.giant_relabel(*args, -1, -1)
+    e = err(gs, SA.giant_relabel_plain(*args, -1, -1))
+    h = m // 2
+    head = SA.giant_flags(keys[:h], 0, None, int(keys[h]), W, real_lo)
+    tail = (keys[h:], h, int(keys[h - 1]), None, W, int(head[0]),
+            int(head[1]))
+    e = max(e, err(SA.giant_relabel(*tail), SA.giant_relabel_plain(*tail)),
+            err(SA.giant_relabel(*tail), gs[h:]))
+    entry('giant_relabel', GIANT_SRC, SA_SRC, e,
+          cuda_ms(lambda: SA.giant_relabel(*args, -1, -1), 5),
+          cuda_ms(lambda: SA.giant_relabel_plain(*args, -1, -1), 1), 12 * m)
+    del tail
+    live_t = torch.empty(S, dtype=torch.int32, device=dev)
+    got = SA.giant_partition(vals, gs, B, S, live=live_t)
+    want = SA.giant_partition_plain(vals, gs, B, S)
     entry('giant_partition', GIANT_SRC, SA_SRC,
-          max(err(a, b) for a, b in zip(got, want)),
-          cuda_ms(lambda: SA.giant_partition(pos, gs, 7, B, S), 5),
-          cuda_ms(lambda: SA.giant_partition_plain(pos, gs, 7, B, S), 1),
-          16 * B + 4 * S)
-    del got, want, pos, gs
+          max([err(a, b) for a, b in zip(got, want)]
+              + [err(live_t, want[3])]),
+          cuda_ms(lambda: SA.giant_partition(vals, gs, B, S, live=live_t), 5),
+          cuda_ms(lambda: SA.giant_partition_plain(vals, gs, B, S), 1),
+          16 * m + 8 * S)
+    del got, want, keys, vals, gs
     torch.cuda.empty_cache()
+    return live / B
 
 
 def run_giant(corpus, native_ref, d, dev):
@@ -3304,8 +3342,13 @@ def run_giant(corpus, native_ref, d, dev):
     check(slot_bytes <= SA.SA_BUILD_BYTES_PER_SLOT,
           f'the giant build peaks at {slot_bytes:.2f} bytes a slot, text '
           f'included, within {SA.SA_BUILD_BYTES_PER_SLOT}')
-    check(max(st['max_recv']) <= st['recv_bound'],
-          f'no shard received more than 2B + S ({st})')
+    check(all(r <= b <= st['recv_bound']
+              for r, b in zip(st['max_recv'], st['round_bound'])),
+          f'no shard received more than 2 max_s m_s + S, nor 2B + S ({st})')
+    check(st['sorted'][0] == N and all(
+        a >= b for a, b in zip(st['sorted'], st['sorted'][1:])),
+        f'the giant build\'s sorts took N pairs, then the tied positions '
+        f'({st["sorted"]})')
     native, _ = native_ref.result()
     check(sa.shape == (N,) and sa.device == text.device,
           'the one-process build returns all of sa_full on the card')
@@ -3317,19 +3360,23 @@ def run_giant(corpus, native_ref, d, dev):
     log(f'giant build on {S} placements of one card, {n} bytes in N {N} '
         f'(B {N // S}): {wall:.3f} s wall, {st["rounds"]} rounds after the '
         f'init, peak {peak / 2**30:.2f} GiB above what was resident '
-        f'({slot_bytes:.2f} bytes a slot with the text); largest receive a '
-        f'sort {st["max_recv"]} against 2B + S = {st["recv_bound"]}; SA '
-        f'equals native SA-IS, pads closed-form; launches '
-        f'{ {k: launches[k] for k in GIANT_KERNELS} }')
+        f'({slot_bytes:.2f} bytes a slot with the text); pairs each sort '
+        f'took {st["sorted"]}, real positions tied after it '
+        f'{st["tied_real"]}; largest receive a sort {st["max_recv"]} '
+        f'against 2 max_s m_s + S {st["round_bound"]} and 2B + S = '
+        f'{st["recv_bound"]}; SA equals native SA-IS, pads closed-form; '
+        f'launches { {k: launches[k] for k in GIANT_KERNELS} }')
     out = {'n': n, 'n_pad': N, 'placements': S, 'wall_s': wall,
-           'rounds': st['rounds'], 'max_recv': st['max_recv'],
-           'recv_bound': st['recv_bound'], 'peak_gib': peak / 2**30,
-           'bytes_per_slot': slot_bytes,
+           'rounds': st['rounds'], 'sorted': st['sorted'],
+           'tied_real': st['tied_real'], 'max_recv': st['max_recv'],
+           'round_bound': st['round_bound'], 'recv_bound': st['recv_bound'],
+           'peak_gib': peak / 2**30, 'bytes_per_slot': slot_bytes,
            'launches': {k: launches[k] for k in GIANT_KERNELS}}
 
     # ---- the kernels against their plain versions ----
     entries = []
-    giant_kernels(text, n, sa, S, kernel_check('giant ', entries, launches))
+    out['k6_unsettled_share'] = giant_kernels(
+        text, n, sa, S, kernel_check('giant ', entries, launches))
     del sa, text
     gc.collect()
     torch.cuda.empty_cache()
@@ -3372,6 +3419,8 @@ def run_giant(corpus, native_ref, d, dev):
               'the world-1 giant build of the period-2 row equals B9')
         check(max(ab_stats['max_recv']) <= ab_stats['recv_bound'],
               'world 1: no receive over 2B + S')
+        log(f'world 1, {GIANT_PERIOD2_BYTES} bytes of "ab": pairs each sort '
+            f'took {ab_stats["sorted"]}')
         del got, ab, row, tiny
     finally:
         dist.destroy_process_group()

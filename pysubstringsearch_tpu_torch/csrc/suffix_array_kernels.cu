@@ -4,9 +4,10 @@
 // 384 Mi (B10), the full-sort doubling of the Writer's 'full' build, of
 // integer alphabets and of B10's poisoned rows (B9), and the building
 // blocks they are made of -- a stable one-sweep LSD radix sort of (uint64
-// key, int32 value) pairs, an exclusive sum scan and an inclusive max scan
-// over int32 -- with the radix sort's store pass alone as a scatter (B16),
-// binned in shared memory and blocked by destination.
+// key, int32 value) pairs and an exclusive sum scan over int32 -- with the
+// radix sort's store pass alone as a scatter (B16), binned in shared memory
+// and blocked by destination, and the per-shard steps of one row's B9
+// split over a mesh (B14g).
 // No library computes any of them: no cub::Device* routine, no Thrust, no
 // torch operator.
 //
@@ -566,130 +567,6 @@ Pairs radix_sort_pairs(uint64_t* keys, int* vals, long long n, int key_bits,
 }
 
 // ---------------------------------------------------------------------------
-// The inclusive max scan of pss_scan_inclusive_max (B14g's relabel, the
-// JAX lax.cummax) in one pass of decoupled look-back.  scan_levels<MaxOp>
-// reads and writes every element twice (its tile scan, then the carries
-// added back) and stays for the builds' internal scans, which take device
-// counts; this pass reads each element once and writes it once, 8 bytes an
-// element, the bound.  A block takes the next tile of kMaxScanTile elements
-// from an atomic counter (so every earlier tile already runs and the
-// look-back cannot wait on a block never scheduled), loads 16 consecutive
-// elements a thread as four 16-byte vectors where both buffers are
-// aligned, scans them in the block, publishes the tile's maximum (tag 1)
-// and, once warp 0 has read back over its predecessors' words 32 at a time
-// to the nearest inclusive prefix (tag 2), its own prefix, then writes the
-// tile with the carry.  A word holds the value in its low half and the tag
-// in its high half; the scratch is zeroed on the caller's stream.
-// ---------------------------------------------------------------------------
-constexpr int kMaxScanThreads = 256;
-constexpr int kMaxScanItems = 16;
-constexpr int kMaxScanTile = kMaxScanThreads * kMaxScanItems;
-
-__global__ void __launch_bounds__(kMaxScanThreads)
-    max_scan_kernel(const int* in, int* out, long long n,
-                    unsigned long long* status, int* counter, int vec) {
-  __shared__ int s_tile;
-  __shared__ int s_carry;
-  const int t = threadIdx.x;
-  const int lane = t & 31;
-  if (t == 0) s_tile = atomicAdd(counter, 1);
-  __syncthreads();
-  const long long tile = s_tile;
-  const long long base =
-      tile * kMaxScanTile + static_cast<long long>(t) * kMaxScanItems;
-  const bool whole = vec && base + kMaxScanItems <= n;
-  int v[kMaxScanItems];
-  if (whole) {
-    const int4* src = reinterpret_cast<const int4*>(in + base);
-#pragma unroll
-    for (int q = 0; q < kMaxScanItems / 4; ++q) {
-      const int4 x = src[q];
-      v[4 * q] = x.x;
-      v[4 * q + 1] = x.y;
-      v[4 * q + 2] = x.z;
-      v[4 * q + 3] = x.w;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < kMaxScanItems; ++j) {
-      v[j] = base + j < n ? in[base + j] : INT_MIN;
-    }
-  }
-  int acc = INT_MIN;
-#pragma unroll
-  for (int j = 0; j < kMaxScanItems; ++j) acc = MaxOp::apply(acc, v[j]);
-  int total;
-  int run = block_exclusive_scan<MaxOp, kMaxScanThreads / 32>(acc, &total);
-  unsigned long long* mine = status + tile;
-  if (t == 0) {
-    status_store(mine, tile == 0 ? 2u : 1u, static_cast<unsigned>(total));
-    s_carry = INT_MIN;
-  }
-  if (t < 32 && tile > 0) {
-    int carry = INT_MIN;
-    for (long long q = tile - 1;; q -= 32) {
-      const long long at = q - lane;  // lane 0 the nearest predecessor
-      unsigned long long w =
-          at >= 0 ? *reinterpret_cast<const volatile unsigned long long*>(
-                        status + at)
-                  : (2ull << 32) | static_cast<unsigned>(INT_MIN);
-      while (__any_sync(kFull, static_cast<unsigned>(w >> 32) == 0u)) {
-        if (static_cast<unsigned>(w >> 32) == 0u) {
-          w = *reinterpret_cast<const volatile unsigned long long*>(status +
-                                                                    at);
-        }
-      }
-      const unsigned prefixes =
-          __ballot_sync(kFull, static_cast<unsigned>(w >> 32) == 2u);
-      int x = static_cast<int>(static_cast<unsigned>(w));
-      if (prefixes && lane > __ffs(prefixes) - 1) x = INT_MIN;
-      for (int o = 16; o > 0; o >>= 1) {
-        x = MaxOp::apply(x, __shfl_xor_sync(kFull, x, o));
-      }
-      carry = MaxOp::apply(carry, x);
-      if (prefixes) break;
-    }
-    if (t == 0) {
-      status_store(mine, 2u,
-                   static_cast<unsigned>(MaxOp::apply(carry, total)));
-      s_carry = carry;
-    }
-  }
-  __syncthreads();
-  run = MaxOp::apply(run, s_carry);
-#pragma unroll
-  for (int j = 0; j < kMaxScanItems; ++j) {
-    run = MaxOp::apply(run, v[j]);
-    v[j] = run;
-  }
-  if (whole) {
-    int4* dst = reinterpret_cast<int4*>(out + base);
-#pragma unroll
-    for (int q = 0; q < kMaxScanItems / 4; ++q) {
-      dst[q] = make_int4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < kMaxScanItems; ++j) {
-      if (base + j < n) out[base + j] = v[j];
-    }
-  }
-}
-
-// The max scan's scratch: a status word a tile and the tile counter.
-struct MaxScanBufs {
-  unsigned long long* status;
-  int* counter;
-};
-
-MaxScanBufs carve_max_scan(Arena& a, long long n) {
-  MaxScanBufs b;
-  b.status = a.take<unsigned long long>(cdiv(n, kMaxScanTile));
-  b.counter = a.take<int>(1);
-  return b;
-}
-
-// ---------------------------------------------------------------------------
 // B16, the store pass of an LSD radix sort on its own: out[dests[i]] =
 // values[i].  Replaces pallas_scatter (benchmarks/pallas_sort_bench.py),
 // which stored one element at a time from VMEM tiles of 8192 and never
@@ -786,7 +663,8 @@ scatter_count_kernel(const int* __restrict__ dests, long long n, long long lo,
     if (sc[i]) atomicAdd(&counts[i], sc[i]);
 }
 
-// Tile blockIdx.x of the pairs into its bins' runs of `pairs`: offsets[b]
+// Tile blockIdx.x of the pairs into its bins' runs of `pairs` (values null:
+// each pair's value is its index i): offsets[b]
 // is bin b's first pair, fill[b] the pairs claimed so far.  Thread t holds
 // pairs 4 (k kDistThreads + t) + 0..3 of the tile, k < kDistItems / 4,
 // loaded 16 bytes at a time where the tile is whole and both inputs are
@@ -813,11 +691,16 @@ scatter_distribute_kernel(const int* __restrict__ values,
     for (int k = 0; k < kDistItems / 4; ++k) {
       const long long i = base + 4LL * (k * kDistThreads + threadIdx.x);
       const int4 dd = *reinterpret_cast<const int4*>(dests + i);
-      const int4 vv = *reinterpret_cast<const int4*>(values + i);
       d[4 * k] = dd.x; d[4 * k + 1] = dd.y; d[4 * k + 2] = dd.z;
       d[4 * k + 3] = dd.w;
-      v[4 * k] = vv.x; v[4 * k + 1] = vv.y; v[4 * k + 2] = vv.z;
-      v[4 * k + 3] = vv.w;
+      if (values) {
+        const int4 vv = *reinterpret_cast<const int4*>(values + i);
+        v[4 * k] = vv.x; v[4 * k + 1] = vv.y; v[4 * k + 2] = vv.z;
+        v[4 * k + 3] = vv.w;
+      } else {  // each pair's own index
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[4 * k + e] = static_cast<int>(i + e);
+      }
     }
   } else {
     // A pair past n gets dest lo - 1, outside every bin.
@@ -828,7 +711,7 @@ scatter_distribute_kernel(const int* __restrict__ values,
       for (int j = 0; j < 4; ++j) {
         const long long i = base + 4LL * (k * kDistThreads + threadIdx.x) + j;
         d[4 * k + j] = i < n ? dests[i] : none;
-        v[4 * k + j] = i < n ? values[i] : 0;
+        v[4 * k + j] = i >= n ? 0 : values ? values[i] : static_cast<int>(i);
       }
     }
   }
@@ -2988,38 +2871,37 @@ __global__ void roll_front_kernel(const int* __restrict__ src, long long N,
 // sort; there is no such partitioner here, so parallel/sharded.py runs each
 // round as a sample sort over torch.distributed (or device copies between
 // the placements of one process), on this file's radix sort (a shard's
-// local pairs), max scan and scatter, and on these kernels for the steps
-// none of them does:
-//   (a) giant_byte_keys_kernel, giant_round_keys_kernel: B9's keys of one
-//       shard's block of B positions, with the positions as values: the
-//       6-byte init key (B1b's layout, limb0 << 25 | limb1, 50 bits) from
-//       the block's text and the 5 bytes past it, or a round's key
-//       rank[i] << W | (rank[i + k] + 1) from the block's group starts and
-//       the fetched shifted ranks (0 past the row).  A fused elementwise
-//       pass, which Triton would do as well; it stays in CUDA so that the
-//       path builds from this one library.
+// local pairs) and scatter, and on these kernels for the steps none of
+// them does.  A round sorts only the unsettled positions, those whose
+// group still has two members or more, as B9 refines only its tied groups:
+// the owner's rank block keeps a settled position's final slot, and an
+// unsettled one's group start with the int32 sign bit set (group starts
+// are below N < 2^31).
+//   (a) giant_byte_keys_kernel: B9's 6-byte init key (B1b's layout, limb0
+//       << 25 | limb1, 50 bits) of one shard's block of B positions, from
+//       the block's text and the 5 bytes past it, with the positions as
+//       values; giant_round_keys_kernel: a round's key rank[i] << W |
+//       (rank[i + k] + 1) (0 past the row, the marks cleared) of the
+//       block's unsettled positions only, compacted in position order in
+//       one pass of decoupled look-back, and their count.
 //   (b) giant_cuts_kernel: where the S - 1 (key, position) splitters cut a
 //       shard sorted by (key, position) (the pieces of a sorted shard are
 //       contiguous, so nothing moves); and giant_part_hist_kernel +
 //       giant_part_scatter_kernel: (position, group start) pairs
 //       partitioned by owner shard, position / B, stably, into per-owner
-//       slices, positions made local to the owner's block and group starts
-//       raised to the carried-in one.  Both are redesigns for this card;
-//       see their own notes.
-//   (c) giant_flags_kernel: the relabel's group-start candidates, slot
-//       off + i where the key differs from its predecessor (for i = 0 the
-//       last key of the nearest non-empty earlier shard, carried in by the
-//       host) and -1 elsewhere, with the shard's last such slot and the
-//       number of them at real slots (>= N - n); the max scan over the
-//       candidates then gives every slot its group start.
+//       slices, positions made local to the owner's block, with the count
+//       of unsettled pairs an owner receives.  Both are redesigns for this
+//       card; see their own notes.
+//   (c) giant_flags_kernel and giant_relabel_kernel: the relabel of a
+//       shard's sorted list in slot space (see their note).
 //   (d) giant_merge_rank_kernel + giant_merge_segments_kernel: the S
 //       sorted runs a shard receives merged into its (key, position)
 //       order (see their own notes).
-// (a), (c) and the partition are bound by memory: (a) writes 12 bytes a
-// position and reads 1 or 8, the partition reads 8 bytes a pair and writes
-// 8 (and reads the positions once more), (c) reads 8 and writes 4.  The
-// cuts move next to nothing; their floor is their dependent rounds of
-// loads.
+// (a), (c) and the partition are bound by memory: (a) writes 12 bytes an
+// unsettled position and reads 1 or 4-8, the partition reads 8 bytes a
+// pair and writes 8 (and reads the positions once more), (c) reads 8 twice
+// and writes 4.  The cuts move next to nothing; their floor is their
+// dependent rounds of loads.
 // ---------------------------------------------------------------------------
 constexpr int kGiantMaxShards = 256;
 static_assert(kGiantMaxShards == kThreads, "one owner a thread");
@@ -3057,18 +2939,127 @@ __global__ void giant_byte_keys_kernel(const uint8_t* __restrict__ text,
   }
 }
 
-__global__ void giant_round_keys_kernel(const int* __restrict__ rank,
-                                        const int* __restrict__ r2,
-                                        long long m, long long c, int W,
-                                        long long p0,
-                                        uint64_t* __restrict__ keys,
-                                        int* __restrict__ vals) {
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       i < m; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const uint64_t low = i < c ? static_cast<uint64_t>(r2[i]) + 1u : 0u;
-    keys[i] = (static_cast<uint64_t>(rank[i]) << W) | low;
-    vals[i] = static_cast<int>(p0 + i);
+// The single-pass look-back of the compaction below: warp 0 of tile `tile`
+// reads its predecessors' status words 32 at a time (lane 0 the nearest)
+// back to the nearest inclusive prefix (tag 2), summing the tile counts
+// (tag 1) on the way and waiting where a word is not written yet (tag 0);
+// a word holds the value in its low half and the tag in its high half.
+// Tiles take their index from an atomic counter in launch order, so every
+// predecessor already runs.  Returns the exclusive prefix on every lane.
+__device__ __forceinline__ int lookback_sum(const unsigned long long* status,
+                                            long long tile) {
+  const int lane = threadIdx.x & 31;
+  int before = 0;
+  for (long long q = tile - 1;; q -= 32) {
+    const long long at = q - lane;
+    unsigned long long w =
+        at >= 0 ? *reinterpret_cast<const volatile unsigned long long*>(
+                      status + at)
+                : 2ull << 32;  // before tile 0: a prefix of 0
+    while (__any_sync(kFull, static_cast<unsigned>(w >> 32) == 0u)) {
+      if (static_cast<unsigned>(w >> 32) == 0u) {
+        w = *reinterpret_cast<const volatile unsigned long long*>(status +
+                                                                  at);
+      }
+    }
+    const unsigned prefixes =
+        __ballot_sync(kFull, static_cast<unsigned>(w >> 32) == 2u);
+    int x = static_cast<int>(static_cast<unsigned>(w));
+    if (prefixes && lane > __ffs(prefixes) - 1) x = 0;
+    before += __reduce_add_sync(kFull, x);
+    if (prefixes) return before;
+  }
+}
+
+// (a) in a round: the block's unsettled positions (rank[i] < 0, the mark)
+// in position order, keys[j] = g << W | low with g = rank[i] & INT_MAX and
+// low = (r2[i] & INT_MAX) + 1 for i < c, else 0; vals[j] = p0 + i; count
+// the number of them (only the first cap are written).  A block takes a
+// tile of kKeyTile positions from an atomic counter, loads its ranks
+// warp-striped (position warp base + 32 j + lane for item j), ballots the
+// unsettled ones item by item, publishes its count (one status word a
+// tile) and, after warp 0's look-back, writes each item's unsettled
+// positions contiguously, so a warp's stores of one item are one run.  The
+// shifted ranks are read only for unsettled positions (a late round, where
+// few are left, reads 4 bytes a position), issued before the look-back so
+// that it hides them.
+constexpr int kKeyItems = 16;
+constexpr int kKeyTile = kThreads * kKeyItems;
+constexpr int kKeyWarpItems = 32 * kKeyItems;
+
+__global__ void __launch_bounds__(kThreads)
+    giant_round_keys_kernel(const int* __restrict__ rank,
+                            const int* __restrict__ r2, long long m,
+                            long long c, int W, long long p0, long long cap,
+                            uint64_t* __restrict__ keys,
+                            int* __restrict__ vals, int* __restrict__ count,
+                            unsigned long long* status, int* counter) {
+  __shared__ int s_tile;
+  __shared__ int s_warp[kWarps];
+  __shared__ long long s_first;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  if (t == 0) s_tile = atomicAdd(counter, 1);
+  __syncthreads();
+  const long long tile = s_tile;
+  const long long first = tile * kKeyTile + warp * kKeyWarpItems + lane;
+  int r[kKeyItems];
+  int low[kKeyItems];  // r2 + 1 of the unsettled ones, in flight early
+  unsigned ballot[kKeyItems];
+  int warp_count = 0;
+#pragma unroll
+  for (int j = 0; j < kKeyItems; ++j) {
+    const long long i = first + 32 * j;
+    r[j] = i < m ? __ldcs(rank + i) : 0;
+    ballot[j] = __ballot_sync(kFull, r[j] < 0);
+    warp_count += __popc(ballot[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < kKeyItems; ++j) {
+    const long long i = first + 32 * j;
+    low[j] = r[j] < 0 && i < c ? (__ldcs(r2 + i) & INT_MAX) + 1 : 0;
+  }
+  if (lane == 0) s_warp[warp] = warp_count;
+  __syncthreads();
+  if (t < 32) {
+    // Warp 0: the warps' offsets, the tile's count out at once (tag 1, or
+    // 2 for tile 0), then the look-back and the inclusive prefix (tag 2).
+    const int x = lane < kWarps ? s_warp[lane] : 0;
+    int incl = x;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += y;
+    }
+    const int total = __shfl_sync(kFull, incl, 31);
+    if (lane < kWarps) s_warp[lane] = incl - x;
+    if (lane == 0) {
+      status_store(status + tile, tile == 0 ? 2u : 1u,
+                   static_cast<unsigned>(total));
+    }
+    const int before = tile > 0 ? lookback_sum(status, tile) : 0;
+    if (lane == 0) {
+      if (tile > 0) {
+        status_store(status + tile, 2u, static_cast<unsigned>(before + total));
+      }
+      s_first = before;
+      if (tile == gridDim.x - 1) *count = before + total;
+    }
+  }
+  __syncthreads();
+  long long at = s_first + s_warp[warp];
+  const unsigned lower = (1u << lane) - 1u;
+#pragma unroll
+  for (int j = 0; j < kKeyItems; ++j) {
+    if (r[j] < 0) {
+      const long long dst = at + __popc(ballot[j] & lower);
+      if (dst < cap) {
+        keys[dst] = (static_cast<uint64_t>(r[j] & INT_MAX) << W) |
+                    static_cast<unsigned>(low[j]);
+        vals[dst] = static_cast<int>(p0 + first + 32 * j);
+      }
+    }
+    at += __popc(ballot[j]);
   }
 }
 
@@ -3276,14 +3267,16 @@ __global__ void __launch_bounds__(kThreads, kPartMinBlocks)
     giant_part_scatter_kernel(const int* __restrict__ pos,
                               const int* __restrict__ gs, long long m,
                               unsigned B, unsigned rcp, int bits, int S,
-                              int floor_gs, const int* __restrict__ totals,
+                              const int* __restrict__ totals,
                               unsigned long long* status, int* counter,
                               int* __restrict__ out_pos,
-                              int* __restrict__ out_gs) {
+                              int* __restrict__ out_gs,
+                              int* __restrict__ live) {
   __shared__ int s_tile;
   __shared__ unsigned s_warp[kWarps][kGiantMaxShards];  // counts, offsets
   __shared__ int s_local[kGiantMaxShards];  // staged index of owner's first
   __shared__ int s_base[kGiantMaxShards];   // its output slot minus that
+  __shared__ int s_live[kGiantMaxShards];   // unsettled pairs of each owner
   __shared__ int s_pos[kPartTile];
   __shared__ int s_gs[kPartTile];
   const int t = threadIdx.x;
@@ -3291,6 +3284,7 @@ __global__ void __launch_bounds__(kThreads, kPartMinBlocks)
   const int warp = t >> 5;
   if (t == 0) s_tile = atomicAdd(counter, 1);
   for (int w = 0; w < kWarps; ++w) s_warp[w][t] = 0;
+  s_live[t] = 0;
   __syncthreads();
   const long long tile = s_tile;
   const long long tile_base = tile * kPartTile;
@@ -3382,47 +3376,293 @@ __global__ void __launch_bounds__(kThreads, kPartMinBlocks)
       const unsigned d = part_owner(s_pos[i], B, rcp, &loc);
       const int dst = s_base[d] + i;
       out_pos[dst] = static_cast<int>(loc);
-      const int gg = s_gs[i];
-      out_gs[dst] = gg > floor_gs ? gg : floor_gs;
+      out_gs[dst] = s_gs[i];
     }
+  }
+  if (live) {
+    // The staged pairs again, consecutive ones mostly of one owner: a
+    // leader a warp and owner counts the unsettled ones (group start < 0)
+    // into shared memory, one global add a block and owner.
+    for (int r = 0; r < kPartItems; ++r) {
+      const int i = r * kThreads + t;
+      bool unsettled = false;
+      unsigned d = 0;
+      if (i < valid_count) {
+        unsigned loc;
+        d = part_owner(s_pos[i], B, rcp, &loc);
+        unsettled = s_gs[i] < 0;
+      }
+      const unsigned peers = owner_peers(d, unsettled, bits);
+      if (unsettled && (peers & lower) == 0) {
+        atomicAdd(&s_live[d], __popc(peers));
+      }
+    }
+    __syncthreads();
+    if (t < S && s_live[t]) atomicAdd(&live[t], s_live[t]);
   }
 }
 
+// (c) The relabel of a shard's merged list in slot space.  The list holds
+// m pairs at global list indices J = off + i, sorted by key; a key's old
+// group start is g = key >> shift (a round's rank[i], shift = W; the init
+// passes shift = 63, one old group from 0).  Every member of an old group
+// is in the list, contiguous, so with f the list index of the group's
+// first member, pair J sits at slot J + (g - f); a new group starts where
+// the key differs from its predecessor's, and its start is its slot.  So
+// two inclusive max scans along the list give every pair its new group
+// start: a of g - J at the old groups' first members (g - f rises along
+// the list: it counts the settled slots below g) and b of J at the new
+// groups' first members; the start is b + a.  A pair is settled when its
+// own and its successor's keys both start groups (for the last pair the
+// first key of the next non-empty shard, succ).  The predecessor of pair 0
+// is pred, the last key of the nearest non-empty earlier shard; the scans
+// carry in the last a and b of the earlier shards (carry_a, carry_b).
+//   giant_flags_kernel: stats[0], stats[1] = the shard's largest a and b
+//     candidates (-1 if none: its carries out), stats[2] = its unsettled
+//     real pairs (keys >= real_lo), read back with every shard's before
+//     the relabel; the build stops when no real pair is left unsettled
+//     (B9's settled stop).
+//   giant_relabel_kernel: one pass of decoupled look-back over tiles of
+//     kRelabelTile pairs, 16 consecutive pairs a thread, both scans in one
+//     status word a tile (tag in bits 62-63, a + 1 and b + 1 in 31 bits
+//     each), writing each pair's new group start with the sign bit set
+//     where it is unsettled.
+// Together 20 bytes a pair, as the one-value candidates and max scan
+// they replace.
 __global__ void giant_stats_init_kernel(int* stats) {
   stats[0] = -1;
-  stats[1] = 0;
+  stats[1] = -1;
+  stats[2] = 0;
 }
 
-// v[i] = off + i where keys[i] starts a run of equal keys (i = 0 against
-// pred when has_pred), else -1; stats[0] = max of those slots (-1 if
-// none), stats[1] = how many of them are at or past real_lo.
 __global__ void __launch_bounds__(kThreads)
     giant_flags_kernel(const uint64_t* __restrict__ keys, long long m,
                        long long off, uint64_t pred, int has_pred,
-                       long long real_lo, int* __restrict__ v,
-                       int* __restrict__ stats) {
-  int best = -1;
-  int real = 0;
+                       uint64_t succ, int has_succ, int shift,
+                       uint64_t real_lo, int* __restrict__ stats) {
+  int best_a = -1;
+  int best_b = -1;
+  int tied = 0;
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
        i < m; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const uint64_t k = keys[i];
+    const bool first = i == 0 && !has_pred;
     const uint64_t prev = i > 0 ? keys[i - 1] : pred;
-    const bool f = (i == 0 && !has_pred) || keys[i] != prev;
-    const int slot = static_cast<int>(off + i);
-    v[i] = f ? slot : -1;
-    if (f) {
-      best = slot;  // slots grow along a thread's loop
-      real += off + i >= real_lo ? 1 : 0;
+    const bool ns = first || k != prev;
+    const bool next_ns = i + 1 < m ? keys[i + 1] != k : !has_succ || succ != k;
+    const long long J = off + i;
+    if (first || (k >> shift) != (prev >> shift)) {
+      const int a = static_cast<int>(static_cast<long long>(k >> shift) - J);
+      best_a = a > best_a ? a : best_a;
     }
+    if (ns) best_b = static_cast<int>(J);  // J grows along a thread's loop
+    tied += !(ns && next_ns) && k >= real_lo ? 1 : 0;
   }
   for (int o = 16; o > 0; o >>= 1) {
-    const int b = __shfl_down_sync(kFull, best, o);
-    best = b > best ? b : best;
-    real += __shfl_down_sync(kFull, real, o);
+    const int a = __shfl_down_sync(kFull, best_a, o);
+    best_a = a > best_a ? a : best_a;
+    const int b = __shfl_down_sync(kFull, best_b, o);
+    best_b = b > best_b ? b : best_b;
+    tied += __shfl_down_sync(kFull, tied, o);
   }
   if ((threadIdx.x & 31) == 0) {
-    if (best >= 0) atomicMax(&stats[0], best);
-    if (real) atomicAdd(&stats[1], real);
+    if (best_a >= 0) atomicMax(&stats[0], best_a);
+    if (best_b >= 0) atomicMax(&stats[1], best_b);
+    if (tied) atomicAdd(&stats[2], tied);
+  }
+}
+
+constexpr int kRelabelItems = 16;
+constexpr int kRelabelTile = kThreads * kRelabelItems;
+
+__device__ __forceinline__ unsigned long long relabel_word(unsigned tag,
+                                                           int a, int b) {
+  return (static_cast<unsigned long long>(tag) << 62) |
+         (static_cast<unsigned long long>(static_cast<unsigned>(a + 1))
+          << 31) |
+         static_cast<unsigned>(b + 1);
+}
+
+__device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
+
+// Warp 0's look-back for tile `tile`: the max of a and of b over tiles
+// [0, tile), as lookback_sum walks, into *pa and *pb on every lane.
+__device__ __forceinline__ void lookback_relabel(
+    const unsigned long long* status, long long tile, int* pa, int* pb) {
+  const int lane = threadIdx.x & 31;
+  int ca = -1, cb = -1;
+  for (long long q = tile - 1;; q -= 32) {
+    const long long at = q - lane;
+    unsigned long long w =
+        at >= 0 ? *reinterpret_cast<const volatile unsigned long long*>(
+                      status + at)
+                : 2ull << 62;  // before tile 0: a prefix of (-1, -1)
+    while (__any_sync(kFull, (w >> 62) == 0ull)) {
+      if ((w >> 62) == 0ull) {
+        w = *reinterpret_cast<const volatile unsigned long long*>(status +
+                                                                  at);
+      }
+    }
+    const unsigned prefixes = __ballot_sync(kFull, (w >> 62) == 2ull);
+    int a = static_cast<int>((w >> 31) & 0x7fffffffull) - 1;
+    int b = static_cast<int>(w & 0x7fffffffull) - 1;
+    if (prefixes && lane > __ffs(prefixes) - 1) a = b = -1;
+    for (int o = 16; o > 0; o >>= 1) {
+      a = imax(a, __shfl_xor_sync(kFull, a, o));
+      b = imax(b, __shfl_xor_sync(kFull, b, o));
+    }
+    ca = imax(ca, a);
+    cb = imax(cb, b);
+    if (prefixes) break;
+  }
+  *pa = ca;
+  *pb = cb;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    giant_relabel_kernel(const uint64_t* __restrict__ keys, long long m,
+                         long long off, uint64_t pred, int has_pred,
+                         uint64_t succ, int has_succ, int shift, int carry_a,
+                         int carry_b, int vec, int* __restrict__ out,
+                         unsigned long long* status, int* counter) {
+  __shared__ int s_tile;
+  __shared__ int s_a[kWarps + 1];
+  __shared__ int s_b[kWarps + 1];
+  __shared__ int s_carry[2];
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  if (t == 0) s_tile = atomicAdd(counter, 1);
+  __syncthreads();
+  const long long tile = s_tile;
+  const long long base =
+      tile * kRelabelTile + static_cast<long long>(t) * kRelabelItems;
+  const bool whole = vec && base + kRelabelItems <= m;
+  uint64_t k[kRelabelItems];
+  if (whole) {
+    const ulonglong2* src = reinterpret_cast<const ulonglong2*>(keys + base);
+#pragma unroll
+    for (int q = 0; q < kRelabelItems / 2; ++q) {
+      const ulonglong2 x = src[q];
+      k[2 * q] = x.x;
+      k[2 * q + 1] = x.y;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kRelabelItems; ++j) {
+      k[j] = base + j < m ? keys[base + j] : 0ull;
+    }
+  }
+  const uint64_t before = base > 0 && base - 1 < m ? keys[base - 1] : pred;
+  const uint64_t after = base + kRelabelItems < m ? keys[base + kRelabelItems]
+                                                  : succ;
+  unsigned ns = 0, os = 0;  // bit j: pair base + j starts a new, old group
+  int acc_a = -1, acc_b = -1;
+#pragma unroll
+  for (int j = 0; j < kRelabelItems; ++j) {
+    const long long i = base + j;
+    if (i < m) {
+      const bool first = i == 0 && !has_pred;
+      const uint64_t prev = j > 0 ? k[j - 1] : before;
+      const long long J = off + i;
+      if (first || k[j] != prev) {
+        ns |= 1u << j;
+        acc_b = static_cast<int>(J);
+      }
+      if (first || (k[j] >> shift) != (prev >> shift)) {
+        os |= 1u << j;
+        acc_a = imax(acc_a, static_cast<int>(
+                                static_cast<long long>(k[j] >> shift) - J));
+      }
+    }
+  }
+  // The block's exclusive max scans of (a, b) and its totals.
+  int ia = acc_a, ib = acc_b;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int ya = __shfl_up_sync(kFull, ia, o);
+    const int yb = __shfl_up_sync(kFull, ib, o);
+    if (lane >= o) {
+      ia = imax(ia, ya);
+      ib = imax(ib, yb);
+    }
+  }
+  if (lane == 31) {
+    s_a[warp] = ia;
+    s_b[warp] = ib;
+  }
+  __syncthreads();
+  if (t == 0) {
+    int ra = -1, rb = -1;
+    for (int w = 0; w < kWarps; ++w) {
+      const int xa = s_a[w], xb = s_b[w];
+      s_a[w] = ra;
+      s_b[w] = rb;
+      ra = imax(ra, xa);
+      rb = imax(rb, xb);
+    }
+    s_a[kWarps] = ra;
+    s_b[kWarps] = rb;
+  }
+  __syncthreads();
+  unsigned long long* mine = status + tile;
+  if (t < 32) {
+    const int ta = s_a[kWarps], tb = s_b[kWarps];
+    if (lane == 0) {
+      *reinterpret_cast<volatile unsigned long long*>(mine) =
+          relabel_word(tile == 0 ? 2u : 1u, ta, tb);
+    }
+    int pa = -1, pb = -1;
+    if (tile > 0) {
+      lookback_relabel(status, tile, &pa, &pb);
+      if (lane == 0) {
+        *reinterpret_cast<volatile unsigned long long*>(mine) =
+            relabel_word(2u, imax(pa, ta), imax(pb, tb));
+      }
+    }
+    if (lane == 0) {
+      s_carry[0] = imax(pa, carry_a);
+      s_carry[1] = imax(pb, carry_b);
+    }
+  }
+  __syncthreads();
+  int xa = __shfl_up_sync(kFull, ia, 1);
+  int xb = __shfl_up_sync(kFull, ib, 1);
+  if (lane == 0) xa = xb = -1;
+  int ra = imax(imax(s_a[warp], xa), s_carry[0]);
+  int rb = imax(imax(s_b[warp], xb), s_carry[1]);
+  int v[kRelabelItems];
+#pragma unroll
+  for (int j = 0; j < kRelabelItems; ++j) {
+    const long long i = base + j;
+    const long long J = off + i;
+    if ((os >> j) & 1u) {
+      ra = imax(ra, static_cast<int>(static_cast<long long>(k[j] >> shift) -
+                                     J));
+    }
+    if ((ns >> j) & 1u) rb = imax(rb, static_cast<int>(J));
+    bool next_ns;
+    if (i + 1 >= m) {
+      next_ns = !has_succ || succ != k[j];
+    } else if (j + 1 < kRelabelItems) {
+      next_ns = (ns >> (j + 1)) & 1u;
+    } else {
+      next_ns = after != k[j];
+    }
+    const int gs = rb + ra;
+    v[j] = ((ns >> j) & 1u) && next_ns ? gs : gs | INT_MIN;
+  }
+  if (whole) {
+    int4* dst = reinterpret_cast<int4*>(out + base);
+#pragma unroll
+    for (int q = 0; q < kRelabelItems / 4; ++q) {
+      dst[q] = make_int4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kRelabelItems; ++j) {
+      if (base + j < m) out[base + j] = v[j];
+    }
   }
 }
 
@@ -3768,6 +4008,20 @@ PartBufs carve_part(Arena& a, long long m, long long S) {
   return b;
 }
 
+// The scratch of a one-pass look-back over tiles: a status word a tile and
+// the tile counter (the round keys' compaction, the relabel).
+struct TileBufs {
+  unsigned long long* status;
+  int* counter;
+};
+
+TileBufs carve_tiles(Arena& a, long long tiles) {
+  TileBufs b;
+  b.status = a.take<unsigned long long>(tiles);
+  b.counter = a.take<int>(1);
+  return b;
+}
+
 }  // namespace
 
 extern "C" {
@@ -3788,29 +4042,6 @@ int pss_scan_exclusive_sum(const void* in, void* out, long long n,
                      true, static_cast<int*>(scratch), st);
   scan_total_kernel<<<1, 1, 0, st>>>(static_cast<const int*>(in),
                                      static_cast<int*>(out), n);
-  return static_cast<int>(cudaGetLastError());
-}
-
-long long pss_scan_max_scratch_bytes(long long n) {
-  Arena a{nullptr, 0};
-  carve_max_scan(a, n);
-  return static_cast<long long>(a.off);
-}
-
-// out int32 [n]: out[i] = max of in[0, i], in one look-back pass; the
-// scratch holds pss_scan_max_scratch_bytes(n) bytes and is zeroed here.
-int pss_scan_inclusive_max(const void* in, void* out, long long n,
-                           void* scratch, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Arena a{static_cast<char*>(scratch), 0};
-  const MaxScanBufs b = carve_max_scan(a, n);
-  cudaMemsetAsync(scratch, 0, a.off, st);
-  const int vec = aligned16(in) && aligned16(out) ? 1 : 0;
-  max_scan_kernel<<<static_cast<unsigned>(cdiv(n, kMaxScanTile)),
-                    kMaxScanThreads, 0, st>>>(static_cast<const int*>(in),
-                             static_cast<int*>(out), n, b.status, b.counter,
-                             vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -4107,8 +4338,9 @@ long long pss_scatter_scratch_bytes(long long n) {
   return static_cast<long long>(a.off);
 }
 
-// out[dests[i]] = values[i] for i < n into out [out_len] (dests distinct);
-// scratch of pss_scatter_scratch_bytes(n).
+// out[dests[i]] = values[i] for i < n into out [out_len] (dests distinct;
+// one outside out is dropped; values null: out[dests[i]] = i); scratch of
+// pss_scatter_scratch_bytes(n).
 int pss_scatter(const void* values, const void* dests, long long n, void* out,
                 long long out_len, void* scratch, void* stream) {
   if (n <= 0 || out_len <= 0) return 0;
@@ -4169,15 +4401,32 @@ int pss_giant_byte_keys(const void* text, long long m, const void* halo,
   return static_cast<int>(cudaGetLastError());
 }
 
-// keys uint64 [m] = rank[i] << W | (i < c ? r2[i] + 1 : 0), vals = p0 + i.
+long long pss_giant_keys_scratch_bytes(long long m) {
+  Arena a{nullptr, 0};
+  carve_tiles(a, cdiv(m, kKeyTile));
+  return static_cast<long long>(a.off);
+}
+
+// keys uint64 [cap], vals int32 [cap]: the unsettled positions (rank[i] <
+// 0) of the block rank int32 [m] in position order, keys (rank[i] &
+// INT_MAX) << W | (i < c ? (r2[i] & INT_MAX) + 1 : 0), vals p0 + i; count
+// int32 [1] their number (only the first cap are written).  The scratch
+// holds pss_giant_keys_scratch_bytes(m) bytes and is zeroed here.
 int pss_giant_round_keys(const void* rank, const void* r2, long long m,
-                         long long c, int W, long long p0, void* keys,
-                         void* vals, void* stream) {
-  if (m <= 0) return 0;
-  giant_round_keys_kernel<<<grid_for(m), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
+                         long long c, int W, long long p0, long long cap,
+                         void* keys, void* vals, void* count, void* scratch,
+                         void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaMemsetAsync(count, 0, sizeof(int), st);
+  if (m <= 0) return static_cast<int>(cudaGetLastError());
+  Arena a{static_cast<char*>(scratch), 0};
+  const long long tiles = cdiv(m, kKeyTile);
+  const TileBufs b = carve_tiles(a, tiles);
+  cudaMemsetAsync(scratch, 0, a.off, st);
+  giant_round_keys_kernel<<<static_cast<unsigned>(tiles), kThreads, 0, st>>>(
       static_cast<const int*>(rank), static_cast<const int*>(r2), m, c, W,
-      p0, static_cast<uint64_t*>(keys), static_cast<int*>(vals));
+      p0, cap, static_cast<uint64_t*>(keys), static_cast<int*>(vals),
+      static_cast<int*>(count), b.status, b.counter);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -4199,19 +4448,21 @@ long long pss_giant_part_scratch_bytes(long long m, long long S) {
   return static_cast<long long>(a.off);
 }
 
-// out_pos, out_gs int32 [m]: the pairs (pos[i] - d * B, max(gs[i],
-// floor_gs)) stably partitioned by owner d = pos[i] / B < S <= 256;
-// totals int32 [S] their counts.  The scratch holds
-// pss_giant_part_scratch_bytes(m, S) bytes and is zeroed here.
+// out_pos, out_gs int32 [m]: the pairs (pos[i] - d * B, gs[i]) stably
+// partitioned by owner d = pos[i] / B < S <= 256; totals int32 [S] their
+// counts and, when not null, live int32 [S] the counts of those with gs[i]
+// < 0.  The scratch holds pss_giant_part_scratch_bytes(m, S) bytes and is
+// zeroed here.
 int pss_giant_partition(const void* pos, const void* gs, long long m,
-                        long long B, int S, int floor_gs, void* out_pos,
-                        void* out_gs, void* totals, void* scratch,
+                        long long B, int S, void* out_pos, void* out_gs,
+                        void* totals, void* live, void* scratch,
                         void* stream) {
   if (S < 1 || S > kGiantMaxShards || B < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaMemsetAsync(totals, 0, sizeof(int) * S, st);
+  if (live) cudaMemsetAsync(live, 0, sizeof(int) * S, st);
   if (m <= 0) return static_cast<int>(cudaGetLastError());
   // Positions are below 2^31, so a B past 2^32 - 1 owns them all as
   // 2^32 - 1 does.
@@ -4241,8 +4492,9 @@ int pss_giant_partition(const void* pos, const void* gs, long long m,
   giant_part_scatter_kernel<<<static_cast<unsigned>(tiles), kThreads, 0,
                               st>>>(
       static_cast<const int*>(pos), static_cast<const int*>(gs), m, b32, rcp,
-      bits, S, floor_gs, static_cast<const int*>(totals), b.status,
-      b.counter, static_cast<int*>(out_pos), static_cast<int*>(out_gs));
+      bits, S, static_cast<const int*>(totals), b.status, b.counter,
+      static_cast<int*>(out_pos), static_cast<int*>(out_gs),
+      static_cast<int*>(live));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -4316,10 +4568,12 @@ int pss_giant_merge(void* keys, void* vals, long long m, const void* runs,
   return static_cast<int>(cudaGetLastError());
 }
 
-// v int32 [m], stats int32 [2] (see giant_flags_kernel).
+// stats int32 [3] of the sorted keys uint64 [m] at list indices off + i
+// (see giant_flags_kernel).
 int pss_giant_flags(const void* keys, long long m, long long off,
-                    long long pred, int has_pred, long long real_lo, void* v,
-                    void* stats, void* stream) {
+                    long long pred, int has_pred, long long succ,
+                    int has_succ, int shift, long long real_lo, void* stats,
+                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   giant_stats_init_kernel<<<1, 1, 0, st>>>(static_cast<int*>(stats));
   if (m > 0) {
@@ -4327,9 +4581,38 @@ int pss_giant_flags(const void* keys, long long m, long long off,
     giant_flags_kernel<<<static_cast<unsigned>(g < 4096 ? g : 4096), kThreads,
                          0, st>>>(static_cast<const uint64_t*>(keys), m, off,
                                   static_cast<uint64_t>(pred), has_pred,
-                                  real_lo, static_cast<int*>(v),
+                                  static_cast<uint64_t>(succ), has_succ,
+                                  shift, static_cast<uint64_t>(real_lo),
                                   static_cast<int*>(stats));
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+long long pss_giant_relabel_scratch_bytes(long long m) {
+  Arena a{nullptr, 0};
+  carve_tiles(a, cdiv(m, kRelabelTile));
+  return static_cast<long long>(a.off);
+}
+
+// out int32 [m]: the new group start of every pair of the sorted keys
+// uint64 [m], the sign bit set where the pair is unsettled (see
+// giant_relabel_kernel).  The scratch holds
+// pss_giant_relabel_scratch_bytes(m) bytes and is zeroed here.
+int pss_giant_relabel(const void* keys, long long m, long long off,
+                      long long pred, int has_pred, long long succ,
+                      int has_succ, int shift, int carry_a, int carry_b,
+                      void* out, void* scratch, void* stream) {
+  if (m <= 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Arena a{static_cast<char*>(scratch), 0};
+  const long long tiles = cdiv(m, kRelabelTile);
+  const TileBufs b = carve_tiles(a, tiles);
+  cudaMemsetAsync(scratch, 0, a.off, st);
+  const int vec = aligned16(keys) && aligned16(out) ? 1 : 0;
+  giant_relabel_kernel<<<static_cast<unsigned>(tiles), kThreads, 0, st>>>(
+      static_cast<const uint64_t*>(keys), m, off, static_cast<uint64_t>(pred),
+      has_pred, static_cast<uint64_t>(succ), has_succ, shift, carry_a,
+      carry_b, vec, static_cast<int*>(out), b.status, b.counter);
   return static_cast<int>(cudaGetLastError());
 }
 

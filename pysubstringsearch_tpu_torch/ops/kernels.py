@@ -79,7 +79,6 @@ _SIGNATURES: typing.Dict[str, list] = {
     'pss_bwt_from_sa': [_P, _P, _L, _P, _P, _P, _P],
     # in, out, n, scratch, stream
     'pss_scan_exclusive_sum': [_P, _P, _L, _P, _P],
-    'pss_scan_inclusive_max': [_P, _P, _L, _P, _P],
     # keys, vals, n, key_bits, scratch, stream
     'pss_radix_sort_pairs': [_P, _P, _L, _I, _P, _P],
     # text, N, n, rank_map, bits, sa, rank, gs, scratch, stats, stream
@@ -111,14 +110,20 @@ _SIGNATURES: typing.Dict[str, list] = {
     'pss_scatter_blocked': [_P, _P, _L, _P, _P, _P],
     # text, m, halo, h, p0, n, keys, vals, stream
     'pss_giant_byte_keys': [_P, _L, _P, _L, _L, _L, _P, _P, _P],
-    # rank, r2, m, c, W, p0, keys, vals, stream
-    'pss_giant_round_keys': [_P, _P, _L, _L, _I, _L, _P, _P, _P],
+    # rank, r2, m, c, W, p0, cap, keys, vals, count, scratch, stream
+    'pss_giant_round_keys': [_P, _P, _L, _L, _I, _L, _L, _P, _P, _P, _P,
+                             _P],
     # keys, vals, m, split keys, split positions, splitters, cuts, stream
     'pss_giant_cuts': [_P, _P, _L, _P, _P, _I, _P, _P],
-    # pos, gs, m, B, S, floor, out_pos, out_gs, totals, scratch, stream
-    'pss_giant_partition': [_P, _P, _L, _L, _I, _I, _P, _P, _P, _P, _P],
-    # keys, m, off, pred, has_pred, real_lo, v, stats, stream
-    'pss_giant_flags': [_P, _L, _L, _L, _I, _L, _P, _P, _P],
+    # pos, gs, m, B, S, out_pos, out_gs, totals, live, scratch, stream
+    'pss_giant_partition': [_P, _P, _L, _L, _I, _P, _P, _P, _P, _P, _P],
+    # keys, m, off, pred, has_pred, succ, has_succ, shift, real_lo, stats,
+    # stream
+    'pss_giant_flags': [_P, _L, _L, _L, _I, _L, _I, _I, _L, _P, _P],
+    # keys, m, off, pred, has_pred, succ, has_succ, shift, carry_a,
+    # carry_b, out, scratch, stream
+    'pss_giant_relabel': [_P, _L, _L, _L, _I, _L, _I, _I, _I, _I, _P, _P,
+                          _P],
     # keys, vals, m, host run lengths, S, out_keys, out_vals, scratch, stream
     'pss_giant_merge': [_P, _P, _L, _P, _I, _P, _P, _P, _P],
 }
@@ -126,10 +131,10 @@ _SIGNATURES: typing.Dict[str, list] = {
 #: Scratch sizers: pss_<name>_scratch_bytes(count) -> bytes, or of more
 #: counts where the value says so.  Host functions; they launch nothing and
 #: are not counted.
-_SCRATCH = {'scan': 1, 'scan_max': 1, 'radix_sort': 1, 'sa_hybrid': 1,
+_SCRATCH = {'scan': 1, 'radix_sort': 1, 'sa_hybrid': 1,
             'sa_init': 1, 'sa_tie': 1, 'sa_round': 1, 'sa_refine': 1,
             'sa_pass': 1, 'sa_full': 1, 'scatter': 1, 'scatter_blocked': 1,
-            'seed_table': 1,
+            'seed_table': 1, 'giant_keys': 1, 'giant_relabel': 1,
             'giant_part': 2, 'giant_merge': 2}
 
 #: Kernel name (the C entry point without its prefix) -> launches so far.

@@ -43,9 +43,9 @@ PyTorch version beside it:
   are distinct, the pad slots then written in closed form
   (:func:`suffix_array_device` is the JAX name over it);
 - :func:`giant_byte_keys`, :func:`giant_round_keys`, :func:`giant_cuts`,
-  :func:`giant_partition`, :func:`giant_flags` and :func:`giant_merge`
-  (B14g): the per-shard steps of B9 split over a mesh
-  (``parallel/sharded.py``).
+  :func:`giant_partition`, :func:`giant_merge`, :func:`giant_flags` and
+  :func:`giant_relabel` (B14g): the per-shard steps of B9 split over a
+  mesh (``parallel/sharded.py``).
 
 The Writer's device build (:func:`build_suffix_array` with ``'torch'``, or
 ``'auto'`` on a CUDA card where :func:`_device_build_worthwhile` finds it
@@ -56,8 +56,7 @@ constants live here too: :func:`host_device_link_mbps`,
 
 Their building blocks are kernels of the same file, exposed for tests:
 :func:`radix_sort_pairs` (stable LSD radix sort of uint64 keys with int32
-values), :func:`scan_exclusive_sum` and :func:`scan_inclusive_max`; and
-:func:`scatter` (B16) is the radix sort's store pass alone
+values) and :func:`scan_exclusive_sum`; and :func:`scatter` (B16) is the radix sort's store pass alone
 (:func:`scatter_blocked` the same blocked by destination).  Every
 wrapper takes its plain version only for CPU tensors; on a CUDA tensor it
 launches its kernel or raises.  The kernel sorts and the plain sorts are
@@ -412,43 +411,60 @@ SCATTER_TILE = 16384
 SCATTER_PASS_SLOTS = 1 << 29
 
 
-def scatter_plain(values: torch.Tensor, dests: torch.Tensor,
+def scatter_plain(values: typing.Optional[torch.Tensor], dests: torch.Tensor,
                   out: typing.Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain version: ``out[dests] = values``, into a new tensor like
-    ``values`` when ``out`` is not given."""
+    """Plain version: ``out[dests] = values`` (values None: each dest's
+    index, ``out[dests[i]] = i``), into a new tensor like ``dests`` when
+    ``out`` is not given; a dest outside ``out`` (negative, or past its
+    end) is dropped, as the kernel drops it."""
     if out is None:
-        out = torch.empty_like(values)
-    out[dests.long()] = values
+        out = torch.empty_like(dests)
+    if values is None:
+        values = torch.arange(dests.shape[0], dtype=torch.int32,
+                              device=dests.device)
+    d = dests.long()
+    inside = (d >= 0) & (d < out.shape[0])
+    if not bool(inside.all()):
+        d, values = d[inside], values[inside]
+    out[d] = values
     return out
 
 
-def scatter(values: torch.Tensor, dests: torch.Tensor,
+def scatter(values: typing.Optional[torch.Tensor], dests: torch.Tensor,
             out: typing.Optional[torch.Tensor] = None) -> torch.Tensor:
     """B16, the store pass of an LSD radix sort: ``out[dests[i]] =
     values[i]`` for int32 [n] ``values`` and ``dests``, into int32 ``out``
-    (a new [n] tensor when not given).  Replaces ``pallas_scatter``
+    (a new [n] tensor when not given); with ``values`` None each dest
+    takes its own index i (the giant build's finish stores positions by
+    slot so, reading no values).  Replaces ``pallas_scatter``
     (``benchmarks/pallas_sort_bench.py``); the giant build's rank store
     runs it.  The caller's contract, as in that benchmark, which scatters
-    by a permutation: the dests are distinct and inside ``out``; the card
-    does not check it, and a slot no dest names keeps what ``out`` held.
+    by a permutation: the dests are distinct; the card does not check it.
+    A dest outside ``out`` is dropped (the giant build's finish drops its
+    unsettled positions so), and a slot no dest names keeps what ``out``
+    held.
     Any n: the JAX kernel's multiple of 8192 was the tile of its VMEM
     blocks, not a property of the function.  On the card a binned store
     (``SCATTER_BIN_SLOTS``): count by bin, distribute the pairs into an 8
     bytes a pair scratch in bin order, assemble each bin in shared memory
     and write it whole; one counted launch."""
     if out is None:
-        out = torch.empty_like(values)
-    if not kernels.route(values, dests, out):
+        out = torch.empty_like(dests)
+    given = () if values is None else (values,)
+    if not kernels.route(dests, out, *given):
         return scatter_plain(values, dests, out)
-    for t, name in ((values, 'values'), (dests, 'dests'), (out, 'out')):
+    for t, name in ((dests, 'dests'), (out, 'out')) + tuple(
+            (v, 'values') for v in given):
         kernels.check(t, name, torch.int32, 1)
-    n = values.shape[0]
-    if dests.shape[0] != n:
+    n = dests.shape[0]
+    if values is not None and values.shape[0] != n:
         raise ValueError('scatter: values and dests differ in length')
-    with kernels.on(values.device):
-        scratch = kernels.scratch('scatter', n, values.device)
-        kernels.launch('scatter', values.data_ptr(), dests.data_ptr(), n,
-                       out.data_ptr(), out.shape[0], scratch.data_ptr())
+    with kernels.on(dests.device):
+        scratch = kernels.scratch('scatter', n, dests.device)
+        kernels.launch('scatter',
+                       None if values is None else values.data_ptr(),
+                       dests.data_ptr(), n, out.data_ptr(), out.shape[0],
+                       scratch.data_ptr())
     return out
 
 
@@ -495,33 +511,6 @@ def scan_exclusive_sum(x: torch.Tensor) -> torch.Tensor:
     scratch = kernels.scratch('scan', n, x.device)
     with kernels.on(x.device):
         kernels.launch('scan_exclusive_sum', x.data_ptr(), out.data_ptr(), n,
-                       scratch.data_ptr())
-    return out
-
-
-def scan_inclusive_max_plain(x: torch.Tensor) -> torch.Tensor:
-    """Plain version: int32 [n], out[i] = max of x[:i + 1]."""
-    return torch.cummax(x, 0).values.to(torch.int32)
-
-
-#: Elements a block of :func:`scan_inclusive_max`'s look-back pass scans
-#: (``kMaxScanTile`` in ``csrc/suffix_array_kernels.cu``); the tests probe
-#: its edges.
-SCAN_MAX_TILE = 4096
-
-
-def scan_inclusive_max(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive max scan of int32 [n] (``lax.cummax``).  On the card one
-    pass of decoupled look-back over tiles of ``SCAN_MAX_TILE``: each
-    element read once and written once."""
-    if not kernels.route(x):
-        return scan_inclusive_max_plain(x)
-    kernels.check(x, 'x', torch.int32, 1)
-    n = x.shape[0]
-    out = torch.empty(n, dtype=torch.int32, device=x.device)
-    scratch = kernels.scratch('scan_max', n, x.device)
-    with kernels.on(x.device):
-        kernels.launch('scan_inclusive_max', x.data_ptr(), out.data_ptr(), n,
                        scratch.data_ptr())
     return out
 
@@ -1643,11 +1632,19 @@ def suffix_array_device(data_padded: torch.Tensor, n) -> torch.Tensor:
 # ``parallel/sharded.py:make_giant_chunk_build`` runs B9 on a row whose
 # positions are split in S blocks of B = N / S, one a shard, as a sample
 # sort a round.  These kernels are its steps that no kernel above does;
-# a shard's local sort is :func:`radix_sort_pairs`, the relabel's scan
-# :func:`scan_inclusive_max` and the rank store :func:`scatter`.
+# a shard's local sort is :func:`radix_sort_pairs` and the rank store
+# :func:`scatter`.  A round keys, sorts and relabels only the unsettled
+# positions, whose group has two members or more: a rank block holds a
+# settled position's final slot and an unsettled one's group start with
+# the int32 sign bit set (``GIANT_UNSETTLED``).
 
 #: Shards a distributed build may span (the partition's shared counts).
 GIANT_MAX_SHARDS = 256
+
+#: The mark of an unsettled position's group start (the int32 sign bit;
+#: group starts are below N < 2^31).
+GIANT_UNSETTLED = -(1 << 31)
+_INT_MAX = (1 << 31) - 1
 
 
 def giant_byte_keys_plain(text: torch.Tensor, halo: torch.Tensor, p0: int,
@@ -1686,33 +1683,53 @@ def giant_byte_keys(text: torch.Tensor, halo: torch.Tensor, p0: int,
 
 def giant_round_keys_plain(rank: torch.Tensor, r2: torch.Tensor, W: int,
                            p0: int):
-    """Plain version of (a) in a round: (keys int64 [m], positions int32
-    [m]) with ``rank[i] << W | (r2[i] + 1)``, 0 in place of ``r2[i] + 1``
-    for i at or past ``r2``'s length (positions past the row)."""
+    """Plain version of (a) in a round: (keys int64 [u], positions int32
+    [u], count int32 [1]) of the block's u unsettled positions (``rank[i]
+    < 0``) in position order, with ``g << W | (r2[i] + 1)``, g and r2[i]
+    their marks cleared, 0 in place of ``r2[i] + 1`` for i at or past
+    ``r2``'s length (positions past the row)."""
     m = rank.shape[0]
     low = torch.zeros(m, dtype=torch.int64, device=rank.device)
-    low[: r2.shape[0]] = r2.long() + 1
-    return ((rank.long() << W) | low,
-            torch.arange(p0, p0 + m, dtype=torch.int32, device=rank.device))
+    low[: r2.shape[0]] = (r2.long() & _INT_MAX) + 1
+    live = rank < 0
+    keys = ((rank.long() & _INT_MAX) << W) | low
+    pos = torch.arange(p0, p0 + m, dtype=torch.int32, device=rank.device)
+    return (keys[live], pos[live],
+            live.sum().to(torch.int32).reshape(1))
 
 
-def giant_round_keys(rank: torch.Tensor, r2: torch.Tensor, W: int, p0: int):
-    """(a) in a round, B14g's doubling keys of one shard's block from its
-    group starts ``rank`` int32 [m] and the fetched ``rank[i + k]`` int32
-    [c <= m] (see :func:`giant_round_keys_plain`)."""
+def giant_round_keys(rank: torch.Tensor, r2: torch.Tensor, W: int, p0: int,
+                     live: int):
+    """(a) in a round, B14g's doubling keys of one shard's unsettled
+    positions from its rank block ``rank`` int32 [m] and the fetched
+    ``rank[i + k]`` int32 [c <= m], compacted in position order so that
+    the local sort stays stable by position (see
+    :func:`giant_round_keys_plain`).  ``live`` is the count the host
+    expects (the send-home's); the outputs hold that many pairs, the count
+    int32 [1] is the device's own, and the plain version raises where they
+    differ.  On the card one pass of decoupled look-back over tiles of
+    4096 positions."""
     if not kernels.route(rank, r2):
-        return giant_round_keys_plain(rank, r2, W, p0)
+        keys, vals, count = giant_round_keys_plain(rank, r2, W, p0)
+        if keys.shape[0] != live:
+            raise ValueError(f'giant_round_keys: {keys.shape[0]} unsettled '
+                             f'positions, the host expected {live}')
+        return keys, vals, count
     kernels.check(rank, 'rank', torch.int32, 1)
     kernels.check(r2, 'r2', torch.int32, 1)
     m, c = rank.shape[0], r2.shape[0]
-    if c > m:
-        raise ValueError('giant_round_keys: more shifted ranks than ranks')
-    keys = torch.empty(m, dtype=torch.int64, device=rank.device)
-    vals = torch.empty(m, dtype=torch.int32, device=rank.device)
+    if c > m or not 0 <= live <= m:
+        raise ValueError('giant_round_keys: more shifted ranks than ranks, '
+                         f'or {live} unsettled of {m}')
+    keys = torch.empty(live, dtype=torch.int64, device=rank.device)
+    vals = torch.empty(live, dtype=torch.int32, device=rank.device)
+    count = torch.empty(1, dtype=torch.int32, device=rank.device)
     with kernels.on(rank.device):
+        scratch = kernels.scratch('giant_keys', m, rank.device)
         kernels.launch('giant_round_keys', rank.data_ptr(), r2.data_ptr(), m,
-                       c, int(W), int(p0), keys.data_ptr(), vals.data_ptr())
-    return keys, vals
+                       c, int(W), int(p0), int(live), keys.data_ptr(),
+                       vals.data_ptr(), count.data_ptr(), scratch.data_ptr())
+    return keys, vals, count
 
 
 def giant_cuts_plain(keys: torch.Tensor, vals: torch.Tensor,
@@ -1774,28 +1791,32 @@ def giant_cuts_rounds(m: int) -> int:
     return rounds
 
 
-def giant_partition_plain(pos: torch.Tensor, gs: torch.Tensor, floor: int,
-                          B: int, S: int):
+def giant_partition_plain(pos: torch.Tensor, gs: torch.Tensor, B: int,
+                          S: int):
     """Plain version of (b) by owner: the pairs (``pos[i] - d * B``,
-    ``max(gs[i], floor)``) of owner d = ``pos[i] // B`` in a stable order
-    by owner, and the count of every owner, int32 [S]."""
+    ``gs[i]``) of owner d = ``pos[i] // B`` in a stable order by owner, the
+    count of every owner, int32 [S], and the count of every owner's
+    unsettled pairs (``gs[i] < 0``), int32 [S]."""
     d = torch.div(pos.long(), B, rounding_mode='floor')
     order = torch.sort(d, stable=True).indices
     return ((pos.long() - d * B)[order].to(torch.int32),
-            torch.clamp(gs, min=floor)[order].to(torch.int32),
-            torch.bincount(d, minlength=S).to(torch.int32))
+            gs[order].to(torch.int32),
+            torch.bincount(d, minlength=S).to(torch.int32),
+            torch.bincount(d[gs < 0], minlength=S).to(torch.int32))
 
 
-def giant_partition(pos: torch.Tensor, gs: torch.Tensor, floor: int, B: int,
-                    S: int, totals: typing.Optional[torch.Tensor] = None):
+def giant_partition(pos: torch.Tensor, gs: torch.Tensor, B: int, S: int,
+                    totals: typing.Optional[torch.Tensor] = None,
+                    live: typing.Optional[torch.Tensor] = None):
     """(b) by owner: int32 [m] positions and group starts partitioned
     stably by the shard that owns each position, positions made local to
-    its block and group starts raised to ``floor`` (the group start carried
-    in from earlier shards); returns (positions, group starts, counts int32
-    [S]) (see :func:`giant_partition_plain`), the counts into int32
-    ``totals`` [S] when given, so that several shards' counts come back in
-    one copy.  The caller's contract, as :func:`scatter`'s: every position
-    lies in [0, S * B); the card does not check it."""
+    its block; returns (positions, group starts, counts int32 [S]) (see
+    :func:`giant_partition_plain`), the counts into int32 ``totals`` [S]
+    when given, and each owner's count of unsettled pairs into int32
+    ``live`` [S] when given (the card counts them only then), so that
+    several shards' counts come back in one copy.  The caller's contract,
+    as :func:`scatter`'s: every position lies in [0, S * B); the card does
+    not check it."""
     if not 1 <= S <= GIANT_MAX_SHARDS:
         raise ValueError(f'giant_partition: 1 <= S <= {GIANT_MAX_SHARDS}, '
                          f'got {S}')
@@ -1803,64 +1824,136 @@ def giant_partition(pos: torch.Tensor, gs: torch.Tensor, floor: int, B: int,
         raise ValueError(f'giant_partition: B >= 1, got {B}')
     if totals is None:
         totals = torch.empty(S, dtype=torch.int32, device=pos.device)
-    if not kernels.route(pos, gs, totals):
-        p, g, tot = giant_partition_plain(pos, gs, floor, B, S)
+    extra = () if live is None else (live,)
+    if not kernels.route(pos, gs, totals, *extra):
+        p, g, tot, unsettled = giant_partition_plain(pos, gs, B, S)
         totals.copy_(tot)
+        if live is not None:
+            live.copy_(unsettled)
         return p, g, totals
     kernels.check(pos, 'pos', torch.int32, 1)
     kernels.check(gs, 'gs', torch.int32, 1)
     kernels.check(totals, 'totals', torch.int32, 1)
+    if live is not None:
+        kernels.check(live, 'live', torch.int32, 1)
     m = pos.shape[0]
-    if gs.shape[0] != m or totals.shape[0] != S:
+    if gs.shape[0] != m or totals.shape[0] != S or (
+            live is not None and live.shape[0] != S):
         raise ValueError('giant_partition: pos and gs differ in length, or '
-                         'totals is not [S]')
+                         'totals or live is not [S]')
     out_pos, out_gs = torch.empty_like(pos), torch.empty_like(gs)
     with kernels.on(pos.device):
         scratch = kernels.scratch('giant_part', (m, S), pos.device)
         kernels.launch('giant_partition', pos.data_ptr(), gs.data_ptr(), m,
-                       int(B), int(S), int(floor), out_pos.data_ptr(),
-                       out_gs.data_ptr(), totals.data_ptr(),
+                       int(B), int(S), out_pos.data_ptr(), out_gs.data_ptr(),
+                       totals.data_ptr(),
+                       None if live is None else live.data_ptr(),
                        scratch.data_ptr())
     return out_pos, out_gs, totals
 
 
-def giant_flags_plain(keys: torch.Tensor, off: int, pred: int,
-                      has_pred: bool, real_lo: int):
-    """Plain version of (c): (v int32 [m], stats int32 [2]) with ``v[i] =
-    off + i`` where ``keys[i]`` differs from its predecessor (``pred`` for
-    i = 0, none when not ``has_pred``), else -1; ``stats`` the largest
-    such slot (-1 if none) and how many of them are at or past
-    ``real_lo``."""
+def _relabel_flags(keys: torch.Tensor, off: int, pred, succ, shift: int):
+    """(a candidates, b candidates, starts, next starts) of a shard's
+    sorted keys, int64 and bool [m], for :func:`giant_flags_plain` and
+    :func:`giant_relabel_plain`."""
     m = keys.shape[0]
-    f = torch.ones(m, dtype=torch.bool, device=keys.device)
-    f[1:] = keys[1:] != keys[:-1]
-    if m and has_pred:
-        f[0] = bool(keys[0] != pred)
-    slots = off + torch.arange(m, device=keys.device)
-    v = torch.where(f, slots, -1).to(torch.int32)
-    best = int(v.max()) if m else -1
-    real = int((f & (slots >= real_lo)).sum())
-    return v, torch.tensor([best, real], dtype=torch.int32,
-                           device=keys.device)
+    dev = keys.device
+    first = torch.zeros(m, dtype=torch.bool, device=dev)
+    prev = torch.empty_like(keys)
+    if m:
+        prev[1:] = keys[:-1]
+        prev[0] = 0 if pred is None else pred
+        first[0] = pred is None
+    starts = first | (keys != prev)
+    old = first | ((keys >> shift) != (prev >> shift))
+    nxt = torch.ones(m, dtype=torch.bool, device=dev)
+    if m:
+        nxt[:-1] = starts[1:]
+        nxt[-1] = succ is None or succ != int(keys[-1])
+    J = off + torch.arange(m, dtype=torch.int64, device=dev)
+    a = torch.where(old, (keys >> shift) - J, -1)
+    b = torch.where(starts, J, -1)
+    return a, b, starts, nxt
 
 
-def giant_flags(keys: torch.Tensor, off: int, pred: int, has_pred: bool,
-                real_lo: int):
-    """(c), the relabel's group-start candidates of a shard's sorted keys
-    at global slots [off, off + m), with the predecessor key carried in
-    (see :func:`giant_flags_plain`); :func:`scan_inclusive_max` of ``v``
-    gives every slot its group start, up to the carry."""
+def giant_flags_plain(keys: torch.Tensor, off: int, pred, succ, shift: int,
+                      real_lo: int) -> torch.Tensor:
+    """Plain version of (c)'s flags: int32 [3] of a shard's sorted keys at
+    list indices [off, off + m), ``pred`` the last key of the nearest
+    non-empty earlier shard and ``succ`` the first of the nearest later
+    one (None: no such shard): the largest a candidate (``g - J`` at the
+    first member of an old group, g = ``key >> shift``), the largest b
+    candidate (``J`` at the first member of a new group), -1 for none, and
+    how many pairs with a key at or above ``real_lo`` (real positions) are
+    unsettled (their own or their successor's key starts no group)."""
+    a, b, starts, nxt = _relabel_flags(keys, off, pred, succ, shift)
+    m = keys.shape[0]
+    tied = int((~(starts & nxt) & (keys >= real_lo)).sum())
+    return torch.tensor([int(a.max()) if m else -1,
+                         int(b.max()) if m else -1, tied],
+                        dtype=torch.int32, device=keys.device)
+
+
+def giant_flags(keys: torch.Tensor, off: int, pred, succ, shift: int,
+                real_lo: int) -> torch.Tensor:
+    """(c) by flags: int32 [3] (see :func:`giant_flags_plain`), read back
+    with every shard's before :func:`giant_relabel`: the first two are the
+    carries out of this shard, the third its part of B9's settled stop."""
     if not kernels.route(keys):
-        return giant_flags_plain(keys, off, pred, has_pred, real_lo)
+        return giant_flags_plain(keys, off, pred, succ, shift, real_lo)
+    kernels.check(keys, 'keys', torch.int64, 1)
+    stats = torch.empty(3, dtype=torch.int32, device=keys.device)
+    with kernels.on(keys.device):
+        kernels.launch('giant_flags', keys.data_ptr(), keys.shape[0],
+                       int(off), 0 if pred is None else int(pred),
+                       int(pred is not None), 0 if succ is None else int(succ),
+                       int(succ is not None), int(shift), int(real_lo),
+                       stats.data_ptr())
+    return stats
+
+
+def giant_relabel_plain(keys: torch.Tensor, off: int, pred, succ,
+                        shift: int, carry_a: int,
+                        carry_b: int) -> torch.Tensor:
+    """Plain version of (c)'s relabel in slot space: int32 [m], every
+    pair's new group start ``max(cummax(b), carry_b) + max(cummax(a),
+    carry_a)`` (the slot of its group's first member: the pair at list
+    index J sits at slot J + g - f, f the list index of its old group's
+    first member), with the sign bit (``GIANT_UNSETTLED``) set where the
+    pair is unsettled; the arguments as :func:`giant_flags_plain`'s, the
+    carries the largest a and b of the earlier shards (-1 for none)."""
+    a, b, starts, nxt = _relabel_flags(keys, off, pred, succ, shift)
+    if not keys.shape[0]:
+        return torch.empty(0, dtype=torch.int32, device=keys.device)
+    gs = (torch.cummax(b, 0).values.clamp(min=carry_b)
+          + torch.cummax(a, 0).values.clamp(min=carry_a))
+    return torch.where(starts & nxt, gs,
+                       gs | GIANT_UNSETTLED).to(torch.int32)
+
+
+def giant_relabel(keys: torch.Tensor, off: int, pred, succ, shift: int,
+                  carry_a: int, carry_b: int) -> torch.Tensor:
+    """(c) by relabel: every pair's new group start, marked where it is
+    unsettled (see :func:`giant_relabel_plain`).  On the card one pass of
+    decoupled look-back over tiles of 4096 pairs carrying both max scans in
+    one status word: 20 bytes a pair with :func:`giant_flags`.  The
+    caller's contract, which the build's lists keep: an old group starts
+    at or past its first member's list index (g >= f) and below 2^31 - 1;
+    the card does not check it."""
+    if not kernels.route(keys):
+        return giant_relabel_plain(keys, off, pred, succ, shift, carry_a,
+                                   carry_b)
     kernels.check(keys, 'keys', torch.int64, 1)
     m = keys.shape[0]
-    v = torch.empty(m, dtype=torch.int32, device=keys.device)
-    stats = torch.empty(2, dtype=torch.int32, device=keys.device)
+    out = torch.empty(m, dtype=torch.int32, device=keys.device)
     with kernels.on(keys.device):
-        kernels.launch('giant_flags', keys.data_ptr(), m, int(off), int(pred),
-                       int(bool(has_pred)), int(real_lo), v.data_ptr(),
-                       stats.data_ptr())
-    return v, stats
+        scratch = kernels.scratch('giant_relabel', m, keys.device)
+        kernels.launch('giant_relabel', keys.data_ptr(), m, int(off),
+                       0 if pred is None else int(pred), int(pred is not None),
+                       0 if succ is None else int(succ), int(succ is not None),
+                       int(shift), int(carry_a), int(carry_b), out.data_ptr(),
+                       scratch.data_ptr())
+    return out
 
 
 #: Runs one round of :func:`giant_merge`'s kernels merges into one

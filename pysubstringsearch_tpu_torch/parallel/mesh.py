@@ -153,32 +153,41 @@ def _by_collectives(mesh: Mesh) -> bool:
 
 def exchange_runs(sends: typing.Sequence[typing.Sequence[torch.Tensor]],
                   counts: typing.Sequence[typing.Sequence[int]],
-                  mesh: Mesh):
+                  mesh: Mesh,
+                  tally: typing.Optional[
+                      typing.Sequence[typing.Sequence[int]]] = None):
     """All-to-all between the shards of :func:`shard_places`: ``sends[j]``
     holds local shard j's 1-D tensors (several of one length, moved
     alike), each the runs for shards 0..S-1 in order, ``counts[j][t]``
     elements for shard t.  Returns (``recvs``, ``recv_counts``):
     ``recvs[j]`` local shard j's tensors, the runs it received from shards
     0..S-1 concatenated in that order, on its device, and
-    ``recv_counts[j][s]`` their lengths.  Over ranks the counts go first,
-    then each tensor by ``all_to_all_single`` with split sizes (zeros
-    included); between the placements of one process each run is a device
-    copy."""
+    ``recv_counts[j][s]`` their lengths.  With ``tally`` (an int a run,
+    ``tally[j][t]`` going with run t of local shard j) it also returns
+    ``recv_tally[j][s]``, the tally of each received run, which crosses
+    with the counts.  Over ranks the counts go first, then each tensor by
+    ``all_to_all_single`` with split sizes (zeros included); between the
+    placements of one process each run is a device copy."""
     if _by_collectives(mesh):
         (send,), (cnt,) = sends, counts
         dev = mesh.devices[0]
-        mine = torch.tensor([int(c) for c in cnt], dtype=torch.int64,
-                            device=dev)
+        rows = [[int(c)] for c in cnt]
+        if tally is not None:
+            rows = [r + [int(x)] for r, x in zip(rows, tally[0])]
+        mine = torch.tensor(rows, dtype=torch.int64, device=dev)
         theirs = torch.empty_like(mine)
         dist.all_to_all_single(theirs, mine, group=mesh.group)
-        rcnt = theirs.tolist()
+        got = theirs.tolist()
+        rcnt = [r[0] for r in got]
         outs = []
         for x in send:
             out = x.new_empty(sum(rcnt))
             dist.all_to_all_single(out, x.contiguous(), rcnt,
                                    [int(c) for c in cnt], group=mesh.group)
             outs.append(out)
-        return [tuple(outs)], [rcnt]
+        if tally is None:
+            return [tuple(outs)], [rcnt]
+        return [tuple(outs)], [rcnt], [[r[1] for r in got]]
     places = shard_places(mesh)
     starts = []
     for cnt in counts:
@@ -195,7 +204,10 @@ def exchange_runs(sends: typing.Sequence[typing.Sequence[torch.Tensor]],
                        for s in range(len(places))])
             for q in range(len(sends[0]))))
         rcounts.append(rc)
-    return recvs, rcounts
+    if tally is None:
+        return recvs, rcounts
+    return recvs, rcounts, [[int(tally[s][t]) for s in range(len(places))]
+                            for t, _ in places]
 
 
 def gather_shards(xs: typing.Sequence[torch.Tensor],

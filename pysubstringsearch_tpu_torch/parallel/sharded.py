@@ -42,11 +42,11 @@ from ..ops.suffix_array import (
     giant_flags,
     giant_merge,
     giant_partition,
+    giant_relabel,
     giant_round_keys,
     radix_sort_pairs,
     sa_full_doubling,
     sa_roll_front,
-    scan_inclusive_max,
     scatter,
 )
 from .mesh import (
@@ -151,43 +151,64 @@ class _GiantBuild:
     """One call of :func:`make_giant_chunk_build`: B9 (the JAX
     ``_doubling_kernel``) on a padded uint8 [N] row whose positions are
     split in S = ``mesh.size`` blocks of B = N / S, shard s owning [s * B,
-    (s + 1) * B), as a sample sort a round over the shards.
+    (s + 1) * B), as a sample sort a round over the shards.  A round sorts
+    only the positions whose group is still tied, as B9 refines only its
+    tied groups.
 
     1. Init: B9's 6-byte key of each block's positions (kernel (a),
        :func:`giant_byte_keys`), from the block's text and the 5 bytes
        after it, fetched from the shards that hold them.
-    2. A round at k: the shifted ranks ``rank[i + k]`` of a block lie in
-       at most two shards, fetched with one exchange whose other split
-       sizes are 0 (none past N: they key as 0); the key ``rank[i] << W |
-       (rank[i + k] + 1)`` (kernel (a), :func:`giant_round_keys`), W =
-       bit_length(N) bits each, ranks being group starts (the slot of the
-       group's first member).
-    3. Sort every shard's (key, position) pairs locally
+    2. Sort every shard's (key, position) pairs locally
        (:func:`radix_sort_pairs`, stable, so equal keys stay in position
-       order); S - 1 regular samples a shard, gathered; every (S - 1)-th
-       of the sorted samples is a splitter.  The splitters are (key,
-       position) pairs, so a run of equal keys (every early round of
-       ``abab...``) can span shards; with regular sampling no shard then
-       receives more than 2B + S pairs (``stats['max_recv']`` against
-       ``stats['recv_bound']``).
-    4. Cut every sorted shard at the splitters (kernel (b),
+       order); S - 1 regular samples a shard, at r * m_s / S of its m_s
+       sorted pairs, gathered; every (S - 1)-th of the sorted samples is a
+       splitter.  The splitters are (key, position) pairs, so a run of
+       equal keys (every early round of ``abab...``) can span shards;
+       with regular sampling no shard then receives more than 2 max_s m_s
+       + S pairs (``stats['max_recv']`` against ``stats['round_bound']``,
+       at most ``stats['recv_bound']`` = 2B + S).
+    3. Cut every sorted shard at the splitters (kernel (b),
        :func:`giant_cuts`) and exchange the pieces.  A shard receives S
        runs, each sorted by (key, position), in source order, which is
        position order, so merging them by (key, run) (:func:`giant_merge`,
        with the exchange's receive counts as the run lengths) leaves the
        shard in (key, position) order.
-    5. Relabel: a slot starts a group where its key differs from its
-       predecessor's, for a shard's first slot the last key of the nearest
-       non-empty earlier shard (kernel (c), :func:`giant_flags`); a max
-       scan (:func:`scan_inclusive_max`) gives every slot its group start,
-       up to the one carried in from earlier shards.  The build stops when
-       the real slots (the last n) are all group starts, B9's settled
-       stop, or at k >= N.
-    6. Otherwise each (position, group start) pair goes home, partitioned
-       by owner (kernel (b), :func:`giant_partition`, which also adds the
-       carry) and stored into the owner's rank block (:func:`scatter`).
-    7. Finish: the sorted positions rebalanced into blocks of B, the pad
-       slots written in closed form, [N - 1, ..., n].
+    4. Relabel in slot space (kernel (c)): the shards' merged pairs form
+       one list in key order, which holds every member of each old group
+       (the key's top bits, the group start g) contiguously, so a pair at
+       list index J sits at slot g + J - f, f the list index of its old
+       group's first member; a new group starts where the key differs from
+       its predecessor's, at that slot.  :func:`giant_flags` gives each
+       shard's carries (the largest g - f and J at old and new groups'
+       first members) and its unsettled real pairs, read back with every
+       shard's; :func:`giant_relabel` gives every pair its new group
+       start, with the sign bit set where the pair is unsettled (its
+       group has two members or more).  A shard's first pair's predecessor
+       is the last key of the nearest non-empty earlier shard, its last
+       pair's successor the first key of the nearest later one.  The build
+       stops when no real pair (the positions below n) is left unsettled,
+       B9's settled stop, or at k >= N.  Pads are not settled early: a
+       real position's shifted rank may be a pad's.
+    5. Otherwise the list goes home: each (position, group start) pair,
+       partitioned by owner (kernel (b), :func:`giant_partition`, which
+       also counts the unsettled pairs an owner receives), is stored into
+       the owner's rank block (:func:`scatter`).  A settled position keeps
+       its final slot there, so the block serves every ``rank[i + k]``.
+    6. A round at k: the shifted ranks ``rank[i + k]`` of a block lie in
+       at most two shards, fetched with one exchange whose other split
+       sizes are 0 (none past N: they key as 0); the key ``rank[i] << W |
+       (rank[i + k] + 1)`` (kernel (a), :func:`giant_round_keys`), W =
+       bit_length(N) bits each, of the unsettled positions only, compacted
+       in position order, as many as the send-home counted; then steps
+       2-5 on those pairs.
+    7. Finish: every real position's rank is its slot.  A process that
+       holds every shard stores the last list's group starts into the
+       rank blocks, its rows of one buffer, directly by position, then
+       every position into sa_full by its slot (:func:`scatter` drops the
+       unsettled pads' negative slots); over ranks the last list goes
+       home, and each shard's real (slot, position) pairs are partitioned
+       by the slot's owner, exchanged and stored.  The pad slots are
+       written in closed form, [N - 1, ..., n].
 
     No step gathers the row on one shard.  Counts, splitters and
     per-shard summaries cross on the host; the pairs stay on the devices.
@@ -211,10 +232,14 @@ class _GiantBuild:
         B = self.B
         self.text = [text[s * B: (s + 1) * B].to(dev, torch.uint8)
                      .contiguous() for s, dev in places]
+        #: The local shards' rank blocks, from the first send-home on: rows
+        #: of one [shards, B] buffer a device (``rank_bufs``); and the
+        #: unsettled positions each holds (the last send-home's count).
         self.rank: typing.List[torch.Tensor] = []
-        #: The regular samples' indices in a sorted block, by device.
-        self.pick: typing.Dict[torch.device, torch.Tensor] = {}
-        self.stats = {'shards': S, 'block': B, 'rounds': 0, 'max_recv': [],
+        self.rank_bufs: typing.Dict[torch.device, torch.Tensor] = {}
+        self.live: typing.List[int] = []
+        self.stats = {'shards': S, 'block': B, 'rounds': 0, 'sorted': [],
+                      'tied_real': [], 'max_recv': [], 'round_bound': [],
                       'recv_bound': 2 * B + S}
 
     def _fetch(self, blocks, k: int, length: int) -> typing.List[torch.Tensor]:
@@ -278,21 +303,31 @@ class _GiantBuild:
             buf = buf.to(dev)
         return buf[:s], buf[s:].view(torch.int32)[:s]
 
-    def _splits(self, keys, vals) -> typing.List[typing.List[int]]:
+    def _splits(self, keys, vals):
         """Every local shard's sorted pairs cut at the S - 1 splitters:
-        the counts it sends to shards 0..S-1.  The splitters go to each
-        device once and the cuts come back once a device."""
-        S, B = self.S, self.B
+        (the counts each sends to shards 0..S-1, every shard's m_s).  A
+        shard's samples go out with its m_s (an empty shard's are above
+        every pair); the splitters go to each device once and the cuts
+        come back once a device."""
+        S = self.S
         if S == 1:
-            return [[kk.shape[0]] for kk in keys]
+            return [[kk.shape[0]] for kk in keys], [keys[0].shape[0]]
         samples = []
         for (_, dev), kk, vv in zip(self.places, keys, vals):
-            if dev not in self.pick:
-                self.pick[dev] = torch.tensor(
-                    [r * B // S for r in range(1, S)], device=dev)
-            pick = self.pick[dev]
-            samples.append(torch.stack([kk[pick], vv[pick].long()], 1))
-        g = gather_shards(samples, self.mesh).reshape(-1, 2).numpy()
+            m = kk.shape[0]
+            smp = torch.zeros((S, 2), dtype=torch.int64, device=dev)
+            if m:
+                pick = torch.arange(1, S, device=dev) * m // S
+                smp[:S - 1, 0] = kk[pick]
+                smp[:S - 1, 1] = vv[pick]
+            else:  # above every pair: keys are below 2^63 - 1
+                smp[:S - 1, 0] = np.iinfo(np.int64).max
+                smp[:S - 1, 1] = np.iinfo(np.int32).max
+            smp[S - 1, 0] = m
+            samples.append(smp)
+        g = gather_shards(samples, self.mesh).numpy()
+        ms = [int(m) for m in g[:, S - 1, 0]]
+        g = g[:, : S - 1].reshape(-1, 2)
         g = g[np.lexsort((g[:, 1], g[:, 0]))][S - 2::S - 1][:S - 1]
         bufs, rows = self._rows(S - 1, torch.int64)
         splitters = {dev: self._splitters(g, dev) for dev in bufs}
@@ -303,15 +338,19 @@ class _GiantBuild:
                                       self._read_rows(bufs)):
             edges = [0] + cuts + [kk.shape[0]]
             counts.append([edges[d + 1] - edges[d] for d in range(S)])
-        return counts
+        return counts, ms
 
-    def _sort_relabel(self, keys: list, vals: list, bits: int):
-        """Steps 3-5 on the local shards' (key, position) pairs, which the
-        lists give up: (sorted positions, group starts, carried-in group
-        starts, real group starts, global offsets, pairs a shard)."""
+    def _sort_relabel(self, keys: list, vals: list, bits: int, shift: int,
+                      real_lo: int):
+        """Steps 2-4 on the local shards' (key, position) pairs, which the
+        lists give up: (positions, group starts marked where unsettled,
+        unsettled real pairs over every shard)."""
+        S = self.S
         for kk, vv in zip(keys, vals):
             radix_sort_pairs(kk, vv, bits)
-        counts = self._splits(keys, vals)
+        counts, ms = self._splits(keys, vals)
+        self.stats['sorted'].append(sum(ms))
+        self.stats['round_bound'].append(2 * max(ms) + S)
         sends = list(zip(keys, vals))
         keys.clear()
         vals.clear()
@@ -321,75 +360,104 @@ class _GiantBuild:
         for j, (_, dev) in enumerate(self.places):
             kk, vv = giant_merge(*recvs[j], runs[j])
             recvs[j] = (kk, vv)
-            meta = torch.full((2,), -1, dtype=torch.int64, device=dev)
+            meta = torch.full((3,), -1, dtype=torch.int64, device=dev)
             meta[0] = kk.shape[0]
             if kk.shape[0]:
-                meta[1] = kk[-1]
+                meta[1] = kk[0]
+                meta[2] = kk[-1]
             metas.append(meta)
         meta = gather_shards(metas, self.mesh).tolist()
-        sizes = [m for m, _ in meta]
-        offs = [sum(sizes[:s]) for s in range(self.S)]
+        sizes = [m for m, _, _ in meta]
+        offs = [sum(sizes[:s]) for s in range(S)]
         self.stats['max_recv'].append(max(sizes))
-        pos, gs, sts = [], [], []
-        while recvs:
-            kk, vv = recvs.pop(0)
-            s = self.places[len(pos)][0]
-            pred = next((meta[i][1] for i in range(s - 1, -1, -1) if sizes[i]),
+        ends, sts = [], []
+        for (s, _), (kk, _) in zip(self.places, recvs):
+            pred = next((meta[t][2] for t in range(s - 1, -1, -1)
+                         if sizes[t]), None)
+            succ = next((meta[t][1] for t in range(s + 1, S) if sizes[t]),
                         None)
-            v, st = giant_flags(kk, offs[s], 0 if pred is None else pred,
-                                pred is not None, self.N - self.n)
-            del kk
-            sts.append(st)
-            gs.append(scan_inclusive_max(v) if v.shape[0] else v)
-            pos.append(vv)
-            del v, vv
+            ends.append((pred, succ))
+            sts.append(giant_flags(kk, offs[s], pred, succ, shift, real_lo))
         st = gather_shards(sts, self.mesh).tolist()
-        carries = [max([-1] + [last for last, _ in st[:s]])
-                   for s, _ in self.places]
-        return pos, gs, carries, sum(r for _, r in st), offs, sizes
+        pos, gs = [], []
+        for (s, _), (pred, succ) in zip(self.places, ends):
+            kk, vv = recvs.pop(0)
+            carry_a = max([-1] + [a for a, _, _ in st[:s]])
+            carry_b = max([-1] + [b for _, b, _ in st[:s]])
+            gs.append(giant_relabel(kk, offs[s], pred, succ, shift, carry_a,
+                                    carry_b))
+            pos.append(vv)
+            del kk, vv
+        tied = sum(t for _, _, t in st)
+        self.stats['tied_real'].append(tied)
+        return pos, gs, tied
 
-    def _send_home(self, pos: list, gs: list, carries) -> None:
-        """Step 6: every (position, group start) pair into its owner's rank
-        block; the lists are given up."""
+    def _send_home(self, pos: list, gs: list) -> None:
+        """Step 5: every (position, group start) pair into its owner's rank
+        block, and every local shard's count of unsettled positions into
+        ``live``; the lists are given up."""
+        S, B = self.S, self.B
+        if not self.rank:
+            self.rank_bufs, self.rank = self._rows(B, torch.int32)
         sends = []
-        bufs, rows = self._rows(self.S, torch.int32)
-        for c, row in zip(carries, rows):
-            p, g, _ = giant_partition(pos.pop(0), gs.pop(0), c, self.B,
-                                      self.S, totals=row)
+        bufs, rows = self._rows(2 * S, torch.int32)
+        for row in rows:
+            p, g, _ = giant_partition(pos.pop(0), gs.pop(0), B, S,
+                                      totals=row[:S], live=row[S:])
             sends.append((p, g))
             del p, g
-        recvs = exchange_runs(sends, self._read_rows(bufs), self.mesh)[0]
+        host = self._read_rows(bufs)
+        recvs, _, tally = exchange_runs(sends, [h[:S] for h in host],
+                                        self.mesh, [h[S:] for h in host])
         del sends
         for (p, g), rank in zip(recvs, self.rank):
             scatter(g, p, out=rank)
+        self.live = [sum(t) for t in tally]
 
-    def _finish(self, pos: list, offs, sizes) -> torch.Tensor:
-        """Step 7: this process's slots of sa_full, on its first
-        placement."""
-        N, B, S, n = self.N, self.B, self.S, self.n
-        sends, counts = [], []
-        for s, _ in self.places:
-            lo, hi = offs[s], offs[s] + sizes[s]
-            counts.append([max(min(hi, (t + 1) * B) - max(lo, t * B), 0)
-                           for t in range(S)])
-            sends.append((pos.pop(0),))
-        recvs = exchange_runs(sends, counts, self.mesh)[0]
-        del sends
-        blocks = []
-        for (t, dev), (blk,) in zip(self.places, recvs):
-            c = min(max(N - n - t * B, 0), B)
-            if c:
-                top = N - 1 - t * B
-                blk[:c] = torch.arange(top, top - c, -1, dtype=torch.int32,
-                                       device=dev)
-            blocks.append(blk)
-        if len(blocks) == 1:
-            return blocks[0]
+    def _place_all(self, pos: list, gs: list) -> torch.Tensor:
+        """Step 7 in a process that holds every shard: sa_full [N] on its
+        first placement.  With no round the init's list is every position
+        in slot order.  Otherwise the rank blocks, one [N] array by
+        position (the shards' rows of one buffer, or copied together),
+        take the last list's group starts, and one store by slot writes
+        every settled position: only unsettled pads, marked negative, are
+        dropped."""
         first = self.places[0][1]
-        return torch.cat([b.to(first) for b in blocks])
+        if not self.rank:
+            return torch.cat([p.to(first) for p in pos])
+        if len(self.rank_bufs) == 1:
+            ranks = self.rank_bufs[first].view(-1)
+        else:
+            ranks = torch.cat([r.to(first) for r in self.rank])
+        self.rank, self.rank_bufs = [], {}
+        # The last list in one store: each of several would visit every
+        # bin of the row.
+        scatter(torch.cat([g.to(first) for g in gs]),
+                torch.cat([p.to(first) for p in pos]), out=ranks)
+        pos.clear()
+        gs.clear()
+        return scatter(None, ranks, torch.empty(self.N, dtype=torch.int32,
+                                                device=first))
+
+    def _place_block(self, pos: list, gs: list) -> torch.Tensor:
+        """Step 7 over ranks: this rank's slots of sa_full, its real
+        positions' (slot, position) pairs exchanged by the slot's owner."""
+        B, n = self.B, self.n
+        self._send_home(pos, gs)
+        (t, dev), = self.places
+        c = min(max(n - t * B, 0), B)
+        p, g, counts = giant_partition(
+            self.rank[0][:c],
+            torch.arange(t * B, t * B + c, dtype=torch.int32, device=dev),
+            B, self.S)
+        (slots, where), = exchange_runs([(p, g)], [counts.tolist()],
+                                        self.mesh)[0]
+        del p, g
+        return scatter(where, slots,
+                       torch.empty(B, dtype=torch.int32, device=dev))
 
     def run(self) -> torch.Tensor:
-        B, n, W = self.B, self.n, self.W
+        B, n, N, W = self.B, self.n, self.N, self.W
         halo = self._fetch(self.text, B, BYTE_INIT_WIDTH - 1)
         keys, vals = [], []
         for (s, _), t, h in zip(self.places, self.text, halo):
@@ -398,26 +466,33 @@ class _GiantBuild:
             vals.append(vv)
             del kk, vv
         del halo
-        pos, gs, carries, real, offs, sizes = self._sort_relabel(
-            keys, vals, BYTE_KEY_BITS)
-        self.rank = [torch.empty(B, dtype=torch.int32, device=dev)
-                     for _, dev in self.places]
+        # The init's keys are below 2^63: one old group, pad keys 0.
+        pos, gs, tied = self._sort_relabel(keys, vals, BYTE_KEY_BITS, 63,
+                                           int(n < N))
         k = BYTE_INIT_WIDTH
-        while k < self.N and real < n:
-            self._send_home(pos, gs, carries)
+        while k < N and tied:
+            self._send_home(pos, gs)
             r2 = self._fetch(self.rank, k, B)
-            for (s, _), rank in zip(self.places, self.rank):
-                kk, vv = giant_round_keys(rank, r2.pop(0), W, s * B)
+            for (s, _), rank, live in zip(self.places, self.rank, self.live):
+                kk, vv, _ = giant_round_keys(rank, r2.pop(0), W, s * B, live)
                 keys.append(kk)
                 vals.append(vv)
                 del kk, vv
-            pos, gs, carries, real, offs, sizes = self._sort_relabel(
-                keys, vals, 2 * W)
+            pos, gs, tied = self._sort_relabel(keys, vals, 2 * W, W,
+                                               (N - n) << W)
             self.stats['rounds'] += 1
             k *= 2
-        del gs
-        self.rank = []
-        return self._finish(pos, offs, sizes)
+        if len(self.places) == self.S:
+            out, lo = self._place_all(pos, gs), 0
+        else:
+            out, lo = self._place_block(pos, gs), self.places[0][0] * B
+        self.rank, self.rank_bufs = [], {}
+        c = min(max(N - n - lo, 0), out.shape[0])
+        if c:
+            top = N - 1 - lo
+            out[:c] = torch.arange(top, top - c, -1, dtype=torch.int32,
+                                   device=out.device)
+        return out
 
 
 def make_giant_chunk_build(mesh: Mesh) -> typing.Callable:
@@ -432,8 +507,12 @@ def make_giant_chunk_build(mesh: Mesh) -> typing.Callable:
     gives them.  The mesh is one process with S placements (which may
     all be one card) or S ranks with one placement each; S must divide N.
     The callable's ``stats`` describe its last call: ``rounds`` after the
-    init, ``max_recv`` (the most pairs a shard received, per sort) and
-    ``recv_bound`` (2B + S).  See :class:`_GiantBuild`."""
+    init; per sort, ``sorted`` (the pairs it sorted: N at the init, then
+    the positions still tied, pads included), ``tied_real`` (the real
+    positions left tied after its relabel), ``max_recv`` (the most pairs
+    a shard received) and ``round_bound`` (2 max_s m_s + S, m_s the pairs
+    shard s sorted); and ``recv_bound`` (2B + S, the bound of every
+    sort).  See :class:`_GiantBuild`."""
     places = shard_places(mesh)
     if mesh.size > GIANT_MAX_SHARDS:
         raise ValueError(f'make_giant_chunk_build: at most '

@@ -121,13 +121,15 @@ session is the process's first) builds the suffix array of ``--corpus``
 as one row of 512 Mi slots with ``make_giant_chunk_build`` (B14g) over 4
 placements of the card: one build by device time a kernel and a step
 (``giant_build_by_kernel_us``, ``giant_build_by_step_us``, the card's
-busy span), its untraced wall (``giant_build_s``), and its five kernels at
-that row's shapes (B = 128 Mi), each by device time and as a whole call
-beside its bound, the cuts beside ``torch.searchsorted``, the max scan
-beside ``torch.cummax``, the partition at 4, 64 and 256 owners and the
-merge of one shard's received runs at 4, 64 and 256 sources beside
-``radix_sort_pairs`` and ``torch.sort`` of the same runs (see
-``_giant``).
+busy span), the pairs each sort took (``giant_sorted``), its untraced
+wall (``giant_build_s``), and its kernels at that row's shapes (B = 128
+Mi), each by device time and as a whole call beside its bound: the keys,
+the cuts beside ``torch.searchsorted``, the flags and the relabel on B9's
+state at k = 6 (a tree before the relabel: the flags and the max scan
+beside ``torch.cummax`` on the final ranks), the partition at 4, 64 and
+256 owners and the merge of one shard's received runs at 4, 64 and 256
+sources beside ``radix_sort_pairs`` and ``torch.sort`` of the same runs
+(see ``_giant``).
 
 With ``--profile`` it first prints the device time by kernel
 (``torch.profiler``'s ``key_averages``) of B10's init, of that first pass,
@@ -1116,12 +1118,14 @@ GIANT_STEPS = (('radix sort', ('onesweep_',)),
                ('partition', ('giant_part_',)),
                ('cuts', ('giant_cuts',)),
                ('flags', ('giant_flags', 'giant_stats')),
+               ('relabel', ('giant_relabel',)),
                ('keys', ('giant_byte_keys', 'giant_round_keys')),
                # B16: the direct store of older trees, or the count,
                # distribute and assemble kernels with the sum scan of the
                # bins' counts (the build's only sum scan).
                ('rank store', ('scatter_', 'SumOp')),
-               # The two-level scan of older trees, or the look-back pass.
+               # Older trees' max scan after the flags: the two-level
+               # scan, or the look-back pass.
                ('max scan', ('scan_tile_kernel', 'scan_add_kernel',
                              'max_scan_kernel')),
                ('copies', ('Memcpy', 'CatArrayBatchedCopy')),
@@ -1179,66 +1183,20 @@ def _merges(torch, SA, bench, inv, W, B, out):
         torch.cuda.empty_cache()
 
 
-def _giant(torch, np, SA, bench, args, out):
-    """B14g on ``--corpus`` as one row of N = 512 Mi slots over
-    ``GIANT_PLACEMENTS`` placements of the card, and its five kernels at
-    that row's shapes (B = 128 Mi), as ``chip_smoke.py``'s
-    ``giant_kernels`` makes their inputs: the byte keys of the last block,
-    the round keys at k = 6 from the final ranks, the cuts of those keys
-    sorted at S - 1 of them (beside ``torch.searchsorted`` of the splitter
-    keys, the library yardstick), the flags, the max scan of the flags
-    beside ``torch.cummax``, the merge of the runs shard 1 receives at S =
-    4, 64 and 256 sources beside the radix sort it replaces
-    (:func:`_merges`, outside the profiler session: the merge gives its
-    inputs up), and the partition of the sorted positions of slots
-    [0, B) at S = 4, 64 and 256 (B = N / S).
-    One warm-up build gives the SA; then one profiler session, the
-    process's first (G7), traces a second build and one call of every
-    kernel, each opened by a marker kernel (``torch.cuda._sleep``) and
-    closed by a synchronise: ``giant_build_by_kernel_us`` and
-    ``giant_build_by_step_us`` sum the build's device activities by name
-    and by step (``GIANT_STEPS``), ``giant_build_device_us`` all of them
-    against the span from the first to the last (``giant_build_span_us``),
-    and ``<kernel>_device_us`` each call's.  Outside the session: every
-    kernel held against its plain version, its whole call (``_ms``, CUDA
-    events around one call, ``bench.cuda_ms``), its bound (``_bound_ms``:
-    inputs read once, outputs written once, at 3.35 TB/s), the cuts'
-    dependent rounds against a binary search's, and the build's wall
-    untraced (``giant_build_s``; the warm-up's ``giant_build_first_s``)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from pysubstringsearch_tpu_torch.ops import kernels
-    from pysubstringsearch_tpu_torch.parallel import mesh as M
-    from pysubstringsearch_tpu_torch.parallel import sharded
-
-    dev = torch.device('cuda')
-    data = np.load(args.corpus)
-    n = data.size
-    N = SA._pad_len(n)
-    S = GIANT_PLACEMENTS
+def _full_calls(torch, SA, text, sa, rank, r2, n, S):
+    """(tag, call, plain call, bytes) of a tree whose rounds key every
+    position (one with the max scan, before the relabel): the byte keys
+    of the last block, the round keys at k = 6 from the final ranks, the
+    cuts of those keys sorted at S - 1 of them beside
+    ``torch.searchsorted``, the flags, the max scan of the flags beside
+    ``torch.cummax`` and the partition of the sorted positions of slots
+    [0, B) at 4, 64 and 256 owners."""
+    N = text.shape[0]
     B = N // S
-    text = torch.zeros(N, dtype=torch.uint8, device=dev)
-    text[:n] = torch.from_numpy(data).to(dev)
-    del data
-    build = sharded.make_giant_chunk_build(
-        M.make_mesh([f'cuda:{torch.cuda.current_device()}'] * S))
-    sa, out['giant_build_first_s'] = _wall_s(torch, lambda: build(text, n))
-    out['giant_rounds'] = build.stats['rounds']
-    out['giant_max_recv'] = build.stats['max_recv']
-    _expect(torch.equal(sa[: N - n], torch.arange(
-        N - 1, n - 1, -1, dtype=torch.int32, device=dev)),
-        'the giant build\'s pad slots are [N - 1, ..., n]')
-
-    # Inputs at the row's shapes, as chip_smoke.giant_kernels makes them.
     p0 = (S - 1) * B
     blk, halo = text[p0:], text[N:]
-    inv = torch.empty(N, dtype=torch.int32, device=dev)
-    SA.scatter(torch.arange(N, dtype=torch.int32, device=dev), sa, inv)
-    rank, r2 = inv[p0:].clone(), inv[p0 + 6:].clone()
     W = SA._key_width(N)
-    _merges(torch, SA, bench, inv, W, B, out)
-    del inv
+    dev = text.device
     keys, vals = SA.giant_round_keys(rank, r2, W, p0)
     SA.radix_sort_pairs(keys, vals, 2 * W)
     pick = torch.tensor([r * B // S for r in range(1, S)], device=dev)
@@ -1272,6 +1230,133 @@ def _giant(torch, np, SA, bench, args, out):
             lambda s=s: SA.giant_partition(pos, gs, 7, N // s, s),
             lambda s=s: SA.giant_partition_plain(pos, gs, 7, N // s, s),
             16 * B + 4 * s))
+    return calls
+
+
+def _tied_calls(torch, SA, text, n, S, out):
+    """(tag, call, plain call, bytes) of a tree whose rounds key only the
+    tied positions, on B9's state at k = 6 (``chip_smoke.k6_ranks``): the
+    byte keys of the last block, its compacted round keys (the unsettled
+    share in ``giant_k6_unsettled``), and on their sorted list, a shard's
+    list at k = 6: the cuts at S - 1 of its pairs beside
+    ``torch.searchsorted``, the flags, the relabel and the partition of
+    its positions with the relabel's group starts at 4, 64 and 256
+    owners."""
+    N = text.shape[0]
+    B = N // S
+    p0 = (S - 1) * B
+    blk, halo = text[p0:], text[N:]
+    W = SA._key_width(N)
+    dev = text.device
+    rank_all = _smoke().k6_ranks(text, n)
+    rank, r2 = rank_all[p0:].clone(), rank_all[p0 + 6:].clone()
+    del rank_all
+    live = int((rank < 0).sum())
+    out['giant_k6_unsettled'] = live
+    keys, vals, _ = SA.giant_round_keys(rank, r2, W, p0, live)
+    SA.radix_sort_pairs(keys, vals, 2 * W)
+    m = keys.shape[0]
+    pick = torch.tensor([r * m // S for r in range(1, S)], device=dev)
+    skeys, spos = keys[pick], vals[pick]
+    real_lo = (N - n) << W
+    gs = SA.giant_relabel(keys, 0, None, None, W, -1, -1)
+    calls = [
+        ('giant_byte_keys', lambda: SA.giant_byte_keys(blk, halo, p0, n),
+         lambda: SA.giant_byte_keys_plain(blk, halo, p0, n), 13 * B),
+        ('giant_round_keys',
+         lambda: SA.giant_round_keys(rank, r2, W, p0, live),
+         lambda: SA.giant_round_keys_plain(rank, r2, W, p0),
+         4 * B + 16 * live + 4),
+        ('giant_cuts', lambda: SA.giant_cuts(keys, vals, skeys, spos),
+         lambda: SA.giant_cuts_plain(keys, vals, skeys, spos),
+         (S - 1) * (12 + 12 * m.bit_length()) + 8 * (S - 1)),
+        ('giant_cuts_searchsorted', lambda: torch.searchsorted(keys, skeys),
+         None, None),
+        ('giant_flags',
+         lambda: SA.giant_flags(keys, 0, None, None, W, real_lo),
+         lambda: SA.giant_flags_plain(keys, 0, None, None, W, real_lo),
+         8 * m + 12),
+        ('giant_relabel',
+         lambda: SA.giant_relabel(keys, 0, None, None, W, -1, -1),
+         lambda: SA.giant_relabel_plain(keys, 0, None, None, W, -1, -1),
+         12 * m),
+    ]
+    for s in GIANT_PARTITION_S:
+        live_s = torch.empty(s, dtype=torch.int32, device=dev)
+        calls.append((
+            f'giant_partition_s{s}',
+            lambda s=s, live_s=live_s: SA.giant_partition(
+                vals, gs, N // s, s, live=live_s),
+            lambda s=s: SA.giant_partition_plain(vals, gs, N // s, s),
+            16 * m + 8 * s))
+    return calls
+
+
+def _giant(torch, np, SA, bench, args, out):
+    """B14g on ``--corpus`` as one row of N = 512 Mi slots over
+    ``GIANT_PLACEMENTS`` placements of the card (its pairs sorted a sort,
+    ``giant_sorted``, where the tree reports them), and its kernels at
+    that row's shapes (B = 128 Mi), as ``chip_smoke.py``'s
+    ``giant_kernels`` makes their inputs: the merge of the runs shard 1
+    receives at S = 4, 64 and 256 sources beside the radix sort it
+    replaces (:func:`_merges`, outside the profiler session: the merge
+    gives its inputs up), then :func:`_tied_calls` for a tree whose
+    rounds key only the tied positions, :func:`_full_calls` for an older
+    one.  One warm-up build gives the SA; then one profiler session, the
+    process's first (G7), traces a second build and one call of every
+    kernel, each opened by a marker kernel (``torch.cuda._sleep``) and
+    closed by a synchronise: ``giant_build_by_kernel_us`` and
+    ``giant_build_by_step_us`` sum the build's device activities by name
+    and by step (``GIANT_STEPS``), ``giant_build_device_us`` all of them
+    against the span from the first to the last (``giant_build_span_us``),
+    and ``<kernel>_device_us`` each call's.  Outside the session: every
+    kernel held against its plain version, its whole call (``_ms``, CUDA
+    events around one call, ``bench.cuda_ms``), its bound (``_bound_ms``:
+    inputs read once, outputs written once, at 3.35 TB/s), the cuts'
+    dependent rounds against a binary search's, and the build's wall
+    untraced (``giant_build_s``; the warm-up's ``giant_build_first_s``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pysubstringsearch_tpu_torch.ops import kernels
+    from pysubstringsearch_tpu_torch.parallel import mesh as M
+    from pysubstringsearch_tpu_torch.parallel import sharded
+
+    dev = torch.device('cuda')
+    data = np.load(args.corpus)
+    n = data.size
+    N = SA._pad_len(n)
+    S = GIANT_PLACEMENTS
+    B = N // S
+    text = torch.zeros(N, dtype=torch.uint8, device=dev)
+    text[:n] = torch.from_numpy(data).to(dev)
+    del data
+    build = sharded.make_giant_chunk_build(
+        M.make_mesh([f'cuda:{torch.cuda.current_device()}'] * S))
+    sa, out['giant_build_first_s'] = _wall_s(torch, lambda: build(text, n))
+    out['giant_rounds'] = build.stats['rounds']
+    out['giant_max_recv'] = build.stats['max_recv']
+    for key in ('sorted', 'tied_real', 'round_bound'):
+        if key in build.stats:
+            out[f'giant_{key}'] = build.stats[key]
+    _expect(torch.equal(sa[: N - n], torch.arange(
+        N - 1, n - 1, -1, dtype=torch.int32, device=dev)),
+        'the giant build\'s pad slots are [N - 1, ..., n]')
+
+    # Inputs at the row's shapes, as chip_smoke.giant_kernels makes them.
+    p0 = (S - 1) * B
+    inv = torch.empty(N, dtype=torch.int32, device=dev)
+    SA.scatter(torch.arange(N, dtype=torch.int32, device=dev), sa, inv)
+    rank, r2 = inv[p0:].clone(), inv[p0 + 6:].clone()
+    W = SA._key_width(N)
+    _merges(torch, SA, bench, inv, W, B, out)
+    del inv
+    if hasattr(SA, 'giant_relabel'):
+        del rank, r2
+        calls = _tied_calls(torch, SA, text, n, S, out)
+    else:
+        calls = _full_calls(torch, SA, text, sa, rank, r2, n, S)
+        del rank, r2
     for _, fn, _, _ in calls:  # warm-up
         fn()
     torch.cuda.synchronize()
@@ -1341,7 +1426,7 @@ def _giant(torch, np, SA, bench, args, out):
     out['giant_cuts_binary_search_rounds'] = B.bit_length()
     out['giant_launches'] = {k: v for k, v in kernels.LAUNCHES.items()
                              if k.startswith('giant_')}
-    del keys, vals, rank, r2, pos, gs, sa, calls, flags
+    del sa, calls
     torch.cuda.empty_cache()
     _, out['giant_build_s'] = _wall_s(torch, lambda: build(text, n))
     del text

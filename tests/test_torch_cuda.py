@@ -306,14 +306,19 @@ def test_onesweep_sorts_on_two_threads(cuda):
 
 @pytest.mark.parametrize('n', [1, 2049, (1 << 22) + 5])
 def test_scans_match_cumsum_and_cummax(cuda, n):
+    """The exclusive sum scan against ``torch.cumsum``, and the giant
+    relabel's two max scans against its plain version's ``torch.cummax``
+    on a list of n pairs."""
     g = torch.Generator(device='cpu').manual_seed(n)
     x = torch.randint(-50, 1000, (n,), generator=g,
                       dtype=torch.int32).to(cuda)
     ex = SA.scan_exclusive_sum(x)
     assert ex.shape == (n + 1,) and int(ex[0]) == 0
     assert torch.equal(ex[1:], torch.cumsum(x, 0).to(torch.int32))
-    assert torch.equal(SA.scan_inclusive_max(x),
-                       torch.cummax(x, 0).values)
+    keys = torch.from_numpy(_relabel_list(n, 3, n)).to(cuda)
+    assert torch.equal(SA.giant_relabel(keys, 0, None, None, 31, -1, -1),
+                       SA.giant_relabel_plain(keys, 0, None, None, 31, -1,
+                                              -1))
 
 
 def _word_row(size, seed, device):
@@ -1499,6 +1504,31 @@ def test_scatter_binned_matches_plain(cuda, case):
     assert torch.equal(out, want)
 
 
+@pytest.mark.parametrize('case', ['giant_rank_store', 'partial',
+                                  'past_one_pass'])
+def test_scatter_binned_index_values_and_dropped_dests(cuda, case):
+    """B16 with no values (each dest takes its index, as the giant build's
+    finish stores positions by slot) and with every third dest pushed out
+    of ``out`` (negative, or past its end: dropped) against
+    ``scatter_plain``; one counted launch a call."""
+    _, dests, preset = _scatter_case(case)
+    d = torch.from_numpy(dests).to(cuda)
+    out = torch.from_numpy(preset).to(cuda)
+    want = SA.scatter_plain(None, d, out.clone())
+    assert SA.scatter(None, d, out) is out
+    assert torch.equal(out, want)
+    d = d.clone()
+    d[::3] = -1 - d[::3]
+    d[1::6] += preset.size
+    out = torch.from_numpy(preset).to(cuda)
+    v = torch.arange(d.shape[0], 0, -1, dtype=torch.int32, device=cuda)
+    want = SA.scatter_plain(v, d, out.clone())
+    before = kernels.LAUNCHES['scatter']
+    SA.scatter(v, d, out)
+    assert kernels.LAUNCHES['scatter'] == before + 1
+    assert torch.equal(out, want)
+
+
 def test_scatter_binned_unaligned_views(cuda):
     """B16 on views one element off the 16-byte alignment (the scalar
     loads and stores) against ``scatter_plain``."""
@@ -1732,7 +1762,7 @@ def test_anchored_inits_on_offset_views(cuda, name):
 def _giant_launches():
     return {k: kernels.LAUNCHES[k] for k in (
         'giant_byte_keys', 'giant_round_keys', 'giant_cuts',
-        'giant_partition', 'giant_flags', 'giant_merge')}
+        'giant_partition', 'giant_flags', 'giant_relabel', 'giant_merge')}
 
 
 def _merge_case(S, m, layout, bits, seed, device):
@@ -1819,39 +1849,148 @@ def test_giant_merge_edges_match_plain(cuda, case):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
-@pytest.mark.parametrize('kind', ['descending', 'constant', 'random'])
-@pytest.mark.parametrize('n', [0, 1, SA.SCAN_MAX_TILE - 1, SA.SCAN_MAX_TILE,
-                               SA.SCAN_MAX_TILE + 1, 1 << 27])
-def test_scan_inclusive_max_matches_cummax(cuda, n, kind):
-    """The look-back max scan against ``torch.cummax`` at the tile's edges
-    and at 2^27 elements, on descending values (the first carries through
-    every tile), constant ones and random ones; one counted launch a
-    call."""
-    g = torch.Generator(device='cpu').manual_seed(n)
-    if kind == 'descending':
-        x = torch.arange(n, 0, -1, dtype=torch.int32) - (1 << 30)
-    elif kind == 'constant':
-        x = torch.full((n,), -7, dtype=torch.int32)
-    else:
-        x = torch.randint(-(1 << 31), (1 << 31) - 1, (n,), generator=g,
-                          dtype=torch.int32)
-    x = x.to(cuda)
-    before = kernels.LAUNCHES['scan_inclusive_max']
-    got = SA.scan_inclusive_max(x)
-    assert kernels.LAUNCHES['scan_inclusive_max'] == before + 1
-    assert torch.equal(got, torch.cummax(x, 0).values)
+def _relabel_list(m, spread, seed, W=31, base=0):
+    """A shard's merged list of m round keys as the relabel receives it:
+    old groups of 2-9 members (the tied ones) at group starts g that skip
+    0 to ``spread`` settled slots before each, sorted by key, the low bits
+    tying within a group (``spread`` 0: one group, all keys equal).  The
+    first group starts at ``base``, the list's offset: a group's start is
+    never below its first member's list index, as in the build."""
+    rng = np.random.default_rng([m, spread, seed])
+    if spread == 0:
+        return np.full(m, (5 + base) << W, np.int64)
+    sizes = rng.integers(2, 10, size=m // 2 + 1)
+    gaps = rng.integers(0, spread + 1, size=sizes.size)
+    starts = base + np.cumsum(gaps) + np.concatenate(
+        [[0], np.cumsum(sizes)[:-1]])
+    g = np.repeat(starts, sizes)[:m]
+    low = rng.integers(1, 4, size=m)
+    return np.sort((g.astype(np.int64) << W) | low)
 
 
-@pytest.mark.parametrize('n', [SA.SCAN_MAX_TILE + 3, (1 << 22) + 5])
-def test_scan_inclusive_max_off_alignment(cuda, n):
-    """Input read through a view one element off the 16-byte alignment
-    (the scalar loads)."""
-    g = torch.Generator(device='cpu').manual_seed(n)
-    buf = torch.randint(-1000, 1 << 20, (n + 1,), generator=g,
-                        dtype=torch.int32).to(cuda)
-    x = buf[1:]
-    assert x.data_ptr() % 16
-    assert torch.equal(SA.scan_inclusive_max(x), torch.cummax(x, 0).values)
+def _relabel_shards(keys, S, seed):
+    """The list cut at S - 1 random points (some shards empty), with each
+    shard's list offset, predecessor and successor key."""
+    m = keys.shape[0]
+    rng = np.random.default_rng([S, seed])
+    cuts = np.sort(rng.integers(0, m + 1, size=S - 1))
+    if S > 2:
+        cuts[S // 2] = cuts[S // 2 - 1]  # an empty shard
+    edges = [0] + cuts.tolist() + [m]
+    shards = []
+    for s in range(S):
+        lo, hi = edges[s], edges[s + 1]
+        pred = int(keys[lo - 1]) if lo > 0 else None
+        succ = int(keys[hi]) if hi < m else None
+        shards.append((keys[lo:hi], lo, pred, succ))
+    return shards
+
+
+@pytest.mark.parametrize('layout', ['groups', 'one_group', 'wide_gaps'])
+@pytest.mark.parametrize('m', [0, 1, 4095, 4096, 4097, 1 << 24])
+def test_giant_relabel_matches_plain(cuda, m, layout):
+    """The relabel's look-back pass and the flags against their plain
+    versions at the 4096-pair tile's edges and 2^24 pairs: tied old groups
+    among settled slots, one group of equal keys (every early round of
+    ``abab``), and wide gaps; one counted launch each."""
+    spread = {'groups': 2, 'one_group': 0, 'wide_gaps': 1000}[layout]
+    keys = torch.from_numpy(_relabel_list(m, spread, 1)).to(cuda)
+    real_lo = int(keys[m // 3]) if m else 0
+    before = kernels.LAUNCHES['giant_relabel']
+    flags_before = kernels.LAUNCHES['giant_flags']
+    st = SA.giant_flags(keys, 0, None, None, 31, real_lo)
+    got = SA.giant_relabel(keys, 0, None, None, 31, -1, -1)
+    assert kernels.LAUNCHES['giant_relabel'] == before + 1
+    assert kernels.LAUNCHES['giant_flags'] == flags_before + 1
+    assert torch.equal(st, SA.giant_flags_plain(keys, 0, None, None, 31,
+                                                real_lo))
+    assert torch.equal(got, SA.giant_relabel_plain(keys, 0, None, None, 31,
+                                                   -1, -1))
+
+
+@pytest.mark.parametrize('S', [4, 64, 256])
+def test_giant_relabel_over_shards(cuda, S):
+    """A list of 2^24 pairs cut over S shards (one empty, old groups across
+    the cuts): every shard's flags, then its relabel with the carries of
+    the shards before it, against the plain versions, and the shards'
+    group starts joined against the plain relabel of the whole list."""
+    keys = torch.from_numpy(_relabel_list(1 << 24, 3, S)).to(cuda)
+    real_lo = int(keys[1 << 22])
+    shards = _relabel_shards(keys, S, 2)
+    stats = []
+    for kk, off, pred, succ in shards:
+        st = SA.giant_flags(kk, off, pred, succ, 31, real_lo)
+        assert torch.equal(st, SA.giant_flags_plain(kk, off, pred, succ, 31,
+                                                    real_lo))
+        stats.append(st.tolist())
+    parts = []
+    for s, (kk, off, pred, succ) in enumerate(shards):
+        ca = max([-1] + [x[0] for x in stats[:s]])
+        cb = max([-1] + [x[1] for x in stats[:s]])
+        got = SA.giant_relabel(kk, off, pred, succ, 31, ca, cb)
+        assert torch.equal(got, SA.giant_relabel_plain(kk, off, pred, succ,
+                                                       31, ca, cb))
+        parts.append(got)
+    whole = SA.giant_relabel_plain(keys, 0, None, None, 31, -1, -1)
+    assert torch.equal(torch.cat(parts), whole)
+    assert sum(x[2] for x in stats) == int(SA.giant_flags_plain(
+        keys, 0, None, None, 31, real_lo)[2])
+
+
+@pytest.mark.parametrize('m', [SA.GIANT_MAX_SHARDS * 16 + 3, (1 << 22) + 5])
+def test_giant_relabel_off_alignment(cuda, m):
+    """Keys read through a view one element off the 16-byte alignment (the
+    scalar loads and stores)."""
+    buf = torch.from_numpy(_relabel_list(m + 1, 2, 7, base=5)).to(cuda)
+    keys = buf[1:]
+    assert keys.data_ptr() % 16
+    assert torch.equal(SA.giant_relabel(keys, 5, int(buf[0]), None, 31, 3, 4),
+                       SA.giant_relabel_plain(keys, 5, int(buf[0]), None, 31,
+                                              3, 4))
+
+
+def _marked_block(m, share, seed, device):
+    """A rank block of m group starts, about ``share`` of them unsettled
+    (the sign bit set)."""
+    g = torch.Generator(device='cpu').manual_seed(seed)
+    rank = torch.randint(0, 1 << 30, (m,), generator=g, dtype=torch.int32)
+    tied = torch.rand(m, generator=g) < share
+    rank[tied] |= SA.GIANT_UNSETTLED
+    return rank.to(device)
+
+
+@pytest.mark.parametrize('share', [0.0, 0.4, 1.0])
+@pytest.mark.parametrize('m', [1, 4095, 4096, 4097, 1 << 24])
+def test_giant_round_keys_match_plain(cuda, m, share):
+    """The compacting round keys' look-back pass against the plain mask at
+    the 4096-position tile's edges and 2^24 positions, with no, 40% and
+    every position unsettled, the shifted ranks cut short (marked ones
+    among them); the device's count equals the host's; one counted
+    launch."""
+    rank = _marked_block(m, share, m, cuda)
+    r2 = _marked_block(max(m - 777, 0), 0.5, m + 1, cuda)
+    live = int((rank < 0).sum())
+    want = SA.giant_round_keys_plain(rank, r2, 31, 12345)
+    before = kernels.LAUNCHES['giant_round_keys']
+    got = SA.giant_round_keys(rank, r2, 31, 12345, live)
+    assert kernels.LAUNCHES['giant_round_keys'] == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert got[2].tolist() == [live]
+
+
+def test_giant_round_keys_off_alignment(cuda):
+    """Rank and shifted-rank views off the 16-byte alignment, and a count
+    the host expects short of the device's (only that many written)."""
+    buf = _marked_block((1 << 20) + 1, 0.5, 3, cuda)
+    rank, r2 = buf[1:], buf[7:]
+    assert rank.data_ptr() % 16
+    live = int((rank < 0).sum())
+    want = SA.giant_round_keys_plain(rank, r2, 31, 0)
+    got = SA.giant_round_keys(rank, r2, 31, 0, live)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    short = SA.giant_round_keys(rank, r2, 31, 0, live - 5)
+    assert torch.equal(short[0], want[0][: live - 5])
+    assert short[2].tolist() == [live]
 
 
 @pytest.mark.parametrize('S', [4, 8])
@@ -1876,29 +2015,36 @@ def test_giant_kernels_match_plain(cuda, S):
         assert all(torch.equal(a, b) for a, b in zip(got, want))
         rank = torch.from_numpy(rng.integers(0, N, size=B).astype(
             np.int32)).to(cuda)
+        rank[::3] |= SA.GIANT_UNSETTLED
         r2 = rank[: B - 777 * s].flip(0).contiguous()
-        got = SA.giant_round_keys(rank, r2, 25, s * B)
+        live = int((rank < 0).sum())
+        got = SA.giant_round_keys(rank, r2, 25, s * B, live)
         want = SA.giant_round_keys_plain(rank, r2, 25, s * B)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
-    keys, vals = SA.giant_round_keys(rank, r2, 25, (S - 1) * B)
+    keys, vals, _ = SA.giant_round_keys(rank, r2, 25, (S - 1) * B, live)
     keys = keys >> 20  # ties
     SA.radix_sort_pairs(keys, vals, 50)
-    pick = torch.randint(0, B, (S - 1,), device=cuda)
+    pick = torch.randint(0, keys.shape[0], (S - 1,), device=cuda)
     skeys, spos = keys[pick].sort().values, vals[pick] + 1
     cuts = SA.giant_cuts(keys, vals, skeys, spos)
     assert torch.equal(cuts, SA.giant_cuts_plain(keys, vals, skeys, spos))
     m = 1 << 24
     pos = torch.randperm(N, device=cuda)[:m].to(torch.int32)
-    gs = torch.randint(-1, N, (m,), device=cuda, dtype=torch.int32)
-    got = SA.giant_partition(pos, gs, 12345, B, S)
-    want = SA.giant_partition_plain(pos, gs, 12345, B, S)
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
-    keys = torch.sort(torch.randint(0, 1 << 22, (m,), device=cuda)).values
-    for has_pred, pred in ((False, 0), (True, int(keys[0])),
-                           (True, int(keys[0]) - 1)):
-        got = SA.giant_flags(keys, 777, pred, has_pred, 777 + m // 3)
-        want = SA.giant_flags_plain(keys, 777, pred, has_pred, 777 + m // 3)
-        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    gs = torch.randint(-N, N, (m,), device=cuda, dtype=torch.int32)
+    live = torch.empty(S, dtype=torch.int32, device=cuda)
+    got = SA.giant_partition(pos, gs, B, S, live=live)
+    want = SA.giant_partition_plain(pos, gs, B, S)
+    assert all(torch.equal(a, b) for a, b in zip(got, want[:3]))
+    assert torch.equal(live, want[3])
+    keys = torch.from_numpy(_relabel_list(m, 2, S, 25, 777)).to(cuda)
+    for pred, succ in ((None, None), (int(keys[0]), int(keys[-1])),
+                       (int(keys[0]) - 1, int(keys[-1]) + 1)):
+        st = SA.giant_flags(keys, 777, pred, succ, 25, int(keys[m // 3]))
+        assert torch.equal(st, SA.giant_flags_plain(keys, 777, pred, succ,
+                                                    25, int(keys[m // 3])))
+        got = SA.giant_relabel(keys, 777, pred, succ, 25, 5, 900)
+        assert torch.equal(got, SA.giant_relabel_plain(keys, 777, pred, succ,
+                                                       25, 5, 900))
 
 
 @pytest.mark.parametrize('case', ['splitters255', 'tie_run'])
@@ -1944,7 +2090,8 @@ def test_giant_partition_edges_match_plain(cuda, S, layout):
     pairs (off the 4096-pair tile) with B = 2^31 / S - 3, not a power of
     two: positions over every block, all in one owner's block, or read
     from views one element off the 16-byte alignment (the histogram's
-    scalar loads); group starts on both sides of the floor."""
+    scalar loads); group starts marked unsettled and not, counted by
+    owner."""
     rng = np.random.default_rng(S)
     m = (1 << 24) - 1
     B = (1 << 31) // S - 3
@@ -1952,18 +2099,20 @@ def test_giant_partition_edges_match_plain(cuda, S, layout):
         pos = (S // 2) * B + rng.integers(0, B, size=m)
     else:
         pos = rng.integers(0, S * B, size=m)
-    gs = rng.integers(-1, 1 << 30, size=m)
+    gs = rng.integers(-(1 << 30), 1 << 30, size=m)
     pos = torch.from_numpy(pos.astype(np.int32)).to(cuda)
     gs = torch.from_numpy(gs.astype(np.int32)).to(cuda)
     if layout == 'offset':
         pos = torch.cat([pos[:1], pos])[1:]
         gs = torch.cat([gs[:1], gs])[1:]
         assert pos.data_ptr() % 16 and gs.data_ptr() % 16
+    live = torch.empty(S, dtype=torch.int32, device=cuda)
     before = kernels.LAUNCHES['giant_partition']
-    got = SA.giant_partition(pos, gs, 1 << 29, B, S)
+    got = SA.giant_partition(pos, gs, B, S, live=live)
     assert kernels.LAUNCHES['giant_partition'] == before + 1
-    want = SA.giant_partition_plain(pos, gs, 1 << 29, B, S)
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    want = SA.giant_partition_plain(pos, gs, B, S)
+    assert all(torch.equal(a, b) for a, b in zip(got, want[:3]))
+    assert torch.equal(live, want[3])
     if layout == 'one_owner':
         assert int(got[2][S // 2]) == m
 
@@ -1971,23 +2120,33 @@ def test_giant_partition_edges_match_plain(cuda, S, layout):
 def test_giant_partition_of_nothing(cuda):
     """m = 0: counts of zero, empty outputs, one launch."""
     empty = torch.empty(0, dtype=torch.int32, device=cuda)
-    p, g, tot = SA.giant_partition(empty, empty, 3, 37, 5)
+    live = torch.full((5,), -1, dtype=torch.int32, device=cuda)
+    p, g, tot = SA.giant_partition(empty, empty, 37, 5, live=live)
     assert p.shape == g.shape == (0,) and tot.tolist() == [0] * 5
+    assert live.tolist() == [0] * 5
 
 
 @pytest.mark.parametrize('case', ['ranked_8mib', 'period2', 'n_eq_N',
-                                  'tiny'])
+                                  'tiny', 'uneven', 'utf16'])
 def test_giant_build_on_one_card(cuda, case):
     """B14g on four placements of one card (eight for the tiny row) equals
     B9 (``sa_full_doubling``) on the card, pad slots included, and
-    launches every kernel of its path."""
+    launches every kernel of its path; after the init its sorts take only
+    the tied positions (the uneven row: random bytes, all settled by the
+    init, then ``ab``; the UTF-16 row: NUL bytes up to n)."""
     from pysubstringsearch_tpu_torch.parallel import mesh as M
     from pysubstringsearch_tpu_torch.parallel import sharded
 
     data = {'ranked_8mib': lambda: _body('ranked', (8 << 20) - 300, 5),
             'period2': lambda: np.frombuffer(b'ab' * (1 << 18), np.uint8),
             'n_eq_N': lambda: _body('raw', 1 << 16, 6),
-            'tiny': lambda: np.frombuffer(b'abaab', np.uint8)}[case]()
+            'tiny': lambda: np.frombuffer(b'abaab', np.uint8),
+            'uneven': lambda: np.concatenate([
+                _body('raw', 1 << 20, 7),
+                np.frombuffer(b'ab' * (3 << 19), np.uint8)]),
+            'utf16': lambda: np.frombuffer(
+                _body('ranked', 1 << 19, 8).tobytes().decode(
+                    'latin-1').encode('utf-16-le'), np.uint8)}[case]()
     n = data.size
     N = _pad_len(n) if case != 'tiny' else 8
     text = torch.zeros(N, dtype=torch.uint8, device=cuda)
@@ -2003,7 +2162,13 @@ def test_giant_build_on_one_card(cuda, case):
         if build.stats['rounds'] or name not in ('giant_round_keys',
                                                  'giant_partition'):
             assert after[name] > before[name], name
-    assert max(build.stats['max_recv']) <= build.stats['recv_bound']
+    st = build.stats
+    assert all(r <= b <= st['recv_bound']
+               for r, b in zip(st['max_recv'], st['round_bound']))
+    assert st['sorted'][0] == N and all(
+        a >= b for a, b in zip(st['sorted'], st['sorted'][1:]))
+    if case == 'uneven':  # the random megabyte settles in the init
+        assert st['sorted'][1] < N - 1_000_000
     if case == 'ranked_8mib':
         assert np.array_equal(got[N - n:].cpu().numpy(),
                               suffix_array_native(data))

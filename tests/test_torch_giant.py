@@ -67,6 +67,17 @@ def _texts():
         'n1': (np.array([7], np.uint8), 16),
         'n_eq_N': (rng.integers(0, 4, size=64, dtype=np.uint8), 64),
         'short_blocks': (rng.integers(97, 99, size=13, dtype=np.uint8), 16),
+        # Random bytes, all settled by the init, then 'ab', none settled:
+        # at S = 2 one shard sorts nothing after the init.
+        'uneven': (np.concatenate([rng.integers(0, 256, size=128,
+                                                dtype=np.uint8),
+                                   np.frombuffer(b'ab' * 61, np.uint8)]),
+                   256),
+        # UTF-16: a NUL byte every other byte, one just before n, so tied
+        # real suffixes read the pads' ranks.
+        'nul_tail': (np.frombuffer(('ab' * 50 + 'abc').encode('utf-16-le'),
+                                   np.uint8), 256),
+        'mostly_pads': (rng.integers(97, 99, size=20, dtype=np.uint8), 256),
     }
 
 
@@ -103,8 +114,9 @@ def test_giant_build_matches_numpy(name, S):
     _check_sa_full(got.numpy(), data, N)
     st = build.stats
     assert st['recv_bound'] == 2 * (N // S) + S
-    assert len(st['max_recv']) == st['rounds'] + 1
-    assert max(st['max_recv']) <= st['recv_bound'], st
+    assert len(st['max_recv']) == len(st['round_bound']) == st['rounds'] + 1
+    assert all(r <= b <= st['recv_bound']
+               for r, b in zip(st['max_recv'], st['round_bound'])), st
 
 
 @pytest.mark.parametrize('name', ['random', 'period2', 'one_byte'])
@@ -126,6 +138,77 @@ def test_giant_build_runs_b9s_rounds(name, monkeypatch):
     got = build(text, len(data))
     assert torch.equal(got, want)
     assert build.stats['rounds'] == len(calls) > 0
+
+
+def _np_tied(row, n):
+    """B9's rounds in numpy on the padded ``row`` of true length ``n``:
+    (the pairs each sort of the giant build takes, the real positions
+    still tied after each relabel).  A position is tied while its key is
+    shared; the init sorts every position, a round the tied ones."""
+    N = row.size
+    W = N.bit_length()
+    keys = _np_byte_keys(row, n)
+    sorted_pairs, tied_real = [N], []
+    k = 6
+    while True:
+        rank = np.searchsorted(np.sort(keys), keys, 'left')
+        _, inv, size = np.unique(keys, return_inverse=True,
+                                 return_counts=True)
+        tied = size[inv] > 1
+        tied_real.append(int(tied[:n].sum()))
+        if not (k < N and tied_real[-1]):
+            return sorted_pairs, tied_real
+        sorted_pairs.append(int(tied.sum()))
+        low = np.zeros(N, np.int64)
+        low[: N - k] = rank[k:] + 1
+        keys = (rank.astype(np.int64) << W) | low
+        k *= 2
+
+
+@pytest.mark.parametrize('S', [1, 2, 8])
+@pytest.mark.parametrize('name', ['random', 'period2', 'uneven', 'nul_tail',
+                                  'mostly_pads', 'n_eq_N'])
+def test_giant_build_sorts_only_the_tied(name, S):
+    """Each sort takes the init's N pairs, then only the positions still
+    tied (pads included: they are not settled early), and each relabel
+    leaves as many real positions tied as numpy's B9 does; the rounds are
+    B9's."""
+    data, N = TEXTS[name]
+    row = _padded(data, N)
+    build = tsharded.make_giant_chunk_build(tmesh.make_mesh(['cpu'] * S))
+    _check_sa_full(build(row, data.size).numpy(), data, N)
+    sorted_pairs, tied_real = _np_tied(row, data.size)
+    assert build.stats['sorted'] == sorted_pairs
+    assert build.stats['tied_real'] == tied_real
+    assert build.stats['rounds'] == len(sorted_pairs) - 1
+
+
+@pytest.mark.parametrize('S', [2, 4, 8])
+def test_giant_build_receive_bound_on_the_uneven_text(S, monkeypatch):
+    """On the uneven text one shard's pairs all settle in the init and the
+    others' do not: a round sorts nothing on that shard (m_s = 0, its
+    samples above every pair), and every sort's largest receive stays
+    within 2 max_s m_s + S, itself within 2B + S."""
+    data, N = TEXTS['uneven']
+    sizes = []
+    real = tsharded.radix_sort_pairs
+
+    def spy(keys, vals, bits):
+        sizes.append(keys.shape[0])
+        return real(keys, vals, bits)
+
+    monkeypatch.setattr(tsharded, 'radix_sort_pairs', spy)
+    build = tsharded.make_giant_chunk_build(tmesh.make_mesh(['cpu'] * S))
+    _check_sa_full(build(_padded(data, N), data.size).numpy(), data, N)
+    st = build.stats
+    assert st['rounds'] >= 2
+    rounds = [sizes[r * S: (r + 1) * S] for r in range(st['rounds'] + 1)]
+    assert rounds[0] == [N // S] * S
+    assert all(0 in r for r in rounds[1:]), rounds
+    for r, ms in enumerate(rounds):
+        assert sum(ms) == st['sorted'][r]
+        assert st['round_bound'][r] == 2 * max(ms) + S
+        assert st['max_recv'][r] <= st['round_bound'][r] <= st['recv_bound']
 
 
 def test_giant_build_takes_tensors_and_host_arrays():
@@ -156,7 +239,7 @@ def test_giant_build_errors():
         tsharded.make_giant_chunk_build(tmesh.make_mesh(['cpu'] * 257))
     with pytest.raises(ValueError, match='S <='):
         SA.giant_partition(torch.zeros(1, dtype=torch.int32),
-                           torch.zeros(1, dtype=torch.int32), 0, 1, 0)
+                           torch.zeros(1, dtype=torch.int32), 1, 0)
 
 
 def test_shard_places_and_exchange():
@@ -208,18 +291,34 @@ def test_byte_keys_plain(S, n):
                                                               (s + 1) * B))
 
 
+def _marked(rng, size, share):
+    """Group starts below 2^12, about ``share`` of them unsettled (the
+    sign bit set)."""
+    g = rng.integers(0, 1 << 12, size=size).astype(np.int64)
+    tied = rng.random(size) < share
+    return np.where(tied, g - (1 << 31), g).astype(np.int32), tied
+
+
 @pytest.mark.parametrize('c', [0, 1, 50, 64])
 def test_round_keys_plain(c):
+    """The compacting round keys against a numpy mask: only the unsettled
+    positions, in position order, their marks (and the shifted ranks')
+    cleared; the count; and the host's expected count checked."""
     rng = np.random.default_rng(c)
-    rank = rng.integers(0, 1 << 12, size=64).astype(np.int32)
-    r2 = rng.integers(0, 1 << 12, size=c).astype(np.int32)
-    keys, vals = SA.giant_round_keys(torch.from_numpy(rank),
-                                     torch.from_numpy(r2), 13, 640)
+    rank, tied = _marked(rng, 64, 0.6)
+    r2 = _marked(rng, c, 0.5)[0]
+    keys, vals, count = SA.giant_round_keys(
+        torch.from_numpy(rank), torch.from_numpy(r2), 13, 640,
+        int(tied.sum()))
     low = np.zeros(64, np.int64)
-    low[:c] = r2.astype(np.int64) + 1
-    np.testing.assert_array_equal(keys.numpy(),
-                                  (rank.astype(np.int64) << 13) | low)
-    np.testing.assert_array_equal(vals.numpy(), np.arange(640, 704))
+    low[:c] = (r2.astype(np.int64) & 0x7fffffff) + 1
+    want = ((rank.astype(np.int64) & 0x7fffffff) << 13) | low
+    np.testing.assert_array_equal(keys.numpy(), want[tied])
+    np.testing.assert_array_equal(vals.numpy(), np.arange(640, 704)[tied])
+    assert count.tolist() == [int(tied.sum())]
+    with pytest.raises(ValueError, match='expected'):
+        SA.giant_round_keys(torch.from_numpy(rank), torch.from_numpy(r2), 13,
+                            640, int(tied.sum()) + 1)
 
 
 @pytest.mark.parametrize('seed', range(4))
@@ -246,35 +345,166 @@ def test_partition_plain(S):
     B = 37
     pos = rng.permutation(S * B)[: int(rng.integers(0, S * B))].astype(
         np.int32)
-    gs = rng.integers(-1, 500, size=pos.size).astype(np.int32)
+    gs = _marked(rng, pos.size, 0.3)[0]
+    live = torch.full((S,), -1, dtype=torch.int32)
     p, g, tot = SA.giant_partition(torch.from_numpy(pos),
-                                   torch.from_numpy(gs), 9, B, S)
+                                   torch.from_numpy(gs), B, S, live=live)
     owner = pos // B
     order = np.argsort(owner, kind='stable')
     np.testing.assert_array_equal(p.numpy(), (pos - owner * B)[order])
-    np.testing.assert_array_equal(g.numpy(), np.maximum(gs, 9)[order])
+    np.testing.assert_array_equal(g.numpy(), gs[order])
     np.testing.assert_array_equal(tot.numpy(),
                                   np.bincount(owner, minlength=S))
+    np.testing.assert_array_equal(live.numpy(),
+                                  np.bincount(owner[gs < 0], minlength=S))
+
+
+def _np_relabel(keys, off, pred, succ, shift, real_lo, carry_a, carry_b):
+    """Numpy's (stats, group starts) of the slot-space relabel, by its
+    definition: the list index f of each old group's first member and the
+    list index of each new group's first member, carried in from earlier
+    shards where the group starts there."""
+    m = keys.size
+    J = off + np.arange(m)
+    g = keys >> shift
+    prev = np.concatenate([[pred if pred is not None else -1], keys[:-1]])
+    first = np.zeros(m, bool)
+    first[:1] = pred is None
+    starts = first | (keys != prev)
+    old = first | ((keys >> shift) != (prev >> shift))
+    nxt = np.ones(m, bool)
+    nxt[:-1] = starts[1:]
+    if m and succ is not None:
+        nxt[-1] = succ != keys[-1]
+    a = np.where(old, g - J, -1)
+    b = np.where(starts, J, -1)
+    tied = int(np.sum(~(starts & nxt) & (keys >= real_lo)))
+    stats = [int(a.max()) if m else -1, int(b.max()) if m else -1, tied]
+    gs = (np.maximum(np.maximum.accumulate(b), carry_b)
+          + np.maximum(np.maximum.accumulate(a), carry_a)) if m else b
+    return stats, np.where(starts & nxt, gs, gs - (1 << 31))
 
 
 @pytest.mark.parametrize('has_pred', [False, True])
 @pytest.mark.parametrize('m', [0, 1, 200])
 def test_flags_plain(m, has_pred):
+    """The flags' plain version against numpy: the largest a (g - J at an
+    old group's first member) and b (J at a new group's), the unsettled
+    real pairs, with and without a predecessor and a successor."""
     rng = np.random.default_rng(m)
-    keys = np.sort(rng.integers(0, 40, size=m)).astype(np.int64)
-    pred = int(keys[0]) if m and has_pred else 3
-    off, real_lo = 1000, 1100
-    v, stats = SA.giant_flags(torch.from_numpy(keys), off, pred, has_pred,
-                              real_lo)
-    f = np.ones(m, bool)
-    f[1:] = keys[1:] != keys[:-1]
-    if m and has_pred:
-        f[0] = keys[0] != pred
-    slots = off + np.arange(m)
-    want = np.where(f, slots, -1)
-    np.testing.assert_array_equal(v.numpy(), want)
-    assert stats.tolist() == [int(want.max()) if m else -1,
-                              int((f & (slots >= real_lo)).sum())]
+    W = 12
+    # Old group starts in [1200, 1240), at or past the list's slots.
+    keys = np.sort(((1200 + rng.integers(0, 40, size=m)) << W)
+                   | rng.integers(0, 3, size=m)).astype(np.int64)
+    pred = int(keys[0]) if m and has_pred else None
+    succ = int(keys[-1]) if m and has_pred else None
+    off, real_lo = 1000, 1220 << W
+    got = SA.giant_flags(torch.from_numpy(keys), off, pred, succ, W, real_lo)
+    want, _ = _np_relabel(keys, off, pred, succ, W, real_lo, -1, -1)
+    assert got.tolist() == want
+
+
+def _round_state(row, n, k):
+    """numpy's state of B9 on ``row`` before the round at ``k``: every
+    position's group start (``rank``) and whether it is tied."""
+    N = row.size
+    W = N.bit_length()
+    keys = _np_byte_keys(row, n)
+    kk = 6
+    while True:
+        rank = np.searchsorted(np.sort(keys), keys, 'left')
+        _, inv, size = np.unique(keys, return_inverse=True,
+                                 return_counts=True)
+        if kk == k:
+            return rank, size[inv] > 1
+        low = np.zeros(N, np.int64)
+        low[: N - kk] = rank[kk:] + 1
+        keys = (rank.astype(np.int64) << W) | low
+        kk *= 2
+
+
+@pytest.mark.parametrize('S', [1, 3, 8, SA.GIANT_MAX_SHARDS])
+@pytest.mark.parametrize('name,k', [('period2', 6), ('period2', 12),
+                                    ('random', 6), ('nul_tail', 12),
+                                    ('uneven', 6), ('mostly_pads', 6)])
+def test_relabel_plain_matches_a_full_relabel(name, k, S):
+    """The slot-space relabel's plain version on the sorted list of the
+    tied positions' round keys, split over S shards at uneven cuts (empty
+    ones included, and old groups spanning shards, so that f and g carry
+    in), against numpy's relabel of every position by a lexsort of all N
+    keys: each pair's new group start and its mark, the flags' stop count
+    and the carries."""
+    data, N = TEXTS[name]
+    row = _padded(data, N)
+    n = data.size
+    W = N.bit_length()
+    rank, tied = _round_state(row, n, k)
+    low = np.zeros(N, np.int64)
+    low[: N - k] = rank[k:] + 1
+    full = (rank.astype(np.int64) << W) | low
+    order = np.lexsort((np.arange(N), full))
+    new_rank = np.empty(N, np.int64)
+    new_rank[order] = np.searchsorted(full[order], full[order], 'left')
+    _, inv, size = np.unique(full, return_inverse=True, return_counts=True)
+    settled = size[inv] == 1
+    pos = np.nonzero(tied)[0]
+    pos = pos[np.lexsort((pos, full[pos]))]
+    keys = full[pos]
+    m = keys.size
+    rng = np.random.default_rng([S, k, len(name)])
+    cuts = np.sort(rng.integers(0, m + 1, size=S - 1))
+    edges = np.concatenate([[0], cuts, [m]])
+    real_lo = (N - n) << W
+    shards = [keys[edges[s]: edges[s + 1]] for s in range(S)]
+    stats = []
+    for s, kk in enumerate(shards):
+        pred = next((int(shards[t][-1]) for t in range(s - 1, -1, -1)
+                     if shards[t].size), None)
+        succ = next((int(shards[t][0]) for t in range(s + 1, S)
+                     if shards[t].size), None)
+        st = SA.giant_flags(torch.from_numpy(kk), int(edges[s]), pred, succ,
+                            W, real_lo).tolist()
+        stats.append((kk, pred, succ, st))
+    got = []
+    for s, (kk, pred, succ, st) in enumerate(stats):
+        carry_a = max([-1] + [x[3][0] for x in stats[:s]])
+        carry_b = max([-1] + [x[3][1] for x in stats[:s]])
+        out = SA.giant_relabel(torch.from_numpy(kk), int(edges[s]), pred,
+                               succ, W, carry_a, carry_b)
+        assert out.dtype == torch.int32 and out.shape == (kk.size,)
+        want_st, want = _np_relabel(kk, int(edges[s]), pred, succ, W,
+                                    real_lo, carry_a, carry_b)
+        assert st == want_st
+        np.testing.assert_array_equal(out.numpy(), want)
+        got.append(out.numpy())
+    got = np.concatenate(got).astype(np.int64)
+    np.testing.assert_array_equal(got & 0x7fffffff, new_rank[pos])
+    np.testing.assert_array_equal(got >= 0, settled[pos])
+    assert sum(x[3][2] for x in stats) == int(np.sum(~settled[pos]
+                                                     & (pos < n)))
+
+
+@pytest.mark.parametrize('case', ['all_settled', 'none_settled', 'm0',
+                                  'c0', 'tile_edge'])
+def test_round_keys_plain_edges(case):
+    """The compacting round keys against a numpy mask where no position is
+    unsettled, where every one is, on an empty block, with no shifted
+    ranks, and over 4097 positions (a tile and one)."""
+    rng = np.random.default_rng(len(case))
+    m = {'m0': 0, 'tile_edge': 4097}.get(case, 300)
+    share = {'all_settled': 0.0, 'none_settled': 1.0}.get(case, 0.5)
+    rank, tied = _marked(rng, m, share)
+    c = 0 if case == 'c0' else max(m - 7, 0)
+    r2 = _marked(rng, c, 0.5)[0]
+    keys, vals, count = SA.giant_round_keys(
+        torch.from_numpy(rank), torch.from_numpy(r2), 20, 77,
+        int(tied.sum()))
+    low = np.zeros(m, np.int64)
+    low[:c] = (r2.astype(np.int64) & 0x7fffffff) + 1
+    want = ((rank.astype(np.int64) & 0x7fffffff) << 20) | low
+    np.testing.assert_array_equal(keys.numpy(), want[tied])
+    np.testing.assert_array_equal(vals.numpy(), (77 + np.arange(m))[tied])
+    assert count.tolist() == [int(tied.sum())]
 
 
 def _cuts_case(case):
@@ -350,44 +580,48 @@ def _partition_case(case):
     rng = np.random.default_rng(len(case))
     S, B = {'S1': (1, 2 ** 7 - 1), 'S3': (3, 2 ** 9 + 1),
             'S256': (256, 2 ** 5 - 1), 'one_owner': (8, 2 ** 8 + 1),
-            'm0': (4, 2 ** 6 + 1), 'below_floor': (5, 2 ** 8 - 1)}[case]
+            'm0': (4, 2 ** 6 + 1), 'marked': (5, 2 ** 8 - 1)}[case]
     m = {'S256': 6000, 'm0': 0}.get(case, 3 * B)
     if case == 'one_owner':  # every pair in shard 5's block
         pos = 5 * B + rng.integers(0, B, size=m)
     else:
         pos = rng.integers(0, S * B, size=m)
     gs = rng.integers(0, 10 ** 6, size=m)
-    floor = 7
-    if case == 'below_floor':  # most group starts under the carried one
-        floor = 10 ** 6 - 1000
-    return pos.astype(np.int32), gs.astype(np.int32), floor, B, S
+    if case == 'marked':  # most group starts marked unsettled
+        gs = np.where(rng.random(m) < 0.8, gs - (1 << 31), gs)
+    return pos.astype(np.int32), gs.astype(np.int32), B, S
 
 
 @pytest.mark.parametrize('case', ['S1', 'S3', 'S256', 'one_owner', 'm0',
-                                  'below_floor'])
+                                  'marked'])
 def test_partition_plain_edges(case):
     """The partition against numpy at S = 1, 3 and 256, B = 2^k +- 1,
-    every pair to one owner, m = 0 and group starts below the floor;
-    counts into ``totals``."""
-    pos, gs, floor, B, S = _partition_case(case)
+    every pair to one owner, m = 0 and most group starts marked
+    unsettled; counts into ``totals``, unsettled counts into ``live``."""
+    pos, gs, B, S = _partition_case(case)
     totals = torch.full((S,), -1, dtype=torch.int32)
+    live = torch.full((S,), -1, dtype=torch.int32)
     p, g, tot = SA.giant_partition(torch.from_numpy(pos),
-                                   torch.from_numpy(gs), floor, B, S,
-                                   totals=totals)
+                                   torch.from_numpy(gs), B, S,
+                                   totals=totals, live=live)
     assert tot is totals
     owner = pos // B
     order = np.argsort(owner, kind='stable')
     np.testing.assert_array_equal(p.numpy(), (pos - owner * B)[order])
-    np.testing.assert_array_equal(g.numpy(), np.maximum(gs, floor)[order])
+    np.testing.assert_array_equal(g.numpy(), gs[order])
     np.testing.assert_array_equal(tot.numpy(),
                                   np.bincount(owner, minlength=S))
+    np.testing.assert_array_equal(live.numpy(),
+                                  np.bincount(owner[gs < 0], minlength=S))
 
 
 def test_giant_build_reads_back_once_a_step(monkeypatch):
     """On 8 placements of one device a sort reads its cuts back in one
     copy and a round its partition counts in one: the build's host reads
-    are three a sort (cuts, sizes, relabel summaries) and one a round,
-    whatever the number of placements, and its SA is unchanged."""
+    are three a sort (cuts, sizes with the first and last keys, relabel
+    summaries: the carries and the unsettled real pairs) and one a round
+    (each owner's counts and unsettled counts), whatever the number of
+    placements; the finish reads nothing; its SA is unchanged."""
     calls = []
     tolist = torch.Tensor.tolist
 
@@ -402,7 +636,7 @@ def test_giant_build_reads_back_once_a_step(monkeypatch):
     monkeypatch.undo()
     rounds = build.stats['rounds']
     assert len(calls) == 3 * (rounds + 1) + rounds, calls
-    assert sorted(set(calls)) == sorted({(8, 7), (8, 8), (8, 2)})
+    assert sorted(set(calls)) == sorted({(8, 7), (8, 3), (8, 16)})
     _check_sa_full(got, data, N)
 
 
@@ -510,10 +744,10 @@ def _spy_merges(module, B):
     state = {'rc': None, 'j': 0, 'calls': []}
     exchange, merge = module.exchange_runs, module.giant_merge
 
-    def spy_exchange(sends, counts, mesh):
-        recvs, rc = exchange(sends, counts, mesh)
-        state['rc'], state['j'] = rc, 0
-        return recvs, rc
+    def spy_exchange(sends, counts, mesh, *tally):
+        out = exchange(sends, counts, mesh, *tally)
+        state['rc'], state['j'] = out[1], 0
+        return out
 
     def spy_merge(keys, vals, runs):
         assert list(runs) == list(state['rc'][state['j']])
@@ -561,7 +795,7 @@ assert (mesh.rank, mesh.world, mesh.size) == (rank, 2, 2)
 inp = np.load(os.path.join(tmp, 'inputs.npz'))
 build = sharded.make_giant_chunk_build(mesh)
 out = {}
-for name in ('jax', 'period2', 'n0'):
+for name in ('jax', 'period2', 'n0', 'uneven'):
     out[name] = build(inp[name], int(inp[name + '_n'])).numpy()
     assert out[name].shape == (inp[name].size // 2,)
     assert max(build.stats['max_recv']) <= build.stats['recv_bound']
@@ -576,12 +810,15 @@ def test_giant_build_on_two_gloo_ranks(tmp_path):
     """Two processes that import only the port join a gloo group through
     ``file://``; each builds its block of the row.  Their blocks joined
     equal the JAX function's real slots and the closed-form pads, and the
-    one-process build's rounds."""
+    one-process build's rounds; on the uneven text one rank sorts nothing
+    after the init."""
     data, padded, n, N = _jax_case()
     ab = np.frombuffer(b'ab' * 500, np.uint8)
+    uneven, uneven_N = TEXTS['uneven']
     np.savez(tmp_path / 'inputs.npz', jax=padded, jax_n=n,
              period2=_padded(ab, 1024), period2_n=ab.size,
-             n0=np.zeros(16, np.uint8), n0_n=0)
+             n0=np.zeros(16, np.uint8), n0_n=0,
+             uneven=_padded(uneven, uneven_N), uneven_n=uneven.size)
     script = tmp_path / 'worker.py'
     script.write_text(GIANT_WORKER)
     env = dict(os.environ)
@@ -613,6 +850,8 @@ def test_giant_build_on_two_gloo_ranks(tmp_path):
     _check_sa_full(np.concatenate([r['period2'] for r in res]), ab, 1024)
     _check_sa_full(np.concatenate([r['n0'] for r in res]),
                    np.zeros(0, np.uint8), 16)
+    _check_sa_full(np.concatenate([r['uneven'] for r in res]), uneven,
+                   uneven_N)
     one = tsharded.make_giant_chunk_build(tmesh.make_mesh(['cpu'] * 2))
     one(_padded(ab, 1024), ab.size)
     assert int(res[0]['period2_rounds']) == one.stats['rounds']

@@ -419,6 +419,30 @@ def test_scatter_plain_matches_the_bench_reference(n):
         tsa.scatter(v, torch.from_numpy(ranks)).numpy(), np.sort(values))
 
 
+@pytest.mark.parametrize('case', ['indices', 'dropped'])
+def test_scatter_plain_stores_indices_and_drops_outside_dests(case):
+    """B16's wrapper on CPU tensors with no values (each dest takes its
+    own index) and with dests outside ``out`` (negative or past its end),
+    which are dropped, against ``jnp.asarray(preset).at[d].set(v)`` of the
+    kept pairs; the untouched slots keep the preset."""
+    rng = np.random.default_rng(len(case))
+    preset = np.full(30_011, -7, np.int32)
+    dests = rng.choice(preset.size, 12_000, replace=False).astype(np.int64)
+    if case == 'dropped':
+        dests[::5] = -1 - rng.integers(0, 1 << 30, size=dests[::5].size)
+        dests[1::7] = preset.size + rng.integers(0, 50, size=dests[1::7].size)
+    keep = (dests >= 0) & (dests < preset.size)
+    values = (np.arange(dests.size, dtype=np.int32) if case == 'indices'
+              else rng.integers(0, 1 << 30, size=dests.size).astype(np.int32))
+    want = np.asarray(jnp.asarray(preset).at[jnp.asarray(dests[keep])].set(
+        jnp.asarray(values[keep])))
+    out = torch.from_numpy(preset.copy())
+    d = torch.from_numpy(dests.astype(np.int32))
+    v = None if case == 'indices' else torch.from_numpy(values)
+    assert tsa.scatter(v, d, out) is out
+    np.testing.assert_array_equal(out.numpy(), want)
+
+
 @pytest.mark.parametrize('case', ['partial_cover', 'one_bin'])
 def test_scatter_matches_the_xla_scatter_on_a_preset_out(case):
     """B16's wrapper on CPU tensors (the specification its kernel is held

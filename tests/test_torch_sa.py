@@ -276,8 +276,6 @@ def test_building_blocks_plain(n):
     x = rng.integers(-3, 50, size=n).astype(np.int32)
     ex = tsa.scan_exclusive_sum(torch.from_numpy(x)).numpy()
     np.testing.assert_array_equal(ex, np.concatenate(([0], np.cumsum(x))))
-    mx = tsa.scan_inclusive_max(torch.from_numpy(x)).numpy()
-    np.testing.assert_array_equal(mx, np.maximum.accumulate(x))
 
 
 # ---------------------------------------------------------------------------
