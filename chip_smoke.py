@@ -8,7 +8,7 @@ Run from the root of a checkout on a machine with a CUDA card:
 Every phase checks every pattern's count against the host path and runs
 its probe and gather kernels over the whole batch against their plain
 versions; it makes and checks lines (``search_multiple``) for its line
-batch: the first ``LINE_PATTERNS`` (2000) patterns with all its deep and
+batch: the first ``LINE_PATTERNS`` (1000) patterns with all its deep and
 odd ones.
 
 Phases (any failure raises and exits non-zero):
@@ -40,8 +40,9 @@ Phases (any failure raises and exits non-zero):
    buckets by its keys' top 16, 24 and 32 bits and its device time by
    kernel from ``torch.profiler``; the round's tied groups by size and
    its device time by kernel),
-   K4 and B8 on every row x the whole batch, and the whole ``derive_sa`` of
-   every row; then, launch counts from 0, B13 (``bwt_from_sa_device``) on
+   K4 and B8 on every row x the whole batch, the whole ``derive_sa`` of
+   every row, and R (``sa_roll_front``, the derived SA's roll) on row 0,
+   beside ``torch.roll``; then, launch counts from 0, B13 (``bwt_from_sa_device``) on
    row 0 and on chunk 0 and B15's capped gather of row 0's hits, each
    against its plain version (B13 also against the host BWT and, on chunk
    0, ``unbwt_native`` and ``bwt()``; the gather against B8's blocks, and
@@ -61,7 +62,7 @@ Phases (any failure raises and exits non-zero):
    routing constants on this card and host (link rates and the 1-pattern
    round trip the load measured, the host probe's seconds a (pattern,
    chunk), B1b + B2 and native SA-IS on an 8 MiB chunk); and the route
-   sweep: batches of 1, 16, 256 and 2200 line patterns, each route forced
+   sweep: batches of 1, 16, 256 and 1200 line patterns, each route forced
    in turn and under the rule, each run's wall, route (from the launch
    counts of K4 and B8 and the ``x-host-*`` phases), lines (equal across
    routes) and phases, and the smallest per-row readback at which the
@@ -146,7 +147,20 @@ Phases (any failure raises and exits non-zero):
     by B9 (SA equal to native SA-IS, also run on a host thread from the
     start; time and peak logged), and a small
     all-``a`` row must be poisoned in kernel and plain;
-13. B14g (``giant``), ``make_giant_chunk_build``: the big row's SA again
+13. the raw and digit kinds at the Writer's default chunk
+    (``big-kinds``): the raw and digit corpora of 9 and 10, made once,
+    each written by the Writer at its defaults (one chunk of about 524 MB,
+    its SA built on the card by B1b and B2), then, launch counts from 0,
+    ``Reader(path)`` derives the row of N = 512 Mi through B10 (no B1b or
+    B2; a poisoned row through B9, logged) and the kind's aux (K7 + K3 and
+    K6, or B12d's 5 limb planes, 2,684,354,560 entries); its SA equal to
+    the container's (the digit chunk's also to native SA-IS, run on a host
+    thread since its corpus was made), ``num_limbs``, ``index-sa``, the
+    load's peak and the resident GiB logged; then the phase's line batch
+    (the raw one with its NUL and high-byte patterns, the digit one with
+    ``DIGIT_HIGH``) on the device route, counts and lines against the host,
+    the probe kernel (K4 or B11) against its plain version, probe p50;
+14. B14g (``giant``), ``make_giant_chunk_build``: the big row's SA again
     with its positions split over ``GIANT_PLACEMENTS`` (4) placements of
     the card, launch counts from 0 (B14g's kernels, the radix sort and
     the scatter must launch; one local sort and one merge of the received
@@ -160,7 +174,7 @@ Phases (any failure raises and exits non-zero):
     on a 1-process NCCL group (every exchange an ``all_to_all_single``)
     an 8 MiB chunk of the corpus against B9 and native SA-IS and 64 MiB
     of ``ab`` (all ties) against its closed form and B9;
-14. B16 (``b16``): ``sort_bench`` at 2^24, 2^26 and 2^27 (the giant
+15. B16 (``b16``): ``sort_bench`` at 2^24, 2^26 and 2^27 (the giant
     build's rank store, a permutation of 128 Mi), launch counts from 0:
     the scatter kernel equal to its plain version, timed beside its bound,
     the plain and library scatters, one ``torch.sort`` of (key, value)
@@ -169,7 +183,7 @@ Phases (any failure raises and exits non-zero):
     60-bit keys); and B8 on a skewed batch (one query of 2^24 + 3 hits
     beside 10,000 small ones and runs of zero counts) against its plain
     version, timed as a whole call and as the kernel alone;
-15. one JSON line of kernels (each with its launches on its path, error,
+16. one JSON line of kernels (each with its launches on its path, error,
     time, plain time, bound and library-call time), the card's name and
     power limit, and the result line ``{"ok": true, "device": {...}}``
     last.
@@ -242,8 +256,10 @@ GIANT_PERIOD2_BYTES = 64 << 20
 #: count is checked against the host, and the probe and gather kernels run
 #: over the whole batch against their plain versions; lines for the whole
 #: batch in every phase (about 22 M each) would take half the run's time
-#: limit on a slow host.
-LINE_PATTERNS = 2000
+#: limit on a slow host.  1000 since the big-kinds phase came: with 2000
+#: the whole script took 968 s of its 1200 s limit on an NVIDIA H100 80GB
+#: HBM3 (700 W) machine whose host ran 30% slower than usual.
+LINE_PATTERNS = 1000
 #: The deep patterns (23-200 bytes) ``sample_patterns`` appends.
 DEEP_PATTERNS = 200
 #: Patterns (the first of the ranked batch) that ShardedReader,
@@ -517,15 +533,29 @@ def main() -> int:
         del shard_ref, upload_bounds
         os.remove(idx_path)
         # ---- 9. the raw kind ----
+        # Its corpus and the digit one are made once: the big-kinds phase
+        # writes them again at the Writer's defaults.
+        t0 = time.perf_counter()
+        raw_corpus = make_raw_corpus(args.mb, args.seed)
+        log(f'make_raw_corpus({args.mb}): {time.perf_counter() - t0:.1f} s')
         raw_path, result['raw_index_build_s'], raw_pats = build_container(
-            pss, lambda: make_raw_corpus(args.mb, args.seed), d, 'raw', args)
+            pss, lambda: raw_corpus, d, 'raw', args)
         result['raw'] = timed('raw', lambda: run_raw(
             raw_path, raw_pats, dev, result['derive']['rows']))
         kernel_rows += result['raw'].pop('kernels')
         os.remove(raw_path)
-        # ---- 10-12. the digit kind, written on the card; B9 ----
+        # ---- 10-11. the digit kind, written on the card; B9 ----
+        t0 = time.perf_counter()
+        digit_corpus = make_digit_corpus(args.mb, args.seed)
+        log(f'make_digit_corpus({args.mb}): '
+            f'{time.perf_counter() - t0:.1f} s')
+        # Native SA-IS of the digit corpus as the Writer's one chunk, on a
+        # host thread from now on, for the big-kinds phase.
+        digit_ref = natives.submit(timed_native, np.frombuffer(
+            writer_bytes(digit_corpus), np.uint8))
         (digit_path, result['digit_writer'], (digit_pats, byte_pats),
-         native_sas, chunk_datas) = write_digit_container(pss, d, args)
+         native_sas, chunk_datas) = write_digit_container(pss, d, args,
+                                                          digit_corpus)
         result['digit'] = timed('digit', lambda: run_digit(
             digit_path, digit_pats, byte_pats, dev, chunk_datas))
         kernel_rows += result['digit'].pop('kernels')
@@ -533,12 +563,18 @@ def main() -> int:
                                                   dev))
         kernel_rows += result['b9'].pop('kernels')
         del chunk_datas
-        # ---- 12-13. the big-row derive (B10) and B16 ----
+        # ---- 12. the big-row derive (B10) ----
         result['bigrow'] = timed('bigrow', lambda: run_bigrow(
             corpus, adv, refs, pats, d, dev))
-        natives.shutdown()
         kernel_rows += result['bigrow'].pop('kernels')
-        # ---- 13. B14g on the big row ----
+        # ---- 13. the raw and digit kinds at the Writer's default chunk ----
+        result['big_kinds'] = timed('big-kinds', lambda: run_big_kinds(
+            (('raw', raw_corpus, big_raw_batch(raw_pats), None),
+             ('digit', digit_corpus, big_digit_batch(digit_pats),
+              digit_ref)), d, dev))
+        natives.shutdown()
+        del raw_corpus, digit_corpus, digit_ref
+        # ---- 14. B14g on the big row; 15. B16 ----
         result['giant'] = timed('giant', lambda: run_giant(corpus, refs[0],
                                                            d, dev))
         kernel_rows += result['giant'].pop('kernels')
@@ -1283,6 +1319,29 @@ def check_derive_rows(idx, label, *args):
     return rows
 
 
+def roll_kernel(idx, row, entry):
+    """R, the derived SA's roll (``_roll_front_jit``), against its plain
+    version on one row: the row's SA rolled back to the pad-first order
+    the SA builds leave, then rolled to the front into another row, equal
+    to the index's; timed beside its bound (4 bytes read and 4 written a
+    slot) and one ``torch.roll`` into a fresh tensor."""
+    import torch
+
+    from pysubstringsearch_tpu_torch.ops import suffix_array as SA
+
+    n = int(idx.lengths[row])
+    sa = idx.sa[row]
+    N = sa.shape[0]
+    sa_full = torch.roll(sa, N - n)
+    out = SA.sa_roll_front(sa_full, n, out=torch.empty_like(sa_full))
+    entry('sa_roll_front', f'{JAX_SEARCH}:652', SA_SRC,
+          max(err(out, SA.sa_roll_front_plain(sa_full, n)), err(out, sa)),
+          cuda_ms(lambda: SA.sa_roll_front(sa_full, n, out=out), 20),
+          cuda_ms(lambda: SA.sa_roll_front_plain(sa_full, n, out=out), 3),
+          8 * N, cuda_ms(lambda: torch.roll(sa_full, n - N), 20))
+    del sa_full, out
+
+
 def aux_kernels(idx, row, entry):
     """K1-K3 against their plain versions on one row of the index."""
     from pysubstringsearch_tpu_torch.ops import search as S
@@ -1677,6 +1736,7 @@ def run_derive(idx_path, pats, dev, card):
         SA.RANKED_KEY_BITS, SA.INIT_CUT_RANKED, 2 * (30 // bits), entry,
         entry, 'sa_init_ranked', 330)[3]
     derive_rows = check_derive_rows(idx, '', idx.rank, bits)
+    roll_kernel(idx, 0, entry)
     gather = gather_kernel(idx, lo_k, cnt_k, entry)
     row0 = row0_bwt_and_b15(r, idx, lo_k, cnt_k, entries)
 
@@ -1924,9 +1984,9 @@ DIGIT_HIGH = [b'\x80', b'\xff\xfe', b'q\x00\xe9', 'é'.encode('utf-16-le'),
 DIGIT_COUNT_ONLY = [b'\x00', b'\n\x00', b'\x00\n']
 
 
-def write_digit_container(pss, d, args):
-    """The digit corpus written by the port's Writer at the default
-    ``'auto'``, on the card: launch counts from 0 before it, B1b once for
+def write_digit_container(pss, d, args, corpus):
+    """The digit corpus (``make_digit_corpus``) written by the port's
+    Writer at the default ``'auto'``, on the card: launch counts from 0 before it, B1b once for
     every chunk of at least 64 KiB after it, and every chunk's SA against
     native SA-IS (in a thread pool), timed.  Returns (container path,
     numbers, (the line batch, the count batch), the native SAs and the
@@ -1943,7 +2003,7 @@ def write_digit_container(pss, d, args):
 
     kernels.reset_launches()
     path, build_s, pats = build_container(
-        pss, lambda: make_digit_corpus(args.mb, args.seed), d, 'digit', args,
+        pss, lambda: corpus, d, 'digit', args,
         backend='auto', sampler=sample_digit_patterns)
     launches = dict(kernels.LAUNCHES)
     chunks = read_container(path).chunks
@@ -3109,6 +3169,191 @@ def run_bigrow(corpus, adv, refs, pats, d, dev):
                      'peak_gib': adv_peak, 'b9_rounds': fl['sa_full_round'],
                      'native_sais_s': adv_native_s},
     }
+
+
+#: Entry points a raw or digit big row's load and answers launch beside
+#: B10's and the roll (``BIGROW_KERNELS[:4]``): K7 + K3 (the seed prefix
+#: and table) and the kind's limb planes, then its probe.
+BIG_KIND_AUX = {'raw': ('seed_prefix', 'seed_table', 'raw_limb_planes'),
+                'digit': ('seed_prefix', 'seed_table', 'digit_limb_planes')}
+BIG_KIND_PROBE = {'raw': 'probe_phased', 'digit': 'probe_limbs'}
+
+
+def big_raw_batch(pats):
+    """The raw big row's batch: the raw phase's line batch, its odd
+    patterns (NUL, bytes >= 0x80) included."""
+    odd = odd_patterns(pats)
+    return line_batch(pats + odd, DEEP_PATTERNS + len(odd))
+
+
+def big_digit_batch(pats):
+    """The digit big row's batch, from the digit phase's (its line
+    patterns, then ``DIGIT_SHORT`` and ``DIGIT_HIGH``): the first
+    ``LINE_PATTERNS``, the deep ones and ``DIGIT_HIGH``; not
+    ``DIGIT_SHORT``, whose millions of lines the digit phase makes."""
+    cut = len(pats) - len(DIGIT_SHORT) - len(DIGIT_HIGH)
+    return (pats[:LINE_PATTERNS] + pats[cut - DEEP_PATTERNS: cut]
+            + DIGIT_HIGH)
+
+
+def writer_bytes(corpus):
+    """The bytes of the Writer's one chunk of ``corpus``: the corpus, with a
+    newline after a last line that has none (the digit corpus ends on the
+    newline's NUL)."""
+    return corpus if corpus.endswith(b'\n') else corpus + b'\n'
+
+
+def big_kind(kind, corpus, pats, native_ref, d, dev):
+    """One corpus of the raw or digit kind written by the port's Writer at
+    its defaults (one chunk, its SA built on the card by B1b and B2), then,
+    launch counts from 0, ``Reader(path)`` derives the row past
+    ``SEGMENTED_MAX_N`` through B10 (a poisoned row by B9, logged) and the
+    kind's aux; the SA equals the container's (and native SA-IS of the
+    corpus where ``native_ref``, a future of :func:`timed_native`, is
+    given), and ``pats`` are answered on the device route, counts and lines
+    against the host, the probe kernel against its plain version, probe
+    p50 timed.  Returns the numbers."""
+    import numpy as np
+    import torch
+
+    import pysubstringsearch_tpu_torch as pss
+    from pysubstringsearch_tpu_torch.container import read_container
+    from pysubstringsearch_tpu_torch.ops import kernels
+    from pysubstringsearch_tpu_torch.ops import search as S
+    from pysubstringsearch_tpu_torch.ops import suffix_array as SA
+
+    label = f'big {kind} '
+    corpus_path = os.path.join(d, f'big_{kind}.txt')
+    path = os.path.join(d, f'big_{kind}.idx')
+    with open(corpus_path, 'wb') as f:
+        f.write(corpus)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with pss.Writer(path) as w:
+        w.add_entries_from_file_lines(corpus_path)
+    writer_s = time.perf_counter() - t0
+    wl = dict(kernels.LAUNCHES)
+    os.remove(corpus_path)
+    chunks = read_container(path).chunks
+    check(len(chunks) == 1, f'{label}Writer wrote one chunk ({len(chunks)})')
+    chunk = chunks[0]
+    n = chunk.data.size
+    check(chunk.data.tobytes() == writer_bytes(corpus),
+          f'{label}chunk holds the corpus ({n} bytes for {len(corpus)})')
+    check(wl['sa_init_bytes'] == 1 and wl['sa_init3_bytes'] == 0
+          and all(wl[k] > 0 for k in WRITER_KERNELS),
+          f'{label}Writer built the chunk on the card by B1b and B2 ({wl})')
+    log(f'{label}Writer at its defaults: one chunk of {n} bytes in '
+        f'{writer_s:.2f} s, SA on the card; launches '
+        f'{ {k: wl[k] for k in WRITER_KERNELS} }')
+
+    # ---- the derive, launch counts from 0 ----
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r = pss.Reader(path)
+    check(r.wait_device_ready(), f'{label}device index ready')
+    ready_s = time.perf_counter() - t0
+    load_peak = torch.cuda.max_memory_allocated() / 2**30
+    resident = torch.cuda.memory_allocated() / 2**30
+    idx = r._index
+    load = dict(kernels.LAUNCHES)
+    N, K = idx.n_pad, idx.num_limbs
+    check(idx.kind == kind and idx.mode == 'derive' and idx.num_chunks == 1
+          and N > SA.SEGMENTED_MAX_N,
+          f'{label}one derive row past SEGMENTED_MAX_N (kind {idx.kind}, '
+          f'rows {idx.num_chunks}, n_pad {N})')
+    poisoned = idx.sa_poisoned[0]
+    ties = idx.sa_ties[0]
+    passes = [len(x) for x in ties]
+    check(load['sa_init3_bytes'] == 1 and load['sa_roll_front'] == 1
+          and load['sa_window_scan'] >= 1 and load['sa_init_ranked'] == 0
+          and load['sa_init_bytes'] == 0 and load['sa_tie_scan'] == 0,
+          f'{label}row derived through B10 and rolled once, no B1, B1b or '
+          f'B2 ({load})')
+    if poisoned:
+        log(f'{label}row poisoned after B10 passes {ties}: B9 re-derived it')
+        check(load['sa_full_init_bytes'] == 1 and load['sa_full_round'] > 0,
+              f'{label}poisoned row re-derived by B9 ({load})')
+    else:
+        check(load['sa_rotating_pass'] == sum(passes) > 0
+              and load['sa_window_scan'] == sum(passes) + 1
+              and load['sa_full_init_bytes'] == 0,
+              f'{label}row derived through B10 alone, {sum(passes)} passes '
+              f'({load})')
+    aux = BIG_KIND_AUX[kind]
+    check(all(load[k] > 0 for k in aux) and load['raw_pack'] == 0,
+          f'{label}aux by {aux} ({load})')
+    if kind == 'digit':
+        check(idx._base == 258 and idx._depth == 3 and K == 5
+              and K * N > 2**31,
+              f'{label}258^3 table and 5 limb planes past 2^31 entries '
+              f'({idx._base}^{idx._depth}, {K} x {N})')
+    index_sa_s = r.profiler.totals['index-sa']
+    log(f'{label}device ready: {ready_s:.2f} s; 1 row of {n} bytes, n_pad '
+        f'{N}; kind {idx.kind}, sigma {int(idx.present.sum())}, seed '
+        f'{idx._base}^{idx._depth}, num_limbs {K} ({K * N} limb entries); '
+        f'index-sa {index_sa_s:.3f} s; peak {load_peak:.2f} GiB during the '
+        f'load, {resident:.2f} GiB resident; poisoned {poisoned}; B10 '
+        f'passes per round {passes}')
+    k0 = 3 if N > 1 << 28 else SA.BYTE_INIT_WIDTH
+    for i, ms in enumerate(ties):
+        log(f'  {label}B10 round {i} (k {k0 << i}): m_w per pass {ms}')
+    split = load_split(r, ('index-alphabet', 'index-alloc', 'index-h2d',
+                           'index-sa', 'index-aux'), label.strip())
+    want = torch.from_numpy(np.array(chunk.suffix_array,
+                                     dtype=np.int32)).to(dev)
+    check(torch.equal(idx.sa[0, :n], want)
+          and torch.equal(idx.sa[0, n:], pad_slots(N, n, dev)),
+          f'{label}derived SA equals the container\'s (built by B1b + B2), '
+          'pads [N - 1, ..., n]')
+    del want
+    native_s = None
+    if native_ref is not None:
+        native, native_s = native_ref.result()
+        check(np.array_equal(chunk.suffix_array, native),
+              f'{label}Writer\'s SA of the chunk equals native SA-IS')
+        log(f'{label}native SA-IS of the {n}-byte chunk on the host: '
+            f'{native_s:.2f} s (a thread beside the card since the corpus '
+            'was made), equal')
+        del native
+
+    # ---- the answers on the device route ----
+    probe = BIG_KIND_PROBE[kind]
+    strs = [p.decode('latin-1') for p in pats]
+    after_multi, launches, e2e_s, phases, res = main_path(
+        r, strs, pats, ('probe', 'extract', 'hs-spans', 'hs-fanout'), probe)
+    for name in BIGROW_KERNELS[:4] + aux + (probe,):
+        check(after_multi[name] > 0, f'{label}path launched {name}')
+    packed_np, lengths_np = S.pack_patterns(pats)
+    host_search_s = check_answers(r, idx, pats, packed_np, lengths_np, res,
+                                  pats)
+    lines = len(res)
+    del res
+    p50 = probe_p50(idx, packed_np, lengths_np)
+    (digit_probe_kernel if kind == 'digit' else probe_kernel)(
+        idx, packed_np, lengths_np, kernel_check(label))
+    del r, idx, chunk, chunks
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.remove(path)
+    return {'writer_s': writer_s, 'n': n, 'n_pad': N, 'num_limbs': K,
+            'device_ready_s': ready_s, 'index_sa_s': index_sa_s,
+            'load_split_s': split, 'load_peak_gib': load_peak,
+            'resident_gib': resident, 'poisoned': poisoned,
+            'passes': passes, 'm_w': ties, 'search_multiple_s': e2e_s,
+            'search_multiple_phases_s': phases, 'patterns': len(pats),
+            'lines': lines,
+            'host_search_s': host_search_s, 'probe_p50_ms': p50,
+            'native_sais_s': native_s}
+
+
+def run_big_kinds(kinds, d, dev):
+    """The raw and digit kinds at the Writer's default chunk, one
+    :func:`big_kind` each for ``kinds``, (kind, corpus, patterns, native
+    SA-IS future or None) tuples."""
+    return {kind: big_kind(kind, corpus, pats, ref, d, dev)
+            for kind, corpus, pats, ref in kinds}
 
 
 def period2_sa(N, dev):

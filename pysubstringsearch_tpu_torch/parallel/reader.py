@@ -11,8 +11,9 @@ placement differs, as in the JAX package's ``ShardedReader``:
   meters one device's share;
 - upload mode copies each block's container chunks to its device; derive
   mode builds each block's SA, limbs and tables on its device;
-- a batch is probed by one launch per device, and the bounds are joined in
-  row order.
+- a batch is probed by one launch per device, all launched before any is
+  joined; the bounds are copied to the first device, joined in row order
+  and read back in one transfer.
 
 This is the single-process form: the process holds all chunk text for line
 extraction and places only the device arrays.  Across processes, see
@@ -66,21 +67,31 @@ class ShardedIndex(DeviceIndex):
         part = self.parts[r // self._rows_per_device]
         return part.sa[r % self._rows_per_device]
 
-    def probe_device_parts(self, patterns: np.ndarray, lengths: np.ndarray):
-        """Not available: the rows live on several devices, and one
-        tensor cannot hold their bounds (ROADMAP G5)."""
-        raise NotImplementedError(
-            'ShardedIndex.probe_device_parts: the rows live on several '
-            'devices (ROADMAP G5); use probe')
-
-    def probe(self, patterns: np.ndarray, lengths: np.ndarray):
-        """(lower, count) int32 [C, B] host arrays: each device's probe
-        launch over its rows, joined in row order."""
-        if not self.parts:
-            zeros = np.zeros((0, np.asarray(patterns).shape[0]), np.int32)
-            return zeros, zeros.copy()
-        los, cnts = zip(*(p.probe(patterns, lengths) for p in self.parts))
-        return np.concatenate(los), np.concatenate(cnts)
+    def probe_device_parts(
+        self,
+        patterns: np.ndarray,  # uint8 [B, L]
+        lengths: np.ndarray,  # int32 [B]
+    ) -> typing.List[typing.Tuple[np.ndarray, torch.Tensor, torch.Tensor]]:
+        """``[(members, lower, count)]``: the batch's probe over every
+        device with no readback, as the JAX sharded index answers over its
+        mesh.  One part, where the JAX package has one a length class:
+        ``members`` the host indices [B], ``lower`` and ``count`` int32
+        [C, B] tensors on the first device.  Every device's probe is
+        launched first, so they run together; then each device's
+        [rows per device, B] block is copied to the first device and the
+        blocks are joined in row order (a padding row's bounds are 0).
+        :meth:`probe` reads the joined part back in one transfer, and for
+        the raw kind zeroes the patterns that hold NUL."""
+        patterns = np.asarray(patterns, dtype=np.uint8)
+        lengths = np.asarray(lengths, dtype=np.int32)
+        B = patterns.shape[0]
+        if self.num_chunks == 0 or B == 0 or patterns.shape[1] > self.n_pad:
+            return DeviceIndex.probe_device_parts(self, patterns, lengths)
+        blocks = [p.probe_device_parts(patterns, lengths)[0][1:]
+                  for p in self.parts]
+        lo, cnt = (torch.cat([b[j].to(self.device) for b in blocks])
+                   for j in (0, 1))
+        return [(np.arange(B), lo, cnt)]
 
 
 class ShardedReader(Reader):

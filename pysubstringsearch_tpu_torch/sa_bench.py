@@ -106,7 +106,7 @@ session is the process's first) times the probes on the same indexes and
 batches (``_probes``): K4 on the ranked derive batch (``k4``) and on its
 patterns up to the key cover and past it (``k4_short``, ``k4_deep``), on
 the raw derive index (``k4_raw``) and in the upload geometry with that
-batch and with the 2200 patterns ``search_multiple`` probes there
+batch and with the 1200 patterns ``search_multiple`` probes there
 (``k4_upload``, ``k4_upload_line``), B15's probe on the 63 chunk rows
 and B11 on the line and count batches, each held against its plain
 version, as a whole call (``_ms``), back to back (``_back_to_back_ms``)
@@ -130,6 +130,16 @@ beside ``torch.cummax`` on the final ranks), the partition at 4, 64 and
 256 owners and the merge of one shard's received runs at 4, 64 and 256
 sources beside ``radix_sort_pairs`` and ``torch.sort`` of the same runs
 (see ``_giant``).
+
+With ``--roll`` it times the derived SA's roll (R, ``sa_roll_front``: a
+pad-first SA of N slots rolled by n - N into a row of the index) on the
+ranked derive index's row 0 (n 268,434,495 in 272 Mi slots, ``roll_272``)
+and on the big row (n 524,288,061 in 512 Mi slots, ``roll_512``), and at
+the other three shifts mod 4 at 272 Mi (``roll_272_shift<s>``), each a
+whole call into a preallocated row (``_ms``) beside its bound
+(``_bound_ms``: 4 bytes read and 4 written a slot at 3.35 TB/s), its plain
+version (``_plain_ms``) and ``torch.roll`` into a fresh tensor
+(``_torch_roll_ms``), the kernel's output equal to ``torch.roll``'s.
 
 With ``--profile`` it first prints the device time by kernel
 (``torch.profiler``'s ``key_averages``) of B10's init, of that first pass,
@@ -895,7 +905,7 @@ def _probes(torch, np, S, bench, args, out):
     rows with the patterns up to its key cover, ``k4_short``, and past it,
     ``k4_deep``), on the raw derive index (2 rows x 10,206, ``k4_raw``) and
     on the ranked container's 63 chunks in the upload geometry
-    (``k4_upload``; with chip_smoke's line batch of 2200 patterns,
+    (``k4_upload``; with chip_smoke's line batch of 1200 patterns,
     ``k4_upload_line``), B15 on those chunks as rows (x 10,200), B11 on the
     digit derive index (2 rows) with the line batch (10,709) and the count
     batch (10,000).  Each is held against its plain version (lower and
@@ -939,7 +949,7 @@ def _probes(torch, np, S, bench, args, out):
     idx = readers[2]._index
     calls.append(('k4_upload', S.probe_phased, S.probe_phased_plain,
                   _k4_args(idx, *batch(pats)), 2))
-    # The line batch that search_multiple probes (2200 patterns).
+    # The line batch that search_multiple probes (1200 patterns).
     calls.append(('k4_upload_line', S.probe_phased, S.probe_phased_plain,
                   _k4_args(idx, *batch(smoke.line_batch(
                       pats, smoke.DEEP_PATTERNS))), 2))
@@ -1516,6 +1526,36 @@ def _init_rows(torch, np, SA, S, bench, args, out):
     torch.cuda.empty_cache()
 
 
+#: The roll's rows: (tag, true length n, slots N), as ``chip_smoke.py``
+#: derives them.
+ROLL_ROWS = (('roll_272', 268_434_495, 272 << 20),
+             ('roll_512', 524_288_061, 1 << 29))
+
+
+def _roll(torch, SA, bench, out):
+    """R on ``ROLL_ROWS`` (and the 272 Mi row at every shift mod 4) beside
+    its bound, its plain version and ``torch.roll``."""
+    rows = list(ROLL_ROWS)
+    tag, n, N = ROLL_ROWS[0]
+    rows += [(f'{tag}_shift{(N - m) % 4}', m, N)
+             for m in (n + 1, n + 2, n + 3)]
+    for tag, n, N in rows:
+        sa_full = torch.arange(N, dtype=torch.int32, device='cuda')
+        row = torch.empty_like(sa_full)
+        SA.sa_roll_front(sa_full, n, out=row)
+        _expect(torch.equal(row, torch.roll(sa_full, n - N)),
+                f'{tag}: the roll equals torch.roll')
+        out[f'{tag}_ms'] = bench.cuda_ms(
+            lambda: SA.sa_roll_front(sa_full, n, out=row), 10 * REPS)
+        out[f'{tag}_plain_ms'] = bench.cuda_ms(
+            lambda: SA.sa_roll_front_plain(sa_full, n, out=row), REPS)
+        out[f'{tag}_torch_roll_ms'] = bench.cuda_ms(
+            lambda: torch.roll(sa_full, n - N), 10 * REPS)
+        out[f'{tag}_bound_ms'] = _floor_ms(8 * N)
+        del sa_full, row
+        torch.cuda.empty_cache()
+
+
 def _base(torch, np, SA, S, bench, args, out):
     """The default measurements: the sorts, B8 and B15's gather on the
     skewed batch, then B10, B1b and B2 on the ranked corpus as one 512 Mi
@@ -1624,6 +1664,9 @@ def main(argv=None) -> int:
     ap.add_argument('--giant', action='store_true',
                     help='first profile one B14g build of the 512 Mi row '
                     'on 4 placements and time its kernels')
+    ap.add_argument('--roll', action='store_true',
+                    help="also time the derived SA's roll (R) at 272 Mi "
+                    'and 512 Mi')
     ap.add_argument('--no-base', action='store_true',
                     help='skip the sorts, B8, the B15 gather, B10, B1b and '
                     'B2 on the 512 Mi row')
@@ -1670,6 +1713,8 @@ def main(argv=None) -> int:
         _packs(torch, np, S, bench, args, out)
     if args.probe_bounds:
         _probe_bounds(torch, np, S, args, out)
+    if args.roll:
+        _roll(torch, SA, bench, out)
     print(json.dumps(out), flush=True)
     return 0
 

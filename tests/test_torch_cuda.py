@@ -21,6 +21,7 @@ from pysubstringsearch_tpu_torch.ops import kernels
 from pysubstringsearch_tpu_torch.ops import search as S
 from pysubstringsearch_tpu_torch.ops import suffix_array as SA
 from pysubstringsearch_tpu_torch.ops.native import suffix_array_native
+from pysubstringsearch_tpu_torch.parallel.reader import ShardedIndex
 from pysubstringsearch_tpu_torch.ops.suffix_array import (
     _pad_len,
     suffix_array_numpy,
@@ -2196,3 +2197,151 @@ def test_trace_to_records_the_probe_kernel(cuda, tmp_path):
     with open(path) as f:
         names = {e.get('name', '') for e in json.load(f)['traceEvents']}
     assert any('probe_phased' in name for name in names), sorted(names)[:50]
+
+
+@pytest.mark.parametrize('N', [1, 5, 4096, 4099, (1 << 22) + 3])
+@pytest.mark.parametrize('at', ['0', '1', '2', '3', 'N-1', 'N'])
+@pytest.mark.parametrize('views', [(0, 0), (1, 0), (0, 3)])
+def test_roll_front_matches_plain(cuda, N, at, views):
+    """R, the derived SA's roll, against its plain version: n = 0, 1, 2, 3
+    (every (N - n) mod 4 on each N), N - 1 and N, on row lengths that are
+    and are not a multiple of 4, with the source or the output a view off
+    its 16-byte alignment."""
+    n = min(N, int(at) if at.isdigit() else N - int(at[2:] or 0))
+    a, b = views
+    src = torch.randint(-2**31, 2**31 - 1, (N + a,), dtype=torch.int32,
+                        device=cuda)[a:]
+    out = torch.full((N + b,), -7, dtype=torch.int32, device=cuda)[b:]
+    before = kernels.LAUNCHES['sa_roll_front']
+    got = SA.sa_roll_front(src, n, out=out)
+    assert got.data_ptr() == out.data_ptr()
+    assert kernels.LAUNCHES['sa_roll_front'] == before + 1
+    assert torch.equal(out, SA.sa_roll_front_plain(src, n))
+    assert torch.equal(SA.sa_roll_front(src, n), torch.roll(src, n - N))
+
+
+def _kind_body(kind, size, seed):
+    """A body of the index kind: ranked, raw (every byte but NUL) or digit
+    (the raw body with every 89th byte NUL)."""
+    body = _body('raw' if kind == 'digit' else kind, size, seed)
+    if kind == 'digit':
+        body[::89] = 0
+    return body
+
+
+@pytest.mark.parametrize('mode', ['derive', 'upload'])
+@pytest.mark.parametrize('kind', ['ranked', 'raw', 'digit'])
+def test_sharded_index_on_two_placements(cuda, kind, mode):
+    """``ShardedIndex`` over two placements of the card: one probe launch
+    a placement, one part on the first, whose bounds read back equal
+    ``probe`` (on the patterns without NUL for the raw kind, which
+    ``probe`` zeroes on the host) and the CPU sharded index's."""
+    bodies = [_kind_body(kind, m, s) for s, m in enumerate((30_000, 777,
+                                                            52_000))]
+    chunks = [Chunk(data=b, suffix_array=suffix_array_numpy(b))
+              for b in bodies]
+    gpu = ShardedIndex(chunks, [cuda, cuda], mode=mode)
+    cpu = ShardedIndex(chunks, ['cpu', 'cpu'], mode=mode)
+    assert gpu.kind == kind and gpu.num_chunks % 2 == 0
+    pats = _patterns(bodies, 2)
+    packed, lengths = S.pack_patterns(pats)
+    name = 'probe_limbs' if kind == 'digit' else 'probe_phased'
+    before = kernels.LAUNCHES[name]
+    (members, lo_d, cnt_d), = gpu.probe_device_parts(packed, lengths)
+    assert kernels.LAUNCHES[name] == before + 2
+    assert lo_d.device == torch.empty(0, device=gpu.device).device
+    assert lo_d.shape == (gpu.num_chunks, len(pats))
+    lo, cnt = gpu.probe(packed, lengths)
+    keep = [b'\x00' not in p for p in pats] if kind == 'raw' else slice(None)
+    np.testing.assert_array_equal(cnt_d.cpu().numpy()[:, keep], cnt[:, keep])
+    np.testing.assert_array_equal(lo_d.cpu().numpy()[:, keep], lo[:, keep])
+    lo_c, cnt_c = cpu.probe(packed, lengths)
+    np.testing.assert_array_equal(cnt, cnt_c)
+    np.testing.assert_array_equal(lo, lo_c)
+    assert (cnt > 0).sum() > 100
+
+
+def _word_text(n, seed):
+    """n bytes of printable words (bytes 33-126) and spaces, 96 distinct
+    bytes with the space: a raw-kind row whose suffixes stay tied for
+    several rounds."""
+    rng = np.random.default_rng(seed)
+    words = [bytes(rng.integers(33, 127, size=int(l), dtype=np.uint8))
+             for l in rng.integers(2, 8, size=300)]
+    return b' '.join(words[i] for i in rng.integers(0, 300, size=n // 4))[:n]
+
+
+def _nul_row(case, n):
+    """B10 rows holding NUL: UTF-16LE words (every second byte NUL), random
+    bytes whose last 200 are NUL (real 0x00 suffixes beside the pads), and
+    NUL only."""
+    rng = np.random.default_rng(n)
+    if case == 'utf16':
+        return np.frombuffer(_word_text(n // 2 + 1, n).decode()
+                             .encode('utf-16-le')[:n], np.uint8).copy()
+    if case == 'nul_tail':
+        data = rng.integers(0, 256, size=n).astype(np.uint8)
+        data[-200:] = 0
+        return data
+    return np.zeros(n, np.uint8)
+
+
+@pytest.mark.parametrize('case, n, N', [('utf16', 70_001, 1 << 17),
+                                        ('utf16', 3_000_000, 1 << 22),
+                                        ('nul_tail', 70_000, 1 << 17),
+                                        ('all_nul', 3000, 4096)])
+def test_rotating_kernels_on_nul_rows(cuda, case, n, N):
+    """B10 on rows holding NUL, the digit kind's: the 3-byte init and the
+    whole doubler bit for bit against their plain versions, and the SA
+    against native SA-IS where the row is not poisoned (a row of NUL only
+    is, in both)."""
+    data = _nul_row(case, n)
+    text = torch.zeros(N, dtype=torch.uint8, device=cuda)
+    text[:n] = torch.from_numpy(data)
+    init = SA.sa_init3_bytes(text, n)
+    plain = SA.sa_init3_bytes_plain(text, n)
+    assert all(torch.equal(a, b) for a, b in zip(init, plain))
+    sa, poisoned, ties = SA.segmented_rotating_sa(text, n)
+    psa, ppoisoned, pties = SA.segmented_rotating_sa_plain(text, n)
+    torch.cuda.synchronize()
+    assert poisoned == ppoisoned == (case == 'all_nul') and ties == pties
+    if not poisoned:
+        assert torch.equal(sa, psa)
+        assert np.array_equal(sa[N - n:].cpu().numpy(),
+                              suffix_array_native(data))
+
+
+@pytest.mark.parametrize('kind', ['raw', 'digit'])
+def test_big_row_derive_of_raw_and_digit_matches_cpu(cuda, kind,
+                                                     monkeypatch):
+    """A raw and a digit row past ``SEGMENTED_MAX_N`` (lowered) in a derive
+    index on the card: B10, the roll, the kind's limb planes and table,
+    then its probe, array for array and bound for bound equal to the CPU
+    index's, the SA equal to native SA-IS."""
+    monkeypatch.setattr(SA, 'SEGMENTED_MAX_N', 1 << 16)
+    body = (_nul_row('utf16', 200_000) if kind == 'digit' else
+            np.frombuffer(_word_text(200_000, 5), np.uint8))
+    chunks = [Chunk(data=body, suffix_array=suffix_array_numpy(body))]
+    before = dict(kernels.LAUNCHES)
+    gpu = DeviceIndex(chunks, device=cuda, mode='derive')
+    torch.cuda.synchronize()
+    assert gpu.kind == kind and gpu.n_pad > SA.SEGMENTED_MAX_N
+    assert gpu.sa_poisoned == [False]
+    # B10's init on a row of up to 2^28 slots is the 6-byte one (B1b's).
+    for name in ('sa_init_bytes', 'sa_window_scan', 'sa_rotating_pass',
+                 'sa_roll_front', 'seed_prefix', 'seed_table',
+                 'raw_limb_planes' if kind == 'raw' else 'digit_limb_planes'):
+        assert kernels.LAUNCHES[name] > before[name], name
+    for name in ('sa_tie_scan', 'sa_refine_round', 'sa_full_init_bytes'):
+        assert kernels.LAUNCHES[name] == before[name], name
+    cpu = DeviceIndex(chunks, device='cpu', mode='derive')
+    for name in ('text', 'sa', 'tables', 'limbs'):
+        assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), name
+    assert np.array_equal(gpu.sa[0, :body.size].cpu().numpy(),
+                          suffix_array_native(body))
+    packed, lengths = S.pack_patterns(_patterns([body], 3))
+    lo_g, cnt_g = gpu.probe(packed, lengths)
+    lo_c, cnt_c = cpu.probe(packed, lengths)
+    np.testing.assert_array_equal(cnt_g, cnt_c)
+    np.testing.assert_array_equal(lo_g, lo_c)
+    assert (cnt_g > 0).sum() > 100

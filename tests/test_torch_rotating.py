@@ -21,6 +21,7 @@ import torch
 import pysubstringsearch_tpu as jpss
 from pysubstringsearch_tpu.container import Chunk as JChunk
 from pysubstringsearch_tpu.models.index import DeviceIndex as JIndex
+from pysubstringsearch_tpu.ops import search as jsearch
 from pysubstringsearch_tpu.ops.suffix_array import (
     _SEG_DIV,
     _init_round_anchored3,
@@ -53,12 +54,48 @@ def _within_groups(sa: np.ndarray, gs: np.ndarray) -> np.ndarray:
     return sa[np.lexsort((sa, gs))]
 
 
-def _random(n: int, sigma: int, seed: int) -> np.ndarray:
+def _random(n: int, sigma, seed: int) -> np.ndarray:
     """n bytes over an alphabet of ``sigma``: 97.. for a small one, every
-    byte (NUL included) for 256."""
+    byte (NUL included) for 256; or a NUL-bearing row by name
+    (``NUL_ROWS``)."""
+    if isinstance(sigma, str):
+        return NUL_ROWS[sigma](n, seed)
     rng = np.random.default_rng(seed)
     lo = 0 if sigma == 256 else 97
     return rng.integers(lo, lo + sigma, size=n).astype(np.uint8)
+
+
+def _utf16_text(n: int, seed: int) -> np.ndarray:
+    """n bytes of UTF-16LE lines of printable words: every second byte NUL,
+    as a digit-kind row; odd n ends on a character's low byte."""
+    rng = np.random.default_rng(seed)
+    words = [bytes(rng.integers(33, 127, size=int(l), dtype=np.uint8))
+             for l in rng.integers(2, 7, size=40)]
+    text = b''.join(b' '.join(words[i] for i in rng.integers(0, 40, size=5))
+                    + b'\n' for _ in range(n // 8 + 1))
+    return np.frombuffer(text.decode().encode('utf-16-le')[:n],
+                         np.uint8).copy()
+
+
+def _nul_tail(n: int, seed: int) -> np.ndarray:
+    """Random bytes whose last quarter is NUL: real 0x00 suffixes right
+    before the pad slots, which the init must order before them."""
+    data = np.random.default_rng(seed).integers(0, 256, size=n)
+    data[n - n // 4:] = 0
+    return data.astype(np.uint8)
+
+
+#: NUL-bearing rows for the 3-byte init: a real 0x00 digit is 1, a pad
+#: slot's 0, so real NUL runs sort after the pads that share their prefix.
+NUL_ROWS = {
+    'utf16': _utf16_text,
+    'nul_tail': _nul_tail,
+    'nul_runs': lambda n, seed: np.where(
+        np.random.default_rng(seed).random(n) < 0.7, 0,
+        np.random.default_rng(seed + 1).integers(1, 4, size=n)
+    ).astype(np.uint8),
+    'all_nul': lambda n, seed: np.zeros(n, np.uint8),
+}
 
 
 def _words(n: int, seed: int) -> np.ndarray:
@@ -85,7 +122,11 @@ def _group_row(members: int, n: int = 4000) -> np.ndarray:
 
 
 @pytest.mark.parametrize('n, sigma', [(1, 2), (7, 4), (1000, 26),
-                                      (3000, 256), (4096, 2), (65536, 26)])
+                                      (3000, 256), (4096, 2), (65536, 26),
+                                      (3001, 'utf16'), (4096, 'utf16'),
+                                      (3000, 'nul_tail'), (2500, 'nul_runs'),
+                                      (1, 'all_nul'), (3000, 'all_nul'),
+                                      (4096, 'all_nul')])
 def test_init3_matches_jax(n, sigma):
     data = _random(n, sigma, n)
     N = tsa._pad_len(n)
@@ -376,6 +417,119 @@ def test_reader_poisoned_fallback_matches_jax_reader(monkeypatch, tmp_path):
     assert got == want and len(got[0]) == 150 and got[2] == []
     assert collections.Counter(tr.search_multiple(pats)) == \
         collections.Counter(jr.search_multiple(pats))
+
+
+def _kind_lines(kind: str, nlines: int, seed: int) -> bytes:
+    """Newline-terminated lines of printable words (bytes 33-126): as
+    they are for the raw kind (96 distinct bytes, no NUL), as UTF-16LE for
+    the digit kind (every second byte NUL)."""
+    rng = np.random.default_rng(seed)
+    words = [bytes(rng.integers(33, 127, size=int(l), dtype=np.uint8))
+             for l in rng.integers(2, 8, size=300)]
+    body = b''.join(b' '.join(words[i] for i in rng.integers(0, 300, size=6))
+                    + b'\n' for _ in range(nlines))
+    return body.decode().encode('utf-16-le') if kind == 'digit' else body
+
+
+def _kind_patterns(kind: str, body: bytes, seed: int):
+    """Substrings of ``body`` at random offsets (for the digit kind of
+    either parity, so half start with a NUL), a few near misses, and the
+    kind's odd patterns: NUL and bytes >= 0x80, which the text never holds
+    for the raw kind, and chip_smoke's ``DIGIT_HIGH`` ones for the digit
+    kind."""
+    rng = np.random.default_rng(seed)
+    pats = [body[o: o + int(l)] for o, l in zip(
+        rng.integers(0, len(body) - 40, size=80), rng.integers(1, 25, 80))]
+    pats += [p[:-1] + b'\x7f' for p in pats[:10] if p]
+    if kind == 'digit':
+        pats += [b'\x00', b'\n\x00', b'\x80', b'\xff\xfe', b'q\x00\xe9',
+                 '\u00e9'.encode('utf-16-le'), b'\x00\xc3\xa9']
+    else:
+        pats += [b'\x00', pats[0] + b'\x00', b'\x80',
+                 pats[1] + '\u00e9'.encode()]
+    return pats + [b'', b'\n']
+
+
+@pytest.mark.parametrize('kind', ['raw', 'digit'])
+def test_big_row_reader_of_raw_and_digit_matches_jax_reader(
+        kind, monkeypatch, tmp_path):
+    """A raw and a digit container written at the Writer's defaults (one
+    chunk) through the port's derive Reader on the CPU with
+    ``SEGMENTED_MAX_N`` lowered below the row: the row derives through B10
+    (``sa_ties`` a list of passes a round, not poisoned), its SA is the
+    container's, and the answers equal the JAX derive Reader's."""
+    body = _kind_lines(kind, 700, 21)
+    src = tmp_path / 'corpus.txt'
+    src.write_bytes(body)
+    path = str(tmp_path / 'c.idx')
+    with tpss.Writer(path) as w:
+        w.add_entries_from_file_lines(str(src))
+    monkeypatch.setattr(tsa, 'SEGMENTED_MAX_N', 1024)
+    tr = tpss.Reader(path, device='cpu', index_mode='derive')
+    idx = tr._index
+    assert idx.kind == kind and idx.mode == 'derive'
+    assert idx.num_chunks == 1 and idx.n_pad > tsa.SEGMENTED_MAX_N
+    assert idx.sa_poisoned == [False]
+    assert len(idx.sa_ties[0]) > 1 and all(
+        isinstance(r, list) and r for r in idx.sa_ties[0])
+    chunk = tr._chunks[0]
+    np.testing.assert_array_equal(idx.sa[0, : chunk.data.size].numpy(),
+                                  chunk.suffix_array)
+    jr = jpss.Reader(path, index_mode='derive')
+    assert jr._index.kind == kind
+    pats = _kind_patterns(kind, body, 22)
+    want = [sorted(x) for x in jr._search_batch(pats)]
+    got = [sorted(x) for x in tr._search_batch(pats)]
+    assert got == want and sum(map(len, got)) > 500
+    strs = [p.decode('latin-1') for p in pats[:40]]
+    assert collections.Counter(tr.search_multiple(strs)) == \
+        collections.Counter(jr.search_multiple(strs))
+
+
+@pytest.mark.parametrize('case', ['raw', 'digit', 'digit_odd_n'])
+def test_derive_sa_of_raw_and_digit_rows_past_the_threshold(case,
+                                                            monkeypatch):
+    """``derive_sa`` of a raw and a digit row past the lowered
+    ``SEGMENTED_MAX_N`` (no rank map: the bytes' own order) equals the JAX
+    rotating doubler's SA rolled to the front, kernel route and plain."""
+    body = _kind_lines(case.split('_')[0], 400, 23)
+    data = np.frombuffer(body[: len(body) - (case == 'digit_odd_n')],
+                         np.uint8)
+    n = data.size
+    N = tsa._pad_len(n + PAD_MARGIN)
+    text = torch.from_numpy(_padded(data, N))
+    monkeypatch.setattr(tsa, 'SEGMENTED_MAX_N', N - 1)
+    jsa, jpoisoned = jsegmented_rotating_sa(jnp.asarray(text.numpy()),
+                                            jnp.int32(n))
+    assert not jpoisoned
+    for fn in (tsa.derive_sa, tsa.derive_sa_plain):
+        sa, ties, poisoned = fn(text, n)
+        assert not poisoned and ties and all(isinstance(r, list)
+                                             for r in ties)
+        np.testing.assert_array_equal(sa.numpy(),
+                                      np.roll(np.asarray(jsa), n - N))
+    np.testing.assert_array_equal(sa[:n].numpy(),
+                                  tsa.suffix_array_numpy(data))
+
+
+_jroll = jsearch._roll_front_jit()
+
+
+@pytest.mark.parametrize('N', [4096, 4099])
+@pytest.mark.parametrize('n', [0, 1, 2, 3, 1000, 'N-3', 'N-2', 'N-1', 'N'])
+def test_roll_front_matches_jax(N, n):
+    """The derived SA's roll (R) against the JAX ``_roll_front_jit`` at
+    n = 0, 1, N - 1 and N and at every (N - n) mod 4, on a row length that
+    is a multiple of 4 and one that is not."""
+    if isinstance(n, str):
+        n = N - int(n[2:] or 0)
+    sa_full = np.random.default_rng(N + n).permutation(N).astype(np.int32)
+    want = np.asarray(_jroll(jnp.asarray(sa_full), jnp.int32(n)))
+    got = tsa.sa_roll_front(torch.from_numpy(sa_full), n)
+    np.testing.assert_array_equal(got.numpy(), want)
+    out = torch.full((N,), -1, dtype=torch.int32)
+    assert tsa.sa_roll_front(torch.from_numpy(sa_full), n, out=out) is out
+    np.testing.assert_array_equal(out.numpy(), want)
 
 
 def test_device_budget_counts_the_allocator_cache(monkeypatch):

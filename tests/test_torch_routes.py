@@ -9,6 +9,7 @@ kinds; the Writer's build rule; the link and round-trip constants;
 ``TPUSS_MERGE_CAP``."""
 
 import collections
+import functools
 import os
 import re
 import subprocess
@@ -26,6 +27,7 @@ from pysubstringsearch_tpu.models.index import DeviceIndex as JIndex
 from pysubstringsearch_tpu.ops import native as jnative
 from pysubstringsearch_tpu.ops import search as jsearch
 from pysubstringsearch_tpu.ops import suffix_array as jsa
+from pysubstringsearch_tpu.parallel import mesh as jmesh
 from pysubstringsearch_tpu_torch import api as tapi
 from pysubstringsearch_tpu_torch import container as tcontainer
 from pysubstringsearch_tpu_torch.models.index import DeviceIndex
@@ -445,14 +447,93 @@ def test_probe_device_parts_edges():
     assert lo.shape == (0, 1)
 
 
-def test_sharded_index_has_no_device_parts():
-    tch, _ = _chunk_pair(_bodies('ranked')[0])
-    s = ShardedIndex(tch, ['cpu', 'cpu'], mode='upload')
-    packed, lengths = tsearch.pack_patterns([b'ab', b'c'])
-    with pytest.raises(NotImplementedError, match='G5'):
-        s.probe_device_parts(packed, lengths)
+@functools.lru_cache(maxsize=None)
+def _jax_sharded_bounds(kind, mode, pats):
+    """(lower, count) int32 [C, B] of the JAX ``DeviceIndex`` with
+    ``sharding=chunk_sharding(mesh)`` on conftest's 8-device CPU mesh, its
+    parts (one a length class) joined by their member indices; called with
+    ``TPUSS_MERGE_CAP`` at ``MERGE_CAP``."""
+    mesh = jmesh.make_mesh()
+    assert mesh.devices.size == 8
+    j = JIndex(_chunk_pair(_bodies(kind)[0])[1], mode=mode,
+               sharding=jmesh.chunk_sharding(mesh))
+    jp, jl = jsearch.pack_patterns(list(pats))
+    lo = np.zeros((j.num_chunks, len(pats)), np.int32)
+    cnt = np.zeros_like(lo)
+    for idx, lo_k, cnt_k in j.probe_device_parts(jp, jl):
+        lo[:, idx] = np.asarray(lo_k)[:, : idx.size]
+        cnt[:, idx] = np.asarray(cnt_k)[:, : idx.size]
+    return lo, cnt
+
+
+@pytest.mark.parametrize('devices', [2, 3])
+@pytest.mark.parametrize('mode', ['derive', 'upload'])
+@pytest.mark.parametrize('kind', KINDS)
+def test_sharded_index_device_parts_match_jax(kind, mode, devices,
+                                              monkeypatch):
+    """``ShardedIndex.probe_device_parts`` over 2 and 3 CPU placements
+    (3 leaves padding rows) returns one part on the first device whose
+    counts equal the JAX sharded index's everywhere and whose lowers equal
+    them where the count is positive; ``probe`` (inherited) equals a
+    one-device ``DeviceIndex.probe`` on the real rows, zeroes the padding
+    rows and, for the raw kind, the NUL patterns."""
+    monkeypatch.setenv('TPUSS_MERGE_CAP', str(MERGE_CAP))
+    bodies, words = _bodies(kind)
+    tch, _ = _chunk_pair(bodies)
+    s = ShardedIndex(tch, ['cpu'] * devices, mode=mode)
+    one = DeviceIndex(tch, device='cpu', mode=mode)
+    real = one.num_chunks
+    assert 'probe' not in vars(ShardedIndex)
+    assert s.num_chunks % devices == 0 and s.num_chunks >= real
+    clean = tuple(words[:10] + [b'', b'\n', bodies[0][-3:] + bodies[1][:3],
+                                bodies[2][100:140], b'~~~~'])
+    nul = [words[0] + b'\x00', b'\x00', b'\n\x00']
+    packed, lengths = tsearch.pack_patterns(list(clean) + nul)
+    parts = s.probe_device_parts(packed, lengths)
+    assert len(parts) == 1
+    members, lo_d, cnt_d = parts[0]
+    np.testing.assert_array_equal(members, np.arange(len(clean) + len(nul)))
+    assert lo_d.device == s.device and lo_d.dtype == torch.int32
+    assert lo_d.shape == cnt_d.shape == (s.num_chunks, len(clean) + len(nul))
+    tlo, tcnt = lo_d.numpy(), cnt_d.numpy()
+    assert not tlo[real:].any() and not tcnt[real:].any()
+    jlo, jcnt = _jax_sharded_bounds(kind, mode, clean)
+    C = max(s.num_chunks, jlo.shape[0])
+    jlo, jcnt, tlo, tcnt = (np.pad(a[:, : len(clean)],
+                                   ((0, C - a.shape[0]), (0, 0)))
+                            for a in (jlo, jcnt, tlo, tcnt))
+    np.testing.assert_array_equal(tcnt, jcnt)
+    hit = jcnt > 0
+    np.testing.assert_array_equal(tlo[hit], jlo[hit])
+    assert hit.sum() > 20
     lo, cnt = s.probe(packed, lengths)
-    assert cnt.shape == (s.num_chunks, 2) and cnt.any()
+    want_lo, want_cnt = one.probe(packed, lengths)
+    np.testing.assert_array_equal(lo[:real], want_lo)
+    np.testing.assert_array_equal(cnt[:real], want_cnt)
+    assert not lo[real:].any() and not cnt[real:].any()
+    keep = slice(0, len(clean)) if kind == 'raw' else slice(None)
+    np.testing.assert_array_equal(cnt[:, keep], cnt_d.numpy()[:, keep])
+    np.testing.assert_array_equal(lo[:, keep], lo_d.numpy()[:, keep])
+    if kind == 'raw':
+        assert not cnt[:, len(clean):].any()
+
+
+def test_sharded_index_device_parts_edges():
+    """No rows, an empty batch and patterns wider than ``n_pad``: one part
+    of zeros [C, B] on the first device, as ``DeviceIndex`` answers."""
+    tch, _ = _chunk_pair(_bodies('ranked')[0])
+    s = ShardedIndex(tch, ['cpu'] * 3, mode='upload')
+    wide = np.zeros((2, s.n_pad + 1), np.uint8)
+    (_, lo, cnt), = s.probe_device_parts(wide, np.array([3, 4], np.int32))
+    assert lo.shape == cnt.shape == (6, 2) and not cnt.any()
+    (_, lo, cnt), = s.probe_device_parts(np.zeros((0, 4), np.uint8),
+                                         np.zeros(0, np.int32))
+    assert lo.shape == (6, 0)
+    empty = ShardedIndex([], ['cpu', 'cpu'], mode='upload')
+    (_, lo, cnt), = empty.probe_device_parts(*tsearch.pack_patterns([b'ab']))
+    assert lo.shape == (0, 1)
+    lo, cnt = empty.probe(*tsearch.pack_patterns([b'ab']))
+    assert lo.shape == cnt.shape == (0, 1)
 
 
 def test_index_mode_env_overrides_argument(corpus, monkeypatch):
