@@ -398,13 +398,27 @@ class Reader:
     def profiler(self) -> PhaseProfiler:
         """Per-phase timings: ``load-container``, ``device-load`` (split
         into :class:`DeviceIndex`'s ``index-*`` phases), ``device-warm``
-        (the warm probe and the round-trip measurement), ``line-tables``,
-        ``host-serve``, ``probe``, ``extract`` (of which, for merged rows,
-        ``x-dev-gather``, the device gather and its readback, and
-        ``x-dev-lines``, the line materialisation, on the device route;
-        ``x-host-probe``, ``x-host-gather``, ``x-host-spans`` and
-        ``x-host-lines``, summed over the source chunks, on the host
-        route)."""
+        (the warm probe and the round-trip measurement), ``line-tables``.
+
+        A query is one ``batch`` (all of :meth:`search_multiple` or
+        :meth:`search`), whose direct children are ``encode`` (the UTF-8
+        encode), ``dedup`` (the map of distinct patterns and the fan-back
+        of their results), ``route`` (the long-pattern split and the tiny
+        batch test), ``pack`` (``pack_patterns``), ``probe`` (of which
+        :class:`DeviceIndex`'s ``probe-upload``, ``probe-kernel``,
+        ``probe-readback`` and, for the raw kind, ``probe-nul``),
+        ``extract``, ``flatten`` (the per-pattern lists joined into one,
+        then freed with the encoded patterns), ``host-serve`` (the host
+        path while the index loads) and ``host-route`` (the tiny batch
+        route and the patterns too long for the device rows).  Under
+        ``extract``, for merged rows, ``x-dev-gather``, the device gather
+        and its readback, and ``x-dev-lines``, the line materialisation,
+        on the device route; ``x-host-probe``, ``x-host-gather``,
+        ``x-host-spans`` and ``x-host-lines``, summed over the source
+        chunks, on the host route; :class:`HostServing`'s ``hs-*`` phases
+        and its ``hs-lines`` counter wherever it answers.  While a
+        ``torch.profiler`` session records on the querying thread, each
+        phase is also a ``record_function`` range in its trace."""
         return self._prof
 
     @property
@@ -477,22 +491,38 @@ class Reader:
         patterns are probed once and their results fanned back out."""
         if not patterns or not self._chunks:
             return [[] for _ in patterns]
-        uniq: typing.Dict[bytes, int] = {}
-        for p in patterns:
-            uniq.setdefault(p, len(uniq))
-        if len(uniq) < len(patterns):
-            uniq_results = self._search_batch(list(uniq))
+        with self._prof.phase('dedup'):
+            uniq: typing.Dict[bytes, int] = {}
+            for p in patterns:
+                uniq.setdefault(p, len(uniq))
+        if len(uniq) == len(patterns):
+            return self._search_distinct(patterns)
+        uniq_results = self._search_distinct(list(uniq))
+        with self._prof.phase('dedup'):
             return [uniq_results[uniq[p]] for p in patterns]
+
+    def _search_distinct(
+        self, patterns: typing.List[bytes]
+    ) -> typing.List[typing.List[str]]:
+        """:meth:`_search_batch` of distinct patterns."""
         if self._bg_thread is not None and not self._device_ready.is_set():
             # Device index still loading: serve from the host path over the
             # container's per-chunk SAs.  (A finished but failed load falls
             # through and raises in ``_index``.)
             with self._prof.phase('host-serve'):
                 return self._search_host_chunks(patterns)
-        long_idx = [
-            i for i, p in enumerate(patterns)
-            if len(p) > search_ops.PAD_MARGIN
-        ]
+        with self._prof.phase('route'):
+            long_idx = [
+                i for i, p in enumerate(patterns)
+                if len(p) > search_ops.PAD_MARGIN
+            ]
+            if not long_idx:
+                idx = self._index
+                # A batch so small that the whole host bisection costs
+                # less than the device probe's fixed round trip.
+                tiny = native_available_for_probe() and (
+                    len(patterns) * max(idx.num_source_chunks, 1)
+                    * HOST_PROBE_UNIT_S < device_rtt_estimate(self.device))
         if long_idx:
             # Patterns beyond the device rows' margin take the exact host
             # path; the rest of the batch still runs on the device.
@@ -502,24 +532,20 @@ class Reader:
             if short_idx:
                 for i, lines in zip(
                     short_idx,
-                    self._search_batch([patterns[i] for i in short_idx]),
+                    self._search_distinct([patterns[i] for i in short_idx]),
                 ):
                     out[i] = lines
-            for i, lines in zip(
-                long_idx,
-                self._search_host_chunks([patterns[i] for i in long_idx]),
-            ):
+            with self._prof.phase('host-route'):
+                long_out = self._search_host_chunks(
+                    [patterns[i] for i in long_idx])
+            for i, lines in zip(long_idx, long_out):
                 out[i] = lines
             return out
-        idx = self._index
-        if native_available_for_probe():
-            # A batch so small that the whole host bisection costs less
-            # than the device probe's fixed round trip.
-            host_est = (len(patterns) * max(idx.num_source_chunks, 1)
-                        * HOST_PROBE_UNIT_S)
-            if host_est < device_rtt_estimate(self.device):
+        if tiny:
+            with self._prof.phase('host-route'):
                 return self._search_host_chunks(patterns)
-        packed, lengths = search_ops.pack_patterns(patterns)
+        with self._prof.phase('pack'):
+            packed, lengths = search_ops.pack_patterns(patterns)
         with self._prof.phase('probe'):
             lo, cnt = idx.probe(packed, lengths)
         hs = self._host_serving
@@ -744,11 +770,23 @@ class Reader:
         return out
 
     def search(self, substring: str) -> typing.List[str]:
-        return self._search_batch([substring.encode('utf-8')])[0]
+        prof = self._prof
+        with prof.phase('batch'):
+            with prof.phase('encode'):
+                pattern = substring.encode('utf-8')
+            return self._search_batch([pattern])[0]
 
     def search_multiple(self, substrings: typing.List[str]) -> typing.List[str]:
-        per_pattern = self._search_batch([s.encode('utf-8') for s in substrings])
-        results: typing.List[str] = []
-        for r in per_pattern:
-            results.extend(r)
-        return results
+        prof = self._prof
+        with prof.phase('batch'):
+            with prof.phase('encode'):
+                patterns = [s.encode('utf-8') for s in substrings]
+            per_pattern = self._search_batch(patterns)
+            with prof.phase('flatten'):
+                results: typing.List[str] = []
+                for r in per_pattern:
+                    results.extend(r)
+                # Released here, not at the return: a 4096-pattern batch's
+                # lists and bytes take about 0.25 ms to free.
+                del per_pattern, patterns
+            return results

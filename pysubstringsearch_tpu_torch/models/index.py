@@ -136,7 +136,15 @@ class DeviceIndex:
         tables); upload adds ``index-host-copy`` (container views into
         aligned host arrays), derive ``index-merge`` (the host
         concatenation of merged rows) and ``index-sa`` (each row's SA
-        build: B1 or B1b and B2, or B10, and B9 after a poisoned B10)."""
+        build: B1 or B1b and B2, or B10, and B9 after a poisoned B10).
+
+        The index keeps ``profiler`` (or its own) for its probes' phases,
+        which nest inside the Reader's ``probe``: ``probe-upload`` (the
+        patterns and lengths to the device), ``probe-kernel`` (the K4 or
+        B11 launch, enqueued only), ``probe-readback`` (the bounds'
+        ``torch.stack`` and the blocking copy to the host, the wait for the
+        kernel included) and, for the raw kind, ``probe-nul`` (the host
+        mask of patterns that hold NUL)."""
         prof = profiler if profiler is not None else PhaseProfiler()
         self._plan(chunks, device, mode, merge, num_limbs, prof)
         self._build(chunks, prof)
@@ -176,6 +184,7 @@ class DeviceIndex:
         mesh."""
         if mode not in ('auto', 'upload', 'derive'):
             raise ValueError(f'unknown DeviceIndex mode: {mode!r}')
+        self._prof = prof
         self.device = torch.device(device)
         self.num_source_chunks = len(chunks)
         # Limb encoding: rank-packed digits for alphabets of at most 62
@@ -405,6 +414,7 @@ class DeviceIndex:
         if meta['kind'] not in ('ranked', 'raw', 'digit'):
             raise ValueError(f"unknown index kind: {meta['kind']!r}")
         self = cls.__new__(cls)
+        self._prof = PhaseProfiler()
         self.mode = meta.get('mode', 'upload')
         self.device = torch.device(device)
         if self.device.type == 'cuda' and not torch.cuda.is_available():
@@ -589,21 +599,23 @@ class DeviceIndex:
             zeros = torch.zeros((self.num_chunks, B), dtype=torch.int32,
                                 device=self.device)
             return [(members, zeros, zeros.clone())]
-        pats_d = torch.as_tensor(np.ascontiguousarray(patterns),
-                                 device=self.device)
-        lens_d = torch.as_tensor(lengths, device=self.device)
-        if self.kind == 'digit':
-            # NUL is digit 1, so the digit kind needs no host check.
-            lo, cnt = search_ops.probe_limbs(
-                self.text, self.lengths, self.sa, self.tables, self.limbs,
-                pats_d, lens_d, self.num_limbs,
-            )
-        else:
-            lo, cnt = search_ops.probe_phased(
-                self.text, self.lengths, self.sa, self.tables, self.limbs,
-                self.rank, self.present, pats_d, lens_d,
-                self.num_limbs, self._base, self._depth, self._bits,
-            )
+        with self._prof.phase('probe-upload'):
+            pats_d = torch.as_tensor(np.ascontiguousarray(patterns),
+                                     device=self.device)
+            lens_d = torch.as_tensor(lengths, device=self.device)
+        with self._prof.phase('probe-kernel'):
+            if self.kind == 'digit':
+                # NUL is digit 1, so the digit kind needs no host check.
+                lo, cnt = search_ops.probe_limbs(
+                    self.text, self.lengths, self.sa, self.tables,
+                    self.limbs, pats_d, lens_d, self.num_limbs,
+                )
+            else:
+                lo, cnt = search_ops.probe_phased(
+                    self.text, self.lengths, self.sa, self.tables,
+                    self.limbs, self.rank, self.present, pats_d, lens_d,
+                    self.num_limbs, self._base, self._depth, self._bits,
+                )
         return [(members, lo, cnt)]
 
     def probe(
@@ -624,15 +636,17 @@ class DeviceIndex:
             return zeros, zeros.copy()
         # One part, every pattern of the batch in order.
         (_, lo_d, cnt_d), = self.probe_device_parts(patterns, lengths)
-        lo, cnt = torch.stack((lo_d, cnt_d)).cpu().numpy()
+        with self._prof.phase('probe-readback'):
+            lo, cnt = torch.stack((lo_d, cnt_d)).cpu().numpy()
         if self.kind == 'raw':
             # NUL-free text cannot contain a pattern with a 0x00 byte, and
             # the raw packing cannot represent one: resolve on the host.
-            jpos = np.arange(patterns.shape[1])[None, :]
-            has_nul = np.any(
-                (patterns == 0) & (jpos < lengths[:, None]), axis=1
-            )
-            if has_nul.any():
-                lo = np.where(has_nul[None, :], 0, lo)
-                cnt = np.where(has_nul[None, :], 0, cnt)
+            with self._prof.phase('probe-nul'):
+                jpos = np.arange(patterns.shape[1])[None, :]
+                has_nul = np.any(
+                    (patterns == 0) & (jpos < lengths[:, None]), axis=1
+                )
+                if has_nul.any():
+                    lo = np.where(has_nul[None, :], 0, lo)
+                    cnt = np.where(has_nul[None, :], 0, cnt)
         return lo, cnt

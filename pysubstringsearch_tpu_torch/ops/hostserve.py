@@ -60,7 +60,12 @@ def pack_patterns_host(
 
 
 class HostServing:
-    """Native probe + extraction over one container's mmap'd chunks."""
+    """Native probe + extraction over one container's mmap'd chunks.
+
+    Its profiler's phases: ``hs-pack`` (:func:`pack_patterns_host` in
+    :meth:`search`), ``hs-probe``, ``hs-spans`` and ``hs-fanout``; its
+    counter: ``hs-lines``, the (pattern, line) pairs each
+    :meth:`fanout` returns."""
 
     @classmethod
     def maybe(
@@ -92,8 +97,10 @@ class HostServing:
 
         from ..utils.profiling import PhaseProfiler
 
-        #: Sub-phase timings (hs-probe / hs-spans / hs-fanout) — shared
-        #: with the owning Reader's profiler when one is passed.
+        #: Sub-phase timings (``hs-pack``, ``hs-probe``, ``hs-spans``,
+        #: ``hs-fanout``) and the counter ``hs-lines`` (the (pattern,
+        #: line) pairs the fan-out made) — shared with the owning
+        #: Reader's profiler when one is passed.
         self.prof = profiler if profiler is not None else PhaseProfiler()
 
         self._ct = ctypes
@@ -196,6 +203,7 @@ class HostServing:
         oc_bc = out_cnt.T.reshape(-1).astype(np.int64)  # (b, c) order
         base_bc = out_base.reshape(C, B).T.reshape(-1)
         total = int(oc_bc.sum())
+        self.prof.count('hs-lines', total)
         out: typing.List[typing.List[str]] = [[] for _ in range(B)]
         if total == 0:
             return out
@@ -258,7 +266,8 @@ class HostServing:
         chunk it matches in)."""
         if not patterns or self.num_chunks == 0:
             return [[] for _ in patterns]
-        packed, lens = pack_patterns_host(patterns)
+        with self.prof.phase('hs-pack'):
+            packed, lens = pack_patterns_host(patterns)
         with self.prof.phase('hs-probe'):
             lo, cnt = self.probe(packed, lens)
         if not cnt.any():  # miss fast path: no extraction state touched
