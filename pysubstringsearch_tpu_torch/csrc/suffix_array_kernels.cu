@@ -350,8 +350,11 @@ __device__ __forceinline__ void status_store(unsigned long long* word,
 
 // Pass `pass` of a sort sorts by the 8-bit digit at `shift`; its skip flag,
 // its tags and the parity of the executed passes before it use `pass`.
+// K is the key's type: uint64_t for every sort but B10's init, whose 25-bit
+// keys take uint32_t (4 bytes a pair less to move, and to hold).
+template <class K>
 __global__ void __launch_bounds__(kThreads)
-onesweep_pass_kernel(uint64_t* kmain, int* vmain, uint64_t* kalt,
+onesweep_pass_kernel(K* kmain, int* vmain, K* kalt,
                      int* valt, long long n, const int* dn, int pass,
                      int shift, const unsigned* __restrict__ bins,
                      const int* __restrict__ skip,
@@ -361,7 +364,7 @@ onesweep_pass_kernel(uint64_t* kmain, int* vmain, uint64_t* kalt,
   __shared__ int s_local[kRadix];  // staged index of each digit's first pair
   __shared__ int s_base[kRadix];   // its output slot minus that index
   __shared__ union {
-    uint64_t keys[kSortTile];
+    K keys[kSortTile];
     int vals[kSortTile];
   } s_stage;
   if (skip[pass]) return;
@@ -370,9 +373,9 @@ onesweep_pass_kernel(uint64_t* kmain, int* vmain, uint64_t* kalt,
     if (n <= 0) return;  // a sort of nothing, or a path not taken
   }
   const bool odd = executed_before(skip, pass) & 1;
-  const uint64_t* __restrict__ kin = odd ? kalt : kmain;
+  const K* __restrict__ kin = odd ? kalt : kmain;
   const int* __restrict__ vin = odd ? valt : vmain;
-  uint64_t* __restrict__ kout = odd ? kmain : kalt;
+  K* __restrict__ kout = odd ? kmain : kalt;
   int* __restrict__ vout = odd ? vmain : valt;
   const int t = threadIdx.x;
   const int lane = t & 31;
@@ -384,7 +387,7 @@ onesweep_pass_kernel(uint64_t* kmain, int* vmain, uint64_t* kalt,
   const long long tile_base = tile * kSortTile;
   if (tile_base >= n) return;  // past a device count: no later tile waits
   const long long warp_base = tile_base + warp * kWarpItems + lane;
-  uint64_t key[kSortItems];
+  K key[kSortItems];
   int val[kSortItems];
   int slot[kSortItems];  // rank within the warp, then the staged index
 #pragma unroll
@@ -460,7 +463,7 @@ onesweep_pass_kernel(uint64_t* kmain, int* vmain, uint64_t* kalt,
   for (int r = 0; r < kSortItems; ++r) {
     const int i = r * kThreads + t;
     if (i < valid_count) {
-      const uint64_t k = s_stage.keys[i];
+      const K k = s_stage.keys[i];
       dst[r] = s_base[(k >> shift) & (kRadix - 1)] + i;
       kout[dst[r]] = k;
     }
@@ -541,9 +544,10 @@ const int* radix_sort_passes(uint64_t* keys, int* vals, long long n,
   int* skip = counters + kMaxPasses;
   onesweep_bins_kernel<<<passes, kThreads, 0, st>>>(s.hist, skip);
   for (int p = 0; p < passes; ++p) {
-    onesweep_pass_kernel<<<static_cast<unsigned>(tiles), kThreads, 0, st>>>(
-        keys, vals, s.keys_alt, s.vals_alt, n, dn, p, kRadixBits * p,
-        s.hist + p * kRadix, skip, s.status, counters + p);
+    onesweep_pass_kernel<uint64_t>
+        <<<static_cast<unsigned>(tiles), kThreads, 0, st>>>(
+            keys, vals, s.keys_alt, s.vals_alt, n, dn, p, kRadixBits * p,
+            s.hist + p * kRadix, skip, s.status, counters + p);
   }
   return skip;
 }
@@ -929,10 +933,11 @@ void blocked_scatter(const int* values, const int* dests, long long n,
   int* skip = counters + kMaxPasses;
   onesweep_bins_kernel<<<kBinPass + 1, kThreads, 0, st>>>(s.hist, skip);
   skip_below_kernel<<<1, 32, 0, st>>>(skip, kBinPass);
-  onesweep_pass_kernel<<<static_cast<unsigned>(tiles), kThreads, 0, st>>>(
-      keys, vals, s.keys_alt, s.vals_alt, n, nullptr, kBinPass,
-      kRadixBits * kBinPass, s.hist + kBinPass * kRadix, skip, s.status,
-      counters + kBinPass);
+  onesweep_pass_kernel<uint64_t>
+      <<<static_cast<unsigned>(tiles), kThreads, 0, st>>>(
+          keys, vals, s.keys_alt, s.vals_alt, n, nullptr, kBinPass,
+          kRadixBits * kBinPass, s.hist + kBinPass * kRadix, skip, s.status,
+          counters + kBinPass);
   // A pass that found one bin leaves the pairs where they were.
   onesweep_fix_kernel<<<grid_for(n) < 4096 ? grid_for(n) : 4096, kThreads, 0,
                         st>>>(keys, vals, s.keys_alt, s.vals_alt, n, nullptr,
@@ -1734,8 +1739,9 @@ void seg_refine(int* sa, int* rank, int* gs, long long N, long long k,
 // their keys (see "The anchored inits' keys"): pad slots i < N - n hold
 // N - 1 - i, every slot up to N - n starts a group, gs is the max-scan of
 // the group starts and rank[sa[i]] = gs[i].  B10's init (pss_sa_init3_bytes,
-// a 25-bit key of 3 byte digits) is the same function on the full path
-// alone: its key has no low bits worth a bucket stage.
+// a 25-bit key of 3 byte digits) is the same function by the full path's
+// steps alone (its key has no low bits worth a bucket stage), on 32-bit
+// keys inside its own outputs (section "B10").
 //
 // A full LSD sort of the 60- or 50-bit keys runs 8 or 7 passes of 12-byte
 // pairs; here the key is split at its top `cut` bits instead:
@@ -1771,7 +1777,7 @@ void seg_refine(int* sa, int* rank, int* gs, long long N, long long k,
 //      bshift) below n and starts there), then stored bin by bin, so that
 //      a bin's stores meet in a few MB of L2.
 // A path not taken costs its launches: each of its kernels reads a device
-// count (ctl) that is 0 for it (B10's init launches no hybrid stage).  Bound by memory: the hybrid path moves
+// count (ctl) that is 0 for it.  Bound by memory: the hybrid path moves
 // 1 + 12 bytes a slot to make the pairs, (cut / 8) x 24 in its top passes,
 // about 40 in the bucket stages (the pairs twice, the bucket starts, sa
 // and gs) and 28 in the rank store, against 12 + 8 + 7 x 24 + 60 for a
@@ -1892,11 +1898,12 @@ __device__ __forceinline__ unsigned sample_bin(uint64_t top, int bits) {
 // counts.  A thread makes the
 // keys of 16 consecutive positions from one text window; they are staged
 // in shared memory (padded a word every 16, so the lanes' stores and loads
-// meet no bank twice) and stored in the pass kernels' striped order.
-template <class Src>
+// meet no bank twice) and stored in the pass kernels' striped order, as K
+// (B10's 25-bit keys as uint32_t).
+template <class Src, class K = uint64_t>
 __global__ void __launch_bounds__(kThreads)
 init_hist_kernel(Src src, long long N, int low, int sets,
-                 uint64_t* __restrict__ keys, int* __restrict__ vals,
+                 K* __restrict__ keys, int* __restrict__ vals,
                  int* __restrict__ samp, int samp_bits,
                  unsigned* __restrict__ hist) {
   __shared__ unsigned counts[kMaxPasses][kRadix];
@@ -1944,7 +1951,7 @@ init_hist_kernel(Src src, long long N, int low, int sets,
       const int e = r * kThreads + t;
       const long long i = base + e;
       if (i < N) {
-        keys[i] = s_keys[e + e / kSortItems];
+        keys[i] = static_cast<K>(s_keys[e + e / kSortItems]);
         vals[i] = static_cast<int>(i);
       }
     }
@@ -1978,12 +1985,11 @@ __global__ void samp_large_kernel(const int* __restrict__ samp,
   if (threadIdx.x == 0 && total) atomicAdd(&ctl[kIEst], total);
 }
 
-// The path: the hybrid one where it may be taken (a hybrid init, not B10's)
-// and the estimate allows it, else the full sort.
-__global__ void init_decide_kernel(int* ctl, long long N, long long n,
-                                   bool may_hybrid) {
+// The path: the hybrid one where the estimate allows it, else the full
+// sort.
+__global__ void init_decide_kernel(int* ctl, long long N, long long n) {
   const long long est = static_cast<long long>(ctl[kIEst]) * kSampleStride;
-  const bool hybrid = may_hybrid && est * kCrossDiv <= n;
+  const bool hybrid = est * kCrossDiv <= n;
   ctl[kIEst] = static_cast<int>(est < INT_MAX ? est : INT_MAX);
   ctl[kIPath] = hybrid ? 1 : 2;
   ctl[kIHybridN] = hybrid ? static_cast<int>(N) : 0;
@@ -2098,6 +2104,26 @@ struct RankBins {
     return c ? (static_cast<unsigned>(b) << shift) + atomicAdd(&cursor[b], c)
              : 0;
   }
+  __device__ bool holds(int) const { return true; }
+};
+
+// B10's rank store in parts: the bins of the positions [lo, hi) alone, bin b
+// holding [lo + (b << shift), lo + ((b + 1) << shift)), so that a part's
+// pairs fill hi - lo places, a fraction of the row.
+struct RankPart {
+  uint64_t* pairs;
+  unsigned* cursor;
+  int shift;
+  int lo;
+  int hi;
+  __device__ unsigned bin(int p) const {
+    return static_cast<unsigned>(p - lo) >> shift;
+  }
+  __device__ unsigned claim(int b, unsigned c) const {
+    return c ? (static_cast<unsigned>(b) << shift) + atomicAdd(&cursor[b], c)
+             : 0;
+  }
+  __device__ bool holds(int p) const { return p >= lo && p < hi; }
 };
 
 // The full path's groups, from the buffers its executed passes left the
@@ -2121,13 +2147,14 @@ __global__ void init_groups_parity_kernel(
 }
 
 // The rank store's pairs (position << 32 | label) of the real slots npad
-// .. N - 1 into their bins, kSortTile slots a block at a time: the tile's
-// pairs are counted by bin, each bin's run claimed once, and the pairs
-// staged in shared memory in bin order, so that neighbouring threads store
-// neighbouring places of a run.
+// .. N - 1 whose position the bins hold (RankBins: all) into their bins,
+// kSortTile slots a block at a time: the tile's pairs are counted by bin,
+// each bin's run claimed once, and the pairs staged in shared memory in bin
+// order, so that neighbouring threads store neighbouring places of a run.
+template <class Bins>
 __global__ void __launch_bounds__(kThreads)
 init_bin_pairs_kernel(const int* __restrict__ sa, const int* __restrict__ gs,
-                      long long N, long long npad, RankBins out) {
+                      long long N, long long npad, Bins out) {
   __shared__ unsigned s_bin[kRadix];  // counts, then each bin's first index
   __shared__ unsigned s_at[kRadix];   // each bin's run in out.pairs
   __shared__ uint64_t s_pairs[kSortTile];
@@ -2141,7 +2168,9 @@ init_bin_pairs_kernel(const int* __restrict__ sa, const int* __restrict__ gs,
 #pragma unroll
     for (int q = 0; q < kSortItems; ++q) {
       const long long i = base + q * kThreads + t;
-      loc[q] = i < N ? atomicAdd(&s_bin[out.bin(sa[i])], 1u) : 0;
+      loc[q] = i < N && out.holds(sa[i])
+                   ? atomicAdd(&s_bin[out.bin(sa[i])], 1u)
+                   : 0;
     }
     __syncthreads();
     const unsigned c = s_bin[t];
@@ -2153,7 +2182,7 @@ init_bin_pairs_kernel(const int* __restrict__ sa, const int* __restrict__ gs,
 #pragma unroll
     for (int q = 0; q < kSortItems; ++q) {
       const long long i = base + q * kThreads + t;
-      if (i < N) {
+      if (i < N && out.holds(sa[i])) {
         const int p = sa[i];
         s_pairs[s_bin[out.bin(p)] + loc[q]] =
             (static_cast<uint64_t>(static_cast<unsigned>(p)) << 32) |
@@ -2199,7 +2228,6 @@ __global__ void rank_store_kernel(const uint64_t* __restrict__ pairs,
 }
 
 struct InitBufs {
-  bool hybrid;     // the hybrid path's buffers are carved (B1, B1b)
   uint64_t* keys;  // the sorts' pairs and their alternates
   int* vals;
   uint64_t* keys_alt;
@@ -2219,9 +2247,8 @@ struct InitBufs {
   int* scan;
 };
 
-InitBufs carve_init(Arena& a, long long N, bool hybrid) {
+InitBufs carve_init(Arena& a, long long N) {
   InitBufs b{};
-  b.hybrid = hybrid;
   b.keys = a.take<uint64_t>(N);
   b.vals = a.take<int>(N);
   b.keys_alt = a.take<uint64_t>(N);
@@ -2232,24 +2259,21 @@ InitBufs carve_init(Arena& a, long long N, bool hybrid) {
   b.cursor = a.take<unsigned>(kRadix);
   b.ctl = a.take<int>(kICtl);
   b.scan = a.take<int>(scan_scratch_elems(N));
-  if (hybrid) {
-    const int bits = bit_length(N) - 6;
-    b.samp_bits = bits < 10 ? 10 : bits > 22 ? 22 : bits;
-    b.samp = a.take<int>(1LL << b.samp_bits);
-    b.cap = cdiv(N, 4);
-    b.lkeys = a.take<uint64_t>(b.cap);
-    b.lvals = a.take<int>(b.cap);
-    b.lslot = a.take<int>(b.cap);
-    b.compact = carve_compact(a, N);
-  }
+  const int bits = bit_length(N) - 6;
+  b.samp_bits = bits < 10 ? 10 : bits > 22 ? 22 : bits;
+  b.samp = a.take<int>(1LL << b.samp_bits);
+  b.cap = cdiv(N, 4);
+  b.lkeys = a.take<uint64_t>(b.cap);
+  b.lvals = a.take<int>(b.cap);
+  b.lslot = a.take<int>(b.cap);
+  b.compact = carve_compact(a, N);
   return b;
 }
 
 // The anchored init of `key_bits`-bit keys made by src, split at the top
-// `cut` bits (see the section's head), on the full path alone unless
-// b.hybrid; stats, when not null, gets int32 [3]: the path taken (1
-// hybrid, 2 full, 3 full after the cap), the estimated large members, the
-// counted ones (0 on the full path).
+// `cut` bits (see the section's head); stats, when not null, gets int32
+// [3]: the path taken (1 hybrid, 2 full, 3 full after the cap), the
+// estimated large members, the counted ones (0 on the full path).
 template <class Src>
 void anchored_init(const Src& src, long long N, long long n, int key_bits,
                    int cut, int* sa, int* rank, int* gs, const InitBufs& b,
@@ -2274,57 +2298,51 @@ void anchored_init(const Src& src, long long N, long long n, int key_bits,
   // 1. the pairs, their top digits' counts, the sampled buckets, the path
   cudaMemsetAsync(b.cursor, 0, sizeof(unsigned) * kRadix, st);
   cudaMemsetAsync(b.ctl, 0, sizeof(int) * kICtl, st);
-  if (b.hybrid) {
-    cudaMemsetAsync(b.status, 0,
-                    sizeof(unsigned long long) * kRadix * tiles, st);
-    cudaMemsetAsync(b.hist, 0, sizeof(unsigned) * kSortCounters, st);
-    cudaMemsetAsync(b.samp, 0, sizeof(int) << b.samp_bits, st);
-  }
+  cudaMemsetAsync(b.status, 0, sizeof(unsigned long long) * kRadix * tiles,
+                  st);
+  cudaMemsetAsync(b.hist, 0, sizeof(unsigned) * kSortCounters, st);
+  cudaMemsetAsync(b.samp, 0, sizeof(int) << b.samp_bits, st);
   init_hist_kernel<<<tiles < kHistBlocks ? static_cast<unsigned>(tiles)
                                          : kHistBlocks,
-                     kThreads, 0, st>>>(src, N, low, b.hybrid ? Q : 0, b.keys,
-                                        b.vals, b.samp, b.samp_bits, b.hist);
-  if (b.hybrid) {
-    onesweep_bins_kernel<<<Q, kThreads, 0, st>>>(b.hist, skip);
-    init_skips_kernel<<<1, 32, 0, st>>>(skip, Q);
-    samp_large_kernel<<<walk_grid(1LL << b.samp_bits), kThreads, 0, st>>>(
-        b.samp, 1LL << b.samp_bits, b.ctl);
-  }
-  init_decide_kernel<<<1, 1, 0, st>>>(b.ctl, N, n, b.hybrid);
+                     kThreads, 0, st>>>(src, N, low, Q, b.keys, b.vals,
+                                        b.samp, b.samp_bits, b.hist);
+  onesweep_bins_kernel<<<Q, kThreads, 0, st>>>(b.hist, skip);
+  init_skips_kernel<<<1, 32, 0, st>>>(skip, Q);
+  samp_large_kernel<<<walk_grid(1LL << b.samp_bits), kThreads, 0, st>>>(
+      b.samp, 1LL << b.samp_bits, b.ctl);
+  init_decide_kernel<<<1, 1, 0, st>>>(b.ctl, N, n);
 
   // 2. the hybrid path: the top passes, then the bucket stages
-  if (b.hybrid) {
-    for (int q = 0; q < Q; ++q) {
-      onesweep_pass_kernel<<<static_cast<unsigned>(tiles), kThreads, 0,
-                             st>>>(b.keys, b.vals, b.keys_alt, b.vals_alt, N,
-                                   hyb_n, q, low + kRadixBits * q,
-                                   b.hist + q * kRadix, skip, b.status,
-                                   counters + q);
-    }
-    // The bucket starts live in rank, which is written last.
-    bucket_starts_kernel<<<walk, kThreads, 0, st>>>(kin, N, npad, low, hyb_n,
-                                                    rank);
-    scan_levels<MaxOp>(rank, rank, N, false, b.scan, st, hyb_n);
-    const InitMembers mem{kin, vin, rank, N, npad, (1ull << low) - 1};
-    int* ml = const_cast<int*>(compact(
-        LargePred<InitMembers>{mem, low, b.lkeys, b.lvals, b.lslot, b.cap}, N,
-        hyb_n, b.compact, st));
-    init_guard_kernel<<<1, 1, 0, st>>>(ml, b.cap, N, b.ctl);
-    launch_seg_small(mem, N, hyb_n, low, out, st);
-    // The large members' sort, its alternates in the sorted pairs' buffers,
-    // which the stages above have read.
-    const Pairs sorted = radix_sort_pairs(
-        b.lkeys, b.lvals, b.cap, low + bit_length((b.cap - 1) >> kSegLogT),
-        SortBufs{kin, vin, b.status, b.lhist}, st, ml);
-    int* first_eq = reinterpret_cast<int*>(sorted.keys == b.lkeys ? kin
-                                                                  : b.lkeys);
-    const unsigned large_grid = walk_grid(b.cap);
-    refine_change_kernel<<<large_grid, kThreads, 0, st>>>(
-        sorted.keys, b.lslot, b.cap, ml, first_eq);
-    scan_levels<MaxOp>(first_eq, first_eq, b.cap, false, b.scan, st, ml);
-    refine_scatter_kernel<<<large_grid, kThreads, 0, st>>>(
-        b.lslot, sorted.vals, first_eq, b.cap, ml, out);
+  for (int q = 0; q < Q; ++q) {
+    onesweep_pass_kernel<uint64_t>
+        <<<static_cast<unsigned>(tiles), kThreads, 0, st>>>(
+            b.keys, b.vals, b.keys_alt, b.vals_alt, N, hyb_n, q,
+            low + kRadixBits * q, b.hist + q * kRadix, skip, b.status,
+            counters + q);
   }
+  // The bucket starts live in rank, which is written last.
+  bucket_starts_kernel<<<walk, kThreads, 0, st>>>(kin, N, npad, low, hyb_n,
+                                                  rank);
+  scan_levels<MaxOp>(rank, rank, N, false, b.scan, st, hyb_n);
+  const InitMembers mem{kin, vin, rank, N, npad, (1ull << low) - 1};
+  int* ml = const_cast<int*>(compact(
+      LargePred<InitMembers>{mem, low, b.lkeys, b.lvals, b.lslot, b.cap}, N,
+      hyb_n, b.compact, st));
+  init_guard_kernel<<<1, 1, 0, st>>>(ml, b.cap, N, b.ctl);
+  launch_seg_small(mem, N, hyb_n, low, out, st);
+  // The large members' sort, its alternates in the sorted pairs' buffers,
+  // which the stages above have read.
+  const Pairs sorted = radix_sort_pairs(
+      b.lkeys, b.lvals, b.cap, low + bit_length((b.cap - 1) >> kSegLogT),
+      SortBufs{kin, vin, b.status, b.lhist}, st, ml);
+  int* first_eq = reinterpret_cast<int*>(sorted.keys == b.lkeys ? kin
+                                                                : b.lkeys);
+  const unsigned large_grid = walk_grid(b.cap);
+  refine_change_kernel<<<large_grid, kThreads, 0, st>>>(
+      sorted.keys, b.lslot, b.cap, ml, first_eq);
+  scan_levels<MaxOp>(first_eq, first_eq, b.cap, false, b.scan, st, ml);
+  refine_scatter_kernel<<<large_grid, kThreads, 0, st>>>(
+      b.lslot, sorted.vals, first_eq, b.cap, ml, out);
 
   // 3. the full path: the sort, the groups (starts in rank), the max-scan
   const int* skip_full = radix_sort_passes(
@@ -2357,8 +2375,9 @@ void anchored_init(const Src& src, long long N, long long n, int key_bits,
 // the JAX derive_sa picks for those rows so that no sort exceeds S = N / 8
 // elements (S/2 = half, W = the window of group starts, S/2).
 //
-// pss_sa_init3_bytes is B1b's full path on a 3-digit key (d0 * 257 + d1) *
-// 257 + d2 < 2^25, so at most 4 radix passes.  One JAX pass is two launches that
+// pss_sa_init3_bytes is the anchored init of a 3-digit key (d0 * 257 + d1) *
+// 257 + d2 < 2^25 on B1b's full path, sorted inside its own outputs (see
+// init3_bytes below).  One JAX pass is two launches that
 // share a device control block ctl int32 [5] = {off, m_w, poisoned,
 // any_tied, nxt}:
 //   - pss_sa_window_scan marks the window at ctl[0]: every tied slot whose
@@ -2398,6 +2417,120 @@ constexpr unsigned kWalkBlocks = 4096;
 unsigned walk_grid(long long n) {
   const unsigned g = grid_for(n);
   return g < kWalkBlocks ? g : kWalkBlocks;
+}
+
+// B10's init sorts inside the three rows it returns, so that its scratch is
+// 4.5 bytes a slot (the part buffer and the status words): its load of a
+// 512 Mi row would otherwise set the Reader's peak, with 64-bit keys and
+// positions in buffers of their own (24.5 bytes a slot).  Its key is below
+// 2^25, a uint32_t, sorted in at most 4 one-sweep passes (a pass whose
+// digit is one for every pair is skipped on the device) between two pair
+// buffers: (keys in rank, positions in sa) and (keys in the scratch's part
+// buffer, positions in gs).  Then
+//   - init3_groups_kernel reads the pairs from the buffers the executed
+//     passes left them in (so the host never learns which), writes sa and
+//     each slot's group start flag into gs, and the max-scan turns gs into
+//     the group starts in place;
+//   - rank[sa[i]] = gs[i] is stored in kRankParts parts: a part bins the
+//     real slots whose positions lie in its share of [0, n), as RankBins
+//     bins the whole row, into the part buffer, whose keys are read by
+//     then, and stores them; the pads are closed-form.
+// Bound by memory: 1 + 8 bytes a slot to make the pairs and count every
+// pass's digits in one read of the text, 16 a pass, 16 for the groups, 8 +
+// the levels for the max-scan, and 8 a part to read sa and gs, with 20 to
+// bin and store the pairs once.
+constexpr int kRankParts = 2;
+static_assert(kRankParts <= 2, "the part buffer holds the alternate keys");
+
+// B10's groups: sa from the positions, gs[i] = i where slot i starts a
+// group (its key differs from slot i - 1's, or i <= npad), else 0.  The
+// positions lie in sa or gs, each slot's read and written by one thread,
+// and the keys in rank or the part buffer, which nothing here writes.
+__global__ void init3_groups_kernel(const int* __restrict__ skip, int passes,
+                                    long long N, long long npad,
+                                    const uint32_t* kpart, const int* rank,
+                                    int* sa, int* gs) {
+  const bool odd = executed_before(skip, passes) & 1;
+  const uint32_t* keys =
+      odd ? kpart : reinterpret_cast<const uint32_t*>(rank);
+  const int* pos = odd ? gs : sa;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < N; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int p = i < npad ? static_cast<int>(N - 1 - i) : pos[i];
+    const bool changed = i <= npad || keys[i] != keys[i - 1];
+    sa[i] = p;
+    gs[i] = changed ? static_cast<int>(i) : 0;
+  }
+}
+
+struct Init3Bufs {
+  uint64_t* part;  // the alternate keys (uint32_t [N]), then a part's pairs
+  unsigned long long* status;
+  unsigned* hist;  // every pass's counts, the pass counters, the skip flags
+  unsigned* cursor;
+  int* scan;
+};
+
+Init3Bufs carve_init3(Arena& a, long long N) {
+  Init3Bufs b;
+  b.part = a.take<uint64_t>(cdiv(N, kRankParts));
+  b.status = a.take<unsigned long long>(kRadix * cdiv(N, kSortTile));
+  b.hist = a.take<unsigned>(kSortCounters);
+  b.cursor = a.take<unsigned>(kRadix);
+  b.scan = a.take<int>(scan_scratch_elems(N));
+  return b;
+}
+
+void init3_bytes(const uint8_t* text, long long N, long long n, int* sa,
+                 int* rank, int* gs, const Init3Bufs& b, cudaStream_t st) {
+  constexpr int P = (kByte3KeyBits + kRadixBits - 1) / kRadixBits;
+  const long long npad = N - n;
+  const long long tiles = cdiv(N, kSortTile);
+  uint32_t* kmain = reinterpret_cast<uint32_t*>(rank);
+  uint32_t* kalt = reinterpret_cast<uint32_t*>(b.part);
+  int* counters = reinterpret_cast<int*>(b.hist + kMaxPasses * kRadix);
+  int* skip = counters + kMaxPasses;
+
+  // 1. the pairs and every pass's digit counts, then the passes
+  cudaMemsetAsync(b.status, 0, sizeof(unsigned long long) * kRadix * tiles,
+                  st);
+  cudaMemsetAsync(b.hist, 0, sizeof(unsigned) * kSortCounters, st);
+  init_hist_kernel<ByteSrc<3>, uint32_t>
+      <<<tiles < kHistBlocks ? static_cast<unsigned>(tiles) : kHistBlocks,
+         kThreads, 0, st>>>(ByteSrc<3>{text, n, nullptr}, N, 0, P, kmain, sa,
+                            nullptr, 0, b.hist);
+  onesweep_bins_kernel<<<P, kThreads, 0, st>>>(b.hist, skip);
+  for (int p = 0; p < P; ++p) {
+    onesweep_pass_kernel<uint32_t>
+        <<<static_cast<unsigned>(tiles), kThreads, 0, st>>>(
+            kmain, sa, kalt, gs, N, nullptr, p, kRadixBits * p,
+            b.hist + p * kRadix, skip, b.status, counters + p);
+  }
+
+  // 2. sa and the group starts
+  init3_groups_kernel<<<walk_grid(N), kThreads, 0, st>>>(skip, P, N, npad,
+                                                         kalt, rank, sa, gs);
+  scan_levels<MaxOp>(gs, gs, N, false, b.scan, st);
+
+  // 3. rank[sa[i]] = gs[i]: the pads closed-form, the real slots by parts
+  init_pads_kernel<<<walk_grid(npad), kThreads, 0, st>>>(N, npad, sa, rank,
+                                                         gs);
+  if (n == 0) return;
+  const long long h = cdiv(n, kRankParts);
+  int shift = 0;  // a part's bins split its h positions by their top 8 bits
+  while ((h - 1) >> (shift + kRadixBits) > 0) ++shift;
+  for (long long lo = 0; lo < n; lo += h) {
+    const long long hi = lo + h < n ? lo + h : n;
+    cudaMemsetAsync(b.cursor, 0, sizeof(unsigned) * kRadix, st);
+    init_bin_pairs_kernel<<<walk_grid(cdiv(N, kSortItems)), kThreads, 0,
+                            st>>>(sa, gs, N, npad,
+                                  RankPart{b.part, b.cursor, shift,
+                                           static_cast<int>(lo),
+                                           static_cast<int>(hi)});
+    rank_store_kernel<<<grid_for(hi - lo), kThreads, 0, st>>>(b.part,
+                                                              hi - lo, rank);
+  }
 }
 
 // The span a window's marked slots lie in: [off, off + L).
@@ -4074,7 +4207,7 @@ int pss_radix_sort_pairs(void* keys, void* vals, long long n, int key_bits,
 
 long long pss_sa_hybrid_scratch_bytes(long long N) {
   Arena a{nullptr, 0};
-  carve_init(a, N, true);
+  carve_init(a, N);
   return static_cast<long long>(a.off);
 }
 
@@ -4091,7 +4224,7 @@ int pss_sa_init_ranked(const void* text, long long N, long long n,
   if (bits != 5 && bits != 6) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Arena a{static_cast<char*>(scratch), 0};
-  const InitBufs b = carve_init(a, N, true);
+  const InitBufs b = carve_init(a, N);
   const uint8_t* t = static_cast<const uint8_t*>(text);
   const int* map = static_cast<const int*>(rank_map);
   int* out[3] = {static_cast<int*>(sa), static_cast<int*>(rank),
@@ -4115,7 +4248,7 @@ int pss_sa_init_bytes(const void* text, long long N, long long n, void* sa,
   if (N <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Arena a{static_cast<char*>(scratch), 0};
-  const InitBufs b = carve_init(a, N, true);
+  const InitBufs b = carve_init(a, N);
   const ByteSrc<6> src{static_cast<const uint8_t*>(text), n, nullptr};
   anchored_init(src, N, n, kByteKeyBits, kCutBytes, static_cast<int*>(sa),
                 static_cast<int*>(rank), static_cast<int*>(gs), b,
@@ -4260,23 +4393,20 @@ int pss_sa_full_round(void* sa, void* rank, long long N, long long k, int W,
 
 long long pss_sa_init_scratch_bytes(long long N) {
   Arena a{nullptr, 0};
-  carve_init(a, N, false);
+  carve_init3(a, N);
   return static_cast<long long>(a.off);
 }
 
 // text uint8 [N] (true length 0 <= n <= N); writes sa, rank, gs int32 [N]
-// of the 3-byte anchored init, on the full path.  Scratch as
+// of the 3-byte anchored init, sorting inside them.  Scratch as
 // pss_sa_init_scratch_bytes(N).
 int pss_sa_init3_bytes(const void* text, long long N, long long n, void* sa,
                        void* rank, void* gs, void* scratch, void* stream) {
   if (N <= 0) return 0;
   Arena a{static_cast<char*>(scratch), 0};
-  const InitBufs b = carve_init(a, N, false);
-  const ByteSrc<3> src{static_cast<const uint8_t*>(text), n, nullptr};
-  anchored_init(src, N, n, kByte3KeyBits, kByte3KeyBits,
-                static_cast<int*>(sa), static_cast<int*>(rank),
-                static_cast<int*>(gs), b, nullptr,
-                static_cast<cudaStream_t>(stream));
+  init3_bytes(static_cast<const uint8_t*>(text), N, n, static_cast<int*>(sa),
+              static_cast<int*>(rank), static_cast<int*>(gs),
+              carve_init3(a, N), static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -528,7 +528,8 @@ def scan_exclusive_sum(x: torch.Tensor) -> torch.Tensor:
 #: H100 80GB HBM3 at 700 W): the digit derive 12.13 GiB above the index for
 #: a 256 Mi-slot row (48.5 bytes a slot, its SA output included), B1b + B2
 #: on one 512 Mi row 23.77 GiB (47.5), B9 after a poisoned B10 18.49 GiB at
-#: 416 Mi (45.5), B10 18.25 GiB at 512 Mi (36.5, ``sa_bench.py``); a round
+#: 416 Mi (45.5), B10 8.25 GiB at 512 Mi (16.5, ``sa_bench.py``: its init,
+#: which sorts inside its outputs, then its passes at 7.64 GiB); a round
 #: over every slot could reach 48.5, and the constant keeps headroom over
 #: it.
 SA_BUILD_BYTES_PER_SLOT = 60
@@ -1142,9 +1143,10 @@ def sa_init3_bytes_plain(text: torch.Tensor, n: int):
 def sa_init3_bytes(text: torch.Tensor, n: int):
     """B10's 3-byte anchored init of a uint8 [N] text row of true length
     ``0 <= n <= N`` (no margin needed): (sa, rank, gs) int32 [N], k covered
-    = 3.  B1b's kernels on the full path alone: one (key, position) radix
-    sort on 25 key bits, its groups and the binned rank store.  Replaces
-    ``_init_round_anchored3``."""
+    = 3.  The full path's steps of B1b: one (key, position) radix sort on
+    25 key bits, its groups and the binned rank store, sorting 32-bit keys
+    inside the three outputs, so that its scratch is about 4.5 bytes a slot
+    (``pss_sa_init_scratch_bytes``).  Replaces ``_init_round_anchored3``."""
     return _init_bytes(text, n, 'sa_init3_bytes', 3)
 
 

@@ -20,7 +20,9 @@ times (``sort_bench.cuda_ms``: the mean of ``REPS`` runs after one warm-up):
 - on ``bench.make_corpus(500)`` as one row padded to 512 Mi slots (cached
   in ``--corpus``): B10's init, its first pass (k = 3, off = 0) from the
   init's state, the whole doubler (wall seconds, passes, peak GiB above
-  what was resident), B1b + B2 on the same row (wall, peak) and B2's round
+  what was resident; ``b10_init_peak_gib`` and ``b10_passes_peak_gib``
+  split that peak between the init and the passes after it, each above
+  the same base), B1b + B2 on the same row (wall, peak) and B2's round
   1 after B1b (k = 6) from a copy of B1b's state.
 
 With ``--inits`` it also times the anchored inits on the rows
@@ -1612,6 +1614,21 @@ def _base(torch, np, SA, S, bench, args, out):
     out['b10_peak_gib'] = (torch.cuda.max_memory_allocated() - base) / 2**30
     out['b10_passes'] = sum(map(len, ties))
     del sa_k
+    torch.cuda.empty_cache()
+    # The same peak split: the init alone, then the passes from its state.
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    first = SA.sa_init3_bytes(text, n)
+    torch.cuda.synchronize()
+    out['b10_init_peak_gib'] = (torch.cuda.max_memory_allocated()
+                                - base) / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    SA._rotating(SA._init6_any, lambda *_: first, SA.sa_window_scan,
+                 SA._window_refine, text, n)
+    torch.cuda.synchronize()
+    out['b10_passes_peak_gib'] = (torch.cuda.max_memory_allocated()
+                                  - base) / 2**30
+    del first
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()

@@ -2311,6 +2311,100 @@ def test_rotating_kernels_on_nul_rows(cuda, case, n, N):
                               suffix_array_native(data))
 
 
+def _init3_row(case, n):
+    """A row for B10's init: bytes below 128 (so no key reaches bit 24),
+    bytes with 254 and 255 among them (keys past 2^24), one symbol, NUL
+    bytes among letters, or any bytes."""
+    rng = np.random.default_rng(n)
+    if case == 'below128':
+        return rng.integers(1, 128, size=n, dtype=np.uint8)
+    if case == 'high':
+        data = rng.integers(0, 256, size=n, dtype=np.uint8)
+        data[::7] = 255
+        data[3::11] = 254
+        return data
+    if case == 'one_symbol':
+        return np.full(n, ord('a'), np.uint8)
+    if case == 'nul':
+        data = rng.integers(97, 123, size=n, dtype=np.uint8)
+        data[::5] = 0
+        return data
+    return rng.integers(0, 256, size=n, dtype=np.uint8)
+
+
+def _init3_passes(text, n):
+    """The one-sweep passes B10's init runs on a row: those whose 8-bit
+    digit of the 3-byte key is not one for every slot (the device skips the
+    others, so the pairs end in the outputs after an even count, in the
+    scratch's keys and gs after an odd one)."""
+    key = SA._byte_key(text.cpu(), n, 3)
+    return sum(int(torch.unique((key >> (8 * p)) & 255).numel() > 1)
+               for p in range(4))
+
+
+#: (case, n, N, executed passes): 3 passes leave the pairs in the scratch's
+#: keys and gs, 0 and 4 in rank and sa; rows of one tile and of many, N off
+#: the 4096-pair tile, n = 0, 1 and N.
+INIT3_CASES = [('below128', 70_000, 1 << 17, 3),
+               ('below128', 3_000_000, 1 << 22, 3),
+               ('high', 70_001, 1 << 17, 4),
+               ('high', 3_000_000, 1 << 22, 4),
+               ('one_symbol', 4096, 4096, 3),
+               ('one_symbol', 1, 1, 0),
+               ('nul', 70_000, 100_003, 3),
+               ('random', 0, 4096, 0),
+               ('random', 0, 1, 0),
+               ('random', 4096, 4096, 4),
+               ('random', 5, 8, 3)]
+
+
+@pytest.mark.parametrize('case, n, N, passes', INIT3_CASES)
+def test_init3_cases_run_their_passes(case, n, N, passes):
+    """Each row of the card test below runs the passes it is listed with,
+    so the cases leave the sorted pairs in both of the init's buffers (no
+    card needed: the count follows from the keys)."""
+    text = torch.zeros(N, dtype=torch.uint8)
+    text[:n] = torch.from_numpy(_init3_row(case, n))
+    assert _init3_passes(text, n) == passes
+
+
+@pytest.mark.parametrize('case, n, N, passes', INIT3_CASES)
+def test_init3_matches_plain_at_every_parity(cuda, case, n, N, passes):
+    """B10's init sorts inside its outputs on 32-bit keys: sa, rank and gs
+    bit for bit against the plain version, whichever buffers the device's
+    skip flags leave the pairs in, with one counted launch."""
+    text = torch.zeros(N, dtype=torch.uint8, device=cuda)
+    text[:n] = torch.from_numpy(_init3_row(case, n))
+    before = kernels.LAUNCHES['sa_init3_bytes']
+    got = SA.sa_init3_bytes(text, n)
+    want = SA.sa_init3_bytes_plain(text.cpu(), n)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES['sa_init3_bytes'] == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_init3_scratch_budget(cuda):
+    """B10's init holds at most 8.5 bytes a slot of scratch beside its three
+    int32 outputs: the sizer at 2^29 slots, and the allocator's peak over
+    one call at 2^26 above what was allocated before it."""
+    assert kernels.library().pss_sa_init_scratch_bytes(1 << 29) <= \
+        8.5 * (1 << 29)
+    N = 1 << 26
+    n = N - 100
+    text = torch.zeros(N, dtype=torch.uint8, device=cuda)
+    text[:n] = torch.from_numpy(_init3_row('high', n))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = SA.sa_init3_bytes(text, n)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    assert peak <= (12 + 8.5) * N + (1 << 20), peak / N
+    assert out[0][N - n:].min().item() == 0  # the real slots hold positions
+
+
 @pytest.mark.parametrize('kind', ['raw', 'digit'])
 def test_big_row_derive_of_raw_and_digit_matches_cpu(cuda, kind,
                                                      monkeypatch):
